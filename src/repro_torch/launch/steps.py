@@ -1,0 +1,58 @@
+"""Step builders (counterpart of ``repro.launch.steps``): the paged serving
+step and its vocab-parallel greedy pick."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.atp import (ATPContext, all_reduce_max, all_reduce_min,
+                                  make_context)
+from repro_torch.core.mesh import MeshTopo, resolve_device
+from repro_torch.models import lm
+
+
+@dataclasses.dataclass
+class StepInfo:
+    ctx: ATPContext
+    device: torch.device
+
+
+def _greedy_pick(ctx: ATPContext, cfg: ModelConfig, logits):
+    """Vocab-parallel greedy argmax.  logits [..., V/d1] -> token ids [...].
+
+    Across ax1 the largest value wins and, among equal values, the lowest
+    global token id (the JAX step's max / min-index rule)."""
+    v_loc = logits.shape[-1]
+    lf = logits.float()
+    local_max, local_arg = lf.max(dim=-1)
+    local_arg = local_arg.to(torch.int32) + ctx.index1() * v_loc
+    if ctx.ax1 is None:
+        return local_arg
+    gmax = all_reduce_max(ctx, local_max.clone(), ctx.ax1)
+    cand = torch.where(local_max >= gmax, local_arg,
+                       torch.full_like(local_arg, 2 ** 30))
+    return all_reduce_min(ctx, cand, ctx.ax1)
+
+
+def build_paged_step(cfg: ModelConfig, topo: MeshTopo, device=None):
+    """The paged cache-write step (decode tick AND prefill chunk).
+
+    Returns ``(step, info)`` with ``step(params, tokens [b, s], start [b],
+    table [b, mp], caches) -> (greedy tokens [b, s], caches)``; ``params``
+    is this rank's shard (``lm.shard_params``) and ``caches`` come from
+    ``lm.init_paged_caches`` and are written in place.  One function serves
+    both shapes (prefill chunk b=1, decode tick b=slots); lengths and
+    positions are runtime data.  A topology of more than one rank needs
+    ``torch.distributed`` initialized with one process per rank."""
+    device = resolve_device(device)
+    ctx = make_context(topo, device_type=device.type)
+
+    @torch.no_grad()
+    def step(params, tokens, start, table, caches):
+        logits, caches = lm.paged_step(ctx, cfg, params, tokens, start, table,
+                                       caches)
+        return _greedy_pick(ctx, cfg, logits), caches
+
+    return step, StepInfo(ctx=ctx, device=device)

@@ -1,0 +1,260 @@
+"""Shared model layers, ATP-sharded (counterpart of ``repro.models.layers``).
+
+Activation convention between blocks (paper Fig. 6): replicated over tp1,
+feature-sharded over tp2 — local shape ``[..., d_model/d2]``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.atp import (ATPContext, all_gather, atp_boundary,
+                                  shard_slice)
+from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------------------
+# Shard cutting: the PartitionSpecs of repro.models.layers as functions that
+# cut this rank's shard out of a global array.  A spec entry names the mesh
+# axis a dim is split over (None: replicated).
+# ---------------------------------------------------------------------------
+
+
+def col_w_spec(ctx: ATPContext):
+    """Column-first weight [K, N]: [Shard(1)@ax1, Shard(0)@ax2]."""
+    return (ctx.ax2, ctx.ax1)
+
+
+def row_w_spec(ctx: ATPContext):
+    """Row-first weight [K, N]: [Shard(0)@ax1, Shard(1)@ax2]."""
+    return (ctx.ax1, ctx.ax2)
+
+
+def col_b_spec(ctx: ATPContext):
+    return (ctx.ax1,)
+
+
+def feat_spec(ctx: ATPContext):
+    """1D feature param (norm scale): sharded like activations (ax2)."""
+    return (ctx.ax2,)
+
+
+def embed_spec(ctx: ATPContext):
+    """Embedding [V, h]: vocab over ax1, features over ax2."""
+    return (ctx.ax1, ctx.ax2)
+
+
+def head_spec(ctx: ATPContext):
+    """LM head [h, V]: rows over ax2, vocab over ax1."""
+    return (ctx.ax2, ctx.ax1)
+
+
+def cut(ctx: ATPContext, x: torch.Tensor, spec, lead: int = 0) -> torch.Tensor:
+    """This rank's shard of global ``x`` under ``spec`` (one entry per dim
+    after ``lead`` unsplit leading dims, e.g. the stacked layer dim).
+    Returns ``x`` itself when nothing is split, else a contiguous copy."""
+    sliced = False
+    for i, axis in enumerate(spec):
+        if axis is None:
+            continue
+        dim = lead + i
+        n = ctx.topo.axis_size(axis)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {axis}={n}")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, ctx.coords[axis] * size, size)
+        sliced = True
+    return x.contiguous() if sliced else x
+
+
+# ---------------------------------------------------------------------------
+# Norms.  The feature dim is ax2-sharded, so the reduction needs one tiny
+# all-reduce over ax2 between the sum of squares and the scale.
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(ctx: ATPContext, x, gamma, eps: float = 1e-6,
+             plus_one: bool = False):
+    g = (1.0 + gamma) if plus_one else gamma
+    if ctx.ax2 is None:
+        return ops.rmsnorm(x, g, eps=eps)
+    if x.is_cuda:
+        raise NotImplementedError(
+            "rms_norm with d2 > 1 on CUDA needs the split partial-sum and "
+            "apply kernels around the all-reduce (ROADMAP A5)")
+    xf = x.float()
+    ss = atp_boundary(ctx, (xf * xf).sum(-1, keepdim=True), ctx.ax2)
+    inv = torch.rsqrt(ss / (x.shape[-1] * ctx.d2) + eps)
+    return (xf * inv * g.float()).to(x.dtype)
+
+
+def layer_norm(ctx: ATPContext, x, gamma, beta, eps: float = 1e-5):
+    xf = x.float()
+    d = x.shape[-1] * ctx.d2
+    mu = atp_boundary(ctx, xf.sum(-1, keepdim=True), ctx.ax2) / d
+    ss = atp_boundary(ctx, ((xf - mu) ** 2).sum(-1, keepdim=True), ctx.ax2)
+    inv = torch.rsqrt(ss / d + eps)
+    return ((xf - mu) * inv * gamma.float() + beta.float()).to(x.dtype)
+
+
+def norm(ctx: ATPContext, cfg: ModelConfig, x, p):
+    if cfg.norm_kind == "layernorm":
+        return layer_norm(ctx, x, p["scale"], p["bias"], cfg.norm_eps)
+    plus_one = cfg.name.startswith("gemma2")
+    return rms_norm(ctx, x, p["scale"], cfg.norm_eps, plus_one=plus_one)
+
+
+def norm_params(cfg: ModelConfig, d: int):
+    if cfg.norm_kind == "layernorm":
+        return {"scale": torch.ones(d), "bias": torch.zeros(d)}
+    init = torch.zeros if cfg.name.startswith("gemma2") else torch.ones
+    return {"scale": init(d)}
+
+
+# ---------------------------------------------------------------------------
+# RoPE (split-half convention).
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(hd: int, theta: float, device=None):
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [b, s, heads, hd]; positions: [b, s] int."""
+    hd = x.shape[-1]
+    ang = positions[..., None].float() * rope_freqs(hd, theta, x.device)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention sharding plan.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnPlan:
+    """Static plan for sharding the attention core over d1*d2 flat ranks.
+
+    g          : number of head blocks (ranks holding distinct q heads)
+    q_loc      : q heads per block
+    r          : leftover rank factor (redundant compute in decode)
+    q_regroup  : q must be all-gathered over ax1 (Hq % d1 != 0)
+    kv_regroup : k/v must be all-gathered over ax1 (KV % d1 != 0)
+    """
+
+    g: int
+    q_loc: int
+    r: int
+    h2: int
+    q_regroup: bool
+    kv_regroup: bool
+    kv_count: int
+    ratio: int  # q heads per kv head
+
+
+def make_attn_plan(ctx: ATPContext, num_heads: int, num_kv: int) -> AttnPlan:
+    n, d1, d2 = ctx.tp, ctx.d1, ctx.d2
+    q_regroup = num_heads % d1 != 0
+    if q_regroup:
+        g = math.gcd(num_heads, n)
+        h2 = 1
+    else:
+        h2 = math.gcd(num_heads // d1, d2)
+        g = d1 * h2
+    q_loc = num_heads // g
+    r = n // g
+    ratio = max(1, num_heads // num_kv)
+    kv_count = max(1, q_loc // ratio)
+    kv_regroup = num_kv % d1 != 0
+    return AttnPlan(g=g, q_loc=q_loc, r=r, h2=h2, q_regroup=q_regroup,
+                    kv_regroup=kv_regroup, kv_count=kv_count, ratio=ratio)
+
+
+def _block_and_r_index(ctx: ATPContext, plan: AttnPlan) -> tuple[int, int]:
+    """(head-block id, r-index) for this rank."""
+    if plan.q_regroup:
+        i = ctx.tp_index()
+        return i // plan.r, i % plan.r
+    i2 = ctx.index2()
+    return ctx.index1() * plan.h2 + i2 // plan.r, i2 % plan.r
+
+
+def split_qkv_heads(ctx: ATPContext, cfg: ModelConfig, qp, kp, vp,
+                    plan: AttnPlan):
+    """qp/kp/vp: per-part GEMM outputs, each ``[..., part_dim/d1]``
+    ax1-sharded and ax2-replicated.
+
+    Returns this core rank's (q [b,s,q_loc,hd], k/v [b,s,kv_count,hd],
+    block id, r index)."""
+    hd, d1 = cfg.hd, ctx.d1
+    bid, rid = _block_and_r_index(ctx, plan)
+
+    if plan.q_regroup:
+        q = all_gather(ctx, qp, ctx.ax1, dim=-1) if ctx.ax1 else qp
+        q = q.reshape(q.shape[:-1] + (cfg.num_heads, hd))
+        q = q.narrow(-2, bid * plan.q_loc, plan.q_loc)
+    else:
+        q = qp.reshape(qp.shape[:-1] + (cfg.num_heads // d1, hd))
+        sub = (bid % plan.h2) if plan.h2 > 1 else 0
+        q = q.narrow(-2, sub * plan.q_loc, plan.q_loc)
+
+    if plan.kv_regroup:
+        k = all_gather(ctx, kp, ctx.ax1, dim=-1) if ctx.ax1 else kp
+        v = all_gather(ctx, vp, ctx.ax1, dim=-1) if ctx.ax1 else vp
+        k = k.reshape(k.shape[:-1] + (cfg.num_kv_heads, hd))
+        v = v.reshape(v.shape[:-1] + (cfg.num_kv_heads, hd))
+        kv_start = (bid * plan.q_loc) // plan.ratio
+    else:
+        k = kp.reshape(kp.shape[:-1] + (cfg.num_kv_heads // d1, hd))
+        v = vp.reshape(vp.shape[:-1] + (cfg.num_kv_heads // d1, hd))
+        local_q_start = (bid % plan.h2) * plan.q_loc if plan.h2 > 1 else 0
+        kv_start = local_q_start // plan.ratio
+    k = k.narrow(-2, kv_start, plan.kv_count)
+    v = v.narrow(-2, kv_start, plan.kv_count)
+    return q, k, v, bid, rid
+
+
+def core_output_gather(ctx: ATPContext, cfg: ModelConfig, o, plan: AttnPlan):
+    """o: [b, s, q_loc, hd] decode core output -> [b, s, q_dim/d1],
+    ax2-replicated.  In decode the r leftover ranks hold redundant copies,
+    so one copy per head block is kept."""
+    b, s = o.shape[:2]
+    o = o.reshape(b, s, plan.q_loc * cfg.hd)
+    if ctx.tp == 1:
+        return o
+    if plan.q_regroup:
+        gathered = all_gather(ctx, o, ctx.tp_axes, dim=0, tiled=False)
+        # entries ordered by flat index = bid * r + rid
+        gathered = gathered.reshape((plan.g, plan.r) + o.shape)[:, 0]
+        # heads: [g, b, s, F] -> [b, s, g*F], then this rank's ax1 part
+        full = gathered.permute(1, 2, 0, 3).reshape(b, s, plan.g * o.shape[2])
+        return shard_slice(full, ctx.index1(), ctx.d1, dim=2)
+    if ctx.ax2 is None:
+        return o
+    gathered = all_gather(ctx, o, ctx.ax2, dim=0, tiled=False)  # [d2, b, s, F]
+    gathered = gathered.reshape((plan.h2, plan.r) + o.shape)[:, 0]
+    return gathered.permute(1, 2, 0, 3).reshape(b, s, plan.h2 * o.shape[2])
+
+
+# ---------------------------------------------------------------------------
+# Attention core.
+# ---------------------------------------------------------------------------
+
+
+def attention_core(cfg: ModelConfig, q, k, v, q_offset, kv_len,
+                   window: int = 0):
+    """q: [b, sq, hq, hd]; k/v: [b, skv, hkv, hd]; q_offset/kv_len [b].
+
+    Causal attention at per-row offsets and lengths through the
+    flash-attention kernel (plain version on the CPU): query row i of batch
+    row b sits at ``q_offset[b] + i`` and sees keys ``< kv_len[b]``."""
+    return ops.flash_attention(q, k, v, q_offset, kv_len, causal=True,
+                               window=window, softcap=cfg.attn_softcap)

@@ -1,0 +1,178 @@
+"""Dense transformer block with ATP row/column-first tensor parallelism
+(counterpart of ``repro.models.transformer``), paged serving path.
+
+Per-block communication schedule (paper Fig. 6):
+  f1: all-reduce(ax2) after the column-first fused q/k/v projection
+  f2: all-reduce(ax1) after the row-first output projection
+  f3: all-reduce(ax2) after the column-first fused up+gate projection
+  f4: all-reduce(ax1) after the row-first down projection
+
+The fused weights (``w_qkv`` = this rank's wq|wk|wv shards, ``w_upgate`` =
+w_up|w_gate) are concatenated once, when parameters are sharded
+(``lm.shard_params``), in the order the JAX block concatenates its local
+shards on every call.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.atp import ATPContext, atp_linear
+from repro_torch.models import layers as L
+from repro_torch.models import paging
+
+
+def _normal(gen, shape, scale, dtype, device):
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device) * scale).to(dtype)
+
+
+def attn_params(gen, cfg: ModelConfig, dtype, device) -> dict:
+    h, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    s = 1.0 / math.sqrt(h)
+    p = {
+        "wq": _normal(gen, (h, qd), s, dtype, device),
+        "wk": _normal(gen, (h, kvd), s, dtype, device),
+        "wv": _normal(gen, (h, kvd), s, dtype, device),
+        "wo": _normal(gen, (qd, h), 1.0 / math.sqrt(qd), dtype, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(qd, dtype=dtype, device=device)
+        p["bk"] = torch.zeros(kvd, dtype=dtype, device=device)
+        p["bv"] = torch.zeros(kvd, dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(cfg.hd, device=device)
+        p["k_norm"] = torch.ones(cfg.hd, device=device)
+    return p
+
+
+def mlp_params(gen, cfg: ModelConfig, dtype, device) -> dict:
+    h, ff = cfg.d_model, cfg.d_ff
+    s = 1.0 / math.sqrt(h)
+    p = {"w_up": _normal(gen, (h, ff), s, dtype, device),
+         "w_down": _normal(gen, (ff, h), 1.0 / math.sqrt(ff), dtype, device)}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        p["w_gate"] = _normal(gen, (h, ff), s, dtype, device)
+    return p
+
+
+def dense_block_params(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """One block's global params, with the JAX block's keys and
+    distributions (norm params created at global size, sharded later)."""
+    def nrm():
+        return {k: v.to(device) for k, v in
+                L.norm_params(cfg, cfg.d_model).items()}
+
+    p = {"ln_attn": nrm(), "attn": attn_params(gen, cfg, dtype, device),
+         "ln_mlp": nrm(), "mlp": mlp_params(gen, cfg, dtype, device)}
+    if cfg.post_block_norms:
+        p["ln_post_attn"] = nrm()
+        p["ln_post_mlp"] = nrm()
+    return p
+
+
+def shard_dense_block(ctx: ATPContext, cfg: ModelConfig, p: dict,
+                      lead: int = 1) -> dict:
+    """This rank's shard of a (layer-stacked) dense block, with the q/k/v
+    and up/gate weights fused per rank.  Pops the global leaves it consumed
+    from ``p`` so their memory can go as soon as the fused copy exists."""
+    cut = L.cut
+    nspec = L.feat_spec(ctx)
+    out = {}
+    for name in ("ln_attn", "ln_mlp", "ln_post_attn", "ln_post_mlp"):
+        if name in p:
+            out[name] = {k: cut(ctx, v, nspec, lead) for k, v in p.pop(name).items()}
+    a = p.pop("attn")
+    col = L.col_w_spec(ctx)
+    attn = {"w_qkv": torch.cat([cut(ctx, a.pop(k), col, lead)
+                                for k in ("wq", "wk", "wv")], dim=-1),
+            "wo": cut(ctx, a.pop("wo"), L.row_w_spec(ctx), lead)}
+    if cfg.qkv_bias:
+        attn["b_qkv"] = torch.cat([cut(ctx, a.pop(k), L.col_b_spec(ctx), lead)
+                                   for k in ("bq", "bk", "bv")], dim=-1)
+    if cfg.qk_norm:
+        attn["q_norm"], attn["k_norm"] = a.pop("q_norm"), a.pop("k_norm")
+    out["attn"] = attn
+    m = p.pop("mlp")
+    mlp = {"w_down": cut(ctx, m.pop("w_down"), L.row_w_spec(ctx), lead)}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        mlp["w_upgate"] = torch.cat([cut(ctx, m.pop(k), col, lead)
+                                     for k in ("w_up", "w_gate")], dim=-1)
+    else:
+        mlp["w_up"] = cut(ctx, m.pop("w_up"), col, lead)
+    out["mlp"] = mlp
+    return out
+
+
+def mlp_block(ctx: ATPContext, cfg: ModelConfig, p, x):
+    """Feed-forward with column-first up(+gate), row-first down (f3/f4)."""
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        # one column-first GEMM for up+gate and a single f3 boundary; the
+        # activation applies to the gate half only, so it stays outside
+        # the GEMM's epilogue
+        u, g = atp_linear(ctx, x, p["w_upgate"], kind="col").chunk(2, dim=-1)
+        act = F.silu(g) if cfg.mlp_kind == "swiglu" else F.gelu(g, approximate="tanh")
+        y = u * act
+    else:
+        y = atp_linear(ctx, x, p["w_up"], kind="col", activation="gelu")
+    return atp_linear(ctx, y, p["w_down"], kind="row")
+
+
+def _qk_norm(q, gamma, eps):
+    qf = q.float()
+    inv = torch.rsqrt(qf.pow(2).mean(-1, keepdim=True) + eps)
+    return (qf * inv * gamma.float()).to(q.dtype)
+
+
+def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
+               plan: L.AttnPlan, layer_window: int, cache: dict, paged: dict):
+    """Paged attention.  x [b, s, h/d2]; positions [b, s]; cache holds this
+    layer's k/v pools [num_pages, page, kv_count, hd]; paged carries the
+    page-table rows ``table [b, mp]`` and per-slot ``start [b]``.
+    Returns the block output [b, s, h/d2]; the pools are written in place."""
+    # f1: fused q/k/v projection, one boundary over ax2; the bias follows
+    # the boundary (fused into the GEMM's epilogue when ax2 is size 1)
+    qkv = atp_linear(ctx, x, p["w_qkv"], p.get("b_qkv"), kind="col",
+                     chunked=False)
+    qd, kvd = cfg.q_dim // ctx.d1, cfg.kv_dim // ctx.d1
+    qp, kp, vp = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
+    q, k, v, _, _ = L.split_qkv_heads(ctx, cfg, qp, kp, vp, plan)
+    if cfg.qk_norm:
+        q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
+        k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.mrope_sections:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is ROADMAP A10")
+    if cfg.use_rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    # scatter this run's k/v through the slot page tables, then attend over
+    # each slot's mapped pages (garbage-page reads are masked by start + s)
+    table, start = paged["table"], paged["start"]
+    paging.append_tokens(cache["k"], table, start, k)
+    paging.append_tokens(cache["v"], table, start, v)
+    kk = paging.gather_pages(cache["k"], table)
+    vv = paging.gather_pages(cache["v"], table)
+    o = L.attention_core(cfg, q, kk, vv, q_offset=start,
+                         kv_len=start + q.shape[1], window=layer_window)
+    o = L.core_output_gather(ctx, cfg, o, plan)
+    # f2: row-first output projection, boundary over ax1
+    return atp_linear(ctx, o, p["wo"], kind="row")
+
+
+def dense_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions, plan,
+                layer_window: int, cache: dict, paged: dict):
+    h = L.norm(ctx, cfg, x, p["ln_attn"])
+    a = attn_block(ctx, cfg, p["attn"], h, positions, plan, layer_window,
+                   cache, paged)
+    if cfg.post_block_norms:
+        a = L.norm(ctx, cfg, a, p["ln_post_attn"])
+    x = x + a
+    h = L.norm(ctx, cfg, x, p["ln_mlp"])
+    m = mlp_block(ctx, cfg, p["mlp"], h)
+    if cfg.post_block_norms:
+        m = L.norm(ctx, cfg, m, p["ln_post_mlp"])
+    return x + m

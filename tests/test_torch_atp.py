@@ -1,0 +1,140 @@
+"""The port's ATP mesh against the JAX package on one device.
+
+Four gloo ranks on the CPU (one process each, joined through a file store
+under ``tmp_path``: the suite runs under xdist, so no fixed TCP port) run
+the port's ``lm.paged_step`` on their shards of the same JAX weights: two
+prefill chunks of one slot, one of another, then two decode ticks of both.
+ATP is dense math, so the logits gathered over tp1 must match the JAX
+single-device logits within 1e-4 (fp32; summation order differs), and the
+vocab-parallel greedy pick must be their argmax.
+
+(1, 2, 2) exercises the tp2 boundaries, the sharded norms and, with
+chunks=2, the chunked boundary GEMMs; (1, 4, 1) the k/v all-gather over
+tp1 (two kv heads on four ranks: ``kv_regroup``); qwen1.5 the qkv bias
+added after the boundary.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+from repro.configs.registry import get_config  # noqa: E402
+from repro.core.atp import make_context  # noqa: E402
+from repro.core.compat import shard_map  # noqa: E402
+from repro.core.mesh import MeshTopo  # noqa: E402
+from repro.models import lm  # noqa: E402
+from repro.models.paging import PagedConfig as JaxPagedConfig  # noqa: E402
+from repro_torch.models.paging import PageAllocator, PagedConfig  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+ROOT = Path(__file__).resolve().parents[1]
+WORKER = Path(__file__).resolve().parent / "_torch_atp_worker.py"
+PAGED = dict(page_size=4, num_pages=16, pages_per_slot=4)
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _calls(vocab):
+    """(tokens, start, table) of each step: slot 0 prefills 8 tokens in
+    two chunks, slot 1 prefills 4, then both decode two ticks."""
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, vocab, (2, 10), dtype=np.int32)
+    alloc = PageAllocator(PagedConfig(**PAGED), slots=2)
+    alloc.ensure(0, 10)
+    alloc.ensure(1, 6)
+    table = alloc.table()
+    calls = [(toks[0:1, 0:4], [0], table[0:1]),
+             (toks[0:1, 4:8], [4], table[0:1]),
+             (toks[1:2, 0:4], [0], table[1:2]),
+             (toks[:, [8]], [8, 4], table),
+             (toks[:, [9]], [9, 5], table)]
+    return [(t, np.asarray(s, np.int32), tb) for t, s, tb in calls]
+
+
+def _jax_logits(cfg, params, calls):
+    topo = MeshTopo((("data", 1),))
+    ctx = make_context(topo)
+
+    def step(p, tok, start, table, caches):
+        return lm.paged_step(ctx, cfg, p, tok, start, table, caches)
+
+    g = jax.jit(shard_map(step, mesh=topo.build(jax.devices()[:1]),
+                          in_specs=(P(),) * 5, out_specs=(P(), P()),
+                          check_vma=True))
+    caches, _ = lm.init_paged_caches(cfg, ctx, JaxPagedConfig(**PAGED),
+                                     dtype=jnp.float32)
+    out = []
+    for tok, start, table in calls:
+        logits, caches = g(params, tok, start, table, caches)
+        out.append(np.asarray(logits))
+    return out
+
+
+@pytest.mark.parametrize("arch,mesh,chunks", [
+    ("llama3-8b", (1, 2, 2), 2),
+    ("llama3-8b", (1, 4, 1), 1),
+    ("qwen1.5-0.5b", (1, 2, 2), 1),
+])
+def test_gloo_mesh_paged_step_matches_jax_single_device(tmp_path, arch, mesh,
+                                                        chunks):
+    cfg = get_config(arch).reduced()
+    params = lm.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
+    if cfg.qkv_bias:  # zero at init: give the bias path something to add
+        rng = np.random.default_rng(1)
+        attn = params["seg0"]["attn"]
+        for k in ("bq", "bk", "bv"):
+            attn[k] = jnp.asarray(rng.normal(size=attn[k].shape) * 0.1,
+                                  jnp.float32)
+    calls = _calls(cfg.vocab_size)
+    want = _jax_logits(cfg, params, calls)
+
+    np.savez(tmp_path / "params.npz", **_flatten(params))
+    np.savez(tmp_path / "calls.npz", **{
+        f"{name}{i}": arr for i, c in enumerate(calls)
+        for name, arr in zip(("tokens", "start", "table"), c)})
+    (tmp_path / "case.json").write_text(json.dumps(dict(
+        arch=arch, mesh=mesh, chunks=chunks, paged=PAGED, calls=len(calls))))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    world = int(np.prod(mesh))
+    procs = [subprocess.Popen([sys.executable, str(WORKER), str(r),
+                               str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:  # a rank that died leaves the others waiting in a collective
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log}"
+
+    _, d1, d2 = mesh
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
+    for i, ref in enumerate(want):
+        # local logits [b, s, V/d1]: vocab over tp1, replicated over tp2
+        for i2 in range(d2):
+            got = np.concatenate([ranks[i1 * d2 + i2][f"logits{i}"]
+                                  for i1 in range(d1)], axis=-1)
+            np.testing.assert_allclose(got, ref, **TOL,
+                                       err_msg=f"call {i} tp2 rank {i2}")
+        for r in range(world):
+            np.testing.assert_array_equal(ranks[r][f"pick{i}"],
+                                          ref.argmax(-1))

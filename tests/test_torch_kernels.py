@@ -1,0 +1,176 @@
+"""The port's kernel wrappers against the JAX package's Pallas kernels.
+
+On the CPU each wrapper in ``repro_torch.kernels.ops`` takes its plain
+version (``repro_torch.kernels.ref``); those are held here against the
+Pallas kernels run in interpret mode (as ``tests/test_kernels.py`` runs
+them) and against ``repro.kernels.ref``, on the same numpy-made inputs.
+fp32 tolerance 1e-4: only the order of summation differs.
+
+``test_torch_cuda.py`` holds the hand-written kernels themselves against
+these plain versions on the card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import get_config  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.models import layers as jax_layers  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _randn(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+# ---------------------------------------------------------------------------
+# matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n,act,bias", [
+    (37, 100, 77, None, False),    # ragged M, N and K
+    (37, 100, 77, "gelu", True),
+    (5, 136, 200, "silu", True),   # decode-sized M
+    (64, 128, 96, None, True),
+])
+def test_matmul_plain_matches_pallas(m, k, n, act, bias):
+    rng = np.random.default_rng(m * 1000 + n)
+    a, b = _randn(rng, m, k), _randn(rng, k, n, scale=k ** -0.5)
+    bv = _randn(rng, n) if bias else None
+    want = jax_ops.matmul(jnp.asarray(a), jnp.asarray(b),
+                          None if bv is None else jnp.asarray(bv),
+                          activation=act, block_m=32, block_n=64, block_k=64,
+                          interpret=True)
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(b),
+                     None if bv is None else torch.from_numpy(bv),
+                     activation=act)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    if not bias:
+        np.testing.assert_allclose(
+            _np(got), np.asarray(jax_ref.matmul_ref(a, b, activation=act)),
+            **TOL)
+
+
+def test_matmul_reads_a_transposed_weight_and_counts_no_cpu_launch():
+    """A tied head passes the embedding transposed (a view, no copy); on
+    the CPU the plain version runs and no kernel launch is counted."""
+    rng = np.random.default_rng(0)
+    a, emb = _randn(rng, 6, 32), _randn(rng, 50, 32)
+    ops.reset_launches()
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(emb).t())
+    np.testing.assert_allclose(_np(got), a @ emb.T, **TOL)
+    assert ops.LAUNCHES == {"matmul": 0, "flash_attention": 0, "rmsnorm": 0}
+    with pytest.raises(ValueError, match="activation"):
+        ops.matmul(torch.from_numpy(a), torch.from_numpy(emb).t(),
+                   activation="relu")
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows,h,dtype", [(37, 128, "float32"),
+                                          (4, 512, "float32"),
+                                          (37, 128, "bfloat16")])
+def test_rmsnorm_plain_matches_pallas(rows, h, dtype):
+    rng = np.random.default_rng(rows + h)
+    x, g = _randn(rng, rows, h), _randn(rng, h)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    want = np.asarray(jax_ops.rmsnorm(jx, jnp.asarray(g), eps=1e-5,
+                                      block_rows=16, interpret=True),
+                      np.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = _np(ops.rmsnorm(tx, torch.from_numpy(g), eps=1e-5))
+    # bf16: both sides compute in fp32 and round once; allow one bf16 ulp
+    tol = TOL if dtype == "float32" else dict(rtol=8e-3, atol=1e-6)
+    np.testing.assert_allclose(got, want, **tol)
+    np.testing.assert_allclose(
+        got, np.asarray(jax_ref.rmsnorm_ref(jx, jnp.asarray(g), 1e-5),
+                        np.float32), **tol)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+def _qkv(rng, b, sq, sk, hq, hkv, d):
+    return (_randn(rng, b, sq, hq, d), _randn(rng, b, sk, hkv, d),
+            _randn(rng, b, sk, hkv, d))
+
+
+@pytest.mark.parametrize("sq,sk,hq,hkv,causal,window,softcap", [
+    (48, 48, 4, 2, True, 0, 0.0),      # GQA, causal
+    (40, 40, 2, 2, True, 16, 0.0),     # sliding window
+    (40, 40, 4, 1, True, 0, 30.0),     # tanh softcap, GQA 4:1
+    (24, 40, 2, 2, False, 0, 0.0),     # kv longer than q, padded kv tile
+])
+def test_flash_attention_plain_matches_pallas(sq, sk, hq, hkv, causal, window,
+                                              softcap):
+    """The Pallas kernel is the special case q_offset = 0, kv_len = sk; its
+    kv padding (sk not a multiple of block_k) masks ``kpos < sk``."""
+    b, d = 2, 32
+    rng = np.random.default_rng(sq * 7 + sk)
+    q, k, v = _qkv(rng, b, sq, sk, hq, hkv, d)
+    want = jax_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal,
+                                   window=window, softcap=softcap, block_q=16,
+                                   block_k=32, interpret=True)
+    zeros = torch.zeros(b, dtype=torch.int32)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), zeros,
+                              torch.full((b,), sk, dtype=torch.int32),
+                              causal=causal, window=window, softcap=softcap)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("arch,window", [("llama3-8b", 0),
+                                         ("gemma2-2b", 0),   # softcap
+                                         ("gemma2-2b", 12)])  # + window
+def test_flash_attention_offsets_match_attention_core(arch, window):
+    """Per-slot ``q_offset [b]`` and ``kv_len [b]`` (a prefill chunk at an
+    offset, a decode row, a short slot) against the JAX model's own
+    ``attention_core``, which is what the paged path computes."""
+    cfg = get_config(arch).reduced()
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    b, sq, sk = 3, 8, 40
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, b, sq, sk, hq, hkv, d)
+    q_off = np.array([0, 17, 30], np.int32)
+    kv_len = q_off + sq
+    kv_len[2] = 33  # a slot whose last rows see keys only up to 32
+    want = jax_layers.attention_core(cfg, jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(q_off),
+                                     kv_len=jnp.asarray(kv_len),
+                                     window=window)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), torch.from_numpy(q_off),
+                              torch.from_numpy(kv_len), window=window,
+                              softcap=cfg.attn_softcap)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+def test_flash_attention_fully_masked_rows_are_zero():
+    """The kernel's rule for a row that sees no key (kv_len 0): zeros, not
+    NaN.  Pallas clamps its denominator the same way."""
+    rng = np.random.default_rng(4)
+    q, k, v = _qkv(rng, 2, 3, 8, 2, 1, 16)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v),
+                              torch.tensor([0, 2], dtype=torch.int32),
+                              torch.tensor([0, 8], dtype=torch.int32))
+    assert torch.isfinite(got).all()
+    assert float(got[0].abs().max()) == 0.0
+    assert float(got[1].abs().max()) > 0.0
