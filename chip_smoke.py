@@ -7,11 +7,12 @@ Phases, in order, each failing the run on any error:
 
 1. kernels -- build the CUDA kernels from ``src/repro_torch/kernels/csrc``
    with nvcc (the Triton kernel compiles on its first launch), then call each
-   kernel at the shapes the llama3-8b serving path gives it and hold it
-   against its plain PyTorch version on the same inputs, with the tolerance
-   stated beside each check.  Times the kernel, its plain version, one
-   library call for the same function (a yardstick the port never calls),
-   and computes the least time the card could take (the bound).
+   kernel at the shapes the llama3-8b and the zamba2-7b serving paths give
+   it and hold it against its plain PyTorch version on the same inputs,
+   with the tolerance stated beside each check.  Times the kernel, its
+   plain version, one library call for the same function where there is one
+   (a yardstick the port never calls), and computes the least time the card
+   could take (the bound).
 2. serve-llama -- llama3-8b at full width and depth, random bf16 weights from
    a seed, through ``launch.serve.make_paged_server``: 8 requests of seeded
    prompt lengths in 64-256, 16 new tokens each, 4 slots, prefill chunk 64,
@@ -25,9 +26,24 @@ Phases, in order, each failing the run on any error:
    (``PATH_TOL``), and the top-1 agreement is reported.
 4. serve-qwen -- qwen1.5-0.5b at full size (qkv bias in the matmul
    epilogue, the head tied to the embedding), 4 requests.
+5. serve-zamba -- zamba2-7b at full width and all 81 layers (13 super-blocks
+   of shared attention + 5 Mamba2 blocks, and 3 tail Mamba2 blocks), random
+   bf16 weights from a seed, in the server's recurrent mode: 4 requests of
+   seeded prompt lengths in 64-256, 16 new tokens each, 4 slots, prefill
+   chunk 64, page size 16.  Launch counts as in phase 2, at 283 matmul, 95
+   rmsnorm, 13 flash_attention and 68 ssd_scan per step.  This is the
+   slice's main path: the result line's launches are read from it.
+6. path-check-zamba -- zamba2-7b at full width with the depth cut to 7
+   layers (one super-block and one tail Mamba2 block): slot 0's chunks at 0
+   and 64 (the second carries the state), slot 1's chunk at 0, and one
+   decode tick of 4 slots (2 live, 2 sentinel), card against CPU as in
+   phase 3; the fp32 SSD state pools are compared too.
 
 Prints the card's name and power limit, the kernels' build time, one JSON
-line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+line ``{"kernels": [...]}`` (one row per kernel, at the zamba2-7b path's
+shapes and launches; the llama3-8b rows go to the log and, with every
+check, to ``kernel_checks.json`` in the output directory) and, last,
+``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, where no CUDA device is present or the
 port's sources are missing.  Long outputs go to ``chiprun_out/``.
 """
@@ -35,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -44,7 +61,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
-PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen")
+PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
+          "serve-zamba", "path-check-zamba")
+#: the path the result line reports: this slice's main path
+MAIN = "zamba2-7b"
 
 BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_TFLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
@@ -111,73 +131,112 @@ def within(got, want, atol: float, rtol: float) -> tuple[bool, float]:
 # Phase 1: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
-LLAMA_GEMMS = (  # (name, K, N) of llama3-8b's projections, per layer
-    ("fused_qkv", 4096, 6144), ("wo", 4096, 4096),
-    ("fused_up_gate", 4096, 28672), ("down", 14336, 4096),
+LLAMA_GEMMS = (  # (name, K, N, launches per step) of llama3-8b's projections
+    ("fused_qkv", 4096, 6144, 32), ("wo", 4096, 4096, 32),
+    ("fused_up_gate", 4096, 28672, 32), ("down", 14336, 4096, 32),
+    ("lm_head", 4096, 128256, 1),
 )
-LLAMA_HEAD = ("lm_head", 4096, 128256)
+ZAMBA_GEMMS = (  # the same for zamba2-7b: 68 Mamba2 blocks, 13 shared blocks
+    ("mamba z|x", 3584, 14336, 68), ("mamba B|C|dt", 3584, 240, 68),
+    ("mamba out", 7168, 3584, 68), ("shared in-proj", 3584, 3584, 26),
+    ("fused_qkv", 3584, 10752, 13), ("wo", 3584, 3584, 13),
+    ("fused_up_gate", 3584, 28672, 13), ("down", 14336, 3584, 13),
+    ("lm_head", 3584, 32000, 1),
+)
 MM_TOL = dict(atol=1e-2, rtol=1.6e-2)     # bf16 output: 2 ulp at |x|~1
 FA_TOL = dict(atol=2e-2, rtol=2e-2)       # + bf16 vs fp32 probabilities
 RN_TOL = dict(atol=1e-2, rtol=1.6e-2)     # bf16 output rounding
+SSD_TOL = dict(atol=1e-2, rtol=1.6e-2)    # bf16 y
+#: fp32 state: the kernel sums in another order, and its expf may differ
+#: from torch's exp by an ulp
+SSD_STATE_TOL = dict(atol=1e-3, rtol=1e-3)
 
 
 class KernelReport:
-    """Per-kernel totals over one prefill chunk plus one decode tick of the
-    llama3-8b path (each shape weighted by its launches per step), the
-    kernel's time in each of the two steps, and every check's details."""
+    """One kernel's checks, and per serving path its totals over one
+    prefill chunk plus one decode tick (each shape weighted by its launches
+    per step) and its kernel time in each of the two steps."""
 
     def __init__(self, name, route, source, replaces):
-        self.row = {"name": name, "route": route, "source": source,
-                    "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
-                    "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                    "bound_by": "bytes", "library_ms": 0.0}
+        self.meta = {"name": name, "route": route, "source": source,
+                     "replaces": replaces}
         self.checks = []
-        self.step_ms = {"prefill": 0.0, "decode": 0.0}
-        self._bytes_ms = self._ops_ms = 0.0
-        self._library_missing = False
+        self.max_err = 0.0
+        self.paths = {}
 
-    def add(self, label, ok, err, tol, step=None, weight=0, ms=None,
-            plain_ms=None, library_ms=None, nbytes=0.0, flops=0.0,
+    def _path(self, path):
+        return self.paths.setdefault(path, {
+            "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "bytes_ms": 0.0, "ops_ms": 0.0, "library_missing": False,
+            "step_ms": {"prefill": 0.0, "decode": 0.0}})
+
+    def add(self, label, ok, err, tol, path=None, step=None, weight=0,
+            ms=None, plain_ms=None, library_ms=None, nbytes=0.0, flops=0.0,
             peak=BF16_TFLOPS):
-        """One check; with ``weight`` launches per ``step`` ("prefill" or
-        "decode") it also counts towards the totals."""
+        """One check; with ``ms`` it is timed, and with ``weight`` launches
+        per ``step`` ("prefill" or "decode") of ``path`` it also counts
+        towards that path's totals."""
         check = {"shape": label, "ok": ok, "max_abs_err": err, "tol": tol,
-                 "per_step": weight}
-        self.row["max_abs_err"] = max(self.row["max_abs_err"], err)
-        if weight:
+                 "path": path, "per_step": weight}
+        self.max_err = max(self.max_err, err)
+        if ms is not None:
             b, kind = bound_ms(nbytes, flops, peak)
             check.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=b, bound_by=kind)
-            self.row["ms"] += weight * ms
-            self.step_ms[step] += weight * ms
-            self.row["plain_ms"] += weight * plain_ms
-            self.row["bound_ms"] += weight * b
-            self._bytes_ms += weight * nbytes / HBM_BYTES_S * 1e3
-            self._ops_ms += weight * flops / peak * 1e3
+        if weight:
+            t = self._path(path)
+            t["ms"] += weight * ms
+            t["step_ms"][step] += weight * ms
+            t["plain_ms"] += weight * plain_ms
+            t["bound_ms"] += weight * check["bound_ms"]
+            t["bytes_ms"] += weight * nbytes / HBM_BYTES_S * 1e3
+            t["ops_ms"] += weight * flops / peak * 1e3
             if library_ms is None:
-                self._library_missing = True
+                t["library_missing"] = True
             else:
-                self.row["library_ms"] += weight * library_ms
+                t["library_ms"] += weight * library_ms
         self.checks.append(check)
-        log(f"  {self.row['name']:16s} {label:44s} err={err:.3e} "
+        lib = check.get("library_ms")
+        log(f"  {self.meta['name']:16s} {label:48s} err={err:.3e} "
             f"tol={tol} {'ok' if ok else 'FAIL'}"
             + (f"  kernel={ms:.4f}ms plain={plain_ms:.4f}ms library="
-               f"{'n/a' if library_ms is None else f'{library_ms:.4f}ms'} "
+               f"{'n/a' if lib is None else f'{lib:.4f}ms'} "
                f"bound={check['bound_ms']:.4f}ms ({check['bound_by']})"
-               if weight else ""))
+               if ms is not None else ""))
         return ok
 
-    def finish(self):
-        self.row["bound_by"] = ("bytes" if self._bytes_ms >= self._ops_ms
-                                else "operations")
-        if self._library_missing:
-            self.row["library_ms"] = None
-        return self.row
+    def step_ms(self, path, step):
+        t = self.paths.get(path)
+        return t["step_ms"][step] if t else 0.0
+
+    def row(self, path, launches: int) -> dict:
+        """The result line's row: ``path``'s totals per step pair."""
+        t = self._path(path)
+        return {**self.meta, "launches": launches,
+                "max_abs_err": self.max_err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                             else "operations"),
+                "library_ms": None if t["library_missing"] else t["library_ms"]}
+
+
+def ssd_cost(b, s, nh, hd, ds, chunk, with_state):
+    """(bytes, fp32 flops) of one SSD scan: x, y, B, C, dt, A_log, D and the
+    state in and out each moved once; per head and chunk of length l, the
+    causal halves of C.B^T and of its product with x, C.state^T and the
+    state update."""
+    nbytes = (2 * 2 * b * s * nh * hd + 2 * 2 * b * s * ds + 4 * b * s * nh
+              + 8 * nh + 4 * b * nh * hd * ds * (2 if with_state else 1))
+    flops = 0
+    for c0 in range(0, s, chunk):
+        n = min(chunk, s - c0)
+        flops += n * (n + 1) * (ds + hd) + 4 * n * hd * ds
+    return nbytes, b * nh * flops
 
 
 def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
                  timer, dev="cuda"):
-    """Returns the three KernelReports; raises if any check fails."""
+    """Returns the four KernelReports; raises if any check fails."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -187,22 +246,23 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
     failed = []
     mm = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:102")
-    log("kernels: matmul (tolerance |err| <= atol + rtol*|plain|)")
-    for M, step in ((chunk, "prefill"), (slots, "decode")):
-        for label, K, N in LLAMA_GEMMS + (LLAMA_HEAD,):
-            a, b = randn(M, K), randn(K, N, scale=K ** -0.5)
-            got, want = ops.matmul(a, b), ref.matmul_ref(a, b)
-            ok, err = within(got, want, **MM_TOL)
-            weight = 1 if label == "lm_head" else 32
-            ms = timer(lambda: ops.matmul(a, b))
-            plain = timer(lambda: ref.matmul_ref(a, b))
-            lib = timer(lambda: torch.matmul(a, b))
-            if not mm.add(f"{label} M={M} K={K} N={N}", ok, err, MM_TOL,
-                          step, weight, ms, plain, lib,
-                          nbytes=2 * (M * K + K * N + M * N),
-                          flops=2 * M * K * N):
-                failed.append(f"matmul {label} M={M}")
-            del a, b, got, want
+    for path, gemms in (("llama3-8b", LLAMA_GEMMS), ("zamba2-7b", ZAMBA_GEMMS)):
+        log(f"kernels: matmul at {path}'s shapes (tolerance |err| <= atol + "
+            f"rtol*|plain|)")
+        for M, step in ((chunk, "prefill"), (slots, "decode")):
+            for label, K, N, weight in gemms:
+                a, b = randn(M, K), randn(K, N, scale=K ** -0.5)
+                got, want = ops.matmul(a, b), ref.matmul_ref(a, b)
+                ok, err = within(got, want, **MM_TOL)
+                ms = timer(lambda: ops.matmul(a, b))
+                plain = timer(lambda: ref.matmul_ref(a, b))
+                lib = timer(lambda: torch.matmul(a, b))
+                if not mm.add(f"{label} M={M} K={K} N={N}", ok, err, MM_TOL,
+                              path, step, weight, ms, plain, lib,
+                              nbytes=2 * (M * K + K * N + M * N),
+                              flops=2 * M * K * N):
+                    failed.append(f"matmul {path} {label} M={M}")
+                del a, b, got, want
     # epilogues and ragged edges (correctness only)
     cases = [("bias+silu", chunk, 4096, 4096, "silu", True, False),
              ("bias+gelu", chunk, 4096, 4096, "gelu", True, False),
@@ -225,11 +285,9 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
     fa = KernelReport("flash_attention", "cuda",
                       "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:102")
-    log("kernels: flash_attention (hq=32, hkv=8, d=128)")
-    hq, hkv, d = 32, 8, 128
 
-    def fa_case(label, b, sq, q_off, kv_len, step=None, weight=0, window=0,
-                softcap=0.0, d=d, hq=hq, hkv=hkv):
+    def fa_case(label, b, sq, q_off, kv_len, path=None, step=None, weight=0,
+                window=0, softcap=0.0, d=128, hq=32, hkv=8):
         q = randn(b, sq, hq, d)
         k, v = randn(b, skv, hkv, d), randn(b, skv, hkv, d)
         qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
@@ -249,45 +307,90 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
                 library_ms=timer(_sdpa(torch, F, q, k, v, mask)),
                 nbytes=2 * 2 * q.numel() + kv_needed,
                 flops=4 * d * visible)
-        if not fa.add(label, ok, err, FA_TOL, step, weight, **timing):
+        if not fa.add(label, ok, err, FA_TOL, path, step, weight, **timing):
             failed.append(f"flash_attention {label}")
 
-    fa_case(f"prefill b=1 sq={chunk} skv={skv} q_offset=128", 1, chunk,
-            [128], [128 + chunk], "prefill", 32)
     lens = [137, 64, 250, 9][:slots] + [1] * max(0, slots - 4)
-    fa_case(f"decode b={slots} sq=1 skv={skv}", slots, 1, lens,
-            [x + 1 for x in lens], "decode", 32)
+    for path, d, hq, hkv, weight in (("llama3-8b", 128, 32, 8, 32),
+                                     ("zamba2-7b", 112, 32, 32, 13)):
+        log(f"kernels: flash_attention at {path}'s shapes (hq={hq}, "
+            f"hkv={hkv}, d={d})")
+        heads = dict(d=d, hq=hq, hkv=hkv)
+        fa_case(f"prefill b=1 sq={chunk} skv={skv} q_offset=128 d={d}", 1,
+                chunk, [128], [128 + chunk], path, "prefill", weight, **heads)
+        fa_case(f"decode b={slots} sq=1 skv={skv} d={d}", slots, 1, lens,
+                [x + 1 for x in lens], path, "decode", weight, **heads)
     fa_case("window=48 softcap=30", 2, 40, [10, 100], [50, 140],
             window=48, softcap=30.0)
     fa_case("d=64 hq=hkv=16 (qwen1.5)", 2, 33, [0, 7], [33, 40], d=64,
             hq=16, hkv=16)
+    fa_case("d=112 ragged rows, fully masked row", 2, 37, [0, 5], [37, 0],
+            d=112, hq=4, hkv=4)
     fa_case("fully masked rows give 0", 2, 3, [0, 5], [0, 0])
 
     rn = KernelReport("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
                       "src/repro/kernels/rmsnorm.py:30")
-    log("kernels: rmsnorm (h=4096)")
-    for rows, step, weight in ((chunk, "prefill", 65), (slots, "decode", 65),
-                               (37, None, 0)):
-        x = randn(rows, 4096)
-        g = torch.randn(4096, generator=gen, device=dev)
-        got, want = ops.rmsnorm(x, g, eps=1e-5), ref.rmsnorm_ref(x, g, 1e-5)
-        ok, err = within(got, want, **RN_TOL)
-        timing = {}
-        if weight:
-            gb = g.to(torch.bfloat16)
-            timing = dict(
-                ms=timer(lambda: ops.rmsnorm(x, g, eps=1e-5)),
-                plain_ms=timer(lambda: ref.rmsnorm_ref(x, g, 1e-5)),
-                library_ms=timer(lambda: F.rms_norm(x, (4096,), gb, 1e-5)),
-                nbytes=2 * 2 * x.numel() + 4 * g.numel(),
-                flops=4 * x.numel(), peak=FP32_TFLOPS)
-        if not rn.add(f"rows={rows} h=4096", ok, err, RN_TOL, step, weight,
-                      **timing):
-            failed.append(f"rmsnorm rows={rows}")
+    for path, h, eps, weight in (("llama3-8b", 4096, 1e-5, 65),
+                                 ("zamba2-7b", 3584, 1e-6, 95)):
+        log(f"kernels: rmsnorm at {path}'s shapes (h={h})")
+        for rows, step, w in ((chunk, "prefill", weight),
+                              (slots, "decode", weight), (37, None, 0)):
+            x = randn(rows, h)
+            g = torch.randn(h, generator=gen, device=dev)
+            got, want = ops.rmsnorm(x, g, eps=eps), ref.rmsnorm_ref(x, g, eps)
+            ok, err = within(got, want, **RN_TOL)
+            timing = {}
+            if w:
+                gb = g.to(torch.bfloat16)
+                timing = dict(
+                    ms=timer(lambda: ops.rmsnorm(x, g, eps=eps)),
+                    plain_ms=timer(lambda: ref.rmsnorm_ref(x, g, eps)),
+                    library_ms=timer(lambda: F.rms_norm(x, (h,), gb, eps)),
+                    nbytes=2 * 2 * x.numel() + 4 * g.numel(),
+                    flops=4 * x.numel(), peak=FP32_TFLOPS)
+            if not rn.add(f"rows={rows} h={h}", ok, err, RN_TOL, path, step,
+                          w, **timing):
+                failed.append(f"rmsnorm {path} rows={rows}")
+
+    ssd = KernelReport("ssd_scan", "cuda",
+                       "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                       "src/repro/kernels/ssd_scan.py:74")
+    nh, hd, ds, ssd_chunk = 112, 64, 64, 64
+    log(f"kernels: ssd_scan at zamba2-7b's shapes (nh={nh}, hd={hd}, "
+        f"ds={ds}, chunk={ssd_chunk}); y and state_out both checked")
+    for label, b, s, with_state, step in (
+            ("prefill b=1 s=64, state in", 1, 64, True, "prefill"),
+            (f"decode b={slots} s=1, state in", slots, 1, True, "decode"),
+            ("long prompt b=1 s=1024 (16 chunks)", 1, 1024, False, None),
+            ("ragged b=2 s=100, state in", 2, 100, True, None)):
+        x = randn(b, s, nh, hd)
+        dt = F.softplus(torch.randn(b, s, nh, generator=gen, device=dev))
+        A_log = torch.randn(nh, generator=gen, device=dev) * 0.5
+        D = torch.randn(nh, generator=gen, device=dev)
+        bc = randn(b, s, 2 * ds)     # B and C are halves of one tensor
+        B, C = bc[..., :ds], bc[..., ds:]
+        st = (torch.randn(b, nh, hd, ds, generator=gen, device=dev) * 0.5
+              if with_state else None)
+        args = (x, dt, A_log, B, C, D)
+        y, st_out = ops.ssd_scan(*args, chunk=ssd_chunk, state_in=st)
+        y_ref, st_ref = ref.ssd_ref(*args, ssd_chunk, st)
+        ok_y, err_y = within(y, y_ref, **SSD_TOL)
+        ok_s, err_s = within(st_out, st_ref, **SSD_STATE_TOL)
+        nbytes, flops = ssd_cost(b, s, nh, hd, ds, ssd_chunk, with_state)
+        timing = dict(
+            ms=timer(lambda: ops.ssd_scan(*args, chunk=ssd_chunk, state_in=st)),
+            plain_ms=timer(lambda: ref.ssd_ref(*args, ssd_chunk, st)),
+            library_ms=None, nbytes=nbytes, flops=flops, peak=FP32_TFLOPS)
+        weight = 68 if step else 0
+        if not ssd.add(f"{label}: y", ok_y, err_y, SSD_TOL, "zamba2-7b",
+                       step, weight, **timing):
+            failed.append(f"ssd_scan {label} y")
+        if not ssd.add(f"{label}: state_out", ok_s, err_s, SSD_STATE_TOL):
+            failed.append(f"ssd_scan {label} state")
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failed}")
-    return mm, fa, rn
+    return mm, fa, rn, ssd
 
 
 def _sdpa(torch, F, q, k, v, mask):
@@ -300,7 +403,7 @@ def _sdpa(torch, F, q, k, v, mask):
 
 
 # ---------------------------------------------------------------------------
-# Phases 2 and 4: the paged server, as a user starts it.
+# Phases 2, 4 and 5: the paged server, as a user starts it.
 # ---------------------------------------------------------------------------
 
 SERVE = dict(slots=4, prefill_chunk=64, page_size=16, max_seq=272, max_new=16)
@@ -308,30 +411,64 @@ PROMPT_LEN = 256   # prompt lengths are drawn from [64, 256]
 
 
 def launches_per_step(cfg) -> dict:
-    """Kernel launches of one paged step of a dense rmsnorm/swiglu model at
-    d1 = d2 = 1: two entry norms per layer and the final norm; the fused
-    q/k/v, wo, fused up+gate and down GEMMs per layer and the head; one
-    attention core per layer."""
-    n = cfg.num_layers
-    return {"matmul": 4 * n + 1, "flash_attention": n, "rmsnorm": 2 * n + 1}
+    """Kernel launches of one paged step at d1 = d2 = 1 (every step shape
+    launches the same kernels), summed over the segments:
+      - dense layer: 2 entry norms; fused q/k/v, wo, fused up+gate and down
+        GEMMs; one attention core;
+      - zamba super-block of ``inner`` blocks: the shared block's 2
+        in-projections and its dense layer, and ``inner - 1`` Mamba2 blocks;
+      - Mamba2 block: its ``ln`` norm; z|x, B|C|dt and out GEMMs; one scan;
+    plus the final norm and the head GEMM.  zamba2-7b (13 super-blocks of
+    6, 3 tail Mamba2 blocks): matmul 13 * (2 + 4 + 5 * 3) + 3 * 3 + 1 = 283,
+    rmsnorm 13 * (2 + 5) + 3 + 1 = 95, flash_attention 13, ssd_scan
+    13 * 5 + 3 = 68."""
+    from repro_torch.configs.base import segments
+
+    n = {"matmul": 1, "flash_attention": 0, "rmsnorm": 1, "ssd_scan": 0}
+    per = {"dense": {"matmul": 4, "flash_attention": 1, "rmsnorm": 2},
+           "mamba": {"matmul": 3, "rmsnorm": 1, "ssd_scan": 1}}
+    for seg in segments(cfg):
+        blocks = ({"dense": 1, "mamba": seg.inner - 1} if seg.kind == "zamba"
+                  else {seg.kind: 1})
+        if seg.kind == "zamba":
+            n["matmul"] += 2 * seg.count
+        for kind, k in blocks.items():
+            for name, v in per[kind].items():
+                n[name] += seg.count * k * v
+    return n
 
 
 class StepMeter:
     """Wraps the server's step: counts its calls and sums their host time
-    by kind (a prefill chunk feeds [1, chunk] tokens, a decode tick
-    [slots, 1]).  The step hands back numpy tokens, so every call ends
-    synchronised with the device and its host time covers its device
-    work."""
+    by kind.  A prefill chunk feeds [1, chunk] tokens; a decode tick
+    [slots, 1]; in recurrent mode a prompt tail is fed one token at a time
+    through the decode-shaped step, and a call whose live row belongs to a
+    slot still prefilling is counted as a "tail", not as a decode tick.
+    The step hands back numpy tokens, so every call ends synchronised with
+    the device and its host time covers its device work."""
 
-    def __init__(self, fn):
-        self.fn = fn
-        self.calls = {"prefill": 0, "decode": 0}
-        self.seconds = {"prefill": 0.0, "decode": 0.0}
+    KINDS = ("prefill", "tail", "decode")
+
+    def __init__(self, server):
+        self.server = server
+        self.fn = server.step_fn
+        self.calls = dict.fromkeys(self.KINDS, 0)
+        self.seconds = dict.fromkeys(self.KINDS, 0.0)
+
+    def _kind(self, tokens, rest) -> str:
+        if tokens.shape[1] > 1:
+            return "prefill"
+        if self.server.cfg.recurrent:
+            slots = self.server.slots
+            live = [int(i) for i in rest[2] if i < len(slots)]
+            if any(not slots[i].decoding for i in live):
+                return "tail"
+        return "decode"
 
     def __call__(self, tokens, *rest):
+        kind = self._kind(tokens, rest)
         t0 = time.perf_counter()
         out = self.fn(tokens, *rest)
-        kind = "prefill" if tokens.shape[1] > 1 else "decode"
         self.calls[kind] += 1
         self.seconds[kind] += time.perf_counter() - t0
         return out
@@ -357,7 +494,7 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     scfg = serve.paged_server_config([len(p) for p in prompts], **SERVE)
     server, _ = serve.make_paged_server(
         cfg, scfg, lm.init_params(cfg, seed=seed, device=dev), device=dev)
-    meter = StepMeter(server.step_fn)
+    meter = StepMeter(server)
     server.step_fn = meter
     for rid, p in enumerate(prompts):
         server.submit(Request(rid=rid, prompt=p, max_new=SERVE["max_new"]))
@@ -365,7 +502,8 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
         torch.cuda.synchronize()
     log(f"serve {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"vocab {cfg.vocab_size}, {requests} requests of "
-        f"{[len(p) for p in prompts]} prompt tokens, {SERVE}; set-up "
+        f"{[len(p) for p in prompts]} prompt tokens, {SERVE}, "
+        f"{'recurrent' if server.cfg.recurrent else 'plain'} mode; set-up "
         f"{time.perf_counter() - t0:.1f}s"
         + (f", device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB"
            if dev == "cuda" else ""))
@@ -389,14 +527,17 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
 
     prefill_tok = sum(len(p) for p in prompts)
     decode_tok = requests * (SERVE["max_new"] - 1)
+    calls, secs = meter.calls, meter.seconds
+    prompt_s = secs["prefill"] + secs["tail"]
     log(f"  served {requests} requests in {ticks} ticks, {wall:.3f}s: "
-        f"{meter.calls['prefill']} prefill chunks "
-        f"{meter.seconds['prefill']:.3f}s "
-        f"({prefill_tok / meter.seconds['prefill']:.1f} prompt tok/s), "
-        f"{meter.calls['decode']} decode ticks {meter.seconds['decode']:.3f}s "
-        f"({decode_tok / meter.seconds['decode']:.1f} new tok/s)")
+        f"{calls['prefill']} prefill chunks {secs['prefill']:.3f}s and "
+        f"{calls['tail']} prompt-tail steps {secs['tail']:.3f}s "
+        f"({prefill_tok / prompt_s:.1f} prompt tok/s), "
+        f"{calls['decode']} decode ticks {secs['decode']:.3f}s "
+        f"({decode_tok / secs['decode']:.1f} new tok/s, "
+        f"{1e3 * secs['decode'] / calls['decode']:.2f} ms per tick)")
     for kind, ms in (kernel_ms or {}).items():
-        wall_ms = 1e3 * meter.seconds[kind] / meter.calls[kind]
+        wall_ms = 1e3 * secs[kind] / calls[kind]
         log(f"  {kind}: {wall_ms:.2f} ms per step, of which the kernels "
             f"{ms:.2f} ms ({ms / wall_ms:.0%}; kernel phase's times)")
     log(f"  launches over {steps} steps: {launches} (= per step "
@@ -405,6 +546,7 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     if profile:
         profile_run(torch, server, prompts, cfg.name, wall)
     del server, meter  # the step holds the weights
+    gc.collect()       # the meter and the server refer to each other
     if dev == "cuda":
         torch.cuda.empty_cache()
     return launches
@@ -424,11 +566,13 @@ def profile_run(torch, server, prompts, name: str, wall_s: float) -> None:
     for rid, p in enumerate(prompts):
         server.submit(Request(rid=1000 + rid, prompt=p,
                               max_new=SERVE["max_new"]))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host operators' events would multiply the
+    # trace, and its post-processing, several times over
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         server.run_until_drained()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
     events = prof.key_averages()
     (OUT_DIR / f"profile_{name}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=25))
@@ -438,14 +582,15 @@ def profile_run(torch, server, prompts, name: str, wall_s: float) -> None:
     log(f"  profiled rerun: device busy {device_ms:.1f} ms, "
         f"{device_ms / wall_ms:.0%} of its {wall_ms:.1f} ms wall and "
         f"{device_ms / (1e3 * wall_s):.0%} of the unprofiled run's "
-        f"{1e3 * wall_s:.1f} ms; by kernel:")
+        f"{1e3 * wall_s:.1f} ms (the trace took "
+        f"{time.perf_counter() - t0:.1f}s to read); by kernel:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
             f"{e.key[:70]}")
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the path on the card against the path on the CPU.
+# Phases 3 and 6: the path on the card against the path on the CPU.
 # ---------------------------------------------------------------------------
 
 #: per-row relative L2 error of the logits, card (bf16, kernels) against
@@ -456,67 +601,161 @@ def profile_run(torch, server, prompts, name: str, wall_s: float) -> None:
 #: show 1.95e-2 against fp32; the kernels round at the same points or at
 #: fewer (fp32 probabilities), so the limit is 2.5 times that.
 PATH_TOL = 5e-2
+#: a recurrent model (zamba2) has no fixed limit: the grouped RMSNorm
+#: before its out projection divides each head's SSD output by its RMS,
+#: so where the scan's terms nearly cancel in one head and token, bf16
+#: rounding of the inputs becomes a large relative error of that row (one
+#: row of 64 at 12% where the rest sit near 1.4%, in one Mamba2 block at
+#: the reduced width on the CPU), and a carried state spreads it to later
+#: tokens.  So the same calls also run through the plain versions in bf16
+#: on the CPU, and the card's error against fp32, over each call's logits
+#: and each segment's state pool, may be at most this factor times theirs
+#: (the factor of PATH_TOL's own derivation).
+RECURRENT_FACTOR = 2.5
 
 
-def path_check(torch, cfg, seed: int, dev="cuda") -> None:
-    """Two prefill chunks (slots 0 and 1) and one decode tick (4 slots, two
-    live) of ``lm.paged_step`` on ``dev`` in the model dtype and on the CPU
-    in fp32 from the same weights; the logits must agree within
-    ``PATH_TOL``."""
+def path_calls(cfg, seed: int):
+    """The page geometry and the ``lm.paged_step`` calls of the path check:
+    (tokens, start, table, slot, rows compared) each.  A dense model: slots
+    0 and 1 each prefill one chunk, then a tick with two of four slots
+    live.  A recurrent model: slot 0 prefills two chunks (the second
+    carries the state), slot 1 one, then a tick with slots 0 and 1 live
+    and two sentinel rows."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.models.paging import PageAllocator, PagedConfig
+
+    chunk, slots = SERVE["prefill_chunk"], SERVE["slots"]
+    pcfg = PagedConfig(page_size=SERVE["page_size"], num_pages=16,
+                       pages_per_slot=-(-SERVE["max_seq"] // SERVE["page_size"]))
+    alloc = PageAllocator(pcfg, slots)
+    n0 = 2 * chunk if lm.is_recurrent(cfg) else chunk
+    alloc.ensure(0, n0 + 1)
+    alloc.ensure(1, chunk + 1)
+    table = alloc.table()
+    table[2:] = 0                  # rows 2 and 3 of the tick are not live
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (slots, n0 + 1), dtype=np.int32)
+    tick = np.stack([toks[0, n0], toks[1, chunk], 0, 0])[:, None]
+    calls = [
+        (toks[0:1, :chunk], [0], table[0:1], [0], 1),
+        (toks[1:2, :chunk], [0], table[1:2], [1], 1),
+        (tick, [n0, chunk, 0, 0], table, [0, 1, slots, slots], 2),
+    ]
+    if lm.is_recurrent(cfg):
+        calls.insert(1, (toks[0:1, chunk:n0], [chunk], table[0:1], [0], 1))
+    return pcfg, calls
+
+
+def run_path(torch, cfg, params, pcfg, calls, where, dtype=None):
+    """``calls`` through ``lm.paged_step`` on ``where`` with fresh caches
+    (``dtype``: the pools' dtype, the model's when None).  Returns the
+    logits of each call (fp32, on the CPU) and the SSD state pools' rows
+    of slots 0 and 1 (an empty list for a dense model)."""
     import numpy as np
 
     from repro_torch.core.atp import make_context
     from repro_torch.core.mesh import atp_topo
     from repro_torch.models import lm
-    from repro_torch.models.paging import PageAllocator, PagedConfig
 
-    topo = atp_topo(1, 1, 1)
-    chunk, slots = SERVE["prefill_chunk"], SERVE["slots"]
-    pcfg = PagedConfig(page_size=SERVE["page_size"], num_pages=16,
-                       pages_per_slot=-(-SERVE["max_seq"] // SERVE["page_size"]))
-    alloc = PageAllocator(pcfg, slots)
-    alloc.ensure(0, chunk + 1)
-    alloc.ensure(1, chunk + 1)
-    table = alloc.table()
-    rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (slots, chunk + 1), dtype=np.int32)
-    calls = [  # (tokens, start, table, rows compared)
-        (toks[0:1, :chunk], [0], table[0:1], 1),
-        (toks[1:2, :chunk], [0], table[1:2], 1),
-        (toks[:, chunk:], [chunk, chunk, 0, 0], table, 2),
-    ]
+    recurrent = lm.is_recurrent(cfg)
+    ctx = make_context(atp_topo(1, 1, 1), device_type=where)
+    caches = lm.init_paged_caches(cfg, ctx, pcfg, dtype=dtype, device=where,
+                                  slots=SERVE["slots"] if recurrent else None)
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=where)
+
+    out = []
+    with torch.no_grad():
+        for tok, start, tab, slot, _ in calls:
+            got, caches = lm.paged_step(
+                ctx, cfg, params, put(tok), put(start), put(tab), caches,
+                slot=put(slot) if recurrent else None)
+            out.append(got.float().cpu())
+    pools = [t[:, :, :2].cpu() if t.dim() == 6 else t[:, :2].cpu()
+             for t in _ssd_pools(caches)]
+    return out, pools
+
+
+def compare_logits(calls, got, want) -> dict:
+    """Per-row relative L2 error of ``got`` against ``want`` over the live
+    rows of every call: the worst, the worst of each call, the max abs
+    error and the top-1 agreement."""
+    out = {"worst": 0.0, "per_call": [], "frob": [], "max_abs": 0.0,
+           "agree": 0, "rows": 0}
+    for (*_, live), g, w in zip(calls, got, want):
+        g, w = g[:live].flatten(0, 1), w[:live].flatten(0, 1)
+        assert g.isfinite().all(), "non-finite logits"
+        rel = float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+        out["per_call"].append(rel)
+        out["frob"].append(float((g - w).norm() / w.norm()))
+        out["worst"] = max(out["worst"], rel)
+        out["max_abs"] = max(out["max_abs"], float((g - w).abs().max()))
+        out["agree"] += int((g.argmax(-1) == w.argmax(-1)).sum())
+        out["rows"] += g.shape[0]
+    return out
+
+
+def path_check(torch, cfg, seed: int, dev="cuda") -> None:
+    """``path_calls`` on ``dev`` in the model dtype and on the CPU in fp32
+    from the same weights.  A dense model: the logits must agree within
+    ``PATH_TOL``.  A recurrent model: the plain versions also run on the
+    CPU in bf16, and the card must be as close to fp32 as they are (see
+    ``RECURRENT_FACTOR``), for the logits and the fp32 SSD state pools."""
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+
+    pcfg, calls = path_calls(cfg, seed)
     params = lm.shard_params(cfg, lm.init_params(cfg, seed=seed, device=dev),
-                             lm.layout_context(topo, 0))
-    cpu_params = lm.tree_map(lambda t: t.cpu().float(), params)
-    logits = []
-    for where, p, dtype in ((dev, params, None),
-                            ("cpu", cpu_params, torch.float32)):
-        ctx = make_context(topo, device_type=where)
-        caches = lm.init_paged_caches(cfg, ctx, pcfg, dtype=dtype,
-                                      device=where)
-        out = []
-        with torch.no_grad():
-            for tok, start, tab, _ in calls:
-                got, caches = lm.paged_step(
-                    ctx, cfg, p, torch.as_tensor(tok, device=where),
-                    torch.as_tensor(np.asarray(start, np.int32), device=where),
-                    torch.as_tensor(tab, device=where), caches)
-                out.append(got.float().cpu())
-        logits.append(out)
-    worst, max_abs, agree, rows = 0.0, 0.0, 0, 0
-    for (_, _, _, live), got, want in zip(calls, *logits):
-        got, want = got[:live].flatten(0, 1), want[:live].flatten(0, 1)
-        assert got.isfinite().all(), "non-finite logits on the card"
-        rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
-        worst = max(worst, float(rel.max()))
-        max_abs = max(max_abs, float((got - want).abs().max()))
-        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
-        rows += got.shape[0]
+                             lm.layout_context(atp_topo(1, 1, 1), 0))
+    card = run_path(torch, cfg, params, pcfg, calls, dev)
+    fp32 = run_path(torch, cfg, lm.tree_map(lambda t: t.cpu().float(), params),
+                    pcfg, calls, "cpu", torch.float32)
+
+    def report(what, c):
+        log(f"  {what}: worst relative L2 error per row {c['worst']:.3e} "
+            f"(per call {', '.join(f'{e:.3e}' for e in c['per_call'])}); "
+            f"over each call {', '.join(f'{e:.3e}' for e in c['frob'])}; "
+            f"max abs error {c['max_abs']:.3e}, top-1 agreement "
+            f"{c['agree']}/{c['rows']}")
+
+    c = compare_logits(calls, card[0], fp32[0])
     log(f"path-check {cfg.name} at {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}: {rows} logit rows, worst relative L2 error "
-        f"{worst:.3e} (limit {PATH_TOL}), max abs error {max_abs:.3e}, "
-        f"top-1 agreement {agree}/{rows}")
-    assert worst <= PATH_TOL, f"path-check: relative error {worst:.3e}"
+        f"{cfg.d_model}, {c['rows']} logit rows:")
+    report("card (kernels, bf16) against CPU (plain, fp32)", c)
+    if not card[1]:
+        assert c["worst"] <= PATH_TOL, \
+            f"path-check: relative error {c['worst']:.3e} (limit {PATH_TOL})"
+        return
+    bf16 = run_path(torch, cfg, lm.tree_map(lambda t: t.cpu(), params), pcfg,
+                    calls, "cpu")
+    plain = compare_logits(calls, bf16[0], fp32[0])
+    report("CPU (plain, bf16) against CPU (plain, fp32)", plain)
+    report("card (kernels, bf16) against CPU (plain, bf16)",
+           compare_logits(calls, card[0], bf16[0]))
+
+    def pool_err(a, b):
+        return [float((x - y).norm() / y.norm()) for x, y in zip(a, b)]
+
+    pools, plain_pools = pool_err(card[1], fp32[1]), pool_err(bf16[1], fp32[1])
+    log(f"  SSD state pools (slots 0 and 1) per segment, relative L2 error "
+        f"against fp32: card {', '.join(f'{e:.3e}' for e in pools)}; plain "
+        f"bf16 {', '.join(f'{e:.3e}' for e in plain_pools)}")
+    assert all(t.isfinite().all() for t in card[1]), "non-finite state"
+    f = RECURRENT_FACTOR
+    bad = [i for i, (e, p) in enumerate(zip(c["frob"], plain["frob"]))
+           if e > f * p]
+    assert not bad, f"path-check: calls {bad} beyond {f}x the bf16 error"
+    bad = [i for i, (e, p) in enumerate(zip(pools, plain_pools)) if e > f * p]
+    assert not bad, f"path-check: state pools {bad} beyond {f}x the bf16 error"
+
+
+def _ssd_pools(caches) -> list:
+    """The fp32 SSD state pools of every recurrent segment."""
+    return [c["mamba"]["ssd"] if "mamba" in c else c["ssd"]
+            for c in caches.values() if "ssd" in c or "mamba" in c]
 
 
 # ---------------------------------------------------------------------------
@@ -572,30 +811,61 @@ def main(argv=None) -> int:
 
     from repro_torch.configs.registry import get_config
 
+    t_run = time.perf_counter()
+
+    def done(phase):
+        log(f"[{phase} done at {time.perf_counter() - t_run:.1f}s]")
+
     reports = []
     if "kernels" in phases:
         reports = kernel_phase(torch, F, ops, ref,
                                chunk=SERVE["prefill_chunk"],
                                slots=SERVE["slots"], skv=SERVE["max_seq"],
                                timer=Timer(torch))
+        done("kernels")
+
+    def kernel_ms(path):
+        return {s: sum(r.step_ms(path, s) for r in reports)
+                for s in ("prefill", "decode")} if reports else None
+
+    launches = {}   # per path, from its serve phase
     llama = get_config("llama3-8b")
     if "serve-llama" in phases:
-        # the main path: its counts are the ones the result line reports
-        kernel_ms = {s: sum(r.step_ms[s] for r in reports)
-                     for s in ("prefill", "decode")} if reports else None
-        launches = serve_phase(torch, llama, requests=8, seed=0,
-                               kernel_ms=kernel_ms, profile=True)
-        for r in reports:
-            r.row["launches"] = launches[r.row["name"]]
+        launches["llama3-8b"] = serve_phase(
+            torch, llama, requests=8, seed=0, kernel_ms=kernel_ms("llama3-8b"),
+            profile=True)
+        done("serve-llama")
     if "path-check" in phases:
         # depth cut to 2 layers so that the fp32 CPU side stays small
         path_check(torch, dataclasses.replace(llama, num_layers=2), seed=0)
+        done("path-check")
     if "serve-qwen" in phases:
         serve_phase(torch, get_config("qwen1.5-0.5b"), requests=4, seed=1)
+        done("serve-qwen")
+    zamba = get_config("zamba2-7b")
+    if "serve-zamba" in phases:
+        # the main path: its counts are the ones the result line reports
+        launches[MAIN] = serve_phase(torch, zamba, requests=4, seed=2,
+                                     kernel_ms=kernel_ms(MAIN), profile=True)
+        done("serve-zamba")
+    if "path-check-zamba" in phases:
+        # depth cut to 7 layers (one super-block of 6 and one tail Mamba2
+        # block, so both segment kinds run) for the fp32 CPU side
+        path_check(torch, dataclasses.replace(zamba, num_layers=7), seed=0)
+        done("path-check-zamba")
 
-    kernels = [r.finish() for r in reports]
+    rows = {path: [r.row(path, launches.get(path, {}).get(r.meta["name"], 0))
+                   for r in reports if path in r.paths]
+            for path in ("llama3-8b", MAIN)}
     (OUT_DIR / "kernel_checks.json").write_text(json.dumps(
-        [{"row": r.row, "checks": r.checks} for r in reports], indent=1))
+        {"rows": rows, "checks": {r.meta["name"]: r.checks for r in reports}},
+        indent=1))
+    for row in rows["llama3-8b"]:
+        log(f"llama3-8b step pair: {row['name']} launches={row['launches']} "
+            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"library_ms={row['library_ms']}")
+    kernels = rows[MAIN]
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

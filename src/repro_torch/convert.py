@@ -3,9 +3,11 @@
 ``params_from_jax`` takes the tree ``repro.models.lm.init_params`` makes,
 as numpy arrays (keys like ``seg0/attn/wq`` stacked ``[count, ...]``), and
 returns rank ``rank``'s shard for the port: cut by the same
-PartitionSpecs the JAX package shards with, with q/k/v and up/gate fused
-per rank in the order the JAX block concatenates its local shards.  This
-module imports no JAX: the caller hands over numpy.
+PartitionSpecs the JAX package shards with, with q/k/v, up/gate and the
+Mamba2 z/x fused per rank in the order the JAX blocks concatenate their
+local shards (``lm.shard_params``).  Each leaf keeps its dtype: a bf16
+model's Mamba2 ``conv``, ``A_log``, ``D``, ``dt_bias``, ``ln`` and ``gn``
+stay fp32.  This module imports no JAX: the caller hands over numpy.
 """
 from __future__ import annotations
 

@@ -18,17 +18,19 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("matmul", "flash_attention")
+SOURCES = ("matmul", "flash_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C signature of each library's entry point: (name, argtypes)
 SIGNATURES = {
     "matmul": ("repro_matmul_bf16", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "flash_attention": ("repro_flash_attention_bf16",
                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _F, _P]),
+    "ssd_scan": ("repro_ssd_scan_bf16",
+                 [_P] * 9 + [_I] * 6 + [_L] * 10 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

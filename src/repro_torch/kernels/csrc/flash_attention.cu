@@ -48,8 +48,12 @@ __global__ void __launch_bounds__(kThreads)
                  int hkv, int causal, int window, float softcap,
                  float scale) {
   constexpr int kLdK = D + 2;              // padded K rows (bank spread)
-  constexpr int kGroups = kThreads / D;    // row groups in the PV product
+  // PV product: thread t owns column t % D of rows t / D + i * kGroups.
+  // D need not divide kThreads: at D = 112 one group of 112 threads covers
+  // every column and the last 16 threads sit the PV product out.
+  constexpr int kGroups = kThreads / D;
   constexpr int kRowsPerThread = kBQ / kGroups;
+  static_assert(kGroups >= 1 && kBQ % kGroups == 0, "PV row mapping");
   constexpr int kScoresPerThread = kBQ * kBKV / kThreads;
 
   __shared__ float Qs[kBQ][D];
@@ -93,6 +97,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int pv_col = tid % D;
   const int pv_group = tid / D;
+  const bool pv_active = pv_group < kGroups;
   float acc[kRowsPerThread];
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.0f;
@@ -177,17 +182,20 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // PV: this thread owns output column pv_col of rows pv_group + i*kGroups
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-      acc[i] *= row_alpha[pv_group + i * kGroups];
-    for (int j = 0; j < kBKV; ++j) {
-      float v = __bfloat162float(Vs[j * D + pv_col]);
+    if (pv_active) {
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i)
-        acc[i] += Ss[pv_group + i * kGroups][j] * v;
+        acc[i] *= row_alpha[pv_group + i * kGroups];
+      for (int j = 0; j < kBKV; ++j) {
+        float v = __bfloat162float(Vs[j * D + pv_col]);
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i)
+          acc[i] += Ss[pv_group + i * kGroups][j] * v;
+      }
     }
   }
   __syncthreads();
+  if (!pv_active) return;
 
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
@@ -216,7 +224,8 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 }  // namespace
 
 // q/o [b, sq, hq, d], k/v [b, skv, hkv, d], all contiguous bf16;
-// q_offset/kv_len [b] int32 on the device.  d is 64 or 128; hq % hkv == 0.
+// q_offset/kv_len [b] int32 on the device.  d is 64, 112 or 128;
+// hq % hkv == 0.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o,
@@ -233,6 +242,7 @@ extern "C" int repro_flash_attention_bf16(
                     static_cast<cudaStream_t>(stream));
   };
   if (d == 128) return args(launch<128>);
+  if (d == 112) return args(launch<112>);
   if (d == 64) return args(launch<64>);
   return cudaErrorInvalidValue;
 }

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES = {"matmul": 0, "flash_attention": 0, "rmsnorm": 0}
+LAUNCHES = {"matmul": 0, "flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
 
 _ACTIVATIONS = {None: 0, "gelu": 1, "silu": 2}
 
@@ -115,9 +115,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, skv, hkv, d) or v.shape != k.shape or hq % hkv:
         raise ValueError(f"attention shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"the CUDA flash attention takes head dim 64 or 128, "
-                         f"got {d}")
+    if d not in (64, 112, 128):
+        raise ValueError(f"the CUDA flash attention takes head dim 64, 112 "
+                         f"or 128, got {d}")
     if {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
         raise TypeError("the CUDA flash attention takes bf16 q/k/v")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -150,3 +150,55 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6):
     out = rmsnorm_triton(x2, gamma.contiguous(), eps)
     LAUNCHES["rmsnorm"] += 1
     return out.reshape(x.shape)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *, chunk: int,
+             state_in: torch.Tensor | None = None):
+    """Mamba2 SSD scan from ``state_in`` (zeros when None).
+
+    x [b, s, nh, hd]; dt [b, s, nh] (softplus'd); A_log, D [nh]; B, C
+    [b, s, ds] (one group); state_in [b, nh, hd, ds].  Returns
+    (y [b, s, nh, hd] in ``x.dtype``, state_out [b, nh, hd, ds] fp32).
+
+    On CUDA: bf16 x, B, C (read through their strides, unit stride along
+    the last dim); fp32 dt, A_log, D and state_in; hd = ds = 64 and
+    ``chunk`` <= 64; any s >= 1."""
+    if _on_cpu(x, dt, A_log, B, C, D, state_in):
+        return ref.ssd_ref(x, dt, A_log, B, C, D, chunk, state_in)
+    from repro_torch.kernels import _build
+
+    b, s, nh, hd = x.shape
+    ds = B.shape[-1]
+    if (dt.shape != (b, s, nh) or B.shape != (b, s, ds) or C.shape != B.shape
+            or A_log.shape != (nh,) or D.shape != (nh,) or s < 1):
+        raise ValueError(f"ssd_scan shapes x {tuple(x.shape)} dt "
+                         f"{tuple(dt.shape)} B {tuple(B.shape)} C "
+                         f"{tuple(C.shape)} A_log {tuple(A_log.shape)} D "
+                         f"{tuple(D.shape)}")
+    if hd != 64 or ds != 64 or not 1 <= chunk <= 64:
+        raise ValueError(f"the CUDA ssd_scan takes head dim 64, state dim 64 "
+                         f"and chunk <= 64, got {hd}, {ds}, {chunk}")
+    if {x.dtype, B.dtype, C.dtype} != {torch.bfloat16}:
+        raise TypeError("the CUDA ssd_scan takes bf16 x, B and C")
+    if {dt.dtype, A_log.dtype, D.dtype} != {torch.float32}:
+        raise TypeError("the CUDA ssd_scan takes fp32 dt, A_log and D")
+    if state_in is not None:
+        if state_in.shape != (b, nh, hd, ds) or state_in.dtype != torch.float32:
+            raise ValueError(f"state_in must be fp32 [{b}, {nh}, {hd}, {ds}], "
+                             f"got {state_in.dtype} {tuple(state_in.shape)}")
+        state_in = state_in.contiguous()
+    if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
+        raise ValueError("x, B and C need unit stride along their last dim")
+    A_log, D = A_log.contiguous(), D.contiguous()
+    y = torch.empty((b, s, nh, hd), dtype=x.dtype, device=x.device)
+    state_out = torch.empty((b, nh, hd, ds), dtype=torch.float32,
+                            device=x.device)
+    err = _build.entry("ssd_scan")(
+        _ptr(x), _ptr(dt), _ptr(A_log), _ptr(B), _ptr(C), _ptr(D),
+        _ptr(state_in), _ptr(y), _ptr(state_out), b, s, nh, hd, ds, chunk,
+        *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
+        _stream(x))
+    _check(err, "ssd_scan")
+    LAUNCHES["ssd_scan"] += 1
+    return y, state_out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels on the serving path.
+"""Plain PyTorch versions of the four kernels on the serving path.
 
 Each function computes what its hand-written kernel computes, in the
 kernel's own argument layout.  The CPU takes them for every tensor that
@@ -86,3 +86,70 @@ def rmsnorm_ref(x, gamma, eps: float = 1e-6):
     xf = x.float()
     inv = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
     return (xf * inv * gamma.float()).to(x.dtype)
+
+
+def _ssd_chunks(s: int, chunk: int) -> list[tuple[int, int]]:
+    """(start, length) of each chunk of an ``s``-long run.
+
+    ``mamba2.ssd_chunked``'s rule where it applies: ``nc = max(1, s //
+    chunk)`` chunks of ``s // nc`` (so an ``s`` shorter than ``chunk`` is
+    one chunk of ``s``).  Where ``s % nc != 0`` (that function refuses
+    such an ``s``) it falls back to the kernel's rule: chunks of ``chunk``
+    and a ragged last one.  The result depends on the chunking only
+    through rounding."""
+    nc = max(1, s // chunk)
+    if s % nc == 0:
+        return [(i * (s // nc), s // nc) for i in range(nc)]
+    return [(c0, min(chunk, s - c0)) for c0 in range(0, s, chunk)]
+
+
+def ssd_ref(x, dt, A_log, B, C, D, chunk: int, state_in=None):
+    """Mamba2 SSD scan with an initial and a final state (single group).
+
+    x [b, s, nh, hd]; dt [b, s, nh] (softplus'd); A_log, D [nh]; B, C
+    [b, s, ds]; state_in [b, nh, hd, ds] or None (zeros).  Returns
+    (y [b, s, nh, hd] in ``x.dtype``, state_out [b, nh, hd, ds] fp32),
+    computed in fp32.
+
+    s = 1 is ``mamba2.ssd_step``'s algebra; longer runs are
+    ``mamba2.ssd_chunked``'s, one chunk at a time: with ``la`` the
+    within-chunk cumsum of ``dt * A`` (``A = -exp(A_log)``),
+      y_t   = sum_{u<=t} exp(la_t - la_u) dt_u (C_t . B_u) x_u
+              + exp(la_t) C_t . state + D x_t,
+      state <- state exp(la_end) + sum_u exp(la_end - la_u) dt_u x_u B_u^T.
+    The decay is selected before ``exp`` is trusted: for u > t the
+    exponent is positive and may overflow, and ``where`` (not a 0/1
+    product) keeps that out of the sum."""
+    b, s, nh, hd = x.shape
+    ds = B.shape[-1]
+    A = -torch.exp(A_log.float())
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    Df = D.float()[None, :, None]
+    state = (torch.zeros(b, nh, hd, ds, device=x.device) if state_in is None
+             else state_in.float())
+    if s == 1:
+        g = torch.exp(dtf[:, 0] * A)                                # [b, nh]
+        upd = torch.einsum("bhd,bs->bhds", xf[:, 0] * dtf[:, 0, :, None],
+                           Bf[:, 0])
+        state = state * g[:, :, None, None] + upd
+        y = torch.einsum("bhds,bs->bhd", state, Cf[:, 0]) + Df * xf[:, 0]
+        return y[:, None].to(x.dtype), state
+    ys = []
+    for c0, cl in _ssd_chunks(s, chunk):
+        xc, dtc = xf[:, c0:c0 + cl], dtf[:, c0:c0 + cl]
+        Bc, Cc = Bf[:, c0:c0 + cl], Cf[:, c0:c0 + cl]
+        la = torch.cumsum(dtc * A, dim=1)                           # [b,t,nh]
+        seg = la[:, :, None, :] - la[:, None, :, :]                 # [b,t,u,nh]
+        causal = torch.ones(cl, cl, dtype=torch.bool, device=x.device).tril()
+        decay = torch.where(causal[None, :, :, None], torch.exp(seg),
+                            torch.zeros((), device=x.device))
+        cb = torch.einsum("btn,bun->btu", Cc, Bc)
+        w = cb[..., None] * decay * dtc[:, None, :, :]
+        y = torch.einsum("btuh,buhd->bthd", w, xc)
+        y = y + torch.einsum("btn,bhdn->bthd", Cc, state) * torch.exp(la)[..., None]
+        ys.append(y)
+        dec_end = torch.exp(la[:, -1:, :] - la) * dtc               # [b,u,nh]
+        upd = torch.einsum("buhd,bun->bhdn", xc * dec_end[..., None], Bc)
+        state = state * torch.exp(la[:, -1, :])[:, :, None, None] + upd
+    y = torch.cat(ys, dim=1) + Df[:, None] * xf
+    return y.to(x.dtype), state

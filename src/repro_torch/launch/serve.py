@@ -2,8 +2,11 @@
 ``repro.launch.serve``, paged mode).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
 
-runs on CUDA unless ``--device cpu`` is given.  A mesh of more than one
+runs on CUDA unless ``--device cpu`` is given.  A model with recurrent
+segments (zamba2-7b) is served in recurrent mode: per-slot state pools
+beside the page pools, prompt tails fed one token at a time.  A mesh of more than one
 rank runs one process per rank under ``torch.distributed.run`` (which sets
 the rendezvous environment), e.g.
 ``python -m torch.distributed.run --nproc-per-node 4 -m
@@ -12,6 +15,7 @@ repro_torch.launch.serve --d1 2 --d2 2``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import time
@@ -38,10 +42,21 @@ def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
     shard is cut from it here, consuming the tree.  Runs on CUDA unless
     ``device`` names another device; raises without a GPU and without a
     named device.  Returns ``(server, info)``."""
-    if scfg.speculate or scfg.prefix_cache or scfg.recurrent:
+    recurrent = lm.is_recurrent(cfg)
+    if recurrent:
+        # the JAX server's resolution: neither mode applies to a recurrent
+        # state (no KV length to roll a draft back, no pages to share)
+        if scfg.speculate:
+            log.info("speculative decode off: recurrent state")
+        if scfg.prefix_cache:
+            log.info("prefix cache off: recurrent state is not "
+                     "page-addressable")
+        scfg = dataclasses.replace(scfg, speculate=False, prefix_cache=False)
+    elif scfg.speculate or scfg.prefix_cache:
         raise NotImplementedError(
-            "the port serves the plain paged mode: prefix caching and MTP "
-            "speculation are ROADMAP A9, recurrent state pools A10")
+            "the port serves the plain and recurrent paged modes: prefix "
+            "caching and MTP speculation are ROADMAP A9")
+    scfg = dataclasses.replace(scfg, recurrent=recurrent)
     topo = topo if topo is not None else atp_topo(1, 1, 1)
     step_fn, init_caches, info = _build_paged_step_fn(cfg, scfg, params,
                                                       topo, device)
@@ -51,18 +66,22 @@ def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
 def _build_paged_step_fn(cfg, scfg: ServerConfig, params, topo, device):
     """The step in the Server's host-side calling convention: numpy in,
     numpy greedy tokens out, caches on the device."""
-    step, info = build_paged_step(cfg, topo, device=device)
+    slots = scfg.batch_slots if scfg.recurrent else None
+    step, info = build_paged_step(cfg, topo, device=device, slots=slots)
     dev = info.device
     params = lm.tree_map(lambda t: t.to(dev),
                          lm.shard_params(cfg, params, info.ctx))
 
     def init_caches():
-        return lm.init_paged_caches(cfg, info.ctx, scfg.paged, device=dev)
+        return lm.init_paged_caches(cfg, info.ctx, scfg.paged, device=dev,
+                                    slots=slots)
 
-    def step_fn(tokens, start, table, caches):
-        toks, caches = step(params, torch.as_tensor(tokens, device=dev),
-                            torch.as_tensor(start, device=dev),
-                            torch.as_tensor(table, device=dev), caches)
+    def step_fn(*args):
+        """(tokens, start, table[, slot], caches): numpy inputs, the slot
+        ids in the recurrent mode only."""
+        *inputs, caches = args
+        toks, caches = step(params, *(torch.as_tensor(a, device=dev)
+                                      for a in inputs), caches)
         return toks.cpu().numpy(), caches
 
     return step_fn, init_caches, info

@@ -36,7 +36,8 @@ def _greedy_pick(ctx: ATPContext, cfg: ModelConfig, logits):
     return all_reduce_min(ctx, cand, ctx.ax1)
 
 
-def build_paged_step(cfg: ModelConfig, topo: MeshTopo, device=None):
+def build_paged_step(cfg: ModelConfig, topo: MeshTopo, device=None,
+                     slots: int | None = None):
     """The paged cache-write step (decode tick AND prefill chunk).
 
     Returns ``(step, info)`` with ``step(params, tokens [b, s], start [b],
@@ -45,14 +46,32 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo, device=None):
     ``lm.init_paged_caches`` and are written in place.  One function serves
     both shapes (prefill chunk b=1, decode tick b=slots); lengths and
     positions are runtime data.  A topology of more than one rank needs
-    ``torch.distributed`` initialized with one process per rank."""
+    ``torch.distributed`` initialized with one process per rank.
+
+    Recurrent kinds (mamba/zamba) need ``slots`` (the scheduler's
+    ``batch_slots``, which sizes the state pools), and the step takes a
+    5th input before the caches: ``slot [b]``, the per-row slot ids, with
+    the sentinel ``slots`` for rows whose state must not change.  There is
+    no speculative variant: the port's server refuses speculation, and a
+    recurrent state could not roll a rejected draft back anyway."""
+    needs_slot = lm.is_recurrent(cfg)
+    if needs_slot and slots is None:
+        raise ValueError("recurrent kinds (mamba/zamba) need "
+                         "build_paged_step(..., slots=<scheduler batch_slots>)")
     device = resolve_device(device)
     ctx = make_context(topo, device_type=device.type)
 
-    @torch.no_grad()
-    def step(params, tokens, start, table, caches):
-        logits, caches = lm.paged_step(ctx, cfg, params, tokens, start, table,
-                                       caches)
-        return _greedy_pick(ctx, cfg, logits), caches
+    if needs_slot:
+        @torch.no_grad()
+        def step(params, tokens, start, table, slot, caches):
+            logits, caches = lm.paged_step(ctx, cfg, params, tokens, start,
+                                           table, caches, slot=slot)
+            return _greedy_pick(ctx, cfg, logits), caches
+    else:
+        @torch.no_grad()
+        def step(params, tokens, start, table, caches):
+            logits, caches = lm.paged_step(ctx, cfg, params, tokens, start,
+                                           table, caches)
+            return _greedy_pick(ctx, cfg, logits), caches
 
     return step, StepInfo(ctx=ctx, device=device)

@@ -1,35 +1,54 @@
 """Language model: embedding -> block stack -> head, ATP-sharded
-(counterpart of ``repro.models.lm``), paged serving of dense segments.
+(counterpart of ``repro.models.lm``), paged serving of the dense, zamba and
+mamba segment kinds.
 
 Parameters come in two forms.  ``init_params`` makes the GLOBAL tree with
-the JAX package's keys (``seg0/attn/wq`` ... stacked ``[count, ...]``) and
+the JAX package's keys (``seg0/attn/wq`` ... stacked ``[count, ...]``; a
+zamba segment's Mamba2 leaves stacked ``[count, inner-1, ...]``) and
 distributions; ``shard_params`` cuts one rank's shard out of it by the JAX
-PartitionSpecs and fuses q/k/v and up/gate per rank.  The model functions
-take the sharded tree.  A Python loop over layers replaces ``lax.scan``.
+PartitionSpecs and fuses q/k/v, up/gate and the Mamba2 z/x per rank.  The
+model functions take the sharded tree.  A Python loop over layers replaces
+``lax.scan``.
+
+Recurrent kinds (zamba, mamba) keep per-slot STATE POOLS beside the page
+pools: each step gathers its batch rows' state by slot id, runs, and
+writes the rows back (``_state_take`` / ``_state_put``).
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, segments
-from repro_torch.core.atp import ATPContext, atp_boundary
+from repro_torch.core.atp import (ATPContext, all_gather, atp_boundary,
+                                  shard_slice)
 from repro_torch.core.mesh import (MeshTopo, dp_axis_names, resolve_device,
                                    tp_axis_names)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models import paging, transformer
+from repro_torch.models import mamba2, paging, transformer
 
 _A10 = "segment kind {!r} is not ported yet (ROADMAP A10: other segment kinds)"
 
+#: segment kinds the port serves
+KINDS = frozenset({"dense", "zamba", "mamba"})
+#: the served kinds with O(1)-per-slot recurrent state, pooled by slot id
+RECURRENT_STATE_KINDS = frozenset({"mamba", "zamba"})
 
-def _check_dense(cfg: ModelConfig):
+
+def _check_kinds(cfg: ModelConfig):
     for seg in segments(cfg):
-        if seg.kind != "dense":
+        if seg.kind not in KINDS:
             raise NotImplementedError(_A10.format(seg.kind))
     if cfg.mtp:
         raise NotImplementedError("the MTP head is ROADMAP A9 (speculation)")
+
+
+def is_recurrent(cfg: ModelConfig) -> bool:
+    return any(s.kind in RECURRENT_STATE_KINDS for s in segments(cfg))
 
 
 def _layer(tree, i: int):
@@ -52,7 +71,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
     named).  A torch generator does not draw the numbers jax.random draws:
     weights that must match the JAX package cross through
     ``convert.params_from_jax``."""
-    _check_dense(cfg)
+    _check_kinds(cfg)
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -63,17 +82,41 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
     if not cfg.tie_embeddings:
         p["lm_head"] = transformer._normal(gen, (h, cfg.vocab_size),
                                            1.0 / math.sqrt(h), dtype, device)
+
+    def dense():
+        return transformer.dense_block_params(gen, cfg, dtype, device)
+
+    def mamba():
+        return mamba2.mamba_params(gen, cfg, dtype, device)
+
     for i, seg in enumerate(segments(cfg)):
-        # one block at a time into preallocated stacks: the fp32 draw of a
-        # single block is the only temporary
-        stacked = None
-        for j in range(seg.count):
-            blk = transformer.dense_block_params(gen, cfg, dtype, device)
-            if stacked is None:
-                stacked = tree_map(lambda t: t.new_empty((seg.count,) + t.shape), blk)
-            _zip(lambda dst, src: dst[j].copy_(src), stacked, blk)
-        p[f"seg{i}"] = stacked
+        if seg.kind == "dense":
+            p[f"seg{i}"] = _stacked((seg.count,), dense)
+        elif seg.kind == "zamba":
+            p[f"seg{i}"] = {"mamba": _stacked((seg.count, seg.inner - 1), mamba)}
+        else:
+            p[f"seg{i}"] = _stacked((seg.count,), mamba)
+    if any(s.kind == "zamba" for s in segments(cfg)):
+        # two [h, h] in-projections of the shared block's (h, emb0) input
+        s = 1.0 / math.sqrt(2 * h)
+        p["shared_attn"] = {
+            "w_in_h": transformer._normal(gen, (h, h), s, dtype, device),
+            "w_in_e": transformer._normal(gen, (h, h), s, dtype, device),
+            "block": dense()}
     return p
+
+
+def _stacked(lead: tuple[int, ...], make) -> dict:
+    """Blocks from ``make()`` stacked over the leading dims ``lead``, drawn
+    one at a time into preallocated stacks: the fp32 draw of a single block
+    is the only temporary."""
+    stacked = None
+    for idx in itertools.product(*map(range, lead)):
+        blk = make()
+        if stacked is None:
+            stacked = tree_map(lambda t: t.new_empty(lead + t.shape), blk)
+        _zip(lambda dst, src: dst[idx].copy_(src), stacked, blk)
+    return stacked
 
 
 def tree_map(fn, tree):
@@ -94,16 +137,29 @@ def _zip(fn, a, b):
 def shard_params(cfg: ModelConfig, params: dict, ctx: ATPContext) -> dict:
     """This rank's shard of the global tree (consumed: its leaves are
     popped as they are cut, so a full-size model never exists twice)."""
-    _check_dense(cfg)
+    _check_kinds(cfg)
     nspec = L.feat_spec(ctx)
     out = {"embed": L.cut(ctx, params.pop("embed"), L.embed_spec(ctx)),
            "final_norm": {k: L.cut(ctx, v, nspec)
                           for k, v in params.pop("final_norm").items()}}
     if not cfg.tie_embeddings:
         out["lm_head"] = L.cut(ctx, params.pop("lm_head"), L.head_spec(ctx))
-    for i, _ in enumerate(segments(cfg)):
-        out[f"seg{i}"] = transformer.shard_dense_block(
-            ctx, cfg, params.pop(f"seg{i}"))
+    for i, seg in enumerate(segments(cfg)):
+        sp = params.pop(f"seg{i}")
+        if seg.kind == "dense":
+            out[f"seg{i}"] = transformer.shard_dense_block(ctx, cfg, sp)
+        elif seg.kind == "zamba":  # [count, inner-1, ...]: two stacked dims
+            out[f"seg{i}"] = {"mamba": mamba2.shard_mamba(ctx, sp["mamba"], 2)}
+        else:
+            out[f"seg{i}"] = mamba2.shard_mamba(ctx, sp, 1)
+    if "shared_attn" in params:
+        sa = params.pop("shared_attn")
+        col = L.col_w_spec(ctx)
+        out["shared_attn"] = {
+            "w_in_h": L.cut(ctx, sa.pop("w_in_h"), col),
+            "w_in_e": L.cut(ctx, sa.pop("w_in_e"), col),
+            "block": transformer.shard_dense_block(ctx, cfg, sa.pop("block"),
+                                                   lead=0)}
     return out
 
 
@@ -121,27 +177,109 @@ def layout_context(topo: MeshTopo, rank: int) -> ATPContext:
 
 
 def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
-                      pcfg: paging.PagedConfig, dtype=None, device=None):
-    """This rank's block-paged k/v pools per segment, on ``device`` (CUDA
-    unless named):
-    ``{"seg{i}": {"k": [count, np, pg, kv_count, hd], "v": ...}}`` — the
-    bank dim of the JAX pools' ``[count, np, pg, tp*kv_count, hd]`` cut to
-    this rank.  bf16 pools only: the int8/fp8 pools are ROADMAP A9."""
-    _check_dense(cfg)
+                      pcfg: paging.PagedConfig, dtype=None, device=None,
+                      slots: int | None = None):
+    """This rank's caches per segment, on ``device`` (CUDA unless named).
+
+    Attention (dense segments and each zamba super-block's shared-block
+    application): block-paged k/v pools ``{"k": [count, np, pg, kv_count,
+    hd], "v": ...}`` — the bank dim of the JAX pools' ``[count, np, pg,
+    tp*kv_count, hd]`` cut to this rank.  Recurrent kinds: per-slot state
+    pools with ``slots`` rows (the scheduler's ``batch_slots``; required
+    for them), ``conv_x [.., slots, k-1, d_inner/n]`` and ``conv_bc [..,
+    slots, k-1, 2 ds]`` in ``dtype`` and ``ssd [.., slots, nh/n, hd, ds]``
+    in fp32; a zamba segment nests them as ``{"attn": ..., "mamba": ...}``
+    with the Mamba2 pools stacked ``[count, inner-1, ...]``.  ``dtype``
+    defaults to the model's.  bf16 page pools only: the int8/fp8 pools are
+    ROADMAP A9."""
+    _check_kinds(cfg)
     device = resolve_device(device)
     if pcfg.page_dtype != "bf16":
         raise NotImplementedError(
             f"page_dtype={pcfg.page_dtype!r}: quantized page pools are "
             f"ROADMAP A9")
+    if slots is None and is_recurrent(cfg):
+        raise ValueError(
+            "paged serving of recurrent kinds (mamba/zamba) needs "
+            "slots=<scheduler batch_slots> to size the per-slot state pools")
     dtype = dtype or getattr(torch, cfg.dtype)
     plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def attn_pool(count):
+        shape = (count, pcfg.num_pages, pcfg.page_size, plan.kv_count, cfg.hd)
+        return {"k": zeros(shape), "v": zeros(shape)}
+
+    def mamba_state(lead):
+        d_inner, nheads = mamba2.mamba_dims(cfg)
+        sc, n = cfg.ssm, ctx.tp
+        lead = lead + (slots,)
+        return {"conv_x": zeros(lead + (sc.conv_kernel - 1, d_inner // n)),
+                "conv_bc": zeros(lead + (sc.conv_kernel - 1, 2 * sc.d_state)),
+                "ssd": zeros(lead + (nheads // n, sc.head_dim, sc.d_state),
+                             torch.float32)}
+
     caches = {}
     for i, seg in enumerate(segments(cfg)):
-        shape = (seg.count, pcfg.num_pages, pcfg.page_size, plan.kv_count,
-                 cfg.hd)
-        caches[f"seg{i}"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                             "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if seg.kind == "dense":
+            caches[f"seg{i}"] = attn_pool(seg.count)
+        elif seg.kind == "zamba":
+            caches[f"seg{i}"] = {"attn": attn_pool(seg.count),
+                                 "mamba": mamba_state((seg.count, seg.inner - 1))}
+        else:
+            caches[f"seg{i}"] = mamba_state((seg.count,))
     return caches
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotMap:
+    """How one step's batch rows address the state pools (all [b] or
+    fewer, on the device).  Made once per step by :func:`slot_map`."""
+
+    take: torch.Tensor          # pool row each batch row reads (clamped)
+    fresh: torch.Tensor         # rows whose fed window starts at position 0
+    rows: torch.Tensor | None   # batch rows that write back (None: all)
+    put: torch.Tensor           # the pool rows they write
+
+
+def slot_map(slot: torch.Tensor, start: torch.Tensor, slots: int) -> SlotMap:
+    """Slot ids ``slot [b]`` (the sentinel ``slots`` marks a row whose state
+    must not change) and ``start [b]``.  JAX's scatter drops an
+    out-of-range id where torch indexing raises, so the sentinel rows are
+    filtered here, once per step (one host sync, before any layer runs)."""
+    sid = slot.long()
+    live = sid < slots
+    if bool(live.all()):
+        rows, put = None, sid
+    else:
+        rows = live.nonzero().flatten()
+        put = sid.index_select(0, rows)
+    return SlotMap(take=sid.clamp(0, slots - 1), fresh=start == 0, rows=rows,
+                   put=put)
+
+
+def _state_take(pool: dict, sm: SlotMap) -> dict:
+    """Gather this step's state rows ``[b, ...]`` from one layer's pools
+    ``[slots, ...]``.  A sentinel row reads row ``slots - 1`` (harmless: its
+    write is dropped).  A row with ``start == 0`` is a new request in a
+    possibly recycled slot and reads zeros: unlike the page table, which
+    is remapped at admission, recurrent state has no per-token addressing
+    to hide the previous occupant behind."""
+    def take(a):
+        r = a.index_select(0, sm.take)
+        return r.masked_fill_(sm.fresh.view((-1,) + (1,) * (r.dim() - 1)), 0)
+
+    return {k: take(v) for k, v in pool.items()}
+
+
+def _state_put(pool: dict, rows: dict, sm: SlotMap) -> None:
+    """Write the updated state rows back into the pools IN PLACE (the pools
+    are views of the step's cache tensors); sentinel rows are dropped."""
+    for k, a in pool.items():
+        r = rows[k] if sm.rows is None else rows[k].index_select(0, sm.rows)
+        a.index_copy_(0, sm.put, r.to(a.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -184,34 +322,94 @@ def _window_pattern(cfg: ModelConfig, count: int) -> list[int]:
             for i in range(count)]
 
 
+def _gather_ax1(ctx: ATPContext, u):
+    """An ax1-sharded feature dim gathered to full width (JAX places and
+    psums instead, to type the result ax1-invariant)."""
+    return all_gather(ctx, u, ctx.ax1, dim=-1) if ctx.ax1 else u
+
+
+def shared_attention(ctx: ATPContext, cfg: ModelConfig, shared, x, x_emb0,
+                     positions, plan, cache, paged):
+    """The zamba shared block on (x, the embedding output): two
+    column-first in-projections sharing one ax2 boundary, gathered back to
+    the block I/O layout, then the shared dense block on ``x + u``."""
+    u = atp_boundary(ctx, ops.matmul(x, shared["w_in_h"])
+                     + ops.matmul(x_emb0, shared["w_in_e"]), ctx.ax2)
+    u = shard_slice(_gather_ax1(ctx, u), ctx.index2(), ctx.d2, dim=-1)
+    return transformer.dense_block(ctx, cfg, shared["block"], x + u,
+                                   positions, plan, 0, cache, paged)
+
+
+def _mamba(ctx, cfg, p, x, pool, sm: SlotMap):
+    x, rows = mamba2.mamba_block(ctx, cfg, p, x, _state_take(pool, sm))
+    _state_put(pool, rows, sm)
+    return x
+
+
 def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
             caches: dict, paged: dict):
     """Paged forward.  tokens/positions [b, s]; caches from
     :func:`init_paged_caches` (written in place); paged = dict(table
-    [b, mp], start [b]).  Returns the final-norm hidden [b, s, h/d2]."""
-    _check_dense(cfg)
+    [b, mp], start [b]) and, for recurrent kinds, ``slot [b]``.  Returns
+    the final-norm hidden [b, s, h/d2]."""
+    _check_kinds(cfg)
+    sm = None
+    if is_recurrent(cfg):
+        if paged.get("slot") is None:
+            raise ValueError("paged serving of recurrent kinds needs "
+                             "paged['slot'], the per-row slot ids")
+        sm = slot_map(paged["slot"], paged["start"],
+                      _state_slots(cfg, caches))
     x = embed_tokens(ctx, cfg, params["embed"], tokens)
+    x_emb0 = x
     plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
     for i, seg in enumerate(segments(cfg)):
         sp, sc = params[f"seg{i}"], caches[f"seg{i}"]
-        for j, window in enumerate(_window_pattern(cfg, seg.count)):
-            x = transformer.dense_block(ctx, cfg, _layer(sp, j), x, positions,
-                                        plan, window, _layer(sc, j), paged)
+        if seg.kind == "dense":
+            for j, window in enumerate(_window_pattern(cfg, seg.count)):
+                x = transformer.dense_block(ctx, cfg, _layer(sp, j), x,
+                                            positions, plan, window,
+                                            _layer(sc, j), paged)
+        elif seg.kind == "zamba":
+            for j in range(seg.count):
+                x = shared_attention(ctx, cfg, params["shared_attn"], x,
+                                     x_emb0, positions, plan,
+                                     _layer(sc["attn"], j), paged)
+                mp, mc = _layer(sp["mamba"], j), _layer(sc["mamba"], j)
+                for m in range(seg.inner - 1):
+                    x = _mamba(ctx, cfg, _layer(mp, m), x, _layer(mc, m), sm)
+        else:
+            for j in range(seg.count):
+                x = _mamba(ctx, cfg, _layer(sp, j), x, _layer(sc, j), sm)
     return L.norm(ctx, cfg, x, params["final_norm"])
 
 
+def _state_slots(cfg: ModelConfig, caches: dict) -> int:
+    """The slot count of the state pools (the sentinel slot id)."""
+    for i, seg in enumerate(segments(cfg)):
+        if seg.kind == "zamba":
+            return caches[f"seg{i}"]["mamba"]["ssd"].shape[2]
+        if seg.kind == "mamba":
+            return caches[f"seg{i}"]["ssd"].shape[1]
+    raise ValueError("no recurrent segment")
+
+
 def paged_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, start,
-               table, caches):
+               table, caches, slot=None):
     """One paged cache-write step — decode tick AND prefill chunk.
 
     tokens [b, s] (decode: b=slots, s=1; prefill chunk: b=1, s=chunk);
     start [b] per-slot absolute position of tokens[:, 0]; table [b, mp]
-    page-table rows; caches from :func:`init_paged_caches`.
+    page-table rows; caches from :func:`init_paged_caches`; slot [b]
+    per-row slot ids (required for recurrent kinds; a masked row carries
+    the sentinel id = the pools' slot count, and its state write drops).
 
     Returns (logits [b, s, V/d1] for every input position, caches)."""
     b, s = tokens.shape
     positions = start[:, None].long() + torch.arange(s, device=tokens.device)[None, :]
-    h = forward(ctx, cfg, params, tokens, positions, caches,
-                {"table": table, "start": start})
+    paged = {"table": table, "start": start}
+    if slot is not None:
+        paged["slot"] = slot
+    h = forward(ctx, cfg, params, tokens, positions, caches, paged)
     return lm_logits(ctx, cfg, params, h), caches
 

@@ -1,0 +1,143 @@
+"""Mamba2 (SSD) block, ATP-sharded (counterpart of ``repro.models.mamba2``),
+paged serving path: every call carries the slot's recurrent state.
+
+Sharding (as in the JAX block): SSD heads split over the flat d1*d2 TP
+ranks; ATP applies to the projections:
+  - z/x projection: column-first over ax1 (one fused GEMM ``w_zx``, one
+    boundary over ax2), then a d2 sub-slice per rank;
+  - B/C/dt projection: rows over ax2, all-reduced to a replicated output
+    (B and C are shared by all heads, one group; dt is sliced per head
+    block);
+  - out projection: row-first, after an all-gather of the heads over ax2.
+
+The scan runs through ``kernels.ops.ssd_scan`` for prefill chunks and
+one-token steps alike (the kernel at s = 1 is ``ssd_step``).  The causal
+conv and the grouped RMSNorm are plain torch, as they are plain jnp in JAX.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.atp import ATPContext, all_gather, atp_linear, shard_slice
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import _normal
+
+
+def mamba_dims(cfg: ModelConfig) -> tuple[int, int]:
+    """(d_inner, SSD heads)."""
+    sc = cfg.ssm
+    d_inner = sc.expand * cfg.d_model
+    return d_inner, d_inner // sc.head_dim
+
+
+def mamba_params(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """One block's global params with the JAX block's keys, scales and
+    dtypes: the projections in ``dtype``; ``conv``, ``A_log``, ``D``,
+    ``dt_bias``, ``ln`` and ``gn`` in fp32 whatever the model dtype."""
+    sc, h = cfg.ssm, cfg.d_model
+    d_inner, nheads = mamba_dims(cfg)
+    s = 1.0 / math.sqrt(h)
+    f32 = torch.float32
+    return {
+        "w_z": _normal(gen, (h, d_inner), s, dtype, device),
+        "w_x": _normal(gen, (h, d_inner), s, dtype, device),
+        "w_bcdt": _normal(gen, (h, 2 * sc.d_state + nheads), s, dtype, device),
+        "conv": _normal(gen, (sc.conv_kernel, d_inner + 2 * sc.d_state), 0.5,
+                        f32, device),
+        "A_log": torch.zeros(nheads, device=device),
+        "D": torch.ones(nheads, device=device),
+        "dt_bias": torch.zeros(nheads, device=device),
+        "w_out": _normal(gen, (d_inner, h), 1.0 / math.sqrt(d_inner), dtype,
+                         device),
+        "ln": torch.ones(h, device=device),
+        "gn": torch.ones(d_inner, device=device),
+    }
+
+
+def shard_mamba(ctx: ATPContext, p: dict, lead: int) -> dict:
+    """This rank's shard of (stacked) Mamba2 params, by the JAX
+    ``mamba_param_specs``: ``w_z``/``w_x`` column-first, fused per rank as
+    ``w_zx`` in the order the JAX block concatenates its local shards;
+    ``w_bcdt`` rows over ax2; ``w_out`` row-first; ``ln`` like the
+    activations.  ``conv``, ``A_log``, ``D``, ``dt_bias`` and ``gn`` stay
+    replicated and are sliced per flat rank inside the block, as JAX does.
+    ``lead`` counts the stacked leading dims; the global leaves are popped
+    as they are cut."""
+    cut, col = L.cut, L.col_w_spec(ctx)
+    out = {"w_zx": torch.cat([cut(ctx, p.pop(k), col, lead)
+                              for k in ("w_z", "w_x")], dim=-1),
+           "w_bcdt": cut(ctx, p.pop("w_bcdt"), (ctx.ax2, None), lead),
+           "w_out": cut(ctx, p.pop("w_out"), L.row_w_spec(ctx), lead),
+           "ln": cut(ctx, p.pop("ln"), L.feat_spec(ctx), lead)}
+    for k in ("conv", "A_log", "D", "dt_bias", "gn"):
+        out[k] = p.pop(k)
+    return out
+
+
+def causal_conv(x, w, state):
+    """Depthwise causal conv1d.  x [b, s, c]; w [k, c] (fp32); state
+    [b, k-1, c], the previous inputs.  Computed in fp32 and cast to
+    ``x.dtype``; returns (y, new_state in ``x.dtype``)."""
+    k, s = w.shape[0], x.shape[1]
+    pad = torch.cat([state.to(x.dtype), x], dim=1)
+    padf = pad.float()
+    y = sum(padf[:, i:i + s] * w[i].float() for i in range(k))
+    return y.to(x.dtype), pad[:, pad.shape[1] - (k - 1):]
+
+
+def group_rmsnorm(y, gamma, eps: float = 1e-6):
+    """RMSNorm over each head's channels.  y [b, s, nh, hd]; gamma [nh, hd]."""
+    yf = y.float()
+    inv = torch.rsqrt(yf.pow(2).mean(-1, keepdim=True) + eps)
+    return (yf * inv * gamma).to(y.dtype)
+
+
+def mamba_block(ctx: ATPContext, cfg: ModelConfig, p, x, state: dict):
+    """x [b, s, h/d2]; state: this call's rows of the slot pools,
+    ``conv_x [b, k-1, d_inner/n]``, ``conv_bc [b, k-1, 2 ds]`` and ``ssd
+    [b, nh/n, hd, ds]`` fp32.  Returns (x + block output, new state)."""
+    sc = cfg.ssm
+    d_inner, nheads = mamba_dims(cfg)
+    n = ctx.tp
+    if nheads % n:
+        raise ValueError(f"{nheads} SSD heads do not split over {n} TP ranks")
+    nh_loc, ds = nheads // n, sc.d_state
+    i2, flat = ctx.index2(), ctx.tp_index()
+    b, s = x.shape[:2]
+
+    h_in = L.rms_norm(ctx, x, p["ln"], cfg.norm_eps)
+    # z|x: one column-first GEMM and boundary, split per part BEFORE the d2
+    # sub-slice so the shard boundaries stay part-aligned
+    z, xin = atp_linear(ctx, h_in, p["w_zx"], kind="col",
+                        chunked=False).chunk(2, dim=-1)
+    z = shard_slice(z, i2, ctx.d2, dim=-1)              # [b, s, d_inner/n]
+    xin = shard_slice(xin, i2, ctx.d2, dim=-1)
+    # B|C|dt: rows over ax2, so the ax2 boundary leaves it replicated
+    bcdt = atp_linear(ctx, h_in, p["w_bcdt"], kind="col", chunked=False)
+    bc = bcdt[..., :2 * ds]
+    dt = shard_slice(bcdt[..., 2 * ds:], flat, n, dim=-1)
+    dt = F.softplus(dt.float() + shard_slice(p["dt_bias"], flat, n, 0))
+
+    conv = p["conv"]
+    xin_c, ns_x = causal_conv(xin, shard_slice(conv[:, :d_inner], flat, n, 1),
+                              state["conv_x"])
+    bc_c, ns_bc = causal_conv(bc, conv[:, d_inner:], state["conv_bc"])
+    xin_c, bc_c = F.silu(xin_c), F.silu(bc_c)
+    y, ssd_new = ops.ssd_scan(
+        xin_c.reshape(b, s, nh_loc, sc.head_dim), dt,
+        shard_slice(p["A_log"], flat, n, 0), bc_c[..., :ds], bc_c[..., ds:],
+        shard_slice(p["D"], flat, n, 0), chunk=sc.chunk, state_in=state["ssd"])
+
+    gn = shard_slice(p["gn"], flat, n, 0).reshape(nh_loc, sc.head_dim)
+    y = group_rmsnorm(y, gn).reshape(b, s, nh_loc * sc.head_dim)
+    y = y * F.silu(z)
+    # heads back to the ax1-sharded layout of the row-first out projection
+    if ctx.ax2 is not None:
+        y = all_gather(ctx, y, ctx.ax2, dim=-1)
+    out = atp_linear(ctx, y, p["w_out"], kind="row")
+    return x + out, {"conv_x": ns_x, "conv_bc": ns_bc, "ssd": ssd_new}

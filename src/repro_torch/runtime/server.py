@@ -23,9 +23,9 @@ block-paged KV caches (``models.paging`` / ``lm.init_paged_caches``):
 
 The scheduler keeps the JAX package's three opt-in modes
 (``prefix_cache``, ``recurrent``, ``speculate``) unchanged as host logic.
-The port's server (``launch.serve.make_paged_server``) runs the plain
-mode and refuses the others: prefix caching and the MTP draft head are
-ROADMAP A9, the recurrent state pools A10.
+The port's server (``launch.serve.make_paged_server``) runs the plain and
+the recurrent modes (the latter for models with mamba/zamba segments) and
+refuses the others: prefix caching and the MTP draft head are ROADMAP A9.
 
 One step function serves both shapes (prefill chunk b=1, decode tick
 b=slots), so mixed prompt lengths share it.

@@ -2,13 +2,15 @@
 
     python tests/_torch_atp_worker.py RANK CASE_DIR
 
-Reads ``case.json`` (arch, mesh, chunks, page geometry), the JAX global
+Reads ``case.json`` (arch and its layer count, mesh, chunks, page
+geometry, the state pools' slot count or null), the JAX global
 weights ``params.npz`` and the step inputs ``calls.npz`` from CASE_DIR,
 joins the gloo group through a file store there, runs every call through
 the port's ``lm.paged_step`` on this rank's shard, and writes its local
 logits and the vocab-parallel greedy picks to ``rank{RANK}.npz``.  Imports
 only torch, numpy and the port.
 """
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -44,18 +46,23 @@ def main(rank: int, case_dir: Path) -> None:
     dist.init_process_group("gloo", init_method=f"file://{case_dir}/store",
                             rank=rank, world_size=topo.size)
     cfg = get_config(case["arch"]).reduced()
+    if case["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=case["layers"])
     ctx = make_context(topo, chunks=case["chunks"], device_type="cpu")
     params = convert.params_from_jax(
         cfg, unflatten(np.load(case_dir / "params.npz")), topo, rank)
     caches = lm.init_paged_caches(cfg, ctx, PagedConfig(**case["paged"]),
-                                  dtype=torch.float32, device="cpu")
+                                  dtype=torch.float32, device="cpu",
+                                  slots=case["slots"])
     calls = np.load(case_dir / "calls.npz")
     out = {}
     with torch.no_grad():
         for i in range(case["calls"]):
             args = (torch.from_numpy(calls[f"{name}{i}"])
                     for name in ("tokens", "start", "table"))
-            logits, caches = lm.paged_step(ctx, cfg, params, *args, caches)
+            slot = torch.from_numpy(calls[f"slot{i}"]) if case["slots"] else None
+            logits, caches = lm.paged_step(ctx, cfg, params, *args, caches,
+                                           slot=slot)
             out[f"logits{i}"] = logits.numpy()
             out[f"pick{i}"] = _greedy_pick(ctx, cfg, logits).numpy()
     np.savez(case_dir / f"rank{rank}.npz", **out)

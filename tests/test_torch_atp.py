@@ -11,8 +11,14 @@ vocab-parallel greedy pick must be their argmax.
 (1, 2, 2) exercises the tp2 boundaries, the sharded norms and, with
 chunks=2, the chunked boundary GEMMs; (1, 4, 1) the k/v all-gather over
 tp1 (two kv heads on four ranks: ``kv_regroup``); qwen1.5 the qkv bias
-added after the boundary.
+added after the boundary.  zamba2-7b (reduced, 5 layers: two super-blocks
+and a tail Mamba2 block) adds the Mamba2 sharding: SSD heads over the flat
+ranks, the B/C/dt projection all-reduced over tp2, the heads all-gathered
+over tp2 before the out projection, the shared block's in-projections
+gathered over tp1, and the per-slot state pools addressed by slot id.
 """
+import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -52,50 +58,61 @@ def _flatten(tree, prefix=""):
     return out
 
 
+#: layers of each arch's reduced config (None: the reduced default)
+LAYERS = {"zamba2-7b": 5}
+
+
+def _config(arch):
+    cfg = get_config(arch).reduced()
+    if LAYERS.get(arch):
+        cfg = dataclasses.replace(cfg, num_layers=LAYERS[arch])
+    return cfg
+
+
 def _calls(vocab):
-    """(tokens, start, table) of each step: slot 0 prefills 8 tokens in
-    two chunks, slot 1 prefills 4, then both decode two ticks."""
+    """(tokens, start, table, slot) of each step: slot 0 prefills 8 tokens
+    in two chunks, slot 1 prefills 4, then both decode two ticks."""
     rng = np.random.default_rng(7)
     toks = rng.integers(0, vocab, (2, 10), dtype=np.int32)
     alloc = PageAllocator(PagedConfig(**PAGED), slots=2)
     alloc.ensure(0, 10)
     alloc.ensure(1, 6)
     table = alloc.table()
-    calls = [(toks[0:1, 0:4], [0], table[0:1]),
-             (toks[0:1, 4:8], [4], table[0:1]),
-             (toks[1:2, 0:4], [0], table[1:2]),
-             (toks[:, [8]], [8, 4], table),
-             (toks[:, [9]], [9, 5], table)]
-    return [(t, np.asarray(s, np.int32), tb) for t, s, tb in calls]
+    calls = [(toks[0:1, 0:4], [0], table[0:1], [0]),
+             (toks[0:1, 4:8], [4], table[0:1], [0]),
+             (toks[1:2, 0:4], [0], table[1:2], [1]),
+             (toks[:, [8]], [8, 4], table, [0, 1]),
+             (toks[:, [9]], [9, 5], table, [0, 1])]
+    return [(t, np.asarray(s, np.int32), tb, np.asarray(sl, np.int32))
+            for t, s, tb, sl in calls]
 
 
-def _jax_logits(cfg, params, calls):
+def _jax_logits(cfg, params, calls, slots):
     topo = MeshTopo((("data", 1),))
     ctx = make_context(topo)
 
-    def step(p, tok, start, table, caches):
-        return lm.paged_step(ctx, cfg, p, tok, start, table, caches)
+    def step(p, tok, start, table, slot, caches):
+        return lm.paged_step(ctx, cfg, p, tok, start, table, caches,
+                             slot=slot if slots else None)
 
     g = jax.jit(shard_map(step, mesh=topo.build(jax.devices()[:1]),
-                          in_specs=(P(),) * 5, out_specs=(P(), P()),
+                          in_specs=(P(),) * 6, out_specs=(P(), P()),
                           check_vma=True))
     caches, _ = lm.init_paged_caches(cfg, ctx, JaxPagedConfig(**PAGED),
-                                     dtype=jnp.float32)
+                                     dtype=jnp.float32, slots=slots)
     out = []
-    for tok, start, table in calls:
-        logits, caches = g(params, tok, start, table, caches)
+    for tok, start, table, slot in calls:
+        logits, caches = g(params, tok, start, table, slot, caches)
         out.append(np.asarray(logits))
     return out
 
 
-@pytest.mark.parametrize("arch,mesh,chunks", [
-    ("llama3-8b", (1, 2, 2), 2),
-    ("llama3-8b", (1, 4, 1), 1),
-    ("qwen1.5-0.5b", (1, 2, 2), 1),
-])
-def test_gloo_mesh_paged_step_matches_jax_single_device(tmp_path, arch, mesh,
-                                                        chunks):
-    cfg = get_config(arch).reduced()
+@functools.lru_cache(maxsize=None)
+def _reference(arch):
+    """The JAX weights, the step inputs, the state pools' slot count (None
+    for a dense model) and the JAX single-device logits of ``arch``: the
+    same for each of its mesh cases."""
+    cfg = _config(arch)
     params = lm.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
     if cfg.qkv_bias:  # zero at init: give the bias path something to add
         rng = np.random.default_rng(1)
@@ -104,14 +121,28 @@ def test_gloo_mesh_paged_step_matches_jax_single_device(tmp_path, arch, mesh,
             attn[k] = jnp.asarray(rng.normal(size=attn[k].shape) * 0.1,
                                   jnp.float32)
     calls = _calls(cfg.vocab_size)
-    want = _jax_logits(cfg, params, calls)
+    slots = 2 if cfg.ssm is not None else None
+    return cfg, params, calls, slots, _jax_logits(cfg, params, calls, slots)
+
+
+@pytest.mark.parametrize("arch,mesh,chunks", [
+    ("llama3-8b", (1, 2, 2), 2),
+    ("llama3-8b", (1, 4, 1), 1),
+    ("qwen1.5-0.5b", (1, 2, 2), 1),
+    ("zamba2-7b", (1, 2, 2), 1),
+    ("zamba2-7b", (1, 4, 1), 1),
+])
+def test_gloo_mesh_paged_step_matches_jax_single_device(tmp_path, arch, mesh,
+                                                        chunks):
+    cfg, params, calls, slots, want = _reference(arch)
 
     np.savez(tmp_path / "params.npz", **_flatten(params))
     np.savez(tmp_path / "calls.npz", **{
         f"{name}{i}": arr for i, c in enumerate(calls)
-        for name, arr in zip(("tokens", "start", "table"), c)})
+        for name, arr in zip(("tokens", "start", "table", "slot"), c)})
     (tmp_path / "case.json").write_text(json.dumps(dict(
-        arch=arch, mesh=mesh, chunks=chunks, paged=PAGED, calls=len(calls))))
+        arch=arch, layers=LAYERS.get(arch), mesh=mesh, chunks=chunks,
+        paged=PAGED, slots=slots, calls=len(calls))))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     world = int(np.prod(mesh))
     procs = [subprocess.Popen([sys.executable, str(WORKER), str(r),

@@ -66,11 +66,19 @@ def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     lens = torch.tensor([4], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, q, q, lens * 0, lens)
+    x, dt, A_log, B, C, D, state = _ssd_inputs(cuda, 1, 8, 2)
+    with pytest.raises(TypeError, match="fp32 dt"):
+        ops.ssd_scan(x, dt.bfloat16(), A_log, B, C, D, chunk=64)
+    with pytest.raises(ValueError, match="state_in"):
+        ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, state_in=state[:, :1])
+    with pytest.raises(ValueError, match="head dim 64"):
+        ops.ssd_scan(x[..., :32], dt, A_log, B, C, D, chunk=64)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,hq,hkv,window,softcap", [(128, 32, 8, 0, 0.0),
-                                                     (64, 16, 16, 48, 30.0)])
+                                                     (64, 16, 16, 48, 30.0),
+                                                     (112, 32, 32, 0, 0.0)])
 def test_flash_attention_kernel_matches_plain(cuda, d, hq, hkv, window,
                                               softcap):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -99,3 +107,40 @@ def test_rmsnorm_kernel_matches_plain(cuda):
     got = ops.rmsnorm(x, g, eps=1e-5)
     assert ops.LAUNCHES["rmsnorm"] == before + 1
     _close(got, ref.rmsnorm_ref(x, g, 1e-5), **BF16_TOL)
+
+
+def _ssd_inputs(dev, b, s, nh, hd=64, ds=64, seed=3):
+    """Model-like SSD inputs: dt = softplus(randn), A_log = 0.5 randn, B and
+    C as the split halves of one [b, s, 2 ds] tensor (strided, as in the
+    Mamba2 block)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x = randn(b, s, nh, hd).bfloat16()
+    dt = torch.nn.functional.softplus(randn(b, s, nh))
+    bc = randn(b, s, 2 * ds).bfloat16()
+    return (x, dt, randn(nh) * 0.5, bc[..., :ds], bc[..., ds:], randn(nh),
+            randn(b, nh, hd, ds) * 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,nh,with_state", [
+    (1, 64, 112, True),     # a prefill chunk, carrying a slot's state
+    (4, 1, 112, True),      # a decode tick: ssd_step
+    (1, 1024, 16, False),   # 16 chunks carried inside one block
+    (2, 100, 16, True),     # a ragged last chunk
+])
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, nh, with_state):
+    """y is bf16 (tolerance as above); the fp32 state allows 1e-3 + 1e-3
+    relative: the kernel sums in another order, and its expf may differ
+    from torch's exp by an ulp."""
+    x, dt, A_log, B, C, D, state = _ssd_inputs(cuda, b, s, nh)
+    state = state if with_state else None
+    before = ops.LAUNCHES["ssd_scan"]
+    y, st = ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, state_in=state)
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    y_ref, st_ref = ref.ssd_ref(x, dt, A_log, B, C, D, 64, state)
+    _close(y, y_ref, **BF16_TOL)
+    _close(st, st_ref, atol=1e-3, rtol=1e-3)

@@ -20,6 +20,7 @@ from repro.configs.registry import get_config  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
+from repro.models import mamba2 as jax_mamba2  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -70,7 +71,8 @@ def test_matmul_reads_a_transposed_weight_and_counts_no_cpu_launch():
     ops.reset_launches()
     got = ops.matmul(torch.from_numpy(a), torch.from_numpy(emb).t())
     np.testing.assert_allclose(_np(got), a @ emb.T, **TOL)
-    assert ops.LAUNCHES == {"matmul": 0, "flash_attention": 0, "rmsnorm": 0}
+    assert ops.LAUNCHES == {"matmul": 0, "flash_attention": 0, "rmsnorm": 0,
+                            "ssd_scan": 0}
     with pytest.raises(ValueError, match="activation"):
         ops.matmul(torch.from_numpy(a), torch.from_numpy(emb).t(),
                    activation="relu")
@@ -174,3 +176,76 @@ def test_flash_attention_fully_masked_rows_are_zero():
     assert torch.isfinite(got).all()
     assert float(got[0].abs().max()) == 0.0
     assert float(got[1].abs().max()) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(rng, b, s, nh, hd, ds):
+    """Model-like inputs: dt = softplus(randn), A_log = 0.5 randn."""
+    dt = np.log1p(np.exp(_randn(rng, b, s, nh)))
+    return (_randn(rng, b, s, nh, hd), dt, _randn(rng, nh, scale=0.5),
+            _randn(rng, b, s, ds), _randn(rng, b, s, ds), _randn(rng, nh),
+            _randn(rng, b, nh, hd, ds, scale=0.5))
+
+
+def _ssd_port(args, chunk, state=None):
+    t = [torch.from_numpy(a) for a in args]
+    st = None if state is None else torch.from_numpy(state)
+    y, st_out = ops.ssd_scan(*t, chunk=chunk, state_in=st)
+    return _np(y), _np(st_out)
+
+
+@pytest.mark.parametrize("b,s,nh,hd,ds,chunk", [(2, 32, 4, 16, 8, 16),
+                                                (1, 64, 3, 8, 16, 16)])
+def test_ssd_plain_matches_pallas(b, s, nh, hd, ds, chunk):
+    """The Pallas kernel is the special case state_in = 0 with the final
+    state dropped and s % chunk == 0."""
+    rng = np.random.default_rng(s + nh)
+    *args, _ = _ssd_inputs(rng, b, s, nh, hd, ds)
+    want = jax_ops.ssd_scan(*map(jnp.asarray, args), chunk=chunk,
+                            interpret=True)
+    y, _ = _ssd_port(args, chunk)
+    np.testing.assert_allclose(y, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("s", [48, 5])   # 5 < chunk: one chunk of 5
+def test_ssd_plain_matches_ssd_chunked_with_state(s):
+    """y and state_out from a nonzero state_in, against the JAX block's own
+    chunked oracle, including its rule for s shorter than the chunk."""
+    rng = np.random.default_rng(s)
+    *args, state = _ssd_inputs(rng, 2, s, 4, 8, 6)
+    want_y, want_st = jax_mamba2.ssd_chunked(
+        *map(jnp.asarray, args), 16, state_in=jnp.asarray(state))
+    y, st = _ssd_port(args, 16, state)
+    np.testing.assert_allclose(y, np.asarray(want_y), **TOL)
+    np.testing.assert_allclose(st, np.asarray(want_st), **TOL)
+
+
+def test_ssd_plain_one_token_matches_ssd_step():
+    rng = np.random.default_rng(9)
+    *args, state = _ssd_inputs(rng, 3, 1, 4, 8, 6)
+    want_y, want_st = jax_mamba2.ssd_step(*map(jnp.asarray, args),
+                                          jnp.asarray(state))
+    y, st = _ssd_port(args, 16, state)
+    np.testing.assert_allclose(y, np.asarray(want_y), **TOL)
+    np.testing.assert_allclose(st, np.asarray(want_st), **TOL)
+
+
+def test_ssd_plain_ragged_chunks_carry_the_state():
+    """s = 35 splits into no s // 16 = 2 equal chunks, so it runs as the
+    kernel runs it: chunks of 16, 16 and a ragged 3.  That equals the same
+    tokens fed in two calls that carry the state across: the chunking
+    changes only the rounding."""
+    rng = np.random.default_rng(10)
+    *args, state = _ssd_inputs(rng, 1, 35, 2, 8, 6)
+    assert ref._ssd_chunks(35, 16) == [(0, 16), (16, 16), (32, 3)]
+    y, st = _ssd_port(args, 16, state)
+    first = [a[:, :20] if a.ndim > 1 else a for a in args]
+    second = [a[:, 20:] if a.ndim > 1 else a for a in args]
+    y1, st1 = _ssd_port(first, 16, state)
+    y2, st2 = _ssd_port(second, 16, st1)
+    np.testing.assert_allclose(y, np.concatenate([y1, y2], axis=1), **TOL)
+    np.testing.assert_allclose(st, st2, **TOL)
