@@ -12,7 +12,9 @@ Phases, in order, each failing the run on any error:
    with the tolerance stated beside each check.  Times the kernel, its
    plain version, one library call for the same function where there is one
    (a yardstick the port never calls), and computes the least time the card
-   could take (the bound).
+   could take (the bound).  Each timed matmul and attention shape prints the
+   tile variant and split its plan took (``ops.matmul_plan``,
+   ``ops.attention_plan``).
 2. serve-llama -- llama3-8b at full width and depth, random bf16 weights from
    a seed, through ``launch.serve.make_paged_server``: 8 requests of seeded
    prompt lengths in 64-256, 16 new tokens each, 4 slots, prefill chunk 64,
@@ -197,7 +199,7 @@ class KernelReport:
                 t["library_ms"] += weight * library_ms
         self.checks.append(check)
         lib = check.get("library_ms")
-        log(f"  {self.meta['name']:16s} {label:48s} err={err:.3e} "
+        log(f"  {self.meta['name']:16s} {label:60s} err={err:.3e} "
             f"tol={tol} {'ok' if ok else 'FAIL'}"
             + (f"  kernel={ms:.4f}ms plain={plain_ms:.4f}ms library="
                f"{'n/a' if lib is None else f'{lib:.4f}ms'} "
@@ -251,13 +253,16 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
             f"rtol*|plain|)")
         for M, step in ((chunk, "prefill"), (slots, "decode")):
             for label, K, N, weight in gemms:
+                plan = ops.matmul_plan(M, N, K)
                 a, b = randn(M, K), randn(K, N, scale=K ** -0.5)
                 got, want = ops.matmul(a, b), ref.matmul_ref(a, b)
                 ok, err = within(got, want, **MM_TOL)
                 ms = timer(lambda: ops.matmul(a, b))
                 plain = timer(lambda: ref.matmul_ref(a, b))
                 lib = timer(lambda: torch.matmul(a, b))
-                if not mm.add(f"{label} M={M} K={K} N={N}", ok, err, MM_TOL,
+                if not mm.add(f"{label} M={M} K={K} N={N} [{plan.name} "
+                              f"stream-K blocks={plan.blocks} "
+                              f"share<={plan.max_share}]", ok, err, MM_TOL,
                               path, step, weight, ms, plain, lib,
                               nbytes=2 * (M * K + K * N + M * N),
                               flops=2 * M * K * N):
@@ -307,6 +312,8 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
                 library_ms=timer(_sdpa(torch, F, q, k, v, mask)),
                 nbytes=2 * 2 * q.numel() + kv_needed,
                 flops=4 * d * visible)
+        plan = ops.attention_plan(b, sq, hq, hkv, skv)
+        label += f" [row_tiles={plan.row_tiles} splits={plan.splits}]"
         if not fa.add(label, ok, err, FA_TOL, path, step, weight, **timing):
             failed.append(f"flash_attention {label}")
 

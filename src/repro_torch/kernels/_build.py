@@ -25,10 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C signature of each library's entry point: (name, argtypes)
 SIGNATURES = {
-    "matmul": ("repro_matmul_bf16", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "matmul": ("repro_matmul_bf16", [_P] * 6 + [_I] * 8 + [_P]),
     "flash_attention": ("repro_flash_attention_bf16",
-                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _F, _P]),
+                        [_P] * 9 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "ssd_scan": ("repro_ssd_scan_bf16",
                  [_P] * 9 + [_I] * 6 + [_L] * 10 + [_P]),
 }

@@ -1,88 +1,201 @@
-// Tiled bf16 GEMM with an fp32 accumulator and a fused bias/activation
-// epilogue, for Hopper (sm_90a), bound through a plain C interface.
+// Stream-K bf16 GEMM on Hopper tensor cores, TMA-fed, with an fp32
+// accumulator and a fused bias/activation epilogue, for sm_90a, bound
+// through a plain C interface.
 //
 // Replaces: src/repro/kernels/matmul.py::matmul (body _mm_kernel, epilogue
 // _epilogue, pallas_call at line 102), bf16 mode.  C[M,N] = A[M,K] @ B[K,N],
 // then per element, in the TPU kernel's order: + bias[N], then gelu-tanh or
 // silu, cast to bf16.  The int8 `scale` mode of the TPU kernel is not here.
 //
-// What bounds it on the H100: on the serving path M is either a prefill
-// chunk (64 rows) or the decode slots (4 rows), and K*N is a weight matrix
-// of 16-470 MB.  At M=4 the GEMM does ~4 flops per weight byte, far below the
-// ~295 flop/byte ridge, so it is bound by the bytes of B; at M=64 it is
-// still below the ridge.  So the design is about streaming B:
-//   - B tiles go global->shared with 16-byte cp.async in a 3-stage ring, so
-//     two tiles are in flight while the tensor cores work on the third;
-//   - two tile shapes: 16x64 tiles when M <= 16 (decode) so that a weight
-//     matrix is cut into many blocks and the card has enough loads in flight,
-//     64x128 tiles otherwise;
-//   - the tensor cores are reached through WMMA 16x16x16 bf16 fragments with
-//     fp32 accumulators (wgmma/TMA are later work);
-//   - B may be stored transposed ([N,K], e.g. a tied embedding used as the
-//     head): the tile is then loaded K-contiguous and read as a col_major
-//     fragment, so no transposed copy is made;
-//   - ragged M, N and K are masked in the loads (zero fill) and the stores:
-//     there is no host padding.  The 16-byte path needs K % 8 == 0 and
-//     (for row-major B) N % 8 == 0 with 16-byte-aligned bases; otherwise the
-//     same kernel loads element by element.
+// What bounds it on the H100: on the serving path M is a prefill chunk (64
+// rows) or the decode slots (4 rows), and K*N is a weight matrix of 1.7 MB
+// to 1 GB.  That is 4-64 flops per byte of B, below the ~295 flop/byte
+// ridge, so the bytes of B bound every serving shape, and the card's
+// 3.35 TB/s is reached only with B streaming into all 132 SMs.  The design:
+//   - stream-K: a plan (ops.matmul_plan, plain Python) picks the tile
+//     variant and the number of blocks P (132 or 264); the (tile, K step)
+//     units, tile-major, are cut into P equal runs, so every SM streams the
+//     same share of B whatever the tile count (N = 240 gives 4 tiles, the
+//     lm_head 2004), with no second wave;
+//   - a tile that one block covers whole is finished by it; the blocks that
+//     share a tile write fp32 partials to a workspace the wrapper allocates,
+//     and the last of them to arrive (an int counter per tile, reset by that
+//     block) sums them in block order and applies bias and activation once.
+//     One launch, no float atomics: the result does not depend on which
+//     block came last;
+//   - A and B tiles come by TMA (one thread, one mbarrier per stage) into
+//     128-byte-swizzled shared tiles, BK = 64, in a 4-6 stage ring that runs
+//     on across tile edges; out-of-range rows and columns arrive as zeros;
+//   - two tile variants: 16x64 on mma.sync m16n8k16 (M <= 16, or a B small
+//     enough to stay in L2 while several row tiles read it), read from the
+//     swizzled tiles by ldmatrix free of bank conflicts; and 64x128 on
+//     wgmma m64n128k16 (one warpgroup, operands straight from the swizzled
+//     tiles) for a prefill chunk;
+//   - B may be stored transposed ([N,K], a tied embedding used as the head):
+//     it is then K-major like A, and no transposed copy is made;
+//   - ragged M, N and K need no host padding.  TMA needs 16-byte-aligned
+//     bases and rows (K % 8 == 0, and N % 8 == 0 for a row-major B);
+//     otherwise the same kernel stores the tiles element by element (the
+//     "scalar" variant).
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kPad = 8;  // bf16 elements of row padding in shared tiles
-
 enum Activation { kNone = 0, kGelu = 1, kSilu = 2 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // src-size 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
-// Load a ROWS x COLS tile whose columns are contiguous in global memory
-// (leading dimension ld) from (r0, c0) of an R x C matrix into shared memory
-// with row stride lds.  Out-of-range elements read as zero.
-template <int ROWS, int COLS, int NT, bool VEC>
-__device__ __forceinline__ void load_tile(bf16* s, int lds, const bf16* g,
-                                          int ld, int r0, int c0, int R,
-                                          int C, int tid) {
-  if constexpr (VEC) {
-    constexpr int kChunks = ROWS * COLS / 8;
-#pragma unroll
-    for (int idx = tid; idx < kChunks; idx += NT) {
-      int r = idx / (COLS / 8);
-      int c = (idx % (COLS / 8)) * 8;
-      int gr = r0 + r, gc = c0 + c;
-      bool p = gr < R && gc < C;  // C % 8 == 0 on this path
-      const bf16* src = p ? g + (size_t)gr * ld + gc : g;
-      cp_async16(s + r * lds + c, src, p);
-    }
-  } else {
-    for (int idx = tid; idx < ROWS * COLS; idx += NT) {
-      int r = idx / COLS, c = idx % COLS;
-      int gr = r0 + r, gc = c0 + c;
-      s[r * lds + c] = (gr < R && gc < C) ? g[(size_t)gr * ld + gc]
-                                          : __float2bfloat16(0.0f);
-    }
+// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D[64x128] (fp32, the warpgroup's 64 registers a thread) += A[64x16] B[16x128]
+// from shared-memory descriptors; TRANS_B 1: B is MN-major (row-major [K,N])
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// order this thread's generic-proxy stores to shared memory before the
+// async proxy's reads of it (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// TMA: one thread copies a 2D box from global to shared memory, and the
+// bytes land on an mbarrier; out-of-range elements of the box read as zero.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "wait:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra wait;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Byte offset of 16-byte chunk c of 128-byte row r of a 128B-swizzled
+// atom: rows 128 bytes apart, chunk index XOR (row % 8), the layout TMA's
+// SWIZZLE_128B writes and wgmma reads.  A tile of ROWS rows and COLS
+// columns (contiguous in global memory) is COLS / 64 such atoms, atom a at
+// byte a * ROWS * 128.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+template <int ROWS>
+__device__ __forceinline__ int swz_at(int r, int col) {
+  return (col >> 6) * ROWS * 128 + swz(r, (col >> 3) & 7) + (col & 7) * 2;
+}
+
+// The scalar variant's load: the same swizzled tile, element by element.
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void store_tile(unsigned char* s, const bf16* g,
+                                           int ld, int r0, int c0, int R,
+                                           int C, int tid) {
+  for (int idx = tid; idx < ROWS * COLS; idx += NT) {
+    int r = idx / COLS, col = idx % COLS;
+    int gr = r0 + r, gc = c0 + col;
+    *reinterpret_cast<bf16*>(s + swz_at<ROWS>(r, col)) =
+        (gr < R && gc < C) ? g[(size_t)gr * ld + gc] : __float2bfloat16(0.0f);
   }
 }
 
@@ -95,174 +208,422 @@ __device__ __forceinline__ float activate(float x, int act) {
   return x;
 }
 
-template <int BM, int BN, int BK, bool BT>
-struct TileGeometry {
-  static constexpr int kLdA = BK + kPad;
-  static constexpr int kLdB = BT ? BK + kPad : BN + kPad;
-  static constexpr int kABytes = BM * kLdA * 2;
-  static constexpr int kBBytes = (BT ? BN * kLdB : BK * kLdB) * 2;
-  static constexpr int kStageBytes = kABytes + kBBytes;
+struct Args {
+  CUtensorMap tma_a, tma_b;  // the TMA maps of A and B (16-byte path)
+  const bf16* A;
+  const bf16* B;
+  const bf16* bias;
+  bf16* C;
+  float* ws;      // [2 * gridDim.x, BM*BN] fp32 partial tiles
+  int* counters;  // [tiles] arrivals, zero between launches
+  int M, N, K, act;
 };
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int STAGES,
-          bool BT, bool VEC>
-__global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
-    mm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-              const bf16* __restrict__ bias, bf16* __restrict__ C, int M,
-              int N, int K, int act) {
-  using G = TileGeometry<BM, BN, BK, BT>;
-  constexpr int NT = WARPS_M * WARPS_N * 32;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int FM = WM / 16, FN = WN / 16;
-  static_assert(G::kABytes % 128 == 0 && G::kBBytes % 128 == 0,
-                "shared tiles must keep 128-byte alignment");
+// WG: one warpgroup runs wgmma m64n128k16 (4 warps of 16 rows x 128
+// columns); otherwise WARPS_M x WARPS_N warps run mma.sync.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES, bool WG>
+struct Config {
+  static constexpr int BK = 64;  // one 128-byte swizzle atom of K
+  static constexpr int kThreads = WARPS_M * WARPS_N * 32;
+  static constexpr int kWM = BM / WARPS_M, kWN = BN / WARPS_N;
+  static constexpr int kFM = kWM / 16, kFN = kWN / 8;
+  static constexpr int kPairs = kFM * kFN * 2;  // float2 accumulators
+  static constexpr int kABytes = BM * BK * 2;
+  static constexpr int kBBytes = BK * BN * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  // swizzle atoms need 1024-byte alignment: spare 1 KB to align the ring
+  static constexpr int kSmem = STAGES * kStageBytes + 1024;
+  // contributors whose partials the merging block loads at once
+  static constexpr int kUnroll = kPairs <= 4 ? 16 : 2;
+  static_assert(kFM >= 1 && kFN % 2 == 0, "warp tile: 16-row, 16-col steps");
+  static_assert(kABytes % 1024 == 0 && kBBytes % 1024 == 0,
+                "stages keep the swizzle atoms 1024-byte aligned");
+  static_assert(BN % 64 == 0, "B tiles are whole 64-column atoms");
+  static_assert(kPairs * 2 * kThreads == BM * BN, "partial tile layout");
+  static_assert(!WG || (BM == 64 && BN == 128 && WARPS_M == 4 &&
+                        WARPS_N == 1),
+                "the wgmma variant is one warpgroup on 64x128 tiles");
+};
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* scratch = reinterpret_cast<float*>(smem + STAGES * G::kStageBytes);
+// Block p takes units [p*W/P, (p+1)*W/P) of the W (tile, K step) units,
+// tile-major, through one ring that runs on across tile edges.  A tile that
+// the block covers whole it finishes; for a shared tile it writes its
+// partial (slot 0 for the tile its run starts in, 1 for the one it ends
+// in), and the last of the tile's blocks to arrive sums the partials in
+// block order and applies the epilogue.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES,
+          int MIN_BLOCKS, bool BT, bool VEC, bool WG>
+__global__ void __launch_bounds__(WARPS_M* WARPS_N * 32, MIN_BLOCKS)
+    mm_kernel(const __grid_constant__ Args args) {
+  using G = Config<BM, BN, WARPS_M, WARPS_N, STAGES, WG>;
+  constexpr int BK = G::BK, NT = G::kThreads;
+  constexpr int FM = G::kFM, FN = G::kFN, PAIRS = G::kPairs;
 
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int s_last;
+  __shared__ __align__(8) uint64_t full[STAGES];  // TMA arrivals per stage
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int M = args.M, N = args.N, K = args.K;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int g = lane / 4, t = lane % 4;
+  const int tiles_n = (N + BN - 1) / BN;
   const int KT = (K + BK - 1) / BK;
+  const long long W = (long long)tiles_n * ((M + BM - 1) / BM) * KT;
+  const long long P = gridDim.x;
+  auto run_start = [&](long long q) { return q * W / P; };
+  auto owner = [&](long long u) { return (int)(((u + 1) * P - 1) / W); };
+  const long long u0 = run_start(blockIdx.x);
+  const int n_units = (int)(run_start(blockIdx.x + 1) - u0);
+  const int first_tile = (int)(u0 / KT);
+  // the unit the next load fetches and the unit being computed, as
+  // (tile, K step), stepped without divisions
+  int ld_tile = first_tile, ld_kt = (int)(u0 % KT);
+  int tile = ld_tile, kt = ld_kt;
 
-  auto a_tile = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + s * G::kStageBytes);
-  };
-  auto b_tile = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + s * G::kStageBytes + G::kABytes);
-  };
-  auto load_stage = [&](int s, int kt) {
-    int k0 = kt * BK;
-    load_tile<BM, BK, NT, VEC>(a_tile(s), G::kLdA, A, K, m0, k0, M, K, tid);
-    if constexpr (BT) {
-      load_tile<BN, BK, NT, VEC>(b_tile(s), G::kLdB, B, K, n0, k0, N, K, tid);
+  // stage s <- the A and B tiles of the next unit
+  int ld_m0 = (ld_tile / tiles_n) * BM, ld_n0 = (ld_tile % tiles_n) * BN;
+  auto load_unit = [&](int s) {
+    const int m0 = ld_m0, n0 = ld_n0, k0 = ld_kt * BK;
+    if (++ld_kt == KT) {
+      ld_kt = 0;
+      ++ld_tile;
+      ld_m0 = (ld_tile / tiles_n) * BM;
+      ld_n0 = (ld_tile % tiles_n) * BN;
+    }
+    unsigned char* sa = smem + s * G::kStageBytes;
+    unsigned char* sb = sa + G::kABytes;
+    if constexpr (VEC) {
+      if (tid == 0) {
+        mbar_expect_tx(&full[s], G::kStageBytes);
+        tma_load_2d(sa, &args.tma_a, k0, m0, &full[s]);
+        if constexpr (BT) {  // one box of BN rows of [N,K]: K-major
+          tma_load_2d(sb, &args.tma_b, k0, n0, &full[s]);
+        } else {  // a box per 64-column atom of [K,N]: MN-major
+#pragma unroll
+          for (int a = 0; a < BN / 64; ++a)
+            tma_load_2d(sb + a * BK * 128, &args.tma_b, n0 + a * 64, k0,
+                        &full[s]);
+        }
+      }
     } else {
-      load_tile<BK, BN, NT, VEC>(b_tile(s), G::kLdB, B, N, k0, n0, K, N, tid);
+      store_tile<BM, BK, NT>(sa, args.A, K, m0, k0, M, K, tid);
+      if constexpr (BT) {
+        store_tile<BN, BK, NT>(sb, args.B, K, n0, k0, N, K, tid);
+      } else {
+        store_tile<BK, BN, NT>(sb, args.B, N, k0, n0, K, N, tid);
+      }
     }
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+  float acc[FM][FN][4];
+  auto zero_acc = [&]() {
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+    for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+      for (int j = 0; j < FN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  };
+  zero_acc();
 
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  using BLayout = typename std::conditional<BT, wmma::col_major,
-                                            wmma::row_major>::type;
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
+  if constexpr (VEC) {
+    if (tid == 0) {
+      for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
     __syncthreads();
-    // the stage refilled here was read in iteration kt-1, which every
-    // thread has finished: they all passed the barrier above
-    int nxt = kt + STAGES - 1;
-    if (nxt < KT) load_stage(nxt % STAGES, nxt);
-    cp_async_commit();
+  }
+  for (int s = 0; s < STAGES - 1 && s < n_units; ++s) load_unit(s);
 
-    const bf16* As = a_tile(kt % STAGES);
-    const bf16* Bs = b_tile(kt % STAGES);
+  for (int it = 0; it < n_units; ++it) {
+    if constexpr (VEC) mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+    if constexpr (WG && !VEC) fence_proxy_async();
+    __syncthreads();
+    // the stage refilled here was read in iteration it-1, which every
+    // thread has finished (wgmma reads included: each iteration waits for
+    // its own): they all passed the barrier above
+    const int nxt = it + STAGES - 1;
+    if (nxt < n_units) load_unit(nxt % STAGES);
+
+    const unsigned char* As = smem + (it % STAGES) * G::kStageBytes;
+    const unsigned char* Bs = As + G::kABytes;
+    if constexpr (WG) {
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb[FN];
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // K-major operands advance 32 bytes inside their swizzle atom; the
+        // MN-major B advances two 8-row groups of 1024 bytes
+        uint64_t da = smem_desc(As + kk * 32, 16, 1024);
+        uint64_t db = BT ? smem_desc(Bs + kk * 32, 16, 1024)
+                         : smem_desc(Bs + kk * 2048, BK * 128, 1024);
+        wgmma_m64n128k16<BT ? 0 : 1>(&acc[0][0][0], da, db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        unsigned af[FM][4], bfr[FN][2];
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+          ldsm_x4(af[i], As + swz(wm * G::kWM + i * 16 + lane % 16,
+                                  2 * kk + lane / 16));
+#pragma unroll
+        for (int j = 0; j < FN; j += 2) {
+          unsigned r[4];
+          const int n = wn * G::kWN + j * 8 + (lane / 16) * 8;
+          if constexpr (BT) {  // rows are n, chunks are k
+            ldsm_x4(r, Bs + swz(n + lane % 8, 2 * kk + (lane / 8) % 2));
+          } else {  // rows are k, 64-column atoms of n, read transposed
+            ldsm_x4_trans(r, Bs + (n >> 6) * BK * 128 +
+                                 swz(kk * 16 + lane % 16, (n >> 3) & 7));
+          }
+          bfr[j][0] = r[0];
+          bfr[j][1] = r[1];
+          bfr[j + 1][0] = r[2];
+          bfr[j + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+#pragma unroll
+          for (int j = 0; j < FN; ++j) mma16816(acc[i][j], af[i], bfr[j]);
+      }
+    }
+
+    // the end of this block's part of a tile: finish it or hand it on
+    if (kt != KT - 1 && it != n_units - 1) {
+      ++kt;
+      continue;
+    }
+    const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+    const bool whole = kt == KT - 1 && it >= kt;  // began at K step 0 here
+    const int done_tile = tile;
+    kt = 0;
+    ++tile;
+    // pair p = (i, j, h): row m0 + wm*WM + i*16 + g + 8h, cols 2t, 2t+1
+    auto row_of = [&](int i, int h) {
+      return m0 + wm * G::kWM + i * 16 + g + h * 8;
+    };
+    if (!whole) {
+      // a shared tile: partial out (rows < M only), float2 pair p of
+      // thread t at [p * NT + t] of the slot
+      const int slot = 2 * blockIdx.x + (done_tile == first_tile ? 0 : 1);
+      float2* part = reinterpret_cast<float2*>(args.ws) +
+                     (size_t)slot * (PAIRS * NT);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * WM + i * 16) * G::kLdA + kk,
-                               G::kLdA);
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const bf16* p = BT ? Bs + (wn * WN + j * 16) * G::kLdB + kk
-                           : Bs + kk * G::kLdB + wn * WN + j * 16;
-        wmma::load_matrix_sync(fb[j], p, G::kLdB);
+        for (int j = 0; j < FN; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (row_of(i, h) < M)
+              part[((i * FN + j) * 2 + h) * NT + tid] =
+                  make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      __threadfence();
+      __syncthreads();
+      const int q0 = owner((long long)done_tile * KT);
+      const int q1 = owner((long long)(done_tile + 1) * KT - 1);
+      if (tid == 0) {
+        int prev = atomicAdd(args.counters + done_tile, 1);
+        s_last = prev == q1 - q0;
+        if (s_last) args.counters[done_tile] = 0;  // clean for the next launch
+      }
+      __syncthreads();
+      if (!s_last) {
+        zero_acc();
+        continue;
+      }
+      __threadfence();
+      // the last block sums the partials in block order, kUnroll blocks'
+      // loads in flight at a time
+      float2 sum[PAIRS];
+#pragma unroll
+      for (int p = 0; p < PAIRS; ++p) sum[p] = make_float2(0.0f, 0.0f);
+      for (int q = q0; q <= q1; q += G::kUnroll) {
+        float2 v[G::kUnroll][PAIRS];
+#pragma unroll
+        for (int x = 0; x < G::kUnroll; ++x) {
+          const int qq = q + x;
+          if (qq > q1) continue;
+          const int slot = 2 * qq + (done_tile == run_start(qq) / KT ? 0 : 1);
+          const float2* src = reinterpret_cast<const float2*>(args.ws) +
+                              (size_t)slot * (PAIRS * NT) + tid;
+#pragma unroll
+          for (int i = 0; i < FM; ++i)
+#pragma unroll
+            for (int j = 0; j < FN; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int p = (i * FN + j) * 2 + h;
+                v[x][p] = row_of(i, h) < M ? __ldcg(src + p * NT)
+                                           : make_float2(0.0f, 0.0f);
+              }
+        }
+#pragma unroll
+        for (int x = 0; x < G::kUnroll; ++x) {
+          if (q + x > q1) continue;
+#pragma unroll
+          for (int p = 0; p < PAIRS; ++p) {
+            sum[p].x += v[x][p].x;
+            sum[p].y += v[x][p].y;
+          }
+        }
       }
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
         for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = (i * FN + j) * 2 + h;
+            acc[i][j][2 * h] = sum[p].x;
+            acc[i][j][2 * h + 1] = sum[p].y;
+          }
     }
-  }
-  cp_async_wait<0>();
 
-  // epilogue: each warp stages one 16x16 fragment at a time in its own
-  // scratch, then applies bias and activation and stores the in-range part
-  float* ws = scratch + warp * 256;
+    // epilogue, once per output element: bias, then activation
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
+    for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(ws, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      int rb = m0 + wm * WM + i * 16, cb = n0 + wn * WN + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        int r = rb + e / 16, c = cb + e % 16;
-        if (r < M && c < N) {
-          float v = ws[e];
-          if (bias != nullptr) v += __bfloat162float(bias[c]);
-          C[(size_t)r * N + c] = __float2bfloat16(activate(v, act));
+      for (int j = 0; j < FN; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int r = row_of(i, h);
+          if (r >= M) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int c = n0 + wn * G::kWN + j * 8 + 2 * t + e;
+            if (c >= N) continue;
+            float v = acc[i][j][h * 2 + e];
+            if (args.bias != nullptr) v += __bfloat162float(args.bias[c]);
+            args.C[(size_t)r * N + c] =
+                __float2bfloat16(activate(v, args.act));
+          }
         }
-      }
-      __syncwarp();
-    }
+    zero_acc();
   }
 }
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int STAGES,
-          bool BT, bool VEC>
-cudaError_t launch(const bf16* a, const bf16* b, const bf16* bias, bf16* c,
-                   int M, int N, int K, int act, cudaStream_t stream) {
-  using G = TileGeometry<BM, BN, BK, BT>;
-  constexpr int NT = WARPS_M * WARPS_N * 32;
-  constexpr int kSmem = STAGES * G::kStageBytes + (NT / 32) * 256 * 4;
-  auto kernel = mm_kernel<BM, BN, BK, WARPS_M, WARPS_N, STAGES, BT, VEC>;
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (so
+// the library needs no link to libcuda)
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// map of a row-major bf16 [rows, cols] matrix in boxes of box_rows x 64
+// columns (128 bytes), 128-byte swizzled as wgmma reads them.  With
+// wide_l2, L2 fetches 256 bytes per row: right where the next 128 bytes are
+// this block's next box (the next K step of a K-major operand, the second
+// atom of a 128-column B tile), and a waste of DRAM bytes where they belong
+// to another block's tile.
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
+                int box_rows, bool wide_l2) {
+  auto fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            wide_l2 ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+                    : CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES,
+          int MIN_BLOCKS, bool BT, bool VEC, bool WG = false>
+cudaError_t launch(Args args, int blocks, cudaStream_t stream) {
+  using G = Config<BM, BN, WARPS_M, WARPS_N, STAGES, WG>;
+  constexpr int BK = G::BK;
+  if constexpr (VEC) {
+    bool ok = tensor_map(&args.tma_a, args.A, args.M, args.K, BM, true) &&
+              (BT ? tensor_map(&args.tma_b, args.B, args.N, args.K, BN, true)
+                  : tensor_map(&args.tma_b, args.B, args.K, args.N, BK,
+                               BN >= 128));
+    if (!ok) return cudaErrorInvalidValue;
+  }
+  auto kernel =
+      mm_kernel<BM, BN, WARPS_M, WARPS_N, STAGES, MIN_BLOCKS, BT, VEC, WG>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, NT, kSmem, stream>>>(a, b, bias, c, M, N, K, act);
+  const long long kt = (args.K + BK - 1) / BK;
+  const long long units =
+      (long long)((args.N + BN - 1) / BN) * ((args.M + BM - 1) / BM) * kt;
+  if (blocks < 1 || blocks > units) return cudaErrorInvalidValue;
+  bool shared = false;  // some run starts inside a tile
+  for (long long p = 1; p < blocks && !shared; ++p)
+    shared = p * units / blocks % kt != 0;
+  if (shared && (args.ws == nullptr || args.counters == nullptr))
+    return cudaErrorInvalidValue;
+  kernel<<<blocks, G::kThreads, G::kSmem, stream>>>(args);
   return cudaGetLastError();
 }
 
+// variant: the tile shape ops.matmul_plan chose (its MATMUL_VARIANTS order)
 template <bool BT, bool VEC>
-cudaError_t dispatch(const bf16* a, const bf16* b, const bf16* bias, bf16* c,
-                     int M, int N, int K, int act, cudaStream_t stream) {
-  if (M <= 16)
-    return launch<16, 64, 64, 1, 4, 3, BT, VEC>(a, b, bias, c, M, N, K, act,
-                                                stream);
-  return launch<64, 128, 32, 2, 4, 3, BT, VEC>(a, b, bias, c, M, N, K, act,
-                                               stream);
+cudaError_t dispatch(int variant, const Args& args, int blocks,
+                     cudaStream_t stream) {
+  switch (variant) {
+    case 0:  // 16x64 on mma.sync: decode rows, or a small B
+      return launch<16, 64, 1, 4, 6, 2, BT, VEC>(args, blocks, stream);
+    case 1:  // 64x128 on wgmma: a prefill chunk
+      return launch<64, 128, 4, 1, 4, 2, BT, VEC, true>(args, blocks, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // a [M,K] row-major; b [K,N] row-major, or (b_trans) stored [N,K] row-major;
 // bias [N] or null; c [M,N] row-major.  act: 0 none, 1 gelu-tanh, 2 silu.
-// vec: 1 when the 16-byte load path applies (see the header note).
+// vec: 1 when the TMA path applies (16-byte-aligned bases, K % 8 == 0 and,
+// for a row-major b, N % 8 == 0); 0 loads the tiles element by element.
+// variant and blocks come from ops.matmul_plan; with fewer blocks than
+// (tile, K step) units, ws holds 2 * blocks * BM * BN floats and counters
+// one zeroed int per output tile.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_matmul_bf16(const void* a, const void* b,
-                                 const void* bias, void* c, int M, int N,
-                                 int K, int b_trans, int act, int vec,
-                                 void* stream) {
-  auto A = static_cast<const bf16*>(a);
-  auto B = static_cast<const bf16*>(b);
-  auto bs = static_cast<const bf16*>(bias);
-  auto Cp = static_cast<bf16*>(c);
-  auto st = static_cast<cudaStream_t>(stream);
+                                 const void* bias, void* c, void* ws,
+                                 void* counters, int M, int N, int K,
+                                 int b_trans, int act, int vec, int variant,
+                                 int blocks, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+  Args args{};
+  args.A = static_cast<const bf16*>(a);
+  args.B = static_cast<const bf16*>(b);
+  args.bias = static_cast<const bf16*>(bias);
+  args.C = static_cast<bf16*>(c);
+  args.ws = static_cast<float*>(ws);
+  args.counters = static_cast<int*>(counters);
+  args.M = M;
+  args.N = N;
+  args.K = K;
+  args.act = act;
+  auto st = static_cast<cudaStream_t>(stream);
   if (b_trans) {
-    return vec ? dispatch<true, true>(A, B, bs, Cp, M, N, K, act, st)
-               : dispatch<true, false>(A, B, bs, Cp, M, N, K, act, st);
+    return vec ? dispatch<true, true>(variant, args, blocks, st)
+               : dispatch<true, false>(variant, args, blocks, st);
   }
-  return vec ? dispatch<false, true>(A, B, bs, Cp, M, N, K, act, st)
-             : dispatch<false, false>(A, B, bs, Cp, M, N, K, act, st);
+  return vec ? dispatch<false, true>(variant, args, blocks, st)
+             : dispatch<false, false>(variant, args, blocks, st);
 }

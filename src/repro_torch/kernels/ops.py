@@ -1,4 +1,4 @@
-"""Kernel dispatch and launch counters.
+"""Kernel dispatch, launch plans and launch counters.
 
 Each wrapper takes the plain version (``kernels.ref``) for a tensor on the
 CPU, launches its hand-written kernel for a tensor on a CUDA device, and
@@ -7,11 +7,19 @@ the kernel to the plain version.
 
 ``LAUNCHES`` counts kernel launches per wrapper: it grows by one where a
 kernel is launched and nowhere else, so a run can show that its path went
-through the kernels (``reset_launches`` before, read after).
+through the kernels (``reset_launches`` before, read after).  A stream-K
+matmul and a split-KV attention merge their splits inside the same launch,
+so each call is still one launch.
+
+``matmul_plan`` and ``attention_plan`` choose the CUDA kernels' tiles and
+splits from the shapes alone; they are plain Python, so the CPU tests check
+them.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -20,6 +28,9 @@ from repro_torch.kernels import ref
 LAUNCHES = {"matmul": 0, "flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
 
 _ACTIVATIONS = {None: 0, "gelu": 1, "silu": 2}
+
+#: streaming multiprocessors of the H100 the plans fill
+SMS = 132
 
 
 def reset_launches() -> None:
@@ -48,6 +59,152 @@ def _check(err: int, what: str) -> None:
 
 def _ptr(t):
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+_COUNTERS: dict[tuple, torch.Tensor] = {}
+
+
+def _counters(t: torch.Tensor, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 arrival counters for the split kernels on
+    ``t``'s device and current stream.  The kernel's last-arriving block
+    resets each counter it used, so the buffer stays zero between launches;
+    a launch that is refused ran no block and leaves it as it was."""
+    key = (t.device, torch.cuda.current_stream(t.device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * (0 if buf is None else buf.numel()), 1024)
+        buf = _COUNTERS[key] = torch.zeros(size, dtype=torch.int32,
+                                           device=t.device)
+    return buf
+
+
+def _launch(fn, args, what: str, counters) -> None:
+    err = fn(*args)
+    if err != 0 and counters is not None:
+        counters.zero_()
+    _check(err, what)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """A stream-K launch of the CUDA matmul: output tiles of ``bm x bn``
+    (``variant``, the index into ``MATMUL_VARIANTS`` the C entry takes),
+    K steps of ``bk``, and ``blocks`` blocks that take equal runs of the
+    ``tiles * kt`` (tile, K step) units, tile-major: block p takes units
+    ``[p * W // blocks, (p + 1) * W // blocks)``, as the kernel cuts them."""
+    variant: int
+    bm: int
+    bn: int
+    bk: int
+    tiles: int
+    kt: int
+    blocks: int
+
+    @property
+    def name(self) -> str:
+        return f"{self.bm}x{self.bn} {MATMUL_VARIANTS[self.variant][3]}"
+
+    def _start(self, p: int) -> int:
+        return p * self.tiles * self.kt // self.blocks
+
+    def _owner(self, u: int) -> int:
+        return ((u + 1) * self.blocks - 1) // (self.tiles * self.kt)
+
+    def tile_runs(self, tile: int) -> list[tuple[int, int, int]]:
+        """(block, first K step, end K step) of each block that works on
+        ``tile``, in block order: the order the partials are summed in."""
+        kt = self.kt
+        out = []
+        for p in range(self._owner(tile * kt),
+                       self._owner((tile + 1) * kt - 1) + 1):
+            u0 = max(self._start(p), tile * kt)
+            u1 = min(self._start(p + 1), (tile + 1) * kt)
+            out.append((p, u0 - tile * kt, u1 - tile * kt))
+        return out
+
+    @functools.cached_property
+    def max_share(self) -> int:
+        """The most blocks that work on one tile: the partials the merging
+        block of that tile sums."""
+        kt = self.kt
+        return max(self._owner((t + 1) * kt - 1) - self._owner(t * kt) + 1
+                   for t in range(self.tiles))
+
+
+#: (bm, bn, bk, products) of each tile variant of ``csrc/matmul.cu``, in
+#: its order
+MATMUL_VARIANTS = ((16, 64, 64, "mma.sync"), (64, 128, 64, "wgmma"))
+#: the most blocks a plan puts on one SM (each variant fits two)
+BLOCKS_PER_SM = 2
+#: K steps each block must stream before a second block per SM pays for
+#: the extra partial tiles it makes (measured: only the lm_head reaches it)
+MIN_RUN = 128
+#: a B this small stays in L2, so 16-row tiles of a prefill chunk may read
+#: it once per row tile
+SMALL_B_BYTES = 8 << 20
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_plan(M: int, N: int, K: int, sms: int = SMS) -> MatmulPlan:
+    """The tile variant and the stream-K grid of an ``[M, K] @ [K, N]``.
+
+    M <= 16 (decode rows) takes the 16x64 mma.sync tiles, and so does a
+    larger M where B is small (it stays in L2 for the other row tiles);
+    a prefill chunk otherwise takes the 64x128 wgmma tiles.  The blocks
+    take equal runs of (tile, K step) units, so every SM streams the same
+    share of B whatever the tile count, with no second wave: one block per
+    SM, or two where each still streams ``MIN_RUN`` K steps."""
+    variant = 0 if M <= 16 or 2 * K * N <= SMALL_B_BYTES else 1
+    bm, bn, bk, _ = MATMUL_VARIANTS[variant]
+    tiles, kt = -(-M // bm) * -(-N // bn), -(-K // bk)
+    per_sm = BLOCKS_PER_SM
+    while per_sm > 1 and tiles * kt < per_sm * sms * MIN_RUN:
+        per_sm -= 1
+    return MatmulPlan(variant, bm, bn, bk, tiles, kt,
+                      min(per_sm * sms, tiles * kt))
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """A CUDA flash-attention launch: ``row_tiles`` tiles of ``rows``
+    (q row x q head of a GQA group) per (batch row, kv head), and the keys
+    cut into ``splits`` ranges of ``tiles_per_split`` tiles of ``bkv``."""
+    row_tiles: int
+    splits: int
+    tiles_per_split: int
+    rows: int = 64
+    bkv: int = 64
+
+    def key_ranges(self, skv: int) -> list[tuple[int, int]]:
+        span = self.tiles_per_split * self.bkv
+        return [(s * span, min(skv, (s + 1) * span))
+                for s in range(self.splits)]
+
+
+#: the most splits the attention kernel merges
+MAX_KV_SPLITS = 32
+
+
+def attention_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
+                   sms: int = SMS) -> AttentionPlan:
+    """Row tiles of 64 (q row x q head of the group, heads innermost) per
+    (batch row, kv head); then, where those blocks fill less than half the
+    card, split the keys (flash-decoding) into ranges of whole 64-key
+    tiles, as many as it takes to cover ``sms`` SMs.  A split costs a
+    partial write and a merge of a few microseconds, so it must carry at
+    least one key tile for a row tile of at most 16 rows (a decode tick:
+    one warp's product per key tile) and four for a fuller one."""
+    rows = sq * (hq // hkv)
+    row_tiles = -(-rows // 64)
+    kv_tiles = -(-skv // 64)
+    base = b * hkv * row_tiles
+    splits = 1
+    if 2 * base <= sms:
+        per_split = 1 if rows <= 16 else 4
+        splits = max(1, min(kv_tiles // per_split, -(-sms // base),
+                            MAX_KV_SPLITS))
+    per = -(-kv_tiles // splits)
+    return AttentionPlan(row_tiles, -(-kv_tiles // per), per)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
@@ -87,10 +244,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
         return out.reshape(*lead, N)
     vec = int(K % 8 == 0 and (b_trans or N % 8 == 0)
               and a2.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
-    err = _build.entry("matmul")(
-        _ptr(a2), _ptr(b), _ptr(bias), _ptr(out), M, N, K, b_trans,
-        _ACTIVATIONS[activation], vec, _stream(a))
-    _check(err, "matmul")
+    plan = matmul_plan(M, N, K)
+    ws = counters = None
+    if plan.max_share > 1:   # some tile is shared
+        ws = torch.empty(2 * plan.blocks * plan.bm * plan.bn,
+                         dtype=torch.float32, device=a.device)
+        counters = _counters(a, plan.tiles)
+    _launch(_build.entry("matmul"),
+            (_ptr(a2), _ptr(b), _ptr(bias), _ptr(out), _ptr(ws),
+             _ptr(counters), M, N, K, b_trans, _ACTIVATIONS[activation], vec,
+             plan.variant, plan.blocks, _stream(a)), "matmul", counters)
     LAUNCHES["matmul"] += 1
     return out.reshape(*lead, N)
 
@@ -120,16 +283,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"or 128, got {d}")
     if {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
         raise TypeError("the CUDA flash attention takes bf16 q/k/v")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernel copies 16-byte chunks: contiguous, 16-byte-aligned bases
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     qo = q_offset.to(torch.int32).contiguous()
     kl = kv_len.to(torch.int32).contiguous()
     if qo.shape != (b,) or kl.shape != (b,):
         raise ValueError("q_offset and kv_len must be [b]")
     out = torch.empty_like(q)
-    err = _build.entry("flash_attention")(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(qo), _ptr(kl), b, sq, skv,
-        hq, hkv, d, int(causal), int(window), float(softcap), _stream(q))
-    _check(err, "flash_attention")
+    plan = attention_plan(b, sq, hq, hkv, skv)
+    ws_o = ws_lse = counters = None
+    if plan.splits > 1:
+        parts = b * hkv * plan.row_tiles * plan.splits * plan.rows
+        ws_o = torch.empty(parts * d, dtype=torch.float32, device=q.device)
+        ws_lse = torch.empty(parts, dtype=torch.float32, device=q.device)
+        counters = _counters(q, b * hkv * plan.row_tiles)
+    _launch(_build.entry("flash_attention"),
+            (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(qo), _ptr(kl),
+             _ptr(ws_o), _ptr(ws_lse), _ptr(counters), b, sq, skv, hq, hkv, d,
+             int(causal), int(window), float(softcap), plan.row_tiles,
+             plan.splits, plan.tiles_per_split, _stream(q)),
+            "flash_attention", counters)
     LAUNCHES["flash_attention"] += 1
     return out
 

@@ -35,6 +35,18 @@ def matmul_ref(a, b, bias=None, activation: str | None = None):
     return epilogue(out, bias, activation).to(a.dtype)
 
 
+def matmul_split_ref(a, b, bias=None, activation: str | None = None, *,
+                     k_ranges):
+    """``matmul_ref`` as the split-K kernel computes it: one fp32 partial
+    product per ``[k0, k1)`` of ``k_ranges`` (``MatmulPlan.k_ranges``),
+    summed in split order, then the epilogue once on the full sum."""
+    out = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32,
+                      device=a.device)
+    for k0, k1 in k_ranges:
+        out = out + a[:, k0:k1].float() @ b[k0:k1].float()
+    return epilogue(out, bias, activation).to(a.dtype)
+
+
 def attention_mask(sq: int, skv: int, q_offset, kv_len, *, causal=True,
                    window: int = 0):
     """[b, sq, skv] bool: the mask of ``models.layers.attention_core``.
@@ -77,6 +89,53 @@ def attention_ref(q, k, v, q_offset, kv_len, *, causal=True, window: int = 0,
     probs = torch.softmax(scores, dim=-1) * mask.any(-1, keepdim=True)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def attention_split_ref(q, k, v, q_offset, kv_len, *, key_ranges,
+                        causal=True, window: int = 0, softcap: float = 0.0):
+    """``attention_ref`` as the split-KV kernel computes it: for each key
+    range ``[k0, k1)`` of ``key_ranges`` (``AttentionPlan.key_ranges``) a
+    partial output normalised over that range's visible keys and its
+    log-sum-exp (-inf where the range shows a row no key); then per row
+    ``O = sum_s exp(lse_s - L) O_s / sum_s exp(lse_s - L)`` with
+    ``L = max_s lse_s``, merged in split order, and zeros where every
+    split saw no key."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    mask = attention_mask(sq, skv, q_offset, kv_len, causal=causal,
+                          window=window)[:, None]
+    parts, lses = [], []
+    for k0, k1 in key_ranges:
+        s, m = scores[..., k0:k1], mask[..., k0:k1]
+        seen = m.any(-1, keepdim=True)
+        s = s.masked_fill(~m, -torch.inf)
+        mx = torch.where(seen, s.amax(-1, keepdim=True),
+                         torch.zeros_like(s[..., :1]))
+        p = torch.exp(s - mx)                       # 0 where masked
+        l = p.sum(-1, keepdim=True)
+        probs = p / torch.where(seen, l, torch.ones_like(l))
+        parts.append(torch.einsum("bhqk,bkhd->bhqd", probs.to(q.dtype).float(),
+                                  v[:, k0:k1].float()))
+        lses.append(torch.where(seen, mx + torch.log(l),
+                                torch.full_like(l, -torch.inf)))
+    lse = torch.stack(lses)                         # [splits, b, h, q, 1]
+    L = lse.amax(0)
+    w = torch.where(lse == -torch.inf, torch.zeros_like(lse),
+                    torch.exp(lse - torch.where(L == -torch.inf,
+                                                torch.zeros_like(L), L)))
+    den = w.sum(0)
+    out = torch.zeros_like(parts[0])
+    for wz, part in zip(w, parts):
+        out = out + wz * part
+    out = out / torch.where(den > 0, den, torch.ones_like(den))
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def rmsnorm_ref(x, gamma, eps: float = 1e-6):

@@ -40,6 +40,13 @@ def _close(got, want, atol, rtol):
     (4, 4096, 4104, "silu", True, False),   # decode rows, ragged N tile
     (37, 100, 77, "gelu", True, False),     # ragged M, N, K: element loads
     (70, 1024, 1000, None, False, True),    # a tied head, B read transposed
+    (64, 3584, 3584, "silu", True, False),  # shared tiles, bias + silu once
+    (4, 3584, 3584, "gelu", True, False),   # shared 16-row tiles
+    (4, 3584, 240, "gelu", True, False),    # N = 240: 33 blocks a tile
+    (64, 3584, 240, "silu", True, False),   # N = 240 on 16-row tiles
+    (4, 3592, 4096, None, True, False),     # K not a multiple of the runs
+    (4, 1024, 4104, None, False, True),     # a tied head at M = 4, shared
+    (64, 3584, 4000, "silu", True, True),   # a tied head at M = 64, shared
 ])
 def test_matmul_kernel_matches_plain(cuda, m, k, n, act, bias, trans):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -53,6 +60,21 @@ def test_matmul_kernel_matches_plain(cuda, m, k, n, act, bias, trans):
     got = ops.matmul(a, w, bv, activation=act)
     assert ops.LAUNCHES["matmul"] == before + 1
     _close(got, ref.matmul_ref(a, w, bv, act), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 14336, 3584), (4, 3584, 240)])
+def test_matmul_kernel_is_deterministic(cuda, m, k, n):
+    """The partials of a shared tile are summed in block order by
+    whichever block arrives last: two identical calls give the same bits."""
+    assert ops.matmul_plan(m, n, k).max_share > 1
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    w = (torch.randn(k, n, generator=gen, device=cuda) * k ** -0.5).bfloat16()
+    bv = torch.randn(n, generator=gen, device=cuda).bfloat16()
+    first = ops.matmul(a, w, bv, activation="silu")
+    for _ in range(3):
+        assert torch.equal(ops.matmul(a, w, bv, activation="silu"), first)
 
 
 @pytest.mark.cuda
@@ -92,10 +114,71 @@ def test_flash_attention_kernel_matches_plain(cuda, d, hq, hkv, window,
     before = ops.LAUNCHES["flash_attention"]
     got = ops.flash_attention(q, k, v, qo, kl, **kw)
     assert ops.LAUNCHES["flash_attention"] == before + 1
-    # the kernel keeps fp32 probabilities where the plain version rounds
-    # them to bf16 before the PV product
-    _close(got, ref.attention_ref(q, k, v, qo, kl, **kw), atol=2e-2,
-           rtol=2e-2)
+    # both round the probabilities to bf16 before the PV product, the
+    # kernel before normalising them and the plain version after
+    _close(got, ref.attention_ref(q, k, v, qo, kl, **kw), **FA_TOL)
+
+
+FA_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+def _attention_inputs(dev, b, sq, skv, hq, hkv, d, q_off, kv_len, seed=4):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, sq, hq, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, skv, hkv, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, skv, hkv, d, generator=gen, device=dev).bfloat16()
+    return (q, k, v, torch.tensor(q_off, dtype=torch.int32, device=dev),
+            torch.tensor(kv_len, dtype=torch.int32, device=dev))
+
+
+SPLIT_KV = {  # (b, sq, skv, hq, hkv, d, q_offset, kv_len, window, softcap)
+    # one row over 2048 keys: 32 splits, the last 16 of which see no key
+    "many splits, empty splits": (1, 1, 2048, 4, 1, 128, [999], [1000], 0, 0.0),
+    # a decode tick of llama3-8b: GQA 4:1, 4 q heads of a kv head in a tile
+    "gqa 4:1 decode d=128": (4, 1, 272, 32, 8, 128, [137, 64, 250, 9],
+                             [138, 65, 251, 10], 0, 0.0),
+    # a llama3-8b prefill chunk deep in a long prompt: 64 rows x 4 heads in
+    # 4 row tiles, splits of 4 key tiles
+    "gqa 4:1 prefill d=128": (1, 64, 1024, 32, 8, 128, [900], [964], 0, 0.0),
+    # head dim 112 (7 k steps, 14 output n8 blocks), as zamba2-7b's
+    "d=112 decode": (2, 1, 1024, 8, 8, 112, [700, 40], [701, 41], 0, 0.0),
+    "d=112 prefill": (1, 64, 1024, 4, 4, 112, [900], [964], 0, 0.0),
+    # qwen1.5: head dim 64, hq = hkv, a fully masked row (kv_len 0)
+    "d=64 hq=hkv, fully masked row": (2, 3, 512, 2, 2, 64, [0, 5], [0, 8],
+                                      0, 0.0),
+    # window + softcap: the window hides the early splits
+    "window + softcap": (2, 1, 1024, 8, 2, 128, [700, 40], [701, 41], 48,
+                         30.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPLIT_KV))
+def test_flash_attention_split_kv_kernel_matches_plain(cuda, case):
+    b, sq, skv, hq, hkv, d, q_off, kv_len, window, softcap = SPLIT_KV[case]
+    plan = ops.attention_plan(b, sq, hq, hkv, skv)
+    assert plan.splits > 1, plan
+    q, k, v, qo, kl = _attention_inputs(cuda, b, sq, skv, hq, hkv, d, q_off,
+                                        kv_len)
+    kw = dict(window=window, softcap=softcap)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, qo, kl, **kw)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    _close(got, ref.attention_ref(q, k, v, qo, kl, **kw), **FA_TOL)
+    dead = ~ref.attention_mask(sq, skv, qo, kl, window=window).any(-1)
+    assert float(got[dead].float().abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_is_deterministic(cuda):
+    """Split-KV partials are merged in split order by whichever block
+    arrives last: two identical calls give the same bits."""
+    b, sq, skv, hq, hkv, d, q_off, kv_len, *_ = SPLIT_KV["gqa 4:1 decode d=128"]
+    q, k, v, qo, kl = _attention_inputs(cuda, b, sq, skv, hq, hkv, d, q_off,
+                                        kv_len)
+    first = ops.flash_attention(q, k, v, qo, kl)
+    for _ in range(3):
+        assert torch.equal(ops.flash_attention(q, k, v, qo, kl), first)
 
 
 @pytest.mark.cuda
