@@ -5,16 +5,23 @@
 
 Phases, in order, each failing the run on any error:
 
-1. kernels -- build the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   with nvcc (the Triton kernel compiles on its first launch), then call each
-   kernel at the shapes the llama3-8b and the zamba2-7b serving paths give
-   it and hold it against its plain PyTorch version on the same inputs,
-   with the tolerance stated beside each check.  Times the kernel, its
-   plain version, one library call for the same function where there is one
-   (a yardstick the port never calls), and computes the least time the card
-   could take (the bound).  Each timed matmul and attention shape prints the
-   tile variant and split its plan took (``ops.matmul_plan``,
-   ``ops.attention_plan``).
+1. kernels -- build the four CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` with nvcc, one process per source, then
+   call each kernel at the shapes the llama3-8b and the zamba2-7b serving
+   paths give it and hold it against its plain PyTorch version on the same
+   inputs, with the tolerance stated beside each check: the block norms and
+   the Mamba2 grouped, gated norm; the SSD scan with a state in and out and
+   in its slot-addressed form (a pool updated in place, with permuted
+   slots, a sentinel and a fresh row, the whole pool checked).  Times the
+   kernel, its plain version, one library call for the same function where
+   there is one (a yardstick the port never calls), and computes the least
+   time the card could take (the bound).  Each timed matmul, attention and
+   SSD shape prints the plan it took (``ops.matmul_plan``,
+   ``ops.attention_plan``, ``ops.ssd_plan``), and a prefill chunk of the
+   SSD scan is timed at every split of the head dim.  Also times an empty kernel
+   with the same timer (its floor) and each wrapper's host cost per call
+   (``--parent DIR``: also the Triton rmsnorm of an older checkout in DIR,
+   which the CUDA one replaced).
 2. serve-llama -- llama3-8b at full width and depth, random bf16 weights from
    a seed, through ``launch.serve.make_paged_server``: 8 requests of seeded
    prompt lengths in 64-256, 16 new tokens each, 4 slots, prefill chunk 64,
@@ -32,9 +39,10 @@ Phases, in order, each failing the run on any error:
    of shared attention + 5 Mamba2 blocks, and 3 tail Mamba2 blocks), random
    bf16 weights from a seed, in the server's recurrent mode: 4 requests of
    seeded prompt lengths in 64-256, 16 new tokens each, 4 slots, prefill
-   chunk 64, page size 16.  Launch counts as in phase 2, at 283 matmul, 95
-   rmsnorm, 13 flash_attention and 68 ssd_scan per step.  This is the
-   slice's main path: the result line's launches are read from it.
+   chunk 64, page size 16.  Launch counts as in phase 2, at 283 matmul, 163
+   rmsnorm (95 block norms and 68 grouped norms), 13 flash_attention and 68
+   ssd_scan per step.  This is the slice's main path: the result line's
+   launches are read from it.
 6. path-check-zamba -- zamba2-7b at full width with the depth cut to 7
    layers (one super-block and one tail Mamba2 block): slot 0's chunks at 0
    and 64 (the second carries the state), slot 1's chunk at 0, and one
@@ -147,7 +155,7 @@ ZAMBA_GEMMS = (  # the same for zamba2-7b: 68 Mamba2 blocks, 13 shared blocks
 )
 MM_TOL = dict(atol=1e-2, rtol=1.6e-2)     # bf16 output: 2 ulp at |x|~1
 FA_TOL = dict(atol=2e-2, rtol=2e-2)       # + bf16 vs fp32 probabilities
-RN_TOL = dict(atol=1e-2, rtol=1.6e-2)     # bf16 output rounding
+RN_TOL = dict(atol=1e-2, rtol=1.6e-2)     # bf16 output rounding (and gate)
 SSD_TOL = dict(atol=1e-2, rtol=1.6e-2)    # bf16 y
 #: fp32 state: the kernel sums in another order, and its expf may differ
 #: from torch's exp by an ulp
@@ -157,11 +165,14 @@ SSD_STATE_TOL = dict(atol=1e-3, rtol=1e-3)
 class KernelReport:
     """One kernel's checks, and per serving path its totals over one
     prefill chunk plus one decode tick (each shape weighted by its launches
-    per step) and its kernel time in each of the two steps."""
+    per step) and its kernel time in each of the two steps.  ``floor_ms``,
+    the timer's own time for an empty kernel, is printed beside each timed
+    shape."""
 
-    def __init__(self, name, route, source, replaces):
+    def __init__(self, name, route, source, replaces, floor_ms=None):
         self.meta = {"name": name, "route": route, "source": source,
                      "replaces": replaces}
+        self.floor_ms = floor_ms
         self.checks = []
         self.max_err = 0.0
         self.paths = {}
@@ -174,10 +185,12 @@ class KernelReport:
 
     def add(self, label, ok, err, tol, path=None, step=None, weight=0,
             ms=None, plain_ms=None, library_ms=None, nbytes=0.0, flops=0.0,
-            peak=BF16_TFLOPS):
+            peak=BF16_TFLOPS, fp32_bound=False):
         """One check; with ``ms`` it is timed, and with ``weight`` launches
         per ``step`` ("prefill" or "decode") of ``path`` it also counts
-        towards that path's totals."""
+        towards that path's totals.  ``fp32_bound``: also print the bound
+        at the fp32 peak (a kernel whose products run on bf16 tensor cores
+        for fp32 accuracy)."""
         check = {"shape": label, "ok": ok, "max_abs_err": err, "tol": tol,
                  "path": path, "per_step": weight}
         self.max_err = max(self.max_err, err)
@@ -204,6 +217,10 @@ class KernelReport:
             + (f"  kernel={ms:.4f}ms plain={plain_ms:.4f}ms library="
                f"{'n/a' if lib is None else f'{lib:.4f}ms'} "
                f"bound={check['bound_ms']:.4f}ms ({check['bound_by']})"
+               + (f" fp32-bound={bound_ms(nbytes, flops, FP32_TFLOPS)[0]:.4f}ms"
+                  if fp32_bound else "")
+               + (f" floor={self.floor_ms:.4f}ms"
+                  if self.floor_ms is not None else "")
                if ms is not None else ""))
         return ok
 
@@ -222,13 +239,14 @@ class KernelReport:
                 "library_ms": None if t["library_missing"] else t["library_ms"]}
 
 
-def ssd_cost(b, s, nh, hd, ds, chunk, with_state):
-    """(bytes, fp32 flops) of one SSD scan: x, y, B, C, dt, A_log, D and the
-    state in and out each moved once; per head and chunk of length l, the
-    causal halves of C.B^T and of its product with x, C.state^T and the
-    state update."""
+def ssd_cost(b, s, nh, hd, ds, chunk, reads, writes):
+    """(bytes, flops) of one SSD scan: x, y, B, C, dt, A_log and D each
+    moved once, and the state of ``reads`` batch rows read and of
+    ``writes`` written (a fresh or sentinel row reads none, a sentinel
+    writes none); per head and chunk of length l, the causal halves of
+    C.B^T and of its product with x, C.state^T and the state update."""
     nbytes = (2 * 2 * b * s * nh * hd + 2 * 2 * b * s * ds + 4 * b * s * nh
-              + 8 * nh + 4 * b * nh * hd * ds * (2 if with_state else 1))
+              + 8 * nh + 4 * nh * hd * ds * (reads + writes))
     flops = 0
     for c0 in range(0, s, chunk):
         n = min(chunk, s - c0)
@@ -237,9 +255,18 @@ def ssd_cost(b, s, nh, hd, ds, chunk, with_state):
 
 
 def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
-                 timer, dev="cuda"):
-    """Returns the four KernelReports; raises if any check fails."""
+                 timer, dev="cuda", parent=None):
+    """Returns the four KernelReports; raises if any check fails.
+    ``parent``: a checkout of an older tree whose Triton rmsnorm is timed
+    beside the CUDA one (``host_costs``)."""
     gen = torch.Generator(device=dev).manual_seed(0)
+    floor = None
+    if dev == "cuda":
+        # an empty kernel (a spin of 0 cycles) under the same timer: what
+        # the flush, the events and a launch cost by themselves
+        floor = timer(lambda: torch.cuda._sleep(0))
+        log(f"kernels: timer floor {floor:.4f} ms (an empty kernel, timed as "
+            f"every kernel below is)")
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(
@@ -247,7 +274,7 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
 
     failed = []
     mm = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
-                      "src/repro/kernels/matmul.py:102")
+                      "src/repro/kernels/matmul.py:102", floor)
     for path, gemms in (("llama3-8b", LLAMA_GEMMS), ("zamba2-7b", ZAMBA_GEMMS)):
         log(f"kernels: matmul at {path}'s shapes (tolerance |err| <= atol + "
             f"rtol*|plain|)")
@@ -289,7 +316,7 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
 
     fa = KernelReport("flash_attention", "cuda",
                       "src/repro_torch/kernels/csrc/flash_attention.cu",
-                      "src/repro/kernels/flash_attention.py:102")
+                      "src/repro/kernels/flash_attention.py:102", floor)
 
     def fa_case(label, b, sq, q_off, kv_len, path=None, step=None, weight=0,
                 window=0, softcap=0.0, d=128, hq=32, hkv=8):
@@ -335,8 +362,9 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
             d=112, hq=4, hkv=4)
     fa_case("fully masked rows give 0", 2, 3, [0, 5], [0, 0])
 
-    rn = KernelReport("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
-                      "src/repro/kernels/rmsnorm.py:30")
+    rn = KernelReport("rmsnorm", "cuda",
+                      "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                      "src/repro/kernels/rmsnorm.py:30", floor)
     for path, h, eps, weight in (("llama3-8b", 4096, 1e-5, 65),
                                  ("zamba2-7b", 3584, 1e-6, 95)):
         log(f"kernels: rmsnorm at {path}'s shapes (h={h})")
@@ -355,49 +383,218 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
                     library_ms=timer(lambda: F.rms_norm(x, (h,), gb, eps)),
                     nbytes=2 * 2 * x.numel() + 4 * g.numel(),
                     flops=4 * x.numel(), peak=FP32_TFLOPS)
-            if not rn.add(f"rows={rows} h={h}", ok, err, RN_TOL, path, step,
-                          w, **timing):
+            plan = ops.rmsnorm_plan(rows, h)
+            if not rn.add(f"rows={rows} h={h} [{plan.name}]", ok, err, RN_TOL,
+                          path, step, w, **timing):
                 failed.append(f"rmsnorm {path} rows={rows}")
+    nh, hd = 112, 64
+    log(f"kernels: the grouped, gated norm of zamba2-7b's Mamba2 blocks "
+        f"(rows of {hd}, a scale row per head of {nh}; the gate a slice of "
+        f"the z|x output)")
+    for label, b, s, step in (("prefill b=1 s=64", 1, chunk, "prefill"),
+                              (f"decode b={slots} s=1", slots, 1, "decode"),
+                              ("one-token b=1 s=1", 1, 1, None)):
+        y = randn(b, s, nh, hd)
+        g = torch.randn(nh, hd, generator=gen, device=dev)
+        z = randn(b, s, 2 * nh * hd)[..., :nh * hd].unflatten(-1, (nh, hd))
+        got = ops.group_rmsnorm(y, g, gate=z)
+        want = ref.group_rmsnorm_ref(y, g, 1e-6, z)
+        ok, err = within(got, want, **RN_TOL)
+        timing = dict(
+            ms=timer(lambda: ops.group_rmsnorm(y, g, gate=z)),
+            plain_ms=timer(lambda: ref.group_rmsnorm_ref(y, g, 1e-6, z)),
+            library_ms=None, nbytes=2 * 3 * y.numel() + 4 * g.numel(),
+            flops=8 * y.numel(), peak=FP32_TFLOPS)
+        plan = ops.rmsnorm_plan(b * s * nh, hd)
+        if not rn.add(f"grouped+gate {label} ({b * s * nh} rows of {hd}) "
+                      f"[{plan.name}]", ok, err, RN_TOL, "zamba2-7b", step,
+                      68 if step else 0, **timing):
+            failed.append(f"rmsnorm grouped {label}")
 
     ssd = KernelReport("ssd_scan", "cuda",
                        "src/repro_torch/kernels/csrc/ssd_scan.cu",
-                       "src/repro/kernels/ssd_scan.py:74")
-    nh, hd, ds, ssd_chunk = 112, 64, 64, 64
+                       "src/repro/kernels/ssd_scan.py:74", floor)
+    ds, ssd_chunk, pool_slots = 64, 64, 4
     log(f"kernels: ssd_scan at zamba2-7b's shapes (nh={nh}, hd={hd}, "
-        f"ds={ds}, chunk={ssd_chunk}); y and state_out both checked")
-    for label, b, s, with_state, step in (
-            ("prefill b=1 s=64, state in", 1, 64, True, "prefill"),
-            (f"decode b={slots} s=1, state in", slots, 1, True, "decode"),
-            ("long prompt b=1 s=1024 (16 chunks)", 1, 1024, False, None),
-            ("ragged b=2 s=100, state in", 2, 100, True, None)):
+        f"ds={ds}, chunk={ssd_chunk}); y and the state both checked")
+
+    def ssd_inputs(b, s, nh=nh):
         x = randn(b, s, nh, hd)
         dt = F.softplus(torch.randn(b, s, nh, generator=gen, device=dev))
         A_log = torch.randn(nh, generator=gen, device=dev) * 0.5
         D = torch.randn(nh, generator=gen, device=dev)
         bc = randn(b, s, 2 * ds)     # B and C are halves of one tensor
-        B, C = bc[..., :ds], bc[..., ds:]
+        return x, dt, A_log, bc[..., :ds], bc[..., ds:], D
+
+    # the state in and out as tensors (the kernel phase of earlier trees)
+    for label, b, s, with_state in (
+            ("prefill b=1 s=64, state in", 1, 64, True),
+            (f"decode b={slots} s=1, state in", slots, 1, True),
+            ("one-token b=1 s=1, state in", 1, 1, True),
+            ("long prompt b=1 s=1024 (16 chunks)", 1, 1024, False),
+            ("ragged b=2 s=100, state in", 2, 100, True)):
+        args = ssd_inputs(b, s)
         st = (torch.randn(b, nh, hd, ds, generator=gen, device=dev) * 0.5
               if with_state else None)
-        args = (x, dt, A_log, B, C, D)
         y, st_out = ops.ssd_scan(*args, chunk=ssd_chunk, state_in=st)
         y_ref, st_ref = ref.ssd_ref(*args, ssd_chunk, st)
         ok_y, err_y = within(y, y_ref, **SSD_TOL)
         ok_s, err_s = within(st_out, st_ref, **SSD_STATE_TOL)
-        nbytes, flops = ssd_cost(b, s, nh, hd, ds, ssd_chunk, with_state)
+        nbytes, flops = ssd_cost(b, s, nh, hd, ds, ssd_chunk,
+                                 b if with_state else 0, b)
         timing = dict(
             ms=timer(lambda: ops.ssd_scan(*args, chunk=ssd_chunk, state_in=st)),
             plain_ms=timer(lambda: ref.ssd_ref(*args, ssd_chunk, st)),
-            library_ms=None, nbytes=nbytes, flops=flops, peak=FP32_TFLOPS)
-        weight = 68 if step else 0
-        if not ssd.add(f"{label}: y", ok_y, err_y, SSD_TOL, "zamba2-7b",
-                       step, weight, **timing):
+            library_ms=None, nbytes=nbytes, flops=flops, fp32_bound=True)
+        label += f" [{ops.ssd_plan(b, s, nh).name}]"
+        if not ssd.add(f"{label}: y", ok_y, err_y, SSD_TOL, **timing):
             failed.append(f"ssd_scan {label} y")
         if not ssd.add(f"{label}: state_out", ok_s, err_s, SSD_STATE_TOL):
             failed.append(f"ssd_scan {label} state")
+
+    # the serving path's form: the layer's pool of slot rows, in place
+    sentinel = pool_slots
+    for label, b, s, ids, fresh_rows, step in (
+            ("prefill b=1 s=64, pool form, slot 2", 1, 64, [2], [], "prefill"),
+            (f"decode b={slots} s=1, pool form, slots 3,1,0,2", slots, 1,
+             [3, 1, 0, 2], [], "decode"),
+            (f"prompt tail b={slots} s=1, pool form, 1 live + 3 sentinel",
+             slots, 1, [sentinel, 1, sentinel, sentinel], [], None),
+            (f"b={slots} s=64, pool form, slots 3,sentinel,0,1 (1 fresh)",
+             slots, 64, [3, sentinel, 0, 1], [3], None),
+            (f"b={slots} s=1, pool form, slots 3,sentinel,0,1 (1 fresh)",
+             slots, 1, [3, sentinel, 0, 1], [3], None)):
+        args = ssd_inputs(b, s)
+        pool = torch.randn(pool_slots, nh, hd, ds, generator=gen,
+                           device=dev) * 0.5
+        slot = torch.tensor(ids, dtype=torch.int32, device=dev)
+        fresh = torch.zeros(b, dtype=torch.bool, device=dev)
+        fresh[fresh_rows] = True
+        want = pool.clone()
+        y_ref, _ = ref.ssd_pool_ref(*args, ssd_chunk, want, slot, fresh)
+        got = pool.clone()
+        y, _ = ops.ssd_scan(*args, chunk=ssd_chunk, pool=got, slot=slot,
+                            fresh=fresh)
+        ok_y, err_y = within(y, y_ref, **SSD_TOL)
+        ok_s, err_s = within(got, want, **SSD_STATE_TOL)
+        kept = [i for i in range(pool_slots) if i not in ids]
+        ok_s = ok_s and torch.equal(got[kept], pool[kept])
+        live = sum(i < pool_slots for i in ids)
+        nbytes, flops = ssd_cost(b, s, nh, hd, ds, ssd_chunk,
+                                 live - len(fresh_rows), live)
+        timing = dict(
+            ms=timer(lambda: ops.ssd_scan(*args, chunk=ssd_chunk, pool=got,
+                                          slot=slot, fresh=fresh)),
+            plain_ms=timer(lambda: ref.ssd_pool_ref(*args, ssd_chunk, want,
+                                                    slot, fresh)),
+            library_ms=None, nbytes=nbytes, flops=flops, fp32_bound=True)
+        label += f" [{ops.ssd_plan(b, s, nh).name}]"
+        if not ssd.add(f"{label}: y", ok_y, err_y, SSD_TOL, "zamba2-7b",
+                       step, 68 if step else 0, **timing):
+            failed.append(f"ssd_scan {label} y")
+        if not ssd.add(f"{label}: whole pool (rows {kept} untouched)", ok_s,
+                       err_s, SSD_STATE_TOL):
+            failed.append(f"ssd_scan {label} pool")
+
+    # the plan's choice: a one-row prefill chunk at every split of the head
+    # dim, at the SSD heads of one card and of one of 2 or 4 tensor-parallel
+    # ranks (the plan is forced by name, as the wrapper reads it)
+    log("kernels: ssd_scan prefill b=1 s=64 at each split of the head dim "
+        "(* marks ops.ssd_plan's choice)")
+    chosen = ops.ssd_plan
+    for heads in (112, 56, 28):
+        args = ssd_inputs(1, 64, heads)
+        st = torch.randn(1, heads, hd, ds, generator=gen, device=dev) * 0.5
+        y_ref, st_ref = ref.ssd_ref(*args, ssd_chunk, st)
+        plain = timer(lambda: ref.ssd_ref(*args, ssd_chunk, st))
+        nbytes, flops = ssd_cost(1, 64, heads, hd, ds, ssd_chunk, 1, 1)
+        for splits in ops.SSD_SPLITS:
+            plan = ops.SsdPlan(1, heads, splits, False, hd)
+            ops.ssd_plan = lambda *_, plan=plan: plan
+            try:
+                y, st_out = ops.ssd_scan(*args, chunk=ssd_chunk, state_in=st)
+                ms = timer(lambda: ops.ssd_scan(*args, chunk=ssd_chunk,
+                                                state_in=st))
+            finally:
+                ops.ssd_plan = chosen
+            ok_y, err_y = within(y, y_ref, **SSD_TOL)
+            ok_s, err_s = within(st_out, st_ref, **SSD_STATE_TOL)
+            label = (f"{'*' if plan == chosen(1, 64, heads) else ' '}"
+                     f"nh={heads} [{plan.name}]")
+            if not ssd.add(f"{label}: y", ok_y, err_y, SSD_TOL, ms=ms,
+                           plain_ms=plain, library_ms=None, nbytes=nbytes,
+                           flops=flops, fp32_bound=True):
+                failed.append(f"ssd_scan nh={heads} splits={splits} y")
+            if not ssd.add(f"{label}: state_out", ok_s, err_s,
+                           SSD_STATE_TOL):
+                failed.append(f"ssd_scan nh={heads} splits={splits} state")
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failed}")
+    if dev == "cuda":
+        host_costs(torch, ops, timer, randn, gen, chunk, slots, parent)
     return mm, fa, rn, ssd
+
+
+def host_us(torch, fn, calls: int = 300) -> float:
+    """Host microseconds per call of ``fn``: ``calls`` back-to-back calls
+    timed by ``perf_counter`` with no wait on the device inside (what a
+    step pays to enqueue the kernel), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def host_costs(torch, ops, timer, randn, gen, chunk, slots, parent):
+    """Each wrapper's host cost per call at a zamba2-7b serving shape; with
+    ``parent``, also that of the Triton rmsnorm of the tree in ``parent``
+    (``src/repro_torch/kernels/rmsnorm.py`` there, loaded by path: it
+    imports torch and triton only), with its kernel time beside the CUDA
+    kernel's on the same rows."""
+    import importlib.util
+
+    h, nh = 3584, 112
+    x, g = randn(chunk, h), torch.randn(h, generator=gen, device="cuda")
+    y = randn(slots, 1, nh, 64)
+    gn = torch.randn(nh, 64, generator=gen, device="cuda")
+    z = randn(slots, 1, nh, 64)
+    xs = randn(slots, 1, nh, 64)
+    dt = torch.rand(slots, 1, nh, device="cuda")
+    vec = torch.randn(nh, device="cuda")
+    bc = randn(slots, 1, 128)
+    pool = torch.zeros(slots, nh, 64, 64, device="cuda")
+    slot = torch.arange(slots, dtype=torch.int32, device="cuda")
+    fresh = torch.zeros(slots, dtype=torch.bool, device="cuda")
+    a, w = randn(slots, h), randn(h, h)
+    calls = {
+        f"rmsnorm rows={chunk} h={h}": lambda: ops.rmsnorm(x, g),
+        f"group_rmsnorm+gate {slots * nh} rows of 64":
+            lambda: ops.group_rmsnorm(y, gn, gate=z),
+        f"ssd_scan pool form b={slots} s=1": lambda: ops.ssd_scan(
+            xs, dt, vec, bc[..., :64], bc[..., 64:], vec, chunk=64,
+            pool=pool, slot=slot, fresh=fresh),
+        f"matmul M={slots} {h}x{h}": lambda: ops.matmul(a, w),
+    }
+    if parent is not None:
+        path = Path(parent) / "src/repro_torch/kernels/rmsnorm.py"
+        spec = importlib.util.spec_from_file_location("parent_rmsnorm", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        calls[f"parent Triton rmsnorm rows={chunk} h={h}"] = \
+            lambda: mod.rmsnorm_triton(x, g, 1e-6)
+        log(f"kernels: rmsnorm rows={chunk} h={h}: CUDA "
+            f"{timer(lambda: ops.rmsnorm(x, g)):.4f} ms, the parent's Triton "
+            f"{timer(lambda: mod.rmsnorm_triton(x, g, 1e-6)):.4f} ms "
+            f"(same timer)")
+    log("kernels: host cost per call (perf_counter over 300 enqueues, no "
+        "wait on the device):")
+    for label, fn in calls.items():
+        log(f"  {label:48s} {host_us(torch, fn):8.2f} us")
 
 
 def _sdpa(torch, F, q, k, v, mask):
@@ -424,16 +621,17 @@ def launches_per_step(cfg) -> dict:
         GEMMs; one attention core;
       - zamba super-block of ``inner`` blocks: the shared block's 2
         in-projections and its dense layer, and ``inner - 1`` Mamba2 blocks;
-      - Mamba2 block: its ``ln`` norm; z|x, B|C|dt and out GEMMs; one scan;
+      - Mamba2 block: its ``ln`` norm and its grouped, gated norm; z|x,
+        B|C|dt and out GEMMs; one scan;
     plus the final norm and the head GEMM.  zamba2-7b (13 super-blocks of
     6, 3 tail Mamba2 blocks): matmul 13 * (2 + 4 + 5 * 3) + 3 * 3 + 1 = 283,
-    rmsnorm 13 * (2 + 5) + 3 + 1 = 95, flash_attention 13, ssd_scan
-    13 * 5 + 3 = 68."""
+    rmsnorm 13 * (2 + 5 * 2) + 3 * 2 + 1 = 163, flash_attention 13,
+    ssd_scan 13 * 5 + 3 = 68."""
     from repro_torch.configs.base import segments
 
     n = {"matmul": 1, "flash_attention": 0, "rmsnorm": 1, "ssd_scan": 0}
     per = {"dense": {"matmul": 4, "flash_attention": 1, "rmsnorm": 2},
-           "mamba": {"matmul": 3, "rmsnorm": 1, "ssd_scan": 1}}
+           "mamba": {"matmul": 3, "rmsnorm": 2, "ssd_scan": 1}}
     for seg in segments(cfg):
         blocks = ({"dense": 1, "mamba": seg.inner - 1} if seg.kind == "zamba"
                   else {seg.kind: 1})
@@ -489,8 +687,10 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     ``kernel_ms`` (the kernel phase's kernel time per prefill chunk and per
     decode tick) is set beside each step's mean wall time.  With
     ``profile`` the same requests are served once more under
-    ``torch.profiler`` for the device's busy share and its time by kernel
-    (the counts are read before).  Returns the launch counts of the run."""
+    ``torch.profiler`` for the device's busy share, its launches per step
+    and its time by kernel (the counts are read before, and checked after
+    the profile, so that a tree whose counts differ still prints it).
+    Returns the launch counts of the run."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -530,7 +730,6 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
         "pages did not return to the pool"
     steps = sum(meter.calls.values())
     want = {k: v * steps for k, v in launches_per_step(cfg).items()}
-    assert launches == want, f"launches {launches}, expected {want}"
 
     prefill_tok = sum(len(p) for p in prompts)
     decode_tok = requests * (SERVE["max_new"] - 1)
@@ -551,7 +750,8 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
         f"{launches_per_step(cfg)} x {steps})")
     log(f"  request 0 -> {done[0].out}")
     if profile:
-        profile_run(torch, server, prompts, cfg.name, wall)
+        profile_run(torch, server, meter, prompts, cfg.name, wall)
+    assert launches == want, f"launches {launches}, expected {want}"
     del server, meter  # the step holds the weights
     gc.collect()       # the meter and the server refer to each other
     if dev == "cuda":
@@ -559,12 +759,16 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     return launches
 
 
-def profile_run(torch, server, prompts, name: str, wall_s: float) -> None:
+def profile_run(torch, server, meter, prompts, name: str,
+                wall_s: float) -> None:
     """Serve ``prompts`` again under ``torch.profiler``: the device time of
     the run (the sum over device kernels, as the profiler's own table
     totals it) against the profiled wall time and against ``wall_s``, the
-    same run's wall time without the profiler, and the device time by
-    kernel (the table goes to ``chiprun_out/profile_<name>.txt``)."""
+    same run's wall time without the profiler; the device launches per
+    step over all kernels, torch's own included (``meter`` counts the
+    steps); the device time by kernel (the table goes to
+    ``chiprun_out/profile_<name>.txt``) and every gather and scatter
+    kernel by its full name (whose template names the dtype it moves)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -575,10 +779,12 @@ def profile_run(torch, server, prompts, name: str, wall_s: float) -> None:
                               max_new=SERVE["max_new"]))
     # device activity only: the host operators' events would multiply the
     # trace, and its post-processing, several times over
+    steps0 = sum(meter.calls.values())
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         server.run_until_drained()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    steps = sum(meter.calls.values()) - steps0
     t0 = time.perf_counter()
     events = prof.key_averages()
     (OUT_DIR / f"profile_{name}.txt").write_text(
@@ -594,6 +800,14 @@ def profile_run(torch, server, prompts, name: str, wall_s: float) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
             f"{e.key[:70]}")
+    launches = sum(e.count for e in kernels)
+    log(f"  profiled rerun: {launches} device launches over {steps} steps, "
+        f"{launches / steps:.1f} per step (all kernels, torch's included); "
+        f"gathers and scatters:")
+    for e in kernels:
+        if "index" in e.key.lower():
+            log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+                f"{e.key[:300]}")
 
 
 # ---------------------------------------------------------------------------
@@ -781,6 +995,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of an older tree (with the Triton "
+                         "rmsnorm) whose rmsnorm the kernel phase times "
+                         "beside the CUDA one")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -828,7 +1046,7 @@ def main(argv=None) -> int:
         reports = kernel_phase(torch, F, ops, ref,
                                chunk=SERVE["prefill_chunk"],
                                slots=SERVE["slots"], skv=SERVE["max_seq"],
-                               timer=Timer(torch))
+                               timer=Timer(torch), parent=args.parent)
         done("kernels")
 
     def kernel_ms(path):

@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("matmul", "flash_attention", "ssd_scan")
+SOURCES = ("matmul", "flash_attention", "ssd_scan", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -29,7 +29,9 @@ SIGNATURES = {
     "flash_attention": ("repro_flash_attention_bf16",
                         [_P] * 9 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "ssd_scan": ("repro_ssd_scan_bf16",
-                 [_P] * 9 + [_I] * 6 + [_L] * 10 + [_P]),
+                 [_P] * 11 + [_L] + [_I] * 8 + [_L] * 10 + [_P]),
+    "rmsnorm": ("repro_rmsnorm_bf16",
+                [_P] * 4 + [_L] * 2 + [_I] * 3 + [_F] + [_I] * 3 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

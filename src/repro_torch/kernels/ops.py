@@ -11,13 +11,12 @@ through the kernels (``reset_launches`` before, read after).  A stream-K
 matmul and a split-KV attention merge their splits inside the same launch,
 so each call is still one launch.
 
-``matmul_plan`` and ``attention_plan`` choose the CUDA kernels' tiles and
-splits from the shapes alone; they are plain Python, so the CPU tests check
-them.
+``matmul_plan``, ``attention_plan`` and ``ssd_plan`` choose the CUDA
+kernels' tiles and splits from the shapes alone; they are plain Python, so
+the CPU tests check them.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
@@ -48,8 +47,10 @@ def _on_cpu(*ts) -> bool:
     return False
 
 
-def _stream(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def _stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on ``t``'s device (as Triton's
+    launcher reads it), without building a Stream object every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _check(err: int, what: str) -> None:
@@ -58,7 +59,8 @@ def _check(err: int, what: str) -> None:
 
 
 def _ptr(t):
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+    """A tensor's address for a ``c_void_p`` argument (None: NULL)."""
+    return None if t is None else t.data_ptr()
 
 
 _COUNTERS: dict[tuple, torch.Tensor] = {}
@@ -69,7 +71,7 @@ def _counters(t: torch.Tensor, n: int) -> torch.Tensor:
     ``t``'s device and current stream.  The kernel's last-arriving block
     resets each counter it used, so the buffer stays zero between launches;
     a launch that is refused ran no block and leaves it as it was."""
-    key = (t.device, torch.cuda.current_stream(t.device).cuda_stream)
+    key = (t.device, _stream(t))
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         size = max(n, 2 * (0 if buf is None else buf.numel()), 1024)
@@ -308,37 +310,219 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _aligned(t: torch.Tensor | None) -> torch.Tensor | None:
+    """``t`` as the CUDA kernels copy it, 16 bytes at a time: unit stride
+    along the last dim, the other strides multiples of 8 elements and a
+    16-byte-aligned base (a contiguous copy where it is not)."""
+    if t is None or (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+                     and all(st % 8 == 0 for st in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+#: the widest row the CUDA rmsnorm takes (its threads hold a row in
+#: registers)
+RMSNORM_MAX_WIDTH = 4096
+#: (threads per row, 16-byte vectors per thread) of each variant of
+#: ``csrc/rmsnorm.cu``, narrowest row first: rows of up to 64, 1024 and
+#: 4096.  At most 4 vectors a thread: a 3584-wide row measured faster on
+#: 128 threads of 4 vectors than on one warp of 16.
+RMSNORM_VARIANTS = ((8, 1), (32, 4), (128, 4))
+#: the most threads of a block
+RMSNORM_MAX_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class RmsnormPlan:
+    """A CUDA rmsnorm launch: ``threads`` per row, each holding ``vectors``
+    16-byte pieces (8 values) of it, and ``rows`` rows a block."""
+    threads: int
+    vectors: int
+    rows: int
+
+    @property
+    def name(self) -> str:
+        return (f"{self.threads} threads x {self.vectors} vectors a row, "
+                f"{self.rows} rows a block")
+
+
+@functools.lru_cache(maxsize=None)
+def rmsnorm_plan(rows: int, width: int, sms: int = SMS) -> RmsnormPlan:
+    """Threads per row: the first variant that holds a row of ``width`` (8
+    lanes for a 64-wide row of the grouped norm, 32 threads up to 1024, 128
+    for a block norm's 3584 or 4096); rows per block: a power of two, no
+    more than keeps ``sms`` blocks busy, in whole warps (the shuffles name
+    all 32 lanes)."""
+    nvec = -(-width // 8)
+    threads, vectors = next((t, v) for t, v in RMSNORM_VARIANTS
+                            if t * v >= nvec)
+    per_block = 1
+    while (2 * per_block * threads <= RMSNORM_MAX_THREADS
+           and (2 * per_block * sms <= rows or per_block * threads < 32)):
+        per_block *= 2
+    return RmsnormPlan(threads, vectors, per_block)
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6):
     """Per row of ``x [..., h]`` in fp32: ``x * rsqrt(mean(x^2)+eps) * gamma``
-    (gamma already resolved), cast back to ``x.dtype``."""
+    (gamma already resolved), cast back to ``x.dtype``.
+
+    On CUDA: bf16 x, fp32 gamma, h a multiple of 8 up to
+    ``RMSNORM_MAX_WIDTH``."""
     if _on_cpu(x, gamma):
         return ref.rmsnorm_ref(x, gamma, eps)
-    from repro_torch.kernels.rmsnorm import rmsnorm_triton
-
     h = x.shape[-1]
     if gamma.shape != (h,):
         raise ValueError(f"gamma must be [{h}], got {tuple(gamma.shape)}")
-    x2 = x.reshape(-1, h)
-    if x2.stride(-1) != 1:
-        x2 = x2.contiguous()
-    out = rmsnorm_triton(x2, gamma.contiguous(), eps)
+    return _norm(x.reshape(-1, h), gamma.view(1, h), None, eps).reshape(
+        x.shape)
+
+
+def group_rmsnorm(y: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,
+                  gate: torch.Tensor | None = None):
+    """The Mamba2 grouped RMSNorm: per row of ``y [..., G, w]`` in fp32,
+    ``y * rsqrt(mean(y^2)+eps) * gamma[g]`` with ``gamma [G, w]``, cast to
+    ``y.dtype``; with ``gate`` (y's shape), times ``silu(gate)`` in
+    ``y.dtype``.  One launch of the rmsnorm kernel, counted under
+    ``LAUNCHES["rmsnorm"]``.
+
+    On CUDA as ``rmsnorm``, and the gate bf16, read through its strides
+    (a slice of the z|x GEMM output: each token's ``G * w`` values must be
+    unit-stride)."""
+    if _on_cpu(y, gamma, gate):
+        return ref.group_rmsnorm_ref(y, gamma, eps, gate)
+    if gamma.dim() != 2 or y.shape[-2:] != gamma.shape:
+        raise ValueError(f"gamma must be [G, w] = {tuple(y.shape[-2:])}, got "
+                         f"{tuple(gamma.shape)}")
+    if gate is not None and gate.shape != y.shape:
+        raise ValueError(f"gate must be {tuple(y.shape)}, got "
+                         f"{tuple(gate.shape)}")
+    width = gamma.shape[0] * gamma.shape[1]
+    gate2 = None if gate is None else gate.reshape(-1, width)
+    return _norm(y.reshape(-1, width), gamma, gate2, eps).reshape(y.shape)
+
+
+def _norm(x2, gamma, gate2, eps: float):
+    """The CUDA rmsnorm on ``x2 [tokens, G * w]`` (``gate2`` the same or
+    None) with ``gamma [G, w]``: returns ``[tokens * G, w]``."""
+    from repro_torch.kernels import _build
+
+    groups, w = gamma.shape
+    if x2.dtype != torch.bfloat16 or (gate2 is not None
+                                      and gate2.dtype != torch.bfloat16):
+        raise TypeError("the CUDA rmsnorm takes bf16 rows and gate")
+    if gamma.dtype != torch.float32:
+        raise TypeError("the CUDA rmsnorm takes an fp32 gamma")
+    if w % 8 or not 8 <= w <= RMSNORM_MAX_WIDTH:
+        raise ValueError(f"the CUDA rmsnorm takes rows of a multiple of 8 up "
+                         f"to {RMSNORM_MAX_WIDTH} wide, got {w}")
+    x2, gate2, gamma = _aligned(x2), _aligned(gate2), _aligned(gamma)
+    tokens = x2.shape[0]
+    out = torch.empty((tokens * groups, w), dtype=x2.dtype, device=x2.device)
+    if tokens == 0:
+        return out
+    plan = rmsnorm_plan(tokens * groups, w)
+    _check(_build.entry("rmsnorm")(
+        _ptr(x2), _ptr(gamma), _ptr(gate2), _ptr(out), x2.stride(0),
+        0 if gate2 is None else gate2.stride(0), tokens, groups, w,
+        float(eps), plan.threads, plan.vectors, plan.rows, _stream(x2)),
+        "rmsnorm")
     LAUNCHES["rmsnorm"] += 1
-    return out.reshape(x.shape)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdPlan:
+    """A CUDA ssd_scan launch: one block per (split, head, batch row), each
+    taking ``rows = hd // splits`` state rows p (the columns of x and y) of
+    its (batch row, head): split i takes rows ``[i * rows, (i + 1) *
+    rows)``.  ``one_token``: the s = 1 kernel (a half-warp per row, no
+    chunk machinery); otherwise the chunked kernel."""
+    b: int
+    nh: int
+    splits: int
+    one_token: bool
+    hd: int = 64
+
+    @property
+    def rows(self) -> int:
+        return self.hd // self.splits
+
+    @property
+    def blocks(self) -> int:
+        return self.b * self.nh * self.splits
+
+    @property
+    def name(self) -> str:
+        kind = "one-token" if self.one_token else "chunked"
+        return f"{kind}, {self.splits} x {self.rows} rows, {self.blocks} blocks"
+
+    def block_rows(self):
+        """(batch row, head, first row, end row) of each block, in the
+        kernel's grid order (split fastest, then head, then batch row)."""
+        for b in range(self.b):
+            for h in range(self.nh):
+                for i in range(self.splits):
+                    yield b, h, i * self.rows, (i + 1) * self.rows
+
+
+#: state rows per block of the one-token kernel (``ssd_scan.cu``)
+SSD_STEP_ROWS = 16
+#: the chunked kernel's splits of the head dim, fewest first
+SSD_SPLITS = (1, 2, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_plan(b: int, s: int, nh: int, hd: int = 64,
+             sms: int = SMS) -> SsdPlan:
+    """The grid of an SSD scan over ``b`` batch rows, ``s`` positions and
+    ``nh`` heads.  s = 1 takes the one-token kernel, 16 state rows a block.
+    Longer runs split each (batch row, head) over the head dim into the
+    fewest splits that give blocks to half the SMs, each block recomputing
+    the chunk's decayed C.B^T for its rows.  Measured on a one-row prefill
+    chunk (``chip_smoke.py`` times every split): 1 split is fastest at 112
+    heads (zamba2-7b on one card) and 2 at 56 (one of 2 tensor-parallel
+    ranks); at 28 (one of 4) 2 and 4 splits are about even."""
+    if s == 1:
+        return SsdPlan(b, nh, hd // SSD_STEP_ROWS, True, hd)
+    for splits in SSD_SPLITS:
+        if 2 * b * nh * splits >= sms:
+            break
+    return SsdPlan(b, nh, splits, False, hd)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *, chunk: int,
-             state_in: torch.Tensor | None = None):
-    """Mamba2 SSD scan from ``state_in`` (zeros when None).
-
-    x [b, s, nh, hd]; dt [b, s, nh] (softplus'd); A_log, D [nh]; B, C
-    [b, s, ds] (one group); state_in [b, nh, hd, ds].  Returns
-    (y [b, s, nh, hd] in ``x.dtype``, state_out [b, nh, hd, ds] fp32).
+             state_in: torch.Tensor | None = None,
+             pool: torch.Tensor | None = None,
+             slot: torch.Tensor | None = None,
+             fresh: torch.Tensor | None = None):
+    """Mamba2 SSD scan.  x [b, s, nh, hd]; dt [b, s, nh] (softplus'd);
+    A_log, D [nh]; B, C [b, s, ds] (one group).  The state comes in one of
+    two forms:
+      - ``state_in [b, nh, hd, ds]`` fp32, or None for zeros: returns
+        (y [b, s, nh, hd] in ``x.dtype``, state_out [b, nh, hd, ds] fp32);
+      - ``pool [slots, nh, hd, ds]`` fp32 with ``slot [b]`` and ``fresh
+        [b]`` bool: batch row i reads pool row ``slot[i]`` (zeros where
+        ``fresh[i]``) and writes its final state back in place; a slot id
+        outside ``[0, slots)`` is the sentinel of a masked row, which reads
+        zeros and writes nothing.  Live ids must be distinct
+        (``lm.slot_map`` checks once a step; the plain version raises).
+        Returns (y, pool).
 
     On CUDA: bf16 x, B, C (read through their strides, unit stride along
-    the last dim); fp32 dt, A_log, D and state_in; hd = ds = 64 and
-    ``chunk`` <= 64; any s >= 1."""
-    if _on_cpu(x, dt, A_log, B, C, D, state_in):
+    the last dim); fp32 dt, A_log, D and state; int32 slot; hd = ds = 64
+    and ``chunk`` <= 64; any s >= 1; the grid from ``ssd_plan``."""
+    if pool is None and (slot is not None or fresh is not None):
+        raise ValueError("slot and fresh address a pool: pass pool=")
+    if pool is not None and (state_in is not None or slot is None
+                             or fresh is None):
+        raise ValueError("the pool form takes pool, slot and fresh, and no "
+                         "state_in")
+    if _on_cpu(x, dt, A_log, B, C, D, state_in, pool, slot, fresh):
+        if pool is not None:
+            return ref.ssd_pool_ref(x, dt, A_log, B, C, D, chunk, pool, slot,
+                                    fresh)
         return ref.ssd_ref(x, dt, A_log, B, C, D, chunk, state_in)
     from repro_torch.kernels import _build
 
@@ -357,22 +541,44 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         raise TypeError("the CUDA ssd_scan takes bf16 x, B and C")
     if {dt.dtype, A_log.dtype, D.dtype} != {torch.float32}:
         raise TypeError("the CUDA ssd_scan takes fp32 dt, A_log and D")
-    if state_in is not None:
-        if state_in.shape != (b, nh, hd, ds) or state_in.dtype != torch.float32:
-            raise ValueError(f"state_in must be fp32 [{b}, {nh}, {hd}, {ds}], "
-                             f"got {state_in.dtype} {tuple(state_in.shape)}")
-        state_in = state_in.contiguous()
+    row = (nh, hd, ds)
+    if pool is not None:
+        if (pool.dtype != torch.float32 or pool.dim() != 4
+                or pool.shape[1:] != row
+                or pool.stride()[1:] != (hd * ds, ds, 1)):
+            raise ValueError(f"pool must be fp32 [slots, {nh}, {hd}, {ds}] "
+                             f"with contiguous rows, got {pool.dtype} "
+                             f"{tuple(pool.shape)}")
+        if slot.shape != (b,) or slot.dtype != torch.int32:
+            raise TypeError(f"slot must be int32 [{b}], got {slot.dtype} "
+                            f"{tuple(slot.shape)}")
+        if fresh.shape != (b,) or fresh.dtype != torch.bool:
+            raise TypeError(f"fresh must be bool [{b}], got {fresh.dtype} "
+                            f"{tuple(fresh.shape)}")
+        st_in = st_out = pool
+        slots, st_stride = pool.shape[0], pool.stride(0)
+        slot, fresh = slot.contiguous(), fresh.contiguous()
+    else:
+        if state_in is not None:
+            if state_in.shape != (b, *row) or state_in.dtype != torch.float32:
+                raise ValueError(f"state_in must be fp32 [{b}, {nh}, {hd}, "
+                                 f"{ds}], got {state_in.dtype} "
+                                 f"{tuple(state_in.shape)}")
+            state_in = state_in.contiguous()
+        st_in = state_in
+        st_out = torch.empty((b, *row), dtype=torch.float32, device=x.device)
+        slots, st_stride = b, nh * hd * ds
     if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
         raise ValueError("x, B and C need unit stride along their last dim")
+    x, B, C = _aligned(x), _aligned(B), _aligned(C)
     A_log, D = A_log.contiguous(), D.contiguous()
     y = torch.empty((b, s, nh, hd), dtype=x.dtype, device=x.device)
-    state_out = torch.empty((b, nh, hd, ds), dtype=torch.float32,
-                            device=x.device)
-    err = _build.entry("ssd_scan")(
+    plan = ssd_plan(b, s, nh, hd)
+    _check(_build.entry("ssd_scan")(
         _ptr(x), _ptr(dt), _ptr(A_log), _ptr(B), _ptr(C), _ptr(D),
-        _ptr(state_in), _ptr(y), _ptr(state_out), b, s, nh, hd, ds, chunk,
+        _ptr(st_in), _ptr(st_out), _ptr(slot), _ptr(fresh), _ptr(y),
+        st_stride, slots, b, s, nh, hd, ds, chunk, plan.splits,
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
-        _stream(x))
-    _check(err, "ssd_scan")
+        _stream(x)), "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
-    return y, state_out
+    return y, st_out

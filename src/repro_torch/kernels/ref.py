@@ -147,6 +147,15 @@ def rmsnorm_ref(x, gamma, eps: float = 1e-6):
     return (xf * inv * gamma.float()).to(x.dtype)
 
 
+def group_rmsnorm_ref(y, gamma, eps: float = 1e-6, gate=None):
+    """The Mamba2 grouped RMSNorm: ``rmsnorm_ref`` over each row of
+    ``y [..., G, w]`` with its group's row of ``gamma [G, w]``; with a
+    ``gate`` of y's shape, times ``silu(gate)`` in y's dtype (in bf16 the
+    norm and silu(gate) are each rounded once, then their product)."""
+    out = rmsnorm_ref(y, gamma, eps)
+    return out if gate is None else out * F.silu(gate)
+
+
 def _ssd_chunks(s: int, chunk: int) -> list[tuple[int, int]]:
     """(start, length) of each chunk of an ``s``-long run.
 
@@ -212,3 +221,26 @@ def ssd_ref(x, dt, A_log, B, C, D, chunk: int, state_in=None):
         state = state * torch.exp(la[:, -1, :])[:, :, None, None] + upd
     y = torch.cat(ys, dim=1) + Df[:, None] * xf
     return y.to(x.dtype), state
+
+
+def ssd_pool_ref(x, dt, A_log, B, C, D, chunk: int, pool, slot, fresh):
+    """``ssd_ref`` on the rows of a state pool ``[slots, nh, hd, ds]``,
+    updated in place: batch row i starts from pool row ``slot[i]``, or from
+    zeros where ``fresh[i]``, and its final state is written back; a slot
+    id outside ``[0, slots)`` is the sentinel of a masked row, which starts
+    from zeros and writes nothing.  Returns (y, pool).  Raises where a live
+    slot id appears twice (two rows would write one pool row)."""
+    slots = pool.shape[0]
+    live_ids = [i for i in slot.tolist() if 0 <= i < slots]
+    if len(set(live_ids)) != len(live_ids):
+        raise ValueError(f"a live slot id appears twice: {slot.tolist()}")
+    sid = slot.long()
+    live = (sid >= 0) & (sid < slots)
+    read = (live & ~fresh.bool()).view(-1, 1, 1, 1)
+    state = torch.where(read, pool.index_select(0, sid.clamp(0, slots - 1)),
+                        torch.zeros((), dtype=pool.dtype, device=pool.device))
+    y, state = ssd_ref(x, dt, A_log, B, C, D, chunk, state)
+    rows = live.nonzero().flatten()
+    pool.index_copy_(0, sid.index_select(0, rows),
+                     state.index_select(0, rows).to(pool.dtype))
+    return y, pool

@@ -11,8 +11,9 @@ model functions take the sharded tree.  A Python loop over layers replaces
 ``lax.scan``.
 
 Recurrent kinds (zamba, mamba) keep per-slot STATE POOLS beside the page
-pools: each step gathers its batch rows' state by slot id, runs, and
-writes the rows back (``_state_take`` / ``_state_put``).
+pools, addressed by a slot id per batch row: the SSD scan reads and writes
+its pool rows in place; the small conv-state rows are gathered by slot id
+and written back (``_state_take`` / ``_state_put``).
 """
 from __future__ import annotations
 
@@ -238,6 +239,7 @@ class SlotMap:
     """How one step's batch rows address the state pools (all [b] or
     fewer, on the device).  Made once per step by :func:`slot_map`."""
 
+    slot: torch.Tensor          # int32 slot id per batch row, sentinel kept
     take: torch.Tensor          # pool row each batch row reads (clamped)
     fresh: torch.Tensor         # rows whose fed window starts at position 0
     rows: torch.Tensor | None   # batch rows that write back (None: all)
@@ -248,16 +250,21 @@ def slot_map(slot: torch.Tensor, start: torch.Tensor, slots: int) -> SlotMap:
     """Slot ids ``slot [b]`` (the sentinel ``slots`` marks a row whose state
     must not change) and ``start [b]``.  JAX's scatter drops an
     out-of-range id where torch indexing raises, so the sentinel rows are
-    filtered here, once per step (one host sync, before any layer runs)."""
+    filtered here, once per step (one host sync, before any layer runs);
+    a live id that appears twice raises (two rows would write one pool
+    row)."""
+    ids = slot.tolist()
+    live = [i for i, s in enumerate(ids) if s < slots]
+    if len({ids[i] for i in live}) != len(live):
+        raise ValueError(f"a live slot id appears twice: {ids}")
     sid = slot.long()
-    live = sid < slots
-    if bool(live.all()):
+    if len(live) == len(ids):
         rows, put = None, sid
     else:
-        rows = live.nonzero().flatten()
+        rows = torch.tensor(live, dtype=torch.long, device=slot.device)
         put = sid.index_select(0, rows)
-    return SlotMap(take=sid.clamp(0, slots - 1), fresh=start == 0, rows=rows,
-                   put=put)
+    return SlotMap(slot=slot.to(torch.int32), take=sid.clamp(0, slots - 1),
+                   fresh=start == 0, rows=rows, put=put)
 
 
 def _state_take(pool: dict, sm: SlotMap) -> dict:
@@ -341,8 +348,10 @@ def shared_attention(ctx: ATPContext, cfg: ModelConfig, shared, x, x_emb0,
 
 
 def _mamba(ctx, cfg, p, x, pool, sm: SlotMap):
-    x, rows = mamba2.mamba_block(ctx, cfg, p, x, _state_take(pool, sm))
-    _state_put(pool, rows, sm)
+    conv = {k: pool[k] for k in ("conv_x", "conv_bc")}
+    x, rows = mamba2.mamba_block(ctx, cfg, p, x, _state_take(conv, sm),
+                                 pool["ssd"], sm.slot, sm.fresh)
+    _state_put(conv, rows, sm)
     return x
 
 

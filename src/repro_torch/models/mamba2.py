@@ -11,8 +11,10 @@ ranks; ATP applies to the projections:
   - out projection: row-first, after an all-gather of the heads over ax2.
 
 The scan runs through ``kernels.ops.ssd_scan`` for prefill chunks and
-one-token steps alike (the kernel at s = 1 is ``ssd_step``).  The causal
-conv and the grouped RMSNorm are plain torch, as they are plain jnp in JAX.
+one-token steps alike (at s = 1 it is ``ssd_step``), reading and writing the
+slot's row of the layer's SSD state pool in place.  The grouped RMSNorm and
+its SiLU gate run through ``kernels.ops.group_rmsnorm``, the rmsnorm kernel
+with a per-head scale.  The causal conv is plain torch, as in JAX.
 """
 from __future__ import annotations
 
@@ -90,17 +92,14 @@ def causal_conv(x, w, state):
     return y.to(x.dtype), pad[:, pad.shape[1] - (k - 1):]
 
 
-def group_rmsnorm(y, gamma, eps: float = 1e-6):
-    """RMSNorm over each head's channels.  y [b, s, nh, hd]; gamma [nh, hd]."""
-    yf = y.float()
-    inv = torch.rsqrt(yf.pow(2).mean(-1, keepdim=True) + eps)
-    return (yf * inv * gamma).to(y.dtype)
-
-
-def mamba_block(ctx: ATPContext, cfg: ModelConfig, p, x, state: dict):
-    """x [b, s, h/d2]; state: this call's rows of the slot pools,
-    ``conv_x [b, k-1, d_inner/n]``, ``conv_bc [b, k-1, 2 ds]`` and ``ssd
-    [b, nh/n, hd, ds]`` fp32.  Returns (x + block output, new state)."""
+def mamba_block(ctx: ATPContext, cfg: ModelConfig, p, x, state: dict,
+                ssd_pool, slot, fresh):
+    """x [b, s, h/d2]; state: this call's rows of the conv pools,
+    ``conv_x [b, k-1, d_inner/n]`` and ``conv_bc [b, k-1, 2 ds]``;
+    ``ssd_pool [slots, nh/n, hd, ds]`` fp32, the layer's SSD state pool,
+    which the scan reads and writes in place at the rows ``slot [b]``
+    (int32; the sentinel ``slots`` writes nothing), from zeros where
+    ``fresh [b]``.  Returns (x + block output, new conv state)."""
     sc = cfg.ssm
     d_inner, nheads = mamba_dims(cfg)
     n = ctx.tp
@@ -128,16 +127,17 @@ def mamba_block(ctx: ATPContext, cfg: ModelConfig, p, x, state: dict):
                               state["conv_x"])
     bc_c, ns_bc = causal_conv(bc, conv[:, d_inner:], state["conv_bc"])
     xin_c, bc_c = F.silu(xin_c), F.silu(bc_c)
-    y, ssd_new = ops.ssd_scan(
-        xin_c.reshape(b, s, nh_loc, sc.head_dim), dt,
-        shard_slice(p["A_log"], flat, n, 0), bc_c[..., :ds], bc_c[..., ds:],
-        shard_slice(p["D"], flat, n, 0), chunk=sc.chunk, state_in=state["ssd"])
+    heads = (nh_loc, sc.head_dim)
+    y, _ = ops.ssd_scan(
+        xin_c.unflatten(-1, heads), dt, shard_slice(p["A_log"], flat, n, 0),
+        bc_c[..., :ds], bc_c[..., ds:], shard_slice(p["D"], flat, n, 0),
+        chunk=sc.chunk, pool=ssd_pool, slot=slot, fresh=fresh)
 
-    gn = shard_slice(p["gn"], flat, n, 0).reshape(nh_loc, sc.head_dim)
-    y = group_rmsnorm(y, gn).reshape(b, s, nh_loc * sc.head_dim)
-    y = y * F.silu(z)
+    gn = shard_slice(p["gn"], flat, n, 0).reshape(heads)
+    y = ops.group_rmsnorm(y, gn, gate=z.unflatten(-1, heads))
+    y = y.reshape(b, s, nh_loc * sc.head_dim)
     # heads back to the ax1-sharded layout of the row-first out projection
     if ctx.ax2 is not None:
         y = all_gather(ctx, y, ctx.ax2, dim=-1)
     out = atp_linear(ctx, y, p["w_out"], kind="row")
-    return x + out, {"conv_x": ns_x, "conv_bc": ns_bc, "ssd": ssd_new}
+    return x + out, {"conv_x": ns_x, "conv_bc": ns_bc}

@@ -95,6 +95,31 @@ def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, state_in=state[:, :1])
     with pytest.raises(ValueError, match="head dim 64"):
         ops.ssd_scan(x[..., :32], dt, A_log, B, C, D, chunk=64)
+    pool = torch.zeros(3, 2, 64, 64, device=cuda)
+    slot = torch.zeros(1, dtype=torch.int32, device=cuda)
+    fresh = torch.zeros(1, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="pool must be"):
+        ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, pool=pool[:, :1],
+                     slot=slot, fresh=fresh)
+    with pytest.raises(TypeError, match="int32"):
+        ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, pool=pool,
+                     slot=slot.long(), fresh=fresh)
+    with pytest.raises(TypeError, match="bool"):
+        ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, pool=pool, slot=slot,
+                     fresh=fresh.int())
+    xn, g, z = _norm_inputs(cuda, 1, 64, 4, True)
+    with pytest.raises(TypeError, match="bf16"):
+        ops.rmsnorm(xn[:, 0].float(), g[0])
+    with pytest.raises(TypeError, match="fp32 gamma"):
+        ops.rmsnorm(xn[:, 0], g[0].bfloat16())
+    with pytest.raises(ValueError, match="4096"):
+        ops.rmsnorm(torch.zeros(2, 4104, device=cuda).bfloat16(),
+                    torch.ones(4104, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.rmsnorm(torch.zeros(2, 36, device=cuda).bfloat16(),
+                    torch.ones(36, device=cuda))
+    with pytest.raises(ValueError, match="gamma must be"):
+        ops.group_rmsnorm(xn, g[:, :32], gate=z)
 
 
 @pytest.mark.cuda
@@ -181,15 +206,50 @@ def test_flash_attention_kernel_is_deterministic(cuda):
         assert torch.equal(ops.flash_attention(q, k, v, qo, kl), first)
 
 
+def _norm_inputs(dev, groups, width, n, gated, seed=2):
+    """groups = 1: n rows of ``width``; groups = 112 (zamba2-7b's SSD heads):
+    min(n, 64) tokens of 112 rows (7168 rows at most, a prefill chunk's).
+    The gate is the first half of a [tokens, 2 * groups * width] tensor,
+    as the z|x GEMM output's z is."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = n if groups == 1 else min(n, 64)
+    x = torch.randn(tokens, groups, width, generator=gen,
+                    device=dev).bfloat16()
+    g = torch.randn(groups, width, generator=gen, device=dev)
+    zx = torch.randn(tokens, 2 * groups * width, generator=gen,
+                     device=dev).bfloat16()
+    z = zx[:, :groups * width].unflatten(-1, (groups, width)) if gated else None
+    return x, g, z
+
+
 @pytest.mark.cuda
-def test_rmsnorm_kernel_matches_plain(cuda):
-    gen = torch.Generator(device=cuda).manual_seed(2)
-    x = torch.randn(37, 4096, generator=gen, device=cuda).bfloat16()
-    g = torch.randn(4096, generator=gen, device=cuda)
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("n", [1, 4, 37, 7168])
+@pytest.mark.parametrize("width", [64, 1024, 3584, 4096])
+@pytest.mark.parametrize("groups", [1, 112])
+def test_rmsnorm_kernel_matches_plain(cuda, groups, width, n, gated):
+    """The block norm (one scale row, through ``ops.rmsnorm`` where there
+    is no gate) and the grouped norm (a scale row per group, gated as the
+    Mamba2 block gates it) against their plain versions; bf16 output."""
+    x, g, z = _norm_inputs(cuda, groups, width, n, gated)
     before = ops.LAUNCHES["rmsnorm"]
-    got = ops.rmsnorm(x, g, eps=1e-5)
+    if groups == 1 and not gated:
+        got = ops.rmsnorm(x[:, 0], g[0], eps=1e-5)
+        want = ref.rmsnorm_ref(x[:, 0], g[0], 1e-5)
+    else:
+        got = ops.group_rmsnorm(x, g, 1e-5, gate=z)
+        want = ref.group_rmsnorm_ref(x, g, 1e-5, z)
     assert ops.LAUNCHES["rmsnorm"] == before + 1
-    _close(got, ref.rmsnorm_ref(x, g, 1e-5), **BF16_TOL)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close(got, want, **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_is_deterministic(cuda):
+    x, g, z = _norm_inputs(cuda, 112, 64, 64, True)
+    first = ops.group_rmsnorm(x, g, gate=z)
+    for _ in range(3):
+        assert torch.equal(ops.group_rmsnorm(x, g, gate=z), first)
 
 
 def _ssd_inputs(dev, b, s, nh, hd=64, ds=64, seed=3):
@@ -227,3 +287,60 @@ def test_ssd_scan_kernel_matches_plain(cuda, b, s, nh, with_state):
     y_ref, st_ref = ref.ssd_ref(x, dt, A_log, B, C, D, 64, state)
     _close(y, y_ref, **BF16_TOL)
     _close(st, st_ref, atol=1e-3, rtol=1e-3)
+
+
+SSD_PLANS = [(s, splits) for s in (1, 37, 64, 100, 1024)
+             for splits in ((4,) if s == 1 else ops.SSD_SPLITS)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,splits", SSD_PLANS)
+def test_ssd_scan_kernel_matches_plain_at_every_plan(cuda, monkeypatch, s,
+                                                     splits):
+    """Both kernels (s = 1: one-token; else chunked, at each split of the
+    head dim, forced through the plan) against the plain version, at
+    zamba2-7b's 112 heads; tolerances as in the test above."""
+    if s > 1:
+        monkeypatch.setattr(ops, "ssd_plan", lambda b, s, nh, hd=64:
+                            ops.SsdPlan(b, nh, splits, False, hd))
+    b = 4 if s == 1 else 2
+    x, dt, A_log, B, C, D, state = _ssd_inputs(cuda, b, s, 112)
+    y, st = ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, state_in=state)
+    y_ref, st_ref = ref.ssd_ref(x, dt, A_log, B, C, D, 64, state)
+    _close(y, y_ref, **BF16_TOL)
+    _close(st, st_ref, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 64, 100])
+def test_ssd_scan_pool_form_matches_plain_on_the_whole_pool(cuda, s):
+    """The slot-addressed form in place: rows in a permuted slot order, a
+    sentinel row (id = the slot count) that reads zeros and writes
+    nothing, a fresh row; every pool row compared after the call, and the
+    rows no live row addresses bit-identical to before."""
+    x, dt, A_log, B, C, D, _ = _ssd_inputs(cuda, 4, s, 16)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    pool = torch.randn(6, 16, 64, 64, generator=gen, device=cuda) * 0.5
+    slot = torch.tensor([3, 6, 0, 2], dtype=torch.int32, device=cuda)
+    fresh = torch.tensor([False, False, False, True], device=cuda)
+    want = pool.clone()
+    y_ref, _ = ref.ssd_pool_ref(x, dt, A_log, B, C, D, 64, want, slot, fresh)
+    got = pool.clone()
+    before = ops.LAUNCHES["ssd_scan"]
+    y, out = ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, pool=got,
+                          slot=slot, fresh=fresh)
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    assert out is got
+    assert torch.equal(got[[1, 4, 5]], pool[[1, 4, 5]])
+    _close(got, want, atol=1e-3, rtol=1e-3)
+    _close(y, y_ref, **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 64, 1024])
+def test_ssd_scan_kernel_is_deterministic(cuda, s):
+    x, dt, A_log, B, C, D, state = _ssd_inputs(cuda, 1, s, 112)
+    y0, st0 = ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, state_in=state)
+    for _ in range(3):
+        y, st = ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, state_in=state)
+        assert torch.equal(y, y0) and torch.equal(st, st0)

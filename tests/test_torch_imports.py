@@ -31,7 +31,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.launch.serve" in report["modules"]
-    assert "repro_torch.kernels.rmsnorm" in report["modules"]
+    assert "repro_torch.kernels.ops" in report["modules"]
     assert report["bad"] == []
 
 

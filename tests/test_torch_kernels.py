@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.registry import get_config  # noqa: E402
@@ -101,6 +102,32 @@ def test_rmsnorm_plain_matches_pallas(rows, h, dtype):
     np.testing.assert_allclose(
         got, np.asarray(jax_ref.rmsnorm_ref(jx, jnp.asarray(g), 1e-5),
                         np.float32), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gated", [False, True])
+def test_group_rmsnorm_plain_matches_jax(dtype, gated):
+    """The Mamba2 grouped norm with a per-head scale, and its SiLU gate,
+    against the JAX block's ``_group_rmsnorm(y, gamma) * silu(z)``.  fp32:
+    1e-4.  bf16: both round the norm and the product once, but JAX's silu
+    rounds sigmoid(z) and then z * sigmoid(z) where torch's rounds silu(z)
+    once, so the gated product may differ by up to three units in the last
+    place (3 * 2^-7 relative)."""
+    b, s, nh, hd = 2, 5, 4, 16
+    rng = np.random.default_rng(31)
+    y, g = _randn(rng, b, s, nh, hd), _randn(rng, nh, hd)
+    z = _randn(rng, b, s, nh * hd)
+    jy, jz = (jnp.asarray(a, getattr(jnp, dtype)) for a in (y, z))
+    want = jax_mamba2._group_rmsnorm(jy, jnp.asarray(g)).reshape(b, s, -1)
+    if gated:
+        want = want * jax.nn.silu(jz)
+    ty, tz = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (y, z))
+    got = ops.group_rmsnorm(ty, torch.from_numpy(g),
+                            gate=tz.unflatten(-1, (nh, hd)) if gated else None)
+    assert got.dtype == ty.dtype and got.shape == ty.shape
+    tol = TOL if dtype == "float32" else dict(rtol=3 * 2 ** -7, atol=1e-6)
+    np.testing.assert_allclose(_np(got).reshape(b, s, -1),
+                               np.asarray(want, np.float32), **tol)
 
 
 # ---------------------------------------------------------------------------
@@ -249,3 +276,74 @@ def test_ssd_plain_ragged_chunks_carry_the_state():
     y2, st2 = _ssd_port(second, 16, st1)
     np.testing.assert_allclose(y, np.concatenate([y1, y2], axis=1), **TOL)
     np.testing.assert_allclose(st, st2, **TOL)
+
+
+def _pool_case(rng, s, nh=4, hd=8, ds=6, slots=5):
+    """4 batch rows on a pool of 5 slots, in a permuted order: live slots 3
+    and 0, a sentinel row (id 5), and slot 2 fresh (a recycled slot)."""
+    *args, _ = _ssd_inputs(rng, 4, s, nh, hd, ds)
+    pool = _randn(rng, slots, nh, hd, ds, scale=0.5)
+    slot = np.array([3, slots, 0, 2], np.int32)
+    fresh = np.array([False, False, False, True])
+    return args, pool, slot, fresh
+
+
+@pytest.mark.parametrize("s", [1, 5, 48])
+def test_ssd_pool_plain_matches_take_scan_put(s):
+    """The slot-addressed form against gather -> ``ssd_ref`` -> put by hand
+    and against the JAX block's ``ssd_step`` / ``ssd_chunked`` on the same
+    gathered rows: a fresh or sentinel row starts from zeros, the sentinel
+    writes nothing, and the pool rows no live row addresses stay
+    bit-identical."""
+    rng = np.random.default_rng(20 + s)
+    args, pool, slot, fresh = _pool_case(rng, s)
+    t = [torch.from_numpy(a) for a in args]
+    got_pool = torch.from_numpy(pool.copy())
+    y, out = ops.ssd_scan(*t, chunk=16, pool=got_pool,
+                          slot=torch.from_numpy(slot),
+                          fresh=torch.from_numpy(fresh))
+    assert out is got_pool
+    live = [0, 2, 3]
+    state = np.zeros((4,) + pool.shape[1:], np.float32)
+    state[[0, 2]] = pool[slot[[0, 2]]]
+    want_y, want_st = ref.ssd_ref(*t, 16, torch.from_numpy(state))
+    want_pool = pool.copy()
+    want_pool[slot[live]] = want_st.numpy()[live]
+    np.testing.assert_array_equal(got_pool.numpy()[[1, 4]], pool[[1, 4]])
+    np.testing.assert_allclose(got_pool.numpy(), want_pool, **TOL)
+    np.testing.assert_allclose(_np(y), _np(want_y), **TOL)
+    jargs = [jnp.asarray(a) for a in args]
+    if s == 1:
+        jy, jst = jax_mamba2.ssd_step(*jargs, jnp.asarray(state))
+    else:
+        jy, jst = jax_mamba2.ssd_chunked(*jargs, 16,
+                                         state_in=jnp.asarray(state))
+    np.testing.assert_allclose(_np(y), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(got_pool.numpy()[slot[live]],
+                               np.asarray(jst)[live], **TOL)
+
+
+def test_ssd_pool_plain_refuses_a_live_slot_twice():
+    """Two live rows on one slot would both write its pool row: the plain
+    version raises and leaves the pool as it was; sentinel ids may
+    repeat.  The two forms of the state do not mix."""
+    rng = np.random.default_rng(40)
+    args, pool, _, fresh = _pool_case(rng, 3)
+    t = [torch.from_numpy(a) for a in args]
+    tp = torch.from_numpy(pool.copy())
+    with pytest.raises(ValueError, match="appears twice"):
+        ops.ssd_scan(*t, chunk=16, pool=tp,
+                     slot=torch.tensor([2, 5, 2, 0], dtype=torch.int32),
+                     fresh=torch.from_numpy(fresh))
+    np.testing.assert_array_equal(tp.numpy(), pool)
+    ops.ssd_scan(*t, chunk=16, pool=tp,
+                 slot=torch.tensor([5, 5, 1, 0], dtype=torch.int32),
+                 fresh=torch.from_numpy(fresh))
+    np.testing.assert_array_equal(tp.numpy()[2:], pool[2:])
+    with pytest.raises(ValueError, match="no state_in"):
+        ops.ssd_scan(*t, chunk=16, pool=tp, state_in=tp[:4],
+                     slot=torch.tensor([0, 1, 2, 3], dtype=torch.int32),
+                     fresh=torch.from_numpy(fresh))
+    with pytest.raises(ValueError, match="pool="):
+        ops.ssd_scan(*t, chunk=16,
+                     slot=torch.tensor([0, 1, 2, 3], dtype=torch.int32))

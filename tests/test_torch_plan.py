@@ -1,7 +1,7 @@
 """The CUDA kernels' launch plans and the plain versions of their splits.
 
-``ops.matmul_plan`` and ``ops.attention_plan`` choose tiles and splits from
-the shapes alone; here they are checked at every serving shape that
+``ops.matmul_plan``, ``ops.attention_plan`` and ``ops.ssd_plan`` choose
+tiles and splits from the shapes alone; here they are checked at every serving shape that
 ``chip_smoke.py`` times: each must give the card's 132 SMs a block, and the
 splits must cover K (or the keys) exactly.  ``ref.matmul_split_ref`` and
 ``ref.attention_split_ref`` compute what the split kernels compute (fp32
@@ -9,6 +9,7 @@ partials summed in split order, the epilogue once; partial outputs with
 their log-sum-exp, merged) and are held against the unsplit plain
 versions.  fp32 inputs: only the order of summation differs (1e-5).
 """
+import collections
 import importlib.util
 from pathlib import Path
 
@@ -196,3 +197,68 @@ def test_split_kv_plain_matches_attention_ref(b, sq, hq, hkv, sk, q_off,
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     dead = ~ref.attention_mask(sq, sk, qo, kl, window=window).any(-1)
     assert float(got[dead].abs().sum()) == 0.0
+
+
+SSD = [  # (b, s, nh): zamba2-7b's prefill chunk, decode tick, one-token
+    # step, long prompt and ragged run, then odd shapes
+    (1, 64, 112), (4, 1, 112), (1, 1, 112), (1, 1024, 112), (2, 100, 112),
+    (3, 37, 5), (1, 2, 1), (7, 1, 3), (2, 64, 66), (65, 5, 2), (1, 9, 300)]
+
+
+@pytest.mark.parametrize("b,s,nh", SSD)
+def test_ssd_plan_covers_each_row_head_and_state_row_once(b, s, nh):
+    """Every (batch row, head, state row p) falls in exactly one block, in
+    the kernel's grid order; s = 1 takes the one-token kernel's 16-row
+    blocks, a longer run a split the chunked kernel takes."""
+    plan = ops.ssd_plan(b, s, nh)
+    seen = collections.Counter()
+    blocks = list(plan.block_rows())
+    for bi, h, p0, p1 in blocks:
+        assert 0 <= p0 < p1 <= 64 and p1 - p0 == plan.rows
+        seen.update((bi, h, p) for p in range(p0, p1))
+    assert len(blocks) == plan.blocks
+    assert len(seen) == b * nh * 64 and set(seen.values()) == {1}
+    assert plan.one_token == (s == 1)
+    if plan.one_token:
+        assert plan.rows == ops.SSD_STEP_ROWS
+    else:
+        assert plan.splits in ops.SSD_SPLITS
+
+
+def test_ssd_plan_splits_until_half_the_card_has_a_block():
+    """A prefill chunk of one batch row takes one block per head at
+    zamba2-7b's 112 heads, 2 splits at the 56 heads of one of 2 tensor-
+    parallel ranks and 4 at the 28 of one of 4 (112 blocks each); a decode
+    tick and a one-token step launch 4 blocks of 16 rows per (batch row,
+    head)."""
+    for nh, splits in ((112, 1), (56, 2), (28, 4), (7, 4)):
+        assert ops.ssd_plan(1, 64, nh).splits == splits
+    assert ops.ssd_plan(2, 64, 28).splits == 2
+    assert ops.ssd_plan(1, 1, 112).blocks == 448
+    assert ops.ssd_plan(4, 1, 112).blocks == 1792
+    for b, s, nh in SSD[:5]:
+        assert 2 * ops.ssd_plan(b, s, nh).blocks >= ops.SMS
+
+
+NORMS = [  # (rows, width): llama3-8b's and zamba2-7b's block norms at a
+    # prefill chunk, a decode tick and a ragged count, zamba2-7b's grouped
+    # norm at both steps and a one-token step, then odd shapes
+    (64, 4096), (4, 4096), (37, 4096), (64, 3584), (4, 3584), (37, 3584),
+    (7168, 64), (448, 64), (112, 64), (1, 1024), (4144, 1024), (3, 8),
+    (5, 136), (100000, 2048), (1, 512), (300, 4088)]
+
+
+@pytest.mark.parametrize("rows,width", NORMS)
+def test_rmsnorm_plan_holds_each_row_in_whole_warps(rows, width):
+    """A variant the kernel has; its threads hold the whole row; a block of
+    whole warps within the thread limit; rows per block a power of two."""
+    plan = ops.rmsnorm_plan(rows, width)
+    assert (plan.threads, plan.vectors) in ops.RMSNORM_VARIANTS
+    assert plan.threads * plan.vectors * 8 >= width
+    threads = plan.threads * plan.rows
+    assert threads % 32 == 0 and threads <= ops.RMSNORM_MAX_THREADS
+    assert plan.rows & (plan.rows - 1) == 0
+    if width <= 64:
+        assert plan.threads == 8
+    if width in (3584, 4096):
+        assert (plan.threads, plan.vectors, plan.rows) == (128, 4, 1)

@@ -177,6 +177,17 @@ def test_state_put_drops_the_sentinel_rows():
                                   [[0, 1], [-1, -1], [4, 5]])
 
 
+def test_slot_map_refuses_a_live_slot_twice():
+    """Two live rows on one slot would both write its pool rows; sentinel
+    rows may repeat."""
+    with pytest.raises(ValueError, match="appears twice"):
+        lm.slot_map(torch.tensor([1, 3, 1]), torch.tensor([5, 0, 2]), 3)
+    sm = lm.slot_map(torch.tensor([3, 3, 0]), torch.tensor([5, 0, 2]), 3)
+    assert sm.slot.dtype == torch.int32
+    np.testing.assert_array_equal(sm.rows.numpy(), [2])
+    np.testing.assert_array_equal(sm.put.numpy(), [0])
+
+
 def test_port_server_greedy_tokens_match_jax_server_recurrent():
     """Recurrent mode on both sides: prompts of 5, 11, 3 and 9 tokens with
     prefill chunk 4 leave tails of 1, 3, 3 and 1 tokens, fed one at a time
