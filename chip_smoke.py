@@ -41,18 +41,48 @@ Phases, in order, each failing the run on any error:
    seeded prompt lengths in 64-256, 16 new tokens each, 4 slots, prefill
    chunk 64, page size 16.  Launch counts as in phase 2, at 283 matmul, 163
    rmsnorm (95 block norms and 68 grouped norms), 13 flash_attention and 68
-   ssd_scan per step.  This is the slice's main path: the result line's
-   launches are read from it.
+   ssd_scan per step.  The result line's forward rows read their launches
+   from it.
 6. path-check-zamba -- zamba2-7b at full width with the depth cut to 7
    layers (one super-block and one tail Mamba2 block): slot 0's chunks at 0
    and 64 (the second carries the state), slot 1's chunk at 0, and one
    decode tick of 4 slots (2 live, 2 sentinel), card against CPU as in
    phase 3; the fp32 SSD state pools are compared too.
+7. train-kernels -- at llama3-8b's training shapes (4096 wide, 32 q / 8
+   kv heads of 128, d_ff 14336, vocab 128256, 2048 tokens), first each
+   forward kernel against its plain version as in phase 1 (every
+   projection's matmul, the attention with its fp32 log-sum-exp within
+   1e-3, the block norm), then each backward kernel (matmul dgrad and
+   wgrad, flash_attention_bwd, rmsnorm_bwd) against its plain backward on
+   the same bf16 inputs (the plain attention backward reads the plain
+   forward's output and log-sum-exp): every gradient within a per-tensor
+   relative L2 error of 2e-2, rmsnorm's fp32 dgamma of 1e-3.  All timed as
+   in phase 1 against the bound, the timer's floor and the library call
+   (torch.matmul, scaled_dot_product_attention, F.rms_norm; for the
+   backward, their autograd backward); wgrad's copy of A^T is timed on
+   its own too.
+8. train -- ``launch.steps.build_train_step`` on llama3-8b at full width
+   with the depth cut to 4 layers, b = 1, s = 2048, bf16 weights and fp32
+   AdamW moments, remat on: 6 steps on one repeated batch; the loss must
+   fall from step 1 to step 6.  Every count of kernel launches is set to 0
+   just before the 6 steps and read just after: each forward and backward
+   kernel must have launched its per-step count.  Prints ms per step,
+   tokens/s, peak memory and the device's busy share in one profiled step,
+   then the device time of the copies and casts by torch op and input
+   shape in one more (``profile_train_ops.txt``).  This is this slice's main path: the backward rows of the result line
+   take their launches from it.
+9. path-check-train -- llama3-8b at full width with the depth cut to 2
+   layers, b = 1, s = 256: the gradient of every parameter (norm scales
+   included) on the card (kernels, bf16) against the CPU (plain versions,
+   fp32, from the same bf16 weights), within a per-tensor relative L2 error
+   of 5e-2 (``PATH_TOL``).
 
 Prints the card's name and power limit, the kernels' build time, one JSON
-line ``{"kernels": [...]}`` (one row per kernel, at the zamba2-7b path's
-shapes and launches; the llama3-8b rows go to the log and, with every
-check, to ``kernel_checks.json`` in the output directory) and, last,
+line ``{"kernels": [...]}`` (one row per kernel: the four forward kernels
+at the zamba2-7b path's shapes and launches, the three backward kernels
+at the training step's; the llama3-8b serving rows and the training
+step's forward rows go to the log and, with every check, to
+``kernel_checks.json`` in the output directory) and, last,
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, where no CUDA device is present or the
 port's sources are missing.  Long outputs go to ``chiprun_out/``.
@@ -63,6 +93,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -72,9 +103,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
-          "serve-zamba", "path-check-zamba")
-#: the path the result line reports: this slice's main path
+          "serve-zamba", "path-check-zamba", "train-kernels", "train",
+          "path-check-train")
+#: the serving path whose forward rows the result line reports
 MAIN = "zamba2-7b"
+#: the training path: the backward rows of the result line
+TRAIN = "train"
 
 BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_TFLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
@@ -181,7 +215,7 @@ class KernelReport:
         return self.paths.setdefault(path, {
             "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
             "bytes_ms": 0.0, "ops_ms": 0.0, "library_missing": False,
-            "step_ms": {"prefill": 0.0, "decode": 0.0}})
+            "step_ms": {"prefill": 0.0, "decode": 0.0, "train": 0.0}})
 
     def add(self, label, ok, err, tol, path=None, step=None, weight=0,
             ms=None, plain_ms=None, library_ms=None, nbytes=0.0, flops=0.0,
@@ -980,6 +1014,430 @@ def _ssd_pools(caches) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phases 7-9: training.
+# ---------------------------------------------------------------------------
+
+#: the training step's shape and depth (llama3-8b at its published widths)
+TRAIN_SHAPE = dict(batch=1, seq=2048, layers=4, steps=6)
+#: per-tensor relative L2 error of a bf16 gradient of a backward kernel
+#: against its plain version (fp32 sums of bf16 inputs, output rounded at
+#: 2^-8 and summed in another order)
+BWD_REL = 2e-2
+#: the same for rmsnorm's fp32 dgamma (its sum over rows is fp32 on both
+#: sides; only the order differs)
+DGAMMA_REL = 1e-3
+#: the attention forward's fp32 log-sum-exp, absolute: an error e scales
+#: the backward's recomputed probabilities by exp(e), so 1e-3 stays under
+#: a quarter of a bf16 ulp
+LSE_ATOL = 1e-3
+#: the training path check's sequence (the fp32 CPU side's cost)
+PATH_SEQ = 256
+
+
+def rel_l2(got, want) -> float:
+    g, w = got.float(), want.float()
+    assert g.isfinite().all(), "non-finite gradient"
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def train_launches_per_step(layers: int, remat: bool) -> tuple[dict, dict]:
+    """Kernel launches of one training step of a dense model at d1 = d2 =
+    1: the forward of ``launches_per_step`` (each block's forward once
+    more when ``remat`` recomputes it in the backward), and per matmul two
+    backward launches (dgrad and wgrad), per attention and per norm one."""
+    again = 2 if remat else 1
+    fwd = {"matmul": 4 * layers * again + 1,
+           "flash_attention": layers * again,
+           "rmsnorm": 2 * layers * again + 1, "ssd_scan": 0}
+    bwd = {"matmul_bwd": 2 * (4 * layers + 1), "flash_attention_bwd": layers,
+           "rmsnorm_bwd": 2 * layers + 1}
+    return fwd, bwd
+
+
+def train_kernel_phase(torch, F, ops, ref, timer, floor):
+    """The forward kernels (the attention also writing its log-sum-exp)
+    and the backward kernels at llama3-8b's training shapes against their
+    plain versions; returns (the three forward KernelReports, the three
+    backward ones), with totals per training step of ``TRAIN_SHAPE``."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    T, L = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["seq"], TRAIN_SHAPE["layers"]
+    if floor is None:
+        floor = timer(lambda: torch.cuda._sleep(0))
+        log(f"train-kernels: timer floor {floor:.4f} ms (an empty kernel)")
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    failed = []
+    # launches per step of each forward kernel (remat runs each block's
+    # forward twice)
+    fwd_per_step = train_launches_per_step(L, remat=True)[0]
+    again = fwd_per_step["flash_attention"] // L
+    mmf = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
+                       "src/repro/kernels/matmul.py:102", floor)
+    log(f"train-kernels: matmul forward at M = {T} tokens (tolerance |err| "
+        f"<= atol + rtol*|plain|)")
+    for label, K, N, weight in LLAMA_GEMMS:
+        weight = L * again if weight > 1 else 1
+        a, b = randn(T, K), randn(K, N, scale=K ** -0.5)
+        ok, err = within(ops.matmul(a, b), ref.matmul_ref(a, b), **MM_TOL)
+        plan = ops.matmul_plan(T, N, K)
+        if not mmf.add(f"{label} M={T} K={K} N={N} [{plan.name} stream-K "
+                       f"blocks={plan.blocks} share<={plan.max_share}]", ok,
+                       err, MM_TOL, TRAIN, "train", weight,
+                       ms=timer(lambda: ops.matmul(a, b)),
+                       plain_ms=timer(lambda: ref.matmul_ref(a, b)),
+                       library_ms=timer(lambda: torch.matmul(a, b)),
+                       nbytes=2 * (T * K + K * N + T * N),
+                       flops=2 * T * K * N):
+            failed.append(f"matmul {label} M={T}")
+        del a, b
+
+    faf = KernelReport("flash_attention", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:102", floor)
+    log(f"train-kernels: flash_attention forward with its fp32 log-sum-exp "
+        f"at b=1 s={T}; out within {FA_TOL}, log-sum-exp within {LSE_ATOL} "
+        f"absolute")
+    q, k, v = randn(1, T, 32, 128), randn(1, T, 8, 128), randn(1, T, 8, 128)
+    qo = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kl = torch.full((1,), T, dtype=torch.int32, device="cuda")
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+    want_out, want_lse = ref.attention_lse_ref(q, k, v, qo, kl)
+    ok, err = within(out, want_out, **FA_TOL)
+    lse_err = float((lse - want_lse).abs().max())
+    ok = ok and bool(lse.isfinite().all()) and lse_err <= LSE_ATOL
+    visible = int(ref.attention_mask(T, T, qo, kl).sum()) * 32
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if not faf.add(
+            f"llama3-8b b=1 s={T} causal, lse err {lse_err:.2e}", ok,
+            max(err, lse_err), {**FA_TOL, "lse_atol": LSE_ATOL}, TRAIN,
+            "train", L * again,
+            ms=timer(lambda: ops.flash_attention_lse(q, k, v, qo, kl)),
+            plain_ms=timer(lambda: ref.attention_lse_ref(q, k, v, qo, kl)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            nbytes=2 * 2 * (q.numel() + k.numel()) + 4 * lse.numel(),
+            flops=4 * 128 * visible):
+        failed.append("flash_attention forward with log-sum-exp")
+    del q, k, v, qt, kt, vt, out, lse, want_out, want_lse
+
+    rnf = KernelReport("rmsnorm", "cuda",
+                       "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                       "src/repro/kernels/rmsnorm.py:30", floor)
+    x = randn(T, 4096)
+    g = torch.randn(4096, generator=gen, device="cuda")
+    gb = g.to(torch.bfloat16)
+    ok, err = within(ops.rmsnorm(x, g, eps=1e-5), ref.rmsnorm_ref(x, g, 1e-5),
+                     **RN_TOL)
+    plan = ops.rmsnorm_plan(T, 4096)
+    if not rnf.add(f"rows={T} h=4096 [{plan.name}]", ok, err, RN_TOL, TRAIN,
+                   "train", fwd_per_step["rmsnorm"],
+                   ms=timer(lambda: ops.rmsnorm(x, g, eps=1e-5)),
+                   plain_ms=timer(lambda: ref.rmsnorm_ref(x, g, 1e-5)),
+                   library_ms=timer(lambda: F.rms_norm(x, (4096,), gb, 1e-5)),
+                   nbytes=2 * 2 * x.numel() + 4 * g.numel(),
+                   flops=4 * x.numel(), peak=FP32_TFLOPS):
+        failed.append(f"rmsnorm rows={T}")
+    del x
+
+    mm = KernelReport("matmul_bwd", "cuda",
+                      "src/repro_torch/kernels/csrc/matmul.cu",
+                      "src/repro/kernels/matmul.py:102", floor)
+    log(f"train-kernels: matmul backward (dgrad dz.b^T and wgrad a^T.dz, "
+        f"two launches) at M = {T} tokens; limit {BWD_REL} relative L2")
+    copy_ms = 0.0
+    for label, K, N, weight in LLAMA_GEMMS:
+        weight = L if weight > 1 else 1
+        a, b = randn(T, K), randn(K, N, scale=K ** -0.5)
+        dz = randn(T, N, scale=N ** -0.5)
+        da, db = ops.matmul_backward(a, b, dz)
+        want_a, want_b = ref.matmul_bwd_ref(a, b, dz)
+        errs = (rel_l2(da, want_a), rel_l2(db, want_b))
+        ok = max(errs) <= BWD_REL
+        err = max(float((da.float() - want_a.float()).abs().max()),
+                  float((db.float() - want_b.float()).abs().max()))
+        del da, db, want_a, want_b
+        plans = (ops.matmul_plan(T, K, N), ops.matmul_plan(K, N, T))
+        bt = b.t()
+        # wgrad's copy of A^T (the kernel reads A row-major only), part of
+        # the kernel time below
+        copy = timer(lambda: a.t().contiguous())
+        copy_ms += weight * copy
+        log(f"  {'':16s} {label}: wgrad's A^T copy [{K}, {T}] {copy:.4f}ms")
+        if not mm.add(
+                f"{label} M={T} K={K} N={N} rel L2 dA {errs[0]:.2e} dB "
+                f"{errs[1]:.2e} [dgrad {plans[0].name}, wgrad "
+                f"{plans[1].name}]", ok, err, BWD_REL, TRAIN, "train",
+                weight, ms=timer(lambda: ops.matmul_backward(a, b, dz)),
+                plain_ms=timer(lambda: ref.matmul_bwd_ref(a, b, dz)),
+                library_ms=timer(lambda: (torch.matmul(dz, bt),
+                                          torch.matmul(a.t(), dz))),
+                nbytes=2 * (2 * T * K + 2 * K * N + T * N),
+                flops=4 * T * K * N):
+            failed.append(f"matmul_bwd {label}")
+        del a, b, dz, bt
+    log(f"train-kernels: wgrad's A^T copies {copy_ms:.4f} ms per step of "
+        f"{mm.paths[TRAIN]['ms']:.4f} ms of matmul backward")
+
+    fa = KernelReport("flash_attention_bwd", "cuda",
+                      "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                      "src/repro/kernels/flash_attention.py:102", floor)
+    log(f"train-kernels: flash_attention backward (dq, dk, dv; the kernel "
+        f"reads the forward kernel's O and log-sum-exp, the plain backward "
+        f"the plain forward's); limit {BWD_REL} relative L2")
+    for label, b, s, hq, hkv, d, kw, weight in (
+            (f"llama3-8b b=1 s={T} causal", 1, T, 32, 8, 128, {}, L),
+            ("d=112 hq=hkv=4 s=300, window 64, softcap 30", 1, 300, 4, 4,
+             112, dict(window=64, softcap=30.0), 0),
+            ("d=64 b=2 s=200 GQA 2:1, ragged kv", 2, 200, 4, 2, 64, {}, 0)):
+        q, do = randn(b, s, hq, d), randn(b, s, hq, d)
+        k, v = randn(b, s, hkv, d), randn(b, s, hkv, d)
+        qo = torch.zeros(b, dtype=torch.int32, device="cuda")
+        kl = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        if b > 1:
+            kl[1] = s - 37
+        out, lse = ops.flash_attention_lse(q, k, v, qo, kl, **kw)
+        got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl, **kw)
+        out_ref, lse_ref = ref.attention_lse_ref(q, k, v, qo, kl, **kw)
+        want = ref.attention_bwd_ref(q, k, v, out_ref, do, lse_ref, qo, kl,
+                                     **kw)
+        del out_ref, lse_ref
+        errs = [rel_l2(g, w) for g, w in zip(got, want)]
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        del got, want
+        timing = {}
+        if weight:
+            mask = ref.attention_mask(s, s, qo, kl)
+            visible = int(mask.sum()) * hq
+            leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                   enable_gqa=True)
+            do_lib = do.transpose(1, 2)
+            timing = dict(
+                ms=timer(lambda: ops.flash_attention_backward(
+                    q, k, v, out, do, lse, qo, kl, **kw)),
+                plain_ms=timer(lambda: ref.attention_bwd_ref(
+                    q, k, v, out, do, lse, qo, kl, **kw)),
+                library_ms=timer(lambda: torch.autograd.grad(
+                    o_lib, leaves, do_lib, retain_graph=True)),
+                nbytes=2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                flops=5 * 2 * d * visible)
+        if not fa.add(f"{label}: rel L2 dq {errs[0]:.2e} dk {errs[1]:.2e} "
+                      f"dv {errs[2]:.2e}", max(errs) <= BWD_REL, err,
+                      BWD_REL, TRAIN if weight else None,
+                      "train" if weight else None, weight, **timing):
+            failed.append(f"flash_attention_bwd {label}")
+
+    rn = KernelReport("rmsnorm_bwd", "cuda",
+                      "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                      "src/repro/kernels/rmsnorm.py:30", floor)
+    log(f"train-kernels: rmsnorm backward; dx limit {BWD_REL}, dgamma "
+        f"{DGAMMA_REL} relative L2")
+    for rows, h, weight in ((T, 4096, 2 * L + 1), (37, 3584, 0)):
+        x, dy = randn(rows, h, scale=3.0), randn(rows, h)
+        g = torch.rand(h, generator=gen, device="cuda") + 0.5
+        dx, dg = ops.rmsnorm_backward(x, g, dy, eps=1e-5)
+        want_dx, want_dg = ref.rmsnorm_bwd_ref(x, g, dy, 1e-5)
+        errs = (rel_l2(dx, want_dx), rel_l2(dg, want_dg))
+        err = max(float((dx.float() - want_dx.float()).abs().max()),
+                  float((dg - want_dg).abs().max()))
+        timing = {}
+        if weight:
+            xl = x.detach().requires_grad_(True)
+            gl = g.to(torch.bfloat16).requires_grad_(True)
+            y_lib = F.rms_norm(xl, (h,), gl, 1e-5)
+            timing = dict(
+                ms=timer(lambda: ops.rmsnorm_backward(x, g, dy, eps=1e-5)),
+                plain_ms=timer(lambda: ref.rmsnorm_bwd_ref(x, g, dy, 1e-5)),
+                library_ms=timer(lambda: torch.autograd.grad(
+                    y_lib, (xl, gl), dy, retain_graph=True)),
+                nbytes=2 * 3 * x.numel() + 4 * 2 * h,
+                flops=8 * x.numel(), peak=FP32_TFLOPS)
+        if not rn.add(f"rows={rows} h={h}: rel L2 dx {errs[0]:.2e} dgamma "
+                      f"{errs[1]:.2e}", errs[0] <= BWD_REL
+                      and errs[1] <= DGAMMA_REL, err,
+                      {"dx": BWD_REL, "dgamma": DGAMMA_REL},
+                      TRAIN if weight else None,
+                      "train" if weight else None, weight, **timing):
+            failed.append(f"rmsnorm_bwd rows={rows}")
+    if failed:
+        raise AssertionError(f"training-shape kernels disagree with their "
+                             f"plain versions: {failed}")
+    return (mmf, faf, rnf), (mm, fa, rn)
+
+
+def _train_model(torch, layers: int, seed: int, dev="cuda"):
+    """llama3-8b at its published widths, depth cut to ``layers``: the
+    config, this rank's (only) shard of seeded bf16 weights, and one
+    seeded batch of ``TRAIN_SHAPE``'s rows."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=layers)
+    params = lm.shard_params(cfg, lm.init_params(cfg, seed=seed, device=dev),
+                             lm.layout_context(atp_topo(1, 1, 1), 0))
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_SHAPE["batch"],
+                                            TRAIN_SHAPE["seq"] + 1))
+    batch = {"tokens": torch.tensor(toks[:, :-1], dtype=torch.int32,
+                                    device=dev),
+             "labels": torch.tensor(toks[:, 1:], dtype=torch.int32,
+                                    device=dev)}
+    return cfg, params, batch
+
+
+def train_phase(torch, seed: int = 0) -> dict:
+    """``build_train_step`` on llama3-8b (``TRAIN_SHAPE``), AdamW zero1 at
+    dp = 1 (full-state, fp32 m/v), remat on: one warm-up step, then the
+    counted steps on the same batch, then one profiled step and one more
+    profiled with the host's ops and shapes.  Returns the
+    launch counts of the counted steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    L, steps = TRAIN_SHAPE["layers"], TRAIN_SHAPE["steps"]
+    cfg, params, batch = _train_model(torch, L, seed)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1)
+    step, info = build_train_step(cfg, atp_topo(1, 1, 1), opt_cfg)
+    state = adamw.init_opt_state(params, info.ctx, opt_cfg.mode)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in adamw.tree_leaves(params))
+    log(f"train {cfg.name}: {L} layers at full width ({n_params / 1e9:.3f} B "
+        f"parameters, bf16; fp32 AdamW m/v, {opt_cfg.mode}), batch "
+        f"{TRAIN_SHAPE['batch']} x seq {TRAIN_SHAPE['seq']}, remat; set-up "
+        f"{time.perf_counter() - t0:.1f}s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tokens = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["seq"]
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch)   # warm-up: builds, plans
+    losses = [float(m["loss"])]
+    log(f"  step 1 (warm-up): loss {losses[0]:.4f} grad norm "
+        f"{float(m['grad_norm']):.4f} lr {m['lr']:.3g}, "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    ops.reset_launches()
+    walls = []
+    for i in range(2, steps + 1):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))                # synchronises
+        walls.append(time.perf_counter() - t0)
+        log(f"  step {i}: loss {losses[-1]:.4f} grad norm "
+            f"{float(m['grad_norm']):.4f} lr {m['lr']:.3g}, "
+            f"{1e3 * walls[-1]:.1f} ms")
+    launches = {**ops.LAUNCHES, **ops.BACKWARD_LAUNCHES}
+    med = statistics.median(walls)
+    log(f"  {len(walls)} steps: {1e3 * med:.1f} ms per step (median), "
+        f"{tokens / med:.0f} tokens/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    fwd, bwd = train_launches_per_step(L, remat=True)
+    want = {k: v * len(walls) for k, v in {**fwd, **bwd}.items()}
+    log(f"  launches over {len(walls)} steps: {launches} (= per step "
+        f"{fwd} {bwd} x {len(walls)})")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    (OUT_DIR / "profile_train.txt").write_text(
+        events.table(sort_by="self_device_time_total", row_limit=30))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"  profiled step: device busy {device_ms:.1f} ms of {wall_ms:.1f} "
+        f"ms wall ({device_ms / wall_ms:.0%}), "
+        f"{sum(e.count for e in kernels)} device launches; by kernel:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+            f"{e.key[:70]}")
+    # one more step under the host-side profiler, with shapes: which torch
+    # op launched the copies and casts (a transposing copy is an
+    # aten::clone, a cast an aten::_to_copy; both run aten::copy_)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+    by_op = prof.key_averages(group_by_input_shape=True)
+    (OUT_DIR / "profile_train_ops.txt").write_text(
+        by_op.table(sort_by="device_time_total", row_limit=80))
+    copies = sorted((e for e in by_op if e.key in (
+        "aten::copy_", "aten::clone", "aten::_to_copy")),
+        key=lambda e: -e.device_time_total)
+    total = sum(e.device_time_total for e in copies if e.key == "aten::copy_")
+    log(f"  copies and casts of one step (device ms by op and input shape; "
+        f"aten::copy_ {total / 1e3:.2f} ms in all):")
+    for e in copies[:16]:
+        log(f"    {e.device_time_total / 1e3:9.3f} ms  {e.count:4d}x  "
+            f"{e.key} {e.input_shapes}")
+    assert all(math.isfinite(x) for x in losses), f"losses {losses}"
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    assert launches == want, f"launches {launches}, expected {want}"
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_path_check(torch, seed: int = 0) -> None:
+    """The loss and every parameter's gradient of a 2-layer llama3-8b at
+    full width (b = 1, s = ``PATH_SEQ``) on the card (kernels, bf16)
+    against the CPU (plain versions, fp32) from the same bf16 weights."""
+    from repro_torch.core.atp import make_context
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg, params, batch = _train_model(torch, 2, seed)
+    batch = {k: v[:, :PATH_SEQ] for k, v in batch.items()}
+
+    def grads(params, batch, where):
+        ctx = make_context(atp_topo(1, 1, 1), device_type=where)
+        leaves = adamw.tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = lm.train_loss(ctx, cfg, params, batch, remat=False)
+        return float(loss.detach()), [g.float().cpu() for g in
+                                      torch.autograd.grad(loss, leaves)]
+
+    names = _leaf_names(params)
+    card = grads(params, batch, "cuda")
+    cpu = grads(lm.tree_map(lambda t: t.detach().cpu().float(), params),
+                {k: v.cpu() for k, v in batch.items()}, "cpu")
+    errs = {n: rel_l2(g, w) for n, g, w in zip(names, card[1], cpu[1])}
+    worst = max(errs, key=errs.get)
+    log(f"path-check-train {cfg.name} at 2 layers, d_model {cfg.d_model}, "
+        f"s={PATH_SEQ}: loss card {card[0]:.5f} CPU {cpu[0]:.5f}; gradient "
+        f"relative L2 error per tensor, worst {errs[worst]:.3e} ({worst}), "
+        f"limit {PATH_TOL}:")
+    for n, e in errs.items():
+        log(f"    {e:.3e}  {n}")
+    assert abs(card[0] - cpu[0]) <= PATH_TOL * abs(cpu[0]), "loss differs"
+    assert errs[worst] <= PATH_TOL, \
+        f"path-check-train: {worst} relative error {errs[worst]:.3e}"
+
+
+def _leaf_names(tree, prefix="") -> list:
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+# ---------------------------------------------------------------------------
 # Entry point.
 # ---------------------------------------------------------------------------
 
@@ -1042,11 +1500,14 @@ def main(argv=None) -> int:
         log(f"[{phase} done at {time.perf_counter() - t_run:.1f}s]")
 
     reports = []
+    floor_ms = None
     if "kernels" in phases:
-        reports = kernel_phase(torch, F, ops, ref,
-                               chunk=SERVE["prefill_chunk"],
-                               slots=SERVE["slots"], skv=SERVE["max_seq"],
-                               timer=Timer(torch), parent=args.parent)
+        reports = list(kernel_phase(torch, F, ops, ref,
+                                    chunk=SERVE["prefill_chunk"],
+                                    slots=SERVE["slots"],
+                                    skv=SERVE["max_seq"], timer=Timer(torch),
+                                    parent=args.parent))
+        floor_ms = reports[0].floor_ms
         done("kernels")
 
     def kernel_ms(path):
@@ -1069,7 +1530,7 @@ def main(argv=None) -> int:
         done("serve-qwen")
     zamba = get_config("zamba2-7b")
     if "serve-zamba" in phases:
-        # the main path: its counts are the ones the result line reports
+        # the forward rows of the result line read their counts from this run
         launches[MAIN] = serve_phase(torch, zamba, requests=4, seed=2,
                                      kernel_ms=kernel_ms(MAIN), profile=True)
         done("serve-zamba")
@@ -1078,19 +1539,38 @@ def main(argv=None) -> int:
         # block, so both segment kinds run) for the fp32 CPU side
         path_check(torch, dataclasses.replace(zamba, num_layers=7), seed=0)
         done("path-check-zamba")
+    train_fwd = []   # the forward kernels at the training step's shapes
+    if "train-kernels" in phases:
+        train_fwd, train_bwd = train_kernel_phase(torch, F, ops, ref,
+                                                  Timer(torch), floor_ms)
+        reports += train_bwd
+        done("train-kernels")
+    if "train" in phases:
+        launches[TRAIN] = train_phase(torch)
+        done("train")
+    if "path-check-train" in phases:
+        train_path_check(torch)
+        done("path-check-train")
 
-    rows = {path: [r.row(path, launches.get(path, {}).get(r.meta["name"], 0))
-                   for r in reports if path in r.paths]
-            for path in ("llama3-8b", MAIN)}
+    def path_rows(path, of):
+        return [r.row(path, launches.get(path, {}).get(r.meta["name"], 0))
+                for r in of if path in r.paths]
+
+    rows = {path: path_rows(path, reports)
+            for path in ("llama3-8b", MAIN, TRAIN)}
+    rows["train forward"] = path_rows(TRAIN, train_fwd)
     (OUT_DIR / "kernel_checks.json").write_text(json.dumps(
-        {"rows": rows, "checks": {r.meta["name"]: r.checks for r in reports}},
-        indent=1))
-    for row in rows["llama3-8b"]:
-        log(f"llama3-8b step pair: {row['name']} launches={row['launches']} "
-            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-            f"library_ms={row['library_ms']}")
-    kernels = rows[MAIN]
+        {"rows": rows, "checks": {r.meta["name"]: r.checks for r in reports},
+         "train forward checks": {r.meta["name"]: r.checks
+                                  for r in train_fwd}}, indent=1))
+    for what, path in (("llama3-8b step pair", "llama3-8b"),
+                       ("train step, forward", "train forward")):
+        for row in rows[path]:
+            log(f"{what}: {row['name']} launches={row['launches']} "
+                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                f"library_ms={row['library_ms']}")
+    kernels = rows[MAIN] + rows[TRAIN]
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

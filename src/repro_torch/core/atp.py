@@ -1,5 +1,5 @@
 """ATP row/column-first tensor-parallel layers (counterpart of
-``repro.core.atp``), serving only: there is no autograd here.
+``repro.core.atp``).
 
 Each rank holds local shards and issues its collectives explicitly through
 ``torch.distributed`` on the process group of one mesh axis:
@@ -11,6 +11,27 @@ Activations between blocks are replicated over tp1 and feature-sharded over
 tp2 (local ``[..., d_model/d2]``).  A size-1 axis is ``None`` and its
 collectives are skipped.  Ring boundaries, the quantized wire and the
 sequence-parallel block I/O are ROADMAP A8.
+
+Autograd follows the JAX package's varying-manual-axes typing.  A value is
+either the same on every rank of an axis (invariant) or not (varying), and
+the gradient of an invariant value is complete on every rank:
+  - ``atp_boundary`` (varying -> invariant) all-reduces forward and passes
+    the gradient through unchanged;
+  - ``conjugate`` (invariant -> varying, JAX's ``pvary``) is the identity
+    forward and all-reduces the gradient.  It sits wherever an invariant
+    value meets rank-local work: the input of a column-first GEMM (over
+    tp1, whose ranks hold different output columns), the input of a
+    row-first GEMM (over tp2), the q/k/v heads before each rank takes its
+    own, a norm's statistic before it scales the local features;
+  - ``grad_sync`` is ``conjugate`` on a parameter: a replicated parameter
+    used on rank-local heads (the qk-norm gains).  A norm scale needs none:
+    the conjugate on the column input already completes its gradient, and
+    a second reduction would count it d1 times (the JAX package's vma path
+    drops its own ``grad_sync`` for the same reason);
+  - ``all_gather`` (varying -> invariant) hands each rank its own slice of
+    the complete gradient.
+Every parameter is replicated over the data-parallel axes; its gradient is
+summed over them once, by the optimizer (``optim.adamw``).
 """
 from __future__ import annotations
 
@@ -65,6 +86,21 @@ class ATPContext:
     @property
     def tp(self) -> int:
         return self.d1 * self.d2
+
+    @property
+    def dp(self) -> int:
+        """Data-parallel degree (the product of the dp axes)."""
+        n = 1
+        for a in self.dp_axes:
+            n *= self.topo.axis_size(a)
+        return n
+
+    def dp_index(self) -> int:
+        """This rank's flat data-parallel index (first dp axis major)."""
+        i = 0
+        for a in self.dp_axes:
+            i = i * self.topo.axis_size(a) + self.coords.get(a, 0)
+        return i
 
     @property
     def tp_axes(self) -> tuple[str, ...]:
@@ -133,15 +169,77 @@ def make_context(topo: MeshTopo, chunks: int = 1,
 # ---------------------------------------------------------------------------
 
 
-def atp_boundary(ctx: ATPContext, x: torch.Tensor, axis: str | None):
-    """Resolve a partial-sum activation: all-reduce over one mesh dim (in
-    place on ``x``, which the caller owns)."""
-    if axis is None:
+def _grad(x: torch.Tensor) -> bool:
+    """Whether ``x`` is on an autograd path (else the collectives work in
+    place, as serving has them)."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward (on a copy), identity backward.  With a list for
+    ``works`` the all-reduce is left in flight and its handle appended:
+    the caller waits on it before reading the result."""
+
+    @staticmethod
+    def forward(ctx, x, group, works=None):
+        import torch.distributed as dist
+
+        y = x.clone()
+        work = dist.all_reduce(y, group=group, async_op=works is not None)
+        if works is not None:
+            works.append(work)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Conjugate(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient backward (on a copy:
+    autograd may hand the same gradient tensor to other branches)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def atp_boundary(ctx: ATPContext, x: torch.Tensor, axis):
+    """Resolve a partial-sum activation: all-reduce over one mesh dim, or
+    over the flat TP axes (in place on ``x``, which the caller owns, off
+    the autograd path).  Backward: the identity."""
+    if not axis:
         return x
+    if _grad(x):
+        return _Reduce.apply(x, ctx.group(axis))
     import torch.distributed as dist
 
     dist.all_reduce(x, group=ctx.group(axis))
     return x
+
+
+def conjugate(ctx: ATPContext, x: torch.Tensor, axis):
+    """The boundary's conjugate: identity forward, all-reduce of the
+    gradient over ``axis`` (one name or the flat TP axes) backward."""
+    if not axis or not _grad(x):
+        return x
+    return _Conjugate.apply(x, ctx.group(axis))
+
+
+def grad_sync(ctx: ATPContext, p: torch.Tensor, axes):
+    """A replicated parameter at a use site whose gradient is rank-partial
+    (identity forward, all-reduce of the gradient over ``axes``).  Exactly
+    one reduction: the caller wraps the parameter here and nowhere else."""
+    return conjugate(ctx, p, axes)
 
 
 def all_reduce_max(ctx: ATPContext, x: torch.Tensor, axis: str | None):
@@ -162,6 +260,35 @@ def all_reduce_min(ctx: ATPContext, x: torch.Tensor, axis: str | None):
     return x
 
 
+def _gather(x: torch.Tensor, group, dim: int, tiled: bool):
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim) if tiled else torch.stack(parts)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward; backward, this rank's slice of the complete
+    gradient of the gathered (invariant) value."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, tiled):
+        import torch.distributed as dist
+
+        ctx.rank, ctx.dim, ctx.tiled = dist.get_rank(group), dim, tiled
+        ctx.size = x.shape[dim] if tiled else 0
+        return _gather(x, group, dim, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.tiled:
+            g = g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size)
+        else:
+            g = g[ctx.rank]
+        return g.contiguous(), None, None, None
+
+
 def all_gather(ctx: ATPContext, x: torch.Tensor, axes, dim: int,
                tiled: bool = True):
     """Gather ``x`` from every rank of ``axes`` (one name or the flat TP
@@ -169,12 +296,10 @@ def all_gather(ctx: ATPContext, x: torch.Tensor, axes, dim: int,
     stacked on a new leading dim."""
     if not axes:
         return x if tiled else x.unsqueeze(0)
-    import torch.distributed as dist
-
     group = ctx.group(axes)
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim) if tiled else torch.stack(parts)
+    if _grad(x):
+        return _Gather.apply(x, group, dim % x.dim() if tiled else 0, tiled)
+    return _gather(x, group, dim, tiled)
 
 
 # ---------------------------------------------------------------------------
@@ -190,24 +315,30 @@ def _epilogue(y: torch.Tensor, b, activation):
     return ref.epilogue(y.float(), b, activation).to(y.dtype)
 
 
-def _chunked_boundary_matmul(ctx: ATPContext, x, w, axis, b=None,
+def _chunked_boundary_matmul(ctx: ATPContext, x, w, axis, other, b=None,
                              activation=None):
     """Chunk-based overlapping (paper §4.1): split the leading dim into
     ``ctx.chunks`` chunks (uneven sizes allowed); each chunk's all-reduce is
     issued asynchronously, so the next chunk's GEMM runs under it.  Bias and
     activation follow each chunk's boundary; with no boundary they ride the
-    GEMM's fused epilogue."""
+    GEMM's fused epilogue.  Backward mirrors it: each chunk's input
+    gradient is all-reduced over ``other`` on its own (the conjugate of
+    each chunk), in reverse chunk order."""
     c = max(1, min(ctx.chunks, x.shape[0]))
     outs, works = [], []
     for xc in torch.tensor_split(x, c, dim=0):
+        xc = conjugate(ctx, xc, other)
         if axis is None:
             outs.append(ops.matmul(xc, w, b, activation=activation))
             continue
-        import torch.distributed as dist
-
         yc = ops.matmul(xc, w)
-        works.append(dist.all_reduce(yc, group=ctx.group(axis),
-                                     async_op=True))
+        if _grad(yc):
+            yc = _Reduce.apply(yc, ctx.group(axis), works)
+        else:
+            import torch.distributed as dist
+
+            works.append(dist.all_reduce(yc, group=ctx.group(axis),
+                                         async_op=True))
         outs.append(yc)
     for work in works:
         work.wait()
@@ -229,11 +360,15 @@ def atp_linear(ctx: ATPContext, x, w, b=None, *,
 
     The bias (sharded like the output dim) and the activation apply after
     the boundary.  With no boundary (the axis is size 1) they are fused into
-    the GEMM's epilogue.
+    the GEMM's epilogue.  The input, the same on every rank of the other
+    axis, meets that axis's ranks' different weight shards: its conjugate
+    all-reduces the input gradient over it.
     """
     axis = ctx.ax2 if kind == "col" else ctx.ax1
+    other = ctx.ax1 if kind == "col" else ctx.ax2
     if chunked and ctx.chunks > 1 and x.dim() >= 2:
-        return _chunked_boundary_matmul(ctx, x, w, axis, b, activation)
+        return _chunked_boundary_matmul(ctx, x, w, axis, other, b, activation)
+    x = conjugate(ctx, x, other)
     if axis is None:
         return ops.matmul(x, w, b, activation=activation)
     y = atp_boundary(ctx, ops.matmul(x, w), axis)

@@ -18,20 +18,26 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("matmul", "flash_attention", "ssd_scan", "rmsnorm")
+SOURCES = ("matmul", "flash_attention", "flash_attention_bwd", "ssd_scan",
+           "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-#: C signature of each library's entry point: (name, argtypes)
+#: each C entry point: (source library, symbol, argtypes)
 SIGNATURES = {
-    "matmul": ("repro_matmul_bf16", [_P] * 6 + [_I] * 8 + [_P]),
-    "flash_attention": ("repro_flash_attention_bf16",
-                        [_P] * 9 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
-    "ssd_scan": ("repro_ssd_scan_bf16",
+    "matmul": ("matmul", "repro_matmul_bf16", [_P] * 6 + [_I] * 8 + [_P]),
+    "flash_attention": ("flash_attention", "repro_flash_attention_bf16",
+                        [_P] * 10 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "repro_flash_attention_bwd_bf16",
+                            [_P] * 12 + [_I] * 8 + [_F] + [_P]),
+    "ssd_scan": ("ssd_scan", "repro_ssd_scan_bf16",
                  [_P] * 11 + [_L] + [_I] * 8 + [_L] * 10 + [_P]),
-    "rmsnorm": ("repro_rmsnorm_bf16",
+    "rmsnorm": ("rmsnorm", "repro_rmsnorm_bf16",
                 [_P] * 4 + [_L] * 2 + [_I] * 3 + [_F] + [_I] * 3 + [_P]),
+    "rmsnorm_bwd": ("rmsnorm", "repro_rmsnorm_bwd_bf16",
+                    [_P] * 6 + [_I] * 2 + [_F] + [_I] + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -80,13 +86,14 @@ def build(names=SOURCES) -> dict[str, float]:
 
 
 def entry(name: str):
-    """The loaded C entry point of kernel library ``name``, built if needed."""
+    """The loaded C entry point ``name`` (a key of ``SIGNATURES``), its
+    library built if needed."""
     fn = _loaded.get(name)
     if fn is None:
-        path = library_path(name)
+        lib, symbol, argtypes = SIGNATURES[name]
+        path = library_path(lib)
         if not path.exists():
-            build((name,))
-        symbol, argtypes = SIGNATURES[name]
+            build((lib,))
         fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

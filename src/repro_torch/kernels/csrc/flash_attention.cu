@@ -38,6 +38,10 @@
 //     the row tile to arrive (an int counter, reset by that block) merges
 //     the splits in split order.  A split that sees no key has lse = -inf
 //     and weight 0; a row all of whose splits see no key gives zeros.
+// For training, the wrapper also passes an fp32 [b, hq, sq] buffer for each
+// row's log-sum-exp of its scaled (and softcapped) scores, which the
+// backward (flash_attention_bwd.cu) reads to recompute the probabilities;
+// at serving the pointer is null and nothing more is written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -104,6 +108,7 @@ struct Args {
   const bf16* K;
   const bf16* V;
   bf16* O;
+  float* lse;     // [b, hq, sq] log-sum-exp of each row, or null
   const int* q_offset;
   const int* kv_len;
   float* ws_o;    // [tiles, splits, kBR, D] normalised partial O
@@ -166,6 +171,10 @@ __global__ void __launch_bounds__(kThreads)
   auto q_ptr = [&](int row) {
     return (size_t)(b * sq + row / grp) * q_row +
            (size_t)(kvh * grp + row % grp) * D;
+  };
+  // the same row's place in the [b, hq, sq] log-sum-exp
+  auto lse_idx = [&](int row) {
+    return ((size_t)b * hq + kvh * grp + row % grp) * sq + row / grp;
   };
 
   auto load_kv = [&](int buf, int k0) {
@@ -312,6 +321,9 @@ __global__ void __launch_bounds__(kThreads)
       const int row = r0 + warp * 16 + g + h * 8;
       if (row >= rows) continue;
       const float inv = l_run[h] > 0.0f ? 1.0f / l_run[h] : 0.0f;
+      if (args.lse != nullptr && t == 0)
+        args.lse[lse_idx(row)] =
+            l_run[h] > 0.0f ? m_run[h] + logf(l_run[h]) : -INFINITY;
       bf16* out = args.O + q_ptr(row);
 #pragma unroll
       for (int n = 0; n < kDN; ++n)
@@ -374,6 +386,8 @@ __global__ void __launch_bounds__(kThreads)
       if (wz != 0.0f) live[z] = 1;
     }
     inv_den[r] = den > 0.0f ? 1.0f / den : 0.0f;
+    if (args.lse != nullptr)
+      args.lse[lse_idx(r0 + r)] = den > 0.0f ? L + logf(den) : -INFINITY;
   }
   __syncthreads();
   // each thread owns kPer float4 of the tile; per split, all its loads are
@@ -432,14 +446,15 @@ cudaError_t launch(const Args& args, int b, cudaStream_t stream) {
 }  // namespace
 
 // q/o [b, sq, hq, d], k/v [b, skv, hkv, d], all contiguous bf16 with
-// 16-byte-aligned bases; q_offset/kv_len [b] int32 on the device.  d is 64,
+// 16-byte-aligned bases; q_offset/kv_len [b] int32 on the device; lse null
+// or fp32 [b, hq, sq].  d is 64,
 // 112 or 128; hq % hkv == 0.  row_tiles, splits and tiles_per_split come from
 // ops.attention_plan; with splits > 1, ws_o holds tiles * splits * 64 * d
 // floats, ws_lse tiles * splits * 64 floats and counters tiles zeroed ints
 // (tiles = b * hkv * row_tiles).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     const void* q_offset, const void* kv_len, void* ws_o, void* ws_lse,
     void* counters, int b, int sq, int skv, int hq, int hkv, int d,
     int causal, int window, float softcap, int row_tiles, int splits,
@@ -455,7 +470,8 @@ extern "C" int repro_flash_attention_bf16(
     return cudaErrorInvalidValue;
   Args args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), static_cast<bf16*>(o),
-            static_cast<const int*>(q_offset), static_cast<const int*>(kv_len),
+            static_cast<float*>(lse), static_cast<const int*>(q_offset),
+            static_cast<const int*>(kv_len),
             static_cast<float*>(ws_o), static_cast<float*>(ws_lse),
             static_cast<int*>(counters), sq, skv, hq, hkv, causal, window,
             softcap, 1.0f / sqrtf(static_cast<float>(d)), row_tiles, splits,

@@ -204,3 +204,130 @@ extern "C" int repro_rmsnorm_bf16(const void* x, const void* gamma,
     default: return cudaErrorInvalidValue;
   }
 }
+
+// ---------------------------------------------------------------------------
+// Backward, for training: the gradient of the block norm (groups = 1) with
+// respect to x and gamma.  The Pallas kernel has none (JAX differentiates
+// the plain jnp norm); this is the gradient of the function above:
+//   xhat = x * rstd,  rstd = rsqrt(mean(x^2) + eps),
+//   dx = rstd * (gamma * dy - xhat * mean(xhat * gamma * dy)),
+//   dgamma = sum over rows of dy * xhat.
+// rstd is recomputed from x (one more read of a row the kernel reads
+// anyway).  Bound by bytes: x and dy read once, dx written once.  A block
+// of 256 threads takes rows blockIdx.x, blockIdx.x + gridDim.x, ..., each
+// thread holding up to 16 columns of the row and its columns' dgamma sums
+// across the block's rows; a second kernel sums the blocks' partial
+// dgamma rows in block order, so dgamma is deterministic (no float
+// atomics).
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdCols = kMaxWidth / kBwdThreads;  // columns a thread holds
+
+__device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    red[2 * warp] = a;
+    red[2 * warp + 1] = b;
+  }
+  __syncthreads();
+  a = 0.0f;
+  b = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kBwdThreads / 32; ++w) {
+    a += red[2 * w];
+    b += red[2 * w + 1];
+  }
+  __syncthreads();  // red is reused by the next row
+}
+
+__global__ void __launch_bounds__(kBwdThreads)
+    rmsnorm_bwd_kernel(const bf16* __restrict__ x,
+                       const float* __restrict__ gamma,
+                       const bf16* __restrict__ dy, bf16* __restrict__ dx,
+                       float* __restrict__ partial, int rows, int width,
+                       float eps) {
+  __shared__ float red[2 * kBwdThreads / 32];
+  const int tid = threadIdx.x;
+  float g[kBwdCols], dg[kBwdCols];
+#pragma unroll
+  for (int k = 0; k < kBwdCols; ++k) {
+    const int c = tid + k * kBwdThreads;
+    g[k] = c < width ? gamma[c] : 0.0f;
+    dg[k] = 0.0f;
+  }
+  const float inv_w = 1.0f / static_cast<float>(width);
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const bf16* xr = x + (size_t)row * width;
+    const bf16* dr = dy + (size_t)row * width;
+    float xv[kBwdCols], dv[kBwdCols];
+    float ss = 0.0f, dot = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kBwdCols; ++k) {
+      const int c = tid + k * kBwdThreads;
+      xv[k] = c < width ? __bfloat162float(xr[c]) : 0.0f;
+      dv[k] = c < width ? __bfloat162float(dr[c]) : 0.0f;
+      ss += xv[k] * xv[k];
+      dot += xv[k] * g[k] * dv[k];
+    }
+    block_sum2(ss, dot, red);
+    const float r = rsqrtf(ss * inv_w + eps);
+    const float m = r * r * r * dot * inv_w;  // rstd * mean(xhat*gamma*dy)
+    bf16* out = dx + (size_t)row * width;
+#pragma unroll
+    for (int k = 0; k < kBwdCols; ++k) {
+      const int c = tid + k * kBwdThreads;
+      if (c >= width) continue;
+      out[c] = __float2bfloat16(r * g[k] * dv[k] - xv[k] * m);
+      dg[k] += dv[k] * xv[k] * r;
+    }
+  }
+  float* pr = partial + (size_t)blockIdx.x * width;
+#pragma unroll
+  for (int k = 0; k < kBwdCols; ++k) {
+    const int c = tid + k * kBwdThreads;
+    if (c < width) pr[c] = dg[k];
+  }
+}
+
+__global__ void rmsnorm_dgamma_kernel(const float* __restrict__ partial,
+                                      float* __restrict__ dgamma, int blocks,
+                                      int width) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= width) return;
+  float s = 0.0f;
+  for (int b = 0; b < blocks; ++b) s += partial[(size_t)b * width + c];
+  dgamma[c] = s;
+}
+
+}  // namespace
+
+// x, dy, dx [rows, width] contiguous bf16 (16-byte-aligned bases), gamma and
+// dgamma [width] fp32, partial [blocks, width] fp32 scratch; width <= 4096,
+// blocks >= 1 (ops.rmsnorm_backward sizes the grid).  Two launches: the
+// rows, then the block-ordered sum of the partial dgamma rows.
+// Returns the cudaError_t of the launches (0 on success).
+extern "C" int repro_rmsnorm_bwd_bf16(const void* x, const void* gamma,
+                                      const void* dy, void* dx, void* partial,
+                                      void* dgamma, int rows, int width,
+                                      float eps, int blocks, void* stream) {
+  if (rows < 1 || width < 1 || width > kMaxWidth || blocks < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  rmsnorm_bwd_kernel<<<blocks, kBwdThreads, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
+      static_cast<float*>(partial), rows, width, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  rmsnorm_dgamma_kernel<<<(width + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dgamma), blocks,
+      width);
+  return cudaGetLastError();
+}

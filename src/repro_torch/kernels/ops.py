@@ -9,7 +9,18 @@ the kernel to the plain version.
 kernel is launched and nowhere else, so a run can show that its path went
 through the kernels (``reset_launches`` before, read after).  A stream-K
 matmul and a split-KV attention merge their splits inside the same launch,
-so each call is still one launch.
+so each call is still one launch.  ``BACKWARD_LAUNCHES`` counts the
+backward kernels the same way: each matmul backward launches the matmul
+kernel twice (dgrad and wgrad), the flash-attention and rmsnorm backward
+wrappers one C entry each.
+
+Training: ``matmul``, ``flash_attention`` and ``rmsnorm`` are autograd
+Functions wherever an input requires grad and grad mode is on; their
+backward runs ``matmul_backward``, ``flash_attention_backward`` and
+``rmsnorm_backward``, which launch the backward kernels on CUDA tensors
+and take the plain backward versions (``kernels.ref``) on the CPU.  With
+no grad (serving) each wrapper launches exactly what it launched before,
+and the attention writes no log-sum-exp.
 
 ``matmul_plan``, ``attention_plan`` and ``ssd_plan`` choose the CUDA
 kernels' tiles and splits from the shapes alone; they are plain Python, so
@@ -25,6 +36,8 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES = {"matmul": 0, "flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+BACKWARD_LAUNCHES = {"matmul_bwd": 0, "flash_attention_bwd": 0,
+                     "rmsnorm_bwd": 0}
 
 _ACTIVATIONS = {None: 0, "gelu": 1, "silu": 2}
 
@@ -33,8 +46,16 @@ SMS = 132
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _grad(*ts) -> bool:
+    """Whether the call is on an autograd path: grad mode on and some input
+    requiring grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def _on_cpu(*ts) -> bool:
@@ -218,6 +239,21 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
     without a copy."""
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
+    if _grad(a, b, bias):
+        if activation is not None and not _on_cpu(a, b, bias):
+            # the activation and its derivative would run as plain torch
+            # on the card, outside the kernel
+            raise NotImplementedError(
+                "a fused matmul activation under autograd on CUDA (the "
+                "kernel writing the pre-activation, and a kernel for the "
+                "activation's derivative) is ROADMAP A5b")
+        return _Matmul.apply(a, b, bias, activation)
+    return _matmul(a, b, bias, activation)
+
+
+def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul"):
+    """``matmul`` off the autograd path; a launch counts under
+    ``counts[key]``."""
     if _on_cpu(a, b, bias):
         return ref.matmul_ref(a, b, bias, activation)
     from repro_torch.kernels import _build
@@ -256,8 +292,55 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
             (_ptr(a2), _ptr(b), _ptr(bias), _ptr(out), _ptr(ws),
              _ptr(counters), M, N, K, b_trans, _ACTIVATIONS[activation], vec,
              plan.variant, plan.blocks, _stream(a)), "matmul", counters)
-    LAUNCHES["matmul"] += 1
+    counts[key] += 1
     return out.reshape(*lead, N)
+
+
+def matmul_backward(a: torch.Tensor, b: torch.Tensor, dz: torch.Tensor, *,
+                    need_a: bool = True, need_b: bool = True):
+    """The backward of ``a [M, K] @ b [K, N]`` for the gradient ``dz [M, N]``
+    of its pre-activation output: ``(dz @ b^T, a^T @ dz)`` (None where not
+    needed).  On CUDA, two launches of the matmul kernel: dgrad reads ``b``
+    transposed, as a tied head does; wgrad reads a copy of ``a^T`` made
+    here (the kernel reads A row-major only)."""
+    if _on_cpu(a, b, dz):
+        da, db = ref.matmul_bwd_ref(a, b, dz)
+        return (da if need_a else None), (db if need_b else None)
+    dz = dz.contiguous()
+    key = "matmul_bwd"
+    da = _matmul(dz, b.t(), None, None, BACKWARD_LAUNCHES, key) if need_a \
+        else None
+    db = _matmul(a.t().contiguous(), dz, None, None, BACKWARD_LAUNCHES,
+                 key) if need_b else None
+    return da, db
+
+
+class _Matmul(torch.autograd.Function):
+    """``matmul`` with its backward.  With a fused activation (CPU tensors
+    only: ``matmul`` refuses it on CUDA) the forward keeps the
+    pre-activation: the plain matmul runs with the bias only, and the
+    activation follows in fp32 (the epilogue's order and precision)."""
+
+    @staticmethod
+    def forward(ctx, a, b, bias, activation):
+        z = _matmul(a, b, bias, None)
+        y = z if activation is None else \
+            ref.epilogue(z.float(), None, activation).to(z.dtype)
+        ctx.save_for_backward(a, b, None if activation is None else z)
+        ctx.activation = activation
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, z = ctx.saved_tensors
+        dz = ref.epilogue_bwd(z, dy, ctx.activation)
+        N = b.shape[1]
+        dz2 = dz.reshape(-1, N)
+        need_a, need_b, need_bias = ctx.needs_input_grad[:3]
+        da, db = matmul_backward(a.reshape(-1, a.shape[-1]), b, dz2,
+                                 need_a=need_a, need_b=need_b)
+        dbias = dz2.float().sum(0).to(dz.dtype) if need_bias else None
+        return (None if da is None else da.reshape(a.shape)), db, dbias, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -270,11 +353,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     keys ``j < kv_len[b]`` with ``j <= qpos`` (causal) and
     ``j > qpos - window`` (window > 0).  Scale 1/sqrt(d), optional tanh
     softcap.  GQA maps q head h to kv head ``h // (hq // hkv)``."""
+    if _grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, q_offset, kv_len, causal,
+                                     window, softcap)
     if _on_cpu(q, k, v, q_offset, kv_len):
         return ref.attention_ref(q, k, v, q_offset, kv_len, causal=causal,
                                  window=window, softcap=softcap)
-    from repro_torch.kernels import _build
+    return _flash(*_flash_inputs(q, k, v, q_offset, kv_len), causal, window,
+                  softcap)[0]
 
+
+def _flash_inputs(q, k, v, q_offset, kv_len):
+    """The CUDA attention's inputs, checked: contiguous 16-byte-aligned
+    bf16 q/k/v (a copy where they are not) and int32 q_offset/kv_len."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if k.shape != (b, skv, hkv, d) or v.shape != k.shape or hq % hkv:
@@ -292,7 +383,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kl = kv_len.to(torch.int32).contiguous()
     if qo.shape != (b,) or kl.shape != (b,):
         raise ValueError("q_offset and kv_len must be [b]")
+    return q, k, v, qo, kl
+
+
+def _flash(q, k, v, qo, kl, causal, window, softcap, lse: bool = False):
+    """One launch of the CUDA attention on ``_flash_inputs``; returns (out,
+    the fp32 [b, hq, sq] log-sum-exp or None)."""
+    from repro_torch.kernels import _build
+
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse_out = torch.empty((b, hq, sq), dtype=torch.float32,
+                          device=q.device) if lse else None
     plan = attention_plan(b, sq, hq, hkv, skv)
     ws_o = ws_lse = counters = None
     if plan.splits > 1:
@@ -301,13 +404,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ws_lse = torch.empty(parts, dtype=torch.float32, device=q.device)
         counters = _counters(q, b * hkv * plan.row_tiles)
     _launch(_build.entry("flash_attention"),
-            (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(qo), _ptr(kl),
+            (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse_out), _ptr(qo),
+             _ptr(kl),
              _ptr(ws_o), _ptr(ws_lse), _ptr(counters), b, sq, skv, hq, hkv, d,
              int(causal), int(window), float(softcap), plan.row_tiles,
              plan.splits, plan.tiles_per_split, _stream(q)),
             "flash_attention", counters)
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse_out
+
+
+def flash_attention_lse(q, k, v, q_offset, kv_len, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0):
+    """``flash_attention``'s output and each row's fp32 log-sum-exp ``[b,
+    hq, sq]`` of its scaled (softcapped) visible scores, -inf for a row
+    with no visible key: what the backward reads.  One launch on CUDA."""
+    if _on_cpu(q, k, v, q_offset, kv_len):
+        return ref.attention_lse_ref(q, k, v, q_offset, kv_len, causal=causal,
+                                     window=window, softcap=softcap)
+    return _flash(*_flash_inputs(q, k, v, q_offset, kv_len), causal, window,
+                  softcap, lse=True)
+
+
+def flash_attention_backward(q, k, v, o, do, lse, q_offset, kv_len, *,
+                             causal: bool = True, window: int = 0,
+                             softcap: float = 0.0):
+    """(dq, dk, dv) of ``flash_attention`` from its output ``o``, the output
+    gradient ``do`` and the forward's fp32 ``lse [b, hq, sq]``.
+
+    On CUDA: the inputs as ``flash_attention`` takes them, ``o``/``do``
+    bf16 like q; one C entry (three kernels: rowsum(dO o O), dK/dV, dQ)."""
+    if _on_cpu(q, k, v, o, do, lse, q_offset, kv_len):
+        return ref.attention_bwd_ref(q, k, v, o, do, lse, q_offset, kv_len,
+                                     causal=causal, window=window,
+                                     softcap=softcap)
+    from repro_torch.kernels import _build
+
+    q, k, v, qo, kl = _flash_inputs(q, k, v, q_offset, kv_len)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or {o.dtype, do.dtype} != {
+            torch.bfloat16}:
+        raise ValueError(f"o and do must be bf16 {tuple(q.shape)}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 [{b}, {hq}, {sq}]")
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    _check(_build.entry("flash_attention_bwd")(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse), _ptr(qo),
+        _ptr(kl), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(delta), b, sq, skv, hq,
+        hkv, d, int(causal), int(window), float(softcap), _stream(q)),
+        "flash_attention_bwd")
+    BACKWARD_LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward: the forward also writes each
+    row's log-sum-exp, which the backward reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_len, causal, window, softcap):
+        opts = dict(causal=causal, window=window, softcap=softcap)
+        out, lse = flash_attention_lse(q, k, v, q_offset, kv_len, **opts)
+        ctx.save_for_backward(q, k, v, out, lse, q_offset, kv_len)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, q_offset, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, do, lse,
+                                              q_offset, kv_len, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _aligned(t: torch.Tensor | None) -> torch.Tensor | None:
@@ -369,6 +539,12 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6):
 
     On CUDA: bf16 x, fp32 gamma, h a multiple of 8 up to
     ``RMSNORM_MAX_WIDTH``."""
+    if _grad(x, gamma):
+        return _RmsNorm.apply(x, gamma, eps)
+    return _rmsnorm(x, gamma, eps)
+
+
+def _rmsnorm(x, gamma, eps):
     if _on_cpu(x, gamma):
         return ref.rmsnorm_ref(x, gamma, eps)
     h = x.shape[-1]
@@ -376,6 +552,58 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6):
         raise ValueError(f"gamma must be [{h}], got {tuple(gamma.shape)}")
     return _norm(x.reshape(-1, h), gamma.view(1, h), None, eps).reshape(
         x.shape)
+
+
+def rmsnorm_backward(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                     *, eps: float = 1e-6):
+    """(dx, dgamma) of ``rmsnorm`` for the output gradient ``dy``.
+
+    On CUDA: bf16 x and dy, fp32 gamma [h], h up to ``RMSNORM_MAX_WIDTH``;
+    one C entry (the rows, then the block-ordered sum of dgamma's per-block
+    partial rows: deterministic)."""
+    if _on_cpu(x, gamma, dy):
+        return ref.rmsnorm_bwd_ref(x, gamma, dy, eps)
+    from repro_torch.kernels import _build
+
+    h = x.shape[-1]
+    if gamma.shape != (h,) or gamma.dtype != torch.float32:
+        raise ValueError(f"gamma must be fp32 [{h}]")
+    if {x.dtype, dy.dtype} != {torch.bfloat16} or dy.shape != x.shape:
+        raise TypeError(f"x and dy must be bf16 {tuple(x.shape)}")
+    if not 1 <= h <= RMSNORM_MAX_WIDTH:
+        raise ValueError(f"the CUDA rmsnorm backward takes rows up to "
+                         f"{RMSNORM_MAX_WIDTH} wide, got {h}")
+    x2 = x.reshape(-1, h).contiguous()
+    dy2 = dy.reshape(-1, h).contiguous()
+    rows = x2.shape[0]
+    dx = torch.empty_like(x2)
+    if rows == 0:
+        return dx.reshape(x.shape), torch.zeros_like(gamma)
+    blocks = min(rows, 2 * SMS)
+    partial = torch.empty((blocks, h), dtype=torch.float32, device=x.device)
+    dgamma = torch.empty_like(gamma)
+    _check(_build.entry("rmsnorm_bwd")(
+        _ptr(x2), _ptr(gamma.contiguous()), _ptr(dy2), _ptr(dx),
+        _ptr(partial), _ptr(dgamma), rows, h, float(eps), blocks,
+        _stream(x2)), "rmsnorm_bwd")
+    BACKWARD_LAUNCHES["rmsnorm_bwd"] += 1
+    return dx.reshape(x.shape), dgamma
+
+
+class _RmsNorm(torch.autograd.Function):
+    """``rmsnorm`` with its backward (rstd recomputed from x there)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return _rmsnorm(x, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma = rmsnorm_backward(x, gamma, dy, eps=ctx.eps)
+        return dx, dgamma, None
 
 
 def group_rmsnorm(y: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,

@@ -1,9 +1,13 @@
-"""Plain PyTorch versions of the four kernels on the serving path.
+"""Plain PyTorch versions of the kernels: the four forward kernels and the
+backward kernels of matmul, flash attention and rmsnorm.
 
 Each function computes what its hand-written kernel computes, in the
 kernel's own argument layout.  The CPU takes them for every tensor that
 lies on the CPU (``kernels.ops`` dispatches on the device), and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
+The backward versions are written out (not autograd of the forward), so
+that the card can compare kernel and plain output by output; the tests
+hold them against ``torch.autograd`` of the plain forward.
 """
 from __future__ import annotations
 
@@ -28,11 +32,44 @@ def epilogue(out: torch.Tensor, bias=None, activation: str | None = None):
     return out
 
 
+#: sqrt(2 / pi) of the tanh-approximated gelu
+_GELU_C = math.sqrt(2.0 / math.pi)
+
+
+def epilogue_bwd(z, dy, activation: str | None):
+    """The gradient through the epilogue's activation: ``dy * act'(z)`` at
+    the pre-activation ``z`` (after the bias), in fp32, cast to
+    ``dy.dtype``."""
+    if activation is None:
+        return dy
+    zf, gf = z.float(), dy.float()
+    if activation == "silu":
+        sg = torch.sigmoid(zf)
+        d = sg * (1.0 + zf * (1.0 - sg))
+    elif activation == "gelu":
+        th = torch.tanh(_GELU_C * (zf + 0.044715 * zf ** 3))
+        d = 0.5 * (1.0 + th) + 0.5 * zf * (1.0 - th * th) * _GELU_C * (
+            1.0 + 3 * 0.044715 * zf * zf)
+    else:
+        raise ValueError(f"unknown activation {activation!r}")
+    return (gf * d).to(dy.dtype)
+
+
 def matmul_ref(a, b, bias=None, activation: str | None = None):
     """[M, K] @ [K, N] with an fp32 accumulator, the fused epilogue, and
     the result cast back to ``a.dtype``."""
     out = a.float() @ b.float()
     return epilogue(out, bias, activation).to(a.dtype)
+
+
+def matmul_bwd_ref(a, b, dz):
+    """The two products of a matmul's backward for ``a [M, K] @ b [K, N]``
+    and the output gradient ``dz [M, N]``: dgrad ``dz @ b^T`` (cast to
+    ``a.dtype``) and wgrad ``a^T @ dz`` (cast to ``b.dtype``), each with an
+    fp32 accumulator."""
+    da = (dz.float() @ b.float().t()).to(a.dtype)
+    db = (a.float().t() @ dz.float()).to(b.dtype)
+    return da, db
 
 
 def matmul_split_ref(a, b, bias=None, activation: str | None = None, *,
@@ -91,6 +128,67 @@ def attention_ref(q, k, v, q_offset, kv_len, *, causal=True, window: int = 0,
     return out.to(q.dtype)
 
 
+def _scores(q, k, q_offset, kv_len, causal, window, softcap):
+    """fp32 scaled (and softcapped) scores ``[b, hq, sq, skv]``, with GQA's
+    k repeated, and the visibility mask ``[b, 1, sq, skv]``."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if hq // hkv > 1:
+        k = k.repeat_interleave(hq // hkv, dim=2)
+    raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    x = softcap * torch.tanh(raw / softcap) if softcap else raw
+    mask = attention_mask(sq, skv, q_offset, kv_len, causal=causal,
+                          window=window)[:, None]
+    return x, mask
+
+
+def attention_lse_ref(q, k, v, q_offset, kv_len, *, causal=True,
+                      window: int = 0, softcap: float = 0.0):
+    """``attention_ref`` and each row's log-sum-exp of its visible scaled
+    (softcapped) scores, fp32 ``[b, hq, sq]`` (-inf for a row with no
+    visible key): what the forward kernel writes for the backward."""
+    x, mask = _scores(q, k, q_offset, kv_len, causal, window, softcap)
+    lse = torch.logsumexp(x.masked_fill(~mask, -torch.inf), dim=-1)
+    out = attention_ref(q, k, v, q_offset, kv_len, causal=causal,
+                        window=window, softcap=softcap)
+    return out, lse
+
+
+def attention_bwd_ref(q, k, v, o, do, lse, q_offset, kv_len, *, causal=True,
+                      window: int = 0, softcap: float = 0.0):
+    """The flash-attention backward (FA2, probabilities recomputed from the
+    forward's ``lse``), in fp32: with x the scaled, softcapped scores,
+    ``P = exp(x - lse)`` on the visible keys, ``D = rowsum(dO o O)``,
+    ``dV = P^T dO``, ``dP = dO V^T``, ``dX = P o (dP - D)``, ``dS = dX o
+    (1 - tanh^2)`` (softcap), ``dQ = dS K / sqrt(d)``, ``dK = dS^T Q /
+    sqrt(d)``; dK and dV summed over each kv head's group of q heads.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    x, mask = _scores(q, k, q_offset, kv_len, causal, window, softcap)
+    p = torch.where(mask, torch.exp(x - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    dof = do.float()
+    kf, vf = k.float(), v.float()
+    if rep > 1:
+        kf = kf.repeat_interleave(rep, dim=2)
+        vf = vf.repeat_interleave(rep, dim=2)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)          # [b, hq, sq]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    if softcap:
+        ds = ds * (1.0 - (x / softcap) ** 2)
+    scale = 1.0 / math.sqrt(d)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    if rep > 1:
+        dk = dk.reshape(b, skv, hkv, rep, d).sum(3)
+        dv = dv.reshape(b, skv, hkv, rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_split_ref(q, k, v, q_offset, kv_len, *, key_ranges,
                         causal=True, window: int = 0, softcap: float = 0.0):
     """``attention_ref`` as the split-KV kernel computes it: for each key
@@ -145,6 +243,20 @@ def rmsnorm_ref(x, gamma, eps: float = 1e-6):
     xf = x.float()
     inv = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
     return (xf * inv * gamma.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x, gamma, dy, eps: float = 1e-6):
+    """The rmsnorm backward per row in fp32: with ``r = rsqrt(mean(x^2) +
+    eps)`` and ``xh = x r``, ``dx = r (gamma dy - xh mean(xh gamma dy))``
+    (cast to ``x.dtype``) and ``dgamma = sum over rows of dy xh`` (fp32,
+    gamma's shape)."""
+    xf, gf = x.float(), dy.float()
+    r = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    xh = xf * r
+    gdy = gf * gamma.float()
+    dx = r * (gdy - xh * (xh * gdy).mean(-1, keepdim=True))
+    dgamma = (gf * xh).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dgamma.to(gamma.dtype)
 
 
 def group_rmsnorm_ref(y, gamma, eps: float = 1e-6, gate=None):

@@ -1,5 +1,5 @@
 """Step builders (counterpart of ``repro.launch.steps``): the paged serving
-step and its vocab-parallel greedy pick."""
+step and its vocab-parallel greedy pick, and the training step."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +11,7 @@ from repro_torch.core.atp import (ATPContext, all_reduce_max, all_reduce_min,
                                   make_context)
 from repro_torch.core.mesh import MeshTopo, resolve_device
 from repro_torch.models import lm
+from repro_torch.optim import adamw
 
 
 @dataclasses.dataclass
@@ -73,5 +74,44 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo, device=None,
             logits, caches = lm.paged_step(ctx, cfg, params, tokens, start,
                                            table, caches)
             return _greedy_pick(ctx, cfg, logits), caches
+
+    return step, StepInfo(ctx=ctx, device=device)
+
+
+def build_train_step(cfg: ModelConfig, topo: MeshTopo,
+                     opt_cfg: adamw.AdamWConfig | None = None,
+                     chunks: int = 1, remat: bool = True, device=None):
+    """One training step of a dense model: the loss and its gradients
+    through autograd (the kernels' backward on CUDA), then AdamW.
+
+    Returns ``(step, info)`` with ``step(params, opt_state, batch) ->
+    (params, opt_state, metrics)``: ``params`` is this rank's shard
+    (``lm.shard_params``), updated in place; ``opt_state`` from
+    ``adamw.init_opt_state(params, info.ctx, opt_cfg.mode)``; ``batch``
+    this dp rank's ``tokens`` and ``labels [b, s]`` on the device;
+    ``metrics`` the loss and the global grad norm (0-d tensors) and the
+    learning rate.  ``remat`` recomputes each block's activations in the
+    backward.  A topology of more than one rank needs
+    ``torch.distributed`` initialized with one process per rank."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    device = resolve_device(device)
+    lm.check_trainable(cfg)
+    ctx = make_context(topo, chunks=chunks, device_type=device.type)
+    if len(ctx.dp_axes) > 1:
+        raise NotImplementedError("more than one data-parallel axis is "
+                                  "ROADMAP A5b")
+
+    def step(params, opt_state, batch):
+        leaves = adamw.tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = lm.train_loss(ctx, cfg, params, batch, remat=remat)
+        grads = torch.autograd.grad(loss, leaves)
+        grads = adamw.tree_unflatten(params, iter(grads))
+        params, opt_state, metrics = adamw.apply_adamw(
+            opt_cfg, ctx, params, grads, opt_state,
+            lm.replication_factors(cfg, ctx, params))
+        metrics["loss"] = loss.detach()
+        return params, opt_state, metrics
 
     return step, StepInfo(ctx=ctx, device=device)

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.atp import (ATPContext, all_gather, atp_boundary,
-                                  shard_slice)
+                                  conjugate, shard_slice)
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -72,7 +72,12 @@ def cut(ctx: ATPContext, x: torch.Tensor, spec, lead: int = 0) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Norms.  The feature dim is ax2-sharded, so the reduction needs one tiny
-# all-reduce over ax2 between the sum of squares and the scale.
+# all-reduce over ax2 between the sum of squares and the scale; the
+# statistic, the same on every ax2 rank, then scales each rank's own
+# features (its conjugate sums its gradient over ax2).  The scale's
+# gradient needs no reduction of its own: the norm output's gradient comes
+# back complete through the column-first GEMM's input conjugate
+# (``core.atp``).
 # ---------------------------------------------------------------------------
 
 
@@ -84,19 +89,21 @@ def rms_norm(ctx: ATPContext, x, gamma, eps: float = 1e-6,
     if x.is_cuda:
         raise NotImplementedError(
             "rms_norm with d2 > 1 on CUDA needs the split partial-sum and "
-            "apply kernels around the all-reduce (ROADMAP A5)")
+            "apply kernels around the all-reduce (ROADMAP A5b)")
     xf = x.float()
     ss = atp_boundary(ctx, (xf * xf).sum(-1, keepdim=True), ctx.ax2)
-    inv = torch.rsqrt(ss / (x.shape[-1] * ctx.d2) + eps)
+    inv = conjugate(ctx, torch.rsqrt(ss / (x.shape[-1] * ctx.d2) + eps),
+                    ctx.ax2)
     return (xf * inv * g.float()).to(x.dtype)
 
 
 def layer_norm(ctx: ATPContext, x, gamma, beta, eps: float = 1e-5):
     xf = x.float()
     d = x.shape[-1] * ctx.d2
-    mu = atp_boundary(ctx, xf.sum(-1, keepdim=True), ctx.ax2) / d
+    mu = conjugate(ctx, atp_boundary(ctx, xf.sum(-1, keepdim=True),
+                                     ctx.ax2) / d, ctx.ax2)
     ss = atp_boundary(ctx, ((xf - mu) ** 2).sum(-1, keepdim=True), ctx.ax2)
-    inv = torch.rsqrt(ss / d + eps)
+    inv = conjugate(ctx, torch.rsqrt(ss / d + eps), ctx.ax2)
     return ((xf - mu) * inv * gamma.float() + beta.float()).to(x.dtype)
 
 
@@ -193,12 +200,17 @@ def split_qkv_heads(ctx: ATPContext, cfg: ModelConfig, qp, kp, vp,
     ax1-sharded and ax2-replicated.
 
     Returns this core rank's (q [b,s,q_loc,hd], k/v [b,s,kv_count,hd],
-    block id, r index)."""
+    block id, r index).  Under autograd, each part (the same on every ax2
+    rank, and after a regroup's gather on every ax1 rank too) meets the
+    rank's own heads or rows: its conjugate sums the heads' gradients over
+    those axes."""
     hd, d1 = cfg.hd, ctx.d1
     bid, rid = _block_and_r_index(ctx, plan)
+    qp, kp, vp = (conjugate(ctx, t, ctx.ax2) for t in (qp, kp, vp))
 
     if plan.q_regroup:
         q = all_gather(ctx, qp, ctx.ax1, dim=-1) if ctx.ax1 else qp
+        q = conjugate(ctx, q, ctx.ax1)
         q = q.reshape(q.shape[:-1] + (cfg.num_heads, hd))
         q = q.narrow(-2, bid * plan.q_loc, plan.q_loc)
     else:
@@ -209,6 +221,7 @@ def split_qkv_heads(ctx: ATPContext, cfg: ModelConfig, qp, kp, vp,
     if plan.kv_regroup:
         k = all_gather(ctx, kp, ctx.ax1, dim=-1) if ctx.ax1 else kp
         v = all_gather(ctx, vp, ctx.ax1, dim=-1) if ctx.ax1 else vp
+        k, v = conjugate(ctx, k, ctx.ax1), conjugate(ctx, v, ctx.ax1)
         k = k.reshape(k.shape[:-1] + (cfg.num_kv_heads, hd))
         v = v.reshape(v.shape[:-1] + (cfg.num_kv_heads, hd))
         kv_start = (bid * plan.q_loc) // plan.ratio
@@ -222,10 +235,21 @@ def split_qkv_heads(ctx: ATPContext, cfg: ModelConfig, qp, kp, vp,
     return q, k, v, bid, rid
 
 
-def core_output_gather(ctx: ATPContext, cfg: ModelConfig, o, plan: AttnPlan):
-    """o: [b, s, q_loc, hd] decode core output -> [b, s, q_dim/d1],
-    ax2-replicated.  In decode the r leftover ranks hold redundant copies,
-    so one copy per head block is kept."""
+def _merge_r(gathered, r: int, seq_split: bool):
+    """[n, r, b, s_r, F] -> [n, b, s, F]: the r ranks' rows of the sequence
+    concatenated (``seq_split``), or copy 0 of r redundant ones (decode)."""
+    n, _, b, s_r, f = gathered.shape
+    if seq_split and r > 1:
+        return gathered.permute(0, 2, 1, 3, 4).reshape(n, b, r * s_r, f)
+    return gathered[:, 0]
+
+
+def core_output_gather(ctx: ATPContext, cfg: ModelConfig, o, plan: AttnPlan,
+                       seq_split: bool = False):
+    """o: [b, s_r, q_loc, hd] core output -> [b, s, q_dim/d1],
+    ax2-replicated.  ``seq_split``: the r leftover ranks each took a slice
+    of the query rows (training, a full sequence); else they hold redundant
+    copies (decode), and one copy per head block is kept."""
     b, s = o.shape[:2]
     o = o.reshape(b, s, plan.q_loc * cfg.hd)
     if ctx.tp == 1:
@@ -233,15 +257,20 @@ def core_output_gather(ctx: ATPContext, cfg: ModelConfig, o, plan: AttnPlan):
     if plan.q_regroup:
         gathered = all_gather(ctx, o, ctx.tp_axes, dim=0, tiled=False)
         # entries ordered by flat index = bid * r + rid
-        gathered = gathered.reshape((plan.g, plan.r) + o.shape)[:, 0]
+        gathered = _merge_r(gathered.reshape((plan.g, plan.r) + o.shape),
+                            plan.r, seq_split)
         # heads: [g, b, s, F] -> [b, s, g*F], then this rank's ax1 part
-        full = gathered.permute(1, 2, 0, 3).reshape(b, s, plan.g * o.shape[2])
-        return shard_slice(full, ctx.index1(), ctx.d1, dim=2)
+        full = gathered.permute(1, 2, 0, 3).reshape(
+            b, gathered.shape[2], plan.g * o.shape[2])
+        return shard_slice(conjugate(ctx, full, ctx.ax1), ctx.index1(),
+                           ctx.d1, dim=2)
     if ctx.ax2 is None:
         return o
     gathered = all_gather(ctx, o, ctx.ax2, dim=0, tiled=False)  # [d2, b, s, F]
-    gathered = gathered.reshape((plan.h2, plan.r) + o.shape)[:, 0]
-    return gathered.permute(1, 2, 0, 3).reshape(b, s, plan.h2 * o.shape[2])
+    gathered = _merge_r(gathered.reshape((plan.h2, plan.r) + o.shape),
+                        plan.r, seq_split)
+    return gathered.permute(1, 2, 0, 3).reshape(
+        b, gathered.shape[2], plan.h2 * o.shape[2])
 
 
 # ---------------------------------------------------------------------------

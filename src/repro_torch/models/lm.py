@@ -1,6 +1,7 @@
 """Language model: embedding -> block stack -> head, ATP-sharded
-(counterpart of ``repro.models.lm``), paged serving of the dense, zamba and
-mamba segment kinds.
+(counterpart of ``repro.models.lm``): paged serving of the dense, zamba and
+mamba segment kinds, and the training loss of the dense kind (``forward``
+with no caches, ``vocab_parallel_ce``, ``train_loss``).
 
 Parameters come in two forms.  ``init_params`` makes the GLOBAL tree with
 the JAX package's keys (``seg0/attn/wq`` ... stacked ``[count, ...]``; a
@@ -24,8 +25,8 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig, segments
-from repro_torch.core.atp import (ATPContext, all_gather, atp_boundary,
-                                  shard_slice)
+from repro_torch.core.atp import (ATPContext, all_gather, all_reduce_max,
+                                  atp_boundary, conjugate, shard_slice)
 from repro_torch.core.mesh import (MeshTopo, dp_axis_names, resolve_device,
                                    tp_axis_names)
 from repro_torch.kernels import ops
@@ -308,12 +309,33 @@ def embed_tokens(ctx: ATPContext, cfg: ModelConfig, emb, tokens):
 
 def lm_logits(ctx: ATPContext, cfg: ModelConfig, params, x):
     """x [b, s, h/d2] -> logits [b, s, V/d1] (ax2-replicated).  A tied head
-    reads the embedding transposed, without a copy."""
+    reads the embedding transposed, without a copy.  A column-first GEMM:
+    x's conjugate sums its gradient over ax1."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    x = conjugate(ctx, x, ctx.ax1)
     logits = atp_boundary(ctx, ops.matmul(x, w), ctx.ax2)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def vocab_parallel_ce(ctx: ATPContext, logits, labels, ignore: int = -1):
+    """logits [b, s, V/d1] local; labels [b, s] global ids.  Per-token loss
+    [b, s] in fp32, the same on every TP rank: the max over tp1 (no
+    gradient), then the sum of exponentials and the picked logit each
+    through the ax1 boundary; 0 where ``labels == ignore``."""
+    lf = logits.float()
+    v_loc = lf.shape[-1]
+    zmax = all_reduce_max(ctx, lf.detach().amax(-1), ctx.ax1)
+    sumexp = atp_boundary(ctx, torch.exp(lf - zmax[..., None]).sum(-1),
+                          ctx.ax1)
+    lse = torch.log(sumexp) + zmax
+    rel = labels.long() - ctx.index1() * v_loc
+    ok = (rel >= 0) & (rel < v_loc)
+    picked = lf.gather(-1, rel.clamp(0, v_loc - 1)[..., None])[..., 0]
+    picked = atp_boundary(ctx, picked * ok.float(), ctx.ax1)
+    loss = lse - picked
+    return torch.where(labels == ignore, torch.zeros_like(loss), loss)
 
 
 # ---------------------------------------------------------------------------
@@ -355,12 +377,48 @@ def _mamba(ctx, cfg, p, x, pool, sm: SlotMap):
     return x
 
 
+def check_trainable(cfg: ModelConfig):
+    """Raise for what the training path does not take yet."""
+    _check_kinds(cfg)
+    for seg in segments(cfg):
+        if seg.kind != "dense":
+            raise NotImplementedError(
+                f"training the {seg.kind!r} kind (the Mamba2 path and the "
+                f"ssd_scan backward) is ROADMAP A5b")
+
+
+def _dense_forward(ctx, cfg, params, tokens, positions, remat: bool):
+    """The cache-free forward of a dense stack: attention over the current
+    sequence, each block under ``torch.utils.checkpoint`` when ``remat``
+    (its activations recomputed in the backward, as ``jax.checkpoint``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    x = embed_tokens(ctx, cfg, params["embed"], tokens)
+    plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
+    for i, seg in enumerate(segments(cfg)):
+        sp = params[f"seg{i}"]
+        for j, window in enumerate(_window_pattern(cfg, seg.count)):
+            def block(h, bp=_layer(sp, j), window=window):
+                return transformer.dense_block(ctx, cfg, bp, h, positions,
+                                               plan, window)
+            x = checkpoint(block, x, use_reentrant=False) if remat \
+                else block(x)
+    return L.norm(ctx, cfg, x, params["final_norm"])
+
+
 def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
-            caches: dict, paged: dict):
-    """Paged forward.  tokens/positions [b, s]; caches from
-    :func:`init_paged_caches` (written in place); paged = dict(table
-    [b, mp], start [b]) and, for recurrent kinds, ``slot [b]``.  Returns
-    the final-norm hidden [b, s, h/d2]."""
+            caches: dict | None = None, paged: dict | None = None,
+            remat: bool = False):
+    """tokens/positions [b, s] -> the final-norm hidden [b, s, h/d2].
+
+    Paged (serving): caches from :func:`init_paged_caches` (written in
+    place); paged = dict(table [b, mp], start [b]) and, for recurrent
+    kinds, ``slot [b]``.  With no caches (training, dense kinds only) the
+    attention runs over the sequence itself; ``remat`` recomputes each
+    block's activations in the backward."""
+    if caches is None:
+        check_trainable(cfg)
+        return _dense_forward(ctx, cfg, params, tokens, positions, remat)
     _check_kinds(cfg)
     sm = None
     if is_recurrent(cfg):
@@ -401,6 +459,63 @@ def _state_slots(cfg: ModelConfig, caches: dict) -> int:
         if seg.kind == "mamba":
             return caches[f"seg{i}"]["ssd"].shape[1]
     raise ValueError("no recurrent segment")
+
+
+def _positions(tokens):
+    """``0 .. s-1`` in every row of a [b, s] batch of whole sequences."""
+    b, s = tokens.shape
+    return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+
+
+def train_loss(ctx: ATPContext, cfg: ModelConfig, params, batch,
+               remat: bool = True):
+    """batch: tokens [b, s] and labels [b, s] (this dp rank's rows).  The
+    scalar mean loss over every token of every dp rank (ignored labels
+    count in the denominator, as in the JAX package), the same on every
+    rank: the sum goes through the dp boundary, so each rank's backward
+    gives its own tokens' share of the gradient, which the optimizer sums
+    over dp."""
+    tokens = batch["tokens"]
+    h = forward(ctx, cfg, params, tokens, _positions(tokens), remat=remat)
+    per_tok = vocab_parallel_ce(ctx, lm_logits(ctx, cfg, params, h),
+                                batch["labels"])
+    total = atp_boundary(ctx, per_tok.sum(), ctx.dp_axes)
+    return total / (per_tok.numel() * ctx.dp)
+
+
+def prefill_logits(ctx: ATPContext, cfg: ModelConfig, params, batch):
+    """Forward only, no caches; the last position's logits [b, V/d1]."""
+    tokens = batch["tokens"]
+    h = forward(ctx, cfg, params, tokens, _positions(tokens))
+    return lm_logits(ctx, cfg, params, h[:, -1:])[:, 0]
+
+
+#: the TP axes a leaf of the sharded dense tree is cut over, by leaf name
+_LEAF_SPECS = {"embed": L.embed_spec, "lm_head": L.head_spec,
+               "scale": L.feat_spec, "bias": L.feat_spec,
+               "w_qkv": L.col_w_spec, "w_upgate": L.col_w_spec,
+               "w_up": L.col_w_spec, "b_qkv": L.col_b_spec,
+               "wo": L.row_w_spec, "w_down": L.row_w_spec,
+               "q_norm": lambda ctx: (), "k_norm": lambda ctx: ()}
+
+
+def replication_factors(cfg: ModelConfig, ctx: ATPContext, params) -> dict:
+    """Per leaf of this rank's dense tree: how many TP ranks hold the same
+    shard (tp over the product of the TP axes the leaf is cut over), which
+    the global gradient norm divides out."""
+    check_trainable(cfg)
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        spec = _LEAF_SPECS[name](ctx)
+        sharded = 1
+        for axis in spec:
+            if axis is not None:
+                sharded *= ctx.topo.axis_size(axis)
+        return ctx.tp // sharded
+
+    return walk(params)
 
 
 def paged_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, start,

@@ -1,5 +1,6 @@
 """Dense transformer block with ATP row/column-first tensor parallelism
-(counterpart of ``repro.models.transformer``), paged serving path.
+(counterpart of ``repro.models.transformer``): the paged serving path, and
+the cache-free path of training (attention over the current sequence).
 
 Per-block communication schedule (paper Fig. 6):
   f1: all-reduce(ax2) after the column-first fused q/k/v projection
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.atp import ATPContext, atp_linear
+from repro_torch.core.atp import ATPContext, atp_linear, grad_sync
 from repro_torch.models import layers as L
 from repro_torch.models import paging
 
@@ -128,26 +129,48 @@ def _qk_norm(q, gamma, eps):
 
 
 def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
-               plan: L.AttnPlan, layer_window: int, cache: dict, paged: dict):
-    """Paged attention.  x [b, s, h/d2]; positions [b, s]; cache holds this
-    layer's k/v pools [num_pages, page, kv_count, hd]; paged carries the
-    page-table rows ``table [b, mp]`` and per-slot ``start [b]``.
-    Returns the block output [b, s, h/d2]; the pools are written in place."""
+               plan: L.AttnPlan, layer_window: int, cache: dict | None = None,
+               paged: dict | None = None):
+    """Attention.  x [b, s, h/d2]; positions [b, s] (training: ``0..s-1``
+    in every row).  Paged: cache holds this layer's k/v pools [num_pages,
+    page, kv_count, hd], paged carries the page-table rows ``table [b, mp]``
+    and per-slot ``start [b]``, and the pools are written in place.  With
+    no cache (training) the attention runs over the current sequence and
+    writes nothing; where the plan leaves r ranks per head block, each
+    takes 1/r of the query rows.  Returns the block output [b, s, h/d2]."""
     # f1: fused q/k/v projection, one boundary over ax2; the bias follows
     # the boundary (fused into the GEMM's epilogue when ax2 is size 1)
     qkv = atp_linear(ctx, x, p["w_qkv"], p.get("b_qkv"), kind="col",
                      chunked=False)
     qd, kvd = cfg.q_dim // ctx.d1, cfg.kv_dim // ctx.d1
     qp, kp, vp = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
-    q, k, v, _, _ = L.split_qkv_heads(ctx, cfg, qp, kp, vp, plan)
+    q, k, v, _, rid = L.split_qkv_heads(ctx, cfg, qp, kp, vp, plan)
     if cfg.qk_norm:
-        q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
-        k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
+        # the gains meet only this rank's heads: one gradient reduction
+        q = _qk_norm(q, grad_sync(ctx, p["q_norm"], ctx.tp_axes),
+                     cfg.norm_eps)
+        k = _qk_norm(k, grad_sync(ctx, p["k_norm"], ctx.tp_axes),
+                     cfg.norm_eps)
     if cfg.mrope_sections:
         raise NotImplementedError("M-RoPE (qwen2-vl) is ROADMAP A10")
+    q_pos = positions
+    if cache is None and plan.r > 1:
+        # the r leftover ranks split the query rows (k/v keep the sequence)
+        s_r = q.shape[1] // plan.r
+        q = q.narrow(1, rid * s_r, s_r)
+        q_pos = positions.narrow(1, rid * s_r, s_r)
     if cfg.use_rope:
-        q = L.apply_rope(q, positions, cfg.rope_theta)
+        q = L.apply_rope(q, q_pos, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        b, s = x.shape[:2]
+        o = L.attention_core(cfg, q, k, v, q_offset=q_pos[:, 0].int(),
+                             kv_len=torch.full((b,), s, dtype=torch.int32,
+                                               device=x.device),
+                             window=layer_window)
+        o = L.core_output_gather(ctx, cfg, o, plan, seq_split=True)
+        return atp_linear(ctx, o, p["wo"], kind="row")
 
     # scatter this run's k/v through the slot page tables, then attend over
     # each slot's mapped pages (garbage-page reads are masked by start + s)
@@ -164,7 +187,8 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
 
 
 def dense_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions, plan,
-                layer_window: int, cache: dict, paged: dict):
+                layer_window: int, cache: dict | None = None,
+                paged: dict | None = None):
     h = L.norm(ctx, cfg, x, p["ln_attn"])
     a = attn_block(ctx, cfg, p["attn"], h, positions, plan, layer_window,
                    cache, paged)

@@ -344,3 +344,171 @@ def test_ssd_scan_kernel_is_deterministic(cuda, s):
     for _ in range(3):
         y, st = ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64, state_in=state)
         assert torch.equal(y, y0) and torch.equal(st, st0)
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels (training) against their plain backward versions.
+# Each output is held to a per-tensor relative L2 error: the kernels' bf16
+# outputs round at 2^-8, and their fp32 sums run in another order.
+# ---------------------------------------------------------------------------
+
+#: per-tensor relative L2 error of a bf16 gradient (dx, dq/dk/dv, dA, dB)
+BWD_REL = 2e-2
+#: the same for rmsnorm's fp32 dgamma (a sum over rows in fp32)
+DGAMMA_REL = 1e-3
+
+
+def _rel(got, want):
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,tied", [
+    (256, 512, 640, False),
+    (300, 1024, 384, False),    # ragged rows
+    (128, 1024, 1000, True),    # a tied head: B is the embedding, transposed
+    (2048, 4096, 6144, False),  # llama3-8b's fused q/k/v at s = 2048
+])
+def test_matmul_backward_kernels_match_plain(cuda, m, k, n, tied):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    w = torch.randn(n, k, generator=gen, device=cuda) if tied else \
+        torch.randn(k, n, generator=gen, device=cuda)
+    w = (w * k ** -0.5).bfloat16()
+    w = w.t() if tied else w
+    dz = torch.randn(m, n, generator=gen, device=cuda).bfloat16()
+    before = ops.BACKWARD_LAUNCHES["matmul_bwd"]
+    da, db = ops.matmul_backward(a, w, dz)
+    torch.cuda.synchronize()
+    assert ops.BACKWARD_LAUNCHES["matmul_bwd"] == before + 2
+    want_a, want_b = ref.matmul_bwd_ref(a, w, dz)
+    assert da.shape == a.shape and db.shape == w.shape
+    assert _rel(da, want_a) <= BWD_REL
+    assert _rel(db, want_b) <= BWD_REL
+
+
+FA_BWD_CASES = [
+    dict(b=1, s=256, hq=8, hkv=2, d=128),                  # GQA 4:1
+    dict(b=2, s=130, hq=4, hkv=4, d=112),                  # ragged tiles
+    dict(b=1, s=200, hq=4, hkv=1, d=64),
+    dict(b=1, s=256, hq=4, hkv=2, d=128, window=64, softcap=30.0),
+    dict(b=2, s=96, hq=4, hkv=2, d=128, q_offset=(32, 0),
+         kv_len=(128, 70), skv=128),                       # offsets, lengths
+    dict(b=1, s=2048, hq=32, hkv=8, d=128),                # llama3-8b
+]
+
+
+def _fa_inputs(cuda, c):
+    c = {"window": 0, "softcap": 0.0, "q_offset": None, "kv_len": None,
+         "skv": None, **c}
+    b, s, skv = c["b"], c["s"], c["skv"] or c["s"]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(b, s, c["hq"], c["d"], generator=gen, device=cuda)
+    k = torch.randn(b, skv, c["hkv"], c["d"], generator=gen, device=cuda)
+    v = torch.randn(b, skv, c["hkv"], c["d"], generator=gen, device=cuda)
+    do = torch.randn(b, s, c["hq"], c["d"], generator=gen, device=cuda)
+    qo = torch.tensor(c["q_offset"] or (0,) * b, device=cuda)
+    kl = torch.tensor(c["kv_len"] or (skv,) * b, device=cuda)
+    opts = dict(causal=True, window=c["window"], softcap=c["softcap"])
+    return [t.bfloat16() for t in (q, k, v, do)], qo, kl, opts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_BWD_CASES)
+def test_flash_attention_backward_kernel_matches_plain(cuda, case):
+    """The forward kernel's log-sum-exp against the plain one; then dQ, dK
+    and dV of the backward kernel against the plain backward on the same
+    inputs (the kernel's O and log-sum-exp)."""
+    (q, k, v, do), qo, kl, opts = _fa_inputs(cuda, case)
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl, **opts)
+    want_out, want_lse = ref.attention_lse_ref(q, k, v, qo, kl, **opts)
+    seen = torch.isfinite(want_lse)
+    assert bool((torch.isfinite(lse) == seen).all())
+    assert float((lse - want_lse)[seen].abs().max()) <= 1e-3
+    _close(out, want_out, atol=2e-2, rtol=2e-2)
+    before = ops.BACKWARD_LAUNCHES["flash_attention_bwd"]
+    got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl, **opts)
+    torch.cuda.synchronize()
+    assert ops.BACKWARD_LAUNCHES["flash_attention_bwd"] == before + 1
+    want = ref.attention_bwd_ref(q, k, v, out, do, lse, qo, kl, **opts)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape
+        assert _rel(g, w) <= BWD_REL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", [(1, 64), (37, 3584), (2048, 4096),
+                                        (300, 1024)])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, width):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn(rows, width, generator=gen, device=cuda) * 3).bfloat16()
+    gamma = torch.rand(width, generator=gen, device=cuda) + 0.5
+    dy = torch.randn(rows, width, generator=gen, device=cuda).bfloat16()
+    before = ops.BACKWARD_LAUNCHES["rmsnorm_bwd"]
+    dx, dgamma = ops.rmsnorm_backward(x, gamma, dy, eps=1e-5)
+    torch.cuda.synchronize()
+    assert ops.BACKWARD_LAUNCHES["rmsnorm_bwd"] == before + 1
+    want_dx, want_dg = ref.rmsnorm_bwd_ref(x, gamma, dy, 1e-5)
+    assert dx.dtype == torch.bfloat16 and dgamma.dtype == torch.float32
+    assert _rel(dx, want_dx) <= BWD_REL
+    assert _rel(dgamma, want_dg) <= DGAMMA_REL
+
+
+@pytest.mark.cuda
+def test_backward_kernels_are_deterministic(cuda):
+    """No float atomics: two runs give the same bits."""
+    (q, k, v, do), qo, kl, opts = _fa_inputs(cuda, FA_BWD_CASES[0])
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+    first = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
+    again = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    x, dy = q.reshape(-1, 128), do.reshape(-1, 128)
+    gamma = torch.ones(128, device=cuda)
+    assert all(torch.equal(a, b) for a, b in zip(
+        ops.rmsnorm_backward(x, gamma, dy), ops.rmsnorm_backward(x, gamma, dy)))
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_kernels_matches_plain(cuda):
+    """One attention block's worth of the Functions on the card: the
+    gradients that autograd collects through the kernels against the plain
+    versions' gradients on fp32 copies (CPU)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 64, 256, generator=gen, device=cuda).bfloat16()
+    gamma = torch.rand(256, generator=gen, device=cuda) + 0.5
+    w = (torch.randn(256, 3 * 128, generator=gen, device=cuda) / 16).bfloat16()
+    qo = torch.zeros(2, dtype=torch.int32, device=cuda)
+    kl = torch.full((2,), 64, dtype=torch.int32, device=cuda)
+
+    def run(x, gamma, w):
+        h = ops.rmsnorm(x, gamma, eps=1e-6)
+        q, k, v = ops.matmul(h, w).reshape(2, 64, 3, 1, 128).unbind(2)
+        o = ops.flash_attention(q, k, v, qo.to(x.device), kl.to(x.device))
+        return o.float().square().sum()
+
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, w)]
+    got = torch.autograd.grad(run(*leaves), leaves)
+    plain = [t.detach().cpu().float().requires_grad_(True)
+             for t in (x, gamma, w)]
+    want = torch.autograd.grad(run(*plain), plain)
+    for name, g, wt in zip(("x", "gamma", "w"), got, want):
+        assert _rel(g.cpu(), wt) <= 5e-2, name
+
+
+@pytest.mark.cuda
+def test_fused_activation_under_autograd_raises_on_cuda(cuda):
+    """The kernel writes no pre-activation and no kernel takes the
+    activation's derivative, so a fused activation under autograd is
+    refused on the card (ROADMAP A5b), not run as plain torch; without
+    grad, and without an activation, the kernel runs."""
+    a = torch.randn(64, 256, device=cuda).bfloat16().requires_grad_(True)
+    w = (torch.randn(256, 128, device=cuda) / 16).bfloat16()
+    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
+        ops.matmul(a, w, activation="gelu")
+    with torch.no_grad():
+        assert ops.matmul(a, w, activation="gelu").shape == (64, 128)
+    ops.matmul(a, w).float().sum().backward()
+    assert a.grad is not None and a.grad.shape == a.shape

@@ -32,6 +32,8 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.launch.serve" in report["modules"]
     assert "repro_torch.kernels.ops" in report["modules"]
+    assert "repro_torch.launch.train" in report["modules"]
+    assert "repro_torch.optim.adamw" in report["modules"]
     assert report["bad"] == []
 
 
@@ -41,8 +43,8 @@ def test_entry_points_without_a_device_raise_instead_of_using_the_cpu(
     raises; it never runs on the CPU quietly."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.mesh import atp_topo
-    from repro_torch.launch import serve
-    from repro_torch.launch.steps import build_paged_step
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.steps import build_paged_step, build_train_step
     from repro_torch.models import lm
     from repro_torch.runtime.server import ServerConfig
 
@@ -57,6 +59,12 @@ def test_entry_points_without_a_device_raise_instead_of_using_the_cpu(
         lm.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train_step(cfg, atp_topo(1, 1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1"])
     # and the CPU runs only where it is asked for
     _, info = build_paged_step(cfg, atp_topo(1, 1, 1), device="cpu")
+    assert info.device.type == "cpu"
+    _, info = build_train_step(cfg, atp_topo(1, 1, 1), device="cpu")
     assert info.device.type == "cpu"

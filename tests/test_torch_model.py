@@ -29,7 +29,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.paging import PagedConfig as PortPagedConfig  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["llama3-8b", "qwen1.5-0.5b"]
+ARCHS = ["llama3-8b", "qwen1.5-0.5b", "gemma2-2b", "qwen3-8b"]
 JAX_TOPO = JaxMeshTopo((("data", 1),))
 PCFG = dict(page_size=4, num_pages=16, pages_per_slot=4)
 
