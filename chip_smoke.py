@@ -19,9 +19,7 @@ Phases, in order, each failing the run on any error:
    SSD shape prints the plan it took (``ops.matmul_plan``,
    ``ops.attention_plan``, ``ops.ssd_plan``), and a prefill chunk of the
    SSD scan is timed at every split of the head dim.  Also times an empty kernel
-   with the same timer (its floor) and each wrapper's host cost per call
-   (``--parent DIR``: also the Triton rmsnorm of an older checkout in DIR,
-   which the CUDA one replaced).
+   with the same timer (its floor) and each wrapper's host cost per call.
 2. serve-llama -- llama3-8b at full width and depth, random bf16 weights from
    a seed, through ``launch.serve.make_paged_server``: 8 requests of seeded
    prompt lengths in 64-256, 16 new tokens each, 4 slots, prefill chunk 64,
@@ -56,11 +54,18 @@ Phases, in order, each failing the run on any error:
    wgrad, flash_attention_bwd, rmsnorm_bwd) against its plain backward on
    the same bf16 inputs (the plain attention backward reads the plain
    forward's output and log-sum-exp): every gradient within a per-tensor
-   relative L2 error of 2e-2, rmsnorm's fp32 dgamma of 1e-3.  All timed as
-   in phase 1 against the bound, the timer's floor and the library call
-   (torch.matmul, scaled_dot_product_attention, F.rms_norm; for the
-   backward, their autograd backward); wgrad's copy of A^T is timed on
-   its own too.
+   relative L2 error of 2e-2, rmsnorm's fp32 dgamma of 1e-3; the
+   attention backward also with rows that see no key and at s = 2100 (not
+   a multiple of 64) at 32 / 8 heads, and its dK/dV plan
+   (``ops.attention_bwd_plan``: items, longest and mean) is printed.  All
+   timed as in phase 1 against the bound, the timer's floor and the
+   library call (torch.matmul, scaled_dot_product_attention, F.rms_norm;
+   for the backward, their autograd backward); wgrad's copy of A^T is
+   timed on its own too.  ``--parent DIR``: the flash_attention_bwd and
+   rmsnorm backward kernels of the older checkout in DIR, built by its own
+   ``_build`` into its own build directory, timed interleaved with this
+   tree's (parent, tree, tree, parent); the backward kernels' launches are
+   also timed by the profiler, kernel by kernel.
 8. train -- ``launch.steps.build_train_step`` on llama3-8b at full width
    with the depth cut to 4 layers, b = 1, s = 2048, bf16 weights and fp32
    AdamW moments, remat on: 6 steps on one repeated batch; the loss must
@@ -69,15 +74,19 @@ Phases, in order, each failing the run on any error:
    kernel must have launched its per-step count.  Prints ms per step,
    tokens/s, peak memory and the device's busy share in one profiled step,
    then the device time of the copies and casts by torch op and input
-   shape in one more (``profile_train_ops.txt``).  This is this slice's main path: the backward rows of the result line
-   take their launches from it.
+   shape in one more (``profile_train_ops.txt``).  This is this slice's
+   main path: the backward rows of the result line take their launches
+   from it.  ``--parent DIR``: then the training step of the tree in DIR
+   and of this one, a process each, in turns (parent, tree, tree,
+   parent).
 9. path-check-train -- llama3-8b at full width with the depth cut to 2
    layers, b = 1, s = 256: the gradient of every parameter (norm scales
    included) on the card (kernels, bf16) against the CPU (plain versions,
    fp32, from the same bf16 weights), within a per-tensor relative L2 error
    of 5e-2 (``PATH_TOL``).
 
-Prints the card's name and power limit, the kernels' build time, one JSON
+Prints the card's name and power limit, the kernels' build time and each
+kernel's registers and spills from the build report, one JSON
 line ``{"kernels": [...]}`` (one row per kernel: the four forward kernels
 at the zamba2-7b path's shapes and launches, the three backward kernels
 at the training step's; the llama3-8b serving rows and the training
@@ -94,6 +103,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -289,10 +299,8 @@ def ssd_cost(b, s, nh, hd, ds, chunk, reads, writes):
 
 
 def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
-                 timer, dev="cuda", parent=None):
-    """Returns the four KernelReports; raises if any check fails.
-    ``parent``: a checkout of an older tree whose Triton rmsnorm is timed
-    beside the CUDA one (``host_costs``)."""
+                 timer, dev="cuda"):
+    """Returns the four KernelReports; raises if any check fails."""
     gen = torch.Generator(device=dev).manual_seed(0)
     floor = None
     if dev == "cuda":
@@ -566,7 +574,7 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failed}")
     if dev == "cuda":
-        host_costs(torch, ops, timer, randn, gen, chunk, slots, parent)
+        host_costs(torch, ops, randn, gen, chunk, slots)
     return mm, fa, rn, ssd
 
 
@@ -584,14 +592,8 @@ def host_us(torch, fn, calls: int = 300) -> float:
     return us
 
 
-def host_costs(torch, ops, timer, randn, gen, chunk, slots, parent):
-    """Each wrapper's host cost per call at a zamba2-7b serving shape; with
-    ``parent``, also that of the Triton rmsnorm of the tree in ``parent``
-    (``src/repro_torch/kernels/rmsnorm.py`` there, loaded by path: it
-    imports torch and triton only), with its kernel time beside the CUDA
-    kernel's on the same rows."""
-    import importlib.util
-
+def host_costs(torch, ops, randn, gen, chunk, slots):
+    """Each wrapper's host cost per call at a zamba2-7b serving shape."""
     h, nh = 3584, 112
     x, g = randn(chunk, h), torch.randn(h, generator=gen, device="cuda")
     y = randn(slots, 1, nh, 64)
@@ -614,17 +616,6 @@ def host_costs(torch, ops, timer, randn, gen, chunk, slots, parent):
             pool=pool, slot=slot, fresh=fresh),
         f"matmul M={slots} {h}x{h}": lambda: ops.matmul(a, w),
     }
-    if parent is not None:
-        path = Path(parent) / "src/repro_torch/kernels/rmsnorm.py"
-        spec = importlib.util.spec_from_file_location("parent_rmsnorm", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        calls[f"parent Triton rmsnorm rows={chunk} h={h}"] = \
-            lambda: mod.rmsnorm_triton(x, g, 1e-6)
-        log(f"kernels: rmsnorm rows={chunk} h={h}: CUDA "
-            f"{timer(lambda: ops.rmsnorm(x, g)):.4f} ms, the parent's Triton "
-            f"{timer(lambda: mod.rmsnorm_triton(x, g, 1e-6)):.4f} ms "
-            f"(same timer)")
     log("kernels: host cost per call (perf_counter over 300 enqueues, no "
         "wait on the device):")
     for label, fn in calls.items():
@@ -1054,13 +1045,121 @@ def train_launches_per_step(layers: int, remat: bool) -> tuple[dict, dict]:
     return fwd, bwd
 
 
-def train_kernel_phase(torch, F, ops, ref, timer, floor):
+def parent_backward(torch, ops, parent):
+    """The flash-attention and rmsnorm backward kernels of the older
+    checkout in ``parent`` (from its own ``csrc`` sources, whose C entries
+    take the older arguments below), built by its own ``_build`` into its
+    own ``build/torch_kernels``: callables
+    with ``ops.flash_attention_backward``'s and ``ops.rmsnorm_backward``'s
+    arguments, for timing beside this tree's kernels."""
+    import importlib.util
+
+    path = Path(parent) / "src/repro_torch/kernels/_build.py"
+    spec = importlib.util.spec_from_file_location("parent_build", path)
+    pb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pb)
+    t0 = time.perf_counter()
+    pb.build(("flash_attention_bwd", "rmsnorm"))
+    log(f"train-kernels: the parent's backward kernels built in "
+        f"{time.perf_counter() - t0:.1f}s into {pb.BUILD_DIR}")
+    fa, rn = pb.entry("flash_attention_bwd"), pb.entry("rmsnorm_bwd")
+    p = ops._ptr
+
+    def fa_bwd(q, k, v, o, do, lse, qo, kl, causal=True, window=0,
+               softcap=0.0):
+        b, sq, hq, d = q.shape
+        skv, hkv = k.shape[1], k.shape[2]
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty_like(lse)
+        ops._check(fa(p(q), p(k), p(v), p(o), p(do), p(lse), p(qo), p(kl),
+                      p(dq), p(dk), p(dv), p(delta), b, sq, skv, hq, hkv, d,
+                      int(causal), int(window), float(softcap),
+                      ops._stream(q)), "the parent's flash_attention_bwd")
+        return dq, dk, dv
+
+    def rn_bwd(x, g, dy, eps):
+        rows, h = x.shape
+        blocks = min(rows, 2 * ops.SMS)
+        partial = torch.empty((blocks, h), dtype=torch.float32,
+                              device=x.device)
+        dx, dg = torch.empty_like(x), torch.empty_like(g)
+        ops._check(rn(p(x), p(g), p(dy), p(dx), p(partial), p(dg), rows, h,
+                      float(eps), blocks, ops._stream(x)),
+                   "the parent's rmsnorm_bwd")
+        return dx, dg
+
+    return fa_bwd, rn_bwd
+
+
+def interleaved(timer, parent_fn, fn) -> str:
+    """Parent, change, change, parent on the same timer: the two medians
+    of each, for a before/after inside one call."""
+    t = [timer(parent_fn), timer(fn), timer(fn), timer(parent_fn)]
+    return (f"parent {t[0]:.4f} / {t[3]:.4f} ms, this tree {t[1]:.4f} / "
+            f"{t[2]:.4f} ms (parent, tree, tree, parent)")
+
+
+def by_kernel(torch, fn, calls: int = 10) -> str:
+    """Device µs a launch of each kernel ``fn`` launches (once a call), by
+    the profiler over ``calls`` back-to-back calls (no L2 flush between
+    them).  After the serving phases' long profiles the profiler may
+    record only some of these launches, or none: each mean is over the
+    launches it recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    def name(key):
+        m = re.search(r"(\w+kernel)(<[^>(]*>)?", key)
+        return m[1] + (m[2] or "").replace(" ", "") if m else key[:40]
+
+    return ", ".join(
+        f"{name(e.key)} {e.self_device_time_total / e.count:.1f}"
+        for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+    ) or "none recorded"
+
+
+TRAIN_AB = """import statistics, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import train
+rows = train.main(sys.argv[2:])
+print(statistics.median(r["ms"] for r in rows[2:]))"""
+
+
+def parent_train_steps(parent) -> None:
+    """The training step of the tree in ``parent`` and of this one, in
+    turns (parent, tree, tree, parent), each a process of its own running
+    ``repro_torch.launch.train`` at ``TRAIN_SHAPE`` for 8 steps: the median
+    ms of steps 3-8 of each run."""
+    args = ["--arch", "llama3-8b", "--layers", str(TRAIN_SHAPE["layers"]),
+            "--seq", str(TRAIN_SHAPE["seq"]), "--batch",
+            str(TRAIN_SHAPE["batch"]), "--steps", "8"]
+    ms = []
+    for tree in (Path(parent), ROOT, ROOT, Path(parent)):
+        out = subprocess.run(
+            [sys.executable, "-c", TRAIN_AB, str(tree / "src"), *args],
+            capture_output=True, text=True, timeout=600, check=True)
+        ms.append(float(out.stdout.split()[-1]))
+    log(f"train: ms per step, parent {ms[0]:.2f} / {ms[3]:.2f}, this tree "
+        f"{ms[1]:.2f} / {ms[2]:.2f} (parent, tree, tree, parent; steps 3-8 "
+        f"of 8, a process each)")
+
+
+def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
     """The forward kernels (the attention also writing its log-sum-exp)
     and the backward kernels at llama3-8b's training shapes against their
     plain versions; returns (the three forward KernelReports, the three
-    backward ones), with totals per training step of ``TRAIN_SHAPE``."""
+    backward ones), with totals per training step of ``TRAIN_SHAPE``.
+    ``parent``: an older checkout whose backward kernels are timed beside
+    this tree's (``parent_backward``)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     T, L = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["seq"], TRAIN_SHAPE["layers"]
+    prior = None if parent is None else parent_backward(torch, ops, parent)
     if floor is None:
         floor = timer(lambda: torch.cuda._sleep(0))
         log(f"train-kernels: timer floor {floor:.4f} ms (an empty kernel)")
@@ -1187,17 +1286,31 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor):
     log(f"train-kernels: flash_attention backward (dq, dk, dv; the kernel "
         f"reads the forward kernel's O and log-sum-exp, the plain backward "
         f"the plain forward's); limit {BWD_REL} relative L2")
-    for label, b, s, hq, hkv, d, kw, weight in (
-            (f"llama3-8b b=1 s={T} causal", 1, T, 32, 8, 128, {}, L),
+    plan = ops.attention_bwd_plan(1, T, 32, 8, T)
+    lens = plan.lengths()
+    spans = [ops.bwd_visible_tiles(kt, 0, T, T, 4, True, 0)
+             for kt in range(plan.key_tiles)]
+    log(f"  dK/dV plan at s={T}, 32/8 heads: key tiles see "
+        f"{spans[0][1] - spans[0][0]} to {spans[-1][1] - spans[-1][0]} row "
+        f"tiles; {len(lens)} items of at most {plan.max_len} (longest "
+        f"{max(lens)}, mean {sum(lens) / len(lens):.2f}, longest/mean "
+        f"{max(lens) * len(lens) / sum(lens):.3f}), {plan.slots} partial "
+        f"slots, {plan.blocks} persistent blocks")
+    for label, b, s, hq, hkv, d, kw, kv_len, weight in (
+            (f"llama3-8b b=1 s={T} causal", 1, T, 32, 8, 128, {}, None, L),
             ("d=112 hq=hkv=4 s=300, window 64, softcap 30", 1, 300, 4, 4,
-             112, dict(window=64, softcap=30.0), 0),
-            ("d=64 b=2 s=200 GQA 2:1, ragged kv", 2, 200, 4, 2, 64, {}, 0)):
+             112, dict(window=64, softcap=30.0), None, 0),
+            ("d=64 b=2 s=200 GQA 2:1, ragged kv", 2, 200, 4, 2, 64, {},
+             (200, 163), 0),
+            ("rows that see no key: b=2 s=96 window 32, kv_len 0 and 50", 2,
+             96, 4, 2, 128, dict(window=32), (0, 50), 0),
+            ("s=2100 (not a multiple of 64), 32/8 heads", 1, 2100, 32, 8,
+             128, {}, None, 0)):
         q, do = randn(b, s, hq, d), randn(b, s, hq, d)
         k, v = randn(b, s, hkv, d), randn(b, s, hkv, d)
         qo = torch.zeros(b, dtype=torch.int32, device="cuda")
-        kl = torch.full((b,), s, dtype=torch.int32, device="cuda")
-        if b > 1:
-            kl[1] = s - 37
+        kl = torch.tensor(kv_len or (s,) * b, dtype=torch.int32,
+                          device="cuda")
         out, lse = ops.flash_attention_lse(q, k, v, qo, kl, **kw)
         got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl, **kw)
         out_ref, lse_ref = ref.attention_lse_ref(q, k, v, qo, kl, **kw)
@@ -1226,6 +1339,17 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor):
                     o_lib, leaves, do_lib, retain_graph=True)),
                 nbytes=2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
                 flops=5 * 2 * d * visible)
+            log(f"  {label}: 7-product bound (the design's count, dQ "
+                f"recomputing S and dP) "
+                f"{7 * 2 * d * visible / BF16_TFLOPS * 1e3:.4f} ms; by "
+                f"kernel, µs a launch: " + by_kernel(
+                    torch, lambda: ops.flash_attention_backward(
+                        q, k, v, out, do, lse, qo, kl, **kw)))
+            if prior is not None:
+                log(f"  {label}: " + interleaved(timer, lambda: prior[0](
+                    q, k, v, out, do, lse, qo, kl, **kw), lambda: (
+                    ops.flash_attention_backward(q, k, v, out, do, lse, qo,
+                                                 kl, **kw))))
         if not fa.add(f"{label}: rel L2 dq {errs[0]:.2e} dk {errs[1]:.2e} "
                       f"dv {errs[2]:.2e}", max(errs) <= BWD_REL, err,
                       BWD_REL, TRAIN if weight else None,
@@ -1257,6 +1381,12 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor):
                     y_lib, (xl, gl), dy, retain_graph=True)),
                 nbytes=2 * 3 * x.numel() + 4 * 2 * h,
                 flops=8 * x.numel(), peak=FP32_TFLOPS)
+            log(f"  rows={rows} h={h}: by kernel, µs a launch: " + by_kernel(
+                torch, lambda: ops.rmsnorm_backward(x, g, dy, eps=1e-5)))
+            if prior is not None:
+                log(f"  rows={rows} h={h}: " + interleaved(
+                    timer, lambda: prior[1](x, g, dy, 1e-5),
+                    lambda: ops.rmsnorm_backward(x, g, dy, eps=1e-5)))
         if not rn.add(f"rows={rows} h={h}: rel L2 dx {errs[0]:.2e} dgamma "
                       f"{errs[1]:.2e}", errs[0] <= BWD_REL
                       and errs[1] <= DGAMMA_REL, err,
@@ -1442,6 +1572,26 @@ def _leaf_names(tree, prefix="") -> list:
 # ---------------------------------------------------------------------------
 
 
+def kernel_name(line: str) -> str:
+    """The kernel's name and template arguments in a ptxas report line
+    ("... entry function '_ZN<n><namespace><n>dkdv_kernelILi2EEEv..'"),
+    read by the names' length prefixes: ``dkdv_kernel<2>``."""
+    mangled = line.split("'")[1] if "'" in line else line
+    i = mangled.find("_ZN") + 3
+    while 2 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+        if name.endswith("kernel"):
+            args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
+            if args is None:
+                return name
+            return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', args[1]))}>"
+    return mangled
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1454,9 +1604,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of an older tree (with the Triton "
-                         "rmsnorm) whose rmsnorm the kernel phase times "
-                         "beside the CUDA one")
+                    help="a checkout of an older tree: train-kernels builds "
+                         "its flash_attention_bwd.cu and rmsnorm.cu into "
+                         "its own build directory and times their backward "
+                         "beside this tree's, and the train phase runs its "
+                         "training step and this tree's in turns")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1488,9 +1640,12 @@ def main(argv=None) -> int:
     for name in _build.SOURCES:
         report = _build.library_path(name).with_suffix(".log")
         if report.exists():
+            kernel = ""
             for line in report.read_text().splitlines():
+                if "Compiling entry function" in line:
+                    kernel = kernel_name(line)
                 if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+                    log(f"  ptxas {name} {kernel}: {line.strip()}")
 
     from repro_torch.configs.registry import get_config
 
@@ -1505,8 +1660,7 @@ def main(argv=None) -> int:
         reports = list(kernel_phase(torch, F, ops, ref,
                                     chunk=SERVE["prefill_chunk"],
                                     slots=SERVE["slots"],
-                                    skv=SERVE["max_seq"], timer=Timer(torch),
-                                    parent=args.parent))
+                                    skv=SERVE["max_seq"], timer=Timer(torch)))
         floor_ms = reports[0].floor_ms
         done("kernels")
 
@@ -1542,11 +1696,14 @@ def main(argv=None) -> int:
     train_fwd = []   # the forward kernels at the training step's shapes
     if "train-kernels" in phases:
         train_fwd, train_bwd = train_kernel_phase(torch, F, ops, ref,
-                                                  Timer(torch), floor_ms)
+                                                  Timer(torch), floor_ms,
+                                                  parent=args.parent)
         reports += train_bwd
         done("train-kernels")
     if "train" in phases:
         launches[TRAIN] = train_phase(torch)
+        if args.parent is not None:
+            parent_train_steps(args.parent)
         done("train")
     if "path-check-train" in phases:
         train_path_check(torch)

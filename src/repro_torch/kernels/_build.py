@@ -31,7 +31,7 @@ SIGNATURES = {
                         [_P] * 10 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_attention_bwd": ("flash_attention_bwd",
                             "repro_flash_attention_bwd_bf16",
-                            [_P] * 12 + [_I] * 8 + [_F] + [_P]),
+                            [_P] * 15 + [_I] * 8 + [_F] + [_I] * 2 + [_P]),
     "ssd_scan": ("ssd_scan", "repro_ssd_scan_bf16",
                  [_P] * 11 + [_L] + [_I] * 8 + [_L] * 10 + [_P]),
     "rmsnorm": ("rmsnorm", "repro_rmsnorm_bf16",

@@ -213,121 +213,233 @@ extern "C" int repro_rmsnorm_bf16(const void* x, const void* gamma,
 //   dx = rstd * (gamma * dy - xhat * mean(xhat * gamma * dy)),
 //   dgamma = sum over rows of dy * xhat.
 // rstd is recomputed from x (one more read of a row the kernel reads
-// anyway).  Bound by bytes: x and dy read once, dx written once.  A block
-// of 256 threads takes rows blockIdx.x, blockIdx.x + gridDim.x, ..., each
-// thread holding up to 16 columns of the row and its columns' dgamma sums
-// across the block's rows; a second kernel sums the blocks' partial
-// dgamma rows in block order, so dgamma is deterministic (no float
-// atomics).
+// anyway).  Bound by bytes: x and dy read once, dx written once.  The
+// design:
+//   - a row goes to 4 warps (a quarter each, 16-byte loads) and a block
+//     takes 3 rows at a time, each row's 4 warps on their own named
+//     barrier: a row's two sums are shuffles and one exchange among its 4
+//     warps, with no block-wide barrier per row (3 rows, not 4: at 4 the
+//     512 threads' 128 registers spill; 3 measured as fast);
+//   - each warp loads its quarter of the next row while it computes this
+//     one, so loads stay in flight; gamma is read once per block into
+//     shared memory;
+//   - dgamma: each warp keeps its columns' sum over its rows in registers;
+//     at the end the block sums its 3 row slots in slot order into one
+//     partial row, and a second kernel spread over the columns (32 a
+//     block: 128 blocks at 4096) sums the blocks' partial rows in a fixed
+//     order, so dgamma is deterministic (no float atomics).
 // ---------------------------------------------------------------------------
 namespace {
 
-constexpr int kBwdThreads = 256;
-constexpr int kBwdCols = kMaxWidth / kBwdThreads;  // columns a thread holds
+constexpr int kRowWarps = 4;      // warps of a row
+constexpr int kRowSlots = 3;      // rows of a block at a time
+constexpr int kBwdThreads = kRowWarps * kRowSlots * 32;
+constexpr int kSumCols = 32;      // dgamma columns of a block
+constexpr int kSumGroups = 32;    // its threads' groups of partial rows
 
-__device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    red[2 * warp] = a;
-    red[2 * warp + 1] = b;
-  }
-  __syncthreads();
-  a = 0.0f;
-  b = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kBwdThreads / 32; ++w) {
-    a += red[2 * w];
-    b += red[2 * w + 1];
-  }
-  __syncthreads();  // red is reused by the next row
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
+// NV 16-byte vectors a lane: width <= 4 warps * 32 lanes * NV * 8
+template <int NV>
+__global__ void __launch_bounds__(kBwdThreads, 1)
     rmsnorm_bwd_kernel(const bf16* __restrict__ x,
                        const float* __restrict__ gamma,
                        const bf16* __restrict__ dy, bf16* __restrict__ dx,
                        float* __restrict__ partial, int rows, int width,
                        float eps) {
-  __shared__ float red[2 * kBwdThreads / 32];
-  const int tid = threadIdx.x;
-  float g[kBwdCols], dg[kBwdCols];
+  extern __shared__ float4 bwd_smem[];
+  float* gs = reinterpret_cast<float*>(bwd_smem);  // gamma [width]
+  float* slot_dg = gs + width;  // [kRowSlots][width], at the end
+  __shared__ float red[2][kRowSlots][kRowWarps][2];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int slot = warp / kRowWarps, quarter = warp % kRowWarps;
+  const int nvec = width / 8;
+  auto vec = [&](int i) { return (quarter * NV + i) * 32 + lane; };
+  auto load = [&](long long row, uint4* xo, uint4* dout) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * width);
+    const uint4* dr = reinterpret_cast<const uint4*>(dy + row * width);
 #pragma unroll
-  for (int k = 0; k < kBwdCols; ++k) {
-    const int c = tid + k * kBwdThreads;
-    g[k] = c < width ? gamma[c] : 0.0f;
-    dg[k] = 0.0f;
-  }
+    for (int i = 0; i < NV; ++i) {  // read once: streaming loads
+      const bool ok = vec(i) < nvec;
+      xo[i] = ok ? __ldcs(xr + vec(i)) : make_uint4(0, 0, 0, 0);
+      dout[i] = ok ? __ldcs(dr + vec(i)) : make_uint4(0, 0, 0, 0);
+    }
+  };
+  float dg[NV][8];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dg[i][k] = 0.0f;
+
   const float inv_w = 1.0f / static_cast<float>(width);
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-    const bf16* xr = x + (size_t)row * width;
-    const bf16* dr = dy + (size_t)row * width;
-    float xv[kBwdCols], dv[kBwdCols];
+  const long long stride = (long long)gridDim.x * kRowSlots;
+  long long row = (long long)blockIdx.x * kRowSlots + slot;
+  uint4 xv[NV], dv[NV];
+  if (row < rows) load(row, xv, dv);  // in flight while gamma arrives
+  for (int c = 4 * tid; c < width; c += 4 * kBwdThreads)
+    *reinterpret_cast<float4*>(gs + c) =
+        *reinterpret_cast<const float4*>(gamma + c);
+  __syncthreads();
+  for (int parity = 0; row < rows; row += stride, parity ^= 1) {
+    uint4 xn[NV], dn[NV];  // unused past the last row
+    if (row + stride < rows) load(row + stride, xn, dn);
     float ss = 0.0f, dot = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kBwdCols; ++k) {
-      const int c = tid + k * kBwdThreads;
-      xv[k] = c < width ? __bfloat162float(xr[c]) : 0.0f;
-      dv[k] = c < width ? __bfloat162float(dr[c]) : 0.0f;
-      ss += xv[k] * xv[k];
-      dot += xv[k] * g[k] * dv[k];
+    for (int i = 0; i < NV; ++i) {
+      if (vec(i) >= nvec) continue;
+      const float4 g0 = *reinterpret_cast<const float4*>(gs + 8 * vec(i));
+      const float4 g1 =
+          *reinterpret_cast<const float4*>(gs + 8 * vec(i) + 4);
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const unsigned xw[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+      const unsigned dw[4] = {dv[i].x, dv[i].y, dv[i].z, dv[i].w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 xf = unpack(xw[k]), df = unpack(dw[k]);
+        ss += xf.x * xf.x + xf.y * xf.y;
+        dot += xf.x * g[2 * k] * df.x + xf.y * g[2 * k + 1] * df.y;
+      }
     }
-    block_sum2(ss, dot, red);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    // the row's 4 warps exchange their sums (by row parity, so that the
+    // next row's writes never meet this row's reads), added in warp order
+    if (lane == 0) {
+      red[parity][slot][quarter][0] = ss;
+      red[parity][slot][quarter][1] = dot;
+    }
+    bar_sync(1 + slot, kRowWarps * 32);
+    ss = dot = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kRowWarps; ++q) {
+      ss += red[parity][slot][q][0];
+      dot += red[parity][slot][q][1];
+    }
     const float r = rsqrtf(ss * inv_w + eps);
     const float m = r * r * r * dot * inv_w;  // rstd * mean(xhat*gamma*dy)
-    bf16* out = dx + (size_t)row * width;
+    uint4* out = reinterpret_cast<uint4*>(dx + row * width);
 #pragma unroll
-    for (int k = 0; k < kBwdCols; ++k) {
-      const int c = tid + k * kBwdThreads;
-      if (c >= width) continue;
-      out[c] = __float2bfloat16(r * g[k] * dv[k] - xv[k] * m);
-      dg[k] += dv[k] * xv[k] * r;
+    for (int i = 0; i < NV; ++i) {
+      if (vec(i) >= nvec) continue;
+      const float4 g0 = *reinterpret_cast<const float4*>(gs + 8 * vec(i));
+      const float4 g1 =
+          *reinterpret_cast<const float4*>(gs + 8 * vec(i) + 4);
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const unsigned xw[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+      const unsigned dw[4] = {dv[i].x, dv[i].y, dv[i].z, dv[i].w};
+      unsigned o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 xf = unpack(xw[k]), df = unpack(dw[k]);
+        o[k] = pack(r * g[2 * k] * df.x - xf.x * m,
+                    r * g[2 * k + 1] * df.y - xf.y * m);
+        dg[i][2 * k] += df.x * xf.x * r;
+        dg[i][2 * k + 1] += df.y * xf.y * r;
+      }
+      out[vec(i)] = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      xv[i] = xn[i];
+      dv[i] = dn[i];
     }
   }
-  float* pr = partial + (size_t)blockIdx.x * width;
+  // the block's partial row: its row slots' sums added in slot order
 #pragma unroll
-  for (int k = 0; k < kBwdCols; ++k) {
-    const int c = tid + k * kBwdThreads;
-    if (c < width) pr[c] = dg[k];
+  for (int i = 0; i < NV; ++i) {
+    if (vec(i) >= nvec) continue;
+    float4* d = reinterpret_cast<float4*>(slot_dg + slot * width + 8 * vec(i));
+    d[0] = make_float4(dg[i][0], dg[i][1], dg[i][2], dg[i][3]);
+    d[1] = make_float4(dg[i][4], dg[i][5], dg[i][6], dg[i][7]);
+  }
+  __syncthreads();
+  for (int c = tid; c < width; c += kBwdThreads) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kRowSlots; ++k) s += slot_dg[k * width + c];
+    partial[(size_t)blockIdx.x * width + c] = s;
   }
 }
 
-__global__ void rmsnorm_dgamma_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ dgamma, int blocks,
-                                      int width) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= width) return;
+// dgamma[c] = the blocks' partial rows summed in a fixed order: thread
+// group k of a block sums partial rows k, k + 32, ... of its 32 columns,
+// then the groups' sums are added in group order.
+__global__ void __launch_bounds__(kSumCols * kSumGroups)
+    rmsnorm_dgamma_kernel(const float* __restrict__ partial,
+                          float* __restrict__ dgamma, int blocks, int width) {
+  __shared__ float sums[kSumGroups][kSumCols];
+  const int lane = threadIdx.x % kSumCols, grp = threadIdx.x / kSumCols;
+  const int c = blockIdx.x * kSumCols + lane;
   float s = 0.0f;
-  for (int b = 0; b < blocks; ++b) s += partial[(size_t)b * width + c];
-  dgamma[c] = s;
+  if (c < width)
+    for (int b = grp; b < blocks; b += kSumGroups)
+      s += partial[(size_t)b * width + c];
+  sums[grp][lane] = s;
+  __syncthreads();
+  if (grp != 0 || c >= width) return;
+  float t = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kSumGroups; ++k) t += sums[k][lane];
+  dgamma[c] = t;
+}
+
+template <int NV>
+cudaError_t launch_bwd(const bf16* x, const float* gamma, const bf16* dy,
+                       bf16* dx, float* partial, float* dgamma, int rows,
+                       int width, float eps, int blocks, cudaStream_t st) {
+  // gamma and the row slots' dgamma rows
+  const int smem = (1 + kRowSlots) * width * (int)sizeof(float);
+  static bool configured = false;
+  if (!configured) {  // room for the widest row
+    cudaError_t e = cudaFuncSetAttribute(
+        rmsnorm_bwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (1 + kRowSlots) * kMaxWidth * (int)sizeof(float));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  rmsnorm_bwd_kernel<NV><<<blocks, kBwdThreads, smem, st>>>(
+      x, gamma, dy, dx, partial, rows, width, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  rmsnorm_dgamma_kernel<<<(width + kSumCols - 1) / kSumCols,
+                          kSumCols * kSumGroups, 0, st>>>(partial, dgamma,
+                                                          blocks, width);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, dy, dx [rows, width] contiguous bf16 (16-byte-aligned bases), gamma and
-// dgamma [width] fp32, partial [blocks, width] fp32 scratch; width <= 4096,
-// blocks >= 1 (ops.rmsnorm_backward sizes the grid).  Two launches: the
-// rows, then the block-ordered sum of the partial dgamma rows.
+// dgamma [width] fp32 (16-byte aligned), partial [blocks, width] fp32
+// scratch; width a multiple of 8 up to 4096, blocks >= 1 (ops.rmsnorm_backward
+// sizes the grid: 3 rows a block at a time).  Two launches: the rows (each block also writing its
+// partial dgamma row), then the block-ordered sum of the partial rows.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_rmsnorm_bwd_bf16(const void* x, const void* gamma,
                                       const void* dy, void* dx, void* partial,
                                       void* dgamma, int rows, int width,
                                       float eps, int blocks, void* stream) {
-  if (rows < 1 || width < 1 || width > kMaxWidth || blocks < 1)
+  if (rows < 1 || width < 8 || width % 8 || width > kMaxWidth || blocks < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  rmsnorm_bwd_kernel<<<blocks, kBwdThreads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
-      static_cast<float*>(partial), rows, width, eps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  rmsnorm_dgamma_kernel<<<(width + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dgamma), blocks,
-      width);
-  return cudaGetLastError();
+  auto xs = static_cast<const bf16*>(x);
+  auto gs = static_cast<const float*>(gamma);
+  auto ds = static_cast<const bf16*>(dy);
+  auto out = static_cast<bf16*>(dx);
+  auto part = static_cast<float*>(partial);
+  auto dg = static_cast<float*>(dgamma);
+  const int nv = (width / 8 + 127) / 128;  // vectors a lane
+  if (nv <= 1)
+    return launch_bwd<1>(xs, gs, ds, out, part, dg, rows, width, eps, blocks,
+                         st);
+  if (nv <= 2)
+    return launch_bwd<2>(xs, gs, ds, out, part, dg, rows, width, eps, blocks,
+                         st);
+  return launch_bwd<4>(xs, gs, ds, out, part, dg, rows, width, eps, blocks,
+                       st);
 }

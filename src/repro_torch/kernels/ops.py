@@ -22,9 +22,9 @@ and take the plain backward versions (``kernels.ref``) on the CPU.  With
 no grad (serving) each wrapper launches exactly what it launched before,
 and the attention writes no log-sum-exp.
 
-``matmul_plan``, ``attention_plan`` and ``ssd_plan`` choose the CUDA
-kernels' tiles and splits from the shapes alone; they are plain Python, so
-the CPU tests check them.
+``matmul_plan``, ``attention_plan``, ``attention_bwd_plan`` and
+``ssd_plan`` choose the CUDA kernels' tiles and splits from the shapes
+alone; they are plain Python, so the CPU tests check them.
 """
 from __future__ import annotations
 
@@ -230,6 +230,123 @@ def attention_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
     return AttentionPlan(row_tiles, -(-kv_tiles // per), per)
 
 
+#: keys of a dK/dV block's key tile (its warpgroup's K and V)
+BWD_KEYS = 64
+
+
+def bwd_visible_tiles(key_tile: int, q_offset: int, kv_len: int, sq: int,
+                      grp: int, causal: bool, window: int) -> tuple[int, int]:
+    """The row tiles ``[t0, t1)`` of one (batch row, kv head) that see a key
+    of ``key_tile`` (``BWD_KEYS`` keys), as the backward kernel computes
+    them: row tile t is q positions ``[64 (t // grp), +64)`` of the group's
+    q head ``t % grp``, so a key tile sees whole position tiles of every
+    head."""
+    k0 = BWD_KEYS * key_tile
+    k1 = min(k0 + BWD_KEYS - 1, kv_len - 1)
+    p_lo, p_hi = 0, sq - 1
+    if causal:
+        p_lo = max(p_lo, k0 - q_offset)
+    if window > 0:
+        p_hi = min(p_hi, k1 + window - 1 - q_offset)
+    if k0 > k1 or p_lo > p_hi:
+        return 0, 0
+    return p_lo // 64 * grp, (p_hi // 64 + 1) * grp
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionBwdPlan:
+    """The dK/dV schedule of the CUDA attention backward.
+
+    Per (batch row, kv head) ``bh``, the q rows are ``row_tiles`` tiles of
+    64 positions of one q head (``bwd_visible_tiles``) and the keys
+    ``key_tiles`` tiles of ``BWD_KEYS``.  The row tiles a key tile sees at
+    q_offset 0 and kv_len skv are cut into ``parts`` items of nearly equal
+    length, at most ``max_len``; ``items`` lists every item, longest first, as (bh,
+    key tile, first row tile, end row tile, part, parts, first slot), and
+    ``blocks`` persistent blocks take them in that order from a shared
+    ticket.  A key tile of several parts has its fp32 dK/dV partials in
+    workspace slots ``first slot + part``; the last part to arrive sums
+    them in part order.  The kernel clips each item to the tiles the key
+    tile sees for the real offsets and lengths, with its first part
+    reaching down to row tile 0 and its last up to ``row_tiles``
+    (``walk``), so any offsets are covered."""
+    grp: int
+    hkv: int
+    row_tiles: int
+    key_tiles: int
+    max_len: int
+    items: tuple
+    slots: int
+    blocks: int
+
+    def lengths(self) -> list[int]:
+        return [r1 - r0 for _, _, r0, r1, *_ in self.items]
+
+    def walk(self, sq: int, q_offset, kv_len, causal: bool = True,
+             window: int = 0):
+        """Per item, in ``items`` order: the (bh, key tile, part, row
+        tiles) the kernel walks for per-batch-row ``q_offset`` and
+        ``kv_len`` (sequences of ints)."""
+        for bh, kt, r0, r1, part, parts, _ in self.items:
+            b = bh // self.hkv
+            v0, v1 = bwd_visible_tiles(kt, int(q_offset[b]), int(kv_len[b]),
+                                       sq, self.grp, causal, window)
+            lo = max(v0, 0 if part == 0 else r0)
+            hi = min(v1, self.row_tiles if part == parts - 1 else r1)
+            yield bh, kt, part, list(range(lo, max(lo, hi)))
+
+
+#: the backward kernels' blocks per SM (shared memory holds two)
+BWD_BLOCKS_PER_SM = 2
+#: items a block takes, on the mean: two, so that the shortest items,
+#: taken last, even out the blocks' ends
+BWD_ITEMS_PER_BLOCK = 2
+#: the shortest item a key tile is cut into (a partial costs a 64 KB write
+#: and read)
+BWD_MIN_ITEM = 8
+
+
+@functools.lru_cache(maxsize=None)
+def attention_bwd_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
+                       causal: bool = True, window: int = 0,
+                       sms: int = SMS) -> AttentionBwdPlan:
+    """Items of at most ``max_len`` row tiles, ``max_len`` chosen so that
+    the blocks (two per SM) take about ``BWD_ITEMS_PER_BLOCK`` items each;
+    a key tile that sees ``n`` row tiles is cut into ``ceil(n / max_len)``
+    parts of nearly equal length.  At llama3-8b's s = 2048 (32 key tiles,
+    128 row tiles, key tile j sees 128 - 4 j) that is items of 32 or fewer
+    row tiles instead of one block walking 128 while another walks 4."""
+    grp = hq // hkv
+    row_tiles, key_tiles = -(-sq // 64) * grp, -(-skv // BWD_KEYS)
+    spans = [bwd_visible_tiles(kt, 0, skv, sq, grp, causal, window)
+             for kt in range(key_tiles)]
+    total = b * hkv * sum(t1 - t0 for t0, t1 in spans)
+    workers = BWD_BLOCKS_PER_SM * sms
+    max_len = max(BWD_MIN_ITEM, -(-total // (BWD_ITEMS_PER_BLOCK * workers)))
+    items, slots = [], 0
+    for bh in range(b * hkv):
+        for kt, (t0, t1) in enumerate(spans):
+            n = t1 - t0
+            parts = max(1, -(-n // max_len))
+            for p in range(parts):
+                items.append((bh, kt, t0 + n * p // parts,
+                              t0 + n * (p + 1) // parts, p, parts,
+                              slots if parts > 1 else -1))
+            slots += parts if parts > 1 else 0
+    items.sort(key=lambda it: (it[2] - it[3], it[0], it[1], it[4]))
+    return AttentionBwdPlan(grp, hkv, row_tiles, key_tiles, max_len,
+                            tuple(items), slots, min(workers, len(items)))
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_items(b, sq, hq, hkv, skv, causal, window, device) -> torch.Tensor:
+    """``attention_bwd_plan``'s items as the kernel reads them: int32
+    ``[items, 8]`` on ``device``, made once per shape."""
+    plan = attention_bwd_plan(b, sq, hq, hkv, skv, causal, window)
+    rows = [list(it) + [0] for it in plan.items]
+    return torch.tensor(rows, dtype=torch.int32).to(device)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
            *, activation: str | None = None) -> torch.Tensor:
     """``a [..., K] @ b [K, N]`` (+ bias [N], then gelu-tanh or silu).
@@ -433,7 +550,9 @@ def flash_attention_backward(q, k, v, o, do, lse, q_offset, kv_len, *,
     gradient ``do`` and the forward's fp32 ``lse [b, hq, sq]``.
 
     On CUDA: the inputs as ``flash_attention`` takes them, ``o``/``do``
-    bf16 like q; one C entry (three kernels: rowsum(dO o O), dK/dV, dQ)."""
+    bf16 like q; one C entry (three kernels: each row's log-sum-exp and
+    rowsum(dO o O) in tile order, dK/dV over ``attention_bwd_plan``'s
+    items, dQ), summed in a fixed order: bitwise deterministic."""
     if _on_cpu(q, k, v, o, do, lse, q_offset, kv_len):
         return ref.attention_bwd_ref(q, k, v, o, do, lse, q_offset, kv_len,
                                      causal=causal, window=window,
@@ -448,14 +567,28 @@ def flash_attention_backward(q, k, v, o, do, lse, q_offset, kv_len, *,
         raise ValueError(f"o and do must be bf16 {tuple(q.shape)}")
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 [{b}, {hq}, {sq}]")
-    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    o, do, lse = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (o, do, lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
-    _check(_build.entry("flash_attention_bwd")(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse), _ptr(qo),
-        _ptr(kl), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(delta), b, sq, skv, hq,
-        hkv, d, int(causal), int(window), float(softcap), _stream(q)),
-        "flash_attention_bwd")
+    plan = attention_bwd_plan(b, sq, hq, hkv, skv, bool(causal), int(window))
+    items = _bwd_items(b, sq, hq, hkv, skv, bool(causal), int(window),
+                       q.device)
+    # per (q head, position) in tile order, positions padded to whole
+    # tiles: log2(e) * lse and rowsum(dO o O)
+    rows = -(-sq // 64) * 64
+    ld = torch.empty((2, b, hq, rows), dtype=torch.float32, device=q.device)
+    # fp32 dK/dV partials of a key tile: dK and dV, 64 keys x the head dim
+    # padded to 64 or 128
+    parts = torch.empty(max(plan.slots, 1) * 2 * BWD_KEYS *
+                        (64 if d <= 64 else 128), dtype=torch.float32,
+                        device=q.device)
+    counters = _counters(q, 2 + b * hkv * plan.key_tiles)
+    _launch(_build.entry("flash_attention_bwd"),
+            (_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+             _ptr(qo), _ptr(kl), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(ld),
+             _ptr(items), _ptr(parts), _ptr(counters), b, sq, skv, hq, hkv,
+             d, int(causal), int(window), float(softcap), len(plan.items),
+             plan.blocks, _stream(q)), "flash_attention_bwd", counters)
     BACKWARD_LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 
@@ -500,6 +633,8 @@ RMSNORM_MAX_WIDTH = 4096
 RMSNORM_VARIANTS = ((8, 1), (32, 4), (128, 4))
 #: the most threads of a block
 RMSNORM_MAX_THREADS = 256
+#: rows the rmsnorm backward's block takes at a time (4 warps each)
+RMSNORM_BWD_ROWS = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -558,9 +693,10 @@ def rmsnorm_backward(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
                      *, eps: float = 1e-6):
     """(dx, dgamma) of ``rmsnorm`` for the output gradient ``dy``.
 
-    On CUDA: bf16 x and dy, fp32 gamma [h], h up to ``RMSNORM_MAX_WIDTH``;
-    one C entry (the rows, then the block-ordered sum of dgamma's per-block
-    partial rows: deterministic)."""
+    On CUDA: bf16 x and dy, fp32 gamma [h], h a multiple of 8 up to
+    ``RMSNORM_MAX_WIDTH``; one C entry (the rows, 4 warps each, each block
+    also writing its partial dgamma row; then the sum of those rows in a
+    fixed order: deterministic)."""
     if _on_cpu(x, gamma, dy):
         return ref.rmsnorm_bwd_ref(x, gamma, dy, eps)
     from repro_torch.kernels import _build
@@ -570,20 +706,21 @@ def rmsnorm_backward(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"gamma must be fp32 [{h}]")
     if {x.dtype, dy.dtype} != {torch.bfloat16} or dy.shape != x.shape:
         raise TypeError(f"x and dy must be bf16 {tuple(x.shape)}")
-    if not 1 <= h <= RMSNORM_MAX_WIDTH:
-        raise ValueError(f"the CUDA rmsnorm backward takes rows up to "
-                         f"{RMSNORM_MAX_WIDTH} wide, got {h}")
-    x2 = x.reshape(-1, h).contiguous()
-    dy2 = dy.reshape(-1, h).contiguous()
+    if h % 8 or not 8 <= h <= RMSNORM_MAX_WIDTH:
+        raise ValueError(f"the CUDA rmsnorm backward takes rows of a multiple "
+                         f"of 8 up to {RMSNORM_MAX_WIDTH} wide, got {h}")
+    x2 = _aligned(x.reshape(-1, h).contiguous())
+    dy2 = _aligned(dy.reshape(-1, h).contiguous())
     rows = x2.shape[0]
     dx = torch.empty_like(x2)
     if rows == 0:
         return dx.reshape(x.shape), torch.zeros_like(gamma)
-    blocks = min(rows, 2 * SMS)
+    # 3 rows a block at a time, one block of 12 warps per SM
+    blocks = min(-(-rows // RMSNORM_BWD_ROWS), SMS)
     partial = torch.empty((blocks, h), dtype=torch.float32, device=x.device)
     dgamma = torch.empty_like(gamma)
     _check(_build.entry("rmsnorm_bwd")(
-        _ptr(x2), _ptr(gamma.contiguous()), _ptr(dy2), _ptr(dx),
+        _ptr(x2), _ptr(_aligned(gamma.contiguous())), _ptr(dy2), _ptr(dx),
         _ptr(partial), _ptr(dgamma), rows, h, float(eps), blocks,
         _stream(x2)), "rmsnorm_bwd")
     BACKWARD_LAUNCHES["rmsnorm_bwd"] += 1

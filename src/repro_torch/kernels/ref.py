@@ -189,6 +189,54 @@ def attention_bwd_ref(q, k, v, o, do, lse, q_offset, kv_len, *, causal=True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_bwd_split_ref(q, k, v, o, do, lse, q_offset, kv_len, *, parts,
+                            causal=True, window: int = 0,
+                            softcap: float = 0.0):
+    """``attention_bwd_ref`` with dK and dV summed as the CUDA backward's
+    split schedule sums them.  ``parts`` maps (bh, first key, end key) of
+    each key tile -- bh = batch row * hkv + kv head -- to the row tiles of
+    each of its items, in item order (``ops.AttentionBwdPlan.walk``); row
+    tile t is q positions ``[64 (t // grp), +64)`` of the group's q head
+    ``t % grp``.  Each item's partial sums its row tiles in order; a key tile's
+    dK/dV is its partials summed in item order (zeros where no item
+    covers it).  dQ as ``attention_bwd_ref``.  fp32."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    grp = hq // hkv
+    x, mask = _scores(q, k, q_offset, kv_len, causal, window, softcap)
+    p = torch.where(mask, torch.exp(x - lse[..., None]),
+                    torch.zeros((), device=q.device))        # [b, hq, sq, skv]
+    dof, qf = do.float(), q.float()
+    vf = v.float().repeat_interleave(grp, dim=2)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)          # [b, hq, sq]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    if softcap:
+        ds = ds * (1.0 - (x / softcap) ** 2)
+    scale = 1.0 / math.sqrt(d)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds,
+                      k.float().repeat_interleave(grp, dim=2)) * scale
+    dk = torch.zeros(b, skv, hkv, d, device=q.device)
+    dv = torch.zeros_like(dk)
+    for (bh, k0, k1), items in parts.items():
+        bi, kvh = divmod(bh, hkv)
+        keys = slice(k0, k1)
+        sum_k = sum_v = None
+        for tiles in items:
+            part_k = torch.zeros(keys.stop - keys.start, d, device=q.device)
+            part_v = torch.zeros_like(part_k)
+            for t in tiles:
+                h = kvh * grp + t % grp
+                rows = slice(64 * (t // grp), min(64 * (t // grp) + 64, sq))
+                part_v = part_v + p[bi, h, rows, keys].T @ dof[bi, rows, h]
+                part_k = part_k + ds[bi, h, rows, keys].T @ qf[bi, rows, h]
+            sum_k = part_k if sum_k is None else sum_k + part_k
+            sum_v = part_v if sum_v is None else sum_v + part_v
+        dk[bi, keys, kvh] = sum_k * scale
+        dv[bi, keys, kvh] = sum_v
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_split_ref(q, k, v, q_offset, kv_len, *, key_ranges,
                         causal=True, window: int = 0, softcap: float = 0.0):
     """``attention_ref`` as the split-KV kernel computes it: for each key

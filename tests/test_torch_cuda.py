@@ -397,6 +397,9 @@ FA_BWD_CASES = [
     dict(b=2, s=96, hq=4, hkv=2, d=128, q_offset=(32, 0),
          kv_len=(128, 70), skv=128),                       # offsets, lengths
     dict(b=1, s=2048, hq=32, hkv=8, d=128),                # llama3-8b
+    dict(b=2, s=96, hq=4, hkv=2, d=128, window=32,
+         kv_len=(0, 50)),                                  # rows see no key
+    dict(b=1, s=2100, hq=32, hkv=8, d=128),                # s % 64 != 0
 ]
 
 
@@ -439,8 +442,37 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_BWD_CASES[:5])
+def test_flash_attention_backward_merges_many_parts(cuda, monkeypatch, case):
+    """Items of one row tile each: every key tile of several row tiles is
+    summed from that many partials by its last item, in item order."""
+    monkeypatch.setattr(ops, "BWD_MIN_ITEM", 1)
+    monkeypatch.setattr(ops, "BWD_ITEMS_PER_BLOCK", 10 ** 6)
+    ops.attention_bwd_plan.cache_clear()
+    ops._bwd_items.cache_clear()
+    try:
+        (q, k, v, do), qo, kl, opts = _fa_inputs(cuda, case)
+        out, lse = ops.flash_attention_lse(q, k, v, qo, kl, **opts)
+        b, s, hq, _ = q.shape
+        plan = ops.attention_bwd_plan(b, s, hq, k.shape[2], k.shape[1],
+                                      True, opts["window"])
+        assert plan.max_len == 1 and plan.slots > 0
+        got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl,
+                                           **opts)
+        again = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl,
+                                             **opts)
+        want = ref.attention_bwd_ref(q, k, v, out, do, lse, qo, kl, **opts)
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            assert torch.equal(g, a), name
+            assert _rel(g, w) <= BWD_REL, name
+    finally:
+        ops.attention_bwd_plan.cache_clear()
+        ops._bwd_items.cache_clear()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,width", [(1, 64), (37, 3584), (2048, 4096),
-                                        (300, 1024)])
+                                        (300, 1024), (4096, 4096)])
 def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, width):
     gen = torch.Generator(device=cuda).manual_seed(3)
     x = (torch.randn(rows, width, generator=gen, device=cuda) * 3).bfloat16()

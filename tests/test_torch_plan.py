@@ -8,8 +8,13 @@ splits must cover K (or the keys) exactly.  ``ref.matmul_split_ref`` and
 partials summed in split order, the epilogue once; partial outputs with
 their log-sum-exp, merged) and are held against the unsplit plain
 versions.  fp32 inputs: only the order of summation differs (1e-5).
+``ops.attention_bwd_plan`` (the attention backward's dK/dV items) is
+checked at the training shape and the card tests' shapes, and its plain
+twin ``ref.attention_bwd_split_ref`` against ``ref.attention_bwd_ref``
+and against ``jax.grad`` of the JAX package's ``attention_core``.
 """
 import collections
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -18,20 +23,28 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import get_config  # noqa: E402
+from repro.models import layers as jax_layers  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _chip_smoke():
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+def _load(path, name):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-_CS = _chip_smoke()
+_ROOT = Path(__file__).resolve().parents[1]
+_CS = _load(_ROOT / "chip_smoke.py", "chip_smoke")
+#: the attention backward's card-test shapes (that file imports no JAX)
+FA_BWD_CASES = _load(_ROOT / "tests/test_torch_cuda.py",
+                     "torch_cuda_cases").FA_BWD_CASES
 _M = (_CS.SERVE["prefill_chunk"], _CS.SERVE["slots"])
 GEMMS = [(path, label, M, K, N)
          for path, gemms in (("llama3-8b", _CS.LLAMA_GEMMS),
@@ -262,3 +275,181 @@ def test_rmsnorm_plan_holds_each_row_in_whole_warps(rows, width):
         assert plan.threads == 8
     if width in (3584, 4096):
         assert (plan.threads, plan.vectors, plan.rows) == (128, 4, 1)
+
+
+# ---------------------------------------------------------------------------
+# The attention backward's dK/dV plan
+# ---------------------------------------------------------------------------
+
+
+def _bwd_case(c):
+    """(b, sq, hq, hkv, skv, window, q_offset, kv_len) of a card-test
+    case (``test_torch_cuda.FA_BWD_CASES``)."""
+    b, sq = c["b"], c["s"]
+    skv = c.get("skv") or sq
+    return (b, sq, c["hq"], c["hkv"], skv, c.get("window", 0),
+            list(c.get("q_offset") or (0,) * b),
+            list(c.get("kv_len") or (skv,) * b))
+
+
+def _visible_pairs(b, sq, hq, hkv, skv, window, q_offset, kv_len):
+    """(bh, key tile, row tile) of every pair of a key tile and a row tile
+    (64 positions of one q head) with a visible (row, key), from the plain
+    mask."""
+    grp, keys = hq // hkv, ops.BWD_KEYS
+    mask = ref.attention_mask(sq, skv, torch.tensor(q_offset),
+                              torch.tensor(kv_len), window=window)
+    pt, kt = -(-sq // 64), -(-skv // keys)
+    padded = torch.zeros(b, pt * 64, kt * keys, dtype=torch.bool)
+    padded[:, :sq, :skv] = mask
+    tiles = padded.reshape(b, pt, 64, kt, keys).any(4).any(2)  # [b, pt, kt]
+    return {(bi * hkv + kvh, k, p * grp + g)
+            for bi, p, k in tiles.nonzero().tolist()
+            for kvh in range(hkv) for g in range(grp)}
+
+
+#: llama3-8b's training shape is among them
+BWD_PLAN_CASES = [_bwd_case(c) for c in FA_BWD_CASES]
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,skv,window,q_offset,kv_len",
+                         BWD_PLAN_CASES)
+def test_attention_bwd_plan_walks_every_visible_pair_once(
+        b, sq, hq, hkv, skv, window, q_offset, kv_len):
+    """The kernel's walk of the plan (each item clipped to the tiles its
+    key tile sees for these offsets and lengths) covers every visible
+    (key tile, row tile) pair exactly once and no invisible one; every key
+    tile has items, their parts numbered in order, split ones in slots of
+    their own."""
+    plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window)
+    seen = collections.Counter()
+    for bh, kt, _, tiles in plan.walk(sq, q_offset, kv_len, True, window):
+        seen.update((bh, kt, t) for t in tiles)
+    assert set(seen.values()) <= {1}
+    assert set(seen) == _visible_pairs(b, sq, hq, hkv, skv, window,
+                                       q_offset, kv_len)
+    by_tile = collections.defaultdict(list)
+    for bh, kt, r0, r1, part, parts, slot in plan.items:
+        by_tile[bh, kt].append((part, parts, slot))
+        assert 0 <= r0 <= r1 <= plan.row_tiles and r1 - r0 <= plan.max_len
+    assert len(by_tile) == b * hkv * plan.key_tiles
+    slots = collections.Counter()
+    for parts in by_tile.values():
+        assert sorted(p for p, *_ in parts) == list(range(parts[0][1]))
+        if parts[0][1] > 1:
+            slots.update(slot + p for p, _, slot in parts)
+        else:
+            assert parts[0][2] == -1
+    assert set(slots.values()) <= {1} and len(slots) == plan.slots
+    assert 1 <= plan.blocks <= ops.BWD_BLOCKS_PER_SM * ops.SMS
+
+
+def test_attention_bwd_plan_balances_the_causal_square():
+    """At llama3-8b's s = 2048 key tile 0 sees 128 row tiles and key tile
+    31 sees 4; the plan's items are within 1.25x of their mean, longest
+    first, about two for each of the 264 blocks."""
+    plan = ops.attention_bwd_plan(1, 2048, 32, 8, 2048)
+    spans = [ops.bwd_visible_tiles(kt, 0, 2048, 2048, 4, True, 0)
+             for kt in (0, 31)]
+    assert plan.key_tiles == 32
+    assert [t1 - t0 for t0, t1 in spans] == [128, 4]
+    lengths = plan.lengths()
+    assert max(lengths) <= 1.25 * sum(lengths) / len(lengths)
+    assert lengths == sorted(lengths, reverse=True)
+    assert plan.blocks == 2 * ops.SMS
+    assert len(lengths) <= 3 * plan.blocks
+
+
+SPLIT_BWD = [  # (b, sq, hq, hkv, skv, window, softcap, q_offset, kv_len)
+    (1, 200, 8, 2, 200, 0, 0.0, [0], [200]),           # GQA 4:1, ragged
+    (2, 130, 4, 4, 130, 48, 0.0, [0, 0], [130, 130]),  # window, b = 2
+    (2, 96, 4, 2, 128, 0, 30.0, [32, 0], [128, 70]),   # offsets, softcap
+]
+
+
+def _split_parts(plan, sq, skv, q_offset, kv_len, window):
+    """``ref.attention_bwd_split_ref``'s parts: (bh, first key, end key)
+    of each key tile -> its items' row tiles, in part order."""
+    parts = collections.defaultdict(list)
+    for bh, kt, part, tiles in sorted(
+            plan.walk(sq, q_offset, kv_len, True, window),
+            key=lambda w: w[:3]):
+        k0 = ops.BWD_KEYS * kt
+        parts[bh, k0, min(k0 + ops.BWD_KEYS, skv)].append(tiles)
+    return parts
+
+
+def _bwd_inputs(rng, b, sq, hq, hkv, skv, d=16):
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return (randn(b, sq, hq, d), randn(b, skv, hkv, d), randn(b, skv, hkv, d),
+            randn(b, sq, hq, d))
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,skv,window,softcap,q_offset,kv_len",
+                         SPLIT_BWD)
+@pytest.mark.parametrize("max_len", [None, 1])
+def test_split_backward_plain_matches_attention_bwd_ref(
+        monkeypatch, b, sq, hq, hkv, skv, window, softcap, q_offset, kv_len,
+        max_len):
+    """dK/dV as partials per item, summed in item order, against the
+    unsplit plain backward: fp32, only the order of summation differs
+    (1e-5).  ``max_len`` 1: one row tile an item, the most partials."""
+    if max_len is not None:
+        monkeypatch.setattr(ops, "BWD_MIN_ITEM", max_len)
+        monkeypatch.setattr(ops, "BWD_ITEMS_PER_BLOCK", 10 ** 6)
+    ops.attention_bwd_plan.cache_clear()
+    try:
+        plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window)
+    finally:
+        ops.attention_bwd_plan.cache_clear()
+    if max_len is not None:
+        assert plan.max_len == max_len and any(len(p) > 1 for p in _split_parts(
+            plan, sq, skv, q_offset, kv_len, window).values())
+    rng = np.random.default_rng(sq + skv)
+    q, k, v, do = _bwd_inputs(rng, b, sq, hq, hkv, skv)
+    qo, kl = torch.tensor(q_offset), torch.tensor(kv_len)
+    opts = dict(window=window, softcap=softcap)
+    out, lse = ref.attention_lse_ref(q, k, v, qo, kl, **opts)
+    want = ref.attention_bwd_ref(q, k, v, out, do, lse, qo, kl, **opts)
+    got = ref.attention_bwd_split_ref(
+        q, k, v, out, do, lse, qo, kl,
+        parts=_split_parts(plan, sq, skv, q_offset, kv_len, window), **opts)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,skv,window,softcap,q_offset,kv_len",
+                         SPLIT_BWD)
+def test_split_backward_plain_matches_jax_grad_of_attention_core(
+        b, sq, hq, hkv, skv, window, softcap, q_offset, kv_len):
+    """The split schedule's dq, dk, dv against ``jax.grad`` of the JAX
+    package's ``attention_core`` (the plain jnp attention its Pallas kernel
+    computes, on the CPU as the package's own tests run it) on the same
+    numpy-made inputs: fp32, 1e-4 (the JAX side differentiates through
+    its softmax; every row of these cases sees a key)."""
+    d = 16
+    plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window)
+    rng = np.random.default_rng(sq * 7 + skv)
+    q, k, v, do = _bwd_inputs(rng, b, sq, hq, hkv, skv, d)
+    qo, kl = torch.tensor(q_offset), torch.tensor(kv_len)
+    opts = dict(window=window, softcap=softcap)
+    out, lse = ref.attention_lse_ref(q, k, v, qo, kl, **opts)
+    assert torch.isfinite(lse).all()
+    got = ref.attention_bwd_split_ref(
+        q, k, v, out, do, lse, qo, kl,
+        parts=_split_parts(plan, sq, skv, q_offset, kv_len, window), **opts)
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), head_dim=d,
+                              attn_softcap=softcap)
+
+    def loss(q, k, v):
+        o = jax_layers.attention_core(cfg, q, k, v, jnp.asarray(q_offset),
+                                      kv_len=jnp.asarray(kv_len),
+                                      window=window)
+        return jnp.sum(o * jnp.asarray(do.numpy()))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
