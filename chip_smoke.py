@@ -5,7 +5,7 @@
 
 Phases, in order, each failing the run on any error:
 
-1. kernels -- build the four CUDA kernels from
+1. kernels -- build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with nvcc, one process per source, then
    call each kernel at the shapes the llama3-8b and the zamba2-7b serving
    paths give it and hold it against its plain PyTorch version on the same
@@ -84,13 +84,54 @@ Phases, in order, each failing the run on any error:
    included) on the card (kernels, bf16) against the CPU (plain versions,
    fp32, from the same bf16 weights), within a per-tensor relative L2 error
    of 5e-2 (``PATH_TOL``).
+10. train-zamba-kernels -- at zamba2-7b's training shapes (b = 1, s = 2048,
+   112 SSD heads of 64, chunk 64; 32 / 32 attention heads of 112), the two
+   Mamba2 backward kernels against their plain backward on the same bf16
+   inputs: ``ssd_scan_bwd`` (dx, dB, dC within 2e-2 relative L2; ddt,
+   dA_log, dD, fp32 sums in another order, within 1e-3) and the grouped,
+   gated norm's backward (dy, dgate within 2e-2, dgamma within 1e-3, the
+   gate read through its stride), timed as in phase 1 against the bound,
+   the plain version and the timer's floor (no PyTorch call computes
+   either); then, for correctness, every forward kernel at the shapes the
+   zamba step gives it, within phase 1's limits (each projection at M =
+   2048, the block norm over rows of 3584, the grouped, gated norm over
+   2048 x 112 rows of 64, the SSD scan from zeros over 32 chunks with its
+   final state, the attention at head dim 112 with its log-sum-exp), and
+   the backward shapes the llama phases do not meet: the matmul backward
+   of B|C|dt (N = 240) and of z|x, the rmsnorm backward over rows of
+   3584, and the attention backward at head dim 112 with a GQA group of
+   1.
+11. train-zamba -- ``build_train_step`` on zamba2-7b at its published
+   widths, depth cut to 14 layers (two super-blocks of the shared block
+   and 5 Mamba2 blocks, and a 2-block Mamba2 tail), b = 1, s = 2048, bf16
+   weights and fp32 AdamW moments (zero1), remat on: 6 steps on one
+   repeated batch, the loss must fall; every launch count is set to 0
+   just before the 6 steps and read just after, and must equal the count
+   derived from the block structure (``train_launches_per_step``).
+   Prints ms per step, tokens/s, peak memory and, in one profiled step,
+   the device's busy share, its launches and its time by kernel.  The
+   result line's two Mamba2 backward rows take their launches from it.
+12. path-check-train-zamba -- zamba2-7b at full width with the depth cut
+   to 7 layers (one super-block and a one-block tail), b = 1, s = 128 (two
+   SSD chunks, so the state's gradient crosses a chunk): every gradient
+   on the card (kernels, bf16) against the CPU (plain versions, fp32, from
+   the same bf16 weights), and the plain versions on the CPU in bf16
+   against the same; each gradient within ``PATH_TOL`` or within
+   ``RECURRENT_FACTOR`` times the plain bf16 path's own error (bf16
+   gradients of this model are O(1) from fp32 upstream of the last block,
+   in the reference too).  Then the backward kernels on one forward: the
+   same step with the plain backward versions run on the card (the same
+   loss bit for bit, no backward kernel launched), every gradient of the
+   kernels within ``PATH_TOL`` of it; and a planted fault
+   (``ssd_scan_bwd``'s dB set to zero) must break that limit.
 
 Prints the card's name and power limit, the kernels' build time and each
 kernel's registers and spills from the build report, one JSON
 line ``{"kernels": [...]}`` (one row per kernel: the four forward kernels
 at the zamba2-7b path's shapes and launches, the three backward kernels
-at the training step's; the llama3-8b serving rows and the training
-step's forward rows go to the log and, with every check, to
+at the training step's, the two Mamba2 backward kernels at the zamba
+training step's; the llama3-8b serving rows and the training step's
+forward rows go to the log and, with every check, to
 ``kernel_checks.json`` in the output directory) and, last,
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, where no CUDA device is present or the
@@ -99,6 +140,7 @@ port's sources are missing.  Long outputs go to ``chiprun_out/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -114,11 +156,14 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
           "serve-zamba", "path-check-zamba", "train-kernels", "train",
-          "path-check-train")
+          "path-check-train", "train-zamba-kernels", "train-zamba",
+          "path-check-train-zamba")
 #: the serving path whose forward rows the result line reports
 MAIN = "zamba2-7b"
 #: the training path: the backward rows of the result line
 TRAIN = "train"
+#: the zamba2-7b training path: the Mamba2 backward rows
+TRAIN_ZAMBA = "train-zamba"
 
 BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_TFLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
@@ -1031,27 +1076,41 @@ def rel_l2(got, want) -> float:
     return float((g - w).norm() / w.norm().clamp_min(1e-30))
 
 
-def train_launches_per_step(layers: int, remat: bool) -> tuple[dict, dict]:
-    """Kernel launches of one training step of a dense model at d1 = d2 =
-    1: the forward of ``launches_per_step`` (each block's forward once
-    more when ``remat`` recomputes it in the backward), and per matmul two
-    backward launches (dgrad and wgrad), per attention and per norm one."""
+def train_launches_per_step(cfg, remat: bool) -> tuple[dict, dict]:
+    """Kernel launches of one training step at d1 = d2 = 1: the forward of
+    ``launches_per_step`` (each remat unit's forward -- a dense block, a
+    zamba super-block, a tail Mamba2 block -- once more when ``remat``
+    recomputes it in the backward; the final norm and the head once), and
+    per matmul two backward launches (dgrad and wgrad), per attention and
+    per SSD scan one, per block norm one, and per Mamba2 block one of the
+    grouped, gated norm's backward (counted apart from the block norms').
+    llama3-8b at 4 layers: forward 33 matmul, 8 flash_attention, 17
+    rmsnorm; backward 34 matmul, 4 attention, 9 rmsnorm.  zamba2-7b at 14
+    layers (2 super-blocks of 6, a 2-block tail: 12 Mamba2 blocks, 2
+    shared-block applications): forward 97 matmul, 4 flash_attention, 57
+    rmsnorm, 24 ssd_scan; backward 98 matmul, 2 attention, 17 rmsnorm, 12
+    grouped norm, 12 ssd_scan."""
+    serve = launches_per_step(cfg)
     again = 2 if remat else 1
-    fwd = {"matmul": 4 * layers * again + 1,
-           "flash_attention": layers * again,
-           "rmsnorm": 2 * layers * again + 1, "ssd_scan": 0}
-    bwd = {"matmul_bwd": 2 * (4 * layers + 1), "flash_attention_bwd": layers,
-           "rmsnorm_bwd": 2 * layers + 1}
+    once = {"matmul": 1, "rmsnorm": 1}   # the head and the final norm
+    fwd = {k: again * (v - once.get(k, 0)) + once.get(k, 0)
+           for k, v in serve.items()}
+    mamba_blocks = serve["ssd_scan"]
+    bwd = {"matmul_bwd": 2 * serve["matmul"],
+           "flash_attention_bwd": serve["flash_attention"],
+           "rmsnorm_bwd": serve["rmsnorm"] - mamba_blocks,
+           "group_rmsnorm_bwd": mamba_blocks, "ssd_scan_bwd": mamba_blocks}
     return fwd, bwd
 
 
 def parent_backward(torch, ops, parent):
     """The flash-attention and rmsnorm backward kernels of the older
-    checkout in ``parent`` (from its own ``csrc`` sources, whose C entries
-    take the older arguments below), built by its own ``_build`` into its
-    own ``build/torch_kernels``: callables
-    with ``ops.flash_attention_backward``'s and ``ops.rmsnorm_backward``'s
-    arguments, for timing beside this tree's kernels."""
+    checkout in ``parent`` (from its own ``csrc`` sources, PR 17's C
+    entries or later), built by its own ``_build`` into its own
+    ``build/torch_kernels``: callables with ``ops.flash_attention_backward``'s
+    and ``ops.rmsnorm_backward``'s arguments, for timing beside this
+    tree's kernels.  Both C entries take this tree's arguments, so this
+    tree's ``ops.*_backward_with`` prepares and launches them."""
     import importlib.util
 
     path = Path(parent) / "src/repro_torch/kernels/_build.py"
@@ -1063,30 +1122,15 @@ def parent_backward(torch, ops, parent):
     log(f"train-kernels: the parent's backward kernels built in "
         f"{time.perf_counter() - t0:.1f}s into {pb.BUILD_DIR}")
     fa, rn = pb.entry("flash_attention_bwd"), pb.entry("rmsnorm_bwd")
-    p = ops._ptr
 
     def fa_bwd(q, k, v, o, do, lse, qo, kl, causal=True, window=0,
                softcap=0.0):
-        b, sq, hq, d = q.shape
-        skv, hkv = k.shape[1], k.shape[2]
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        delta = torch.empty_like(lse)
-        ops._check(fa(p(q), p(k), p(v), p(o), p(do), p(lse), p(qo), p(kl),
-                      p(dq), p(dk), p(dv), p(delta), b, sq, skv, hq, hkv, d,
-                      int(causal), int(window), float(softcap),
-                      ops._stream(q)), "the parent's flash_attention_bwd")
-        return dq, dk, dv
+        return ops.attention_backward_with(fa, q, k, v, o, do, lse, qo, kl,
+                                           causal=causal, window=window,
+                                           softcap=softcap)
 
     def rn_bwd(x, g, dy, eps):
-        rows, h = x.shape
-        blocks = min(rows, 2 * ops.SMS)
-        partial = torch.empty((blocks, h), dtype=torch.float32,
-                              device=x.device)
-        dx, dg = torch.empty_like(x), torch.empty_like(g)
-        ops._check(rn(p(x), p(g), p(dy), p(dx), p(partial), p(dg), rows, h,
-                      float(eps), blocks, ops._stream(x)),
-                   "the parent's rmsnorm_bwd")
-        return dx, dg
+        return ops.rmsnorm_backward_with(rn, x, g, dy, eps)
 
     return fa_bwd, rn_bwd
 
@@ -1171,7 +1215,8 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
     failed = []
     # launches per step of each forward kernel (remat runs each block's
     # forward twice)
-    fwd_per_step = train_launches_per_step(L, remat=True)[0]
+    fwd_per_step = train_launches_per_step(_train_config("llama3-8b", L),
+                                           remat=True)[0]
     again = fwd_per_step["flash_attention"] // L
     mmf = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                        "src/repro/kernels/matmul.py:102", floor)
@@ -1400,17 +1445,252 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
     return (mmf, faf, rnf), (mm, fa, rn)
 
 
-def _train_model(torch, layers: int, seed: int, dev="cuda"):
-    """llama3-8b at its published widths, depth cut to ``layers``: the
+#: zamba2-7b's training depth: two super-blocks of 6 and a 2-block tail
+ZAMBA_TRAIN_LAYERS = 14
+#: the zamba training path check: one super-block and a one-block tail,
+#: and two SSD chunks of 64
+ZAMBA_PATH = dict(layers=7, seq=128)
+
+
+def ssd_bwd_cost(b, s, nh, hd, ds, chunk):
+    """(bytes, flops) of one SSD scan backward from a zero state: x, dy
+    and dx, dt and ddt, B, C, dB and dC, A_log, D, dA_log and dD each moved
+    once; per head and chunk of length l, the causal halves of C.B^T, of
+    dy.x^T and of the three products with the decayed (t, u) matrices
+    (dx's, dC's and dB's), and the five full products with the chunk's
+    state or its gradient (dS.B, dy^T.S, x^T.dS, the dS update and the
+    recomputed state update)."""
+    nbytes = (3 * 2 * b * s * nh * hd + 2 * 4 * b * s * nh
+              + 4 * 2 * b * s * ds + 4 * 4 * nh)
+    flops = 0
+    for c0 in range(0, s, chunk):
+        n = min(chunk, s - c0)
+        flops += 5 * n * (n + 1) * hd + 5 * 2 * n * hd * ds
+    return nbytes, b * nh * flops
+
+
+def zamba_train_kernel_phase(torch, F, ops, ref, timer, floor):
+    """The two Mamba2 backward kernels at zamba2-7b's training shapes
+    against their plain backward, timed; then the step's other new shapes
+    for correctness.  Returns the two KernelReports, with totals per
+    training step of ``ZAMBA_TRAIN_LAYERS`` layers."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    T, nh, hd, ds, chunk = TRAIN_SHAPE["seq"], 112, 64, 64, 64
+    if floor is None:
+        floor = timer(lambda: torch.cuda._sleep(0))
+        log(f"train-zamba-kernels: timer floor {floor:.4f} ms (an empty "
+            f"kernel)")
+    per_step = train_launches_per_step(
+        _train_config("zamba2-7b", ZAMBA_TRAIN_LAYERS), remat=True)[1]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    failed = []
+    ssd = KernelReport("ssd_scan_bwd", "cuda",
+                       "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                       "src/repro/kernels/ssd_scan.py:74", floor)
+    log(f"train-zamba-kernels: ssd_scan backward at b=1 s={T} nh={nh} "
+        f"hd={hd} ds={ds} chunk={chunk}; dx, dB, dC within {BWD_REL}, ddt, "
+        f"dA_log, dD within {DGAMMA_REL} relative L2")
+    x, dy = randn(1, T, nh, hd), randn(1, T, nh, hd)
+    dt = F.softplus(torch.randn(1, T, nh, generator=gen, device="cuda"))
+    A_log = torch.randn(nh, generator=gen, device="cuda") * 0.5
+    D = torch.randn(nh, generator=gen, device="cuda")
+    bc = randn(1, T, 2 * ds)
+    args = (x, dt, A_log, bc[..., :ds], bc[..., ds:], D, dy)
+    got = ops.ssd_scan_backward(*args, chunk=chunk)
+    want = ref.ssd_bwd_ref(*args, chunk)
+    names = ("dx", "ddt", "dA_log", "dB", "dC", "dD")
+    errs = {n: rel_l2(g, w) for n, g, w in zip(names, got, want)}
+    ok = all(e <= (BWD_REL if g.dtype == torch.bfloat16 else DGAMMA_REL)
+             for e, g in zip(errs.values(), got))
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    del got, want
+    nbytes, flops = ssd_bwd_cost(1, T, nh, hd, ds, chunk)
+    log(f"  by kernel, µs a launch: " + by_kernel(
+        torch, lambda: ops.ssd_scan_backward(*args, chunk=chunk)))
+    if not ssd.add(f"b=1 s={T} nh={nh}: rel L2 " + " ".join(
+            f"{n} {e:.2e}" for n, e in errs.items()), ok, err,
+            {"bf16": BWD_REL, "fp32": DGAMMA_REL}, TRAIN_ZAMBA, "train",
+            per_step["ssd_scan_bwd"],
+            ms=timer(lambda: ops.ssd_scan_backward(*args, chunk=chunk)),
+            plain_ms=timer(lambda: ref.ssd_bwd_ref(*args, chunk)),
+            library_ms=None, nbytes=nbytes, flops=flops, fp32_bound=True):
+        failed.append("ssd_scan_bwd")
+    del x, dy, bc, args
+
+    grp = KernelReport("group_rmsnorm_bwd", "cuda",
+                       "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                       "src/repro/kernels/rmsnorm.py:30", floor)
+    log(f"train-zamba-kernels: the grouped, gated norm's backward at {T} "
+        f"tokens x {nh} groups of {hd}, the gate a slice of the z|x output; "
+        f"dy, dgate within {BWD_REL}, dgamma within {DGAMMA_REL}")
+    y, dout = randn(T, nh, hd, scale=2.0), randn(T, nh, hd)
+    gamma = torch.rand(nh, hd, generator=gen, device="cuda") + 0.5
+    z = randn(T, 2 * nh * hd)[:, :nh * hd].unflatten(-1, (nh, hd))
+    got = ops.group_rmsnorm_backward(y, gamma, dout, gate=z)
+    want = ref.group_rmsnorm_bwd_ref(y, gamma, dout, 1e-6, z)
+    errs = {n: rel_l2(g, w) for n, g, w in zip(("dy", "dgamma", "dgate"),
+                                               got, want)}
+    ok = (errs["dy"] <= BWD_REL and errs["dgate"] <= BWD_REL
+          and errs["dgamma"] <= DGAMMA_REL)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    del got, want
+    log(f"  by kernel, µs a launch: " + by_kernel(
+        torch, lambda: ops.group_rmsnorm_backward(y, gamma, dout, gate=z)))
+    if not grp.add(f"{T}x{nh} rows of {hd}, gated: rel L2 " + " ".join(
+            f"{n} {e:.2e}" for n, e in errs.items()), ok, err,
+            {"dy, dgate": BWD_REL, "dgamma": DGAMMA_REL}, TRAIN_ZAMBA,
+            "train", per_step["group_rmsnorm_bwd"],
+            ms=timer(lambda: ops.group_rmsnorm_backward(y, gamma, dout,
+                                                        gate=z)),
+            plain_ms=timer(lambda: ref.group_rmsnorm_bwd_ref(y, gamma, dout,
+                                                             1e-6, z)),
+            library_ms=None, nbytes=2 * 5 * y.numel() + 4 * 2 * gamma.numel(),
+            flops=20 * y.numel(), peak=FP32_TFLOPS):
+        failed.append("group_rmsnorm_bwd")
+    del y, dout, z
+
+    fwd = zamba_train_forward_checks(torch, ops, ref, randn, gen, failed)
+
+    log("train-zamba-kernels: the zamba step's other backward shapes "
+        "(correctness)")
+    for label, K, N in (("mamba B|C|dt", 3584, 240), ("mamba z|x", 3584,
+                                                      14336)):
+        a, b = randn(T, K), randn(K, N, scale=K ** -0.5)
+        dz = randn(T, N, scale=N ** -0.5)
+        e = [rel_l2(g, w) for g, w in zip(ops.matmul_backward(a, b, dz),
+                                          ref.matmul_bwd_ref(a, b, dz))]
+        log(f"  matmul_bwd {label} M={T} K={K} N={N}: rel L2 dA {e[0]:.2e} "
+            f"dB {e[1]:.2e} (limit {BWD_REL})")
+        if max(e) > BWD_REL:
+            failed.append(f"matmul_bwd {label}")
+        del a, b, dz
+    x, dy = randn(T, 3584, scale=3.0), randn(T, 3584)
+    g = torch.rand(3584, generator=gen, device="cuda") + 0.5
+    e = [rel_l2(got, want) for got, want in zip(
+        ops.rmsnorm_backward(x, g, dy, eps=1e-6),
+        ref.rmsnorm_bwd_ref(x, g, dy, 1e-6))]
+    log(f"  rmsnorm_bwd rows={T} h=3584: rel L2 dx {e[0]:.2e} (limit "
+        f"{BWD_REL}) dgamma {e[1]:.2e} (limit {DGAMMA_REL})")
+    if e[0] > BWD_REL or e[1] > DGAMMA_REL:
+        failed.append("rmsnorm_bwd h=3584")
+    del x, dy
+    q, k, v, do = (randn(1, T, 32, 112) for _ in range(4))
+    qo = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kl = torch.full((1,), T, dtype=torch.int32, device="cuda")
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+    out_ref, lse_ref = ref.attention_lse_ref(q, k, v, qo, kl)
+    ok, err = within(out, out_ref, **FA_TOL)
+    lse_err = float((lse - lse_ref).abs().max())
+    ok = ok and bool(lse.isfinite().all()) and lse_err <= LSE_ATOL
+    fwd[1].add(f"zamba2-7b b=1 s={T} 32/32 heads d=112 causal, lse err "
+               f"{lse_err:.2e}", ok, max(err, lse_err),
+               {**FA_TOL, "lse_atol": LSE_ATOL})
+    if not ok:
+        failed.append("flash_attention forward d=112")
+    e = [rel_l2(g, w) for g, w in zip(
+        ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl),
+        ref.attention_bwd_ref(q, k, v, out_ref, do, lse_ref, qo, kl))]
+    ms = timer(lambda: ops.flash_attention_backward(q, k, v, out, do, lse,
+                                                    qo, kl))
+    log(f"  flash_attention_bwd zamba2-7b b=1 s={T} 32/32 heads d=112: rel "
+        f"L2 dq {e[0]:.2e} dk {e[1]:.2e} dv {e[2]:.2e} (limit {BWD_REL}); "
+        f"{ms:.4f} ms a launch")
+    if max(e) > BWD_REL:
+        failed.append("flash_attention_bwd d=112")
+    if failed:
+        raise AssertionError(f"zamba training-shape kernels disagree with "
+                             f"their plain versions: {failed}")
+    return (ssd, grp), fwd
+
+
+def zamba_train_forward_checks(torch, ops, ref, randn, gen, failed):
+    """Each forward kernel at the shapes zamba2-7b's training step gives it
+    (b = 1, s = 2048) against its plain version, within the serving
+    checks' limits: every projection of ``ZAMBA_GEMMS`` at M = 2048, the
+    block norm over rows of 3584, the grouped, gated norm over 2048 x 112
+    rows of 64, the SSD scan from a zero state over 32 chunks (y and the
+    final state).  Appends what disagrees to ``failed``; returns the
+    KernelReports of matmul, flash_attention (the caller adds the
+    attention), rmsnorm and ssd_scan."""
+    T, nh, hd, ds, chunk = TRAIN_SHAPE["seq"], 112, 64, 64, 64
+    mm = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
+                      "src/repro/kernels/matmul.py:102")
+    fa = KernelReport("flash_attention", "cuda",
+                      "src/repro_torch/kernels/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:102")
+    rn = KernelReport("rmsnorm", "cuda",
+                      "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                      "src/repro/kernels/rmsnorm.py:30")
+    ssd = KernelReport("ssd_scan", "cuda",
+                       "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                       "src/repro/kernels/ssd_scan.py:74")
+    log(f"train-zamba-kernels: the zamba step's forward kernels at M = {T} "
+        f"tokens (correctness; tolerance |err| <= atol + rtol*|plain|)")
+    for label, K, N, _ in ZAMBA_GEMMS:
+        a, b = randn(T, K), randn(K, N, scale=K ** -0.5)
+        ok, err = within(ops.matmul(a, b), ref.matmul_ref(a, b), **MM_TOL)
+        plan = ops.matmul_plan(T, N, K)
+        if not mm.add(f"{label} M={T} K={K} N={N} [{plan.name} stream-K "
+                      f"blocks={plan.blocks}]", ok, err, MM_TOL):
+            failed.append(f"matmul {label} M={T}")
+        del a, b
+    x = randn(T, 3584)
+    g = torch.randn(3584, generator=gen, device=gen.device)
+    ok, err = within(ops.rmsnorm(x, g, eps=1e-6), ref.rmsnorm_ref(x, g, 1e-6),
+                     **RN_TOL)
+    if not rn.add(f"block norm rows={T} h=3584 "
+                  f"[{ops.rmsnorm_plan(T, 3584).name}]", ok, err, RN_TOL):
+        failed.append(f"rmsnorm rows={T} h=3584")
+    y = randn(1, T, nh, hd)
+    g = torch.randn(nh, hd, generator=gen, device=gen.device)
+    z = randn(1, T, 2 * nh * hd)[..., :nh * hd].unflatten(-1, (nh, hd))
+    ok, err = within(ops.group_rmsnorm(y, g, gate=z),
+                     ref.group_rmsnorm_ref(y, g, 1e-6, z), **RN_TOL)
+    if not rn.add(f"grouped+gate b=1 s={T} ({T * nh} rows of {hd}) "
+                  f"[{ops.rmsnorm_plan(T * nh, hd).name}]", ok, err, RN_TOL):
+        failed.append(f"rmsnorm grouped s={T}")
+    del x, y, z
+    x = randn(1, T, nh, hd)
+    dt = torch.nn.functional.softplus(
+        torch.randn(1, T, nh, generator=gen, device=gen.device))
+    A_log = torch.randn(nh, generator=gen, device=gen.device) * 0.5
+    D = torch.randn(nh, generator=gen, device=gen.device)
+    bc = randn(1, T, 2 * ds)     # B and C are halves of one tensor
+    args = (x, dt, A_log, bc[..., :ds], bc[..., ds:], D)
+    y, st = ops.ssd_scan(*args, chunk=chunk)
+    y_ref, st_ref = ref.ssd_ref(*args, chunk)
+    label = f"b=1 s={T} from zeros [{ops.ssd_plan(1, T, nh).name}]"
+    for what, got, want, tol in (("y", y, y_ref, SSD_TOL),
+                                 ("state_out", st, st_ref, SSD_STATE_TOL)):
+        ok, err = within(got, want, **tol)
+        if not ssd.add(f"{label}: {what}", ok, err, tol):
+            failed.append(f"ssd_scan s={T} {what}")
+    return mm, fa, rn, ssd
+
+
+def _train_config(arch: str, layers: int):
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def _train_model(torch, layers: int, seed: int, dev="cuda",
+                 arch="llama3-8b"):
+    """``arch`` at its published widths, depth cut to ``layers``: the
     config, this rank's (only) shard of seeded bf16 weights, and one
     seeded batch of ``TRAIN_SHAPE``'s rows."""
     import numpy as np
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.core.mesh import atp_topo
     from repro_torch.models import lm
 
-    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=layers)
+    cfg = _train_config(arch, layers)
     params = lm.shard_params(cfg, lm.init_params(cfg, seed=seed, device=dev),
                              lm.layout_context(atp_topo(1, 1, 1), 0))
     rng = np.random.default_rng(seed)
@@ -1423,12 +1703,14 @@ def _train_model(torch, layers: int, seed: int, dev="cuda"):
     return cfg, params, batch
 
 
-def train_phase(torch, seed: int = 0) -> dict:
-    """``build_train_step`` on llama3-8b (``TRAIN_SHAPE``), AdamW zero1 at
-    dp = 1 (full-state, fp32 m/v), remat on: one warm-up step, then the
-    counted steps on the same batch, then one profiled step and one more
-    profiled with the host's ops and shapes.  Returns the
-    launch counts of the counted steps."""
+def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
+                layers: int = TRAIN_SHAPE["layers"], tag: str = "") -> dict:
+    """``build_train_step`` on ``arch`` at ``layers`` (``TRAIN_SHAPE``'s
+    batch and sequence), AdamW zero1 at dp = 1 (full-state, fp32 m/v),
+    remat on: one warm-up step, then the counted steps on the same batch,
+    then one profiled step and one more profiled with the host's ops and
+    shapes (``profile_train{tag}.txt``, ``profile_train{tag}_ops.txt``).
+    Returns the launch counts of the counted steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1439,8 +1721,8 @@ def train_phase(torch, seed: int = 0) -> dict:
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    L, steps = TRAIN_SHAPE["layers"], TRAIN_SHAPE["steps"]
-    cfg, params, batch = _train_model(torch, L, seed)
+    L, steps = layers, TRAIN_SHAPE["steps"]
+    cfg, params, batch = _train_model(torch, L, seed, arch=arch)
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1)
     step, info = build_train_step(cfg, atp_topo(1, 1, 1), opt_cfg)
     state = adamw.init_opt_state(params, info.ctx, opt_cfg.mode)
@@ -1473,7 +1755,7 @@ def train_phase(torch, seed: int = 0) -> dict:
     log(f"  {len(walls)} steps: {1e3 * med:.1f} ms per step (median), "
         f"{tokens / med:.0f} tokens/s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    fwd, bwd = train_launches_per_step(L, remat=True)
+    fwd, bwd = train_launches_per_step(cfg, remat=True)
     want = {k: v * len(walls) for k, v in {**fwd, **bwd}.items()}
     log(f"  launches over {len(walls)} steps: {launches} (= per step "
         f"{fwd} {bwd} x {len(walls)})")
@@ -1483,7 +1765,7 @@ def train_phase(torch, seed: int = 0) -> dict:
         float(m["loss"])
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
-    (OUT_DIR / "profile_train.txt").write_text(
+    (OUT_DIR / f"profile_train{tag}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=30))
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -1502,7 +1784,7 @@ def train_phase(torch, seed: int = 0) -> dict:
         params, state, m = step(params, state, batch)
         float(m["loss"])
     by_op = prof.key_averages(group_by_input_shape=True)
-    (OUT_DIR / "profile_train_ops.txt").write_text(
+    (OUT_DIR / f"profile_train{tag}_ops.txt").write_text(
         by_op.table(sort_by="device_time_total", row_limit=80))
     copies = sorted((e for e in by_op if e.key in (
         "aten::copy_", "aten::clone", "aten::_to_copy")),
@@ -1522,17 +1804,86 @@ def train_phase(torch, seed: int = 0) -> dict:
     return launches
 
 
-def train_path_check(torch, seed: int = 0) -> None:
-    """The loss and every parameter's gradient of a 2-layer llama3-8b at
-    full width (b = 1, s = ``PATH_SEQ``) on the card (kernels, bf16)
-    against the CPU (plain versions, fp32) from the same bf16 weights."""
+def plain_backward(ref) -> dict:
+    """The five backward wrappers of ``kernels.ops`` as their plain
+    versions, with the wrappers' arguments: what each wrapper runs on the
+    CPU, here run on any device."""
+    def matmul_backward(a, b, dz, *, need_a=True, need_b=True):
+        da, db = ref.matmul_bwd_ref(a, b, dz)
+        return (da if need_a else None), (db if need_b else None)
+
+    def flash_attention_backward(q, k, v, o, do, lse, q_offset, kv_len, *,
+                                 causal=True, window=0, softcap=0.0):
+        return ref.attention_bwd_ref(q, k, v, o, do, lse, q_offset, kv_len,
+                                     causal=causal, window=window,
+                                     softcap=softcap)
+
+    def rmsnorm_backward(x, gamma, dy, *, eps=1e-6):
+        return ref.rmsnorm_bwd_ref(x, gamma, dy, eps)
+
+    def group_rmsnorm_backward(y, gamma, dout, eps=1e-6, *, gate=None):
+        return ref.group_rmsnorm_bwd_ref(y, gamma, dout, eps, gate)
+
+    def ssd_scan_backward(x, dt, A_log, B, C, D, dy, *, chunk):
+        return ref.ssd_bwd_ref(x, dt, A_log, B, C, D, dy, chunk)
+
+    return dict(matmul_backward=matmul_backward,
+                flash_attention_backward=flash_attention_backward,
+                rmsnorm_backward=rmsnorm_backward,
+                group_rmsnorm_backward=group_rmsnorm_backward,
+                ssd_scan_backward=ssd_scan_backward)
+
+
+@contextlib.contextmanager
+def backward_swapped(ops, **impls):
+    """``ops``' backward wrappers named in ``impls`` replaced by them
+    inside the block: ``ops``' autograd Functions look their backward up
+    by name when they run.  Each caller reads ``ops.BACKWARD_LAUNCHES``
+    afterwards, so a swap that did not take effect fails its check."""
+    saved = {name: getattr(ops, name) for name in impls}
+    for name, fn in impls.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def zero_db(torch, ssd_scan_backward):
+    """``ssd_scan_backward`` with a planted fault: dB set to zero."""
+    def faulty(*args, **kw):
+        dx, ddt, dA_log, dB, dC, dD = ssd_scan_backward(*args, **kw)
+        return dx, ddt, dA_log, torch.zeros_like(dB), dC, dD
+    return faulty
+
+
+def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
+                     layers: int = 2, seq: int = PATH_SEQ,
+                     dev: str = "cuda") -> None:
+    """The loss and every parameter's gradient of ``arch`` at full width,
+    depth cut to ``layers`` (b = 1, s = ``seq``), on the card (kernels,
+    bf16) against the CPU (plain versions, fp32) from the same bf16
+    weights, each gradient within ``PATH_TOL``.
+
+    A recurrent model's bf16 gradients are far from fp32 whatever computes
+    them (the Mamba2 grouped norm divides rows whose bf16 value is wrong
+    by O(1) by their small RMS; the reference's own bf16 run shows it,
+    ``tests/test_torch_train.py``), so there a gradient beyond
+    ``PATH_TOL`` must be within ``RECURRENT_FACTOR`` times the plain
+    versions' error in bf16 on the CPU, and the backward kernels are held
+    on one forward: the card's gradients against the plain backward
+    versions run on the card from the same forward through the kernels
+    (the same loss, bit for bit), each within ``PATH_TOL``.  A planted
+    fault (``ssd_scan_bwd``'s dB set to zero) must fail that rule."""
     from repro_torch.core.atp import make_context
     from repro_torch.core.mesh import atp_topo
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import lm
     from repro_torch.optim import adamw
 
-    cfg, params, batch = _train_model(torch, 2, seed)
-    batch = {k: v[:, :PATH_SEQ] for k, v in batch.items()}
+    cfg, params, batch = _train_model(torch, layers, seed, dev=dev, arch=arch)
+    batch = {k: v[:, :seq] for k, v in batch.items()}
 
     def grads(params, batch, where):
         ctx = make_context(atp_topo(1, 1, 1), device_type=where)
@@ -1543,21 +1894,63 @@ def train_path_check(torch, seed: int = 0) -> None:
         return float(loss.detach()), [g.float().cpu() for g in
                                       torch.autograd.grad(loss, leaves)]
 
+    def rel(a, b):
+        return {n: rel_l2(g, w) for n, g, w in zip(names, a[1], b[1])}
+
     names = _leaf_names(params)
-    card = grads(params, batch, "cuda")
+    on_card = dev != "cpu"
+    ops.reset_launches()
+    card = grads(params, batch, dev)
+    launched = dict(ops.BACKWARD_LAUNCHES)
+    host = {k: v.cpu() for k, v in batch.items()}
     cpu = grads(lm.tree_map(lambda t: t.detach().cpu().float(), params),
-                {k: v.cpu() for k, v in batch.items()}, "cpu")
-    errs = {n: rel_l2(g, w) for n, g, w in zip(names, card[1], cpu[1])}
+                host, "cpu")
+    errs = rel(card, cpu)
+    plain = same = fault = {}
+    if lm.is_recurrent(cfg):
+        plain = rel(grads(lm.tree_map(lambda t: t.detach().cpu(), params),
+                          host, "cpu"), cpu)
+        ops.reset_launches()
+        with backward_swapped(ops, **plain_backward(ref)):
+            held = grads(params, batch, dev)
+        assert not any(ops.BACKWARD_LAUNCHES.values()), \
+            f"the plain backward launched {ops.BACKWARD_LAUNCHES}"
+        assert held[0] == card[0], \
+            f"two forwards through the kernels differ: {held[0]} {card[0]}"
+        same = rel(card, held)
+        ops.reset_launches()
+        with backward_swapped(ops, ssd_scan_backward=zero_db(
+                torch, ops.ssd_scan_backward)):
+            fault = rel(grads(params, batch, dev), held)
+        assert ops.BACKWARD_LAUNCHES["ssd_scan_bwd"] or not on_card
+        if on_card:
+            assert all(launched.values()), \
+                f"a backward kernel did not run on the path: {launched}"
     worst = max(errs, key=errs.get)
-    log(f"path-check-train {cfg.name} at 2 layers, d_model {cfg.d_model}, "
-        f"s={PATH_SEQ}: loss card {card[0]:.5f} CPU {cpu[0]:.5f}; gradient "
-        f"relative L2 error per tensor, worst {errs[worst]:.3e} ({worst}), "
-        f"limit {PATH_TOL}:")
+    log(f"path-check-train {cfg.name} at {layers} layers, d_model "
+        f"{cfg.d_model}, s={seq}: loss card {card[0]:.5f} CPU {cpu[0]:.5f}; "
+        f"gradient relative L2 error per tensor, worst {errs[worst]:.3e} "
+        f"({worst}), limit {PATH_TOL}"
+        + (f" or {RECURRENT_FACTOR}x the plain bf16 path's error against "
+           f"fp32 (beside it); then the card against the plain backward on "
+           f"the card from the same forward (limit {PATH_TOL}), and the same "
+           f"with ssd_scan_bwd's dB planted to zero (must exceed "
+           f"{PATH_TOL})" if plain else "") + ":")
     for n, e in errs.items():
-        log(f"    {e:.3e}  {n}")
+        log(f"    {e:.3e}  {n}" + (
+            f"  (plain bf16 {plain[n]:.3e}; same forward {same[n]:.3e}, "
+            f"planted fault {fault[n]:.3e})" if plain else ""))
     assert abs(card[0] - cpu[0]) <= PATH_TOL * abs(cpu[0]), "loss differs"
-    assert errs[worst] <= PATH_TOL, \
-        f"path-check-train: {worst} relative error {errs[worst]:.3e}"
+    bad = [n for n, e in errs.items() if e > PATH_TOL and not (
+        plain and e <= RECURRENT_FACTOR * plain[n])]
+    bad += [f"{n} (same forward)" for n, e in same.items() if e > PATH_TOL]
+    assert not bad, f"path-check-train: {bad} beyond the limit"
+    if fault:
+        caught = [n for n, e in fault.items() if e > PATH_TOL]
+        log(f"  the planted fault fails the same-forward rule at "
+            f"{len(caught)} of {len(fault)} tensors (worst "
+            f"{max(fault.values()):.3e})")
+        assert caught, "the same-forward rule passed a planted fault"
 
 
 def _leaf_names(tree, prefix="") -> list:
@@ -1708,18 +2101,34 @@ def main(argv=None) -> int:
     if "path-check-train" in phases:
         train_path_check(torch)
         done("path-check-train")
+    train_zamba_fwd = []   # the forward kernels at the zamba step's shapes
+    if "train-zamba-kernels" in phases:
+        zamba_bwd, train_zamba_fwd = zamba_train_kernel_phase(
+            torch, F, ops, ref, Timer(torch), floor_ms)
+        reports += zamba_bwd
+        done("train-zamba-kernels")
+    if "train-zamba" in phases:
+        launches[TRAIN_ZAMBA] = train_phase(
+            torch, arch="zamba2-7b", layers=ZAMBA_TRAIN_LAYERS, tag="_zamba")
+        done("train-zamba")
+    if "path-check-train-zamba" in phases:
+        train_path_check(torch, arch="zamba2-7b", **ZAMBA_PATH)
+        done("path-check-train-zamba")
 
     def path_rows(path, of):
         return [r.row(path, launches.get(path, {}).get(r.meta["name"], 0))
                 for r in of if path in r.paths]
 
     rows = {path: path_rows(path, reports)
-            for path in ("llama3-8b", MAIN, TRAIN)}
+            for path in ("llama3-8b", MAIN, TRAIN, TRAIN_ZAMBA)}
     rows["train forward"] = path_rows(TRAIN, train_fwd)
     (OUT_DIR / "kernel_checks.json").write_text(json.dumps(
         {"rows": rows, "checks": {r.meta["name"]: r.checks for r in reports},
          "train forward checks": {r.meta["name"]: r.checks
-                                  for r in train_fwd}}, indent=1))
+                                  for r in train_fwd},
+         "train-zamba forward checks": {r.meta["name"]: r.checks
+                                        for r in train_zamba_fwd}},
+        indent=1))
     for what, path in (("llama3-8b step pair", "llama3-8b"),
                        ("train step, forward", "train forward")):
         for row in rows[path]:
@@ -1727,7 +2136,7 @@ def main(argv=None) -> int:
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                 f"library_ms={row['library_ms']}")
-    kernels = rows[MAIN] + rows[TRAIN]
+    kernels = rows[MAIN] + rows[TRAIN] + rows[TRAIN_ZAMBA]
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

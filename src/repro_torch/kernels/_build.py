@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("matmul", "flash_attention", "flash_attention_bwd", "ssd_scan",
-           "rmsnorm")
+           "ssd_scan_bwd", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,8 +36,13 @@ SIGNATURES = {
                  [_P] * 11 + [_L] + [_I] * 8 + [_L] * 10 + [_P]),
     "rmsnorm": ("rmsnorm", "repro_rmsnorm_bf16",
                 [_P] * 4 + [_L] * 2 + [_I] * 3 + [_F] + [_I] * 3 + [_P]),
+    "ssd_scan_bwd": ("ssd_scan_bwd", "repro_ssd_scan_bwd_bf16",
+                     [_P] * 16 + [_I] * 6 + [_L] * 4 + [_P]),
     "rmsnorm_bwd": ("rmsnorm", "repro_rmsnorm_bwd_bf16",
                     [_P] * 6 + [_I] * 2 + [_F] + [_I] + [_P]),
+    "group_rmsnorm_bwd": ("rmsnorm", "repro_group_rmsnorm_bwd_bf16",
+                          [_P] * 8 + [_L] * 2 + [_I] * 3 + [_F] + [_I]
+                          + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -412,6 +412,139 @@ cudaError_t launch_bwd(const bf16* x, const float* gamma, const bf16* dy,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward of the Mamba2 grouped, gated norm (groups > 1 or a gate): rows of
+// `width` <= 64 values, one per (token, group), each scaled by its group's
+// gamma row; with a gate z the forward is out = n * silu(z), n = x * rstd *
+// gamma[g].  With dn = dy * silu(z) (dy without a gate):
+//   dx = rstd * (gamma * dn - xhat * mean(xhat * gamma * dn)),
+//   dz = dy * n * silu'(z),  silu'(z) = sig(z) (1 + z (1 - sig(z))),
+//   dgamma[g] = sum over tokens of dn * xhat.
+// Bound by bytes like the block norm's backward: x, dy and z read once, dx
+// and dz written once, at the training shape (2048 tokens x 112 heads of
+// 64) 147 MB.  The design: a row goes to 8 lanes of 16-byte loads (one
+// vector of 8 values each); a block is one group's rows of a share of the
+// tokens, 32 rows at a time, so each lane keeps its group's gamma and its
+// 8 columns' dgamma sum in registers; a row's two sums are exchanged
+// through shared memory; the block's 32 row slots' dgamma sums are added
+// in slot order into one partial row per (share, group), and
+// rmsnorm_dgamma_kernel sums the shares in order: deterministic.
+// ---------------------------------------------------------------------------
+
+constexpr int kGrpLanes = 8;     // lanes of a row: 8 vectors of 8 values
+constexpr int kGrpWidth = kGrpLanes * 8;
+constexpr int kGrpRows = 32;     // rows of a block at a time
+constexpr int kGrpThreads = kGrpLanes * kGrpRows;
+
+struct GroupArgs {
+  const bf16* x;       // [tokens, groups * width], x_stride apart
+  const float* gamma;  // [groups, width]
+  const bf16* dy;      // as x
+  const bf16* gate;    // null: no gate; gate_stride apart
+  bf16* dx;            // [tokens, groups * width] contiguous
+  bf16* dgate;         // as dx, or null
+  float* partial;      // [splits, groups, width]
+  long long x_stride, gate_stride;
+  int tokens, groups, width;
+  float eps;
+};
+
+__device__ __forceinline__ void unpack8(uint4 v, float* f) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 p = unpack(w[k]);
+    f[2 * k] = p.x;
+    f[2 * k + 1] = p.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  return make_uint4(pack(f[0], f[1]), pack(f[2], f[3]), pack(f[4], f[5]),
+                    pack(f[6], f[7]));
+}
+
+template <bool GATE>
+__global__ void __launch_bounds__(kGrpThreads)
+    group_rmsnorm_bwd_kernel(const GroupArgs a) {
+  __shared__ float sums[2][kGrpRows][kGrpLanes];
+  __shared__ float dgs[kGrpRows][kGrpWidth];
+  const int lane = threadIdx.x % kGrpLanes, slot = threadIdx.x / kGrpLanes;
+  const int split = blockIdx.x, splits = gridDim.x, g = blockIdx.y;
+  const int w = a.width;
+  const bool on = lane < w / 8;  // this lane holds 8 columns of the row
+  const long long col = (long long)g * w + 8 * lane;
+  float gm[8], dg[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    gm[k] = on ? a.gamma[col + k] : 0.0f;
+    dg[k] = 0.0f;
+  }
+  const float inv_w = 1.0f / static_cast<float>(w);
+  const long long step = (long long)kGrpRows * splits;
+  const long long iters = (a.tokens + step - 1) / step;  // the same for all
+  const long long row_out = (long long)a.groups * w;
+  for (long long it = 0; it < iters; ++it) {
+    const long long tok = it * step + (long long)split * kGrpRows + slot;
+    const bool ok = on && tok < a.tokens;
+    float xv[8], dv[8], zv[8], dn[8];
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    unpack8(ok ? *reinterpret_cast<const uint4*>(a.x + tok * a.x_stride + col)
+               : zero, xv);
+    unpack8(ok ? *reinterpret_cast<const uint4*>(a.dy + tok * a.x_stride + col)
+               : zero, dv);
+    if (GATE)
+      unpack8(ok ? *reinterpret_cast<const uint4*>(a.gate +
+                                                   tok * a.gate_stride + col)
+                 : zero, zv);
+    float ss = 0.0f, dot = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      dn[k] = GATE ? dv[k] * silu(zv[k]) : dv[k];
+      ss += xv[k] * xv[k];
+      dot += xv[k] * gm[k] * dn[k];
+    }
+    sums[0][slot][lane] = ss;
+    sums[1][slot][lane] = dot;
+    __syncthreads();
+    ss = dot = 0.0f;
+#pragma unroll
+    for (int l = 0; l < kGrpLanes; ++l) {  // in lane order
+      ss += sums[0][slot][l];
+      dot += sums[1][slot][l];
+    }
+    __syncthreads();  // read before the next rows' writes
+    if (!ok) continue;
+    const float r = rsqrtf(ss * inv_w + a.eps);
+    const float m = r * r * r * dot * inv_w;  // rstd * mean(xhat*gamma*dn)
+    float out[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      out[k] = r * gm[k] * dn[k] - xv[k] * m;
+      dg[k] += dn[k] * xv[k] * r;
+    }
+    *reinterpret_cast<uint4*>(a.dx + tok * row_out + col) = pack8(out);
+    if (GATE) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float sg = 1.0f / (1.0f + expf(-zv[k]));
+        out[k] = dv[k] * xv[k] * r * gm[k] * sg * (1.0f + zv[k] * (1.0f - sg));
+      }
+      *reinterpret_cast<uint4*>(a.dgate + tok * row_out + col) = pack8(out);
+    }
+  }
+  // the block's partial dgamma row: its row slots' sums in slot order
+  if (on)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dgs[slot][8 * lane + k] = dg[k];
+  __syncthreads();
+  for (int c = threadIdx.x; c < w; c += kGrpThreads) {
+    float t = 0.0f;
+    for (int k = 0; k < kGrpRows; ++k) t += dgs[k][c];
+    a.partial[((long long)split * a.groups + g) * w + c] = t;
+  }
+}
+
 }  // namespace
 
 // x, dy, dx [rows, width] contiguous bf16 (16-byte-aligned bases), gamma and
@@ -442,4 +575,44 @@ extern "C" int repro_rmsnorm_bwd_bf16(const void* x, const void* gamma,
                          st);
   return launch_bwd<4>(xs, gs, ds, out, part, dg, rows, width, eps, blocks,
                        st);
+}
+
+// The grouped, gated norm: x and dy rows of groups * width bf16, x_stride
+// apart; gate (or null) gate_stride apart; gamma and dgamma [groups, width]
+// fp32; dx and dgate (null without a gate) [tokens, groups * width]
+// contiguous bf16; width a multiple of 8 up to 64; blocks the shares of the
+// tokens, partial [blocks, groups, width] fp32 scratch
+// (ops.group_rmsnorm_backward sizes the grid); every pointer 16-byte
+// aligned, the strides multiples of 8.  Two launches: the rows (each block
+// also writing its partial dgamma row), then the block-ordered sum of the
+// partial rows.  Returns the cudaError_t of the launches (0 on success).
+extern "C" int repro_group_rmsnorm_bwd_bf16(
+    const void* x, const void* gamma, const void* dy, const void* gate,
+    void* dx, void* dgate, void* partial, void* dgamma, long long x_stride,
+    long long gate_stride, int tokens, int groups, int width, float eps,
+    int blocks, void* stream) {
+  if (tokens < 1 || groups < 1 || groups > 65535 || width < 8 || width % 8 ||
+      width > kGrpWidth || blocks < 1 || blocks > 65535 ||
+      (gate != nullptr) != (dgate != nullptr))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  GroupArgs a{static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+              static_cast<const bf16*>(dy), static_cast<const bf16*>(gate),
+              static_cast<bf16*>(dx), static_cast<bf16*>(dgate),
+              static_cast<float*>(partial), x_stride, gate_stride, tokens,
+              groups, width, eps};
+  if (gate)
+    group_rmsnorm_bwd_kernel<true>
+        <<<dim3(blocks, groups), kGrpThreads, 0, st>>>(a);
+  else
+    group_rmsnorm_bwd_kernel<false>
+        <<<dim3(blocks, groups), kGrpThreads, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int cols = groups * width;
+  rmsnorm_dgamma_kernel<<<(cols + kSumCols - 1) / kSumCols,
+                          kSumCols * kSumGroups, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dgamma), blocks,
+      cols);
+  return cudaGetLastError();
 }

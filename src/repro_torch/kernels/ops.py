@@ -11,16 +11,18 @@ through the kernels (``reset_launches`` before, read after).  A stream-K
 matmul and a split-KV attention merge their splits inside the same launch,
 so each call is still one launch.  ``BACKWARD_LAUNCHES`` counts the
 backward kernels the same way: each matmul backward launches the matmul
-kernel twice (dgrad and wgrad), the flash-attention and rmsnorm backward
-wrappers one C entry each.
+kernel twice (dgrad and wgrad), the flash-attention, rmsnorm (block norm
+or grouped, gated norm) and SSD-scan backward wrappers one C entry each.
 
-Training: ``matmul``, ``flash_attention`` and ``rmsnorm`` are autograd
-Functions wherever an input requires grad and grad mode is on; their
-backward runs ``matmul_backward``, ``flash_attention_backward`` and
-``rmsnorm_backward``, which launch the backward kernels on CUDA tensors
-and take the plain backward versions (``kernels.ref``) on the CPU.  With
-no grad (serving) each wrapper launches exactly what it launched before,
-and the attention writes no log-sum-exp.
+Training: ``matmul``, ``flash_attention``, ``rmsnorm``, ``group_rmsnorm``
+and ``ssd_scan`` are autograd Functions wherever an input requires grad
+and grad mode is on; their backward runs ``matmul_backward``,
+``flash_attention_backward``, ``rmsnorm_backward``,
+``group_rmsnorm_backward`` and ``ssd_scan_backward``, which launch the
+backward kernels on CUDA tensors and take the plain backward versions
+(``kernels.ref``) on the CPU.  With no grad (serving) each wrapper
+launches exactly what it launched before, and the attention writes no
+log-sum-exp.
 
 ``matmul_plan``, ``attention_plan``, ``attention_bwd_plan`` and
 ``ssd_plan`` choose the CUDA kernels' tiles and splits from the shapes
@@ -37,7 +39,8 @@ from repro_torch.kernels import ref
 
 LAUNCHES = {"matmul": 0, "flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
 BACKWARD_LAUNCHES = {"matmul_bwd": 0, "flash_attention_bwd": 0,
-                     "rmsnorm_bwd": 0}
+                     "rmsnorm_bwd": 0, "group_rmsnorm_bwd": 0,
+                     "ssd_scan_bwd": 0}
 
 _ACTIVATIONS = {None: 0, "gelu": 1, "silu": 2}
 
@@ -559,6 +562,19 @@ def flash_attention_backward(q, k, v, o, do, lse, q_offset, kv_len, *,
                                      softcap=softcap)
     from repro_torch.kernels import _build
 
+    grads = attention_backward_with(
+        _build.entry("flash_attention_bwd"), q, k, v, o, do, lse, q_offset,
+        kv_len, causal=causal, window=window, softcap=softcap)
+    BACKWARD_LAUNCHES["flash_attention_bwd"] += 1
+    return grads
+
+
+def attention_backward_with(entry, q, k, v, o, do, lse, q_offset, kv_len, *,
+                            causal: bool, window: int, softcap: float):
+    """``flash_attention_backward``'s checks, workspaces and launch on CUDA
+    tensors, through ``entry``: a C function with the arguments of
+    ``csrc/flash_attention_bwd.cu``'s entry (this tree's, or an older
+    build's for a before/after timing).  Counts no launch."""
     q, k, v, qo, kl = _flash_inputs(q, k, v, q_offset, kv_len)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -583,13 +599,12 @@ def flash_attention_backward(q, k, v, o, do, lse, q_offset, kv_len, *,
                         (64 if d <= 64 else 128), dtype=torch.float32,
                         device=q.device)
     counters = _counters(q, 2 + b * hkv * plan.key_tiles)
-    _launch(_build.entry("flash_attention_bwd"),
+    _launch(entry,
             (_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
              _ptr(qo), _ptr(kl), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(ld),
              _ptr(items), _ptr(parts), _ptr(counters), b, sq, skv, hq, hkv,
              d, int(causal), int(window), float(softcap), len(plan.items),
              plan.blocks, _stream(q)), "flash_attention_bwd", counters)
-    BACKWARD_LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 
 
@@ -701,6 +716,17 @@ def rmsnorm_backward(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
         return ref.rmsnorm_bwd_ref(x, gamma, dy, eps)
     from repro_torch.kernels import _build
 
+    grads = rmsnorm_backward_with(_build.entry("rmsnorm_bwd"), x, gamma, dy,
+                                  eps)
+    BACKWARD_LAUNCHES["rmsnorm_bwd"] += 1
+    return grads
+
+
+def rmsnorm_backward_with(entry, x, gamma, dy, eps: float):
+    """``rmsnorm_backward``'s checks, workspaces and launch on CUDA
+    tensors, through ``entry``: a C function with the arguments of
+    ``csrc/rmsnorm.cu``'s ``repro_rmsnorm_bwd_bf16`` (this tree's, or an
+    older build's for a before/after timing).  Counts no launch."""
     h = x.shape[-1]
     if gamma.shape != (h,) or gamma.dtype != torch.float32:
         raise ValueError(f"gamma must be fp32 [{h}]")
@@ -719,11 +745,10 @@ def rmsnorm_backward(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     blocks = min(-(-rows // RMSNORM_BWD_ROWS), SMS)
     partial = torch.empty((blocks, h), dtype=torch.float32, device=x.device)
     dgamma = torch.empty_like(gamma)
-    _check(_build.entry("rmsnorm_bwd")(
+    _check(entry(
         _ptr(x2), _ptr(_aligned(gamma.contiguous())), _ptr(dy2), _ptr(dx),
         _ptr(partial), _ptr(dgamma), rows, h, float(eps), blocks,
         _stream(x2)), "rmsnorm_bwd")
-    BACKWARD_LAUNCHES["rmsnorm_bwd"] += 1
     return dx.reshape(x.shape), dgamma
 
 
@@ -754,6 +779,12 @@ def group_rmsnorm(y: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,
     On CUDA as ``rmsnorm``, and the gate bf16, read through its strides
     (a slice of the z|x GEMM output: each token's ``G * w`` values must be
     unit-stride)."""
+    if _grad(y, gamma, gate):
+        return _GroupRmsNorm.apply(y, gamma, gate, eps)
+    return _group_rmsnorm(y, gamma, eps, gate)
+
+
+def _group_rmsnorm(y, gamma, eps, gate):
     if _on_cpu(y, gamma, gate):
         return ref.group_rmsnorm_ref(y, gamma, eps, gate)
     if gamma.dim() != 2 or y.shape[-2:] != gamma.shape:
@@ -765,6 +796,90 @@ def group_rmsnorm(y: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,
     width = gamma.shape[0] * gamma.shape[1]
     gate2 = None if gate is None else gate.reshape(-1, width)
     return _norm(y.reshape(-1, width), gamma, gate2, eps).reshape(y.shape)
+
+
+#: the widest row of the grouped norm's backward (one 8-lane group a row)
+GROUP_BWD_MAX_WIDTH = 64
+#: the grouped backward's block: 32 rows at a time, one per 8 lanes
+GROUP_BWD_ROWS = 32
+
+
+def group_rmsnorm_backward(y: torch.Tensor, gamma: torch.Tensor,
+                           dout: torch.Tensor, eps: float = 1e-6, *,
+                           gate: torch.Tensor | None = None):
+    """(dy, dgamma [G, w] fp32, dgate or None) of ``group_rmsnorm`` for the
+    output gradient ``dout``.
+
+    On CUDA: bf16 y, dout and gate (the gate read through its strides, as
+    the forward reads it), fp32 gamma, w a multiple of 8 up to
+    ``GROUP_BWD_MAX_WIDTH``; one C entry (the rows, 8 lanes each, each
+    block taking one group's rows of a share of the tokens and writing its
+    partial dgamma row; then the sum of those rows in a fixed order:
+    deterministic)."""
+    if _on_cpu(y, gamma, dout, gate):
+        return ref.group_rmsnorm_bwd_ref(y, gamma, dout, eps, gate)
+    from repro_torch.kernels import _build
+
+    if gamma.dim() != 2 or y.shape[-2:] != gamma.shape:
+        raise ValueError(f"gamma must be [G, w] = {tuple(y.shape[-2:])}, got "
+                         f"{tuple(gamma.shape)}")
+    if dout.shape != y.shape or (gate is not None and gate.shape != y.shape):
+        raise ValueError(f"dout and gate must be {tuple(y.shape)}")
+    if {y.dtype, dout.dtype} != {torch.bfloat16} or (
+            gate is not None and gate.dtype != torch.bfloat16):
+        raise TypeError("the CUDA grouped rmsnorm backward takes bf16 y, dout "
+                        "and gate")
+    if gamma.dtype != torch.float32:
+        raise TypeError("the CUDA grouped rmsnorm backward takes an fp32 "
+                        "gamma")
+    groups, w = gamma.shape
+    if w % 8 or not 8 <= w <= GROUP_BWD_MAX_WIDTH:
+        raise ValueError(f"the CUDA grouped rmsnorm backward takes groups of "
+                         f"a multiple of 8 up to {GROUP_BWD_MAX_WIDTH} wide, "
+                         f"got {w}")
+    width = groups * w
+    # y and dout contiguous (one row stride for both); the gate through its
+    # own stride
+    y2 = _aligned(y.reshape(-1, width).contiguous())
+    d2 = _aligned(dout.reshape(-1, width).contiguous())
+    g2 = None if gate is None else _aligned(gate.reshape(-1, width))
+    tokens = y2.shape[0]
+    dy = torch.empty((tokens, width), dtype=y.dtype, device=y.device)
+    dgate = None if gate is None else torch.empty_like(dy)
+    if tokens == 0:
+        return (dy.reshape(y.shape), torch.zeros_like(gamma),
+                None if gate is None else dgate.reshape(y.shape))
+    # blocks of one group and a share of the tokens, about two per SM
+    splits = max(1, min(-(-2 * SMS // groups), -(-tokens // GROUP_BWD_ROWS)))
+    partial = torch.empty((splits, groups, w), dtype=torch.float32,
+                          device=y.device)
+    dgamma = torch.empty_like(gamma)
+    _check(_build.entry("group_rmsnorm_bwd")(
+        _ptr(y2), _ptr(_aligned(gamma.contiguous())), _ptr(d2), _ptr(g2),
+        _ptr(dy), _ptr(dgate), _ptr(partial), _ptr(dgamma), y2.stride(0),
+        0 if g2 is None else g2.stride(0), tokens, groups, w, float(eps),
+        splits, _stream(y2)), "group_rmsnorm_bwd")
+    BACKWARD_LAUNCHES["group_rmsnorm_bwd"] += 1
+    return (dy.reshape(y.shape), dgamma,
+            None if gate is None else dgate.reshape(y.shape))
+
+
+class _GroupRmsNorm(torch.autograd.Function):
+    """``group_rmsnorm`` with its backward (rstd and silu(gate) recomputed
+    there from y and the gate)."""
+
+    @staticmethod
+    def forward(ctx, y, gamma, gate, eps):
+        ctx.save_for_backward(y, gamma, gate)
+        ctx.eps = eps
+        return _group_rmsnorm(y, gamma, eps, gate)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, gamma, gate = ctx.saved_tensors
+        dy, dgamma, dgate = group_rmsnorm_backward(y, gamma, dout, ctx.eps,
+                                                   gate=gate)
+        return dy, dgamma, dgate, None
 
 
 def _norm(x2, gamma, gate2, eps: float):
@@ -877,7 +992,26 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
 
     On CUDA: bf16 x, B, C (read through their strides, unit stride along
     the last dim); fp32 dt, A_log, D and state; int32 slot; hd = ds = 64
-    and ``chunk`` <= 64; any s >= 1; the grid from ``ssd_plan``."""
+    and ``chunk`` <= 64; any s >= 1; the grid from ``ssd_plan``.
+
+    Under autograd (an input requiring grad, grad mode on) only the
+    training form is taken: no pool and no ``state_in`` (the state starts
+    from zeros); its backward is ``ssd_scan_backward``, and the final
+    state it returns carries no gradient."""
+    if _grad(x, dt, A_log, B, C, D, state_in):
+        if pool is not None or state_in is not None:
+            raise NotImplementedError(
+                "ssd_scan under autograd starts from a zero state: the pool "
+                "form and state_in have no backward (the training path "
+                "needs neither)")
+        return _SsdScan.apply(x, dt, A_log, B, C, D, chunk)
+    return _ssd_scan(x, dt, A_log, B, C, D, chunk, state_in, pool, slot,
+                     fresh)
+
+
+def _ssd_scan(x, dt, A_log, B, C, D, chunk, state_in=None, pool=None,
+              slot=None, fresh=None):
+    """``ssd_scan`` off the autograd path."""
     if pool is None and (slot is not None or fresh is not None):
         raise ValueError("slot and fresh address a pool: pass pool=")
     if pool is not None and (state_in is not None or slot is None
@@ -891,21 +1025,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         return ref.ssd_ref(x, dt, A_log, B, C, D, chunk, state_in)
     from repro_torch.kernels import _build
 
-    b, s, nh, hd = x.shape
-    ds = B.shape[-1]
-    if (dt.shape != (b, s, nh) or B.shape != (b, s, ds) or C.shape != B.shape
-            or A_log.shape != (nh,) or D.shape != (nh,) or s < 1):
-        raise ValueError(f"ssd_scan shapes x {tuple(x.shape)} dt "
-                         f"{tuple(dt.shape)} B {tuple(B.shape)} C "
-                         f"{tuple(C.shape)} A_log {tuple(A_log.shape)} D "
-                         f"{tuple(D.shape)}")
-    if hd != 64 or ds != 64 or not 1 <= chunk <= 64:
-        raise ValueError(f"the CUDA ssd_scan takes head dim 64, state dim 64 "
-                         f"and chunk <= 64, got {hd}, {ds}, {chunk}")
-    if {x.dtype, B.dtype, C.dtype} != {torch.bfloat16}:
-        raise TypeError("the CUDA ssd_scan takes bf16 x, B and C")
-    if {dt.dtype, A_log.dtype, D.dtype} != {torch.float32}:
-        raise TypeError("the CUDA ssd_scan takes fp32 dt, A_log and D")
+    b, s, nh, hd, ds = _ssd_check(x, dt, A_log, B, C, D, chunk)
     row = (nh, hd, ds)
     if pool is not None:
         if (pool.dtype != torch.float32 or pool.dim() != 4
@@ -947,3 +1067,91 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         _stream(x)), "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return y, st_out
+
+
+def _ssd_check(x, dt, A_log, B, C, D, chunk):
+    """The shapes and dtypes both CUDA SSD entries take; returns
+    (b, s, nh, hd, ds)."""
+    b, s, nh, hd = x.shape
+    ds = B.shape[-1]
+    if (dt.shape != (b, s, nh) or B.shape != (b, s, ds) or C.shape != B.shape
+            or A_log.shape != (nh,) or D.shape != (nh,) or s < 1):
+        raise ValueError(f"ssd_scan shapes x {tuple(x.shape)} dt "
+                         f"{tuple(dt.shape)} B {tuple(B.shape)} C "
+                         f"{tuple(C.shape)} A_log {tuple(A_log.shape)} D "
+                         f"{tuple(D.shape)}")
+    if hd != 64 or ds != 64 or not 1 <= chunk <= 64:
+        raise ValueError(f"the CUDA ssd_scan takes head dim 64, state dim 64 "
+                         f"and chunk <= 64, got {hd}, {ds}, {chunk}")
+    if {x.dtype, B.dtype, C.dtype} != {torch.bfloat16}:
+        raise TypeError("the CUDA ssd_scan takes bf16 x, B and C")
+    if {dt.dtype, A_log.dtype, D.dtype} != {torch.float32}:
+        raise TypeError("the CUDA ssd_scan takes fp32 dt, A_log and D")
+    return b, s, nh, hd, ds
+
+
+def ssd_scan_backward(x, dt, A_log, B, C, D, dy, *, chunk: int):
+    """(dx, ddt, dA_log, dB, dC, dD) of ``ssd_scan`` from a zero state with
+    the final state dropped, for the output gradient ``dy`` (x's shape).
+
+    On CUDA: as ``ssd_scan`` takes them, and ``dy`` bf16; one C entry
+    (``csrc/ssd_scan_bwd.cu``: per (batch row, head) the entering states
+    recomputed forwards and the chunks walked backwards, each head writing
+    fp32 partials of dB and dC; then those summed over the heads, and dA_log
+    and dD over the batch rows, in a fixed order: deterministic).  Outputs
+    in the inputs' dtypes."""
+    if _on_cpu(x, dt, A_log, B, C, D, dy):
+        return ref.ssd_bwd_ref(x, dt, A_log, B, C, D, dy, chunk)
+    from repro_torch.kernels import _build
+
+    b, s, nh, hd, ds = _ssd_check(x, dt, A_log, B, C, D, chunk)
+    if dy.shape != x.shape or dy.dtype != torch.bfloat16:
+        raise ValueError(f"dy must be bf16 {tuple(x.shape)}")
+    if B.stride(-1) != 1 or C.stride(-1) != 1:
+        raise ValueError("B and C need unit stride along their last dim")
+    x, dy = (_aligned(t.contiguous()) for t in (x, dy))
+    B, C = _aligned(B), _aligned(C)
+    dt, A_log, D = dt.contiguous(), A_log.contiguous(), D.contiguous()
+    nc = -(-s // chunk)
+    # fp32 scratch: the state entering each chunk per (batch row, head);
+    # per head, dB and dC of every position; per (batch row, head) dA and
+    # dD
+    states = torch.empty(b * nh * nc * hd * ds, dtype=torch.float32,
+                         device=x.device)
+    part = torch.empty(b * nh * s * 2 * ds, dtype=torch.float32,
+                       device=x.device)
+    part_ad = torch.empty(2 * b * nh, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((b, s, nh), dtype=torch.float32, device=x.device)
+    dB = torch.empty((b, s, ds), dtype=B.dtype, device=x.device)
+    dC = torch.empty_like(dB)
+    dA_log, dD = torch.empty_like(A_log), torch.empty_like(D)
+    _check(_build.entry("ssd_scan_bwd")(
+        _ptr(x), _ptr(dt), _ptr(A_log), _ptr(B), _ptr(C), _ptr(D), _ptr(dy),
+        _ptr(dx), _ptr(ddt), _ptr(dA_log), _ptr(dB), _ptr(dC), _ptr(dD),
+        _ptr(states), _ptr(part), _ptr(part_ad), b, s, nh, hd, ds, chunk,
+        *B.stride()[:2], *C.stride()[:2], _stream(x)), "ssd_scan_bwd")
+    BACKWARD_LAUNCHES["ssd_scan_bwd"] += 1
+    return dx, ddt, dA_log, dB, dC, dD
+
+
+class _SsdScan(torch.autograd.Function):
+    """``ssd_scan`` from a zero state, with its backward; the final state
+    is returned without a gradient (a gradient reaching it raises)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, B, C, D, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A_log, B, C, D)
+        ctx.chunk = chunk
+        y, state = _ssd_scan(x, dt, A_log, B, C, D, chunk)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        if dstate is not None:
+            raise NotImplementedError("a gradient through ssd_scan's final "
+                                      "state has no backward")
+        x, dt, A_log, B, C, D = ctx.saved_tensors
+        grads = ssd_scan_backward(x, dt, A_log, B, C, D, dy, chunk=ctx.chunk)
+        return (*grads, None)

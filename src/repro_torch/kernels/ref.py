@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels: the four forward kernels and the
-backward kernels of matmul, flash attention and rmsnorm.
+backward kernels of matmul, flash attention, rmsnorm (the block norm and
+the Mamba2 grouped, gated norm) and the SSD scan.
 
 Each function computes what its hand-written kernel computes, in the
 kernel's own argument layout.  The CPU takes them for every tensor that
@@ -316,6 +317,32 @@ def group_rmsnorm_ref(y, gamma, eps: float = 1e-6, gate=None):
     return out if gate is None else out * F.silu(gate)
 
 
+def group_rmsnorm_bwd_ref(y, gamma, dout, eps: float = 1e-6, gate=None):
+    """The backward of ``group_rmsnorm_ref`` in fp32, for the output
+    gradient ``dout``: with ``n = y r gamma[g]`` per row of ``y [..., G,
+    w]`` (``r = rsqrt(mean(y^2) + eps)``) and ``dn = dout silu(gate)``
+    (``dout`` without a gate), ``dy = r (gamma dn - yh mean(yh gamma
+    dn))`` with ``yh = y r``, ``dgamma = sum over tokens of dn yh`` (fp32
+    ``[G, w]``) and ``dgate = dout n silu'(gate)``.  Returns (dy in
+    ``y.dtype``, dgamma, dgate in ``gate.dtype`` or None)."""
+    yf, g = y.float(), gamma.float()
+    r = torch.rsqrt(yf.pow(2).mean(-1, keepdim=True) + eps)
+    yh = yf * r
+    df = dout.float()
+    dgate = None
+    if gate is None:
+        dn = df
+    else:
+        zf = gate.float()
+        sg = torch.sigmoid(zf)
+        dn = df * zf * sg
+        dgate = (df * yh * g * sg * (1.0 + zf * (1.0 - sg))).to(gate.dtype)
+    gdn = g * dn
+    dy = r * (gdn - yh * (yh * gdn).mean(-1, keepdim=True))
+    dgamma = (dn * yh).reshape(-1, *gamma.shape).sum(0)
+    return dy.to(y.dtype), dgamma, dgate
+
+
 def _ssd_chunks(s: int, chunk: int) -> list[tuple[int, int]]:
     """(start, length) of each chunk of an ``s``-long run.
 
@@ -381,6 +408,92 @@ def ssd_ref(x, dt, A_log, B, C, D, chunk: int, state_in=None):
         state = state * torch.exp(la[:, -1, :])[:, :, None, None] + upd
     y = torch.cat(ys, dim=1) + Df[:, None] * xf
     return y.to(x.dtype), state
+
+
+def ssd_bwd_ref(x, dt, A_log, B, C, D, dy, chunk: int):
+    """The backward of ``ssd_ref`` from a zero initial state with the final
+    state dropped (the training path), for the output gradient ``dy``.
+    Returns (dx, ddt, dA_log, dB, dC, dD), each in its input's dtype,
+    computed in fp32 chunk by chunk (``_ssd_chunks``).
+
+    First the state entering each chunk is recomputed forwards.  Then the
+    chunks are walked last to first, carrying ``dS``, the gradient of the
+    state leaving the chunk (zero after the last).  Per chunk and head,
+    with ``la`` the within-chunk cumsum of ``dt A``, ``G_t = exp(la_t)``,
+    ``wv_u = exp(la_end - la_u) dt_u``, ``decay_tu = exp(la_t - la_u)``
+    (u <= t, else 0), ``cb = C B^T``, ``M = dy x^T`` (over the head dim) and
+    ``S`` the entering state:
+      dx_u  = sum_t cb_tu decay_tu dt_u dy_t + D dy_u + wv_u dS B_u
+      dC_t  = sum_h [sum_u M_tu decay_tu dt_u B_u + G_t dy_t^T S]
+      dB_u  = sum_h [sum_t M_tu decay_tu dt_u C_t + wv_u x_u^T dS]
+      dS   <- exp(la_end) dS + sum_t G_t dy_t C_t^T
+    and through ``la``: ``Q = cb decay M``, ``P = Q dt_u``, ``r_u =
+    x_u^T dS B_u``, ``c_t = G_t dy_t^T S C_t``,
+      d la_t = sum_u P_tu - sum_u P_ut + c_t - wv_t r_t
+               (+ exp(la_end) <dS, S> + sum_u wv_u r_u at the chunk's end),
+      ddt_u  = sum_t Q_tu + exp(la_end - la_u) r_u + A sum_{t>=u} d la_t,
+      dA     = sum_u dt_u sum_{t>=u} d la_t,  dA_log = A dA,
+    and ``dD = sum dy x``."""
+    b, s, nh, hd = x.shape
+    dev = x.device
+    A = -torch.exp(A_log.float())
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    dyf = dy.float()
+    chunks = _ssd_chunks(s, chunk)
+    entering, state = [], torch.zeros(b, nh, hd, B.shape[-1], device=dev)
+    for c0, cl in chunks:
+        entering.append(state)
+        dtc = dtf[:, c0:c0 + cl]
+        la = torch.cumsum(dtc * A, dim=1)
+        wv = torch.exp(la[:, -1:] - la) * dtc
+        state = state * torch.exp(la[:, -1])[:, :, None, None] + torch.einsum(
+            "buhp,bun->bhpn", xf[:, c0:c0 + cl] * wv[..., None],
+            Bf[:, c0:c0 + cl])
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(dtf)
+    dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
+    dA, dD = torch.zeros(nh, device=dev), torch.zeros(nh, device=dev)
+    dS = torch.zeros_like(state)
+    for (c0, cl), S in reversed(list(zip(chunks, entering))):
+        sl = slice(c0, c0 + cl)
+        xc, dtc, Bc, Cc, dyc = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl], \
+            dyf[:, sl]
+        la = torch.cumsum(dtc * A, dim=1)                       # [b,t,h]
+        la_end = la[:, -1]                                      # [b,h]
+        G = torch.exp(la)
+        wv = torch.exp(la_end[:, None] - la) * dtc              # [b,u,h]
+        causal = torch.ones(cl, cl, dtype=torch.bool, device=dev).tril()
+        decay = torch.where(causal[None, :, :, None],
+                            torch.exp(la[:, :, None, :] - la[:, None, :, :]),
+                            torch.zeros((), device=dev))        # [b,t,u,h]
+        cb = torch.einsum("btn,bun->btu", Cc, Bc)
+        M = torch.einsum("bthp,buhp->btuh", dyc, xc)
+        Z = M * decay * dtc[:, None]                            # [b,t,u,h]
+        Q = cb[..., None] * decay * M
+        W = cb[..., None] * decay * dtc[:, None]
+        dSB = torch.einsum("bhpn,bun->buhp", dS, Bc)
+        dx[:, sl] = (torch.einsum("btuh,bthp->buhp", W, dyc)
+                     + D.float()[None, None, :, None] * dyc
+                     + wv[..., None] * dSB)
+        YS = torch.einsum("bthp,bhpn->bthn", dyc, S)
+        XdS = torch.einsum("buhp,bhpn->buhn", xc, dS)
+        dC[:, sl] = (torch.einsum("btuh,bun->btn", Z, Bc)
+                     + torch.einsum("bth,bthn->btn", G, YS))
+        dB[:, sl] = (torch.einsum("btuh,btn->bun", Z, Cc)
+                     + torch.einsum("buh,buhn->bun", wv, XdS))
+        r = torch.einsum("buhn,bun->buh", XdS, Bc)
+        c = G * torch.einsum("bthn,btn->bth", YS, Cc)
+        P = Q * dtc[:, None]
+        dla = P.sum(2) - P.sum(1) + c - wv * r
+        dla[:, -1] += (torch.exp(la_end) * (dS * S).sum((-1, -2))
+                       + (wv * r).sum(1))
+        da = torch.flip(torch.cumsum(torch.flip(dla, [1]), 1), [1])
+        ddt[:, sl] = Q.sum(1) + torch.exp(la_end[:, None] - la) * r + A * da
+        dA += (dtc * da).sum((0, 1))
+        dD += (dyc * xc).sum((0, 1, 3))
+        dS = dS * torch.exp(la_end)[..., None, None] + torch.einsum(
+            "bthp,btn->bhpn", dyc * G[..., None], Cc)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), (A * dA).to(A_log.dtype),
+            dB.to(B.dtype), dC.to(C.dtype), dD.to(D.dtype))
 
 
 def ssd_pool_ref(x, dt, A_log, B, C, D, chunk: int, pool, slot, fresh):

@@ -9,7 +9,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.atp import (ATPContext, all_reduce_max, all_reduce_min,
                                   make_context)
-from repro_torch.core.mesh import MeshTopo, resolve_device
+from repro_torch.core.mesh import MeshTopo, dp_axis_names, resolve_device
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 
@@ -81,8 +81,8 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo, device=None,
 def build_train_step(cfg: ModelConfig, topo: MeshTopo,
                      opt_cfg: adamw.AdamWConfig | None = None,
                      chunks: int = 1, remat: bool = True, device=None):
-    """One training step of a dense model: the loss and its gradients
-    through autograd (the kernels' backward on CUDA), then AdamW.
+    """One training step: the loss and its gradients through autograd (the
+    kernels' backward on CUDA), then AdamW.
 
     Returns ``(step, info)`` with ``step(params, opt_state, batch) ->
     (params, opt_state, metrics)``: ``params`` is this rank's shard
@@ -96,10 +96,10 @@ def build_train_step(cfg: ModelConfig, topo: MeshTopo,
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     device = resolve_device(device)
     lm.check_trainable(cfg)
-    ctx = make_context(topo, chunks=chunks, device_type=device.type)
-    if len(ctx.dp_axes) > 1:
+    if len(dp_axis_names(topo)) > 1:
         raise NotImplementedError("more than one data-parallel axis is "
                                   "ROADMAP A5b")
+    ctx = make_context(topo, chunks=chunks, device_type=device.type)
 
     def step(params, opt_state, batch):
         leaves = adamw.tree_leaves(params)

@@ -1,10 +1,12 @@
 """Training launcher (counterpart of ``repro.launch.train``, its
-non-elastic loop): a dense model, random weights from a seed, batches from
-``data.pipeline``, ``build_train_step`` and AdamW.
+non-elastic loop): a dense or zamba/mamba model, random weights from a
+seed, batches from ``data.pipeline``, ``build_train_step`` and AdamW.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --layers 4 --seq 2048 --batch 1 --steps 5
-    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+        --layers 14 --seq 2048 --batch 1 --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
         --reduced --device cpu
 
 runs on CUDA unless ``--device cpu`` is given, and prints the loss, the

@@ -1,7 +1,7 @@
 """Language model: embedding -> block stack -> head, ATP-sharded
-(counterpart of ``repro.models.lm``): paged serving of the dense, zamba and
-mamba segment kinds, and the training loss of the dense kind (``forward``
-with no caches, ``vocab_parallel_ce``, ``train_loss``).
+(counterpart of ``repro.models.lm``): paged serving and the training loss
+(``forward`` with no caches, ``vocab_parallel_ce``, ``train_loss``) of the
+dense, zamba and mamba segment kinds.
 
 Parameters come in two forms.  ``init_params`` makes the GLOBAL tree with
 the JAX package's keys (``seg0/attn/wq`` ... stacked ``[count, ...]``; a
@@ -358,13 +358,19 @@ def _gather_ax1(ctx: ATPContext, u):
 
 
 def shared_attention(ctx: ATPContext, cfg: ModelConfig, shared, x, x_emb0,
-                     positions, plan, cache, paged):
+                     positions, plan, cache=None, paged=None):
     """The zamba shared block on (x, the embedding output): two
     column-first in-projections sharing one ax2 boundary, gathered back to
-    the block I/O layout, then the shared dense block on ``x + u``."""
-    u = atp_boundary(ctx, ops.matmul(x, shared["w_in_h"])
-                     + ops.matmul(x_emb0, shared["w_in_e"]), ctx.ax2)
-    u = shard_slice(_gather_ax1(ctx, u), ctx.index2(), ctx.d2, dim=-1)
+    the block I/O layout, then the shared dense block on ``x + u``.  Under
+    autograd, each column-first input is conjugated over ax1 and the
+    gathered sum, the same on every ax2 rank, over ax2 before each rank
+    takes its features."""
+    u = atp_boundary(
+        ctx, ops.matmul(conjugate(ctx, x, ctx.ax1), shared["w_in_h"])
+        + ops.matmul(conjugate(ctx, x_emb0, ctx.ax1), shared["w_in_e"]),
+        ctx.ax2)
+    u = shard_slice(conjugate(ctx, _gather_ax1(ctx, u), ctx.ax2),
+                    ctx.index2(), ctx.d2, dim=-1)
     return transformer.dense_block(ctx, cfg, shared["block"], x + u,
                                    positions, plan, 0, cache, paged)
 
@@ -378,31 +384,48 @@ def _mamba(ctx, cfg, p, x, pool, sm: SlotMap):
 
 
 def check_trainable(cfg: ModelConfig):
-    """Raise for what the training path does not take yet."""
+    """Raise for what the training path does not take yet (every kind the
+    port serves trains)."""
     _check_kinds(cfg)
-    for seg in segments(cfg):
-        if seg.kind != "dense":
-            raise NotImplementedError(
-                f"training the {seg.kind!r} kind (the Mamba2 path and the "
-                f"ssd_scan backward) is ROADMAP A5b")
 
 
-def _dense_forward(ctx, cfg, params, tokens, positions, remat: bool):
-    """The cache-free forward of a dense stack: attention over the current
-    sequence, each block under ``torch.utils.checkpoint`` when ``remat``
-    (its activations recomputed in the backward, as ``jax.checkpoint``)."""
+def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
+    """The cache-free forward: attention over the current sequence, the
+    Mamba2 blocks from a zero state.  With ``remat`` each unit of the
+    reference's ``jax.checkpoint`` runs under ``torch.utils.checkpoint``
+    (its activations recomputed in the backward): a dense block, a zamba
+    super-block (the shared block and its Mamba2 blocks), a tail Mamba2
+    block."""
     from torch.utils.checkpoint import checkpoint
 
     x = embed_tokens(ctx, cfg, params["embed"], tokens)
+    x_emb0 = x
     plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
+    units = []
     for i, seg in enumerate(segments(cfg)):
         sp = params[f"seg{i}"]
-        for j, window in enumerate(_window_pattern(cfg, seg.count)):
-            def block(h, bp=_layer(sp, j), window=window):
-                return transformer.dense_block(ctx, cfg, bp, h, positions,
-                                               plan, window)
-            x = checkpoint(block, x, use_reentrant=False) if remat \
-                else block(x)
+        if seg.kind == "dense":
+            for j, window in enumerate(_window_pattern(cfg, seg.count)):
+                def unit(h, bp=_layer(sp, j), window=window):
+                    return transformer.dense_block(ctx, cfg, bp, h, positions,
+                                                   plan, window)
+                units.append(unit)
+        elif seg.kind == "zamba":
+            for j in range(seg.count):
+                def unit(h, mp=_layer(sp["mamba"], j), inner=seg.inner):
+                    h = shared_attention(ctx, cfg, params["shared_attn"], h,
+                                         x_emb0, positions, plan)
+                    for m in range(inner - 1):
+                        h = mamba2.mamba_block(ctx, cfg, _layer(mp, m), h)[0]
+                    return h
+                units.append(unit)
+        else:
+            for j in range(seg.count):
+                def unit(h, bp=_layer(sp, j)):
+                    return mamba2.mamba_block(ctx, cfg, bp, h)[0]
+                units.append(unit)
+    for unit in units:
+        x = checkpoint(unit, x, use_reentrant=False) if remat else unit(x)
     return L.norm(ctx, cfg, x, params["final_norm"])
 
 
@@ -413,12 +436,13 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
 
     Paged (serving): caches from :func:`init_paged_caches` (written in
     place); paged = dict(table [b, mp], start [b]) and, for recurrent
-    kinds, ``slot [b]``.  With no caches (training, dense kinds only) the
-    attention runs over the sequence itself; ``remat`` recomputes each
-    block's activations in the backward."""
+    kinds, ``slot [b]``.  With no caches (training) the attention runs over
+    the sequence itself and the Mamba2 blocks start from zeros; ``remat``
+    recomputes each block's (each zamba super-block's) activations in the
+    backward."""
     if caches is None:
         check_trainable(cfg)
-        return _dense_forward(ctx, cfg, params, tokens, positions, remat)
+        return _train_forward(ctx, cfg, params, tokens, positions, remat)
     _check_kinds(cfg)
     sm = None
     if is_recurrent(cfg):
@@ -490,17 +514,29 @@ def prefill_logits(ctx: ATPContext, cfg: ModelConfig, params, batch):
     return lm_logits(ctx, cfg, params, h[:, -1:])[:, 0]
 
 
-#: the TP axes a leaf of the sharded dense tree is cut over, by leaf name
+def _replicated(ctx):
+    return ()
+
+
+#: the TP axes a leaf of the sharded tree is cut over, by leaf name: the
+#: dense blocks', the Mamba2 blocks' (``ln`` a feature like the block
+#: norms; the per-head leaves replicated) and the zamba shared block's
+#: in-projections
 _LEAF_SPECS = {"embed": L.embed_spec, "lm_head": L.head_spec,
                "scale": L.feat_spec, "bias": L.feat_spec,
                "w_qkv": L.col_w_spec, "w_upgate": L.col_w_spec,
                "w_up": L.col_w_spec, "b_qkv": L.col_b_spec,
                "wo": L.row_w_spec, "w_down": L.row_w_spec,
-               "q_norm": lambda ctx: (), "k_norm": lambda ctx: ()}
+               "q_norm": _replicated, "k_norm": _replicated,
+               "w_zx": L.col_w_spec, "w_bcdt": lambda ctx: (ctx.ax2, None),
+               "w_out": L.row_w_spec, "ln": L.feat_spec,
+               "conv": _replicated, "A_log": _replicated, "D": _replicated,
+               "dt_bias": _replicated, "gn": _replicated,
+               "w_in_h": L.col_w_spec, "w_in_e": L.col_w_spec}
 
 
 def replication_factors(cfg: ModelConfig, ctx: ATPContext, params) -> dict:
-    """Per leaf of this rank's dense tree: how many TP ranks hold the same
+    """Per leaf of this rank's tree: how many TP ranks hold the same
     shard (tp over the product of the TP axes the leaf is cut over), which
     the global gradient norm divides out."""
     check_trainable(cfg)

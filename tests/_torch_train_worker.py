@@ -2,7 +2,8 @@
 
     python tests/_torch_train_worker.py RANK CASE_DIR
 
-Reads ``case.json`` (arch, mesh, chunks, optimizer mode and steps), the
+Reads ``case.json`` (arch, its depth where not the reduced config's,
+mesh, chunks, optimizer mode and steps), the
 JAX global weights ``params.npz`` and the global batches ``batches.npz``
 from CASE_DIR, and joins the gloo group through a file store there.  Then,
 on this rank's shard and its data-parallel rows of the batch: the loss of
@@ -12,6 +13,7 @@ many ``build_train_step`` steps from the same weights, one batch each.
 Writes the loss, the gradients, the step losses and the updated
 parameters to ``rank{RANK}.npz``.  Imports only torch, numpy and the port.
 """
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -57,6 +59,8 @@ def main(rank: int, case_dir: Path) -> None:
     dist.init_process_group("gloo", init_method=f"file://{case_dir}/store",
                             rank=rank, world_size=topo.size)
     cfg = get_config(case["arch"]).reduced()
+    if case.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=case["layers"])
     params = unflatten(np.load(case_dir / "params.npz"))
     flat = np.load(case_dir / "batches.npz")
     ctx = make_context(topo, chunks=case["chunks"], device_type="cpu")

@@ -544,3 +544,121 @@ def test_fused_activation_under_autograd_raises_on_cuda(cuda):
         assert ops.matmul(a, w, activation="gelu").shape == (64, 128)
     ops.matmul(a, w).float().sum().backward()
     assert a.grad is not None and a.grad.shape == a.shape
+
+
+def _ssd_bwd_inputs(cuda, b, s, nh, seed=6):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    x, dy = randn(b, s, nh, 64).bfloat16(), randn(b, s, nh, 64).bfloat16()
+    dt = torch.nn.functional.softplus(randn(b, s, nh))
+    A_log, D = randn(nh) * 0.5, randn(nh)
+    bc = randn(b, s, 128).bfloat16()     # B and C are halves of one tensor
+    return x, dt, A_log, bc[..., :64], bc[..., 64:], D, dy
+
+
+SSD_BWD_NAMES = ("dx", "ddt", "dA_log", "dB", "dC", "dD")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,nh,chunk", [
+    (1, 64, 4, 64),        # one chunk
+    (2, 100, 8, 64),       # a ragged second chunk
+    (2, 128, 16, 64),      # two chunks: the state's gradient crosses
+    (1, 50, 4, 16),        # chunks of 16
+    (1, 2048, 112, 64),    # zamba2-7b's training shape
+])
+def test_ssd_scan_backward_kernel_matches_plain(cuda, b, s, nh, chunk):
+    """dx, dB, dC (bf16) within ``BWD_REL`` and ddt, dA_log, dD (fp32 sums
+    in another order) within ``DGAMMA_REL`` of the plain backward on the
+    same inputs; one launch counted."""
+    inputs = _ssd_bwd_inputs(cuda, b, s, nh)
+    before = ops.BACKWARD_LAUNCHES["ssd_scan_bwd"]
+    got = ops.ssd_scan_backward(*inputs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.BACKWARD_LAUNCHES["ssd_scan_bwd"] == before + 1
+    want = ref.ssd_bwd_ref(*inputs, chunk)
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        limit = BWD_REL if g.dtype == torch.bfloat16 else DGAMMA_REL
+        assert _rel(g, w) <= limit, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,groups,width,gated", [
+    (2048, 112, 64, True),   # zamba2-7b's training shape
+    (5, 3, 64, True),
+    (64, 112, 64, False),
+    (33, 4, 32, True),       # a narrower group: half the lanes idle
+])
+def test_group_rmsnorm_backward_kernel_matches_plain(cuda, tokens, groups,
+                                                     width, gated):
+    """dy and dgate (bf16) within ``BWD_REL``, dgamma (fp32) within
+    ``DGAMMA_REL``, the gate read through its stride (a slice of the z|x
+    output); one launch counted."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    y = (torch.randn(tokens, groups, width, generator=gen, device=cuda)
+         * 2).bfloat16()
+    gamma = torch.rand(groups, width, generator=gen, device=cuda) + 0.5
+    dout = torch.randn(tokens, groups, width, generator=gen,
+                       device=cuda).bfloat16()
+    z = torch.randn(tokens, 2 * groups * width, generator=gen,
+                    device=cuda).bfloat16()
+    gate = z[:, :groups * width].unflatten(-1, (groups, width)) if gated \
+        else None
+    before = ops.BACKWARD_LAUNCHES["group_rmsnorm_bwd"]
+    got = ops.group_rmsnorm_backward(y, gamma, dout, 1e-6, gate=gate)
+    torch.cuda.synchronize()
+    assert ops.BACKWARD_LAUNCHES["group_rmsnorm_bwd"] == before + 1
+    want = ref.group_rmsnorm_bwd_ref(y, gamma, dout, 1e-6, gate)
+    assert _rel(got[0], want[0]) <= BWD_REL
+    assert got[1].dtype == torch.float32
+    assert _rel(got[1], want[1]) <= DGAMMA_REL
+    if gated:
+        assert _rel(got[2], want[2]) <= BWD_REL
+    else:
+        assert got[2] is None
+
+
+@pytest.mark.cuda
+def test_mamba_backward_kernels_are_deterministic(cuda):
+    """No float atomics in the SSD scan's or the grouped norm's backward:
+    two runs give the same bits."""
+    inputs = _ssd_bwd_inputs(cuda, 2, 192, 8)
+    first = ops.ssd_scan_backward(*inputs, chunk=64)
+    again = ops.ssd_scan_backward(*inputs, chunk=64)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    y, dy = inputs[0], inputs[-1]
+    gamma, gate = torch.rand(8, 64, device=cuda) + 0.5, inputs[0].flip(1)
+    first = ops.group_rmsnorm_backward(y, gamma, dy, gate=gate)
+    again = ops.group_rmsnorm_backward(y, gamma, dy, gate=gate)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_mamba_kernels_matches_plain(cuda):
+    """The SSD scan and the grouped, gated norm as a Mamba2 block chains
+    them, on the card: the gradients autograd collects through the
+    kernels against the plain versions' on fp32 copies (CPU)."""
+    x, dt, A_log, B, C, D, _ = _ssd_bwd_inputs(cuda, 2, 160, 8, seed=8)
+    gn = torch.rand(8, 64, device=cuda) + 0.5
+    z = torch.randn(2, 160, 8, 64, device=cuda).bfloat16()
+
+    def run(x, dt, A_log, B, C, D, gn, z):
+        y, _ = ops.ssd_scan(x, dt, A_log, B, C, D, chunk=64)
+        return ops.group_rmsnorm(y, gn, gate=z).float().square().sum()
+
+    inputs = (x, dt, A_log, B.contiguous(), C.contiguous(), D, gn, z)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    before = dict(ops.BACKWARD_LAUNCHES)
+    got = torch.autograd.grad(run(*leaves), leaves)
+    assert ops.BACKWARD_LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    assert ops.BACKWARD_LAUNCHES["group_rmsnorm_bwd"] == \
+        before["group_rmsnorm_bwd"] + 1
+    plain = [t.detach().cpu().float().requires_grad_(True) for t in inputs]
+    want = torch.autograd.grad(run(*plain), plain)
+    names = ("x", "dt", "A_log", "B", "C", "D", "gn", "z")
+    for name, g, w in zip(names, got, want):
+        assert _rel(g.cpu(), w) <= 5e-2, name

@@ -9,7 +9,13 @@ fp32 on the CPU, where the port's kernels take their plain forward and
 backward versions.  Tolerance 1e-4 (relative and absolute): the two sides
 sum in different orders, nothing else differs.  The gloo meshes start
 four ranks of ``_torch_train_worker.py`` each.
+
+zamba2-7b runs ``.reduced()`` with 5 layers: two super-blocks (the shared
+attention block and one Mamba2 block each) and a one-block Mamba2 tail, so
+both recurrent segment kinds train; its sequence of 32 positions is two
+SSD chunks.
 """
+import dataclasses
 import functools
 import json
 import os
@@ -43,17 +49,29 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["llama3-8b", "qwen1.5-0.5b", "gemma2-2b", "gpt-m1"]
+ARCHS = ["llama3-8b", "qwen1.5-0.5b", "gemma2-2b", "gpt-m1", "zamba2-7b"]
 #: (batch, sequence) of the loss: gemma2's sequence outruns its reduced
-#: 16-token window
-SHAPE = {"gemma2-2b": (2, 24)}
+#: 16-token window; zamba2's covers two of its reduced 16-position SSD
+#: chunks
+SHAPE = {"gemma2-2b": (2, 24), "zamba2-7b": (2, 32)}
+#: depth of the reduced configs where it is not ``.reduced()``'s
+LAYERS = {"zamba2-7b": 5}
 TOPO = atp_topo(1, 1, 1)
+
+
+def reduced(config, arch):
+    """``config`` (the JAX package's or the port's ``get_config``) of
+    ``arch``, reduced, at its ``LAYERS`` depth."""
+    cfg = config(arch).reduced()
+    if arch in LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=LAYERS[arch])
+    return cfg
 
 
 def jax_params(arch, seed=0):
     """The reduced config and its JAX fp32 weights; a zero-initialised qkv
     bias gets random values, so its path adds something."""
-    cfg = get_config(arch).reduced()
+    cfg = reduced(get_config, arch)
     params = jax_lm.init_params(cfg, jax.random.PRNGKey(seed), jnp.float32)
     if cfg.qkv_bias:
         rng = np.random.default_rng(1)
@@ -88,12 +106,17 @@ def jax_loss_and_grads(cfg, params, batch):
 
 
 def port_loss_and_grads(arch, params, batch, remat=False):
-    pcfg = port_config(arch).reduced()
+    pcfg = reduced(port_config, arch)
+    return port_loss_and_grads_at(
+        pcfg, convert.params_from_jax(pcfg, params, TOPO, 0), batch, remat)
+
+
+def port_loss_and_grads_at(pcfg, tp, batch, remat=False):
+    """The port's loss and gradients at its own parameters ``tp`` (left
+    unchanged), the gradients in the reference's tree."""
     ctx = make_context(TOPO, device_type="cpu")
-    tp = convert.params_from_jax(pcfg, params, TOPO, 0)
+    tp = lm.tree_map(lambda t: t.detach().clone().requires_grad_(True), tp)
     leaves = adamw.tree_leaves(tp)
-    for t in leaves:
-        t.requires_grad_(True)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     loss = lm.train_loss(ctx, pcfg, tp, tb, remat=remat)
     grads = adamw.tree_unflatten(tp, iter(torch.autograd.grad(loss, leaves)))
@@ -115,8 +138,10 @@ def assert_trees_close(got, want, **tol):
 def test_loss_and_every_gradient_match_jax(arch):
     """llama3-8b (GQA, rope), qwen1.5-0.5b (qkv bias, tied head),
     gemma2-2b (softcaps, window, post-block norms, embedding scale, 1 +
-    gamma) and gpt-m1 (layernorm with bias, gelu in the matmul epilogue):
-    the loss and the gradient of every parameter, norm scales and biases
+    gamma), gpt-m1 (layernorm with bias, gelu in the matmul epilogue) and
+    zamba2-7b (Mamba2 blocks through the SSD scan's and the grouped, gated
+    norm's backward; the shared block on the embedding output): the loss
+    and the gradient of every parameter, norm scales and biases
     included."""
     cfg, params = jax_params(arch)
     batch = make_batch(cfg, *SHAPE.get(arch, (2, 12)))
@@ -126,13 +151,23 @@ def test_loss_and_every_gradient_match_jax(arch):
     assert_trees_close(got, want, **TOL)
 
 
-def test_remat_gives_identical_gradients():
-    cfg, params = jax_params("llama3-8b")
-    batch = make_batch(cfg, 2, 12)
-    plain = port_loss_and_grads("llama3-8b", params, batch, remat=False)
-    remat = port_loss_and_grads("llama3-8b", params, batch, remat=True)
+def _remat_gives_identical_gradients(arch):
+    cfg, params = jax_params(arch)
+    batch = make_batch(cfg, *SHAPE.get(arch, (2, 12)))
+    plain = port_loss_and_grads(arch, params, batch, remat=False)
+    remat = port_loss_and_grads(arch, params, batch, remat=True)
     assert plain[0] == remat[0]
     assert_trees_close(remat[1], plain[1], rtol=0, atol=0)
+
+
+def test_remat_gives_identical_gradients():
+    _remat_gives_identical_gradients("llama3-8b")
+
+
+def test_zamba_remat_gives_identical_gradients():
+    """Each zamba super-block (the shared block and its Mamba2 blocks) and
+    each tail Mamba2 block recomputed in the backward."""
+    _remat_gives_identical_gradients("zamba2-7b")
 
 
 def test_prefill_logits_match_jax():
@@ -155,15 +190,16 @@ def test_prefill_logits_match_jax():
 
 def jax_train_steps(cfg, params, batches, opt):
     """The reference's single-device ``build_train_step``: the losses and
-    the parameters after the steps."""
+    the parameters after each step."""
     topo = JaxMeshTopo((("data", 1), ("tp1", 1), ("tp2", 1)))
     fn, info = jax_build_train_step(cfg, topo, opt, remat=False)
     state = jax_adamw.init_opt_state(params, info.pspecs, info.ctx, opt.mode)
-    p, losses = jax.tree.map(jnp.asarray, params), []
+    p, losses, after = jax.tree.map(jnp.asarray, params), [], []
     for bt in batches:
         p, state, m = fn(p, state, bt)
         losses.append(float(m["loss"]))
-    return losses, jax.tree.map(np.asarray, p)
+        after.append(jax.tree.map(np.asarray, p))
+    return losses, after
 
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -173,39 +209,100 @@ STEPS = 3
 #: the reference's three AdamW steps (plain on one device: with dp = 2,
 #: zero1 is full-state Adam on the dp-summed gradient, the same update)
 OPT = dict(warmup_steps=2)
+#: the archs whose reference also takes ``STEPS`` plain AdamW steps
+STEP_ARCHS = ("llama3-8b", "zamba2-7b")
 
 
 @functools.lru_cache(maxsize=None)
 def _reference(arch):
     """The JAX weights, the global batches, and the single-device loss and
     gradients of batch 0 and losses and parameters after ``STEPS`` plain
-    steps (llama3-8b only)."""
+    steps (``STEP_ARCHS`` only)."""
     cfg, params = jax_params(arch)
-    batches = [make_batch(cfg, 2, 12, seed=10 + i) for i in range(STEPS)]
+    batches = [make_batch(cfg, *SHAPE.get(arch, (2, 12)), seed=10 + i)
+               for i in range(STEPS)]
     loss, grads = jax_loss_and_grads(cfg, params, batches[0])
     steps = None
-    if arch == "llama3-8b":
-        steps = jax_train_steps(cfg, params, batches,
-                                jax_adamw.AdamWConfig(mode="plain", **OPT))
+    if arch in STEP_ARCHS:
+        steps = jax_train_steps(cfg, params, batches, jax_adamw.AdamWConfig(
+            mode="plain", **OPT))
     return params, batches, loss, grads, steps
 
 
-def test_three_plain_adamw_steps_match_jax():
-    params, batches, _, _, (want_losses, want) = _reference("llama3-8b")
-    pcfg = port_config("llama3-8b").reduced()
-    step, info = build_train_step(
-        pcfg, TOPO, adamw.AdamWConfig(mode="plain", **OPT), remat=False,
-        device="cpu")
+def _three_plain_adamw_steps(arch):
+    """The port's ``STEPS`` plain AdamW steps from the reference's weights
+    on its batches: the losses, and the parameters before each step and
+    after the last, in the reference's tree."""
+    params, batches, _, _, _ = _reference(arch)
+    pcfg = reduced(port_config, arch)
+    step, info = build_train_step(pcfg, TOPO,
+                                  adamw.AdamWConfig(mode="plain", **OPT),
+                                  remat=False, device="cpu")
     tp = convert.params_from_jax(pcfg, params, TOPO, 0)
     state = adamw.init_opt_state(tp, info.ctx, "plain")
-    losses = []
+
+    def copy(tree):   # the step updates the parameters in place
+        return lm.tree_map(lambda t: t.detach().clone(), tree)
+
+    losses, seen = [], [copy(tp)]
     for bt in batches:
         tp, state, m = step(tp, state, {k: torch.from_numpy(v)
                                         for k, v in bt.items()})
         losses.append(float(m["loss"]))
+        seen.append(copy(tp))
+    assert state["step"] == STEPS
+    return losses, seen, pcfg
+
+
+def test_three_plain_adamw_steps_match_jax():
+    _, _, _, _, (want_losses, want) = _reference("llama3-8b")
+    losses, seen, pcfg = _three_plain_adamw_steps("llama3-8b")
     np.testing.assert_allclose(losses, want_losses, **TOL)
-    assert state["step"] == 3
-    assert_trees_close(convert.params_to_numpy(pcfg, [tp], TOPO), want, **TOL)
+    assert_trees_close(convert.params_to_numpy(pcfg, [seen[-1]], TOPO),
+                       want[-1], **TOL)
+
+
+#: a gradient element this small on both sides is inside their fp32 noise:
+#: the gradient test's absolute limit
+NOISE = TOL["atol"]
+
+
+def test_zamba_three_plain_adamw_steps_match_jax():
+    """Adam moves an element by about lr whatever the size of its gradient
+    once that is above eps (1e-8 here, on both sides), so an element whose
+    gradient is inside the two fp32 sides' noise in some step takes a
+    +-lr step of a random sign there.  Reduced zamba2-7b has such elements
+    (once-seen tokens' embedding rows): every element beyond TOL must have
+    had a gradient below ``NOISE`` on both sides, each at its own
+    parameters, in some step; every other element is held to TOL."""
+    params, batches, _, _, (want_losses, want) = _reference("zamba2-7b")
+    losses, seen, pcfg = _three_plain_adamw_steps("zamba2-7b")
+    np.testing.assert_allclose(losses, want_losses, **TOL)
+    cfg = reduced(get_config, "zamba2-7b")
+    noisy = None
+    for i, bt in enumerate(batches):
+        g_jax = jax_loss_and_grads(cfg, params if i == 0 else want[i - 1],
+                                   bt)[1]
+        g_port = port_loss_and_grads_at(pcfg, seen[i], bt)[1]
+        both = jax.tree.map(lambda a, b: (np.abs(a) < NOISE)
+                            & (np.abs(b) < NOISE), g_jax, g_port)
+        noisy = both if noisy is None else jax.tree.map(np.logical_or, noisy,
+                                                        both)
+    got = convert.params_to_numpy(pcfg, [seen[-1]], TOPO)
+    flat_w = jax.tree_util.tree_flatten_with_path(want[-1])[0]
+    exempt = 0
+    for path, w in flat_w:
+        g, quiet = got, noisy
+        for k in path:
+            g, quiet = g[k.key], quiet[k.key]
+        far = ~np.isclose(g, w, **TOL)
+        assert not (far & ~quiet).any(), (
+            f"{jax.tree_util.keystr(path)}: {int((far & ~quiet).sum())} "
+            f"elements beyond TOL with a gradient above {NOISE}")
+        np.testing.assert_allclose(g[~quiet], w[~quiet], **TOL,
+                                   err_msg=jax.tree_util.keystr(path))
+        exempt += int(far.sum())
+    assert exempt < 100, f"{exempt} elements beyond TOL"
 
 
 def test_adamw_refuses_what_is_not_ported():
@@ -214,10 +311,114 @@ def test_adamw_refuses_what_is_not_ported():
     ctx = make_context(TOPO, device_type="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
         adamw.init_opt_state(tp, ctx, "compressed")
+    # two data-parallel axes (pod and data), refused before any process
+    # group is needed
     with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
-        build_train_step(port_config("zamba2-7b").reduced(), TOPO,
-                         device="cpu")
+        build_train_step(pcfg, atp_topo(2, 1, 1, pods=2), device="cpu")
     assert adamw.lr_at(adamw.AdamWConfig(warmup_steps=2), 0) == 1.5e-4
+
+
+#: the card's training path check holds a gradient to this relative L2
+#: error against fp32 (``chip_smoke.py``'s ``PATH_TOL``)
+PATH_TOL = 5e-2
+
+
+def reference_bf16_gradient_errors(arch):
+    """Per leaf of the reference's reduced ``arch``, the relative L2 error
+    of its own bf16 gradients against its fp32 gradients from the same
+    (bf16) weights and batch."""
+    cfg = reduced(get_config, arch)
+    params = jax_lm.init_params(cfg, jax.random.PRNGKey(0), jnp.bfloat16)
+    batch = make_batch(cfg, *SHAPE.get(arch, (2, 12)))
+    g16 = jax_loss_and_grads(cfg, params, batch)[1]
+    g32 = jax_loss_and_grads(cfg, jax.tree.map(
+        lambda t: t.astype(jnp.float32), params), batch)[1]
+    return {jax.tree_util.keystr(path): float(
+        np.linalg.norm(np.float32(g) - w) / np.linalg.norm(w))
+        for (path, w), g in zip(jax.tree_util.tree_flatten_with_path(g32)[0],
+                                jax.tree.leaves(g16))}
+
+
+def test_reference_bf16_gradients_of_llama_stay_near_fp32():
+    """The dense model in bf16: every gradient within the path check's
+    limit of fp32."""
+    errs = reference_bf16_gradient_errors("llama3-8b")
+    assert max(errs.values()) < PATH_TOL, errs
+
+
+def test_reference_bf16_gradients_of_zamba_are_far_from_fp32():
+    """zamba2-7b in bf16, in the reference itself: the gradients upstream
+    of the last Mamba2 block are O(1) from fp32, while the head's and the
+    final norm's stay within the path check's limit.  This is why the
+    card's zamba path check holds its gradients against the plain bf16
+    path's own error and against the plain backward on the same forward,
+    not against fp32 alone."""
+    errs = reference_bf16_gradient_errors("zamba2-7b")
+    assert max(errs.values()) > 0.5, errs
+    for leaf in ("['lm_head']", "['final_norm']['scale']"):
+        assert errs[leaf] < PATH_TOL, errs
+
+
+def test_zamba_bf16_gradient_error_enters_at_the_grouped_norm(monkeypatch):
+    """Where the bf16 error comes from, in the port's plain path (reduced,
+    5 layers, b = 1, s = 64), bf16 against fp32 from the same weights: at
+    the last Mamba2 block the gradient at the grouped norm's input is
+    several times farther from fp32 than at its output, and the row that
+    carries most of that error has a small RMS and a bf16 value far off
+    relative to it (its terms cancel), so the norm's 1/RMS scales a wrong
+    direction up."""
+    cfg = reduced(port_config, "zamba2-7b")
+    params = lm.shard_params(cfg, lm.init_params(cfg, seed=0, device="cpu"),
+                             lm.layout_context(TOPO, 0))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 65))
+    batch = {"tokens": torch.tensor(toks[:, :-1], dtype=torch.int32),
+             "labels": torch.tensor(toks[:, 1:], dtype=torch.int32)}
+    seen, norm = [], ops.group_rmsnorm
+
+    def recorded(y, gamma, eps=1e-6, *, gate=None):
+        rec = {"y": y.detach().float()}
+        out = norm(y, gamma, eps, gate=gate)
+        y.register_hook(lambda g: rec.__setitem__("dy", g.float()))
+        out.register_hook(lambda g: rec.__setitem__("dout", g.float()))
+        seen.append(rec)
+        return out
+
+    monkeypatch.setattr(ops, "group_rmsnorm", recorded)
+    ctx = make_context(TOPO, device_type="cpu")
+    last = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        p = lm.tree_map(lambda t: t.detach().to(
+            t.dtype if dtype == torch.bfloat16 else torch.float32)
+            .requires_grad_(True), params)
+        seen.clear()
+        lm.train_loss(ctx, cfg, p, batch, remat=False).backward()
+        last[dtype] = seen[-1]
+    b16, f32 = last[torch.bfloat16], last[torch.float32]
+
+    def rel(k):
+        return float((b16[k] - f32[k]).norm() / f32[k].norm())
+
+    assert rel("dy") > 3 * rel("dout"), (rel("dy"), rel("dout"))
+    rms = f32["y"].pow(2).mean(-1).sqrt().flatten()
+    share = (b16["dy"] - f32["dy"]).pow(2).sum(-1).flatten()
+    worst = int(share.argmax())
+    off = float((b16["y"] - f32["y"]).pow(2).mean(-1).sqrt().flatten()[worst]
+                / rms[worst])
+    assert rms[worst] < rms.median() / 5, (rms[worst], rms.median())
+    assert off > 0.1, off
+
+
+def test_trainer_trains_zamba_on_the_cpu():
+    """``launch.train.main --arch zamba2-7b``: two zero1 AdamW steps of
+    reduced zamba2-7b at 5 layers (both recurrent segment kinds) on the
+    CPU, remat on, as the trainer runs it on the card."""
+    from repro_torch.launch import train
+
+    hist = train.main(["--arch", "zamba2-7b", "--reduced", "--device", "cpu",
+                       "--layers", "5", "--seq", "20", "--batch", "2",
+                       "--steps", "2"])
+    assert len(hist) == 2
+    assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in hist)
 
 
 @pytest.mark.parametrize("corpus", [False, True])
@@ -361,14 +562,90 @@ def test_plain_rmsnorm_backward_matches_autograd(rows, width):
         torch.testing.assert_close(g, w, **BWD_TOL)
 
 
+def _backward_on_the_cpu_counts_no_launch(arch):
+    ops.reset_launches()
+    cfg, params = jax_params(arch)
+    port_loss_and_grads(arch, params, make_batch(cfg, 1, 8))
+    assert set(ops.LAUNCHES.values()) == {0}
+    assert set(ops.BACKWARD_LAUNCHES.values()) == {0}
+
+
 def test_backward_on_the_cpu_counts_no_launch():
     """The plain backward versions run on the CPU: no kernel launch of any
     kind is counted, forward or backward."""
-    ops.reset_launches()
-    cfg, params = jax_params("llama3-8b")
-    port_loss_and_grads("llama3-8b", params, make_batch(cfg, 1, 8))
-    assert set(ops.LAUNCHES.values()) == {0}
-    assert set(ops.BACKWARD_LAUNCHES.values()) == {0}
+    _backward_on_the_cpu_counts_no_launch("llama3-8b")
+
+
+def test_zamba_backward_on_the_cpu_counts_no_launch():
+    """The same through the SSD scan's and the grouped norm's backward."""
+    _backward_on_the_cpu_counts_no_launch("zamba2-7b")
+
+
+@pytest.mark.parametrize("s,chunk", [
+    (8, 8),       # one chunk
+    (40, 16),     # two chunks of 20 (mamba2.ssd_chunked's rule)
+    (37, 16),     # 37 % 2 != 0: chunks of 16, 16 and a ragged 5
+])
+def test_plain_ssd_backward_matches_autograd(s, chunk):
+    """``ref.ssd_bwd_ref`` (written out, chunk by chunk) against autograd
+    of ``ref.ssd_ref`` from a zero state (fp32), and through the autograd
+    Function of ``ops.ssd_scan``."""
+    rng = np.random.default_rng(3)
+    b, nh, hd, ds = 2, 3, 4, 5
+    x, B, C = _randn(rng, b, s, nh, hd), _randn(rng, b, s, ds), \
+        _randn(rng, b, s, ds)
+    dt = torch.nn.functional.softplus(_randn(rng, b, s, nh))
+    A_log, D = _randn(rng, nh, scale=0.5), _randn(rng, nh)
+    dy = _randn(rng, b, s, nh, hd)
+    inputs = (x, dt, A_log, B, C, D)
+    want = _autograd(lambda *t: ref.ssd_ref(*t, chunk)[0], inputs, dy)
+    got = ref.ssd_bwd_ref(*inputs, dy, chunk)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+    fn = _autograd(lambda *t: ops.ssd_scan(*t, chunk=chunk)[0], inputs, dy)
+    for g, w in zip(fn, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+
+
+def test_ssd_scan_under_autograd_refuses_a_state():
+    """The training form starts from zeros: a state in, the pool form and a
+    gradient through the final state have no backward."""
+    rng = np.random.default_rng(4)
+    x = _randn(rng, 1, 4, 2, 4).requires_grad_(True)
+    dt = torch.nn.functional.softplus(_randn(rng, 1, 4, 2))
+    B, C, vec = _randn(rng, 1, 4, 4), _randn(rng, 1, 4, 4), _randn(rng, 2)
+    state = torch.zeros(1, 2, 4, 4)
+    with pytest.raises(NotImplementedError, match="zero state"):
+        ops.ssd_scan(x, dt, vec, B, C, vec, chunk=4, state_in=state)
+    with pytest.raises(NotImplementedError, match="zero state"):
+        ops.ssd_scan(x, dt, vec, B, C, vec, chunk=4, pool=state,
+                     slot=torch.zeros(1, dtype=torch.int32),
+                     fresh=torch.ones(1, dtype=torch.bool))
+    _, final = ops.ssd_scan(x, dt, vec, B, C, vec, chunk=4)
+    with pytest.raises(NotImplementedError, match="final state"):
+        torch.autograd.grad(final.sum(), x)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_plain_group_rmsnorm_backward_matches_autograd(gated):
+    """``ref.group_rmsnorm_bwd_ref`` against autograd of
+    ``ref.group_rmsnorm_ref`` (fp32), with and without the SiLU gate, and
+    through the autograd Function of ``ops.group_rmsnorm``."""
+    rng = np.random.default_rng(5)
+    y, gamma = _randn(rng, 2, 7, 4, 16), _randn(rng, 4, 16)
+    gate = _randn(rng, 2, 7, 4, 16, scale=2.0) if gated else None
+    dout = _randn(rng, 2, 7, 4, 16)
+    inputs = (y, gamma) + ((gate,) if gated else ())
+    want = _autograd(lambda *t: ref.group_rmsnorm_ref(
+        t[0], t[1], 1e-6, t[2] if gated else None), inputs, dout)
+    got = ref.group_rmsnorm_bwd_ref(y, gamma, dout, 1e-6, gate)
+    assert (got[2] is None) == (not gated)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+    fn = _autograd(lambda *t: ops.group_rmsnorm(
+        t[0], t[1], 1e-6, gate=t[2] if gated else None), inputs, dout)
+    for g, w in zip(fn, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -392,6 +669,7 @@ def _flat(tree, prefix=""):
     ("llama3-8b", (1, 1, 4), 1, None),
     ("llama3-8b", (2, 1, 2), 1, "plain"),
     ("qwen3-8b", (1, 2, 2), 1, None),
+    ("zamba2-7b", (1, 2, 2), 1, None),
 ])
 def test_gloo_mesh_gradients_match_jax_single_device(tmp_path, arch, mesh,
                                                      chunks, mode):
@@ -401,17 +679,20 @@ def test_gloo_mesh_gradients_match_jax_single_device(tmp_path, arch, mesh,
     gradient, reduced exactly once.  (1, 2, 2) with chunks=2 runs the
     chunked boundary GEMMs forward and backward; (1, 1, 4) splits the q
     heads four ways over tp2 (kv heads shared by two ranks each);
-    qwen3-8b's qk-norm gains meet only each rank's heads (``grad_sync``).
-    The dp = 2 meshes then take three AdamW steps, zero1 and plain, one
-    batch each split over dp, against the reference's steps on the whole
-    batch."""
+    qwen3-8b's qk-norm gains meet only each rank's heads (``grad_sync``);
+    zamba2-7b's Mamba2 blocks split their SSD heads over the four flat
+    ranks (``w_bcdt`` synced over tp1, the per-head leaves over both TP
+    axes, each once) and its shared block gathers its in-projections over
+    tp1.  The dp = 2 meshes then take three AdamW steps, zero1 and plain,
+    one batch each split over dp, against the reference's steps on the
+    whole batch."""
     params, batches, want_loss, want_grads, want_steps = _reference(arch)
     np.savez(tmp_path / "params.npz", **_flat(params))
     np.savez(tmp_path / "batches.npz", **{
         f"{k}{n}": v for n, bt in enumerate(batches) for k, v in bt.items()})
     (tmp_path / "case.json").write_text(json.dumps(dict(
         arch=arch, mesh=mesh, chunks=chunks, mode=mode,
-        steps=STEPS if mode else 0)))
+        steps=STEPS if mode else 0, layers=LAYERS.get(arch))))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     world = int(np.prod(mesh))
     procs = [subprocess.Popen([sys.executable, str(WORKER), str(r),
@@ -426,7 +707,7 @@ def test_gloo_mesh_gradients_match_jax_single_device(tmp_path, arch, mesh,
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} failed:\n{log}"
 
-    cfg = port_config(arch).reduced()
+    cfg = reduced(port_config, arch)
     topo = atp_topo(*mesh)
     for r in range(world):
         got = np.load(tmp_path / f"rank{r}.npz")
@@ -437,10 +718,10 @@ def test_gloo_mesh_gradients_match_jax_single_device(tmp_path, arch, mesh,
             np.testing.assert_allclose(got[f"grad/{key}"], w, **TOL,
                                        err_msg=f"rank {r} grad {key}")
         if mode:
-            losses, final = want_steps
+            losses, after = want_steps
             np.testing.assert_allclose(got["losses"], losses, **TOL)
             want = _flat(lm.tree_map(lambda t: t.numpy(),
-                                     convert.params_from_jax(cfg, final,
+                                     convert.params_from_jax(cfg, after[-1],
                                                              topo, r)))
             for key, w in want.items():
                 np.testing.assert_allclose(got[f"param/{key}"], w, **TOL,
