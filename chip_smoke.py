@@ -92,7 +92,18 @@ Phases, in order, each failing the run on any error:
    gated norm's backward (dy, dgate within 2e-2, dgamma within 1e-3, the
    gate read through its stride), timed as in phase 1 against the bound,
    the plain version and the timer's floor (no PyTorch call computes
-   either); then, for correctness, every forward kernel at the shapes the
+   either), each also at every grid its plan chooses among (heads a block
+   of ``ops.ssd_bwd_plan``, token shares of ``ops.group_rmsnorm_bwd_plan``)
+   and kernel by kernel with the profiler (the SSD entry's four kernels:
+   ``ssd_bwd_chunk_kernel``, ``ssd_bwd_pass_kernel``,
+   ``ssd_bwd_grad_kernel``, ``ssd_bwd_reduce_kernel``); the SSD backward's
+   bounds are printed three ways (the function's bytes, its operations at
+   the bf16 peak, the design's own bytes and products).  ``--parent DIR``:
+   the two kernels of the older checkout in DIR (its C entries of one
+   launch per (batch row, head) and per (token share, group), their
+   arguments prepared as its wrappers did) timed in turns with this
+   tree's (parent, tree, tree, parent).  Then, for correctness, every
+   forward kernel at the shapes the
    zamba step gives it, within phase 1's limits (each projection at M =
    2048, the block norm over rows of 3584, the grouped, gated norm over
    2048 x 112 rows of 64, the SSD scan from zeros over 32 chunks with its
@@ -111,6 +122,8 @@ Phases, in order, each failing the run on any error:
    Prints ms per step, tokens/s, peak memory and, in one profiled step,
    the device's busy share, its launches and its time by kernel.  The
    result line's two Mamba2 backward rows take their launches from it.
+   ``--parent DIR``: then the zamba training step of the tree in DIR and of
+   this one, a process each, in turns (parent, tree, tree, parent).
 12. path-check-train-zamba -- zamba2-7b at full width with the depth cut
    to 7 layers (one super-block and a one-block tail), b = 1, s = 128 (two
    SSD chunks, so the state's gradient crosses a chunk): every gradient
@@ -1103,14 +1116,9 @@ def train_launches_per_step(cfg, remat: bool) -> tuple[dict, dict]:
     return fwd, bwd
 
 
-def parent_backward(torch, ops, parent):
-    """The flash-attention and rmsnorm backward kernels of the older
-    checkout in ``parent`` (from its own ``csrc`` sources, PR 17's C
-    entries or later), built by its own ``_build`` into its own
-    ``build/torch_kernels``: callables with ``ops.flash_attention_backward``'s
-    and ``ops.rmsnorm_backward``'s arguments, for timing beside this
-    tree's kernels.  Both C entries take this tree's arguments, so this
-    tree's ``ops.*_backward_with`` prepares and launches them."""
+def _parent_build(parent, sources, what: str):
+    """The older checkout's ``_build`` module (from ``parent``), its
+    ``sources`` built into its own ``build/torch_kernels``."""
     import importlib.util
 
     path = Path(parent) / "src/repro_torch/kernels/_build.py"
@@ -1118,9 +1126,22 @@ def parent_backward(torch, ops, parent):
     pb = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(pb)
     t0 = time.perf_counter()
-    pb.build(("flash_attention_bwd", "rmsnorm"))
-    log(f"train-kernels: the parent's backward kernels built in "
+    pb.build(sources)
+    log(f"{what}: the parent's {', '.join(sources)} built in "
         f"{time.perf_counter() - t0:.1f}s into {pb.BUILD_DIR}")
+    return pb
+
+
+def parent_backward(torch, ops, parent):
+    """The flash-attention and rmsnorm backward kernels of the older
+    checkout in ``parent`` (from its own ``csrc`` sources, C entries with
+    this tree's arguments), built by its own ``_build`` into its own
+    ``build/torch_kernels``: callables with ``ops.flash_attention_backward``'s
+    and ``ops.rmsnorm_backward``'s arguments, for timing beside this
+    tree's kernels.  Both C entries take this tree's arguments, so this
+    tree's ``ops.*_backward_with`` prepares and launches them."""
+    pb = _parent_build(parent, ("flash_attention_bwd", "rmsnorm"),
+                       "train-kernels")
     fa, rn = pb.entry("flash_attention_bwd"), pb.entry("rmsnorm_bwd")
 
     def fa_bwd(q, k, v, o, do, lse, qo, kl, causal=True, window=0,
@@ -1133,6 +1154,61 @@ def parent_backward(torch, ops, parent):
         return ops.rmsnorm_backward_with(rn, x, g, dy, eps)
 
     return fa_bwd, rn_bwd
+
+
+def parent_mamba_backward(torch, ops, parent):
+    """The SSD-scan and grouped-norm backward kernels of the older checkout
+    in ``parent`` (the C entries whose SSD kernel takes a block per (batch
+    row, head) and whose grouped kernel takes a block per (token share,
+    group)), built by its own ``_build``:
+    callables with ``ops.ssd_scan_backward``'s and
+    ``ops.group_rmsnorm_backward``'s arguments (contiguous x, dy and y; B,
+    C and the gate with unit last stride and 16-byte-aligned rows, as the
+    training path gives them), for timing beside this tree's kernels.
+    Their C entries take the older arguments, prepared here as that tree's
+    wrappers prepared them: the SSD entry 16 pointers (the states, per-head
+    partial rows and per-(row, head) partials as scratch), 6 ints and 4
+    strides; the grouped entry one count of token shares."""
+    pb = _parent_build(parent, ("ssd_scan_bwd", "rmsnorm"),
+                       "train-zamba-kernels")
+    ssd, grp = pb.entry("ssd_scan_bwd"), pb.entry("group_rmsnorm_bwd")
+    p, stream = ops._ptr, ops._stream
+
+    def ssd_bwd(x, dt, A_log, B, C, D, dy, *, chunk):
+        b, s, nh, hd = x.shape
+        ds, nc = B.shape[-1], -(-s // chunk)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        states = torch.empty(b * nh * nc * hd * ds, **f32)
+        part = torch.empty(b * nh * s * 2 * ds, **f32)
+        part_ad = torch.empty(2 * b * nh, **f32)
+        dx, ddt = torch.empty_like(x), torch.empty((b, s, nh), **f32)
+        dB = torch.empty((b, s, ds), dtype=B.dtype, device=x.device)
+        dC = torch.empty_like(dB)
+        dA_log, dD = torch.empty_like(A_log), torch.empty_like(D)
+        ops._check(ssd(
+            p(x), p(dt), p(A_log), p(B), p(C), p(D), p(dy), p(dx), p(ddt),
+            p(dA_log), p(dB), p(dC), p(dD), p(states), p(part), p(part_ad),
+            b, s, nh, hd, ds, chunk, *B.stride()[:2], *C.stride()[:2],
+            stream(x)), "parent ssd_scan_bwd")
+        return dx, ddt, dA_log, dB, dC, dD
+
+    def grp_bwd(y, gamma, dout, eps=1e-6, *, gate):
+        groups, w = gamma.shape
+        y2, d2 = y.reshape(-1, groups * w), dout.reshape(-1, groups * w)
+        g2 = gate.reshape(-1, groups * w)
+        tokens = y2.shape[0]
+        dy, dgate = torch.empty_like(y2), torch.empty_like(y2)
+        splits = max(1, min(-(-2 * ops.SMS // groups), -(-tokens // 32)))
+        partial = torch.empty((splits, groups, w), dtype=torch.float32,
+                              device=y.device)
+        dgamma = torch.empty_like(gamma)
+        ops._check(grp(
+            p(y2), p(gamma), p(d2), p(g2), p(dy), p(dgate), p(partial),
+            p(dgamma), y2.stride(0), g2.stride(0), tokens, groups, w,
+            float(eps), splits, stream(y2)), "parent group_rmsnorm_bwd")
+        return dy.reshape(y.shape), dgamma, dgate.reshape(y.shape)
+
+    return ssd_bwd, grp_bwd
 
 
 def interleaved(timer, parent_fn, fn) -> str:
@@ -1175,12 +1251,14 @@ rows = train.main(sys.argv[2:])
 print(statistics.median(r["ms"] for r in rows[2:]))"""
 
 
-def parent_train_steps(parent) -> None:
-    """The training step of the tree in ``parent`` and of this one, in
-    turns (parent, tree, tree, parent), each a process of its own running
-    ``repro_torch.launch.train`` at ``TRAIN_SHAPE`` for 8 steps: the median
-    ms of steps 3-8 of each run."""
-    args = ["--arch", "llama3-8b", "--layers", str(TRAIN_SHAPE["layers"]),
+def parent_train_steps(parent, arch: str = "llama3-8b",
+                       layers: int = TRAIN_SHAPE["layers"],
+                       what: str = "train") -> None:
+    """The training step of ``arch`` at ``layers`` of the tree in
+    ``parent`` and of this one, in turns (parent, tree, tree, parent), each
+    a process of its own running ``repro_torch.launch.train`` at
+    ``TRAIN_SHAPE`` for 8 steps: the median ms of steps 3-8 of each run."""
+    args = ["--arch", arch, "--layers", str(layers),
             "--seq", str(TRAIN_SHAPE["seq"]), "--batch",
             str(TRAIN_SHAPE["batch"]), "--steps", "8"]
     ms = []
@@ -1189,7 +1267,7 @@ def parent_train_steps(parent) -> None:
             [sys.executable, "-c", TRAIN_AB, str(tree / "src"), *args],
             capture_output=True, text=True, timeout=600, check=True)
         ms.append(float(out.stdout.split()[-1]))
-    log(f"train: ms per step, parent {ms[0]:.2f} / {ms[3]:.2f}, this tree "
+    log(f"{what}: ms per step, parent {ms[0]:.2f} / {ms[3]:.2f}, this tree "
         f"{ms[1]:.2f} / {ms[2]:.2f} (parent, tree, tree, parent; steps 3-8 "
         f"of 8, a process each)")
 
@@ -1469,11 +1547,42 @@ def ssd_bwd_cost(b, s, nh, hd, ds, chunk):
     return nbytes, b * nh * flops
 
 
-def zamba_train_kernel_phase(torch, F, ops, ref, timer, floor):
+def ssd_bwd_design_floor(plan, b, s, nh, hd, ds) -> tuple[float, float]:
+    """(bytes, flops) that ``csrc/ssd_scan_bwd.cu`` moves and computes as
+    designed, beyond what the function must: its fp32 increments, then
+    states (Delta/S, Gamma/dS: each written by the chunk kernel, read and
+    written by the passing kernel, read by the gradient kernel), x and dy
+    read a second time, the head groups' partial rows of dB and dC written
+    and read; and every product as run, in bf16 on tensor cores: full
+    64 x 64 tiles (the causal ones on the diagonal blocks of 16), fp32
+    operands split into two."""
+    nbytes = (4 * 2 * 4 * b * nh * plan.nc * hd * ds
+              + 2 * 2 * b * s * nh * hd + 2 * 4 * b * plan.groups * s * 2 * ds)
+    full = 2 * 64 ** 3                 # one 64 x 64 x 64 product
+    causal = 10 * 2 * 16 * 16 * 64     # its 10 blocks of 16 x 16 on and
+    #                                    below the diagonal
+    per_head = (2 * 2 * full           # Delta, Gamma (hi/lo)
+                + causal + causal      # C.B^T (rows t, u <= t), dy.x^T
+                + 2 * causal           # Z.B (hi/lo)
+                + 2 * full             # dy.S (hi/lo)
+                + 2 * causal + 2 * full   # W^T.dy, B.dS^T
+                + 2 * causal + 2 * full)  # Z^T.C, x.dS
+    return nbytes, b * plan.nc * nh * per_head
+
+
+#: heads a block of the SSD backward timed beside the plan's choice
+SSD_BWD_CANDIDATES = (1, 2, 4, 8)
+#: token shares of the grouped backward timed beside the plan's choice
+GROUP_BWD_CANDIDATES = (132, 264, 396)
+
+
+def zamba_train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
     """The two Mamba2 backward kernels at zamba2-7b's training shapes
-    against their plain backward, timed; then the step's other new shapes
-    for correctness.  Returns the two KernelReports, with totals per
-    training step of ``ZAMBA_TRAIN_LAYERS`` layers."""
+    against their plain backward, timed (each also at the other grids its
+    plan chooses among, and, with ``parent``, in turns with the older
+    checkout's kernels: ``parent_mamba_backward``); then the step's other
+    new shapes for correctness.  Returns the two KernelReports, with totals
+    per training step of ``ZAMBA_TRAIN_LAYERS`` layers."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     T, nh, hd, ds, chunk = TRAIN_SHAPE["seq"], 112, 64, 64, 64
     if floor is None:
@@ -1482,6 +1591,8 @@ def zamba_train_kernel_phase(torch, F, ops, ref, timer, floor):
             f"kernel)")
     per_step = train_launches_per_step(
         _train_config("zamba2-7b", ZAMBA_TRAIN_LAYERS), remat=True)[1]
+    prior = None if parent is None else parent_mamba_backward(torch, ops,
+                                                              parent)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda")
@@ -1491,9 +1602,10 @@ def zamba_train_kernel_phase(torch, F, ops, ref, timer, floor):
     ssd = KernelReport("ssd_scan_bwd", "cuda",
                        "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                        "src/repro/kernels/ssd_scan.py:74", floor)
+    plan = ops.ssd_bwd_plan(1, T, nh, chunk)
     log(f"train-zamba-kernels: ssd_scan backward at b=1 s={T} nh={nh} "
-        f"hd={hd} ds={ds} chunk={chunk}; dx, dB, dC within {BWD_REL}, ddt, "
-        f"dA_log, dD within {DGAMMA_REL} relative L2")
+        f"hd={hd} ds={ds} chunk={chunk} [{plan.name}]; dx, dB, dC within "
+        f"{BWD_REL}, ddt, dA_log, dD within {DGAMMA_REL} relative L2")
     x, dy = randn(1, T, nh, hd), randn(1, T, nh, hd)
     dt = F.softplus(torch.randn(1, T, nh, generator=gen, device="cuda"))
     A_log = torch.randn(nh, generator=gen, device="cuda") * 0.5
@@ -1510,8 +1622,24 @@ def zamba_train_kernel_phase(torch, F, ops, ref, timer, floor):
               for g, w in zip(got, want))
     del got, want
     nbytes, flops = ssd_bwd_cost(1, T, nh, hd, ds, chunk)
+    d_bytes, d_flops = ssd_bwd_design_floor(plan, 1, T, nh, hd, ds)
+    log(f"  bounds: the function's bytes {nbytes / HBM_BYTES_S * 1e3:.4f} ms, "
+        f"its operations {flops / BF16_TFLOPS * 1e3:.4f} ms at the bf16 "
+        f"peak; as designed {(nbytes + d_bytes) / HBM_BYTES_S * 1e3:.4f} ms "
+        f"of bytes (fp32 scratch and second reads {d_bytes / 1e6:.0f} MB) "
+        f"and {d_flops / BF16_TFLOPS * 1e3:.4f} ms of tensor-core products "
+        f"({d_flops / 1e9:.1f} GFLOP with the hi/lo splits)")
     log(f"  by kernel, µs a launch: " + by_kernel(
         torch, lambda: ops.ssd_scan_backward(*args, chunk=chunk)))
+    for heads in SSD_BWD_CANDIDATES:
+        cand = ops.SsdBwdPlan(1, plan.nc, nh, heads)
+        with swapped(ops, ssd_bwd_plan=lambda *a, **k: cand):
+            ms = timer(lambda: ops.ssd_scan_backward(*args, chunk=chunk))
+        log(f"  [{cand.name}] {ms:.4f} ms a launch")
+    if prior is not None:
+        log(f"  against the parent's ssd_scan_bwd: " + interleaved(
+            timer, lambda: prior[0](*args, chunk=chunk),
+            lambda: ops.ssd_scan_backward(*args, chunk=chunk)))
     if not ssd.add(f"b=1 s={T} nh={nh}: rel L2 " + " ".join(
             f"{n} {e:.2e}" for n, e in errs.items()), ok, err,
             {"bf16": BWD_REL, "fp32": DGAMMA_REL}, TRAIN_ZAMBA, "train",
@@ -1525,9 +1653,11 @@ def zamba_train_kernel_phase(torch, F, ops, ref, timer, floor):
     grp = KernelReport("group_rmsnorm_bwd", "cuda",
                        "src/repro_torch/kernels/csrc/rmsnorm.cu",
                        "src/repro/kernels/rmsnorm.py:30", floor)
+    gplan = ops.group_rmsnorm_bwd_plan(T, nh, hd)
     log(f"train-zamba-kernels: the grouped, gated norm's backward at {T} "
-        f"tokens x {nh} groups of {hd}, the gate a slice of the z|x output; "
-        f"dy, dgate within {BWD_REL}, dgamma within {DGAMMA_REL}")
+        f"tokens x {nh} groups of {hd}, the gate a slice of the z|x output "
+        f"[{gplan.name}]; dy, dgate within {BWD_REL}, dgamma within "
+        f"{DGAMMA_REL}")
     y, dout = randn(T, nh, hd, scale=2.0), randn(T, nh, hd)
     gamma = torch.rand(nh, hd, generator=gen, device="cuda") + 0.5
     z = randn(T, 2 * nh * hd)[:, :nh * hd].unflatten(-1, (nh, hd))
@@ -1540,14 +1670,23 @@ def zamba_train_kernel_phase(torch, F, ops, ref, timer, floor):
     err = max(float((g.float() - w.float()).abs().max())
               for g, w in zip(got, want))
     del got, want
-    log(f"  by kernel, µs a launch: " + by_kernel(
-        torch, lambda: ops.group_rmsnorm_backward(y, gamma, dout, gate=z)))
+
+    def grouped():
+        return ops.group_rmsnorm_backward(y, gamma, dout, gate=z)
+
+    log(f"  by kernel, µs a launch: " + by_kernel(torch, grouped))
+    for shares in GROUP_BWD_CANDIDATES:
+        cand = dataclasses.replace(gplan, shares=shares)
+        with swapped(ops, group_rmsnorm_bwd_plan=lambda *a, **k: cand):
+            ms = timer(grouped)
+        log(f"  [{cand.name}] {ms:.4f} ms a launch")
+    if prior is not None:
+        log(f"  against the parent's grouped backward: " + interleaved(
+            timer, lambda: prior[1](y, gamma, dout, gate=z), grouped))
     if not grp.add(f"{T}x{nh} rows of {hd}, gated: rel L2 " + " ".join(
             f"{n} {e:.2e}" for n, e in errs.items()), ok, err,
             {"dy, dgate": BWD_REL, "dgamma": DGAMMA_REL}, TRAIN_ZAMBA,
-            "train", per_step["group_rmsnorm_bwd"],
-            ms=timer(lambda: ops.group_rmsnorm_backward(y, gamma, dout,
-                                                        gate=z)),
+            "train", per_step["group_rmsnorm_bwd"], ms=timer(grouped),
             plain_ms=timer(lambda: ref.group_rmsnorm_bwd_ref(y, gamma, dout,
                                                              1e-6, z)),
             library_ms=None, nbytes=2 * 5 * y.numel() + 4 * 2 * gamma.numel(),
@@ -1835,11 +1974,12 @@ def plain_backward(ref) -> dict:
 
 
 @contextlib.contextmanager
-def backward_swapped(ops, **impls):
-    """``ops``' backward wrappers named in ``impls`` replaced by them
-    inside the block: ``ops``' autograd Functions look their backward up
-    by name when they run.  Each caller reads ``ops.BACKWARD_LAUNCHES``
-    afterwards, so a swap that did not take effect fails its check."""
+def swapped(ops, **impls):
+    """``ops``' functions named in ``impls`` replaced by them inside the
+    block: ``ops``' autograd Functions look their backward wrappers up by
+    name when they run, and the wrappers their launch plans.  A caller that
+    swaps a backward reads ``ops.BACKWARD_LAUNCHES`` afterwards, so a swap
+    that did not take effect fails its check."""
     saved = {name: getattr(ops, name) for name in impls}
     for name, fn in impls.items():
         setattr(ops, name, fn)
@@ -1911,7 +2051,7 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
         plain = rel(grads(lm.tree_map(lambda t: t.detach().cpu(), params),
                           host, "cpu"), cpu)
         ops.reset_launches()
-        with backward_swapped(ops, **plain_backward(ref)):
+        with swapped(ops, **plain_backward(ref)):
             held = grads(params, batch, dev)
         assert not any(ops.BACKWARD_LAUNCHES.values()), \
             f"the plain backward launched {ops.BACKWARD_LAUNCHES}"
@@ -1919,7 +2059,7 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
             f"two forwards through the kernels differ: {held[0]} {card[0]}"
         same = rel(card, held)
         ops.reset_launches()
-        with backward_swapped(ops, ssd_scan_backward=zero_db(
+        with swapped(ops, ssd_scan_backward=zero_db(
                 torch, ops.ssd_scan_backward)):
             fault = rel(grads(params, batch, dev), held)
         assert ops.BACKWARD_LAUNCHES["ssd_scan_bwd"] or not on_card
@@ -2000,8 +2140,10 @@ def main(argv=None) -> int:
                     help="a checkout of an older tree: train-kernels builds "
                          "its flash_attention_bwd.cu and rmsnorm.cu into "
                          "its own build directory and times their backward "
-                         "beside this tree's, and the train phase runs its "
-                         "training step and this tree's in turns")
+                         "beside this tree's, train-zamba-kernels does the "
+                         "same with its ssd_scan_bwd.cu and grouped norm "
+                         "backward, and the train and train-zamba phases "
+                         "run its training step and this tree's in turns")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2104,12 +2246,15 @@ def main(argv=None) -> int:
     train_zamba_fwd = []   # the forward kernels at the zamba step's shapes
     if "train-zamba-kernels" in phases:
         zamba_bwd, train_zamba_fwd = zamba_train_kernel_phase(
-            torch, F, ops, ref, Timer(torch), floor_ms)
+            torch, F, ops, ref, Timer(torch), floor_ms, parent=args.parent)
         reports += zamba_bwd
         done("train-zamba-kernels")
     if "train-zamba" in phases:
         launches[TRAIN_ZAMBA] = train_phase(
             torch, arch="zamba2-7b", layers=ZAMBA_TRAIN_LAYERS, tag="_zamba")
+        if args.parent is not None:
+            parent_train_steps(args.parent, "zamba2-7b", ZAMBA_TRAIN_LAYERS,
+                               "train-zamba")
         done("train-zamba")
     if "path-check-train-zamba" in phases:
         train_path_check(torch, arch="zamba2-7b", **ZAMBA_PATH)

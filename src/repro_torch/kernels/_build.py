@@ -37,11 +37,11 @@ SIGNATURES = {
     "rmsnorm": ("rmsnorm", "repro_rmsnorm_bf16",
                 [_P] * 4 + [_L] * 2 + [_I] * 3 + [_F] + [_I] * 3 + [_P]),
     "ssd_scan_bwd": ("ssd_scan_bwd", "repro_ssd_scan_bwd_bf16",
-                     [_P] * 16 + [_I] * 6 + [_L] * 4 + [_P]),
+                     [_P] * 18 + [_I] * 7 + [_L] * 4 + [_P]),
     "rmsnorm_bwd": ("rmsnorm", "repro_rmsnorm_bwd_bf16",
                     [_P] * 6 + [_I] * 2 + [_F] + [_I] + [_P]),
     "group_rmsnorm_bwd": ("rmsnorm", "repro_group_rmsnorm_bwd_bf16",
-                          [_P] * 8 + [_L] * 2 + [_I] * 3 + [_F] + [_I]
+                          [_P] * 8 + [_L] * 2 + [_I] * 3 + [_F] + [_I] * 3
                           + [_P]),
 }
 

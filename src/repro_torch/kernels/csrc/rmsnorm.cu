@@ -422,19 +422,31 @@ cudaError_t launch_bwd(const bf16* x, const float* gamma, const bf16* dy,
 //   dgamma[g] = sum over tokens of dn * xhat.
 // Bound by bytes like the block norm's backward: x, dy and z read once, dx
 // and dz written once, at the training shape (2048 tokens x 112 heads of
-// 64) 147 MB.  The design: a row goes to 8 lanes of 16-byte loads (one
-// vector of 8 values each); a block is one group's rows of a share of the
-// tokens, 32 rows at a time, so each lane keeps its group's gamma and its
-// 8 columns' dgamma sum in registers; a row's two sums are exchanged
-// through shared memory; the block's 32 row slots' dgamma sums are added
-// in slot order into one partial row per (share, group), and
-// rmsnorm_dgamma_kernel sums the shares in order: deterministic.
+// 64) 147 MB.  The design is token-major:
+//   - a block takes a share of the tokens (ops.group_rmsnorm_bwd_plan,
+//     plain Python: a contiguous run of them) and reads each token's whole
+//     row, groups * width bf16 (14 KB at the training shape), contiguous;
+//     the gate through its own token stride;
+//   - the row is groups * 8 slots of 8 values (16-byte loads), a group's
+//     width / 8 slots live and the rest idle (none at width 64); thread j
+//     owns slots j, j + T, ... (K of them, T a multiple of 32), the same in
+//     every row, so a group's 8 slots are 8 neighbouring lanes of one warp;
+//   - a group's two sums (sum x^2 and sum x gamma dn) are shuffles among
+//     its 8 lanes: no shared-memory exchange and no barrier per row;
+//   - a thread loads all its slots of a row at once, then takes them one
+//     by one (sums, shuffles, outputs), so few values stay live and two
+//     blocks of 224 threads fit an SM at the training shape;
+//   - each thread keeps its slots' dgamma sums over the block's tokens in
+//     registers and writes them once as the block's partial row; gamma is
+//     read once per block into shared memory;
+//   - rmsnorm_dgamma_kernel sums the shares' partial rows in share order:
+//     deterministic.
 // ---------------------------------------------------------------------------
 
-constexpr int kGrpLanes = 8;     // lanes of a row: 8 vectors of 8 values
+constexpr int kGrpLanes = 8;     // slots of a group: 8 vectors of 8 values
 constexpr int kGrpWidth = kGrpLanes * 8;
-constexpr int kGrpRows = 32;     // rows of a block at a time
-constexpr int kGrpThreads = kGrpLanes * kGrpRows;
+constexpr int kGrpMaxThreads = 256;
+constexpr int kGrpMaxSlots = 8 * kGrpMaxThreads;  // 8 slots a thread at most
 
 struct GroupArgs {
   const bf16* x;       // [tokens, groups * width], x_stride apart
@@ -443,7 +455,7 @@ struct GroupArgs {
   const bf16* gate;    // null: no gate; gate_stride apart
   bf16* dx;            // [tokens, groups * width] contiguous
   bf16* dgate;         // as dx, or null
-  float* partial;      // [splits, groups, width]
+  float* partial;      // [shares, groups, width]
   long long x_stride, gate_stride;
   int tokens, groups, width;
   float eps;
@@ -464,85 +476,132 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
                     pack(f[6], f[7]));
 }
 
-template <bool GATE>
-__global__ void __launch_bounds__(kGrpThreads)
+__device__ __forceinline__ float sigmoid(float z) {
+  return 1.0f / (1.0f + expf(-z));
+}
+
+// K slots a thread, blockDim.x threads (a multiple of 32)
+template <int K, bool GATE>
+__global__ void __launch_bounds__(kGrpMaxThreads)
     group_rmsnorm_bwd_kernel(const GroupArgs a) {
-  __shared__ float sums[2][kGrpRows][kGrpLanes];
-  __shared__ float dgs[kGrpRows][kGrpWidth];
-  const int lane = threadIdx.x % kGrpLanes, slot = threadIdx.x / kGrpLanes;
-  const int split = blockIdx.x, splits = gridDim.x, g = blockIdx.y;
-  const int w = a.width;
-  const bool on = lane < w / 8;  // this lane holds 8 columns of the row
-  const long long col = (long long)g * w + 8 * lane;
-  float gm[8], dg[8];
+  extern __shared__ __align__(16) float gs[];  // gamma [groups * width]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int w = a.width, cols = a.groups * w;
+  for (int c = 4 * tid; c < cols; c += 4 * nt)
+    *reinterpret_cast<float4*>(gs + c) =
+        *reinterpret_cast<const float4*>(a.gamma + c);
+  int col[K];  // the first column of each slot; -1: idle
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    gm[k] = on ? a.gamma[col + k] : 0.0f;
-    dg[k] = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const int q = tid + k * nt, lane = q % kGrpLanes;
+    col[k] = q < a.groups * kGrpLanes && 8 * lane < w
+                 ? (q / kGrpLanes) * w + 8 * lane
+                 : -1;
   }
+  float dg[K][8];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dg[k][i] = 0.0f;
+  __syncthreads();  // gamma is in
+
   const float inv_w = 1.0f / static_cast<float>(w);
-  const long long step = (long long)kGrpRows * splits;
-  const long long iters = (a.tokens + step - 1) / step;  // the same for all
-  const long long row_out = (long long)a.groups * w;
-  for (long long it = 0; it < iters; ++it) {
-    const long long tok = it * step + (long long)split * kGrpRows + slot;
-    const bool ok = on && tok < a.tokens;
-    float xv[8], dv[8], zv[8], dn[8];
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    unpack8(ok ? *reinterpret_cast<const uint4*>(a.x + tok * a.x_stride + col)
-               : zero, xv);
-    unpack8(ok ? *reinterpret_cast<const uint4*>(a.dy + tok * a.x_stride + col)
-               : zero, dv);
-    if (GATE)
-      unpack8(ok ? *reinterpret_cast<const uint4*>(a.gate +
-                                                   tok * a.gate_stride + col)
-                 : zero, zv);
-    float ss = 0.0f, dot = 0.0f;
+  const long long first = (long long)blockIdx.x * a.tokens / gridDim.x;
+  const long long last = (long long)(blockIdx.x + 1) * a.tokens / gridDim.x;
+  const long long row_out = cols;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (long long tok = first; tok < last; ++tok) {
+    uint4 xr[K], dr[K], zr[K];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      dn[k] = GATE ? dv[k] * silu(zv[k]) : dv[k];
-      ss += xv[k] * xv[k];
-      dot += xv[k] * gm[k] * dn[k];
+    for (int k = 0; k < K; ++k) {
+      const bool on = col[k] >= 0;
+      xr[k] = on ? *reinterpret_cast<const uint4*>(a.x + tok * a.x_stride +
+                                                   col[k])
+                 : zero;
+      dr[k] = on ? *reinterpret_cast<const uint4*>(a.dy + tok * a.x_stride +
+                                                   col[k])
+                 : zero;
+      if (GATE)
+        zr[k] = on ? *reinterpret_cast<const uint4*>(
+                         a.gate + tok * a.gate_stride + col[k])
+                   : zero;
     }
-    sums[0][slot][lane] = ss;
-    sums[1][slot][lane] = dot;
-    __syncthreads();
-    ss = dot = 0.0f;
+    // slot by slot (all K slots' loads are in flight): a group's two sums
+    // over its 8 lanes (idle lanes add zeros), then its outputs
 #pragma unroll
-    for (int l = 0; l < kGrpLanes; ++l) {  // in lane order
-      ss += sums[0][slot][l];
-      dot += sums[1][slot][l];
-    }
-    __syncthreads();  // read before the next rows' writes
-    if (!ok) continue;
-    const float r = rsqrtf(ss * inv_w + a.eps);
-    const float m = r * r * r * dot * inv_w;  // rstd * mean(xhat*gamma*dn)
-    float out[8];
+    for (int k = 0; k < K; ++k) {
+      float xv[8], dv[8], zv[8];
+      unpack8(xr[k], xv);
+      unpack8(dr[k], dv);
+      if (GATE) unpack8(zr[k], zv);
+      const float* gm = gs + max(col[k], 0);
+      float ss = 0.0f, dot = 0.0f;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      out[k] = r * gm[k] * dn[k] - xv[k] * m;
-      dg[k] += dn[k] * xv[k] * r;
-    }
-    *reinterpret_cast<uint4*>(a.dx + tok * row_out + col) = pack8(out);
-    if (GATE) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float sg = 1.0f / (1.0f + expf(-zv[k]));
-        out[k] = dv[k] * xv[k] * r * gm[k] * sg * (1.0f + zv[k] * (1.0f - sg));
+      for (int i = 0; i < 8; ++i) {
+        const float dn = GATE ? dv[i] * zv[i] * sigmoid(zv[i]) : dv[i];
+        ss += xv[i] * xv[i];
+        dot += xv[i] * gm[i] * dn;
       }
-      *reinterpret_cast<uint4*>(a.dgate + tok * row_out + col) = pack8(out);
+#pragma unroll
+      for (int o = 1; o < kGrpLanes; o *= 2) {
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      }
+      if (col[k] < 0) continue;
+      const float r = rsqrtf(ss * inv_w + a.eps);
+      const float m = r * r * r * dot * inv_w;  // rstd * mean(xhat*gamma*dn)
+      float out[8], sg[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        sg[i] = GATE ? sigmoid(zv[i]) : 1.0f;
+        const float dn = GATE ? dv[i] * zv[i] * sg[i] : dv[i];
+        out[i] = r * gm[i] * dn - xv[i] * m;
+        dg[k][i] += dn * xv[i] * r;
+      }
+      *reinterpret_cast<uint4*>(a.dx + tok * row_out + col[k]) = pack8(out);
+      if (GATE) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          out[i] = dv[i] * xv[i] * r * gm[i] * sg[i] *
+                   (1.0f + zv[i] * (1.0f - sg[i]));
+        *reinterpret_cast<uint4*>(a.dgate + tok * row_out + col[k]) =
+            pack8(out);
+      }
     }
   }
-  // the block's partial dgamma row: its row slots' sums in slot order
-  if (on)
+  // the block's partial dgamma row: each column is one thread's
+  float* prow = a.partial + (size_t)blockIdx.x * cols;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) dgs[slot][8 * lane + k] = dg[k];
-  __syncthreads();
-  for (int c = threadIdx.x; c < w; c += kGrpThreads) {
-    float t = 0.0f;
-    for (int k = 0; k < kGrpRows; ++k) t += dgs[k][c];
-    a.partial[((long long)split * a.groups + g) * w + c] = t;
+  for (int k = 0; k < K; ++k) {
+    if (col[k] < 0) continue;
+    float4* d = reinterpret_cast<float4*>(prow + col[k]);
+    d[0] = make_float4(dg[k][0], dg[k][1], dg[k][2], dg[k][3]);
+    d[1] = make_float4(dg[k][4], dg[k][5], dg[k][6], dg[k][7]);
   }
+}
+
+template <int K>
+cudaError_t launch_group_bwd(const GroupArgs& a, int threads, int shares,
+                             cudaStream_t st) {
+  const int smem = a.groups * a.width * (int)sizeof(float);
+  static bool configured = false;
+  if (!configured) {  // room for the widest row
+    cudaError_t e = cudaFuncSetAttribute(
+        group_rmsnorm_bwd_kernel<K, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kGrpMaxSlots * 8 * (int)sizeof(float));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(group_rmsnorm_bwd_kernel<K, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kGrpMaxSlots * 8 * (int)sizeof(float));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  if (a.gate)
+    group_rmsnorm_bwd_kernel<K, true><<<shares, threads, smem, st>>>(a);
+  else
+    group_rmsnorm_bwd_kernel<K, false><<<shares, threads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -580,19 +639,22 @@ extern "C" int repro_rmsnorm_bwd_bf16(const void* x, const void* gamma,
 // The grouped, gated norm: x and dy rows of groups * width bf16, x_stride
 // apart; gate (or null) gate_stride apart; gamma and dgamma [groups, width]
 // fp32; dx and dgate (null without a gate) [tokens, groups * width]
-// contiguous bf16; width a multiple of 8 up to 64; blocks the shares of the
-// tokens, partial [blocks, groups, width] fp32 scratch
-// (ops.group_rmsnorm_backward sizes the grid); every pointer 16-byte
-// aligned, the strides multiples of 8.  Two launches: the rows (each block
-// also writing its partial dgamma row), then the block-ordered sum of the
-// partial rows.  Returns the cudaError_t of the launches (0 on success).
+// contiguous bf16; width a multiple of 8 up to 64; every pointer 16-byte
+// aligned, the strides multiples of 8.  The plan (ops.group_rmsnorm_bwd_plan):
+// shares blocks of threads threads (a multiple of 32, at most 256), each
+// thread vectors (1, 2, 4 or 8) slots, threads * vectors >= groups * 8;
+// partial [shares, groups, width] fp32 scratch.  Two launches: the rows
+// (each block also writing its partial dgamma row), then the share-ordered
+// sum of the partial rows.  Returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int repro_group_rmsnorm_bwd_bf16(
     const void* x, const void* gamma, const void* dy, const void* gate,
     void* dx, void* dgate, void* partial, void* dgamma, long long x_stride,
     long long gate_stride, int tokens, int groups, int width, float eps,
-    int blocks, void* stream) {
-  if (tokens < 1 || groups < 1 || groups > 65535 || width < 8 || width % 8 ||
-      width > kGrpWidth || blocks < 1 || blocks > 65535 ||
+    int threads, int vectors, int shares, void* stream) {
+  if (tokens < 1 || groups < 1 || width < 8 || width % 8 ||
+      width > kGrpWidth || shares < 1 || threads < 32 || threads % 32 ||
+      threads > kGrpMaxThreads || threads * vectors < groups * kGrpLanes ||
       (gate != nullptr) != (dgate != nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -601,18 +663,19 @@ extern "C" int repro_group_rmsnorm_bwd_bf16(
               static_cast<bf16*>(dx), static_cast<bf16*>(dgate),
               static_cast<float*>(partial), x_stride, gate_stride, tokens,
               groups, width, eps};
-  if (gate)
-    group_rmsnorm_bwd_kernel<true>
-        <<<dim3(blocks, groups), kGrpThreads, 0, st>>>(a);
-  else
-    group_rmsnorm_bwd_kernel<false>
-        <<<dim3(blocks, groups), kGrpThreads, 0, st>>>(a);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e;
+  switch (vectors) {
+    case 1: e = launch_group_bwd<1>(a, threads, shares, st); break;
+    case 2: e = launch_group_bwd<2>(a, threads, shares, st); break;
+    case 4: e = launch_group_bwd<4>(a, threads, shares, st); break;
+    case 8: e = launch_group_bwd<8>(a, threads, shares, st); break;
+    default: return cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return e;
   const int cols = groups * width;
   rmsnorm_dgamma_kernel<<<(cols + kSumCols - 1) / kSumCols,
                           kSumCols * kSumGroups, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dgamma), blocks,
+      static_cast<const float*>(partial), static_cast<float*>(dgamma), shares,
       cols);
   return cudaGetLastError();
 }

@@ -24,8 +24,9 @@ backward kernels on CUDA tensors and take the plain backward versions
 launches exactly what it launched before, and the attention writes no
 log-sum-exp.
 
-``matmul_plan``, ``attention_plan``, ``attention_bwd_plan`` and
-``ssd_plan`` choose the CUDA kernels' tiles and splits from the shapes
+``matmul_plan``, ``attention_plan``, ``attention_bwd_plan``,
+``rmsnorm_plan``, ``group_rmsnorm_bwd_plan``, ``ssd_plan`` and
+``ssd_bwd_plan`` choose the CUDA kernels' tiles and splits from the shapes
 alone; they are plain Python, so the CPU tests check them.
 """
 from __future__ import annotations
@@ -800,8 +801,71 @@ def _group_rmsnorm(y, gamma, eps, gate):
 
 #: the widest row of the grouped norm's backward (one 8-lane group a row)
 GROUP_BWD_MAX_WIDTH = 64
-#: the grouped backward's block: 32 rows at a time, one per 8 lanes
-GROUP_BWD_ROWS = 32
+#: slots of 8 values a thread of the grouped backward takes, fewest first
+#: (the kernel's variants)
+GROUP_BWD_VECTORS = (1, 2, 4, 8)
+#: the most threads of a grouped backward block; with 8 slots a thread
+#: that holds rows of up to 256 groups
+GROUP_BWD_MAX_THREADS = 256
+#: grouped backward blocks an SM runs at once (2 of 224 threads at the
+#: training shape's 112 groups)
+GROUP_BWD_BLOCKS_PER_SM = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupBwdPlan:
+    """A CUDA launch of the grouped, gated norm's backward
+    (``csrc/rmsnorm.cu``, token-major): ``shares`` blocks of ``threads``
+    threads; block i takes tokens ``[i * tokens // shares, (i + 1) *
+    tokens // shares)`` whole.  A token's row is ``groups * 8`` slots of 8
+    values (group g's slots ``8g .. 8g + 7``, the first ``width // 8`` of
+    them live); thread j owns slots ``j, j + threads, ...`` (``vectors``
+    of them), the same in every row."""
+    tokens: int
+    groups: int
+    width: int
+    threads: int
+    vectors: int
+    shares: int
+
+    @property
+    def name(self) -> str:
+        return (f"{self.shares} shares of the tokens, {self.threads} threads "
+                f"x {self.vectors} slots")
+
+    def token_range(self, share: int) -> range:
+        return range(share * self.tokens // self.shares,
+                     (share + 1) * self.tokens // self.shares)
+
+    def thread_columns(self, j: int) -> list[tuple[int, int]]:
+        """(group, first column within it) of each live slot thread ``j``
+        owns."""
+        out = []
+        for k in range(self.vectors):
+            q = j + k * self.threads
+            if q < 8 * self.groups and 8 * (q % 8) < self.width:
+                out.append((q // 8, 8 * (q % 8)))
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def group_rmsnorm_bwd_plan(tokens: int, groups: int, width: int,
+                           sms: int = SMS) -> GroupBwdPlan:
+    """The fewest slots a thread that keep a block within
+    ``GROUP_BWD_MAX_THREADS`` threads (in whole warps: a group's 8 slots
+    are 8 neighbouring lanes); ``GROUP_BWD_BLOCKS_PER_SM`` blocks an SM,
+    no more shares than tokens.  At the training shape (112 groups of 64):
+    224 threads of 4 slots, 264 shares of 7-8 tokens."""
+    slots = 8 * groups
+    vectors = next((v for v in GROUP_BWD_VECTORS
+                    if -(-slots // v) <= GROUP_BWD_MAX_THREADS), None)
+    if vectors is None:
+        raise ValueError(f"the CUDA grouped rmsnorm backward takes at most "
+                         f"{GROUP_BWD_MAX_THREADS * GROUP_BWD_VECTORS[-1] // 8}"
+                         f" groups, got {groups}")
+    threads = 32 * -(-slots // (32 * vectors))
+    shares = max(1, min(tokens, GROUP_BWD_BLOCKS_PER_SM * sms))
+    return GroupBwdPlan(tokens, groups, width, threads, vectors, shares)
 
 
 def group_rmsnorm_backward(y: torch.Tensor, gamma: torch.Tensor,
@@ -812,10 +876,10 @@ def group_rmsnorm_backward(y: torch.Tensor, gamma: torch.Tensor,
 
     On CUDA: bf16 y, dout and gate (the gate read through its strides, as
     the forward reads it), fp32 gamma, w a multiple of 8 up to
-    ``GROUP_BWD_MAX_WIDTH``; one C entry (the rows, 8 lanes each, each
-    block taking one group's rows of a share of the tokens and writing its
-    partial dgamma row; then the sum of those rows in a fixed order:
-    deterministic)."""
+    ``GROUP_BWD_MAX_WIDTH``, at most 256 groups; one C entry (each block
+    taking a share of the tokens, whole rows, and writing its partial
+    dgamma row; then the sum of those rows in a fixed order:
+    deterministic), its grid from ``group_rmsnorm_bwd_plan``."""
     if _on_cpu(y, gamma, dout, gate):
         return ref.group_rmsnorm_bwd_ref(y, gamma, dout, eps, gate)
     from repro_torch.kernels import _build
@@ -849,16 +913,16 @@ def group_rmsnorm_backward(y: torch.Tensor, gamma: torch.Tensor,
     if tokens == 0:
         return (dy.reshape(y.shape), torch.zeros_like(gamma),
                 None if gate is None else dgate.reshape(y.shape))
-    # blocks of one group and a share of the tokens, about two per SM
-    splits = max(1, min(-(-2 * SMS // groups), -(-tokens // GROUP_BWD_ROWS)))
-    partial = torch.empty((splits, groups, w), dtype=torch.float32,
+    plan = group_rmsnorm_bwd_plan(tokens, groups, w)
+    partial = torch.empty((plan.shares, groups, w), dtype=torch.float32,
                           device=y.device)
     dgamma = torch.empty_like(gamma)
     _check(_build.entry("group_rmsnorm_bwd")(
         _ptr(y2), _ptr(_aligned(gamma.contiguous())), _ptr(d2), _ptr(g2),
         _ptr(dy), _ptr(dgate), _ptr(partial), _ptr(dgamma), y2.stride(0),
         0 if g2 is None else g2.stride(0), tokens, groups, w, float(eps),
-        splits, _stream(y2)), "group_rmsnorm_bwd")
+        plan.threads, plan.vectors, plan.shares, _stream(y2)),
+        "group_rmsnorm_bwd")
     BACKWARD_LAUNCHES["group_rmsnorm_bwd"] += 1
     return (dy.reshape(y.shape), dgamma,
             None if gate is None else dgate.reshape(y.shape))
@@ -969,6 +1033,65 @@ def ssd_plan(b: int, s: int, nh: int, hd: int = 64,
         if 2 * b * nh * splits >= sms:
             break
     return SsdPlan(b, nh, splits, False, hd)
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdBwdPlan:
+    """A CUDA ssd_scan backward launch (``csrc/ssd_scan_bwd.cu``): its
+    chunk and gradient kernels take one block per (chunk, head group, batch
+    row), a group being ``heads`` consecutive heads (the last may have
+    fewer); the blocks of a group sum their heads' dB and dC into one
+    partial row per position."""
+    b: int
+    nc: int
+    nh: int
+    heads: int
+
+    @property
+    def groups(self) -> int:
+        return -(-self.nh // self.heads)
+
+    @property
+    def blocks(self) -> int:
+        return self.b * self.nc * self.groups
+
+    @property
+    def name(self) -> str:
+        return (f"{self.heads} heads a block, {self.groups} groups, "
+                f"{self.blocks} blocks")
+
+    def block_heads(self):
+        """(batch row, chunk, first head, end head) of each block, in the
+        kernels' grid order (chunk fastest, then group, then batch row)."""
+        for b in range(self.b):
+            for g in range(self.groups):
+                for c in range(self.nc):
+                    yield (b, c, g * self.heads,
+                           min(self.nh, (g + 1) * self.heads))
+
+
+#: heads a block of the SSD backward may take, most first (the kernel takes
+#: up to 8)
+SSD_BWD_HEADS = (8, 4, 2, 1)
+#: the SSD backward's blocks an SM should get (its gradient kernel runs 2
+#: at once).  Measured at the training shape (``chip_smoke.py`` times every
+#: size): 8 heads a block (448 blocks) 3-5% faster than 2 or 4, 10% faster
+#: than 1
+SSD_BWD_BLOCKS_PER_SM = 3
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_bwd_plan(b: int, s: int, nh: int, chunk: int,
+                 sms: int = SMS) -> SsdBwdPlan:
+    """The grid of an SSD scan backward: the most heads a block (the fewest
+    partial rows of dB and dC to write and sum) that still give
+    ``SSD_BWD_BLOCKS_PER_SM`` blocks to every SM.  At the training shape
+    (b = 1, 32 chunks, 112 heads): 8 heads a block, 448 blocks."""
+    nc = -(-s // chunk)
+    for heads in SSD_BWD_HEADS:
+        if b * nc * -(-nh // heads) >= SSD_BWD_BLOCKS_PER_SM * sms:
+            break
+    return SsdBwdPlan(b, nc, nh, heads)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
@@ -1095,11 +1218,12 @@ def ssd_scan_backward(x, dt, A_log, B, C, D, dy, *, chunk: int):
     the final state dropped, for the output gradient ``dy`` (x's shape).
 
     On CUDA: as ``ssd_scan`` takes them, and ``dy`` bf16; one C entry
-    (``csrc/ssd_scan_bwd.cu``: per (batch row, head) the entering states
-    recomputed forwards and the chunks walked backwards, each head writing
-    fp32 partials of dB and dC; then those summed over the heads, and dA_log
-    and dD over the batch rows, in a fixed order: deterministic).  Outputs
-    in the inputs' dtypes."""
+    (``csrc/ssd_scan_bwd.cu``, chunk-parallel: each chunk's state and
+    gradient increments, the two linear recurrences between chunks, each
+    chunk's gradients with its head group's dB and dC summed into fp32
+    partial rows, then those summed over the groups and dA_log and dD over
+    (batch row, chunk) in a fixed order: deterministic), its grid from
+    ``ssd_bwd_plan``.  Outputs in the inputs' dtypes."""
     if _on_cpu(x, dt, A_log, B, C, D, dy):
         return ref.ssd_bwd_ref(x, dt, A_log, B, C, D, dy, chunk)
     from repro_torch.kernels import _build
@@ -1112,15 +1236,20 @@ def ssd_scan_backward(x, dt, A_log, B, C, D, dy, *, chunk: int):
     x, dy = (_aligned(t.contiguous()) for t in (x, dy))
     B, C = _aligned(B), _aligned(C)
     dt, A_log, D = dt.contiguous(), A_log.contiguous(), D.contiguous()
-    nc = -(-s // chunk)
-    # fp32 scratch: the state entering each chunk per (batch row, head);
-    # per head, dB and dC of every position; per (batch row, head) dA and
-    # dD
-    states = torch.empty(b * nh * nc * hd * ds, dtype=torch.float32,
+    plan = ssd_bwd_plan(b, s, nh, chunk)
+    nc = plan.nc
+    # fp32 scratch: per (batch row, head, chunk) the state increment, then
+    # the state entering the chunk (states[0]), the gradient increment,
+    # then the gradient of the state leaving it (states[1]), and la_end;
+    # per head group, dB and dC of every position; per (batch row, chunk,
+    # head) dA and dD
+    states = torch.empty(2, b * nh * nc * hd * ds, dtype=torch.float32,
                          device=x.device)
-    part = torch.empty(b * nh * s * 2 * ds, dtype=torch.float32,
+    la_end = torch.empty(b * nh * nc, dtype=torch.float32, device=x.device)
+    part = torch.empty(b * plan.groups * s * 2 * ds, dtype=torch.float32,
                        device=x.device)
-    part_ad = torch.empty(2 * b * nh, dtype=torch.float32, device=x.device)
+    part_ad = torch.empty(2 * b * nc * nh, dtype=torch.float32,
+                          device=x.device)
     dx = torch.empty_like(x)
     ddt = torch.empty((b, s, nh), dtype=torch.float32, device=x.device)
     dB = torch.empty((b, s, ds), dtype=B.dtype, device=x.device)
@@ -1129,7 +1258,8 @@ def ssd_scan_backward(x, dt, A_log, B, C, D, dy, *, chunk: int):
     _check(_build.entry("ssd_scan_bwd")(
         _ptr(x), _ptr(dt), _ptr(A_log), _ptr(B), _ptr(C), _ptr(D), _ptr(dy),
         _ptr(dx), _ptr(ddt), _ptr(dA_log), _ptr(dB), _ptr(dC), _ptr(dD),
-        _ptr(states), _ptr(part), _ptr(part_ad), b, s, nh, hd, ds, chunk,
+        _ptr(states[0]), _ptr(states[1]), _ptr(la_end), _ptr(part),
+        _ptr(part_ad), b, s, nh, hd, ds, chunk, plan.heads,
         *B.stride()[:2], *C.stride()[:2], _stream(x)), "ssd_scan_bwd")
     BACKWARD_LAUNCHES["ssd_scan_bwd"] += 1
     return dx, ddt, dA_log, dB, dC, dD

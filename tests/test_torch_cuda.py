@@ -662,3 +662,95 @@ def test_autograd_through_the_mamba_kernels_matches_plain(cuda):
     names = ("x", "dt", "A_log", "B", "C", "D", "gn", "z")
     for name, g, w in zip(names, got, want):
         assert _rel(g.cpu(), w) <= 5e-2, name
+
+
+def _ssd_bwd_holds(inputs, chunk):
+    """The SSD backward kernel against the plain backward on ``inputs``:
+    dx, dB, dC within ``BWD_REL``, ddt, dA_log, dD within ``DGAMMA_REL``;
+    one launch counted."""
+    before = ops.BACKWARD_LAUNCHES["ssd_scan_bwd"]
+    got = ops.ssd_scan_backward(*inputs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.BACKWARD_LAUNCHES["ssd_scan_bwd"] == before + 1
+    want = ref.ssd_bwd_ref(*inputs, chunk)
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        limit = BWD_REL if g.dtype == torch.bfloat16 else DGAMMA_REL
+        assert _rel(g, w) <= limit, name
+
+
+def _with_heads(monkeypatch, heads):
+    """``ops.ssd_bwd_plan`` patched to take ``heads`` heads a block."""
+    plan = ops.ssd_bwd_plan
+
+    def patched(b, s, nh, chunk, sms=ops.SMS):
+        return ops.SsdBwdPlan(b, plan(b, s, nh, chunk, sms).nc, nh, heads)
+
+    monkeypatch.setattr(ops, "ssd_bwd_plan", patched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [None, 1, 2, 4, 8])
+def test_ssd_scan_backward_kernel_two_rows_every_head_group(cuda, monkeypatch,
+                                                            heads):
+    """Two batch rows at zamba2-7b's training shape (2 x 32 chunks, 112
+    heads), with the plan's head groups and with each size a block can
+    take: every row's partial dB and dC rows and the (row, chunk) partials
+    of dA_log and dD land in their sums."""
+    if heads is not None:
+        _with_heads(monkeypatch, heads)
+    _ssd_bwd_holds(_ssd_bwd_inputs(cuda, 2, 2048, 112), 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,nh,chunk,heads", [
+    (1, 256, 13, 64, 4),   # 13 heads: the last group of 4 has one
+    (2, 200, 13, 64, 8),   # and of 8, five; a ragged last chunk
+    (1, 65, 8, 64, None),  # a one-position last chunk
+    (2, 65, 13, 16, 2),    # chunks of 16, the last one position
+])
+def test_ssd_scan_backward_kernel_uneven_groups_and_chunks(cuda, monkeypatch,
+                                                           b, s, nh, chunk,
+                                                           heads):
+    """Head groups that do not divide the heads, and a last chunk of one
+    position, against the plain backward."""
+    if heads is not None:
+        _with_heads(monkeypatch, heads)
+    _ssd_bwd_holds(_ssd_bwd_inputs(cuda, b, s, nh), chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,groups,width,gated", [
+    (1000, 112, 64, True),   # 1000 over 264 shares: 3 or 4 tokens each
+    (2047, 112, 64, False),
+    (300, 40, 24, True),     # 160 threads of 2 slots; 3 of 8 slots live
+    (77, 200, 64, True),     # 1600 slots: 8 a thread
+])
+def test_group_rmsnorm_backward_kernel_uneven_shares(cuda, tokens, groups,
+                                                     width, gated):
+    """Token counts that split unevenly over the shares, and rows of other
+    group counts and widths, against the plain backward: dy and dgate
+    within ``BWD_REL``, dgamma within ``DGAMMA_REL``; one launch counted."""
+    plan = ops.group_rmsnorm_bwd_plan(tokens, groups, width)
+    assert tokens % plan.shares or plan.shares == tokens
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    y = (torch.randn(tokens, groups, width, generator=gen, device=cuda)
+         * 2).bfloat16()
+    gamma = torch.rand(groups, width, generator=gen, device=cuda) + 0.5
+    dout = torch.randn(tokens, groups, width, generator=gen,
+                       device=cuda).bfloat16()
+    z = torch.randn(tokens, 2 * groups * width, generator=gen,
+                    device=cuda).bfloat16()
+    gate = z[:, :groups * width].unflatten(-1, (groups, width)) if gated \
+        else None
+    before = ops.BACKWARD_LAUNCHES["group_rmsnorm_bwd"]
+    got = ops.group_rmsnorm_backward(y, gamma, dout, 1e-6, gate=gate)
+    torch.cuda.synchronize()
+    assert ops.BACKWARD_LAUNCHES["group_rmsnorm_bwd"] == before + 1
+    want = ref.group_rmsnorm_bwd_ref(y, gamma, dout, 1e-6, gate)
+    assert _rel(got[0], want[0]) <= BWD_REL
+    assert _rel(got[1], want[1]) <= DGAMMA_REL
+    if gated:
+        assert _rel(got[2], want[2]) <= BWD_REL
+    else:
+        assert got[2] is None
