@@ -23,24 +23,36 @@ Phases, in order, each failing the run on any error:
 2. serve-llama -- llama3-8b at full width and depth, random bf16 weights from
    a seed, through ``launch.serve.make_paged_server``: 8 requests of seeded
    prompt lengths in 64-256, 16 new tokens each, 4 slots, prefill chunk 64,
-   page size 16.  Every count of kernel launches is set to 0 just before and
-   read just after; every kernel must have launched, at the per-step counts
-   of one paged step (65 rmsnorm, 129 matmul, 32 flash_attention).
+   page size 16.  The step runs as CUDA graphs (``launch.steps.
+   CapturedStep``), captured at the first prefill chunk and the first
+   decode tick: exactly two, each shape's warm-up and capture seconds and
+   graph pool bytes printed.  Every count of kernel launches is set to 0
+   just before and read just after; every kernel must have launched, at
+   the per-step counts of one paged step (65 rmsnorm, 129 matmul, 32
+   flash_attention) times the steps and the two warm-up runs (a replay
+   counts what its capture recorded).  Then the same prompts through the
+   uncaptured body (``info.plain``) and the captured step, five runs of
+   each in turns (U C C U U C ...): every request's greedy tokens must
+   equal the counted run's; the wall ms per prefill chunk and decode tick
+   of both, and the replays' device time by CUDA events.  Last a profiled
+   rerun through the graphs (busy share, launches a step, time by kernel).
 3. path-check -- llama3-8b at full width with the depth cut to 2 layers: two
    prefill chunks and one decode tick of ``models.lm.paged_step`` on the card
    (kernels, bf16) and on the CPU (plain versions, fp32, from the same bf16
    weights); the logits must agree within the bf16 tolerance stated there
    (``PATH_TOL``), and the top-1 agreement is reported.
 4. serve-qwen -- qwen1.5-0.5b at full size (qkv bias in the matmul
-   epilogue, the head tied to the embedding), 4 requests.
+   epilogue, the head tied to the embedding), 4 requests, captured, and
+   once more uncaptured for the tokens.
 5. serve-zamba -- zamba2-7b at full width and all 81 layers (13 super-blocks
    of shared attention + 5 Mamba2 blocks, and 3 tail Mamba2 blocks), random
    bf16 weights from a seed, in the server's recurrent mode: 4 requests of
    seeded prompt lengths in 64-256, 16 new tokens each, 4 slots, prefill
-   chunk 64, page size 16.  Launch counts as in phase 2, at 283 matmul, 163
-   rmsnorm (95 block norms and 68 grouped norms), 13 flash_attention and 68
-   ssd_scan per step.  The result line's forward rows read their launches
-   from it.
+   chunk 64, page size 16; the prompt tails go through the decode-shaped
+   graph.  Graphs, launch counts, tokens, timed pairs and profile as in
+   phase 2, at 283 matmul, 163 rmsnorm (95 block norms and 68 grouped
+   norms), 13 flash_attention and 68 ssd_scan per step.  The result line's
+   forward rows read their launches from it.
 6. path-check-zamba -- zamba2-7b at full width with the depth cut to 7
    layers (one super-block and one tail Mamba2 block): slot 0's chunks at 0
    and 64 (the second carries the state), slot 1's chunk at 0, and one
@@ -733,7 +745,9 @@ class StepMeter:
     through the decode-shaped step, and a call whose live row belongs to a
     slot still prefilling is counted as a "tail", not as a decode tick.
     The step hands back numpy tokens, so every call ends synchronised with
-    the device and its host time covers its device work."""
+    the device and its host time covers its device work.  ``replay_ms``
+    sums, by kind, the device time of the graph replays inside the calls
+    (the CUDA events ``serve_once`` records around each replay)."""
 
     KINDS = ("prefill", "tail", "decode")
 
@@ -742,6 +756,8 @@ class StepMeter:
         self.fn = server.step_fn
         self.calls = dict.fromkeys(self.KINDS, 0)
         self.seconds = dict.fromkeys(self.KINDS, 0.0)
+        self.replay_ms = dict.fromkeys(self.KINDS, 0.0)
+        self.events = None     # (start, end) of the replays of this call
 
     def _kind(self, tokens, rest) -> str:
         if tokens.shape[1] > 1:
@@ -755,25 +771,78 @@ class StepMeter:
 
     def __call__(self, tokens, *rest):
         kind = self._kind(tokens, rest)
+        self.events = []
         t0 = time.perf_counter()
         out = self.fn(tokens, *rest)
         self.calls[kind] += 1
         self.seconds[kind] += time.perf_counter() - t0
+        self.replay_ms[kind] += sum(s.elapsed_time(e) for s, e in self.events)
         return out
 
 
+def serve_once(torch, server, step_fn, prompts, rid0: int):
+    """Serve ``prompts`` through ``step_fn`` (rids from ``rid0``) on the
+    drained ``server``; returns (its meter, each request's tokens by prompt
+    index).  For the captured step, CUDA events around each graph replay
+    give the meter the device time of every step, from its first kernel's
+    start to its last one's end."""
+    from repro_torch.runtime.server import Request
+
+    server.step_fn = step_fn
+    meter = StepMeter(server)
+    server.step_fn = meter
+    graphs = [s.graph for s in step_fn.step.shapes.values()
+              if step_fn.captured and s.graph is not None]
+    for graph in graphs:
+        def timed(graph=graph, replay=type(graph).replay):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            replay(graph)
+            end.record()
+            meter.events.append((start, end))
+
+        graph.replay = timed
+    for i, p in enumerate(prompts):
+        server.submit(Request(rid=rid0 + i, prompt=p, max_new=SERVE["max_new"]))
+    try:
+        server.run_until_drained()
+    finally:
+        for graph in graphs:
+            del graph.replay
+    return meter, {r.rid - rid0: r.out for r in server.completed
+                   if r.rid >= rid0}
+
+
+#: captured and uncaptured runs of a serve phase's workload timed in turns
+#: (uncaptured, captured, captured, uncaptured, ...): the host sets the
+#: uncaptured step's time and moves between calls, so the two are compared
+#: only inside one call, interleaved
+TIMED_PAIRS = 5
+
+
 def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
-                kernel_ms=None, profile: bool = False) -> dict:
+                kernel_ms=None, profile: bool = False,
+                pairs: int = 0) -> dict:
     """Serve ``requests`` seeded prompts through ``make_paged_server`` and
-    ``run_until_drained``; check every request and the page pool, and that
-    each kernel launched exactly its per-step count times the steps taken.
-    ``kernel_ms`` (the kernel phase's kernel time per prefill chunk and per
-    decode tick) is set beside each step's mean wall time.  With
-    ``profile`` the same requests are served once more under
-    ``torch.profiler`` for the device's busy share, its launches per step
-    and its time by kernel (the counts are read before, and checked after
-    the profile, so that a tree whose counts differ still prints it).
-    Returns the launch counts of the run."""
+    ``run_until_drained``, the step captured as a CUDA graph at each of its
+    two shapes; check every request and the page pool, that exactly two
+    graphs were captured, and that each kernel launched exactly its
+    per-step count times the steps taken and the warm-up runs of the body
+    (a replay counts what its capture recorded).  The capture's cost is
+    printed per shape (warm-up, capture, graph pool bytes).  Then the same
+    prompts through the uncaptured body (``info.plain``): every request's
+    greedy tokens must be identical.  ``pairs`` more pairs of runs, in
+    turns, time the captured and the uncaptured step by kind (wall ms per
+    step; for the captured one also the device time of its replays, by
+    CUDA events).  ``kernel_ms`` (the kernel phase's kernel time per
+    prefill chunk and per decode tick) is set beside each step's mean wall
+    time.  With ``profile`` the same requests are served once more through
+    the captured step under ``torch.profiler`` for the device's busy share,
+    its launches per step and its time by kernel (the counts are read
+    before, and checked after the profile, so that a tree whose counts
+    differ still prints it).  Returns the launch counts of the counted
+    run."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -784,6 +853,8 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     scfg = serve.paged_server_config([len(p) for p in prompts], **SERVE)
     server, _ = serve.make_paged_server(
         cfg, scfg, lm.init_params(cfg, seed=seed, device=dev), device=dev)
+    step = server.step_fn
+    captured = step.step
     meter = StepMeter(server)
     server.step_fn = meter
     for rid, p in enumerate(prompts):
@@ -812,34 +883,104 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     assert server.alloc.free_pages == scfg.paged.num_pages - 1, \
         "pages did not return to the pool"
     steps = sum(meter.calls.values())
-    want = {k: v * steps for k, v in launches_per_step(cfg).items()}
+    per_step = launches_per_step(cfg)
+    want = {k: v * (steps + captured.warmups) for k, v in per_step.items()}
 
     prefill_tok = sum(len(p) for p in prompts)
     decode_tok = requests * (SERVE["max_new"] - 1)
     calls, secs = meter.calls, meter.seconds
     prompt_s = secs["prefill"] + secs["tail"]
-    log(f"  served {requests} requests in {ticks} ticks, {wall:.3f}s: "
+    log(f"  served {requests} requests in {ticks} ticks, {wall:.3f}s "
+        f"(captures included): "
         f"{calls['prefill']} prefill chunks {secs['prefill']:.3f}s and "
         f"{calls['tail']} prompt-tail steps {secs['tail']:.3f}s "
         f"({prefill_tok / prompt_s:.1f} prompt tok/s), "
         f"{calls['decode']} decode ticks {secs['decode']:.3f}s "
         f"({decode_tok / secs['decode']:.1f} new tok/s, "
         f"{1e3 * secs['decode'] / calls['decode']:.2f} ms per tick)")
-    for kind, ms in (kernel_ms or {}).items():
-        wall_ms = 1e3 * secs[kind] / calls[kind]
-        log(f"  {kind}: {wall_ms:.2f} ms per step, of which the kernels "
-            f"{ms:.2f} ms ({ms / wall_ms:.0%}; kernel phase's times)")
-    log(f"  launches over {steps} steps: {launches} (= per step "
-        f"{launches_per_step(cfg)} x {steps})")
+    for key, shape in captured.shapes.items():
+        log(f"  graph for tokens {key[0]}: warm-up {shape.warmup_s:.3f}s, "
+            f"capture {shape.capture_s:.3f}s, graph pool "
+            f"{shape.pool_bytes} bytes ({shape.pool_bytes / 2**20:.1f} MiB), "
+            f"launches a replay {shape.launches}")
+    log(f"  launches over {steps} steps and {captured.warmups} warm-up runs: "
+        f"{launches} (= per step {per_step} x {steps + captured.warmups})")
     log(f"  request 0 -> {done[0].out}")
-    if profile:
-        profile_run(torch, server, meter, prompts, cfg.name, wall)
+    assert captured.captures == 2 and len(captured.shapes) == 2, \
+        f"{captured.captures} captures of {len(captured.shapes)} shapes"
+    for key, shape in captured.shapes.items():
+        assert shape.launches == per_step, (key, shape.launches)
     assert launches == want, f"launches {launches}, expected {want}"
-    del server, meter  # the step holds the weights
-    gc.collect()       # the meter and the server refer to each other
+
+    tokens = {r.rid: r.out for r in done}
+    runs = compare_runs(torch, server, step, prompts, tokens, pairs)
+    log(f"  uncaptured step: greedy tokens of every request identical to "
+        f"the captured step's, in {len(runs['uncaptured'])} uncaptured and "
+        f"{len(runs['captured'])} more captured runs")
+    if pairs:
+        wall = report_pairs(runs, kernel_ms)
+    if profile:
+        server.step_fn = step
+        meter = StepMeter(server)
+        server.step_fn = meter
+        profile_run(torch, server, meter, prompts, cfg.name, wall)
+    # the step holds the weights; each meter and its server refer to each
+    # other, so only a collection frees them
+    del server, meter, step, captured, runs
+    gc.collect()
     if dev == "cuda":
         torch.cuda.empty_cache()
     return launches
+
+
+def compare_runs(torch, server, step, prompts, tokens, pairs: int) -> dict:
+    """Serve ``prompts`` again through the uncaptured body, and with
+    ``pairs`` through the uncaptured and the captured step in turns (U C C
+    U U C ...: ``pairs`` runs of each, the first of them that one
+    uncaptured run); every run's tokens must be ``tokens``.  Returns each
+    mode's meters."""
+    runs = {"uncaptured": [], "captured": []}
+    order = [m for i in range(pairs) for m in (
+        ("uncaptured", "captured") if i % 2 == 0 else
+        ("captured", "uncaptured"))] or ["uncaptured"]
+    for i, mode in enumerate(order):
+        fn = step if mode == "captured" else step.uncaptured()
+        meter, outs = serve_once(torch, server, fn, prompts, 2000 + 100 * i)
+        bad = [r for r in tokens if outs.get(r) != tokens[r]]
+        assert not bad, f"run {i}, {mode}: the tokens of requests {bad} " \
+            f"differ from the counted captured run's"
+        runs[mode].append(meter)
+    return runs
+
+
+def report_pairs(runs: dict, kernel_ms) -> float:
+    """The wall ms per step by kind of each run of ``compare_runs``, their
+    medians, and for the captured runs the replays' device ms per step and
+    its share of the wall.  Returns the median captured run's seconds in
+    its steps."""
+    pairs = len(runs["captured"])
+    walls = [sum(m.seconds.values()) for m in runs["captured"]]
+    log(f"  captured against uncaptured, {pairs} pairs in turns (wall ms "
+        f"per step by kind, host clock around each step, which ends "
+        f"synchronised):")
+    for kind in StepMeter.KINDS:
+        ms = {mode: [1e3 * m.seconds[kind] / m.calls[kind] for m in meters]
+              for mode, meters in runs.items() if meters[0].calls[kind]}
+        if not ms:
+            continue
+        dev = statistics.median(m.replay_ms[kind] / m.calls[kind]
+                                for m in runs["captured"])
+        unc, cap = (statistics.median(ms[m]) for m in ("uncaptured",
+                                                        "captured"))
+        log(f"    {kind} ({runs['captured'][0].calls[kind]} a run): "
+            f"uncaptured {', '.join(f'{x:.2f}' for x in ms['uncaptured'])} "
+            f"(median {unc:.2f}); captured "
+            f"{', '.join(f'{x:.2f}' for x in ms['captured'])} (median "
+            f"{cap:.2f}, {unc / cap:.2f}x faster); the replays' device time "
+            f"{dev:.2f} ms a step ({dev / cap:.0%} of the captured wall)"
+            + (f"; the kernel phase's kernels {kernel_ms[kind]:.2f} ms"
+               if kernel_ms and kind in kernel_ms else ""))
+    return statistics.median(walls)
 
 
 def profile_run(torch, server, meter, prompts, name: str,
@@ -2208,7 +2349,7 @@ def main(argv=None) -> int:
     if "serve-llama" in phases:
         launches["llama3-8b"] = serve_phase(
             torch, llama, requests=8, seed=0, kernel_ms=kernel_ms("llama3-8b"),
-            profile=True)
+            profile=True, pairs=TIMED_PAIRS)
         done("serve-llama")
     if "path-check" in phases:
         # depth cut to 2 layers so that the fp32 CPU side stays small
@@ -2221,7 +2362,8 @@ def main(argv=None) -> int:
     if "serve-zamba" in phases:
         # the forward rows of the result line read their counts from this run
         launches[MAIN] = serve_phase(torch, zamba, requests=4, seed=2,
-                                     kernel_ms=kernel_ms(MAIN), profile=True)
+                                     kernel_ms=kernel_ms(MAIN), profile=True,
+                                     pairs=TIMED_PAIRS)
         done("serve-zamba")
     if "path-check-zamba" in phases:
         # depth cut to 7 layers (one super-block of 6 and one tail Mamba2

@@ -89,16 +89,24 @@ def _ptr(t):
 
 
 _COUNTERS: dict[tuple, torch.Tensor] = {}
+#: buffers a larger one replaced: a captured CUDA graph may still read them
+_RETIRED: list[torch.Tensor] = []
 
 
 def _counters(t: torch.Tensor, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 arrival counters for the split kernels on
     ``t``'s device and current stream.  The kernel's last-arriving block
-    resets each counter it used, so the buffer stays zero between launches;
-    a launch that is refused ran no block and leaves it as it was."""
+    resets each counter it used, so the buffer stays zero between launches
+    (and between replays of a captured graph); a launch that is refused ran
+    no block and leaves it as it was.  A buffer is never freed, since a
+    graph captured on its stream holds its address.  A graph capture must
+    find its stream's buffer made (``launch.steps.CapturedStep`` runs the
+    body on the capture stream first)."""
     key = (t.device, _stream(t))
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
         size = max(n, 2 * (0 if buf is None else buf.numel()), 1024)
         buf = _COUNTERS[key] = torch.zeros(size, dtype=torch.int32,
                                            device=t.device)

@@ -4,11 +4,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
 
-runs on CUDA unless ``--device cpu`` is given.  A model with recurrent
-segments (zamba2-7b) is served in recurrent mode: per-slot state pools
-beside the page pools, prompt tails fed one token at a time.  A mesh of more than one
-rank runs one process per rank under ``torch.distributed.run`` (which sets
-the rendezvous environment), e.g.
+runs on CUDA unless ``--device cpu`` is given; on CUDA the step runs as
+a CUDA graph captured at each of its two shapes (``steps.CapturedStep``).
+A model with recurrent segments (zamba2-7b) is served in recurrent mode:
+per-slot state pools beside the page pools, prompt tails fed one token at
+a time.  A mesh of more than one rank runs one process per rank under
+``torch.distributed.run`` (which sets the rendezvous environment), e.g.
 ``python -m torch.distributed.run --nproc-per-node 4 -m
 repro_torch.launch.serve --d1 2 --d2 2``.
 """
@@ -25,7 +26,8 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.core.mesh import atp_topo, resolve_device
-from repro_torch.launch.steps import build_paged_step
+from repro_torch.launch.steps import (CapturedStep, StepInfo,
+                                     build_paged_step, check_slot_ids)
 from repro_torch.models import lm
 from repro_torch.models.paging import PagedConfig
 from repro_torch.runtime.server import Request, Server, ServerConfig
@@ -63,9 +65,39 @@ def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
     return Server(scfg, step_fn, init_caches), info
 
 
+@dataclasses.dataclass
+class ServeStep:
+    """The paged step in the Server's host-side calling convention:
+    ``(tokens, start, table[, slot], caches)`` with numpy inputs (the slot
+    ids in the recurrent mode only) -> (numpy greedy tokens, caches).  It
+    runs the captured step (``build_paged_step``), or with ``captured``
+    off the uncaptured body (``info.plain``), the same computation issued
+    op by op.  Either way a live slot id that appears twice is refused on
+    the host before anything is copied to the device."""
+    step: CapturedStep
+    info: StepInfo
+    params: dict
+    captured: bool = True
+
+    def __call__(self, *args):
+        if self.captured:
+            return self.step(self.params, *args)
+        *inputs, caches = args
+        if self.step.slots is not None:
+            check_slot_ids(inputs[3], self.step.slots)
+        dev = self.info.device
+        toks, caches = self.info.plain(
+            self.params, *(torch.as_tensor(np.asarray(a), device=dev)
+                           for a in inputs), caches)
+        return toks.cpu().numpy(), caches
+
+    def uncaptured(self) -> "ServeStep":
+        return dataclasses.replace(self, captured=False)
+
+
 def _build_paged_step_fn(cfg, scfg: ServerConfig, params, topo, device):
-    """The step in the Server's host-side calling convention: numpy in,
-    numpy greedy tokens out, caches on the device."""
+    """The step in the Server's calling convention (a :class:`ServeStep`)
+    and the caches' maker."""
     slots = scfg.batch_slots if scfg.recurrent else None
     step, info = build_paged_step(cfg, topo, device=device, slots=slots)
     dev = info.device
@@ -76,15 +108,7 @@ def _build_paged_step_fn(cfg, scfg: ServerConfig, params, topo, device):
         return lm.init_paged_caches(cfg, info.ctx, scfg.paged, device=dev,
                                     slots=slots)
 
-    def step_fn(*args):
-        """(tokens, start, table[, slot], caches): numpy inputs, the slot
-        ids in the recurrent mode only."""
-        *inputs, caches = args
-        toks, caches = step(params, *(torch.as_tensor(a, device=dev)
-                                      for a in inputs), caches)
-        return toks.cpu().numpy(), caches
-
-    return step_fn, init_caches, info
+    return ServeStep(step, info, params), init_caches, info
 
 
 def sample_prompts(cfg, requests: int, prompt_len: int, seed: int):

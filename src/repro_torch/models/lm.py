@@ -14,7 +14,10 @@ model functions take the sharded tree.  A Python loop over layers replaces
 Recurrent kinds (zamba, mamba) keep per-slot STATE POOLS beside the page
 pools, addressed by a slot id per batch row: the SSD scan reads and writes
 its pool rows in place; the small conv-state rows are gathered by slot id
-and written back (``_state_take`` / ``_state_put``).
+and written back (``_state_take`` / ``_state_put``).  The step addresses
+them through :func:`fixed_slot_map`, whose shapes do not depend on the
+slot ids and which needs no host sync, so the step can be captured as a
+CUDA graph; :func:`slot_map` is the host-synced form it replaced.
 """
 from __future__ import annotations
 
@@ -237,14 +240,34 @@ def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
 
 @dataclasses.dataclass(frozen=True)
 class SlotMap:
-    """How one step's batch rows address the state pools (all [b] or
-    fewer, on the device).  Made once per step by :func:`slot_map`."""
+    """How one step's batch rows address the state pools (on the device).
+    Made once per step by :func:`fixed_slot_map` (``src`` and ``hit`` set,
+    no ``put``) or by the host-synced :func:`slot_map` (``put`` set)."""
 
     slot: torch.Tensor          # int32 slot id per batch row, sentinel kept
     take: torch.Tensor          # pool row each batch row reads (clamped)
     fresh: torch.Tensor         # rows whose fed window starts at position 0
     rows: torch.Tensor | None   # batch rows that write back (None: all)
-    put: torch.Tensor           # the pool rows they write
+    put: torch.Tensor | None    # the pool rows they write
+    src: torch.Tensor | None = None   # [slots] batch row each pool row takes
+    hit: torch.Tensor | None = None   # [slots] whether a batch row writes it
+
+
+def fixed_slot_map(slot: torch.Tensor, start: torch.Tensor,
+                   slots: int) -> SlotMap:
+    """:func:`slot_map` with no host sync and no shape that depends on the
+    ids: a one-hot match of ``slot [b]`` against ``0 .. slots-1`` picks,
+    for each pool row, the batch row that writes it (``src``) and whether
+    one does (``hit``); the sentinel ``slots`` matches no pool row.  Live
+    ids must be distinct, which the host checks where they are made
+    (``launch.steps.check_slot_ids``)."""
+    sid = slot.long()
+    b = sid.shape[0]
+    match = sid[None, :] == torch.arange(slots, device=slot.device)[:, None]
+    src = (match.long() * torch.arange(b, device=slot.device)[None, :]).sum(1)
+    return SlotMap(slot=slot.to(torch.int32), take=sid.clamp(0, slots - 1),
+                   fresh=start == 0, rows=None, put=None, src=src,
+                   hit=match.any(1))
 
 
 def slot_map(slot: torch.Tensor, start: torch.Tensor, slots: int) -> SlotMap:
@@ -284,8 +307,15 @@ def _state_take(pool: dict, sm: SlotMap) -> dict:
 
 def _state_put(pool: dict, rows: dict, sm: SlotMap) -> None:
     """Write the updated state rows back into the pools IN PLACE (the pools
-    are views of the step's cache tensors); sentinel rows are dropped."""
+    are views of the step's cache tensors); sentinel rows are dropped.
+    From a :func:`fixed_slot_map` every pool row is rewritten, with its
+    own value where no batch row writes it."""
     for k, a in pool.items():
+        if sm.put is None:
+            new = rows[k].index_select(0, sm.src).to(a.dtype)
+            a.copy_(torch.where(sm.hit.view((-1,) + (1,) * (a.dim() - 1)),
+                                new, a))
+            continue
         r = rows[k] if sm.rows is None else rows[k].index_select(0, sm.rows)
         a.index_copy_(0, sm.put, r.to(a.dtype))
 
@@ -449,8 +479,8 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
         if paged.get("slot") is None:
             raise ValueError("paged serving of recurrent kinds needs "
                              "paged['slot'], the per-row slot ids")
-        sm = slot_map(paged["slot"], paged["start"],
-                      _state_slots(cfg, caches))
+        sm = fixed_slot_map(paged["slot"], paged["start"],
+                            _state_slots(cfg, caches))
     x = embed_tokens(ctx, cfg, params["embed"], tokens)
     x_emb0 = x
     plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)

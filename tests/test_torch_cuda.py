@@ -754,3 +754,157 @@ def test_group_rmsnorm_backward_kernel_uneven_shares(cuda, tokens, groups,
         assert _rel(got[2], want[2]) <= BWD_REL
     else:
         assert got[2] is None
+
+
+# ---------------------------------------------------------------------------
+# The paged serving step captured as CUDA graphs (launch.steps.CapturedStep)
+# at published widths, depth cut: llama3-8b at 2 layers, zamba2-7b at 7
+# (a super-block of the shared block and 5 Mamba2 blocks, 1 tail block).
+# ---------------------------------------------------------------------------
+
+GRAPH_LAYERS = {"llama3-8b": 2, "zamba2-7b": 7}
+
+
+def _card_server(arch, cuda, seed=4, requests=3):
+    """A server at ``GRAPH_LAYERS`` depth, 2 slots (so they recycle), chunk
+    64, and seeded prompts of 32-128 tokens."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=GRAPH_LAYERS[arch])
+    prompts = serve.sample_prompts(cfg, requests, 128, seed)
+    scfg = serve.paged_server_config(
+        [len(p) for p in prompts], slots=2, prefill_chunk=64, page_size=16,
+        max_seq=160, max_new=6)
+    server, _ = serve.make_paged_server(
+        cfg, scfg, lm.init_params(cfg, seed=seed, device=cuda), device=cuda)
+    return cfg, server, prompts
+
+
+def _serve_all(server, prompts, rid0=0):
+    from repro_torch.runtime.server import Request
+
+    for rid, p in enumerate(prompts):
+        server.submit(Request(rid=rid0 + rid, prompt=p, max_new=6))
+    server.run_until_drained()
+    return {r.rid - rid0: r.out for r in server.completed if r.rid >= rid0}
+
+
+def _idle_inputs(server, rows, s):
+    """Step inputs of shape [rows, s] that write nothing live: every row on
+    the garbage page at position 0, every slot id the sentinel."""
+    import numpy as np
+
+    from repro_torch.models.paging import GARBAGE_PAGE
+
+    b, mp = server.cfg.batch_slots, server.cfg.paged.pages_per_slot
+    args = [np.zeros((rows, s), np.int32), np.zeros(rows, np.int32),
+            np.full((rows, mp), GARBAGE_PAGE, np.int32)]
+    if server.cfg.recurrent:
+        args.append(np.full(rows, b, np.int32))
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_LAYERS))
+def test_captured_serving_gives_the_uncaptured_tokens(cuda, arch):
+    """The same prompts through the captured step and then through the
+    uncaptured body (``info.plain``) on the same server: identical greedy
+    tokens for every request, and exactly two graphs."""
+    _, server, prompts = _card_server(arch, cuda)
+    got = _serve_all(server, prompts)
+    step = server.step_fn
+    assert step.step.captures == 2 and len(step.step.shapes) == 2
+    server.step_fn = step.uncaptured()
+    want = _serve_all(server, prompts, rid0=100)
+    assert len(got) == len(prompts) and all(len(o) == 6 for o in got.values())
+    assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_LAYERS))
+def test_capture_leaves_every_pool_row_but_the_garbage_page(cuda, arch):
+    """Serve through the uncaptured body so that the pools hold live pages
+    and slot states, then warm up and capture both shapes: every page but
+    the garbage page and every state row stays bit-identical."""
+    from repro_torch.models.paging import GARBAGE_PAGE
+
+    _, server, prompts = _card_server(arch, cuda)
+    step = server.step_fn
+    server.step_fn = step.uncaptured()
+    _serve_all(server, prompts[:2])
+    before = {k: t.clone() for k, t in _named_leaves(server.caches)}
+    for rows, s in ((1, server.cfg.prefill_chunk),
+                    (server.cfg.batch_slots, 1)):
+        step.step(step.params, *_idle_inputs(server, rows, s), server.caches)
+    torch.cuda.synchronize()
+    assert step.step.captures == 2
+    for k, t in _named_leaves(server.caches):
+        if k.endswith("/k") or k.endswith("/v"):
+            keep = [p for p in range(t.shape[1]) if p != GARBAGE_PAGE]
+            assert torch.equal(t[:, keep], before[k][:, keep]), k
+        else:
+            assert torch.equal(t, before[k]), k
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_LAYERS))
+def test_replays_count_the_captured_launches(cuda, arch):
+    """``ops.LAUNCHES`` after n replays is n times what the capture
+    recorded, and the capture recorded every kernel of the path."""
+    _, server, _ = _card_server(arch, cuda)
+    step = server.step_fn
+    args = _idle_inputs(server, server.cfg.batch_slots, 1)
+    step(*args, server.caches)                     # warm-up and capture
+    (shape,) = step.step.shapes.values()
+    kernels = {"matmul", "flash_attention", "rmsnorm"} | (
+        {"ssd_scan"} if server.cfg.recurrent else set())
+    assert {k for k, v in shape.launches.items() if v > 0} == kernels
+    ops.reset_launches()
+    for _ in range(3):
+        step(*args, server.caches)
+    assert ops.LAUNCHES == {k: 3 * v for k, v in shape.launches.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_LAYERS))
+def test_capture_raises_on_a_host_sync_and_does_not_fall_back(cuda, arch,
+                                                               monkeypatch):
+    """A host sync planted in the step's body (zamba2: the host-synced
+    ``lm.slot_map`` in place of ``fixed_slot_map``; llama3: a ``.item()``
+    on the logits) fails the capture, which raises; no shape is kept, and
+    a second call raises again instead of running the body uncaptured."""
+    from repro_torch.models import lm
+
+    _, server, _ = _card_server(arch, cuda)
+    if server.cfg.recurrent:
+        monkeypatch.setattr(lm, "fixed_slot_map", lm.slot_map)
+    else:
+        paged_step = lm.paged_step
+
+        def synced(*a, **kw):
+            logits, caches = paged_step(*a, **kw)
+            logits.float().sum().item()
+            return logits, caches
+
+        monkeypatch.setattr(lm, "paged_step", synced)
+    step = server.step_fn
+    args = _idle_inputs(server, server.cfg.batch_slots, 1)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            step(*args, server.caches)
+        assert step.step.shapes == {}
+    assert step.step.warmups == 2 and step.step.captures == 0
+    monkeypatch.undo()
+    torch.cuda.synchronize()
