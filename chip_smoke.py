@@ -60,24 +60,29 @@ Phases, in order, each failing the run on any error:
    phase 3; the fp32 SSD state pools are compared too.
 7. train-kernels -- at llama3-8b's training shapes (4096 wide, 32 q / 8
    kv heads of 128, d_ff 14336, vocab 128256, 2048 tokens), first each
-   forward kernel against its plain version as in phase 1 (every
-   projection's matmul, the attention with its fp32 log-sum-exp within
-   1e-3, the block norm), then each backward kernel (matmul dgrad and
-   wgrad, flash_attention_bwd, rmsnorm_bwd) against its plain backward on
-   the same bf16 inputs (the plain attention backward reads the plain
-   forward's output and log-sum-exp): every gradient within a per-tensor
-   relative L2 error of 2e-2, rmsnorm's fp32 dgamma of 1e-3; the
-   attention backward also with rows that see no key and at s = 2100 (not
-   a multiple of 64) at 32 / 8 heads, and its dK/dV plan
+   projection's matmul forward against its plain version as in phase 1 and
+   its backward (dgrad and wgrad, wgrad reading ``a^T`` without a copy)
+   against the plain backward (``matmul_steps``), then the attention with
+   its fp32 log-sum-exp within 1e-3 and the block norm, then the other
+   backward kernels (flash_attention_bwd, rmsnorm_bwd) against their plain
+   backward on the same bf16 inputs (the plain attention backward reads
+   the plain forward's output and log-sum-exp): every gradient within a
+   per-tensor relative L2 error of 2e-2, rmsnorm's fp32 dgamma of 1e-3;
+   the attention backward also with rows that see no key and at s = 2100
+   (not a multiple of 64) at 32 / 8 heads, and its dK/dV plan
    (``ops.attention_bwd_plan``: items, longest and mean) is printed.  All
    timed as in phase 1 against the bound, the timer's floor and the
    library call (torch.matmul, scaled_dot_product_attention, F.rms_norm;
-   for the backward, their autograd backward); wgrad's copy of A^T is
-   timed on its own too.  ``--parent DIR``: the flash_attention_bwd and
-   rmsnorm backward kernels of the older checkout in DIR, built by its own
-   ``_build`` into its own build directory, timed interleaved with this
-   tree's (parent, tree, tree, parent); the backward kernels' launches are
-   also timed by the profiler, kernel by kernel.
+   for the backward, their autograd backward); each timed matmul line
+   names the plans it took, and the matmul at K = N = 4096 is timed on
+   variants 1 and 2 at M = 256-2048 (what sets ``ops.TRAIN_M``).
+   ``--parent DIR``: the matmul, flash_attention_bwd and rmsnorm backward
+   kernels of the older checkout in DIR, built by its own ``_build`` into
+   its own build directory (the matmul launched with that tree's plans
+   and C arguments), timed interleaved with this tree's (parent, tree,
+   tree, parent): the matmul forward and backward at each shape and per
+   training step; the backward kernels' launches are also timed by the
+   profiler, kernel by kernel.
 8. train -- ``launch.steps.build_train_step`` on llama3-8b at full width
    with the depth cut to 4 layers, b = 1, s = 2048, bf16 weights and fp32
    AdamW moments, remat on: 6 steps on one repeated batch; the loss must
@@ -111,19 +116,20 @@ Phases, in order, each failing the run on any error:
    ``ssd_bwd_grad_kernel``, ``ssd_bwd_reduce_kernel``); the SSD backward's
    bounds are printed three ways (the function's bytes, its operations at
    the bf16 peak, the design's own bytes and products).  ``--parent DIR``:
-   the two kernels of the older checkout in DIR (its C entries of one
-   launch per (batch row, head) and per (token share, group), their
-   arguments prepared as its wrappers did) timed in turns with this
-   tree's (parent, tree, tree, parent).  Then, for correctness, every
-   forward kernel at the shapes the
-   zamba step gives it, within phase 1's limits (each projection at M =
-   2048, the block norm over rows of 3584, the grouped, gated norm over
-   2048 x 112 rows of 64, the SSD scan from zeros over 32 chunks with its
-   final state, the attention at head dim 112 with its log-sum-exp), and
-   the backward shapes the llama phases do not meet: the matmul backward
-   of B|C|dt (N = 240) and of z|x, the rmsnorm backward over rows of
-   3584, and the attention backward at head dim 112 with a GQA group of
-   1.
+   the two kernels of the older checkout in DIR (its C entries, which take
+   this tree's arguments, called through this tree's wrappers) timed in
+   turns with this tree's (parent, tree, tree, parent).  Then the nine projections'
+   matmul forward and backward at M = 2048 (``matmul_steps``: checked,
+   timed against the bound and the library, and with ``--parent DIR`` in
+   turns with DIR's kernel, per shape and per training step; B|C|dt, whose
+   B is small, also on variant 0), and for correctness
+   every other forward kernel at the shapes the zamba step gives it,
+   within phase 1's limits (the block norm over rows of 3584, the grouped,
+   gated norm over 2048 x 112 rows of 64, the SSD scan from zeros over 32
+   chunks with its final state, the attention at head dim 112 with its
+   log-sum-exp), and the backward shapes the llama phases do not meet:
+   the rmsnorm backward over rows of 3584 and the attention backward at
+   head dim 112 with a GQA group of 1.
 11. train-zamba -- ``build_train_step`` on zamba2-7b at its published
    widths, depth cut to 14 layers (two super-blocks of the shared block
    and 5 Mamba2 blocks, and a 2-block Mamba2 tail), b = 1, s = 2048, bf16
@@ -167,6 +173,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1273,15 +1280,65 @@ def _parent_build(parent, sources, what: str):
     return pb
 
 
+def parent_matmul(torch, ops, pb, parent):
+    """The matmul kernel of the older checkout in ``parent`` (built by its
+    ``_build`` module ``pb``), launched with that tree's own plans (its
+    ``ops.matmul_plan``, loaded from its source) and its C arguments:
+    callables ``fwd(a, b)`` (``a`` row-major, ``b`` row-major or a
+    transposed view) and ``bwd(a, b, dz)``, the two launches of that
+    tree's ``ops.matmul_backward``.  A C entry without ``a_trans`` (the
+    trees before the training variant) gets wgrad's ``a^T`` as a copy, made
+    inside the timed call, as its wrapper made it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_ops", Path(parent) / "src/repro_torch/kernels/ops.py")
+    po = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = po   # its dataclasses look their module up
+    spec.loader.exec_module(po)
+    entry = pb.entry("matmul")
+    reads_a_trans = len(pb.SIGNATURES["matmul"][2]) > 15
+    p, stream = ops._ptr, ops._stream
+
+    def mm(a, b):
+        a_trans = int(reads_a_trans and not a.is_contiguous())
+        M, K = a.shape
+        N = b.shape[1]
+        b_trans = int(not b.is_contiguous())
+        vec = int((M if a_trans else K) % 8 == 0
+                  and (K if b_trans else N) % 8 == 0)
+        plan = po.matmul_plan(M, N, K, a_trans=True) if a_trans else \
+            po.matmul_plan(M, N, K)
+        out = torch.empty(M, N, dtype=a.dtype, device=a.device)
+        ws = counters = None
+        if plan.max_share > 1:
+            ws = torch.empty(2 * plan.blocks * plan.bm * plan.bn,
+                             dtype=torch.float32, device=a.device)
+            counters = po._counters(a, plan.tiles)
+        head = (p(a), p(b), None, p(out), p(ws), p(counters), M, N, K)
+        tail = (0, vec, plan.variant, plan.blocks)
+        args = (*head, a_trans, b_trans, *tail, plan.whole) \
+            if reads_a_trans else (*head, b_trans, *tail)
+        ops._check(entry(*args, stream(a)), "parent matmul")
+        return out
+
+    def bwd(a, b, dz):
+        at = a.t() if reads_a_trans else a.t().contiguous()
+        return mm(dz, b.t()), mm(at, dz)
+
+    return mm, bwd
+
+
 def parent_backward(torch, ops, parent):
-    """The flash-attention and rmsnorm backward kernels of the older
-    checkout in ``parent`` (from its own ``csrc`` sources, C entries with
-    this tree's arguments), built by its own ``_build`` into its own
-    ``build/torch_kernels``: callables with ``ops.flash_attention_backward``'s
-    and ``ops.rmsnorm_backward``'s arguments, for timing beside this
-    tree's kernels.  Both C entries take this tree's arguments, so this
+    """The matmul, flash-attention and rmsnorm backward kernels of the older
+    checkout in ``parent`` (from its own ``csrc`` sources), built by its own
+    ``_build`` into its own ``build/torch_kernels``: callables with
+    ``ops.flash_attention_backward``'s and ``ops.rmsnorm_backward``'s
+    arguments, and the matmul's forward and backward
+    (``parent_matmul``), for timing beside this tree's kernels.  The
+    attention and norm C entries take this tree's arguments, so this
     tree's ``ops.*_backward_with`` prepares and launches them."""
-    pb = _parent_build(parent, ("flash_attention_bwd", "rmsnorm"),
+    pb = _parent_build(parent, ("matmul", "flash_attention_bwd", "rmsnorm"),
                        "train-kernels")
     fa, rn = pb.entry("flash_attention_bwd"), pb.entry("rmsnorm_bwd")
 
@@ -1294,70 +1351,160 @@ def parent_backward(torch, ops, parent):
     def rn_bwd(x, g, dy, eps):
         return ops.rmsnorm_backward_with(rn, x, g, dy, eps)
 
-    return fa_bwd, rn_bwd
+    return (fa_bwd, rn_bwd, *parent_matmul(torch, ops, pb, parent))
 
 
 def parent_mamba_backward(torch, ops, parent):
     """The SSD-scan and grouped-norm backward kernels of the older checkout
-    in ``parent`` (the C entries whose SSD kernel takes a block per (batch
-    row, head) and whose grouped kernel takes a block per (token share,
-    group)), built by its own ``_build``:
-    callables with ``ops.ssd_scan_backward``'s and
-    ``ops.group_rmsnorm_backward``'s arguments (contiguous x, dy and y; B,
-    C and the gate with unit last stride and 16-byte-aligned rows, as the
-    training path gives them), for timing beside this tree's kernels.
-    Their C entries take the older arguments, prepared here as that tree's
-    wrappers prepared them: the SSD entry 16 pointers (the states, per-head
-    partial rows and per-(row, head) partials as scratch), 6 ints and 4
-    strides; the grouped entry one count of token shares."""
-    pb = _parent_build(parent, ("ssd_scan_bwd", "rmsnorm"),
+    in ``parent``, built by its own ``_build``: this tree's
+    ``ops.ssd_scan_backward`` and ``ops.group_rmsnorm_backward`` with the
+    older tree's C entries loaded in place of this tree's for the call
+    (their C arguments must be this tree's, as those of the chunk-parallel
+    SSD backward are), for timing beside this tree's kernels.  Also that
+    tree's matmul forward and backward (``parent_matmul``)."""
+    from repro_torch.kernels import _build
+
+    pb = _parent_build(parent, ("matmul", "ssd_scan_bwd", "rmsnorm"),
                        "train-zamba-kernels")
-    ssd, grp = pb.entry("ssd_scan_bwd"), pb.entry("group_rmsnorm_bwd")
-    p, stream = ops._ptr, ops._stream
+    names = ("ssd_scan_bwd", "group_rmsnorm_bwd")
+    if any(pb.SIGNATURES[n] != _build.SIGNATURES[n] for n in names):
+        raise ValueError(f"the C arguments of {parent}'s Mamba2 backward "
+                         f"kernels differ from this tree's: time them with a "
+                         f"chip_smoke.py whose tree matches them")
+    theirs = {n: pb.entry(n) for n in names}
 
-    def ssd_bwd(x, dt, A_log, B, C, D, dy, *, chunk):
-        b, s, nh, hd = x.shape
-        ds, nc = B.shape[-1], -(-s // chunk)
-        f32 = dict(dtype=torch.float32, device=x.device)
-        states = torch.empty(b * nh * nc * hd * ds, **f32)
-        part = torch.empty(b * nh * s * 2 * ds, **f32)
-        part_ad = torch.empty(2 * b * nh, **f32)
-        dx, ddt = torch.empty_like(x), torch.empty((b, s, nh), **f32)
-        dB = torch.empty((b, s, ds), dtype=B.dtype, device=x.device)
-        dC = torch.empty_like(dB)
-        dA_log, dD = torch.empty_like(A_log), torch.empty_like(D)
-        ops._check(ssd(
-            p(x), p(dt), p(A_log), p(B), p(C), p(D), p(dy), p(dx), p(ddt),
-            p(dA_log), p(dB), p(dC), p(dD), p(states), p(part), p(part_ad),
-            b, s, nh, hd, ds, chunk, *B.stride()[:2], *C.stride()[:2],
-            stream(x)), "parent ssd_scan_bwd")
-        return dx, ddt, dA_log, dB, dC, dD
+    def with_theirs(fn):
+        def call(*args, **kw):
+            saved = {n: _build._loaded.get(n) for n in names}
+            _build._loaded.update(theirs)
+            try:
+                return fn(*args, **kw)
+            finally:
+                for n, f in saved.items():
+                    if f is None:
+                        _build._loaded.pop(n, None)
+                    else:
+                        _build._loaded[n] = f
+        return call
 
-    def grp_bwd(y, gamma, dout, eps=1e-6, *, gate):
-        groups, w = gamma.shape
-        y2, d2 = y.reshape(-1, groups * w), dout.reshape(-1, groups * w)
-        g2 = gate.reshape(-1, groups * w)
-        tokens = y2.shape[0]
-        dy, dgate = torch.empty_like(y2), torch.empty_like(y2)
-        splits = max(1, min(-(-2 * ops.SMS // groups), -(-tokens // 32)))
-        partial = torch.empty((splits, groups, w), dtype=torch.float32,
-                              device=y.device)
-        dgamma = torch.empty_like(gamma)
-        ops._check(grp(
-            p(y2), p(gamma), p(d2), p(g2), p(dy), p(dgate), p(partial),
-            p(dgamma), y2.stride(0), g2.stride(0), tokens, groups, w,
-            float(eps), splits, stream(y2)), "parent group_rmsnorm_bwd")
-        return dy.reshape(y.shape), dgamma, dgate.reshape(y.shape)
+    return (with_theirs(ops.ssd_scan_backward),
+            with_theirs(ops.group_rmsnorm_backward),
+            *parent_matmul(torch, ops, pb, parent))
 
-    return ssd_bwd, grp_bwd
+
+def turns(timer, parent_fn, fn) -> list:
+    """Parent, change, change, parent on the same timer: four medians."""
+    return [timer(parent_fn), timer(fn), timer(fn), timer(parent_fn)]
+
+
+def turns_line(t) -> str:
+    """The four medians of ``turns``, for a before/after inside one call."""
+    return (f"parent {t[0]:.4f} / {t[3]:.4f} ms, this tree {t[1]:.4f} / "
+            f"{t[2]:.4f} ms (parent, tree, tree, parent)")
 
 
 def interleaved(timer, parent_fn, fn) -> str:
-    """Parent, change, change, parent on the same timer: the two medians
-    of each, for a before/after inside one call."""
-    t = [timer(parent_fn), timer(fn), timer(fn), timer(parent_fn)]
-    return (f"parent {t[0]:.4f} / {t[3]:.4f} ms, this tree {t[1]:.4f} / "
-            f"{t[2]:.4f} ms (parent, tree, tree, parent)")
+    return turns_line(turns(timer, parent_fn, fn))
+
+
+def plan_of(ops, variant: int):
+    """``ops.matmul_plan`` with the tile variant forced (cached as it is),
+    for ``swapped``: what another variant would take at a shape."""
+    @functools.lru_cache(maxsize=None)
+    def plan(M, N, K, sms=ops.SMS, *, a_trans=False):
+        if variant == 2:
+            return ops._persistent_plan(M, N, K, sms)
+        return ops._stream_k_plan(M, N, K, sms, variant)
+    return plan
+
+
+def matmul_steps(timer, ops, ref, torch, gemms, T, weights, prior, report,
+                 bwd_report, failed, path, dev="cuda"):
+    """Each projection ``(label, K, N)`` of ``gemms`` at M = ``T``, its
+    forward against the plain version (``MM_TOL``) and its backward (dgrad
+    and wgrad) against the plain backward (``BWD_REL`` relative L2), both
+    timed against the bound and ``torch.matmul``, with ``weights[label]``
+    = (forward launches, backward calls) per step of ``path``; each timed
+    line names its plan.  ``prior`` (``parent_matmul``'s callables): also
+    timed in turns with the older tree's kernel.  A shape whose B is small
+    enough to stay in L2 (``ops.SMALL_B_BYTES``: the serving rule gives it
+    variant 0) is also timed on variant 0, forward and dgrad: what
+    ``ops.TRAIN_M`` overrides.  Returns the per-step ms in turns,
+    ``{"forward": [4], "backward": [4]}``."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    per_step = {"forward": [0.0] * 4, "backward": [0.0] * 4}
+    for label, K, N in gemms:
+        w_fwd, w_bwd = weights[label]
+        a, b = randn(T, K), randn(K, N, scale=K ** -0.5)
+        dz = randn(T, N, scale=N ** -0.5)
+        ok, err = within(ops.matmul(a, b), ref.matmul_ref(a, b), **MM_TOL)
+        plan = ops.matmul_plan(T, N, K)
+        small_b = 2 * K * N <= ops.SMALL_B_BYTES
+        note = ""
+        if small_b:
+            with swapped(ops, matmul_plan=plan_of(ops, 0)):
+                note = (f"; on {ops._stream_k_plan(T, N, K, ops.SMS, 0).name}"
+                        f" {timer(lambda: ops.matmul(a, b)):.4f} ms")
+        if not report.add(f"{label} M={T} K={K} N={N} [{plan.name} "
+                          f"blocks={plan.blocks} whole={plan.whole}]{note}",
+                          ok, err, MM_TOL, path, "train", w_fwd,
+                          ms=timer(lambda: ops.matmul(a, b)),
+                          plain_ms=timer(lambda: ref.matmul_ref(a, b)),
+                          library_ms=timer(lambda: torch.matmul(a, b)),
+                          nbytes=2 * (T * K + K * N + T * N),
+                          flops=2 * T * K * N):
+            failed.append(f"matmul {path} {label} M={T}")
+        if prior is not None:
+            t = turns(timer, lambda: prior[0](a, b), lambda: ops.matmul(a, b))
+            per_step["forward"] = [x + w_fwd * y for x, y in
+                                   zip(per_step["forward"], t)]
+            log(f"  {'':16s} {label} forward: " + turns_line(t))
+        da, db = ops.matmul_backward(a, b, dz)
+        want_a, want_b = ref.matmul_bwd_ref(a, b, dz)
+        errs = (rel_l2(da, want_a), rel_l2(db, want_b))
+        err = max(float((da.float() - want_a.float()).abs().max()),
+                  float((db.float() - want_b.float()).abs().max()))
+        del da, db, want_a, want_b
+        plans = (ops.matmul_plan(T, K, N), ops.matmul_plan(K, N, T,
+                                                           a_trans=True))
+        bt = b.t()
+        note = ""
+        if small_b:
+            alone = timer(lambda: ops.matmul(dz, bt))
+            with swapped(ops, matmul_plan=plan_of(ops, 0)):
+                note = (f"; dgrad alone {alone:.4f} ms, on "
+                        f"{ops._stream_k_plan(T, K, N, ops.SMS, 0).name} "
+                        f"{timer(lambda: ops.matmul(dz, bt)):.4f} ms")
+        if not bwd_report.add(
+                f"{label} M={T} K={K} N={N} rel L2 dA {errs[0]:.2e} dB "
+                f"{errs[1]:.2e} [dgrad {plans[0].name} blocks="
+                f"{plans[0].blocks} whole={plans[0].whole}, wgrad "
+                f"{plans[1].name} blocks={plans[1].blocks} whole="
+                f"{plans[1].whole}]{note}", max(errs) <= BWD_REL, err,
+                BWD_REL, path, "train", w_bwd,
+                ms=timer(lambda: ops.matmul_backward(a, b, dz)),
+                plain_ms=timer(lambda: ref.matmul_bwd_ref(a, b, dz)),
+                library_ms=timer(lambda: (torch.matmul(dz, bt),
+                                          torch.matmul(a.t(), dz))),
+                nbytes=2 * (2 * T * K + 2 * K * N + T * N),
+                flops=4 * T * K * N):
+            failed.append(f"matmul_bwd {path} {label}")
+        if prior is not None:
+            t = turns(timer, lambda: prior[1](a, b, dz),
+                      lambda: ops.matmul_backward(a, b, dz))
+            per_step["backward"] = [x + w_bwd * y for x, y in
+                                    zip(per_step["backward"], t)]
+            log(f"  {'':16s} {label} backward: " + turns_line(t))
+        del a, b, dz, bt
+    if prior is not None:
+        for what, t in per_step.items():
+            log(f"{path}: matmul {what} per step, " + turns_line(t))
+    return per_step
 
 
 def by_kernel(torch, fn, calls: int = 10) -> str:
@@ -1439,23 +1586,49 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
     again = fwd_per_step["flash_attention"] // L
     mmf = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                        "src/repro/kernels/matmul.py:102", floor)
-    log(f"train-kernels: matmul forward at M = {T} tokens (tolerance |err| "
-        f"<= atol + rtol*|plain|)")
-    for label, K, N, weight in LLAMA_GEMMS:
-        weight = L * again if weight > 1 else 1
-        a, b = randn(T, K), randn(K, N, scale=K ** -0.5)
-        ok, err = within(ops.matmul(a, b), ref.matmul_ref(a, b), **MM_TOL)
-        plan = ops.matmul_plan(T, N, K)
-        if not mmf.add(f"{label} M={T} K={K} N={N} [{plan.name} stream-K "
-                       f"blocks={plan.blocks} share<={plan.max_share}]", ok,
-                       err, MM_TOL, TRAIN, "train", weight,
-                       ms=timer(lambda: ops.matmul(a, b)),
-                       plain_ms=timer(lambda: ref.matmul_ref(a, b)),
-                       library_ms=timer(lambda: torch.matmul(a, b)),
-                       nbytes=2 * (T * K + K * N + T * N),
-                       flops=2 * T * K * N):
-            failed.append(f"matmul {label} M={T}")
+    mm = KernelReport("matmul_bwd", "cuda",
+                      "src/repro_torch/kernels/csrc/matmul.cu",
+                      "src/repro/kernels/matmul.py:102", floor)
+    log(f"train-kernels: matmul forward (tolerance |err| <= atol + "
+        f"rtol*|plain|) and backward (dgrad dz.b^T and wgrad a^T.dz, two "
+        f"launches; limit {BWD_REL} relative L2) at M = {T} tokens")
+    weights = {label: ((L * again, L) if w > 1 else (1, 1))
+               for label, _, _, w in LLAMA_GEMMS}
+    matmul_steps(timer, ops, ref, torch,
+                 [(label, K, N) for label, K, N, _ in LLAMA_GEMMS], T,
+                 weights, None if prior is None else prior[2:], mmf, mm,
+                 failed, TRAIN)
+    log("train-kernels: the matmul's variant by rows (K = N = 4096), "
+        "what sets ops.TRAIN_M")
+    for M in (256, 512, 1024, 2048):
+        a, b = randn(M, 4096), randn(4096, 4096, scale=1 / 64)
+        t = {}
+        for v in (1, 2):
+            with swapped(ops, matmul_plan=plan_of(ops, v)):
+                t[v] = timer(lambda: ops.matmul(a, b))
+        names = [f"{bm}x{bn} {kind}" for bm, bn, _, kind in
+                 ops.MATMUL_VARIANTS[1:]]
+        log(f"  M={M}: {names[0]} {t[1]:.4f} ms, {names[1]} {t[2]:.4f} ms, "
+            f"library {timer(lambda: torch.matmul(a, b)):.4f} ms; the plan "
+            f"takes {ops.matmul_plan(M, 4096, 4096).name}")
         del a, b
+    log("train-kernels: variant 2 by K at M = 2048, N = 4096 (256 tiles, two "
+        "waves): the slope is the K step's cost, the rest the tile's")
+    for role in ("forward", "dgrad", "wgrad"):
+        cells = []
+        for K in (1024, 4096, 16384):
+            if role == "wgrad":
+                a, b = randn(K, 2048).t(), randn(K, 4096, scale=K ** -0.5)
+            elif role == "dgrad":
+                a, b = randn(2048, K), randn(4096, K, scale=K ** -0.5).t()
+            else:
+                a, b = randn(2048, K), randn(K, 4096, scale=K ** -0.5)
+            with swapped(ops, matmul_plan=plan_of(ops, 2)):
+                ms = timer(lambda: ops.matmul(a, b))
+            cells.append(f"K={K} {ms:.4f} ms (library "
+                         f"{timer(lambda: torch.matmul(a, b)):.4f})")
+            del a, b
+        log(f"  {role}: " + ", ".join(cells))
 
     faf = KernelReport("flash_attention", "cuda",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1504,45 +1677,6 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
                    flops=4 * x.numel(), peak=FP32_TFLOPS):
         failed.append(f"rmsnorm rows={T}")
     del x
-
-    mm = KernelReport("matmul_bwd", "cuda",
-                      "src/repro_torch/kernels/csrc/matmul.cu",
-                      "src/repro/kernels/matmul.py:102", floor)
-    log(f"train-kernels: matmul backward (dgrad dz.b^T and wgrad a^T.dz, "
-        f"two launches) at M = {T} tokens; limit {BWD_REL} relative L2")
-    copy_ms = 0.0
-    for label, K, N, weight in LLAMA_GEMMS:
-        weight = L if weight > 1 else 1
-        a, b = randn(T, K), randn(K, N, scale=K ** -0.5)
-        dz = randn(T, N, scale=N ** -0.5)
-        da, db = ops.matmul_backward(a, b, dz)
-        want_a, want_b = ref.matmul_bwd_ref(a, b, dz)
-        errs = (rel_l2(da, want_a), rel_l2(db, want_b))
-        ok = max(errs) <= BWD_REL
-        err = max(float((da.float() - want_a.float()).abs().max()),
-                  float((db.float() - want_b.float()).abs().max()))
-        del da, db, want_a, want_b
-        plans = (ops.matmul_plan(T, K, N), ops.matmul_plan(K, N, T))
-        bt = b.t()
-        # wgrad's copy of A^T (the kernel reads A row-major only), part of
-        # the kernel time below
-        copy = timer(lambda: a.t().contiguous())
-        copy_ms += weight * copy
-        log(f"  {'':16s} {label}: wgrad's A^T copy [{K}, {T}] {copy:.4f}ms")
-        if not mm.add(
-                f"{label} M={T} K={K} N={N} rel L2 dA {errs[0]:.2e} dB "
-                f"{errs[1]:.2e} [dgrad {plans[0].name}, wgrad "
-                f"{plans[1].name}]", ok, err, BWD_REL, TRAIN, "train",
-                weight, ms=timer(lambda: ops.matmul_backward(a, b, dz)),
-                plain_ms=timer(lambda: ref.matmul_bwd_ref(a, b, dz)),
-                library_ms=timer(lambda: (torch.matmul(dz, bt),
-                                          torch.matmul(a.t(), dz))),
-                nbytes=2 * (2 * T * K + 2 * K * N + T * N),
-                flops=4 * T * K * N):
-            failed.append(f"matmul_bwd {label}")
-        del a, b, dz, bt
-    log(f"train-kernels: wgrad's A^T copies {copy_ms:.4f} ms per step of "
-        f"{mm.paths[TRAIN]['ms']:.4f} ms of matmul backward")
 
     fa = KernelReport("flash_attention_bwd", "cuda",
                       "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1835,21 +1969,35 @@ def zamba_train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
         failed.append("group_rmsnorm_bwd")
     del y, dout, z
 
-    fwd = zamba_train_forward_checks(torch, ops, ref, randn, gen, failed)
+    mmf = KernelReport("matmul", "cuda",
+                       "src/repro_torch/kernels/csrc/matmul.cu",
+                       "src/repro/kernels/matmul.py:102", floor)
+    mmb = KernelReport("matmul_bwd", "cuda",
+                       "src/repro_torch/kernels/csrc/matmul.cu",
+                       "src/repro/kernels/matmul.py:102", floor)
+    # per step: the training depth's share of each projection's launches
+    # in the 81-layer model (68 Mamba2 blocks, 13 shared-block
+    # applications), the forward twice under remat but the head's
+    full = {label: w for label, _, _, w in ZAMBA_GEMMS}
+    share = {"mamba": per_step["ssd_scan_bwd"] / full["mamba z|x"],
+             "shared": per_step["flash_attention_bwd"] / full["fused_qkv"]}
+    weights = {}
+    for label, _, _, w in ZAMBA_GEMMS:
+        calls = 1 if label == "lm_head" else round(
+            w * share["mamba" if label.startswith("mamba") else "shared"])
+        weights[label] = (calls if label == "lm_head" else 2 * calls, calls)
+    log(f"train-zamba-kernels: matmul forward (tolerance |err| <= atol + "
+        f"rtol*|plain|) and backward (limit {BWD_REL} relative L2) at the "
+        f"zamba step's shapes, M = {T} tokens; launches a step {weights}")
+    matmul_steps(timer, ops, ref, torch,
+                 [(label, K, N) for label, K, N, _ in ZAMBA_GEMMS], T,
+                 weights, None if prior is None else prior[2:], mmf, mmb,
+                 failed, TRAIN_ZAMBA)
+    fwd = (mmf, *zamba_train_forward_checks(torch, ops, ref, randn, gen,
+                                            failed))
 
     log("train-zamba-kernels: the zamba step's other backward shapes "
         "(correctness)")
-    for label, K, N in (("mamba B|C|dt", 3584, 240), ("mamba z|x", 3584,
-                                                      14336)):
-        a, b = randn(T, K), randn(K, N, scale=K ** -0.5)
-        dz = randn(T, N, scale=N ** -0.5)
-        e = [rel_l2(g, w) for g, w in zip(ops.matmul_backward(a, b, dz),
-                                          ref.matmul_bwd_ref(a, b, dz))]
-        log(f"  matmul_bwd {label} M={T} K={K} N={N}: rel L2 dA {e[0]:.2e} "
-            f"dB {e[1]:.2e} (limit {BWD_REL})")
-        if max(e) > BWD_REL:
-            failed.append(f"matmul_bwd {label}")
-        del a, b, dz
     x, dy = randn(T, 3584, scale=3.0), randn(T, 3584)
     g = torch.rand(3584, generator=gen, device="cuda") + 0.5
     e = [rel_l2(got, want) for got, want in zip(
@@ -1886,21 +2034,19 @@ def zamba_train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
     if failed:
         raise AssertionError(f"zamba training-shape kernels disagree with "
                              f"their plain versions: {failed}")
-    return (ssd, grp), fwd
+    return (ssd, grp), fwd, mmb
 
 
 def zamba_train_forward_checks(torch, ops, ref, randn, gen, failed):
-    """Each forward kernel at the shapes zamba2-7b's training step gives it
-    (b = 1, s = 2048) against its plain version, within the serving
-    checks' limits: every projection of ``ZAMBA_GEMMS`` at M = 2048, the
-    block norm over rows of 3584, the grouped, gated norm over 2048 x 112
-    rows of 64, the SSD scan from a zero state over 32 chunks (y and the
-    final state).  Appends what disagrees to ``failed``; returns the
-    KernelReports of matmul, flash_attention (the caller adds the
-    attention), rmsnorm and ssd_scan."""
+    """The forward kernels but the matmul (``matmul_steps``) at the shapes
+    zamba2-7b's training step gives them (b = 1, s = 2048) against their
+    plain versions, within the serving checks' limits: the block norm over
+    rows of 3584, the grouped, gated norm over 2048 x 112 rows of 64, the
+    SSD scan from a zero state over 32 chunks (y and the final state).
+    Appends what disagrees to ``failed``; returns the KernelReports of
+    flash_attention (the caller adds the attention), rmsnorm and
+    ssd_scan."""
     T, nh, hd, ds, chunk = TRAIN_SHAPE["seq"], 112, 64, 64, 64
-    mm = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
-                      "src/repro/kernels/matmul.py:102")
     fa = KernelReport("flash_attention", "cuda",
                       "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:102")
@@ -1910,16 +2056,8 @@ def zamba_train_forward_checks(torch, ops, ref, randn, gen, failed):
     ssd = KernelReport("ssd_scan", "cuda",
                        "src/repro_torch/kernels/csrc/ssd_scan.cu",
                        "src/repro/kernels/ssd_scan.py:74")
-    log(f"train-zamba-kernels: the zamba step's forward kernels at M = {T} "
-        f"tokens (correctness; tolerance |err| <= atol + rtol*|plain|)")
-    for label, K, N, _ in ZAMBA_GEMMS:
-        a, b = randn(T, K), randn(K, N, scale=K ** -0.5)
-        ok, err = within(ops.matmul(a, b), ref.matmul_ref(a, b), **MM_TOL)
-        plan = ops.matmul_plan(T, N, K)
-        if not mm.add(f"{label} M={T} K={K} N={N} [{plan.name} stream-K "
-                      f"blocks={plan.blocks}]", ok, err, MM_TOL):
-            failed.append(f"matmul {label} M={T}")
-        del a, b
+    log(f"train-zamba-kernels: the zamba step's other forward kernels at "
+        f"{T} tokens (correctness; tolerance |err| <= atol + rtol*|plain|)")
     x = randn(T, 3584)
     g = torch.randn(3584, generator=gen, device=gen.device)
     ok, err = within(ops.rmsnorm(x, g, eps=1e-6), ref.rmsnorm_ref(x, g, 1e-6),
@@ -1951,7 +2089,7 @@ def zamba_train_forward_checks(torch, ops, ref, randn, gen, failed):
         ok, err = within(got, want, **tol)
         if not ssd.add(f"{label}: {what}", ok, err, tol):
             failed.append(f"ssd_scan s={T} {what}")
-    return mm, fa, rn, ssd
+    return fa, rn, ssd
 
 
 def _train_config(arch: str, layers: int):
@@ -2279,12 +2417,15 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--parent", default=None,
                     help="a checkout of an older tree: train-kernels builds "
-                         "its flash_attention_bwd.cu and rmsnorm.cu into "
-                         "its own build directory and times their backward "
-                         "beside this tree's, train-zamba-kernels does the "
-                         "same with its ssd_scan_bwd.cu and grouped norm "
-                         "backward, and the train and train-zamba phases "
-                         "run its training step and this tree's in turns")
+                         "its matmul.cu, flash_attention_bwd.cu and "
+                         "rmsnorm.cu into its own build directory and times "
+                         "its matmul forward and backward and the other "
+                         "backward kernels beside this tree's, "
+                         "train-zamba-kernels does the same with its matmul "
+                         "at the zamba shapes, its ssd_scan_bwd.cu and "
+                         "grouped norm backward, and the train and "
+                         "train-zamba phases run its training step and this "
+                         "tree's in turns")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2386,9 +2527,11 @@ def main(argv=None) -> int:
         train_path_check(torch)
         done("path-check-train")
     train_zamba_fwd = []   # the forward kernels at the zamba step's shapes
+    zamba_mm_bwd = []      # the matmul backward at the zamba step's shapes
     if "train-zamba-kernels" in phases:
-        zamba_bwd, train_zamba_fwd = zamba_train_kernel_phase(
+        zamba_bwd, train_zamba_fwd, mmb = zamba_train_kernel_phase(
             torch, F, ops, ref, Timer(torch), floor_ms, parent=args.parent)
+        zamba_mm_bwd = [mmb]
         reports += zamba_bwd
         done("train-zamba-kernels")
     if "train-zamba" in phases:
@@ -2409,15 +2552,22 @@ def main(argv=None) -> int:
     rows = {path: path_rows(path, reports)
             for path in ("llama3-8b", MAIN, TRAIN, TRAIN_ZAMBA)}
     rows["train forward"] = path_rows(TRAIN, train_fwd)
+    rows["train-zamba forward"] = path_rows(TRAIN_ZAMBA, train_zamba_fwd)
+    rows["train-zamba matmul backward"] = path_rows(TRAIN_ZAMBA, zamba_mm_bwd)
     (OUT_DIR / "kernel_checks.json").write_text(json.dumps(
         {"rows": rows, "checks": {r.meta["name"]: r.checks for r in reports},
          "train forward checks": {r.meta["name"]: r.checks
                                   for r in train_fwd},
          "train-zamba forward checks": {r.meta["name"]: r.checks
-                                        for r in train_zamba_fwd}},
+                                        for r in train_zamba_fwd},
+         "train-zamba matmul backward checks": {
+             r.meta["name"]: r.checks for r in zamba_mm_bwd}},
         indent=1))
     for what, path in (("llama3-8b step pair", "llama3-8b"),
-                       ("train step, forward", "train forward")):
+                       ("train step, forward", "train forward"),
+                       ("train-zamba step, forward", "train-zamba forward"),
+                       ("train-zamba step, backward",
+                        "train-zamba matmul backward")):
         for row in rows[path]:
             log(f"{what}: {row['name']} launches={row['launches']} "
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "

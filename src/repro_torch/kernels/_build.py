@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: each C entry point: (source library, symbol, argtypes)
 SIGNATURES = {
-    "matmul": ("matmul", "repro_matmul_bf16", [_P] * 6 + [_I] * 8 + [_P]),
+    "matmul": ("matmul", "repro_matmul_bf16", [_P] * 6 + [_I] * 10 + [_P]),
     "flash_attention": ("flash_attention", "repro_flash_attention_bf16",
                         [_P] * 10 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_attention_bwd": ("flash_attention_bwd",

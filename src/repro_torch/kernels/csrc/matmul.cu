@@ -1,17 +1,20 @@
-// Stream-K bf16 GEMM on Hopper tensor cores, TMA-fed, with an fp32
-// accumulator and a fused bias/activation epilogue, for sm_90a, bound
-// through a plain C interface.
+// bf16 GEMM on Hopper tensor cores, TMA-fed, with an fp32 accumulator and a
+// fused bias/activation epilogue, for sm_90a, bound through a plain C
+// interface.  Three tile variants: two stream-K ones for serving and a
+// warp-specialized, persistent one for training.
 //
 // Replaces: src/repro/kernels/matmul.py::matmul (body _mm_kernel, epilogue
 // _epilogue, pallas_call at line 102), bf16 mode.  C[M,N] = A[M,K] @ B[K,N],
 // then per element, in the TPU kernel's order: + bias[N], then gelu-tanh or
 // silu, cast to bf16.  The int8 `scale` mode of the TPU kernel is not here.
 //
-// What bounds it on the H100: on the serving path M is a prefill chunk (64
-// rows) or the decode slots (4 rows), and K*N is a weight matrix of 1.7 MB
-// to 1 GB.  That is 4-64 flops per byte of B, below the ~295 flop/byte
-// ridge, so the bytes of B bound every serving shape, and the card's
-// 3.35 TB/s is reached only with B streaming into all 132 SMs.  The design:
+// What bounds it on the H100, and the design:
+//
+// Serving (variants 0 and 1).  M is a prefill chunk (64 rows) or the decode
+// slots (4 rows), and K*N is a weight matrix of 1.7 MB to 1 GB.  That is
+// 4-64 flops per byte of B, below the ~295 flop/byte ridge, so the bytes of
+// B bound every serving shape, and the card's 3.35 TB/s is reached only
+// with B streaming into all 132 SMs:
 //   - stream-K: a plan (ops.matmul_plan, plain Python) picks the tile
 //     variant and the number of blocks P (132 or 264); the (tile, K step)
 //     units, tile-major, are cut into P equal runs, so every SM streams the
@@ -26,17 +29,45 @@
 //   - A and B tiles come by TMA (one thread, one mbarrier per stage) into
 //     128-byte-swizzled shared tiles, BK = 64, in a 4-6 stage ring that runs
 //     on across tile edges; out-of-range rows and columns arrive as zeros;
-//   - two tile variants: 16x64 on mma.sync m16n8k16 (M <= 16, or a B small
-//     enough to stay in L2 while several row tiles read it), read from the
-//     swizzled tiles by ldmatrix free of bank conflicts; and 64x128 on
-//     wgmma m64n128k16 (one warpgroup, operands straight from the swizzled
-//     tiles) for a prefill chunk;
-//   - B may be stored transposed ([N,K], a tied embedding used as the head):
-//     it is then K-major like A, and no transposed copy is made;
-//   - ragged M, N and K need no host padding.  TMA needs 16-byte-aligned
-//     bases and rows (K % 8 == 0, and N % 8 == 0 for a row-major B);
-//     otherwise the same kernel stores the tiles element by element (the
-//     "scalar" variant).
+//   - 16x64 tiles on mma.sync m16n8k16 (M <= 16, or a B small enough to stay
+//     in L2 while several row tiles read it), read from the swizzled tiles by
+//     ldmatrix free of bank conflicts; and 64x128 tiles on wgmma m64n128k16
+//     (one warpgroup, operands straight from the swizzled tiles) for a
+//     prefill chunk.
+//
+// Training (variant 2).  M is a step's tokens (2048), or a weight's K for
+// wgrad; every product runs at 600-1400 flops a byte, so the tensor cores'
+// 989 TFLOP/s bound it, and a tile must keep them busy through its K loop
+// and between tiles:
+//   - 128x256 output tiles, BK = 64: two consumer warpgroups of 64 rows run
+//     wgmma m64n256k16 on the same B stage (128 fp32 accumulators a thread),
+//     and one producer thread issues every TMA load; setmaxnreg gives the
+//     producer warpgroup's registers to the consumers;
+//   - a 4-stage ring of 48 KB stages with a full and an empty mbarrier each:
+//     a consumer waits for its stage, issues its products, commits them and
+//     waits only for the previous K step's group (wgmma.wait_group 1), then
+//     releases that stage; no __syncthreads in the main loop;
+//   - persistent: one block an SM takes tiles p, p + 132, ... in lock step,
+//     in a grouped order (16 row tiles a group, column-major inside it) so
+//     that a wave's tiles share their A and B stripes in L2, and the
+//     producer loads the next tile while the consumers store this one.  A
+//     last wave that would leave more than half the SMs idle (fewer tiles
+//     than SMs included) is cut into stream-K runs over all blocks, summed
+//     as above;
+//   - A is K-major, or MN-major (wgrad's a^T, read straight from the
+//     row-major activation by TMA with wgmma's transpose bit): no copy;
+//   - the epilogue's activation is a template argument, so the unrolled
+//     loop a tile runs holds one activation's code (128 inlined copies of
+//     both overflowed the instruction cache once a tile).
+//
+// B may be stored transposed ([N,K], a tied embedding used as the head, or
+// dgrad's b^T): it is then K-major like A, and no transposed copy is made.
+// Ragged M, N and K need no host padding.  TMA needs 16-byte-aligned bases
+// and rows (K % 8 == 0 for a K-major operand, M % 8 or N % 8 == 0 for an
+// MN-major one); otherwise variants 0 and 1 store the tiles element by
+// element (the "scalar" path), and the wrapper sends such a launch of
+// variant 2 to variant 1 (with A transposed by a copy: no model width
+// needs it).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -122,8 +153,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // order this thread's generic-proxy stores to shared memory before the
 // async proxy's reads of it (wgmma)
@@ -217,6 +250,7 @@ struct Args {
   float* ws;      // [2 * gridDim.x, BM*BN] fp32 partial tiles
   int* counters;  // [tiles] arrivals, zero between launches
   int M, N, K, act;
+  int whole;  // variant 2: tiles finished whole, before the stream-K ones
 };
 
 // WG: one warpgroup runs wgmma m64n128k16 (4 warps of 16 rows x 128
@@ -363,7 +397,7 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32, MIN_BLOCKS)
         wgmma_m64n128k16<BT ? 0 : 1>(&acc[0][0][0], da, db);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
     } else {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
@@ -508,6 +542,415 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32, MIN_BLOCKS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Variant 2, the training regime: 128x256 output tiles, warp-specialized,
+// persistent.  A block is three warpgroups: warpgroup 0 is the producer
+// (one thread issues every TMA load; it gives up registers with setmaxnreg),
+// warpgroups 1 and 2 are consumers that each run wgmma m64n256k16 on 64 rows
+// of the tile, both reading the same B stage.  The two sides meet at a ring
+// of kStages stages with a full and an empty mbarrier each, and nothing else
+// in the main loop synchronises them.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// mbar_wait that traps after about 2^26 polls, so that a fault in the
+// protocol ends the launch with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, int parity) {
+  for (int spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1 << 26)) __trap();
+  }
+}
+// keep the compiler from moving reads or writes of these registers across
+// this point (an asynchronous product writes them)
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// the two consumer warpgroups only (barrier 0 is __syncthreads')
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// D[64x256] (fp32, the consumer warpgroup's 128 registers a thread) (+)=
+// A[64x16] B[16x256] from shared-memory descriptors.  TA: A is MN-major
+// (wgrad's a^T, read from the row-major activation); TB: B is MN-major
+// (row-major [K,N]); scale_d 0 starts the sum (D = A B).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+struct Ws {
+  static constexpr int BM = 128, BN = 256, BK = 64;
+  static constexpr int kStages = 4;
+  static constexpr int kThreads = 384;  // producer + two consumer warpgroups
+  static constexpr int kABytes = BM * BK * 2;  // 16 KB
+  static constexpr int kBBytes = BN * BK * 2;  // 32 KB
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;
+  static constexpr int kAcc = BN / 2;  // fp32 accumulators a consumer thread
+  // row tiles of a group in the tile order: a wave of 132 tiles covers 16
+  // row tiles x ~8 column tiles, so it reads about as many bytes of A as
+  // of B, and each stripe is shared by the tiles of the wave that need it
+  static constexpr int kGroupM = 16;
+  // empty-barrier arrivals per stage: lane 0 of each consumer warp
+  static constexpr int kReleases = 8;
+};
+
+// Output tile t's origin in the grouped order: groups of kGroupM row tiles,
+// column-major inside a group, so that neighbouring tiles share B columns.
+__device__ __forceinline__ void ws_tile_origin(int t, int tiles_m, int tiles_n,
+                                               int& m0, int& n0) {
+  const int per_group = Ws::kGroupM * tiles_n;
+  const int g = t / per_group, first = g * Ws::kGroupM;
+  const int rows = min(tiles_m - first, Ws::kGroupM);
+  const int r = t - g * per_group;
+  m0 = (first + r % rows) * Ws::BM;
+  n0 = (r / rows) * Ws::BN;
+}
+
+// A block's items, in the order the producer loads them and the consumers
+// compute them: first the tiles it finishes whole (tiles p, p + P, ... below
+// `whole`), then its run of the stream-K units of the other tiles
+// ((tile, K step) pairs, tile-major, cut into P equal runs), cut at tile
+// edges.  An item is (tile, first K step, end K step).
+struct WsWalk {
+  int P, whole, KT, tile, u, end;
+  __device__ WsWalk(int p, int P_, int whole_, int tiles, int KT_)
+      : P(P_), whole(whole_), KT(KT_), tile(p) {
+    const int W = (tiles - whole) * KT;  // W * P < 2^31: launch_ws checks
+    u = W * p / P;
+    end = W * (p + 1) / P;
+  }
+  __device__ bool next(int& t, int& k0, int& k1) {
+    if (tile < whole) {
+      t = tile;
+      k0 = 0;
+      k1 = KT;
+      tile += P;
+      return true;
+    }
+    if (u >= end) return false;
+    t = whole + u / KT;
+    k0 = u % KT;
+    k1 = min(KT, k0 + (end - u));
+    u += k1 - k0;
+    return true;
+  }
+};
+
+// A 4x4 transpose of packed bf16 pairs across the 4 lanes of a quad
+// (lanes 4g .. 4g + 3, tq = lane % 4): before, lane tq holds v[jj] =
+// columns 2tq, 2tq + 1 of the quad's 8-column block jj; after, it holds
+// block tq's 8 columns in order (v[t] from lane t).  Two exchanges, with
+// the lanes 2 apart and then 1 apart.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int tq) {
+  const bool hi2 = tq & 2, hi1 = tq & 1;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, hi2 ? v[0] : v[2], 2);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, hi2 ? v[1] : v[3], 2);
+  if (hi2) {
+    v[0] = r0;
+    v[1] = r1;
+  } else {
+    v[2] = r0;
+    v[3] = r1;
+  }
+  r0 = __shfl_xor_sync(0xffffffffu, hi1 ? v[0] : v[1], 1);
+  r1 = __shfl_xor_sync(0xffffffffu, hi1 ? v[2] : v[3], 1);
+  if (hi1) {
+    v[0] = r0;
+    v[2] = r1;
+  } else {
+    v[1] = r0;
+    v[3] = r1;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The epilogue of a consumer thread's 64 x 256 share, once per output
+// element: bias, then activation, cast to bf16.  Register 4j + 2h + e of
+// the wgmma layout is row row0 + 8h, column n0 + 8j + 2tq + e.  A quad's
+// four lanes trade their pairs (quad_transpose) so that each stores 16
+// contiguous bytes, whole 32-byte sectors per row: half the store
+// transactions of 4-byte stores, which held the tensor cores idle at the
+// end of every tile.  The activation is a template argument so that the
+// unrolled loop a tile runs holds only its own code: 128 inlined copies of
+// both activations overflowed the instruction cache once a tile.
+template <int ACT>
+__device__ __forceinline__ void ws_epilogue(const Args& args, const float* acc,
+                                            int row0, int n0, int tq) {
+  const int M = args.M, N = args.N;
+  const bf16* bias = args.bias;
+#pragma unroll
+  for (int q = 0; q < Ws::BN / 32; ++q) {  // 4 blocks of 8 columns
+    const int c0 = n0 + 32 * q;
+    if (c0 >= N) break;  // the same for the whole warp
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the bias is read again for the second row, not held, to keep the
+      // epilogue within the consumers' registers beside 128 accumulators
+      uint32_t v[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = c0 + 8 * jj + 2 * tq;
+        const float* a = acc + 4 * (4 * q + jj) + 2 * h;
+        const float b0 = bias != nullptr && c < N
+                             ? __bfloat162float(bias[c]) : 0.0f;
+        const float b1 = bias != nullptr && c + 1 < N
+                             ? __bfloat162float(bias[c + 1]) : 0.0f;
+        v[jj] = pack_bf16(activate(a[0] + b0, ACT), activate(a[1] + b1, ACT));
+      }
+      quad_transpose(v, tq);
+      const int r = row0 + 8 * h, c = c0 + 8 * tq;
+      if (r >= M || c >= N) continue;
+      bf16* out = args.C + (size_t)r * N + c;
+      if ((N & 7) == 0 && c + 8 <= N) {  // 16-byte aligned row starts
+        *reinterpret_cast<uint4*>(out) = make_uint4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const __nv_bfloat162 pr =
+              *reinterpret_cast<const __nv_bfloat162*>(&v[e >> 1]);
+          if (c + e < N) out[e] = (e & 1) ? pr.y : pr.x;
+        }
+      }
+    }
+  }
+}
+
+template <bool AT, bool BT>
+__global__ void __launch_bounds__(Ws::kThreads, 1)
+    ws_kernel(const __grid_constant__ Args args) {
+  constexpr int BM = Ws::BM, BN = Ws::BN, BK = Ws::BK, S = Ws::kStages;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  __shared__ int s_last;
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int M = args.M, N = args.N, K = args.K;
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int tiles = tiles_m * tiles_n, KT = (K + BK - 1) / BK;
+  const int p = blockIdx.x, P = gridDim.x, whole = args.whole;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], Ws::kReleases);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: stage n of the block's unit sequence goes to ring slot
+    // n % S once the consumers have released that slot's previous use.
+    // One thread issues the TMA loads; the warpgroup gives registers to
+    // the consumers (128 x 40 + 256 x 232 is the 384 x 168 the block was
+    // launched with).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 0) return;
+    WsWalk walk(p, P, whole, tiles, KT);
+    int t, k0, k1, n = 0;
+    while (walk.next(t, k0, k1)) {
+      int m0, n0;
+      ws_tile_origin(t, tiles_m, tiles_n, m0, n0);
+      for (int kt = k0; kt < k1; ++kt, ++n) {
+        const int s = n % S;
+        mbar_wait_or_trap(&empty[s], ((n / S) & 1) ^ 1);
+        unsigned char* sa = smem + s * Ws::kStageBytes;
+        unsigned char* sb = sa + Ws::kABytes;
+        const int kk = kt * BK;
+        mbar_expect_tx(&full[s], Ws::kStageBytes);
+        if constexpr (AT) {  // two 64-row atoms of a^T, read MN-major
+          tma_load_2d(sa, &args.tma_a, m0, kk, &full[s]);
+          tma_load_2d(sa + BK * 128, &args.tma_a, m0 + 64, kk, &full[s]);
+        } else {
+          tma_load_2d(sa, &args.tma_a, kk, m0, &full[s]);
+        }
+        if constexpr (BT) {  // one box of BN rows of [N,K]: K-major
+          tma_load_2d(sb, &args.tma_b, kk, n0, &full[s]);
+        } else {  // a box per 64-column atom of [K,N]: MN-major
+#pragma unroll
+          for (int a = 0; a < BN / 64; ++a)
+            tma_load_2d(sb + a * BK * 128, &args.tma_b, n0 + a * 64, kk,
+                        &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw computes rows [64 cw, 64 cw + 64) of each
+  // tile; a K step's wgmma group stays in flight while the next one is
+  // issued, and its stage is released once it has completed
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int cw = threadIdx.x / 128 - 1, ctid = threadIdx.x - 128;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane / 4, tq = lane % 4;
+  const int W = (tiles - whole) * KT;
+  auto run_start = [&](int q) { return q * W / P; };
+  auto owner = [&](int u) { return ((u + 1) * P - 1) / W; };
+  const int first_split = whole + run_start(p) / KT;
+
+  float acc[Ws::kAcc];
+  WsWalk walk(p, P, whole, tiles, KT);
+  int t, k0, k1, n = 0;
+  while (walk.next(t, k0, k1)) {
+    for (int kt = k0; kt < k1; ++kt, ++n) {
+      const int s = n % S;
+      mbar_wait_or_trap(&full[s], (n / S) & 1);
+      const unsigned char* As = smem + s * Ws::kStageBytes + cw * 64 * 128;
+      const unsigned char* Bs = smem + s * Ws::kStageBytes + Ws::kABytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // K-major operands advance 32 bytes inside their swizzle atom; the
+        // MN-major ones two 8-row groups of 1024 bytes, their 64-wide atoms
+        // BK * 128 bytes apart
+        const uint64_t da = AT ? smem_desc(As + kk * 2048, BK * 128, 1024)
+                               : smem_desc(As + kk * 32, 16, 1024);
+        const uint64_t db = BT ? smem_desc(Bs + kk * 32, 16, 1024)
+                               : smem_desc(Bs + kk * 2048, BK * 128, 1024);
+        wgmma_m64n256k16<AT ? 1 : 0, BT ? 0 : 1>(acc, da, db,
+                                                 kt > k0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous K step's products are done
+      if (kt > k0 && lane == 0) mbar_arrive(&empty[(n - 1) % S]);
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[(n - 1) % S]);
+    fence_regs<Ws::kAcc>(acc);
+
+    int m0, n0;
+    ws_tile_origin(t, tiles_m, tiles_n, m0, n0);
+    if (k0 != 0 || k1 != KT) {
+      // a shared tile: partial out, float2 pair q of consumer thread ctid
+      // at [q * 256 + ctid] of the slot (0 for the tile the block's run
+      // starts in, 1 for the one it ends in); the last of the tile's blocks
+      // to arrive sums the partials in block order
+      const int slot = 2 * p + (t == first_split ? 0 : 1);
+      float2* part = reinterpret_cast<float2*>(args.ws) +
+                     (size_t)slot * (BM * BN / 2);
+#pragma unroll
+      for (int q = 0; q < Ws::kAcc / 2; ++q)
+        part[q * 256 + ctid] = make_float2(acc[2 * q], acc[2 * q + 1]);
+      __threadfence();
+      consumer_sync();
+      const int ut = (t - whole) * KT;
+      const int q0 = owner(ut), q1 = owner(ut + KT - 1);
+      if (ctid == 0) {
+        const int prev = atomicAdd(args.counters + t, 1);
+        s_last = prev == q1 - q0;
+        if (s_last) args.counters[t] = 0;  // clean for the next launch
+      }
+      consumer_sync();
+      if (!s_last) continue;
+      __threadfence();
+#pragma unroll
+      for (int i = 0; i < Ws::kAcc; ++i) acc[i] = 0.0f;
+      for (int qq = q0; qq <= q1; ++qq) {
+        const int sl = 2 * qq + (t == whole + run_start(qq) / KT ? 0 : 1);
+        const float2* src = reinterpret_cast<const float2*>(args.ws) +
+                            (size_t)sl * (BM * BN / 2) + ctid;
+#pragma unroll
+        for (int q = 0; q < Ws::kAcc / 2; ++q) {
+          const float2 v = __ldcg(src + q * 256);
+          acc[2 * q] += v.x;
+          acc[2 * q + 1] += v.y;
+        }
+      }
+    }
+
+    const int row0 = m0 + cw * 64 + warp * 16 + g;
+    if (args.act == kGelu) {
+      ws_epilogue<kGelu>(args, acc, row0, n0, tq);
+    } else if (args.act == kSilu) {
+      ws_epilogue<kSilu>(args, acc, row0, n0, tq);
+    } else {
+      ws_epilogue<kNone>(args, acc, row0, n0, tq);
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled from libcuda, looked up through the runtime (so
 // the library needs no link to libcuda)
 PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
@@ -579,35 +1022,92 @@ cudaError_t launch(Args args, int blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// variant: the tile shape ops.matmul_plan chose (its MATMUL_VARIANTS order)
-template <bool BT, bool VEC>
+template <bool AT, bool BT>
+cudaError_t launch_ws(Args args, int blocks, cudaStream_t stream) {
+  constexpr int BM = Ws::BM, BN = Ws::BN, BK = Ws::BK;
+  bool ok = (AT ? tensor_map(&args.tma_a, args.A, args.K, args.M, 64, true)
+                : tensor_map(&args.tma_a, args.A, args.M, args.K, BM, true)) &&
+            (BT ? tensor_map(&args.tma_b, args.B, args.N, args.K, BN, true)
+                : tensor_map(&args.tma_b, args.B, args.K, args.N, BK, true));
+  if (!ok) return cudaErrorInvalidValue;
+  auto kernel = ws_kernel<AT, BT>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ws::kSmem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const long long kt = (args.K + BK - 1) / BK;
+  const long long tiles =
+      (long long)((args.N + BN - 1) / BN) * ((args.M + BM - 1) / BM);
+  const long long units = (tiles - args.whole) * kt;  // the stream-K ones
+  // the kernel's unit arithmetic (units * blocks) runs in 32 bits
+  if (blocks < 1 || args.whole < 0 || args.whole > tiles ||
+      units * blocks >= (1LL << 31)) {
+    return cudaErrorInvalidValue;
+  }
+  if (units > 0) {
+    // every block has a non-empty run, and a run that starts inside a
+    // tile needs the workspace and the counters
+    if (blocks > units) return cudaErrorInvalidValue;
+    bool shared = false;
+    for (long long p = 1; p < blocks && !shared; ++p)
+      shared = p * units / blocks % kt != 0;
+    if (shared && (args.ws == nullptr || args.counters == nullptr))
+      return cudaErrorInvalidValue;
+  } else if (blocks > tiles) {
+    return cudaErrorInvalidValue;
+  }
+  kernel<<<blocks, Ws::kThreads, Ws::kSmem, stream>>>(args);
+  return cudaGetLastError();
+}
+
+// variant: the tile shape ops.matmul_plan chose (its MATMUL_VARIANTS order).
+// Only variant 2 reads A transposed or finishes tiles whole, and it takes
+// only operands TMA can read (the wrapper sends others to variant 1).
+template <bool AT, bool BT, bool VEC>
 cudaError_t dispatch(int variant, const Args& args, int blocks,
                      cudaStream_t stream) {
-  switch (variant) {
-    case 0:  // 16x64 on mma.sync: decode rows, or a small B
-      return launch<16, 64, 1, 4, 6, 2, BT, VEC>(args, blocks, stream);
-    case 1:  // 64x128 on wgmma: a prefill chunk
-      return launch<64, 128, 4, 1, 4, 2, BT, VEC, true>(args, blocks, stream);
+  if (variant == 2) {
+    if constexpr (VEC) return launch_ws<AT, BT>(args, blocks, stream);
+    return cudaErrorInvalidValue;
+  }
+  if constexpr (!AT) {
+    if (args.whole != 0) return cudaErrorInvalidValue;
+    switch (variant) {
+      case 0:  // 16x64 on mma.sync: decode rows, or a small B
+        return launch<16, 64, 1, 4, 6, 2, BT, VEC>(args, blocks, stream);
+      case 1:  // 64x128 on wgmma: a prefill chunk
+        return launch<64, 128, 4, 1, 4, 2, BT, VEC, true>(args, blocks,
+                                                          stream);
+    }
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// a [M,K] row-major; b [K,N] row-major, or (b_trans) stored [N,K] row-major;
-// bias [N] or null; c [M,N] row-major.  act: 0 none, 1 gelu-tanh, 2 silu.
-// vec: 1 when the TMA path applies (16-byte-aligned bases, K % 8 == 0 and,
-// for a row-major b, N % 8 == 0); 0 loads the tiles element by element.
-// variant and blocks come from ops.matmul_plan; with fewer blocks than
-// (tile, K step) units, ws holds 2 * blocks * BM * BN floats and counters
+// a [M,K] row-major, or (a_trans, variant 2 and vec only) stored [K,M]
+// row-major; b [K,N] row-major, or (b_trans) stored [N,K] row-major (not
+// both transposed); bias [N] or null; c [M,N] row-major.  act: 0 none, 1 gelu-tanh, 2 silu.
+// vec: 1 when the TMA path applies (16-byte-aligned bases, and 16-byte rows:
+// K % 8 == 0 for a row-major a or a transposed b, M % 8 == 0 for a
+// transposed a, N % 8 == 0 for a row-major b); 0 loads the tiles element
+// by element (variants 0 and 1).  variant, blocks and whole come from
+// ops.matmul_plan (whole:
+// variant 2's tiles finished whole, 0 for the others); where a block's run
+// starts inside a tile, ws holds 2 * blocks * BM * BN floats and counters
 // one zeroed int per output tile.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_matmul_bf16(const void* a, const void* b,
                                  const void* bias, void* c, void* ws,
                                  void* counters, int M, int N, int K,
-                                 int b_trans, int act, int vec, int variant,
-                                 int blocks, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+                                 int a_trans, int b_trans, int act, int vec,
+                                 int variant, int blocks, int whole,
+                                 void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || (a_trans && b_trans))
+    return cudaErrorInvalidValue;
   Args args{};
   args.A = static_cast<const bf16*>(a);
   args.B = static_cast<const bf16*>(b);
@@ -619,11 +1119,16 @@ extern "C" int repro_matmul_bf16(const void* a, const void* b,
   args.N = N;
   args.K = K;
   args.act = act;
+  args.whole = whole;
   auto st = static_cast<cudaStream_t>(stream);
-  if (b_trans) {
-    return vec ? dispatch<true, true>(variant, args, blocks, st)
-               : dispatch<true, false>(variant, args, blocks, st);
+  if (a_trans) {
+    return vec ? dispatch<true, false, true>(variant, args, blocks, st)
+               : cudaErrorInvalidValue;
   }
-  return vec ? dispatch<false, true>(variant, args, blocks, st)
-             : dispatch<false, false>(variant, args, blocks, st);
+  if (b_trans) {
+    return vec ? dispatch<false, true, true>(variant, args, blocks, st)
+               : dispatch<false, true, false>(variant, args, blocks, st);
+  }
+  return vec ? dispatch<false, false, true>(variant, args, blocks, st)
+             : dispatch<false, false, false>(variant, args, blocks, st);
 }

@@ -122,10 +122,12 @@ def _launch(fn, args, what: str, counters) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class MatmulPlan:
-    """A stream-K launch of the CUDA matmul: output tiles of ``bm x bn``
-    (``variant``, the index into ``MATMUL_VARIANTS`` the C entry takes),
-    K steps of ``bk``, and ``blocks`` blocks that take equal runs of the
-    ``tiles * kt`` (tile, K step) units, tile-major: block p takes units
+    """A launch of the CUDA matmul: output tiles of ``bm x bn`` (``variant``,
+    the index into ``MATMUL_VARIANTS`` the C entry takes), K steps of
+    ``bk``, and ``blocks`` blocks.  The first ``whole`` tiles (variant 2
+    only) are finished whole, block p taking tiles p, p + blocks, ...; the
+    ``(tiles - whole) * kt`` (tile, K step) units of the others are cut into
+    equal runs, tile-major (stream-K): block p takes units
     ``[p * W // blocks, (p + 1) * W // blocks)``, as the kernel cuts them."""
     variant: int
     bm: int
@@ -134,42 +136,50 @@ class MatmulPlan:
     tiles: int
     kt: int
     blocks: int
+    whole: int = 0
 
     @property
     def name(self) -> str:
         return f"{self.bm}x{self.bn} {MATMUL_VARIANTS[self.variant][3]}"
 
+    @property
+    def _units(self) -> int:
+        return (self.tiles - self.whole) * self.kt
+
     def _start(self, p: int) -> int:
-        return p * self.tiles * self.kt // self.blocks
+        return p * self._units // self.blocks
 
     def _owner(self, u: int) -> int:
-        return ((u + 1) * self.blocks - 1) // (self.tiles * self.kt)
+        return ((u + 1) * self.blocks - 1) // self._units
 
     def tile_runs(self, tile: int) -> list[tuple[int, int, int]]:
         """(block, first K step, end K step) of each block that works on
         ``tile``, in block order: the order the partials are summed in."""
         kt = self.kt
+        if tile < self.whole:
+            return [(tile % self.blocks, 0, kt)]
+        t = tile - self.whole
         out = []
-        for p in range(self._owner(tile * kt),
-                       self._owner((tile + 1) * kt - 1) + 1):
-            u0 = max(self._start(p), tile * kt)
-            u1 = min(self._start(p + 1), (tile + 1) * kt)
-            out.append((p, u0 - tile * kt, u1 - tile * kt))
+        for p in range(self._owner(t * kt), self._owner((t + 1) * kt - 1) + 1):
+            u0 = max(self._start(p), t * kt)
+            u1 = min(self._start(p + 1), (t + 1) * kt)
+            out.append((p, u0 - t * kt, u1 - t * kt))
         return out
 
     @functools.cached_property
     def max_share(self) -> int:
         """The most blocks that work on one tile: the partials the merging
         block of that tile sums."""
-        kt = self.kt
-        return max(self._owner((t + 1) * kt - 1) - self._owner(t * kt) + 1
-                   for t in range(self.tiles))
+        return max(len(self.tile_runs(t)) for t in range(self.whole,
+                                                         self.tiles)) \
+            if self.whole < self.tiles else 1
 
 
 #: (bm, bn, bk, products) of each tile variant of ``csrc/matmul.cu``, in
 #: its order
-MATMUL_VARIANTS = ((16, 64, 64, "mma.sync"), (64, 128, 64, "wgmma"))
-#: the most blocks a plan puts on one SM (each variant fits two)
+MATMUL_VARIANTS = ((16, 64, 64, "mma.sync"), (64, 128, 64, "wgmma"),
+                   (128, 256, 64, "wgmma ws"))
+#: the most blocks a plan puts on one SM (variants 0 and 1 fit two)
 BLOCKS_PER_SM = 2
 #: K steps each block must stream before a second block per SM pays for
 #: the extra partial tiles it makes (measured: only the lm_head reaches it)
@@ -177,19 +187,59 @@ MIN_RUN = 128
 #: a B this small stays in L2, so 16-row tiles of a prefill chunk may read
 #: it once per row tile
 SMALL_B_BYTES = 8 << 20
+#: rows from which an ``[M, K] @ [K, N]`` takes variant 2 (a training
+#: step's M = batch x sequence, its wgrad's M = K).  Measured at K = N =
+#: 4096 on the H100: variant 2 ties variant 1 at M = 256 and is 1.5x
+#: faster at 512; at M = 2048 it is 1.9-4.6x faster than variant 0 at
+#: zamba2-7b's B|C|dt (N = 240), whose B stays in L2
+TRAIN_M = 512
+#: variant 2 cuts the tiles of a last, partial wave into stream-K runs only
+#: where the wave leaves more than this share of the blocks idle
+SPLIT_IDLE = 0.5
+
+
+def _persistent_plan(M: int, N: int, K: int, sms: int) -> MatmulPlan:
+    """Variant 2: one block per SM, each finishing whole tiles in waves
+    (tile p + i * sms), the waves in lock step so that the tiles of a wave
+    share their A and B stripes in L2.  A last wave that would leave more
+    than ``SPLIT_IDLE`` of the blocks idle (fewer tiles than SMs included)
+    is cut into stream-K runs over all blocks instead.  Splitting a fuller
+    last wave would gain at most a few per cent, and its runs start at
+    staggered K steps, so the blocks would stop sharing stripes in L2."""
+    bm, bn, bk, _ = MATMUL_VARIANTS[2]
+    tiles, kt = -(-M // bm) * -(-N // bn), -(-K // bk)
+    rest = tiles % sms
+    split = rest > 0 and sms - rest > SPLIT_IDLE * sms and (
+        rest == tiles or rest * kt >= sms)   # every run holds a unit
+    if not split:
+        return MatmulPlan(2, bm, bn, bk, tiles, kt, min(sms, tiles), tiles)
+    return MatmulPlan(2, bm, bn, bk, tiles, kt, min(sms, rest * kt),
+                      tiles - rest)
 
 
 @functools.lru_cache(maxsize=None)
-def matmul_plan(M: int, N: int, K: int, sms: int = SMS) -> MatmulPlan:
-    """The tile variant and the stream-K grid of an ``[M, K] @ [K, N]``.
+def matmul_plan(M: int, N: int, K: int, sms: int = SMS, *,
+                a_trans: bool = False) -> MatmulPlan:
+    """The tile variant and the grid of an ``[M, K] @ [K, N]``.
 
     M <= 16 (decode rows) takes the 16x64 mma.sync tiles, and so does a
     larger M where B is small (it stays in L2 for the other row tiles);
-    a prefill chunk otherwise takes the 64x128 wgmma tiles.  The blocks
+    a prefill chunk otherwise takes the 64x128 wgmma tiles.  Their blocks
     take equal runs of (tile, K step) units, so every SM streams the same
     share of B whatever the tile count, with no second wave: one block per
-    SM, or two where each still streams ``MIN_RUN`` K steps."""
-    variant = 0 if M <= 16 or 2 * K * N <= SMALL_B_BYTES else 1
+    SM, or two where each still streams ``MIN_RUN`` K steps.  From
+    ``TRAIN_M`` rows (the training step), and wherever A is read
+    transposed (wgrad), variant 2 takes it (``_persistent_plan``)."""
+    if a_trans or M >= TRAIN_M:
+        return _persistent_plan(M, N, K, sms)
+    small_b = 2 * K * N <= SMALL_B_BYTES
+    return _stream_k_plan(M, N, K, sms, 0 if M <= 16 or small_b else 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_k_plan(M: int, N: int, K: int, sms: int,
+                   variant: int) -> MatmulPlan:
+    """Variant 0 or 1 over equal runs of every (tile, K step) unit."""
     bm, bn, bk, _ = MATMUL_VARIANTS[variant]
     tiles, kt = -(-M // bm) * -(-N // bn), -(-K // bk)
     per_sm = BLOCKS_PER_SM
@@ -382,7 +432,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
 
 def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul"):
     """``matmul`` off the autograd path; a launch counts under
-    ``counts[key]``."""
+    ``counts[key]``.  ``a`` may also be the transpose of a row-major
+    ``[K, M]`` (wgrad's ``a^T``), read without a copy."""
     if _on_cpu(a, b, bias):
         return ref.matmul_ref(a, b, bias, activation)
     from repro_torch.kernels import _build
@@ -404,14 +455,25 @@ def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul"):
     else:
         raise ValueError("b must be row-major [K, N] or the transpose of a "
                          "row-major [N, K]")
-    a2 = a.reshape(-1, K).contiguous()
+    a_trans = int(a.dim() == 2 and not a.is_contiguous()
+                  and a.stride() == (1, a.shape[0]))
+    if a_trans and b_trans:
+        raise ValueError("a and b may not both be transposed views")
+    a2 = a if a_trans else a.reshape(-1, K).contiguous()
     M = a2.shape[0]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0:
         return out.reshape(*lead, N)
-    vec = int(K % 8 == 0 and (b_trans or N % 8 == 0)
+    vec = int((M % 8 == 0 if a_trans else K % 8 == 0)
+              and (K % 8 == 0 if b_trans else N % 8 == 0)
               and a2.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
-    plan = matmul_plan(M, N, K)
+    plan = matmul_plan(M, N, K, a_trans=bool(a_trans))
+    if plan.variant == 2 and not vec:
+        # variant 2 reads by TMA only: rows TMA cannot read take variant 1's
+        # element loads, A transposed by a copy (no model width needs this)
+        if a_trans:
+            a2, a_trans = a2.contiguous(), 0
+        plan = _stream_k_plan(M, N, K, SMS, 1)
     ws = counters = None
     if plan.max_share > 1:   # some tile is shared
         ws = torch.empty(2 * plan.blocks * plan.bm * plan.bn,
@@ -419,8 +481,9 @@ def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul"):
         counters = _counters(a, plan.tiles)
     _launch(_build.entry("matmul"),
             (_ptr(a2), _ptr(b), _ptr(bias), _ptr(out), _ptr(ws),
-             _ptr(counters), M, N, K, b_trans, _ACTIVATIONS[activation], vec,
-             plan.variant, plan.blocks, _stream(a)), "matmul", counters)
+             _ptr(counters), M, N, K, a_trans, b_trans,
+             _ACTIVATIONS[activation], vec, plan.variant, plan.blocks,
+             plan.whole, _stream(a)), "matmul", counters)
     counts[key] += 1
     return out.reshape(*lead, N)
 
@@ -430,8 +493,8 @@ def matmul_backward(a: torch.Tensor, b: torch.Tensor, dz: torch.Tensor, *,
     """The backward of ``a [M, K] @ b [K, N]`` for the gradient ``dz [M, N]``
     of its pre-activation output: ``(dz @ b^T, a^T @ dz)`` (None where not
     needed).  On CUDA, two launches of the matmul kernel: dgrad reads ``b``
-    transposed, as a tied head does; wgrad reads a copy of ``a^T`` made
-    here (the kernel reads A row-major only)."""
+    transposed, as a tied head does; wgrad reads ``a`` transposed, straight
+    from the row-major activation (no copy of ``a^T``)."""
     if _on_cpu(a, b, dz):
         da, db = ref.matmul_bwd_ref(a, b, dz)
         return (da if need_a else None), (db if need_b else None)
@@ -439,7 +502,7 @@ def matmul_backward(a: torch.Tensor, b: torch.Tensor, dz: torch.Tensor, *,
     key = "matmul_bwd"
     da = _matmul(dz, b.t(), None, None, BACKWARD_LAUNCHES, key) if need_a \
         else None
-    db = _matmul(a.t().contiguous(), dz, None, None, BACKWARD_LAUNCHES,
+    db = _matmul(a.contiguous().t(), dz, None, None, BACKWARD_LAUNCHES,
                  key) if need_b else None
     return da, db
 

@@ -10,6 +10,8 @@ Tolerances are bf16's: the output is rounded to bf16 (relative spacing
 2^-8), so |kernel - plain| <= atol + rtol * |plain| allows about two units
 in the last place at |x| ~ 1.
 """
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -387,6 +389,109 @@ def test_matmul_backward_kernels_match_plain(cuda, m, k, n, tied):
     assert da.shape == a.shape and db.shape == w.shape
     assert _rel(da, want_a) <= BWD_REL
     assert _rel(db, want_b) <= BWD_REL
+
+
+def _force_training_variant(monkeypatch):
+    """Every matmul plan on variant 2 (128x256, warp-specialized,
+    persistent), whatever the plan would pick at the shape."""
+    plan = functools.lru_cache(maxsize=None)(
+        lambda M, N, K, sms=ops.SMS, *, a_trans=False:
+        ops._persistent_plan(M, N, K, sms))
+    monkeypatch.setattr(ops, "matmul_plan", plan)
+
+
+def _matmul_operands(dev, m, k, n, tied, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+    w = torch.randn(n, k, generator=gen, device=dev) if tied else \
+        torch.randn(k, n, generator=gen, device=dev)
+    w = (w * k ** -0.5).bfloat16()
+    dz = (torch.randn(m, n, generator=gen, device=dev) * n ** -0.5).bfloat16()
+    return a, (w.t() if tied else w), dz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,tied,act", [
+    (2100, 520, 1000, False, None),   # ragged M, N and K
+    (2100, 520, 1000, False, "gelu"),  # the epilogue's activation
+    (2048, 1024, 4000, True, None),   # a tied head: B K-major
+    (2048, 3584, 14336, False, None),  # zamba2-7b's z|x
+    (2048, 3584, 240, False, "silu"),  # zamba2-7b's B|C|dt
+    (1000, 2100, 1000, False, None),  # 32 tiles: every one split
+    (2048, 1024, 2304, False, None),  # 144 tiles: 132 whole, 12 split
+    (301, 517, 999, False, None),     # rows TMA cannot read: variant 1
+])
+def test_matmul_training_variant_matches_plain(cuda, monkeypatch, m, k, n,
+                                               tied, act):
+    """Forward (with bias and the activation where given) and backward on
+    variant 2 at every layout it takes: A K-major or (wgrad) MN-major, B
+    MN-major or (dgrad, a tied head) K-major; operands whose rows TMA
+    cannot read go to variant 1's element loads instead."""
+    _force_training_variant(monkeypatch)
+    a, w, dz = _matmul_operands(cuda, m, k, n, tied, seed=7)
+    bv = torch.randn(n, device=cuda).bfloat16() if act else None
+    before = dict(ops.LAUNCHES), dict(ops.BACKWARD_LAUNCHES)
+    got = ops.matmul(a, w, bv, activation=act)
+    da, db = ops.matmul_backward(a, w, dz)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["matmul"] == before[0]["matmul"] + 1
+    assert ops.BACKWARD_LAUNCHES["matmul_bwd"] == \
+        before[1]["matmul_bwd"] + 2
+    _close(got, ref.matmul_ref(a, w, bv, act), **BF16_TOL)
+    want_a, want_b = ref.matmul_bwd_ref(a, w, dz)
+    assert da.shape == a.shape and db.shape == w.shape
+    assert _rel(da, want_a) <= BWD_REL
+    assert _rel(db, want_b) <= BWD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,k,n", [("mamba z|x", 3584, 14336),
+                                       ("mamba B|C|dt", 3584, 240),
+                                       ("lm_head, tied", 3584, 32000)])
+def test_matmul_at_zamba_training_shapes_on_its_plans(cuda, label, k, n):
+    """zamba2-7b's projections at M = 2048 through the plans the step
+    takes: forward and backward against the plain versions."""
+    a, w, dz = _matmul_operands(cuda, 2048, k, n, "tied" in label, seed=8)
+    _close(ops.matmul(a, w), ref.matmul_ref(a, w), **BF16_TOL)
+    da, db = ops.matmul_backward(a, w, dz)
+    want_a, want_b = ref.matmul_bwd_ref(a, w, dz)
+    assert _rel(da, want_a) <= BWD_REL
+    assert _rel(db, want_b) <= BWD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1000, 2100, 1000), (2048, 1024, 2304),
+                                   (2048, 4096, 4096)])
+def test_matmul_training_variant_is_deterministic(cuda, monkeypatch, m, k,
+                                                  n):
+    """Split tiles' partials are summed in block order: two identical
+    calls give the same bits, forward and backward."""
+    _force_training_variant(monkeypatch)
+    a, w, dz = _matmul_operands(cuda, m, k, n, False, seed=9)
+    first = ops.matmul(a, w), *ops.matmul_backward(a, w, dz)
+    again = ops.matmul(a, w), *ops.matmul_backward(a, w, dz)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_matmul_backward_makes_no_copy_of_a_transposed(cuda):
+    """wgrad reads ``a^T`` from the row-major activation: beyond its two
+    outputs, the backward at llama3-8b's wo (M = 2048, no split tile, so
+    no workspace) allocates less than ``a^T`` would take."""
+    m, k, n = 2048, 4096, 4096
+    assert ops.matmul_plan(m, k, n).max_share == 1
+    assert ops.matmul_plan(k, n, m, a_trans=True).max_share == 1
+    a, w, dz = _matmul_operands(cuda, m, k, n, False, seed=10)
+    ops.matmul_backward(a, w, dz)   # builds and loads the kernel first
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    da, db = ops.matmul_backward(a, w, dz)
+    torch.cuda.synchronize()
+    outputs = da.numel() * da.element_size() + db.numel() * db.element_size()
+    extra = torch.cuda.max_memory_allocated() - base - outputs
+    assert extra < a.numel() * a.element_size(), extra
 
 
 FA_BWD_CASES = [
