@@ -155,14 +155,43 @@ Phases, in order, each failing the run on any error:
    loss bit for bit, no backward kernel launched), every gradient of the
    kernels within ``PATH_TOL`` of it; and a planted fault
    (``ssd_scan_bwd``'s dB set to zero) must break that limit.
+13. train-gpt-kernels -- at gpt-m2's training shapes (the paper's Table 2
+   GPT: d_model 4096, 32 heads of 128 with no GQA, d_ff 16384, vocab
+   51200, no RoPE; b = 1, s = 2048): its five GEMMs forward and backward
+   as in phase 7 (``matmul_steps``); the up projection also writing its
+   pre-activation (``ops._matmul(..., z_out=True)``): z must equal the
+   launch without the activation and y the launch without z, bit for bit,
+   and it is timed beside the launch without z; the activation's
+   derivative (``csrc/act_bwd.cu``) within one bf16 ulp of
+   ``ref.epilogue_bwd`` for gelu and silu, timed against its bound, the
+   plain version and ``aten.gelu_backward``; the attention forward with
+   its log-sum-exp and its backward at 32 / 32 heads (a GQA group of 1),
+   timed against SDPA.
+14. train-gpt -- ``build_train_step`` on gpt-m2 at its own 4 layers (a
+   whole model: 1.23 B parameters), b = 1, s = 2048, zero1, remat on, as
+   phase 8: 6 steps on one batch, the loss must fall, launch counts equal
+   to ``train_launches_per_step`` (a LayerNorm model launches no rmsnorm;
+   one activation derivative per gelu MLP), ms a step, tokens/s, peak
+   memory and a profiled step; then gpt-m1 and gpt-m3 (4.06 B parameters,
+   about 61 GiB at its peak) at their 4 layers, the same steps and checks
+   without the profiled steps.
+15. path-check-train-gpt -- gpt-m2 at 2 layers, b = 1, s = 512 (so that
+   the up projection's pre-activation comes from variant 2): the loss and
+   every gradient on the card against the CPU's fp32 plain path within
+   ``PATH_TOL``; then the same step with ``activation_backward`` swapped
+   for its plain version on the card (the same loss bit for bit, no
+   derivative kernel launched), every gradient within ``PATH_TOL`` of the
+   kernels'; and a planted fault (``activation_backward`` passing ``dy``
+   on unchanged) must break that limit.
 
 Prints the card's name and power limit, the kernels' build time and each
 kernel's registers and spills from the build report, one JSON
 line ``{"kernels": [...]}`` (one row per kernel: the four forward kernels
 at the zamba2-7b path's shapes and launches, the three backward kernels
 at the training step's, the two Mamba2 backward kernels at the zamba
-training step's; the llama3-8b serving rows and the training step's
-forward rows go to the log and, with every check, to
+training step's, the activation's derivative at the gpt-m2 training
+step's; the llama3-8b serving rows and the training steps' other rows go
+to the log and, with every check, to
 ``kernel_checks.json`` in the output directory) and, last,
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, where no CUDA device is present or the
@@ -189,13 +218,16 @@ OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
           "serve-zamba", "path-check-zamba", "train-kernels", "train",
           "path-check-train", "train-zamba-kernels", "train-zamba",
-          "path-check-train-zamba")
+          "path-check-train-zamba", "train-gpt-kernels", "train-gpt",
+          "path-check-train-gpt")
 #: the serving path whose forward rows the result line reports
 MAIN = "zamba2-7b"
 #: the training path: the backward rows of the result line
 TRAIN = "train"
 #: the zamba2-7b training path: the Mamba2 backward rows
 TRAIN_ZAMBA = "train-zamba"
+#: the paper's gpt-m2 training path: the activation derivative's row
+TRAIN_GPT = "train-gpt"
 
 BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_TFLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
@@ -719,8 +751,10 @@ PROMPT_LEN = 256   # prompt lengths are drawn from [64, 256]
 def launches_per_step(cfg) -> dict:
     """Kernel launches of one paged step at d1 = d2 = 1 (every step shape
     launches the same kernels), summed over the segments:
-      - dense layer: 2 entry norms; fused q/k/v, wo, fused up+gate and down
-        GEMMs; one attention core;
+      - dense layer: 2 entry norms (rmsnorm launches only for an RMSNorm
+        model: a LayerNorm model's norms run as plain torch, the final one
+        too); fused q/k/v, wo, fused up+gate (or up) and down GEMMs; one
+        attention core;
       - zamba super-block of ``inner`` blocks: the shared block's 2
         in-projections and its dense layer, and ``inner - 1`` Mamba2 blocks;
       - Mamba2 block: its ``ln`` norm and its grouped, gated norm; z|x,
@@ -728,12 +762,14 @@ def launches_per_step(cfg) -> dict:
     plus the final norm and the head GEMM.  zamba2-7b (13 super-blocks of
     6, 3 tail Mamba2 blocks): matmul 13 * (2 + 4 + 5 * 3) + 3 * 3 + 1 = 283,
     rmsnorm 13 * (2 + 5 * 2) + 3 * 2 + 1 = 163, flash_attention 13,
-    ssd_scan 13 * 5 + 3 = 68."""
+    ssd_scan 13 * 5 + 3 = 68.  gpt-m2 (4 dense layers, LayerNorm): matmul
+    17, flash_attention 4, rmsnorm 0."""
     from repro_torch.configs.base import segments
 
-    n = {"matmul": 1, "flash_attention": 0, "rmsnorm": 1, "ssd_scan": 0}
-    per = {"dense": {"matmul": 4, "flash_attention": 1, "rmsnorm": 2},
-           "mamba": {"matmul": 3, "rmsnorm": 2, "ssd_scan": 1}}
+    norm = 0 if cfg.norm_kind == "layernorm" else 1   # a block norm's launch
+    n = {"matmul": 1, "flash_attention": 0, "rmsnorm": norm, "ssd_scan": 0}
+    per = {"dense": {"matmul": 4, "flash_attention": 1, "rmsnorm": 2 * norm},
+           "mamba": {"matmul": 3, "rmsnorm": norm + 1, "ssd_scan": 1}}
     for seg in segments(cfg):
         blocks = ({"dense": 1, "mamba": seg.inner - 1} if seg.kind == "zamba"
                   else {seg.kind: 1})
@@ -1243,24 +1279,31 @@ def train_launches_per_step(cfg, remat: bool) -> tuple[dict, dict]:
     zamba super-block, a tail Mamba2 block -- once more when ``remat``
     recomputes it in the backward; the final norm and the head once), and
     per matmul two backward launches (dgrad and wgrad), per attention and
-    per SSD scan one, per block norm one, and per Mamba2 block one of the
-    grouped, gated norm's backward (counted apart from the block norms').
-    llama3-8b at 4 layers: forward 33 matmul, 8 flash_attention, 17
-    rmsnorm; backward 34 matmul, 4 attention, 9 rmsnorm.  zamba2-7b at 14
-    layers (2 super-blocks of 6, a 2-block tail: 12 Mamba2 blocks, 2
-    shared-block applications): forward 97 matmul, 4 flash_attention, 57
-    rmsnorm, 24 ssd_scan; backward 98 matmul, 2 attention, 17 rmsnorm, 12
-    grouped norm, 12 ssd_scan."""
+    per SSD scan one, per block norm one, per Mamba2 block one of the
+    grouped, gated norm's backward (counted apart from the block norms'),
+    and per gelu MLP (a dense block whose up projection fuses gelu) one of
+    the activation's derivative.  llama3-8b at 4 layers: forward 33
+    matmul, 8 flash_attention, 17 rmsnorm; backward 34 matmul, 4
+    attention, 9 rmsnorm.  zamba2-7b at 14 layers (2 super-blocks of 6, a
+    2-block tail: 12 Mamba2 blocks, 2 shared-block applications): forward
+    97 matmul, 4 flash_attention, 57 rmsnorm, 24 ssd_scan; backward 98
+    matmul, 2 attention, 17 rmsnorm, 12 grouped norm, 12 ssd_scan.  gpt-m2
+    (4 layers, LayerNorm, gelu MLP): forward 33 matmul, 8
+    flash_attention, 0 rmsnorm; backward 34 matmul, 4 attention, 4
+    activation derivatives."""
     serve = launches_per_step(cfg)
     again = 2 if remat else 1
-    once = {"matmul": 1, "rmsnorm": 1}   # the head and the final norm
+    # the head and the final norm (a launch only for an RMSNorm model)
+    once = {"matmul": 1, "rmsnorm": 0 if cfg.norm_kind == "layernorm" else 1}
     fwd = {k: again * (v - once.get(k, 0)) + once.get(k, 0)
            for k, v in serve.items()}
     mamba_blocks = serve["ssd_scan"]
     bwd = {"matmul_bwd": 2 * serve["matmul"],
            "flash_attention_bwd": serve["flash_attention"],
            "rmsnorm_bwd": serve["rmsnorm"] - mamba_blocks,
-           "group_rmsnorm_bwd": mamba_blocks, "ssd_scan_bwd": mamba_blocks}
+           "group_rmsnorm_bwd": mamba_blocks, "ssd_scan_bwd": mamba_blocks,
+           "matmul_act_bwd": (serve["flash_attention"]
+                              if cfg.mlp_kind == "gelu" else 0)}
     return fwd, bwd
 
 
@@ -2092,6 +2135,199 @@ def zamba_train_forward_checks(torch, ops, ref, randn, gen, failed):
     return fa, rn, ssd
 
 
+#: the paper's GPT training path (``gpt_paper_model``, Table 2): gpt-m2 at
+#: its own 4 layers, the slice's model; gpt-m1 and gpt-m3 train after it
+#: without a profile (gpt-m4's 8.5 B parameters need 102 GB at 12 bytes
+#: each: more than one card)
+GPT_ARCH, GPT_LAYERS = "gpt-m2", 4
+GPT_OTHERS = ("gpt-m1", "gpt-m3")
+GPT_GEMMS = (  # (name, K, N) of gpt-m2's five training GEMMs, 4 layers
+    ("fused_qkv", 4096, 12288), ("wo", 4096, 4096), ("up (gelu)", 4096, 16384),
+    ("down", 16384, 4096), ("lm_head", 4096, 51200),
+)
+#: the GPT training path check: 2 layers, and M = 512 >= ``ops.TRAIN_M``
+#: so that the up projection's pre-activation comes from variant 2
+GPT_PATH = dict(layers=2, seq=512)
+
+
+def bf16_ulp(torch, x):
+    """The spacing of bf16 values at ``x`` (8 significant bits)."""
+    xf = x.float()
+    return torch.ldexp(torch.ones_like(xf),
+                       torch.frexp(xf)[1] - 8).clamp_min(2.0 ** -133)
+
+
+def gpt_train_kernel_phase(torch, F, ops, ref, timer, floor,
+                           dev="cuda"):
+    """gpt-m2's training shapes (b = 1, s = 2048, d_model 4096, 32 heads of
+    128, MHA): each of its five GEMMs forward and backward against the
+    plain versions and ``torch.matmul`` (``matmul_steps``); the up
+    projection also with its pre-activation output (``_matmul(...,
+    z_out=True)``, checked bit for bit against the launches without z and
+    without the activation, timed against the launch without z); the
+    activation's derivative (``csrc/act_bwd.cu``) within one bf16 ulp of
+    ``ref.epilogue_bwd`` for gelu and silu, timed against its bound, the
+    plain version and ``aten.gelu_backward``; the attention forward with
+    its log-sum-exp and its backward at MHA (a GQA group of 1).  Returns
+    (forward KernelReports, backward ones, the derivative's), with totals
+    per training step of ``GPT_LAYERS`` layers."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    T, L = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["seq"], GPT_LAYERS
+    if floor is None:
+        floor = timer(lambda: torch.cuda._sleep(0))
+        log(f"train-gpt-kernels: timer floor {floor:.4f} ms (an empty "
+            f"kernel)")
+    cfg = _train_config(GPT_ARCH, L)
+    fwd_per_step, bwd_per_step = train_launches_per_step(cfg, remat=True)
+    again = fwd_per_step["flash_attention"] // L
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    failed = []
+    mmf = KernelReport("matmul", "cuda",
+                       "src/repro_torch/kernels/csrc/matmul.cu",
+                       "src/repro/kernels/matmul.py:102", floor)
+    mmb = KernelReport("matmul_bwd", "cuda",
+                       "src/repro_torch/kernels/csrc/matmul.cu",
+                       "src/repro/kernels/matmul.py:102", floor)
+    # every up projection runs with its pre-activation: its forward
+    # launches count in the row below, not in this one
+    weights = {label: ((L * again, L) if label != "lm_head" else (1, 1))
+               for label, _, _ in GPT_GEMMS}
+    weights["up (gelu)"] = (0, L)
+    log(f"train-gpt-kernels: {cfg.name} ({GPT_ARCH}) matmul forward "
+        f"(tolerance |err| <= atol + rtol*|plain|) and backward (limit "
+        f"{BWD_REL} relative L2) at M = {T} tokens; launches a step "
+        f"{weights}")
+    matmul_steps(timer, ops, ref, torch, GPT_GEMMS, T, weights, None, mmf,
+                 mmb, failed, TRAIN_GPT, dev)
+
+    # the up projection under autograd: one launch writes y and z
+    mmz = KernelReport("matmul (with pre-activation)", "cuda",
+                       "src/repro_torch/kernels/csrc/matmul.cu",
+                       "src/repro/kernels/matmul.py:102", floor)
+    K, N = cfg.d_model, cfg.d_ff
+    a, b = randn(T, K), randn(K, N, scale=K ** -0.5)
+    y, z = ops._matmul(a, b, None, "gelu", z_out=True)
+    same_z = torch.equal(z, ops._matmul(a, b, None, None))
+    same_y = torch.equal(y, ops._matmul(a, b, None, "gelu"))
+    want_y, want_z = ref.matmul_aux_ref(a, b, None, "gelu")
+    ok_y, err_y = within(y, want_y, **MM_TOL)
+    ok_z, err_z = within(z, want_z, **MM_TOL)
+    plan = ops.matmul_plan(T, N, K)
+    without_z = timer(lambda: ops._matmul(a, b, None, "gelu"))
+    if not mmz.add(f"up (gelu) M={T} K={K} N={N} y and z [{plan.name} "
+                   f"blocks={plan.blocks} whole={plan.whole}]: z bitwise "
+                   f"the no-activation output {same_z}, y bitwise the "
+                   f"output without z {same_y}; without z "
+                   f"{without_z:.4f} ms", ok_y and ok_z and same_z and same_y,
+                   max(err_y, err_z), MM_TOL, TRAIN_GPT, "train", L * again,
+                   ms=timer(lambda: ops._matmul(a, b, None, "gelu",
+                                                z_out=True)),
+                   plain_ms=timer(lambda: ref.matmul_aux_ref(a, b, None,
+                                                             "gelu")),
+                   library_ms=timer(lambda: torch.matmul(a, b)),
+                   nbytes=2 * (T * K + K * N + 2 * T * N),
+                   flops=2 * T * K * N):
+        failed.append("matmul with pre-activation")
+    del a, b, y, want_y, want_z
+
+    act = KernelReport("matmul_act_bwd", "cuda",
+                       "src/repro_torch/kernels/csrc/act_bwd.cu",
+                       "src/repro/kernels/matmul.py:102", floor)
+    log(f"train-gpt-kernels: the activation's derivative dz = dy * "
+        f"act'(z) (limit one bf16 ulp of the plain version) at the up "
+        f"projection's {T} x {N}; {bwd_per_step['matmul_act_bwd']} launches "
+        f"a step")
+    dy = randn(T, N)
+    for name in ("gelu", "silu"):
+        got = ops.activation_backward(dy, z, name)
+        want = ref.epilogue_bwd(z, dy, name)
+        err = (got.float() - want.float()).abs()
+        ulps = float((err / bf16_ulp(torch, want)).max())
+        timing = {}
+        if name == "gelu":
+            timing = dict(
+                ms=timer(lambda: ops.activation_backward(dy, z, "gelu")),
+                plain_ms=timer(lambda: ref.epilogue_bwd(z, dy, "gelu")),
+                library_ms=timer(lambda: torch.ops.aten.gelu_backward(
+                    dy, z, approximate="tanh")),
+                nbytes=6 * T * N, flops=30 * T * N, peak=FP32_TFLOPS)
+        if not act.add(f"{name} {T}x{N}: {ulps:.2f} bf16 ulp at most",
+                       ulps <= 1.0, float(err.max()), "1 bf16 ulp",
+                       TRAIN_GPT if timing else None,
+                       "train" if timing else None,
+                       bwd_per_step["matmul_act_bwd"] if timing else 0,
+                       **timing):
+            failed.append(f"matmul_act_bwd {name}")
+        del got, want, err
+    del z, dy
+
+    faf = KernelReport("flash_attention", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:102", floor)
+    fab = KernelReport("flash_attention_bwd", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                       "src/repro/kernels/flash_attention.py:102", floor)
+    hq, d = cfg.num_heads, cfg.hd
+    q, k, v, do = (randn(1, T, hq, d) for _ in range(4))
+    qo = torch.zeros(1, dtype=torch.int32, device=dev)
+    kl = torch.full((1,), T, dtype=torch.int32, device=dev)
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+    out_ref, lse_ref = ref.attention_lse_ref(q, k, v, qo, kl)
+    ok, err = within(out, out_ref, **FA_TOL)
+    lse_err = float((lse - lse_ref).abs().max())
+    ok = ok and bool(lse.isfinite().all()) and lse_err <= LSE_ATOL
+    visible = int(ref.attention_mask(T, T, qo, kl).sum()) * hq
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if not faf.add(
+            f"{GPT_ARCH} b=1 s={T} {hq}/{hq} heads d={d} causal, lse err "
+            f"{lse_err:.2e}", ok, max(err, lse_err),
+            {**FA_TOL, "lse_atol": LSE_ATOL}, TRAIN_GPT, "train", L * again,
+            ms=timer(lambda: ops.flash_attention_lse(q, k, v, qo, kl)),
+            plain_ms=timer(lambda: ref.attention_lse_ref(q, k, v, qo, kl)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+            nbytes=2 * 4 * q.numel() + 4 * lse.numel(),
+            flops=4 * d * visible):
+        failed.append("flash_attention forward MHA")
+    plan = ops.attention_bwd_plan(1, T, hq, hq, T)
+    lens = plan.lengths()
+    log(f"  dK/dV plan at s={T}, {hq}/{hq} heads (group 1): {len(lens)} "
+        f"items of at most {plan.max_len} (longest {max(lens)}, mean "
+        f"{sum(lens) / len(lens):.2f}), {plan.slots} partial slots, "
+        f"{plan.blocks} persistent blocks")
+    got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
+    want = ref.attention_bwd_ref(q, k, v, out_ref, do, lse_ref, qo, kl)
+    errs = [rel_l2(g, w) for g, w in zip(got, want)]
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    del got, want, out_ref, lse_ref
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    do_lib = do.transpose(1, 2)
+    if not fab.add(
+            f"{GPT_ARCH} b=1 s={T} {hq}/{hq} heads d={d}: rel L2 dq "
+            f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e}",
+            max(errs) <= BWD_REL, err, BWD_REL, TRAIN_GPT, "train", L,
+            ms=timer(lambda: ops.flash_attention_backward(
+                q, k, v, out, do, lse, qo, kl)),
+            plain_ms=timer(lambda: ref.attention_bwd_ref(
+                q, k, v, out, do, lse, qo, kl)),
+            library_ms=timer(lambda: torch.autograd.grad(
+                o_lib, leaves, do_lib, retain_graph=True)),
+            nbytes=2 * 8 * q.numel() + 4 * lse.numel(),
+            flops=5 * 2 * d * visible):
+        failed.append("flash_attention_bwd MHA")
+    del q, k, v, do, out, lse, qt, kt, vt, leaves, o_lib
+    if failed:
+        raise AssertionError(f"gpt training-shape kernels disagree with "
+                             f"their plain versions: {failed}")
+    return (mmf, mmz, faf), (mmb, fab), act
+
+
 def _train_config(arch: str, layers: int):
     from repro_torch.configs.registry import get_config
 
@@ -2122,15 +2358,18 @@ def _train_model(torch, layers: int, seed: int, dev="cuda",
 
 
 def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
-                layers: int = TRAIN_SHAPE["layers"], tag: str = "") -> dict:
+                layers: int = TRAIN_SHAPE["layers"], tag: str = "",
+                profile: bool = True) -> dict:
     """``build_train_step`` on ``arch`` at ``layers`` (``TRAIN_SHAPE``'s
     batch and sequence), AdamW zero1 at dp = 1 (full-state, fp32 m/v),
     remat on: one warm-up step, then the counted steps on the same batch,
-    then one profiled step and one more profiled with the host's ops and
-    shapes (``profile_train{tag}.txt``, ``profile_train{tag}_ops.txt``).
-    Returns the launch counts of the counted steps."""
+    then, with ``profile``, one profiled step and one
+    more profiled with the host's ops and shapes
+    (``profile_train{tag}.txt``, ``profile_train{tag}_ops.txt``).  Returns
+    the launch counts of the counted steps."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profile_
 
     from repro_torch.core.mesh import atp_topo
     from repro_torch.kernels import ops
@@ -2177,7 +2416,15 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
     want = {k: v * len(walls) for k, v in {**fwd, **bwd}.items()}
     log(f"  launches over {len(walls)} steps: {launches} (= per step "
         f"{fwd} {bwd} x {len(walls)})")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    assert all(math.isfinite(x) for x in losses), f"losses {losses}"
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    assert launches == want, f"launches {launches}, expected {want}"
+    if not profile:
+        del params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    with profile_(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         params, state, m = step(params, state, batch)
         float(m["loss"])
@@ -2197,8 +2444,8 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
     # one more step under the host-side profiler, with shapes: which torch
     # op launched the copies and casts (a transposing copy is an
     # aten::clone, a cast an aten::_to_copy; both run aten::copy_)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    with profile_(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  record_shapes=True) as prof:
         params, state, m = step(params, state, batch)
         float(m["loss"])
     by_op = prof.key_averages(group_by_input_shape=True)
@@ -2213,9 +2460,6 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
     for e in copies[:16]:
         log(f"    {e.device_time_total / 1e3:9.3f} ms  {e.count:4d}x  "
             f"{e.key} {e.input_shapes}")
-    assert all(math.isfinite(x) for x in losses), f"losses {losses}"
-    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
-    assert launches == want, f"launches {launches}, expected {want}"
     del params, state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2223,7 +2467,7 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
 
 
 def plain_backward(ref) -> dict:
-    """The five backward wrappers of ``kernels.ops`` as their plain
+    """The six backward wrappers of ``kernels.ops`` as their plain
     versions, with the wrappers' arguments: what each wrapper runs on the
     CPU, here run on any device."""
     def matmul_backward(a, b, dz, *, need_a=True, need_b=True):
@@ -2245,11 +2489,15 @@ def plain_backward(ref) -> dict:
     def ssd_scan_backward(x, dt, A_log, B, C, D, dy, *, chunk):
         return ref.ssd_bwd_ref(x, dt, A_log, B, C, D, dy, chunk)
 
+    def activation_backward(dy, z, activation):
+        return ref.epilogue_bwd(z, dy, activation)
+
     return dict(matmul_backward=matmul_backward,
                 flash_attention_backward=flash_attention_backward,
                 rmsnorm_backward=rmsnorm_backward,
                 group_rmsnorm_backward=group_rmsnorm_backward,
-                ssd_scan_backward=ssd_scan_backward)
+                ssd_scan_backward=ssd_scan_backward,
+                activation_backward=activation_backward)
 
 
 @contextlib.contextmanager
@@ -2277,6 +2525,12 @@ def zero_db(torch, ssd_scan_backward):
     return faulty
 
 
+def no_derivative(dy, z, activation):
+    """``activation_backward`` with a planted fault: ``dy`` passed on as if
+    the activation were the identity."""
+    return dy
+
+
 def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
                      layers: int = 2, seq: int = PATH_SEQ,
                      dev: str = "cuda") -> None:
@@ -2294,7 +2548,11 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
     on one forward: the card's gradients against the plain backward
     versions run on the card from the same forward through the kernels
     (the same loss, bit for bit), each within ``PATH_TOL``.  A planted
-    fault (``ssd_scan_bwd``'s dB set to zero) must fail that rule."""
+    fault (``ssd_scan_bwd``'s dB set to zero) must fail that rule.  A
+    model with a gelu MLP holds the activation's derivative kernel on one
+    forward the same way (``activation_backward`` swapped for its plain
+    version), and ``activation_backward`` passing ``dy`` on unchanged is
+    the fault that rule must catch."""
     from repro_torch.core.atp import make_context
     from repro_torch.core.mesh import atp_topo
     from repro_torch.kernels import ops, ref
@@ -2329,21 +2587,37 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
     if lm.is_recurrent(cfg):
         plain = rel(grads(lm.tree_map(lambda t: t.detach().cpu(), params),
                           host, "cpu"), cpu)
+        # every backward wrapper plain; the fault in the SSD backward
+        held_by, planted = plain_backward(ref), dict(
+            ssd_scan_backward=zero_db(torch, ops.ssd_scan_backward))
+        what, kept = "ssd_scan_bwd's dB planted to zero", "ssd_scan_bwd"
+    elif cfg.mlp_kind == "gelu":
+        # the activation's derivative plain; the fault in it
+        held_by = {"activation_backward":
+                   plain_backward(ref)["activation_backward"]}
+        planted = dict(activation_backward=no_derivative)
+        what, kept = ("activation_backward passing dy on unchanged",
+                      "matmul_bwd")
+    if lm.is_recurrent(cfg) or cfg.mlp_kind == "gelu":
         ops.reset_launches()
-        with swapped(ops, **plain_backward(ref)):
+        with swapped(ops, **held_by):
             held = grads(params, batch, dev)
-        assert not any(ops.BACKWARD_LAUNCHES.values()), \
+        swapped_keys = [k for k, v in ops.BACKWARD_LAUNCHES.items() if v and (
+            lm.is_recurrent(cfg) or k == "matmul_act_bwd")]
+        assert not swapped_keys, \
             f"the plain backward launched {ops.BACKWARD_LAUNCHES}"
         assert held[0] == card[0], \
             f"two forwards through the kernels differ: {held[0]} {card[0]}"
         same = rel(card, held)
         ops.reset_launches()
-        with swapped(ops, ssd_scan_backward=zero_db(
-                torch, ops.ssd_scan_backward)):
+        with swapped(ops, **planted):
             fault = rel(grads(params, batch, dev), held)
-        assert ops.BACKWARD_LAUNCHES["ssd_scan_bwd"] or not on_card
+        assert ops.BACKWARD_LAUNCHES[kept] or not on_card
         if on_card:
-            assert all(launched.values()), \
+            # every backward kernel of the model's launch model ran
+            want = train_launches_per_step(cfg, remat=False)[1]
+            missed = [k for k, v in want.items() if v and not launched[k]]
+            assert not missed, \
                 f"a backward kernel did not run on the path: {launched}"
     worst = max(errs, key=errs.get)
     log(f"path-check-train {cfg.name} at {layers} layers, d_model "
@@ -2351,14 +2625,15 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
         f"gradient relative L2 error per tensor, worst {errs[worst]:.3e} "
         f"({worst}), limit {PATH_TOL}"
         + (f" or {RECURRENT_FACTOR}x the plain bf16 path's error against "
-           f"fp32 (beside it); then the card against the plain backward on "
-           f"the card from the same forward (limit {PATH_TOL}), and the same "
-           f"with ssd_scan_bwd's dB planted to zero (must exceed "
-           f"{PATH_TOL})" if plain else "") + ":")
+           f"fp32 (beside it)" if plain else "")
+        + (f"; then the card against {', '.join(held_by)} plain on the card "
+           f"from the same forward (limit {PATH_TOL}), and the same with "
+           f"{what} (must exceed {PATH_TOL})" if same else "") + ":")
     for n, e in errs.items():
-        log(f"    {e:.3e}  {n}" + (
-            f"  (plain bf16 {plain[n]:.3e}; same forward {same[n]:.3e}, "
-            f"planted fault {fault[n]:.3e})" if plain else ""))
+        log(f"    {e:.3e}  {n}" + (f"  (plain bf16 {plain[n]:.3e})"
+                                   if plain else "") + (
+            f"  (same forward {same[n]:.3e}, planted fault {fault[n]:.3e})"
+            if same else ""))
     assert abs(card[0] - cpu[0]) <= PATH_TOL * abs(cpu[0]), "loss differs"
     bad = [n for n, e in errs.items() if e > PATH_TOL and not (
         plain and e <= RECURRENT_FACTOR * plain[n])]
@@ -2544,16 +2819,39 @@ def main(argv=None) -> int:
     if "path-check-train-zamba" in phases:
         train_path_check(torch, arch="zamba2-7b", **ZAMBA_PATH)
         done("path-check-train-zamba")
+    gpt_fwd, gpt_bwd = [], []   # the other kernels at gpt-m2's shapes
+    if "train-gpt-kernels" in phases:
+        gpt_fwd, gpt_bwd, act = gpt_train_kernel_phase(
+            torch, F, ops, ref, Timer(torch), floor_ms)
+        reports.append(act)
+        done("train-gpt-kernels")
+    if "train-gpt" in phases:
+        launches[TRAIN_GPT] = train_phase(torch, arch=GPT_ARCH,
+                                          layers=GPT_LAYERS, tag="_gpt")
+        # under remat's non-reentrant checkpoint grad mode is on in both of
+        # a block's forward passes, so the up projection writes z in each
+        # (the first pass's z is dropped unread); the derivative reads the
+        # recomputed one
+        launches[TRAIN_GPT]["matmul (with pre-activation)"] = \
+            2 * launches[TRAIN_GPT]["matmul_act_bwd"]
+        for arch in GPT_OTHERS:
+            train_phase(torch, arch=arch, layers=GPT_LAYERS, profile=False)
+        done("train-gpt")
+    if "path-check-train-gpt" in phases:
+        train_path_check(torch, arch=GPT_ARCH, **GPT_PATH)
+        done("path-check-train-gpt")
 
     def path_rows(path, of):
         return [r.row(path, launches.get(path, {}).get(r.meta["name"], 0))
                 for r in of if path in r.paths]
 
     rows = {path: path_rows(path, reports)
-            for path in ("llama3-8b", MAIN, TRAIN, TRAIN_ZAMBA)}
+            for path in ("llama3-8b", MAIN, TRAIN, TRAIN_ZAMBA, TRAIN_GPT)}
     rows["train forward"] = path_rows(TRAIN, train_fwd)
     rows["train-zamba forward"] = path_rows(TRAIN_ZAMBA, train_zamba_fwd)
     rows["train-zamba matmul backward"] = path_rows(TRAIN_ZAMBA, zamba_mm_bwd)
+    rows["train-gpt forward"] = path_rows(TRAIN_GPT, gpt_fwd)
+    rows["train-gpt backward"] = path_rows(TRAIN_GPT, gpt_bwd)
     (OUT_DIR / "kernel_checks.json").write_text(json.dumps(
         {"rows": rows, "checks": {r.meta["name"]: r.checks for r in reports},
          "train forward checks": {r.meta["name"]: r.checks
@@ -2561,19 +2859,24 @@ def main(argv=None) -> int:
          "train-zamba forward checks": {r.meta["name"]: r.checks
                                         for r in train_zamba_fwd},
          "train-zamba matmul backward checks": {
-             r.meta["name"]: r.checks for r in zamba_mm_bwd}},
+             r.meta["name"]: r.checks for r in zamba_mm_bwd},
+         "train-gpt checks": {r.meta["name"]: r.checks
+                              for r in [*gpt_fwd, *gpt_bwd]}},
         indent=1))
     for what, path in (("llama3-8b step pair", "llama3-8b"),
                        ("train step, forward", "train forward"),
                        ("train-zamba step, forward", "train-zamba forward"),
                        ("train-zamba step, backward",
-                        "train-zamba matmul backward")):
+                        "train-zamba matmul backward"),
+                       ("train-gpt step, forward", "train-gpt forward"),
+                       ("train-gpt step, backward", "train-gpt backward"),
+                       ("train-gpt step, backward", TRAIN_GPT)):
         for row in rows[path]:
             log(f"{what}: {row['name']} launches={row['launches']} "
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                 f"library_ms={row['library_ms']}")
-    kernels = rows[MAIN] + rows[TRAIN] + rows[TRAIN_ZAMBA]
+    kernels = rows[MAIN] + rows[TRAIN] + rows[TRAIN_ZAMBA] + rows[TRAIN_GPT]
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

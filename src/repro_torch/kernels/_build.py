@@ -3,8 +3,12 @@
 Each ``csrc/<name>.cu`` exposes a plain C function (no PyTorch headers), is
 compiled for Hopper into ``build/torch_kernels/lib<name>-<hash>.so`` at the
 root of the checkout, and is loaded once per process.  The file name carries
-a hash of the source, so an edited source is rebuilt and a stale library is
-never loaded.  ``build()`` starts one ``nvcc`` per source, all at once.
+a hash of the source and the flags, so an edited source is rebuilt and a
+stale library is never loaded.  A library of ``DEFINES`` is built from
+another's source with a macro defined (``matmul_z``: the matmul kernel's
+instances that also write the pre-activation, compiled beside the others
+and not in their build).  ``build()`` starts one ``nvcc`` per library, all
+at once.
 """
 from __future__ import annotations
 
@@ -18,15 +22,19 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("matmul", "flash_attention", "flash_attention_bwd", "ssd_scan",
-           "ssd_scan_bwd", "rmsnorm")
+SOURCES = ("matmul", "matmul_z", "flash_attention", "flash_attention_bwd",
+           "ssd_scan", "ssd_scan_bwd", "rmsnorm", "act_bwd")
+#: libraries built from another library's source: (source, extra flags)
+DEFINES = {"matmul_z": ("matmul", ("-DREPRO_MATMUL_ZOUT",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: each C entry point: (source library, symbol, argtypes)
 SIGNATURES = {
-    "matmul": ("matmul", "repro_matmul_bf16", [_P] * 6 + [_I] * 10 + [_P]),
+    "matmul": ("matmul", "repro_matmul_bf16", [_P] * 7 + [_I] * 10 + [_P]),
+    "matmul_z": ("matmul_z", "repro_matmul_z_bf16",
+                 [_P] * 7 + [_I] * 10 + [_P]),
     "flash_attention": ("flash_attention", "repro_flash_attention_bf16",
                         [_P] * 10 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_attention_bwd": ("flash_attention_bwd",
@@ -43,6 +51,8 @@ SIGNATURES = {
     "group_rmsnorm_bwd": ("rmsnorm", "repro_group_rmsnorm_bwd_bf16",
                           [_P] * 8 + [_L] * 2 + [_I] * 3 + [_F] + [_I] * 3
                           + [_P]),
+    "act_bwd": ("act_bwd", "repro_act_bwd_bf16",
+                [_P] * 3 + [_L] + [_I] * 3 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -56,15 +66,22 @@ def nvcc() -> str:
     return path
 
 
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """Library ``name``'s source file and the flags beyond ``NVCC_FLAGS``."""
+    source, flags = DEFINES.get(name, (name, ()))
+    return CSRC / f"{source}.cu", flags
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    source, flags = _source(name)
+    digest = hashlib.sha256(source.read_bytes() + " ".join(
+        NVCC_FLAGS + flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names=SOURCES) -> dict[str, float]:
-    """Compile every named source that has no current library, one
-    ``nvcc`` each, all started together.  Returns seconds per source built;
+    """Compile every named library that is not built yet, one ``nvcc``
+    each, all started together.  Returns seconds per library built;
     the compiler's report (registers, shared memory, spills) is kept next
     to each library as ``.log``.  Raises with the compiler's output when a
     build fails."""
@@ -75,7 +92,8 @@ def build(names=SOURCES) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        source, flags = _source(name)
+        cmd = [nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -85,7 +103,7 @@ def build(names=SOURCES) -> dict[str, float]:
         seconds[name] = time.perf_counter() - t0
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         os.replace(tmp, out)
     return seconds
 

@@ -7,6 +7,10 @@
 // _epilogue, pallas_call at line 102), bf16 mode.  C[M,N] = A[M,K] @ B[K,N],
 // then per element, in the TPU kernel's order: + bias[N], then gelu-tanh or
 // silu, cast to bf16.  The int8 `scale` mode of the TPU kernel is not here.
+// Under autograd a fused activation also writes its pre-activation
+// Z[M,N] (after the bias, before the activation, cast to bf16: what the
+// same launch without the activation writes to C, bit for bit), which
+// the activation's derivative (act_bwd.cu) reads in the backward.
 //
 // What bounds it on the H100, and the design:
 //
@@ -59,6 +63,14 @@
 //   - the epilogue's activation is a template argument, so the unrolled
 //     loop a tile runs holds one activation's code (128 inlined copies of
 //     both overflowed the instruction cache once a tile).
+//
+// The pre-activation output Z (all three variants) is a template flag
+// too, asked for only by the up projection's forward under autograd (A
+// K-major, B MN-major).  Its five instances are compiled apart: built with
+// -DREPRO_MATMUL_ZOUT this file holds only them, behind the C entry
+// repro_matmul_z_bf16, and without it only the eleven instances that write
+// no Z, behind repro_matmul_bf16.  The two libraries build in parallel,
+// and the instances without Z compile exactly as before Z existed.
 //
 // B may be stored transposed ([N,K], a tied embedding used as the head, or
 // dgrad's b^T): it is then K-major like A, and no transposed copy is made.
@@ -251,6 +263,9 @@ struct Args {
   int* counters;  // [tiles] arrivals, zero between launches
   int M, N, K, act;
   int whole;  // variant 2: tiles finished whole, before the stream-K ones
+  // the pre-activation, or null (last, so that the other fields keep the
+  // offsets the kernels without it were compiled against)
+  bf16* Z;
 };
 
 // WG: one warpgroup runs wgmma m64n128k16 (4 warps of 16 rows x 128
@@ -284,9 +299,11 @@ struct Config {
 // the block covers whole it finishes; for a shared tile it writes its
 // partial (slot 0 for the tile its run starts in, 1 for the one it ends
 // in), and the last of the tile's blocks to arrive sums the partials in
-// block order and applies the epilogue.
+// block order and applies the epilogue.  ZOUT: the epilogue also writes
+// the pre-activation Z (a template flag, so that the instances without it
+// compile as they did before it existed).
 template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES,
-          int MIN_BLOCKS, bool BT, bool VEC, bool WG>
+          int MIN_BLOCKS, bool BT, bool VEC, bool WG, bool ZOUT>
 __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32, MIN_BLOCKS)
     mm_kernel(const __grid_constant__ Args args) {
   using G = Config<BM, BN, WARPS_M, WARPS_N, STAGES, WG>;
@@ -519,7 +536,8 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32, MIN_BLOCKS)
           }
     }
 
-    // epilogue, once per output element: bias, then activation
+    // epilogue, once per output element: bias, (the pre-activation out,)
+    // then activation
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -534,6 +552,8 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32, MIN_BLOCKS)
             if (c >= N) continue;
             float v = acc[i][j][h * 2 + e];
             if (args.bias != nullptr) v += __bfloat162float(args.bias[c]);
+            if constexpr (ZOUT)
+              args.Z[(size_t)r * N + c] = __float2bfloat16(v);
             args.C[(size_t)r * N + c] =
                 __float2bfloat16(activate(v, args.act));
           }
@@ -744,58 +764,71 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The epilogue of a consumer thread's 64 x 256 share, once per output
-// element: bias, then activation, cast to bf16.  Register 4j + 2h + e of
-// the wgmma layout is row row0 + 8h, column n0 + 8j + 2tq + e.  A quad's
-// four lanes trade their pairs (quad_transpose) so that each stores 16
-// contiguous bytes, whole 32-byte sectors per row: half the store
-// transactions of 4-byte stores, which held the tensor cores idle at the
-// end of every tile.  The activation is a template argument so that the
-// unrolled loop a tile runs holds only its own code: 128 inlined copies of
-// both activations overflowed the instruction cache once a tile.
+// One row (h) of 32 columns (q) of a consumer thread's share into dst:
+// bias, then activation, cast to bf16.  Register 4j + 2h + e of the wgmma
+// layout is row row0 + 8h, column n0 + 8j + 2tq + e.  A quad's four lanes
+// trade their pairs (quad_transpose) so that each stores 16 contiguous
+// bytes, whole 32-byte sectors per row: half the store transactions of
+// 4-byte stores, which held the tensor cores idle at the end of every
+// tile.  The bias is read per use, not held, to keep the epilogue within
+// the consumers' registers beside 128 accumulators.
 template <int ACT>
+__device__ __forceinline__ void ws_store_row(bf16* dst, const bf16* bias,
+                                             const float* acc, int q, int h,
+                                             int row0, int c0, int tq, int M,
+                                             int N) {
+  uint32_t v[4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int c = c0 + 8 * jj + 2 * tq;
+    const float* a = acc + 4 * (4 * q + jj) + 2 * h;
+    const float b0 = bias != nullptr && c < N
+                         ? __bfloat162float(bias[c]) : 0.0f;
+    const float b1 = bias != nullptr && c + 1 < N
+                         ? __bfloat162float(bias[c + 1]) : 0.0f;
+    v[jj] = pack_bf16(activate(a[0] + b0, ACT), activate(a[1] + b1, ACT));
+  }
+  quad_transpose(v, tq);
+  const int r = row0 + 8 * h, c = c0 + 8 * tq;
+  if (r >= M || c >= N) return;
+  bf16* out = dst + (size_t)r * N + c;
+  if ((N & 7) == 0 && c + 8 <= N) {  // 16-byte aligned row starts
+    *reinterpret_cast<uint4*>(out) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const __nv_bfloat162 pr =
+          *reinterpret_cast<const __nv_bfloat162*>(&v[e >> 1]);
+      if (c + e < N) out[e] = (e & 1) ? pr.y : pr.x;
+    }
+  }
+}
+
+// The epilogue of a consumer thread's 64 x 256 share, once per output
+// element.  The activation is a template argument so that the unrolled
+// loop a tile runs holds only its own code: 128 inlined copies of both
+// activations overflowed the instruction cache once a tile.  ZOUT: the
+// pre-activation goes to Z first, by the same arithmetic with no
+// activation (so bit for bit what a launch without one writes to C), in a
+// pass of its own so that only one row's four packed registers are live.
+template <int ACT, bool ZOUT>
 __device__ __forceinline__ void ws_epilogue(const Args& args, const float* acc,
                                             int row0, int n0, int tq) {
   const int M = args.M, N = args.N;
-  const bf16* bias = args.bias;
 #pragma unroll
   for (int q = 0; q < Ws::BN / 32; ++q) {  // 4 blocks of 8 columns
     const int c0 = n0 + 32 * q;
     if (c0 >= N) break;  // the same for the whole warp
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      // the bias is read again for the second row, not held, to keep the
-      // epilogue within the consumers' registers beside 128 accumulators
-      uint32_t v[4];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int c = c0 + 8 * jj + 2 * tq;
-        const float* a = acc + 4 * (4 * q + jj) + 2 * h;
-        const float b0 = bias != nullptr && c < N
-                             ? __bfloat162float(bias[c]) : 0.0f;
-        const float b1 = bias != nullptr && c + 1 < N
-                             ? __bfloat162float(bias[c + 1]) : 0.0f;
-        v[jj] = pack_bf16(activate(a[0] + b0, ACT), activate(a[1] + b1, ACT));
-      }
-      quad_transpose(v, tq);
-      const int r = row0 + 8 * h, c = c0 + 8 * tq;
-      if (r >= M || c >= N) continue;
-      bf16* out = args.C + (size_t)r * N + c;
-      if ((N & 7) == 0 && c + 8 <= N) {  // 16-byte aligned row starts
-        *reinterpret_cast<uint4*>(out) = make_uint4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const __nv_bfloat162 pr =
-              *reinterpret_cast<const __nv_bfloat162*>(&v[e >> 1]);
-          if (c + e < N) out[e] = (e & 1) ? pr.y : pr.x;
-        }
-      }
+      if constexpr (ZOUT)
+        ws_store_row<kNone>(args.Z, args.bias, acc, q, h, row0, c0, tq, M, N);
+      ws_store_row<ACT>(args.C, args.bias, acc, q, h, row0, c0, tq, M, N);
     }
   }
 }
 
-template <bool AT, bool BT>
+template <bool AT, bool BT, bool ZOUT>
 __global__ void __launch_bounds__(Ws::kThreads, 1)
     ws_kernel(const __grid_constant__ Args args) {
   constexpr int BM = Ws::BM, BN = Ws::BN, BK = Ws::BK, S = Ws::kStages;
@@ -942,11 +975,11 @@ __global__ void __launch_bounds__(Ws::kThreads, 1)
 
     const int row0 = m0 + cw * 64 + warp * 16 + g;
     if (args.act == kGelu) {
-      ws_epilogue<kGelu>(args, acc, row0, n0, tq);
+      ws_epilogue<kGelu, ZOUT>(args, acc, row0, n0, tq);
     } else if (args.act == kSilu) {
-      ws_epilogue<kSilu>(args, acc, row0, n0, tq);
-    } else {
-      ws_epilogue<kNone>(args, acc, row0, n0, tq);
+      ws_epilogue<kSilu, ZOUT>(args, acc, row0, n0, tq);
+    } else if constexpr (!ZOUT) {  // dispatch refuses Z with no activation
+      ws_epilogue<kNone, false>(args, acc, row0, n0, tq);
     }
   }
 }
@@ -989,7 +1022,8 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
 }
 
 template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES,
-          int MIN_BLOCKS, bool BT, bool VEC, bool WG = false>
+          int MIN_BLOCKS, bool BT, bool VEC, bool WG = false,
+          bool ZOUT = false>
 cudaError_t launch(Args args, int blocks, cudaStream_t stream) {
   using G = Config<BM, BN, WARPS_M, WARPS_N, STAGES, WG>;
   constexpr int BK = G::BK;
@@ -1001,7 +1035,8 @@ cudaError_t launch(Args args, int blocks, cudaStream_t stream) {
     if (!ok) return cudaErrorInvalidValue;
   }
   auto kernel =
-      mm_kernel<BM, BN, WARPS_M, WARPS_N, STAGES, MIN_BLOCKS, BT, VEC, WG>;
+      mm_kernel<BM, BN, WARPS_M, WARPS_N, STAGES, MIN_BLOCKS, BT, VEC, WG,
+                ZOUT>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -1022,7 +1057,7 @@ cudaError_t launch(Args args, int blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool AT, bool BT>
+template <bool AT, bool BT, bool ZOUT>
 cudaError_t launch_ws(Args args, int blocks, cudaStream_t stream) {
   constexpr int BM = Ws::BM, BN = Ws::BN, BK = Ws::BK;
   bool ok = (AT ? tensor_map(&args.tma_a, args.A, args.K, args.M, 64, true)
@@ -1030,7 +1065,7 @@ cudaError_t launch_ws(Args args, int blocks, cudaStream_t stream) {
             (BT ? tensor_map(&args.tma_b, args.B, args.N, args.K, BN, true)
                 : tensor_map(&args.tma_b, args.B, args.K, args.N, BK, true));
   if (!ok) return cudaErrorInvalidValue;
-  auto kernel = ws_kernel<AT, BT>;
+  auto kernel = ws_kernel<AT, BT, ZOUT>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -1063,34 +1098,72 @@ cudaError_t launch_ws(Args args, int blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+#ifdef REPRO_MATMUL_ZOUT
+constexpr bool kZout = true;  // this library: the instances that write Z
+#else
+constexpr bool kZout = false;
+#endif
+
 // variant: the tile shape ops.matmul_plan chose (its MATMUL_VARIANTS order).
 // Only variant 2 reads A transposed or finishes tiles whole, and it takes
-// only operands TMA can read (the wrapper sends others to variant 1).
+// only operands TMA can read (the wrapper sends others to variant 1).  The
+// pre-activation output has instances only for a row-major A and B (the
+// up projection's layout; no wgrad or tied head has an activation).
 template <bool AT, bool BT, bool VEC>
 cudaError_t dispatch(int variant, const Args& args, int blocks,
                      cudaStream_t stream) {
-  if (variant == 2) {
-    if constexpr (VEC) return launch_ws<AT, BT>(args, blocks, stream);
+  if ((args.Z != nullptr) != kZout) return cudaErrorInvalidValue;
+  if constexpr (kZout) {
+    if constexpr (!AT && !BT) {
+      if (args.act == kNone || (variant != 2 && args.whole != 0))
+        return cudaErrorInvalidValue;
+      switch (variant) {
+        case 0:
+          return launch<16, 64, 1, 4, 6, 2, false, VEC, false, true>(
+              args, blocks, stream);
+        case 1:
+          return launch<64, 128, 4, 1, 4, 2, false, VEC, true, true>(
+              args, blocks, stream);
+        case 2:
+          if constexpr (VEC)
+            return launch_ws<false, false, true>(args, blocks, stream);
+      }
+    }
+    return cudaErrorInvalidValue;
+  } else {
+    if (variant == 2) {
+      if constexpr (VEC)
+        return launch_ws<AT, BT, false>(args, blocks, stream);
+      return cudaErrorInvalidValue;
+    }
+    if constexpr (!AT) {
+      if (args.whole != 0) return cudaErrorInvalidValue;
+      switch (variant) {
+        case 0:  // 16x64 on mma.sync: decode rows, or a small B
+          return launch<16, 64, 1, 4, 6, 2, BT, VEC>(args, blocks, stream);
+        case 1:  // 64x128 on wgmma: a prefill chunk
+          return launch<64, 128, 4, 1, 4, 2, BT, VEC, true>(args, blocks,
+                                                            stream);
+      }
+    }
     return cudaErrorInvalidValue;
   }
-  if constexpr (!AT) {
-    if (args.whole != 0) return cudaErrorInvalidValue;
-    switch (variant) {
-      case 0:  // 16x64 on mma.sync: decode rows, or a small B
-        return launch<16, 64, 1, 4, 6, 2, BT, VEC>(args, blocks, stream);
-      case 1:  // 64x128 on wgmma: a prefill chunk
-        return launch<64, 128, 4, 1, 4, 2, BT, VEC, true>(args, blocks,
-                                                          stream);
-    }
-  }
-  return cudaErrorInvalidValue;
 }
+
+#ifdef REPRO_MATMUL_ZOUT
+#define REPRO_MATMUL_ENTRY repro_matmul_z_bf16
+#else
+#define REPRO_MATMUL_ENTRY repro_matmul_bf16
+#endif
 
 }  // namespace
 
 // a [M,K] row-major, or (a_trans, variant 2 and vec only) stored [K,M]
 // row-major; b [K,N] row-major, or (b_trans) stored [N,K] row-major (not
 // both transposed); bias [N] or null; c [M,N] row-major.  act: 0 none, 1 gelu-tanh, 2 silu.
+// z: [M,N] row-major for the pre-activation (bias added, no activation;
+// a row-major a and b, and an activation) in repro_matmul_z_bf16, null in
+// repro_matmul_bf16.
 // vec: 1 when the TMA path applies (16-byte-aligned bases, and 16-byte rows:
 // K % 8 == 0 for a row-major a or a transposed b, M % 8 == 0 for a
 // transposed a, N % 8 == 0 for a row-major b); 0 loads the tiles element
@@ -1100,12 +1173,12 @@ cudaError_t dispatch(int variant, const Args& args, int blocks,
 // starts inside a tile, ws holds 2 * blocks * BM * BN floats and counters
 // one zeroed int per output tile.
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int repro_matmul_bf16(const void* a, const void* b,
-                                 const void* bias, void* c, void* ws,
-                                 void* counters, int M, int N, int K,
-                                 int a_trans, int b_trans, int act, int vec,
-                                 int variant, int blocks, int whole,
-                                 void* stream) {
+extern "C" int REPRO_MATMUL_ENTRY(const void* a, const void* b,
+                                  const void* bias, void* c, void* z,
+                                  void* ws, void* counters, int M, int N,
+                                  int K, int a_trans, int b_trans, int act,
+                                  int vec, int variant, int blocks, int whole,
+                                  void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || (a_trans && b_trans))
     return cudaErrorInvalidValue;
   Args args{};
@@ -1113,6 +1186,7 @@ extern "C" int repro_matmul_bf16(const void* a, const void* b,
   args.B = static_cast<const bf16*>(b);
   args.bias = static_cast<const bf16*>(bias);
   args.C = static_cast<bf16*>(c);
+  args.Z = static_cast<bf16*>(z);
   args.ws = static_cast<float*>(ws);
   args.counters = static_cast<int*>(counters);
   args.M = M;

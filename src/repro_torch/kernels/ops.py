@@ -12,12 +12,15 @@ matmul and a split-KV attention merge their splits inside the same launch,
 so each call is still one launch.  ``BACKWARD_LAUNCHES`` counts the
 backward kernels the same way: each matmul backward launches the matmul
 kernel twice (dgrad and wgrad), the flash-attention, rmsnorm (block norm
-or grouped, gated norm) and SSD-scan backward wrappers one C entry each.
+or grouped, gated norm) and SSD-scan backward wrappers one C entry each,
+and ``activation_backward`` (a fused activation's derivative) one.
 
 Training: ``matmul``, ``flash_attention``, ``rmsnorm``, ``group_rmsnorm``
 and ``ssd_scan`` are autograd Functions wherever an input requires grad
-and grad mode is on; their backward runs ``matmul_backward``,
-``flash_attention_backward``, ``rmsnorm_backward``,
+and grad mode is on; their backward runs ``matmul_backward`` (after
+``activation_backward`` where the matmul fused an activation: its forward
+then also writes the pre-activation), ``flash_attention_backward``,
+``rmsnorm_backward``,
 ``group_rmsnorm_backward`` and ``ssd_scan_backward``, which launch the
 backward kernels on CUDA tensors and take the plain backward versions
 (``kernels.ref``) on the CPU.  With no grad (serving) each wrapper
@@ -41,7 +44,7 @@ from repro_torch.kernels import ref
 LAUNCHES = {"matmul": 0, "flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
 BACKWARD_LAUNCHES = {"matmul_bwd": 0, "flash_attention_bwd": 0,
                      "rmsnorm_bwd": 0, "group_rmsnorm_bwd": 0,
-                     "ssd_scan_bwd": 0}
+                     "ssd_scan_bwd": 0, "matmul_act_bwd": 0}
 
 _ACTIVATIONS = {None: 0, "gelu": 1, "silu": 2}
 
@@ -419,25 +422,26 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     if _grad(a, b, bias):
-        if activation is not None and not _on_cpu(a, b, bias):
-            # the activation and its derivative would run as plain torch
-            # on the card, outside the kernel
-            raise NotImplementedError(
-                "a fused matmul activation under autograd on CUDA (the "
-                "kernel writing the pre-activation, and a kernel for the "
-                "activation's derivative) is ROADMAP A5b")
         return _Matmul.apply(a, b, bias, activation)
     return _matmul(a, b, bias, activation)
 
 
-def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul"):
+def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul", *,
+            z_out: bool = False):
     """``matmul`` off the autograd path; a launch counts under
     ``counts[key]``.  ``a`` may also be the transpose of a row-major
-    ``[K, M]`` (wgrad's ``a^T``), read without a copy."""
+    ``[K, M]`` (wgrad's ``a^T``), read without a copy.  ``z_out``: returns
+    ``(y, z)``, the same launch also writing the pre-activation ``z``
+    (bias added, no activation; bit for bit the output of a launch with
+    no activation) for the activation's derivative."""
     if _on_cpu(a, b, bias):
+        if z_out:
+            return ref.matmul_aux_ref(a, b, bias, activation)
         return ref.matmul_ref(a, b, bias, activation)
     from repro_torch.kernels import _build
 
+    if z_out and activation is None:
+        raise ValueError("z_out needs an activation: without one z is y")
     lead, K = a.shape[:-1], a.shape[-1]
     if b.dim() != 2 or b.shape[0] != K:
         raise ValueError(f"matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
@@ -462,12 +466,17 @@ def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul"):
     a2 = a if a_trans else a.reshape(-1, K).contiguous()
     M = a2.shape[0]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    z = torch.empty_like(out) if z_out else None
     if M == 0:
-        return out.reshape(*lead, N)
+        return (out.reshape(*lead, N), z.reshape(*lead, N)) if z_out else \
+            out.reshape(*lead, N)
     vec = int((M % 8 == 0 if a_trans else K % 8 == 0)
               and (K % 8 == 0 if b_trans else N % 8 == 0)
               and a2.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     plan = matmul_plan(M, N, K, a_trans=bool(a_trans))
+    if z_out and (a_trans or b_trans):
+        raise ValueError("the pre-activation output takes a row-major a and "
+                         "b (no tied head or wgrad has an activation)")
     if plan.variant == 2 and not vec:
         # variant 2 reads by TMA only: rows TMA cannot read take variant 1's
         # element loads, A transposed by a copy (no model width needs this)
@@ -479,12 +488,15 @@ def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul"):
         ws = torch.empty(2 * plan.blocks * plan.bm * plan.bn,
                          dtype=torch.float32, device=a.device)
         counters = _counters(a, plan.tiles)
-    _launch(_build.entry("matmul"),
-            (_ptr(a2), _ptr(b), _ptr(bias), _ptr(out), _ptr(ws),
+    # the instances that write z are a library of their own
+    _launch(_build.entry("matmul_z" if z_out else "matmul"),
+            (_ptr(a2), _ptr(b), _ptr(bias), _ptr(out), _ptr(z), _ptr(ws),
              _ptr(counters), M, N, K, a_trans, b_trans,
              _ACTIVATIONS[activation], vec, plan.variant, plan.blocks,
              plan.whole, _stream(a)), "matmul", counters)
     counts[key] += 1
+    if z_out:
+        return out.reshape(*lead, N), z.reshape(*lead, N)
     return out.reshape(*lead, N)
 
 
@@ -507,25 +519,58 @@ def matmul_backward(a: torch.Tensor, b: torch.Tensor, dz: torch.Tensor, *,
     return da, db
 
 
+def activation_backward(dy: torch.Tensor, z: torch.Tensor,
+                        activation: str | None) -> torch.Tensor:
+    """``dy * act'(z)`` in fp32, cast to ``dy.dtype``: the gradient through
+    the matmul epilogue's activation at its pre-activation ``z`` (what
+    ``_matmul(..., z_out=True)`` wrote).  With no activation it is ``dy``
+    and nothing launches.  On CUDA one launch of ``csrc/act_bwd.cu`` (bf16
+    ``dy`` and ``z`` of one shape), counted under
+    ``BACKWARD_LAUNCHES["matmul_act_bwd"]``."""
+    if activation is None:
+        return dy
+    if activation not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if _on_cpu(dy, z):
+        return ref.epilogue_bwd(z, dy, activation)
+    from repro_torch.kernels import _build
+
+    if dy.shape != z.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} and z {tuple(z.shape)} differ")
+    if dy.dtype != torch.bfloat16 or z.dtype != torch.bfloat16:
+        raise TypeError("the activation's derivative takes bf16 dy and z")
+    dy, z = dy.contiguous(), z.contiguous()
+    dz = torch.empty_like(dy)
+    if dz.numel() == 0:
+        return dz
+    vec = int(all(t.data_ptr() % 16 == 0 for t in (dy, z, dz)))
+    _launch(_build.entry("act_bwd"),
+            (_ptr(dy), _ptr(z), _ptr(dz), dz.numel(),
+             _ACTIVATIONS[activation], vec, SMS, _stream(dy)), "act_bwd", None)
+    BACKWARD_LAUNCHES["matmul_act_bwd"] += 1
+    return dz
+
+
 class _Matmul(torch.autograd.Function):
-    """``matmul`` with its backward.  With a fused activation (CPU tensors
-    only: ``matmul`` refuses it on CUDA) the forward keeps the
-    pre-activation: the plain matmul runs with the bias only, and the
-    activation follows in fp32 (the epilogue's order and precision)."""
+    """``matmul`` with its backward.  With a fused activation the forward's
+    one launch also writes the pre-activation ``z`` (bias added), kept for
+    the backward, whose ``activation_backward`` takes the activation's
+    derivative at it before the matmul's backward."""
 
     @staticmethod
     def forward(ctx, a, b, bias, activation):
-        z = _matmul(a, b, bias, None)
-        y = z if activation is None else \
-            ref.epilogue(z.float(), None, activation).to(z.dtype)
-        ctx.save_for_backward(a, b, None if activation is None else z)
+        if activation is None:
+            y, z = _matmul(a, b, bias, None), None
+        else:
+            y, z = _matmul(a, b, bias, activation, z_out=True)
+        ctx.save_for_backward(a, b, z)
         ctx.activation = activation
         return y
 
     @staticmethod
     def backward(ctx, dy):
         a, b, z = ctx.saved_tensors
-        dz = ref.epilogue_bwd(z, dy, ctx.activation)
+        dz = activation_backward(dy, z, ctx.activation)
         N = b.shape[1]
         dz2 = dz.reshape(-1, N)
         need_a, need_b, need_bias = ctx.needs_input_grad[:3]

@@ -1,6 +1,8 @@
-"""Plain PyTorch versions of the kernels: the four forward kernels and the
-backward kernels of matmul, flash attention, rmsnorm (the block norm and
-the Mamba2 grouped, gated norm) and the SSD scan.
+"""Plain PyTorch versions of the kernels: the four forward kernels (the
+matmul also with its pre-activation output), the backward kernels of
+matmul, flash attention, rmsnorm (the block norm and the Mamba2 grouped,
+gated norm) and the SSD scan, and the matmul epilogue's activation
+derivative.
 
 Each function computes what its hand-written kernel computes, in the
 kernel's own argument layout.  The CPU takes them for every tensor that
@@ -40,7 +42,7 @@ _GELU_C = math.sqrt(2.0 / math.pi)
 def epilogue_bwd(z, dy, activation: str | None):
     """The gradient through the epilogue's activation: ``dy * act'(z)`` at
     the pre-activation ``z`` (after the bias), in fp32, cast to
-    ``dy.dtype``."""
+    ``dy.dtype``: the plain version of ``csrc/act_bwd.cu``."""
     if activation is None:
         return dy
     zf, gf = z.float(), dy.float()
@@ -61,6 +63,16 @@ def matmul_ref(a, b, bias=None, activation: str | None = None):
     the result cast back to ``a.dtype``."""
     out = a.float() @ b.float()
     return epilogue(out, bias, activation).to(a.dtype)
+
+
+def matmul_aux_ref(a, b, bias=None, activation: str | None = None):
+    """``matmul_ref`` and its pre-activation, the matmul kernel's two
+    outputs under autograd: ``(act(a @ b + bias), a @ b + bias)``, both
+    from one fp32 product and each cast to ``a.dtype`` (so ``z`` is what
+    ``matmul_ref`` gives with no activation, and the activation reads the
+    unrounded sum)."""
+    out = epilogue(a.float() @ b.float(), bias)
+    return epilogue(out, None, activation).to(a.dtype), out.to(a.dtype)
 
 
 def matmul_bwd_ref(a, b, dz):

@@ -1,11 +1,15 @@
 """Training launcher (counterpart of ``repro.launch.train``, its
 non-elastic loop): a dense or zamba/mamba model, random weights from a
 seed, batches from ``data.pipeline``, ``build_train_step`` and AdamW.
+The paper's GPT models (``--arch gpt-m1`` .. ``gpt-m4``) train at their
+own 4 layers unless ``--layers`` cuts them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --layers 4 --seq 2048 --batch 1 --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
         --layers 14 --seq 2048 --batch 1 --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-m2 \\
+        --seq 2048 --batch 1 --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
         --reduced --device cpu
 

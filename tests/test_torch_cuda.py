@@ -636,19 +636,91 @@ def test_autograd_through_the_kernels_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_fused_activation_under_autograd_raises_on_cuda(cuda):
-    """The kernel writes no pre-activation and no kernel takes the
-    activation's derivative, so a fused activation under autograd is
-    refused on the card (ROADMAP A5b), not run as plain torch; without
-    grad, and without an activation, the kernel runs."""
-    a = torch.randn(64, 256, device=cuda).bfloat16().requires_grad_(True)
-    w = (torch.randn(256, 128, device=cuda) / 16).bfloat16()
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
-        ops.matmul(a, w, activation="gelu")
-    with torch.no_grad():
-        assert ops.matmul(a, w, activation="gelu").shape == (64, 128)
-    ops.matmul(a, w).float().sum().backward()
-    assert a.grad is not None and a.grad.shape == a.shape
+@pytest.mark.parametrize("m,k,n,variant,act,bias", [
+    (16, 1024, 2048, 0, "gelu", True),    # 16-row tiles (a small B)
+    (64, 2048, 4096, 1, "gelu", False),   # 64x128 wgmma, shared tiles
+    (64, 3584, 3584, 1, "silu", True),    # shared tiles merged, then bias
+    (512, 1024, 2048, 2, "gelu", False),  # the training tile (variant 2)
+    (2048, 4096, 16384, 2, "gelu", False),  # gpt-m2's up projection
+    (520, 1024, 1000, 2, "silu", True),   # ragged edges on variant 2
+])
+def test_fused_activation_under_autograd_runs_the_kernels(cuda, m, k, n,
+                                                          variant, act, bias):
+    """The forward under autograd is one launch that also writes the
+    pre-activation z: z bit for bit the output of the same plan without an
+    activation, y bit for bit the output without z.  The backward takes the
+    activation's derivative with ``csrc/act_bwd.cu`` (one launch) and then
+    the matmul backward; the gradients of a, w and the bias within 5e-2
+    relative L2 of the plain backward on the card from the same z."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    a = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    w = (torch.randn(k, n, generator=gen, device=cuda) * k ** -0.5).bfloat16()
+    bv = torch.randn(n, generator=gen, device=cuda).bfloat16() if bias \
+        else None
+    dy = torch.randn(m, n, generator=gen, device=cuda).bfloat16()
+    assert ops.matmul_plan(m, n, k).variant == variant
+    y, z = ops._matmul(a, w, bv, act, z_out=True)
+    assert torch.equal(z, ops._matmul(a, w, bv, None))
+    assert torch.equal(y, ops._matmul(a, w, bv, act))
+    want_y, want_z = ref.matmul_aux_ref(a, w, bv, act)
+    _close(y, want_y, **BF16_TOL)
+    _close(z, want_z, **BF16_TOL)
+
+    leaves = [t.clone().requires_grad_(True) for t in (a, w, bv)
+              if t is not None]
+    fwd, act_bwd = ops.LAUNCHES["matmul"], ops.BACKWARD_LAUNCHES[
+        "matmul_act_bwd"]
+    out = ops.matmul(*leaves[:2], leaves[2] if bias else None,
+                     activation=act)
+    assert torch.equal(out, y) and ops.LAUNCHES["matmul"] == fwd + 1
+    got = torch.autograd.grad(out, leaves, dy)
+    torch.cuda.synchronize()
+    assert ops.BACKWARD_LAUNCHES["matmul_act_bwd"] == act_bwd + 1
+    dz = ref.epilogue_bwd(z, dy, act)
+    want = [*ref.matmul_bwd_ref(a, w, dz), dz.float().sum(0)][:len(leaves)]
+    for name, g, wt in zip(("a", "w", "bias"), got, want):
+        assert g.shape == wt.shape, name
+        assert _rel(g, wt) <= 5e-2, name
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at ``x`` (8 significant bits)."""
+    xf = x.float()
+    return torch.ldexp(torch.ones_like(xf),
+                       torch.frexp(xf)[1] - 8).clamp_min(2.0 ** -133)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "silu"])
+@pytest.mark.parametrize("shape,offset", [
+    ((2048, 16384), 0),   # gpt-m2's up projection
+    ((3, 1001), 0),       # 3003 elements: a tail of 3 past the vectors
+    ((37, 77), 1),        # bases off 16 bytes: every element scalar
+])
+def test_activation_backward_kernel_matches_plain(cuda, act, shape, offset):
+    """``csrc/act_bwd.cu`` within one bf16 ulp of ``ref.epilogue_bwd`` on
+    the same inputs (z spread to |z| = 12, where tanh saturates), one launch
+    counted, and against ``aten.gelu_backward`` / ``aten.silu_backward``
+    (one PyTorch call for the same function, in its own order of
+    operations) within ``BF16_TOL``."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    n = shape[0] * shape[1]
+    z = (torch.randn(n + offset, generator=gen, device=cuda) * 4).clamp(
+        -12, 12).bfloat16()[offset:].view(shape)
+    dy = torch.randn(n + offset, generator=gen, device=cuda).bfloat16()[
+        offset:].view(shape)
+    before = ops.BACKWARD_LAUNCHES["matmul_act_bwd"]
+    got = ops.activation_backward(dy, z, act)
+    torch.cuda.synchronize()
+    assert ops.BACKWARD_LAUNCHES["matmul_act_bwd"] == before + 1
+    assert got.shape == shape and got.dtype == torch.bfloat16
+    want = ref.epilogue_bwd(z, dy, act)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _bf16_ulp(want)).all()), float(err.max())
+    lib = torch.ops.aten.gelu_backward(dy, z, approximate="tanh") \
+        if act == "gelu" else torch.ops.aten.silu_backward(dy, z)
+    _close(got, lib, **BF16_TOL)
+    assert ops.activation_backward(dy, z, None) is dy
 
 
 def _ssd_bwd_inputs(cuda, b, s, nh, seed=6):
