@@ -63,7 +63,12 @@ Phases, in order, each failing the run on any error:
    projection's matmul forward against its plain version as in phase 1 and
    its backward (dgrad and wgrad, wgrad reading ``a^T`` without a copy)
    against the plain backward (``matmul_steps``), then the attention with
-   its fp32 log-sum-exp within 1e-3 and the block norm, then the other
+   its fp32 log-sum-exp within 1e-3 at llama3-8b's, gpt-m2's, gpt-m3's and
+   zamba2-7b's heads (``TRAIN_ATTENTION``: ``attention_plan``'s variant 1,
+   ``flash_attention_train.cu``, also against its plain mirror
+   ``ref.attention_train_ref``, and timed in turns with variant 0,
+   ``flash_attention.cu``, forced through the plan) and the block norm,
+   then the other
    backward kernels (flash_attention_bwd, rmsnorm_bwd) against their plain
    backward on the same bf16 inputs (the plain attention backward reads
    the plain forward's output and log-sum-exp): every gradient within a
@@ -88,7 +93,8 @@ Phases, in order, each failing the run on any error:
    AdamW moments, remat on: 6 steps on one repeated batch; the loss must
    fall from step 1 to step 6.  Every count of kernel launches is set to 0
    just before the 6 steps and read just after: each forward and backward
-   kernel must have launched its per-step count.  Prints ms per step,
+   kernel must have launched its per-step count, every attention on the
+   training kernel (``ops.ATTENTION_VARIANT_LAUNCHES``).  Prints ms per step,
    tokens/s, peak memory and the device's busy share in one profiled step,
    then the device time of the copies and casts by torch op and input
    shape in one more (``profile_train_ops.txt``).  This is this slice's
@@ -100,7 +106,8 @@ Phases, in order, each failing the run on any error:
    layers, b = 1, s = 256: the gradient of every parameter (norm scales
    included) on the card (kernels, bf16) against the CPU (plain versions,
    fp32, from the same bf16 weights), within a per-tensor relative L2 error
-   of 5e-2 (``PATH_TOL``).
+   of 5e-2 (``PATH_TOL``); the card's attention runs the training kernel
+   (every training path check's s is at least 128).
 10. train-zamba-kernels -- at zamba2-7b's training shapes (b = 1, s = 2048,
    112 SSD heads of 64, chunk 64; 32 / 32 attention heads of 112), the two
    Mamba2 backward kernels against their plain backward on the same bf16
@@ -174,7 +181,8 @@ Phases, in order, each failing the run on any error:
    one activation derivative per gelu MLP), ms a step, tokens/s, peak
    memory and a profiled step; then gpt-m1 and gpt-m3 (4.06 B parameters,
    about 61 GiB at its peak) at their 4 layers, the same steps and checks
-   without the profiled steps.
+   without the profiled steps.  ``--parent DIR``: then gpt-m2's step of
+   the tree in DIR and of this one, a process each, in turns.
 15. path-check-train-gpt -- gpt-m2 at 2 layers, b = 1, s = 512 (so that
    the up projection's pre-activation comes from variant 2): the loss and
    every gradient on the card against the CPU's fp32 plain path within
@@ -188,7 +196,8 @@ Prints the card's name and power limit, the kernels' build time and each
 kernel's registers and spills from the build report, one JSON
 line ``{"kernels": [...]}`` (one row per kernel: the four forward kernels
 at the zamba2-7b path's shapes and launches, the three backward kernels
-at the training step's, the two Mamba2 backward kernels at the zamba
+and the training attention kernel at the llama3-8b training step's, the
+two Mamba2 backward kernels at the zamba
 training step's, the activation's derivative at the gpt-m2 training
 step's; the llama3-8b serving rows and the training steps' other rows go
 to the log and, with every check, to
@@ -490,8 +499,9 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
                 library_ms=timer(_sdpa(torch, F, q, k, v, mask)),
                 nbytes=2 * 2 * q.numel() + kv_needed,
                 flops=4 * d * visible)
-        plan = ops.attention_plan(b, sq, hq, hkv, skv)
-        label += f" [row_tiles={plan.row_tiles} splits={plan.splits}]"
+        plan = ops.attention_plan(b, sq, hq, hkv, skv, d=d)
+        label += (f" [variant {plan.variant} row_tiles={plan.row_tiles} "
+                  f"splits={plan.splits}]")
         if not fa.add(label, ok, err, FA_TOL, path, step, weight, **timing):
             failed.append(f"flash_attention {label}")
 
@@ -1331,7 +1341,8 @@ def parent_matmul(torch, ops, pb, parent):
     transposed view) and ``bwd(a, b, dz)``, the two launches of that
     tree's ``ops.matmul_backward``.  A C entry without ``a_trans`` (the
     trees before the training variant) gets wgrad's ``a^T`` as a copy, made
-    inside the timed call, as its wrapper made it."""
+    inside the timed call, as its wrapper made it; one with the
+    pre-activation pointer ``z`` gets null there."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -1340,7 +1351,10 @@ def parent_matmul(torch, ops, pb, parent):
     sys.modules[spec.name] = po   # its dataclasses look their module up
     spec.loader.exec_module(po)
     entry = pb.entry("matmul")
-    reads_a_trans = len(pb.SIGNATURES["matmul"][2]) > 15
+    argtypes = pb.SIGNATURES["matmul"][2]
+    reads_a_trans = len(argtypes) > 15
+    # a tree whose matmul writes the pre-activation: a pointer z after out
+    writes_z = argtypes.count(argtypes[0]) > 7
     p, stream = ops._ptr, ops._stream
 
     def mm(a, b):
@@ -1358,7 +1372,8 @@ def parent_matmul(torch, ops, pb, parent):
             ws = torch.empty(2 * plan.blocks * plan.bm * plan.bn,
                              dtype=torch.float32, device=a.device)
             counters = po._counters(a, plan.tiles)
-        head = (p(a), p(b), None, p(out), p(ws), p(counters), M, N, K)
+        head = (p(a), p(b), None, p(out), *((None,) if writes_z else ()),
+                p(ws), p(counters), M, N, K)
         tail = (0, vec, plan.variant, plan.blocks)
         args = (*head, a_trans, b_trans, *tail, plan.whole) \
             if reads_a_trans else (*head, b_trans, *tail)
@@ -1459,6 +1474,93 @@ def plan_of(ops, variant: int):
             return ops._persistent_plan(M, N, K, sms)
         return ops._stream_k_plan(M, N, K, sms, variant)
     return plan
+
+
+def split_plan_of(ops):
+    """``ops.attention_plan`` forced to variant 0 (``flash_attention.cu``,
+    its row tiles and key splits) at any shape, for ``swapped``: what the
+    serving kernel would take at a training shape."""
+    def plan(b, sq, hq, hkv, skv, sms=ops.SMS, *, d=128):
+        return ops.split_plan(b, sq, hq, hkv, skv, sms)
+    return plan
+
+
+#: the training attention's timed shapes at ``TRAIN_SHAPE``'s s, b = 1,
+#: causal: (model, q heads, kv heads, head dim)
+TRAIN_ATTENTION = (("llama3-8b", 32, 8, 128), ("gpt-m2", 32, 32, 128),
+                   ("gpt-m3", 64, 64, 128), ("zamba2-7b", 32, 32, 112))
+
+
+def train_attention_phase(torch, F, ops, ref, timer, floor, randn, failed,
+                          weight: int):
+    """The attention forward with its fp32 log-sum-exp at each model's
+    training shape (``TRAIN_ATTENTION``): ``ops.attention_plan`` gives it
+    variant 1 (``flash_attention_train.cu``, one launch, counted in
+    ``ops.ATTENTION_VARIANT_LAUNCHES[1]``), held against the plain version
+    (O within ``FA_TOL``, the log-sum-exp within ``LSE_ATOL``) and O against
+    the plain mirror of the kernel's own order (``ref.attention_train_ref``,
+    ``FA_TOL``); timed in turns with variant 0 (``flash_attention.cu``,
+    forced through ``split_plan_of``: variant 0, 1, 1, 0), against the
+    bound, the plain version, ``scaled_dot_product_attention`` and the
+    timer's floor.  Each line names both plans.  Returns the KernelReport,
+    with llama3-8b's ``weight`` launches a step on the ``TRAIN`` path."""
+    T = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["seq"]
+    rep = KernelReport("flash_attention_train", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention_train.cu",
+                       "src/repro/kernels/flash_attention.py:102", floor)
+    log(f"train-kernels: flash_attention forward with its fp32 log-sum-exp "
+        f"at b=1 s={T}, causal, on variant 1 (flash_attention_train.cu); O "
+        f"within {FA_TOL} of the plain version and of the kernel's plain "
+        f"mirror, log-sum-exp within {LSE_ATOL} absolute; timed in turns "
+        f"with variant 0 (flash_attention.cu: 0, 1, 1, 0)")
+    qo = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kl = torch.full((1,), T, dtype=torch.int32, device="cuda")
+    for model, hq, hkv, d in TRAIN_ATTENTION:
+        q, k, v = randn(1, T, hq, d), randn(1, T, hkv, d), randn(1, T, hkv, d)
+        plan = ops.attention_plan(1, T, hq, hkv, T, d=d)
+        before = ops.ATTENTION_VARIANT_LAUNCHES[1]
+        out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+        launched = ops.ATTENTION_VARIANT_LAUNCHES[1] - before
+        want_out, want_lse = ref.attention_lse_ref(q, k, v, qo, kl)
+        ok, err = within(out, want_out, **FA_TOL)
+        ok_m, err_m = within(out, ref.attention_train_ref(q, k, v, qo, kl)[0],
+                             **FA_TOL)
+        lse_err = float((lse - want_lse).abs().max())
+        ok = (ok and ok_m and bool(lse.isfinite().all())
+              and lse_err <= LSE_ATOL and plan.variant == 1 and launched == 1)
+        del out, lse, want_out, want_lse
+
+        def v1():
+            return ops.flash_attention_lse(q, k, v, qo, kl)
+
+        def v0():
+            with swapped(ops, attention_plan=split_plan_of(ops)):
+                return ops.flash_attention_lse(q, k, v, qo, kl)
+
+        t = turns(timer, v0, v1)
+        old = ops.split_plan(1, T, hq, hkv, T)
+        sched = ops.attention_train_schedule(1, T, hq, hkv, T)
+        mask = ref.attention_mask(T, T, qo, kl)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        main = model == "llama3-8b"
+        if not rep.add(
+                f"{model} {hq}/{hkv} heads d={d}: mirror err {err_m:.2e}, lse "
+                f"err {lse_err:.2e} [variant 1: {plan.row_tiles} row tiles "
+                f"of {plan.rows} a head, {len(sched.blocks)} blocks; variant "
+                f"0: {old.row_tiles} row tiles of {old.rows}, splits "
+                f"{old.splits}] variant 0 {t[0]:.4f} / {t[3]:.4f} ms, "
+                f"variant 1 {t[1]:.4f} / {t[2]:.4f} ms (0, 1, 1, 0)", ok,
+                max(err, err_m, lse_err), {**FA_TOL, "lse_atol": LSE_ATOL},
+                TRAIN if main else None, "train" if main else None,
+                weight if main else 0, ms=(t[1] + t[2]) / 2,
+                plain_ms=timer(lambda: ref.attention_lse_ref(q, k, v, qo, kl)),
+                library_ms=timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=hq != hkv)),
+                nbytes=2 * 2 * (q.numel() + k.numel()) + 4 * hq * T,
+                flops=4 * d * int(mask.sum()) * hq):
+            failed.append(f"flash_attention_train {model}")
+        del q, k, v, qt, kt, vt, mask
+    return rep
 
 
 def matmul_steps(timer, ops, ref, torch, gemms, T, weights, prior, report,
@@ -1673,34 +1775,8 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
             del a, b
         log(f"  {role}: " + ", ".join(cells))
 
-    faf = KernelReport("flash_attention", "cuda",
-                       "src/repro_torch/kernels/csrc/flash_attention.cu",
-                       "src/repro/kernels/flash_attention.py:102", floor)
-    log(f"train-kernels: flash_attention forward with its fp32 log-sum-exp "
-        f"at b=1 s={T}; out within {FA_TOL}, log-sum-exp within {LSE_ATOL} "
-        f"absolute")
-    q, k, v = randn(1, T, 32, 128), randn(1, T, 8, 128), randn(1, T, 8, 128)
-    qo = torch.zeros(1, dtype=torch.int32, device="cuda")
-    kl = torch.full((1,), T, dtype=torch.int32, device="cuda")
-    out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
-    want_out, want_lse = ref.attention_lse_ref(q, k, v, qo, kl)
-    ok, err = within(out, want_out, **FA_TOL)
-    lse_err = float((lse - want_lse).abs().max())
-    ok = ok and bool(lse.isfinite().all()) and lse_err <= LSE_ATOL
-    visible = int(ref.attention_mask(T, T, qo, kl).sum()) * 32
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if not faf.add(
-            f"llama3-8b b=1 s={T} causal, lse err {lse_err:.2e}", ok,
-            max(err, lse_err), {**FA_TOL, "lse_atol": LSE_ATOL}, TRAIN,
-            "train", L * again,
-            ms=timer(lambda: ops.flash_attention_lse(q, k, v, qo, kl)),
-            plain_ms=timer(lambda: ref.attention_lse_ref(q, k, v, qo, kl)),
-            library_ms=timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-            nbytes=2 * 2 * (q.numel() + k.numel()) + 4 * lse.numel(),
-            flops=4 * 128 * visible):
-        failed.append("flash_attention forward with log-sum-exp")
-    del q, k, v, qt, kt, vt, out, lse, want_out, want_lse
+    faf = train_attention_phase(torch, F, ops, ref, timer, floor, randn,
+                                failed, L * again)
 
     rnf = KernelReport("rmsnorm", "cuda",
                        "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -2090,8 +2166,8 @@ def zamba_train_forward_checks(torch, ops, ref, randn, gen, failed):
     flash_attention (the caller adds the attention), rmsnorm and
     ssd_scan."""
     T, nh, hd, ds, chunk = TRAIN_SHAPE["seq"], 112, 64, 64, 64
-    fa = KernelReport("flash_attention", "cuda",
-                      "src/repro_torch/kernels/csrc/flash_attention.cu",
+    fa = KernelReport("flash_attention_train", "cuda",
+                      "src/repro_torch/kernels/csrc/flash_attention_train.cu",
                       "src/repro/kernels/flash_attention.py:102")
     rn = KernelReport("rmsnorm", "cuda",
                       "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -2265,8 +2341,8 @@ def gpt_train_kernel_phase(torch, F, ops, ref, timer, floor,
         del got, want, err
     del z, dy
 
-    faf = KernelReport("flash_attention", "cuda",
-                       "src/repro_torch/kernels/csrc/flash_attention.cu",
+    faf = KernelReport("flash_attention_train", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention_train.cu",
                        "src/repro/kernels/flash_attention.py:102", floor)
     fab = KernelReport("flash_attention_bwd", "cuda",
                        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -2408,6 +2484,7 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
             f"{float(m['grad_norm']):.4f} lr {m['lr']:.3g}, "
             f"{1e3 * walls[-1]:.1f} ms")
     launches = {**ops.LAUNCHES, **ops.BACKWARD_LAUNCHES}
+    variants = list(ops.ATTENTION_VARIANT_LAUNCHES)
     med = statistics.median(walls)
     log(f"  {len(walls)} steps: {1e3 * med:.1f} ms per step (median), "
         f"{tokens / med:.0f} tokens/s; peak device memory "
@@ -2419,6 +2496,11 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
     assert all(math.isfinite(x) for x in losses), f"losses {losses}"
     assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
     assert launches == want, f"launches {launches}, expected {want}"
+    # every attention of the step at s = 2048 runs the training kernel
+    log(f"  flash_attention launches by kernel: {variants} (flash_attention"
+        f".cu, flash_attention_train.cu)")
+    assert variants == [0, launches["flash_attention"]], variants
+    launches["flash_attention_train"] = variants[1]
     if not profile:
         del params, state, step
         gc.collect()
@@ -2579,6 +2661,10 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
     ops.reset_launches()
     card = grads(params, batch, dev)
     launched = dict(ops.BACKWARD_LAUNCHES)
+    # the attention at s >= 128 and head dim 112 or 128 runs the training
+    # kernel (attention_plan's variant 1)
+    variants = list(ops.ATTENTION_VARIANT_LAUNCHES)
+    assert not on_card or (variants[0] == 0 and variants[1] > 0), variants
     host = {k: v.cpu() for k, v in batch.items()}
     cpu = grads(lm.tree_map(lambda t: t.detach().cpu().float(), params),
                 host, "cpu")
@@ -2621,7 +2707,9 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
                 f"a backward kernel did not run on the path: {launched}"
     worst = max(errs, key=errs.get)
     log(f"path-check-train {cfg.name} at {layers} layers, d_model "
-        f"{cfg.d_model}, s={seq}: loss card {card[0]:.5f} CPU {cpu[0]:.5f}; "
+        f"{cfg.d_model}, s={seq}: attention launches by kernel {variants} "
+        f"(flash_attention.cu, flash_attention_train.cu); loss card "
+        f"{card[0]:.5f} CPU {cpu[0]:.5f}; "
         f"gradient relative L2 error per tensor, worst {errs[worst]:.3e} "
         f"({worst}), limit {PATH_TOL}"
         + (f" or {RECURRENT_FACTOR}x the plain bf16 path's error against "
@@ -2698,9 +2786,9 @@ def main(argv=None) -> int:
                          "backward kernels beside this tree's, "
                          "train-zamba-kernels does the same with its matmul "
                          "at the zamba shapes, its ssd_scan_bwd.cu and "
-                         "grouped norm backward, and the train and "
-                         "train-zamba phases run its training step and this "
-                         "tree's in turns")
+                         "grouped norm backward, and the train, "
+                         "train-zamba and train-gpt phases run its training "
+                         "step and this tree's in turns")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2736,7 +2824,7 @@ def main(argv=None) -> int:
             for line in report.read_text().splitlines():
                 if "Compiling entry function" in line:
                     kernel = kernel_name(line)
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "C7520" in line:
                     log(f"  ptxas {name} {kernel}: {line.strip()}")
 
     from repro_torch.configs.registry import get_config
@@ -2791,7 +2879,7 @@ def main(argv=None) -> int:
         train_fwd, train_bwd = train_kernel_phase(torch, F, ops, ref,
                                                   Timer(torch), floor_ms,
                                                   parent=args.parent)
-        reports += train_bwd
+        reports += [*train_bwd, train_fwd[1]]
         done("train-kernels")
     if "train" in phases:
         launches[TRAIN] = train_phase(torch)
@@ -2828,6 +2916,8 @@ def main(argv=None) -> int:
     if "train-gpt" in phases:
         launches[TRAIN_GPT] = train_phase(torch, arch=GPT_ARCH,
                                           layers=GPT_LAYERS, tag="_gpt")
+        if args.parent is not None:
+            parent_train_steps(args.parent, GPT_ARCH, GPT_LAYERS, "train-gpt")
         # under remat's non-reentrant checkpoint grad mode is on in both of
         # a block's forward passes, so the up projection writes z in each
         # (the first pass's z is dropped unread); the derivative reads the

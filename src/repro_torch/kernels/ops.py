@@ -9,11 +9,13 @@ the kernel to the plain version.
 kernel is launched and nowhere else, so a run can show that its path went
 through the kernels (``reset_launches`` before, read after).  A stream-K
 matmul and a split-KV attention merge their splits inside the same launch,
-so each call is still one launch.  ``BACKWARD_LAUNCHES`` counts the
-backward kernels the same way: each matmul backward launches the matmul
-kernel twice (dgrad and wgrad), the flash-attention, rmsnorm (block norm
-or grouped, gated norm) and SSD-scan backward wrappers one C entry each,
-and ``activation_backward`` (a fused activation's derivative) one.
+so each call is still one launch; ``ATTENTION_VARIANT_LAUNCHES`` splits
+the attention's count by the kernel it launched (``attention_plan``'s
+variant: the serving kernel or the training one).  ``BACKWARD_LAUNCHES``
+counts the backward kernels the same way: each matmul backward launches the
+matmul kernel twice (dgrad and wgrad), the flash-attention, rmsnorm (block
+norm or grouped, gated norm) and SSD-scan backward wrappers one C entry
+each, and ``activation_backward`` (a fused activation's derivative) one.
 
 Training: ``matmul``, ``flash_attention``, ``rmsnorm``, ``group_rmsnorm``
 and ``ssd_scan`` are autograd Functions wherever an input requires grad
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import heapq
 
 import torch
 
@@ -45,6 +48,10 @@ LAUNCHES = {"matmul": 0, "flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
 BACKWARD_LAUNCHES = {"matmul_bwd": 0, "flash_attention_bwd": 0,
                      "rmsnorm_bwd": 0, "group_rmsnorm_bwd": 0,
                      "ssd_scan_bwd": 0, "matmul_act_bwd": 0}
+
+#: the flash-attention launches of ``LAUNCHES`` by ``attention_plan``
+#: variant (0: ``flash_attention.cu``, 1: ``flash_attention_train.cu``)
+ATTENTION_VARIANT_LAUNCHES = [0, 0]
 
 _ACTIVATIONS = {None: 0, "gelu": 1, "silu": 2}
 
@@ -56,6 +63,7 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, BACKWARD_LAUNCHES):
         for k in counts:
             counts[k] = 0
+    ATTENTION_VARIANT_LAUNCHES[:] = [0, 0]
 
 
 def _grad(*ts) -> bool:
@@ -254,14 +262,19 @@ def _stream_k_plan(M: int, N: int, K: int, sms: int,
 
 @dataclasses.dataclass(frozen=True)
 class AttentionPlan:
-    """A CUDA flash-attention launch: ``row_tiles`` tiles of ``rows``
-    (q row x q head of a GQA group) per (batch row, kv head), and the keys
-    cut into ``splits`` ranges of ``tiles_per_split`` tiles of ``bkv``."""
+    """A CUDA flash-attention launch.  Variant 0 (``flash_attention.cu``,
+    the serving kernel): ``row_tiles`` tiles of ``rows`` (q row x q head of
+    a GQA group) per (batch row, kv head), and the keys cut into ``splits``
+    ranges of ``tiles_per_split`` tiles of ``bkv``.  Variant 1
+    (``flash_attention_train.cu``, the training regime): ``row_tiles``
+    tiles of 128 positions of one q head, keys in one range of tiles of
+    128; its blocks take the work items of ``attention_train_schedule``."""
     row_tiles: int
     splits: int
     tiles_per_split: int
     rows: int = 64
     bkv: int = 64
+    variant: int = 0
 
     def key_ranges(self, skv: int) -> list[tuple[int, int]]:
         span = self.tiles_per_split * self.bkv
@@ -271,17 +284,35 @@ class AttentionPlan:
 
 #: the most splits the attention kernel merges
 MAX_KV_SPLITS = 32
+#: the head dims variant 1 takes (112 padded to 128 by its loads); 64
+#: (qwen1.5) stays on variant 0
+TRAIN_HEAD_DIMS = (112, 128)
 
 
 def attention_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
-                   sms: int = SMS) -> AttentionPlan:
-    """Row tiles of 64 (q row x q head of the group, heads innermost) per
-    (batch row, kv head); then, where those blocks fill less than half the
-    card, split the keys (flash-decoding) into ranges of whole 64-key
-    tiles, as many as it takes to cover ``sms`` SMs.  A split costs a
-    partial write and a merge of a few microseconds, so it must carry at
-    least one key tile for a row tile of at most 16 rows (a decode tick:
-    one warp's product per key tile) and four for a fuller one."""
+                   sms: int = SMS, *, d: int = 128) -> AttentionPlan:
+    """Variant 1 where no key split is wanted, there are at least
+    ``ref.TRAIN_TILE`` q rows and the head dim is one of ``TRAIN_HEAD_DIMS``
+    (the training regime: s = 2048 and the like); else variant 0
+    (``split_plan``: every serving shape, a 64-row prefill chunk or a
+    decode tick)."""
+    plan = split_plan(b, sq, hq, hkv, skv, sms)
+    tile = ref.TRAIN_TILE
+    if plan.splits == 1 and sq >= tile and d in TRAIN_HEAD_DIMS:
+        return AttentionPlan(-(-sq // tile), 1, -(-skv // tile), tile, tile,
+                             1)
+    return plan
+
+
+def split_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
+               sms: int = SMS) -> AttentionPlan:
+    """Variant 0: row tiles of 64 (q row x q head of the group, heads
+    innermost) per (batch row, kv head); then, where those blocks fill less
+    than half the card, split the keys (flash-decoding) into ranges of
+    whole 64-key tiles, as many as it takes to cover ``sms`` SMs.  A split
+    costs a partial write and a merge of a few microseconds, so it must
+    carry at least one key tile for a row tile of at most 16 rows (a decode
+    tick: one warp's product per key tile) and four for a fuller one."""
     rows = sq * (hq // hkv)
     row_tiles = -(-rows // 64)
     kv_tiles = -(-skv // 64)
@@ -293,6 +324,79 @@ def attention_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
                             MAX_KV_SPLITS))
     per = -(-kv_tiles // splits)
     return AttentionPlan(row_tiles, -(-kv_tiles // per), per)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionTrainSchedule:
+    """Variant 1's work items dealt to its persistent blocks.  An item is
+    row tile t of q head h of batch row bi, numbered ``(bi * hq + h) *
+    row_tiles + t``; ``blocks[c]`` lists block c's items in the order it
+    takes them."""
+    hq: int
+    row_tiles: int
+    blocks: tuple
+
+    def item(self, i: int) -> tuple[int, int, int]:
+        """(batch row, q head, row tile) of item number ``i``."""
+        bh, t = divmod(i, self.row_tiles)
+        return bh // self.hq, bh % self.hq, t
+
+    def flat(self) -> list[int]:
+        """The kernel's ``sched``: ``len(blocks) + 1`` offsets into the
+        items that follow, then every block's items."""
+        offsets = [0]
+        for items in self.blocks:
+            offsets.append(offsets[-1] + len(items))
+        return offsets + [i for items in self.blocks for i in items]
+
+
+#: the K/V bytes of the kv heads whose items variant 1's schedule runs
+#: together, so that their K/V stay in the L2 (50 MB, in two halves, which
+#: Q and O stream through) while every row tile reads them
+TRAIN_L2_BYTES = 8 << 20
+
+
+@functools.lru_cache(maxsize=None)
+def attention_train_schedule(b: int, sq: int, hq: int, hkv: int, skv: int,
+                             causal: bool = True, window: int = 0,
+                             sms: int = SMS) -> AttentionTrainSchedule:
+    """Every (batch row, q head, row tile) once, dealt to the block with
+    the least work so far (the lowest-numbered of equals).  The items run
+    in groups of (batch row, kv head) whose K/V (the head dim padded to
+    128) fit ``TRAIN_L2_BYTES``; inside a group longest first -- the cost of
+    an item is its key tiles at q_offset 0 and kv_len ``skv``, plus one for
+    its Q load and store -- then by row tile, the q heads of a kv group next
+    to each other.  At llama3-8b's s = 2048 (one group) that is 512 items of
+    2 to 17 units on 132 blocks of 35 to 38 units."""
+    row_tiles, grp = -(-sq // ref.TRAIN_TILE), hq // hkv
+    cost = [len(ref.train_key_tiles(t, 0, skv, sq, skv, causal, window)) + 1
+            for t in range(row_tiles)]
+    per_group = max(1, TRAIN_L2_BYTES // (2 * skv * ref.TRAIN_TILE * 2))
+
+    def order(i):
+        bh, t = divmod(i, row_tiles)
+        bi, h = divmod(bh, hq)
+        return ((bi * hkv + h // grp) // per_group, -cost[t], bi, t, h)
+
+    items = sorted(range(b * hq * row_tiles), key=order)
+    n = min(sms, len(items))
+    loads = [(0, c) for c in range(n)]
+    blocks = [[] for _ in range(n)]
+    for i in items:
+        load, c = heapq.heappop(loads)
+        blocks[c].append(i)
+        heapq.heappush(loads, (load + cost[i % row_tiles], c))
+    return AttentionTrainSchedule(hq, row_tiles,
+                                  tuple(tuple(x) for x in blocks))
+
+
+@functools.lru_cache(maxsize=64)
+def _train_sched(b, sq, hq, hkv, skv, causal, window, device):
+    """``attention_train_schedule`` as the kernel reads it (int32 on
+    ``device``, made once per shape) and its block count."""
+    sched = attention_train_schedule(b, sq, hq, hkv, skv, causal, window)
+    return (torch.tensor(sched.flat(), dtype=torch.int32).to(device),
+            len(sched.blocks))
 
 
 #: keys of a dK/dV block's key tile (its warpgroup's K and V)
@@ -624,8 +728,9 @@ def _flash_inputs(q, k, v, q_offset, kv_len):
 
 
 def _flash(q, k, v, qo, kl, causal, window, softcap, lse: bool = False):
-    """One launch of the CUDA attention on ``_flash_inputs``; returns (out,
-    the fp32 [b, hq, sq] log-sum-exp or None)."""
+    """One launch of the CUDA attention on ``_flash_inputs``, the kernel of
+    ``attention_plan``'s variant; returns (out, the fp32 [b, hq, sq]
+    log-sum-exp or None)."""
     from repro_torch.kernels import _build
 
     b, sq, hq, d = q.shape
@@ -633,21 +738,32 @@ def _flash(q, k, v, qo, kl, causal, window, softcap, lse: bool = False):
     out = torch.empty_like(q)
     lse_out = torch.empty((b, hq, sq), dtype=torch.float32,
                           device=q.device) if lse else None
-    plan = attention_plan(b, sq, hq, hkv, skv)
-    ws_o = ws_lse = counters = None
-    if plan.splits > 1:
-        parts = b * hkv * plan.row_tiles * plan.splits * plan.rows
-        ws_o = torch.empty(parts * d, dtype=torch.float32, device=q.device)
-        ws_lse = torch.empty(parts, dtype=torch.float32, device=q.device)
-        counters = _counters(q, b * hkv * plan.row_tiles)
-    _launch(_build.entry("flash_attention"),
-            (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse_out), _ptr(qo),
-             _ptr(kl),
-             _ptr(ws_o), _ptr(ws_lse), _ptr(counters), b, sq, skv, hq, hkv, d,
-             int(causal), int(window), float(softcap), plan.row_tiles,
-             plan.splits, plan.tiles_per_split, _stream(q)),
-            "flash_attention", counters)
+    plan = attention_plan(b, sq, hq, hkv, skv, d=d)
+    if plan.variant == 1:
+        sched, blocks = _train_sched(b, sq, hq, hkv, skv, bool(causal),
+                                     int(window), q.device)
+        _launch(_build.entry("flash_attention_train"),
+                (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse_out),
+                 _ptr(qo), _ptr(kl), _ptr(sched), b, sq, skv, hq, hkv, d,
+                 int(causal), int(window), float(softcap), blocks,
+                 _stream(q)), "flash_attention", None)
+    else:
+        ws_o = ws_lse = counters = None
+        if plan.splits > 1:
+            parts = b * hkv * plan.row_tiles * plan.splits * plan.rows
+            ws_o = torch.empty(parts * d, dtype=torch.float32,
+                               device=q.device)
+            ws_lse = torch.empty(parts, dtype=torch.float32, device=q.device)
+            counters = _counters(q, b * hkv * plan.row_tiles)
+        _launch(_build.entry("flash_attention"),
+                (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse_out),
+                 _ptr(qo), _ptr(kl), _ptr(ws_o), _ptr(ws_lse),
+                 _ptr(counters), b, sq, skv, hq, hkv, d, int(causal),
+                 int(window), float(softcap), plan.row_tiles, plan.splits,
+                 plan.tiles_per_split, _stream(q)),
+                "flash_attention", counters)
     LAUNCHES["flash_attention"] += 1
+    ATTENTION_VARIANT_LAUNCHES[plan.variant] += 1
     return out, lse_out
 
 

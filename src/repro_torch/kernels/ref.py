@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels: the four forward kernels (the
-matmul also with its pre-activation output), the backward kernels of
+matmul also with its pre-activation output, the attention also in the
+training kernel's order, ``attention_train_ref``), the backward kernels of
 matmul, flash attention, rmsnorm (the block norm and the Mamba2 grouped,
 gated norm) and the SSD scan, and the matmul epilogue's activation
 derivative.
@@ -165,6 +166,99 @@ def attention_lse_ref(q, k, v, q_offset, kv_len, *, causal=True,
     out = attention_ref(q, k, v, q_offset, kv_len, causal=causal,
                         window=window, softcap=softcap)
     return out, lse
+
+
+#: the training attention kernel's row and key tiles
+TRAIN_TILE = 128
+
+
+def train_key_tiles(row_tile: int, q_offset: int, kv_len: int, sq: int,
+                    skv: int, causal: bool, window: int) -> range:
+    """The key tiles (of ``TRAIN_TILE``) that the training attention
+    kernel's row tile ``row_tile`` walks for a batch row's ``q_offset``
+    and ``kv_len``, as the kernel computes them: every tile that holds a
+    key some row of the tile sees (the kernel walks them last first)."""
+    klen = max(0, min(kv_len, skv))
+    p0 = TRAIN_TILE * row_tile
+    k_end, k_begin = klen, 0
+    if causal:
+        k_end = min(k_end, min(p0 + TRAIN_TILE, sq) + q_offset)
+    if window > 0:
+        k_begin = max(0, p0 + q_offset - window + 1)
+    kt0 = k_begin // TRAIN_TILE
+    nt = -(-(k_end - kt0 * TRAIN_TILE) // TRAIN_TILE) if k_end > k_begin else 0
+    return range(kt0, kt0 + nt)
+
+
+def attention_train_ref(q, k, v, q_offset, kv_len, *, causal=True,
+                        window: int = 0, softcap: float = 0.0):
+    """``attention_lse_ref`` as the training kernel (``flash_attention_train
+    .cu``) computes it: per batch row and row tile of 128 positions (all q
+    heads at once, each reading its kv head), the key tiles of 128 that
+    the tile's rows can see, last first; the scores masked only on tiles
+    that cross the diagonal, kv_len or the window's edge; an online
+    softmax in the log2 domain (``p = 2^(s c - m c)`` with ``c = log2(e) /
+    sqrt(d)`` and m the raw scores' running max, or the capped scores and
+    ``c = log2(e)`` with a softcap), the sum and O rescaled by the max's
+    change; P cast to ``q.dtype`` for the PV product (rounded for bf16
+    inputs, exact for fp32 ones).  Returns (out in ``q.dtype``, fp32
+    log-sum-exp ``[b, hq, sq]``, -inf and zeros for a row that sees no
+    key)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    tile = TRAIN_TILE
+    scale = 1.0 / math.sqrt(d)
+    c = math.log2(math.e) * (1.0 if softcap else scale)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)  # [b, h, s, d]
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    out = torch.zeros(b, hq, sq, d, device=q.device)
+    lse = torch.full((b, hq, sq), -torch.inf, device=q.device)
+    for bi in range(b):
+        qoff, klen = int(q_offset[bi]), max(0, min(int(kv_len[bi]), skv))
+        for t in range(-(-sq // tile)):
+            p0 = tile * t
+            rows = slice(p0, min(p0 + tile, sq))
+            qt = q[bi, rows].float().transpose(0, 1)           # [h, r, d]
+            qpos = qoff + torch.arange(p0, rows.stop, device=q.device)
+            m = torch.full(qt.shape[:2], -torch.inf, device=q.device)
+            l = torch.zeros_like(m)
+            o = torch.zeros_like(qt)
+            for kt in reversed(train_key_tiles(t, qoff, klen, sq, skv,
+                                               causal, window)):
+                k0 = tile * kt
+                keys = slice(k0, min(k0 + tile, skv))
+                s = qt @ kf[bi, :, keys].transpose(1, 2)       # [h, r, keys]
+                if softcap:
+                    s = softcap * torch.tanh(s * (scale / softcap))
+                whole = (k0 + tile <= klen
+                         and (not causal or k0 + tile - 1 <= p0 + qoff)
+                         and (window <= 0
+                              or p0 + tile - 1 + qoff - k0 < window))
+                if not whole:
+                    kpos = torch.arange(k0, keys.stop, device=q.device)
+                    vis = kpos[None, :] < klen
+                    if causal:
+                        vis = vis & (kpos[None, :] <= qpos[:, None])
+                    if window > 0:
+                        vis = vis & (kpos[None, :] > qpos[:, None] - window)
+                    s = s.masked_fill(~vis, -torch.inf)
+                mx = torch.maximum(m, s.amax(-1))
+                mc = torch.where(mx == -torch.inf, torch.zeros_like(mx),
+                                 mx * c)
+                alpha = torch.exp2(m * c - mc)
+                p = torch.exp2(s * c - mc[..., None])
+                l = l * alpha + p.sum(-1)
+                pv = p.to(q.dtype).float() @ vf[bi, :, keys]
+                o = o * alpha[..., None] + pv
+                m = mx
+            seen = l > 0
+            out[bi, :, rows] = o / torch.where(seen, l, torch.ones_like(l))[
+                ..., None]
+            lse[bi, :, rows] = torch.where(
+                seen, (m * c + torch.log2(l)) * math.log(2.0),
+                torch.full_like(l, -torch.inf))
+    return out.transpose(1, 2).to(q.dtype), lse
 
 
 def attention_bwd_ref(q, k, v, o, do, lse, q_offset, kv_len, *, causal=True,

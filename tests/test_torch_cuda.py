@@ -575,6 +575,81 @@ def test_flash_attention_backward_merges_many_parts(cuda, monkeypatch, case):
         ops._bwd_items.cache_clear()
 
 
+# the training kernel (attention_plan's variant 1): b, s, skv, hq, hkv, d,
+# q_offset, kv_len, window, softcap
+FA_TRAIN_CASES = {
+    "llama3-8b s=2048": (1, 2048, 2048, 32, 8, 128, None, None, 0, 0.0),
+    "gpt-m2 s=2048 MHA": (1, 2048, 2048, 32, 32, 128, None, None, 0, 0.0),
+    "zamba2-7b s=2048 d=112": (1, 2048, 2048, 32, 32, 112, None, None, 0,
+                               0.0),
+    "s=2100, not a multiple of 128": (1, 2100, 2100, 8, 2, 128, None, None,
+                                      0, 0.0),
+    "offsets, kv_len < skv": (2, 300, 420, 4, 1, 128, (120, 0), (420, 250),
+                              0, 0.0),
+    "window + softcap d=112": (1, 260, 260, 4, 2, 112, None, None, 64, 30.0),
+    "rows that see no key": (2, 200, 200, 4, 2, 128, None, (0, 150), 32,
+                             0.0),
+}
+
+
+def _fa_train_inputs(cuda, case, seed=6):
+    b, s, skv, hq, hkv, d, q_off, kv_len, window, softcap = \
+        FA_TRAIN_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(b, s, hq, d, generator=gen, device=cuda).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, skv, hkv, d, generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    qo = torch.tensor(q_off or (0,) * b, dtype=torch.int32, device=cuda)
+    kl = torch.tensor(kv_len or (skv,) * b, dtype=torch.int32, device=cuda)
+    return q, k, v, do, qo, kl, dict(window=window, softcap=softcap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FA_TRAIN_CASES))
+def test_flash_attention_train_kernel_matches_plain(cuda, case):
+    """One launch of ``flash_attention_train.cu``: O within ``FA_TOL`` of
+    the plain attention and of the plain mirror of the kernel's order, the
+    log-sum-exp within 1e-3 where a row sees a key and -inf (O zero) where
+    it sees none; the same bits on every call."""
+    q, k, v, _, qo, kl, kw = _fa_train_inputs(cuda, case)
+    b, s, hq, d = q.shape
+    assert ops.attention_plan(b, s, hq, k.shape[2], k.shape[1],
+                              d=d).variant == 1
+    before = ops.LAUNCHES["flash_attention"]
+    trained = ops.ATTENTION_VARIANT_LAUNCHES[1]
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert ops.ATTENTION_VARIANT_LAUNCHES[1] == trained + 1
+    want, want_lse = ref.attention_lse_ref(q, k, v, qo, kl, **kw)
+    _close(out, want, **FA_TOL)
+    _close(out, ref.attention_train_ref(q, k, v, qo, kl, **kw)[0], **FA_TOL)
+    seen = torch.isfinite(want_lse)
+    assert bool((torch.isfinite(lse) == seen).all())
+    assert float((lse - want_lse)[seen].abs().max()) <= 1e-3
+    assert float(out[~seen.transpose(1, 2)].float().abs().sum()) == 0.0
+    for _ in range(2):
+        again = ops.flash_attention_lse(q, k, v, qo, kl, **kw)
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["llama3-8b s=2048", "zamba2-7b s=2048 d=112",
+                                  "offsets, kv_len < skv",
+                                  "window + softcap d=112",
+                                  "rows that see no key"])
+def test_flash_attention_backward_reads_the_train_kernels_lse(cuda, case):
+    """dQ, dK and dV of the backward kernel from the training kernel's O
+    and log-sum-exp, against the plain backward on the same inputs."""
+    q, k, v, do, qo, kl, kw = _fa_train_inputs(cuda, case)
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl, **kw)
+    got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl, **kw)
+    want = ref.attention_bwd_ref(q, k, v, out, do, lse, qo, kl, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(g, w) <= BWD_REL, name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,width", [(1, 64), (37, 3584), (2048, 4096),
                                         (300, 1024), (4096, 4096)])
