@@ -191,6 +191,23 @@ Phases, in order, each failing the run on any error:
    derivative kernel launched), every gradient within ``PATH_TOL`` of the
    kernels'; and a planted fault (``activation_backward`` passing ``dy``
    on unchanged) must break that limit.
+16. plan -- the strategy stack (``core.plan``, ROADMAP A6) driving the
+   port: ``launch.plan_smoke.paper_plans()`` (the paper's Fig. 10 and
+   Fig. 11 searches) must equal ``BENCH_paper_plans.json`` key for key,
+   predicted costs included; ``launch.train.pick_plan``'s top four plans
+   for gpt-m1..m4 at b = 4, s = 2048 on ``h100-sxm-8`` (tp 8) and
+   ``h100-sxm-2x8`` (tp 16) are printed with their modelled t_comm,
+   t_exposed and t_gemm (cost-model output, not measurements); gpt-m2 at
+   its 4 layers, b = 1, s = 2048, trains 3 zero1 steps from the plan
+   ``pick_plan`` searches on ``h100-sxm-8`` at tp 1, from that plan saved
+   (``plan_gpt-m2.json`` in the output directory) and loaded, each of its
+   steps under the collective record (``analysis.signature``), and from the loose
+   topology (1, 1, 1): the contexts must be equal (the loose one by its
+   segment views, as it carries no segment entries), the losses equal bit
+   for bit and the record empty outside ``opt:*``; qwen1.5-0.5b serves 4
+   requests through ``make_paged_server(plan=...)`` with a plan that
+   carries a decode sub-plan (decode batch 4), every request's greedy
+   tokens equal to those of the server built from the topology.
 
 Prints the card's name and power limit, the kernels' build time and each
 kernel's registers and spills from the build report, one JSON
@@ -228,7 +245,7 @@ PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
           "serve-zamba", "path-check-zamba", "train-kernels", "train",
           "path-check-train", "train-zamba-kernels", "train-zamba",
           "path-check-train-zamba", "train-gpt-kernels", "train-gpt",
-          "path-check-train-gpt")
+          "path-check-train-gpt", "plan")
 #: the serving path whose forward rows the result line reports
 MAIN = "zamba2-7b"
 #: the training path: the backward rows of the result line
@@ -2735,6 +2752,162 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
         assert caught, "the same-forward rule passed a planted fault"
 
 
+# ---------------------------------------------------------------------------
+# The strategy stack on the card (phase 16).
+# ---------------------------------------------------------------------------
+
+#: the paper's GPT models and its table defaults, ranked on the card's own
+#: fabric: the one-node and the two-node H100 presets at their TP degrees
+PLAN_ARCHS = ("gpt-m1", "gpt-m2", "gpt-m3", "gpt-m4")
+PLAN_RANKED = (("h100-sxm-8", 8), ("h100-sxm-2x8", 16))
+PLAN_BATCH, PLAN_SEQ = 4, 2048
+#: the training runs from a plan: gpt-m2 at its own 4 layers, b = 1,
+#: s = 2048 (``TRAIN_SHAPE``), this many steps each
+PLAN_STEPS = 3
+#: the serving run from a plan with a decode sub-plan
+PLAN_SERVE_ARCH, PLAN_SERVE_REQUESTS = "qwen1.5-0.5b", 4
+
+
+def plan_train_run(torch, plan=None, record: bool = False):
+    """``PLAN_STEPS`` AdamW zero1 steps of gpt-m2 at ``GPT_LAYERS`` from
+    seeded weights, built from ``plan`` or, with none, from the loose
+    topology (1, 1, 1) as the train-gpt phase builds it.  With ``record``
+    every step runs inside ``analysis.signature.recording``.  Returns
+    (the step's context, the losses, the record or None)."""
+    from repro_torch.analysis import signature
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw
+
+    cfg, params, batch = _train_model(torch, GPT_LAYERS, 0, arch=GPT_ARCH)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1)
+    if plan is None:
+        step, info = build_train_step(cfg, atp_topo(1, 1, 1), opt_cfg)
+    else:
+        step, info = build_train_step(cfg, opt_cfg=opt_cfg, plan=plan)
+    state = adamw.init_opt_state(params, info.ctx, opt_cfg.mode)
+    rec = signature.Record() if record else None
+    losses = []
+    for _ in range(PLAN_STEPS):
+        with (signature.recording("fwd", rec) if record
+              else contextlib.nullcontext()):
+            params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info.ctx, losses, rec
+
+
+def plan_serve_run(torch, plan=None):
+    """``PLAN_SERVE_REQUESTS`` seeded prompts of qwen1.5-0.5b through
+    ``make_paged_server`` (captured), built from ``plan`` or from the
+    trivial topology; returns (the step's context, each request's greedy
+    tokens by rid)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Request
+
+    cfg = get_config(PLAN_SERVE_ARCH)
+    prompts = serve.sample_prompts(cfg, PLAN_SERVE_REQUESTS, PROMPT_LEN, 1)
+    scfg = serve.paged_server_config([len(p) for p in prompts], **SERVE)
+    server, info = serve.make_paged_server(
+        cfg, scfg, lm.init_params(cfg, seed=1), plan=plan)
+    for rid, p in enumerate(prompts):
+        server.submit(Request(rid=rid, prompt=p, max_new=SERVE["max_new"]))
+    server.run_until_drained()
+    out = {r.rid: list(r.out) for r in server.completed}
+    ctx = info.ctx
+    del server, info
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ctx, out
+
+
+def plan_phase(torch) -> None:
+    """The strategy stack (``core.plan``) driving the port on one card:
+    the paper's 21 plans against ``BENCH_paper_plans.json``; the ranking
+    of gpt-m1..m4 on the H100 presets (model output); gpt-m2 trained from
+    a searched plan, from that plan saved and loaded (each step under the
+    collective record) and from the loose topology, with equal contexts
+    and the same loss bits; qwen1.5-0.5b served from a plan with a decode
+    sub-plan, every request's tokens equal to the server built from the
+    topology's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.plan import ParallelPlan, plan_search
+    from repro_torch.launch import plan_smoke
+    from repro_torch.launch.train import H100_PEAK_TFLOPS, pick_plan
+
+    t0 = time.perf_counter()
+    got, want = plan_smoke.paper_plans(), plan_smoke.stored_paper_plans()
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    differ = [k for k in want if got[k] != want[k]]
+    assert not differ, f"paper plans differ: {differ}"
+    log(f"plan: the {len(got)} paper plans equal BENCH_paper_plans.json key "
+        f"for key, predicted costs included "
+        f"({time.perf_counter() - t0:.2f}s)")
+
+    log(f"plan: pick_plan's top four plans per model on the H100 presets, "
+        f"batch {PLAN_BATCH} x seq {PLAN_SEQ}, GEMM time at "
+        f"{H100_PEAK_TFLOPS} TFLOP/s -- cost-model output, not measurements "
+        f"(ms per step):")
+    for topology, tp in PLAN_RANKED:
+        for arch in PLAN_ARCHS:
+            res = pick_plan(get_config(arch), tp, PLAN_SEQ, PLAN_BATCH,
+                            topology)
+            for rank, (p, c) in enumerate(zip(res.ranked[:4], res.costs[:4])):
+                log(f"  {topology} tp {tp} {arch} #{rank + 1}: "
+                    f"{p.describe()}: t_comm {1e3 * c.t_comm:.4f} "
+                    f"t_exposed {1e3 * c.t_exposed:.4f} "
+                    f"t_gemm {1e3 * c.t_gemm:.4f}")
+
+    t0 = time.perf_counter()
+    cfg = _train_config(GPT_ARCH, GPT_LAYERS)
+    plan = pick_plan(cfg, 1, TRAIN_SHAPE["seq"], TRAIN_SHAPE["batch"],
+                     "h100-sxm-8").best
+    loaded = ParallelPlan.load(plan.save(str(OUT_DIR / "plan_gpt-m2.json")))
+    assert loaded == plan, "the plan changed through its JSON"
+    log(f"plan: {GPT_ARCH} ({GPT_LAYERS} layers, b {TRAIN_SHAPE['batch']}, s "
+        f"{TRAIN_SHAPE['seq']}) searched on h100-sxm-8 at tp 1: "
+        f"{plan.describe()}")
+    ctx_s, loss_s, _ = plan_train_run(torch, plan)
+    ctx_l, loss_l, rec = plan_train_run(torch, loaded, record=True)
+    ctx_t, loss_t, _ = plan_train_run(torch)
+    log(f"  losses from the searched plan {loss_s}, the loaded plan "
+        f"{loss_l} (recorded), the loose topology {loss_t} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    assert ctx_s == ctx_l, (ctx_s, ctx_l)
+    # the loose topology carries no segment entries: its view of each
+    # segment, and its scalar knobs, are the plan's
+    assert dataclasses.replace(ctx_s, segment_plans=()) == ctx_t, (ctx_s,
+                                                                   ctx_t)
+    for seg in plan.segments:
+        assert ctx_s.for_segment(seg.kind) == ctx_t.for_segment(seg.kind), seg
+    assert all(math.isfinite(x) for x in loss_s), loss_s
+    assert loss_s == loss_l == loss_t, "the losses differ in their bits"
+    outside = [e for e in rec.entries if not e.region.startswith("opt:")]
+    assert not outside, f"collectives recorded at d1 = d2 = dp = 1: {outside}"
+    log(f"  contexts equal, losses equal bit for bit; {len(rec.entries)} "
+        f"collectives recorded in {PLAN_STEPS} steps at d1 = d2 = dp = 1")
+
+    t0 = time.perf_counter()
+    scfg = get_config(PLAN_SERVE_ARCH)
+    splan = plan_search("h100-sxm-8", 1, model=scfg, batch=SERVE["slots"],
+                        seq=PROMPT_LEN + SERVE["max_new"],
+                        decode_batch=SERVE["slots"],
+                        peak_tflops=H100_PEAK_TFLOPS).best
+    assert splan.decode is not None, splan
+    ctx_p, from_plan = plan_serve_run(torch, splan)
+    ctx_t, from_topo = plan_serve_run(torch)
+    log(f"plan: {PLAN_SERVE_ARCH} served from {splan.describe()}: "
+        f"{len(from_plan)} requests, tokens equal to the topology's server "
+        f"({time.perf_counter() - t0:.1f}s); request 0 -> {from_plan[0]}")
+    assert dataclasses.replace(ctx_p, segment_plans=()) == ctx_t, (ctx_p,
+                                                                   ctx_t)
+    assert from_plan == from_topo, (from_plan, from_topo)
+
+
 def _leaf_names(tree, prefix="") -> list:
     if isinstance(tree, dict):
         return [n for k, v in tree.items()
@@ -2930,6 +3103,9 @@ def main(argv=None) -> int:
     if "path-check-train-gpt" in phases:
         train_path_check(torch, arch=GPT_ARCH, **GPT_PATH)
         done("path-check-train-gpt")
+    if "plan" in phases:
+        plan_phase(torch)
+        done("plan")
 
     def path_rows(path, of):
         return [r.row(path, launches.get(path, {}).get(r.meta["name"], 0))

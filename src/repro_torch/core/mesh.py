@@ -22,6 +22,18 @@ AXIS_TP2 = "tp2"      # second dim of the ATP 2D device mesh (d2)
 AXIS_MODEL = "model"
 
 
+def factorizations(n: int) -> list[tuple[int, int]]:
+    """All (d1, d2) with d1 * d2 == n, d1 and d2 >= 1.
+
+    For n == 2**k this gives the paper's k+1 meshes.
+    """
+    out = []
+    for d1 in range(1, n + 1):
+        if n % d1 == 0:
+            out.append((d1, n // d1))
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshTopo:
     """Logical mesh: ordered (axis_name, size) pairs."""

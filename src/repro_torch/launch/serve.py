@@ -12,6 +12,16 @@ a time.  A mesh of more than one rank runs one process per rank under
 ``torch.distributed.run`` (which sets the rendezvous environment), e.g.
 ``python -m torch.distributed.run --nproc-per-node 4 -m
 repro_torch.launch.serve --d1 2 --d2 2``.
+
+The mesh and the knobs come from a ``ParallelPlan``: ``--plan FILE`` loads
+one (``launch.train --save-plan`` writes it), ``--auto-atp`` searches one
+for this model with the latency-aware decode objective (``--topology``, a
+``core.comm_matrix`` preset, default ``h100-sxm-8``), and ``--d1/--d2``
+alone serve on that mesh with the default knobs.  The server runs on the
+plan's ``decode_view()``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --plan plan.json
 """
 from __future__ import annotations
 
@@ -25,7 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core import comm_matrix
 from repro_torch.core.mesh import atp_topo, resolve_device
+from repro_torch.core.plan import ParallelPlan, plan_search
 from repro_torch.launch.steps import (CapturedStep, StepInfo,
                                      build_paged_step, check_slot_ids)
 from repro_torch.models import lm
@@ -36,14 +48,29 @@ log = logging.getLogger("repro_torch.serve")
 
 
 def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
-                      device=None):
-    """Build the paged continuous-batching server on ``topo``.
+                      device=None, *, plan: ParallelPlan | None = None):
+    """Build the paged continuous-batching server on ``topo`` (the trivial
+    mesh by default) or on a ``plan``'s serving mesh.
 
-    ``params`` is the GLOBAL tree (``lm.init_params`` or
-    ``convert.params_from_jax`` with the trivial topology); this rank's
-    shard is cut from it here, consuming the tree.  Runs on CUDA unless
-    ``device`` names another device; raises without a GPU and without a
-    named device.  Returns ``(server, info)``."""
+    With a plan the server is built on ``plan.decode_view()``: serving is
+    decode-dominated, and prefill and decode share one set of sharded
+    params and caches, so a decode sub-plan's (d1, d2) wins; the decode
+    sub-plan's ``speculate`` and ``prefix_cache`` join the ServerConfig's
+    (and are refused as below).  ``params`` is the GLOBAL tree
+    (``lm.init_params`` or ``convert.params_from_jax`` with the trivial
+    topology); this rank's shard is cut from it here, consuming the tree.
+    Runs on CUDA unless ``device`` names another device; raises without a
+    GPU and without a named device.  Returns ``(server, info)``."""
+    if plan is not None:
+        view = plan.decode_view()
+        if (view.d1, view.d2) != (plan.d1, plan.d2):
+            log.info("decode sub-plan re-meshes serving: %s -> "
+                     "DeviceMesh(%d,%d)", plan.describe(), view.d1, view.d2)
+        topo, plan = view.topo(), view
+        if view.decode is not None:
+            scfg = dataclasses.replace(
+                scfg, speculate=scfg.speculate or view.decode.speculate,
+                prefix_cache=scfg.prefix_cache or view.decode.prefix_cache)
     recurrent = lm.is_recurrent(cfg)
     if recurrent:
         # the JAX server's resolution: neither mode applies to a recurrent
@@ -61,7 +88,7 @@ def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
     scfg = dataclasses.replace(scfg, recurrent=recurrent)
     topo = topo if topo is not None else atp_topo(1, 1, 1)
     step_fn, init_caches, info = _build_paged_step_fn(cfg, scfg, params,
-                                                      topo, device)
+                                                      topo, device, plan)
     return Server(scfg, step_fn, init_caches), info
 
 
@@ -95,11 +122,13 @@ class ServeStep:
         return dataclasses.replace(self, captured=False)
 
 
-def _build_paged_step_fn(cfg, scfg: ServerConfig, params, topo, device):
+def _build_paged_step_fn(cfg, scfg: ServerConfig, params, topo, device,
+                         plan=None):
     """The step in the Server's calling convention (a :class:`ServeStep`)
     and the caches' maker."""
     slots = scfg.batch_slots if scfg.recurrent else None
-    step, info = build_paged_step(cfg, topo, device=device, slots=slots)
+    step, info = build_paged_step(cfg, topo, device=device, slots=slots,
+                                  plan=plan)
     dev = info.device
     params = lm.tree_map(lambda t: t.to(dev),
                          lm.shard_params(cfg, params, info.ctx))
@@ -154,13 +183,32 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=0,
                     help="page-pool size (0 = sized to the workload)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--plan", default=None,
+                    help="load a saved ParallelPlan JSON (train --save-plan)")
+    ap.add_argument("--auto-atp", action="store_true",
+                    help="search a plan for this model and shape (paper "
+                         "§3.5), with the latency-aware decode objective")
+    ap.add_argument("--topology", default="h100-sxm-8",
+                    choices=list(comm_matrix.PRESETS),
+                    help="comm-matrix preset for --auto-atp")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    topo = atp_topo(args.dp, args.d1, args.d2)
+    plan = None
+    if args.plan:
+        plan = ParallelPlan.load(args.plan)
+        log.info("loaded plan %s: %s", args.plan, plan.describe())
+    elif args.auto_atp:
+        plan = plan_search(
+            args.topology, args.d1 * args.d2, model=cfg,
+            batch=args.slots, seq=args.prompt_len + args.max_new,
+            dp=args.dp, decode_batch=args.slots).best
+        log.info("ATP plan search picked %s", plan.describe())
+    topo = (plan.decode_view().topo() if plan is not None
+            else atp_topo(args.dp, args.d1, args.d2))
     device = resolve_device(args.device)
     if topo.size > 1:
         import torch.distributed as dist
@@ -175,7 +223,8 @@ def main(argv=None):
         [len(p) for p in prompts], slots=args.slots,
         prefill_chunk=args.prefill_chunk, page_size=args.page_size,
         max_seq=args.max_seq, max_new=args.max_new, num_pages=args.num_pages)
-    server, _ = make_paged_server(cfg, scfg, params, topo=topo, device=device)
+    server, _ = make_paged_server(cfg, scfg, params, topo=topo, device=device,
+                                  plan=plan)
     for rid, p in enumerate(prompts):
         server.submit(Request(rid=rid, prompt=p, max_new=args.max_new))
     t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 """Step builders (counterpart of ``repro.launch.steps``): the paged serving
 step, captured as one CUDA graph per input shape (the counterpart of the
 reference's ``jax.jit``), and its vocab-parallel greedy pick; the training
-step."""
+step.  Each builder takes a ``ParallelPlan`` or a topology, and both go
+through :func:`resolve_ctx`."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +12,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.analysis.signature import region
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.atp import (ATPContext, all_reduce_max, all_reduce_min,
                                   make_context)
@@ -19,6 +21,46 @@ from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.models.paging import GARBAGE_PAGE
 from repro_torch.optim import adamw
+
+
+def _decode_knobs(plan):
+    """``plan`` as a serving step runs it: the decode sub-plan's
+    mesh-layout-neutral knobs (chunks, boundary_mode, wire_dtype) replace
+    the train knobs, globally and in every segment entry, and
+    ``seq_parallel`` is masked everywhere."""
+    if plan.decode is not None:
+        dec = plan.decode
+        plan = plan.with_(
+            chunks=dec.chunks, boundary_mode=dec.boundary_mode,
+            wire_dtype=dec.wire_dtype,
+            segments=tuple(dataclasses.replace(
+                s, chunks=dec.chunks, boundary_mode=dec.boundary_mode,
+                wire_dtype=dec.wire_dtype) for s in plan.segments))
+    return plan.with_(seq_parallel=False, segments=tuple(
+        dataclasses.replace(s, seq_parallel=False) for s in plan.segments))
+
+
+def resolve_ctx(topo: MeshTopo | None, plan, chunks: int = 1,
+                decode: bool = False, *,
+                device_type: str = "cuda") -> ATPContext:
+    """One context path for every builder (``repro.launch.steps.
+    resolve_ctx``): the plan wins when given.
+
+    ``decode`` masks ``seq_parallel``, globally and in every segment entry
+    (the sequence-parallel spec is defined over a whole sequence), and
+    applies the plan's decode sub-plan for the knobs that do not change the
+    mesh layout (its boundary_mode, chunks 1).  The decode factorization
+    (d1, d2) is not applied here: a server that wants the decode mesh is
+    built from ``plan.decode_view()`` up front (``launch/serve.py``).
+    The knobs are resolved before the context is built, so a serving step
+    of a plan whose training knobs ask for ``seq_parallel`` builds."""
+    if plan is not None:
+        if decode:
+            plan = _decode_knobs(plan)
+        return make_context(topo, plan=plan, device_type=device_type)
+    if topo is None:
+        raise TypeError("builder needs a MeshTopo or a ParallelPlan")
+    return make_context(topo, chunks=chunks, device_type=device_type)
 
 
 @dataclasses.dataclass
@@ -41,10 +83,11 @@ def _greedy_pick(ctx: ATPContext, cfg: ModelConfig, logits):
     local_arg = local_arg.to(torch.int32) + ctx.index1() * v_loc
     if ctx.ax1 is None:
         return local_arg
-    gmax = all_reduce_max(ctx, local_max.clone(), ctx.ax1)
-    cand = torch.where(local_max >= gmax, local_arg,
-                       torch.full_like(local_arg, 2 ** 30))
-    return all_reduce_min(ctx, cand, ctx.ax1)
+    with region("shell:pick"):
+        gmax = all_reduce_max(ctx, local_max.clone(), ctx.ax1)
+        cand = torch.where(local_max >= gmax, local_arg,
+                           torch.full_like(local_arg, 2 ** 30))
+        return all_reduce_min(ctx, cand, ctx.ax1)
 
 
 def check_slot_ids(slot, slots: int) -> None:
@@ -200,8 +243,8 @@ class CapturedStep:
         return shape.host_out.numpy().copy()
 
 
-def build_paged_step(cfg: ModelConfig, topo: MeshTopo, device=None,
-                     slots: int | None = None):
+def build_paged_step(cfg: ModelConfig, topo: MeshTopo | None = None,
+                     device=None, slots: int | None = None, *, plan=None):
     """The paged cache-write step (decode tick AND prefill chunk).
 
     Returns ``(step, info)``: ``step`` the :class:`CapturedStep` (``step(
@@ -211,8 +254,10 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo, device=None,
     (``lm.shard_params``) and ``caches`` come from ``lm.init_paged_caches``
     and are written in place.  One body serves both shapes (prefill chunk
     b=1, decode tick b=slots), a graph each; lengths and positions are
-    runtime data.  A topology of more than one rank needs
-    ``torch.distributed`` initialized with one process per rank.
+    runtime data.  The context comes from ``plan`` (its decode knobs,
+    :func:`resolve_ctx` with ``decode=True``) or ``topo``.  A topology of
+    more than one rank needs ``torch.distributed`` initialized with one
+    process per rank.
 
     Recurrent kinds (mamba/zamba) need ``slots`` (the scheduler's
     ``batch_slots``, which sizes the state pools), and the step takes a
@@ -225,7 +270,7 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo, device=None,
         raise ValueError("recurrent kinds (mamba/zamba) need "
                          "build_paged_step(..., slots=<scheduler batch_slots>)")
     device = resolve_device(device)
-    ctx = make_context(topo, device_type=device.type)
+    ctx = resolve_ctx(topo, plan, decode=True, device_type=device.type)
 
     if needs_slot:
         @torch.no_grad()
@@ -244,9 +289,10 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo, device=None,
             StepInfo(ctx=ctx, device=device, plain=step))
 
 
-def build_train_step(cfg: ModelConfig, topo: MeshTopo,
+def build_train_step(cfg: ModelConfig, topo: MeshTopo | None = None,
                      opt_cfg: adamw.AdamWConfig | None = None,
-                     chunks: int = 1, remat: bool = True, device=None):
+                     chunks: int = 1, remat: bool = True, device=None, *,
+                     plan=None):
     """One training step: the loss and its gradients through autograd (the
     kernels' backward on CUDA), then AdamW.
 
@@ -257,15 +303,20 @@ def build_train_step(cfg: ModelConfig, topo: MeshTopo,
     this dp rank's ``tokens`` and ``labels [b, s]`` on the device;
     ``metrics`` the loss and the global grad norm (0-d tensors) and the
     learning rate.  ``remat`` recomputes each block's activations in the
-    backward.  A topology of more than one rank needs
-    ``torch.distributed`` initialized with one process per rank."""
+    backward.  The context comes from ``plan`` (its mesh and its
+    per-segment knobs; ``chunks`` is then the plan's) or from ``topo`` and
+    ``chunks``, through :func:`resolve_ctx`.  A topology of more than one
+    rank needs ``torch.distributed`` initialized with one process per
+    rank."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     device = resolve_device(device)
     lm.check_trainable(cfg)
-    if len(dp_axis_names(topo)) > 1:
+    mesh = topo if topo is not None or plan is None else plan.topo()
+    if mesh is not None and len(dp_axis_names(mesh)) > 1:
+        # refused before any process group is made
         raise NotImplementedError("more than one data-parallel axis is "
                                   "ROADMAP A5b")
-    ctx = make_context(topo, chunks=chunks, device_type=device.type)
+    ctx = resolve_ctx(topo, plan, chunks, device_type=device.type)
 
     def step(params, opt_state, batch):
         leaves = adamw.tree_leaves(params)

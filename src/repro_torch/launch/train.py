@@ -21,6 +21,20 @@ rank runs one process per rank under ``torch.distributed.run``, e.g.
 ``python -m torch.distributed.run --nproc-per-node 4 -m
 repro_torch.launch.train --d1 2 --d2 2``.  The elastic, fault-tolerant
 trainer of the JAX package is ROADMAP A11.
+
+The strategy is a ``ParallelPlan`` end to end: ``--auto-atp`` searches one
+(paper §3.5 with the overlap knobs; ``--no-overlap`` keeps to the seed
+Eq. 2 space) on the ``--topology`` preset (default ``h100-sxm-8``) for
+TP degree d1 * d2, ``--plan FILE`` loads a saved one, and plain
+``--d1/--d2/--chunks`` make one with provenance ``manual-cli``; ``--save-plan
+FILE`` writes the plan the run executes:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-m2 \
+        --seq 2048 --batch 1 --auto-atp --save-plan plan.json
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-m2 \
+        --seq 2048 --batch 1 --plan plan.json
+
+``--calibrate`` (measuring the mesh) is ROADMAP A7 and raises.
 """
 from __future__ import annotations
 
@@ -33,13 +47,57 @@ import time
 import torch
 
 from repro_torch.configs.registry import get_config
-from repro_torch.core.mesh import atp_topo, resolve_device
+from repro_torch.core import comm_matrix
+from repro_torch.core.calibrate import calibrate_mesh
+from repro_torch.core.cost_model import LayerCommProfile
+from repro_torch.core.mesh import resolve_device
+from repro_torch.core.plan import ParallelPlan, PlanSearchResult, plan_search
 from repro_torch.data.pipeline import DataConfig, TokenSource
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 
 log = logging.getLogger("repro_torch.train")
+
+#: the comm-matrix presets of the port's own card, and its dense bf16 peak
+#: (TFLOP/s; the NVIDIA H100 SXM datasheet) that ``pick_plan`` prices their
+#: GEMM time with.  Every other preset keeps ``plan_search``'s default, so
+#: its plans stay equal to the reference's.
+H100_PRESETS = frozenset({"h100-sxm-8", "h100-sxm-2x8"})
+H100_PEAK_TFLOPS = 989.0
+
+
+def comm_profile(cfg) -> LayerCommProfile:
+    """Generalized Eq. 2 coefficients for this architecture's dense block
+    (the per-kind constructor in the cost model)."""
+    return LayerCommProfile.dense(cfg)
+
+
+def pick_plan(cfg, tp: int, seq: int, batch: int,
+              topology: str = "h100-sxm-8", dp: int = 1,
+              calibrate: bool = False,
+              overlap: bool = True) -> PlanSearchResult:
+    """Search the plan space for this workload (``repro.launch.train.
+    pick_plan``).
+
+    The default is the per-segment search (``plan_search(model=cfg)``):
+    each model segment gets its own (chunks, seq_parallel) against its
+    per-kind comm profile over the shared mesh.  ``overlap=False`` keeps to
+    the seed Eq. 2 space.  ``calibrate`` (measuring the mesh first) is
+    ROADMAP A7 and raises."""
+    calib = None
+    if calibrate:
+        calib = calibrate_mesh(tp, comm_matrix.PRESETS[topology]())
+    peak = ({"peak_tflops": H100_PEAK_TFLOPS} if topology in H100_PRESETS
+            else {})
+    if not overlap:
+        return plan_search(topology, tp, layers=cfg.num_layers, batch=batch,
+                           seq=seq, profile=comm_profile(cfg), dp=dp,
+                           calibration=calib, chunks_options=(1,),
+                           seq_parallel_options=(False,),
+                           algo="rabenseifner", alpha_s=0.0, **peak)
+    return plan_search(topology, tp, model=cfg, batch=batch, seq=seq,
+                       dp=dp, calibration=calib, **peak)
 
 
 def main(argv=None) -> list[dict]:
@@ -66,6 +124,20 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--corpus", default=None,
                     help="a file of uint16 tokens to sample the batches "
                          "from (default: a synthetic stream)")
+    ap.add_argument("--auto-atp", action="store_true",
+                    help="search a ParallelPlan (paper §3.5 + overlap knobs)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="restrict --auto-atp to the seed Eq. 2 space")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="measure (B1, B2) on the mesh first (ROADMAP A7: "
+                         "raises)")
+    ap.add_argument("--plan", default=None,
+                    help="load a saved ParallelPlan JSON instead of searching")
+    ap.add_argument("--save-plan", default=None,
+                    help="write the executed plan JSON here")
+    ap.add_argument("--topology", default="h100-sxm-8",
+                    choices=list(comm_matrix.PRESETS),
+                    help="comm-matrix preset for --auto-atp")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
@@ -74,7 +146,27 @@ def main(argv=None) -> list[dict]:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    topo = atp_topo(args.dp, args.d1, args.d2)
+    if args.plan:
+        plan = ParallelPlan.load(args.plan)
+        log.info("loaded plan %s: %s", args.plan, plan.describe())
+    elif args.auto_atp:
+        res = pick_plan(cfg, args.d1 * args.d2, args.seq, args.batch,
+                        args.topology, dp=args.dp, calibrate=args.calibrate,
+                        overlap=not args.no_overlap)
+        plan = res.best
+        log.info("ATP plan search on %s picked %s; top of the ranking: %s",
+                 args.topology, plan.describe(),
+                 [(c.d1, c.d2, c.chunks, c.seq_parallel,
+                   round(c.t_exposed * 1e3, 2)) for c in res.costs[:4]])
+    else:
+        # manual knobs still make a plan: one artifact, one code path
+        plan = ParallelPlan(d1=args.d1, d2=args.d2, dp=args.dp,
+                            chunks=args.chunks,
+                            provenance=(("searcher", "manual-cli"),))
+    if args.save_plan:
+        plan.save(args.save_plan)
+        log.info("saved plan -> %s", args.save_plan)
+    topo = plan.topo()
     device = resolve_device(args.device)
     rank = 0
     if topo.size > 1:
@@ -87,8 +179,8 @@ def main(argv=None) -> list[dict]:
         rank = dist.get_rank()
     opt_cfg = adamw.AdamWConfig(lr=args.lr, mode=args.opt_mode,
                                 total_steps=args.steps)
-    step, info = build_train_step(cfg, topo, opt_cfg, chunks=args.chunks,
-                                  device=device)
+    step, info = build_train_step(cfg, opt_cfg=opt_cfg, device=device,
+                                  plan=plan)
     params = lm.shard_params(cfg, lm.init_params(cfg, seed=args.seed,
                                                  device=device),
                              lm.layout_context(topo, rank))
@@ -100,9 +192,10 @@ def main(argv=None) -> list[dict]:
     source = TokenSource(DataConfig(cfg.vocab_size, args.seq, args.batch,
                                     seed=args.seed, corpus_path=args.corpus))
     log.info("train %s: %d layers, d_model %d, vocab %d, mesh (dp, d1, d2) "
-             "= (%d, %d, %d), batch %d x seq %d, %s on %s", cfg.name,
-             cfg.num_layers, cfg.d_model, cfg.vocab_size, args.dp, args.d1,
-             args.d2, args.batch, args.seq, opt_cfg.mode, device)
+             "= (%d, %d, %d), batch %d x seq %d, %s on %s; plan %s", cfg.name,
+             cfg.num_layers, cfg.d_model, cfg.vocab_size, ctx.dp, ctx.d1,
+             ctx.d2, args.batch, args.seq, opt_cfg.mode, device,
+             plan.describe())
     history = []
     for i in range(args.steps):
         host = source.host_batch(i, ctx.dp_index(), ctx.dp)

@@ -18,6 +18,17 @@ and written back (``_state_take`` / ``_state_put``).  The step addresses
 them through :func:`fixed_slot_map`, whose shapes do not depend on the
 slot ids and which needs no host sync, so the step can be captured as a
 CUDA graph; :func:`slot_map` is the host-synced form it replaced.
+
+Each segment runs under its own view of the context,
+``ctx.for_segment(kind)`` (a plan's per-segment chunks), as in the
+reference; the embedding takes the first segment's view, and the final
+norm and the head the context itself.  The collectives are attributed to
+the reference's regions (``analysis.signature.region``): ``shell:embed``,
+``seg{i}:{kind}``, ``shell:exit``, ``shell:head``, ``shell:loss`` (and
+``shell:pick``, the serving step's greedy pick).  The
+reference's ``shell:trans{i}`` regions issue collectives only between a
+sequence-parallel segment and one that is not, and the sequence-parallel
+spec is ROADMAP A8, so the port has none to open.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ import math
 
 import torch
 
+from repro_torch.analysis.signature import region
 from repro_torch.configs.base import ModelConfig, segments
 from repro_torch.core.atp import (ATPContext, all_gather, all_reduce_max,
                                   atp_boundary, conjugate, shard_slice)
@@ -419,44 +431,61 @@ def check_trainable(cfg: ModelConfig):
     _check_kinds(cfg)
 
 
+def _embed(ctx: ATPContext, cfg: ModelConfig, params, tokens):
+    """The segments' views and the embedding under the first one's."""
+    seg_ctxs = [ctx.for_segment(s.kind) for s in segments(cfg)]
+    with region("shell:embed"):
+        x = embed_tokens(seg_ctxs[0], cfg, params["embed"], tokens)
+    return seg_ctxs, x
+
+
+def _final_norm(ctx: ATPContext, cfg: ModelConfig, params, x):
+    with region("shell:exit"):
+        return L.norm(ctx, cfg, x, params["final_norm"])
+
+
 def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
     """The cache-free forward: attention over the current sequence, the
     Mamba2 blocks from a zero state.  With ``remat`` each unit of the
     reference's ``jax.checkpoint`` runs under ``torch.utils.checkpoint``
     (its activations recomputed in the backward): a dense block, a zamba
     super-block (the shared block and its Mamba2 blocks), a tail Mamba2
-    block."""
+    block.  Each unit binds its segment's view, which its recompute runs
+    under too."""
     from torch.utils.checkpoint import checkpoint
 
-    x = embed_tokens(ctx, cfg, params["embed"], tokens)
+    seg_ctxs, x = _embed(ctx, cfg, params, tokens)
     x_emb0 = x
     plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
-    units = []
-    for i, seg in enumerate(segments(cfg)):
+    for i, (seg, sctx) in enumerate(zip(segments(cfg), seg_ctxs)):
         sp = params[f"seg{i}"]
+        units = []
         if seg.kind == "dense":
             for j, window in enumerate(_window_pattern(cfg, seg.count)):
-                def unit(h, bp=_layer(sp, j), window=window):
-                    return transformer.dense_block(ctx, cfg, bp, h, positions,
-                                                   plan, window)
+                def unit(h, bp=_layer(sp, j), window=window, sctx=sctx):
+                    return transformer.dense_block(sctx, cfg, bp, h,
+                                                   positions, plan, window)
                 units.append(unit)
         elif seg.kind == "zamba":
             for j in range(seg.count):
-                def unit(h, mp=_layer(sp["mamba"], j), inner=seg.inner):
-                    h = shared_attention(ctx, cfg, params["shared_attn"], h,
+                def unit(h, mp=_layer(sp["mamba"], j), inner=seg.inner,
+                         sctx=sctx):
+                    h = shared_attention(sctx, cfg, params["shared_attn"], h,
                                          x_emb0, positions, plan)
                     for m in range(inner - 1):
-                        h = mamba2.mamba_block(ctx, cfg, _layer(mp, m), h)[0]
+                        h = mamba2.mamba_block(sctx, cfg, _layer(mp, m), h)[0]
                     return h
                 units.append(unit)
         else:
             for j in range(seg.count):
-                def unit(h, bp=_layer(sp, j)):
-                    return mamba2.mamba_block(ctx, cfg, bp, h)[0]
+                def unit(h, bp=_layer(sp, j), sctx=sctx):
+                    return mamba2.mamba_block(sctx, cfg, bp, h)[0]
                 units.append(unit)
-    for unit in units:
-        x = checkpoint(unit, x, use_reentrant=False) if remat else unit(x)
-    return L.norm(ctx, cfg, x, params["final_norm"])
+        with region(f"seg{i}:{seg.kind}"):
+            for unit in units:
+                x = (checkpoint(unit, x, use_reentrant=False) if remat
+                     else unit(x))
+    return _final_norm(ctx, cfg, params, x)
 
 
 def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
@@ -481,28 +510,30 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
                              "paged['slot'], the per-row slot ids")
         sm = fixed_slot_map(paged["slot"], paged["start"],
                             _state_slots(cfg, caches))
-    x = embed_tokens(ctx, cfg, params["embed"], tokens)
+    seg_ctxs, x = _embed(ctx, cfg, params, tokens)
     x_emb0 = x
     plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
-    for i, seg in enumerate(segments(cfg)):
+    for i, (seg, sctx) in enumerate(zip(segments(cfg), seg_ctxs)):
         sp, sc = params[f"seg{i}"], caches[f"seg{i}"]
-        if seg.kind == "dense":
-            for j, window in enumerate(_window_pattern(cfg, seg.count)):
-                x = transformer.dense_block(ctx, cfg, _layer(sp, j), x,
-                                            positions, plan, window,
-                                            _layer(sc, j), paged)
-        elif seg.kind == "zamba":
-            for j in range(seg.count):
-                x = shared_attention(ctx, cfg, params["shared_attn"], x,
-                                     x_emb0, positions, plan,
-                                     _layer(sc["attn"], j), paged)
-                mp, mc = _layer(sp["mamba"], j), _layer(sc["mamba"], j)
-                for m in range(seg.inner - 1):
-                    x = _mamba(ctx, cfg, _layer(mp, m), x, _layer(mc, m), sm)
-        else:
-            for j in range(seg.count):
-                x = _mamba(ctx, cfg, _layer(sp, j), x, _layer(sc, j), sm)
-    return L.norm(ctx, cfg, x, params["final_norm"])
+        with region(f"seg{i}:{seg.kind}"):
+            if seg.kind == "dense":
+                for j, window in enumerate(_window_pattern(cfg, seg.count)):
+                    x = transformer.dense_block(sctx, cfg, _layer(sp, j), x,
+                                                positions, plan, window,
+                                                _layer(sc, j), paged)
+            elif seg.kind == "zamba":
+                for j in range(seg.count):
+                    x = shared_attention(sctx, cfg, params["shared_attn"], x,
+                                         x_emb0, positions, plan,
+                                         _layer(sc["attn"], j), paged)
+                    mp, mc = _layer(sp["mamba"], j), _layer(sc["mamba"], j)
+                    for m in range(seg.inner - 1):
+                        x = _mamba(sctx, cfg, _layer(mp, m), x,
+                                   _layer(mc, m), sm)
+            else:
+                for j in range(seg.count):
+                    x = _mamba(sctx, cfg, _layer(sp, j), x, _layer(sc, j), sm)
+    return _final_norm(ctx, cfg, params, x)
 
 
 def _state_slots(cfg: ModelConfig, caches: dict) -> int:
@@ -531,9 +562,11 @@ def train_loss(ctx: ATPContext, cfg: ModelConfig, params, batch,
     over dp."""
     tokens = batch["tokens"]
     h = forward(ctx, cfg, params, tokens, _positions(tokens), remat=remat)
-    per_tok = vocab_parallel_ce(ctx, lm_logits(ctx, cfg, params, h),
-                                batch["labels"])
-    total = atp_boundary(ctx, per_tok.sum(), ctx.dp_axes)
+    with region("shell:head"):
+        per_tok = vocab_parallel_ce(ctx, lm_logits(ctx, cfg, params, h),
+                                    batch["labels"])
+    with region("shell:loss"):
+        total = atp_boundary(ctx, per_tok.sum(), ctx.dp_axes)
     return total / (per_tok.numel() * ctx.dp)
 
 
@@ -541,7 +574,8 @@ def prefill_logits(ctx: ATPContext, cfg: ModelConfig, params, batch):
     """Forward only, no caches; the last position's logits [b, V/d1]."""
     tokens = batch["tokens"]
     h = forward(ctx, cfg, params, tokens, _positions(tokens))
-    return lm_logits(ctx, cfg, params, h[:, -1:])[:, 0]
+    with region("shell:head"):
+        return lm_logits(ctx, cfg, params, h[:, -1:])[:, 0]
 
 
 def _replicated(ctx):
@@ -601,5 +635,6 @@ def paged_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, start,
     if slot is not None:
         paged["slot"] = slot
     h = forward(ctx, cfg, params, tokens, positions, caches, paged)
-    return lm_logits(ctx, cfg, params, h), caches
+    with region("shell:head"):
+        return lm_logits(ctx, cfg, params, h), caches
 

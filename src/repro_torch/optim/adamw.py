@@ -20,7 +20,9 @@ The JAX package's ``pmean`` of a dp-invariant gradient and its
 m and v are fp32 whatever the parameters' dtype, and the update is the
 JAX package's: ``p - lr (u + wd p)`` in fp32, cast back.  Parameters are
 updated in place (the JAX step returns new arrays; in place keeps one copy
-of a full-size model's weights on the card).
+of a full-size model's weights on the card).  The collectives issued here
+are noted on an installed ``analysis.signature`` record under regions
+``opt:grads``, ``opt:zero1`` and ``opt:grad_norm``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.analysis import signature as sig
 from repro_torch.core.atp import ATPContext
 
 _A5B = "is not ported yet (ROADMAP A5b)"
@@ -116,10 +119,18 @@ def global_grad_norm(grads, ctx: ATPContext, rep=None) -> torch.Tensor:
     return _tp_sum(ctx, sq).sqrt()
 
 
+def _note(op: str, axes, elems: int, dtype, region: str) -> None:
+    """Note one optimizer collective on the installed record (callers
+    check ``sig.ACTIVE`` first)."""
+    sig.ACTIVE.note(op, axes, elems, dtype, region=region)
+
+
 def _tp_sum(ctx: ATPContext, x: torch.Tensor) -> torch.Tensor:
     if ctx.tp_axes:
         import torch.distributed as dist
 
+        if sig.ACTIVE is not None:
+            _note("psum", ctx.tp_axes, x.numel(), x.dtype, "opt:grad_norm")
         dist.all_reduce(x, group=ctx.group(ctx.tp_axes))
     return x
 
@@ -157,6 +168,9 @@ def apply_adamw(cfg: AdamWConfig, ctx: ATPContext, params, grads, opt_state,
             group, summed = _dp_group(ctx), []
             for g in tree_leaves(grads):
                 g = g.clone()
+                if sig.ACTIVE is not None:
+                    _note("psum", ctx.dp_axes[:1], g.numel(), g.dtype,
+                          "opt:grads")
                 dist.all_reduce(g, group=group)
                 summed.append(g)
             grads = tree_unflatten(grads, iter(summed))
@@ -195,6 +209,9 @@ def _zero1_step(cfg, ctx, params, grads, opt_state, lr, bc1, bc2, rep):
         k = math.ceil(g.numel() / dp)
         flat = torch.zeros(dp * k, dtype=torch.float32, device=g.device)
         flat[:g.numel()] = g.reshape(-1)
+        if sig.ACTIVE is not None:
+            _note("psum" if gloo else "reduce_scatter", ctx.dp_axes[:1],
+                  flat.numel(), flat.dtype, "opt:zero1")
         if gloo:   # gloo has no reduce-scatter: sum all, keep this shard
             dist.all_reduce(flat, group=group)
             shards.append(flat[me * k:(me + 1) * k])
@@ -204,6 +221,8 @@ def _zero1_step(cfg, ctx, params, grads, opt_state, lr, bc1, bc2, rep):
             shards.append(out)
     reps = tree_leaves(rep) if rep is not None else [1] * len(shards)
     sq = sum(s.square().sum() / r for s, r in zip(shards, reps))
+    if sig.ACTIVE is not None:
+        _note("psum", ctx.dp_axes[:1], sq.numel(), sq.dtype, "opt:grad_norm")
     dist.all_reduce(sq, group=group)
     gnorm = _tp_sum(ctx, sq).sqrt()
     scale = _clip_scale(cfg, gnorm)
@@ -215,6 +234,9 @@ def _zero1_step(cfg, ctx, params, grads, opt_state, lr, bc1, bc2, rep):
         new = _adam(cfg, flat[me * k:(me + 1) * k], gs * scale, st, lr, bc1,
                     bc2)
         parts = [torch.empty_like(new) for _ in range(dp)]
+        if sig.ACTIVE is not None:
+            _note("all_gather", ctx.dp_axes[:1], dp * new.numel(), new.dtype,
+                  "opt:zero1")
         dist.all_gather(parts, new.contiguous(), group=group)
         p.copy_(torch.cat(parts)[:p.numel()].reshape(p.shape).to(p.dtype))
     return gnorm
