@@ -88,6 +88,29 @@ Phases, in order, each failing the run on any error:
    tree, parent): the matmul forward and backward at each shape and per
    training step; the backward kernels' launches are also timed by the
    profiler, kernel by kernel.
+7b. split-norm -- the split rmsnorm of a d2 > 1 mesh (``ops.split_rmsnorm``:
+   a row's features on the tp2 ranks), its four kernels in
+   ``csrc/rmsnorm.cu`` (forward partial ``rmsnorm_ss``, forward apply
+   ``rmsnorm_apply``, backward partial ``rmsnorm_bwd_partial`` with the
+   slice's dgamma, backward apply ``rmsnorm_bwd_apply``), one card playing
+   the tp2 all-reduce: the d2 slices' row sums are added in one process.
+   At llama3-8b (h 4096) and zamba2-7b (3584) at d2 = 2 and 4 and gemma2-2b
+   (2304, its 1 + gamma) at d2 = 2, each at 2048, 64 and 4 rows (a training
+   step, a prefill chunk, a decode tick): each kernel against its plain
+   version on the same inputs (the fp32 partial sums within 1e-5 relative,
+   y within one bf16 ulp, dx within ``SPLIT_DX_REL`` = 1e-3 relative L2 of
+   the plain apply on the same rstd and dot), the slices' y against the
+   whole-row kernel (``ops.rmsnorm``) within one bf16 ulp and against the
+   fp32 whole row within ``RN_TOL``, dx against the whole-row backward
+   kernel within 1e-3 relative L2 and dgamma within 1e-3.  Every count is
+   set to 0 before the checked run and read after: each kernel launched d2
+   times a shape (this slice's row of the result line).  Two planted
+   faults must fail at every (arch, d2): the forward apply reading slice
+   0's own sum of squares (the one-ulp check), and the backward apply
+   reading slice 0's own dot (the 1e-3 check on dx).  Each kernel is timed at
+   llama3-8b's 2048 training rows at d2 = 2 against its bound from bytes,
+   its plain version and the whole-row kernel over the same rows; no
+   PyTorch call computes the split form.
 8. train -- ``launch.steps.build_train_step`` on llama3-8b at full width
    with the depth cut to 4 layers, b = 1, s = 2048, bf16 weights and fp32
    AdamW moments, remat on: 6 steps on one repeated batch; the loss must
@@ -216,7 +239,8 @@ at the zamba2-7b path's shapes and launches, the three backward kernels
 and the training attention kernel at the llama3-8b training step's, the
 two Mamba2 backward kernels at the zamba
 training step's, the activation's derivative at the gpt-m2 training
-step's; the llama3-8b serving rows and the training steps' other rows go
+step's, the four split rmsnorm kernels at the split-norm phase's launches
+and a launch's time at llama3-8b's training rows at d2 = 2; the llama3-8b serving rows and the training steps' other rows go
 to the log and, with every check, to
 ``kernel_checks.json`` in the output directory) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -242,7 +266,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
-          "serve-zamba", "path-check-zamba", "train-kernels", "train",
+          "serve-zamba", "path-check-zamba", "train-kernels", "split-norm",
+          "train",
           "path-check-train", "train-zamba-kernels", "train-zamba",
           "path-check-train-zamba", "train-gpt-kernels", "train-gpt",
           "path-check-train-gpt", "plan")
@@ -254,6 +279,8 @@ TRAIN = "train"
 TRAIN_ZAMBA = "train-zamba"
 #: the paper's gpt-m2 training path: the activation derivative's row
 TRAIN_GPT = "train-gpt"
+#: the split rmsnorm's checked run (d2 > 1): its four kernels' rows
+SPLIT = "split-norm"
 
 BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_TFLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
@@ -1934,6 +1961,338 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
     return (mmf, faf, rnf), (mm, fa, rn)
 
 
+#: the split rmsnorm's phase: (arch, d_model, the d2 it runs at, gemma's
+#: 1 + gamma); each at every ``SPLIT_ROWS`` rows
+SPLIT_SHAPES = (("llama3-8b", 4096, (2, 4), False),
+                ("zamba2-7b", 3584, (2, 4), False),
+                ("gemma2-2b", 2304, (2,), True))
+#: a training step's rows (s = 2048), a prefill chunk's, a decode tick's
+SPLIT_ROWS = (2048, 64, 4)
+#: the split kernels' fp32 partial sums against their plain versions (the
+#: same sums in another order)
+SPLIT_REL = 1e-5
+#: the split dx, relative L2, against the plain apply on the same rstd and
+#: dot and against the whole-row backward kernel: the same fp32 arithmetic
+#: (sums in another order) rounded to bf16, 1e-5 measured.  The dot's term
+#: is about 1/sqrt(h) of dx on these inputs, so a dx that misses it, or
+#: takes one slice's dot for the all-reduced one, is 1e-2 off
+SPLIT_DX_REL = 1e-3
+#: the four split kernels: (``ops.SPLIT_LAUNCHES`` key, what it computes)
+SPLIT_KERNELS = (("rmsnorm_ss", "forward partial: sum x^2 a row"),
+                 ("rmsnorm_apply", "forward apply: rstd, y = x rstd gamma"),
+                 ("rmsnorm_bwd_partial",
+                  "backward partial: sum dy gamma x a row, dgamma"),
+                 ("rmsnorm_bwd_apply", "backward apply: dx"))
+
+
+def split_norm(torch, ops, x, g, dy, d2: int, eps: float, fault=None):
+    """The split norm of ``x [rows, h]`` on ``d2`` slices of its features
+    in one process, the tp2 all-reduce played on the card: each slice's
+    partial kernel, the slices' row sums added in slice order, each
+    slice's apply kernel; then the same for the backward of ``dy``.
+    ``fault``: ``"ss"``, the forward apply reads slice 0's own sum of
+    squares, or ``"dot"``, the backward apply reads slice 0's own dot (no
+    all-reduce).  Returns the slices' inputs and every kernel's outputs
+    (``dot``: the all-reduced one)."""
+    h = x.shape[-1]
+    w = h // d2
+    cut = [slice(i * w, (i + 1) * w) for i in range(d2)]
+    xs = [x[:, c].contiguous() for c in cut]
+    gs = [g[c].contiguous() for c in cut]
+    dys = [dy[:, c].contiguous() for c in cut]
+    ss_parts = [ops.rmsnorm_ss(xi) for xi in xs]
+    ss = ss_parts[0] if fault == "ss" else torch.stack(ss_parts).sum(0)
+    applied = [ops.rmsnorm_apply(xi, gi, ss, h, eps) for xi, gi in zip(xs, gs)]
+    back = [ops.rmsnorm_bwd_partial(xi, gi, di, r)
+            for xi, gi, di, (_, r) in zip(xs, gs, dys, applied)]
+    dot = torch.stack([d for d, _ in back]).sum(0)
+    dot_in = back[0][0] if fault == "dot" else dot
+    dxs = [ops.rmsnorm_bwd_apply(xi, gi, di, r, dot_in, h)
+           for xi, gi, di, (_, r) in zip(xs, gs, dys, applied)]
+    return dict(xs=xs, gs=gs, dys=dys, ss_parts=ss_parts, ss=ss,
+                applied=applied, back=back, dot=dot, dxs=dxs,
+                y=torch.cat([y for y, _ in applied], -1),
+                dx=torch.cat(dxs, -1),
+                dgamma=torch.cat([dg for _, dg in back], -1))
+
+
+def split_inputs(torch, gen, rows, h, plus_one):
+    dev = gen.device
+    x = (torch.randn(rows, h, generator=gen, device=dev) * 3).bfloat16()
+    if plus_one:   # gemma2's 1 + gamma, resolved before the call
+        g = 1.0 + 0.1 * torch.randn(h, generator=gen, device=dev)
+    else:
+        g = torch.rand(h, generator=gen, device=dev) + 0.5
+    return x, g, torch.randn(rows, h, generator=gen, device=dev).bfloat16()
+
+
+def within_ulp(torch, got, want) -> tuple[bool, float]:
+    """Whether bf16 ``got`` is within one bf16 ulp of ``want`` everywhere;
+    the largest difference."""
+    err = (got.float() - want.float()).abs()
+    return (bool((err <= bf16_ulp(torch, want)).all()
+                 and got.float().isfinite().all()), float(err.max()))
+
+
+def max_rel(got, want) -> float:
+    """The largest elementwise relative difference (positive sums)."""
+    return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+
+#: the split-norm phase's mesh run: llama3-8b's training rows at d2 = 2
+#: (rows, d_model, d2, eps) and the inputs' seed
+SPLIT_MESH = (2048, 4096, 2, 1e-5)
+SPLIT_MESH_SEED = 8
+#: one rank of that run (argv: the repo's root, the rank, a directory for
+#: the file store and the results, the device, ``SPLIT_MESH`` as JSON)
+SPLIT_RANK = """import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+from repro_torch.analysis import signature
+from repro_torch.core.atp import make_context
+from repro_torch.core.mesh import atp_topo
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+rank, d, dev = int(sys.argv[2]), sys.argv[3], sys.argv[4]
+rows, h, d2, eps = json.loads(sys.argv[5])
+dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=d2)
+ctx = make_context(atp_topo(1, 1, d2), device_type="cpu")
+x, g, dy = cs.split_inputs(torch, torch.Generator(device=dev).manual_seed(
+    cs.SPLIT_MESH_SEED), rows, h, False)
+w = h // d2
+cut = slice(ctx.index2() * w, (ctx.index2() + 1) * w)
+xs = x[:, cut].contiguous().requires_grad_(True)
+gs = g[cut].contiguous().requires_grad_(True)
+ops.reset_launches()
+with signature.recording("fwd") as rec:
+    y = layers.rms_norm(ctx, xs, gs, eps)
+with signature.recording("bwd", rec):
+    dx, dg = torch.autograd.grad(y, (xs, gs), dy[:, cut].contiguous())
+if dev == "cuda":
+    torch.cuda.synchronize()
+torch.save(dict(y=y.detach().cpu(), dx=dx.cpu(), dg=dg.cpu(),
+                split=dict(ops.SPLIT_LAUNCHES),
+                whole=ops.LAUNCHES["rmsnorm"] + ops.BACKWARD_LAUNCHES[
+                    "rmsnorm_bwd"], fwd=rec.by_key("fwd"),
+                bwd=rec.by_key("bwd")),
+           f"{d}/rank{rank}.pt")
+dist.destroy_process_group()
+"""
+
+
+def split_norm_mesh(torch, ops, dev="cuda") -> list:
+    """``models.layers.rms_norm`` on a (dp, d1, d2) = (1, 1, 2) mesh of two
+    processes on the one card, over gloo (whose all-reduce takes CUDA
+    tensors; NCCL refuses two ranks on one GPU), forward and backward:
+    each rank must launch each split kernel once and the whole-row kernels
+    never, and note one fp32 all-reduce of its rows over tp2 each way;
+    the two slices' y, dx and dgamma against the whole-row kernels.
+    Returns each rank's split launches."""
+    import tempfile
+
+    rows, h, d2, eps = SPLIT_MESH
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen([sys.executable, "-c", SPLIT_RANK,
+                                   str(ROOT), str(r), d, dev,
+                                   json.dumps(SPLIT_MESH)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(d2)]
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:   # a rank that died leaves the other in a collective
+            for p in procs:
+                p.kill()
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode:
+                raise AssertionError(f"split-norm rank {r} failed:\n{out}")
+        res = [torch.load(f"{d}/rank{r}.pt") for r in range(d2)]
+    x, g, dy = split_inputs(torch, torch.Generator(device=dev).manual_seed(
+        SPLIT_MESH_SEED), rows, h, False)
+    y = torch.cat([r["y"] for r in res], -1).to(dev)
+    ok_y, err_y = within_ulp(torch, y, ops.rmsnorm(x, g, eps=eps))
+    wdx, wdg = ops.rmsnorm_backward(x, g, dy, eps=eps)
+    e_dx = rel_l2(torch.cat([r["dx"] for r in res], -1).to(dev), wdx)
+    e_dg = rel_l2(torch.cat([r["dg"] for r in res], -1).to(dev), wdg)
+    ones = {k: 1 for k in ops.SPLIT_LAUNCHES}
+    sums = {("", "psum", ("tp2",), False): (1, 4 * rows)}
+    failed = [f"rank {i}: launches {r['split']}, whole-row {r['whole']}, "
+              f"record {r['fwd']} {r['bwd']}" for i, r in enumerate(res)
+              if r["split"] != ones or r["whole"] or r["fwd"] != sums
+              or r["bwd"] != sums]
+    log(f"split-norm: layers.rms_norm on a (1, 1, {d2}) gloo mesh of "
+        f"{d2} processes on the card, {rows} rows of {h}: y within one bf16 "
+        f"ulp of the whole-row kernel {ok_y} (max {err_y:.3e}), rel L2 dx "
+        f"{e_dx:.2e}, dgamma {e_dg:.2e}; launches a rank "
+        f"{[r['split'] for r in res]}, whole-row kernels "
+        f"{[r['whole'] for r in res]}; rank 0's record, forward "
+        f"{res[0]['fwd']}, backward {res[0]['bwd']}")
+    if not ok_y or e_dx > SPLIT_DX_REL or e_dg > DGAMMA_REL or failed:
+        raise AssertionError(f"the split rmsnorm on the two-rank mesh: "
+                             f"{failed}")
+    return [r["split"] for r in res]
+
+
+def split_norm_phase(torch, ops, ref, timer, floor, dev="cuda"):
+    """The split rmsnorm (d2 > 1) on the card at ``SPLIT_SHAPES``: the
+    four kernels against their plain versions on the same inputs, the
+    slices together against the whole-row kernels, a planted fault, and
+    each kernel timed at llama3-8b's training rows at d2 = 2.  Returns
+    the four KernelReports and the launches of the checked run."""
+    from repro_torch.configs.registry import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    reports = {name: KernelReport(name, "cuda",
+                                  "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                                  "src/repro/kernels/rmsnorm.py:30", floor)
+               for name, _ in SPLIT_KERNELS}
+    ss_r, apply_r, part_r, dx_r = reports.values()
+    log(f"split-norm: the four kernels of the split rmsnorm, the tp2 "
+        f"all-reduce played on the card (the slices' row sums added in one "
+        f"process); partial sums within {SPLIT_REL} relative of their plain "
+        f"versions, y within one bf16 ulp of the whole-row kernel and within "
+        f"{RN_TOL} of the fp32 whole row, dx within {SPLIT_DX_REL} relative "
+        f"L2 of the plain apply and of the whole-row backward kernel, dgamma "
+        f"within {DGAMMA_REL}")
+    failed, want_launches = [], {name: 0 for name, _ in SPLIT_KERNELS}
+    ops.reset_launches()
+    for arch, h, d2s, plus_one in SPLIT_SHAPES:
+        eps = get_config(arch).norm_eps
+        for d2 in d2s:
+            for rows in SPLIT_ROWS:
+                label = f"{arch} h={h} d2={d2} rows={rows}"
+                x, g, dy = split_inputs(torch, gen, rows, h, plus_one)
+                run = split_norm(torch, ops, x, g, dy, d2, eps)
+                for name in want_launches:
+                    want_launches[name] += d2
+                # each kernel against its plain version on the same inputs
+                err = max(max_rel(s, ref.rmsnorm_ss_ref(xi))
+                          for s, xi in zip(run["ss_parts"], run["xs"]))
+                if not ss_r.add(label, err <= SPLIT_REL, err, SPLIT_REL):
+                    failed.append(f"rmsnorm_ss {label}")
+                ok, err = True, 0.0
+                for xi, gi, (y, r) in zip(run["xs"], run["gs"],
+                                          run["applied"]):
+                    py, pr = ref.rmsnorm_apply_ref(xi, gi, run["ss"], h, eps)
+                    o, e = within_ulp(torch, y, py)
+                    ok, err = ok and o and max_rel(r, pr) <= SPLIT_REL, \
+                        max(err, e)
+                whole = ops.rmsnorm(x, g, eps=eps)
+                o, e = within_ulp(torch, run["y"], whole)
+                o2, e2 = within(run["y"], ref.rmsnorm_ref(x.float(), g, eps),
+                                **RN_TOL)
+                if not apply_r.add(
+                        f"{label}: y vs plain apply, whole-row kernel "
+                        f"{e:.3e} (1 ulp), fp32 row {e2:.3e}", ok and o and o2,
+                        max(err, e, e2), "1 bf16 ulp; RN_TOL vs fp32"):
+                    failed.append(f"rmsnorm_apply {label}")
+                ok_dot, err = True, 0.0
+                for xi, gi, di, (_, r), (dot, dg) in zip(
+                        run["xs"], run["gs"], run["dys"], run["applied"],
+                        run["back"]):
+                    pdot, pdg = ref.rmsnorm_bwd_partial_ref(xi, gi, di, r)
+                    ok_dot = ok_dot and rel_l2(dot, pdot) <= SPLIT_REL and \
+                        rel_l2(dg, pdg) <= SPLIT_REL
+                    err = max(err, float((dot - pdot).abs().max()),
+                              float((dg - pdg).abs().max()))
+                wdx, wdg = ops.rmsnorm_backward(x, g, dy, eps=eps)
+                e_dg = rel_l2(run["dgamma"], wdg)
+                if not part_r.add(f"{label}: dot, dgamma vs plain; dgamma vs "
+                                  f"whole-row kernel {e_dg:.2e} rel L2",
+                                  ok_dot and e_dg <= DGAMMA_REL, err,
+                                  {"plain": SPLIT_REL,
+                                   "dgamma": DGAMMA_REL}):
+                    failed.append(f"rmsnorm_bwd_partial {label}")
+                e_plain = max(rel_l2(dxi, ref.rmsnorm_bwd_apply_ref(
+                    xi, gi, di, r, run["dot"], h)) for xi, gi, di, (_, r), dxi
+                    in zip(run["xs"], run["gs"], run["dys"], run["applied"],
+                           run["dxs"]))
+                e_dx = rel_l2(run["dx"], wdx)
+                if not dx_r.add(f"{label}: dx rel L2 vs plain {e_plain:.2e}, "
+                                f"vs whole-row kernel {e_dx:.2e}",
+                                max(e_plain, e_dx) <= SPLIT_DX_REL,
+                                float((run["dx"].float() - wdx.float()).abs()
+                                      .max()), SPLIT_DX_REL):
+                    failed.append(f"rmsnorm_bwd_apply {label}")
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(ops.SPLIT_LAUNCHES)
+    log(f"split-norm: launches {launches} (expected {want_launches})")
+    if launches != want_launches:
+        failed.append(f"launch counts {launches} != {want_launches}")
+
+    # planted faults: the forward apply reads slice 0's own sum of
+    # squares; the backward apply reads slice 0's own dot
+    for arch, h, d2s, plus_one in SPLIT_SHAPES:
+        for d2 in d2s:
+            x, g, dy = split_inputs(torch, gen, SPLIT_ROWS[0], h, plus_one)
+            eps = get_config(arch).norm_eps
+            bad = split_norm(torch, ops, x, g, dy, d2, eps, fault="ss")
+            caught = not within_ulp(torch, bad["y"], ops.rmsnorm(
+                x, g, eps=eps))[0]
+            bad = split_norm(torch, ops, x, g, dy, d2, eps, fault="dot")
+            e_dot = max(rel_l2(dxi, ref.rmsnorm_bwd_apply_ref(
+                xi, gi, di, r, bad["dot"], h)) for xi, gi, di, (_, r), dxi
+                in zip(bad["xs"], bad["gs"], bad["dys"], bad["applied"],
+                       bad["dxs"]))
+            e_whole = rel_l2(bad["dx"], ops.rmsnorm_backward(x, g, dy,
+                                                             eps=eps)[0])
+            caught_dot = min(e_dot, e_whole) > SPLIT_DX_REL
+            log(f"  planted faults ({arch} d2={d2}): apply with the local "
+                f"sum of squares {'caught' if caught else 'MISSED'}; dx with "
+                f"the local dot {'caught' if caught_dot else 'MISSED'} (rel "
+                f"L2 {e_dot:.2e} vs plain, {e_whole:.2e} vs whole row)")
+            if not caught:
+                failed.append(f"planted ss fault {arch} d2={d2} missed")
+            if not caught_dot:
+                failed.append(f"planted dot fault {arch} d2={d2} missed")
+
+    # timing: llama3-8b's training rows at d2 = 2, one slice
+    arch, h, _, _ = SPLIT_SHAPES[0]
+    rows, d2, eps = SPLIT_ROWS[0], 2, get_config(arch).norm_eps
+    x, g, dy = split_inputs(torch, gen, rows, h, False)
+    run = split_norm(torch, ops, x, g, dy, d2, eps)
+    x0, g0, dy0 = run["xs"][0], run["gs"][0], run["dys"][0]
+    r0 = run["applied"][0][1]
+    w, n = h // d2, rows * (h // d2)
+    whole = {"forward": timer(lambda: ops.rmsnorm(x, g, eps=eps)),
+             "backward": timer(lambda: ops.rmsnorm_backward(x, g, dy,
+                                                            eps=eps))}
+    label = f"{arch} rows={rows} d2={d2} (a {w}-wide slice)"
+    for rep, fn, plain, nbytes, flops, side in (
+            (ss_r, lambda: ops.rmsnorm_ss(x0),
+             lambda: ref.rmsnorm_ss_ref(x0), 2 * n + 4 * rows, 2 * n,
+             "forward"),
+            (apply_r, lambda: ops.rmsnorm_apply(x0, g0, run["ss"], h, eps),
+             lambda: ref.rmsnorm_apply_ref(x0, g0, run["ss"], h, eps),
+             2 * 2 * n + 4 * w + 4 * 2 * rows, 3 * n, "forward"),
+            (part_r, lambda: ops.rmsnorm_bwd_partial(x0, g0, dy0, r0),
+             lambda: ref.rmsnorm_bwd_partial_ref(x0, g0, dy0, r0),
+             2 * 2 * n + 4 * 2 * w + 4 * 2 * rows, 6 * n, "backward"),
+            (dx_r, lambda: ops.rmsnorm_bwd_apply(x0, g0, dy0, r0, run["dot"],
+                                                 h),
+             lambda: ref.rmsnorm_bwd_apply_ref(x0, g0, dy0, r0, run["dot"],
+                                               h),
+             3 * 2 * n + 4 * w + 4 * 2 * rows, 5 * n, "backward")):
+        grid = (ops.rmsnorm_plan(rows, w).name if side == "forward" else
+                f"4 warps a row, {ops.RMSNORM_BWD_ROWS} rows a block at a "
+                f"time, {ops.rmsnorm_bwd_blocks(rows)} blocks")
+        ok = rep.add(f"{label} [{grid}]; whole-row "
+                     f"{side} kernel over the {h}-wide rows "
+                     f"{whole[side]:.4f}ms; no library call computes the "
+                     f"split form", True, 0.0, None, SPLIT, "train", 1,
+                     ms=timer(fn), plain_ms=timer(plain), library_ms=None,
+                     nbytes=nbytes, flops=flops, peak=FP32_TFLOPS)
+        assert ok
+    if failed:
+        raise AssertionError(f"the split rmsnorm kernels disagree: {failed}")
+    split_norm_mesh(torch, ops, dev)
+    return list(reports.values()), launches
+
+
 #: zamba2-7b's training depth: two super-blocks of 6 and a 2-block tail
 ZAMBA_TRAIN_LAYERS = 14
 #: the zamba training path check: one super-block and a one-block tail,
@@ -3054,6 +3413,11 @@ def main(argv=None) -> int:
                                                   parent=args.parent)
         reports += [*train_bwd, train_fwd[1]]
         done("train-kernels")
+    if SPLIT in phases:
+        split_reports, launches[SPLIT] = split_norm_phase(
+            torch, ops, ref, Timer(torch), floor_ms)
+        reports += split_reports
+        done(SPLIT)
     if "train" in phases:
         launches[TRAIN] = train_phase(torch)
         if args.parent is not None:
@@ -3112,7 +3476,8 @@ def main(argv=None) -> int:
                 for r in of if path in r.paths]
 
     rows = {path: path_rows(path, reports)
-            for path in ("llama3-8b", MAIN, TRAIN, TRAIN_ZAMBA, TRAIN_GPT)}
+            for path in ("llama3-8b", MAIN, TRAIN, TRAIN_ZAMBA, TRAIN_GPT,
+                         SPLIT)}
     rows["train forward"] = path_rows(TRAIN, train_fwd)
     rows["train-zamba forward"] = path_rows(TRAIN_ZAMBA, train_zamba_fwd)
     rows["train-zamba matmul backward"] = path_rows(TRAIN_ZAMBA, zamba_mm_bwd)
@@ -3136,13 +3501,15 @@ def main(argv=None) -> int:
                         "train-zamba matmul backward"),
                        ("train-gpt step, forward", "train-gpt forward"),
                        ("train-gpt step, backward", "train-gpt backward"),
-                       ("train-gpt step, backward", TRAIN_GPT)):
+                       ("train-gpt step, backward", TRAIN_GPT),
+                       ("split rmsnorm, a launch", SPLIT)):
         for row in rows[path]:
             log(f"{what}: {row['name']} launches={row['launches']} "
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                 f"library_ms={row['library_ms']}")
-    kernels = rows[MAIN] + rows[TRAIN] + rows[TRAIN_ZAMBA] + rows[TRAIN_GPT]
+    kernels = (rows[MAIN] + rows[TRAIN] + rows[TRAIN_ZAMBA] + rows[TRAIN_GPT]
+               + rows[SPLIT])
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

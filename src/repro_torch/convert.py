@@ -47,18 +47,15 @@ def _dense_block_pieces(cfg: ModelConfig, ctx, key: str, blk: dict,
     """The pieces of one (stacked) dense block under ``key``: the fused
     q/k/v, up/gate and bias leaves split back."""
     nspec = L.feat_spec(ctx)
-    qd, kvd = cfg.q_dim // ctx.d1, cfg.kv_dim // ctx.d1
     col, row = L.col_w_spec(ctx), L.row_w_spec(ctx)
     for ln in ("ln_attn", "ln_mlp", "ln_post_attn", "ln_post_mlp"):
         for k, v in blk.get(ln, {}).items():
             yield f"{key}/{ln}/{k}", v, nspec, lead
     a = blk["attn"]
-    for name, t in zip(("wq", "wk", "wv"),
-                       a["w_qkv"].split([qd, kvd, kvd], dim=-1)):
+    for name, t in L.split_fused(cfg, ctx, "w_qkv", a["w_qkv"]):
         yield f"{key}/attn/{name}", t, col, lead
     if "b_qkv" in a:
-        for name, t in zip(("bq", "bk", "bv"),
-                           a["b_qkv"].split([qd, kvd, kvd], dim=-1)):
+        for name, t in L.split_fused(cfg, ctx, "b_qkv", a["b_qkv"]):
             yield f"{key}/attn/{name}", t, L.col_b_spec(ctx), lead
     yield f"{key}/attn/wo", a["wo"], row, lead
     for name in ("q_norm", "k_norm"):
@@ -66,22 +63,20 @@ def _dense_block_pieces(cfg: ModelConfig, ctx, key: str, blk: dict,
             yield f"{key}/attn/{name}", a[name], (), lead
     m = blk["mlp"]
     if "w_upgate" in m:
-        up, gate = m["w_upgate"].chunk(2, dim=-1)
-        yield f"{key}/mlp/w_up", up, col, lead
-        yield f"{key}/mlp/w_gate", gate, col, lead
+        for name, t in L.split_fused(cfg, ctx, "w_upgate", m["w_upgate"]):
+            yield f"{key}/mlp/{name}", t, col, lead
     else:
         yield f"{key}/mlp/w_up", m["w_up"], col, lead
     yield f"{key}/mlp/w_down", m["w_down"], row, lead
 
 
-def _mamba_pieces(ctx, key: str, blk: dict, lead: int):
+def _mamba_pieces(cfg: ModelConfig, ctx, key: str, blk: dict, lead: int):
     """The pieces of (stacked) Mamba2 blocks under ``key``: ``w_zx`` split
     back into ``w_z | w_x`` (``mamba2.shard_mamba`` fused this rank's two
     column shards)."""
     col = L.col_w_spec(ctx)
-    w_z, w_x = blk["w_zx"].chunk(2, dim=-1)
-    yield f"{key}/w_z", w_z, col, lead
-    yield f"{key}/w_x", w_x, col, lead
+    for name, t in L.split_fused(cfg, ctx, "w_zx", blk["w_zx"]):
+        yield f"{key}/{name}", t, col, lead
     yield f"{key}/w_bcdt", blk["w_bcdt"], (ctx.ax2, None), lead
     yield f"{key}/w_out", blk["w_out"], L.row_w_spec(ctx), lead
     yield f"{key}/ln", blk["ln"], L.feat_spec(ctx), lead
@@ -102,9 +97,10 @@ def _pieces(cfg: ModelConfig, ctx, params: dict):
         if seg.kind == "dense":
             yield from _dense_block_pieces(cfg, ctx, key, sp, 1)
         elif seg.kind == "zamba":
-            yield from _mamba_pieces(ctx, f"{key}/mamba", sp["mamba"], 2)
+            yield from _mamba_pieces(cfg, ctx, f"{key}/mamba", sp["mamba"],
+                                     2)
         else:
-            yield from _mamba_pieces(ctx, key, sp, 1)
+            yield from _mamba_pieces(cfg, ctx, key, sp, 1)
     if "shared_attn" in params:
         sa = params["shared_attn"]
         for name in ("w_in_h", "w_in_e"):

@@ -227,6 +227,7 @@ class ATPContext:
     #: this rank's coordinate on every mesh axis
     coords: dict = dataclasses.field(default_factory=dict, compare=False)
     #: process group per axis name, plus "tp" for the flat (tp1, tp2) ranks
+    #: and "dp" for the flat (pod, data) ranks
     groups: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
 
@@ -334,15 +335,18 @@ class ATPContext:
                 or any(s.seq_parallel for s in self.segment_plans))
 
     def group(self, axes):
-        """The process group of one axis name or of the flat TP axes."""
+        """The process group of one axis name, of the flat TP axes or of
+        the flat data-parallel axes (pod and data)."""
         if isinstance(axes, str):
             return self.groups[axes]
         axes = tuple(axes)
         if len(axes) == 1:
             return self.groups[axes[0]]
-        if axes != self.tp_axes:
-            raise ValueError(f"no process group for axes {axes}")
-        return self.groups["tp"]
+        if axes == self.tp_axes:
+            return self.groups["tp"]
+        if axes == self.dp_axes:
+            return self.groups["dp"]
+        raise ValueError(f"no process group for axes {axes}")
 
 
 def make_context(topo: MeshTopo | None = None, chunks: int = 1,
@@ -361,7 +365,8 @@ def make_context(topo: MeshTopo | None = None, chunks: int = 1,
 
     A topology of more than one rank needs ``torch.distributed`` initialized
     with ``topo.size`` ranks; the ``DeviceMesh`` over ``device_type`` gives
-    each axis's process group, and the flat (tp1, tp2) group is made here.
+    each axis's process group, and the flat (tp1, tp2) group and, with two
+    data-parallel axes, the flat (pod, data) group are made here.
     """
     segment_plans: tuple[SegmentPlan, ...] = ()
     if plan is not None:
@@ -403,6 +408,19 @@ def make_context(topo: MeshTopo | None = None, chunks: int = 1,
             g = dist.new_group(ranks)
             if dist.get_rank() in ranks:
                 groups["tp"] = g
+    if len(ctx.dp_axes) > 1:
+        # the ranks that share every other coordinate, in ``dp_index``
+        # order (pod major: the reference's tiled reduction over (pod,
+        # data)); every rank creates every such group, in the same order
+        rest = [a for a in topo.names if a not in ctx.dp_axes]
+        by_rest: dict[tuple, list[int]] = {}
+        for r in range(topo.size):
+            c = topo.coords(r)
+            by_rest.setdefault(tuple(c[a] for a in rest), []).append(r)
+        for ranks in by_rest.values():
+            g = dist.new_group(ranks)
+            if dist.get_rank() in ranks:
+                groups["dp"] = g
     return dataclasses.replace(ctx, coords=coords, groups=groups)
 
 

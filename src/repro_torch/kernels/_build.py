@@ -55,6 +55,14 @@ SIGNATURES = {
     "group_rmsnorm_bwd": ("rmsnorm", "repro_group_rmsnorm_bwd_bf16",
                           [_P] * 8 + [_L] * 2 + [_I] * 3 + [_F] + [_I] * 3
                           + [_P]),
+    "rmsnorm_ss": ("rmsnorm", "repro_rmsnorm_ss_bf16",
+                   [_P] * 2 + [_I] * 5 + [_P]),
+    "rmsnorm_apply": ("rmsnorm", "repro_rmsnorm_apply_bf16",
+                      [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I] * 3 + [_P]),
+    "rmsnorm_bwd_partial": ("rmsnorm", "repro_rmsnorm_bwd_partial_bf16",
+                            [_P] * 7 + [_I] * 3 + [_P]),
+    "rmsnorm_bwd_apply": ("rmsnorm", "repro_rmsnorm_bwd_apply_bf16",
+                          [_P] * 6 + [_I] * 2 + [_F] + [_I] + [_P]),
     "act_bwd": ("act_bwd", "repro_act_bwd_bf16",
                 [_P] * 3 + [_L] + [_I] * 3 + [_P]),
 }

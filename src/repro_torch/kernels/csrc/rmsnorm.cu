@@ -25,6 +25,26 @@
 // which is shuffles within a warp and, for a row of several warps, one
 // exchange of their partial sums through shared memory; each row is
 // written once.
+//
+// The split norm, for d2 > 1 (ops.split_rmsnorm): a row's features are cut
+// over the tp2 ranks, so each of the norm's two row sums is the sum of the
+// ranks' partial sums, all-reduced over tp2 between a partial launch and an
+// apply launch (the JAX model splits its plain norm the same way around its
+// psum: src/repro/models/layers.py::rms_norm).  On this rank's slice
+// x [rows, w] of rows h = w * d2 wide, each piece is a mode of the
+// whole-row kernels below, with their layout and their order of sums:
+//   forward partial   rmsnorm_kernel, kSumSquares: ss[r] = sum_j x_j^2;
+//   forward apply     rmsnorm_kernel, kApply: rstd[r] = rsqrt(ss[r] / h +
+//                     eps) (ss all-reduced: the whole row's), y = x rstd
+//                     gamma;
+//   backward partial  rmsnorm_bwd_kernel, kDot: dot[r] = sum_j dy_j gamma_j
+//                     x_j, and the slice's dgamma = sum over rows of dy x
+//                     rstd (the whole-row backward's fixed-order sum);
+//   backward apply    rmsnorm_bwd_kernel, kDx: dx = rstd (gamma dy - x
+//                     rstd^2 dot / h) (dot all-reduced).
+// rstd comes from the forward: recomputing it would take another
+// all-reduce.  At llama3-8b's training rows at d2 = 2 (2048 rows, 2048 wide
+// a slice) a launch moves 8-24 MB, a few microseconds.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +56,11 @@ namespace {
 constexpr int kMaxWidth = 4096;
 constexpr int kMaxThreads = 256;
 
+// what rmsnorm_kernel does with a row: the whole-row norm; the split norm's
+// forward partial (its sum of squares only); the split norm's apply (the
+// all-reduced sum read in place of the row's own)
+enum class Mode { kNorm, kSumSquares, kApply };
+
 struct Args {
   const bf16* x;
   const float* gamma;  // [groups, width]
@@ -44,6 +69,9 @@ struct Args {
   long long x_stride, gate_stride;  // elements between tokens
   int tokens, groups, width;
   float eps;
+  float* ss;    // kSumSquares: written; kApply: read, [tokens * groups]
+  float* rstd;  // kApply: written, [tokens * groups]
+  float full;   // kApply: the whole row's width
 };
 
 __device__ __forceinline__ float2 unpack(unsigned v) {
@@ -63,7 +91,7 @@ __device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
 
 // T threads per row (8, or a multiple of 32), each with N <= 4 16-byte
 // vectors (8 values) of the row; blockDim.x / T rows per block
-template <int T, int N, bool GATE>
+template <int T, int N, bool GATE, Mode M>
 __global__ void __launch_bounds__(kMaxThreads) rmsnorm_kernel(const Args a) {
   constexpr int kWarps = T / 32;  // warps per row (0: a row is part of one)
   __shared__ float part[kMaxThreads / 32];
@@ -92,37 +120,50 @@ __global__ void __launch_bounds__(kMaxThreads) rmsnorm_kernel(const Args a) {
     xv[i] = ok ? xr[v] : make_uint4(0, 0, 0, 0);
     if (GATE) zv[i] = ok ? zr[v] : make_uint4(0, 0, 0, 0);
   }
+  if constexpr (M != Mode::kSumSquares) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int v = sub + i * T;
-    const bool ok = valid && v < nv;
-    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    gv[i][0] = ok ? gr[2 * v] : zero;
-    gv[i][1] = ok ? gr[2 * v + 1] : zero;
-  }
-
-  float ss = 0.0f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const unsigned w[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = unpack(w[k]);
-      ss += f.x * f.x + f.y * f.y;
+    for (int i = 0; i < N; ++i) {
+      const int v = sub + i * T;
+      const bool ok = valid && v < nv;
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      gv[i][0] = ok ? gr[2 * v] : zero;
+      gv[i][1] = ok ? gr[2 * v + 1] : zero;
     }
   }
+
+  float inv = 0.0f;
+  if constexpr (M == Mode::kApply) {  // the all-reduced sum: no barrier
+    if (!valid) return;
+    inv = rsqrtf(a.ss[row] / a.full + a.eps);
+    if (sub == 0) a.rstd[row] = inv;
+  } else {
+    float ss = 0.0f;
 #pragma unroll
-  for (int off = (T < 32 ? T : 32) / 2; off > 0; off /= 2)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if (kWarps > 1) {  // a row of several warps: sum their partials
-    if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = ss;
-    __syncthreads();
-    const int w0 = threadIdx.x / T * kWarps;
-    ss = 0.0f;
+    for (int i = 0; i < N; ++i) {
+      const unsigned w[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k) ss += part[w0 + k];
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = unpack(w[k]);
+        ss += f.x * f.x + f.y * f.y;
+      }
+    }
+#pragma unroll
+    for (int off = (T < 32 ? T : 32) / 2; off > 0; off /= 2)
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    if (kWarps > 1) {  // a row of several warps: sum their partials
+      if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = ss;
+      __syncthreads();
+      const int w0 = threadIdx.x / T * kWarps;
+      ss = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k) ss += part[w0 + k];
+    }
+    if constexpr (M == Mode::kSumSquares) {
+      if (valid && sub == 0) a.ss[row] = ss;
+      return;
+    }
+    inv = rsqrtf(ss / a.width + a.eps);
   }
-  const float inv = rsqrtf(ss / a.width + a.eps);
 
   uint4* orow = reinterpret_cast<uint4*>(a.out + row * a.width);
 #pragma unroll
@@ -156,7 +197,7 @@ __global__ void __launch_bounds__(kMaxThreads) rmsnorm_kernel(const Args a) {
   }
 }
 
-template <int T, int N>
+template <int T, int N, Mode M>
 cudaError_t launch(const Args& a, int rows_per_block, cudaStream_t stream) {
   // whole warps only: the shuffles name all 32 lanes
   if (rows_per_block < 1 || rows_per_block * T > kMaxThreads ||
@@ -166,11 +207,33 @@ cudaError_t launch(const Args& a, int rows_per_block, cudaStream_t stream) {
   const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const unsigned threads = rows_per_block * T;
-  if (a.gate)
-    rmsnorm_kernel<T, N, true><<<(unsigned)blocks, threads, 0, stream>>>(a);
+  if (M == Mode::kNorm && a.gate)
+    rmsnorm_kernel<T, N, true, Mode::kNorm>
+        <<<(unsigned)blocks, threads, 0, stream>>>(a);
   else
-    rmsnorm_kernel<T, N, false><<<(unsigned)blocks, threads, 0, stream>>>(a);
+    rmsnorm_kernel<T, N, false, M><<<(unsigned)blocks, threads, 0, stream>>>(
+        a);
   return cudaGetLastError();
+}
+
+// the checks of a launch, then launch<T, N, M> for the variants of
+// ops.RMSNORM_VARIANTS
+template <Mode M>
+int launch_rows(const Args& a, int T, int N, int rows_per_block,
+                void* stream) {
+  if (a.tokens < 0 || a.groups < 1 || a.width < 8 || a.width % 8 ||
+      a.width > kMaxWidth || T * N * 8 < a.width ||
+      (M == Mode::kApply && a.full < a.width))
+    return cudaErrorInvalidValue;
+  if (a.tokens == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int r = rows_per_block;
+  switch (T * 100 + N) {
+    case 801: return launch<8, 1, M>(a, r, st);
+    case 3204: return launch<32, 4, M>(a, r, st);
+    case 12804: return launch<128, 4, M>(a, r, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -188,21 +251,11 @@ extern "C" int repro_rmsnorm_bf16(const void* x, const void* gamma,
                                   int tokens, int groups, int width, float eps,
                                   int T, int N, int rows_per_block,
                                   void* stream) {
-  if (tokens < 0 || groups < 1 || width < 8 || width % 8 ||
-      width > kMaxWidth || T * N * 8 < width)
-    return cudaErrorInvalidValue;
-  if (tokens == 0) return 0;
   Args a{static_cast<const bf16*>(x), static_cast<const float*>(gamma),
          static_cast<const bf16*>(gate), static_cast<bf16*>(out),
-         x_stride, gate_stride, tokens, groups, width, eps};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int r = rows_per_block;
-  switch (T * 100 + N) {
-    case 801: return launch<8, 1>(a, r, st);
-    case 3204: return launch<32, 4>(a, r, st);
-    case 12804: return launch<128, 4>(a, r, st);
-    default: return cudaErrorInvalidValue;
-  }
+         x_stride, gate_stride, tokens, groups, width, eps, nullptr, nullptr,
+         0.0f};
+  return launch_rows<Mode::kNorm>(a, T, N, rows_per_block, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -241,14 +294,23 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// NV 16-byte vectors a lane: width <= 4 warps * 32 lanes * NV * 8
-template <int NV>
+// what rmsnorm_bwd_kernel does with a row: the whole-row backward; the
+// split norm's backward partial (its dot and dgamma, from the forward's
+// rstd); the split norm's backward apply (dx from rstd and the all-reduced
+// dot, no dgamma)
+enum class Bwd { kWhole, kDot, kDx };
+
+// NV 16-byte vectors a lane: width <= 4 warps * 32 lanes * NV * 8.  kDot
+// and kDx read rstd [rows]; kDot writes dots [rows], kDx reads them; full
+// is the whole row's width (kWhole: width)
+template <int NV, Bwd B>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     rmsnorm_bwd_kernel(const bf16* __restrict__ x,
                        const float* __restrict__ gamma,
                        const bf16* __restrict__ dy, bf16* __restrict__ dx,
                        float* __restrict__ partial, int rows, int width,
-                       float eps) {
+                       float eps, const float* __restrict__ rstd,
+                       float* __restrict__ dots, float full) {
   extern __shared__ float4 bwd_smem[];
   float* gs = reinterpret_cast<float*>(bwd_smem);  // gamma [width]
   float* slot_dg = gs + width;  // [kRowSlots][width], at the end
@@ -273,7 +335,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 #pragma unroll
     for (int k = 0; k < 8; ++k) dg[i][k] = 0.0f;
 
-  const float inv_w = 1.0f / static_cast<float>(width);
+  const float inv_w =
+      1.0f / (B == Bwd::kWhole ? static_cast<float>(width) : full);
   const long long stride = (long long)gridDim.x * kRowSlots;
   long long row = (long long)blockIdx.x * kRowSlots + slot;
   uint4 xv[NV], dv[NV];
@@ -286,41 +349,46 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     uint4 xn[NV], dn[NV];  // unused past the last row
     if (row + stride < rows) load(row + stride, xn, dn);
     float ss = 0.0f, dot = 0.0f;
+    if constexpr (B != Bwd::kDx) {  // the row's sums
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      if (vec(i) >= nvec) continue;
-      const float4 g0 = *reinterpret_cast<const float4*>(gs + 8 * vec(i));
-      const float4 g1 =
-          *reinterpret_cast<const float4*>(gs + 8 * vec(i) + 4);
-      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      const unsigned xw[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
-      const unsigned dw[4] = {dv[i].x, dv[i].y, dv[i].z, dv[i].w};
+      for (int i = 0; i < NV; ++i) {
+        if (vec(i) >= nvec) continue;
+        const float4 g0 = *reinterpret_cast<const float4*>(gs + 8 * vec(i));
+        const float4 g1 =
+            *reinterpret_cast<const float4*>(gs + 8 * vec(i) + 4);
+        const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        const unsigned xw[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+        const unsigned dw[4] = {dv[i].x, dv[i].y, dv[i].z, dv[i].w};
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 xf = unpack(xw[k]), df = unpack(dw[k]);
-        ss += xf.x * xf.x + xf.y * xf.y;
-        dot += xf.x * g[2 * k] * df.x + xf.y * g[2 * k + 1] * df.y;
+        for (int k = 0; k < 4; ++k) {
+          const float2 xf = unpack(xw[k]), df = unpack(dw[k]);
+          if (B == Bwd::kWhole) ss += xf.x * xf.x + xf.y * xf.y;
+          dot += xf.x * g[2 * k] * df.x + xf.y * g[2 * k + 1] * df.y;
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        if (B == Bwd::kWhole) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      }
+      // the row's 4 warps exchange their sums (by row parity, so that the
+      // next row's writes never meet this row's reads), added in warp order
+      if (lane == 0) {
+        red[parity][slot][quarter][0] = ss;
+        red[parity][slot][quarter][1] = dot;
+      }
+      bar_sync(1 + slot, kRowWarps * 32);
+      ss = dot = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kRowWarps; ++q) {
+        ss += red[parity][slot][q][0];
+        dot += red[parity][slot][q][1];
       }
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    }
-    // the row's 4 warps exchange their sums (by row parity, so that the
-    // next row's writes never meet this row's reads), added in warp order
-    if (lane == 0) {
-      red[parity][slot][quarter][0] = ss;
-      red[parity][slot][quarter][1] = dot;
-    }
-    bar_sync(1 + slot, kRowWarps * 32);
-    ss = dot = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kRowWarps; ++q) {
-      ss += red[parity][slot][q][0];
-      dot += red[parity][slot][q][1];
-    }
-    const float r = rsqrtf(ss * inv_w + eps);
+    if constexpr (B == Bwd::kDot)
+      if (quarter == 0 && lane == 0) dots[row] = dot;
+    if constexpr (B == Bwd::kDx) dot = dots[row];
+    const float r = B == Bwd::kWhole ? rsqrtf(ss * inv_w + eps) : rstd[row];
     const float m = r * r * r * dot * inv_w;  // rstd * mean(xhat*gamma*dy)
     uint4* out = reinterpret_cast<uint4*>(dx + row * width);
 #pragma unroll
@@ -341,7 +409,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         dg[i][2 * k] += df.x * xf.x * r;
         dg[i][2 * k + 1] += df.y * xf.y * r;
       }
-      out[vec(i)] = make_uint4(o[0], o[1], o[2], o[3]);
+      if (B != Bwd::kDot) out[vec(i)] = make_uint4(o[0], o[1], o[2], o[3]);
     }
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -349,20 +417,24 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       dv[i] = dn[i];
     }
   }
-  // the block's partial row: its row slots' sums added in slot order
+  if constexpr (B != Bwd::kDx) {
+    // the block's partial dgamma row: its row slots' sums added in slot
+    // order
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    if (vec(i) >= nvec) continue;
-    float4* d = reinterpret_cast<float4*>(slot_dg + slot * width + 8 * vec(i));
-    d[0] = make_float4(dg[i][0], dg[i][1], dg[i][2], dg[i][3]);
-    d[1] = make_float4(dg[i][4], dg[i][5], dg[i][6], dg[i][7]);
-  }
-  __syncthreads();
-  for (int c = tid; c < width; c += kBwdThreads) {
-    float s = 0.0f;
+    for (int i = 0; i < NV; ++i) {
+      if (vec(i) >= nvec) continue;
+      float4* d =
+          reinterpret_cast<float4*>(slot_dg + slot * width + 8 * vec(i));
+      d[0] = make_float4(dg[i][0], dg[i][1], dg[i][2], dg[i][3]);
+      d[1] = make_float4(dg[i][4], dg[i][5], dg[i][6], dg[i][7]);
+    }
+    __syncthreads();
+    for (int c = tid; c < width; c += kBwdThreads) {
+      float s = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kRowSlots; ++k) s += slot_dg[k * width + c];
-    partial[(size_t)blockIdx.x * width + c] = s;
+      for (int k = 0; k < kRowSlots; ++k) s += slot_dg[k * width + c];
+      partial[(size_t)blockIdx.x * width + c] = s;
+    }
   }
 }
 
@@ -388,28 +460,55 @@ __global__ void __launch_bounds__(kSumCols * kSumGroups)
   dgamma[c] = t;
 }
 
-template <int NV>
-cudaError_t launch_bwd(const bf16* x, const float* gamma, const bf16* dy,
-                       bf16* dx, float* partial, float* dgamma, int rows,
-                       int width, float eps, int blocks, cudaStream_t st) {
-  // gamma and the row slots' dgamma rows
-  const int smem = (1 + kRowSlots) * width * (int)sizeof(float);
+struct BwdArgs {
+  const bf16* x;
+  const float* gamma;  // [width]
+  const bf16* dy;
+  bf16* dx;            // kDot: null
+  float* partial;      // [blocks, width] scratch; kDx: null
+  float* dgamma;       // [width]; kDx: null
+  const float* rstd;   // kDot, kDx: [rows]
+  float* dot;          // kDot: written; kDx: read, [rows]
+  int rows, width;
+  float eps, full;
+};
+
+template <int NV, Bwd B>
+cudaError_t launch_bwd(const BwdArgs& a, int blocks, cudaStream_t st) {
+  // gamma and (but for kDx) the row slots' dgamma rows
+  constexpr int kRows = 1 + (B == Bwd::kDx ? 0 : kRowSlots);
+  const int smem = kRows * a.width * (int)sizeof(float);
   static bool configured = false;
   if (!configured) {  // room for the widest row
     cudaError_t e = cudaFuncSetAttribute(
-        rmsnorm_bwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (1 + kRowSlots) * kMaxWidth * (int)sizeof(float));
+        rmsnorm_bwd_kernel<NV, B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kRows * kMaxWidth * (int)sizeof(float));
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  rmsnorm_bwd_kernel<NV><<<blocks, kBwdThreads, smem, st>>>(
-      x, gamma, dy, dx, partial, rows, width, eps);
+  rmsnorm_bwd_kernel<NV, B><<<blocks, kBwdThreads, smem, st>>>(
+      a.x, a.gamma, a.dy, a.dx, a.partial, a.rows, a.width, a.eps, a.rstd,
+      a.dot, a.full);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  rmsnorm_dgamma_kernel<<<(width + kSumCols - 1) / kSumCols,
-                          kSumCols * kSumGroups, 0, st>>>(partial, dgamma,
-                                                          blocks, width);
+  if (e != cudaSuccess || B == Bwd::kDx) return e;
+  rmsnorm_dgamma_kernel<<<(a.width + kSumCols - 1) / kSumCols,
+                          kSumCols * kSumGroups, 0, st>>>(
+      a.partial, a.dgamma, blocks, a.width);
   return cudaGetLastError();
+}
+
+// the checks of a backward launch, then launch_bwd<NV, B> for the row's
+// width: NV vectors a lane
+template <Bwd B>
+int launch_rows_bwd(const BwdArgs& a, int blocks, void* stream) {
+  if (a.rows < 1 || a.width < 8 || a.width % 8 || a.width > kMaxWidth ||
+      blocks < 1 || a.full < a.width)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nv = (a.width / 8 + 127) / 128;
+  if (nv <= 1) return launch_bwd<1, B>(a, blocks, st);
+  if (nv <= 2) return launch_bwd<2, B>(a, blocks, st);
+  return launch_bwd<4, B>(a, blocks, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -616,24 +715,11 @@ extern "C" int repro_rmsnorm_bwd_bf16(const void* x, const void* gamma,
                                       const void* dy, void* dx, void* partial,
                                       void* dgamma, int rows, int width,
                                       float eps, int blocks, void* stream) {
-  if (rows < 1 || width < 8 || width % 8 || width > kMaxWidth || blocks < 1)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto xs = static_cast<const bf16*>(x);
-  auto gs = static_cast<const float*>(gamma);
-  auto ds = static_cast<const bf16*>(dy);
-  auto out = static_cast<bf16*>(dx);
-  auto part = static_cast<float*>(partial);
-  auto dg = static_cast<float*>(dgamma);
-  const int nv = (width / 8 + 127) / 128;  // vectors a lane
-  if (nv <= 1)
-    return launch_bwd<1>(xs, gs, ds, out, part, dg, rows, width, eps, blocks,
-                         st);
-  if (nv <= 2)
-    return launch_bwd<2>(xs, gs, ds, out, part, dg, rows, width, eps, blocks,
-                         st);
-  return launch_bwd<4>(xs, gs, ds, out, part, dg, rows, width, eps, blocks,
-                       st);
+  BwdArgs a{static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+            static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
+            static_cast<float*>(partial), static_cast<float*>(dgamma),
+            nullptr, nullptr, rows, width, eps, static_cast<float>(width)};
+  return launch_rows_bwd<Bwd::kWhole>(a, blocks, stream);
 }
 
 // The grouped, gated norm: x and dy rows of groups * width bf16, x_stride
@@ -678,4 +764,58 @@ extern "C" int repro_group_rmsnorm_bwd_bf16(
       static_cast<const float*>(partial), static_cast<float*>(dgamma), shares,
       cols);
   return cudaGetLastError();
+}
+
+// The four launches of the split norm, each a mode of the kernels above.
+// x and dy [rows, width] contiguous bf16, gamma [width] fp32, the per-row
+// ss, rstd and dot fp32 [rows], every pointer 16-byte aligned; width (this
+// rank's slice) a multiple of 8 up to 4096, full the whole row's width.
+// The forward pieces take ops.rmsnorm_plan's T threads a row of N vectors
+// and rows_per_block rows a block, as the whole-row forward; the backward
+// pieces take blocks blocks (ops sizes them as the whole-row backward's
+// grid), the partial also partial [blocks, width] fp32 scratch.  Each
+// returns the cudaError_t of its launches (0 on success).
+extern "C" int repro_rmsnorm_ss_bf16(const void* x, void* ss, int rows,
+                                     int width, int T, int N,
+                                     int rows_per_block, void* stream) {
+  Args a{static_cast<const bf16*>(x), nullptr, nullptr, nullptr, width, 0,
+         rows, 1, width, 0.0f, static_cast<float*>(ss), nullptr, 0.0f};
+  return launch_rows<Mode::kSumSquares>(a, T, N, rows_per_block, stream);
+}
+
+extern "C" int repro_rmsnorm_apply_bf16(const void* x, const void* gamma,
+                                        const void* ss, void* out, void* rstd,
+                                        int rows, int width, float full,
+                                        float eps, int T, int N,
+                                        int rows_per_block, void* stream) {
+  Args a{static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+         nullptr, static_cast<bf16*>(out), width, 0, rows, 1, width, eps,
+         const_cast<float*>(static_cast<const float*>(ss)),
+         static_cast<float*>(rstd), full};
+  return launch_rows<Mode::kApply>(a, T, N, rows_per_block, stream);
+}
+
+extern "C" int repro_rmsnorm_bwd_partial_bf16(
+    const void* x, const void* gamma, const void* dy, const void* rstd,
+    void* dot, void* partial, void* dgamma, int rows, int width, int blocks,
+    void* stream) {
+  BwdArgs a{static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+            static_cast<const bf16*>(dy), nullptr,
+            static_cast<float*>(partial), static_cast<float*>(dgamma),
+            static_cast<const float*>(rstd), static_cast<float*>(dot), rows,
+            width, 0.0f, static_cast<float>(width)};
+  return launch_rows_bwd<Bwd::kDot>(a, blocks, stream);
+}
+
+extern "C" int repro_rmsnorm_bwd_apply_bf16(const void* x, const void* gamma,
+                                            const void* dy, const void* rstd,
+                                            const void* dot, void* dx,
+                                            int rows, int width, float full,
+                                            int blocks, void* stream) {
+  BwdArgs a{static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+            static_cast<const bf16*>(dy), static_cast<bf16*>(dx), nullptr,
+            nullptr, static_cast<const float*>(rstd),
+            const_cast<float*>(static_cast<const float*>(dot)), rows, width,
+            0.0f, full};
+  return launch_rows_bwd<Bwd::kDx>(a, blocks, stream);
 }

@@ -16,6 +16,9 @@ counts the backward kernels the same way: each matmul backward launches the
 matmul kernel twice (dgrad and wgrad), the flash-attention, rmsnorm (block
 norm or grouped, gated norm) and SSD-scan backward wrappers one C entry
 each, and ``activation_backward`` (a fused activation's derivative) one.
+``SPLIT_LAUNCHES`` counts the split rmsnorm's four kernels (d2 > 1:
+``split_rmsnorm``'s partial and apply pieces around the tp2 all-reduce,
+forward and backward), one a wrapper call.
 
 Training: ``matmul``, ``flash_attention``, ``rmsnorm``, ``group_rmsnorm``
 and ``ssd_scan`` are autograd Functions wherever an input requires grad
@@ -49,6 +52,10 @@ BACKWARD_LAUNCHES = {"matmul_bwd": 0, "flash_attention_bwd": 0,
                      "rmsnorm_bwd": 0, "group_rmsnorm_bwd": 0,
                      "ssd_scan_bwd": 0, "matmul_act_bwd": 0}
 
+#: launches of the split rmsnorm's four kernels (d2 > 1), by wrapper
+SPLIT_LAUNCHES = {"rmsnorm_ss": 0, "rmsnorm_apply": 0,
+                  "rmsnorm_bwd_partial": 0, "rmsnorm_bwd_apply": 0}
+
 #: the flash-attention launches of ``LAUNCHES`` by ``attention_plan``
 #: variant (0: ``flash_attention.cu``, 1: ``flash_attention_train.cu``)
 ATTENTION_VARIANT_LAUNCHES = [0, 0]
@@ -60,7 +67,7 @@ SMS = 132
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BACKWARD_LAUNCHES):
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES, SPLIT_LAUNCHES):
         for k in counts:
             counts[k] = 0
     ATTENTION_VARIANT_LAUNCHES[:] = [0, 0]
@@ -885,6 +892,13 @@ RMSNORM_MAX_THREADS = 256
 RMSNORM_BWD_ROWS = 3
 
 
+def rmsnorm_bwd_blocks(rows: int) -> int:
+    """The grid of ``csrc/rmsnorm.cu``'s backward kernel (the whole row's
+    and the split norm's two backward pieces): 4 warps a row, 3 rows a
+    block at a time, one block of 12 warps per SM."""
+    return min(-(-rows // RMSNORM_BWD_ROWS), SMS)
+
+
 @dataclasses.dataclass(frozen=True)
 class RmsnormPlan:
     """A CUDA rmsnorm launch: ``threads`` per row, each holding ``vectors``
@@ -974,8 +988,7 @@ def rmsnorm_backward_with(entry, x, gamma, dy, eps: float):
     dx = torch.empty_like(x2)
     if rows == 0:
         return dx.reshape(x.shape), torch.zeros_like(gamma)
-    # 3 rows a block at a time, one block of 12 warps per SM
-    blocks = min(-(-rows // RMSNORM_BWD_ROWS), SMS)
+    blocks = rmsnorm_bwd_blocks(rows)
     partial = torch.empty((blocks, h), dtype=torch.float32, device=x.device)
     dgamma = torch.empty_like(gamma)
     _check(entry(
@@ -999,6 +1012,198 @@ class _RmsNorm(torch.autograd.Function):
         x, gamma = ctx.saved_tensors
         dx, dgamma = rmsnorm_backward(x, gamma, dy, eps=ctx.eps)
         return dx, dgamma, None
+
+
+# ---------------------------------------------------------------------------
+# The split rmsnorm (d2 > 1): a row's features lie on the tp2 ranks, so the
+# two row sums (forward: sum x^2; backward: sum dy gamma x) are partial on
+# each rank and go through an all-reduce over tp2 between a partial kernel
+# and an apply kernel (``csrc/rmsnorm.cu``).  The forward keeps rstd for
+# the backward: recomputing it there would take a second all-reduce.
+# ---------------------------------------------------------------------------
+
+
+def _split_rows(x: torch.Tensor, what: str) -> torch.Tensor:
+    """``x [..., w]`` as the split kernels read it: bf16 rows ``[rows, w]``,
+    contiguous and 16-byte aligned, w a multiple of 8 up to
+    ``RMSNORM_MAX_WIDTH``."""
+    w = x.shape[-1]
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA {what} takes bf16 rows, got {x.dtype}")
+    if w % 8 or not 8 <= w <= RMSNORM_MAX_WIDTH:
+        raise ValueError(f"the CUDA {what} takes rows of a multiple of 8 up "
+                         f"to {RMSNORM_MAX_WIDTH} wide, got {w}")
+    return _aligned(x.reshape(-1, w).contiguous())
+
+
+def _split_gamma(gamma: torch.Tensor, w: int, what: str) -> torch.Tensor:
+    if gamma.shape != (w,) or gamma.dtype != torch.float32:
+        raise ValueError(f"the CUDA {what} takes an fp32 gamma [{w}], got "
+                         f"{gamma.dtype} {tuple(gamma.shape)}")
+    return _aligned(gamma.contiguous())
+
+
+def _row_sums(t: torch.Tensor, rows: int, what: str) -> torch.Tensor:
+    """A per-row fp32 input of the split kernels as ``[rows]``."""
+    if t.dtype != torch.float32 or t.numel() != rows:
+        raise ValueError(f"the CUDA {what} takes fp32 row sums of {rows} "
+                         f"rows, got {t.dtype} {tuple(t.shape)}")
+    return t.reshape(rows).contiguous()
+
+
+def rmsnorm_ss(x: torch.Tensor) -> torch.Tensor:
+    """The split norm's forward partial: per row of this rank's slice
+    ``x [..., w]``, the fp32 sum of squares ``[...]``.  One launch of
+    ``csrc/rmsnorm.cu``'s ``rmsnorm_kernel`` in its ``kSumSquares`` mode
+    (``rmsnorm_plan``'s threads a row, the whole-row norm's order of
+    sums)."""
+    if _on_cpu(x):
+        return ref.rmsnorm_ss_ref(x)
+    from repro_torch.kernels import _build
+
+    x2 = _split_rows(x, "rmsnorm partial")
+    rows, w = x2.shape
+    ss = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows:
+        plan = rmsnorm_plan(rows, w)
+        _check(_build.entry("rmsnorm_ss")(
+            _ptr(x2), _ptr(ss), rows, w, plan.threads, plan.vectors,
+            plan.rows, _stream(x2)), "rmsnorm_ss")
+        SPLIT_LAUNCHES["rmsnorm_ss"] += 1
+    return ss.reshape(x.shape[:-1])
+
+
+def rmsnorm_apply(x: torch.Tensor, gamma: torch.Tensor, ss: torch.Tensor,
+                  width: int, eps: float = 1e-6):
+    """The split norm's forward apply, after the all-reduce: from the sums
+    of squares ``ss [...]`` of the whole rows (``width`` wide, the sum of
+    the slices' widths), ``rstd = rsqrt(ss / width + eps)`` and ``y = x
+    rstd gamma`` on this rank's slice.  Returns ``(y in x.dtype, rstd fp32
+    [...])``.  On CUDA: bf16 x, fp32 gamma [w] and ss; one launch of
+    ``rmsnorm_kernel`` in its ``kApply`` mode."""
+    if _on_cpu(x, gamma, ss):
+        return ref.rmsnorm_apply_ref(x, gamma, ss, width, eps)
+    from repro_torch.kernels import _build
+
+    x2 = _split_rows(x, "rmsnorm apply")
+    rows, w = x2.shape
+    g = _split_gamma(gamma, w, "rmsnorm apply")
+    ss1 = _row_sums(ss, rows, "rmsnorm apply")
+    out = torch.empty_like(x2)
+    rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows:
+        plan = rmsnorm_plan(rows, w)
+        _check(_build.entry("rmsnorm_apply")(
+            _ptr(x2), _ptr(g), _ptr(ss1), _ptr(out), _ptr(rstd), rows, w,
+            float(width), float(eps), plan.threads, plan.vectors, plan.rows,
+            _stream(x2)), "rmsnorm_apply")
+        SPLIT_LAUNCHES["rmsnorm_apply"] += 1
+    return out.reshape(x.shape), rstd.reshape(x.shape[:-1])
+
+
+def rmsnorm_bwd_partial(x: torch.Tensor, gamma: torch.Tensor,
+                        dy: torch.Tensor, rstd: torch.Tensor):
+    """The split norm's backward partial, from the forward's ``rstd``:
+    per row of the slice the fp32 ``dot = sum_j dy_j gamma_j x_j``, and
+    the slice's ``dgamma = sum over rows of dy x rstd`` (fp32, summed in a
+    fixed order: deterministic).  Returns ``(dot [...], dgamma [w])``.  On
+    CUDA: bf16 x and dy, fp32 gamma and rstd; one C entry
+    (``rmsnorm_bwd_kernel`` in its ``kDot`` mode, each block also writing
+    its partial dgamma row; then ``rmsnorm_dgamma_kernel`` over those
+    rows)."""
+    if _on_cpu(x, gamma, dy, rstd):
+        return ref.rmsnorm_bwd_partial_ref(x, gamma, dy, rstd)
+    from repro_torch.kernels import _build
+
+    if dy.shape != x.shape:
+        raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
+    x2 = _split_rows(x, "rmsnorm backward partial")
+    dy2 = _split_rows(dy, "rmsnorm backward partial")
+    rows, w = x2.shape
+    g = _split_gamma(gamma, w, "rmsnorm backward partial")
+    r1 = _row_sums(rstd, rows, "rmsnorm backward partial")
+    dot = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dot.reshape(x.shape[:-1]), torch.zeros_like(gamma)
+    blocks = rmsnorm_bwd_blocks(rows)
+    partial = torch.empty((blocks, w), dtype=torch.float32, device=x.device)
+    dgamma = torch.empty_like(g)
+    _check(_build.entry("rmsnorm_bwd_partial")(
+        _ptr(x2), _ptr(g), _ptr(dy2), _ptr(r1), _ptr(dot), _ptr(partial),
+        _ptr(dgamma), rows, w, blocks, _stream(x2)), "rmsnorm_bwd_partial")
+    SPLIT_LAUNCHES["rmsnorm_bwd_partial"] += 1
+    return dot.reshape(x.shape[:-1]), dgamma
+
+
+def rmsnorm_bwd_apply(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                      rstd: torch.Tensor, dot: torch.Tensor, width: int):
+    """The split norm's backward apply, after the all-reduce: from the
+    whole rows' ``dot [...]``, ``dx = rstd (gamma dy - x rstd^2 dot /
+    width)`` on this rank's slice, in ``x.dtype``.  On CUDA: bf16 x and dy,
+    fp32 gamma, rstd and dot; one launch of ``rmsnorm_bwd_kernel`` in its
+    ``kDx`` mode (the whole-row backward's grid)."""
+    if _on_cpu(x, gamma, dy, rstd, dot):
+        return ref.rmsnorm_bwd_apply_ref(x, gamma, dy, rstd, dot, width)
+    from repro_torch.kernels import _build
+
+    if dy.shape != x.shape:
+        raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
+    x2 = _split_rows(x, "rmsnorm backward apply")
+    dy2 = _split_rows(dy, "rmsnorm backward apply")
+    rows, w = x2.shape
+    g = _split_gamma(gamma, w, "rmsnorm backward apply")
+    r1 = _row_sums(rstd, rows, "rmsnorm backward apply")
+    d1 = _row_sums(dot, rows, "rmsnorm backward apply")
+    dx = torch.empty_like(x2)
+    if rows:
+        _check(_build.entry("rmsnorm_bwd_apply")(
+            _ptr(x2), _ptr(g), _ptr(dy2), _ptr(r1), _ptr(d1), _ptr(dx), rows,
+            w, float(width), rmsnorm_bwd_blocks(rows), _stream(x2)),
+            "rmsnorm_bwd_apply")
+        SPLIT_LAUNCHES["rmsnorm_bwd_apply"] += 1
+    return dx.reshape(x.shape)
+
+
+def _split_forward(x, gamma, eps, width, reduce):
+    ss = rmsnorm_ss(x)
+    reduce(ss)
+    return rmsnorm_apply(x, gamma, ss, width, eps)
+
+
+class _SplitRmsNorm(torch.autograd.Function):
+    """``split_rmsnorm`` with its backward: the backward partial, the
+    all-reduce of ``dot``, the backward apply; rstd saved by the
+    forward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps, width, reduce):
+        y, rstd = _split_forward(x, gamma, eps, width, reduce)
+        ctx.save_for_backward(x, gamma, rstd)
+        ctx.width, ctx.reduce = width, reduce
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, rstd = ctx.saved_tensors
+        dot, dgamma = rmsnorm_bwd_partial(x, gamma, dy, rstd)
+        ctx.reduce(dot)
+        dx = rmsnorm_bwd_apply(x, gamma, dy, rstd, dot, ctx.width)
+        return dx, dgamma, None, None, None
+
+
+def split_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, width: int,
+                  reduce, eps: float = 1e-6):
+    """RMSNorm of rows whose features are split over ranks: this rank's
+    slice ``x [..., w]`` of rows ``width`` wide and its slice of the
+    (resolved) ``gamma [w]``; ``reduce(t)`` sums an fp32 per-row tensor
+    over the slices in place (the tp2 all-reduce).  Forward: the partial
+    kernel, ``reduce``, the apply kernel; under autograd the backward
+    runs the backward partial, ``reduce`` and the backward apply.  Each
+    kernel launch counts in ``SPLIT_LAUNCHES``; on the CPU the plain
+    versions run."""
+    if _grad(x, gamma):
+        return _SplitRmsNorm.apply(x, gamma, eps, width, reduce)
+    return _split_forward(x, gamma, eps, width, reduce)[0]
 
 
 def group_rmsnorm(y: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,

@@ -2,8 +2,8 @@
 matmul also with its pre-activation output, the attention also in the
 training kernel's order, ``attention_train_ref``), the backward kernels of
 matmul, flash attention, rmsnorm (the block norm and the Mamba2 grouped,
-gated norm) and the SSD scan, and the matmul epilogue's activation
-derivative.
+gated norm) and the SSD scan, the matmul epilogue's activation
+derivative, and the four pieces of the split rmsnorm (d2 > 1).
 
 Each function computes what its hand-written kernel computes, in the
 kernel's own argument layout.  The CPU takes them for every tensor that
@@ -412,6 +412,47 @@ def rmsnorm_bwd_ref(x, gamma, dy, eps: float = 1e-6):
     dx = r * (gdy - xh * (xh * gdy).mean(-1, keepdim=True))
     dgamma = (gf * xh).reshape(-1, x.shape[-1]).sum(0)
     return dx.to(x.dtype), dgamma.to(gamma.dtype)
+
+
+# The split norm (d2 > 1): each rank holds a slice ``x [..., w]`` of rows
+# ``width`` wide; the row sums of its two reductions are all-reduced over
+# the slices between a partial and an apply piece, forward and backward.
+
+
+def rmsnorm_ss_ref(x):
+    """The forward partial: per row of the slice, the fp32 sum of squares
+    ``[...]``."""
+    xf = x.float()
+    return (xf * xf).sum(-1)
+
+
+def rmsnorm_apply_ref(x, gamma, ss, width: int, eps: float = 1e-6):
+    """The forward apply, from the row sums ``ss`` of the whole rows:
+    ``rstd = rsqrt(ss / width + eps)`` (fp32 ``[...]``) and ``y = x rstd
+    gamma`` cast to ``x.dtype``.  Returns ``(y, rstd)``."""
+    rstd = torch.rsqrt(ss / width + eps)
+    return (x.float() * rstd[..., None] * gamma.float()).to(x.dtype), rstd
+
+
+def rmsnorm_bwd_partial_ref(x, gamma, dy, rstd):
+    """The backward partial, from the forward's ``rstd``: per row the fp32
+    ``dot = sum_j dy_j gamma_j x_j`` over the slice, and the slice's
+    ``dgamma = sum over rows of dy x rstd`` (fp32, gamma's dtype).
+    Returns ``(dot, dgamma)``."""
+    xf, gf = x.float(), dy.float()
+    dot = (gf * gamma.float() * xf).sum(-1)
+    dgamma = (gf * xf * rstd[..., None]).reshape(-1, x.shape[-1]).sum(0)
+    return dot, dgamma.to(gamma.dtype)
+
+
+def rmsnorm_bwd_apply_ref(x, gamma, dy, rstd, dot, width: int):
+    """The backward apply, from the row sums ``dot`` of the whole rows:
+    ``dx = rstd (gamma dy - x rstd^2 dot / width)`` in fp32, cast to
+    ``x.dtype``."""
+    r = rstd[..., None]
+    dx = r * (gamma.float() * dy.float()
+              - x.float() * (r * r) * dot[..., None] / width)
+    return dx.to(x.dtype)
 
 
 def group_rmsnorm_ref(y, gamma, eps: float = 1e-6, gate=None):

@@ -16,7 +16,7 @@ from repro_torch.analysis.signature import region
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.atp import (ATPContext, all_reduce_max, all_reduce_min,
                                   make_context)
-from repro_torch.core.mesh import MeshTopo, dp_axis_names, resolve_device
+from repro_torch.core.mesh import MeshTopo, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.models.paging import GARBAGE_PAGE
@@ -305,17 +305,13 @@ def build_train_step(cfg: ModelConfig, topo: MeshTopo | None = None,
     learning rate.  ``remat`` recomputes each block's activations in the
     backward.  The context comes from ``plan`` (its mesh and its
     per-segment knobs; ``chunks`` is then the plan's) or from ``topo`` and
-    ``chunks``, through :func:`resolve_ctx`.  A topology of more than one
-    rank needs ``torch.distributed`` initialized with one process per
-    rank."""
+    ``chunks``, through :func:`resolve_ctx`; its data-parallel axes may be
+    one (data) or two (pod and data: a plan with ``pods``).  A topology of
+    more than one rank needs ``torch.distributed`` initialized with one
+    process per rank."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     device = resolve_device(device)
     lm.check_trainable(cfg)
-    mesh = topo if topo is not None or plan is None else plan.topo()
-    if mesh is not None and len(dp_axis_names(mesh)) > 1:
-        # refused before any process group is made
-        raise NotImplementedError("more than one data-parallel axis is "
-                                  "ROADMAP A5b")
     ctx = resolve_ctx(topo, plan, chunks, device_type=device.type)
 
     def step(params, opt_state, batch):
@@ -327,7 +323,8 @@ def build_train_step(cfg: ModelConfig, topo: MeshTopo | None = None,
         grads = adamw.tree_unflatten(params, iter(grads))
         params, opt_state, metrics = adamw.apply_adamw(
             opt_cfg, ctx, params, grads, opt_state,
-            lm.replication_factors(cfg, ctx, params))
+            lm.replication_factors(cfg, ctx, params),
+            lm.fused_pieces(cfg, ctx, params))
         metrics["loss"] = loss.detach()
         return params, opt_state, metrics
 

@@ -27,7 +27,10 @@ The strategy is a ``ParallelPlan`` end to end: ``--auto-atp`` searches one
 Eq. 2 space) on the ``--topology`` preset (default ``h100-sxm-8``) for
 TP degree d1 * d2, ``--plan FILE`` loads a saved one, and plain
 ``--d1/--d2/--chunks`` make one with provenance ``manual-cli``; ``--save-plan
-FILE`` writes the plan the run executes:
+FILE`` writes the plan the run executes.  A plan with ``pods`` (two
+data-parallel axes, pod and data) trains through ``--plan``; like the
+reference's, the launcher has no ``--pods`` of its own.  ``--opt-mode``
+takes plain, zero1 (the default) or compressed:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-m2 \
         --seq 2048 --batch 1 --auto-atp --save-plan plan.json
@@ -119,7 +122,8 @@ def main(argv=None) -> list[dict]:
                     help="global batch (split over the dp ranks)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--opt-mode", default="zero1", choices=("plain", "zero1"))
+    ap.add_argument("--opt-mode", default="zero1",
+                    choices=("plain", "zero1", "compressed"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--corpus", default=None,
                     help="a file of uint16 tokens to sample the batches "

@@ -70,6 +70,35 @@ def cut(ctx: ATPContext, x: torch.Tensor, spec, lead: int = 0) -> torch.Tensor:
     return x.contiguous() if sliced else x
 
 
+#: the port's fused leaves: each is this rank's shards of the JAX
+#: package's leaves named here, concatenated in this order along the last
+#: dim (``transformer.shard_dense_block``, ``mamba2.shard_mamba``)
+FUSED_LEAVES = {"w_qkv": ("wq", "wk", "wv"), "b_qkv": ("bq", "bk", "bv"),
+                "w_upgate": ("w_up", "w_gate"), "w_zx": ("w_z", "w_x")}
+
+
+def fused_widths(cfg: ModelConfig, ctx: ATPContext, name: str,
+                 width: int) -> tuple | None:
+    """The widths along the last dim of the pieces of this rank's leaf
+    ``name`` (``width`` wide), in ``FUSED_LEAVES`` order: q|k|v and their
+    biases this rank's q and kv columns, up|gate and z|x two halves; None
+    for a leaf that is not fused."""
+    if name not in FUSED_LEAVES:
+        return None
+    if name in ("w_qkv", "b_qkv"):
+        kvd = cfg.kv_dim // ctx.d1
+        return (cfg.q_dim // ctx.d1, kvd, kvd)
+    return (width // 2,) * 2
+
+
+def split_fused(cfg: ModelConfig, ctx: ATPContext, name: str,
+                t: torch.Tensor):
+    """(the JAX package's leaf name, its piece) of this rank's fused leaf
+    ``name``."""
+    return zip(FUSED_LEAVES[name], t.split(
+        fused_widths(cfg, ctx, name, t.shape[-1]), dim=-1))
+
+
 # ---------------------------------------------------------------------------
 # Norms.  The feature dim is ax2-sharded, so the reduction needs one tiny
 # all-reduce over ax2 between the sum of squares and the scale; the
@@ -83,18 +112,16 @@ def cut(ctx: ATPContext, x: torch.Tensor, spec, lead: int = 0) -> torch.Tensor:
 
 def rms_norm(ctx: ATPContext, x, gamma, eps: float = 1e-6,
              plus_one: bool = False):
+    """RMSNorm of this rank's features: the whole-row kernel at d2 = 1;
+    at d2 > 1 ``ops.split_rmsnorm``, whose partial and apply kernels sit
+    around the all-reduce of the rows' sums over ax2, forward (sum x^2)
+    and backward (sum dy gamma x)."""
     g = (1.0 + gamma) if plus_one else gamma
     if ctx.ax2 is None:
         return ops.rmsnorm(x, g, eps=eps)
-    if x.is_cuda:
-        raise NotImplementedError(
-            "rms_norm with d2 > 1 on CUDA needs the split partial-sum and "
-            "apply kernels around the all-reduce (ROADMAP A5b)")
-    xf = x.float()
-    ss = atp_boundary(ctx, (xf * xf).sum(-1, keepdim=True), ctx.ax2)
-    inv = conjugate(ctx, torch.rsqrt(ss / (x.shape[-1] * ctx.d2) + eps),
-                    ctx.ax2)
-    return (xf * inv * g.float()).to(x.dtype)
+    return ops.split_rmsnorm(
+        x, g, width=x.shape[-1] * ctx.d2, eps=eps,
+        reduce=lambda t: atp_boundary(ctx, t, ctx.ax2))
 
 
 def layer_norm(ctx: ATPContext, x, gamma, beta, eps: float = 1e-5):

@@ -618,6 +618,22 @@ def replication_factors(cfg: ModelConfig, ctx: ATPContext, params) -> dict:
     return walk(params)
 
 
+def fused_pieces(cfg: ModelConfig, ctx: ATPContext, params) -> dict:
+    """Per leaf of this rank's tree: the widths along its last dim of the
+    JAX package's leaves it fuses (``shard_params``: q|k|v, their biases,
+    up|gate, the Mamba2 z|x), or None for a leaf that is one of the
+    reference's whole.  What the reference does per leaf (the compressed
+    AdamW's quantization scale) the port does per piece
+    (``layers.fused_widths``)."""
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return L.fused_widths(cfg, ctx, name, tree.shape[-1])
+
+    return walk(params)
+
+
 def paged_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, start,
                table, caches, slot=None):
     """One paged cache-write step — decode tick AND prefill chunk.

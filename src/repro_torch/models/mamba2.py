@@ -83,7 +83,7 @@ def shard_mamba(ctx: ATPContext, p: dict, lead: int) -> dict:
     as they are cut."""
     cut, col = L.cut, L.col_w_spec(ctx)
     out = {"w_zx": torch.cat([cut(ctx, p.pop(k), col, lead)
-                              for k in ("w_z", "w_x")], dim=-1),
+                              for k in L.FUSED_LEAVES["w_zx"]], dim=-1),
            "w_bcdt": cut(ctx, p.pop("w_bcdt"), (ctx.ax2, None), lead),
            "w_out": cut(ctx, p.pop("w_out"), L.row_w_spec(ctx), lead),
            "ln": cut(ctx, p.pop("ln"), L.feat_spec(ctx), lead)}

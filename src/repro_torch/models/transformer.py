@@ -89,11 +89,11 @@ def shard_dense_block(ctx: ATPContext, cfg: ModelConfig, p: dict,
     a = p.pop("attn")
     col = L.col_w_spec(ctx)
     attn = {"w_qkv": torch.cat([cut(ctx, a.pop(k), col, lead)
-                                for k in ("wq", "wk", "wv")], dim=-1),
+                                for k in L.FUSED_LEAVES["w_qkv"]], dim=-1),
             "wo": cut(ctx, a.pop("wo"), L.row_w_spec(ctx), lead)}
     if cfg.qkv_bias:
         attn["b_qkv"] = torch.cat([cut(ctx, a.pop(k), L.col_b_spec(ctx), lead)
-                                   for k in ("bq", "bk", "bv")], dim=-1)
+                                   for k in L.FUSED_LEAVES["b_qkv"]], dim=-1)
     if cfg.qk_norm:
         attn["q_norm"], attn["k_norm"] = a.pop("q_norm"), a.pop("k_norm")
     out["attn"] = attn
@@ -101,7 +101,8 @@ def shard_dense_block(ctx: ATPContext, cfg: ModelConfig, p: dict,
     mlp = {"w_down": cut(ctx, m.pop("w_down"), L.row_w_spec(ctx), lead)}
     if cfg.mlp_kind in ("swiglu", "geglu"):
         mlp["w_upgate"] = torch.cat([cut(ctx, m.pop(k), col, lead)
-                                     for k in ("w_up", "w_gate")], dim=-1)
+                                     for k in L.FUSED_LEAVES["w_upgate"]],
+                                    dim=-1)
     else:
         mlp["w_up"] = cut(ctx, m.pop("w_up"), col, lead)
     out["mlp"] = mlp

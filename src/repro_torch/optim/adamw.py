@@ -4,18 +4,25 @@
 Runs on each rank after its backward.  The gradients it gets are LOCAL:
 each rank's backward gives its own tokens' share of the gradient of the
 global mean loss (``lm.train_loss``), complete over the TP axes
-(``core.atp``).  Two gradient-reduction modes:
+(``core.atp``).  Three gradient-reduction modes:
 
-  plain : all-reduce (sum) the grads over dp, then full AdamW on every DP
-          rank (ZeRO-0);
-  zero1 : reduce-scatter (sum) the flattened, padded grads over dp ->
-          shard-local AdamW on this rank's 1/dp of each leaf -> all-gather
-          the updated shards.  The fp32 m/v live only for the owned shard.
-          With no data-parallel axis zero1 is full-state AdamW.
+  plain      : all-reduce (sum) the grads over dp, then full AdamW on every
+               DP rank (ZeRO-0);
+  zero1      : reduce-scatter (sum) the flattened, padded grads over dp ->
+               shard-local AdamW on this rank's 1/dp of each leaf ->
+               all-gather the updated shards.  The fp32 m/v live only for
+               the owned shard.  With no data-parallel axis zero1 is
+               full-state AdamW;
+  compressed : plain's fp32 sum, then each leaf quantized to int8 levels
+               with error feedback (``optim.grad_compress``: the residual
+               is carried in the state's fp32 ``err``), then full AdamW.
 
-The JAX package's ``pmean`` of a dp-invariant gradient and its
-``psum_scatter / dp`` of one are these sums of dp-partial ones.  The
-``compressed`` mode (int8 wire with error feedback) is ROADMAP A5b.
+The data-parallel axes are one (data, or pod) or two (pod and data: one
+flat group over both, ``ATPContext.group``).  The JAX package's ``pmean``
+of a dp-invariant gradient and its ``psum_scatter / dp`` of one are these
+sums of dp-partial ones; its ``compressed`` mode quantizes that same
+dp-invariant gradient (``optim.grad_compress`` says why the port issues
+none of its int8 collectives).
 
 m and v are fp32 whatever the parameters' dtype, and the update is the
 JAX package's: ``p - lr (u + wd p)`` in fp32, cast back.  Parameters are
@@ -33,9 +40,7 @@ import torch
 
 from repro_torch.analysis import signature as sig
 from repro_torch.core.atp import ATPContext
-
-_A5B = "is not ported yet (ROADMAP A5b)"
-
+from repro_torch.optim.grad_compress import compressed_psum_mean_ef
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -45,7 +50,7 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
-    mode: str = "zero1"          # plain | zero1 (compressed: ROADMAP A5b)
+    mode: str = "zero1"          # plain | zero1 | compressed
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_ratio: float = 0.1
@@ -63,16 +68,8 @@ def lr_at(cfg: AdamWConfig, step: int) -> float:
 
 
 def _check_mode(mode: str) -> None:
-    if mode == "compressed":
-        raise NotImplementedError(f"AdamW mode 'compressed' {_A5B}")
-    if mode not in ("plain", "zero1"):
+    if mode not in ("plain", "zero1", "compressed"):
         raise ValueError(f"unknown AdamW mode {mode!r}")
-
-
-def _dp_group(ctx: ATPContext):
-    if len(ctx.dp_axes) > 1:
-        raise NotImplementedError(f"more than one data-parallel axis {_A5B}")
-    return ctx.group(ctx.dp_axes[0])
 
 
 def zero1_banked(mode: str, ctx: ATPContext) -> bool:
@@ -96,7 +93,9 @@ def tree_unflatten(like, it):
 
 def init_opt_state(params, ctx: ATPContext, mode: str = "zero1") -> dict:
     """fp32 m/v per leaf of this rank's params: the leaf's shape, or, under
-    zero1 with dp > 1, this rank's ``ceil(numel / dp)`` flat shard of it."""
+    zero1 with dp > 1, this rank's ``ceil(numel / dp)`` flat shard of it.
+    ``compressed`` adds ``err``: the error-feedback residual, fp32 in each
+    leaf's shape (never banked)."""
     _check_mode(mode)
     banked = zero1_banked(mode, ctx)
 
@@ -106,7 +105,12 @@ def init_opt_state(params, ctx: ATPContext, mode: str = "zero1") -> dict:
                 "v": torch.zeros(shape, dtype=torch.float32, device=p.device)}
 
     states = iter(map(state, tree_leaves(params)))
-    return {"step": 0, "leaves": tree_unflatten(params, states)}
+    out = {"step": 0, "leaves": tree_unflatten(params, states)}
+    if mode == "compressed":
+        out["err"] = tree_unflatten(params, iter(
+            torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in tree_leaves(params)))
+    return out
 
 
 def global_grad_norm(grads, ctx: ATPContext, rep=None) -> torch.Tensor:
@@ -150,10 +154,19 @@ def _adam(cfg: AdamWConfig, p32, g32, st, lr: float, bc1: float, bc2: float):
 
 @torch.no_grad()
 def apply_adamw(cfg: AdamWConfig, ctx: ATPContext, params, grads, opt_state,
-                replication_factor=None):
+                replication_factor=None, pieces=None):
     """One optimizer step on this rank's params (updated in place) from its
-    LOCAL grads.  Returns (params, new opt_state, metrics{lr, grad_norm})."""
+    LOCAL grads.  Returns (params, new opt_state, metrics{lr, grad_norm});
+    under ``compressed`` the state's ``err`` is updated in place.
+    ``pieces`` (``lm.fused_pieces``): per leaf, the widths along its last
+    dim of the JAX package's leaves it fuses, or None; ``compressed``
+    quantizes each piece with its own scale, as the reference quantizes
+    its leaves, and needs them (a fused leaf quantized whole gives other
+    numbers than the reference's)."""
     _check_mode(cfg.mode)
+    if cfg.mode == "compressed" and pieces is None:
+        raise ValueError("the compressed AdamW needs the fused leaves' "
+                         "pieces (lm.fused_pieces)")
     step = opt_state["step"]
     lr = lr_at(cfg, step)
     t = step + 1
@@ -165,23 +178,43 @@ def apply_adamw(cfg: AdamWConfig, ctx: ATPContext, params, grads, opt_state,
         if ctx.dp_axes:
             import torch.distributed as dist
 
-            group, summed = _dp_group(ctx), []
+            group, summed = ctx.group(ctx.dp_axes), []
             for g in tree_leaves(grads):
                 g = g.clone()
                 if sig.ACTIVE is not None:
-                    _note("psum", ctx.dp_axes[:1], g.numel(), g.dtype,
+                    _note("psum", ctx.dp_axes, g.numel(), g.dtype,
                           "opt:grads")
                 dist.all_reduce(g, group=group)
                 summed.append(g)
             grads = tree_unflatten(grads, iter(summed))
+        if cfg.mode == "compressed":
+            grads = _compress(ctx, grads, opt_state["err"], pieces)
         gnorm = global_grad_norm(grads, ctx, replication_factor)
         scale = _clip_scale(cfg, gnorm)
         for p, g, st in zip(tree_leaves(params), tree_leaves(grads),
                             _leaves_state(opt_state["leaves"])):
             p.copy_(_adam(cfg, p.float(), g.float() * scale, st, lr, bc1,
                           bc2))
-    new_state = {"step": step + 1, "leaves": opt_state["leaves"]}
+    new_state = {**opt_state, "step": step + 1}
     return params, new_state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _compress(ctx: ATPContext, grads, err, pieces):
+    """The dp-summed ``grads`` quantized leaf by leaf, and within a fused
+    leaf piece by piece (``grad_compress``); the residuals are written into
+    ``err`` in place."""
+    out = []
+    for g, e, w in zip(tree_leaves(grads), tree_leaves(err),
+                       tree_leaves(pieces)):
+        parts = []
+        for gp, ep in zip(*((g.split(w, -1), e.split(w, -1)) if w
+                            else ((g,), (e,)))):
+            gp, new_err = compressed_psum_mean_ef(gp, ep, ctx.dp_axes)
+            if new_err is not ep:
+                ep.copy_(new_err)   # a view of the leaf's err
+            parts.append(gp)
+        out.append(parts[0] if len(parts) == 1 else torch.cat(parts, -1))
+    return tree_unflatten(grads, iter(out))
 
 
 def _leaves_state(tree) -> list:
@@ -202,7 +235,7 @@ def _zero1_step(cfg, ctx, params, grads, opt_state, lr, bc1, bc2, rep):
     Returns the global grad norm."""
     import torch.distributed as dist
 
-    group, dp, me = _dp_group(ctx), ctx.dp, ctx.dp_index()
+    group, dp, me = ctx.group(ctx.dp_axes), ctx.dp, ctx.dp_index()
     gloo = dist.get_backend(group) == "gloo"
     shards = []
     for g in tree_leaves(grads):
@@ -210,7 +243,7 @@ def _zero1_step(cfg, ctx, params, grads, opt_state, lr, bc1, bc2, rep):
         flat = torch.zeros(dp * k, dtype=torch.float32, device=g.device)
         flat[:g.numel()] = g.reshape(-1)
         if sig.ACTIVE is not None:
-            _note("psum" if gloo else "reduce_scatter", ctx.dp_axes[:1],
+            _note("psum" if gloo else "reduce_scatter", ctx.dp_axes,
                   flat.numel(), flat.dtype, "opt:zero1")
         if gloo:   # gloo has no reduce-scatter: sum all, keep this shard
             dist.all_reduce(flat, group=group)
@@ -222,7 +255,7 @@ def _zero1_step(cfg, ctx, params, grads, opt_state, lr, bc1, bc2, rep):
     reps = tree_leaves(rep) if rep is not None else [1] * len(shards)
     sq = sum(s.square().sum() / r for s, r in zip(shards, reps))
     if sig.ACTIVE is not None:
-        _note("psum", ctx.dp_axes[:1], sq.numel(), sq.dtype, "opt:grad_norm")
+        _note("psum", ctx.dp_axes, sq.numel(), sq.dtype, "opt:grad_norm")
     dist.all_reduce(sq, group=group)
     gnorm = _tp_sum(ctx, sq).sqrt()
     scale = _clip_scale(cfg, gnorm)
@@ -235,7 +268,7 @@ def _zero1_step(cfg, ctx, params, grads, opt_state, lr, bc1, bc2, rep):
                     bc2)
         parts = [torch.empty_like(new) for _ in range(dp)]
         if sig.ACTIVE is not None:
-            _note("all_gather", ctx.dp_axes[:1], dp * new.numel(), new.dtype,
+            _note("all_gather", ctx.dp_axes, dp * new.numel(), new.dtype,
                   "opt:zero1")
         dist.all_gather(parts, new.contiguous(), group=group)
         p.copy_(torch.cat(parts)[:p.numel()].reshape(p.shape).to(p.dtype))

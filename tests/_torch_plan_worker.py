@@ -3,7 +3,7 @@
 
     python tests/_torch_plan_worker.py RANK CASE_DIR
 
-Reads ``case.json`` from CASE_DIR: the mesh (dp, d1, d2) and a list of
+Reads ``case.json`` from CASE_DIR: the mesh (dp, d1, d2[, pods]) and a list of
 cases, each an arch (reduced, at its depth where given), a ``ParallelPlan``
 as a dict, the global batch and the sequence, and whether its forward runs
 under remat (default off) and its gradients are written.  Joins the gloo group through
@@ -19,13 +19,15 @@ seeded batch:
     counting the calls of ``Record.note``.
 
 Writes ``rank{RANK}.json``: per case the context's knobs, the forward
-record by key, the backward record's ops and regions, the loss and, where
+record by key, the backward record's ops and regions, the axes of the
+optimizer's collectives, the loss and, where
 asked, the gradients (``grads_CASE_rank{RANK}.npz``).  Imports only torch,
 numpy and the port.  The tests start the ranks through :func:`start` and
 collect them through :func:`finish`.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -128,6 +130,8 @@ def run_case(rank: int, topo, case: dict, case_dir: Path, count_idle: bool):
     bwd = [e for e in rec.entries if e.phase == "bwd"]
     out["bwd_ops"] = sorted({e.op for e in bwd})
     out["bwd_regions"] = sorted({e.region for e in bwd})
+    out["opt_axes"] = sorted({e.axes for e in bwd
+                              if e.region.startswith("opt:")})
     out["bwd_count"] = len(bwd)
 
     if count_idle:
@@ -154,11 +158,11 @@ def run_case(rank: int, topo, case: dict, case_dir: Path, count_idle: bool):
 
 
 def start(case_dir: Path, mesh) -> list:
-    """Start one process per rank of ``mesh`` (dp, d1, d2) on
+    """Start one process per rank of ``mesh`` (dp, d1, d2[, pods]) on
     ``case_dir/case.json``."""
     src = Path(__file__).resolve().parents[1] / "src"
     env = dict(os.environ, PYTHONPATH=str(src))
-    world = mesh[0] * mesh[1] * mesh[2]
+    world = math.prod(mesh)
     return [subprocess.Popen([sys.executable, __file__, str(r),
                               str(case_dir)], env=env,
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -1,17 +1,23 @@
-"""One rank of the CPU gloo mesh that ``test_torch_train.py`` starts.
+"""One rank of the CPU gloo meshes that ``test_torch_train.py`` and
+``test_torch_mesh_train.py`` start.
 
     python tests/_torch_train_worker.py RANK CASE_DIR
 
 Reads ``case.json`` (arch, its depth where not the reduced config's,
-mesh, chunks, optimizer mode and steps), the
-JAX global weights ``params.npz`` and the global batches ``batches.npz``
-from CASE_DIR, and joins the gloo group through a file store there.  Then,
-on this rank's shard and its data-parallel rows of the batch: the loss of
-batch 0 and every parameter's gradient, summed over the data-parallel
-ranks as the optimizer sums them; and, where the case asks for steps, that
-many ``build_train_step`` steps from the same weights, one batch each.
-Writes the loss, the gradients, the step losses and the updated
-parameters to ``rank{RANK}.npz``.  Imports only torch, numpy and the port.
+mesh (dp, d1, d2) and ``pods``, chunks, optimizer mode and steps; or a
+list of such cases under ``cases``, each with a ``name``, on one mesh
+size), the JAX global weights ``params.npz`` and the global batches
+``batches.npz`` (or the files a case names under ``params`` and
+``batches``) from CASE_DIR, and joins the gloo group through a file
+store there.  Then per case, on this rank's shard and its data-parallel
+rows of the batch: the loss of batch 0 and every parameter's gradient,
+summed over the data-parallel ranks as the optimizer sums them; and,
+where the case asks for steps, that many ``build_train_step`` steps from
+the same weights, one batch each.  Writes the loss, the gradients, the
+step losses and grad norms, the updated parameters and, for a
+``compressed`` case, the AdamW moments and the error-feedback residuals
+after every step to ``rank{RANK}.npz`` (``{name}_rank{RANK}.npz`` for a
+named case).  Imports only torch, numpy and the port.
 """
 import dataclasses
 import json
@@ -48,21 +54,17 @@ def flatten(tree, prefix="") -> dict:
         if isinstance(v, dict):
             out.update(flatten(v, f"{prefix}{k}/"))
         else:
-            out[f"{prefix}{k}"] = v.detach().numpy()
+            out[f"{prefix}{k}"] = v.detach().numpy().copy()  # m, v, err change in place
     return out
 
 
-def main(rank: int, case_dir: Path) -> None:
-    torch.set_num_threads(1)
-    case = json.loads((case_dir / "case.json").read_text())
-    topo = atp_topo(*case["mesh"])
-    dist.init_process_group("gloo", init_method=f"file://{case_dir}/store",
-                            rank=rank, world_size=topo.size)
+def run_case(rank: int, case: dict, case_dir: Path) -> dict:
+    topo = atp_topo(*case["mesh"], pods=case.get("pods", 1))
     cfg = get_config(case["arch"]).reduced()
     if case.get("layers"):
         cfg = dataclasses.replace(cfg, num_layers=case["layers"])
-    params = unflatten(np.load(case_dir / "params.npz"))
-    flat = np.load(case_dir / "batches.npz")
+    params = unflatten(np.load(case_dir / case.get("params", "params.npz")))
+    flat = np.load(case_dir / case.get("batches", "batches.npz"))
     ctx = make_context(topo, chunks=case["chunks"], device_type="cpu")
     dp, i = ctx.dp, ctx.dp_index()
 
@@ -89,13 +91,31 @@ def main(rank: int, case_dir: Path) -> None:
             chunks=case["chunks"], remat=False, device="cpu")
         tp = convert.params_from_jax(cfg, params, topo, rank)
         state = adamw.init_opt_state(tp, info.ctx, case["mode"])
-        losses = []
+        losses, norms = [], []
         for n in range(case["steps"]):
             tp, state, m = step(tp, state, local(n))
             losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if "err" in state:
+                out.update(flatten(state["err"], f"err{n}/"))
+                out.update(flatten(state["leaves"], f"opt{n}/"))
         out["losses"] = np.asarray(losses)
+        out["grad_norms"] = np.asarray(norms)
         out.update(flatten(tp, "param/"))
-    np.savez(case_dir / f"rank{rank}.npz", **out)
+    return out
+
+
+def main(rank: int, case_dir: Path) -> None:
+    torch.set_num_threads(1)
+    spec = json.loads((case_dir / "case.json").read_text())
+    cases = spec.get("cases", [spec])
+    world = int(np.prod(cases[0]["mesh"])) * cases[0].get("pods", 1)
+    dist.init_process_group("gloo", init_method=f"file://{case_dir}/store",
+                            rank=rank, world_size=world)
+    for case in cases:
+        name = f"{case['name']}_" if "name" in case else ""
+        np.savez(case_dir / f"{name}rank{rank}.npz",
+                 **run_case(rank, case, case_dir))
     dist.barrier()
     dist.destroy_process_group()
 

@@ -9,9 +9,10 @@ the region the model code opens.  Here the forward regions of one training
 step on CPU gloo meshes must equal the expectation exactly, count and raw
 bytes per (region, op, axes, quant), for reduced llama3-8b, gpt-m1 and
 zamba2-7b (5 layers: two zamba super-blocks and a Mamba2 tail) with chunks
-1 and 2 on (1, 2, 2), and with chunks 1 on (1, 4, 1) and (2, 2, 1).  Each
-mesh starts four ranks of ``_torch_plan_worker.py`` once, for all of its
-cases, the three meshes at once.
+1 and 2 on (1, 2, 2), and with chunks 1 on (1, 4, 1) and (2, 2, 1); and
+reduced llama3-8b on two data-parallel axes, (pods 2, data 2, 1, 1), with
+chunks 1.  Each mesh starts four ranks of ``_torch_plan_worker.py`` once,
+for all of its cases, the four meshes at once.
 
 The port departs from the reference's inventory at two keys, both with
 fewer wire bytes or fewer calls (ROADMAP §C lists them); :func:`departed`
@@ -24,8 +25,13 @@ applies exactly these two to the expectation before the comparison:
     invariance typing): one call per super-block either way, half the wire
     bytes of the all-reduce;
   - ``shell:loss``: the mean's denominator is known on every rank, so the
-    port all-reduces the loss sum only (one f32 element over data) where
-    the reference also all-reduces the token count.
+    port all-reduces the loss sum only (one f32 element over the dp axes)
+    where the reference also all-reduces the token count.
+
+On a plan with pods the expectation itself names the loss's all-reduce
+over ("data",) alone, though the reference's step reduces the loss over
+("pod", "data"), as the port does: :func:`departed` names that key's axes
+as the step issues them (ROADMAP §C), its counts and bytes unchanged.
 """
 import dataclasses
 import json
@@ -49,8 +55,16 @@ LAYERS = {"zamba2-7b": 5}
 #: (global batch, sequence) per mesh and arch: two rows a dp rank, so that
 #: chunks 2 splits the batch; zamba's sequence is two reduced SSD chunks
 SEQ = {"llama3-8b": 16, "gpt-m1": 16, "zamba2-7b": 32}
-#: the meshes (dp, d1, d2) and the chunks each runs
-MESHES = {(1, 2, 2): (1, 2), (1, 4, 1): (1,), (2, 2, 1): (1,)}
+#: the meshes (dp, d1, d2[, pods]) and the chunks each runs
+MESHES = {(1, 2, 2): (1, 2), (1, 4, 1): (1,), (2, 2, 1): (1,),
+          (2, 1, 1, 2): (1,)}
+#: the archs of a mesh where not ``ARCHS``: (pods 2, data 2) holds the
+#: loss and the optimizer over both dp axes
+MESH_ARCHS = {(2, 1, 1, 2): ("llama3-8b",)}
+
+
+def archs_of(mesh):
+    return MESH_ARCHS.get(mesh, ARCHS)
 
 
 def ref_config(arch):
@@ -64,11 +78,12 @@ def make_plan(arch, mesh, chunks) -> ParallelPlan:
     """The plan a case runs: every segment at ``chunks``, except that a
     zamba2-7b tail of Mamba2 blocks keeps chunks 1, so that two segments of
     one step run different knobs."""
-    dp, d1, d2 = mesh
+    dp, d1, d2, *pods = mesh
     segs = tuple(SegmentPlan(kind=s.kind,
                              chunks=1 if s.kind == "mamba" else chunks)
                  for s in segments(ref_config(arch)))
-    return ParallelPlan(d1=d1, d2=d2, dp=dp, chunks=chunks, segments=segs,
+    return ParallelPlan(d1=d1, d2=d2, dp=dp, pods=pods[0] if pods else 1,
+                        chunks=chunks, segments=segs,
                         provenance=(("searcher", "test"),))
 
 
@@ -77,7 +92,8 @@ def case_name(arch, chunks):
 
 
 def batch_of(mesh):
-    return 2 * mesh[0]
+    """Two rows a dp rank."""
+    return 2 * mesh[0] * (mesh[3] if len(mesh) > 3 else 1)
 
 
 def departed(exp: dict, cfg, plan, batch: int, seq: int) -> dict:
@@ -85,7 +101,7 @@ def departed(exp: dict, cfg, plan, batch: int, seq: int) -> dict:
     of ``seq`` tokens with the port's two documented departures applied
     (module docstring); the bytes-known flag dropped."""
     want = {k: (n, b) for k, (n, b, _) in exp.items()}
-    rows = batch // plan.dp
+    rows = batch // (plan.dp * plan.pods)
 
     def move(src, dst, count, nbytes):
         n, b = want[src]
@@ -101,8 +117,14 @@ def departed(exp: dict, cfg, plan, batch: int, seq: int) -> dict:
             nbytes = seg.count * rows * seq * cfg.d_model * 2   # bf16
             move((region, "psum", ("tp1",), False),
                  (region, "all_gather", ("tp1",), False), seg.count, nbytes)
-    loss = ("shell:loss", "psum", ("data",), False)
-    if loss in want:
+    if plan.pods > 1:
+        # the expectation names ("data",) whatever the pods
+        # (repro/analysis/expect.py:618); the reference's train_loss
+        # reduces over ctx.dp_axes, ("pod", "data") (repro/models/lm.py:
+        # 866-868), as the port does
+        want[("shell:loss", "psum", ("pod", "data"), False)] = want.pop(
+            ("shell:loss", "psum", ("data",), False))
+    for loss in [k for k in want if k[:2] == ("shell:loss", "psum")]:
         assert want[loss] == (2, 8), want[loss]   # the sum and the count
         want[loss] = (1, 4)
     return want
@@ -131,7 +153,7 @@ def write_cases(tmp_path, mesh):
                   plan=make_plan(a, mesh, c).to_dict(),
                   batch=batch_of(mesh), seq=SEQ[a],
                   remat=(mesh, a, c) == REMAT)
-             for c in MESHES[mesh] for a in ARCHS]
+             for c in MESHES[mesh] for a in archs_of(mesh)]
     (tmp_path / "case.json").write_text(json.dumps(
         dict(mesh=mesh, cases=cases)))
 
@@ -149,7 +171,7 @@ def records(tmp_path_factory):
 
 
 CASES = [(mesh, arch, c) for mesh, chunks in MESHES.items()
-         for c in chunks for arch in ARCHS]
+         for c in chunks for arch in archs_of(mesh)]
 
 
 def _result(records, mesh, arch, chunks, rank):
@@ -177,6 +199,20 @@ def test_forward_collectives_equal_the_plans_expectation(records, mesh, arch,
         # the gradients' all-reduces (and remat's recompute of the forward)
         assert "psum" in res["bwd_ops"] and res["bwd_count"] > 0
         assert [r for r in res["bwd_regions"] if r.startswith("opt:")]
+
+
+def test_two_dp_axes_reduce_the_loss_and_the_optimizer_over_both(records):
+    """On (pods 2, data 2) the loss sum goes over ("pod", "data"), as the
+    reference's expectation has it, and so does every optimizer
+    collective of a dp reduction (the flat dp group); none goes over one
+    of the two alone."""
+    mesh = (2, 1, 1, 2)
+    for rank in range(4):
+        res = _result(records, mesh, "llama3-8b", 1, rank)
+        got = recorded(res)
+        assert got[("shell:loss", "psum", ("pod", "data"), False)] == (1, 4)
+        axes = {tuple(a) for a in res["opt_axes"]}
+        assert axes == {("pod", "data")}, axes
 
 
 def test_the_check_has_teeth(records):

@@ -668,6 +668,143 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, width):
     assert _rel(dgamma, want_dg) <= DGAMMA_REL
 
 
+#: the split dx, relative L2, against the plain apply on the same rstd and
+#: dot and against the whole-row backward kernel (the same fp32 arithmetic
+#: in another order, rounded to bf16).  The dot's term is about 1/sqrt(h)
+#: of dx here, so a dx given one slice's dot for the all-reduced one is
+#: 1e-2 off
+SPLIT_DX_REL = 1e-3
+
+
+def _split(cuda, rows, h, d2, eps=1e-5, seed=11, local_dot=False):
+    """The split rmsnorm of ``x [rows, h]`` on ``d2`` slices through its
+    four wrappers, the tp2 all-reduce played in one process (the slices'
+    row sums added): every slice's forward first, then every backward.
+    ``local_dot``: the backward apply reads slice 0's own dot (a planted
+    fault); ``dot`` is the all-reduced one all the same."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(rows, h, generator=gen, device=cuda) * 3).bfloat16()
+    g = torch.rand(h, generator=gen, device=cuda) + 0.5
+    dy = torch.randn(rows, h, generator=gen, device=cuda).bfloat16()
+    w = h // d2
+    xs = [x[:, i * w:(i + 1) * w].contiguous() for i in range(d2)]
+    gs = [g[i * w:(i + 1) * w].contiguous() for i in range(d2)]
+    dys = [dy[:, i * w:(i + 1) * w].contiguous() for i in range(d2)]
+    ss = [ops.rmsnorm_ss(xi) for xi in xs]
+    total = torch.stack(ss).sum(0)
+    applied = [ops.rmsnorm_apply(xi, gi, total, h, eps)
+               for xi, gi in zip(xs, gs)]
+    back = [ops.rmsnorm_bwd_partial(xi, gi, di, r)
+            for xi, gi, di, (_, r) in zip(xs, gs, dys, applied)]
+    dot = torch.stack([d for d, _ in back]).sum(0)
+    dxs = [ops.rmsnorm_bwd_apply(xi, gi, di, r,
+                                 back[0][0] if local_dot else dot, h)
+           for xi, gi, di, (_, r) in zip(xs, gs, dys, applied)]
+    return dict(x=x, g=g, dy=dy, xs=xs, gs=gs, dys=dys, ss=ss, total=total,
+                applied=applied, back=back, dot=dot, dxs=dxs)
+
+
+def _ulp(x):
+    xf = x.float()
+    return torch.ldexp(torch.ones_like(xf), torch.frexp(xf)[1] - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h,d2", [(2048, 4096, 2), (37, 3584, 4),
+                                       (4, 2304, 2)])
+def test_split_rmsnorm_kernels_match_plain_and_the_whole_row(cuda, rows, h,
+                                                            d2):
+    """The four split kernels against their plain versions on the same
+    inputs (the fp32 partial sums within 1e-5 relative, y within one bf16
+    ulp, dx within ``SPLIT_DX_REL``), and the slices together against the
+    whole-row kernels: y within one bf16 ulp, dx and dgamma within 1e-3
+    relative L2.  Each wrapper call is one launch."""
+    eps = 1e-5
+    before = dict(ops.SPLIT_LAUNCHES)
+    run = _split(cuda, rows, h, d2, eps)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in ops.SPLIT_LAUNCHES.items()} == \
+        dict.fromkeys(ops.SPLIT_LAUNCHES, d2)
+    for xi, gi, di, s, (y, r), (dot, dg), dxi in zip(
+            run["xs"], run["gs"], run["dys"], run["ss"], run["applied"],
+            run["back"], run["dxs"]):
+        assert s.shape == (rows,) and s.dtype == torch.float32
+        assert float(((s - ref.rmsnorm_ss_ref(xi)).abs()
+                      / ref.rmsnorm_ss_ref(xi)).max()) <= 1e-5
+        py, pr = ref.rmsnorm_apply_ref(xi, gi, run["total"], h, eps)
+        assert bool(((y.float() - py.float()).abs() <= _ulp(py)).all())
+        assert float(((r - pr).abs() / pr).max()) <= 1e-5
+        pdot, pdg = ref.rmsnorm_bwd_partial_ref(xi, gi, di, r)
+        assert _rel(dot, pdot) <= 1e-5 and _rel(dg, pdg) <= 1e-5
+        assert _rel(dxi, ref.rmsnorm_bwd_apply_ref(xi, gi, di, r, run["dot"],
+                                                   h)) <= SPLIT_DX_REL
+    whole = ops.rmsnorm(run["x"], run["g"], eps=eps)
+    y = torch.cat([y for y, _ in run["applied"]], -1)
+    assert bool(((y.float() - whole.float()).abs() <= _ulp(whole)).all())
+    wdx, wdg = ops.rmsnorm_backward(run["x"], run["g"], run["dy"], eps=eps)
+    assert _rel(torch.cat(run["dxs"], -1), wdx) <= SPLIT_DX_REL
+    assert _rel(torch.cat([dg for _, dg in run["back"]], -1), wdg) <= \
+        DGAMMA_REL
+
+
+@pytest.mark.cuda
+def test_split_rmsnorm_function_runs_the_kernels_under_autograd(cuda):
+    """``ops.split_rmsnorm`` at d2 = 1 (``reduce`` the identity: one slice
+    is the whole row) forward and backward through the four kernels,
+    against the whole-row kernels; ``reduce`` sees the fp32 row sums twice
+    (sum x^2, then sum dy gamma x)."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = (torch.randn(64, 2048, generator=gen, device=cuda) * 2).bfloat16()
+    g = torch.rand(2048, generator=gen, device=cuda) + 0.5
+    dy = torch.randn(64, 2048, generator=gen, device=cuda).bfloat16()
+    seen = []
+    xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    before = dict(ops.SPLIT_LAUNCHES)
+    y = ops.split_rmsnorm(xl, gl, width=2048, eps=1e-5,
+                          reduce=lambda t: seen.append(t.shape))
+    dx, dg = torch.autograd.grad(y, (xl, gl), dy)
+    torch.cuda.synchronize()
+    assert seen == [(64,), (64,)]
+    assert all(ops.SPLIT_LAUNCHES[k] == v + 1 for k, v in before.items())
+    whole = ops.rmsnorm(x, g, eps=1e-5)
+    assert bool(((y.float() - whole.float()).abs() <= _ulp(whole)).all())
+    wdx, wdg = ops.rmsnorm_backward(x, g, dy, eps=1e-5)
+    assert _rel(dx, wdx) <= SPLIT_DX_REL and _rel(dg, wdg) <= DGAMMA_REL
+
+
+@pytest.mark.cuda
+def test_split_rmsnorm_planted_fault_and_refusals(cuda):
+    """Two planted faults, each far from the whole row: the apply kernel
+    given slice 0's own sum of squares (no all-reduce) fails the one-ulp
+    check; the backward apply given slice 0's own dot fails the 1e-3
+    check on dx, against the plain apply and against the whole-row
+    backward, at each width and d2.  The wrappers refuse a width that is
+    not a multiple of 8 or above ``RMSNORM_MAX_WIDTH``, fp32 rows and a
+    bf16 gamma."""
+    run = _split(cuda, 256, 4096, 2)
+    x0, g0 = run["xs"][0], run["gs"][0]
+    bad, _ = ops.rmsnorm_apply(x0, g0, run["ss"][0], 4096, 1e-5)
+    good = ops.rmsnorm(run["x"], run["g"], eps=1e-5)[:, :2048]
+    assert not bool(((bad.float() - good.float()).abs()
+                     <= _ulp(good)).all())
+    for h, d2 in ((4096, 2), (3584, 4), (2304, 2)):
+        bad = _split(cuda, 256, h, d2, local_dot=True)
+        wdx, _ = ops.rmsnorm_backward(bad["x"], bad["g"], bad["dy"], eps=1e-5)
+        assert _rel(torch.cat(bad["dxs"], -1), wdx) > SPLIT_DX_REL, (h, d2)
+        for xi, gi, di, (_, r), dxi in zip(bad["xs"], bad["gs"], bad["dys"],
+                                           bad["applied"], bad["dxs"]):
+            assert _rel(dxi, ref.rmsnorm_bwd_apply_ref(
+                xi, gi, di, r, bad["dot"], h)) > SPLIT_DX_REL, (h, d2)
+    for shape in ((4, 1020), (4, 4104)):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ops.rmsnorm_ss(torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=cuda))
+    with pytest.raises(TypeError, match="bf16"):
+        ops.rmsnorm_ss(torch.zeros(4, 1024, device=cuda))
+    with pytest.raises(ValueError, match="fp32 gamma"):
+        ops.rmsnorm_apply(x0, g0.bfloat16(), run["total"], 4096, 1e-5)
+
+
 @pytest.mark.cuda
 def test_backward_kernels_are_deterministic(cuda):
     """No float atomics: two runs give the same bits."""

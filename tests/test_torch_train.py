@@ -306,15 +306,22 @@ def test_zamba_three_plain_adamw_steps_match_jax():
 
 
 def test_adamw_refuses_what_is_not_ported():
+    """What the training step still refuses: an AdamW mode the JAX package
+    does not have (plain, zero1 and compressed are ported), and a ring
+    boundary (ROADMAP A8), refused when the step's context is built."""
+    from repro_torch.core.plan import ParallelPlan
+
     pcfg = port_config("llama3-8b").reduced()
     tp = convert.params_from_jax(pcfg, jax_params("llama3-8b")[1], TOPO, 0)
     ctx = make_context(TOPO, device_type="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
-        adamw.init_opt_state(tp, ctx, "compressed")
-    # two data-parallel axes (pod and data), refused before any process
-    # group is needed
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
-        build_train_step(pcfg, atp_topo(2, 1, 1, pods=2), device="cpu")
+    with pytest.raises(ValueError, match="unknown AdamW mode"):
+        adamw.init_opt_state(tp, ctx, "lion")
+    state = adamw.init_opt_state(tp, ctx, "plain")
+    with pytest.raises(ValueError, match="unknown AdamW mode"):
+        adamw.apply_adamw(adamw.AdamWConfig(mode="lion"), ctx, tp, tp, state)
+    with pytest.raises(NotImplementedError, match="A8"):
+        build_train_step(pcfg, device="cpu", plan=ParallelPlan(
+            d1=1, d2=1, boundary_mode="ring"))
     assert adamw.lr_at(adamw.AdamWConfig(warmup_steps=2), 0) == 1.5e-4
 
 
