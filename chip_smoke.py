@@ -111,6 +111,28 @@ Phases, in order, each failing the run on any error:
    llama3-8b's 2048 training rows at d2 = 2 against its bound from bytes,
    its plain version and the whole-row kernel over the same rows; no
    PyTorch call computes the split form.
+7c. int8-matmul -- the matmul's int8 ``scale`` mode (``csrc/matmul_int8.cu``,
+   ``ops.matmul_int8``) on llama3-8b's three projections at 64 and 2048
+   rows, with bias and gelu and with neither, each quantized from bf16 by
+   ``ops.quantize_for_matmul`` as a user calls it; the launches counted
+   (``ops.QUANT_LAUNCHES``, this path's row of the result line); each
+   output against ``ref.matmul_int8_ref`` (bit for bit with no epilogue,
+   within ``MM_TOL`` with it), a planted fault (the scale after the bias)
+   that must fail, and each shape timed beside its bound (int8 peak or
+   bytes), its plain version and ``torch._int_mm`` with the epilogue in
+   torch.
+7d. quant-wire -- llama3-8b at full width, 2 layers, one training step's
+   forward and backward of 256 tokens on a (1, 2, 1) mesh of two processes
+   on the card over gloo, on the bf16, int8 and fp8 wires (psum
+   boundaries: the only collective this mesh issues is the all-reduce,
+   the one gloo moves for CUDA tensors): the losses and each gradient
+   within ``QUANT_TOL`` of the bf16 wire's and within ``QUANT_BWD`` of the
+   same wire with the forward alone quantized, equal losses on both ranks,
+   one quantized pmax and one quantized f32 all-reduce per row boundary in
+   each forward record; the plain witness (``wire_witness_loss``, one
+   process, no kernel of the port) on the same weights and batch, within
+   ``QUANT_TOL`` too; a planted fault (each rank quantizing with its own
+   amax, no pmax) must fail the loss's bound and the gradients'.
 8. train -- ``launch.steps.build_train_step`` on llama3-8b at full width
    with the depth cut to 4 layers, b = 1, s = 2048, bf16 weights and fp32
    AdamW moments, remat on: 6 steps on one repeated batch; the loss must
@@ -240,7 +262,8 @@ and the training attention kernel at the llama3-8b training step's, the
 two Mamba2 backward kernels at the zamba
 training step's, the activation's derivative at the gpt-m2 training
 step's, the four split rmsnorm kernels at the split-norm phase's launches
-and a launch's time at llama3-8b's training rows at d2 = 2; the llama3-8b serving rows and the training steps' other rows go
+and a launch's time at llama3-8b's training rows at d2 = 2, the int8
+matmul at the int8-matmul phase's twelve projections; the llama3-8b serving rows and the training steps' other rows go
 to the log and, with every check, to
 ``kernel_checks.json`` in the output directory) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -267,7 +290,7 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
           "serve-zamba", "path-check-zamba", "train-kernels", "split-norm",
-          "train",
+          "int8-matmul", "quant-wire", "train",
           "path-check-train", "train-zamba-kernels", "train-zamba",
           "path-check-train-zamba", "train-gpt-kernels", "train-gpt",
           "path-check-train-gpt", "plan")
@@ -281,6 +304,8 @@ TRAIN_ZAMBA = "train-zamba"
 TRAIN_GPT = "train-gpt"
 #: the split rmsnorm's checked run (d2 > 1): its four kernels' rows
 SPLIT = "split-norm"
+#: the int8 matmul's checked run: the quantized llama3-8b projections
+INT8 = "int8-matmul"
 
 BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_TFLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
@@ -2293,6 +2318,587 @@ def split_norm_phase(torch, ops, ref, timer, floor, dev="cuda"):
     return list(reports.values()), launches
 
 
+# ---------------------------------------------------------------------------
+# The matmul's int8 ``scale`` mode, and the quantized wire on the card.
+# ---------------------------------------------------------------------------
+
+#: llama3-8b's projections (name, K, N) at the rows of a serving chunk and
+#: of a training step, with bias and gelu and with neither
+INT8_GEMMS = (("q|k|v", 4096, 6144), ("up|gate", 4096, 28672),
+              ("down", 14336, 4096))
+INT8_ROWS = (64, 2048)
+INT8_EPILOGUES = ((False, None), (True, "gelu"))
+INT8_TOPS = 1979e12   # H100 SXM dense int8 tensor-core peak
+
+
+def scale_after_bias(torch, ref, qa, qb, bias, scale, activation):
+    """A planted fault: the int8 epilogue with the dequant scale applied
+    after the bias."""
+    acc = (qa.double() @ qb.double()).float()
+    return ref.epilogue((acc + bias.float()) * scale, None,
+                        activation).to(torch.bfloat16)
+
+
+def int8_inputs(torch, gen, m, k, n, dev):
+    """A quantized projection's operands as a user makes them: bf16
+    activations and weights through ``ops.quantize_for_matmul``."""
+    from repro_torch.kernels import ops
+
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device=dev)
+         / k ** 0.5).to(torch.bfloat16)
+    bias = (torch.randn(n, generator=gen, device=dev) * 0.1).to(
+        torch.bfloat16)
+    (qa, sa), (qb, sb) = ops.quantize_for_matmul(x), ops.quantize_for_matmul(w)
+    return qa, qb, bias, float(sa * sb)
+
+
+def int8_matmul_phase(torch, ops, ref, timer, floor, dev="cuda"):
+    """The int8 matmul kernel on llama3-8b's projections (``INT8_GEMMS`` at
+    ``INT8_ROWS``, ``INT8_EPILOGUES``).  The path: each projection
+    quantized and multiplied as a user calls it, counted; then the kernel
+    against ``ref.matmul_int8_ref`` on the same operands (equal bit for bit
+    with no activation: the int32 sum is exact and the scale one f32
+    product; with bias and gelu within ``MM_TOL``, as the bf16 kernel's
+    epilogue: tanhf against torch's gelu in f32, then the bf16 rounding),
+    a planted fault (the scale after the bias) that the same check must
+    catch, and each shape
+    timed against the plain version, the bound and ``torch._int_mm``
+    (cuBLASLt int8 -> int32) with the same epilogue in torch.  Returns the
+    KernelReport and the path's launches."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rep = KernelReport("matmul_int8", "cuda",
+                       "src/repro_torch/kernels/csrc/matmul_int8.cu",
+                       "src/repro/kernels/matmul.py:102", floor)
+    shapes = [(name, m, k, n, has_bias, act)
+              for name, k, n in INT8_GEMMS for m in INT8_ROWS
+              for has_bias, act in INT8_EPILOGUES]
+    inputs = [int8_inputs(torch, gen, m, k, n, dev)
+              for _, m, k, n, _, _ in shapes]
+
+    def call(i):
+        (_, _, _, _, has_bias, act), (qa, qb, bias, scale) = shapes[i], \
+            inputs[i]
+        return ops.matmul_int8(qa, qb, bias if has_bias else None,
+                               scale=scale, activation=act)
+
+    ops.reset_launches()
+    outs = [call(i) for i in range(len(shapes))]
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(ops.QUANT_LAUNCHES)
+    log(f"int8-matmul: {len(shapes)} quantized llama3-8b projections, "
+        f"launches {launches}")
+    failed = [] if launches["matmul_int8"] == len(shapes) else [
+        f"launches {launches}, expected {len(shapes)}"]
+    for i, ((name, m, k, n, has_bias, act), (qa, qb, bias, scale)) in \
+            enumerate(zip(shapes, inputs)):
+        b = bias if has_bias else None
+        want = ref.matmul_int8_ref(qa, qb, b, scale=scale, activation=act)
+        if act is None:
+            ok, err = bool(torch.equal(outs[i], want)), float(
+                (outs[i].float() - want.float()).abs().max())
+        else:
+            ok, err = within(outs[i], want, **MM_TOL)
+        ulps = float(((outs[i].float() - want.float()).abs()
+                      / bf16_ulp(torch, want)).max())
+        label = (f"{name} [{m}x{k}]@[{k}x{n}] "
+                 f"{'bias+' + act if has_bias else 'no epilogue'} "
+                 f"({ulps:.0f} bf16 ulp at most)")
+        if has_bias and i == len(shapes) - 1:
+            bad = scale_after_bias(torch, ref, qa, qb, bias, scale, act)
+            caught = not within(outs[i], bad, **MM_TOL)[0]
+            log(f"  planted fault (the scale after the bias) "
+                f"{'caught' if caught else 'MISSED'}")
+            if not caught:
+                failed.append("planted scale-after-bias fault missed")
+
+        def library(qa=qa, qb=qb, b=b, scale=scale, act=act):
+            acc = torch._int_mm(qa, qb)
+            return ref.epilogue(acc.float() * scale, b, act).to(
+                torch.bfloat16)
+
+        nbytes = m * k + k * n + 2 * m * n + (2 * n if has_bias else 0)
+        if not rep.add(label, ok, err, "exact" if act is None else MM_TOL,
+                       INT8, "train", 1,
+                       ms=timer(lambda i=i: call(i)),
+                       plain_ms=timer(lambda qa=qa, qb=qb, b=b, s=scale,
+                                      a=act: ref.matmul_int8_ref(
+                                          qa, qb, b, scale=s, activation=a)),
+                       library_ms=timer(library), nbytes=nbytes,
+                       flops=2 * m * k * n, peak=INT8_TOPS):
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"the int8 matmul kernel disagrees: {failed}")
+    return rep, launches
+
+
+#: the quant-wire phase: llama3-8b at its published widths, depth cut to
+#: (layers), one step of (batch, seq) tokens on a (1, 2, 1) mesh of two
+#: processes on the card
+QUANT_WIRE = (2, 1, 256)
+#: loss and gradient (relative L2 per leaf) distances a quantized wire may
+#: have from the bf16 wire's (an H100 80GB HBM3 at 700 W).  At these
+#: widths int8's gradients stand 0.126 from the bf16 wire's, 0.125 of it
+#: from the forward's quantization alone (heavy-tailed activations on one
+#: shared scale), and the plain witness reads 0.129 and 0.128 on the same
+#: weights; the planted own-amax fault reads 0.209 and a loss 1.2e-2 off,
+#: the sound runs 4.6e-3 at most.  int8's bounds sit between the two:
+#: 1.5e-1 (fp8's) and 8e-3
+QUANT_TOL = {"int8": (8e-3, 1.5e-1), "fp8": (3e-2, 1.5e-1)}
+#: the most the quantized backward (the cotangents on the wire: the
+#: conjugates' and the carried boundaries' all-reduces) may take the
+#: gradients' distance past the quantized forward's alone: an error of its
+#: own no larger than the forward's, the two adding in quadrature
+#: (measured on the H100: 1.007x int8, 1.15x fp8)
+QUANT_BWD = 2 ** 0.5
+#: one rank of that run (argv: the repo's root, the rank, a directory for
+#: the file store and the results, the device, "1" to plant the own-amax
+#: fault, ``QUANT_WIRE`` as JSON, the wires as JSON, the first bf16; a
+#: wire "w/forward" quantizes the forward only)
+QUANT_RANK = """import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+from repro_torch.analysis import signature
+from repro_torch.core import atp, overlap
+from repro_torch.core.atp import make_context
+from repro_torch.core.mesh import atp_topo
+from repro_torch.core.plan import ParallelPlan
+from repro_torch.kernels import ops
+from repro_torch.models import lm
+from repro_torch.optim import adamw
+rank, d, dev, fault = int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+layers, b, s = json.loads(sys.argv[6])
+wires = json.loads(sys.argv[7])
+dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=2)
+if fault == "1":   # each rank quantizes with its own amax: no pmax
+    quantize = overlap.wire_quantize
+    overlap.wire_quantize = lambda x, group, axes, w: quantize(x, None,
+                                                               axes, w)
+cfg, params, batch = cs.quant_wire_model(torch, rank, dev)
+leaves = adamw.tree_leaves(params)
+for t in leaves:
+    t.requires_grad_(True)
+out, ref_grads = {"h": cfg.d_model}, None
+conjugate = atp.conjugate
+for name in wires:
+    wire, _, only = name.partition("/")
+    if only:   # the gradients' all-reduces at full width
+        atp.conjugate = lambda ctx, x, axis, wire=False: conjugate(ctx, x,
+                                                                   axis)
+    ctx = make_context(atp_topo(1, 2, 1), plan=ParallelPlan(
+        d1=2, d2=1, wire_dtype=wire), device_type="cpu")
+    ops.reset_launches()
+    with signature.recording("fwd") as rec:
+        loss = lm.train_loss(ctx, cfg, params, batch, remat=False)
+    with signature.recording("bwd", rec):
+        grads = torch.autograd.grad(loss, leaves)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    atp.conjugate = conjugate
+    if ref_grads is None:
+        ref_grads = grads
+    out[name] = dict(loss=float(loss), launches=dict(ops.LAUNCHES),
+                     fwd=rec.by_key("fwd"), bwd=rec.by_key("bwd"),
+                     rel=max(cs.rel_l2(g, w) for g, w in zip(grads,
+                                                             ref_grads)))
+torch.save(out, f"{d}/rank{rank}.pt")
+dist.destroy_process_group()
+"""
+
+
+def quant_wire_model(torch, rank: int, dev: str):
+    """``QUANT_WIRE``'s config, this rank's shard of seeded bf16 weights on
+    the (1, 2, 1) mesh, and one seeded batch."""
+    import numpy as np
+
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+
+    layers, b, s = QUANT_WIRE
+    cfg = _train_config("llama3-8b", layers)
+    params = lm.shard_params(cfg, lm.init_params(cfg, seed=0, device=dev),
+                             lm.layout_context(atp_topo(1, 2, 1), rank))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s + 1))
+    batch = {"tokens": torch.tensor(toks[:, :-1], dtype=torch.int32,
+                                    device=dev),
+             "labels": torch.tensor(toks[:, 1:], dtype=torch.int32,
+                                    device=dev)}
+    return cfg, params, batch
+
+
+def quant_wire_run(torch, dev: str, fault: bool, wires) -> list:
+    """Both ranks' results of ``QUANT_RANK`` on ``wires`` (bf16 first)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen([sys.executable, "-c", QUANT_RANK,
+                                   str(ROOT), str(r), d, dev,
+                                   "1" if fault else "0",
+                                   json.dumps(QUANT_WIRE),
+                                   json.dumps(wires)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:   # a rank that died leaves the other in a collective
+            for p in procs:
+                p.kill()
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode:
+                raise AssertionError(f"quant-wire rank {r} failed:\n{out}")
+        return [torch.load(f"{d}/rank{r}.pt") for r in range(2)]
+
+
+def quant_wire_faults(res) -> list:
+    """What is wrong with a quant-wire run: a quantized wire's loss or
+    gradients too far from the bf16 wire's, ranks that disagree on a loss,
+    a forward record without one quantized pmax and one quantized f32
+    all-reduce per row boundary (two a layer) or with a full-width
+    all-reduce of a block's payload, a path that launched no matmul."""
+    layers, b, s = QUANT_WIRE
+    h = res[0]["h"]
+    faults = []
+    for wire in [w for w in res[0] if w != "h" and "/" not in w]:
+        losses = {r[wire]["loss"] for r in res}
+        if len(losses) != 1:
+            faults.append(f"{wire}: the ranks' losses differ: {losses}")
+        for i, r in enumerate(res):
+            run = r[wire]
+            if run["launches"]["matmul"] == 0:
+                faults.append(f"{wire} rank {i}: no matmul launched")
+            fwd = run["fwd"]
+            plain = fwd.get(("seg0:dense", "psum", ("tp1",), False))
+            if wire == "bf16":
+                continue
+            tl, tg = QUANT_TOL[wire]
+            dl = abs(run["loss"] - res[0]["bf16"]["loss"])
+            if dl > tl:
+                faults.append(f"{wire} rank {i}: loss off by {dl:.3e}")
+            if run["rel"] > tg:
+                faults.append(f"{wire} rank {i}: gradients "
+                              f"{run['rel']:.3e} rel L2")
+            fwd_only = r.get(f"{wire}/forward")
+            if fwd_only and run["rel"] > QUANT_BWD * fwd_only["rel"] + 1e-3:
+                faults.append(f"{wire} rank {i}: the quantized backward "
+                              f"takes the gradients from {fwd_only['rel']:.3e}"
+                              f" to {run['rel']:.3e} rel L2")
+            want = {("seg0:dense", "pmax", ("tp1",), True): (
+                        2 * layers, 4 * 2 * layers),
+                    ("seg0:dense", "psum", ("tp1",), True): (
+                        2 * layers, 4 * 2 * layers * b * s * h)}
+            got = {k: v for k, v in fwd.items() if k[3]}
+            if got != want or plain is not None:
+                faults.append(f"{wire} rank {i}: record {got}, full-width "
+                              f"{plain}; expected {want}")
+    return faults
+
+
+def quant_wire_phase(torch, dev="cuda") -> dict:
+    """The quantized wire on psum boundaries: two processes on the one card
+    over gloo (its all-reduce takes CUDA tensors; this mesh issues nothing
+    else), mesh (1, 2, 1), llama3-8b at its widths cut to
+    ``QUANT_WIRE``'s depth, one step's forward and backward on the bf16,
+    int8 and fp8 wires: the losses within ``QUANT_TOL`` of the bf16 wire's,
+    each gradient within its relative L2, and within ``QUANT_BWD`` times
+    the distance the same wire gives quantizing the forward only, equal
+    losses on both ranks, one quantized pmax and one quantized f32
+    all-reduce per row boundary in each forward record; the plain
+    witness's distances within ``QUANT_TOL`` (the bound admits an
+    implementation independent of the port); then a planted fault (each
+    rank's own amax, no pmax) that must fail both the loss's bound and the
+    gradients'.  Returns rank 0's launches on the int8 wire."""
+    wires = ["bf16", "int8", "fp8", "int8/forward", "fp8/forward"]
+    res = quant_wire_run(torch, dev, False, wires)
+    for wire in wires:
+        r = res[0][wire]
+        log(f"quant-wire {wire}: losses {[x[wire]['loss'] for x in res]}, "
+            f"gradients' largest rel L2 from the bf16 wire "
+            f"{[x[wire]['rel'] for x in res]}; rank 0 forward record "
+            f"{sorted(r['fwd'].items())}; launches {r['launches']}")
+    faults = quant_wire_faults(res)
+    wit = quant_wire_witness(torch, dev)
+    for wire, r in wit.items():
+        log(f"quant-wire witness {wire}: loss {r['loss']!r} (off by "
+            f"{r['dl']!r}), gradients' largest rel L2 from its exact ones "
+            f"{r['rel']!r} ({r['leaf']})")
+        tl, tg = QUANT_TOL.get(wire.partition("/")[0], (0.0, 0.0))
+        if r["dl"] > tl or r["rel"] > tg:
+            faults.append(f"the witness's {wire} wire is outside the "
+                          f"bound: {r}")
+    if faults:
+        raise AssertionError(f"the quantized wire on the card: {faults}")
+    bad = quant_wire_faults(quant_wire_run(torch, dev, True,
+                                           ["bf16", "int8"]))
+    log(f"  planted fault (each rank's own amax, no pmax): {bad}")
+    # the fault must fail the gradients' bound as well as the loss's
+    for what in ("loss", "gradients"):
+        if not any(f.startswith("int8 rank") and what in f for f in bad):
+            raise AssertionError(f"the planted own-amax fault passed the "
+                                 f"{what} check: {bad}")
+    return res[0]["int8"]["launches"]
+
+
+def quant_wire_witness(torch, dev="cuda") -> dict:
+    """``wire_witness_loss`` on the quant-wire phase's weights and batch
+    (global, one process, (1, 2, 1)): per wire its loss, the loss's
+    distance from the exact sums' and its gradients' largest relative L2
+    from theirs, with the leaf."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    layers, b, s = QUANT_WIRE
+    cfg = _train_config("llama3-8b", layers)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    names = _leaf_names(params)
+    leaves = [t.requires_grad_(True) for t in adamw.tree_leaves(params)]
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s + 1))
+    tokens = torch.tensor(toks[:, :-1], dtype=torch.int32, device=dev)
+    labels = torch.tensor(toks[:, 1:], dtype=torch.int32, device=dev)
+    out, exact = {}, None
+    for name in ("bf16", "int8", "fp8", "int8/forward", "fp8/forward"):
+        wire, _, only = name.partition("/")
+        loss = wire_witness_loss(torch, cfg, params, tokens, labels, 2, 1,
+                                 wire, backward=not only)
+        grads = torch.autograd.grad(loss, leaves)
+        lv = float(loss.detach())
+        if exact is None:
+            exact = (lv, grads)
+        rel, leaf = max((rel_l2(g, w), n) for g, w, n in
+                        zip(grads, exact[1], names))
+        out[name] = dict(loss=lv, dl=abs(lv - exact[0]), rel=rel, leaf=leaf)
+        del grads
+    del params, leaves, exact
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out.pop("bf16")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# A plain witness of the quantized wire: one process, no mesh, no kernel of
+# the port.  It computes the (dp 1, d1, d2) mesh's llama forward and
+# backward on global tensors and cuts each GEMM the mesh splits into the
+# ranks' partial products, so that every boundary the port puts on the
+# wire sums the very partials the ranks hold:
+#   forward  the row boundaries (f2, f4) over tp1 and the MLP's column
+#            boundary (f3) over tp2;
+#   backward the column-first inputs' partial gradients (q|k|v's and
+#            up|gate's) over tp1, and the cotangent of f3's output (the
+#            down projection's input gradient) over tp2.
+# Everything else is exact.  ``tests/test_torch_wire_mesh.py`` holds the
+# port's gradients to it; the quant-wire phase reads its distances at
+# full width beside the port's.
+# ---------------------------------------------------------------------------
+
+
+def witness_sum(torch, wire: str, parts, given=None, keep=None):
+    """What a boundary gives for the partial sums ``parts`` (every rank of
+    one group, in group order): their sum ("bf16"), or on the quantized
+    wire their grid values on one shared scale (the largest ``amax`` times
+    the f32 reciprocal of 127 or 448), summed in f32, times the scale, in
+    the parts' dtype.  ``given``: (each part's grid values, the scale) in
+    place of its own; ``keep(qs, quotients)``: called with its own grid
+    values."""
+    if wire == "bf16":
+        out = parts[0]
+        for t in parts[1:]:
+            out = out + t
+        return out
+    xs = [t.float() for t in parts]
+    amax = torch.stack([x.abs().amax() for x in xs]).amax()
+    qmax = 448.0 if wire == "fp8" else 127.0
+    scale = torch.clamp_min(amax * torch.tensor(
+        1.0 / qmax, dtype=torch.float32, device=amax.device), 1e-12)
+    if wire == "fp8":
+        qs = [(x / scale).to(torch.float8_e4m3fn).float() for x in xs]
+    else:
+        qs = [torch.clamp(torch.round(x / scale), -qmax, qmax) for x in xs]
+    if keep is not None:
+        keep(qs, [x / scale for x in xs])
+    if given is not None:
+        qs, scale = given
+    total = qs[0]
+    for q in qs[1:]:
+        total = total + q
+    return (total * scale).to(parts[0].dtype)
+
+
+def _witness_functions(torch):
+    class Sum(torch.autograd.Function):
+        """``reduce(parts)`` forward; each part's gradient is the sum's."""
+
+        @staticmethod
+        def forward(ctx, reduce, *parts):
+            ctx.n = len(parts)
+            return reduce(list(parts))
+
+        @staticmethod
+        def backward(ctx, g):
+            return (None,) + (g,) * ctx.n
+
+    class Fan(torch.autograd.Function):
+        """``n`` copies of x forward; backward, ``reduce`` of their
+        gradients (the ranks' partial gradients of a shared input)."""
+
+        @staticmethod
+        def forward(ctx, reduce, n, x):
+            ctx.reduce = reduce
+            return tuple(x.clone() for _ in range(n))
+
+        @staticmethod
+        def backward(ctx, *gs):
+            return None, None, ctx.reduce(list(gs))
+
+    return Sum, Fan
+
+
+def wire_witness_loss(torch, cfg, p, tokens, labels, d1: int, d2: int,
+                      wire: str = "bf16", backward: bool = True,
+                      replay=None, bwd_replay=None, own=None):
+    """The mean loss of a dense swiglu llama (RMSNorm, RoPE, grouped-query
+    causal attention, an untied head) on the global JAX-layout tree ``p``
+    as the (1, d1, d2) mesh computes it on ``wire`` (module comment);
+    ``backward=False`` keeps the gradients' sums exact.  ``replay``: the
+    forward boundaries' grid values and scales by call and rank
+    (``q{CALL}_{RANK}``, ``s{CALL}_{RANK}``, rank = i1 * d2 + i2, calls in
+    the forward's order: per layer f2, f3 where d2 > 1, f4);
+    ``bwd_replay``: the same for the backward's sums (calls in the
+    backward's order, the forward's fan-outs last to first); ``own``: a
+    dict the backward's own grid values and quotients are written to
+    (``q{CALL}_{RANK}``, ``r{CALL}_{RANK}``)."""
+    Sum, Fan = _witness_functions(torch)
+    dev = tokens.device
+    b, s = tokens.shape
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.head_dim or cfg.d_model // H
+    calls = iter(range(1 << 30))
+    fans = []   # the backward's calls, in the forward's order
+
+    def given(tree, k, ranks):
+        if tree is None:
+            return None
+        return ([torch.as_tensor(tree[f"q{k}_{r}"], device=dev)
+                 for r in ranks],
+                torch.as_tensor(tree[f"s{k}_{ranks[0]}"],
+                                device=dev).reshape(()))
+
+    def boundary(groups):
+        """One forward boundary: per group (parts, their ranks)."""
+        k = next(calls)
+        return [Sum.apply(lambda ps, g=given(replay, k, ranks):
+                          witness_sum(torch, wire, ps, g), *parts)
+                for parts, ranks in groups]
+
+    def fan(x, ranks, call):
+        """``x`` to the ranks of one group; backward, their partial
+        gradients summed as backward call ``len(fans) - 1 - call``."""
+        def reduce(gs):
+            k = len(fans) - 1 - call
+
+            def keep(qs, rs):
+                for r, q, quo in zip(ranks, qs, rs):
+                    own[f"q{k}_{r}"] = q.cpu().numpy()
+                    own[f"r{k}_{r}"] = quo.cpu().numpy()
+            return witness_sum(torch, wire if backward else "bf16", gs,
+                               given(bwd_replay, k, ranks),
+                               keep=None if own is None else keep)
+        return list(Fan.apply(reduce, len(ranks), x))
+
+    def fan_out(xs, groups):
+        """One backward call: ``xs[g]`` to the ranks ``groups[g]``."""
+        if len(groups[0]) == 1:
+            return [[x] for x in xs]
+        fans.append(len(fans))
+        return [fan(x, ranks, fans[-1]) for x, ranks in zip(xs, groups)]
+
+    def col_groups():
+        """Per tp2 block, its ranks over tp1."""
+        return [[r1 * d2 + r2 for r1 in range(d1)] for r2 in range(d2)]
+
+    def cut(w, r2, r1):
+        """Rank (r1, r2)'s block of a column-first weight [K, N]."""
+        return w.chunk(d2, 0)[r2].chunk(d1, -1)[r1]
+
+    def rms(x, g):
+        xf = x.float()
+        return (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True)
+                                 + cfg.norm_eps) * g.float()).to(x.dtype)
+
+    ang = torch.arange(s, device=dev).float()[:, None] / cfg.rope_theta ** (
+        torch.arange(0, hd, 2, device=dev).float() / hd)
+    cos, sin = torch.cos(ang)[None, :, None], torch.sin(ang)[None, :, None]
+
+    def rope(t):
+        t1, t2 = t.float().chunk(2, -1)
+        return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin],
+                         -1).to(t.dtype)
+
+    causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    x = p["embed"][tokens.long()]
+    seg = p["seg0"]
+    for layer in range(cfg.num_layers):
+        a = {k: v[layer] for k, v in seg["attn"].items()}
+        m = {k: v[layer] for k, v in seg["mlp"].items()}
+        # f1: the fused q|k|v of each rank, summed over tp2 exactly
+        hs = fan_out(rms(x, seg["ln_attn"]["scale"][layer]).chunk(d2, -1),
+                     col_groups())
+        qkv = [witness_sum(torch, "bf16", [
+            hs[r2][r1] @ torch.cat([cut(a[n], r2, r1)
+                                    for n in ("wq", "wk", "wv")], -1)
+            for r2 in range(d2)]) for r1 in range(d1)]
+        qd, kvd = H * hd // d1, KV * hd // d1
+        q = rope(torch.cat([t[..., :qd] for t in qkv], -1).view(b, s, H, hd))
+        k = rope(torch.cat([t[..., qd:qd + kvd] for t in qkv],
+                           -1).view(b, s, KV, hd))
+        v = torch.cat([t[..., qd + kvd:] for t in qkv],
+                      -1).view(b, s, KV, hd)
+        k, v = (t.repeat_interleave(H // KV, 2) for t in (k, v))
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / hd ** 0.5
+        pr = sc.masked_fill(~causal, float("-inf")).softmax(-1).to(q.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", pr, v).reshape(b, s, H * hd)
+        # f2 over tp1
+        os_ = o.chunk(d1, -1)
+        wo = [[t.chunk(d2, -1)[r2] for r2 in range(d2)]
+              for t in a["wo"].chunk(d1, 0)]
+        x = x + torch.cat(boundary([
+            ([os_[r1] @ wo[r1][r2] for r1 in range(d1)],
+             [r1 * d2 + r2 for r1 in range(d1)]) for r2 in range(d2)]), -1)
+        # f3 over tp2, which carries the down projection's input conjugate
+        hs = fan_out(rms(x, seg["ln_mlp"]["scale"][layer]).chunk(d2, -1),
+                     col_groups())
+        parts = [[hs[r2][r1] @ torch.cat([cut(m[n], r2, r1)
+                                          for n in ("w_up", "w_gate")], -1)
+                  for r2 in range(d2)] for r1 in range(d1)]
+        ug = ([ps[0] for ps in parts] if d2 == 1 else boundary([
+            (parts[r1], [r1 * d2 + r2 for r2 in range(d2)])
+            for r1 in range(d1)]))
+        acts = [[u * torch.nn.functional.silu(g)
+                 for u, g in (t.chunk(2, -1) for t in row)]
+                for row in (fan_out(ug, [[r1 * d2 + r2 for r2 in range(d2)]
+                                         for r1 in range(d1)])
+                            if d2 > 1 else [[t] for t in ug])]
+        # f4 over tp1
+        wd = [[t.chunk(d2, -1)[r2] for r2 in range(d2)]
+              for t in m["w_down"].chunk(d1, 0)]
+        x = x + torch.cat(boundary([
+            ([acts[r1][r2] @ wd[r1][r2] for r1 in range(d1)],
+             [r1 * d2 + r2 for r1 in range(d1)]) for r2 in range(d2)]), -1)
+    logits = (rms(x, p["final_norm"]["scale"]) @ p["lm_head"]).float()
+    logits, labels = logits.reshape(-1, logits.shape[-1]), labels.reshape(-1)
+    # an ignored label (-1) counts in the mean with a loss of 0
+    picked = logits.gather(-1, labels.long().clamp_min(0)[:, None])[:, 0]
+    per_tok = torch.logsumexp(logits, -1) - picked
+    return torch.where(labels == -1, torch.zeros_like(per_tok),
+                       per_tok).mean()
+
+
 #: zamba2-7b's training depth: two super-blocks of 6 and a 2-block tail
 ZAMBA_TRAIN_LAYERS = 14
 #: the zamba training path check: one super-block and a one-block tail,
@@ -3418,6 +4024,14 @@ def main(argv=None) -> int:
             torch, ops, ref, Timer(torch), floor_ms)
         reports += split_reports
         done(SPLIT)
+    if INT8 in phases:
+        int8_report, launches[INT8] = int8_matmul_phase(
+            torch, ops, ref, Timer(torch), floor_ms)
+        reports.append(int8_report)
+        done(INT8)
+    if "quant-wire" in phases:
+        quant_wire_phase(torch)
+        done("quant-wire")
     if "train" in phases:
         launches[TRAIN] = train_phase(torch)
         if args.parent is not None:
@@ -3477,7 +4091,7 @@ def main(argv=None) -> int:
 
     rows = {path: path_rows(path, reports)
             for path in ("llama3-8b", MAIN, TRAIN, TRAIN_ZAMBA, TRAIN_GPT,
-                         SPLIT)}
+                         SPLIT, INT8)}
     rows["train forward"] = path_rows(TRAIN, train_fwd)
     rows["train-zamba forward"] = path_rows(TRAIN_ZAMBA, train_zamba_fwd)
     rows["train-zamba matmul backward"] = path_rows(TRAIN_ZAMBA, zamba_mm_bwd)
@@ -3502,14 +4116,15 @@ def main(argv=None) -> int:
                        ("train-gpt step, forward", "train-gpt forward"),
                        ("train-gpt step, backward", "train-gpt backward"),
                        ("train-gpt step, backward", TRAIN_GPT),
-                       ("split rmsnorm, a launch", SPLIT)):
+                       ("split rmsnorm, a launch", SPLIT),
+                       ("int8 projections, one each", INT8)):
         for row in rows[path]:
             log(f"{what}: {row['name']} launches={row['launches']} "
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                 f"library_ms={row['library_ms']}")
     kernels = (rows[MAIN] + rows[TRAIN] + rows[TRAIN_ZAMBA] + rows[TRAIN_GPT]
-               + rows[SPLIT])
+               + rows[SPLIT] + rows[INT8])
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -16,7 +16,11 @@ An entry is (region, phase, op, axes, elems, dtype).  ``op`` takes the
 reference's names: ``psum`` (a sum all-reduce), ``pmax``, ``pmin``,
 ``all_gather`` and ``reduce_scatter``.  ``elems`` follows the byte
 conventions of ``repro.analysis.expect``: an all-reduce counts its operand's
-elements, an all-gather its result's, a reduce-scatter its operand's.  The
+elements, an all-gather and a ppermute (one ring hop, ``core.overlap``) their
+result's, a reduce-scatter its operand's.  Inside :func:`quant` (the
+reference's ``quant[axis]`` scope) every entry is marked quantized: the
+shared-scale ``pmax`` and the payload's collective, whose grid values are
+held, and noted, in f32.  The
 region is the innermost :func:`region` open when the collective is issued:
 ``models.lm`` opens the reference's scope names (``shell:embed``,
 ``seg{i}:{kind}``, ``shell:exit``, ``shell:head``, ``shell:loss``;
@@ -43,7 +47,7 @@ from collections import defaultdict
 ACTIVE: "Record | None" = None
 
 #: ops the issue sites note (the reference's primitive names)
-OPS = ("psum", "pmax", "pmin", "all_gather", "reduce_scatter")
+OPS = ("psum", "pmax", "pmin", "all_gather", "reduce_scatter", "ppermute")
 
 _DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4, "int32": 4,
                 "int64": 8, "float64": 8}
@@ -79,6 +83,7 @@ class Record:
         self.entries: list[Entry] = []
         self.phase = "fwd"
         self.region = ""
+        self.quant = False
 
     def note(self, op: str, axes, elems: int, dtype, region: str | None = None):
         """Append one entry: ``axes`` one mesh axis name or a tuple of them,
@@ -89,7 +94,7 @@ class Record:
         self.entries.append(Entry(
             region=self.region if region is None else region,
             phase=self.phase, op=op, axes=axes, elems=int(elems),
-            dtype=dtype_name(dtype)))
+            dtype=dtype_name(dtype), quant=self.quant))
 
     def by_key(self, phase: str | None = "fwd") -> dict:
         """``{(region, op, axes, quant): (count, raw_bytes)}`` over the
@@ -134,10 +139,35 @@ def _region(rec: Record, name: str):
 _NO_REGION = contextlib.nullcontext()
 
 
-def region(name: str):
+def region(name: str | None):
     """The region the collectives issued inside the block are attributed
-    to (a no-op context when no record is installed)."""
+    to (a no-op context when no record is installed, or for ``None``)."""
+    rec = ACTIVE
+    if rec is None or name is None:
+        return _NO_REGION
+    return _region(rec, name)
+
+
+def current_region() -> str | None:
+    """The open region of the installed record (None: no record).  An
+    autograd Function keeps it from its forward, so that its backward's
+    collectives are noted under the same region."""
+    return None if ACTIVE is None else ACTIVE.region
+
+
+@contextlib.contextmanager
+def _quant(rec: Record):
+    prev, rec.quant = rec.quant, True
+    try:
+        yield
+    finally:
+        rec.quant = prev
+
+
+def quant():
+    """Mark the collectives issued inside the block as carrying a quantized
+    payload (a no-op context when no record is installed)."""
     rec = ACTIVE
     if rec is None:
         return _NO_REGION
-    return _region(rec, name)
+    return _quant(rec)

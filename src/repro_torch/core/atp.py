@@ -9,8 +9,18 @@ Each rank holds local shards and issues its collectives explicitly through
 
 Activations between blocks are replicated over tp1 and feature-sharded over
 tp2 (local ``[..., d_model/d2]``).  A size-1 axis is ``None`` and its
-collectives are skipped.  Ring boundaries, the quantized wire and the
-sequence-parallel block I/O are ROADMAP A8.
+collectives are skipped.
+
+The plan's knobs choose how a boundary runs (``repro.core.atp``'s dispatch,
+decision for decision): ``boundary_mode="ring"`` makes it a ring of
+``batch_isend_irecv`` hops, ``wire_dtype`` "int8"/"fp8" puts its payload on
+the shared-scale quantized wire (``core.overlap``), and ``seq_parallel``
+gives the dense blocks the sequence-parallel block I/O ``[Shard(seq)@ax1,
+Shard(f)@ax2]``: the row boundaries reduce-scatter the sequence over ax1,
+the block-entry norms gather it back (``seq_gather``).  The boundaries the
+reference runs as plain all-reduces whatever the plan (the fused q/k/v
+projection, the Mamba2 in-projections, the norms, the embedding, the loss)
+stay plain here too (``atp_linear(plain=True)``, ``atp_boundary``).
 
 Autograd follows the JAX package's varying-manual-axes typing.  A value is
 either the same on every rank of an axis (invariant) or not (varying), and
@@ -24,12 +34,31 @@ the gradient of an invariant value is complete on every rank:
     row-first GEMM (over tp2), the q/k/v heads before each rank takes its
     own, a norm's statistic before it scales the local features;
   - ``grad_sync`` is ``conjugate`` on a parameter: a replicated parameter
-    used on rank-local heads (the qk-norm gains).  A norm scale needs none:
-    the conjugate on the column input already completes its gradient, and
-    a second reduction would count it d1 times (the JAX package's vma path
-    drops its own ``grad_sync`` for the same reason);
+    used on rank-local heads (the qk-norm gains).  A norm scale needs none
+    outside ``seq_parallel``: the conjugate on the column input already
+    completes its gradient, and a second reduction would count it d1
+    times (the JAX package's vma path drops its own ``grad_sync`` for the
+    same reason).  Under ``seq_parallel`` each ax1 rank normalises its own
+    tokens, so the scale takes one ``grad_sync`` over ax1;
   - ``all_gather`` (varying -> invariant) hands each rank its own slice of
     the complete gradient.
+Under a ring or quantized plan the gradient reductions that mirror its
+boundaries ride the same wire, each once:
+  - a column-first GEMM's input conjugate over ax1 (the mirror of the row
+    boundaries) is a ring, or the quantized wire, on the gradient;
+  - the MLP's column-first boundary (f3) carries the conjugate of the
+    row-first GEMM that consumes it, as the reference's ring and quantized
+    boundaries carry their backward: its backward runs its own ring or
+    quantized all-reduce on the cotangent, which is what the reference
+    quantizes, and the consumer takes no conjugate;
+  - under ``seq_parallel`` a row boundary's reduce-scatter gathers the
+    gradient back (a ring, the quantized wire), and the block-entry
+    norm's sequence gather reduce-scatters its consumer's partial gradient
+    (the conjugate folded in: the column-first GEMM takes none).
+The one placement that departs: without ``seq_parallel`` the reference
+quantizes the row boundaries' partial cotangent of the residual stream,
+whose gradient the port keeps complete; the port quantizes the
+column-first inputs' partial gradients (ROADMAP §C).
 Every parameter is replicated over the data-parallel axes; its gradient is
 summed over them once, by the optimizer (``optim.adamw``).
 
@@ -47,20 +76,16 @@ from typing import Literal
 import torch
 
 from repro_torch.analysis import signature as sig
+from repro_torch.core import overlap
 from repro_torch.core.mesh import MeshTopo, dp_axis_names, tp_axis_names
+from repro_torch.core.overlap import WIRE_DTYPES  # noqa: F401 (re-export)
 from repro_torch.kernels import ops, ref
 
-_A8 = "is not ported yet (ROADMAP A8: ring and quantized boundaries)"
-
-#: wire dtypes a plan's ``wire_dtype`` knob names (the reference's
-#: ``repro.core.overlap.WIRE_DTYPES``): "bf16" is the full-width boundary,
-#: "int8" and "fp8" the quantized wire (ROADMAP A8)
-WIRE_DTYPES = ("bf16", "int8", "fp8")
-
 #: Segment kinds whose block I/O can run the sequence-parallel spec
-#: [Shard(seq)@ax1, Shard(f)@ax2] in the reference; other kinds' segment
-#: views mask ``seq_parallel`` (per-segment gating, not a whole-network
-#: error).  The spec itself is ROADMAP A8.
+#: [Shard(seq)@ax1, Shard(f)@ax2]: their block-entry norms gather the
+#: sequence and their row boundaries reduce-scatter it back.  Other kinds'
+#: segment views mask ``seq_parallel`` (per-segment gating, not a
+#: whole-network error).
 SEQ_PARALLEL_KINDS = frozenset({"dense", "mla_dense"})
 
 
@@ -194,19 +219,6 @@ class DecodePlan:
                                             else float(ts)))
 
 
-def _check_ported(where: str, boundary_mode: str, wire_dtype: str,
-                  seq_parallel: bool) -> None:
-    """Raise for a knob the port does not run (ROADMAP A8): it must never
-    run as a plain psum boundary instead."""
-    if boundary_mode != "psum":
-        raise NotImplementedError(
-            f"{where}boundary_mode={boundary_mode!r} {_A8}")
-    if wire_dtype != "bf16":
-        raise NotImplementedError(f"{where}wire_dtype={wire_dtype!r} {_A8}")
-    if seq_parallel:
-        raise NotImplementedError(f"{where}seq_parallel {_A8}")
-
-
 @dataclasses.dataclass(frozen=True)
 class ATPContext:
     """Static distribution context threaded through all model code, plus the
@@ -232,11 +244,7 @@ class ATPContext:
                                      repr=False)
 
     def __post_init__(self):
-        """Validate the knobs as the reference does, then refuse every knob
-        the context carries that the port does not run (ROADMAP A8): the
-        scalar defaults and each segment's entry, whose ``seq_parallel``
-        counts only for the kinds that run it (:data:`SEQ_PARALLEL_KINDS`;
-        the others' views mask it)."""
+        """Validate the knobs as the reference does."""
         if self.chunks < 1:
             raise ValueError(f"chunks must be >= 1, got {self.chunks}")
         if self.boundary_mode not in ("psum", "ring"):
@@ -246,12 +254,6 @@ class ATPContext:
             raise ValueError(f"wire_dtype must be one of {WIRE_DTYPES}, got "
                              f"{self.wire_dtype!r}")
         object.__setattr__(self, "segment_plans", tuple(self.segment_plans))
-        _check_ported("", self.boundary_mode, self.wire_dtype,
-                      self.seq_parallel)
-        for seg in self.segment_plans:
-            _check_ported(f"segment {seg.kind!r}: ", seg.boundary_mode,
-                          seg.wire_dtype,
-                          seg.seq_parallel and seg.kind in SEQ_PARALLEL_KINDS)
 
     @property
     def d1(self) -> int:
@@ -366,7 +368,10 @@ def make_context(topo: MeshTopo | None = None, chunks: int = 1,
     A topology of more than one rank needs ``torch.distributed`` initialized
     with ``topo.size`` ranks; the ``DeviceMesh`` over ``device_type`` gives
     each axis's process group, and the flat (tp1, tp2) group and, with two
-    data-parallel axes, the flat (pod, data) group are made here.
+    data-parallel axes, the flat (pod, data) group are made here.  A plan
+    with a ring anywhere issues one all-reduce on each axis group first:
+    on NCCL a group whose first collective is a ``batch_isend_irecv`` needs
+    every rank of the group in it, which one hop of a ring is not.
     """
     segment_plans: tuple[SegmentPlan, ...] = ()
     if plan is not None:
@@ -421,6 +426,12 @@ def make_context(topo: MeshTopo | None = None, chunks: int = 1,
             g = dist.new_group(ranks)
             if dist.get_rank() in ranks:
                 groups["dp"] = g
+    if ctx.any_ring:
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if device_type == "cuda" else torch.device(device_type))
+        probe = torch.zeros(1, device=dev)
+        for name in topo.names:
+            dist.all_reduce(probe, group=groups[name])
     return dataclasses.replace(ctx, coords=coords, groups=groups)
 
 
@@ -464,6 +475,7 @@ class _Conjugate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, axes):
         ctx.group, ctx.axes = group, axes
+        ctx.region = sig.current_region()
         return x.view_as(x)
 
     @staticmethod
@@ -472,7 +484,8 @@ class _Conjugate(torch.autograd.Function):
 
         g = g.clone()
         if sig.ACTIVE is not None:
-            sig.ACTIVE.note("psum", ctx.axes, g.numel(), g.dtype)
+            sig.ACTIVE.note("psum", ctx.axes, g.numel(), g.dtype,
+                            region=ctx.region)
         dist.all_reduce(g, group=ctx.group)
         return g, None, None
 
@@ -493,11 +506,27 @@ def atp_boundary(ctx: ATPContext, x: torch.Tensor, axis):
     return x
 
 
-def conjugate(ctx: ATPContext, x: torch.Tensor, axis):
+def wired(ctx: ATPContext) -> bool:
+    """Whether the context's boundaries run a ring or the quantized wire."""
+    return ctx.boundary_mode == "ring" or ctx.wire_dtype != "bf16"
+
+
+def _wire_reduce(ctx: ATPContext, axis: str):
+    """The sum over one axis under the context's knobs, as a function of
+    one tensor (off autograd)."""
+    return overlap.all_reduce_fn(ctx.group(axis), axis, ctx.wire_dtype,
+                                 ctx.boundary_mode == "ring")
+
+
+def conjugate(ctx: ATPContext, x: torch.Tensor, axis, wire: bool = False):
     """The boundary's conjugate: identity forward, all-reduce of the
-    gradient over ``axis`` (one name or the flat TP axes) backward."""
+    gradient over ``axis`` (one name or the flat TP axes) backward.
+    ``wire``: that all-reduce runs the context's ring or quantized wire
+    (a column-first GEMM's input, the mirror of the row boundaries)."""
     if not axis or not _grad(x):
         return x
+    if wire and wired(ctx):
+        return overlap.op(x, None, _wire_reduce(ctx, axis))
     return _Conjugate.apply(x, ctx.group(axis), axis)
 
 
@@ -574,6 +603,65 @@ def all_gather(ctx: ATPContext, x: torch.Tensor, axes, dim: int,
     return _gather(x, group, axes, dim, tiled)
 
 
+def atp_reduce_scatter(ctx: ATPContext, x: torch.Tensor, axis, dim: int):
+    """The sum over ``axis`` of the partial sums ``x`` as one
+    reduce-scatter along ``dim`` (this rank keeps its block); backward, the
+    all-gather of the blocks' complete gradients."""
+    if axis is None:
+        return x
+    group = ctx.group(axis)
+    return overlap.op(x, lambda t: overlap.reduce_scatter(t, group, axis, dim),
+                      lambda g: overlap.all_gather(g, group, axis, dim))
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel block I/O (spec [Shard(seq)@ax1, Shard(f)@ax2]).
+# ---------------------------------------------------------------------------
+
+
+def seq_scatter(ctx: ATPContext, x: torch.Tensor, dim: int = 1):
+    """Free slice of an ax1-replicated activation to this rank's sequence
+    shard (entry into the sequence-parallel domain); backward, the
+    all-gather of the shards' complete gradients."""
+    if not ctx.seq_parallel or ctx.ax1 is None:
+        return x
+    if x.shape[dim] % ctx.d1:
+        raise ValueError(f"seq_parallel requires seq ({x.shape[dim]}) "
+                         f"divisible by d1={ctx.d1}")
+    group, i, d1 = ctx.group(ctx.ax1), ctx.index1(), ctx.d1
+    return overlap.op(x, lambda t: shard_slice(t, i, d1, dim),
+                      lambda g: overlap.all_gather(g, group, ctx.ax1, dim))
+
+
+def seq_gather(ctx: ATPContext, x: torch.Tensor, dim: int = 1,
+               reduce_grad: bool = False):
+    """All-gather a sequence-sharded activation back to the full sequence
+    over ax1 (a ring under ring boundaries).  Backward: this rank's slice of
+    the complete gradient; with ``reduce_grad`` the reduce-scatter (a ring
+    under ring boundaries) of its consumer's partial gradients, the
+    consumer's conjugate folded in (a column-first GEMM's input, the
+    head's), as the reference's gather transposes."""
+    if not ctx.seq_parallel or ctx.ax1 is None:
+        return x
+    group, axis = ctx.group(ctx.ax1), ctx.ax1
+    if ctx.boundary_mode == "ring":
+        def fwd(t):
+            return overlap.ring_all_gather_raw(t, group, axis, dim)
+
+        def rs(g):
+            return overlap.ring_reduce_scatter_raw(g, group, axis, dim)
+    else:
+        def fwd(t):
+            return overlap.all_gather(t, group, axis, dim)
+
+        def rs(g):
+            return overlap.reduce_scatter(g, group, axis, dim)
+    if reduce_grad:
+        return overlap.op(x, fwd, rs)
+    i, n = ctx.index1(), x.shape[dim]
+    return overlap.op(x, fwd, lambda g: g.narrow(dim, i * n, n))
+
+
 # ---------------------------------------------------------------------------
 # Row/column-first linear layers.
 # ---------------------------------------------------------------------------
@@ -588,18 +676,19 @@ def _epilogue(y: torch.Tensor, b, activation):
 
 
 def _chunked_boundary_matmul(ctx: ATPContext, x, w, axis, other, b=None,
-                             activation=None):
+                             activation=None, wire_conj: bool = False):
     """Chunk-based overlapping (paper §4.1): split the leading dim into
     ``ctx.chunks`` chunks (uneven sizes allowed); each chunk's all-reduce is
     issued asynchronously, so the next chunk's GEMM runs under it.  Bias and
     activation follow each chunk's boundary; with no boundary they ride the
     GEMM's fused epilogue.  Backward mirrors it: each chunk's input
     gradient is all-reduced over ``other`` on its own (the conjugate of
-    each chunk), in reverse chunk order."""
+    each chunk, on the context's wire where ``wire_conj``), in reverse
+    chunk order."""
     c = max(1, min(ctx.chunks, x.shape[0]))
     outs, works = [], []
     for xc in torch.tensor_split(x, c, dim=0):
-        xc = conjugate(ctx, xc, other)
+        xc = conjugate(ctx, xc, other, wire=wire_conj)
         if axis is None:
             outs.append(ops.matmul(xc, w, b, activation=activation))
             continue
@@ -621,31 +710,105 @@ def _chunked_boundary_matmul(ctx: ATPContext, x, w, axis, other, b=None,
     return torch.cat(outs, dim=0)
 
 
+def _seq_parallel_row(ctx: ATPContext, x, w, axis: str):
+    """The row-first GEMM and its boundary as a reduce-scatter of the
+    sequence over ax1: on the quantized wire, as a collective matmul under
+    ring boundaries (where the sequence divides), else one reduce-scatter."""
+    seq_dim = x.dim() - 2
+    group = ctx.group(axis)
+    ring = ctx.boundary_mode == "ring" and x.shape[seq_dim] % ctx.d1 == 0
+    if ctx.wire_dtype != "bf16":
+        return overlap.quant_reduce_scatter(ops.matmul(x, w), group, axis,
+                                            seq_dim, ctx.wire_dtype, ring)
+    if ring:
+        return overlap.overlap_matmul_rs(x, w, group, axis, seq_dim)
+    return atp_reduce_scatter(ctx, ops.matmul(x, w), axis, seq_dim)
+
+
 def atp_linear(ctx: ATPContext, x, w, b=None, *,
                kind: Literal["col", "row"], chunked: bool = True,
-               activation: str | None = None):
+               activation: str | None = None, plain: bool = False):
     """Distributed ``Y = act(XW + b)`` with ATP sharding.
 
     column-first: W local ``[K/d2, N/d1]``, X local ``[..., K/d2]``; the
         local product is partial over ax2 -> all-reduce(ax2) ->
         ``[..., N/d1]``.
     row-first: W local ``[K/d1, N/d2]``, X local ``[..., K/d1]``; partial
-        over ax1 -> all-reduce(ax1) -> ``[..., N/d2]``.
+        over ax1 -> all-reduce(ax1) -> ``[..., N/d2]``; under
+        ``seq_parallel`` a reduce-scatter over ax1 along the sequence dim
+        instead, leaving the sequence-parallel block I/O spec.
 
-    The bias (sharded like the output dim) and the activation apply after
-    the boundary.  With no boundary (the axis is size 1) they are fused into
-    the GEMM's epilogue.  The input, the same on every rank of the other
-    axis, meets that axis's ranks' different weight shards: its conjugate
-    all-reduces the input gradient over it.
+    The boundary runs the context's knobs, as the reference's
+    ``atp_linear`` dispatches them: the sequence-parallel row boundary,
+    then the chunked path (``chunks`` > 1), then a ring, the quantized wire
+    or one all-reduce; ``plain`` keeps it one all-reduce whatever the knobs
+    (what the reference runs as ``atp_boundary``).  The bias (sharded like
+    the output dim) and the activation apply after the boundary; with no
+    boundary (the axis is size 1) they are fused into the GEMM's epilogue.
+
+    The input, the same on every rank of the other axis, meets that
+    axis's ranks' different weight shards: its conjugate all-reduces the
+    input gradient over it (a column-first input's on the context's wire;
+    under ``seq_parallel`` none, the sequence gather that made the input
+    reduce-scatters it).  A column-first GEMM that feeds a row-first one
+    is :func:`atp_mlp`, which places that pair's reductions.
     """
+    return _linear(ctx, x, w, b, kind=kind, chunked=chunked,
+                   activation=activation, plain=plain)
+
+
+def atp_mlp(ctx: ATPContext, x, w_up, w_down, *,
+            activation: str | None = None, hidden=None):
+    """The feed-forward pair: the column-first ``x @ w_up`` (f3, with
+    ``activation`` after its boundary), ``hidden`` on its output (a gated
+    activation; None: the identity), then the row-first ``@ w_down`` (f4).
+
+    The down projection's input gradient is partial over ax2 and is
+    reduced once, here decided: under a ring or quantized plan f3 carries
+    it (f3's backward runs its own ring or quantized all-reduce on the
+    cotangent, the tensor the reference reduces there) and the down
+    projection takes no conjugate; else the down projection's conjugate
+    all-reduces it.
+    """
+    carry = wired(ctx)
+    y = _linear(ctx, x, w_up, kind="col", activation=activation, carry=carry)
+    if hidden is not None:
+        y = hidden(y)
+    return _linear(ctx, y, w_down, kind="row", conj_input=not carry)
+
+
+def _linear(ctx: ATPContext, x, w, b=None, *, kind, chunked=True,
+            activation=None, plain=False, carry=False, conj_input=True):
+    """:func:`atp_linear`.  ``carry``: a column-first boundary on a ring or
+    the quantized wire runs the same collective backward on the cotangent
+    (its consumer's conjugate); ``conj_input=False``: the input takes no
+    conjugate (a ``carry`` boundary made it)."""
     axis = ctx.ax2 if kind == "col" else ctx.ax1
     other = ctx.ax1 if kind == "col" else ctx.ax2
-    if chunked and ctx.chunks > 1 and x.dim() >= 2:
-        return _chunked_boundary_matmul(ctx, x, w, axis, other, b, activation)
-    x = conjugate(ctx, x, other)
+    conj = conj_input and not (kind == "col" and ctx.seq_parallel)
+    if (ctx.seq_parallel and kind == "row" and axis is not None
+            and x.dim() >= 3):
+        x = conjugate(ctx, x, other) if conj else x
+        return _epilogue(_seq_parallel_row(ctx, x, w, axis), b, activation)
+    wire = wired(ctx) and not plain and axis is not None
+    if chunked and ctx.chunks > 1 and x.dim() >= 2 and not wire:
+        return _chunked_boundary_matmul(ctx, x, w, axis,
+                                        other if conj else None, b,
+                                        activation, wire_conj=kind == "col")
+    if conj:
+        x = conjugate(ctx, x, other, wire=kind == "col")
     if axis is None:
         return ops.matmul(x, w, b, activation=activation)
-    y = atp_boundary(ctx, ops.matmul(x, w), axis)
+    if wire and chunked and ctx.chunks > 1 and x.dim() >= 2:
+        y = overlap.overlap_matmul_ar(
+            x, w, ctx.group(axis), axis, ctx.chunks,
+            wire_dtype=ctx.wire_dtype, ring=ctx.boundary_mode == "ring",
+            mirror=carry)
+    elif wire:
+        red = _wire_reduce(ctx, axis)
+        y = overlap.op(ops.matmul(x, w), red, red if carry else None)
+    else:
+        y = atp_boundary(ctx, ops.matmul(x, w), axis)
     return _epilogue(y, b, activation)
 
 

@@ -3,8 +3,8 @@ counterpart of ``repro.core.cost_model``, a copy: the port's plans are
 priced with the same arithmetic in the same order).
 
 Beyond the paper's Eq. 2 (``t_comm``), ``t_comm_overlap`` models the
-reference's overlap engine (``repro.core.overlap``; ROADMAP A8 in the
-port): per-chunk
+reference's overlap engine (``repro.core.overlap``, in the port
+``core.overlap``): per-chunk
 effective communication time max(0, comm - overlappable GEMM), ring vs.
 Rabenseifner algorithm step counts per hierarchy level, and the
 sequence-parallel boundary (reduce-scatter wire bytes = half an

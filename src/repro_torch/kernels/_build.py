@@ -22,9 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("matmul", "matmul_z", "flash_attention", "flash_attention_train",
-           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd", "rmsnorm",
-           "act_bwd")
+SOURCES = ("matmul", "matmul_z", "matmul_int8", "flash_attention",
+           "flash_attention_train", "flash_attention_bwd", "ssd_scan",
+           "ssd_scan_bwd", "rmsnorm", "act_bwd")
 #: libraries built from another library's source: (source, extra flags)
 DEFINES = {"matmul_z": ("matmul", ("-DREPRO_MATMUL_ZOUT",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +36,8 @@ SIGNATURES = {
     "matmul": ("matmul", "repro_matmul_bf16", [_P] * 7 + [_I] * 10 + [_P]),
     "matmul_z": ("matmul_z", "repro_matmul_z_bf16",
                  [_P] * 7 + [_I] * 10 + [_P]),
+    "matmul_int8": ("matmul_int8", "repro_matmul_int8",
+                    [_P] * 4 + [_I] * 3 + [_F] + [_I] * 3 + [_P]),
     "flash_attention": ("flash_attention", "repro_flash_attention_bf16",
                         [_P] * 10 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_attention_train": ("flash_attention_train",

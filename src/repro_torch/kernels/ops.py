@@ -18,7 +18,8 @@ norm or grouped, gated norm) and SSD-scan backward wrappers one C entry
 each, and ``activation_backward`` (a fused activation's derivative) one.
 ``SPLIT_LAUNCHES`` counts the split rmsnorm's four kernels (d2 > 1:
 ``split_rmsnorm``'s partial and apply pieces around the tp2 all-reduce,
-forward and backward), one a wrapper call.
+forward and backward), one a wrapper call, and ``QUANT_LAUNCHES`` the
+matmul's int8 ``scale`` mode (``matmul_int8``, ``csrc/matmul_int8.cu``).
 
 Training: ``matmul``, ``flash_attention``, ``rmsnorm``, ``group_rmsnorm``
 and ``ssd_scan`` are autograd Functions wherever an input requires grad
@@ -56,6 +57,9 @@ BACKWARD_LAUNCHES = {"matmul_bwd": 0, "flash_attention_bwd": 0,
 SPLIT_LAUNCHES = {"rmsnorm_ss": 0, "rmsnorm_apply": 0,
                   "rmsnorm_bwd_partial": 0, "rmsnorm_bwd_apply": 0}
 
+#: launches of the matmul's int8 ``scale`` mode
+QUANT_LAUNCHES = {"matmul_int8": 0}
+
 #: the flash-attention launches of ``LAUNCHES`` by ``attention_plan``
 #: variant (0: ``flash_attention.cu``, 1: ``flash_attention_train.cu``)
 ATTENTION_VARIANT_LAUNCHES = [0, 0]
@@ -67,7 +71,8 @@ SMS = 132
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BACKWARD_LAUNCHES, SPLIT_LAUNCHES):
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES, SPLIT_LAUNCHES,
+                   QUANT_LAUNCHES):
         for k in counts:
             counts[k] = 0
     ATTENTION_VARIANT_LAUNCHES[:] = [0, 0]
@@ -559,8 +564,8 @@ def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul", *,
     N = b.shape[1]
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or (
             bias is not None and bias.dtype != torch.bfloat16):
-        raise TypeError("the CUDA matmul takes bf16 operands (int8 with a "
-                        "dequant scale is ROADMAP A8)")
+        raise TypeError("the CUDA matmul takes bf16 operands (int8 ones "
+                        "take matmul_int8)")
     if bias is not None and (bias.shape != (N,) or not bias.is_contiguous()):
         raise ValueError(f"bias must be contiguous [{N}]")
     if b.is_contiguous():
@@ -608,6 +613,68 @@ def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul", *,
     counts[key] += 1
     if z_out:
         return out.reshape(*lead, N), z.reshape(*lead, N)
+    return out.reshape(*lead, N)
+
+
+def quantize_for_matmul(x: torch.Tensor, qmax: float = 127.0):
+    """Tensor-wise symmetric int8 quantization for :func:`matmul_int8`
+    (``repro.kernels.matmul.quantize_for_matmul``): ``(q int8, scale)``,
+    an f32 scalar with ``q * scale ~= x``, rounded half to even.  The
+    scale is ``amax`` times the f32 reciprocal of ``qmax``, the bits of
+    the reference's compiled function (XLA folds its division by the
+    constant into that multiplication)."""
+    xf = x.float()
+    inv = torch.tensor(1.0 / qmax, dtype=torch.float32, device=x.device)
+    scale = torch.clamp_min(xf.abs().amax() * inv, 1e-12)
+    q = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
+    return q, scale
+
+
+def matmul_int8(a: torch.Tensor, b: torch.Tensor,
+                bias: torch.Tensor | None = None, *, scale,
+                activation: str | None = None,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The matmul's int8 ``scale`` mode: int8 ``a [..., K] @ b [K, N]``,
+    the products summed in int32, then ``scale`` (the f32 ``a_scale *
+    b_scale``; a tensor is read on the host), then bias [N], then
+    gelu-tanh or silu, as ``out_dtype`` (bf16 or f32).  No autograd.  On
+    CUDA: row-major ``b``, a bf16 bias, K a multiple of 16 and N of 4;
+    one launch of
+    ``csrc/matmul_int8.cu``, counted in ``QUANT_LAUNCHES``."""
+    if activation not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bf16 or f32, got {out_dtype}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError("matmul_int8 takes int8 operands")
+    if _on_cpu(a, b, bias):
+        return ref.matmul_int8_ref(a, b, bias, scale=scale,
+                                   activation=activation, out_dtype=out_dtype)
+    from repro_torch.kernels import _build
+
+    lead, K = a.shape[:-1], a.shape[-1]
+    if b.dim() != 2 or b.shape[0] != K:
+        raise ValueError(f"matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    N = b.shape[1]
+    if K % 16 or N % 4:
+        raise ValueError(f"matmul_int8 takes K % 16 == 0 and N % 4 == 0, got "
+                         f"K={K}, N={N}")
+    if bias is not None and (bias.shape != (N,) or not bias.is_contiguous()
+                             or bias.dtype != torch.bfloat16):
+        raise ValueError(f"bias must be contiguous bf16 [{N}]")
+    a2, b = a.reshape(-1, K).contiguous(), b.contiguous()
+    M = a2.shape[0]
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    if M == 0:
+        return out.reshape(*lead, N)
+    if a2.data_ptr() % 16 or b.data_ptr() % 4:
+        raise ValueError("matmul_int8 needs a 16-byte aligned a")
+    _launch(_build.entry("matmul_int8"),
+            (_ptr(a2), _ptr(b), _ptr(bias), _ptr(out), M, N, K,
+             float(scale), _ACTIVATIONS[activation],
+             int(out_dtype == torch.float32), 64 if M <= 64 else 128,
+             _stream(a)), "matmul_int8", None)
+    QUANT_LAUNCHES["matmul_int8"] += 1
     return out.reshape(*lead, N)
 
 

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the kernels: the four forward kernels (the
 matmul also with its pre-activation output, the attention also in the
-training kernel's order, ``attention_train_ref``), the backward kernels of
+training kernel's order, ``attention_train_ref``; and in its int8
+``scale`` mode, ``matmul_int8_ref``), the backward kernels of
 matmul, flash attention, rmsnorm (the block norm and the Mamba2 grouped,
 gated norm) and the SSD scan, the matmul epilogue's activation
 derivative, and the four pieces of the split rmsnorm (d2 > 1).
@@ -96,6 +97,19 @@ def matmul_split_ref(a, b, bias=None, activation: str | None = None, *,
     for k0, k1 in k_ranges:
         out = out + a[:, k0:k1].float() @ b[k0:k1].float()
     return epilogue(out, bias, activation).to(a.dtype)
+
+
+def matmul_int8_ref(a, b, bias=None, *, scale, activation: str | None = None,
+                    out_dtype=torch.bfloat16):
+    """The matmul's int8 ``scale`` mode: int8 ``a [M, K] @ b [K, N]``
+    summed exactly (in float64, exact while ``K * 127^2 < 2^53``: the
+    kernel's int32 is exact too), then the epilogue in f32 in the TPU
+    kernel's order: the dequant ``scale`` (an f32 scalar) first, then the
+    bias, then the activation; cast to ``out_dtype``."""
+    acc = (a.double() @ b.double()).float()
+    out = acc * torch.as_tensor(scale, dtype=torch.float32,
+                                device=acc.device)
+    return epilogue(out, bias, activation).to(out_dtype)
 
 
 def attention_mask(sq: int, skv: int, q_offset, kv_len, *, causal=True,

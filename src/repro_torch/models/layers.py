@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.atp import (ATPContext, all_gather, atp_boundary,
-                                  conjugate, shard_slice)
+                                  conjugate, grad_sync, seq_gather,
+                                  shard_slice)
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -107,38 +108,64 @@ def split_fused(cfg: ModelConfig, ctx: ATPContext, name: str,
 # gradient needs no reduction of its own: the norm output's gradient comes
 # back complete through the column-first GEMM's input conjugate
 # (``core.atp``).
+#
+# Under the sequence-parallel block I/O spec (``ctx.seq_parallel``) the
+# input is also sequence-sharded over ax1: each rank normalises its own
+# tokens, so the scale's gradient is ax1-partial and takes one
+# ``grad_sync`` over ax1.  ``gather_seq`` (the block-entry norms) gathers
+# the output back to the full sequence; its backward reduce-scatters the
+# consumer's partial gradient (``atp.seq_gather(reduce_grad=True)``: the
+# column-first GEMM behind it takes no conjugate).
 # ---------------------------------------------------------------------------
 
 
+def _seq_out(ctx: ATPContext, out, gather_seq: bool):
+    if not gather_seq:
+        return out
+    return seq_gather(ctx, out, dim=out.dim() - 2, reduce_grad=True)
+
+
+def _seq_param(ctx: ATPContext, p):
+    return grad_sync(ctx, p, ctx.ax1) if ctx.seq_parallel else p
+
+
 def rms_norm(ctx: ATPContext, x, gamma, eps: float = 1e-6,
-             plus_one: bool = False):
+             plus_one: bool = False, gather_seq: bool = False):
     """RMSNorm of this rank's features: the whole-row kernel at d2 = 1;
     at d2 > 1 ``ops.split_rmsnorm``, whose partial and apply kernels sit
     around the all-reduce of the rows' sums over ax2, forward (sum x^2)
     and backward (sum dy gamma x)."""
+    gamma = _seq_param(ctx, gamma)
     g = (1.0 + gamma) if plus_one else gamma
     if ctx.ax2 is None:
-        return ops.rmsnorm(x, g, eps=eps)
-    return ops.split_rmsnorm(
-        x, g, width=x.shape[-1] * ctx.d2, eps=eps,
-        reduce=lambda t: atp_boundary(ctx, t, ctx.ax2))
+        out = ops.rmsnorm(x, g, eps=eps)
+    else:
+        out = ops.split_rmsnorm(
+            x, g, width=x.shape[-1] * ctx.d2, eps=eps,
+            reduce=lambda t: atp_boundary(ctx, t, ctx.ax2))
+    return _seq_out(ctx, out, gather_seq)
 
 
-def layer_norm(ctx: ATPContext, x, gamma, beta, eps: float = 1e-5):
+def layer_norm(ctx: ATPContext, x, gamma, beta, eps: float = 1e-5,
+               gather_seq: bool = False):
+    gamma, beta = _seq_param(ctx, gamma), _seq_param(ctx, beta)
     xf = x.float()
     d = x.shape[-1] * ctx.d2
     mu = conjugate(ctx, atp_boundary(ctx, xf.sum(-1, keepdim=True),
                                      ctx.ax2) / d, ctx.ax2)
     ss = atp_boundary(ctx, ((xf - mu) ** 2).sum(-1, keepdim=True), ctx.ax2)
     inv = conjugate(ctx, torch.rsqrt(ss / d + eps), ctx.ax2)
-    return ((xf - mu) * inv * gamma.float() + beta.float()).to(x.dtype)
+    out = ((xf - mu) * inv * gamma.float() + beta.float()).to(x.dtype)
+    return _seq_out(ctx, out, gather_seq)
 
 
-def norm(ctx: ATPContext, cfg: ModelConfig, x, p):
+def norm(ctx: ATPContext, cfg: ModelConfig, x, p, gather_seq: bool = False):
     if cfg.norm_kind == "layernorm":
-        return layer_norm(ctx, x, p["scale"], p["bias"], cfg.norm_eps)
+        return layer_norm(ctx, x, p["scale"], p["bias"], cfg.norm_eps,
+                          gather_seq=gather_seq)
     plus_one = cfg.name.startswith("gemma2")
-    return rms_norm(ctx, x, p["scale"], cfg.norm_eps, plus_one=plus_one)
+    return rms_norm(ctx, x, p["scale"], cfg.norm_eps, plus_one=plus_one,
+                    gather_seq=gather_seq)
 
 
 def norm_params(cfg: ModelConfig, d: int):

@@ -20,15 +20,18 @@ slot ids and which needs no host sync, so the step can be captured as a
 CUDA graph; :func:`slot_map` is the host-synced form it replaced.
 
 Each segment runs under its own view of the context,
-``ctx.for_segment(kind)`` (a plan's per-segment chunks), as in the
-reference; the embedding takes the first segment's view, and the final
-norm and the head the context itself.  The collectives are attributed to
-the reference's regions (``analysis.signature.region``): ``shell:embed``,
+``ctx.for_segment(kind)`` (a plan's per-segment knobs), as in the
+reference; the embedding takes the first segment's view, the final norm
+the last one's, and the head the context itself.  Under the
+sequence-parallel block I/O the embedding's all-reduce becomes a
+reduce-scatter of the sequence over ax1, the residual stream changes
+domain between a sequence-parallel segment and one that is not (a free
+slice in, a gather out), and the final norm's output is gathered back to
+the full sequence for the head (training and prefill; serving masks
+``seq_parallel``).  The collectives are attributed to the reference's
+regions (``analysis.signature.region``): ``shell:embed``, ``shell:trans{i}``,
 ``seg{i}:{kind}``, ``shell:exit``, ``shell:head``, ``shell:loss`` (and
-``shell:pick``, the serving step's greedy pick).  The
-reference's ``shell:trans{i}`` regions issue collectives only between a
-sequence-parallel segment and one that is not, and the sequence-parallel
-spec is ROADMAP A8, so the port has none to open.
+``shell:pick``, the serving step's greedy pick).
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ import torch
 from repro_torch.analysis.signature import region
 from repro_torch.configs.base import ModelConfig, segments
 from repro_torch.core.atp import (ATPContext, all_gather, all_reduce_max,
-                                  atp_boundary, conjugate, shard_slice)
+                                  atp_boundary, atp_reduce_scatter, conjugate,
+                                  seq_gather, seq_scatter, shard_slice)
 from repro_torch.core.mesh import (MeshTopo, dp_axis_names, resolve_device,
                                    tp_axis_names)
 from repro_torch.kernels import ops
@@ -338,23 +342,35 @@ def _state_put(pool: dict, rows: dict, sm: SlotMap) -> None:
 
 
 def embed_tokens(ctx: ATPContext, cfg: ModelConfig, emb, tokens):
-    """emb local [V/d1, h/d2]; tokens [b, s] -> x [b, s, h/d2]."""
+    """emb local [V/d1, h/d2]; tokens [b, s] -> x [b, s, h/d2].  Under
+    ``seq_parallel`` (the sequence-parallel entry) the vocab-parallel
+    all-reduce over ax1 and the sequence slice are one reduce-scatter:
+    x [b, s/d1, h/d2]."""
     v_loc = emb.shape[0]
     rel = tokens.long() - ctx.index1() * v_loc
     ok = (rel >= 0) & (rel < v_loc)
     x = emb[rel.clamp(0, v_loc - 1)] * ok[..., None].to(emb.dtype)
-    x = atp_boundary(ctx, x, ctx.ax1)
+    if ctx.seq_parallel and ctx.ax1 is not None:
+        if x.shape[1] % ctx.d1:
+            raise ValueError(f"seq_parallel requires seq ({x.shape[1]}) "
+                             f"divisible by d1={ctx.d1}")
+        x = atp_reduce_scatter(ctx, x, ctx.ax1, dim=1)
+    else:
+        x = atp_boundary(ctx, x, ctx.ax1)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     return x
 
 
-def lm_logits(ctx: ATPContext, cfg: ModelConfig, params, x):
+def lm_logits(ctx: ATPContext, cfg: ModelConfig, params, x,
+              conj: bool = True):
     """x [b, s, h/d2] -> logits [b, s, V/d1] (ax2-replicated).  A tied head
     reads the embedding transposed, without a copy.  A column-first GEMM:
-    x's conjugate sums its gradient over ax1."""
+    x's conjugate sums its gradient over ax1 (``conj=False``: the
+    sequence gather that made x reduce-scatters it)."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    x = conjugate(ctx, x, ctx.ax1)
+    if conj:
+        x = conjugate(ctx, x, ctx.ax1)
     logits = atp_boundary(ctx, ops.matmul(x, w), ctx.ax2)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
@@ -432,16 +448,41 @@ def check_trainable(cfg: ModelConfig):
 
 
 def _embed(ctx: ATPContext, cfg: ModelConfig, params, tokens):
-    """The segments' views and the embedding under the first one's."""
+    """The segments' views and the embedding under the first one's (a
+    reduce-scatter of the sequence where that one is sequence-parallel)."""
     seg_ctxs = [ctx.for_segment(s.kind) for s in segments(cfg)]
     with region("shell:embed"):
         x = embed_tokens(seg_ctxs[0], cfg, params["embed"], tokens)
     return seg_ctxs, x
 
 
-def _final_norm(ctx: ATPContext, cfg: ModelConfig, params, x):
+def _transition(i: int, prev, sctx: ATPContext, x):
+    """The residual stream into segment ``i``'s block I/O spec from the
+    previous segment's view ``prev``: a free slice into the
+    sequence-parallel domain, an all-gather out of it."""
+    with region(f"shell:trans{i}"):
+        if sctx.seq_parallel and not prev.seq_parallel:
+            return seq_scatter(sctx, x, dim=1)
+        if prev.seq_parallel and not sctx.seq_parallel:
+            return seq_gather(prev, x, dim=1)
+    return x
+
+
+def _exit_gathers(ctx: ATPContext, cfg: ModelConfig) -> bool:
+    """Whether the forward leaves the sequence-parallel domain at its exit
+    (the last segment's view runs it, on more than one ax1 rank): the
+    head's input then comes from a gather whose backward reduces its
+    gradient, and the head takes no conjugate."""
+    last = ctx.for_segment(segments(cfg)[-1].kind)
+    return last.seq_parallel and last.ax1 is not None
+
+
+def _final_norm(cfg: ModelConfig, params, last: ATPContext, x):
+    """The final norm under the last segment's view, then the gather back
+    to the full sequence where that view is sequence-parallel."""
     with region("shell:exit"):
-        return L.norm(ctx, cfg, x, params["final_norm"])
+        x = L.norm(last, cfg, x, params["final_norm"])
+        return seq_gather(last, x, dim=1, reduce_grad=True)
 
 
 def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
@@ -458,6 +499,7 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
     x_emb0 = x
     plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
     for i, (seg, sctx) in enumerate(zip(segments(cfg), seg_ctxs)):
+        x = _transition(i, seg_ctxs[max(i - 1, 0)], sctx, x)
         sp = params[f"seg{i}"]
         units = []
         if seg.kind == "dense":
@@ -485,7 +527,7 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
             for unit in units:
                 x = (checkpoint(unit, x, use_reentrant=False) if remat
                      else unit(x))
-    return _final_norm(ctx, cfg, params, x)
+    return _final_norm(cfg, params, seg_ctxs[-1], x)
 
 
 def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
@@ -503,6 +545,8 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
         check_trainable(cfg)
         return _train_forward(ctx, cfg, params, tokens, positions, remat)
     _check_kinds(cfg)
+    if any(ctx.for_segment(s.kind).seq_parallel for s in segments(cfg)):
+        raise NotImplementedError("seq_parallel does not apply to decode")
     sm = None
     if is_recurrent(cfg):
         if paged.get("slot") is None:
@@ -533,7 +577,7 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
             else:
                 for j in range(seg.count):
                     x = _mamba(sctx, cfg, _layer(sp, j), x, _layer(sc, j), sm)
-    return _final_norm(ctx, cfg, params, x)
+    return _final_norm(cfg, params, seg_ctxs[-1], x)
 
 
 def _state_slots(cfg: ModelConfig, caches: dict) -> int:
@@ -563,8 +607,9 @@ def train_loss(ctx: ATPContext, cfg: ModelConfig, params, batch,
     tokens = batch["tokens"]
     h = forward(ctx, cfg, params, tokens, _positions(tokens), remat=remat)
     with region("shell:head"):
-        per_tok = vocab_parallel_ce(ctx, lm_logits(ctx, cfg, params, h),
-                                    batch["labels"])
+        logits = lm_logits(ctx, cfg, params, h,
+                           conj=not _exit_gathers(ctx, cfg))
+        per_tok = vocab_parallel_ce(ctx, logits, batch["labels"])
     with region("shell:loss"):
         total = atp_boundary(ctx, per_tok.sum(), ctx.dp_axes)
     return total / (per_tok.numel() * ctx.dp)

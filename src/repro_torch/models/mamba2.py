@@ -127,13 +127,14 @@ def mamba_block(ctx: ATPContext, cfg: ModelConfig, p, x, state=None,
     h_in = L.rms_norm(ctx, x, p["ln"], cfg.norm_eps)
     # z|x: one column-first GEMM and boundary, split per part BEFORE the d2
     # sub-slice so the shard boundaries stay part-aligned
-    zx = atp_linear(ctx, h_in, p["w_zx"], kind="col", chunked=False)
+    zx = atp_linear(ctx, h_in, p["w_zx"], kind="col", chunked=False,
+                    plain=True)
     z, xin = conjugate(ctx, zx, ctx.ax2).chunk(2, dim=-1)
     z = shard_slice(z, i2, ctx.d2, dim=-1)              # [b, s, d_inner/n]
     xin = shard_slice(xin, i2, ctx.d2, dim=-1)
     # B|C|dt: rows over ax2, so the ax2 boundary leaves it replicated
     bcdt = atp_linear(ctx, h_in, grad_sync(ctx, p["w_bcdt"], ctx.ax1),
-                      kind="col", chunked=False)
+                      kind="col", chunked=False, plain=True)
     bcdt = conjugate(ctx, bcdt, ctx.ax2)
     bc = bcdt[..., :2 * ds]
     dt = shard_slice(bcdt[..., 2 * ds:], flat, n, dim=-1)

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.atp import ATPContext, atp_linear, grad_sync
+from repro_torch.core.atp import ATPContext, atp_linear, atp_mlp, grad_sync
 from repro_torch.models import layers as L
 from repro_torch.models import paging
 
@@ -115,12 +115,12 @@ def mlp_block(ctx: ATPContext, cfg: ModelConfig, p, x):
         # one column-first GEMM for up+gate and a single f3 boundary; the
         # activation applies to the gate half only, so it stays outside
         # the GEMM's epilogue
-        u, g = atp_linear(ctx, x, p["w_upgate"], kind="col").chunk(2, dim=-1)
-        act = F.silu(g) if cfg.mlp_kind == "swiglu" else F.gelu(g, approximate="tanh")
-        y = u * act
-    else:
-        y = atp_linear(ctx, x, p["w_up"], kind="col", activation="gelu")
-    return atp_linear(ctx, y, p["w_down"], kind="row")
+        def gated(ug):
+            u, g = ug.chunk(2, dim=-1)
+            return u * (F.silu(g) if cfg.mlp_kind == "swiglu"
+                        else F.gelu(g, approximate="tanh"))
+        return atp_mlp(ctx, x, p["w_upgate"], p["w_down"], hidden=gated)
+    return atp_mlp(ctx, x, p["w_up"], p["w_down"], activation="gelu")
 
 
 def _qk_norm(q, gamma, eps):
@@ -142,7 +142,7 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
     # f1: fused q/k/v projection, one boundary over ax2; the bias follows
     # the boundary (fused into the GEMM's epilogue when ax2 is size 1)
     qkv = atp_linear(ctx, x, p["w_qkv"], p.get("b_qkv"), kind="col",
-                     chunked=False)
+                     chunked=False, plain=True)
     qd, kvd = cfg.q_dim // ctx.d1, cfg.kv_dim // ctx.d1
     qp, kp, vp = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
     q, k, v, _, rid = L.split_qkv_heads(ctx, cfg, qp, kp, vp, plan)
@@ -190,13 +190,18 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
 def dense_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions, plan,
                 layer_window: int, cache: dict | None = None,
                 paged: dict | None = None):
-    h = L.norm(ctx, cfg, x, p["ln_attn"])
+    """With ``ctx.seq_parallel`` the residual stream x is sequence-sharded
+    over ax1: the entry norms gather the sequence back, the row-first
+    projections (f2/f4) reduce-scatter it; post-block norms and residual
+    adds stay in the sequence-sharded domain."""
+    sp = ctx.seq_parallel and cache is None
+    h = L.norm(ctx, cfg, x, p["ln_attn"], gather_seq=sp)
     a = attn_block(ctx, cfg, p["attn"], h, positions, plan, layer_window,
                    cache, paged)
     if cfg.post_block_norms:
         a = L.norm(ctx, cfg, a, p["ln_post_attn"])
     x = x + a
-    h = L.norm(ctx, cfg, x, p["ln_mlp"])
+    h = L.norm(ctx, cfg, x, p["ln_mlp"], gather_seq=sp)
     m = mlp_block(ctx, cfg, p["mlp"], h)
     if cfg.post_block_norms:
         m = L.norm(ctx, cfg, m, p["ln_post_mlp"])

@@ -2,8 +2,9 @@
 
     python tests/_torch_atp_worker.py RANK CASE_DIR
 
-Reads ``case.json`` (arch and its layer count, mesh, chunks, page
-geometry, the state pools' slot count or null), the JAX global
+Reads ``case.json`` (arch and its layer count, mesh, chunks or a
+``ParallelPlan`` as a dict, whose decode sub-plan the serving step runs,
+page geometry, the state pools' slot count or null), the JAX global
 weights ``params.npz`` and the step inputs ``calls.npz`` from CASE_DIR,
 joins the gloo group through a file store there, runs every call through
 the port's ``lm.paged_step`` on this rank's shard, and writes its local
@@ -23,7 +24,8 @@ from repro_torch import convert
 from repro_torch.configs.registry import get_config
 from repro_torch.core.atp import make_context
 from repro_torch.core.mesh import atp_topo
-from repro_torch.launch.steps import _greedy_pick
+from repro_torch.core.plan import ParallelPlan
+from repro_torch.launch.steps import _greedy_pick, resolve_ctx
 from repro_torch.models import lm
 from repro_torch.models.paging import PagedConfig
 
@@ -48,7 +50,11 @@ def main(rank: int, case_dir: Path) -> None:
     cfg = get_config(case["arch"]).reduced()
     if case["layers"]:
         cfg = dataclasses.replace(cfg, num_layers=case["layers"])
-    ctx = make_context(topo, chunks=case["chunks"], device_type="cpu")
+    if case.get("plan"):
+        ctx = resolve_ctx(topo, ParallelPlan.from_dict(case["plan"]),
+                          decode=True, device_type="cpu")
+    else:
+        ctx = make_context(topo, chunks=case["chunks"], device_type="cpu")
     params = convert.params_from_jax(
         cfg, unflatten(np.load(case_dir / "params.npz")), topo, rank)
     caches = lm.init_paged_caches(cfg, ctx, PagedConfig(**case["paged"]),

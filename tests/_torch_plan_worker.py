@@ -6,7 +6,16 @@
 Reads ``case.json`` from CASE_DIR: the mesh (dp, d1, d2[, pods]) and a list of
 cases, each an arch (reduced, at its depth where given), a ``ParallelPlan``
 as a dict, the global batch and the sequence, and whether its forward runs
-under remat (default off) and its gradients are written.  Joins the gloo group through
+under remat (default off), its gradients are written and its
+``prefill_logits`` are written.  A case may ask to ``record`` the grid
+values of every quantized boundary of its loss's forward: its own grid
+values and pre-rounding quotients, call by call
+(``own_CASE_rank{RANK}.npz``), its backward's too with ``record_bwd``
+(``own_bwd_CASE_rank{RANK}.npz``, with the scales); and may name a
+``replay`` file, the
+reference's grid values and scales of the same calls (``q{CALL}_{RANK}``,
+``s{CALL}_{RANK}``), which its forwards then put on the wire instead of
+their own (the loss's and the logits' forward each from call 0).  Joins the gloo group through
 a file store there, and for each case builds the training step from the
 plan (``build_train_step(plan=...)``), then on this rank's shard of seeded
 weights (the global tree from ``params_CASE.npz`` where the case names it,
@@ -19,12 +28,14 @@ seeded batch:
     counting the calls of ``Record.note``.
 
 Writes ``rank{RANK}.json``: per case the context's knobs, the forward
-record by key, the backward record's ops and regions, the axes of the
-optimizer's collectives, the loss and, where
-asked, the gradients (``grads_CASE_rank{RANK}.npz``).  Imports only torch,
+record by key, the backward record's ops, regions and keys, the axes of
+the optimizer's collectives, the loss and, where asked, the gradients
+(``grads_CASE_rank{RANK}.npz``) and the last position's local logits of
+the batch (``prefill_CASE_rank{RANK}.npy``).  Imports only torch,
 numpy and the port.  The tests start the ranks through :func:`start` and
 collect them through :func:`finish`.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -40,6 +51,7 @@ import torch.distributed as dist
 from repro_torch import convert
 from repro_torch.analysis import signature
 from repro_torch.configs.registry import get_config
+from repro_torch.core import overlap
 from repro_torch.core.mesh import atp_topo
 from repro_torch.core.plan import ParallelPlan
 from repro_torch.launch.steps import build_train_step
@@ -77,6 +89,36 @@ def batch_of(cfg, b: int, s: int, seed: int = 2) -> dict:
     return {"tokens": toks[:, :-1], "labels": labels}
 
 
+class GridValues:
+    """``overlap.wire_quantize`` replaced by one that computes this rank's
+    own grid values and quotients and keeps them; with a reference file,
+    it puts the reference's grid values and scale of the same forward call
+    on the wire instead."""
+
+    def __init__(self, path: Path | None, rank: int):
+        self.ref = None if path is None else np.load(path)
+        self.rank, self.own, self.calls = rank, {}, 0
+
+    def __enter__(self):
+        self.calls, self.orig = 0, overlap.wire_quantize
+        overlap.wire_quantize = self
+        return self
+
+    def __exit__(self, *exc):
+        overlap.wire_quantize = self.orig
+
+    def __call__(self, x, group, axes, wire):
+        k, self.calls = self.calls, self.calls + 1
+        q, scale = self.orig(x, group, axes, wire)
+        self.own.setdefault(f"q{k}", q.numpy().copy())
+        self.own.setdefault(f"r{k}", (x.detach().float() / scale).numpy())
+        self.own.setdefault(f"s{k}", scale.numpy().copy())
+        if self.ref is None:
+            return q, scale
+        return (torch.from_numpy(self.ref[f"q{k}_{self.rank}"]),
+                torch.from_numpy(self.ref[f"s{k}_{self.rank}"]).reshape(1))
+
+
 def run_case(rank: int, topo, case: dict, case_dir: Path, count_idle: bool):
     cfg = get_config(case["arch"]).reduced()
     if case.get("layers"):
@@ -103,9 +145,15 @@ def run_case(rank: int, topo, case: dict, case_dir: Path, count_idle: bool):
     leaves = adamw.tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
-    with signature.recording("fwd") as rec:
+    replay = contextlib.nullcontext()
+    if case.get("record") or case.get("replay"):
+        replay = GridValues(case.get("replay") and case_dir / case["replay"],
+                            rank)
+    with signature.recording("fwd") as rec, replay:
         loss = lm.train_loss(ctx, cfg, params, batch, remat=remat)
-    with signature.recording("bwd", rec):
+    bwd_grid = (GridValues(None, rank) if case.get("record_bwd")
+                else contextlib.nullcontext())
+    with signature.recording("bwd", rec), bwd_grid:
         grads = list(torch.autograd.grad(loss, leaves))
     out = {"name": case["name"], "loss": float(loss.detach()),
            "knobs": {"d1": ctx.d1, "d2": ctx.d2, "dp": ctx.dp,
@@ -122,11 +170,24 @@ def run_case(rank: int, topo, case: dict, case_dir: Path, count_idle: bool):
             summed.append(g)
         np.savez(case_dir / f"grads_{case['name']}_rank{rank}.npz",
                  **flatten(adamw.tree_unflatten(params, iter(summed))))
+    if isinstance(replay, GridValues):
+        np.savez(case_dir / f"own_{case['name']}_rank{rank}.npz",
+                 **replay.own)
+    if isinstance(bwd_grid, GridValues):
+        np.savez(case_dir / f"own_bwd_{case['name']}_rank{rank}.npz",
+                 **bwd_grid.own)
+    if case.get("prefill"):
+        with torch.no_grad(), replay:
+            logits = lm.prefill_logits(ctx, cfg, params, batch)
+        np.save(case_dir / f"prefill_{case['name']}_rank{rank}.npy",
+                logits.float().numpy())
     with signature.recording("bwd", rec):
         adamw.apply_adamw(opt_cfg, ctx, params,
                           adamw.tree_unflatten(params, iter(grads)),
                           adamw.init_opt_state(params, ctx, opt_cfg.mode),
                           lm.replication_factors(cfg, ctx, params))
+    out["bwd"] = [[*k[:2], list(k[2]), k[3], *v]
+                  for k, v in sorted(rec.by_key("bwd").items())]
     bwd = [e for e in rec.entries if e.phase == "bwd"]
     out["bwd_ops"] = sorted({e.op for e in bwd})
     out["bwd_regions"] = sorted({e.region for e in bwd})

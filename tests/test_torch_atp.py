@@ -16,6 +16,10 @@ and a tail Mamba2 block) adds the Mamba2 sharding: SSD heads over the flat
 ranks, the B/C/dt projection all-reduced over tp2, the heads all-gathered
 over tp2 before the out projection, the shared block's in-projections
 gathered over tp1, and the per-slot state pools addressed by slot id.
+
+Under a plan whose decode sub-plan runs ring boundaries or the int8 wire,
+the same calls on (1, 2, 2) give the greedy tokens of the reference's
+``build_paged_step(plan=...)`` on a host mesh of four devices.
 """
 import dataclasses
 import functools
@@ -38,6 +42,9 @@ from repro.configs.registry import get_config  # noqa: E402
 from repro.core.atp import make_context  # noqa: E402
 from repro.core.compat import shard_map  # noqa: E402
 from repro.core.mesh import MeshTopo  # noqa: E402
+from repro.core.plan import DecodePlan as RefDecodePlan  # noqa: E402
+from repro.core.plan import ParallelPlan as RefPlan  # noqa: E402
+from repro.launch.steps import build_paged_step  # noqa: E402
 from repro.models import lm  # noqa: E402
 from repro.models.paging import PagedConfig as JaxPagedConfig  # noqa: E402
 from repro_torch.models.paging import PageAllocator, PagedConfig  # noqa: E402
@@ -125,24 +132,17 @@ def _reference(arch):
     return cfg, params, calls, slots, _jax_logits(cfg, params, calls, slots)
 
 
-@pytest.mark.parametrize("arch,mesh,chunks", [
-    ("llama3-8b", (1, 2, 2), 2),
-    ("llama3-8b", (1, 4, 1), 1),
-    ("qwen1.5-0.5b", (1, 2, 2), 1),
-    ("zamba2-7b", (1, 2, 2), 1),
-    ("zamba2-7b", (1, 4, 1), 1),
-])
-def test_gloo_mesh_paged_step_matches_jax_single_device(tmp_path, arch, mesh,
-                                                        chunks):
-    cfg, params, calls, slots, want = _reference(arch)
-
+def _spawn(tmp_path, arch, mesh, **case):
+    """Run the calls of ``arch`` on ``mesh``'s gloo ranks; each rank's
+    results."""
+    cfg, params, calls, slots, _ = _reference(arch)
     np.savez(tmp_path / "params.npz", **_flatten(params))
     np.savez(tmp_path / "calls.npz", **{
         f"{name}{i}": arr for i, c in enumerate(calls)
         for name, arr in zip(("tokens", "start", "table", "slot"), c)})
     (tmp_path / "case.json").write_text(json.dumps(dict(
-        arch=arch, layers=LAYERS.get(arch), mesh=mesh, chunks=chunks,
-        paged=PAGED, slots=slots, calls=len(calls))))
+        arch=arch, layers=LAYERS.get(arch), mesh=mesh, paged=PAGED,
+        slots=slots, calls=len(calls), **case)))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     world = int(np.prod(mesh))
     procs = [subprocess.Popen([sys.executable, str(WORKER), str(r),
@@ -156,9 +156,47 @@ def test_gloo_mesh_paged_step_matches_jax_single_device(tmp_path, arch, mesh,
             p.kill()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} failed:\n{log}"
+    return [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
 
+
+@pytest.mark.parametrize("knobs", [dict(boundary_mode="ring"),
+                                   dict(wire_dtype="int8")],
+                         ids=["ring", "int8"])
+def test_gloo_mesh_paged_step_under_a_decode_plan_gives_the_references_tokens(
+        tmp_path, knobs):
+    """llama3-8b on (1, 2, 2) under a plan whose decode sub-plan runs ring
+    boundaries or the int8 wire: every rank's greedy picks of every call
+    equal the reference's serving step's under the same plan."""
+    cfg, params, calls, _, _ = _reference("llama3-8b")
+    plan = RefPlan(d1=2, d2=2, decode=RefDecodePlan(d1=2, d2=2, **knobs))
+    step, info = build_paged_step(cfg, paged_cfg=JaxPagedConfig(**PAGED),
+                                  plan=plan)
+    caches, _ = lm.init_paged_caches(cfg, info.ctx, JaxPagedConfig(**PAGED),
+                                     dtype=jnp.float32)
+    want = []
+    for tok, start, table, _ in calls:
+        picks, caches = step(params, tok, start, table, caches)
+        want.append(np.asarray(picks))
+    ranks = _spawn(tmp_path, "llama3-8b", (1, 2, 2), plan=plan.to_dict())
+    for i, w in enumerate(want):
+        for r, got in enumerate(ranks):
+            np.testing.assert_array_equal(got[f"pick{i}"], w,
+                                          err_msg=f"call {i} rank {r}")
+
+
+@pytest.mark.parametrize("arch,mesh,chunks", [
+    ("llama3-8b", (1, 2, 2), 2),
+    ("llama3-8b", (1, 4, 1), 1),
+    ("qwen1.5-0.5b", (1, 2, 2), 1),
+    ("zamba2-7b", (1, 2, 2), 1),
+    ("zamba2-7b", (1, 4, 1), 1),
+])
+def test_gloo_mesh_paged_step_matches_jax_single_device(tmp_path, arch, mesh,
+                                                        chunks):
+    want = _reference(arch)[4]
+    ranks = _spawn(tmp_path, arch, mesh, chunks=chunks)
+    world = len(ranks)
     _, d1, d2 = mesh
-    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
     for i, ref in enumerate(want):
         # local logits [b, s, V/d1]: vocab over tp1, replicated over tp2
         for i2 in range(d2):

@@ -32,6 +32,16 @@ On a plan with pods the expectation itself names the loss's all-reduce
 over ("data",) alone, though the reference's step reduces the loss over
 ("pod", "data"), as the port does: :func:`departed` names that key's axes
 as the step issues them (ROADMAP §C), its counts and bytes unchanged.
+
+Reduced llama3-8b also runs the ring, int8, fp8, seq_parallel and ring +
+seq_parallel plans on (1, 2, 2) and (1, 4, 1) (``A8_PLANS``): the forward
+record equals the expectation the same way (ppermute hops, the quantized
+wire's pmax and f32 payloads, the reduce-scatters and sequence gathers),
+and the backward record, each collective noted under the region of the
+forward op it mirrors, passes the reference's structural rules
+(``check_conformance``'s backward half): a ring-planned region runs
+ppermutes backward, a psum-planned one none, a quantized region's
+cotangent rides the quantized wire.
 """
 import dataclasses
 import json
@@ -40,7 +50,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.analysis.expect import check_conformance  # noqa: E402
 from repro.analysis.expect import expected_signature  # noqa: E402
+from repro.analysis.signature import Collective, StepSignature  # noqa: E402
 from repro.configs.base import segments  # noqa: E402
 from repro.configs.registry import get_config  # noqa: E402
 from repro.core.plan import ParallelPlan as RefPlan  # noqa: E402
@@ -61,6 +73,20 @@ MESHES = {(1, 2, 2): (1, 2), (1, 4, 1): (1,), (2, 2, 1): (1,),
 #: the archs of a mesh where not ``ARCHS``: (pods 2, data 2) holds the
 #: loss and the optimizer over both dp axes
 MESH_ARCHS = {(2, 1, 1, 2): ("llama3-8b",)}
+
+
+#: the ring, quantized and sequence-parallel plans llama3-8b runs on the
+#: meshes of ``A8_MESHES`` (chunks 1)
+A8_PLANS = {"ring": dict(boundary_mode="ring"), "int8": dict(wire_dtype="int8"),
+            "fp8": dict(wire_dtype="fp8"), "sp": dict(seq_parallel=True),
+            "ring-sp": dict(boundary_mode="ring", seq_parallel=True)}
+A8_MESHES = ((1, 2, 2), (1, 4, 1))
+
+
+def a8_plan(mesh, name) -> ParallelPlan:
+    dp, d1, d2 = mesh
+    return ParallelPlan(d1=d1, d2=d2, dp=dp, provenance=(("searcher", "test"),),
+                        **A8_PLANS[name])
 
 
 def archs_of(mesh):
@@ -154,6 +180,11 @@ def write_cases(tmp_path, mesh):
                   batch=batch_of(mesh), seq=SEQ[a],
                   remat=(mesh, a, c) == REMAT)
              for c in MESHES[mesh] for a in archs_of(mesh)]
+    if mesh in A8_MESHES:
+        cases += [dict(name=f"llama3-8b_{name}", arch="llama3-8b",
+                       plan=a8_plan(mesh, name).to_dict(),
+                       batch=batch_of(mesh), seq=SEQ["llama3-8b"])
+                  for name in A8_PLANS]
     (tmp_path / "case.json").write_text(json.dumps(
         dict(mesh=mesh, cases=cases)))
 
@@ -251,7 +282,9 @@ def test_nothing_is_recorded_without_a_record(records):
 
 def test_the_record_keys_and_bytes_follow_the_references_conventions():
     """One record by hand: regions nest, an all-gather counts its result's
-    elements, phases split ``by_key``, and the record is removed after."""
+    elements, phases split ``by_key``, a ``quant`` scope marks its entries
+    quantized (a ring hop, ``ppermute``, among them), an op the reference
+    does not name raises, and the record is removed after."""
     rec = signature.Record()
     with signature.recording("fwd", rec):
         with signature.region("seg0:dense"):
@@ -259,12 +292,73 @@ def test_the_record_keys_and_bytes_follow_the_references_conventions():
             with signature.region("shell:exit"):
                 rec.note("all_gather", ("tp1", "tp2"), 8, torch.float32)
             rec.note("psum", "tp2", 2, torch.bfloat16)
+            with signature.quant():
+                rec.note("pmax", "tp1", 1, torch.float32)
+                rec.note("ppermute", "tp1", 5, torch.float32)
     with signature.recording("bwd", rec):
         rec.note("pmax", "tp1", 3, torch.float32, region="opt:x")
     assert signature.ACTIVE is None
     assert rec.by_key() == {("seg0:dense", "psum", ("tp2",), False): (2, 16),
                             ("shell:exit", "all_gather", ("tp1", "tp2"),
-                             False): (1, 32)}
+                             False): (1, 32),
+                            ("seg0:dense", "pmax", ("tp1",), True): (1, 4),
+                            ("seg0:dense", "ppermute", ("tp1",), True): (1, 20)}
     assert rec.by_key("bwd") == {("opt:x", "pmax", ("tp1",), False): (1, 12)}
     with pytest.raises(ValueError):
-        rec.note("ppermute", "tp1", 1, torch.float32)
+        rec.note("all_to_all", "tp1", 1, torch.float32)
+
+
+A8_CASES = [(mesh, name) for mesh in A8_MESHES for name in A8_PLANS]
+A8_IDS = [f"{'x'.join(map(str, m))}-{n}" for m, n in A8_CASES]
+
+
+def _named(records, mesh, name, rank):
+    return next(r for r in records[mesh][rank] if r["name"] == name)
+
+
+@pytest.mark.parametrize("mesh,name", A8_CASES, ids=A8_IDS)
+def test_a8_forward_collectives_equal_the_plans_expectation(records, mesh,
+                                                             name):
+    """The forward record of a ring, quantized or sequence-parallel plan
+    equals the reference's expectation of that plan, count for count and
+    byte for byte, on every rank."""
+    plan = a8_plan(mesh, name)
+    want = expected("llama3-8b", plan, batch_of(mesh), SEQ["llama3-8b"])
+    for rank in range(4):
+        got = recorded(_named(records, mesh, f"llama3-8b_{name}", rank))
+        assert got == want, (rank, sorted(set(got.items())
+                                          ^ set(want.items())))
+
+
+def backward_errors(result, plan, mesh) -> list[str]:
+    """The reference's structural backward rules (``check_conformance``)
+    on a rank's backward record under ``plan``."""
+    sig = StepSignature(tuple(
+        Collective(op=op, axes=tuple(axes), elems=0, dtype="float32",
+                   quant=quant, region=region, backward=True, site="",
+                   count=n)
+        for region, op, axes, quant, n, _ in result["bwd"]))
+    exp = expected_signature(ref_config("llama3-8b"),
+                             RefPlan.from_dict(plan.to_dict()), "train",
+                             batch_of(mesh), SEQ["llama3-8b"])
+    return [e for e in check_conformance(sig, exp) if " bwd:" in e]
+
+
+@pytest.mark.parametrize("mesh,name", A8_CASES, ids=A8_IDS)
+def test_a8_backward_follows_the_references_structural_rules(records, mesh,
+                                                             name):
+    """The reference's backward rules hold on every rank's record; the
+    dense segment runs ppermutes backward under a ring plan and a
+    quantized collective under a quantized one; and the rules have teeth:
+    the psum plan's backward fails a ring plan's and a quantized plan's."""
+    plan = a8_plan(mesh, name)
+    for rank in range(4):
+        res = _named(records, mesh, f"llama3-8b_{name}", rank)
+        assert backward_errors(res, plan, mesh) == [], rank
+        seg = {(op, q) for region, op, _, q, _, _ in res["bwd"]
+               if region == "seg0:dense"}
+        assert (("ppermute", False) in seg) == ("ring" in name), seg
+        assert any(q for _, q in seg) == (name in ("int8", "fp8")), seg
+    if name in ("ring", "int8"):
+        plain = _named(records, mesh, "llama3-8b_ck1", 0)
+        assert backward_errors(plain, plan, mesh)

@@ -65,6 +65,39 @@ def test_matmul_kernel_matches_plain(cuda, m, k, n, act, bias, trans):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,act,bias,out", [
+    (64, 4096, 6144, None, False, torch.bfloat16),   # q|k|v, a chunk
+    (2048, 4096, 512, "gelu", True, torch.bfloat16),  # 128-row tiles
+    (37, 160, 84, "silu", True, torch.float32),      # ragged M, N and K
+    (5, 14336, 4096, None, True, torch.float32),     # decode rows, down
+])
+def test_int8_matmul_kernel_matches_plain(cuda, m, k, n, act, bias, out):
+    """The int8 ``scale`` mode: the int32 sum and the f32 scale bit for bit
+    (no activation: equal outputs), the activation within the bf16
+    tolerance (tanhf against torch's gelu and silu in f32); one launch
+    counted in ``QUANT_LAUNCHES``, none in ``LAUNCHES``."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    bv = torch.randn(n, generator=gen, device=cuda).bfloat16() if bias \
+        else None
+    scale = 1.0 / (127 * 127 * k ** 0.5)
+    ops.reset_launches()
+    got = ops.matmul_int8(a, b, bv, scale=scale, activation=act,
+                          out_dtype=out)
+    assert ops.QUANT_LAUNCHES == {"matmul_int8": 1}
+    assert sum(ops.LAUNCHES.values()) == 0 and got.dtype == out
+    want = ref.matmul_int8_ref(a, b, bv, scale=scale, activation=act,
+                               out_dtype=out)
+    if act is None:
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, **BF16_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(64, 14336, 3584), (4, 3584, 240)])
 def test_matmul_kernel_is_deterministic(cuda, m, k, n):
     """The partials of a shared tile are summed in block order by

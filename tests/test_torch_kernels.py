@@ -64,6 +64,65 @@ def test_matmul_plain_matches_pallas(m, k, n, act, bias):
             **TOL)
 
 
+@pytest.mark.parametrize("m,k,n,act,bias,out", [
+    (64, 96, 48, "gelu", True, "f32"),     # the reference's own test case
+    (37, 1040, 77, "silu", True, "bf16"),  # K at the f32-exact limit
+    (5, 256, 200, None, False, "f32"),     # decode-sized M
+    (40, 512, 64, "gelu", False, "bf16"),
+])
+def test_int8_matmul_plain_matches_pallas(m, k, n, act, bias, out):
+    """The int8 ``scale`` mode: int8 operands, the dequant scale before the
+    bias and the activation.  At K <= 1040 both sides' sums are exact
+    (K * 127^2 < 2^24), so only the activation's f32 rounding differs:
+    1e-6 in f32, one bf16 ulp in bf16."""
+    from repro.kernels.matmul import matmul as pallas_matmul
+
+    rng = np.random.default_rng(m * 7 + k)
+    a = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    b = rng.integers(-127, 128, (k, n), dtype=np.int8)
+    bv = _randn(rng, n) if bias else None
+    scale = np.float32(0.37 / (127 * 127 * k ** 0.5))
+    jdt, tdt = ((jnp.float32, torch.float32) if out == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = np.asarray(pallas_matmul(
+        jnp.asarray(a), jnp.asarray(b),
+        None if bv is None else jnp.asarray(bv), scale=scale, activation=act,
+        out_dtype=jdt, block_m=32, block_n=64, block_k=64,
+        interpret=True)).astype(np.float32)
+    ops.reset_launches()
+    got = ops.matmul_int8(torch.from_numpy(a), torch.from_numpy(b),
+                          None if bv is None else torch.from_numpy(bv),
+                          scale=float(scale), activation=act, out_dtype=tdt)
+    assert got.dtype == tdt and ops.QUANT_LAUNCHES == {"matmul_int8": 0}
+    if out == "f32":
+        np.testing.assert_allclose(_np(got), want, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_allclose(_np(got), want, rtol=2 ** -8, atol=1e-6)
+
+
+def test_quantize_for_matmul_matches_the_reference_bit_for_bit():
+    """q and scale of ``ops.quantize_for_matmul`` equal the reference's
+    compiled ``quantize_for_matmul`` (XLA multiplies by the constant's
+    reciprocal, as the port does) bit for bit; the quantized product
+    through ``matmul_int8`` stays within 2% of the float one's range."""
+    from repro.kernels.matmul import quantize_for_matmul as jax_quantize
+
+    rng = np.random.default_rng(3)
+    for shape, scale in (((64, 96), 1.0), ((96, 48), 0.2), ((7, 5), 300.0)):
+        x = _randn(rng, *shape, scale=scale)
+        qj, sj = jax.jit(jax_quantize)(jnp.asarray(x))
+        q, s = ops.quantize_for_matmul(torch.from_numpy(x))
+        assert q.dtype == torch.int8
+        np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+        assert s.numpy().tobytes() == np.asarray(sj).tobytes()
+    a, b = _randn(rng, 16, 64), _randn(rng, 64, 32, scale=0.2)
+    (qa, sa), (qb, sb) = (ops.quantize_for_matmul(torch.from_numpy(t))
+                          for t in (a, b))
+    got = ops.matmul_int8(qa, qb, scale=sa * sb, out_dtype=torch.float32)
+    exact = torch.from_numpy(a @ b)
+    assert float((got - exact).abs().max()) < 0.02 * float(exact.abs().max())
+
+
 def test_matmul_reads_a_transposed_weight_and_counts_no_cpu_launch():
     """A tied head passes the embedding transposed (a view, no copy); on
     the CPU the plain version runs and no kernel launch is counted."""

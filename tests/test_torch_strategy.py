@@ -47,13 +47,15 @@ from repro_torch.core.atp import (SEQ_PARALLEL_KINDS, ATPContext,  # noqa: E402
 from repro_torch.core.calibrate import (CalibEntry, CalibrationTable,  # noqa: E402
                                         calibrate_mesh, recalibrate_surviving,
                                         robust_seconds)
-from repro_torch.core.mesh import atp_topo, factorizations  # noqa: E402
+from repro_torch.core.mesh import (atp_topo, dp_axis_names,  # noqa: E402
+                                   factorizations, tp_axis_names)
 from repro_torch.core.plan import (ParallelPlan, PredictedCost,  # noqa: E402
                                    plan_search, replan_elastic)
 from repro_torch.launch import plan_smoke, serve, train  # noqa: E402
 from repro_torch.launch.steps import (build_paged_step,  # noqa: E402
                                       build_train_step, resolve_ctx)
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 from _torch_plan_worker import batch_of, finish, start  # noqa: E402
 
@@ -475,24 +477,42 @@ def test_for_segment_gives_each_kind_its_knobs():
         "mamba-int8"])
 def test_unported_knobs_raise_naming_a8(plan):
     """A plan or segment asking for a ring boundary, a quantized wire or
-    the sequence-parallel spec raises when its context is built: it never
-    runs as a plain psum."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_context(plan=plan, device_type="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_train_step(LLAMA, device="cpu", plan=plan)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ATPContext(topo=atp_topo(1, 1, 1), ax1=None, ax2=None, dp_axes=(),
-                   boundary_mode=plan.boundary_mode,
-                   seq_parallel=plan.seq_parallel,
-                   wire_dtype=plan.wire_dtype, segment_plans=plan.segments)
+    the sequence-parallel spec (ROADMAP A8, ported): its context builds
+    from the plan and from the loose knobs and carries them, each
+    segment's view its own, and ``build_train_step`` takes one CPU step
+    under it with a finite loss."""
+    ctx = make_context(plan=plan, device_type="cpu")
+    assert (ctx.boundary_mode, ctx.seq_parallel, ctx.wire_dtype,
+            ctx.segment_plans) == (plan.boundary_mode, plan.seq_parallel,
+                                   plan.wire_dtype, plan.segments)
+    for seg in plan.segments:
+        view = ctx.for_segment(seg.kind)
+        assert (view.boundary_mode, view.wire_dtype) == (seg.boundary_mode,
+                                                         seg.wire_dtype)
+        assert view.seq_parallel == (seg.seq_parallel
+                                     and seg.kind in SEQ_PARALLEL_KINDS)
+    loose = ATPContext(topo=atp_topo(1, 1, 1), ax1=None, ax2=None,
+                       dp_axes=(), boundary_mode=plan.boundary_mode,
+                       seq_parallel=plan.seq_parallel,
+                       wire_dtype=plan.wire_dtype,
+                       segment_plans=plan.segments)
+    assert loose == dataclasses.replace(ctx, coords={}, groups={})
+    step, info = build_train_step(LLAMA, device="cpu", plan=plan)
+    assert info.ctx == ctx
+    params = lm.shard_params(LLAMA, lm.init_params(LLAMA, seed=0,
+                                                   device="cpu"), info.ctx)
+    rows = batch_of(LLAMA, 2, 8)
+    _, _, metrics = step(params, adamw.init_opt_state(params, info.ctx,
+                                                      "zero1"),
+                         {k: torch.from_numpy(v) for k, v in rows.items()})
+    assert math.isfinite(float(metrics["loss"]))
 
 
 def test_builders_carry_the_plans_knobs():
-    """``build_train_step(plan=)`` runs the plan's knobs; ``build_paged_step
-    (plan=)`` its decode sub-plan's (chunks 1 in every segment), with
-    ``seq_parallel`` masked, so a serving step of a plan that trains
-    sequence-parallel builds."""
+    """``build_train_step(plan=)`` runs the plan's knobs, ``seq_parallel``
+    among them; ``build_paged_step(plan=)`` its decode sub-plan's (chunks
+    1 in every segment), with ``seq_parallel`` masked.  Each of the
+    reference's plan files builds a context at its mesh's shape."""
     plan = ParallelPlan(d1=1, d2=1, chunks=4, segments=(
         SegmentPlan("dense", chunks=2),), decode=DecodePlan(d1=1, d2=1))
     _, t_info = build_train_step(LLAMA, device="cpu", plan=plan)
@@ -506,8 +526,24 @@ def test_builders_carry_the_plans_knobs():
     sp = plan.with_(seq_parallel=True, decode=None)
     _, p_info = build_paged_step(LLAMA, device="cpu", plan=sp)
     assert (p_info.ctx.chunks, p_info.ctx.seq_parallel) == (4, False)
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_train_step(LLAMA, device="cpu", plan=sp)
+    _, t_info = build_train_step(LLAMA, device="cpu", plan=sp)
+    assert t_info.ctx.seq_parallel    # the dense entry's own knob wins
+    assert not t_info.ctx.for_segment("dense").seq_parallel
+    # each of the reference's plan files (ring, int8 and seq-parallel
+    # knobs) gives a context at its own mesh's shape, each segment's view
+    # with its knobs (process groups come from a mesh of that many ranks)
+    for path in sorted(DATA.glob("plan_v*")):
+        p = ParallelPlan.from_json(path.read_text())
+        topo = p.topo()
+        ax1, ax2 = tp_axis_names(topo)
+        ctx = ATPContext(topo=topo, ax1=ax1, ax2=ax2,
+                         dp_axes=dp_axis_names(topo), chunks=p.chunks, boundary_mode=p.boundary_mode,
+                         seq_parallel=p.seq_parallel,
+                         wire_dtype=p.wire_dtype, segment_plans=p.segments)
+        assert (ctx.d1, ctx.d2, ctx.dp) == (p.d1, p.d2, p.dp * p.pods), path
+        for seg in p.segments:
+            assert ctx.for_segment(seg.kind).boundary_mode == \
+                seg.boundary_mode, path
     # a topology still builds as before, and neither refuses
     _, t_info = build_train_step(LLAMA, atp_topo(1, 1, 1), chunks=2,
                                  device="cpu")

@@ -306,9 +306,10 @@ def test_zamba_three_plain_adamw_steps_match_jax():
 
 
 def test_adamw_refuses_what_is_not_ported():
-    """What the training step still refuses: an AdamW mode the JAX package
-    does not have (plain, zero1 and compressed are ported), and a ring
-    boundary (ROADMAP A8), refused when the step's context is built."""
+    """What the training step refuses: an AdamW mode the JAX package does
+    not have (plain, zero1 and compressed are ported).  A ring boundary
+    (ROADMAP A8, ported) builds a step that takes one CPU step from the
+    JAX weights with the single device's loss."""
     from repro_torch.core.plan import ParallelPlan
 
     pcfg = port_config("llama3-8b").reduced()
@@ -319,9 +320,16 @@ def test_adamw_refuses_what_is_not_ported():
     state = adamw.init_opt_state(tp, ctx, "plain")
     with pytest.raises(ValueError, match="unknown AdamW mode"):
         adamw.apply_adamw(adamw.AdamWConfig(mode="lion"), ctx, tp, tp, state)
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_train_step(pcfg, device="cpu", plan=ParallelPlan(
-            d1=1, d2=1, boundary_mode="ring"))
+    step, info = build_train_step(pcfg, device="cpu", plan=ParallelPlan(
+        d1=1, d2=1, boundary_mode="ring"))
+    assert info.ctx.boundary_mode == "ring"
+    cfg, params = jax_params("llama3-8b")
+    batch = make_batch(cfg, 2, 12)
+    _, _, metrics = step(tp, adamw.init_opt_state(tp, info.ctx, "plain"),
+                         {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(metrics["loss"]),
+                               jax_loss_and_grads(cfg, params, batch)[0],
+                               **TOL)
     assert adamw.lr_at(adamw.AdamWConfig(warmup_steps=2), 0) == 1.5e-4
 
 
