@@ -53,6 +53,40 @@ Phases, in order, each failing the run on any error:
    phase 2, at 283 matmul, 163 rmsnorm (95 block norms and 68 grouped
    norms), 13 flash_attention and 68 ssd_scan per step.  The result line's
    forward rows read their launches from it.
+5b. serve-wave -- the wave baseline over contiguous decode caches
+   (``launch.serve.make_wave_server``, ``launch.steps.build_decode_step``:
+   one CUDA graph for a wave's prefill and one for its decode tick).
+   qwen3-8b at its published widths, not cut (36 layers, d_model 4096, 32
+   q / 8 kv heads of 128 with qk-norm, d_ff 12288, vocab 151936), random
+   bf16 weights from a seed: a wave of 4 prompts of 256 tokens, 16 new
+   each; then zamba2-7b with serve-zamba's weights (kept from that phase;
+   built from its seed when it did not run): 4 prompts of 128 tokens.
+   Each model's weights also serve the same prompts through a paged
+   server (4 slots, prefill chunk 64, page size 16).  Every count is set
+   to 0 just before the first captured wave and read just after: the
+   per-step counts of the paged step times the wave's steps and its two
+   warm-ups (printed with the attention's split by ``attention_plan``
+   variant).  Then captured and uncaptured waves and the paged server in
+   turns (``TIMED_PAIRS`` of each): every wave's tokens equal the counted
+   run's, and the medians of the wall ms per prefill and per decode tick,
+   and of the whole wave, are printed beside the paged server's for the
+   same prompts.  The logits, uncaptured: the wave's first new token's
+   logit rows within ``PATH_TOL`` (relative L2 a row) of the paged path's
+   at the wave's own shapes (every prompt in one step, then the same
+   ticks), and its tokens equal to that path's up to each request's first
+   near-tie (a step whose top-2 logit gap is below ``NEAR_TIE`` in either
+   path's logits); then against the paged path's last prefill chunk of
+   64 and the paged server's tokens: qwen3-8b within ``PATH_TOL`` and up
+   to a near-tie of ``NEAR_TIE``; zamba2-7b, whose bf16 rounding moves a
+   row by more than that, within ``RECURRENT_FACTOR`` times the paged
+   path's own distance between one step and chunks of 64, and up to a
+   near-tie of twice the paths' largest logit difference (the requests
+   that reach one, and where the tokens part, are printed).  Last the
+   path check of ``path_check`` on the wave's prefill at the first
+   layers of the same weights (``WAVE_PATH_LAYERS``): the first new
+   token's rows on the card (kernels, bf16) against the CPU (plain, fp32)
+   within ``PATH_TOL``, and for zamba2-7b the rows and the batch-row SSD
+   state within ``RECURRENT_FACTOR`` times the plain bf16 path's error.
 6. path-check-zamba -- zamba2-7b at full width with the depth cut to 7
    layers (one super-block and one tail Mamba2 block): slot 0's chunks at 0
    and 64 (the second carries the state), slot 1's chunk at 0, and one
@@ -254,6 +288,12 @@ Phases, in order, each failing the run on any error:
    carries a decode sub-plan (decode batch 4), every request's greedy
    tokens equal to those of the server built from the topology.
 
+17. calibrate -- ``core.calibrate.calibrate_mesh(8, h100-sxm-8)`` in this
+   one process: no factorization of tp 8 fits one rank, so the table is
+   empty, and ``launch.train.pick_plan`` for gpt-m4 at tp 8 with it gives
+   the analytic search's plan (d1, d2, chunks, boundary mode and the
+   predicted costs, printed both ways; model output, not measurements).
+
 Prints the card's name and power limit, the kernels' build time and each
 kernel's registers and spills from the build report, one JSON
 line ``{"kernels": [...]}`` (one row per kernel: the four forward kernels
@@ -289,11 +329,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
-          "serve-zamba", "path-check-zamba", "train-kernels", "split-norm",
-          "int8-matmul", "quant-wire", "train",
+          "serve-zamba", "serve-wave", "path-check-zamba", "train-kernels",
+          "split-norm", "int8-matmul", "quant-wire", "train",
           "path-check-train", "train-zamba-kernels", "train-zamba",
           "path-check-train-zamba", "train-gpt-kernels", "train-gpt",
-          "path-check-train-gpt", "plan")
+          "path-check-train-gpt", "plan", "calibrate")
 #: the serving path whose forward rows the result line reports
 MAIN = "zamba2-7b"
 #: the training path: the backward rows of the result line
@@ -941,11 +981,14 @@ def serve_once(torch, server, step_fn, prompts, rid0: int):
 #: uncaptured step's time and moves between calls, so the two are compared
 #: only inside one call, interleaved
 TIMED_PAIRS = 5
+#: serve-zamba's pairs: its uncaptured runs take about 30 s each, and the
+#: whole script has to stay well inside its time limit
+ZAMBA_PAIRS = 3
 
 
 def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
                 kernel_ms=None, profile: bool = False,
-                pairs: int = 0) -> dict:
+                pairs: int = 0, keep: dict | None = None) -> dict:
     """Serve ``requests`` seeded prompts through ``make_paged_server`` and
     ``run_until_drained``, the step captured as a CUDA graph at each of its
     two shapes; check every request and the page pool, that exactly two
@@ -964,7 +1007,8 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     its launches per step and its time by kernel (the counts are read
     before, and checked after the profile, so that a tree whose counts
     differ still prints it).  Returns the launch counts of the counted
-    run."""
+    run.  ``keep`` (a dict) receives the server's sharded weights
+    (``"params"``) for a later phase."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -1046,6 +1090,8 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
         meter = StepMeter(server)
         server.step_fn = meter
         profile_run(torch, server, meter, prompts, cfg.name, wall)
+    if keep is not None:
+        keep["params"] = step.params
     # the step holds the weights; each meter and its server refer to each
     # other, so only a collection frees them
     del server, meter, step, captured, runs
@@ -1323,6 +1369,472 @@ def _ssd_pools(caches) -> list:
     """The fp32 SSD state pools of every recurrent segment."""
     return [c["mamba"]["ssd"] if "mamba" in c else c["ssd"]
             for c in caches.values() if "ssd" in c or "mamba" in c]
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: the wave baseline over contiguous decode caches.
+# ---------------------------------------------------------------------------
+
+#: the wave's workloads: a wave of ``batch`` prompts of ``prompt_len``
+#: tokens and ``SERVE["max_new"]`` new ones each, the weights from ``seed``
+#: (zamba2-7b's are serve-zamba's when that phase ran)
+WAVE = {"qwen3-8b": dict(batch=4, prompt_len=256, seed=3),
+        "zamba2-7b": dict(batch=4, prompt_len=128, seed=2)}
+#: a step whose top-2 logit gap is below this in the wave's or the paged
+#: path's logits is a near-tie: two paths that round differently may pick
+#: either token there, and their continuations part
+NEAR_TIE = 5e-2
+#: the depth of the wave's path check: the first layers of the served
+#: weights, full width, so that the fp32 CPU side stays small (path-check's
+#: depths: zamba2-7b's first super-block and a tail Mamba2 block)
+WAVE_PATH_LAYERS = {"qwen3-8b": 2, "zamba2-7b": 7}
+
+
+class WaveMeter:
+    """Wraps a ``WaveServer``'s ``tick``: counts its calls and sums their
+    host time by kind (a prefill feeds [b, s > 1] tokens, a decode tick
+    [b, 1]).  A tick hands back numpy tokens, so it ends synchronised."""
+
+    KINDS = ("prefill", "decode")
+
+    def __init__(self, wave):
+        self.wave, self.fn = wave, wave.tick
+        self.calls = dict.fromkeys(self.KINDS, 0)
+        self.seconds = dict.fromkeys(self.KINDS, 0.0)
+        wave.tick = self
+
+    def __call__(self, tokens, pos):
+        kind = "prefill" if tokens.shape[1] > 1 else "decode"
+        t0 = time.perf_counter()
+        out = self.fn(tokens, pos)
+        self.seconds[kind] += time.perf_counter() - t0
+        self.calls[kind] += 1
+        return out
+
+    def done(self):
+        del self.wave.tick     # the instance's method again
+
+
+def wave_once(wave, prompts, captured: bool = True):
+    """One wave through the captured step or the uncaptured body; returns
+    (its meter, the tokens [batch, max_new])."""
+    w = wave if captured else wave.uncaptured()
+    meter = WaveMeter(w)
+    try:
+        return meter, w.serve(prompts, SERVE["max_new"])
+    finally:
+        meter.done()
+
+
+def _rows_and_gaps(torch, rows):
+    """Greedy tokens and top-2 logit gaps [b, steps] of per-step logit
+    rows [b, V]."""
+    stacked = torch.stack(rows, 1)
+    top = stacked.topk(2, dim=-1).values
+    return (stacked.argmax(-1).cpu().numpy(),
+            (top[..., 0] - top[..., 1]).cpu().numpy())
+
+
+def wave_logit_run(torch, cfg, wave, prompts):
+    """The wave's body uncaptured, its logits kept: (the first new token's
+    logit rows [b, V] fp32, the tokens and top-2 gaps [b, max_new])."""
+    import numpy as np
+
+    from repro_torch.models import lm
+
+    ctx, dev = wave.info.ctx, wave.info.device
+    lm.reset_decode_caches(wave.caches)
+    toks = torch.as_tensor(np.stack(prompts), device=dev)
+    pos, rows = 0, []
+    with torch.no_grad():
+        for _ in range(SERVE["max_new"]):
+            logits, _ = lm.decode_step(ctx, cfg, wave.params, toks, pos,
+                                       wave.caches)
+            rows.append(logits.float())
+            pos += toks.shape[1]
+            toks = rows[-1].argmax(-1)[:, None].int()
+    return (rows[0].cpu(), *_rows_and_gaps(torch, rows))
+
+
+def paged_logit_run(torch, cfg, params, prompts, dev, batched=False):
+    """The paged path's ``lm.paged_step`` on the same prompts, uncaptured:
+    each prompt's prefill chunks of ``SERVE["prefill_chunk"]`` tokens in
+    its own slot (``batched``: every prompt whole in one step, the wave's
+    shapes), then decode ticks of every slot.  Returns (each prompt's last
+    prefill chunk's last logit row [b, V] fp32, the tokens and top-2 gaps
+    [b, max_new])."""
+    import numpy as np
+
+    from repro_torch.core.atp import make_context
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+    from repro_torch.models.paging import PageAllocator, PagedConfig
+
+    b, plen, new = len(prompts), len(prompts[0]), SERVE["max_new"]
+    chunk, pg = SERVE["prefill_chunk"], SERVE["page_size"]
+    pcfg = PagedConfig(page_size=pg, num_pages=1 + b * -(-(plen + new) // pg),
+                       pages_per_slot=-(-SERVE["max_seq"] // pg))
+    alloc = PageAllocator(pcfg, b)
+    for i in range(b):
+        alloc.ensure(i, plen + new)
+    recurrent = lm.is_recurrent(cfg)
+    ctx = make_context(atp_topo(1, 1, 1), device_type=dev)
+    caches = lm.init_paged_caches(cfg, ctx, pcfg, device=dev,
+                                  slots=b if recurrent else None)
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    table = put(alloc.table())
+    toks = put(np.stack(prompts))
+    first = []
+    with torch.no_grad():
+        if batched:
+            logits, _ = lm.paged_step(ctx, cfg, params, toks, put([0] * b),
+                                      table, caches,
+                                      slot=put(range(b)) if recurrent else None)
+            first = list(logits[:, -1].float())
+        for i in range(0 if batched else b):
+            for c0 in range(0, plen, chunk):
+                logits, _ = lm.paged_step(
+                    ctx, cfg, params, toks[i:i + 1, c0:c0 + chunk], put([c0]),
+                    table[i:i + 1], caches,
+                    slot=put([i]) if recurrent else None)
+            first.append(logits[0, -1].float())
+        rows = [torch.stack(first)]
+        for t in range(new - 1):
+            logits, _ = lm.paged_step(
+                ctx, cfg, params, rows[-1].argmax(-1)[:, None].int(),
+                put([plen + t] * b), table, caches,
+                slot=put(range(b)) if recurrent else None)
+            rows.append(logits[:, 0].float())
+    return (rows[0].cpu(), *_rows_and_gaps(torch, rows))
+
+
+def row_errors(got, want) -> tuple[float, int]:
+    """The worst per-row relative L2 error of logit rows and their top-1
+    agreement."""
+    rel = float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+    return rel, int((got.argmax(-1) == want.argmax(-1)).sum())
+
+
+def cut_params(cfg, cut, params) -> dict:
+    """The first layers of a sharded tree: each segment of ``cut`` (a
+    config whose segments are the first of ``cfg``'s, as deep or less) takes
+    the leading blocks of ``cfg``'s segment."""
+    from repro_torch.configs.base import segments
+    from repro_torch.models import lm
+
+    full, part = segments(cfg), segments(cut)
+    assert [(s.kind, s.inner) for s in part] == \
+        [(s.kind, s.inner) for s in full[:len(part)]], (part, full)
+    out = {k: v for k, v in params.items() if not k.startswith("seg")}
+    for i, seg in enumerate(part):
+        out[f"seg{i}"] = lm.tree_map(lambda t, n=seg.count: t[:n],
+                                     params[f"seg{i}"])
+    return out
+
+
+def wave_path_check(torch, cfg, wave, prompts, layers: int) -> None:
+    """The wave's prefill at the served weights' first ``layers`` layers,
+    full width: the first new token's logit rows on the card (kernels,
+    bf16) against the CPU (plain versions, fp32, from the same bf16
+    weights), as ``path_check`` holds the paged path.  A dense model within
+    ``PATH_TOL`` a row; a recurrent one, as close to fp32 as the plain
+    versions in bf16 on the CPU are (``RECURRENT_FACTOR``), over the rows
+    and over the batch-row SSD state the prefill leaves in its caches."""
+    import numpy as np
+
+    from repro_torch.core.atp import make_context
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    params = cut_params(cfg, cut, wave.params)
+    recurrent = lm.is_recurrent(cfg)
+    toks = np.stack(prompts)
+    runs = [("card", wave.info.device.type, params, None),
+            ("fp32", "cpu", lm.tree_map(lambda t: t.cpu().float(), params),
+             torch.float32)]
+    if recurrent:
+        runs.append(("bf16", "cpu", lm.tree_map(lambda t: t.cpu(), params),
+                     None))
+    out, states = {}, {}
+    for name, where, tree, dtype in runs:
+        ctx = make_context(atp_topo(1, 1, 1), device_type=where)
+        caches = lm.init_decode_caches(cut, ctx, len(prompts),
+                                       SERVE["max_seq"], dtype=dtype,
+                                       device=where)
+        with torch.no_grad():
+            logits, _ = lm.decode_step(ctx, cut, tree,
+                                       torch.as_tensor(toks, device=where), 0,
+                                       caches)
+        out[name] = logits.float().cpu()
+        states[name] = [t.cpu() for t in _ssd_pools(caches)]
+    rel, agree = row_errors(out["card"], out["fp32"])
+    log(f"  path check, the first {layers} layers of these weights: the "
+        f"first new token's {len(prompts)} logit rows, card (kernels, bf16) "
+        f"against CPU (plain, fp32): worst relative L2 error per row "
+        f"{rel:.3e}, over the rows {frob(out['card'], out['fp32']):.3e}, top-1 "
+        f"agreement {agree}/{len(prompts)}")
+    if not recurrent:
+        assert rel <= PATH_TOL, f"wave path check: {rel:.3e} > {PATH_TOL}"
+        return
+    f = RECURRENT_FACTOR
+    pairs = [("logit rows", out["card"], out["fp32"], out["bf16"])] + [
+        (f"SSD state of segment {i}", c, w, p) for i, (c, w, p) in
+        enumerate(zip(states["card"], states["fp32"], states["bf16"]))]
+    for what, c, w, p in pairs:
+        got, plain = frob(c, w), frob(p, w)
+        log(f"    {what} against fp32: card {got:.3e}, plain bf16 "
+            f"{plain:.3e} (limit {f} x the plain)")
+        assert got <= f * plain, f"wave path check: {what} {got:.3e} " \
+            f"beyond {f} x {plain:.3e}"
+
+
+def frob(got, want) -> float:
+    """Relative L2 error of a whole tensor."""
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def near_tie_rule(wave_toks, paged_toks: dict, gaps, tie: float) -> list:
+    """Wave and paged tokens must be equal up to each request's first
+    near-tie (a step whose top-2 gap, in either path's logits, is below
+    ``tie``).  Returns, per request that reaches one, (request, that step,
+    the first step whose tokens differ or None, the gap there)."""
+    tied = []
+    for r, want in enumerate(wave_toks.tolist()):
+        below = [t for t in range(len(want)) if gaps[r, t] < tie]
+        upto = below[0] if below else len(want)
+        got = paged_toks[r]
+        assert got[:upto] == want[:upto], \
+            f"request {r}: paged {got} against wave {want} before its " \
+            f"first near-tie at step {upto}"
+        if below:
+            differ = next((t for t, (g, w) in enumerate(zip(got, want))
+                           if g != w), None)
+            tied.append((r, upto, differ, None if differ is None else
+                         round(float(gaps[r, differ]), 4)))
+    return tied
+
+
+def wave_run(torch, cfg, wave, server, step, prompts, pairs: int) -> dict:
+    """The checks and timings of one model's wave (see the module
+    docstring, serve-wave): returns the counted run's launches."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    recurrent = lm.is_recurrent(cfg)
+
+    b, plen = len(prompts), len(prompts[0])
+    # the counted run: every count 0 just before, read just after
+    ops.reset_launches()
+    meter, tokens = wave_once(wave, prompts)
+    launches, variants = dict(ops.LAUNCHES), list(ops.ATTENTION_VARIANT_LAUNCHES)
+    steps = sum(meter.calls.values())
+    per_step = launches_per_step(cfg)
+    want = {k: v * (steps + wave.step.warmups) for k, v in per_step.items()}
+    log(f"  counted captured wave: {steps} steps and {wave.step.warmups} "
+        f"warm-up runs, launches {launches} (= per step {per_step} x "
+        f"{steps + wave.step.warmups}); flash_attention by "
+        f"``attention_plan`` variant {variants} (0: flash_attention.cu, 1: "
+        f"flash_attention_train.cu); request 0 -> {tokens[0].tolist()}")
+    for key, shape in wave.step.shapes.items():
+        log(f"  graph for tokens {key[0]}: warm-up {shape.warmup_s:.3f}s, "
+            f"capture {shape.capture_s:.3f}s, graph pool {shape.pool_bytes} "
+            f"bytes ({shape.pool_bytes / 2**20:.1f} MiB), launches a replay "
+            f"{shape.launches}")
+    assert wave.step.captures == 2 and len(wave.step.shapes) == 2, \
+        f"{wave.step.captures} captures of {len(wave.step.shapes)} shapes"
+    assert launches == want, f"launches {launches}, expected {want}"
+    assert tokens.shape == (b, SERVE["max_new"])
+    assert ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
+
+    # captured, uncaptured and the paged server, in turns
+    runs = {"captured": [], "uncaptured": [], "paged": []}
+    for i in range(pairs):
+        order = (("uncaptured", "captured", "paged") if i % 2 == 0 else
+                 ("paged", "captured", "uncaptured"))
+        for mode in order:
+            if mode == "paged":
+                m, outs = serve_once(torch, server, step, prompts,
+                                     3000 + 100 * i)
+                runs[mode].append((m, outs))
+                continue
+            m, got = wave_once(wave, prompts, captured=mode == "captured")
+            assert (got == tokens).all(), \
+                f"run {i}, {mode}: wave tokens differ from the counted run's"
+            runs[mode].append((m, got))
+    paged = runs["paged"][0][1]
+    assert all(o == paged for _, o in runs["paged"]), "paged runs differ"
+
+    def med(mode, kind):
+        return statistics.median(1e3 * m.seconds[kind] / m.calls[kind]
+                                 for m, _ in runs[mode])
+
+    def total(mode):
+        return statistics.median(1e3 * sum(m.seconds.values())
+                                 for m, _ in runs[mode])
+
+    log(f"  {pairs} runs of each in turns (wall ms per step on the host "
+        f"clock around a step that ends synchronised, medians):")
+    for kind in WaveMeter.KINDS:
+        unc, cap = med("uncaptured", kind), med("captured", kind)
+        log(f"    wave {kind} ({runs['captured'][0][0].calls[kind]} a "
+            f"wave): captured {cap:.2f} ms, uncaptured {unc:.2f} ms "
+            f"({unc / cap:.2f}x)")
+    pm = runs["paged"][0][0]
+    log(f"    the whole wave: captured {total('captured'):.2f} ms, "
+        f"uncaptured {total('uncaptured'):.2f} ms; the paged server "
+        f"(captured) on the same prompts {total('paged'):.2f} ms in its "
+        f"steps: " + ", ".join(
+            f"{pm.calls[k]} {k} at {med('paged', k):.2f} ms"
+            for k in StepMeter.KINDS if pm.calls[k]))
+
+    # the logits of both paths, uncaptured
+    first, logit_toks, wave_gaps = wave_logit_run(torch, cfg, wave, prompts)
+    assert (logit_toks == tokens).all(), \
+        "the wave's logit run picked other tokens than its step"
+    dev = wave.info.device.type
+    # the paged path at the wave's own shapes (every prompt in one step):
+    # the same kernels at the same shapes, so it must give the wave's rows
+    # and tokens
+    same, same_toks, same_gaps = paged_logit_run(torch, cfg, wave.params,
+                                                 prompts, dev, batched=True)
+    rel, agree = row_errors(first, same)
+    log(f"  first new token's logit rows, wave against the paged path at the "
+        f"wave's shapes (every prompt in one step): worst relative L2 error "
+        f"per row {rel:.3e} (limit {PATH_TOL}), top-1 agreement {agree}/{b}")
+    assert rel <= PATH_TOL, f"wave against paged: {rel:.3e} > {PATH_TOL}"
+    tied = near_tie_rule(tokens, {r: list(t) for r, t in
+                                  enumerate(same_toks.tolist())},
+                         np.minimum(wave_gaps, same_gaps), NEAR_TIE)
+    log(f"    their tokens equal up to each request's first near-tie (top-2 "
+        f"gap < {NEAR_TIE}): {len(tied)} of {b} requests reach one "
+        f"(request, its step, the first step that differs, its gap): "
+        f"{tied}")
+    # the paged path as the server runs it, chunks of SERVE["prefill_chunk"]
+    pfirst, _, paged_gaps = paged_logit_run(torch, cfg, wave.params, prompts,
+                                            dev)
+    rel, agree = row_errors(first, pfirst)
+    own = row_errors(same, pfirst)[0]
+    log(f"  first new token's logit rows, wave against the paged path's "
+        f"last prefill chunk: worst relative L2 error per row {rel:.3e}, "
+        f"top-1 agreement {agree}/{b}; the paged path's own distance between "
+        f"one step and chunks of {SERVE['prefill_chunk']}: {own:.3e}")
+    tie = NEAR_TIE
+    if recurrent:
+        # bf16 rounding on this model moves a row by more than PATH_TOL
+        # (the plain bf16 path on the CPU: PERF.md): hold the wave as far
+        # from the server's chunking as the paged path itself is, and count
+        # as near a gap below twice the paths' largest logit difference
+        assert rel <= RECURRENT_FACTOR * own, \
+            f"wave against paged: {rel:.3e} > {RECURRENT_FACTOR} x {own:.3e}"
+        tie = max(NEAR_TIE, 2 * float((first - pfirst).abs().max()))
+    else:
+        assert rel <= PATH_TOL, f"wave against paged: {rel:.3e} > {PATH_TOL}"
+    gaps = np.minimum(wave_gaps, paged_gaps)
+    tied = near_tie_rule(tokens, paged, gaps, tie)
+    log(f"  wave and paged server tokens equal up to each request's first "
+        f"near-tie (top-2 gap < {tie:.3g} in either path's logits): "
+        f"{len(tied)} of {b} requests reach one (request, its step, the "
+        f"first step that differs, its gap): {tied}; the smallest gap of "
+        f"each request {[round(float(g), 4) for g in gaps.min(1)]}")
+    wave_path_check(torch, cfg, wave, prompts,
+                    WAVE_PATH_LAYERS[cfg.name])
+    return launches
+
+
+def serve_wave_phase(torch, dev="cuda", zamba_params=None,
+                     pairs: int = 0) -> dict:
+    """qwen3-8b at its published widths, then zamba2-7b (with serve-zamba's
+    sharded weights, ``zamba_params``, when that phase kept them), each as
+    a wave (``launch.serve.make_wave_server``) and through a paged server
+    on the same prompts and the same weights.  Returns each model's
+    counted launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    out = {}
+    for arch, w in WAVE.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        prompts = serve.wave_prompts(cfg, w["batch"], w["prompt_len"],
+                                     w["seed"])
+        max_seq = SERVE["max_seq"]
+        if arch == MAIN and zamba_params is not None:
+            wave = serve.make_wave_server(cfg, w["batch"], max_seq,
+                                          zamba_params, device=dev,
+                                          sharded=True)
+            built = "serve-zamba's weights"
+        else:
+            wave = serve.make_wave_server(
+                cfg, w["batch"], max_seq,
+                lm.init_params(cfg, seed=w["seed"], device=dev), device=dev)
+            built = "weights from a seed"
+        scfg = serve.paged_server_config([len(p) for p in prompts], **SERVE)
+        server, _ = serve.make_paged_server(cfg, scfg, wave.params,
+                                            device=dev, sharded=True)
+        step = server.step_fn
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        log(f"serve-wave {arch}: {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads "
+            f"of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; a wave of "
+            f"{w['batch']} prompts of {w['prompt_len']} tokens, "
+            f"{SERVE['max_new']} new each, caches of {max_seq} positions; "
+            f"{built}, shared with a paged server; set-up "
+            f"{time.perf_counter() - t0:.1f}s"
+            + (f", device memory {torch.cuda.memory_allocated() / 2**30:.2f}"
+               f" GiB" if dev == "cuda" else ""))
+        out[arch] = wave_run(torch, cfg, wave, server, step, prompts, pairs)
+        del wave, server, step
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: calibration in one process.
+# ---------------------------------------------------------------------------
+
+#: the calibrated search: the paper's largest GPT at tp 8 on the H100 preset
+CALIBRATE = dict(arch="gpt-m4", tp=8, seq=2048, batch=1,
+                 topology="h100-sxm-8")
+
+
+def calibrate_phase(torch) -> None:
+    """``calibrate_mesh`` in one process on the card: no factorization of tp
+    8 fits one rank, so the table is empty, and ``pick_plan`` with it gives
+    the analytic search's plan (d1, d2, chunks and predicted cost).  No
+    number here is a measurement of the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import comm_matrix
+    from repro_torch.core.calibrate import calibrate_mesh
+    from repro_torch.launch import train
+
+    c = CALIBRATE
+    table = calibrate_mesh(c["tp"], comm_matrix.PRESETS[c["topology"]]())
+    log(f"calibrate: calibrate_mesh({c['tp']}, {c['topology']}) at world "
+        f"size 1 on {torch.cuda.get_device_name(0)}: {len(table)} entries "
+        f"(source {table.source!r})")
+    assert table.entries == (), table
+    cfg = get_config(c["arch"])
+    plans = {cal: train.pick_plan(cfg, c["tp"], c["seq"], c["batch"],
+                                  c["topology"], calibrate=cal).best
+             for cal in (False, True)}
+    for cal, p in plans.items():
+        log(f"  pick_plan({c['arch']}, tp {c['tp']}, seq {c['seq']}, batch "
+            f"{c['batch']}, calibrate={cal}): {p.describe()}; predicted "
+            f"{p.predicted}")
+    knobs = ("d1", "d2", "chunks", "boundary_mode", "seq_parallel",
+             "wire_dtype", "predicted")
+    a, b = ([getattr(plans[cal], k) for k in knobs] for cal in (False, True))
+    assert a == b, f"the calibrated plan differs: {b} against {a}"
 
 
 # ---------------------------------------------------------------------------
@@ -4001,12 +4513,20 @@ def main(argv=None) -> int:
         serve_phase(torch, get_config("qwen1.5-0.5b"), requests=4, seed=1)
         done("serve-qwen")
     zamba = get_config("zamba2-7b")
+    kept = {}   # serve-zamba's weights, which serve-wave serves again
     if "serve-zamba" in phases:
         # the forward rows of the result line read their counts from this run
-        launches[MAIN] = serve_phase(torch, zamba, requests=4, seed=2,
-                                     kernel_ms=kernel_ms(MAIN), profile=True,
-                                     pairs=TIMED_PAIRS)
+        launches[MAIN] = serve_phase(
+            torch, zamba, requests=4, seed=2, kernel_ms=kernel_ms(MAIN),
+            profile=True, pairs=ZAMBA_PAIRS,
+            keep=kept if "serve-wave" in phases else None)
         done("serve-zamba")
+    if "serve-wave" in phases:
+        serve_wave_phase(torch, zamba_params=kept.pop("params", None),
+                         pairs=TIMED_PAIRS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        done("serve-wave")
     if "path-check-zamba" in phases:
         # depth cut to 7 layers (one super-block of 6 and one tail Mamba2
         # block, so both segment kinds run) for the fp32 CPU side
@@ -4084,6 +4604,9 @@ def main(argv=None) -> int:
     if "plan" in phases:
         plan_phase(torch)
         done("plan")
+    if "calibrate" in phases:
+        calibrate_phase(torch)
+        done("calibrate")
 
     def path_rows(path, of):
         return [r.row(path, launches.get(path, {}).get(r.meta["name"], 0))

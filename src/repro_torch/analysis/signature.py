@@ -128,6 +128,19 @@ def recording(phase: str = "fwd", record: Record | None = None):
 
 
 @contextlib.contextmanager
+def paused():
+    """No record for the block: the collectives issued inside it (a
+    calibration's micro-benchmarks, which are not a step) are noted
+    nowhere.  The record installed before is put back at the end."""
+    global ACTIVE
+    prev, ACTIVE = ACTIVE, None
+    try:
+        yield
+    finally:
+        ACTIVE = prev
+
+
+@contextlib.contextmanager
 def _region(rec: Record, name: str):
     prev, rec.region = rec.region, name
     try:

@@ -1,10 +1,29 @@
-"""Calibration tables of the ATP cost model (paper §5.3; counterpart of
-``repro.core.calibrate``, its data part).
+"""On-mesh calibration of the ATP cost model (paper §5.3; counterpart of
+``repro.core.calibrate``).
 
-The measuring side (``calibrate_mesh``, ``recalibrate_surviving``: the
-on-mesh micro-benchmarks) is ROADMAP A7 and raises here; the tables, their
-JSON form and the helpers the plan search reads are a copy of the
-reference's.
+The tables, their JSON form and the helpers the plan search reads are a
+copy of the reference's.  The measuring side (``calibrate_mesh``,
+``recalibrate_surviving``) times the port's own collectives over
+``torch.distributed`` process groups, one process per rank (SPMD), where
+the reference's single controller times ``shard_map`` programs:
+
+  - ``devices`` is a list of global ranks (default: every rank of the
+    default group); a factorization (d1, d2) runs on its first d1 * d2,
+    laid out row-major as ``MeshTopo`` lays out (tp1, tp2);
+  - every rank of the default group calls these functions, and creates
+    every factorization's groups in the same order, member or not; ranks
+    outside a factorization skip its timing and receive its entry;
+  - a sample is timed on the host clock around a call that ends
+    synchronised (``torch.cuda.synchronize`` on the card), after a barrier
+    on the factorization's ranks, and is the slowest rank's (an all-reduce
+    MAX of the seconds): the wall time the reference's ``block_until_ready``
+    measures, whose host share ``launch_s`` and ``alpha_s`` isolate;
+  - a decision on a budget (``_time_fn``'s early stop, the recovery
+    deadline's gate) is the first rank's, on its clock, sent to the rest:
+    every rank issues the same collectives and builds the same table, so
+    that they pick the same plan;
+  - the collectives are not a step: the record of ``analysis.signature``
+    is paused while they run.
 
 The analytic hierarchical comm matrix (Eq. 3/4) predicts per-mesh-dim
 algorithm bandwidths; §5.3 shows the prediction can be badly wrong on
@@ -29,9 +48,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping
+import time
+from typing import Callable, Mapping
 
 from repro_torch.core.comm_matrix import HierarchicalCommMatrix
+from repro_torch.core.mesh import factorizations
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,15 +326,341 @@ def robust_seconds(samples) -> float:
     return kept[n // 2] if n % 2 else 0.5 * (kept[n // 2 - 1] + kept[n // 2])
 
 
-_A7 = ("is not ported yet (ROADMAP A7: calibration, the on-mesh "
-       "micro-benchmarks timed with CUDA events)")
+# ---------------------------------------------------------------------------
+# Agreement between the ranks.
+# ---------------------------------------------------------------------------
 
 
-def calibrate_mesh(tp_degree: int, matrix: HierarchicalCommMatrix | None = None,
-                   **kwargs) -> CalibrationTable:
-    """Measure (B1, B2) and the boundary latencies of every runnable
-    (d1, d2) of ``tp_degree``: ROADMAP A7."""
-    raise NotImplementedError(f"calibrate_mesh {_A7}")
+def _dist():
+    """``torch.distributed`` when a default group exists, else None (one
+    process: nothing to agree on)."""
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def _world_devices(devices) -> list:
+    """``devices`` as a list of global ranks (default: every rank)."""
+    if devices is not None:
+        return list(devices)
+    dist = _dist()
+    return list(range(dist.get_world_size() if dist is not None else 1))
+
+
+def _device():
+    """Where the collectives' tensors live: the card under NCCL, the host
+    under gloo."""
+    import torch
+
+    dist = _dist()
+    if dist is not None and dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _from_first(value, src: int):
+    """``value`` as global rank ``src`` holds it, on every rank (a broadcast
+    over the default group; itself in one process)."""
+    dist = _dist()
+    if dist is None or dist.get_world_size() == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def _sync(device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the host:
+    gloo's collectives return done)."""
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+
+
+def _agree_sample(seconds: float, stop: bool, group, device):
+    """(the slowest rank's seconds, the group's first rank's stop): one
+    all-reduce MAX, in which only the first rank raises the stop flag."""
+    import torch
+
+    dist = _dist()
+    lead = dist.get_rank() == dist.get_global_rank(group, 0)
+    t = torch.tensor([seconds, 1.0 if (stop and lead) else 0.0],
+                     dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return float(t[0]), bool(t[1] > 0)
+
+
+def _time_fn(fn, *args, repeats: int = 3,
+             timer: Callable[[], float] = time.perf_counter,
+             budget_s: float | None = None, group=None, device=None) -> float:
+    """Robust wall time of a blocking call: up to ``repeats`` samples,
+    stopping early once ``budget_s`` is spent (always at least one —
+    a deadline bounds the repeat count k, never the truth of a sample),
+    reduced by :func:`robust_seconds`.
+
+    On a process ``group`` every sample starts after a barrier of the
+    group and is the slowest rank's; the early stop is the group's first
+    rank's (on its clock and its ``budget_s``), carried in the same
+    all-reduce, so every rank takes the same number of samples and returns
+    the same seconds.  ``device`` (the host by default) is synchronised
+    after each call."""
+    import torch
+
+    device = device if device is not None else torch.device("cpu")
+    dist = _dist() if group is not None else None
+    fn(*args)                      # warm up: first-use costs
+    _sync(device)
+    t_start = timer()
+    samples = []
+    for _ in range(max(1, repeats)):
+        if dist is not None:
+            dist.barrier(group=group)
+            _sync(device)
+        t0 = timer()
+        fn(*args)
+        _sync(device)
+        dt = timer() - t0
+        stop = budget_s is not None and timer() - t_start >= budget_s
+        if dist is not None:
+            dt, stop = _agree_sample(dt, stop, group, device)
+        samples.append(dt)
+        if stop:
+            break
+    return robust_seconds(samples)
+
+
+def _factorization_groups(dist, ranks: list, d1: int, d2: int):
+    """The process groups of a (d1, d2) mesh over ``ranks`` (row-major: rank
+    ``ranks[i1 * d2 + i2]`` at (tp1 = i1, tp2 = i2)): this rank's tp1 group,
+    its tp2 group (None where the axis is 1) and the group of all d1 * d2
+    (None for a rank outside them).  Every rank creates every group, in the
+    same order."""
+    me = dist.get_rank()
+    g1 = g2 = None
+    if d1 > 1:
+        for i2 in range(d2):
+            members = [ranks[i1 * d2 + i2] for i1 in range(d1)]
+            g = dist.new_group(members)
+            if me in members:
+                g1 = g
+    if d2 > 1:
+        for i1 in range(d1):
+            members = [ranks[i1 * d2 + i2] for i2 in range(d2)]
+            g = dist.new_group(members)
+            if me in members:
+                g2 = g
+    whole = dist.new_group(ranks)
+    return g1, g2, (whole if me in ranks else None)
+
+
+def _measure_factorization(d1: int, d2: int, payload_bytes: int,
+                           repeats: int, devices=None,
+                           budget_s: float | None = None,
+                           timer: Callable[[], float] = time.perf_counter
+                           ) -> CalibEntry:
+    """All-reduce timing over each TP mesh dim + psum-vs-ring boundary.
+
+    ``budget_s`` (deadline-budgeted recovery) caps the wall time spent
+    here: every inner timing loop sees the remaining budget and stops
+    sampling once it is gone — k shrinks before coverage does, and the
+    overrun is bounded by one sample per measurement kind.
+
+    A rank holds ``payload_bytes // 4`` fp32 elements, as a shard of the
+    reference's ``[d, elems]`` input does, and reduces them over its axis
+    group: ``dist.all_reduce`` (t_psum, the bandwidths, alpha_s from 64
+    elements, the chunked timings: c back-to-back all-reduces of
+    payload/c), ``overlap.ring_all_reduce_raw`` (t_ring) and
+    ``overlap.quant_psum_raw(..., "int8")`` (the quantized bandwidths).
+    Every rank of the default group returns the same entry: the first
+    d1 * d2 of ``devices`` measure it, the others receive it."""
+    import torch
+
+    from repro_torch.analysis import signature as sig
+    from repro_torch.core import overlap
+
+    ranks = _world_devices(devices)[: d1 * d2]
+    if len(ranks) < d1 * d2:
+        raise ValueError(f"({d1}, {d2}) needs {d1 * d2} ranks, "
+                         f"{len(ranks)} given")
+    dist = _dist()
+    g1 = g2 = whole = None
+    if d1 * d2 > 1:
+        if dist is None:
+            raise RuntimeError(f"measuring ({d1}, {d2}) needs "
+                               f"torch.distributed initialized")
+        g1, g2, whole = _factorization_groups(dist, ranks, d1, d2)
+    ax1 = "tp1" if d1 > 1 else None
+    ax2 = "tp2" if d2 > 1 else None
+    groups = {"tp1": g1, "tp2": g2}
+    device = _device()
+    elems = max(1, payload_bytes // 4)
+    t_begin = timer()
+
+    def rem() -> float | None:
+        if budget_s is None:
+            return None
+        return max(0.0, budget_s - (timer() - t_begin))
+
+    def time_allreduce(axis: str, d: int, ring: bool = False,
+                       n_elems: int | None = None,
+                       quant: bool = False) -> float:
+        g = groups[axis]
+        x = torch.ones((1, n_elems or elems), dtype=torch.float32,
+                       device=device)
+        if quant:
+            def red():
+                return overlap.quant_psum_raw(x, g, (axis,), "int8")
+        elif ring:
+            def red():
+                return overlap.ring_all_reduce_raw(x, g, (axis,))
+        else:
+            def red():
+                return overlap.all_reduce_(x.clone(), g, (axis,))
+        return _time_fn(red, repeats=repeats, budget_s=rem(), group=whole,
+                        device=device)
+
+    def quant_bw(axis: str | None, d: int) -> float | None:
+        """Quantized-collective bandwidth in the WIRE-byte convention:
+        the int8 wire moves 1 byte per element, so b_q = elems / t — the
+        number ``t_comm_overlap(wire_dtype="int8")`` divides its 1-byte
+        volumes by.  Quant/dequant overhead lands in t, which is the
+        point: a fabric (or emulation) where quantization does not pay
+        shows up as b_q < b/2 and the search prices it honestly."""
+        if axis is None:
+            return None
+        t = time_allreduce(axis, d, quant=True)
+        return elems / t / 1e9 if t > 0.0 else None
+
+    def alpha_from_tiny(axis: str, d: int) -> float:
+        """Per-step latency: a 64-element all-reduce is latency-bound, so
+        its wall time over the ring step count is alpha_s."""
+        return max(0.0, time_allreduce(axis, d, n_elems=64)) / (2 * (d - 1))
+
+    def time_chunked(axis: str, d: int, c: int) -> float:
+        """One boundary payload split into c back-to-back collectives of
+        payload/c each — the wire pattern the chunk-overlap engine issues
+        per boundary (``core.atp._chunked_boundary_matmul``)."""
+        g = groups[axis]
+        x = torch.ones((c, max(1, elems // c)), dtype=torch.float32,
+                       device=device)
+
+        def red():
+            y = x.clone()
+            for i in range(c):
+                overlap.all_reduce_(y[i], g, (axis,))
+            return y
+
+        return _time_fn(red, repeats=repeats, budget_s=rem(), group=whole,
+                        device=device)
+
+    def launch_axis(axis: str | None, d: int,
+                    whole_s: float | None) -> float | None:
+        """Per-extra-chunk software launch cost: the c=2 split issues
+        exactly one extra collective, so t_2 - t_whole isolates it from
+        the bandwidth term."""
+        if axis is None or whole_s is None or whole_s <= 0.0:
+            return None
+        return max(0.0, time_chunked(axis, d, 2) - whole_s)
+
+    def chunk_eff_axis(axis: str | None, d: int, whole_s: float, c: int,
+                       launch: float | None) -> float:
+        """Measured PURE-bandwidth efficiency of splitting into c chunks
+        on one axis (1.0 for singleton dims): the measured per-extra-chunk
+        launch cost is subtracted from the chunked time first."""
+        if axis is None or whole_s is None or whole_s <= 0.0:
+            return 1.0
+        tc = time_chunked(axis, d, c) - (c - 1) * (launch or 0.0)
+        return min(1.0, whole_s / tc) if tc > 0.0 else 1.0
+
+    def measure() -> CalibEntry:
+        b1 = b2 = math.inf
+        b1_q = b2_q = None
+        t_psum = t_ring = alpha_s = None
+        t1_whole = t2_whole = None
+        if ax1 is not None:
+            t_psum = time_allreduce(ax1, d1)
+            t_ring = time_allreduce(ax1, d1, ring=True)
+            b1 = payload_bytes / t_psum / 1e9
+            alpha_s = alpha_from_tiny(ax1, d1)
+            b1_q = quant_bw(ax1, d1)
+            t1_whole = t_psum
+            if ax2 is not None:
+                t2_whole = time_allreduce(ax2, d2)
+                b2 = payload_bytes / t2_whole / 1e9
+                b2_q = quant_bw(ax2, d2)
+                # one alpha serves every collective of this factorization:
+                # keep the slower axis's latency
+                alpha_s = max(alpha_s, alpha_from_tiny(ax2, d2))
+        elif ax2 is not None:
+            # boundary collectives live on the only non-trivial dim here,
+            # so the psum timing doubles as the b2 measurement
+            t_psum = time_allreduce(ax2, d2)
+            t_ring = time_allreduce(ax2, d2, ring=True)
+            b2 = payload_bytes / t_psum / 1e9
+            alpha_s = alpha_from_tiny(ax2, d2)
+            b2_q = quant_bw(ax2, d2)
+            t2_whole = t_psum
+        launch1 = launch_axis(ax1, d1, t1_whole)
+        launch2 = launch_axis(ax2, d2, t2_whole)
+        launch_s = max((v for v in (launch1, launch2) if v is not None),
+                       default=None)
+        chunk_eff = tuple(
+            (c,
+             chunk_eff_axis(ax1, d1, t1_whole, c, launch1),
+             chunk_eff_axis(ax2, d2, t2_whole, c, launch2))
+            for c in (2, 4))
+        return CalibEntry(b1=b1, b2=b2, t_psum=t_psum, t_ring=t_ring,
+                          alpha_s=alpha_s, chunk_eff=chunk_eff,
+                          launch_s=launch_s, b1_q=b1_q, b2_q=b2_q)
+
+    entry = None
+    if d1 * d2 == 1 or whole is not None:
+        with sig.paused():
+            entry = measure()
+    return entry if d1 * d2 == 1 else _from_first(entry, ranks[0])
+
+
+def calibrate_mesh(
+    tp_degree: int,
+    matrix: HierarchicalCommMatrix | None = None,
+    *,
+    payload_kb: int = 256,
+    repeats: int = 3,
+    measure: Callable[[int, int], CalibEntry] | None = None,
+    devices=None,
+) -> CalibrationTable:
+    """Measure (B1, B2) + boundary latency for every runnable (d1, d2).
+
+    ``matrix`` (optional) restricts the sweep to factorizations that embed
+    into the modelled topology — the same filter the search applies — so
+    the table's keys line up with the strategy space.  Factorizations
+    needing more ranks than ``devices`` holds are skipped (the table is
+    partial — empty at world size 1 but for (1, 1); the search falls back
+    to the analytic model for missing keys).  ``measure`` overrides the
+    on-mesh micro-benchmark with an arbitrary (d1, d2) -> CalibEntry
+    function (tests, simulators); its entries are the first rank's on
+    every rank.  ``devices`` restricts the benchmark to a list of global
+    ranks (the elastic recovery path passes the surviving pool; default:
+    every rank of the default group, which must all call this)."""
+    devs = _world_devices(devices)
+    ndev = len(devs)
+    entries = []
+    for d1, d2 in factorizations(tp_degree):
+        if matrix is not None:
+            try:
+                matrix.axis_bandwidths(d1, d2)
+            except ValueError:
+                continue
+        if measure is None and d1 * d2 > ndev:
+            continue
+        if measure is not None:
+            e = _from_first(measure(d1, d2), devs[0])
+        else:
+            e = _measure_factorization(d1, d2, payload_kb * 1024, repeats,
+                                       devs)
+        entries.append(((d1, d2), e))
+    return CalibrationTable(entries=tuple(entries), source="measured")
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +727,113 @@ def sensitivity_order(keys, matrix: HierarchicalCommMatrix | None, *,
         matrix, k[0], k[1], workloads=workloads, batch=b, seq=s), k))
 
 
-def recalibrate_surviving(plan, devices=None, **kwargs):
-    """Re-measure a plan's calibration on the surviving mesh (paper §5.3):
-    ROADMAP A7."""
-    raise NotImplementedError(f"recalibrate_surviving {_A7}")
+def recalibrate_surviving(
+    plan,
+    devices=None,
+    *,
+    payload_kb: int = 256,
+    repeats: int = 3,
+    measure: Callable[[int, int], CalibEntry] | None = None,
+    deadline_s: float | None = None,
+    model=None,
+    batch: int | None = None,
+    seq: int | None = None,
+    timer: Callable[[], float] = time.perf_counter,
+):
+    """Re-measure a plan's calibration on the surviving mesh (paper §5.3).
+
+    After an elastic shrink the carried table is tagged
+    ``calibration: stale``.  This re-runs the micro-benchmarks for every
+    factorization of the *surviving* TP degree (``surviving_tp`` of the
+    surviving pool), merges the fresh entries into the carried table
+    (fresh keys win; old keys stay for audit), clears the stale tag and
+    records the recalibration in provenance, as the reference does.
+
+    **Deadline budget** (``deadline_s``): factorizations are visited in
+    descending cost-model sensitivity (``sensitivity_order``), each
+    measurement's repeat count shrinks as the budget drains, and once the
+    budget is gone the remaining factorizations fall back to the carried
+    table's entry (provenance ``"carried"``) or the analytic model
+    (``"analytic"``); the ``recalibrated tp=`` tag is only written when at
+    least one entry was measured.  Every gate (the remaining budget against
+    the last measurement's cost) and the spend the provenance records are
+    the first surviving rank's, on its ``timer``, sent to every rank: the
+    ranks take the same path and return the same plan.
+
+    ``plan`` is any ParallelPlan-shaped object.  ``measure`` injects the
+    per-factorization benchmark (tests, simulators); ``devices`` is the
+    surviving pool as global ranks (default: every rank of the default
+    group, which must all call this); ``timer`` injects the budget clock.
+    """
+    from repro_torch.core import comm_matrix
+
+    devs = _world_devices(devices)
+    lead = devs[0]
+    tp = surviving_tp(plan.tp, len(devs))
+    matrix = None
+    if plan.topology is not None:
+        preset = comm_matrix.PRESETS.get(plan.topology)
+        matrix = preset() if preset is not None else None
+    keys = []
+    for d1, d2 in factorizations(tp):
+        if matrix is not None:
+            try:
+                matrix.axis_bandwidths(d1, d2)
+            except ValueError:
+                continue
+        if measure is None and d1 * d2 > len(devs):
+            continue
+        keys.append((d1, d2))
+    if deadline_s is not None:
+        keys = sensitivity_order(keys, matrix, model=model, batch=batch,
+                                 seq=seq)
+    t0 = timer()
+    entries = []
+    counts = {"measured": 0, "carried": 0, "analytic": 0}
+    # adaptive gate: once one factorization has been timed, a later one is
+    # only measured if the remaining budget covers what the last one cost
+    last_cost = 0.0
+    for d1, d2 in keys:
+        remaining = (None if deadline_s is None
+                     else deadline_s - (timer() - t0))
+        skip = remaining is not None and (remaining <= 0.0
+                                          or remaining < last_cost)
+        if deadline_s is not None:
+            skip, remaining = _from_first((skip, remaining), lead)
+        if skip:
+            old = (plan.calibration.get(d1, d2)
+                   if plan.calibration is not None else None)
+            e = (dataclasses.replace(old, provenance="carried")
+                 if old is not None else analytic_entry(matrix, d1, d2))
+        else:
+            t_meas = timer()
+            if measure is not None:
+                e = _from_first(measure(d1, d2), lead)
+            else:
+                e = _measure_factorization(d1, d2, payload_kb * 1024,
+                                           repeats, devs, budget_s=remaining,
+                                           timer=timer)
+            e = dataclasses.replace(e, provenance="measured")
+            last_cost = timer() - t_meas
+        counts[e.provenance] += 1
+        entries.append(((d1, d2), e))
+    entries.sort()
+    source = ("measured" if counts["measured"] == len(entries)
+              else "deadline-budgeted")
+    fresh = CalibrationTable(entries=tuple(entries), source=source)
+    merged = fresh if plan.calibration is None \
+        else plan.calibration.merged(fresh)
+    prov = tuple(p for p in plan.provenance
+                 if p != ("calibration", "stale"))
+    if counts["measured"] > 0:
+        prov += (("calibration",
+                  f"recalibrated tp={tp} on {len(devs)} devices"),)
+    if deadline_s is not None:
+        spent = _from_first(timer() - t0, lead)
+        # key "calibration" so replan_elastic's re-search carries it
+        prov += (("calibration",
+                  f"budget deadline_s={deadline_s:g} spent_s={spent:.3f} "
+                  f"measured={counts['measured']} "
+                  f"carried={counts['carried']} "
+                  f"analytic={counts['analytic']}"),)
+    return plan.with_(calibration=merged, provenance=prov)

@@ -1,11 +1,18 @@
-"""Serving launcher: paged continuous batching (counterpart of
-``repro.launch.serve``, paged mode).
+"""Serving launcher (counterpart of ``repro.launch.serve``): paged
+continuous batching (the fast path, ``--mode paged``, the default) or the
+wave loop over contiguous decode caches (``--mode wave``, the baseline:
+equal-length waves of ``--slots`` prompts, the last one padded with dummy
+prompts, each prefilled in one step and decoded in lockstep).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+        --mode wave
 
 runs on CUDA unless ``--device cpu`` is given; on CUDA the step runs as
-a CUDA graph captured at each of its two shapes (``steps.CapturedStep``).
+a CUDA graph captured at each of its two shapes (``steps.CapturedStep``:
+the paged step's prefill chunk and decode tick, the wave's prefill and
+decode tick).
 A model with recurrent segments (zamba2-7b) is served in recurrent mode:
 per-slot state pools beside the page pools, prompt tails fed one token at
 a time.  A mesh of more than one rank runs one process per rank under
@@ -39,7 +46,8 @@ from repro_torch.core import comm_matrix
 from repro_torch.core.mesh import atp_topo, resolve_device
 from repro_torch.core.plan import ParallelPlan, plan_search
 from repro_torch.launch.steps import (CapturedStep, StepInfo,
-                                     build_paged_step, check_slot_ids)
+                                     build_decode_step, build_paged_step,
+                                     check_slot_ids)
 from repro_torch.models import lm
 from repro_torch.models.paging import PagedConfig
 from repro_torch.runtime.server import Request, Server, ServerConfig
@@ -47,8 +55,113 @@ from repro_torch.runtime.server import Request, Server, ServerConfig
 log = logging.getLogger("repro_torch.serve")
 
 
+@dataclasses.dataclass
+class WaveServer:
+    """The wave baseline's server: this rank's shard of the weights, the
+    contiguous decode caches of a wave of ``batch`` prompts up to
+    ``max_seq`` positions, and the decode step bound to them
+    (``build_decode_step``: one CUDA graph for the wave's prefill and one
+    for its decode tick; with ``captured`` off the uncaptured body).  Every
+    wave reuses the caches (``lm.reset_decode_caches``), so the graphs are
+    captured once."""
+    step: CapturedStep
+    info: StepInfo
+    params: dict
+    caches: dict
+    batch: int
+    max_seq: int
+    captured: bool = True
+
+    def uncaptured(self) -> "WaveServer":
+        return dataclasses.replace(self, captured=False)
+
+    def rows(self) -> slice:
+        """This rank's rows of the wave: its dp share, or all of them
+        where dp does not divide the batch."""
+        ctx = self.info.ctx
+        b = lm.decode_rows(ctx, self.batch)
+        first = ctx.dp_index() * b if b < self.batch else 0
+        return slice(first, first + b)
+
+    def tick(self, tokens: np.ndarray, pos: int) -> np.ndarray:
+        """One step on this rank's rows ``tokens [b, s]`` at position
+        ``pos``: their greedy next tokens [b]."""
+        if self.captured:
+            return self.step(self.params, tokens, np.int32(pos),
+                             self.caches)[0]
+        dev = self.info.device
+        toks, _ = self.info.plain(
+            self.params, torch.as_tensor(tokens, device=dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev), self.caches)
+        return toks.cpu().numpy()
+
+    def serve(self, prompts, max_new: int) -> np.ndarray:
+        """One wave of ``batch`` equal-length prompts: prefill, then
+        ``max_new - 1`` decode ticks in lockstep.  Returns every prompt's
+        greedy tokens [batch, max_new] on every rank."""
+        toks = np.stack([np.asarray(p, np.int32) for p in prompts])
+        plen = toks.shape[1]
+        if toks.shape[0] != self.batch:
+            raise ValueError(f"a wave of {toks.shape[0]} prompts on a "
+                             f"server of {self.batch}")
+        if plen + max_new - 1 > self.max_seq:
+            raise ValueError(f"{plen} prompt and {max_new} new tokens do "
+                             f"not fit max_seq={self.max_seq}")
+        lm.reset_decode_caches(self.caches)
+        outs = [self.tick(toks[self.rows()], 0)]
+        for pos in range(plen, plen + max_new - 1):
+            outs.append(self.tick(outs[-1][:, None], pos))
+        return self._gather(np.stack(outs, axis=1))
+
+    def _gather(self, mine: np.ndarray) -> np.ndarray:
+        """The dp ranks' rows in dp order (nothing to gather where the
+        wave is replicated)."""
+        ctx = self.info.ctx
+        if mine.shape[0] == self.batch:
+            return mine
+        import torch.distributed as dist
+
+        dev = self.info.device
+        part = torch.as_tensor(mine, device=dev)
+        out = part.new_empty((self.batch,) + part.shape[1:])
+        dist.all_gather_into_tensor(out, part, group=ctx.group(ctx.dp_axes))
+        return out.cpu().numpy()
+
+
+def make_wave_server(cfg, batch: int, max_seq: int, params, topo=None,
+                     device=None, *, plan: ParallelPlan | None = None,
+                     sharded: bool = False) -> WaveServer:
+    """The wave baseline on ``topo`` (the trivial mesh by default) or on a
+    ``plan``'s mesh with its decode knobs, as the reference's ``serve``
+    builds it.  ``params`` is the GLOBAL tree, consumed as it is sharded,
+    or with ``sharded`` this rank's shard already (a paged server's
+    ``step_fn.params``: one set of weights serves both).  Runs on CUDA
+    unless ``device`` names another device."""
+    if topo is None and plan is None:
+        topo = atp_topo(1, 1, 1)
+    step, info = build_decode_step(cfg, topo, batch, max_seq, device=device,
+                                   plan=plan)
+    dev = info.device
+    if not sharded:
+        params = lm.shard_params(cfg, params, info.ctx)
+    params = lm.tree_map(lambda t: t.to(dev), params)
+    return WaveServer(step, info, params, info.init_caches(), batch,
+                      max_seq)
+
+
+def serve(cfg, topo, params, prompts, max_new: int, max_seq: int,
+          plan: ParallelPlan | None = None, *, device=None) -> np.ndarray:
+    """The wave baseline (``repro.launch.serve.serve``): one wave of
+    equal-length ``prompts`` through a new :class:`WaveServer`; returns
+    their greedy tokens [len(prompts), max_new]."""
+    server = make_wave_server(cfg, len(prompts), max_seq, params, topo,
+                              device, plan=plan)
+    return server.serve(prompts, max_new)
+
+
 def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
-                      device=None, *, plan: ParallelPlan | None = None):
+                      device=None, *, plan: ParallelPlan | None = None,
+                      sharded: bool = False):
     """Build the paged continuous-batching server on ``topo`` (the trivial
     mesh by default) or on a ``plan``'s serving mesh.
 
@@ -58,9 +171,11 @@ def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
     sub-plan's ``speculate`` and ``prefix_cache`` join the ServerConfig's
     (and are refused as below).  ``params`` is the GLOBAL tree
     (``lm.init_params`` or ``convert.params_from_jax`` with the trivial
-    topology); this rank's shard is cut from it here, consuming the tree.
-    Runs on CUDA unless ``device`` names another device; raises without a
-    GPU and without a named device.  Returns ``(server, info)``."""
+    topology); this rank's shard is cut from it here, consuming the tree
+    (``sharded``: ``params`` is the shard already, as a
+    :class:`WaveServer` holds it).  Runs on CUDA unless ``device`` names
+    another device; raises without a GPU and without a named device.
+    Returns ``(server, info)``."""
     if plan is not None:
         view = plan.decode_view()
         if (view.d1, view.d2) != (plan.d1, plan.d2):
@@ -88,7 +203,8 @@ def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
     scfg = dataclasses.replace(scfg, recurrent=recurrent)
     topo = topo if topo is not None else atp_topo(1, 1, 1)
     step_fn, init_caches, info = _build_paged_step_fn(cfg, scfg, params,
-                                                      topo, device, plan)
+                                                      topo, device, plan,
+                                                      sharded)
     return Server(scfg, step_fn, init_caches), info
 
 
@@ -123,15 +239,16 @@ class ServeStep:
 
 
 def _build_paged_step_fn(cfg, scfg: ServerConfig, params, topo, device,
-                         plan=None):
+                         plan=None, sharded: bool = False):
     """The step in the Server's calling convention (a :class:`ServeStep`)
     and the caches' maker."""
     slots = scfg.batch_slots if scfg.recurrent else None
     step, info = build_paged_step(cfg, topo, device=device, slots=slots,
                                   plan=plan)
     dev = info.device
-    params = lm.tree_map(lambda t: t.to(dev),
-                         lm.shard_params(cfg, params, info.ctx))
+    if not sharded:
+        params = lm.shard_params(cfg, params, info.ctx)
+    params = lm.tree_map(lambda t: t.to(dev), params)
 
     def init_caches():
         return lm.init_paged_caches(cfg, info.ctx, scfg.paged, device=dev,
@@ -149,6 +266,15 @@ def sample_prompts(cfg, requests: int, prompt_len: int, seed: int):
             for _ in range(requests)]
     return [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
             for n in lens]
+
+
+def wave_prompts(cfg, requests: int, prompt_len: int, seed: int):
+    """``requests`` prompts of ``prompt_len`` tokens uniform over the
+    vocabulary, from ``seed``: the wave loop decodes in lockstep from one
+    shared position, so its workload is equal-length."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=prompt_len, dtype=np.int32)
+            for _ in range(requests)]
 
 
 def paged_server_config(prompt_lens, *, slots: int, prefill_chunk: int,
@@ -170,6 +296,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mode", choices=("paged", "wave"), default="paged")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--d1", type=int, default=1)
     ap.add_argument("--d2", type=int, default=1)
@@ -207,8 +334,12 @@ def main(argv=None):
             batch=args.slots, seq=args.prompt_len + args.max_new,
             dp=args.dp, decode_batch=args.slots).best
         log.info("ATP plan search picked %s", plan.describe())
-    topo = (plan.decode_view().topo() if plan is not None
-            else atp_topo(args.dp, args.d1, args.d2))
+    if plan is not None:
+        # the wave runs on the plan's own mesh, as the reference's serve
+        topo = (plan.topo() if args.mode == "wave"
+                else plan.decode_view().topo())
+    else:
+        topo = atp_topo(args.dp, args.d1, args.d2)
     device = resolve_device(args.device)
     if topo.size > 1:
         import torch.distributed as dist
@@ -218,6 +349,8 @@ def main(argv=None):
             torch.cuda.set_device(device)
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
     params = lm.init_params(cfg, seed=args.seed, device=device)
+    if args.mode == "wave":
+        return _serve_waves(cfg, args, params, topo, device, plan)
     prompts = sample_prompts(cfg, args.requests, args.prompt_len, args.seed)
     scfg = paged_server_config(
         [len(p) for p in prompts], slots=args.slots,
@@ -235,6 +368,27 @@ def main(argv=None):
                  len(req.prompt), req.out)
     log.info("served %d requests in %d ticks, %.2fs on %s", len(server.completed),
              ticks, secs, device)
+
+
+def _serve_waves(cfg, args, params, topo, device, plan) -> None:
+    """``--mode wave``: equal-length waves of ``--slots`` prompts, the last
+    one padded with dummy prompts (zeros) whose tokens are dropped."""
+    server = make_wave_server(cfg, args.slots, args.max_seq, params, topo,
+                              device, plan=plan)
+    prompts = wave_prompts(cfg, args.requests, args.prompt_len, args.seed)
+    t0 = time.perf_counter()
+    waves = 0
+    for first in range(0, len(prompts), args.slots):
+        batch = prompts[first:first + args.slots]
+        real = len(batch)
+        batch += [np.zeros(args.prompt_len, np.int32)] * (args.slots - real)
+        outs = server.serve(batch, args.max_new)
+        for i in range(real):
+            log.info("wave %d request %d -> %s", waves, first + i,
+                     outs[i].tolist())
+        waves += 1
+    log.info("served %d requests in %d waves, %.2fs on %s", len(prompts),
+             waves, time.perf_counter() - t0, device)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Step builders (counterpart of ``repro.launch.steps``): the paged serving
-step, captured as one CUDA graph per input shape (the counterpart of the
-reference's ``jax.jit``), and its vocab-parallel greedy pick; the training
-step.  Each builder takes a ``ParallelPlan`` or a topology, and both go
-through :func:`resolve_ctx`."""
+step and the wave's decode step over contiguous caches, each captured as
+one CUDA graph per input shape (the counterpart of the reference's
+``jax.jit``), with their vocab-parallel greedy pick; the cache-free
+prefill; the training step.  Each builder takes a ``ParallelPlan`` or a
+topology, and both go through :func:`resolve_ctx`."""
 from __future__ import annotations
 
 import dataclasses
@@ -67,9 +68,14 @@ def resolve_ctx(topo: MeshTopo | None, plan, chunks: int = 1,
 class StepInfo:
     ctx: ATPContext
     device: torch.device
-    #: the paged step uncaptured: ``plain(params, tokens, start, table[,
-    #: slot], caches) -> (greedy tokens [b, s], caches)`` on device tensors
+    #: the step uncaptured, on device tensors: the paged step's
+    #: ``plain(params, tokens, start, table[, slot], caches) -> (greedy
+    #: tokens [b, s], caches)``, the decode step's ``plain(params, tokens,
+    #: pos, caches) -> (greedy tokens [b], caches)``
     plain: Callable | None = None
+    #: the decode step's caches: ``init_caches() -> lm.init_decode_caches``
+    #: of its batch and ``s_max`` on its device
+    init_caches: Callable | None = None
 
 
 def _greedy_pick(ctx: ATPContext, cfg: ModelConfig, logits):
@@ -123,7 +129,10 @@ class _Shape:
 class CapturedStep:
     """:func:`build_paged_step`'s step: ``step(params, tokens [b, s], start
     [b], table [b, mp][, slot [b]], caches) -> (greedy tokens [b, s] as
-    numpy, caches)``, the inputs host arrays (numpy or CPU tensors).
+    numpy, caches)``, the inputs host arrays (numpy or CPU tensors); and
+    :func:`build_decode_step`'s, ``step(params, tokens [b, s], pos,
+    caches)``, the same machinery with its own warm-up inputs (``blank``)
+    and the cache state a warm-up must give back (``guard``).
 
     On CUDA the first call at an input shape captures the body as a CUDA
     graph, as ``jax.jit`` compiles at its first call; later calls copy the
@@ -147,10 +156,18 @@ class CapturedStep:
     collectives (not yet run on more than one card)."""
 
     def __init__(self, body: Callable, device: torch.device,
-                 slots: int | None):
+                 slots: int | None, *, blank: Callable | None = None,
+                 guard: Callable | None = None):
         self.body = body
         self.device = device
         self.slots = slots
+        #: fills the zeroed input buffers of a warm-up (default: the paged
+        #: step's, every page the garbage page and every slot the sentinel)
+        self.blank = blank if blank is not None else self._paged_blank
+        #: ``guard(caches)`` saves what a warm-up writes into the caches
+        #: and returns the function that puts it back (default: nothing to
+        #: save, the paged warm-up writes only the garbage page)
+        self.guard = guard
         self.shapes: dict[tuple, _Shape] = {}
         self.binding = None
         #: shapes captured and warm-up runs of the body, rebinds included
@@ -177,15 +194,21 @@ class CapturedStep:
             shape = self.shapes[key] = self._capture(key, params, caches)
         return self._run(shape, inputs, params, caches), caches
 
-    def _capture(self, key, params, caches) -> _Shape:
-        dev = self.device
-        static = [torch.zeros(k, dtype=torch.int32, device=dev) for k in key]
+    def _paged_blank(self, static) -> None:
         static[2].fill_(GARBAGE_PAGE)
         if self.slots is not None:
             static[3].fill_(self.slots)
+
+    def _capture(self, key, params, caches) -> _Shape:
+        dev = self.device
+        static = [torch.zeros(k, dtype=torch.int32, device=dev) for k in key]
+        self.blank(static)
+        restore = self.guard(caches) if self.guard is not None else None
         if dev.type == "cpu":
             before = dict(ops.LAUNCHES)
             self.body(params, *static, caches)
+            if restore is not None:
+                restore()
             self.warmups += 1
             self.captures += 1
             return _Shape(static, None, launches={
@@ -197,6 +220,8 @@ class CapturedStep:
         with torch.cuda.stream(self._stream):
             self.body(params, *static, caches)
         self._stream.synchronize()
+        if restore is not None:
+            restore()
         shape.warmup_s = time.perf_counter() - t0
         self.warmups += 1
         before = dict(ops.LAUNCHES)
@@ -287,6 +312,80 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo | None = None,
 
     return (CapturedStep(step, device, slots if needs_slot else None),
             StepInfo(ctx=ctx, device=device, plain=step))
+
+
+def build_prefill(cfg: ModelConfig, topo: MeshTopo | None = None,
+                  chunks: int = 1, device=None, *, plan=None):
+    """The forward-only serving step over a whole sequence, no caches
+    (``repro.launch.steps.build_prefill``): ``step(params, batch) ->
+    greedy next token [b]`` with ``batch["tokens"] [b, s]`` on the device
+    (``lm.prefill_logits``, then the vocab-parallel pick).  The context is
+    the training one (``resolve_ctx`` without ``decode``): a plan's
+    ``seq_parallel`` applies.  Returns ``(step, info)``; the step is not
+    captured."""
+    device = resolve_device(device)
+    ctx = resolve_ctx(topo, plan, chunks, device_type=device.type)
+
+    @torch.no_grad()
+    def step(params, batch):
+        return _greedy_pick(ctx, cfg, lm.prefill_logits(ctx, cfg, params,
+                                                        batch))
+
+    return step, StepInfo(ctx=ctx, device=device, plain=step)
+
+
+def _state_guard(caches):
+    """What a decode step's warm-up changes in the contiguous caches: every
+    leaf but the k/v rows (``len`` and the recurrent state), saved; returns
+    the function that puts it back.  The k/v rows it writes lie at ``len``
+    and beyond, which the next real step writes before reading."""
+    saved = [(t, t.clone()) for t in _leaves(caches)]
+
+    def restore():
+        for t, copy in saved:
+            t.copy_(copy)
+
+    return restore
+
+
+def _leaves(tree, name=None):
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items() for t in _leaves(v, k)]
+    return [] if name in ("k", "v") else [tree]
+
+
+def build_decode_step(cfg: ModelConfig, topo: MeshTopo | None = None,
+                      B: int = 1, s_max: int = 64, device=None, *,
+                      plan=None):
+    """The wave's step over contiguous decode caches (``repro.launch.steps.
+    build_decode_step``): ``step(params, tokens [b, s], pos, caches) ->
+    (greedy next tokens [b] as numpy, caches)``, tokens this rank's rows
+    of the wave (``lm.decode_rows``) and ``pos`` the position of
+    ``tokens[:, 0]``, host values; s > 1 is prefill into the caches.
+
+    Returns ``(step, info)``: ``step`` a :class:`CapturedStep`, one CUDA
+    graph per (b, s) (a prefill and a decode tick), replayed at every
+    position: ``pos`` is copied into the graph's input and each layer's
+    ``len`` grows in place, so one graph serves every tick and, after
+    ``lm.reset_decode_caches``, every wave.  ``info.plain`` is the body
+    uncaptured on device tensors; ``info.init_caches()`` makes the caches
+    (``lm.init_decode_caches(cfg, ctx, B, s_max)``) the step is bound to.
+    The context comes from ``plan`` (its decode knobs) or ``topo``."""
+    device = resolve_device(device)
+    ctx = resolve_ctx(topo, plan, decode=True, device_type=device.type)
+
+    @torch.no_grad()
+    def step(params, tokens, pos, caches):
+        logits, caches = lm.decode_step(ctx, cfg, params, tokens, pos, caches)
+        return _greedy_pick(ctx, cfg, logits), caches
+
+    def init_caches():
+        return lm.init_decode_caches(cfg, ctx, B, s_max, device=device)
+
+    return (CapturedStep(step, device, None, blank=lambda static: None,
+                         guard=_state_guard),
+            StepInfo(ctx=ctx, device=device, plain=step,
+                     init_caches=init_caches))
 
 
 def build_train_step(cfg: ModelConfig, topo: MeshTopo | None = None,

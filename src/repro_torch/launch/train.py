@@ -37,7 +37,18 @@ takes plain, zero1 (the default) or compressed:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-m2 \
         --seq 2048 --batch 1 --plan plan.json
 
-``--calibrate`` (measuring the mesh) is ROADMAP A7 and raises.
+``--calibrate`` (with ``--auto-atp``) measures (B1, B2), alpha_s, the
+chunk and launch costs and the quantized bandwidths of every (d1, d2)
+that fits the ranks of the run (``core.calibrate.calibrate_mesh``) before
+the search; factorizations that do not fit keep the analytic model, so in
+one process (``--calibrate`` on one card or on the CPU) the search gives
+the analytic plan:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-m2 \
+        --seq 2048 --batch 1 --auto-atp --calibrate
+    python -m torch.distributed.run --nproc-per-node 8 -m \
+        repro_torch.launch.train --arch gpt-m2 --d1 2 --d2 4 --auto-atp \
+        --calibrate
 """
 from __future__ import annotations
 
@@ -86,11 +97,16 @@ def pick_plan(cfg, tp: int, seq: int, batch: int,
     The default is the per-segment search (``plan_search(model=cfg)``):
     each model segment gets its own (chunks, seq_parallel) against its
     per-kind comm profile over the shared mesh.  ``overlap=False`` keeps to
-    the seed Eq. 2 space.  ``calibrate`` (measuring the mesh first) is
-    ROADMAP A7 and raises."""
+    the seed Eq. 2 space.  ``calibrate`` measures the process group the
+    caller runs in first (``calibrate_mesh``; every rank must call this):
+    the factorizations of ``tp`` that fit its ranks get measured entries,
+    the others, and every one in a single process, keep the analytic
+    model."""
     calib = None
     if calibrate:
         calib = calibrate_mesh(tp, comm_matrix.PRESETS[topology]())
+        log.info("on-mesh calibration (%d factorizations): %s", len(calib),
+                 calib.source)
     peak = ({"peak_tflops": H100_PEAK_TFLOPS} if topology in H100_PRESETS
             else {})
     if not overlap:
@@ -101,6 +117,19 @@ def pick_plan(cfg, tp: int, seq: int, batch: int,
                            algo="rabenseifner", alpha_s=0.0, **peak)
     return plan_search(topology, tp, model=cfg, batch=batch, seq=seq,
                        dp=dp, calibration=calib, **peak)
+
+
+def _init_dist(device: torch.device) -> torch.device:
+    """Join the ranks of a ``torch.distributed.run`` launch (NCCL on the
+    card, gloo on the host), once; returns this rank's device."""
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return device
 
 
 def main(argv=None) -> list[dict]:
@@ -133,8 +162,8 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--no-overlap", action="store_true",
                     help="restrict --auto-atp to the seed Eq. 2 space")
     ap.add_argument("--calibrate", action="store_true",
-                    help="measure (B1, B2) on the mesh first (ROADMAP A7: "
-                         "raises)")
+                    help="measure (B1, B2) on the ranks of the run before "
+                         "--auto-atp searches")
     ap.add_argument("--plan", default=None,
                     help="load a saved ParallelPlan JSON instead of searching")
     ap.add_argument("--save-plan", default=None,
@@ -150,6 +179,10 @@ def main(argv=None) -> list[dict]:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    device = resolve_device(args.device)
+    if args.calibrate and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        # the calibration measures the ranks of the run: join them first
+        device = _init_dist(device)
     if args.plan:
         plan = ParallelPlan.load(args.plan)
         log.info("loaded plan %s: %s", args.plan, plan.describe())
@@ -171,16 +204,10 @@ def main(argv=None) -> list[dict]:
         plan.save(args.save_plan)
         log.info("saved plan -> %s", args.save_plan)
     topo = plan.topo()
-    device = resolve_device(args.device)
     rank = 0
     if topo.size > 1:
-        import torch.distributed as dist
-
-        if device.type == "cuda":
-            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-            torch.cuda.set_device(device)
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
-        rank = dist.get_rank()
+        device = _init_dist(device)
+        rank = torch.distributed.get_rank()
     opt_cfg = adamw.AdamWConfig(lr=args.lr, mode=args.opt_mode,
                                 total_steps=args.steps)
     step, info = build_train_step(cfg, opt_cfg=opt_cfg, device=device,

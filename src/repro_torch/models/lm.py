@@ -1,7 +1,8 @@
 """Language model: embedding -> block stack -> head, ATP-sharded
-(counterpart of ``repro.models.lm``): paged serving and the training loss
-(``forward`` with no caches, ``vocab_parallel_ce``, ``train_loss``) of the
-dense, zamba and mamba segment kinds.
+(counterpart of ``repro.models.lm``): paged serving, the wave baseline over
+contiguous decode caches (``init_decode_caches``, ``decode_step``) and the
+training loss (``forward`` with no caches, ``vocab_parallel_ce``,
+``train_loss``) of the dense, zamba and mamba segment kinds.
 
 Parameters come in two forms.  ``init_params`` makes the GLOBAL tree with
 the JAX package's keys (``seg0/attn/wq`` ... stacked ``[count, ...]``; a
@@ -17,7 +18,9 @@ its pool rows in place; the small conv-state rows are gathered by slot id
 and written back (``_state_take`` / ``_state_put``).  The step addresses
 them through :func:`fixed_slot_map`, whose shapes do not depend on the
 slot ids and which needs no host sync, so the step can be captured as a
-CUDA graph; :func:`slot_map` is the host-synced form it replaced.
+CUDA graph; :func:`slot_map` is the host-synced form it replaced.  The
+wave's contiguous caches hold the same state per batch row: the rows are
+the slots (``arange(b)``), fresh where the row's window starts at 0.
 
 Each segment runs under its own view of the context,
 ``ctx.for_segment(kind)`` (a plan's per-segment knobs), as in the
@@ -252,6 +255,75 @@ def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
         else:
             caches[f"seg{i}"] = mamba_state((seg.count,))
     return caches
+
+
+def init_decode_caches(cfg: ModelConfig, ctx: ATPContext, B: int,
+                       s_max: int, dtype=None, device=None) -> dict:
+    """The wave's contiguous decode caches, this rank's shards of the JAX
+    ``init_decode_caches`` (``[count, B, s_max, tp*kv_count, hd]`` k/v cut
+    over the flat TP ranks), on ``device`` (CUDA unless named).
+
+    The batch splits over the dp ranks where ``B % dp == 0`` and is
+    replicated otherwise (a batch smaller than dp), so a rank holds ``b``
+    rows (:func:`decode_rows`).  Attention (dense segments and each zamba
+    super-block's shared block): ``{"k": [count, b, s_max, kv_count, hd],
+    "v": ..., "len": [count] int32}``.  Recurrent kinds, per batch row:
+    ``conv_x [.., b, k-1, d_inner/n]`` and ``conv_bc [.., b, k-1, 2 ds]`` in
+    ``dtype`` and ``ssd [.., b, nh/n, hd, ds]`` in fp32; a zamba segment
+    nests them as ``{"attn": ..., "mamba": ...}`` with the Mamba2 state
+    stacked ``[count, inner-1, ...]``.  ``dtype`` defaults to the model's.
+    MLA and xLSTM caches are ROADMAP A10 (``_check_kinds`` raises)."""
+    _check_kinds(cfg)
+    device = resolve_device(device)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    b = decode_rows(ctx, B)
+    plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def attn_cache(count):
+        shape = (count, b, s_max, plan.kv_count, cfg.hd)
+        return {"k": zeros(shape), "v": zeros(shape),
+                "len": zeros((count,), torch.int32)}
+
+    def mamba_cache(lead):
+        d_inner, nheads = mamba2.mamba_dims(cfg)
+        sc, n = cfg.ssm, ctx.tp
+        lead = lead + (b,)
+        return {"conv_x": zeros(lead + (sc.conv_kernel - 1, d_inner // n)),
+                "conv_bc": zeros(lead + (sc.conv_kernel - 1, 2 * sc.d_state)),
+                "ssd": zeros(lead + (nheads // n, sc.head_dim, sc.d_state),
+                             torch.float32)}
+
+    caches = {}
+    for i, seg in enumerate(segments(cfg)):
+        if seg.kind == "dense":
+            caches[f"seg{i}"] = attn_cache(seg.count)
+        elif seg.kind == "zamba":
+            caches[f"seg{i}"] = {"attn": attn_cache(seg.count),
+                                 "mamba": mamba_cache((seg.count,
+                                                       seg.inner - 1))}
+        else:
+            caches[f"seg{i}"] = mamba_cache((seg.count,))
+    return caches
+
+
+def decode_rows(ctx: ATPContext, B: int) -> int:
+    """The batch rows a rank holds of a wave of ``B``: ``B / dp`` where dp
+    divides it, else all ``B`` (replicated: the dp ranks repeat the work)."""
+    return B // ctx.dp if ctx.dp_axes and B % ctx.dp == 0 else B
+
+
+def reset_decode_caches(caches: dict) -> None:
+    """Start a new wave in the same caches: every ``len`` to 0, in place
+    (the recurrent state rows read as zeros at position 0, and the stale
+    k/v lie beyond ``kv_len``), so a captured step stays bound to them."""
+    for k, v in caches.items():
+        if isinstance(v, dict):
+            reset_decode_caches(v)
+        elif k == "len":
+            v.zero_()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -537,10 +609,13 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
 
     Paged (serving): caches from :func:`init_paged_caches` (written in
     place); paged = dict(table [b, mp], start [b]) and, for recurrent
-    kinds, ``slot [b]``.  With no caches (training) the attention runs over
-    the sequence itself and the Mamba2 blocks start from zeros; ``remat``
-    recomputes each block's (each zamba super-block's) activations in the
-    backward."""
+    kinds, ``slot [b]``.  Contiguous (the wave; paged None): caches from
+    :func:`init_decode_caches`, written in place: the attention at each
+    layer's ``len``, the recurrent state at the batch rows (fresh where the
+    row's window starts at position 0).  With no caches (training) the
+    attention runs over the sequence itself and the Mamba2 blocks start
+    from zeros; ``remat`` recomputes each block's (each zamba
+    super-block's) activations in the backward."""
     if caches is None:
         check_trainable(cfg)
         return _train_forward(ctx, cfg, params, tokens, positions, remat)
@@ -548,7 +623,11 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
     if any(ctx.for_segment(s.kind).seq_parallel for s in segments(cfg)):
         raise NotImplementedError("seq_parallel does not apply to decode")
     sm = None
-    if is_recurrent(cfg):
+    if is_recurrent(cfg) and paged is None:
+        b = tokens.shape[0]
+        sm = fixed_slot_map(torch.arange(b, device=tokens.device),
+                            positions[:, 0], b)
+    elif is_recurrent(cfg):
         if paged.get("slot") is None:
             raise ValueError("paged serving of recurrent kinds needs "
                              "paged['slot'], the per-row slot ids")
@@ -621,6 +700,22 @@ def prefill_logits(ctx: ATPContext, cfg: ModelConfig, params, batch):
     h = forward(ctx, cfg, params, tokens, _positions(tokens))
     with region("shell:head"):
         return lm_logits(ctx, cfg, params, h[:, -1:])[:, 0]
+
+
+def decode_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, pos,
+                caches: dict):
+    """One step of the wave over contiguous caches (``init_decode_caches``):
+    tokens [b, s] at positions ``pos .. pos + s - 1`` (``pos`` an int or a
+    0-d device tensor; s > 1 is prefill into the caches).  The attention
+    offset is each layer's ``cache["len"]``, as in the reference.  Returns
+    (the last position's logits [b, V/d1], caches, written in place)."""
+    b, s = tokens.shape
+    pos = torch.as_tensor(pos, device=tokens.device).long().reshape(1, 1)
+    positions = (pos + torch.arange(s, device=tokens.device)[None, :]
+                 ).expand(b, s)
+    h = forward(ctx, cfg, params, tokens, positions, caches)
+    with region("shell:head"):
+        return lm_logits(ctx, cfg, params, h[:, -1:])[:, 0], caches
 
 
 def _replicated(ctx):

@@ -1,6 +1,7 @@
 """Dense transformer block with ATP row/column-first tensor parallelism
-(counterpart of ``repro.models.transformer``): the paged serving path, and
-the cache-free path of training (attention over the current sequence).
+(counterpart of ``repro.models.transformer``): the paged serving path, the
+wave path over contiguous decode caches, and the cache-free path of
+training (attention over the current sequence).
 
 Per-block communication schedule (paper Fig. 6):
   f1: all-reduce(ax2) after the column-first fused q/k/v projection
@@ -135,10 +136,15 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
     """Attention.  x [b, s, h/d2]; positions [b, s] (training: ``0..s-1``
     in every row).  Paged: cache holds this layer's k/v pools [num_pages,
     page, kv_count, hd], paged carries the page-table rows ``table [b, mp]``
-    and per-slot ``start [b]``, and the pools are written in place.  With
-    no cache (training) the attention runs over the current sequence and
-    writes nothing; where the plan leaves r ranks per head block, each
-    takes 1/r of the query rows.  Returns the block output [b, s, h/d2]."""
+    and per-slot ``start [b]``, and the pools are written in place.
+    Contiguous (paged None): cache holds this layer's ``k``/``v`` [b,
+    s_max, kv_count, hd] and ``len``, a 0-d int32 device tensor; this run's
+    k/v land at rows ``len ..`` in place, the attention runs over the
+    cache at q_offset ``len`` and kv_len ``len + s``, and ``len`` grows by s
+    in place (no host sync: the step can be captured).  With no cache
+    (training) the attention runs over the current sequence and writes
+    nothing; where the plan leaves r ranks per head block, each takes 1/r
+    of the query rows.  Returns the block output [b, s, h/d2]."""
     # f1: fused q/k/v projection, one boundary over ax2; the bias follows
     # the boundary (fused into the GEMM's epilogue when ax2 is size 1)
     qkv = atp_linear(ctx, x, p["w_qkv"], p.get("b_qkv"), kind="col",
@@ -173,6 +179,10 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
         o = L.core_output_gather(ctx, cfg, o, plan, seq_split=True)
         return atp_linear(ctx, o, p["wo"], kind="row")
 
+    if paged is None:
+        o = _contiguous_attention(cfg, cache, q, k, v, layer_window)
+        o = L.core_output_gather(ctx, cfg, o, plan)
+        return atp_linear(ctx, o, p["wo"], kind="row")
     # scatter this run's k/v through the slot page tables, then attend over
     # each slot's mapped pages (garbage-page reads are masked by start + s)
     table, start = paged["table"], paged["start"]
@@ -185,6 +195,23 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
     o = L.core_output_gather(ctx, cfg, o, plan)
     # f2: row-first output projection, boundary over ax1
     return atp_linear(ctx, o, p["wo"], kind="row")
+
+
+def _contiguous_attention(cfg: ModelConfig, cache: dict, q, k, v,
+                          layer_window: int):
+    """This run's k/v written at ``cache["len"]``, then the attention over
+    the cache (s_max rows; the kernel reads only ``kv_len = len + s`` of
+    them), then ``len += s``, all in place."""
+    b, s = q.shape[:2]
+    klen = cache["len"]
+    rows = klen.long() + torch.arange(s, device=q.device)
+    cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
+    q_offset = klen.to(torch.int32).reshape(1).repeat(b)
+    o = L.attention_core(cfg, q, cache["k"], cache["v"], q_offset=q_offset,
+                         kv_len=q_offset + s, window=layer_window)
+    klen.add_(s)
+    return o
 
 
 def dense_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions, plan,

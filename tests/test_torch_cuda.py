@@ -1330,3 +1330,52 @@ def test_capture_raises_on_a_host_sync_and_does_not_fall_back(cuda, arch,
     assert step.step.warmups == 2 and step.step.captures == 0
     monkeypatch.undo()
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The wave's decode step over contiguous caches captured as CUDA graphs
+# (launch.steps.build_decode_step), at the same widths and depths.
+# ---------------------------------------------------------------------------
+
+
+def _card_wave(arch, cuda, seed=5, batch=3, prompt_len=96):
+    """A wave server at ``GRAPH_LAYERS`` depth for ``batch`` prompts of
+    ``prompt_len`` tokens and 6 new ones, and two waves of seeded
+    prompts."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=GRAPH_LAYERS[arch])
+    server = serve.make_wave_server(
+        cfg, batch, prompt_len + 6, lm.init_params(cfg, seed=seed,
+                                                   device=cuda), device=cuda)
+    waves = [serve.wave_prompts(cfg, batch, prompt_len, seed + i)
+             for i in range(2)]
+    return server, waves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_LAYERS))
+def test_captured_wave_gives_the_uncaptured_tokens(cuda, arch):
+    """Two waves in the same caches through the captured step (two graphs,
+    a prefill and a tick, captured once: the warm-ups give back the
+    caches' lengths and recurrent state), then through the uncaptured
+    body: identical greedy tokens, and every kernel of the path counted
+    per replay."""
+    server, waves = _card_wave(arch, cuda)
+    ops.reset_launches()
+    got = [server.serve(p, 6) for p in waves]
+    step = server.step
+    assert step.captures == 2 and len(step.shapes) == 2
+    kernels = {"matmul", "flash_attention", "rmsnorm"} | (
+        {"ssd_scan"} if arch == "zamba2-7b" else set())
+    for shape in step.shapes.values():
+        assert {k for k, v in shape.launches.items() if v > 0} == kernels
+    want = [server.uncaptured().serve(p, 6) for p in waves]
+    for g, w in zip(got, want):
+        assert g.shape == (3, 6)
+        assert (g == w).all(), (g, w)
+    assert not (got[0] == got[1]).all()
