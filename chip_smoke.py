@@ -15,7 +15,10 @@ Phases, in order, each failing the run on any error:
    slots, a sentinel and a fresh row, the whole pool checked).  Times the
    kernel, its plain version, one library call for the same function where
    there is one (a yardstick the port never calls), and computes the least
-   time the card could take (the bound).  Each timed matmul, attention and
+   time the card could take (the bound).  The library call for the
+   attention with gemma2-2b's tanh softcap, which SDPA cannot take, is a
+   compiled ``flex_attention`` (the softcap its ``score_mod``, the mask its
+   block mask), held to the plain version before it is timed.  Each timed matmul, attention and
    SSD shape prints the plan it took (``ops.matmul_plan``,
    ``ops.attention_plan``, ``ops.ssd_plan``), and a prefill chunk of the
    SSD scan is timed at every split of the head dim.  Also times an empty kernel
@@ -87,6 +90,43 @@ Phases, in order, each failing the run on any error:
    token's rows on the card (kernels, bf16) against the CPU (plain, fp32)
    within ``PATH_TOL``, and for zamba2-7b the rows and the batch-row SSD
    state within ``RECURRENT_FACTOR`` times the plain bf16 path's error.
+5c. serve-gemma -- gemma2-2b at its published widths, not cut (26 layers,
+   2.61 B parameters: d_model 2304, 8 q / 4 kv heads of 256, softcaps 50
+   and 30, every other layer a 4096 window, post-block norms, the head
+   tied to the 256000-row embedding), 4 requests as serve-llama's (the
+   attention on ``flash_attention.cu`` at head dim 256): graphs, launch
+   counts (matmul 105, flash_attention 26, rmsnorm 105 a step), captured
+   and uncaptured in turns with equal tokens, a profiled rerun; then
+   ``path_check`` at 2 layers within ``PATH_TOL``.  The result line's
+   ``flash_attention (head dim 256)`` row reads its launches from it.
+5d. serve-prefix -- llama3-8b at full size (serve-llama's weights, kept)
+   serving ``PREFIX``'s 8 requests, a 192-token system prompt each and 32-64
+   tokens of their own, with the prefix cache off and then on, on one set
+   of weights, each captured and counted: equal tokens, a hit rate above
+   0, and the prefill chunks skipped equal to the hit tokens over the
+   chunk; the wall ms of both runs.
+5e. serve-quant-pages -- llama3-8b at full size (serve-llama's weights),
+   512 seeded tokens teacher-forced in chunks of 64 through bf16, int8
+   and fp8 page pools: each quantized pool's distance from the bf16
+   pool's logits and its bytes (``torch.cuda.memory_allocated``, at least 1.8x smaller); at 2
+   layers the card's distance within ``QUANT_PAGES_FACTOR`` times the plain
+   fp32 path's on the CPU, and a planted fault (the scales ignored) must
+   break that.
+5f. serve-speculate -- llama3-8b at full size with a random MTP head
+   (``mtp=True``) serving serve-llama's 8 requests through the plain and
+   the speculative paged server on the same weights, captured and counted
+   (the speculative step adds the head: matmul 7, flash_attention 1,
+   rmsnorm 3), the speculative one also uncaptured: its tokens equal to the
+   plain ones up to each request's first near-tie, the threshold twice the
+   largest logit difference between a (slots, 2) tick and two (slots, 1)
+   ticks on the same inputs; ``spec_drafts`` and ``spec_accepted``; a
+   planted fault (the length advanced past a rejected draft) must break
+   the rule.  The trunk is serve-llama's weights, the head drawn from a
+   seed.  A random head's drafts are rejected, so the captured speculative
+   server runs once more with oracle drafts (the plain server's next
+   tokens): some must be accepted, in fewer decode ticks than the plain
+   server's, under the same rule; a planted fault in the accept branch
+   (the length not advanced past the kept draft) must break it.
 6. path-check-zamba -- zamba2-7b at full width with the depth cut to 7
    layers (one super-block and one tail Mamba2 block): slot 0's chunks at 0
    and 64 (the second carries the state), slot 1's chunk at 0, and one
@@ -297,7 +337,8 @@ Phases, in order, each failing the run on any error:
 Prints the card's name and power limit, the kernels' build time and each
 kernel's registers and spills from the build report, one JSON
 line ``{"kernels": [...]}`` (one row per kernel: the four forward kernels
-at the zamba2-7b path's shapes and launches, the three backward kernels
+at the zamba2-7b path's shapes and launches, the attention at head dim 256
+at serve-gemma's, the three backward kernels
 and the training attention kernel at the llama3-8b training step's, the
 two Mamba2 backward kernels at the zamba
 training step's, the activation's derivative at the gpt-m2 training
@@ -319,6 +360,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -329,13 +371,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
-          "serve-zamba", "serve-wave", "path-check-zamba", "train-kernels",
+          "serve-zamba", "serve-wave", "serve-gemma", "serve-prefix",
+          "serve-quant-pages", "serve-speculate", "path-check-zamba",
+          "train-kernels",
           "split-norm", "int8-matmul", "quant-wire", "train",
           "path-check-train", "train-zamba-kernels", "train-zamba",
           "path-check-train-zamba", "train-gpt-kernels", "train-gpt",
           "path-check-train-gpt", "plan", "calibrate")
 #: the serving path whose forward rows the result line reports
 MAIN = "zamba2-7b"
+#: gemma2-2b's serving path: the attention's row at head dim 256, half of
+#: its 26 layers local (window 4096) and half global
+GEMMA = "gemma2-2b"
+GEMMA_LAYERS = 26
 #: the training path: the backward rows of the result line
 TRAIN = "train"
 #: the zamba2-7b training path: the Mamba2 backward rows
@@ -588,7 +636,7 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
                       "src/repro/kernels/flash_attention.py:102", floor)
 
     def fa_case(label, b, sq, q_off, kv_len, path=None, step=None, weight=0,
-                window=0, softcap=0.0, d=128, hq=32, hkv=8):
+                window=0, softcap=0.0, d=128, hq=32, hkv=8, timed=False):
         q = randn(b, sq, hq, d)
         k, v = randn(b, skv, hkv, d), randn(b, skv, hkv, d)
         qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
@@ -598,14 +646,26 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
         want = ref.attention_ref(q, k, v, qo, kl, **kw)
         ok, err = within(got, want, **FA_TOL)
         timing = {}
-        if weight:
+        if weight or timed:
             mask = ref.attention_mask(sq, skv, qo, kl, window=window)
             visible = int(mask.sum()) * hq
             kv_needed = sum(min(x, skv) for x in kv_len) * hkv * d * 2 * 2
+            if softcap:
+                # SDPA takes no tanh softcap: the library's call is a
+                # compiled flex_attention, held to the plain version first
+                t0 = time.perf_counter()
+                lib = _flex(torch, q, k, v, qo, kl, window, softcap)
+                lok, lerr = within(lib().transpose(1, 2), want, **FA_TOL)
+                label += (f" (flex_attention |err| {lerr:.3e}, first call "
+                          f"{time.perf_counter() - t0:.1f}s)")
+                if not lok:
+                    failed.append(f"flex_attention yardstick {label}")
+            else:
+                lib = _sdpa(torch, F, q, k, v, mask)
             timing = dict(
                 ms=timer(lambda: ops.flash_attention(q, k, v, qo, kl, **kw)),
                 plain_ms=timer(lambda: ref.attention_ref(q, k, v, qo, kl, **kw)),
-                library_ms=timer(_sdpa(torch, F, q, k, v, mask)),
+                library_ms=timer(lib),
                 nbytes=2 * 2 * q.numel() + kv_needed,
                 flops=4 * d * visible)
         plan = ops.attention_plan(b, sq, hq, hkv, skv, d=d)
@@ -624,6 +684,24 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
                 chunk, [128], [128 + chunk], path, "prefill", weight, **heads)
         fa_case(f"decode b={slots} sq=1 skv={skv} d={d}", slots, 1, lens,
                 [x + 1 for x in lens], path, "decode", weight, **heads)
+    # gemma2-2b's serving attention at head dim 256 (8 q / 4 kv heads,
+    # softcap 50, the local layers' window 4096 over 272 keys)
+    gemma = dict(d=256, hq=8, hkv=4)
+    log("kernels: flash_attention at gemma2-2b's shapes (hq=8, hkv=4, "
+        "d=256, softcap 50)")
+    for label, window in (("local", 4096), ("global", 0)):
+        fa_case(f"{label} prefill b=1 sq={chunk} skv={skv} q_offset=128 "
+                f"d=256 window={window}", 1, chunk, [128], [128 + chunk],
+                GEMMA, "prefill", GEMMA_LAYERS // 2, window=window,
+                softcap=50.0, **gemma)
+        fa_case(f"{label} decode b={slots} sq=1 skv={skv} d=256 "
+                f"window={window}", slots, 1, lens, [x + 1 for x in lens],
+                GEMMA, "decode", GEMMA_LAYERS // 2, window=window,
+                softcap=50.0, **gemma)
+    fa_case("d=256 window=128 b=2 sq=40", 2, 40, [10, 200], [50, 240],
+            window=128, timed=True, **gemma)
+    fa_case("d=256 a row with kv_len 0", 2, 3, [0, 5], [0, 8], timed=True,
+            **gemma)
     fa_case("window=48 softcap=30", 2, 40, [10, 100], [50, 140],
             window=48, softcap=30.0)
     fa_case("d=64 hq=hkv=16 (qwen1.5)", 2, 33, [0, 7], [33, 40], d=64,
@@ -850,6 +928,37 @@ def host_costs(torch, ops, randn, gen, chunk, slots):
         log(f"  {label:48s} {host_us(torch, fn):8.2f} us")
 
 
+_FLEX = {}
+
+
+def _flex(torch, q, k, v, q_offset, kv_len, window: int, softcap: float):
+    """The library yardstick for a softcapped attention: one compiled
+    ``flex_attention`` call, the tanh softcap its ``score_mod`` and the
+    causal, window and ``kv_len`` rule of ``ref.attention_mask`` its block
+    mask (heads-first views; GQA by enable_gqa)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    if "fn" not in _FLEX:
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    # the window a tensor, so that one compile serves both kinds of layer
+    qo, kl = q_offset.long(), kv_len.long()
+    win = torch.tensor(window, device=q.device)
+
+    def mask_mod(b, h, qi, ki):
+        qpos = qo[b] + qi
+        return ((ki < kl[b]) & (ki <= qpos)
+                & ((win == 0) | (ki > qpos - win)))
+
+    def score_mod(s, b, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    bm = create_block_mask(mask_mod, q.shape[0], None, q.shape[1],
+                           k.shape[1], device=q.device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: _FLEX["fn"](qt, kt, vt, score_mod=score_mod,
+                               block_mask=bm, enable_gqa=True)
+
+
 def _sdpa(torch, F, q, k, v, mask):
     """The library yardstick: one scaled_dot_product_attention call on the
     same inputs (heads-first views; GQA by enable_gqa)."""
@@ -867,13 +976,13 @@ SERVE = dict(slots=4, prefill_chunk=64, page_size=16, max_seq=272, max_new=16)
 PROMPT_LEN = 256   # prompt lengths are drawn from [64, 256]
 
 
-def launches_per_step(cfg) -> dict:
+def launches_per_step(cfg, speculate: bool = False) -> dict:
     """Kernel launches of one paged step at d1 = d2 = 1 (every step shape
     launches the same kernels), summed over the segments:
       - dense layer: 2 entry norms (rmsnorm launches only for an RMSNorm
         model: a LayerNorm model's norms run as plain torch, the final one
-        too); fused q/k/v, wo, fused up+gate (or up) and down GEMMs; one
-        attention core;
+        too) and, for gemma2, 2 post-block norms; fused q/k/v, wo, fused
+        up+gate (or up) and down GEMMs; one attention core;
       - zamba super-block of ``inner`` blocks: the shared block's 2
         in-projections and its dense layer, and ``inner - 1`` Mamba2 blocks;
       - Mamba2 block: its ``ln`` norm and its grouped, gated norm; z|x,
@@ -882,13 +991,24 @@ def launches_per_step(cfg) -> dict:
     6, 3 tail Mamba2 blocks): matmul 13 * (2 + 4 + 5 * 3) + 3 * 3 + 1 = 283,
     rmsnorm 13 * (2 + 5 * 2) + 3 * 2 + 1 = 163, flash_attention 13,
     ssd_scan 13 * 5 + 3 = 68.  gpt-m2 (4 dense layers, LayerNorm): matmul
-    17, flash_attention 4, rmsnorm 0."""
+    17, flash_attention 4, rmsnorm 0.  gemma2-2b (26 layers of 4 norms):
+    matmul 105, flash_attention 26, rmsnorm 105.  ``speculate`` adds the
+    MTP head: its 2 projections, a dense layer, its norm and a second head
+    GEMM (llama3-8b: matmul 129 + 7, flash_attention 32 + 1, rmsnorm 65 +
+    3)."""
     from repro_torch.configs.base import segments
 
     norm = 0 if cfg.norm_kind == "layernorm" else 1   # a block norm's launch
     n = {"matmul": 1, "flash_attention": 0, "rmsnorm": norm, "ssd_scan": 0}
-    per = {"dense": {"matmul": 4, "flash_attention": 1, "rmsnorm": 2 * norm},
+    block_norms = 4 if cfg.post_block_norms else 2
+    per = {"dense": {"matmul": 4, "flash_attention": 1,
+                     "rmsnorm": block_norms * norm},
            "mamba": {"matmul": 3, "rmsnorm": norm + 1, "ssd_scan": 1}}
+    if speculate:
+        for name, v in per["dense"].items():
+            n[name] += v
+        n["matmul"] += 3
+        n["rmsnorm"] += norm
     for seg in segments(cfg):
         blocks = ({"dense": 1, "mamba": seg.inner - 1} if seg.kind == "zamba"
                   else {seg.kind: 1})
@@ -903,7 +1023,7 @@ def launches_per_step(cfg) -> dict:
 class StepMeter:
     """Wraps the server's step: counts its calls and sums their host time
     by kind.  A prefill chunk feeds [1, chunk] tokens; a decode tick
-    [slots, 1]; in recurrent mode a prompt tail is fed one token at a time
+    [slots, 1] ([slots, 2] when speculative); in recurrent mode a prompt tail is fed one token at a time
     through the decode-shaped step, and a call whose live row belongs to a
     slot still prefilling is counted as a "tail", not as a decode tick.
     The step hands back numpy tokens, so every call ends synchronised with
@@ -922,7 +1042,8 @@ class StepMeter:
         self.events = None     # (start, end) of the replays of this call
 
     def _kind(self, tokens, rest) -> str:
-        if tokens.shape[1] > 1:
+        if tokens.shape[0] == 1 and \
+                tokens.shape[1] == self.server.cfg.prefill_chunk:
             return "prefill"
         if self.server.cfg.recurrent:
             slots = self.server.slots
@@ -984,6 +1105,8 @@ TIMED_PAIRS = 5
 #: serve-zamba's pairs: its uncaptured runs take about 30 s each, and the
 #: whole script has to stay well inside its time limit
 ZAMBA_PAIRS = 3
+#: serve-gemma's pairs (its timings are the d = 256 attention's context)
+GEMMA_PAIRS = 3
 
 
 def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
@@ -1796,6 +1919,526 @@ def serve_wave_phase(torch, dev="cuda", zamba_params=None,
         if dev == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 6d-6f: the paged server's prefix cache, quantized page pools and
+# speculative decode, on llama3-8b (serve-llama's weights: seed 0).
+# ---------------------------------------------------------------------------
+
+#: serve-prefix's workload: requests that share a system prompt of
+#: ``system`` tokens (a multiple of the chunk and of the page), each
+#: followed by ``own`` tokens of its own
+PREFIX = dict(requests=8, system=192, own=(32, 64), seed=6)
+
+
+def llama_params(cfg, dev, seed: int = 0) -> dict:
+    """``cfg``'s weights drawn from ``seed`` and cut for one rank, as
+    serve-llama's server holds them (for a phase run without it)."""
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+
+    return lm.shard_params(cfg, lm.init_params(cfg, seed=seed, device=dev),
+                           lm.layout_context(atp_topo(1, 1, 1), 0))
+
+
+def counted_serve(torch, server, prompts, per_step: dict):
+    """Serve ``prompts`` (rids from 0) through the server's own step, every
+    count of kernel launches set to 0 just before and read just after: each
+    kernel must have launched ``per_step`` times the steps and the warm-up
+    runs of this call.  Returns (the meter, the tokens by prompt index, the
+    wall seconds)."""
+    from repro_torch.kernels import ops
+
+    step = server.step_fn
+    warmups = step.step.warmups
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    meter, outs = serve_once(torch, server, step, prompts, 0)
+    wall = time.perf_counter() - t0
+    server.step_fn = step
+    launches = dict(ops.LAUNCHES)
+    runs = sum(meter.calls.values()) + step.step.warmups - warmups
+    want = {k: v * runs for k, v in per_step.items()}
+    assert launches == want, f"launches {launches}, expected {want}"
+    assert len(outs) == len(prompts) and all(
+        len(o) == SERVE["max_new"] for o in outs.values()), "requests lost"
+    return meter, outs, wall
+
+
+def prefix_prompts(cfg):
+    """``PREFIX``'s prompts: one seeded system prompt, each request's own
+    seeded tokens after it."""
+    import numpy as np
+
+    rng = np.random.default_rng(PREFIX["seed"])
+    system = rng.integers(0, cfg.vocab_size, PREFIX["system"], dtype=np.int32)
+    lo, hi = PREFIX["own"]
+    return [np.concatenate([system, rng.integers(
+        0, cfg.vocab_size, int(rng.integers(lo, hi + 1)), dtype=np.int32)])
+        for _ in range(PREFIX["requests"])]
+
+
+def prefix_phase(torch, dev="cuda", params=None) -> None:
+    """llama3-8b at full size serving ``PREFIX``'s requests through the
+    paged server with the prefix cache off, then on, on one set of
+    weights (``params``, serve-llama's sharded ones, else drawn from seed
+    0 as serve-llama draws them), each captured and counted.  Rules: the tokens are equal (a
+    suffix chunk runs at the same shapes over the same logical K/V either
+    way, the shared pages holding what the request's own prefill would
+    have written); the hit rate is above 0; and the prefill chunks the
+    cached run skipped are its hit tokens over the chunk."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config("llama3-8b")
+    prompts = prefix_prompts(cfg)
+    lens = [len(p) for p in prompts]
+    per_step = launches_per_step(cfg)
+    if params is None:
+        params = llama_params(cfg, dev)
+    log(f"serve-prefix llama3-8b: {len(prompts)} requests of {lens} prompt "
+        f"tokens, the first {PREFIX['system']} shared, {SERVE}; the prefix "
+        f"cache off, then on, on the same weights")
+    runs = {}
+    for cached in (False, True):
+        scfg = serve.paged_server_config(lens, **SERVE, prefix_cache=cached)
+        server, _ = serve.make_paged_server(cfg, scfg, params, device=dev,
+                                            sharded=True)
+        assert server.cfg.prefix_cache == cached
+        meter, outs, wall = counted_serve(torch, server, prompts, per_step)
+        st = server.stats()
+        runs[cached] = (meter, outs, st)
+        log(f"  prefix cache {'on ' if cached else 'off'}: {st['ticks']} "
+            f"ticks, {meter.calls['prefill']} prefill chunks, "
+            f"{meter.calls['decode']} decode ticks, wall {1e3 * wall:.1f} ms "
+            f"({1e3 * sum(meter.seconds.values()):.1f} in its steps, "
+            f"captures included); prefix_hit_rate "
+            f"{st['prefix_hit_rate']:.4f}, pages held by the index "
+            f"{server.alloc.pinned_pages}, used_cache_bytes "
+            f"{st['used_cache_bytes']}")
+        del server
+    (m_off, off, _), (m_on, on, st) = runs[False], runs[True]
+    bad = [r for r in off if on[r] != off[r]]
+    assert not bad, f"serve-prefix: requests {bad} differ with the cache on"
+    hit = round(st["prefix_hit_rate"] * sum(lens))
+    skipped = m_off.calls["prefill"] - m_on.calls["prefill"]
+    chunk = SERVE["prefill_chunk"]
+    log(f"  tokens of all {len(prompts)} requests equal; {hit} prompt tokens "
+        f"hit the cache, {skipped} prefill chunks skipped (= {hit} / {chunk})")
+    assert st["prefix_hit_rate"] > 0, "serve-prefix: no prefix hit"
+    assert hit % chunk == 0 and skipped == hit // chunk, \
+        f"serve-prefix: {skipped} chunks skipped for {hit} hit tokens"
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: serve-quant-pages: one seeded sequence teacher-forced through the paged
+#: step in prefill chunks, through bf16, int8 and fp8 page pools
+QUANT_PAGES = dict(seq=512, seed=7, layers=2)
+#: the card's distance of a quantized pool's logits from the bf16 pool's
+#: (at the cut, kernels, bf16) may be this many times the plain path's (at
+#: the cut, fp32, the same weights): PATH_TOL's factor over the plain
+#: versions' own error
+QUANT_PAGES_FACTOR = 2.5
+#: the pools' bytes: a quantized pool at least this many times smaller
+#: (the reference's ``test_quant_pool_bytes_ratio``)
+QUANT_PAGES_RATIO = 1.8
+
+
+def teacher_forced(torch, cfg, params, tokens, page_dtype: str, where: str,
+                   dtype=None):
+    """``tokens [S]`` through ``lm.paged_step`` in one slot, in chunks of
+    ``SERVE["prefill_chunk"]``, with a page pool of ``page_dtype`` on
+    ``where`` (``dtype``: the pools' model dtype).  Returns every
+    position's logits [S, V] fp32 and the bytes the caches took (on the
+    card ``torch.cuda.memory_allocated`` around their making, elsewhere
+    their tensors' sizes)."""
+    from repro_torch.core.atp import make_context
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+    from repro_torch.models.paging import PageAllocator, PagedConfig
+    from repro_torch.optim import adamw
+
+    S, C, pg = len(tokens), SERVE["prefill_chunk"], SERVE["page_size"]
+    pcfg = PagedConfig(page_size=pg, num_pages=1 + S // pg,
+                       pages_per_slot=S // pg, page_dtype=page_dtype)
+    alloc = PageAllocator(pcfg, 1)
+    alloc.ensure(0, S)
+    ctx = make_context(atp_topo(1, 1, 1), device_type=where)
+    cuda = where == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+    caches = lm.init_paged_caches(cfg, ctx, pcfg, dtype=dtype, device=where)
+    nbytes = (torch.cuda.memory_allocated() - before if cuda else
+              sum(t.numel() * t.element_size()
+                  for t in adamw.tree_leaves(caches)))
+    table = torch.as_tensor(alloc.table(), device=where)
+    toks = torch.as_tensor(tokens[None], device=where)
+    rows = []
+    with torch.no_grad():
+        for c0 in range(0, S, C):
+            start = torch.tensor([c0], dtype=torch.int32, device=where)
+            logits, _ = lm.paged_step(ctx, cfg, params, toks[:, c0:c0 + C],
+                                      start, table, caches)
+            rows.append(logits[0].float())
+    return torch.cat(rows), nbytes
+
+
+def unscaled_gather(pages, scales, table, out_dtype=None):
+    """``paging.gather_pages_q`` with a planted fault: the quantized values
+    read back without their scales."""
+    from repro_torch.models import paging
+
+    out = paging.gather_pages(pages, table)
+    return out if scales is None else out.float().to(out_dtype)
+
+
+def quant_pages_phase(torch, dev="cuda", params=None) -> None:
+    """llama3-8b at full size (``params``: serve-llama's sharded weights,
+    else drawn as serve-llama draws them), ``QUANT_PAGES["seq"]`` seeded
+    tokens teacher-forced through bf16, int8 and fp8 page pools: each
+    quantized pool's logits against the bf16 pool's (relative L2 over all
+    rows, the worst row and the top-1 agreement) at full depth, printed;
+    the pools' bytes, each quantized one at least ``QUANT_PAGES_RATIO``
+    times smaller.  The rule, at the first ``QUANT_PAGES["layers"]`` layers of
+    the same weights: the card's distance within ``QUANT_PAGES_FACTOR``
+    times the plain path's on the CPU in fp32; a planted fault (the
+    scales ignored as the pool is read) must break it."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm, paging
+
+    cfg = get_config("llama3-8b")
+    rng = np.random.default_rng(QUANT_PAGES["seed"])
+    tokens = rng.integers(0, cfg.vocab_size, QUANT_PAGES["seq"],
+                          dtype=np.int32)
+    if params is None:
+        params = llama_params(cfg, dev)
+    log(f"serve-quant-pages llama3-8b: {len(tokens)} tokens teacher-forced "
+        f"in chunks of {SERVE['prefill_chunk']}, pages of "
+        f"{SERVE['page_size']}; pools {paging.PAGE_DTYPES}")
+    full, nbytes = {}, {}
+    for pd in paging.PAGE_DTYPES:
+        full[pd], nbytes[pd] = teacher_forced(torch, cfg, params, tokens, pd,
+                                              dev)
+    for pd in ("int8", "fp8"):
+        ratio = nbytes["bf16"] / nbytes[pd]
+        rel, agree = row_errors(full[pd], full["bf16"])
+        log(f"  {pd} pool at {cfg.num_layers} layers: relative L2 from the "
+            f"bf16 pool {frob(full[pd], full['bf16']):.3e} (worst row "
+            f"{rel:.3e}), top-1 agreement {agree}/{len(tokens)}; pool bytes "
+            f"{nbytes[pd]} against {nbytes['bf16']} ({ratio:.3f}x smaller)")
+        assert full[pd].isfinite().all(), f"{pd}: non-finite logits"
+        assert ratio >= QUANT_PAGES_RATIO, \
+            f"{pd} pool only {ratio:.3f}x smaller than bf16's"
+    del full
+    layers = QUANT_PAGES["layers"]
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    cparams = cut_params(cfg, cut, params)
+    plain_params = lm.tree_map(lambda t: t.cpu().float(), cparams)
+    card, plain = {}, {}
+    for pd in paging.PAGE_DTYPES:
+        card[pd] = teacher_forced(torch, cut, cparams, tokens, pd, dev)[0]
+        plain[pd] = teacher_forced(torch, cut, plain_params, tokens, pd,
+                                   "cpu", torch.float32)[0]
+    with swapped(paging, gather_pages_q=unscaled_gather):
+        faulty = teacher_forced(torch, cut, cparams, tokens, "int8", dev)[0]
+    f = QUANT_PAGES_FACTOR
+    for pd in ("int8", "fp8"):
+        got = frob(card[pd], card["bf16"])
+        want = frob(plain[pd], plain["bf16"])
+        log(f"  {pd} pool at {layers} layers: the card's distance from its "
+            f"bf16 pool {got:.3e}, the plain path's (fp32, CPU) {want:.3e} "
+            f"(limit {f} x the plain)")
+        assert got <= f * want, f"{pd} pool: {got:.3e} > {f} x {want:.3e}"
+    broken = frob(faulty, card["bf16"])
+    want = frob(plain["int8"], plain["bf16"])
+    log(f"  planted fault (int8 pool read without its scales): distance "
+        f"{broken:.3e}, limit {f * want:.3e}")
+    assert broken > f * want, "serve-quant-pages: the planted fault passed"
+    del params, cparams, card, faulty
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: serve-speculate's pool headroom: a faulty server's lengths run ahead of
+#: its tokens, so its table and pool take some more pages than the
+#: workload's
+SPEC_MAX_SEQ = 320
+SPEC_EXTRA_PAGES = 16
+
+
+def prefilled(torch, cfg, params, prompts, dev):
+    """Each prompt prefilled through ``lm.paged_step`` in its own slot in
+    padded chunks of ``SERVE["prefill_chunk"]``, as the server feeds them.
+    Returns (ctx, caches, table, each prompt's last valid logit row [b,
+    V] fp32)."""
+    import numpy as np
+
+    from repro_torch.core.atp import make_context
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+    from repro_torch.models.paging import PageAllocator, PagedConfig
+
+    new, C, pg = SERVE["max_new"], SERVE["prefill_chunk"], SERVE["page_size"]
+    pcfg = PagedConfig(page_size=pg, num_pages=1 + sum(
+        -(-(len(p) + new) // pg) for p in prompts),
+        pages_per_slot=-(-SPEC_MAX_SEQ // pg))
+    alloc = PageAllocator(pcfg, len(prompts))
+    for i, p in enumerate(prompts):
+        alloc.ensure(i, len(p) + new)
+    ctx = make_context(atp_topo(1, 1, 1), device_type=dev)
+    caches = lm.init_paged_caches(cfg, ctx, pcfg, device=dev)
+    table = torch.as_tensor(alloc.table(), device=dev)
+    last = []
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            for c0 in range(0, len(p), C):
+                n = min(C, len(p) - c0)
+                chunk = np.zeros((1, C), np.int32)
+                chunk[0, :n] = p[c0:c0 + n]
+                start = torch.tensor([c0], dtype=torch.int32, device=dev)
+                logits, _ = lm.paged_step(ctx, cfg, params,
+                                          torch.as_tensor(chunk, device=dev),
+                                          start, table[i:i + 1], caches)
+            last.append(logits[0, n - 1].float())
+    return ctx, caches, table, torch.stack(last)
+
+
+def top2_gap(logits):
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def greedy_gaps(torch, cfg, params, prompts, tokens, dev):
+    """The top-2 logit gaps [b, max_new] of the plain paged path at each
+    request's greedy tokens ``tokens[r]`` (uncaptured: ``prefilled``, then
+    ticks of every request fed its own tokens)."""
+    import numpy as np
+
+    from repro_torch.models import lm
+
+    ctx, caches, table, last = prefilled(torch, cfg, params, prompts, dev)
+    b, new = len(prompts), SERVE["max_new"]
+    gaps = np.zeros((b, new))
+    gaps[:, 0] = top2_gap(last).cpu().numpy()
+    with torch.no_grad():
+        for t in range(1, new):
+            feed = torch.tensor([[tokens[r][t - 1]] for r in range(b)],
+                                dtype=torch.int32, device=dev)
+            start = torch.tensor([len(p) + t - 1 for p in prompts],
+                                 dtype=torch.int32, device=dev)
+            logits, _ = lm.paged_step(ctx, cfg, params, feed, start, table,
+                                      caches)
+            gaps[:, t] = top2_gap(logits[:, 0]).cpu().numpy()
+    return gaps
+
+
+def tick_difference(torch, cfg, params, prompts, tokens, dev) -> float:
+    """The largest logit difference between a speculative tick (slots, 2)
+    fed each request's first two greedy tokens (an accepted draft) and two
+    plain ticks (slots, 1) fed them one at a time, over both positions,
+    after the same prefill of the first ``SERVE["slots"]`` prompts."""
+    from repro_torch.models import lm
+
+    prompts = prompts[:SERVE["slots"]]
+    ctx, caches, table, _ = prefilled(torch, cfg, params, prompts, dev)
+    twin = lm.tree_map(lambda t: t.clone(), caches)
+
+    def put(rows):
+        return torch.tensor(rows, dtype=torch.int32, device=dev)
+
+    lens = [len(p) for p in prompts]
+    with torch.no_grad():
+        two, _ = lm.paged_step(ctx, cfg, params,
+                               put([tokens[r][:2] for r in range(len(lens))]),
+                               put(lens), table, caches)
+        diff = 0.0
+        for j in range(2):
+            one, _ = lm.paged_step(
+                ctx, cfg, params, put([[tokens[r][j]] for r in
+                                       range(len(lens))]),
+                put([n + j for n in lens]), table, twin)
+            d = float((two[:, j].float() - one[:, 0].float()).abs().max())
+            log(f"  position {j} of the (slots, 2) tick against a (slots, "
+                f"1) tick: largest logit difference {d:.4g}")
+            diff = max(diff, d)
+    return diff
+
+
+def advance_past_reject(tick):
+    """``Server._decode_tick_spec`` with a planted fault: a slot whose
+    draft was rejected still has its length advanced past the draft, so
+    the draft's stale KV is read as if it had been verified."""
+    def faulty(self):
+        before = {i: len(s.req.out) for i, s in enumerate(self.slots)
+                  if s is not None and s.decoding}
+        out = tick(self)
+        for i, n in before.items():
+            s = self.slots[i]
+            if s is not None and len(s.req.out) == n + 1:
+                s.length += 1
+        return out
+    return faulty
+
+
+def oracle_drafts(tick, want: dict, rid0: int):
+    """``Server._decode_tick_spec`` fed oracle drafts: before each tick,
+    every decoding slot's draft is the plain server's next token
+    (``want``, by rid less ``rid0``), so that up to near-ties every draft
+    is accepted and the accept branch runs: the position-1 token kept and
+    the draft's KV at length+1 read by the next tick."""
+    def oracle(self):
+        for s in self.slots:
+            if s is not None and s.decoding:
+                toks, n = want[s.req.rid - rid0], len(s.req.out)
+                if n < len(toks):
+                    s.draft = toks[n]
+        return tick(self)
+    return oracle
+
+
+def stay_on_accept(tick):
+    """``Server._decode_tick_spec`` with a planted fault in the accept
+    branch: a slot that kept two tokens advances its length by one only,
+    so the next tick writes over the accepted draft's KV."""
+    def faulty(self):
+        before = {i: len(s.req.out) for i, s in enumerate(self.slots)
+                  if s is not None and s.decoding}
+        out = tick(self)
+        for i, n in before.items():
+            s = self.slots[i]
+            if s is not None and len(s.req.out) == n + 2:
+                s.length -= 1
+        return out
+    return faulty
+
+
+#: serve-speculate's MTP head is drawn from this seed, in a one-layer cut
+#: of the config (the trunk is serve-llama's)
+SPEC_HEAD_SEED = 5
+
+
+def speculate_phase(torch, dev="cuda", params=None) -> None:
+    """llama3-8b at full size with a random MTP head (``mtp=True``: the
+    trunk serve-llama's weights, ``params`` where given, the head's dense
+    block at full width, drawn from ``SPEC_HEAD_SEED``) serving
+    serve-llama's 8 requests through the plain paged server and the
+    speculative one (``speculate``: ticks of (slots, 2), the MTP draft
+    verified by the trunk), on the same weights, each captured and
+    counted, the speculative one also uncaptured (the same tokens).  The
+    rule: the speculative tokens equal the plain ones up to each request's
+    first near-tie, a step whose top-2 logit gap in the plain path is below
+    twice the largest logit difference between a (slots, 2) tick and two
+    (slots, 1) ticks on the same inputs.  A planted fault (a server that
+    advances the length past a rejected draft) must break it.  A random
+    head's drafts are rejected, so the captured speculative server is run
+    once more with oracle drafts (the plain server's next tokens): it must
+    accept some, take fewer decode ticks than the plain server and keep
+    the rule; a planted fault in the accept branch (the length not
+    advanced past the kept draft) must break it."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Server
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), mtp=True)
+    one = dataclasses.replace(cfg, num_layers=1)
+    head = lm.shard_params(one, lm.init_params(one, seed=SPEC_HEAD_SEED,
+                                               device=dev),
+                           lm.layout_context(atp_topo(1, 1, 1), 0))["mtp"]
+    trunk = params if params is not None else llama_params(
+        get_config("llama3-8b"), dev)
+    params = {**trunk, "mtp": head}
+    del trunk, head
+    prompts = serve.sample_prompts(cfg, 8, PROMPT_LEN, 0)
+    lens = [len(p) for p in prompts]
+    geom = {**SERVE, "max_seq": SPEC_MAX_SEQ}
+    plain_cfg = serve.paged_server_config(lens, **geom)
+    plain_cfg = dataclasses.replace(plain_cfg, paged=dataclasses.replace(
+        plain_cfg.paged, num_pages=plain_cfg.paged.num_pages
+        + SPEC_EXTRA_PAGES))
+    plain, _ = serve.make_paged_server(cfg, plain_cfg, params, device=dev,
+                                       sharded=True)
+    spec, _ = serve.make_paged_server(
+        cfg, dataclasses.replace(plain_cfg, speculate=True), params,
+        device=dev, sharded=True)
+    assert spec.cfg.speculate and not plain.cfg.speculate
+    log(f"serve-speculate llama3-8b with a random MTP head: {len(prompts)} "
+        f"requests of {lens} prompt tokens, {geom}")
+    m_plain, want, w_plain = counted_serve(torch, plain,
+                                           prompts, launches_per_step(cfg))
+    m_spec, got, w_spec = counted_serve(
+        torch, spec, prompts, launches_per_step(cfg, speculate=True))
+    st = spec.stats()
+    for name, m, w, s in (("plain", m_plain, w_plain, plain.stats()),
+                          ("speculative", m_spec, w_spec, st)):
+        log(f"  {name}: {s['ticks']} ticks, {m.calls['prefill']} prefill "
+            f"chunks, {m.calls['decode']} decode ticks, wall "
+            f"{1e3 * w:.1f} ms ({1e3 * sum(m.seconds.values()):.1f} in its "
+            f"steps, captures included)")
+    log(f"  spec_drafts {st['spec_drafts']}, spec_accepted "
+        f"{st['spec_accepted']} (accept rate {st['spec_accept_rate']:.4f})")
+    step = spec.step_fn
+    _, unc = serve_once(torch, spec, step.uncaptured(), prompts, 500)
+    spec.step_fn = step
+    assert unc == got, "serve-speculate: uncaptured tokens differ"
+    tie = 2 * tick_difference(torch, cfg, params, prompts, want, dev)
+    gaps = greedy_gaps(torch, cfg, params, prompts, want, dev)
+    plain_toks = np.array([want[r] for r in range(len(prompts))])
+    tied = near_tie_rule(plain_toks, got, gaps, tie)
+    log(f"  speculative tokens equal to plain up to each request's first "
+        f"near-tie (top-2 gap < {tie:.4g}): {len(tied)} of {len(prompts)} "
+        f"requests reach one (request, its step, the first step that "
+        f"differs, its gap): {tied}")
+    with swapped(Server, _decode_tick_spec=advance_past_reject(
+            Server._decode_tick_spec)):
+        _, bad = serve_once(torch, spec, step, prompts, 700)
+    spec.step_fn = step
+    try:
+        near_tie_rule(plain_toks, bad, gaps, tie)
+    except AssertionError as e:
+        log(f"  planted fault (the length advanced past a rejected draft) "
+            f"breaks the rule: {str(e)[:160]}")
+    else:
+        raise AssertionError("serve-speculate: the planted fault passed")
+    oracle = oracle_drafts(Server._decode_tick_spec, want, 900)
+    before = spec.stats()
+    with swapped(Server, _decode_tick_spec=oracle):
+        m_oracle, fed = serve_once(torch, spec, step, prompts, 900)
+    spec.step_fn = step
+    after = spec.stats()
+    drafts = after["spec_drafts"] - before["spec_drafts"]
+    accepted = after["spec_accepted"] - before["spec_accepted"]
+    tied = near_tie_rule(plain_toks, fed, gaps, tie)
+    log(f"  oracle drafts (the plain server's next tokens): {accepted} of "
+        f"{drafts} accepted, {m_oracle.calls['decode']} decode ticks against "
+        f"the plain server's {m_plain.calls['decode']}; tokens equal to plain "
+        f"up to near-ties ({len(tied)} requests reach one: {tied})")
+    assert accepted > 0, "serve-speculate: no oracle draft accepted"
+    assert m_oracle.calls["decode"] < m_plain.calls["decode"], \
+        "serve-speculate: oracle drafts took no fewer decode ticks"
+    with swapped(Server, _decode_tick_spec=stay_on_accept(oracle_drafts(
+            Server._decode_tick_spec, want, 1100))):
+        _, bad = serve_once(torch, spec, step, prompts, 1100)
+    spec.step_fn = step
+    try:
+        near_tie_rule(plain_toks, bad, gaps, tie)
+    except AssertionError as e:
+        log(f"  planted fault (the length not advanced past an accepted "
+            f"draft) breaks the rule: {str(e)[:160]}")
+    else:
+        raise AssertionError("serve-speculate: the accept-branch fault "
+                             "passed")
+    del plain, spec, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4460,6 +5103,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops, ref
 
     OUT_DIR.mkdir(exist_ok=True)
+    # the library yardstick's compiled flex_attention caches its kernels in
+    # the checkout's build directory, as the port's kernels are built
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -4500,10 +5148,15 @@ def main(argv=None) -> int:
 
     launches = {}   # per path, from its serve phase
     llama = get_config("llama3-8b")
+    # serve-llama's weights, which the prefix, quantized-page and
+    # speculative phases serve again
+    kept_llama = {}
     if "serve-llama" in phases:
         launches["llama3-8b"] = serve_phase(
             torch, llama, requests=8, seed=0, kernel_ms=kernel_ms("llama3-8b"),
-            profile=True, pairs=TIMED_PAIRS)
+            profile=True, pairs=TIMED_PAIRS,
+            keep=kept_llama if {"serve-prefix", "serve-quant-pages",
+                                "serve-speculate"} & set(phases) else None)
         done("serve-llama")
     if "path-check" in phases:
         # depth cut to 2 layers so that the fp32 CPU side stays small
@@ -4527,6 +5180,26 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         done("serve-wave")
+    if "serve-gemma" in phases:
+        gemma = get_config(GEMMA)
+        launches[GEMMA] = serve_phase(
+            torch, gemma, requests=4, seed=4, profile=True,
+            pairs=GEMMA_PAIRS)
+        path_check(torch, dataclasses.replace(gemma, num_layers=2), seed=4)
+        done("serve-gemma")
+    llama_weights = kept_llama.pop("params", None)
+    if "serve-prefix" in phases:
+        prefix_phase(torch, params=llama_weights)
+        done("serve-prefix")
+    if "serve-quant-pages" in phases:
+        quant_pages_phase(torch, params=llama_weights)
+        done("serve-quant-pages")
+    if "serve-speculate" in phases:
+        speculate_phase(torch, params=llama_weights)
+        done("serve-speculate")
+    del llama_weights
+    gc.collect()
+    torch.cuda.empty_cache()
     if "path-check-zamba" in phases:
         # depth cut to 7 layers (one super-block of 6 and one tail Mamba2
         # block, so both segment kinds run) for the fp32 CPU side
@@ -4613,8 +5286,10 @@ def main(argv=None) -> int:
                 for r in of if path in r.paths]
 
     rows = {path: path_rows(path, reports)
-            for path in ("llama3-8b", MAIN, TRAIN, TRAIN_ZAMBA, TRAIN_GPT,
-                         SPLIT, INT8)}
+            for path in ("llama3-8b", MAIN, GEMMA, TRAIN, TRAIN_ZAMBA,
+                         TRAIN_GPT, SPLIT, INT8)}
+    for row in rows[GEMMA]:    # the attention at head dim 256
+        row["name"] += " (head dim 256)"
     rows["train forward"] = path_rows(TRAIN, train_fwd)
     rows["train-zamba forward"] = path_rows(TRAIN_ZAMBA, train_zamba_fwd)
     rows["train-zamba matmul backward"] = path_rows(TRAIN_ZAMBA, zamba_mm_bwd)
@@ -4632,6 +5307,7 @@ def main(argv=None) -> int:
                               for r in [*gpt_fwd, *gpt_bwd]}},
         indent=1))
     for what, path in (("llama3-8b step pair", "llama3-8b"),
+                       ("gemma2-2b step pair", GEMMA),
                        ("train step, forward", "train forward"),
                        ("train-zamba step, forward", "train-zamba forward"),
                        ("train-zamba step, backward",
@@ -4646,8 +5322,8 @@ def main(argv=None) -> int:
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                 f"library_ms={row['library_ms']}")
-    kernels = (rows[MAIN] + rows[TRAIN] + rows[TRAIN_ZAMBA] + rows[TRAIN_GPT]
-               + rows[SPLIT] + rows[INT8])
+    kernels = (rows[MAIN] + rows[GEMMA] + rows[TRAIN] + rows[TRAIN_ZAMBA]
+               + rows[TRAIN_GPT] + rows[SPLIT] + rows[INT8])
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -107,6 +107,13 @@ def _pieces(cfg: ModelConfig, ctx, params: dict):
             yield f"shared_attn/{name}", sa[name], L.col_w_spec(ctx), 0
         yield from _dense_block_pieces(cfg, ctx, "shared_attn/block",
                                        sa["block"], 0)
+    if "mtp" in params:
+        mp = params["mtp"]
+        for name in ("proj_h", "proj_e"):
+            yield f"mtp/{name}", mp[name], L.col_w_spec(ctx), 0
+        yield from _dense_block_pieces(cfg, ctx, "mtp/block", mp["block"], 0)
+        for k, v in mp["norm"].items():
+            yield f"mtp/norm/{k}", v, L.feat_spec(ctx), 0
 
 
 def params_to_numpy(cfg: ModelConfig, params_per_rank: list,

@@ -38,6 +38,11 @@
 //     the row tile to arrive (an int counter, reset by that block) merges
 //     the splits in split order.  A split that sees no key has lse = -inf
 //     and weight 0; a row all of whose splits see no key gives zeros.
+// At d = 256 (gemma2-2b) a warp's O accumulator is 128 fp32 a thread and
+// the smem 169 KB (Q and two K/V buffers of 64 rows of 264): Q's fragments
+// are read from shared memory at each 16-wide k step, never held, and the
+// merge of the splits sums at most 16 float4 a thread at a time (32 would
+// take 128 registers more).
 // For training, the wrapper also passes an fp32 [b, hq, sq] buffer for each
 // row's log-sum-exp of its scaled (and softcapped) scores, which the
 // backward (flash_attention_bwd.cu) reads to recompute the probabilities;
@@ -394,37 +399,42 @@ __global__ void __launch_bounds__(kThreads)
   // in flight together (a split with no key for any row is skipped)
   constexpr int kVec = kBR * D / 4;
   constexpr int kPer = (kVec + kThreads - 1) / kThreads;
+  constexpr int kChunk = kPer < 16 ? kPer : 16;  // float4 sums held at once
   const float* po = args.ws_o + (size_t)tile * splits * kBR * D;
-  float4 acc[kPer];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int z = 0; z < splits; ++z) {
-    if (!live[z]) continue;
+  for (int i0 = 0; i0 < kPer; i0 += kChunk) {
+    float4 acc[kChunk];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
+    for (int i = 0; i < kChunk; ++i)
+      acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int z = 0; z < splits; ++z) {
+      if (!live[z]) continue;
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        const int e = tid + (i0 + i) * kThreads;
+        const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+        if (e >= kVec || r0 + r >= rows) continue;
+        const float wz = w[z * kBR + r];
+        if (wz == 0.0f) continue;  // this row saw no key in split z
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(
+            po + ((size_t)z * kBR + r) * D + c));
+        acc[i].x += wz * v.x;
+        acc[i].y += wz * v.y;
+        acc[i].z += wz * v.z;
+        acc[i].w += wz * v.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const int e = tid + (i0 + i) * kThreads;
       const int r = e / (D / 4), c = (e % (D / 4)) * 4;
       if (e >= kVec || r0 + r >= rows) continue;
-      const float wz = w[z * kBR + r];
-      if (wz == 0.0f) continue;  // this row saw no key in split z
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(
-          po + ((size_t)z * kBR + r) * D + c));
-      acc[i].x += wz * v.x;
-      acc[i].y += wz * v.y;
-      acc[i].z += wz * v.z;
-      acc[i].w += wz * v.w;
+      const float inv = inv_den[r];
+      __nv_bfloat162* out =
+          reinterpret_cast<__nv_bfloat162*>(args.O + q_ptr(r0 + r) + c);
+      out[0] = __floats2bfloat162_rn(acc[i].x * inv, acc[i].y * inv);
+      out[1] = __floats2bfloat162_rn(acc[i].z * inv, acc[i].w * inv);
     }
-  }
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int e = tid + i * kThreads;
-    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
-    if (e >= kVec || r0 + r >= rows) continue;
-    const float inv = inv_den[r];
-    __nv_bfloat162* out =
-        reinterpret_cast<__nv_bfloat162*>(args.O + q_ptr(r0 + r) + c);
-    out[0] = __floats2bfloat162_rn(acc[i].x * inv, acc[i].y * inv);
-    out[1] = __floats2bfloat162_rn(acc[i].z * inv, acc[i].w * inv);
   }
 }
 
@@ -447,11 +457,11 @@ cudaError_t launch(const Args& args, int b, cudaStream_t stream) {
 
 // q/o [b, sq, hq, d], k/v [b, skv, hkv, d], all contiguous bf16 with
 // 16-byte-aligned bases; q_offset/kv_len [b] int32 on the device; lse null
-// or fp32 [b, hq, sq].  d is 64,
-// 112 or 128; hq % hkv == 0.  row_tiles, splits and tiles_per_split come from
-// ops.attention_plan; with splits > 1, ws_o holds tiles * splits * 64 * d
-// floats, ws_lse tiles * splits * 64 floats and counters tiles zeroed ints
-// (tiles = b * hkv * row_tiles).
+// or fp32 [b, hq, sq].  d is 64, 112, 128 or 256; hq % hkv == 0.
+// row_tiles, splits and tiles_per_split come from ops.attention_plan; with
+// splits > 1, ws_o holds tiles * splits * 64 * d floats, ws_lse tiles *
+// splits * 64 floats and counters tiles zeroed ints (tiles = b * hkv *
+// row_tiles).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse,
@@ -477,6 +487,7 @@ extern "C" int repro_flash_attention_bf16(
             softcap, 1.0f / sqrtf(static_cast<float>(d)), row_tiles, splits,
             tiles_per_split};
   auto st = static_cast<cudaStream_t>(stream);
+  if (d == 256) return launch<256>(args, b, st);
   if (d == 128) return launch<128>(args, b, st);
   if (d == 112) return launch<112>(args, b, st);
   if (d == 64) return launch<64>(args, b, st);

@@ -296,9 +296,14 @@ class AttentionPlan:
 
 #: the most splits the attention kernel merges
 MAX_KV_SPLITS = 32
+#: the head dims the serving kernel (variant 0) takes
+HEAD_DIMS = (64, 112, 128, 256)
 #: the head dims variant 1 takes (112 padded to 128 by its loads); 64
-#: (qwen1.5) stays on variant 0
+#: (qwen1.5) and 256 (gemma2) stay on variant 0
 TRAIN_HEAD_DIMS = (112, 128)
+#: the head dims the backward (``csrc/flash_attention_bwd.cu``) takes: 256
+#: is ROADMAP §B row 2 (gemma2-2b's training on the card)
+BWD_HEAD_DIMS = (64, 112, 128)
 
 
 def attention_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
@@ -786,9 +791,9 @@ def _flash_inputs(q, k, v, q_offset, kv_len):
     if k.shape != (b, skv, hkv, d) or v.shape != k.shape or hq % hkv:
         raise ValueError(f"attention shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in (64, 112, 128):
-        raise ValueError(f"the CUDA flash attention takes head dim 64, 112 "
-                         f"or 128, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flash attention takes head dim 64, 112, "
+                         f"128 or 256, got {d}")
     if {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
         raise TypeError("the CUDA flash attention takes bf16 q/k/v")
     # the kernel copies 16-byte chunks: contiguous, 16-byte-aligned bases
@@ -885,6 +890,9 @@ def attention_backward_with(entry, q, k, v, o, do, lse, q_offset, kv_len, *,
     q, k, v, qo, kl = _flash_inputs(q, k, v, q_offset, kv_len)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the CUDA attention backward takes head dim 64, "
+                         f"112 or 128, got {d} (ROADMAP §B row 2)")
     if o.shape != q.shape or do.shape != q.shape or {o.dtype, do.dtype} != {
             torch.bfloat16}:
         raise ValueError(f"o and do must be bf16 {tuple(q.shape)}")

@@ -15,7 +15,16 @@ the paged step's prefill chunk and decode tick, the wave's prefill and
 decode tick).
 A model with recurrent segments (zamba2-7b) is served in recurrent mode:
 per-slot state pools beside the page pools, prompt tails fed one token at
-a time.  A mesh of more than one rank runs one process per rank under
+a time.  Three opt-in modes of the paged server: ``--prefix-cache``
+(copy-on-write sharing of prompt pages), ``--page-dtype int8`` or ``fp8``
+(1-byte page pools with per-position fp16 scales) and ``--speculate``
+(MTP self-speculative decode, for a model with an MTP head; on one
+without, or on a recurrent model, it is switched off and logged):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --reduced --device cpu --page-dtype int8 --prefix-cache
+
+A mesh of more than one rank runs one process per rank under
 ``torch.distributed.run`` (which sets the rendezvous environment), e.g.
 ``python -m torch.distributed.run --nproc-per-node 4 -m
 repro_torch.launch.serve --d1 2 --d2 2``.
@@ -168,8 +177,11 @@ def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
     With a plan the server is built on ``plan.decode_view()``: serving is
     decode-dominated, and prefill and decode share one set of sharded
     params and caches, so a decode sub-plan's (d1, d2) wins; the decode
-    sub-plan's ``speculate`` and ``prefix_cache`` join the ServerConfig's
-    (and are refused as below).  ``params`` is the GLOBAL tree
+    sub-plan's ``speculate`` and ``prefix_cache`` join the ServerConfig's.
+    The modes resolve as the reference's do: a recurrent model gets the
+    slot-addressed step; ``speculate`` without an MTP head or on a
+    recurrent model, and ``prefix_cache`` on a recurrent model, are
+    switched off with a log line.  ``params`` is the GLOBAL tree
     (``lm.init_params`` or ``convert.params_from_jax`` with the trivial
     topology); this rank's shard is cut from it here, consuming the tree
     (``sharded``: ``params`` is the shard already, as a
@@ -187,19 +199,14 @@ def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
                 scfg, speculate=scfg.speculate or view.decode.speculate,
                 prefix_cache=scfg.prefix_cache or view.decode.prefix_cache)
     recurrent = lm.is_recurrent(cfg)
-    if recurrent:
-        # the JAX server's resolution: neither mode applies to a recurrent
-        # state (no KV length to roll a draft back, no pages to share)
-        if scfg.speculate:
-            log.info("speculative decode off: recurrent state")
-        if scfg.prefix_cache:
-            log.info("prefix cache off: recurrent state is not "
-                     "page-addressable")
-        scfg = dataclasses.replace(scfg, speculate=False, prefix_cache=False)
-    elif scfg.speculate or scfg.prefix_cache:
-        raise NotImplementedError(
-            "the port serves the plain and recurrent paged modes: prefix "
-            "caching and MTP speculation are ROADMAP A9")
+    if scfg.speculate and (not cfg.mtp or recurrent):
+        # no KV length to roll a recurrent state's rejected draft back to
+        log.info("speculative decode off: %s",
+                 "no MTP head" if not cfg.mtp else "recurrent state")
+        scfg = dataclasses.replace(scfg, speculate=False)
+    if scfg.prefix_cache and recurrent:
+        log.info("prefix cache off: recurrent state is not page-addressable")
+        scfg = dataclasses.replace(scfg, prefix_cache=False)
     scfg = dataclasses.replace(scfg, recurrent=recurrent)
     topo = topo if topo is not None else atp_topo(1, 1, 1)
     step_fn, init_caches, info = _build_paged_step_fn(cfg, scfg, params,
@@ -212,7 +219,8 @@ def make_paged_server(cfg, scfg: ServerConfig, params, topo=None,
 class ServeStep:
     """The paged step in the Server's host-side calling convention:
     ``(tokens, start, table[, slot], caches)`` with numpy inputs (the slot
-    ids in the recurrent mode only) -> (numpy greedy tokens, caches).  It
+    ids in the recurrent mode only) -> (numpy greedy tokens[, numpy drafts
+    in the speculative mode], caches).  It
     runs the captured step (``build_paged_step``), or with ``captured``
     off the uncaptured body (``info.plain``), the same computation issued
     op by op.  Either way a live slot id that appears twice is refused on
@@ -229,10 +237,10 @@ class ServeStep:
         if self.step.slots is not None:
             check_slot_ids(inputs[3], self.step.slots)
         dev = self.info.device
-        toks, caches = self.info.plain(
+        *outs, caches = self.info.plain(
             self.params, *(torch.as_tensor(np.asarray(a), device=dev)
                            for a in inputs), caches)
-        return toks.cpu().numpy(), caches
+        return (*(o.cpu().numpy() for o in outs), caches)
 
     def uncaptured(self) -> "ServeStep":
         return dataclasses.replace(self, captured=False)
@@ -244,7 +252,7 @@ def _build_paged_step_fn(cfg, scfg: ServerConfig, params, topo, device,
     and the caches' maker."""
     slots = scfg.batch_slots if scfg.recurrent else None
     step, info = build_paged_step(cfg, topo, device=device, slots=slots,
-                                  plan=plan)
+                                  plan=plan, speculate=scfg.speculate)
     dev = info.device
     if not sharded:
         params = lm.shard_params(cfg, params, info.ctx)
@@ -279,16 +287,20 @@ def wave_prompts(cfg, requests: int, prompt_len: int, seed: int):
 
 def paged_server_config(prompt_lens, *, slots: int, prefill_chunk: int,
                         page_size: int, max_seq: int, max_new: int,
-                        num_pages: int = 0) -> ServerConfig:
-    """The server geometry for a workload.  The pool holds every request's
-    prompt plus its new tokens, plus the garbage page, unless
+                        num_pages: int = 0, page_dtype: str = "bf16",
+                        prefix_cache: bool = False,
+                        speculate: bool = False) -> ServerConfig:
+    """The server geometry and modes for a workload.  The pool holds every
+    request's prompt plus its new tokens, plus the garbage page, unless
     ``num_pages`` is given."""
     num_pages = num_pages or 1 + sum(-(-(n + max_new) // page_size)
                                      for n in prompt_lens)
     return ServerConfig(
         batch_slots=slots, prefill_chunk=prefill_chunk,
         paged=PagedConfig(page_size=page_size, num_pages=num_pages,
-                          pages_per_slot=-(-max_seq // page_size)))
+                          pages_per_slot=-(-max_seq // page_size),
+                          page_dtype=page_dtype),
+        prefix_cache=prefix_cache, speculate=speculate)
 
 
 def main(argv=None):
@@ -309,6 +321,16 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0,
                     help="page-pool size (0 = sized to the workload)")
+    ap.add_argument("--page-dtype", choices=("bf16", "int8", "fp8"),
+                    default="bf16",
+                    help="KV page-pool storage dtype (int8/fp8 store 1 "
+                         "byte/elem + fp16 per-position scales)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="copy-on-write prefix sharing across requests "
+                         "(radix index over page contents)")
+    ap.add_argument("--speculate", action="store_true",
+                    help="MTP self-speculative decode (needs an MTP head; "
+                         "exact greedy parity)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plan", default=None,
                     help="load a saved ParallelPlan JSON (train --save-plan)")
@@ -355,7 +377,9 @@ def main(argv=None):
     scfg = paged_server_config(
         [len(p) for p in prompts], slots=args.slots,
         prefill_chunk=args.prefill_chunk, page_size=args.page_size,
-        max_seq=args.max_seq, max_new=args.max_new, num_pages=args.num_pages)
+        max_seq=args.max_seq, max_new=args.max_new, num_pages=args.num_pages,
+        page_dtype=args.page_dtype, prefix_cache=args.prefix_cache,
+        speculate=args.speculate)
     server, _ = make_paged_server(cfg, scfg, params, topo=topo, device=device,
                                   plan=plan)
     for rid, p in enumerate(prompts):
@@ -366,8 +390,12 @@ def main(argv=None):
     for req in sorted(server.completed, key=lambda r: r.rid):
         log.info("request %d (%d prompt tokens) -> %s", req.rid,
                  len(req.prompt), req.out)
-    log.info("served %d requests in %d ticks, %.2fs on %s", len(server.completed),
-             ticks, secs, device)
+    st = server.stats()
+    log.info("served %d requests in %d ticks, %.2fs on %s; pages_shared=%d "
+             "prefix_hit_rate=%.3f spec_accept_rate=%.3f used_cache_bytes=%d",
+             len(server.completed), ticks, secs, device, st["pages_shared"],
+             st["prefix_hit_rate"], st["spec_accept_rate"],
+             st["used_cache_bytes"])
 
 
 def _serve_waves(cfg, args, params, topo, device, plan) -> None:

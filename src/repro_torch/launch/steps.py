@@ -70,8 +70,8 @@ class StepInfo:
     device: torch.device
     #: the step uncaptured, on device tensors: the paged step's
     #: ``plain(params, tokens, start, table[, slot], caches) -> (greedy
-    #: tokens [b, s], caches)``, the decode step's ``plain(params, tokens,
-    #: pos, caches) -> (greedy tokens [b], caches)``
+    #: tokens [b, s][, drafts [b, s]], caches)``, the decode step's
+    #: ``plain(params, tokens, pos, caches) -> (greedy tokens [b], caches)``
     plain: Callable | None = None
     #: the decode step's caches: ``init_caches() -> lm.init_decode_caches``
     #: of its batch and ``s_max`` on its device
@@ -110,15 +110,16 @@ def check_slot_ids(slot, slots: int) -> None:
 class _Shape:
     """One input shape of a :class:`CapturedStep`: its fixed input buffers
     (``static``, on the step's device), the pinned host buffers they are
-    filled from (``host``; None on the CPU), the greedy tokens' buffer the
-    body writes (``out``) and its host copy, the graph (None on the CPU),
+    filled from (``host``; None on the CPU), the output buffers the body
+    writes (``out``: the greedy tokens, and the drafts of a speculative
+    step) and their host copies, the graph (None on the CPU),
     the kernel launches of one step (``ops.LAUNCHES``' delta over the
     capture, or over the warm-up on the CPU), the seconds of the warm-up
     and of the capture, and the bytes the capture added to the pool."""
     static: list
     host: list | None
-    out: torch.Tensor | None = None
-    host_out: torch.Tensor | None = None
+    out: tuple = ()
+    host_out: tuple = ()
     graph: torch.cuda.CUDAGraph | None = None
     launches: dict = dataclasses.field(default_factory=dict)
     warmup_s: float = 0.0
@@ -129,7 +130,8 @@ class _Shape:
 class CapturedStep:
     """:func:`build_paged_step`'s step: ``step(params, tokens [b, s], start
     [b], table [b, mp][, slot [b]], caches) -> (greedy tokens [b, s] as
-    numpy, caches)``, the inputs host arrays (numpy or CPU tensors); and
+    numpy, caches)``, or ``(tokens, drafts, caches)`` for the speculative
+    step, the inputs host arrays (numpy or CPU tensors); and
     :func:`build_decode_step`'s, ``step(params, tokens [b, s], pos,
     caches)``, the same machinery with its own warm-up inputs (``blank``)
     and the cache state a warm-up must give back (``guard``).
@@ -192,7 +194,7 @@ class CapturedStep:
         shape = self.shapes.get(key)
         if shape is None:
             shape = self.shapes[key] = self._capture(key, params, caches)
-        return self._run(shape, inputs, params, caches), caches
+        return (*self._run(shape, inputs, params, caches), caches)
 
     def _paged_blank(self, static) -> None:
         static[2].fill_(GARBAGE_PAGE)
@@ -236,7 +238,7 @@ class CapturedStep:
         try:
             with torch.cuda.graph(graph, pool=self._pool,
                                   stream=self._stream):
-                shape.out = self.body(params, *static, caches)[0]
+                shape.out = tuple(self.body(params, *static, caches)[:-1])
         finally:
             # the capture launched nothing: its counts go to each replay
             shape.launches = {k: ops.LAUNCHES[k] - v
@@ -247,29 +249,34 @@ class CapturedStep:
         shape.capture_s = time.perf_counter() - t0
         shape.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         shape.graph = graph
-        shape.host_out = torch.empty(tuple(shape.out.shape),
-                                     dtype=shape.out.dtype, pin_memory=True)
+        shape.host_out = tuple(torch.empty(tuple(o.shape), dtype=o.dtype,
+                                           pin_memory=True)
+                               for o in shape.out)
         self.captures += 1
         return shape
 
-    def _run(self, shape: _Shape, inputs, params, caches) -> np.ndarray:
+    def _run(self, shape: _Shape, inputs, params, caches) -> list:
+        """The body's outputs but the caches, as numpy."""
         if shape.graph is None:
             for buf, a in zip(shape.static, inputs):
                 buf.copy_(torch.from_numpy(a))
-            return self.body(params, *shape.static, caches)[0].numpy()
+            return [o.numpy() for o in
+                    self.body(params, *shape.static, caches)[:-1]]
         for buf, host, a in zip(shape.static, shape.host, inputs):
             np.copyto(host.numpy(), a, casting="same_kind")
             buf.copy_(host, non_blocking=True)
         shape.graph.replay()
         for k, v in shape.launches.items():
             ops.LAUNCHES[k] += v
-        shape.host_out.copy_(shape.out, non_blocking=True)
+        for host, out in zip(shape.host_out, shape.out):
+            host.copy_(out, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
-        return shape.host_out.numpy().copy()
+        return [host.numpy().copy() for host in shape.host_out]
 
 
 def build_paged_step(cfg: ModelConfig, topo: MeshTopo | None = None,
-                     device=None, slots: int | None = None, *, plan=None):
+                     device=None, slots: int | None = None, *, plan=None,
+                     speculate: bool = False):
     """The paged cache-write step (decode tick AND prefill chunk).
 
     Returns ``(step, info)``: ``step`` the :class:`CapturedStep` (``step(
@@ -284,16 +291,27 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo | None = None,
     more than one rank needs ``torch.distributed`` initialized with one
     process per rank.
 
-    Recurrent kinds (mamba/zamba) need ``slots`` (the scheduler's
-    ``batch_slots``, which sizes the state pools), and the step takes a
-    5th input before the caches: ``slot [b]``, the per-row slot ids, with
-    the sentinel ``slots`` for rows whose state must not change.  There is
-    no speculative variant: the port's server refuses speculation, and a
-    recurrent state could not roll a rejected draft back anyway."""
+    Two variants, as in the reference:
+      - recurrent kinds (mamba/zamba) need ``slots`` (the scheduler's
+        ``batch_slots``, which sizes the state pools), and the step takes a
+        5th input before the caches: ``slot [b]``, the per-row slot ids,
+        with the sentinel ``slots`` for rows whose state must not change;
+      - ``speculate=True`` (needs ``cfg.mtp``) returns ``(tokens, drafts,
+        caches)``: ``drafts [b, s]`` is the MTP head's greedy pick for the
+        position after each trunk pick, the draft the server verifies at
+        the next tick (whose shape is (slots, 2)).  A recurrent model is
+        refused: its state has no position to roll a rejected draft back
+        to."""
     needs_slot = lm.is_recurrent(cfg)
     if needs_slot and slots is None:
         raise ValueError("recurrent kinds (mamba/zamba) need "
                          "build_paged_step(..., slots=<scheduler batch_slots>)")
+    if speculate and not cfg.mtp:
+        raise ValueError("speculate=True needs an MTP head (cfg.mtp)")
+    if speculate and needs_slot:
+        raise NotImplementedError(
+            "self-speculative decode rolls rejected drafts back by KV "
+            "length; recurrent state has no position axis to roll back")
     device = resolve_device(device)
     ctx = resolve_ctx(topo, plan, decode=True, device_type=device.type)
 
@@ -303,6 +321,15 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo | None = None,
             logits, caches = lm.paged_step(ctx, cfg, params, tokens, start,
                                            table, caches, slot=slot)
             return _greedy_pick(ctx, cfg, logits), caches
+    elif speculate:
+        @torch.no_grad()
+        def step(params, tokens, start, table, caches):
+            logits, h, caches = lm.paged_step(ctx, cfg, params, tokens, start,
+                                              table, caches, with_hidden=True)
+            toks = _greedy_pick(ctx, cfg, logits)
+            dl = lm.mtp_draft_logits(ctx, cfg, params, h,
+                                     lm.step_positions(tokens, start), toks)
+            return toks, _greedy_pick(ctx, cfg, dl), caches
     else:
         @torch.no_grad()
         def step(params, tokens, start, table, caches):

@@ -2,7 +2,9 @@
 (counterpart of ``repro.models.lm``): paged serving, the wave baseline over
 contiguous decode caches (``init_decode_caches``, ``decode_step``) and the
 training loss (``forward`` with no caches, ``vocab_parallel_ce``,
-``train_loss``) of the dense, zamba and mamba segment kinds.
+``train_loss``) of the dense, zamba and mamba segment kinds, and the MTP
+head of a dense model as the speculative server's draft proposer
+(``mtp_draft_logits``).
 
 Parameters come in two forms.  ``init_params`` makes the GLOBAL tree with
 the JAX package's keys (``seg0/attn/wq`` ... stacked ``[count, ...]``; a
@@ -67,8 +69,6 @@ def _check_kinds(cfg: ModelConfig):
     for seg in segments(cfg):
         if seg.kind not in KINDS:
             raise NotImplementedError(_A10.format(seg.kind))
-    if cfg.mtp:
-        raise NotImplementedError("the MTP head is ROADMAP A9 (speculation)")
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
@@ -127,6 +127,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
             "w_in_h": transformer._normal(gen, (h, h), s, dtype, device),
             "w_in_e": transformer._normal(gen, (h, h), s, dtype, device),
             "block": dense()}
+    if cfg.mtp:
+        # the MTP head: two [h, h] projections of (h, emb(next)), a dense
+        # block and its norm
+        s = 1.0 / math.sqrt(2 * h)
+        p["mtp"] = {
+            "proj_h": transformer._normal(gen, (h, h), s, dtype, device),
+            "proj_e": transformer._normal(gen, (h, h), s, dtype, device),
+            "block": dense(),
+            "norm": {k: v.to(device) for k, v in L.norm_params(cfg, h).items()}}
     return p
 
 
@@ -184,6 +193,16 @@ def shard_params(cfg: ModelConfig, params: dict, ctx: ATPContext) -> dict:
             "w_in_e": L.cut(ctx, sa.pop("w_in_e"), col),
             "block": transformer.shard_dense_block(ctx, cfg, sa.pop("block"),
                                                    lead=0)}
+    if "mtp" in params:
+        mp = params.pop("mtp")
+        col = L.col_w_spec(ctx)
+        out["mtp"] = {
+            "proj_h": L.cut(ctx, mp.pop("proj_h"), col),
+            "proj_e": L.cut(ctx, mp.pop("proj_e"), col),
+            "block": transformer.shard_dense_block(ctx, cfg, mp.pop("block"),
+                                                   lead=0),
+            "norm": {k: L.cut(ctx, v, nspec)
+                     for k, v in mp.pop("norm").items()}}
     return out
 
 
@@ -214,14 +233,12 @@ def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
     slots, k-1, 2 ds]`` in ``dtype`` and ``ssd [.., slots, nh/n, hd, ds]``
     in fp32; a zamba segment nests them as ``{"attn": ..., "mamba": ...}``
     with the Mamba2 pools stacked ``[count, inner-1, ...]``.  ``dtype``
-    defaults to the model's.  bf16 page pools only: the int8/fp8 pools are
-    ROADMAP A9."""
+    defaults to the model's.  A quantized ``pcfg`` (int8/fp8) stores the
+    k/v pools in 1-byte elements and adds ``k_scale``/``v_scale`` fp16
+    pools ``[count, np, pg, kv_count]`` beside them (the zamba shared
+    block's pools too)."""
     _check_kinds(cfg)
     device = resolve_device(device)
-    if pcfg.page_dtype != "bf16":
-        raise NotImplementedError(
-            f"page_dtype={pcfg.page_dtype!r}: quantized page pools are "
-            f"ROADMAP A9")
     if slots is None and is_recurrent(cfg):
         raise ValueError(
             "paged serving of recurrent kinds (mamba/zamba) needs "
@@ -232,9 +249,16 @@ def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
+    store = paging.page_store_dtype(pcfg.page_dtype) or dtype
+
     def attn_pool(count):
         shape = (count, pcfg.num_pages, pcfg.page_size, plan.kv_count, cfg.hd)
-        return {"k": zeros(shape), "v": zeros(shape)}
+        c = {"k": zeros(shape, store), "v": zeros(shape, store)}
+        if pcfg.quantized:
+            # parallel scale pools: the same paging, the feature dim dropped
+            c["k_scale"] = zeros(shape[:-1], torch.float16)
+            c["v_scale"] = zeros(shape[:-1], torch.float16)
+        return c
 
     def mamba_state(lead):
         d_inner, nheads = mamba2.mamba_dims(cfg)
@@ -515,7 +539,7 @@ def _mamba(ctx, cfg, p, x, pool, sm: SlotMap):
 
 def check_trainable(cfg: ModelConfig):
     """Raise for what the training path does not take yet (every kind the
-    port serves trains)."""
+    port serves trains; ``train_loss`` refuses the MTP head's loss)."""
     _check_kinds(cfg)
 
 
@@ -682,7 +706,11 @@ def train_loss(ctx: ATPContext, cfg: ModelConfig, params, batch,
     count in the denominator, as in the JAX package), the same on every
     rank: the sum goes through the dp boundary, so each rank's backward
     gives its own tokens' share of the gradient, which the optimizer sums
-    over dp."""
+    over dp.  A config with an MTP head raises: its loss term is not
+    ported."""
+    if cfg.mtp:
+        raise NotImplementedError("the MTP loss term is ROADMAP A9 (MTP "
+                                  "training)")
     tokens = batch["tokens"]
     h = forward(ctx, cfg, params, tokens, _positions(tokens), remat=remat)
     with region("shell:head"):
@@ -775,7 +803,7 @@ def fused_pieces(cfg: ModelConfig, ctx: ATPContext, params) -> dict:
 
 
 def paged_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, start,
-               table, caches, slot=None):
+               table, caches, slot=None, with_hidden: bool = False):
     """One paged cache-write step — decode tick AND prefill chunk.
 
     tokens [b, s] (decode: b=slots, s=1; prefill chunk: b=1, s=chunk);
@@ -784,13 +812,48 @@ def paged_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, start,
     per-row slot ids (required for recurrent kinds; a masked row carries
     the sentinel id = the pools' slot count, and its state write drops).
 
-    Returns (logits [b, s, V/d1] for every input position, caches)."""
-    b, s = tokens.shape
-    positions = start[:, None].long() + torch.arange(s, device=tokens.device)[None, :]
+    Returns (logits [b, s, V/d1] for every input position, caches);
+    ``with_hidden`` adds the final-norm hidden [b, s, h/d2] in the middle
+    (speculative decode feeds it to :func:`mtp_draft_logits`)."""
+    positions = step_positions(tokens, start)
     paged = {"table": table, "start": start}
     if slot is not None:
         paged["slot"] = slot
     h = forward(ctx, cfg, params, tokens, positions, caches, paged)
     with region("shell:head"):
-        return lm_logits(ctx, cfg, params, h), caches
+        logits = lm_logits(ctx, cfg, params, h)
+    if with_hidden:
+        return logits, h, caches
+    return logits, caches
+
+
+def step_positions(tokens, start):
+    """``start[b] + 0 .. s-1``: the positions of a step's [b, s] tokens."""
+    s = tokens.shape[1]
+    return (start[:, None].long()
+            + torch.arange(s, device=tokens.device)[None, :])
+
+
+def mtp_draft_logits(ctx: ATPContext, cfg: ModelConfig, params, h, positions,
+                     next_tokens):
+    """The MTP head as a decode-time draft proposer (the reference's
+    ``mtp_draft_logits``): the trunk's final-norm hidden ``h [b, s, h/d2]``
+    and the greedy picks made from it, ``next_tokens [b, s]``, give draft
+    logits [b, s, V/d1] for the position after each pick.  Its block runs
+    under the context without sequence parallelism or segment plans and
+    attends only within the fed window (no cache): a weaker proposer, never
+    a wrong answer, since the trunk verifies every draft."""
+    with region("shell:mtp"):
+        mctx = dataclasses.replace(ctx, seq_parallel=False, segment_plans=())
+        mp = params["mtp"]
+        emb_next = embed_tokens(mctx, cfg, params["embed"], next_tokens)
+        u = atp_boundary(mctx, ops.matmul(h, mp["proj_h"])
+                         + ops.matmul(emb_next, mp["proj_e"]), mctx.ax2)
+        # back to the [.., h/d2] block I/O layout
+        u = shard_slice(_gather_ax1(mctx, u), mctx.index2(), mctx.d2, dim=-1)
+        plan = L.make_attn_plan(mctx, cfg.num_heads, cfg.num_kv_heads)
+        u = transformer.dense_block(mctx, cfg, mp["block"], u, positions,
+                                    plan, 0)
+        u = L.norm(mctx, cfg, u, mp["norm"])
+        return lm_logits(mctx, cfg, params, u)
 

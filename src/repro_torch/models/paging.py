@@ -11,7 +11,10 @@ scales with live tokens, not ``slots x s_max``.
     the JAX package with its copy-on-write radix prefix index;
   - :func:`gather_pages` / :func:`append_tokens` are the device-side
     accessors in torch: attention reads a slot's mapped pages, and cache
-    writes scatter tokens through the table.
+    writes scatter tokens through the table;
+  - :func:`append_tokens_q` / :func:`gather_pages_q` are their quantized
+    forms: an int8 or fp8 pool beside an fp16 pool of per-position scales,
+    riding the same tables, dequantized to the model dtype as it is read.
 
 Physical page 0 is reserved as the *garbage page*: unmapped table entries
 point at it, so inactive slots and padded chunk tails scatter there
@@ -32,6 +35,9 @@ GARBAGE_PAGE = 0
 #: per-position scale
 PAGE_DTYPES = ("bf16", "int8", "fp8")
 
+_INT8_QMAX = 127.0
+_FP8_QMAX = 448.0  # float8_e4m3fn finite max
+
 
 @dataclasses.dataclass(frozen=True)
 class PagedConfig:
@@ -45,8 +51,8 @@ class PagedConfig:
     entries cost nothing).
 
     ``page_dtype`` picks the pool storage format: "bf16" stores the model
-    dtype verbatim.  The port's pools take only "bf16": the int8/fp8 pools
-    with per-position scales are ROADMAP A9 (``init_paged_caches`` raises).
+    dtype verbatim; "int8"/"fp8" store 1 byte per element plus an fp16
+    scale per (position, kv head) in a parallel pool (``quantized``).
     """
 
     page_size: int = 8
@@ -62,9 +68,18 @@ class PagedConfig:
                              f"got {self.page_dtype!r}")
 
     @property
+    def quantized(self) -> bool:
+        return self.page_dtype != "bf16"
+
+    @property
     def max_seq(self) -> int:
         """Per-slot sequence ceiling (page-table width x page size)."""
         return self.pages_per_slot * self.page_size
+
+    @property
+    def capacity_tokens(self) -> int:
+        """Usable pool capacity (excludes the garbage page)."""
+        return (self.num_pages - 1) * self.page_size
 
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to hold ``n_tokens`` positions."""
@@ -325,7 +340,11 @@ def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     callers mask those positions by the slot's length, so the values never
     reach a softmax unmasked.
     """
-    g = pages[table.long()]                       # [B, mp, page, ...]
+    if pages.dtype == torch.float8_e4m3fn:
+        # fp8 gathers as its bytes, as append_tokens scatters it
+        g = pages.view(torch.uint8)[table.long()].view(pages.dtype)
+    else:
+        g = pages[table.long()]                   # [B, mp, page, ...]
     return g.reshape((table.shape[0], table.shape[1] * pages.shape[1])
                      + tuple(pages.shape[2:]))
 
@@ -356,5 +375,86 @@ def append_tokens(pages: torch.Tensor, table: torch.Tensor,
         logical < mp,
         torch.gather(table.long(), 1, logical.clamp(max=mp - 1)),
         torch.full_like(logical, GARBAGE_PAGE))
-    pages.index_put_((phys, pos % page), values.to(pages.dtype))
+    if pages.dtype == torch.float8_e4m3fn:
+        # fp8 scatters as its bytes: one byte-wide scatter on every device
+        pages.view(torch.uint8).index_put_(
+            (phys, pos % page), values.to(pages.dtype).view(torch.uint8))
+    else:
+        pages.index_put_((phys, pos % page), values.to(pages.dtype))
     return pages
+
+
+# ---------------------------------------------------------------------------
+# Quantized pools: int8/fp8 storage + fp16 per-position scales.
+# ---------------------------------------------------------------------------
+
+
+def page_store_dtype(page_dtype: str):
+    """The torch storage dtype of a quantized pool (None = model dtype)."""
+    if page_dtype == "int8":
+        return torch.int8
+    if page_dtype == "fp8":
+        return torch.float8_e4m3fn
+    if page_dtype == "bf16":
+        return None
+    raise ValueError(f"page_dtype must be one of {PAGE_DTYPES}, "
+                     f"got {page_dtype!r}")
+
+
+def pool_page_dtype(pages: torch.Tensor) -> str:
+    """The ``PAGE_DTYPES`` tag of a pool tensor's storage dtype: the step
+    sees only the cache tree, so the quantized path keys off the pool."""
+    if pages.dtype == torch.int8:
+        return "int8"
+    if pages.dtype == torch.float8_e4m3fn:
+        return "fp8"
+    return "bf16"
+
+
+def quantize_tokens(values: torch.Tensor, page_dtype: str):
+    """values [..., feat] -> (quantized [..., feat], fp16 scales [...]).
+
+    Symmetric per-position quantization in the reference's order: the
+    fp32 amax over the trailing feature dim, ``scale = max(amax / qmax,
+    1e-12)``, then ``values / scale`` in fp32, rounded half to even and
+    clipped to +-127 for int8, cast for fp8 (the amax element lands on 448
+    exactly; torch's cast saturates where jnp's would not, but no element
+    lies beyond the amax), and the scale stored as fp16.
+    """
+    vf = values.float()
+    amax = vf.abs().amax(-1)
+    fp8 = page_dtype == "fp8"
+    # a tensor divisor: on CUDA, torch divides by a Python scalar as a
+    # multiply by its reciprocal, an ulp from the reference's quotient
+    qmax = torch.full_like(amax, _FP8_QMAX if fp8 else _INT8_QMAX)
+    scale = torch.clamp_min(amax / qmax, 1e-12)
+    q = vf / scale[..., None]
+    if fp8:
+        q = q.to(torch.float8_e4m3fn)
+    else:
+        q = torch.round(q).clamp(-_INT8_QMAX, _INT8_QMAX).to(torch.int8)
+    return q, scale.to(torch.float16)
+
+
+def append_tokens_q(pages, scales, table, start, values, page_dtype: str):
+    """Quant-aware :func:`append_tokens`, in place: returns (pages,
+    scales).  ``scales is None`` means a full-width pool (plain append);
+    otherwise the values are quantized per position and both the value
+    pool and the parallel scale pool are scattered through the table."""
+    if scales is None:
+        return append_tokens(pages, table, start, values), None
+    q, s = quantize_tokens(values, page_dtype)
+    return (append_tokens(pages, table, start, q),
+            append_tokens(scales, table, start, s))
+
+
+def gather_pages_q(pages, scales, table, out_dtype=torch.bfloat16):
+    """Quant-aware :func:`gather_pages`: ``scales is None`` gathers
+    plainly; otherwise values and scales come through the same table and
+    ``values * scale`` (fp32) is returned in ``out_dtype`` (the attention
+    reads full-width K/V)."""
+    if scales is None:
+        return gather_pages(pages, table)
+    v = gather_pages(pages, table).float()
+    s = gather_pages(scales, table).float()
+    return (v * s[..., None]).to(out_dtype)

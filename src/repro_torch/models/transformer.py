@@ -135,15 +135,17 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
                paged: dict | None = None):
     """Attention.  x [b, s, h/d2]; positions [b, s] (training: ``0..s-1``
     in every row).  Paged: cache holds this layer's k/v pools [num_pages,
-    page, kv_count, hd], paged carries the page-table rows ``table [b, mp]``
-    and per-slot ``start [b]``, and the pools are written in place.
+    page, kv_count, hd] (int8/fp8 with ``k_scale``/``v_scale`` [num_pages,
+    page, kv_count] fp16 beside them for a quantized pool), paged carries
+    the page-table rows ``table [b, mp]`` and per-slot ``start [b]``, and
+    the pools are written in place.
     Contiguous (paged None): cache holds this layer's ``k``/``v`` [b,
     s_max, kv_count, hd] and ``len``, a 0-d int32 device tensor; this run's
     k/v land at rows ``len ..`` in place, the attention runs over the
     cache at q_offset ``len`` and kv_len ``len + s``, and ``len`` grows by s
     in place (no host sync: the step can be captured).  With no cache
-    (training) the attention runs over the current sequence and writes
-    nothing; where the plan leaves r ranks per head block, each takes 1/r
+    (training, and the MTP draft block) the attention runs causally over
+    the current sequence and writes nothing; where the plan leaves r ranks per head block, each takes 1/r
     of the query rows.  Returns the block output [b, s, h/d2]."""
     # f1: fused q/k/v projection, one boundary over ax2; the bias follows
     # the boundary (fused into the GEMM's epilogue when ax2 is size 1)
@@ -171,8 +173,11 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
+        # the window's own positions: row i sees keys 0 .. i of it (the
+        # MTP draft block feeds a window that starts past position 0)
         b, s = x.shape[:2]
-        o = L.attention_core(cfg, q, k, v, q_offset=q_pos[:, 0].int(),
+        o = L.attention_core(cfg, q, k, v,
+                             q_offset=(q_pos[:, 0] - positions[:, 0]).int(),
                              kv_len=torch.full((b,), s, dtype=torch.int32,
                                                device=x.device),
                              window=layer_window)
@@ -183,13 +188,20 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
         o = _contiguous_attention(cfg, cache, q, k, v, layer_window)
         o = L.core_output_gather(ctx, cfg, o, plan)
         return atp_linear(ctx, o, p["wo"], kind="row")
-    # scatter this run's k/v through the slot page tables, then attend over
-    # each slot's mapped pages (garbage-page reads are masked by start + s)
+    # scatter this run's k/v through the slot page tables (quantized per
+    # position into an int8/fp8 pool and its scale pool), then attend over
+    # each slot's mapped pages, dequantized to the model dtype
+    # (garbage-page reads are masked by start + s)
     table, start = paged["table"], paged["start"]
-    paging.append_tokens(cache["k"], table, start, k)
-    paging.append_tokens(cache["v"], table, start, v)
-    kk = paging.gather_pages(cache["k"], table)
-    vv = paging.gather_pages(cache["v"], table)
+    pd = paging.pool_page_dtype(cache["k"])
+    paging.append_tokens_q(cache["k"], cache.get("k_scale"), table, start, k,
+                           pd)
+    paging.append_tokens_q(cache["v"], cache.get("v_scale"), table, start, v,
+                           pd)
+    kk = paging.gather_pages_q(cache["k"], cache.get("k_scale"), table,
+                               out_dtype=k.dtype)
+    vv = paging.gather_pages_q(cache["v"], cache.get("v_scale"), table,
+                               out_dtype=v.dtype)
     o = L.attention_core(cfg, q, kk, vv, q_offset=start,
                          kv_len=start + q.shape[1], window=layer_window)
     o = L.core_output_gather(ctx, cfg, o, plan)

@@ -21,11 +21,25 @@ block-paged KV caches (``models.paging`` / ``lm.init_paged_caches``):
     decode append, the request waits (admission) while live slots keep
     decoding into their already-mapped pages.
 
-The scheduler keeps the JAX package's three opt-in modes
-(``prefix_cache``, ``recurrent``, ``speculate``) unchanged as host logic.
-The port's server (``launch.serve.make_paged_server``) runs the plain and
-the recurrent modes (the latter for models with mamba/zamba segments) and
-refuses the others: prefix caching and the MTP draft head are ROADMAP A9.
+The scheduler keeps the JAX package's three opt-in modes unchanged as
+host logic, and the port's server (``launch.serve.make_paged_server``)
+runs each of them:
+
+  - ``prefix_cache`` -- copy-on-write prefix sharing: admission matches a
+    new prompt's longest page-aligned prefix against the allocator's
+    radix index, adopts those pages read-only and skips their prefill
+    chunks; completed prompts register their full pages for future hits.
+  - ``recurrent`` -- mamba/zamba residency: the step takes a per-row
+    slot-id array addressing per-slot state pools, and prompt tails feed
+    one token at a time through the decode-shaped step.
+  - ``speculate`` -- MTP self-speculative decode: each tick feeds
+    [previous, draft] (s=2); the trunk's pick at position 0 verifies the
+    draft.  Accept keeps both tokens; reject keeps only the verified one,
+    and the stale draft KV at ``length+1`` is overwritten by the next
+    tick's append before any gather reads it.  Exact greedy parity.
+
+The page pools may be int8 or fp8 (``PagedConfig.page_dtype``), which the
+scheduler sees only through ``cache_bytes``.
 
 One step function serves both shapes (prefill chunk b=1, decode tick
 b=slots), so mixed prompt lengths share it.

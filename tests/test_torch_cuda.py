@@ -1379,3 +1379,116 @@ def test_captured_wave_gives_the_uncaptured_tokens(cuda, arch):
         assert g.shape == (3, 6)
         assert (g == w).all(), (g, w)
     assert not (got[0] == got[1]).all()
+
+
+# ---------------------------------------------------------------------------
+# The paged server's three modes on the card: the attention at head dim 256
+# (gemma2-2b), quantized page pools, and the speculative step.
+# ---------------------------------------------------------------------------
+
+HEAD_DIM_256 = {  # (b, sq, skv, hq, hkv, q_offset, kv_len, window, softcap)
+    # gemma2-2b's prefill chunk on a local layer, softcap 50
+    "prefill chunk, softcap": (1, 64, 272, 8, 4, [128], [192], 4096, 50.0),
+    # a 4-slot decode tick: split over the keys
+    "decode tick, splits": (4, 1, 272, 8, 4, [137, 64, 250, 9],
+                            [138, 65, 251, 10], 0, 50.0),
+    # a window that hides the early key tiles
+    "window 128": (2, 40, 272, 8, 4, [10, 200], [50, 240], 128, 0.0),
+    # a row that sees no key gives zeros
+    "kv_len 0": (2, 3, 272, 8, 4, [0, 5], [0, 8], 0, 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(HEAD_DIM_256))
+def test_flash_attention_head_dim_256_matches_plain(cuda, case):
+    b, sq, skv, hq, hkv, q_off, kv_len, window, softcap = HEAD_DIM_256[case]
+    q, k, v, qo, kl = _attention_inputs(cuda, b, sq, skv, hq, hkv, 256,
+                                        q_off, kv_len)
+    kw = dict(window=window, softcap=softcap)
+    before = ops.ATTENTION_VARIANT_LAUNCHES[0]
+    got = ops.flash_attention(q, k, v, qo, kl, **kw)
+    assert ops.ATTENTION_VARIANT_LAUNCHES[0] == before + 1
+    _close(got, ref.attention_ref(q, k, v, qo, kl, **kw), **FA_TOL)
+    assert torch.equal(ops.flash_attention(q, k, v, qo, kl, **kw), got)
+    if 0 in kv_len:
+        assert not got[kv_len.index(0)].any()
+
+
+@pytest.mark.cuda
+def test_attention_backward_refuses_head_dim_256(cuda):
+    q, k, v, qo, kl = _attention_inputs(cuda, 1, 4, 4, 2, 2, 256, [0], [4])
+    lse = torch.zeros(1, 2, 4, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention_backward(q, k, v, q, q, lse, qo, kl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_dtype", ["int8", "fp8"])
+def test_quantized_pages_on_the_card_are_the_cpus(cuda, page_dtype):
+    """``append_tokens_q`` then ``gather_pages_q`` on CUDA tensors give the
+    pools and the dequantized reads of the same calls on the CPU, bit for
+    bit (the fp8 pool scatters and gathers through its bytes)."""
+    from repro_torch.models import paging
+
+    gen = torch.Generator().manual_seed(2)
+    vals = (torch.randn(2, 7, 4, 128, generator=gen)
+            * torch.rand(2, 7, 4, 1, generator=gen) * 20).bfloat16()
+    table = torch.tensor([[3, 1, 6, 0], [2, 5, 4, 0]], dtype=torch.int32)
+    start = torch.tensor([1, 5], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        pages = torch.zeros(8, 4, 4, 128,
+                            dtype=paging.page_store_dtype(page_dtype),
+                            device=dev)
+        scales = torch.zeros(8, 4, 4, dtype=torch.float16, device=dev)
+        paging.append_tokens_q(pages, scales, table.to(dev), start.to(dev),
+                               vals.to(dev), page_dtype)
+        read = paging.gather_pages_q(pages, scales, table.to(dev))
+        out[str(dev)] = [t.cpu() for t in (pages, scales, read)]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        if got.dtype == torch.float8_e4m3fn:
+            got, want = got.view(torch.uint8), want.view(torch.uint8)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_captured_speculative_step_gives_the_uncaptured_tokens(cuda):
+    """llama3-8b at 2 layers with a random MTP head, served speculatively
+    through the captured step (two graphs: the prefill chunk (1, 64) and
+    the tick (slots, 2)) and through the uncaptured body: identical greedy
+    tokens; and one step's tokens and drafts from the graph equal the
+    body's on the same inputs and caches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2,
+                              mtp=True)
+    prompts = serve.sample_prompts(cfg, 3, 128, 4)
+    scfg = serve.paged_server_config(
+        [len(p) for p in prompts], slots=2, prefill_chunk=64, page_size=16,
+        max_seq=160, max_new=6, speculate=True)
+    server, _ = serve.make_paged_server(
+        cfg, scfg, lm.init_params(cfg, seed=4, device=cuda), device=cuda)
+    assert server.cfg.speculate
+    got = _serve_all(server, prompts)
+    step = server.step_fn
+    assert step.step.captures == 2
+    assert sorted(k[0] for k in step.step.shapes) == [(1, 64), (2, 2)]
+    server.step_fn = step.uncaptured()
+    assert _serve_all(server, prompts, rid0=100) == got
+    # one tick: the graph's tokens and drafts against the body's, from the
+    # same caches
+    pcfg = scfg.paged
+    pages = np.arange(pcfg.pages_per_slot) % (pcfg.num_pages - 1) + 1
+    args = (np.array([[5, 9], [7, 3]], np.int32), np.array([16, 40], np.int32),
+            np.tile(pages.astype(np.int32), (2, 1)))
+    twin = lm.tree_map(lambda t: t.clone(), server.caches)
+    toks, drafts, _ = step(*args, server.caches)
+    want = step.uncaptured()(*args, twin)
+    assert np.array_equal(toks, want[0]) and np.array_equal(drafts, want[1])

@@ -68,8 +68,25 @@ def test_port_server_greedy_tokens_match_jax_server(arch):
 
 
 def test_server_refuses_modes_the_port_lacks():
-    cfg = port_config("llama3-8b").reduced()
-    for flag in ("prefix_cache", "speculate"):
-        scfg = PortServerConfig(**{flag: True})
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            port_serve.make_paged_server(cfg, scfg, {}, device="cpu")
+    """The modes the port once refused now resolve as the reference's do:
+    speculation without an MTP head is switched off (the plain tokens),
+    and prefix caching is served (the same tokens as without it)."""
+    cfg = get_config("llama3-8b").reduced()
+    np_params = jax.tree.map(np.asarray, jax_lm.init_params(
+        cfg, jax.random.PRNGKey(0), jnp.float32))
+    prompts = _prompts(cfg.vocab_size)
+    outs = {}
+    for flag in (None, "prefix_cache", "speculate"):
+        scfg = PortServerConfig(batch_slots=2, prefill_chunk=4,
+                                paged=PortPagedConfig(**GEOM),
+                                **({flag: True} if flag else {}))
+        server, _ = port_serve.make_paged_server(
+            port_config("llama3-8b").reduced(), scfg,
+            convert.tree_to_torch(np_params), device="cpu")
+        assert not server.cfg.speculate
+        assert server.cfg.prefix_cache == (flag == "prefix_cache")
+        for rid, p in enumerate(prompts):
+            server.submit(PortRequest(rid=rid, prompt=p, max_new=4))
+        server.run_until_drained()
+        outs[flag] = {r.rid: r.out for r in server.completed}
+    assert outs["prefix_cache"] == outs["speculate"] == outs[None]

@@ -565,7 +565,8 @@ def test_builders_carry_the_plans_knobs():
 def test_server_from_a_plan_serves_the_topologys_tokens():
     """``make_paged_server(plan=...)`` on a plan with a decode sub-plan
     gives the greedy tokens of the server built from the topology; a
-    decode sub-plan asking for speculation is refused (ROADMAP A9)."""
+    decode sub-plan asking for speculation on a model without an MTP head
+    has it switched off, as the reference does."""
     from repro_torch.runtime.server import Request
 
     plan = plan_search("h100-sxm-8", 1, model=LLAMA, batch=4, seq=24,
@@ -590,8 +591,10 @@ def test_server_from_a_plan_serves_the_topologys_tokens():
     assert from_plan == from_topo and len(from_plan) == 3
     assert dataclasses.replace(ctx_p, segment_plans=()) == ctx_t
     spec = plan.with_(decode=dataclasses.replace(plan.decode, speculate=True))
-    with pytest.raises(NotImplementedError, match="A9"):
-        serve.make_paged_server(LLAMA, scfg, {}, device="cpu", plan=spec)
+    server, _ = serve.make_paged_server(
+        LLAMA, scfg, lm.init_params(LLAMA, seed=3, device="cpu"),
+        device="cpu", plan=spec)
+    assert not LLAMA.mtp and not server.cfg.speculate
 
 
 def test_launchers_search_save_and_load_a_plan(tmp_path):
