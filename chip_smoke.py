@@ -333,6 +333,29 @@ Phases, in order, each failing the run on any error:
    empty, and ``launch.train.pick_plan`` for gpt-m4 at tp 8 with it gives
    the analytic search's plan (d1, d2, chunks, boundary mode and the
    predicted costs, printed both ways; model output, not measurements).
+18. train-gemma -- the attention at gemma2-2b's training shapes (b = 1, s
+   = 2048, 8 q / 4 kv heads of 256, softcap 50; also a window of 512,
+   which bites): the forward with its log-sum-exp on variant 0 and the
+   backward (``flash_attention_bwd.cu``'s blocks of two warpgroups)
+   against their plain versions, timed beside the bound, the plain
+   version, SDPA without the softcap and a compiled ``flex_attention``
+   with it; then ``build_train_step`` on gemma2-2b at all 26 layers as
+   phase 8 (the loss must fall, launches counted, a profiled step), and
+   its 2-layer path check with the attention backward held on one
+   forward and a planted fault (dK zeroed) that must break it.
+19. serve-dbrx -- dbrx-132b (the MoE kind) at its published widths, depth
+   cut to 4 of 40 layers: the matmul at each of its shapes (the experts'
+   up|gate and down at their slots' rows) and the attention at its 48 q /
+   8 kv heads (a group of 6) against their plain versions, timed; then
+   served as phase 2 (4 requests, captured tokens equal to uncaptured
+   ones, two timed pairs); then its 2-layer path check: the CPU's fp32
+   path routed by the card's expert ids (a flipped choice is another
+   function), within ``PATH_TOL``, the routes its own top-k would flip
+   counted, and a planted fault (each expert's down projection reading
+   its neighbour's weights) that must break the limit.
+Phase 8 (train) also trains llama3-8b with an MTP head (its loss term),
+then holds its gradients, the head's with them, against the fp32 CPU
+path at 2 layers.
 
 Prints the card's name and power limit, the kernels' build time and each
 kernel's registers and spills from the build report, one JSON
@@ -344,7 +367,9 @@ two Mamba2 backward kernels at the zamba
 training step's, the activation's derivative at the gpt-m2 training
 step's, the four split rmsnorm kernels at the split-norm phase's launches
 and a launch's time at llama3-8b's training rows at d2 = 2, the int8
-matmul at the int8-matmul phase's twelve projections; the llama3-8b serving rows and the training steps' other rows go
+matmul at the int8-matmul phase's twelve projections, the attention
+forward and backward at head dim 256 at the train-gemma step's, the
+matmul and the attention at the serve-dbrx path's; the llama3-8b serving rows and the training steps' other rows go
 to the log and, with every check, to
 ``kernel_checks.json`` in the output directory) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -377,7 +402,8 @@ PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
           "split-norm", "int8-matmul", "quant-wire", "train",
           "path-check-train", "train-zamba-kernels", "train-zamba",
           "path-check-train-zamba", "train-gpt-kernels", "train-gpt",
-          "path-check-train-gpt", "plan", "calibrate")
+          "path-check-train-gpt", "train-gemma", "serve-dbrx", "plan",
+          "calibrate")
 #: the serving path whose forward rows the result line reports
 MAIN = "zamba2-7b"
 #: gemma2-2b's serving path: the attention's row at head dim 256, half of
@@ -394,6 +420,11 @@ TRAIN_GPT = "train-gpt"
 SPLIT = "split-norm"
 #: the int8 matmul's checked run: the quantized llama3-8b projections
 INT8 = "int8-matmul"
+#: gemma2-2b's training path: the attention's rows at head dim 256
+GEMMA_TRAIN = "train-gemma"
+#: dbrx-132b's serving path: the matmul at its expert shapes, the attention
+#: at its group of 6
+DBRX = "dbrx-132b"
 
 BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_TFLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
@@ -995,7 +1026,9 @@ def launches_per_step(cfg, speculate: bool = False) -> dict:
     matmul 105, flash_attention 26, rmsnorm 105.  ``speculate`` adds the
     MTP head: its 2 projections, a dense layer, its norm and a second head
     GEMM (llama3-8b: matmul 129 + 7, flash_attention 32 + 1, rmsnorm 65 +
-    3)."""
+    3).  An MoE layer: its attention's 2 GEMMs and 2 per expert, one
+    attention core (dbrx-132b at 4 layers, LayerNorm: matmul 4 * 34 + 1 =
+    137, flash_attention 4)."""
     from repro_torch.configs.base import segments
 
     norm = 0 if cfg.norm_kind == "layernorm" else 1   # a block norm's launch
@@ -1004,6 +1037,11 @@ def launches_per_step(cfg, speculate: bool = False) -> dict:
     per = {"dense": {"matmul": 4, "flash_attention": 1,
                      "rmsnorm": block_norms * norm},
            "mamba": {"matmul": 3, "rmsnorm": norm + 1, "ssd_scan": 1}}
+    if cfg.moe is not None:
+        # two per expert (all of them on one rank), two of shared experts
+        per["moe"] = {"matmul": 2 + 2 * cfg.moe.num_experts
+                      + (2 if cfg.moe.num_shared else 0),
+                      "flash_attention": 1, "rmsnorm": 2 * norm}
     if speculate:
         for name, v in per["dense"].items():
             n[name] += v
@@ -1104,7 +1142,7 @@ def serve_once(torch, server, step_fn, prompts, rid0: int):
 TIMED_PAIRS = 5
 #: serve-zamba's pairs: its uncaptured runs take about 30 s each, and the
 #: whole script has to stay well inside its time limit
-ZAMBA_PAIRS = 3
+ZAMBA_PAIRS = 2
 #: serve-gemma's pairs (its timings are the d = 256 attention's context)
 GEMMA_PAIRS = 3
 
@@ -2524,13 +2562,17 @@ def train_launches_per_step(cfg, remat: bool) -> tuple[dict, dict]:
     matmul, 2 attention, 17 rmsnorm, 12 grouped norm, 12 ssd_scan.  gpt-m2
     (4 layers, LayerNorm, gelu MLP): forward 33 matmul, 8
     flash_attention, 0 rmsnorm; backward 34 matmul, 4 attention, 4
-    activation derivatives."""
-    serve = launches_per_step(cfg)
+    activation derivatives.  An MTP head (``cfg.mtp``) adds its launches
+    (``launches_per_step(speculate=True)``'s) once forward and once
+    backward."""
+    trunk = launches_per_step(cfg)
+    serve = launches_per_step(cfg, speculate=cfg.mtp)
     again = 2 if remat else 1
-    # the head and the final norm (a launch only for an RMSNorm model)
+    # the head and the final norm (a launch only for an RMSNorm model), and
+    # an MTP head, which no remat unit holds
     once = {"matmul": 1, "rmsnorm": 0 if cfg.norm_kind == "layernorm" else 1}
-    fwd = {k: again * (v - once.get(k, 0)) + once.get(k, 0)
-           for k, v in serve.items()}
+    once = {k: once.get(k, 0) + serve[k] - v for k, v in trunk.items()}
+    fwd = {k: again * (v - once[k]) + once[k] for k, v in serve.items()}
     mamba_blocks = serve["ssd_scan"]
     bwd = {"matmul_bwd": 2 * serve["matmul"],
            "flash_attention_bwd": serve["flash_attention"],
@@ -3027,7 +3069,7 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
     log(f"train-kernels: flash_attention backward (dq, dk, dv; the kernel "
         f"reads the forward kernel's O and log-sum-exp, the plain backward "
         f"the plain forward's); limit {BWD_REL} relative L2")
-    plan = ops.attention_bwd_plan(1, T, 32, 8, T)
+    plan = ops.attention_bwd_plan(1, T, 32, 8, T, d=128)
     lens = plan.lengths()
     spans = [ops.bwd_visible_tiles(kt, 0, T, T, 4, True, 0)
              for kt in range(plan.key_tiles)]
@@ -4506,7 +4548,7 @@ def gpt_train_kernel_phase(torch, F, ops, ref, timer, floor,
             nbytes=2 * 4 * q.numel() + 4 * lse.numel(),
             flops=4 * d * visible):
         failed.append("flash_attention forward MHA")
-    plan = ops.attention_bwd_plan(1, T, hq, hq, T)
+    plan = ops.attention_bwd_plan(1, T, hq, hq, T, d=d)
     lens = plan.lengths()
     log(f"  dK/dV plan at s={T}, {hq}/{hq} heads (group 1): {len(lens)} "
         f"items of at most {plan.max_len} (longest {max(lens)}, mean "
@@ -4541,23 +4583,24 @@ def gpt_train_kernel_phase(torch, F, ops, ref, timer, floor,
     return (mmf, mmz, faf), (mmb, fab), act
 
 
-def _train_config(arch: str, layers: int):
+def _train_config(arch: str, layers: int, mtp: bool = False):
     from repro_torch.configs.registry import get_config
 
-    return dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers, mtp=mtp or cfg.mtp)
 
 
 def _train_model(torch, layers: int, seed: int, dev="cuda",
-                 arch="llama3-8b"):
-    """``arch`` at its published widths, depth cut to ``layers``: the
-    config, this rank's (only) shard of seeded bf16 weights, and one
-    seeded batch of ``TRAIN_SHAPE``'s rows."""
+                 arch="llama3-8b", mtp: bool = False):
+    """``arch`` at its published widths, depth cut to ``layers`` (with an
+    MTP head where ``mtp``): the config, this rank's (only) shard of
+    seeded bf16 weights, and one seeded batch of ``TRAIN_SHAPE``'s rows."""
     import numpy as np
 
     from repro_torch.core.mesh import atp_topo
     from repro_torch.models import lm
 
-    cfg = _train_config(arch, layers)
+    cfg = _train_config(arch, layers, mtp)
     params = lm.shard_params(cfg, lm.init_params(cfg, seed=seed, device=dev),
                              lm.layout_context(atp_topo(1, 1, 1), 0))
     rng = np.random.default_rng(seed)
@@ -4572,9 +4615,10 @@ def _train_model(torch, layers: int, seed: int, dev="cuda",
 
 def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
                 layers: int = TRAIN_SHAPE["layers"], tag: str = "",
-                profile: bool = True) -> dict:
+                profile: bool = True, mtp: bool = False) -> dict:
     """``build_train_step`` on ``arch`` at ``layers`` (``TRAIN_SHAPE``'s
-    batch and sequence), AdamW zero1 at dp = 1 (full-state, fp32 m/v),
+    batch and sequence; with an MTP head and its loss term where ``mtp``),
+    AdamW zero1 at dp = 1 (full-state, fp32 m/v),
     remat on: one warm-up step, then the counted steps on the same batch,
     then, with ``profile``, one profiled step and one
     more profiled with the host's ops and shapes
@@ -4592,13 +4636,14 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     L, steps = layers, TRAIN_SHAPE["steps"]
-    cfg, params, batch = _train_model(torch, L, seed, arch=arch)
+    cfg, params, batch = _train_model(torch, L, seed, arch=arch, mtp=mtp)
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1)
     step, info = build_train_step(cfg, atp_topo(1, 1, 1), opt_cfg)
     state = adamw.init_opt_state(params, info.ctx, opt_cfg.mode)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in adamw.tree_leaves(params))
-    log(f"train {cfg.name}: {L} layers at full width ({n_params / 1e9:.3f} B "
+    log(f"train {cfg.name}{' with an MTP head' if mtp else ''}: {L} layers "
+        f"at full width ({n_params / 1e9:.3f} B "
         f"parameters, bf16; fp32 AdamW m/v, {opt_cfg.mode}), batch "
         f"{TRAIN_SHAPE['batch']} x seq {TRAIN_SHAPE['seq']}, remat; set-up "
         f"{time.perf_counter() - t0:.1f}s, device memory "
@@ -4634,9 +4679,12 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
     assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
     assert launches == want, f"launches {launches}, expected {want}"
     # every attention of the step at s = 2048 runs the training kernel
+    # where it takes the head dim (else the serving kernel, variant 0)
     log(f"  flash_attention launches by kernel: {variants} (flash_attention"
         f".cu, flash_attention_train.cu)")
-    assert variants == [0, launches["flash_attention"]], variants
+    n = launches["flash_attention"]
+    assert variants == ([0, n] if cfg.hd in ops.TRAIN_HEAD_DIMS
+                        else [n, 0]), variants
     launches["flash_attention_train"] = variants[1]
     if not profile:
         del params, state, step
@@ -4752,7 +4800,8 @@ def no_derivative(dy, z, activation):
 
 def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
                      layers: int = 2, seq: int = PATH_SEQ,
-                     dev: str = "cuda") -> None:
+                     dev: str = "cuda", mtp: bool = False,
+                     hold_attention: bool = False) -> None:
     """The loss and every parameter's gradient of ``arch`` at full width,
     depth cut to ``layers`` (b = 1, s = ``seq``), on the card (kernels,
     bf16) against the CPU (plain versions, fp32) from the same bf16
@@ -4771,14 +4820,18 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
     model with a gelu MLP holds the activation's derivative kernel on one
     forward the same way (``activation_backward`` swapped for its plain
     version), and ``activation_backward`` passing ``dy`` on unchanged is
-    the fault that rule must catch."""
+    the fault that rule must catch.  ``hold_attention`` holds the attention
+    backward kernel so (``flash_attention_backward`` swapped for its plain
+    version on the card; the fault: its dK set to zero).  ``mtp``: the
+    model has an MTP head, its leaves held with the others."""
     from repro_torch.core.atp import make_context
     from repro_torch.core.mesh import atp_topo
     from repro_torch.kernels import ops, ref
     from repro_torch.models import lm
     from repro_torch.optim import adamw
 
-    cfg, params, batch = _train_model(torch, layers, seed, dev=dev, arch=arch)
+    cfg, params, batch = _train_model(torch, layers, seed, dev=dev, arch=arch,
+                                      mtp=mtp)
     batch = {k: v[:, :seq] for k, v in batch.items()}
 
     def grads(params, batch, where):
@@ -4799,9 +4852,11 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
     card = grads(params, batch, dev)
     launched = dict(ops.BACKWARD_LAUNCHES)
     # the attention at s >= 128 and head dim 112 or 128 runs the training
-    # kernel (attention_plan's variant 1)
+    # kernel (attention_plan's variant 1), at 64 and 256 the serving one
     variants = list(ops.ATTENTION_VARIANT_LAUNCHES)
-    assert not on_card or (variants[0] == 0 and variants[1] > 0), variants
+    trained = 1 if cfg.hd in ops.TRAIN_HEAD_DIMS else 0
+    assert not on_card or (variants[1 - trained] == 0
+                           and variants[trained] > 0), variants
     host = {k: v.cpu() for k, v in batch.items()}
     cpu = grads(lm.tree_map(lambda t: t.detach().cpu().float(), params),
                 host, "cpu")
@@ -4821,12 +4876,21 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
         planted = dict(activation_backward=no_derivative)
         what, kept = ("activation_backward passing dy on unchanged",
                       "matmul_bwd")
-    if lm.is_recurrent(cfg) or cfg.mlp_kind == "gelu":
+    elif hold_attention:
+        held_by = {"flash_attention_backward":
+                   plain_backward(ref)["flash_attention_backward"]}
+        planted = dict(flash_attention_backward=zero_dk(
+            torch, ops.flash_attention_backward))
+        what, kept = ("flash_attention_bwd's dK planted to zero",
+                      "flash_attention_bwd")
+    if lm.is_recurrent(cfg) or cfg.mlp_kind == "gelu" or hold_attention:
         ops.reset_launches()
         with swapped(ops, **held_by):
             held = grads(params, batch, dev)
+        plain_key = ("matmul_act_bwd" if cfg.mlp_kind == "gelu"
+                     else "flash_attention_bwd")
         swapped_keys = [k for k, v in ops.BACKWARD_LAUNCHES.items() if v and (
-            lm.is_recurrent(cfg) or k == "matmul_act_bwd")]
+            lm.is_recurrent(cfg) or k == plain_key)]
         assert not swapped_keys, \
             f"the plain backward launched {ops.BACKWARD_LAUNCHES}"
         assert held[0] == card[0], \
@@ -4870,6 +4934,364 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
             f"{len(caught)} of {len(fault)} tensors (worst "
             f"{max(fault.values()):.3e})")
         assert caught, "the same-forward rule passed a planted fault"
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: gemma2-2b trains (the attention backward at head dim 256).
+# ---------------------------------------------------------------------------
+
+#: gemma2-2b's training depth: all 26 layers (2.61 B parameters; about 42
+#: GB of weights, gradients and fp32 moments)
+GEMMA_TRAIN_LAYERS = 26
+
+
+def _flex_grad(torch, q, k, v, q_offset, kv_len, window, softcap, do):
+    """The library yardstick of a softcapped attention's backward: a
+    compiled ``flex_attention``'s autograd backward (the tanh softcap its
+    ``score_mod``) from one forward on leaves of the same inputs."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = _flex(torch, *leaves, q_offset, kv_len, window, softcap)()
+    g = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def gemma_train_kernels(torch, F, ops, ref, timer, floor):
+    """The attention at gemma2-2b's training shapes (b = 1, s = 2048, 8 q /
+    4 kv heads of 256, softcap 50): the forward with its log-sum-exp on
+    variant 0 (``flash_attention.cu``; variant 1 takes head dims 112 and
+    128), and the backward (``flash_attention_bwd.cu``'s two-warpgroup
+    blocks) against their plain versions, each within phase 7's limits;
+    also with a window of 512 that bites.  Timed against the bound, the
+    plain version and the library: for the backward SDPA's without the
+    softcap and a compiled ``flex_attention``'s with it.  Returns the two
+    KernelReports, weighted per training step (remat: two forwards a
+    layer)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    T, L = TRAIN_SHAPE["seq"], GEMMA_TRAIN_LAYERS
+    hq, hkv, d, cap = 8, 4, 256, 50.0
+    if floor is None:
+        floor = timer(lambda: torch.cuda._sleep(0))
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    fwd = KernelReport("flash_attention", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:102", floor)
+    bwd = KernelReport("flash_attention_bwd", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                       "src/repro/kernels/flash_attention.py:102", floor)
+    plan = ops.attention_bwd_plan(1, T, hq, hkv, T, d=d)
+    log(f"train-gemma: the attention at head dim {d} ({hq} q / {hkv} kv "
+        f"heads, softcap {cap}), forward plan variant "
+        f"{ops.attention_plan(1, T, hq, hkv, T, d=d).variant}; backward "
+        f"{len(plan.items)} dK/dV items of at most {plan.max_len} row tiles "
+        f"on {plan.blocks} blocks of two warpgroups; limits: lse "
+        f"{LSE_ATOL} absolute, output {FA_TOL}, gradients {BWD_REL} "
+        f"relative L2")
+    failed = []
+    for label, window, weight in ((f"s={T} softcap {cap}", 0, L),
+                                  (f"s={T} window 512 softcap {cap}", 512,
+                                   0)):
+        q, do = randn(1, T, hq, d), randn(1, T, hq, d)
+        k, v = randn(1, T, hkv, d), randn(1, T, hkv, d)
+        qo = torch.zeros(1, dtype=torch.int32, device="cuda")
+        kl = torch.full((1,), T, dtype=torch.int32, device="cuda")
+        kw = dict(window=window, softcap=cap)
+        out, lse = ops.flash_attention_lse(q, k, v, qo, kl, **kw)
+        out_ref, lse_ref = ref.attention_lse_ref(q, k, v, qo, kl, **kw)
+        lse_err = float((lse - lse_ref).abs().max())
+        ok, err = within(out, out_ref, **FA_TOL)
+        got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl,
+                                           **kw)
+        want = ref.attention_bwd_ref(q, k, v, out_ref, do, lse_ref, qo, kl,
+                                     **kw)
+        errs = [rel_l2(g, w) for g, w in zip(got, want)]
+        gerr = max(float((g.float() - w.float()).abs().max())
+                   for g, w in zip(got, want))
+        del got, want, out_ref, lse_ref
+        ft, bt = {}, {}
+        if weight:
+            visible = int(ref.attention_mask(T, T, qo, kl, window=window)
+                          .sum()) * hq
+            t0 = time.perf_counter()
+            try:
+                flex_f = _flex(torch, q, k, v, qo, kl, window, cap)
+                flex_b = _flex_grad(torch, q, k, v, qo, kl, window, cap, do)
+                lib_f, lib_b = timer(flex_f), timer(flex_b)
+                log(f"  compiled flex_attention forward and backward: first "
+                    f"calls {time.perf_counter() - t0:.1f}s")
+            except Exception as e:   # the yardstick only: reported, not run
+                log(f"  flex_attention at head dim {d} did not run "
+                    f"({type(e).__name__}: {str(e)[:200]}); the library "
+                    f"column takes SDPA without the softcap")
+                lib_f = lib_b = None
+            leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                   enable_gqa=True)
+            sdpa_b = timer(lambda: torch.autograd.grad(
+                o_lib, leaves, do.transpose(1, 2), retain_graph=True))
+            sdpa_f = timer(lambda: F.scaled_dot_product_attention(
+                *leaves, is_causal=True, enable_gqa=True))
+            log(f"  SDPA without the softcap: forward {sdpa_f:.4f} ms, "
+                f"backward {sdpa_b:.4f} ms; flex_attention with it: forward "
+                f"{'n/a' if lib_f is None else f'{lib_f:.4f} ms'}, backward "
+                f"{'n/a' if lib_b is None else f'{lib_b:.4f} ms'}")
+            del o_lib, leaves
+            ft = dict(ms=timer(lambda: ops.flash_attention_lse(
+                          q, k, v, qo, kl, **kw)),
+                      plain_ms=timer(lambda: ref.attention_lse_ref(
+                          q, k, v, qo, kl, **kw)),
+                      library_ms=sdpa_f if lib_f is None else lib_f,
+                      nbytes=2 * (2 * q.numel() + 2 * k.numel())
+                      + 4 * lse.numel(), flops=4 * d * visible)
+            bt = dict(ms=timer(lambda: ops.flash_attention_backward(
+                          q, k, v, out, do, lse, qo, kl, **kw)),
+                      plain_ms=timer(lambda: ref.attention_bwd_ref(
+                          q, k, v, out, do, lse, qo, kl, **kw)),
+                      library_ms=sdpa_b if lib_b is None else lib_b,
+                      nbytes=2 * (4 * q.numel() + 4 * k.numel())
+                      + 4 * lse.numel(), flops=5 * 2 * d * visible)
+            log(f"  {label}: by kernel, µs a launch: " + by_kernel(
+                torch, lambda: ops.flash_attention_backward(
+                    q, k, v, out, do, lse, qo, kl, **kw)))
+        path = GEMMA_TRAIN if weight else None
+        if not fwd.add(f"{label}: lse |err| {lse_err:.2e}, output "
+                       f"[variant 0]", ok and lse_err <= LSE_ATOL, err,
+                       FA_TOL, path, "train" if weight else None,
+                       2 * weight, **ft):
+            failed.append(f"flash_attention d=256 {label}")
+        if not bwd.add(f"{label}: rel L2 dq {errs[0]:.2e} dk {errs[1]:.2e} "
+                       f"dv {errs[2]:.2e}", max(errs) <= BWD_REL, gerr,
+                       BWD_REL, path, "train" if weight else None, weight,
+                       **bt):
+            failed.append(f"flash_attention_bwd d=256 {label}")
+        del q, k, v, do, out, lse
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"gemma2-2b's attention kernels disagree with "
+                             f"their plain versions: {failed}")
+    return fwd, bwd
+
+
+def zero_dk(torch, flash_attention_backward):
+    """``flash_attention_backward`` with a planted fault: dK set to zero."""
+    def faulty(*args, **kw):
+        dq, dk, dv = flash_attention_backward(*args, **kw)
+        return dq, torch.zeros_like(dk), dv
+    return faulty
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: dbrx-132b served (the MoE segment kind).
+# ---------------------------------------------------------------------------
+
+#: dbrx-132b's served depth: 4 of its 40 layers at its published widths
+#: (14.3 B parameters, about 28.5 GB of bf16)
+DBRX_LAYERS = 4
+#: serve-dbrx's timed pairs of captured and uncaptured runs
+DBRX_PAIRS = 2
+#: the path check's depth (the fp32 CPU side holds about 31 GB)
+DBRX_PATH_LAYERS = 2
+
+
+def dbrx_gemms(cfg, layers: int):
+    """(name, K, N, rows of a prefill chunk, rows of a decode tick,
+    launches per step) of dbrx's matmuls: the attention's two, each
+    expert's up|gate and down at the capacity of its slots (``cap =
+    int(tokens * top_k / experts)``, at least 1: 16 rows of a 64-token
+    chunk, 1 of a 4-slot tick; every expert runs each step), the head."""
+    mc, h = cfg.moe, cfg.d_model
+    chunk, slots = SERVE["prefill_chunk"], SERVE["slots"]
+
+    def cap(t):
+        return max(1, int(mc.capacity_factor * t * mc.top_k
+                          / mc.num_experts))
+
+    e = layers * mc.num_experts
+    return (("fused_qkv", h, cfg.q_dim + 2 * cfg.kv_dim, chunk, slots,
+             layers),
+            ("wo", cfg.q_dim, h, chunk, slots, layers),
+            ("expert up|gate", h, 2 * mc.d_ff_expert, cap(chunk), cap(slots),
+             e),
+            ("expert down", mc.d_ff_expert, h, cap(chunk), cap(slots), e),
+            ("lm_head", h, cfg.vocab_size, chunk, slots, 1))
+
+
+def dbrx_kernel_checks(torch, F, ops, ref, cfg, timer, floor):
+    """The matmul at every dbrx shape of a prefill chunk and a decode tick,
+    and the attention at its 48 q / 8 kv heads (a group of 6, which does
+    not divide the kernel's 64-row tile), against their plain versions as
+    in phase 1, timed against the bound, the plain version and the
+    library.  Returns the two KernelReports of the ``DBRX`` path."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    chunk, slots, skv = SERVE["prefill_chunk"], SERVE["slots"], \
+        SERVE["max_seq"]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    failed = []
+    mm = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
+                      "src/repro/kernels/matmul.py:102", floor)
+    log(f"serve-dbrx: matmul at dbrx-132b's shapes, {DBRX_LAYERS} layers "
+        f"(tolerance |err| <= atol + rtol*|plain|)")
+    for label, K, N, m_pre, m_dec, weight in dbrx_gemms(cfg, DBRX_LAYERS):
+        b = randn(K, N, scale=K ** -0.5)
+        for M, step in ((m_pre, "prefill"), (m_dec, "decode")):
+            plan = ops.matmul_plan(M, N, K)
+            a = randn(M, K)
+            ok, err = within(ops.matmul(a, b), ref.matmul_ref(a, b), **MM_TOL)
+            if not mm.add(f"{label} M={M} K={K} N={N} [{plan.name}]", ok,
+                          err, MM_TOL, DBRX, step, weight,
+                          timer(lambda: ops.matmul(a, b)),
+                          timer(lambda: ref.matmul_ref(a, b)),
+                          timer(lambda: torch.matmul(a, b)),
+                          nbytes=2 * (M * K + K * N + M * N),
+                          flops=2 * M * K * N):
+                failed.append(f"matmul dbrx {label} M={M}")
+        del a, b
+    fa = KernelReport("flash_attention", "cuda",
+                      "src/repro_torch/kernels/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:102", floor)
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    lens = [137, 64, 250, 9][:slots]
+    log(f"serve-dbrx: flash_attention at hq={hq}, hkv={hkv} (a group of "
+        f"{hq // hkv}), d={d}")
+    for label, b, sq, q_off, kv_len, step in (
+            (f"prefill b=1 sq={chunk} skv={skv} q_offset=128", 1, chunk,
+             [128], [128 + chunk], "prefill"),
+            (f"decode b={slots} sq=1 skv={skv}", slots, 1, lens,
+             [x + 1 for x in lens], "decode")):
+        q = randn(b, sq, hq, d)
+        k, v = randn(b, skv, hkv, d), randn(b, skv, hkv, d)
+        qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+        kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        ok, err = within(ops.flash_attention(q, k, v, qo, kl),
+                         ref.attention_ref(q, k, v, qo, kl), **FA_TOL)
+        mask = ref.attention_mask(sq, skv, qo, kl)
+        visible = int(mask.sum()) * hq
+        plan = ops.attention_plan(b, sq, hq, hkv, skv, d=d)
+        if not fa.add(
+                f"{label} [variant {plan.variant} row_tiles="
+                f"{plan.row_tiles} splits={plan.splits}]", ok, err, FA_TOL,
+                DBRX, step, DBRX_LAYERS,
+                timer(lambda: ops.flash_attention(q, k, v, qo, kl)),
+                timer(lambda: ref.attention_ref(q, k, v, qo, kl)),
+                timer(_sdpa(torch, F, q, k, v, mask)),
+                nbytes=2 * 2 * q.numel()
+                + sum(min(x, skv) for x in kv_len) * hkv * d * 2 * 2,
+                flops=4 * d * visible):
+            failed.append(f"flash_attention dbrx {label}")
+        del q, k, v
+    if failed:
+        raise AssertionError(f"dbrx-132b's kernels disagree with their plain "
+                             f"versions: {failed}")
+    return mm, fa
+
+
+def pinned_routes(torch, moe, log_routes=None, routes=None, flips=None):
+    """``moe.route`` recording each call's expert ids into ``log_routes``,
+    or, with ``routes``, routing each call by the recorded ids (the gates
+    its own, renormalised as ``route`` does) and counting in ``flips`` the
+    (token, choice) entries where its own top-k differs."""
+    route = moe.route
+    calls = iter(range(1 << 30))
+
+    def pinned(ctx, cfg, router, tokens):
+        topi, topv, aux = route(ctx, cfg, router, tokens)
+        if routes is None:
+            log_routes.append(topi.cpu())
+            return topi, topv, aux
+        want = routes[next(calls)].to(topi.device)
+        flips.append(int((topi != want).sum()))
+        gates = torch.softmax(tokens.float() @ router, dim=-1)
+        v = gates.gather(1, want)
+        return want, v / (v.sum(-1, keepdim=True) + 1e-9), aux
+
+    return pinned
+
+
+def wrong_expert(experts):
+    """``moe._experts`` with a planted fault: each expert's down projection
+    reads the next expert's weights."""
+    def faulty(p, xin):
+        w = p["w_down"]
+        return experts({**p, "w_down": w.roll(1, dims=0)}, xin)
+    return faulty
+
+
+def dbrx_path_check(torch, cfg, params, dev="cuda") -> None:
+    """``path_calls`` (two prefill chunks, a tick of two live slots of
+    four) through ``DBRX_PATH_LAYERS`` layers of the served weights on the
+    card (kernels, bf16) and on the CPU in fp32.  bf16 rounding can flip a
+    top-k choice, and a flipped route is another function, so the CPU side
+    routes each call by the card's expert ids (and so the card's slots);
+    the logits must agree within ``PATH_TOL``.  Prints how many routes the
+    CPU's own top-k would flip.  A planted fault (each expert's down
+    projection reading its neighbour's weights) must break the limit."""
+    from repro_torch.models import lm, moe
+
+    cut = dataclasses.replace(cfg, num_layers=DBRX_PATH_LAYERS)
+    params = cut_params(cfg, cut, params)
+    pcfg, calls = path_calls(cut, seed=8)
+    routes, flips = [], []
+    with swapped(moe, route=pinned_routes(torch, moe, log_routes=routes)):
+        card = run_path(torch, cut, params, pcfg, calls, dev)[0]
+    with swapped(moe, _experts=wrong_expert(moe._experts)):
+        fault = run_path(torch, cut, params, pcfg, calls, dev)[0]
+    host = lm.tree_map(lambda t: t.cpu().float(), params)
+    with swapped(moe, route=pinned_routes(torch, moe, routes=routes,
+                                          flips=flips)):
+        fp32 = run_path(torch, cut, host, pcfg, calls, "cpu",
+                        torch.float32)[0]
+    del host
+    gc.collect()
+    c, f = compare_logits(calls, card, fp32), compare_logits(calls, fault,
+                                                             fp32)
+    entries = sum(int(r.numel()) for r in routes)
+    log(f"path-check dbrx-132b at {DBRX_PATH_LAYERS} layers, d_model "
+        f"{cfg.d_model}, {c['rows']} logit rows, the CPU's fp32 path routed "
+        f"by the card's expert ids: worst relative L2 error per row "
+        f"{c['worst']:.3e} (per call "
+        f"{', '.join(f'{e:.3e}' for e in c['per_call'])}), max abs "
+        f"{c['max_abs']:.3e}, top-1 agreement {c['agree']}/{c['rows']}, "
+        f"limit {PATH_TOL}; routes the CPU's own top-k flips: "
+        f"{sum(flips)} of {entries} (per MoE call {flips}); the planted "
+        f"fault (down projections of the neighbouring expert) "
+        f"{f['worst']:.3e}")
+    assert c["worst"] <= PATH_TOL, \
+        f"path-check dbrx: relative error {c['worst']:.3e} (limit {PATH_TOL})"
+    assert f["worst"] > PATH_TOL, "the path check passed a planted fault"
+
+
+def serve_dbrx_phase(torch, F, ops, ref, floor) -> tuple[list, dict]:
+    """dbrx-132b at its published widths, depth cut to ``DBRX_LAYERS``:
+    its kernels at its shapes (``dbrx_kernel_checks``), then ``serve_phase``
+    (4 requests, captured and uncaptured, ``DBRX_PAIRS`` timed pairs), then
+    ``dbrx_path_check`` on the served weights.  Returns the kernel reports
+    and the served run's launch counts."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(DBRX), num_layers=DBRX_LAYERS)
+    timer = Timer(torch)
+    if floor is None:
+        floor = timer(lambda: torch.cuda._sleep(0))
+    reports = list(dbrx_kernel_checks(torch, F, ops, ref, cfg, timer, floor))
+    kept = {}
+    launches = serve_phase(torch, cfg, requests=4, seed=8, pairs=DBRX_PAIRS,
+                           kernel_ms={s: sum(r.step_ms(DBRX, s)
+                                             for r in reports)
+                                      for s in ("prefill", "decode")},
+                           keep=kept)
+    dbrx_path_check(torch, cfg, kept.pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reports, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5229,6 +5651,10 @@ def main(argv=None) -> int:
         launches[TRAIN] = train_phase(torch)
         if args.parent is not None:
             parent_train_steps(args.parent)
+        # the MTP head's loss term: a short run with a head, and its
+        # gradients against the fp32 plain path
+        train_phase(torch, mtp=True, profile=False)
+        train_path_check(torch, mtp=True)
         done("train")
     if "path-check-train" in phases:
         train_path_check(torch)
@@ -5274,6 +5700,18 @@ def main(argv=None) -> int:
     if "path-check-train-gpt" in phases:
         train_path_check(torch, arch=GPT_ARCH, **GPT_PATH)
         done("path-check-train-gpt")
+    if "train-gemma" in phases:
+        reports += gemma_train_kernels(torch, F, ops, ref, Timer(torch),
+                                       floor_ms)
+        launches[GEMMA_TRAIN] = train_phase(
+            torch, arch=GEMMA, layers=GEMMA_TRAIN_LAYERS, tag="_gemma")
+        train_path_check(torch, arch=GEMMA, hold_attention=True)
+        done("train-gemma")
+    if "serve-dbrx" in phases:
+        dbrx_reports, launches[DBRX] = serve_dbrx_phase(torch, F, ops, ref,
+                                                        floor_ms)
+        reports += dbrx_reports
+        done("serve-dbrx")
     if "plan" in phases:
         plan_phase(torch)
         done("plan")
@@ -5287,9 +5725,13 @@ def main(argv=None) -> int:
 
     rows = {path: path_rows(path, reports)
             for path in ("llama3-8b", MAIN, GEMMA, TRAIN, TRAIN_ZAMBA,
-                         TRAIN_GPT, SPLIT, INT8)}
+                         TRAIN_GPT, SPLIT, INT8, GEMMA_TRAIN, DBRX)}
     for row in rows[GEMMA]:    # the attention at head dim 256
         row["name"] += " (head dim 256)"
+    for row in rows[GEMMA_TRAIN]:
+        row["name"] += " (head dim 256, training)"
+    for row in rows[DBRX]:
+        row["name"] += " (dbrx-132b)"
     rows["train forward"] = path_rows(TRAIN, train_fwd)
     rows["train-zamba forward"] = path_rows(TRAIN_ZAMBA, train_zamba_fwd)
     rows["train-zamba matmul backward"] = path_rows(TRAIN_ZAMBA, zamba_mm_bwd)
@@ -5316,14 +5758,17 @@ def main(argv=None) -> int:
                        ("train-gpt step, backward", "train-gpt backward"),
                        ("train-gpt step, backward", TRAIN_GPT),
                        ("split rmsnorm, a launch", SPLIT),
-                       ("int8 projections, one each", INT8)):
+                       ("int8 projections, one each", INT8),
+                       ("train-gemma step", GEMMA_TRAIN),
+                       ("dbrx-132b step pair", DBRX)):
         for row in rows[path]:
             log(f"{what}: {row['name']} launches={row['launches']} "
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                 f"library_ms={row['library_ms']}")
     kernels = (rows[MAIN] + rows[GEMMA] + rows[TRAIN] + rows[TRAIN_ZAMBA]
-               + rows[TRAIN_GPT] + rows[SPLIT] + rows[INT8])
+               + rows[TRAIN_GPT] + rows[SPLIT] + rows[INT8]
+               + rows[GEMMA_TRAIN] + rows[DBRX])
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

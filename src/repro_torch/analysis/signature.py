@@ -14,10 +14,11 @@ the model path goes through ``core.atp`` (and the optimizer's through
 
 An entry is (region, phase, op, axes, elems, dtype).  ``op`` takes the
 reference's names: ``psum`` (a sum all-reduce), ``pmax``, ``pmin``,
-``all_gather`` and ``reduce_scatter``.  ``elems`` follows the byte
-conventions of ``repro.analysis.expect``: an all-reduce counts its operand's
-elements, an all-gather and a ppermute (one ring hop, ``core.overlap``) their
-result's, a reduce-scatter its operand's.  Inside :func:`quant` (the
+``all_gather``, ``reduce_scatter`` and ``all_to_all``.  ``elems`` follows
+the byte conventions of ``repro.analysis.expect``: an all-reduce counts
+its operand's elements, an all-gather and a ppermute (one ring hop,
+``core.overlap``) their result's, a reduce-scatter and an all-to-all (the
+MoE dispatch) its operand's.  Inside :func:`quant` (the
 reference's ``quant[axis]`` scope) every entry is marked quantized: the
 shared-scale ``pmax`` and the payload's collective, whose grid values are
 held, and noted, in f32.  The
@@ -47,7 +48,8 @@ from collections import defaultdict
 ACTIVE: "Record | None" = None
 
 #: ops the issue sites note (the reference's primitive names)
-OPS = ("psum", "pmax", "pmin", "all_gather", "reduce_scatter", "ppermute")
+OPS = ("psum", "pmax", "pmin", "all_gather", "reduce_scatter", "ppermute",
+       "all_to_all")
 
 _DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4, "int32": 4,
                 "int64": 8, "float64": 8}

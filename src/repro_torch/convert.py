@@ -3,7 +3,8 @@
 ``params_from_jax`` takes the tree ``repro.models.lm.init_params`` makes,
 as numpy arrays (keys like ``seg0/attn/wq`` stacked ``[count, ...]``), and
 returns rank ``rank``'s shard for the port: cut by the same
-PartitionSpecs the JAX package shards with, with q/k/v, up/gate and the
+PartitionSpecs the JAX package shards with (an MoE layer's experts over
+the flat TP ranks), with q/k/v, up/gate (each expert's too) and the
 Mamba2 z/x fused per rank in the order the JAX blocks concatenate their
 local shards (``lm.shard_params``).  Each leaf keeps its dtype: a bf16
 model's Mamba2 ``conv``, ``A_log``, ``D``, ``dt_bias``, ``ln`` and ``gn``
@@ -20,7 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, segments
 from repro_torch.core.mesh import MeshTopo
 from repro_torch.models import layers as L
-from repro_torch.models import lm
+from repro_torch.models import lm, moe
 
 
 def to_torch(a) -> torch.Tensor:
@@ -44,8 +45,9 @@ def params_from_jax(cfg: ModelConfig, np_params: dict, topo: MeshTopo,
 
 def _dense_block_pieces(cfg: ModelConfig, ctx, key: str, blk: dict,
                         lead: int):
-    """The pieces of one (stacked) dense block under ``key``: the fused
-    q/k/v, up/gate and bias leaves split back."""
+    """The pieces of one (stacked) dense block under ``key`` (an MoE
+    layer's holds no MLP): the fused q/k/v, up/gate and bias leaves split
+    back."""
     nspec = L.feat_spec(ctx)
     col, row = L.col_w_spec(ctx), L.row_w_spec(ctx)
     for ln in ("ln_attn", "ln_mlp", "ln_post_attn", "ln_post_mlp"):
@@ -61,13 +63,36 @@ def _dense_block_pieces(cfg: ModelConfig, ctx, key: str, blk: dict,
     for name in ("q_norm", "k_norm"):
         if name in a:
             yield f"{key}/attn/{name}", a[name], (), lead
-    m = blk["mlp"]
+    if "mlp" in blk:
+        yield from _mlp_pieces(cfg, ctx, f"{key}/mlp", blk["mlp"], lead)
+
+
+def _mlp_pieces(cfg: ModelConfig, ctx, key: str, m: dict, lead: int):
+    """The pieces of one (stacked) dense MLP under ``key``: the fused
+    up/gate split back."""
     if "w_upgate" in m:
         for name, t in L.split_fused(cfg, ctx, "w_upgate", m["w_upgate"]):
-            yield f"{key}/mlp/{name}", t, col, lead
+            yield f"{key}/{name}", t, L.col_w_spec(ctx), lead
     else:
-        yield f"{key}/mlp/w_up", m["w_up"], col, lead
-    yield f"{key}/mlp/w_down", m["w_down"], row, lead
+        yield f"{key}/w_up", m["w_up"], L.col_w_spec(ctx), lead
+    yield f"{key}/w_down", m["w_down"], L.row_w_spec(ctx), lead
+
+
+def _moe_block_pieces(cfg: ModelConfig, ctx, key: str, blk: dict,
+                      lead: int):
+    """The pieces of a (stacked) MoE layer under ``key``: its norms and
+    attention as a dense block's, the router, each expert's up/gate split
+    back, and the shared experts' MLP."""
+    yield from _dense_block_pieces(cfg, ctx, key, blk, lead)
+    m = blk["moe"]
+    yield f"{key}/moe/router", m["router"], (), lead
+    ep = moe.expert_spec(ctx)
+    for name, t in L.split_fused(cfg, ctx, "w_upgate", m["w_upgate"]):
+        yield f"{key}/moe/{name}", t, ep, lead
+    yield f"{key}/moe/w_down", m["w_down"], ep, lead
+    if "shared" in m:
+        yield from _mlp_pieces(cfg, ctx, f"{key}/moe/shared", m["shared"],
+                               lead)
 
 
 def _mamba_pieces(cfg: ModelConfig, ctx, key: str, blk: dict, lead: int):
@@ -96,6 +121,8 @@ def _pieces(cfg: ModelConfig, ctx, params: dict):
         sp, key = params[f"seg{i}"], f"seg{i}"
         if seg.kind == "dense":
             yield from _dense_block_pieces(cfg, ctx, key, sp, 1)
+        elif seg.kind == "moe":
+            yield from _moe_block_pieces(cfg, ctx, key, sp, 1)
         elif seg.kind == "zamba":
             yield from _mamba_pieces(cfg, ctx, f"{key}/mamba", sp["mamba"],
                                      2)
@@ -133,8 +160,8 @@ def params_to_numpy(cfg: ModelConfig, params_per_rank: list,
             for i, axis in enumerate(spec):
                 if axis is None:
                     continue
-                d, c = lead + i, ctx.coords[axis]
-                shape[d] *= topo.axis_size(axis)
+                d, c = lead + i, L.axis_index(topo, ctx.coords, axis)
+                shape[d] *= L.axis_size(topo, axis)
                 where[d] = slice(c * a.shape[d], (c + 1) * a.shape[d])
             flat.setdefault(key, np.zeros(shape, a.dtype))[tuple(where)] = a
     tree: dict = {}

@@ -603,6 +603,41 @@ def all_gather(ctx: ATPContext, x: torch.Tensor, axes, dim: int,
     return _gather(x, group, axes, dim, tiled)
 
 
+def all_to_all(ctx: ATPContext, x: torch.Tensor, axes):
+    """``x``'s dim 0 cut into one equal block per rank of ``axes`` (one
+    name or the flat TP axes), block j sent to rank j, the blocks received
+    stacked along dim 0 in group-rank order (JAX's tiled ``all_to_all``
+    with split and concat axis 0).  Backward: the same all-to-all of the
+    gradient, which is its own inverse."""
+    if not axes:
+        return x
+    group = ctx.group(axes)
+
+    def a2a(t):
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        if sig.ACTIVE is not None:
+            sig.ACTIVE.note("all_to_all", axes, t.numel(), t.dtype)
+        dist.all_to_all_single(out, t, group=group)
+        return out
+
+    return overlap.op(x, a2a, a2a)
+
+
+def scatter_slice(ctx: ATPContext, x: torch.Tensor, axis: str | None,
+                  dim: int):
+    """Free slice of an ``axis``-replicated activation to this rank's block
+    of ``dim``; backward, the all-gather of the blocks' complete
+    gradients."""
+    if axis is None:
+        return x
+    group, i, n = ctx.group(axis), ctx.coords[axis], ctx.topo.axis_size(axis)
+    return overlap.op(x, lambda t: shard_slice(t, i, n, dim),
+                      lambda g: overlap.all_gather(g, group, axis, dim))
+
+
 def atp_reduce_scatter(ctx: ATPContext, x: torch.Tensor, axis, dim: int):
     """The sum over ``axis`` of the partial sums ``x`` as one
     reduce-scatter along ``dim`` (this rank keeps its block); backward, the
@@ -628,9 +663,7 @@ def seq_scatter(ctx: ATPContext, x: torch.Tensor, dim: int = 1):
     if x.shape[dim] % ctx.d1:
         raise ValueError(f"seq_parallel requires seq ({x.shape[dim]}) "
                          f"divisible by d1={ctx.d1}")
-    group, i, d1 = ctx.group(ctx.ax1), ctx.index1(), ctx.d1
-    return overlap.op(x, lambda t: shard_slice(t, i, d1, dim),
-                      lambda g: overlap.all_gather(g, group, ctx.ax1, dim))
+    return scatter_slice(ctx, x, ctx.ax1, dim)
 
 
 def seq_gather(ctx: ATPContext, x: torch.Tensor, dim: int = 1,

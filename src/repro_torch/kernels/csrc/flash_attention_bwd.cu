@@ -56,6 +56,14 @@
 // products.  Two warpgroups sharing one stream of row tiles measured
 // slower on the H100: waiting on the same stages, they ran in lock step
 // and left the tensor cores idle together.
+// Head dim 256 (gemma2-2b) is the exception: dK and dV at 64 x 256 fp32
+// are 256 registers a thread in one warpgroup, and wgmma's M of 64 rules
+// out a smaller key tile.  So its blocks have two warpgroups, each owning
+// 128 of the 256 columns of dK and dV (or of dQ), each computing S^T and
+// dP^T over the full head dim from the same shared tiles: a warpgroup's
+// registers are then those of the d = 128 kernel, at the price of S^T and
+// dP^T done twice (6 products of the 4 a step needs in dK/dV).  K, V and
+// two stages of Q and dO take 192 KB of shared memory, so one block an SM.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -68,6 +76,8 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int kThreads = 128;      // one warpgroup
+// warpgroups a block of A atoms of head dim has: two at head dim 256
+__host__ __device__ constexpr int wgs(int A) { return A == 4 ? 2 : 1; }
 constexpr int kAtom = 64 * 128;    // a 64-row x 64-column bf16 swizzle atom
 constexpr int kLdBytes = 2 * 64 * 4;  // a row tile's L and D
 constexpr float kLog2e = 1.4426950408889634f;
@@ -331,7 +341,9 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // 1. L and D per (batch row, q head, position), positions padded to whole
-// tiles (padding: L = +inf, D = 0).  16 lanes a row, 16 bytes each.
+// tiles (padding: L = +inf, D = 0).  16 lanes a row, 16 bytes each, CH
+// times (CH chunks of 128 columns).
+template <int CH>
 __global__ void __launch_bounds__(256) ld_kernel(const Args a) {
   const long long row = (long long)blockIdx.x * 16 + threadIdx.x / 16;
   const int lane = threadIdx.x % 16;
@@ -341,18 +353,23 @@ __global__ void __launch_bounds__(256) ld_kernel(const Args a) {
   const long long bh = live ? row / a.rows : 0;  // b * hq + h
   const int h = (int)(bh % a.hq), b = (int)(bh / a.hq);
   float dot = 0.0f;
-  if (live && pos < a.sq && lane * 8 < a.d) {
-    const size_t off = ((size_t)(b * a.sq + pos) * a.hq + h) * a.d + lane * 8;
-    const uint4 o = *reinterpret_cast<const uint4*>(a.O + off);
-    const uint4 g = *reinterpret_cast<const uint4*>(a.dO + off);
-    const unsigned ow[4] = {o.x, o.y, o.z, o.w}, gw[4] = {g.x, g.y, g.z, g.w};
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 of = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&ow[k]));
-      const float2 gf = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&gw[k]));
-      dot += of.x * gf.x + of.y * gf.y;
+  for (int ch = 0; ch < CH; ++ch) {
+    const int col = ch * 128 + lane * 8;
+    if (live && pos < a.sq && col < a.d) {
+      const size_t off = ((size_t)(b * a.sq + pos) * a.hq + h) * a.d + col;
+      const uint4 o = *reinterpret_cast<const uint4*>(a.O + off);
+      const uint4 g = *reinterpret_cast<const uint4*>(a.dO + off);
+      const unsigned ow[4] = {o.x, o.y, o.z, o.w},
+                     gw[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 of = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ow[k]));
+        const float2 gf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&gw[k]));
+        dot += of.x * gf.x + of.y * gf.y;
+      }
     }
   }
 #pragma unroll
@@ -388,12 +405,13 @@ __device__ __forceinline__ void visible_tiles(const Mask& m, int kt, int sq,
 
 // Store a 64 x DP fp32 accumulator tile (keys x head dim) times `mul` as
 // bf16 rows key0 + r of dst (row stride `ld` elements), rows below `n_rows`
-// and columns below `d`.
-template <int DP>
+// and columns below `d`; NWG: the block's warpgroups, each storing its own.
+template <int DP, int NWG = 1>
 __device__ __forceinline__ void store_rows(const float* acc, float mul,
                                            bf16* dst, size_t ld, int n_rows,
                                            int d) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = (NWG == 1 ? threadIdx.x : threadIdx.x % kThreads) / 32;
+  const int lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -422,10 +440,12 @@ __device__ __forceinline__ void mma_rs(float* d, const unsigned* a,
 // 2. dK/dV over the plan's items (see the note at the top).  CAP: a
 // softcap is applied.
 template <int A, bool CAP>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
     dkdv_kernel(const __grid_constant__ Args a) {
   constexpr int DP = 64 * A;    // the head dim, padded
-  constexpr int NACC = DP / 2;  // a thread's share of a 64 x DP fp32 tile
+  constexpr int NWG = wgs(A), NT = kThreads * NWG;
+  constexpr int AW = A / NWG;   // atoms of dK/dV a warpgroup owns
+  constexpr int NACC = DP / NWG / 2;  // a thread's share of its 64 x DP/NWG
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t kv_bar, full[2];
   __shared__ int s_item, s_last;
@@ -434,7 +454,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   unsigned char* stage0 = Vs + A * kAtom;  // stage s: Q, then dO
   float* lds = reinterpret_cast<float*>(stage0 + 4 * A * kAtom);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = (NWG == 1 ? tid : tid % kThreads) / 32;
+  const int wg = NWG == 1 ? 0 : tid / kThreads;  // columns wg * 64 AW on
   const int g = lane / 4, t4 = lane % 4;
   const int grp = a.hq / a.hkv, KT = (a.skv + 63) / 64;
   const int R = a.rows / 64 * grp;
@@ -562,7 +584,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs<A>(dv, pa + 4 * kk, desc_mn(dOt, kk));
+        mma_rs<AW>(dv, pa + 4 * kk, desc_mn(dOt + wg * AW * kAtom, kk));
       wgmma_commit();
       wgmma_wait<1>();  // dP^T
       fence_regs<32>(dpt);
@@ -583,7 +605,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs<A>(dk, dsa + 4 * kk, desc_mn(Qt, kk));
+        mma_rs<AW>(dk, dsa + 4 * kk, desc_mn(Qt + wg * AW * kAtom, kk));
       wgmma_commit();
       wgmma_wait<0>();
     }
@@ -591,12 +613,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     fence_regs<NACC>(dv);
 
     const size_t kv_ld = (size_t)a.hkv * a.d;
-    bf16* dk_out = a.dK + ((size_t)b * a.skv + 64 * kt) * kv_ld + kvh * a.d;
-    bf16* dv_out = a.dV + ((size_t)b * a.skv + 64 * kt) * kv_ld + kvh * a.d;
+    const int c0 = wg * 64 * AW;  // this warpgroup's first column
+    bf16* dk_out =
+        a.dK + ((size_t)b * a.skv + 64 * kt) * kv_ld + kvh * a.d + c0;
+    bf16* dv_out =
+        a.dV + ((size_t)b * a.skv + 64 * kt) * kv_ld + kvh * a.d + c0;
     const int n_keys = min(64, a.skv - 64 * kt);
     if (parts == 1) {
-      store_rows<DP>(dk, a.scale, dk_out, kv_ld, n_keys, a.d);
-      store_rows<DP>(dv, 1.0f, dv_out, kv_ld, n_keys, a.d);
+      store_rows<64 * AW, NWG>(dk, a.scale, dk_out, kv_ld, n_keys, a.d - c0);
+      store_rows<64 * AW, NWG>(dv, 1.0f, dv_out, kv_ld, n_keys, a.d - c0);
       continue;
     }
     // a key tile of several items: the partial out, then the last item to
@@ -605,8 +630,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       float* p = a.parts + (size_t)(slot0 + part) * 2 * 64 * DP + tid;
 #pragma unroll
       for (int i = 0; i < NACC; ++i) {
-        p[i * kThreads] = dk[i];
-        p[(NACC + i) * kThreads] = dv[i];
+        p[i * NT] = dk[i];
+        p[(NACC + i) * NT] = dv[i];
       }
     }
     __threadfence();
@@ -627,12 +652,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int i = 0; i < NACC; ++i) sum[i] = 0.0f;
       for (int q = 0; q < parts; ++q) {
         const float* p = a.parts + (size_t)(slot0 + q) * 2 * 64 * DP +
-                         half * NACC * kThreads + tid;
+                         half * NACC * NT + tid;
 #pragma unroll
-        for (int i = 0; i < NACC; ++i) sum[i] += __ldcg(p + i * kThreads);
+        for (int i = 0; i < NACC; ++i) sum[i] += __ldcg(p + i * NT);
       }
-      store_rows<DP>(sum, half == 0 ? a.scale : 1.0f,
-                     half == 0 ? dk_out : dv_out, kv_ld, n_keys, a.d);
+      store_rows<64 * AW, NWG>(sum, half == 0 ? a.scale : 1.0f,
+                               half == 0 ? dk_out : dv_out, kv_ld, n_keys,
+                               a.d - c0);
     }
   }
   // the last block out resets the ticket for the next launch
@@ -648,17 +674,20 @@ __global__ void __launch_bounds__(kThreads, 2)
 // 3. dQ: one block per (row tile, q head, batch row), the row tiles of the
 // last positions (which see the most keys) first.
 template <int A, bool CAP>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
     dq_kernel(const __grid_constant__ Args a) {
   constexpr int DP = 64 * A;
-  constexpr int NACC = DP / 2;
+  constexpr int NWG = wgs(A), AW = A / NWG;  // as in dkdv_kernel
+  constexpr int NACC = DP / NWG / 2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_bar, full[2];
   unsigned char* Qs = align1024(smem_raw);
   unsigned char* dOs = Qs + A * kAtom;
   unsigned char* stage0 = dOs + A * kAtom;  // stage s: K, then V
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = (NWG == 1 ? tid : tid % kThreads) / 32;
+  const int wg = NWG == 1 ? 0 : tid / kThreads;
   const int g = lane / 4, t4 = lane % 4;
   const int PT = a.rows / 64, BH = a.b * a.hq;
   const int pt = PT - 1 - (int)(blockIdx.x / BH);
@@ -782,16 +811,17 @@ __global__ void __launch_bounds__(kThreads, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_rs<A>(dq, dsa + 4 * kk, desc_mn(Kt, kk));
+      mma_rs<AW>(dq, dsa + 4 * kk, desc_mn(Kt + wg * AW * kAtom, kk));
     wgmma_commit();
   }
   wgmma_wait<0>();
   fence_regs<NACC>(dq);
 
   const size_t q_ld = (size_t)a.hq * a.d;
-  store_rows<DP>(dq, a.scale,
-                 a.dQ + ((size_t)b * a.sq + p0) * q_ld + (size_t)h * a.d, q_ld,
-                 a.sq - p0, a.d);
+  const int c0 = wg * 64 * AW;
+  store_rows<64 * AW, NWG>(
+      dq, a.scale, a.dQ + ((size_t)b * a.sq + p0) * q_ld + (size_t)h * a.d + c0,
+      q_ld, a.sq - p0, a.d - c0);
 }
 
 // cuTensorMapEncodeTiled from libcuda, looked up through the runtime (so
@@ -845,14 +875,15 @@ cudaError_t launch(const Args& a, int blocks, cudaStream_t st) {
     configured = true;
   }
   const long long rows = (long long)a.b * a.hq * a.rows;
-  ld_kernel<<<(unsigned)((rows + 15) / 16), 256, 0, st>>>(a);
+  ld_kernel<(64 * A + 127) / 128><<<(unsigned)((rows + 15) / 16), 256, 0, st>>>(
+      a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dkdv_kernel<A, CAP><<<blocks, kThreads, Smem<A>::kBytes, st>>>(a);
+  dkdv_kernel<A, CAP><<<blocks, kThreads * wgs(A), Smem<A>::kBytes, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dq_kernel<A, CAP><<<a.b * a.hq * (a.rows / 64), kThreads, Smem<A>::kBytes,
-                      st>>>(a);
+  dq_kernel<A, CAP><<<a.b * a.hq * (a.rows / 64), kThreads * wgs(A),
+                      Smem<A>::kBytes, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -861,9 +892,9 @@ cudaError_t launch(const Args& a, int blocks, cudaStream_t st) {
 // q/o/do/dq [b, sq, hq, d], k/v/dk/dv [b, skv, hkv, d], contiguous bf16 with
 // 16-byte-aligned bases; lse [b, hq, sq] fp32 from the forward
 // (flash_attention.cu); q_offset/kv_len [b] int32 on the device.  d is 64,
-// 112 or 128; hq % hkv == 0.  Scratch: ld fp32 [2, b, hq, rows] (rows = sq
-// rounded up to 64), parts fp32 [slots, 2, 64, 64 or 128] and counters
-// int32 [2 + b * hkv * key tiles], zero between launches (each launch
+// 112, 128 or 256; hq % hkv == 0.  Scratch: ld fp32 [2, b, hq, rows] (rows
+// = sq rounded up to 64), parts fp32 [slots, 2, 64, 64, 128 or 256] and
+// counters int32 [2 + b * hkv * key tiles], zero between launches (each launch
 // leaves them zero); items int32 [n_items, 8] and blocks from
 // ops.attention_bwd_plan.  Three launches: ld, dK/dV, dQ.
 // Returns the cudaError_t of the launches (0 on success).
@@ -877,7 +908,8 @@ extern "C" int repro_flash_attention_bwd_bf16(
   if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
       n_items <= 0 || blocks <= 0)
     return cudaErrorInvalidValue;
-  if (d != 64 && d != 112 && d != 128) return cudaErrorInvalidValue;
+  if (d != 64 && d != 112 && d != 128 && d != 256)
+    return cudaErrorInvalidValue;
   Args a{};
   if (!tensor_map(&a.tq, q, b, sq, hq, d) ||
       !tensor_map(&a.tdo, dout, b, sq, hq, d) ||
@@ -911,8 +943,10 @@ extern "C" int repro_flash_attention_bwd_bf16(
   a.scale_log2 = a.scale * kLog2e;
   auto st = static_cast<cudaStream_t>(stream);
   if (softcap > 0.0f)
-    return d == 64 ? launch<1, true>(a, blocks, st)
-                   : launch<2, true>(a, blocks, st);
-  return d == 64 ? launch<1, false>(a, blocks, st)
-                 : launch<2, false>(a, blocks, st);
+    return d == 64    ? launch<1, true>(a, blocks, st)
+           : d == 256 ? launch<4, true>(a, blocks, st)
+                      : launch<2, true>(a, blocks, st);
+  return d == 64    ? launch<1, false>(a, blocks, st)
+         : d == 256 ? launch<4, false>(a, blocks, st)
+                    : launch<2, false>(a, blocks, st);
 }

@@ -301,9 +301,9 @@ HEAD_DIMS = (64, 112, 128, 256)
 #: the head dims variant 1 takes (112 padded to 128 by its loads); 64
 #: (qwen1.5) and 256 (gemma2) stay on variant 0
 TRAIN_HEAD_DIMS = (112, 128)
-#: the head dims the backward (``csrc/flash_attention_bwd.cu``) takes: 256
-#: is ROADMAP §B row 2 (gemma2-2b's training on the card)
-BWD_HEAD_DIMS = (64, 112, 128)
+#: the head dims the backward (``csrc/flash_attention_bwd.cu``) takes; 256
+#: (gemma2-2b) runs blocks of two warpgroups, one an SM
+BWD_HEAD_DIMS = (64, 112, 128, 256)
 
 
 def attention_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
@@ -482,8 +482,13 @@ class AttentionBwdPlan:
             yield bh, kt, part, list(range(lo, max(lo, hi)))
 
 
-#: the backward kernels' blocks per SM (shared memory holds two)
+#: the backward kernels' blocks per SM (shared memory holds two), and at
+#: head dims above 128 (two warpgroups a block, 192 KB of tiles) one
 BWD_BLOCKS_PER_SM = 2
+
+
+def bwd_blocks_per_sm(d: int) -> int:
+    return BWD_BLOCKS_PER_SM if d <= 128 else 1
 #: items a block takes, on the mean: two, so that the shortest items,
 #: taken last, even out the blocks' ends
 BWD_ITEMS_PER_BLOCK = 2
@@ -495,19 +500,20 @@ BWD_MIN_ITEM = 8
 @functools.lru_cache(maxsize=None)
 def attention_bwd_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
                        causal: bool = True, window: int = 0,
-                       sms: int = SMS) -> AttentionBwdPlan:
+                       sms: int = SMS, *, d: int) -> AttentionBwdPlan:
     """Items of at most ``max_len`` row tiles, ``max_len`` chosen so that
-    the blocks (two per SM) take about ``BWD_ITEMS_PER_BLOCK`` items each;
-    a key tile that sees ``n`` row tiles is cut into ``ceil(n / max_len)``
-    parts of nearly equal length.  At llama3-8b's s = 2048 (32 key tiles,
-    128 row tiles, key tile j sees 128 - 4 j) that is items of 32 or fewer
-    row tiles instead of one block walking 128 while another walks 4."""
+    the blocks (two per SM, one at head dim ``d`` above 128) take about
+    ``BWD_ITEMS_PER_BLOCK`` items each; a key tile that sees ``n`` row
+    tiles is cut into ``ceil(n / max_len)`` parts of nearly equal length.
+    At llama3-8b's s = 2048 (32 key tiles, 128 row tiles, key tile j sees
+    128 - 4 j) that is items of 32 or fewer row tiles instead of one
+    block walking 128 while another walks 4."""
     grp = hq // hkv
     row_tiles, key_tiles = -(-sq // 64) * grp, -(-skv // BWD_KEYS)
     spans = [bwd_visible_tiles(kt, 0, skv, sq, grp, causal, window)
              for kt in range(key_tiles)]
     total = b * hkv * sum(t1 - t0 for t0, t1 in spans)
-    workers = BWD_BLOCKS_PER_SM * sms
+    workers = bwd_blocks_per_sm(d) * sms
     max_len = max(BWD_MIN_ITEM, -(-total // (BWD_ITEMS_PER_BLOCK * workers)))
     items, slots = [], 0
     for bh in range(b * hkv):
@@ -525,10 +531,11 @@ def attention_bwd_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_items(b, sq, hq, hkv, skv, causal, window, device) -> torch.Tensor:
+def _bwd_items(b, sq, hq, hkv, skv, causal, window, device,
+               d: int) -> torch.Tensor:
     """``attention_bwd_plan``'s items as the kernel reads them: int32
     ``[items, 8]`` on ``device``, made once per shape."""
-    plan = attention_bwd_plan(b, sq, hq, hkv, skv, causal, window)
+    plan = attention_bwd_plan(b, sq, hq, hkv, skv, causal, window, d=d)
     rows = [list(it) + [0] for it in plan.items]
     return torch.tensor(rows, dtype=torch.int32).to(device)
 
@@ -891,8 +898,8 @@ def attention_backward_with(entry, q, k, v, o, do, lse, q_offset, kv_len, *,
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"the CUDA attention backward takes head dim 64, "
-                         f"112 or 128, got {d} (ROADMAP §B row 2)")
+        raise ValueError(f"the CUDA attention backward takes head dim "
+                         f"{BWD_HEAD_DIMS}, got {d}")
     if o.shape != q.shape or do.shape != q.shape or {o.dtype, do.dtype} != {
             torch.bfloat16}:
         raise ValueError(f"o and do must be bf16 {tuple(q.shape)}")
@@ -901,18 +908,18 @@ def attention_backward_with(entry, q, k, v, o, do, lse, q_offset, kv_len, *,
     o, do, lse = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format) for t in (o, do, lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    plan = attention_bwd_plan(b, sq, hq, hkv, skv, bool(causal), int(window))
+    plan = attention_bwd_plan(b, sq, hq, hkv, skv, bool(causal), int(window),
+                              d=d)
     items = _bwd_items(b, sq, hq, hkv, skv, bool(causal), int(window),
-                       q.device)
+                       q.device, d)
     # per (q head, position) in tile order, positions padded to whole
     # tiles: log2(e) * lse and rowsum(dO o O)
     rows = -(-sq // 64) * 64
     ld = torch.empty((2, b, hq, rows), dtype=torch.float32, device=q.device)
     # fp32 dK/dV partials of a key tile: dK and dV, 64 keys x the head dim
-    # padded to 64 or 128
-    parts = torch.empty(max(plan.slots, 1) * 2 * BWD_KEYS *
-                        (64 if d <= 64 else 128), dtype=torch.float32,
-                        device=q.device)
+    # padded to a multiple of 64
+    parts = torch.empty(max(plan.slots, 1) * 2 * BWD_KEYS * (-(-d // 64) * 64),
+                        dtype=torch.float32, device=q.device)
     counters = _counters(q, 2 + b * hkv * plan.key_tiles)
     _launch(entry,
             (_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),

@@ -52,21 +52,41 @@ def head_spec(ctx: ATPContext):
     return (ctx.ax2, ctx.ax1)
 
 
+def axis_size(topo, axis) -> int:
+    """The size of one mesh axis, or of a tuple of them (flattened)."""
+    if isinstance(axis, str):
+        return topo.axis_size(axis)
+    return math.prod(topo.axis_size(a) for a in axis)
+
+
+def axis_index(topo, coords: dict, axis) -> int:
+    """A rank's coordinate on one mesh axis, or its row-major index over a
+    tuple of them (the flat TP index ``i1 * d2 + i2``)."""
+    if isinstance(axis, str):
+        return coords[axis]
+    i = 0
+    for a in axis:
+        i = i * topo.axis_size(a) + coords[a]
+    return i
+
+
 def cut(ctx: ATPContext, x: torch.Tensor, spec, lead: int = 0) -> torch.Tensor:
     """This rank's shard of global ``x`` under ``spec`` (one entry per dim
-    after ``lead`` unsplit leading dims, e.g. the stacked layer dim).
+    after ``lead`` unsplit leading dims, e.g. the stacked layer dim; an
+    entry is an axis name, a tuple of names split row-major, or None).
     Returns ``x`` itself when nothing is split, else a contiguous copy."""
     sliced = False
     for i, axis in enumerate(spec):
         if axis is None:
             continue
         dim = lead + i
-        n = ctx.topo.axis_size(axis)
+        n = axis_size(ctx.topo, axis)
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                              f"over {axis}={n}")
         size = x.shape[dim] // n
-        x = x.narrow(dim, ctx.coords[axis] * size, size)
+        x = x.narrow(dim, axis_index(ctx.topo, ctx.coords, axis) * size,
+                     size)
         sliced = True
     return x.contiguous() if sliced else x
 

@@ -2,9 +2,11 @@
 (counterpart of ``repro.models.lm``): paged serving, the wave baseline over
 contiguous decode caches (``init_decode_caches``, ``decode_step``) and the
 training loss (``forward`` with no caches, ``vocab_parallel_ce``,
-``train_loss``) of the dense, zamba and mamba segment kinds, and the MTP
-head of a dense model as the speculative server's draft proposer
-(``mtp_draft_logits``).
+``train_loss``, with the MoE aux term and the MTP head's term) of the
+dense, moe, zamba and mamba segment kinds, and the MTP head of a dense
+model as the speculative server's draft proposer (``mtp_draft_logits``).
+A moe layer is a dense block's attention (and k/v caches) followed by
+the MoE FFN (``models.moe``).
 
 Parameters come in two forms.  ``init_params`` makes the GLOBAL tree with
 the JAX package's keys (``seg0/attn/wq`` ... stacked ``[count, ...]``; a
@@ -55,12 +57,15 @@ from repro_torch.core.mesh import (MeshTopo, dp_axis_names, resolve_device,
                                    tp_axis_names)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models import mamba2, paging, transformer
+from repro_torch.models import mamba2, moe, paging, transformer
 
 _A10 = "segment kind {!r} is not ported yet (ROADMAP A10: other segment kinds)"
 
 #: segment kinds the port serves
-KINDS = frozenset({"dense", "zamba", "mamba"})
+KINDS = frozenset({"dense", "moe", "zamba", "mamba"})
+#: the kinds whose layers are a dense block's attention with its k/v caches
+#: (the reference's ``PAGED_CACHE_KINDS`` without MLA's)
+ATTN_KINDS = frozenset({"dense", "moe"})
 #: the served kinds with O(1)-per-slot recurrent state, pooled by slot id
 RECURRENT_STATE_KINDS = frozenset({"mamba", "zamba"})
 
@@ -113,9 +118,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
     def mamba():
         return mamba2.mamba_params(gen, cfg, dtype, device)
 
+    def moe_layer():
+        blk = transformer.dense_block_params(gen, cfg, dtype, device,
+                                             mlp=False)
+        blk["moe"] = moe.moe_params(gen, cfg, dtype, device)
+        return blk
+
     for i, seg in enumerate(segments(cfg)):
         if seg.kind == "dense":
             p[f"seg{i}"] = _stacked((seg.count,), dense)
+        elif seg.kind == "moe":
+            p[f"seg{i}"] = _stacked((seg.count,), moe_layer)
         elif seg.kind == "zamba":
             p[f"seg{i}"] = {"mamba": _stacked((seg.count, seg.inner - 1), mamba)}
         else:
@@ -181,6 +194,10 @@ def shard_params(cfg: ModelConfig, params: dict, ctx: ATPContext) -> dict:
         sp = params.pop(f"seg{i}")
         if seg.kind == "dense":
             out[f"seg{i}"] = transformer.shard_dense_block(ctx, cfg, sp)
+        elif seg.kind == "moe":
+            blk = transformer.shard_dense_block(ctx, cfg, sp)
+            blk["moe"] = moe.shard_moe(ctx, cfg, sp.pop("moe"))
+            out[f"seg{i}"] = blk
         elif seg.kind == "zamba":  # [count, inner-1, ...]: two stacked dims
             out[f"seg{i}"] = {"mamba": mamba2.shard_mamba(ctx, sp["mamba"], 2)}
         else:
@@ -271,7 +288,7 @@ def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
 
     caches = {}
     for i, seg in enumerate(segments(cfg)):
-        if seg.kind == "dense":
+        if seg.kind in ATTN_KINDS:
             caches[f"seg{i}"] = attn_pool(seg.count)
         elif seg.kind == "zamba":
             caches[f"seg{i}"] = {"attn": attn_pool(seg.count),
@@ -322,7 +339,7 @@ def init_decode_caches(cfg: ModelConfig, ctx: ATPContext, B: int,
 
     caches = {}
     for i, seg in enumerate(segments(cfg)):
-        if seg.kind == "dense":
+        if seg.kind in ATTN_KINDS:
             caches[f"seg{i}"] = attn_cache(seg.count)
         elif seg.kind == "zamba":
             caches[f"seg{i}"] = {"attn": attn_cache(seg.count),
@@ -529,6 +546,18 @@ def shared_attention(ctx: ATPContext, cfg: ModelConfig, shared, x, x_emb0,
                                    positions, plan, 0, cache, paged)
 
 
+def moe_layer(ctx: ATPContext, cfg: ModelConfig, p, x, positions, plan,
+              window: int, cache=None, paged=None):
+    """One moe layer (the reference's ``_apply_block("moe")``): the dense
+    block's attention, then the MoE FFN.  Returns (x, the aux loss)."""
+    h = L.norm(ctx, cfg, x, p["ln_attn"])
+    x = x + transformer.attn_block(ctx, cfg, p["attn"], h, positions, plan,
+                                   window, cache, paged)
+    m, aux = moe.moe_block(ctx, cfg, p["moe"], L.norm(ctx, cfg, x,
+                                                      p["ln_mlp"]))
+    return x + m, aux
+
+
 def _mamba(ctx, cfg, p, x, pool, sm: SlotMap):
     conv = {k: pool[k] for k in ("conv_x", "conv_bc")}
     x, rows = mamba2.mamba_block(ctx, cfg, p, x, _state_take(conv, sm),
@@ -539,7 +568,7 @@ def _mamba(ctx, cfg, p, x, pool, sm: SlotMap):
 
 def check_trainable(cfg: ModelConfig):
     """Raise for what the training path does not take yet (every kind the
-    port serves trains; ``train_loss`` refuses the MTP head's loss)."""
+    port serves trains)."""
     _check_kinds(cfg)
 
 
@@ -588,11 +617,13 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
     (its activations recomputed in the backward): a dense block, a zamba
     super-block (the shared block and its Mamba2 blocks), a tail Mamba2
     block.  Each unit binds its segment's view, which its recompute runs
-    under too."""
+    under too.  Returns the final-norm hidden and the MoE layers' aux loss
+    summed (0 without them)."""
     from torch.utils.checkpoint import checkpoint
 
     seg_ctxs, x = _embed(ctx, cfg, params, tokens)
     x_emb0 = x
+    aux = x.new_zeros((), dtype=torch.float32)
     plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
     for i, (seg, sctx) in enumerate(zip(segments(cfg), seg_ctxs)):
         x = _transition(i, seg_ctxs[max(i - 1, 0)], sctx, x)
@@ -603,6 +634,12 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
                 def unit(h, bp=_layer(sp, j), window=window, sctx=sctx):
                     return transformer.dense_block(sctx, cfg, bp, h,
                                                    positions, plan, window)
+                units.append(unit)
+        elif seg.kind == "moe":
+            for j, window in enumerate(_window_pattern(cfg, seg.count)):
+                def unit(h, bp=_layer(sp, j), window=window, sctx=sctx):
+                    return moe_layer(sctx, cfg, bp, h, positions, plan,
+                                     window)
                 units.append(unit)
         elif seg.kind == "zamba":
             for j in range(seg.count):
@@ -623,7 +660,10 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
             for unit in units:
                 x = (checkpoint(unit, x, use_reentrant=False) if remat
                      else unit(x))
-    return _final_norm(cfg, params, seg_ctxs[-1], x)
+                if seg.kind == "moe":
+                    x, a = x
+                    aux = aux + a
+    return _final_norm(cfg, params, seg_ctxs[-1], x), aux
 
 
 def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
@@ -642,7 +682,7 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
     super-block's) activations in the backward."""
     if caches is None:
         check_trainable(cfg)
-        return _train_forward(ctx, cfg, params, tokens, positions, remat)
+        return _train_forward(ctx, cfg, params, tokens, positions, remat)[0]
     _check_kinds(cfg)
     if any(ctx.for_segment(s.kind).seq_parallel for s in segments(cfg)):
         raise NotImplementedError("seq_parallel does not apply to decode")
@@ -668,6 +708,10 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
                     x = transformer.dense_block(sctx, cfg, _layer(sp, j), x,
                                                 positions, plan, window,
                                                 _layer(sc, j), paged)
+            elif seg.kind == "moe":
+                for j, window in enumerate(_window_pattern(cfg, seg.count)):
+                    x = moe_layer(sctx, cfg, _layer(sp, j), x, positions,
+                                  plan, window, _layer(sc, j), paged)[0]
             elif seg.kind == "zamba":
                 for j in range(seg.count):
                     x = shared_attention(sctx, cfg, params["shared_attn"], x,
@@ -706,20 +750,36 @@ def train_loss(ctx: ATPContext, cfg: ModelConfig, params, batch,
     count in the denominator, as in the JAX package), the same on every
     rank: the sum goes through the dp boundary, so each rank's backward
     gives its own tokens' share of the gradient, which the optimizer sums
-    over dp.  A config with an MTP head raises: its loss term is not
-    ported."""
-    if cfg.mtp:
-        raise NotImplementedError("the MTP loss term is ROADMAP A9 (MTP "
-                                  "training)")
+    over dp.  With an MTP head, ``mtp_loss_weight`` times the head's loss
+    on the token two ahead (labels rolled by one) over the same count; with
+    MoE layers, ``aux_loss_weight`` times their aux loss averaged over dp,
+    per layer."""
     tokens = batch["tokens"]
-    h = forward(ctx, cfg, params, tokens, _positions(tokens), remat=remat)
+    positions = _positions(tokens)
+    check_trainable(cfg)
+    h, aux = _train_forward(ctx, cfg, params, tokens, positions, remat)
+    conj = not _exit_gathers(ctx, cfg)
     with region("shell:head"):
-        logits = lm_logits(ctx, cfg, params, h,
-                           conj=not _exit_gathers(ctx, cfg))
+        logits = lm_logits(ctx, cfg, params, h, conj=conj)
         per_tok = vocab_parallel_ce(ctx, logits, batch["labels"])
     with region("shell:loss"):
         total = atp_boundary(ctx, per_tok.sum(), ctx.dp_axes)
-    return total / (per_tok.numel() * ctx.dp)
+    count = per_tok.numel() * ctx.dp
+    loss = total / count
+    if cfg.mtp:
+        # predict t+2 from (h_t, emb(t+1))
+        with region("shell:mtp"):
+            logits2 = _mtp_logits(ctx, cfg, params, h, positions,
+                                  torch.roll(tokens, -1, dims=1), conj)
+            per_tok2 = vocab_parallel_ce(
+                ctx, logits2, torch.roll(batch["labels"], -1, dims=1))
+            l2 = atp_boundary(ctx, per_tok2.sum(), ctx.dp_axes)
+        loss = loss + cfg.mtp_loss_weight * l2 / count
+    if cfg.moe is not None:
+        with region("shell:loss"):
+            aux = atp_boundary(ctx, aux, ctx.dp_axes) / ctx.dp
+        loss = loss + cfg.moe.aux_loss_weight * aux / max(1, cfg.num_layers)
+    return loss
 
 
 def prefill_logits(ctx: ATPContext, cfg: ModelConfig, params, batch):
@@ -764,7 +824,14 @@ _LEAF_SPECS = {"embed": L.embed_spec, "lm_head": L.head_spec,
                "w_out": L.row_w_spec, "ln": L.feat_spec,
                "conv": _replicated, "A_log": _replicated, "D": _replicated,
                "dt_bias": _replicated, "gn": _replicated,
-               "w_in_h": L.col_w_spec, "w_in_e": L.col_w_spec}
+               "w_in_h": L.col_w_spec, "w_in_e": L.col_w_spec,
+               "proj_h": L.col_w_spec, "proj_e": L.col_w_spec}
+
+
+#: the same for the leaves of an MoE layer's ``moe`` node (its ``shared``
+#: MLP's are a dense MLP's)
+_MOE_SPECS = {"router": _replicated, "w_upgate": moe.expert_spec,
+              "w_down": moe.expert_spec}
 
 
 def replication_factors(cfg: ModelConfig, ctx: ATPContext, params) -> dict:
@@ -773,14 +840,14 @@ def replication_factors(cfg: ModelConfig, ctx: ATPContext, params) -> dict:
     the global gradient norm divides out."""
     check_trainable(cfg)
 
-    def walk(tree, name=None):
+    def walk(tree, name=None, parent=None):
         if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
-        spec = _LEAF_SPECS[name](ctx)
+            return {k: walk(v, k, name) for k, v in tree.items()}
+        specs = _MOE_SPECS if parent == "moe" else _LEAF_SPECS
         sharded = 1
-        for axis in spec:
+        for axis in specs[name](ctx):
             if axis is not None:
-                sharded *= ctx.topo.axis_size(axis)
+                sharded *= L.axis_size(ctx.topo, axis)
         return ctx.tp // sharded
 
     return walk(params)
@@ -817,6 +884,10 @@ def paged_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, start,
     (speculative decode feeds it to :func:`mtp_draft_logits`)."""
     positions = step_positions(tokens, start)
     paged = {"table": table, "start": start}
+    page = _pool_page_size(caches)
+    if page is not None:
+        # where this step's k/v land: once for every layer, k and v
+        paged["write"] = paging.write_plan(table, start, tokens.shape[1], page)
     if slot is not None:
         paged["slot"] = slot
     h = forward(ctx, cfg, params, tokens, positions, caches, paged)
@@ -825,6 +896,16 @@ def paged_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, start,
     if with_hidden:
         return logits, h, caches
     return logits, caches
+
+
+def _pool_page_size(caches) -> int | None:
+    """The page size of the attention pools in :func:`init_paged_caches`'s
+    ``caches`` (None for a model with no attention pools)."""
+    for c in caches.values():
+        c = c.get("attn", c)
+        if "k" in c:
+            return c["k"].shape[2]
+    return None
 
 
 def step_positions(tokens, start):
@@ -844,16 +925,33 @@ def mtp_draft_logits(ctx: ATPContext, cfg: ModelConfig, params, h, positions,
     attends only within the fed window (no cache): a weaker proposer, never
     a wrong answer, since the trunk verifies every draft."""
     with region("shell:mtp"):
-        mctx = dataclasses.replace(ctx, seq_parallel=False, segment_plans=())
-        mp = params["mtp"]
-        emb_next = embed_tokens(mctx, cfg, params["embed"], next_tokens)
-        u = atp_boundary(mctx, ops.matmul(h, mp["proj_h"])
-                         + ops.matmul(emb_next, mp["proj_e"]), mctx.ax2)
-        # back to the [.., h/d2] block I/O layout
-        u = shard_slice(_gather_ax1(mctx, u), mctx.index2(), mctx.d2, dim=-1)
-        plan = L.make_attn_plan(mctx, cfg.num_heads, cfg.num_kv_heads)
-        u = transformer.dense_block(mctx, cfg, mp["block"], u, positions,
-                                    plan, 0)
-        u = L.norm(mctx, cfg, u, mp["norm"])
-        return lm_logits(mctx, cfg, params, u)
+        return _mtp_logits(ctx, cfg, params, h, positions, next_tokens)
+
+
+def _mtp_logits(ctx: ATPContext, cfg: ModelConfig, params, h, positions,
+                next_tokens, conj: bool = True):
+    """The MTP head on (h, emb(next_tokens)), serving's and training's: two
+    column-first projections sharing one ax2 boundary, gathered back to
+    the block I/O layout, then the dense block, its norm and the head, all
+    under the context without sequence parallelism or segment plans (h
+    left the sequence-parallel domain at the forward's exit).  Under
+    autograd, each column-first input is conjugated over ax1 (``conj``
+    False: h's gather reduce-scatters its gradient instead) and the
+    gathered sum over ax2, as in :func:`shared_attention`."""
+    mctx = dataclasses.replace(ctx, seq_parallel=False, segment_plans=())
+    mp = params["mtp"]
+    emb_next = embed_tokens(mctx, cfg, params["embed"], next_tokens)
+    if conj:
+        h = conjugate(mctx, h, mctx.ax1)
+    u = atp_boundary(
+        mctx, ops.matmul(h, mp["proj_h"])
+        + ops.matmul(conjugate(mctx, emb_next, mctx.ax1), mp["proj_e"]),
+        mctx.ax2)
+    # back to the [.., h/d2] block I/O layout
+    u = shard_slice(conjugate(mctx, _gather_ax1(mctx, u), mctx.ax2),
+                    mctx.index2(), mctx.d2, dim=-1)
+    plan = L.make_attn_plan(mctx, cfg.num_heads, cfg.num_kv_heads)
+    u = transformer.dense_block(mctx, cfg, mp["block"], u, positions, plan, 0)
+    u = L.norm(mctx, cfg, u, mp["norm"])
+    return lm_logits(mctx, cfg, params, u)
 

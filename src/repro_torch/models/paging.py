@@ -11,7 +11,8 @@ scales with live tokens, not ``slots x s_max``.
     the JAX package with its copy-on-write radix prefix index;
   - :func:`gather_pages` / :func:`append_tokens` are the device-side
     accessors in torch: attention reads a slot's mapped pages, and cache
-    writes scatter tokens through the table;
+    writes scatter tokens through the table, at the places a step's
+    :func:`write_plan` works out once for all its layers;
   - :func:`append_tokens_q` / :func:`gather_pages_q` are their quantized
     forms: an int8 or fp8 pool beside an fp16 pool of per-position scales,
     riding the same tables, dequantized to the model dtype as it is read.
@@ -349,38 +350,62 @@ def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                      + tuple(pages.shape[2:]))
 
 
+def write_plan(table: torch.Tensor, start: torch.Tensor, s: int, page: int):
+    """Where a step's ``[B, s]`` token run lands in every pool it writes:
+    ``(phys [B*s], offset [B*s], last [B*s])``.
+
+    Position p of slot b lands in physical page ``table[b, p // page]`` at
+    offset ``p % page``; positions past the table width land on the
+    garbage page.  ``last[i]`` is the last flat writer of the place that
+    writer i writes: where several positions land on one place (the
+    garbage page: a decode tick's idle rows all write position 0 there,
+    and read it back) each writes the last one's value, so the pool does
+    not depend on the order in which the device applies the writes.  An
+    MoE layer's capacity makes idle rows differ, and what they read back
+    decides which slots the live rows' tokens get.  The plan depends on
+    the table, ``start``, ``s`` and the page size only, so a step makes it
+    once for every layer and for k and v (:func:`lm.paged_step`)."""
+    pos = start.long()[:, None] + torch.arange(s, device=start.device)[None, :]
+    logical = pos // page
+    mp = table.shape[1]
+    phys = torch.where(
+        logical < mp,
+        torch.gather(table.long(), 1, logical.clamp(max=mp - 1)),
+        torch.full_like(logical, GARBAGE_PAGE)).reshape(-1)
+    off = (pos % page).reshape(-1)
+    dest = phys * page + off
+    order = torch.arange(dest.numel(), device=dest.device)
+    last = ((dest[:, None] == dest[None, :]) * order).amax(1)
+    return phys, off, last
+
+
 def append_tokens(pages: torch.Tensor, table: torch.Tensor,
-                  start: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+                  start: torch.Tensor, values: torch.Tensor,
+                  plan=None) -> torch.Tensor:
     """Scatter per-slot token runs into the pool through the page table.
 
     pages [num_pages, page, ...feat]; table [B, mp]; start [B] (each
-    slot's first logical position for this run); values [B, s, ...feat].
-    Position p of slot b lands in physical page ``table[b, p // page]`` at
-    offset ``p % page``.  Writes beyond a slot's valid length land on pages
-    that are overwritten by the same slot's next tokens or on the garbage
-    page — never read unmasked.
+    slot's first logical position for this run); values [B, s, ...feat];
+    ``plan`` the step's :func:`write_plan` (made here when None).  Writes
+    beyond a slot's valid length land on pages that are overwritten by the
+    same slot's next tokens or on the garbage page — never read unmasked;
+    colliding writes all write the last one's value.
 
     Unlike the JAX version, which returns a new pool, this writes IN PLACE
     into ``pages`` (``index_put_``): a serving step owns its pools, and a
     copy of a multi-gigabyte pool per layer per step would dominate the
     step.  Returns ``pages``.
     """
-    B, s = values.shape[:2]
-    page = pages.shape[1]
-    pos = start.long()[:, None] + torch.arange(s, device=start.device)[None, :]
-    logical = pos // page
-    mp = table.shape[1]
-    # positions past the table width scatter to the garbage page
-    phys = torch.where(
-        logical < mp,
-        torch.gather(table.long(), 1, logical.clamp(max=mp - 1)),
-        torch.full_like(logical, GARBAGE_PAGE))
+    if plan is None:
+        plan = write_plan(table, start, values.shape[1], pages.shape[1])
+    phys, off, last = plan
+    values = values.reshape((-1,) + values.shape[2:]).index_select(0, last)
     if pages.dtype == torch.float8_e4m3fn:
         # fp8 scatters as its bytes: one byte-wide scatter on every device
         pages.view(torch.uint8).index_put_(
-            (phys, pos % page), values.to(pages.dtype).view(torch.uint8))
+            (phys, off), values.to(pages.dtype).view(torch.uint8))
     else:
-        pages.index_put_((phys, pos % page), values.to(pages.dtype))
+        pages.index_put_((phys, off), values.to(pages.dtype))
     return pages
 
 
@@ -436,16 +461,20 @@ def quantize_tokens(values: torch.Tensor, page_dtype: str):
     return q, scale.to(torch.float16)
 
 
-def append_tokens_q(pages, scales, table, start, values, page_dtype: str):
+def append_tokens_q(pages, scales, table, start, values, page_dtype: str,
+                    plan=None):
     """Quant-aware :func:`append_tokens`, in place: returns (pages,
     scales).  ``scales is None`` means a full-width pool (plain append);
     otherwise the values are quantized per position and both the value
-    pool and the parallel scale pool are scattered through the table."""
+    pool and the parallel scale pool are scattered through the table, by
+    the same ``plan``."""
     if scales is None:
-        return append_tokens(pages, table, start, values), None
+        return append_tokens(pages, table, start, values, plan), None
+    if plan is None:
+        plan = write_plan(table, start, values.shape[1], pages.shape[1])
     q, s = quantize_tokens(values, page_dtype)
-    return (append_tokens(pages, table, start, q),
-            append_tokens(scales, table, start, s))
+    return (append_tokens(pages, table, start, q, plan),
+            append_tokens(scales, table, start, s, plan))
 
 
 def gather_pages_q(pages, scales, table, out_dtype=torch.bfloat16):

@@ -51,8 +51,9 @@ def attn_params(gen, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
-def mlp_params(gen, cfg: ModelConfig, dtype, device) -> dict:
-    h, ff = cfg.d_model, cfg.d_ff
+def mlp_params(gen, cfg: ModelConfig, dtype, device,
+               d_ff: int | None = None) -> dict:
+    h, ff = cfg.d_model, d_ff or cfg.d_ff
     s = 1.0 / math.sqrt(h)
     p = {"w_up": _normal(gen, (h, ff), s, dtype, device),
          "w_down": _normal(gen, (ff, h), 1.0 / math.sqrt(ff), dtype, device)}
@@ -61,15 +62,19 @@ def mlp_params(gen, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
-def dense_block_params(gen, cfg: ModelConfig, dtype, device) -> dict:
+def dense_block_params(gen, cfg: ModelConfig, dtype, device,
+                       mlp: bool = True) -> dict:
     """One block's global params, with the JAX block's keys and
-    distributions (norm params created at global size, sharded later)."""
+    distributions (norm params created at global size, sharded later);
+    without the MLP where ``mlp`` is False (an MoE layer's)."""
     def nrm():
         return {k: v.to(device) for k, v in
                 L.norm_params(cfg, cfg.d_model).items()}
 
     p = {"ln_attn": nrm(), "attn": attn_params(gen, cfg, dtype, device),
-         "ln_mlp": nrm(), "mlp": mlp_params(gen, cfg, dtype, device)}
+         "ln_mlp": nrm()}
+    if mlp:
+        p["mlp"] = mlp_params(gen, cfg, dtype, device)
     if cfg.post_block_norms:
         p["ln_post_attn"] = nrm()
         p["ln_post_mlp"] = nrm()
@@ -98,16 +103,23 @@ def shard_dense_block(ctx: ATPContext, cfg: ModelConfig, p: dict,
     if cfg.qk_norm:
         attn["q_norm"], attn["k_norm"] = a.pop("q_norm"), a.pop("k_norm")
     out["attn"] = attn
-    m = p.pop("mlp")
-    mlp = {"w_down": cut(ctx, m.pop("w_down"), L.row_w_spec(ctx), lead)}
+    if "mlp" in p:
+        out["mlp"] = shard_mlp(ctx, cfg, p.pop("mlp"), lead)
+    return out
+
+
+def shard_mlp(ctx: ATPContext, cfg: ModelConfig, m: dict,
+              lead: int = 1) -> dict:
+    """This rank's shard of a (layer-stacked) MLP, up/gate fused."""
+    col = L.col_w_spec(ctx)
+    mlp = {"w_down": L.cut(ctx, m.pop("w_down"), L.row_w_spec(ctx), lead)}
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        mlp["w_upgate"] = torch.cat([cut(ctx, m.pop(k), col, lead)
+        mlp["w_upgate"] = torch.cat([L.cut(ctx, m.pop(k), col, lead)
                                      for k in L.FUSED_LEAVES["w_upgate"]],
                                     dim=-1)
     else:
-        mlp["w_up"] = cut(ctx, m.pop("w_up"), col, lead)
-    out["mlp"] = mlp
-    return out
+        mlp["w_up"] = L.cut(ctx, m.pop("w_up"), col, lead)
+    return mlp
 
 
 def mlp_block(ctx: ATPContext, cfg: ModelConfig, p, x):
@@ -137,8 +149,9 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
     in every row).  Paged: cache holds this layer's k/v pools [num_pages,
     page, kv_count, hd] (int8/fp8 with ``k_scale``/``v_scale`` [num_pages,
     page, kv_count] fp16 beside them for a quantized pool), paged carries
-    the page-table rows ``table [b, mp]`` and per-slot ``start [b]``, and
-    the pools are written in place.
+    the page-table rows ``table [b, mp]``, per-slot ``start [b]`` and
+    the step's ``write`` plan (:func:`paging.write_plan`), and the pools
+    are written in place.
     Contiguous (paged None): cache holds this layer's ``k``/``v`` [b,
     s_max, kv_count, hd] and ``len``, a 0-d int32 device tensor; this run's
     k/v land at rows ``len ..`` in place, the attention runs over the
@@ -194,10 +207,11 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
     # (garbage-page reads are masked by start + s)
     table, start = paged["table"], paged["start"]
     pd = paging.pool_page_dtype(cache["k"])
+    w = paged.get("write")
     paging.append_tokens_q(cache["k"], cache.get("k_scale"), table, start, k,
-                           pd)
+                           pd, w)
     paging.append_tokens_q(cache["v"], cache.get("v_scale"), table, start, v,
-                           pd)
+                           pd, w)
     kk = paging.gather_pages_q(cache["k"], cache.get("k_scale"), table,
                                out_dtype=k.dtype)
     vv = paging.gather_pages_q(cache["v"], cache.get("v_scale"), table,

@@ -4,7 +4,8 @@
     python tests/_torch_train_worker.py RANK CASE_DIR
 
 Reads ``case.json`` (arch, its depth where not the reduced config's,
-mesh (dp, d1, d2) and ``pods``, chunks, optimizer mode and steps; or a
+``mtp`` for an MTP head, mesh (dp, d1, d2) and ``pods``, chunks,
+``seq_parallel``, optimizer mode and steps; or a
 list of such cases under ``cases``, each with a ``name``, on one mesh
 size), the JAX global weights ``params.npz`` and the global batches
 ``batches.npz`` (or the files a case names under ``params`` and
@@ -63,9 +64,13 @@ def run_case(rank: int, case: dict, case_dir: Path) -> dict:
     cfg = get_config(case["arch"]).reduced()
     if case.get("layers"):
         cfg = dataclasses.replace(cfg, num_layers=case["layers"])
+    if case.get("mtp"):
+        cfg = dataclasses.replace(cfg, mtp=True)
     params = unflatten(np.load(case_dir / case.get("params", "params.npz")))
     flat = np.load(case_dir / case.get("batches", "batches.npz"))
-    ctx = make_context(topo, chunks=case["chunks"], device_type="cpu")
+    ctx = make_context(topo, chunks=case["chunks"],
+                       seq_parallel=case.get("seq_parallel", False),
+                       device_type="cpu")
     dp, i = ctx.dp, ctx.dp_index()
 
     def local(n):

@@ -14,9 +14,9 @@ reduced llama3-8b on two data-parallel axes, (pods 2, data 2, 1, 1), with
 chunks 1.  Each mesh starts four ranks of ``_torch_plan_worker.py`` once,
 for all of its cases, the four meshes at once.
 
-The port departs from the reference's inventory at two keys, both with
+The port departs from the reference's inventory at three keys, each with
 fewer wire bytes or fewer calls (ROADMAP §C lists them); :func:`departed`
-applies exactly these two to the expectation before the comparison:
+applies exactly these three to the expectation before the comparison:
 
   - ``seg{i}:zamba``: the shared block's regather of its in-projection over
     tp1 is an all-gather of the [b, s, h/d1] shards (result b*s*h
@@ -24,6 +24,11 @@ applies exactly these two to the expectation before the comparison:
     all-reduces the [b, s, h] result (``_gather_ax1_invariant``, for JAX's
     invariance typing): one call per super-block either way, half the wire
     bytes of the all-reduce;
+  - ``seg{i}:moe`` (``test_torch_moe.py``): the all-to-all dispatch's token
+    gather over tp1 is an all-gather of each rank's [T/n, h] block (result
+    T/d2 * h elements), where the reference places the block in zeros and
+    all-reduces the [T/d2, h] result, for the same typing: one call per
+    layer either way, half the wire bytes;
   - ``shell:loss``: the mean's denominator is known on every rank, so the
     port all-reduces the loss sum only (one f32 element over the dp axes)
     where the reference also all-reduces the token count.
@@ -141,6 +146,13 @@ def departed(exp: dict, cfg, plan, batch: int, seq: int) -> dict:
         if seg.kind == "zamba" and plan.d1 > 1:
             region = f"seg{i}:zamba"
             nbytes = seg.count * rows * seq * cfg.d_model * 2   # bf16
+            move((region, "psum", ("tp1",), False),
+                 (region, "all_gather", ("tp1",), False), seg.count, nbytes)
+        tokens, tp = rows * seq, plan.d1 * plan.d2
+        if seg.kind == "moe" and plan.d1 > 1 and tokens % tp == 0:
+            # the all-to-all dispatch's token gather of [T/d2, h]
+            region = f"seg{i}:moe"
+            nbytes = seg.count * tokens // plan.d2 * cfg.d_model * 2
             move((region, "psum", ("tp1",), False),
                  (region, "all_gather", ("tp1",), False), seg.count, nbytes)
     if plan.pods > 1:
@@ -305,7 +317,7 @@ def test_the_record_keys_and_bytes_follow_the_references_conventions():
                             ("seg0:dense", "ppermute", ("tp1",), True): (1, 20)}
     assert rec.by_key("bwd") == {("opt:x", "pmax", ("tp1",), False): (1, 12)}
     with pytest.raises(ValueError):
-        rec.note("all_to_all", "tp1", 1, torch.float32)
+        rec.note("broadcast", "tp1", 1, torch.float32)
 
 
 A8_CASES = [(mesh, name) for mesh in A8_MESHES for name in A8_PLANS]

@@ -538,6 +538,12 @@ FA_BWD_CASES = [
     dict(b=2, s=96, hq=4, hkv=2, d=128, window=32,
          kv_len=(0, 50)),                                  # rows see no key
     dict(b=1, s=2100, hq=32, hkv=8, d=128),                # s % 64 != 0
+    # head dim 256: two warpgroups a block, each half of dK/dV and dQ
+    dict(b=1, s=2048, hq=8, hkv=4, d=256, softcap=50.0),   # gemma2-2b
+    dict(b=2, s=640, hq=8, hkv=4, d=256, window=256,
+         softcap=50.0),                                    # the window bites
+    dict(b=2, s=96, hq=4, hkv=2, d=256, q_offset=(32, 0),
+         kv_len=(128, 70), skv=128),                       # offsets, lengths
 ]
 
 
@@ -580,10 +586,12 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FA_BWD_CASES[:5])
+@pytest.mark.parametrize("case", FA_BWD_CASES[:5] + FA_BWD_CASES[-3:])
 def test_flash_attention_backward_merges_many_parts(cuda, monkeypatch, case):
     """Items of one row tile each: every key tile of several row tiles is
-    summed from that many partials by its last item, in item order."""
+    summed from that many partials by its last item, in item order (at
+    head dim 256 each of a block's two warpgroups writes and sums its own
+    columns of a key tile's dK/dV)."""
     monkeypatch.setattr(ops, "BWD_MIN_ITEM", 1)
     monkeypatch.setattr(ops, "BWD_ITEMS_PER_BLOCK", 10 ** 6)
     ops.attention_bwd_plan.cache_clear()
@@ -591,10 +599,11 @@ def test_flash_attention_backward_merges_many_parts(cuda, monkeypatch, case):
     try:
         (q, k, v, do), qo, kl, opts = _fa_inputs(cuda, case)
         out, lse = ops.flash_attention_lse(q, k, v, qo, kl, **opts)
-        b, s, hq, _ = q.shape
+        b, s, hq, d = q.shape
         plan = ops.attention_bwd_plan(b, s, hq, k.shape[2], k.shape[1],
-                                      True, opts["window"])
+                                      True, opts["window"], d=d)
         assert plan.max_len == 1 and plan.slots > 0
+        assert plan.blocks <= ops.bwd_blocks_per_sm(d) * ops.SMS
         got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl,
                                            **opts)
         again = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl,
@@ -1417,10 +1426,41 @@ def test_flash_attention_head_dim_256_matches_plain(cuda, case):
 
 @pytest.mark.cuda
 def test_attention_backward_refuses_head_dim_256(cuda):
+    """Head dim 256 is taken now (gemma2-2b trains on the card): the
+    backward runs and matches plain; a head dim it has no instance for
+    (192) is refused."""
     q, k, v, qo, kl = _attention_inputs(cuda, 1, 4, 4, 2, 2, 256, [0], [4])
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+    got = ops.flash_attention_backward(q, k, v, out, q, lse, qo, kl)
+    want = ref.attention_bwd_ref(q, k, v, out, q, lse, qo, kl)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= BWD_REL
+    q, k, v, qo, kl = _attention_inputs(cuda, 1, 4, 4, 2, 2, 192, [0], [4])
     lse = torch.zeros(1, 2, 4, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention_backward(q, k, v, q, q, lse, qo, kl)
+
+
+GROUP_6 = {  # (b, sq, skv, hq, hkv, q_offset, kv_len): dbrx-132b, d = 128
+    # a prefill chunk of 64 rows: 384 rows of the group in 6 row tiles
+    "prefill chunk": (1, 64, 320, 48, 8, [192], [256]),
+    # a 4-slot decode tick: 6 rows a kv head, split over the keys
+    "decode tick": (4, 1, 320, 48, 8, [137, 64, 250, 9], [138, 65, 251, 10]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GROUP_6))
+def test_flash_attention_group_of_6_matches_plain(cuda, case):
+    """dbrx-132b's 48 q heads on 8 kv heads: a group of 6, which does not
+    divide the kernel's 64-row tile."""
+    b, sq, skv, hq, hkv, q_off, kv_len = GROUP_6[case]
+    q, k, v, qo, kl = _attention_inputs(cuda, b, sq, skv, hq, hkv, 128,
+                                        q_off, kv_len)
+    before = ops.ATTENTION_VARIANT_LAUNCHES[0]
+    got = ops.flash_attention(q, k, v, qo, kl)
+    assert ops.ATTENTION_VARIANT_LAUNCHES[0] == before + 1
+    _close(got, ref.attention_ref(q, k, v, qo, kl), **FA_TOL)
 
 
 @pytest.mark.cuda
@@ -1492,3 +1532,88 @@ def test_captured_speculative_step_gives_the_uncaptured_tokens(cuda):
     toks, drafts, _ = step(*args, server.caches)
     want = step.uncaptured()(*args, twin)
     assert np.array_equal(toks, want[0]) and np.array_equal(drafts, want[1])
+
+
+# ---------------------------------------------------------------------------
+# The MoE segment kind (dbrx-132b) through the kernels.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [64, 4])
+def test_moe_block_through_the_kernels_matches_fp32_with_pinned_routes(
+        cuda, tokens):
+    """One dbrx-132b MoE layer at its widths (16 experts, top-4, 6144 wide,
+    d_ff 10752) over a prefill chunk's and a decode tick's tokens: the bf16
+    kernels against the fp32 plain path on the CPU from the same weights,
+    routed by the card's expert ids (bf16 rounding may flip a choice),
+    within the path check's 5e-2 relative L2 a row; every expert's two
+    matmuls launched."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.atp import make_context
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm, moe
+
+    cfg = get_config("dbrx-132b")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p = moe.shard_moe(make_context(atp_topo(1, 1, 1), device_type="cpu"),
+                      cfg, moe.moe_params(gen, cfg, torch.bfloat16, cuda),
+                      lead=0)
+    x = torch.randn(1, tokens, cfg.d_model, generator=gen,
+                    device=cuda).bfloat16()
+    routes = []
+    route = moe.route
+
+    def recording(ctx, cfg, router, t):
+        out = route(ctx, cfg, router, t)
+        routes.append(out[0])
+        return out
+
+    def pinned(ctx, cfg, router, t):
+        gates = torch.softmax(t.float() @ router, dim=-1)
+        v = gates.gather(1, routes[0].cpu())
+        return routes[0].cpu(), v / (v.sum(-1, keepdim=True) + 1e-9), \
+            route(ctx, cfg, router, t)[2]
+
+    card_ctx = make_context(atp_topo(1, 1, 1), device_type="cuda")
+    before = ops.LAUNCHES["matmul"]
+    moe.route = recording
+    try:
+        y, _ = moe.moe_block(card_ctx, cfg, p, x)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["matmul"] == before + 2 * cfg.moe.num_experts
+        moe.route = pinned
+        want, _ = moe.moe_block(
+            make_context(atp_topo(1, 1, 1), device_type="cpu"), cfg,
+            lm.tree_map(lambda t: t.cpu().float(), p), x.cpu().float())
+    finally:
+        moe.route = route
+    got = y.float().cpu()[0]
+    # a token whose every choice was dropped gives a zero row on both sides
+    rel = (got - want[0]).norm(dim=-1) / want[0].norm(dim=-1).clamp_min(
+        1e-30)
+    assert torch.isfinite(got).all() and float(rel.max()) <= 5e-2, \
+        float(rel.max())
+
+
+@pytest.mark.cuda
+def test_paged_append_writes_the_last_value_where_positions_collide(cuda):
+    """A decode tick's idle rows all land on the garbage page's position
+    0 with values that differ (an MoE layer's capacity makes them differ):
+    the pool holds the last row's value, every time, as on the CPU."""
+    from repro_torch.models import paging
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.tensor([[1, 2], [0, 0], [0, 0], [0, 0]], dtype=torch.int32,
+                         device=cuda)
+    start = torch.tensor([9, 0, 0, 0], dtype=torch.int32, device=cuda)
+    values = torch.randn(4, 1, 8, 128, generator=gen, device=cuda).bfloat16()
+    cpu = paging.append_tokens(torch.zeros(3, 16, 8, 128, dtype=torch.bfloat16),
+                               table.cpu(), start.cpu(), values.cpu())
+    for _ in range(20):
+        pages = paging.append_tokens(
+            torch.zeros(3, 16, 8, 128, dtype=torch.bfloat16, device=cuda),
+            table, start, values)
+        assert torch.equal(pages[0, 0], values[3, 0])
+        assert torch.equal(pages[1, 9], values[0, 0])
+        assert torch.equal(pages.cpu(), cpu)

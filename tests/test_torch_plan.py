@@ -321,7 +321,7 @@ def test_attention_bwd_plan_walks_every_visible_pair_once(
     (key tile, row tile) pair exactly once and no invisible one; every key
     tile has items, their parts numbered in order, split ones in slots of
     their own."""
-    plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window)
+    plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window, d=128)
     seen = collections.Counter()
     for bh, kt, _, tiles in plan.walk(sq, q_offset, kv_len, True, window):
         seen.update((bh, kt, t) for t in tiles)
@@ -348,7 +348,7 @@ def test_attention_bwd_plan_balances_the_causal_square():
     """At llama3-8b's s = 2048 key tile 0 sees 128 row tiles and key tile
     31 sees 4; the plan's items are within 1.25x of their mean, longest
     first, about two for each of the 264 blocks."""
-    plan = ops.attention_bwd_plan(1, 2048, 32, 8, 2048)
+    plan = ops.attention_bwd_plan(1, 2048, 32, 8, 2048, d=128)
     spans = [ops.bwd_visible_tiles(kt, 0, 2048, 2048, 4, True, 0)
              for kt in (0, 31)]
     assert plan.key_tiles == 32
@@ -400,7 +400,8 @@ def test_split_backward_plain_matches_attention_bwd_ref(
         monkeypatch.setattr(ops, "BWD_ITEMS_PER_BLOCK", 10 ** 6)
     ops.attention_bwd_plan.cache_clear()
     try:
-        plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window)
+        plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window,
+                                      d=16)
     finally:
         ops.attention_bwd_plan.cache_clear()
     if max_len is not None:
@@ -429,7 +430,7 @@ def test_split_backward_plain_matches_jax_grad_of_attention_core(
     numpy-made inputs: fp32, 1e-4 (the JAX side differentiates through
     its softmax; every row of these cases sees a key)."""
     d = 16
-    plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window)
+    plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window, d=d)
     rng = np.random.default_rng(sq * 7 + skv)
     q, k, v, do = _bwd_inputs(rng, b, sq, hq, hkv, skv, d)
     qo, kl = torch.tensor(q_offset), torch.tensor(kv_len)

@@ -53,6 +53,7 @@ from repro_torch.models.paging import PagedConfig  # noqa: E402
 from repro_torch.runtime.server import Request, ServerConfig  # noqa: E402
 
 from test_torch_prefix import smoke_workload  # noqa: E402
+from test_torch_train import jax_loss_and_grads  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 GEOM = dict(page_size=4, num_pages=60, pages_per_slot=8)
@@ -179,7 +180,7 @@ def test_mtp_leaves_cross_by_the_references_specs():
 def test_modes_resolve_as_the_references():
     """``speculate`` without an MTP head, or on a recurrent model, is
     switched off and served plainly; ``build_paged_step`` refuses both; the
-    training loss refuses the MTP head (its loss term is not ported)."""
+    training loss with the MTP head's term equals the reference's."""
     llama = port_config("llama3-8b").reduced()
     zamba = _mtp(port_config("zamba2-7b").reduced())
     with pytest.raises(ValueError, match="MTP head"):
@@ -195,11 +196,15 @@ def test_modes_resolve_as_the_references():
         assert not server.cfg.speculate
     mtp = _mtp(llama)
     ctx = make_context(atp_topo(1, 1, 1), device_type="cpu")
-    params = lm.shard_params(mtp, lm.init_params(mtp, seed=0, device="cpu"),
-                             ctx)
-    toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9 .MTP training"):
-        lm.train_loss(ctx, mtp, params, {"tokens": toks, "labels": toks})
+    jcfg, jparams, _ = _case("llama3-8b", 0)
+    np_params = jax.tree.map(np.asarray, jparams)
+    toks = np.arange(8, dtype=np.int32).reshape(2, 4) % mtp.vocab_size
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    want, _ = jax_loss_and_grads(jcfg, np_params, batch)
+    got = lm.train_loss(ctx, mtp, convert.params_from_jax(
+        mtp, np_params, atp_topo(1, 1, 1), 0),
+        {k: torch.from_numpy(v) for k, v in batch.items()}, remat=False)
+    np.testing.assert_allclose(float(got), want, **TOL)
 
 
 def _flatten(tree, prefix=""):
