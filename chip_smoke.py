@@ -335,14 +335,18 @@ Phases, in order, each failing the run on any error:
    predicted costs, printed both ways; model output, not measurements).
 18. train-gemma -- the attention at gemma2-2b's training shapes (b = 1, s
    = 2048, 8 q / 4 kv heads of 256, softcap 50; also a window of 512,
-   which bites): the forward with its log-sum-exp on variant 0 and the
-   backward (``flash_attention_bwd.cu``'s blocks of two warpgroups)
-   against their plain versions, timed beside the bound, the plain
-   version, SDPA without the softcap and a compiled ``flex_attention``
-   with it; then ``build_train_step`` on gemma2-2b at all 26 layers as
-   phase 8 (the loss must fall, launches counted, a profiled step), and
-   its 2-layer path check with the attention backward held on one
-   forward and a planted fault (dK zeroed) that must break it.
+   which bites): the forward with its log-sum-exp on variant 1
+   (``flash_attention_train.cu``'s 64-key instance) and the backward
+   (``flash_attention_bwd.cu``'s blocks of two warpgroups that share S^T
+   and dP^T) against their plain versions, timed beside the bound, the
+   plain version, SDPA without the softcap and a compiled
+   ``flex_attention`` with it, the forward in turns with variant 0; then
+   ``build_train_step`` on gemma2-2b at all 26 layers as phase 8 (the loss
+   must fall, launches counted, a profiled step), and its 2-layer path
+   check with the attention backward held on one forward and a planted
+   fault (dK zeroed) that must break it.  ``--parent DIR``: the backward
+   also in turns with DIR's, and then gemma2-2b's step of DIR and of this
+   tree in turns, a process each, with their peak device memory.
 19. serve-dbrx -- dbrx-132b (the MoE kind) at its published widths, depth
    cut to 4 of 40 layers: the matmul at each of its shapes (the experts'
    up|gate and down at their slots' rows) and the attention at its 48 q /
@@ -2944,9 +2948,11 @@ def by_kernel(torch, fn, calls: int = 10) -> str:
 
 
 TRAIN_AB = """import statistics, sys
+import torch
 sys.path.insert(0, sys.argv[1])
 from repro_torch.launch import train
 rows = train.main(sys.argv[2:])
+print(torch.cuda.max_memory_allocated() / 2 ** 30)
 print(statistics.median(r["ms"] for r in rows[2:]))"""
 
 
@@ -2956,19 +2962,22 @@ def parent_train_steps(parent, arch: str = "llama3-8b",
     """The training step of ``arch`` at ``layers`` of the tree in
     ``parent`` and of this one, in turns (parent, tree, tree, parent), each
     a process of its own running ``repro_torch.launch.train`` at
-    ``TRAIN_SHAPE`` for 8 steps: the median ms of steps 3-8 of each run."""
+    ``TRAIN_SHAPE`` for 8 steps: the median ms of steps 3-8 of each run,
+    and its peak device memory."""
     args = ["--arch", arch, "--layers", str(layers),
             "--seq", str(TRAIN_SHAPE["seq"]), "--batch",
             str(TRAIN_SHAPE["batch"]), "--steps", "8"]
-    ms = []
+    ms, gib = [], []
     for tree in (Path(parent), ROOT, ROOT, Path(parent)):
         out = subprocess.run(
             [sys.executable, "-c", TRAIN_AB, str(tree / "src"), *args],
             capture_output=True, text=True, timeout=600, check=True)
         ms.append(float(out.stdout.split()[-1]))
+        gib.append(float(out.stdout.split()[-2]))
     log(f"{what}: ms per step, parent {ms[0]:.2f} / {ms[3]:.2f}, this tree "
         f"{ms[1]:.2f} / {ms[2]:.2f} (parent, tree, tree, parent; steps 3-8 "
-        f"of 8, a process each)")
+        f"of 8, a process each); peak device memory GiB, parent "
+        f"{gib[0]:.2f} / {gib[3]:.2f}, this tree {gib[1]:.2f} / {gib[2]:.2f}")
 
 
 def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
@@ -4851,8 +4860,8 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
     ops.reset_launches()
     card = grads(params, batch, dev)
     launched = dict(ops.BACKWARD_LAUNCHES)
-    # the attention at s >= 128 and head dim 112 or 128 runs the training
-    # kernel (attention_plan's variant 1), at 64 and 256 the serving one
+    # the attention at s >= 128 and head dim 112, 128 or 256 runs the
+    # training kernel (attention_plan's variant 1), at 64 the serving one
     variants = list(ops.ATTENTION_VARIANT_LAUNCHES)
     trained = 1 if cfg.hd in ops.TRAIN_HEAD_DIMS else 0
     assert not on_card or (variants[1 - trained] == 0
@@ -4955,17 +4964,22 @@ def _flex_grad(torch, q, k, v, q_offset, kv_len, window, softcap, do):
     return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
 
-def gemma_train_kernels(torch, F, ops, ref, timer, floor):
+def gemma_train_kernels(torch, F, ops, ref, timer, floor, parent=None):
     """The attention at gemma2-2b's training shapes (b = 1, s = 2048, 8 q /
     4 kv heads of 256, softcap 50): the forward with its log-sum-exp on
-    variant 0 (``flash_attention.cu``; variant 1 takes head dims 112 and
-    128), and the backward (``flash_attention_bwd.cu``'s two-warpgroup
-    blocks) against their plain versions, each within phase 7's limits;
-    also with a window of 512 that bites.  Timed against the bound, the
-    plain version and the library: for the backward SDPA's without the
-    softcap and a compiled ``flex_attention``'s with it.  Returns the two
-    KernelReports, weighted per training step (remat: two forwards a
-    layer)."""
+    variant 1 (``flash_attention_train.cu``'s 64-key instance, one launch
+    counted in ``ops.ATTENTION_VARIANT_LAUNCHES[1]``), and the backward
+    (``flash_attention_bwd.cu``'s two-warpgroup blocks that share S^T and
+    dP^T) against their plain versions, each within phase 7's limits, the
+    forward also against the plain mirror of its order
+    (``ref.attention_train_ref``); also with a window of 512 that bites.
+    Timed against the bound, the plain version and the library: SDPA's
+    without the softcap and a compiled ``flex_attention``'s with it; the
+    forward in turns with variant 0 (``flash_attention.cu``, through
+    ``split_plan_of``: 0, 1, 1, 0), and with ``parent`` (an older checkout)
+    the backward in turns with that tree's (its C entry, built by its own
+    ``_build``).  Returns the two KernelReports, weighted per training step
+    (remat: two forwards a layer)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     T, L = TRAIN_SHAPE["seq"], GEMMA_TRAIN_LAYERS
     hq, hkv, d, cap = 8, 4, 256, 50.0
@@ -4976,20 +4990,32 @@ def gemma_train_kernels(torch, F, ops, ref, timer, floor):
         return torch.randn(*shape, generator=gen, device="cuda").to(
             torch.bfloat16)
 
-    fwd = KernelReport("flash_attention", "cuda",
-                       "src/repro_torch/kernels/csrc/flash_attention.cu",
+    fwd = KernelReport("flash_attention_train", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention_train.cu",
                        "src/repro/kernels/flash_attention.py:102", floor)
     bwd = KernelReport("flash_attention_bwd", "cuda",
                        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                        "src/repro/kernels/flash_attention.py:102", floor)
+    prior = None
+    if parent is not None:
+        pb = _parent_build(parent, ("flash_attention_bwd",), "train-gemma")
+        entry = pb.entry("flash_attention_bwd")
+
+        def prior(q, k, v, o, do, lse, qo, kl, **kw):
+            return ops.attention_backward_with(entry, q, k, v, o, do, lse,
+                                               qo, kl, causal=True, **kw)
     plan = ops.attention_bwd_plan(1, T, hq, hkv, T, d=d)
+    fplan = ops.attention_plan(1, T, hq, hkv, T, d=d)
+    sched = ops.attention_train_schedule(1, T, hq, hkv, T, d=d)
     log(f"train-gemma: the attention at head dim {d} ({hq} q / {hkv} kv "
-        f"heads, softcap {cap}), forward plan variant "
-        f"{ops.attention_plan(1, T, hq, hkv, T, d=d).variant}; backward "
+        f"heads, softcap {cap}), forward plan variant {fplan.variant} "
+        f"({fplan.row_tiles} row tiles of {fplan.rows}, key tiles of "
+        f"{fplan.bkv}, {len(sched.blocks)} blocks); backward "
         f"{len(plan.items)} dK/dV items of at most {plan.max_len} row tiles "
         f"on {plan.blocks} blocks of two warpgroups; limits: lse "
         f"{LSE_ATOL} absolute, output {FA_TOL}, gradients {BWD_REL} "
         f"relative L2")
+    assert fplan.variant == 1, fplan
     failed = []
     for label, window, weight in ((f"s={T} softcap {cap}", 0, L),
                                   (f"s={T} window 512 softcap {cap}", 512,
@@ -4999,10 +5025,16 @@ def gemma_train_kernels(torch, F, ops, ref, timer, floor):
         qo = torch.zeros(1, dtype=torch.int32, device="cuda")
         kl = torch.full((1,), T, dtype=torch.int32, device="cuda")
         kw = dict(window=window, softcap=cap)
+        before = ops.ATTENTION_VARIANT_LAUNCHES[1]
         out, lse = ops.flash_attention_lse(q, k, v, qo, kl, **kw)
+        launched = ops.ATTENTION_VARIANT_LAUNCHES[1] - before
         out_ref, lse_ref = ref.attention_lse_ref(q, k, v, qo, kl, **kw)
         lse_err = float((lse - lse_ref).abs().max())
         ok, err = within(out, out_ref, **FA_TOL)
+        ok_m, err_m = within(
+            out, ref.attention_train_ref(q, k, v, qo, kl, **kw)[0], **FA_TOL)
+        ok = ok and ok_m and launched == 1 and bool(lse.isfinite().all())
+        err = max(err, err_m)
         got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl,
                                            **kw)
         want = ref.attention_bwd_ref(q, k, v, out_ref, do, lse_ref, qo, kl,
@@ -5040,8 +5072,16 @@ def gemma_train_kernels(torch, F, ops, ref, timer, floor):
                 f"{'n/a' if lib_f is None else f'{lib_f:.4f} ms'}, backward "
                 f"{'n/a' if lib_b is None else f'{lib_b:.4f} ms'}")
             del o_lib, leaves
-            ft = dict(ms=timer(lambda: ops.flash_attention_lse(
-                          q, k, v, qo, kl, **kw)),
+            def v0():
+                with swapped(ops, attention_plan=split_plan_of(ops)):
+                    return ops.flash_attention_lse(q, k, v, qo, kl, **kw)
+
+            t = turns(timer, v0, lambda: ops.flash_attention_lse(
+                q, k, v, qo, kl, **kw))
+            log(f"  {label} forward: variant 0 (flash_attention.cu) "
+                f"{t[0]:.4f} / {t[3]:.4f} ms, variant 1 (the 64-key "
+                f"instance) {t[1]:.4f} / {t[2]:.4f} ms (0, 1, 1, 0)")
+            ft = dict(ms=(t[1] + t[2]) / 2,
                       plain_ms=timer(lambda: ref.attention_lse_ref(
                           q, k, v, qo, kl, **kw)),
                       library_ms=sdpa_f if lib_f is None else lib_f,
@@ -5057,9 +5097,17 @@ def gemma_train_kernels(torch, F, ops, ref, timer, floor):
             log(f"  {label}: by kernel, µs a launch: " + by_kernel(
                 torch, lambda: ops.flash_attention_backward(
                     q, k, v, out, do, lse, qo, kl, **kw)))
+            log(f"  {label} forward, by kernel, µs a launch: " + by_kernel(
+                torch, lambda: ops.flash_attention_lse(q, k, v, qo, kl, **kw)))
+            if prior is not None:
+                log(f"  {label} backward: " + interleaved(
+                    timer, lambda: prior(q, k, v, out, do, lse, qo, kl, **kw),
+                    lambda: ops.flash_attention_backward(
+                        q, k, v, out, do, lse, qo, kl, **kw)))
         path = GEMMA_TRAIN if weight else None
-        if not fwd.add(f"{label}: lse |err| {lse_err:.2e}, output "
-                       f"[variant 0]", ok and lse_err <= LSE_ATOL, err,
+        if not fwd.add(f"{label}: lse |err| {lse_err:.2e}, mirror "
+                       f"{err_m:.2e} [variant 1]",
+                       ok and lse_err <= LSE_ATOL, err,
                        FA_TOL, path, "train" if weight else None,
                        2 * weight, **ft):
             failed.append(f"flash_attention d=256 {label}")
@@ -5702,9 +5750,12 @@ def main(argv=None) -> int:
         done("path-check-train-gpt")
     if "train-gemma" in phases:
         reports += gemma_train_kernels(torch, F, ops, ref, Timer(torch),
-                                       floor_ms)
+                                       floor_ms, parent=args.parent)
         launches[GEMMA_TRAIN] = train_phase(
             torch, arch=GEMMA, layers=GEMMA_TRAIN_LAYERS, tag="_gemma")
+        if args.parent is not None:
+            parent_train_steps(args.parent, GEMMA, GEMMA_TRAIN_LAYERS,
+                               GEMMA_TRAIN)
         train_path_check(torch, arch=GEMMA, hold_attention=True)
         done("train-gemma")
     if "serve-dbrx" in phases:

@@ -58,12 +58,23 @@
 // and left the tensor cores idle together.
 // Head dim 256 (gemma2-2b) is the exception: dK and dV at 64 x 256 fp32
 // are 256 registers a thread in one warpgroup, and wgmma's M of 64 rules
-// out a smaller key tile.  So its blocks have two warpgroups, each owning
-// 128 of the 256 columns of dK and dV (or of dQ), each computing S^T and
-// dP^T over the full head dim from the same shared tiles: a warpgroup's
-// registers are then those of the d = 128 kernel, at the price of S^T and
-// dP^T done twice (6 products of the 4 a step needs in dK/dV).  K, V and
-// two stages of Q and dO take 192 KB of shared memory, so one block an SM.
+// out a smaller key tile.  So its blocks (dkdv256_kernel, dq256_kernel)
+// have two warpgroups, each owning 128 of the 256 columns of dK and dV (or
+// of dQ), and share S^T and dP^T: each warpgroup computes 32 of their 64
+// columns over the full head dim, writes its half of P^T and dS^T to
+// shared memory, and both read the whole tile as the A operand of their
+// own columns' products -- 7 products' work for the 5, against 9 where each
+// warpgroup computed S^T and dP^T in full.  K, V, two stages of Q and dO
+// and two P^T and two dS^T tiles take 226 KB of shared memory, so one
+// block an SM; the warpgroups meet at one barrier a step (P^T and dS^T
+// in), each one's P^T computed under its own dP^T, its dV and dK products
+// left running under the next step's S^T and dP^T; the softcap's tanh is
+// 1 - 2 / (1 + e^(2y)), as the forward's instance takes it.  Measured on
+// the H100 (PERF.md): without the loads of the streamed tiles the
+// kernels are 10-15% faster, without any product still half their time --
+// each step's synchronisation and the per-item set-up, not the tensor
+// cores, bound them; a stage refilled as soon as both warpgroups leave it
+// (an mbarrier in place of the barrier) measured slower.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -76,8 +87,6 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int kThreads = 128;      // one warpgroup
-// warpgroups a block of A atoms of head dim has: two at head dim 256
-__host__ __device__ constexpr int wgs(int A) { return A == 4 ? 2 : 1; }
 constexpr int kAtom = 64 * 128;    // a 64-row x 64-column bf16 swizzle atom
 constexpr int kLdBytes = 2 * 64 * 4;  // a row tile's L and D
 constexpr float kLog2e = 1.4426950408889634f;
@@ -181,6 +190,66 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const unsigned* a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64x32] (fp32, 16 registers a thread) = A[64x16] B[16x32] (+ D where
+// accumulate): A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64x128] (fp32, 64 registers a thread) (+)= A[64x16] B[16x128]: A
+// K-major and B MN-major, both in shared memory
+__device__ __forceinline__ void wgmma_ss_n128_mn(float* d, uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -440,12 +509,11 @@ __device__ __forceinline__ void mma_rs(float* d, const unsigned* a,
 // 2. dK/dV over the plan's items (see the note at the top).  CAP: a
 // softcap is applied.
 template <int A, bool CAP>
-__global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
+__global__ void __launch_bounds__(kThreads, 2)
     dkdv_kernel(const __grid_constant__ Args a) {
   constexpr int DP = 64 * A;    // the head dim, padded
-  constexpr int NWG = wgs(A), NT = kThreads * NWG;
-  constexpr int AW = A / NWG;   // atoms of dK/dV a warpgroup owns
-  constexpr int NACC = DP / NWG / 2;  // a thread's share of its 64 x DP/NWG
+  constexpr int NT = kThreads;
+  constexpr int NACC = DP / 2;  // a thread's share of 64 x DP
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t kv_bar, full[2];
   __shared__ int s_item, s_last;
@@ -455,8 +523,7 @@ __global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
   float* lds = reinterpret_cast<float*>(stage0 + 4 * A * kAtom);
 
   const int tid = threadIdx.x, lane = tid % 32;
-  const int warp = (NWG == 1 ? tid : tid % kThreads) / 32;
-  const int wg = NWG == 1 ? 0 : tid / kThreads;  // columns wg * 64 AW on
+  const int warp = tid / 32;
   const int g = lane / 4, t4 = lane % 4;
   const int grp = a.hq / a.hkv, KT = (a.skv + 63) / 64;
   const int R = a.rows / 64 * grp;
@@ -584,7 +651,7 @@ __global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs<AW>(dv, pa + 4 * kk, desc_mn(dOt + wg * AW * kAtom, kk));
+        mma_rs<A>(dv, pa + 4 * kk, desc_mn(dOt, kk));
       wgmma_commit();
       wgmma_wait<1>();  // dP^T
       fence_regs<32>(dpt);
@@ -605,7 +672,7 @@ __global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs<AW>(dk, dsa + 4 * kk, desc_mn(Qt + wg * AW * kAtom, kk));
+        mma_rs<A>(dk, dsa + 4 * kk, desc_mn(Qt, kk));
       wgmma_commit();
       wgmma_wait<0>();
     }
@@ -613,15 +680,12 @@ __global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
     fence_regs<NACC>(dv);
 
     const size_t kv_ld = (size_t)a.hkv * a.d;
-    const int c0 = wg * 64 * AW;  // this warpgroup's first column
-    bf16* dk_out =
-        a.dK + ((size_t)b * a.skv + 64 * kt) * kv_ld + kvh * a.d + c0;
-    bf16* dv_out =
-        a.dV + ((size_t)b * a.skv + 64 * kt) * kv_ld + kvh * a.d + c0;
+    bf16* dk_out = a.dK + ((size_t)b * a.skv + 64 * kt) * kv_ld + kvh * a.d;
+    bf16* dv_out = a.dV + ((size_t)b * a.skv + 64 * kt) * kv_ld + kvh * a.d;
     const int n_keys = min(64, a.skv - 64 * kt);
     if (parts == 1) {
-      store_rows<64 * AW, NWG>(dk, a.scale, dk_out, kv_ld, n_keys, a.d - c0);
-      store_rows<64 * AW, NWG>(dv, 1.0f, dv_out, kv_ld, n_keys, a.d - c0);
+      store_rows<DP>(dk, a.scale, dk_out, kv_ld, n_keys, a.d);
+      store_rows<DP>(dv, 1.0f, dv_out, kv_ld, n_keys, a.d);
       continue;
     }
     // a key tile of several items: the partial out, then the last item to
@@ -656,9 +720,8 @@ __global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
 #pragma unroll
         for (int i = 0; i < NACC; ++i) sum[i] += __ldcg(p + i * NT);
       }
-      store_rows<64 * AW, NWG>(sum, half == 0 ? a.scale : 1.0f,
-                               half == 0 ? dk_out : dv_out, kv_ld, n_keys,
-                               a.d - c0);
+      store_rows<DP>(sum, half == 0 ? a.scale : 1.0f,
+                     half == 0 ? dk_out : dv_out, kv_ld, n_keys, a.d);
     }
   }
   // the last block out resets the ticket for the next launch
@@ -674,11 +737,10 @@ __global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
 // 3. dQ: one block per (row tile, q head, batch row), the row tiles of the
 // last positions (which see the most keys) first.
 template <int A, bool CAP>
-__global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
+__global__ void __launch_bounds__(kThreads, 2)
     dq_kernel(const __grid_constant__ Args a) {
   constexpr int DP = 64 * A;
-  constexpr int NWG = wgs(A), AW = A / NWG;  // as in dkdv_kernel
-  constexpr int NACC = DP / NWG / 2;
+  constexpr int NACC = DP / 2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_bar, full[2];
   unsigned char* Qs = align1024(smem_raw);
@@ -686,8 +748,7 @@ __global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
   unsigned char* stage0 = dOs + A * kAtom;  // stage s: K, then V
 
   const int tid = threadIdx.x, lane = tid % 32;
-  const int warp = (NWG == 1 ? tid : tid % kThreads) / 32;
-  const int wg = NWG == 1 ? 0 : tid / kThreads;
+  const int warp = tid / 32;
   const int g = lane / 4, t4 = lane % 4;
   const int PT = a.rows / 64, BH = a.b * a.hq;
   const int pt = PT - 1 - (int)(blockIdx.x / BH);
@@ -811,17 +872,457 @@ __global__ void __launch_bounds__(kThreads * wgs(A), 2 / wgs(A))
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_rs<AW>(dq, dsa + 4 * kk, desc_mn(Kt + wg * AW * kAtom, kk));
+      mma_rs<A>(dq, dsa + 4 * kk, desc_mn(Kt, kk));
     wgmma_commit();
   }
   wgmma_wait<0>();
   fence_regs<NACC>(dq);
 
   const size_t q_ld = (size_t)a.hq * a.d;
-  const int c0 = wg * 64 * AW;
-  store_rows<64 * AW, NWG>(
+  store_rows<DP>(dq, a.scale,
+                 a.dQ + ((size_t)b * a.sq + p0) * q_ld + (size_t)h * a.d, q_ld,
+                 a.sq - p0, a.d);
+}
+
+// ---- head dim 256: blocks of two warpgroups that share S^T and dP^T.  A
+// step's products: each warpgroup computes its 32 of the 64 columns of S^T
+// = K Q^T and dP^T = V dO^T (or of S and dP in dq) over the full head dim
+// (m64n32k16, 16 k steps), writes its half of P^T and dS^T (bf16) to shared
+// memory in wgmma's 128-byte-swizzled K-major layout, and after a barrier
+// both read the whole 64 x 64 tile from there as the A operand of their own
+// 128 columns of dV += P^T dO and dK += dS^T Q (dQ += dS K).  That is the
+// work of 7 products for the 5 (S^T and dP^T once), where a warpgroup
+// computing S^T and dP^T in full for its columns did 9.
+constexpr int kWide = 4;    // atoms of a head-dim-256 row
+constexpr int kHalf = 4096; // 32 rows of an atom: a warpgroup's half
+
+// byte offset of the bf16 pair at (row r, column c, c even) of a 64 x 64
+// tile in the 128-byte swizzle (16-byte chunk c / 8 of row r at chunk
+// (c / 8) ^ (r % 8)), as TMA writes a tile and wgmma reads it
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// prob() with the softcap's tanh as 1 - 2 / (1 + e^(2y)) (two MUFU
+// operations where tanhf takes some twenty; the forward's instance takes
+// it so too): k2 = 2 log2(e) / (sqrt(d) softcap)
+template <bool CAP>
+__device__ __forceinline__ float prob256(float s, float L2, float* p,
+                                         const Args& a, float k2) {
+  if constexpr (!CAP) {
+    *p = ex2(fmaf(s, a.scale_log2, -L2));
+    return *p;
+  }
+  const float th = fmaf(-2.0f, rcp(1.0f + ex2(s * k2)), 1.0f);
+  *p = ex2(fmaf(a.softcap * th, kLog2e, -L2));
+  return *p * (1.0f - th * th);
+}
+
+struct Smem256 {
+  // dkdv: K, V, two stages of Q and dO, two P^T and two dS^T tiles, the
+  // stages' L and D (226 KB); dq: Q, dO, two stages of K and V, two dS
+  // tiles
+  static constexpr int kDkdv = (6 * kWide + 4) * kAtom + 2 * kLdBytes + 1024;
+  static constexpr int kDq = (6 * kWide + 2) * kAtom + 1024;
+};
+
+template <bool CAP>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    dkdv256_kernel(const __grid_constant__ Args a) {
+  constexpr int A = kWide, NT = 2 * kThreads, NACC = 64;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t kv_bar, full[2];
+  __shared__ int s_item, s_last;
+  unsigned char* Ks = align1024(smem_raw);
+  unsigned char* Vs = Ks + A * kAtom;
+  unsigned char* stage0 = Vs + A * kAtom;     // stage s: Q, then dO
+  unsigned char* Ps = stage0 + 4 * A * kAtom; // P^T tiles, by step parity
+  unsigned char* dSs = Ps + 2 * kAtom;        // dS^T tiles, by step parity
+  float* lds = reinterpret_cast<float*>(dSs + 2 * kAtom);
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = (tid % kThreads) / 32;
+  const int wg = tid / kThreads;  // S^T columns 32 wg on, dK/dV's 128 wg on
+  const int g = lane / 4, t4 = lane % 4;
+  const int grp = a.hq / a.hkv, KT = (a.skv + 63) / 64;
+  const int R = a.rows / 64 * grp;
+  const size_t ld_d = (size_t)a.b * a.hq * a.rows;
+  const float k2 = CAP ? 2.0f * kLog2e * a.scale / a.softcap : 0.0f;
+  if (tid == 0) {
+    mbar_init(&kv_bar, 1);
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int kv_uses = 0, loads = 0, uses = 0;
+
+  for (;;) {
+    __syncthreads();
+    if (tid == 0) s_item = atomicAdd(a.counters, 1);
+    __syncthreads();
+    const int it = s_item;
+    if (it >= a.n_items) break;
+    const int4 rec = *reinterpret_cast<const int4*>(a.items + 8 * it);
+    const int4 rec2 = *reinterpret_cast<const int4*>(a.items + 8 * it + 4);
+    const int bh = rec.x, kt = rec.y, part = rec2.x, parts = rec2.y;
+    const int slot0 = rec2.z;
+    const int b = bh / a.hkv, kvh = bh % a.hkv;
+    const Mask m{a.q_offset[b], max(0, min(a.kv_len[b], a.skv)), a.causal,
+                 a.window};
+    int v0, v1;
+    visible_tiles(m, kt, a.sq, grp, v0, v1);
+    const int lo = max(v0, part == 0 ? 0 : rec.z);
+    const int n = min(v1, part == parts - 1 ? R : rec.w) - lo;
+
+    // stage s <- row tile t's Q, dO, L and D
+    auto issue_rows = [&](int t, int s) {
+      const int pt = t / grp, h = kvh * grp + t % grp;
+      unsigned char* q = stage0 + s * 2 * A * kAtom;
+      mbar_expect_tx(&full[s], 2 * A * kAtom + kLdBytes);
+#pragma unroll
+      for (int c = 0; c < A; ++c) {
+        tma_load_4d(q + c * kAtom, &a.tq, 64 * c, h, 64 * pt, b, &full[s]);
+        tma_load_4d(q + (A + c) * kAtom, &a.tdo, 64 * c, h, 64 * pt, b,
+                    &full[s]);
+      }
+      const float* src = a.ld + ((size_t)(b * a.hq + h) * a.rows + 64 * pt);
+      bulk_load(lds + s * 128, src, 256, &full[s]);
+      bulk_load(lds + s * 128 + 64, src + ld_d, 256, &full[s]);
+    };
+
+    float dk[NACC], dv[NACC];
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) dk[i] = dv[i] = 0.0f;
+    if (n > 0) {
+      if (tid == 0) {
+        mbar_expect_tx(&kv_bar, 2 * A * kAtom);
+#pragma unroll
+        for (int c = 0; c < A; ++c) {
+          tma_load_4d(Ks + c * kAtom, &a.tk, 64 * c, kvh, 64 * kt, b, &kv_bar);
+          tma_load_4d(Vs + c * kAtom, &a.tv, 64 * c, kvh, 64 * kt, b, &kv_bar);
+        }
+        issue_rows(lo, loads % 2);
+      }
+      ++loads;
+      __syncwarp();
+      mbar_wait(&kv_bar, kv_uses++ & 1);
+    }
+    // Per step: this warpgroup's S^T and dP^T issued together (behind the
+    // last step's dV and dK, still in flight); its half of P^T computed and
+    // stored while dP^T runs, then its half of dS^T; after one barrier dV
+    // += P^T dO and dK += dS^T Q issued and left running into the next
+    // step.  P^T and dS^T alternate between two tiles each: a warpgroup
+    // writes the next while the other may still read these.
+    for (int i = 0; i < n; ++i) {
+      const int s = uses % 2;
+      mbar_wait(&full[s], (uses / 2) & 1);
+      ++uses;
+      const unsigned char* Qt = stage0 + s * 2 * A * kAtom;
+      const unsigned char* dOt = Qt + A * kAtom;
+      const float* Lt = lds + s * 128;
+      unsigned char* Pt = Ps + (i & 1) * kAtom;
+      unsigned char* dSt = dSs + (i & 1) * kAtom;
+      const int t = lo + i, p0 = t / grp * 64;
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x this warpgroup's 32
+      // positions
+      float st[16], dpt[16];
+      fence_regs<16>(st);
+      fence_regs<16>(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * A; ++kk)
+        wgmma_ss_n32(st, desc_k(Ks, kk), desc_k(Qt + wg * kHalf, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4 * A; ++kk)
+        wgmma_ss_n32(dpt, desc_k(Vs, kk), desc_k(dOt + wg * kHalf, kk), kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // the last step's dV and dK, and S^T
+      fence_regs<16>(st);
+
+      // P^T (register 4j + 2h + e: key row 16 warp + g + 8h, position
+      // column 32 wg + 8j + 2 t4 + e); st keeps P o dsoft for dS
+      const bool whole = m.whole(64 * kt, p0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * wg + 8 * j + 2 * t4;
+        const float2 L2 = *reinterpret_cast<const float2*>(Lt + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i0 = 4 * j + 2 * h, r = 16 * warp + g + 8 * h;
+          float p[2];
+          st[i0] = prob256<CAP>(st[i0], L2.x, &p[0], a, k2);
+          st[i0 + 1] = prob256<CAP>(st[i0 + 1], L2.y, &p[1], a, k2);
+          if (!whole) {
+            const int key = 64 * kt + r;
+            if (!m.visible(key, p0 + c)) st[i0] = p[0] = 0.0f;
+            if (!m.visible(key, p0 + c + 1)) st[i0 + 1] = p[1] = 0.0f;
+          }
+          *reinterpret_cast<unsigned*>(Pt + swz(r, c)) = pack_bf16(p[0], p[1]);
+        }
+      }
+      wgmma_wait<0>();  // dP^T
+      fence_regs<16>(dpt);
+      // dS^T = P o dsoft o (dP - D) (0 where P is)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * wg + 8 * j + 2 * t4;
+        const float2 D = *reinterpret_cast<const float2*>(Lt + 64 + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i0 = 4 * j + 2 * h, r = 16 * warp + g + 8 * h;
+          *reinterpret_cast<unsigned*>(dSt + swz(r, c)) =
+              pack_bf16(st[i0] * (dpt[i0] - D.x),
+                        st[i0 + 1] * (dpt[i0 + 1] - D.y));
+        }
+      }
+      proxy_fence();
+      // both halves of P^T and dS^T are in, and every thread's products of
+      // the last step are done: the other stage is free to refill
+      __syncthreads();
+      if (i + 1 < n) {
+        if (tid == 0) issue_rows(lo + i + 1, loads % 2);
+        ++loads;
+      }
+      // dV += P^T dO and dK += dS^T Q over this warpgroup's 128 columns:
+      // k steps of 16 positions
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n128_mn(dv, desc_k(Pt, kk),
+                         desc_mn(dOt + wg * 2 * kAtom, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n128_mn(dk, desc_k(dSt, kk),
+                         desc_mn(Qt + wg * 2 * kAtom, kk), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs<NACC>(dk);
+    fence_regs<NACC>(dv);
+
+    const size_t kv_ld = (size_t)a.hkv * a.d;
+    const int c0 = wg * 128;  // this warpgroup's first column
+    bf16* dk_out =
+        a.dK + ((size_t)b * a.skv + 64 * kt) * kv_ld + kvh * a.d + c0;
+    bf16* dv_out =
+        a.dV + ((size_t)b * a.skv + 64 * kt) * kv_ld + kvh * a.d + c0;
+    const int n_keys = min(64, a.skv - 64 * kt);
+    if (parts == 1) {
+      store_rows<128, 2>(dk, a.scale, dk_out, kv_ld, n_keys, 128);
+      store_rows<128, 2>(dv, 1.0f, dv_out, kv_ld, n_keys, 128);
+      continue;
+    }
+    // a key tile of several items: the partial out, then the last item to
+    // arrive sums the partials in item order
+    {
+      float* p = a.parts + (size_t)(slot0 + part) * 2 * 64 * 256 + tid;
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) {
+        p[i * NT] = dk[i];
+        p[(NACC + i) * NT] = dv[i];
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    int* arrivals = a.counters + 2 + bh * KT + kt;
+    if (tid == 0) {
+      const int prev = atomicAdd(arrivals, 1);
+      s_last = prev == parts - 1;
+      if (s_last) *arrivals = 0;  // clean for the next launch
+    }
+    __syncthreads();
+    if (!s_last) continue;
+    __threadfence();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float sum[NACC];
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) sum[i] = 0.0f;
+      for (int q = 0; q < parts; ++q) {
+        const float* p = a.parts + (size_t)(slot0 + q) * 2 * 64 * 256 +
+                         half * NACC * NT + tid;
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) sum[i] += __ldcg(p + i * NT);
+      }
+      store_rows<128, 2>(sum, half == 0 ? a.scale : 1.0f,
+                         half == 0 ? dk_out : dv_out, kv_ld, n_keys, 128);
+    }
+  }
+  // the last block out resets the ticket for the next launch
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(a.counters + 1, 1) == (int)gridDim.x - 1) {
+      a.counters[0] = 0;
+      a.counters[1] = 0;
+    }
+  }
+}
+
+// dQ at head dim 256: one block of two warpgroups per (row tile, q head,
+// batch row), as dq_kernel; S and dP split by key columns, dS through
+// shared memory (two tiles, by step parity), each warpgroup's 128 columns
+// of dQ += dS K left running into the next step.
+template <bool CAP>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    dq256_kernel(const __grid_constant__ Args a) {
+  constexpr int A = kWide, NACC = 64;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_bar, full[2];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* dOs = Qs + A * kAtom;
+  unsigned char* stage0 = dOs + A * kAtom;     // stage s: K, then V
+  unsigned char* dSs = stage0 + 4 * A * kAtom; // dS tile of step parity
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = (tid % kThreads) / 32;
+  const int wg = tid / kThreads;  // S columns 32 wg on, dQ's 128 wg on
+  const int g = lane / 4, t4 = lane % 4;
+  const int PT = a.rows / 64, BH = a.b * a.hq;
+  const int pt = PT - 1 - (int)(blockIdx.x / BH);
+  const int b = (int)(blockIdx.x % BH) / a.hq, h = (int)(blockIdx.x % BH) % a.hq;
+  const int kvh = h / (a.hq / a.hkv), p0 = 64 * pt;
+  const Mask m{a.q_offset[b], max(0, min(a.kv_len[b], a.skv)), a.causal,
+               a.window};
+  const float k2 = CAP ? 2.0f * kLog2e * a.scale / a.softcap : 0.0f;
+  int k_end = m.klen, k_begin = 0;
+  if (m.causal) k_end = min(k_end, min(p0 + 63, a.sq - 1) + m.qoff + 1);
+  if (m.window > 0) k_begin = max(0, p0 + m.qoff - m.window + 1);
+  const int kt0 = k_begin / 64;
+  const int n = k_end > 64 * kt0 ? (k_end - 64 * kt0 + 63) / 64 : 0;
+
+  // this thread's rows 16 warp + g + 8 hh: L and D
+  float L2[2], D[2];
+  const size_t row0 = (size_t)(b * a.hq + h) * a.rows + p0;
+  const size_t ld_d = (size_t)a.b * a.hq * a.rows;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    L2[hh] = a.ld[row0 + warp * 16 + g + 8 * hh];
+    D[hh] = a.ld[ld_d + row0 + warp * 16 + g + 8 * hh];
+  }
+
+  if (tid == 0) {
+    mbar_init(&q_bar, 1);
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue_keys = [&](int kt, int s) {
+    unsigned char* k = stage0 + s * 2 * A * kAtom;
+    mbar_expect_tx(&full[s], 2 * A * kAtom);
+#pragma unroll
+    for (int c = 0; c < A; ++c) {
+      tma_load_4d(k + c * kAtom, &a.tk, 64 * c, kvh, 64 * kt, b, &full[s]);
+      tma_load_4d(k + (A + c) * kAtom, &a.tv, 64 * c, kvh, 64 * kt, b,
+                  &full[s]);
+    }
+  };
+
+  float dq[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) dq[i] = 0.0f;
+  if (n > 0) {
+    if (tid == 0) {
+      mbar_expect_tx(&q_bar, 2 * A * kAtom);
+#pragma unroll
+      for (int c = 0; c < A; ++c) {
+        tma_load_4d(Qs + c * kAtom, &a.tq, 64 * c, h, p0, b, &q_bar);
+        tma_load_4d(dOs + c * kAtom, &a.tdo, 64 * c, h, p0, b, &q_bar);
+      }
+      issue_keys(kt0, 0);
+    }
+    __syncwarp();
+    mbar_wait(&q_bar, 0);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i % 2, kt = kt0 + i;
+    mbar_wait(&full[s], (i / 2) & 1);
+    const unsigned char* Kt = stage0 + s * 2 * A * kAtom;
+    const unsigned char* Vt = Kt + A * kAtom;
+    unsigned char* dSt = dSs + (i & 1) * kAtom;
+
+    // S = Q K^T and dP = dO V^T: 64 positions x this warpgroup's 32 keys
+    float sc[16], dp[16];
+    fence_regs<16>(sc);
+    fence_regs<16>(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * A; ++kk)
+      wgmma_ss_n32(sc, desc_k(Qs, kk), desc_k(Kt + wg * kHalf, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4 * A; ++kk)
+      wgmma_ss_n32(dp, desc_k(dOs, kk), desc_k(Vt + wg * kHalf, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // S, and the last step's dQ
+    fence_regs<16>(sc);
+
+    // P o dsoft (register 4j + 2hh + e: position row 16 warp + g + 8 hh,
+    // key column 32 wg + 8j + 2 t4 + e), 0 where the key is not visible
+    const bool whole = m.whole(64 * kt, p0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i0 = 4 * j + 2 * hh;
+        float p;
+        sc[i0] = prob256<CAP>(sc[i0], L2[hh], &p, a, k2);
+        sc[i0 + 1] = prob256<CAP>(sc[i0 + 1], L2[hh], &p, a, k2);
+        if (!whole) {
+          const int pos = p0 + warp * 16 + g + 8 * hh;
+          const int key = 64 * kt + 32 * wg + 8 * j + 2 * t4;
+          if (!m.visible(key, pos)) sc[i0] = 0.0f;
+          if (!m.visible(key + 1, pos)) sc[i0 + 1] = 0.0f;
+        }
+      }
+    }
+    wgmma_wait<0>();  // dP
+    fence_regs<16>(dp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i0 = 4 * j + 2 * hh, r = 16 * warp + g + 8 * hh;
+        *reinterpret_cast<unsigned*>(dSt + swz(r, 32 * wg + 8 * j + 2 * t4)) =
+            pack_bf16(sc[i0] * (dp[i0] - D[hh]),
+                      sc[i0 + 1] * (dp[i0 + 1] - D[hh]));
+      }
+    proxy_fence();
+    // both halves of dS are in, and every thread's products of the last
+    // step (its dQ too) are done: the other stage is free to refill
+    __syncthreads();
+    if (tid == 0 && i + 1 < n) issue_keys(kt + 1, (i + 1) % 2);
+
+    // dQ += dS K over this warpgroup's 128 columns: k steps of 16 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n128_mn(dq, desc_k(dSt, kk), desc_mn(Kt + wg * 2 * kAtom, kk),
+                       1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs<NACC>(dq);
+
+  const size_t q_ld = (size_t)a.hq * a.d;
+  const int c0 = wg * 128;
+  store_rows<128, 2>(
       dq, a.scale, a.dQ + ((size_t)b * a.sq + p0) * q_ld + (size_t)h * a.d + c0,
-      q_ld, a.sq - p0, a.d - c0);
+      q_ld, a.sq - p0, 128);
 }
 
 // cuTensorMapEncodeTiled from libcuda, looked up through the runtime (so
@@ -879,11 +1380,37 @@ cudaError_t launch(const Args& a, int blocks, cudaStream_t st) {
       a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dkdv_kernel<A, CAP><<<blocks, kThreads * wgs(A), Smem<A>::kBytes, st>>>(a);
+  dkdv_kernel<A, CAP><<<blocks, kThreads, Smem<A>::kBytes, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dq_kernel<A, CAP><<<a.b * a.hq * (a.rows / 64), kThreads * wgs(A),
-                      Smem<A>::kBytes, st>>>(a);
+  dq_kernel<A, CAP><<<a.b * a.hq * (a.rows / 64), kThreads, Smem<A>::kBytes,
+                      st>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool CAP>
+cudaError_t launch256(const Args& a, int blocks, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dkdv256_kernel<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem256::kDkdv);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(dq256_kernel<CAP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem256::kDq);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const long long rows = (long long)a.b * a.hq * a.rows;
+  ld_kernel<2><<<(unsigned)((rows + 15) / 16), 256, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dkdv256_kernel<CAP><<<blocks, 2 * kThreads, Smem256::kDkdv, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dq256_kernel<CAP><<<a.b * a.hq * (a.rows / 64), 2 * kThreads, Smem256::kDq,
+                      st>>>(a);
   return cudaGetLastError();
 }
 
@@ -942,11 +1469,12 @@ extern "C" int repro_flash_attention_bwd_bf16(
   a.scale = 1.0f / sqrtf(static_cast<float>(d));
   a.scale_log2 = a.scale * kLog2e;
   auto st = static_cast<cudaStream_t>(stream);
+  if (d == 256)
+    return softcap > 0.0f ? launch256<true>(a, blocks, st)
+                          : launch256<false>(a, blocks, st);
   if (softcap > 0.0f)
-    return d == 64    ? launch<1, true>(a, blocks, st)
-           : d == 256 ? launch<4, true>(a, blocks, st)
-                      : launch<2, true>(a, blocks, st);
-  return d == 64    ? launch<1, false>(a, blocks, st)
-         : d == 256 ? launch<4, false>(a, blocks, st)
-                    : launch<2, false>(a, blocks, st);
+    return d == 64 ? launch<1, true>(a, blocks, st)
+                   : launch<2, true>(a, blocks, st);
+  return d == 64 ? launch<1, false>(a, blocks, st)
+                 : launch<2, false>(a, blocks, st);
 }

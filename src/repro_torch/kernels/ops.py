@@ -280,7 +280,8 @@ class AttentionPlan:
     ranges of ``tiles_per_split`` tiles of ``bkv``.  Variant 1
     (``flash_attention_train.cu``, the training regime): ``row_tiles``
     tiles of 128 positions of one q head, keys in one range of tiles of
-    128; its blocks take the work items of ``attention_train_schedule``."""
+    ``bkv`` (128, or 64 at head dim 256); its blocks take the work items of
+    ``attention_train_schedule``."""
     row_tiles: int
     splits: int
     tiles_per_split: int
@@ -298,11 +299,12 @@ class AttentionPlan:
 MAX_KV_SPLITS = 32
 #: the head dims the serving kernel (variant 0) takes
 HEAD_DIMS = (64, 112, 128, 256)
-#: the head dims variant 1 takes (112 padded to 128 by its loads); 64
-#: (qwen1.5) and 256 (gemma2) stay on variant 0
-TRAIN_HEAD_DIMS = (112, 128)
+#: the head dims variant 1 takes (112 padded to 128 by its loads; 256, an
+#: instance of its own, in key tiles of 64); 64 (qwen1.5) stays on variant 0
+TRAIN_HEAD_DIMS = (112, 128, 256)
 #: the head dims the backward (``csrc/flash_attention_bwd.cu``) takes; 256
-#: (gemma2-2b) runs blocks of two warpgroups, one an SM
+#: (gemma2-2b) runs blocks of two warpgroups that share S^T and dP^T, one
+#: an SM
 BWD_HEAD_DIMS = (64, 112, 128, 256)
 
 
@@ -310,13 +312,14 @@ def attention_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
                    sms: int = SMS, *, d: int = 128) -> AttentionPlan:
     """Variant 1 where no key split is wanted, there are at least
     ``ref.TRAIN_TILE`` q rows and the head dim is one of ``TRAIN_HEAD_DIMS``
-    (the training regime: s = 2048 and the like); else variant 0
-    (``split_plan``: every serving shape, a 64-row prefill chunk or a
+    (the training regime: s = 2048 and the like), in row tiles of
+    ``ref.TRAIN_TILE`` and key tiles of ``ref.train_keys(d)``; else variant
+    0 (``split_plan``: every serving shape, a 64-row prefill chunk or a
     decode tick)."""
     plan = split_plan(b, sq, hq, hkv, skv, sms)
-    tile = ref.TRAIN_TILE
+    tile, keys = ref.TRAIN_TILE, ref.train_keys(d)
     if plan.splits == 1 and sq >= tile and d in TRAIN_HEAD_DIMS:
-        return AttentionPlan(-(-sq // tile), 1, -(-skv // tile), tile, tile,
+        return AttentionPlan(-(-sq // tile), 1, -(-skv // keys), tile, keys,
                              1)
     return plan
 
@@ -376,19 +379,22 @@ TRAIN_L2_BYTES = 8 << 20
 @functools.lru_cache(maxsize=None)
 def attention_train_schedule(b: int, sq: int, hq: int, hkv: int, skv: int,
                              causal: bool = True, window: int = 0,
-                             sms: int = SMS) -> AttentionTrainSchedule:
+                             sms: int = SMS, *,
+                             d: int = 128) -> AttentionTrainSchedule:
     """Every (batch row, q head, row tile) once, dealt to the block with
     the least work so far (the lowest-numbered of equals).  The items run
-    in groups of (batch row, kv head) whose K/V (the head dim padded to
-    128) fit ``TRAIN_L2_BYTES``; inside a group longest first -- the cost of
-    an item is its key tiles at q_offset 0 and kv_len ``skv``, plus one for
-    its Q load and store -- then by row tile, the q heads of a kv group next
-    to each other.  At llama3-8b's s = 2048 (one group) that is 512 items of
-    2 to 17 units on 132 blocks of 35 to 38 units."""
+    in groups of (batch row, kv head) whose K/V (the head dim ``d`` padded
+    to at least 128) fit ``TRAIN_L2_BYTES``; inside a group longest first
+    -- the cost of an item is its key tiles (of ``ref.train_keys(d)``) at
+    q_offset 0 and kv_len ``skv``, plus one for its Q load and store --
+    then by row tile, the q heads of a kv group next to each other.  At
+    llama3-8b's s = 2048 (one group) that is 512 items of 2 to 17 units on
+    132 blocks of 35 to 38 units."""
     row_tiles, grp = -(-sq // ref.TRAIN_TILE), hq // hkv
-    cost = [len(ref.train_key_tiles(t, 0, skv, sq, skv, causal, window)) + 1
-            for t in range(row_tiles)]
-    per_group = max(1, TRAIN_L2_BYTES // (2 * skv * ref.TRAIN_TILE * 2))
+    keys = ref.train_keys(d)
+    cost = [len(ref.train_key_tiles(t, 0, skv, sq, skv, causal, window,
+                                    keys)) + 1 for t in range(row_tiles)]
+    per_group = max(1, TRAIN_L2_BYTES // (2 * skv * max(d, 128) * 2))
 
     def order(i):
         bh, t = divmod(i, row_tiles)
@@ -408,10 +414,11 @@ def attention_train_schedule(b: int, sq: int, hq: int, hkv: int, skv: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _train_sched(b, sq, hq, hkv, skv, causal, window, device):
+def _train_sched(b, sq, hq, hkv, skv, causal, window, device, d):
     """``attention_train_schedule`` as the kernel reads it (int32 on
     ``device``, made once per shape) and its block count."""
-    sched = attention_train_schedule(b, sq, hq, hkv, skv, causal, window)
+    sched = attention_train_schedule(b, sq, hq, hkv, skv, causal, window,
+                                     d=d)
     return (torch.tensor(sched.flat(), dtype=torch.int32).to(device),
             len(sched.blocks))
 
@@ -483,14 +490,18 @@ class AttentionBwdPlan:
 
 
 #: the backward kernels' blocks per SM (shared memory holds two), and at
-#: head dims above 128 (two warpgroups a block, 192 KB of tiles) one
+#: head dims above 128 (two warpgroups a block, 216 KB of tiles) one
 BWD_BLOCKS_PER_SM = 2
 
 
 def bwd_blocks_per_sm(d: int) -> int:
     return BWD_BLOCKS_PER_SM if d <= 128 else 1
-#: items a block takes, on the mean: two, so that the shortest items,
-#: taken last, even out the blocks' ends
+
+
+#: items a block takes, on the mean, where two blocks share an SM: two, so
+#: that the shortest items, taken last, even out the blocks' ends; a block
+#: alone on its SM (head dim 256) takes half as many, since nothing hides
+#: the load of a new item's K and V there
 BWD_ITEMS_PER_BLOCK = 2
 #: the shortest item a key tile is cut into (a partial costs a 64 KB write
 #: and read)
@@ -503,7 +514,8 @@ def attention_bwd_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
                        sms: int = SMS, *, d: int) -> AttentionBwdPlan:
     """Items of at most ``max_len`` row tiles, ``max_len`` chosen so that
     the blocks (two per SM, one at head dim ``d`` above 128) take about
-    ``BWD_ITEMS_PER_BLOCK`` items each; a key tile that sees ``n`` row
+    ``BWD_ITEMS_PER_BLOCK`` items each (half as many alone on an SM); a
+    key tile that sees ``n`` row
     tiles is cut into ``ceil(n / max_len)`` parts of nearly equal length.
     At llama3-8b's s = 2048 (32 key tiles, 128 row tiles, key tile j sees
     128 - 4 j) that is items of 32 or fewer row tiles instead of one
@@ -513,8 +525,10 @@ def attention_bwd_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
     spans = [bwd_visible_tiles(kt, 0, skv, sq, grp, causal, window)
              for kt in range(key_tiles)]
     total = b * hkv * sum(t1 - t0 for t0, t1 in spans)
-    workers = bwd_blocks_per_sm(d) * sms
-    max_len = max(BWD_MIN_ITEM, -(-total // (BWD_ITEMS_PER_BLOCK * workers)))
+    per_sm = bwd_blocks_per_sm(d)
+    workers = per_sm * sms
+    per_block = max(1, BWD_ITEMS_PER_BLOCK * per_sm // BWD_BLOCKS_PER_SM)
+    max_len = max(BWD_MIN_ITEM, -(-total // (per_block * workers)))
     items, slots = [], 0
     for bh in range(b * hkv):
         for kt, (t0, t1) in enumerate(spans):
@@ -827,7 +841,7 @@ def _flash(q, k, v, qo, kl, causal, window, softcap, lse: bool = False):
     plan = attention_plan(b, sq, hq, hkv, skv, d=d)
     if plan.variant == 1:
         sched, blocks = _train_sched(b, sq, hq, hkv, skv, bool(causal),
-                                     int(window), q.device)
+                                     int(window), q.device, d)
         _launch(_build.entry("flash_attention_train"),
                 (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse_out),
                  _ptr(qo), _ptr(kl), _ptr(sched), b, sq, skv, hq, hkv, d,

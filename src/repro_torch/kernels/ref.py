@@ -182,16 +182,26 @@ def attention_lse_ref(q, k, v, q_offset, kv_len, *, causal=True,
     return out, lse
 
 
-#: the training attention kernel's row and key tiles
+#: the training attention kernel's row tile, and its key tile at head dims
+#: up to 128
 TRAIN_TILE = 128
 
 
+def train_keys(d: int) -> int:
+    """The training kernel's key tile at head dim ``d``: ``TRAIN_TILE``,
+    or 64 at head dim 256 (its instance there, whose 64 x 256 fp32 O
+    leaves room for no larger S)."""
+    return 64 if d > 128 else TRAIN_TILE
+
+
 def train_key_tiles(row_tile: int, q_offset: int, kv_len: int, sq: int,
-                    skv: int, causal: bool, window: int) -> range:
-    """The key tiles (of ``TRAIN_TILE``) that the training attention
-    kernel's row tile ``row_tile`` walks for a batch row's ``q_offset``
-    and ``kv_len``, as the kernel computes them: every tile that holds a
-    key some row of the tile sees (the kernel walks them last first)."""
+                    skv: int, causal: bool, window: int,
+                    keys: int = TRAIN_TILE) -> range:
+    """The key tiles (of ``keys``) that the training attention kernel's
+    row tile ``row_tile`` (of ``TRAIN_TILE``) walks for a batch row's
+    ``q_offset`` and ``kv_len``, as the kernel computes them: every tile
+    that holds a key some row of the tile sees (the kernel walks them last
+    first)."""
     klen = max(0, min(kv_len, skv))
     p0 = TRAIN_TILE * row_tile
     k_end, k_begin = klen, 0
@@ -199,8 +209,8 @@ def train_key_tiles(row_tile: int, q_offset: int, kv_len: int, sq: int,
         k_end = min(k_end, min(p0 + TRAIN_TILE, sq) + q_offset)
     if window > 0:
         k_begin = max(0, p0 + q_offset - window + 1)
-    kt0 = k_begin // TRAIN_TILE
-    nt = -(-(k_end - kt0 * TRAIN_TILE) // TRAIN_TILE) if k_end > k_begin else 0
+    kt0 = k_begin // keys
+    nt = -(-(k_end - kt0 * keys) // keys) if k_end > k_begin else 0
     return range(kt0, kt0 + nt)
 
 
@@ -208,9 +218,10 @@ def attention_train_ref(q, k, v, q_offset, kv_len, *, causal=True,
                         window: int = 0, softcap: float = 0.0):
     """``attention_lse_ref`` as the training kernel (``flash_attention_train
     .cu``) computes it: per batch row and row tile of 128 positions (all q
-    heads at once, each reading its kv head), the key tiles of 128 that
-    the tile's rows can see, last first; the scores masked only on tiles
-    that cross the diagonal, kv_len or the window's edge; an online
+    heads at once, each reading its kv head), the key tiles (of
+    ``train_keys(d)``: 128, or 64 at head dim 256) that the tile's rows can
+    see, last first; the scores masked only on tiles that cross the
+    diagonal, kv_len or the window's edge; an online
     softmax in the log2 domain (``p = 2^(s c - m c)`` with ``c = log2(e) /
     sqrt(d)`` and m the raw scores' running max, or the capped scores and
     ``c = log2(e)`` with a softcap), the sum and O rescaled by the max's
@@ -221,7 +232,7 @@ def attention_train_ref(q, k, v, q_offset, kv_len, *, causal=True,
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     rep = hq // hkv
-    tile = TRAIN_TILE
+    tile, keys_n = TRAIN_TILE, train_keys(d)
     scale = 1.0 / math.sqrt(d)
     c = math.log2(math.e) * (1.0 if softcap else scale)
     kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)  # [b, h, s, d]
@@ -239,14 +250,14 @@ def attention_train_ref(q, k, v, q_offset, kv_len, *, causal=True,
             l = torch.zeros_like(m)
             o = torch.zeros_like(qt)
             for kt in reversed(train_key_tiles(t, qoff, klen, sq, skv,
-                                               causal, window)):
-                k0 = tile * kt
-                keys = slice(k0, min(k0 + tile, skv))
+                                               causal, window, keys_n)):
+                k0 = keys_n * kt
+                keys = slice(k0, min(k0 + keys_n, skv))
                 s = qt @ kf[bi, :, keys].transpose(1, 2)       # [h, r, keys]
                 if softcap:
                     s = softcap * torch.tanh(s * (scale / softcap))
-                whole = (k0 + tile <= klen
-                         and (not causal or k0 + tile - 1 <= p0 + qoff)
+                whole = (k0 + keys_n <= klen
+                         and (not causal or k0 + keys_n - 1 <= p0 + qoff)
                          and (window <= 0
                               or p0 + tile - 1 + qoff - k0 < window))
                 if not whole:

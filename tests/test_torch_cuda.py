@@ -631,7 +631,22 @@ FA_TRAIN_CASES = {
     "window + softcap d=112": (1, 260, 260, 4, 2, 112, None, None, 64, 30.0),
     "rows that see no key": (2, 200, 200, 4, 2, 128, None, (0, 150), 32,
                              0.0),
+    # head dim 256 (gemma2-2b): the instance in key tiles of 64
+    "gemma2-2b s=2048 softcap 50": (1, 2048, 2048, 8, 4, 256, None, None, 0,
+                                    50.0),
+    "d=256 window 512 softcap 50": (1, 2048, 2048, 8, 4, 256, None, None,
+                                    512, 50.0),
+    "d=256 no softcap, s=2100": (1, 2100, 2100, 8, 4, 256, None, None, 0,
+                                 0.0),
+    "d=256 window 512, s=1000, b=2": (2, 1000, 1000, 4, 2, 256, None, None,
+                                      512, 0.0),
+    "d=256 offsets, kv_len < skv": (2, 300, 420, 4, 1, 256, (120, 0),
+                                    (420, 250), 0, 50.0),
+    "d=256 rows that see no key": (2, 200, 200, 4, 2, 256, None, (0, 150),
+                                   32, 30.0),
 }
+#: FA_TRAIN_CASES at head dim 256
+FA_TRAIN_256 = [c for c, v in FA_TRAIN_CASES.items() if v[5] == 256]
 
 
 def _fa_train_inputs(cuda, case, seed=6):
@@ -680,7 +695,7 @@ def test_flash_attention_train_kernel_matches_plain(cuda, case):
 @pytest.mark.parametrize("case", ["llama3-8b s=2048", "zamba2-7b s=2048 d=112",
                                   "offsets, kv_len < skv",
                                   "window + softcap d=112",
-                                  "rows that see no key"])
+                                  "rows that see no key"] + FA_TRAIN_256)
 def test_flash_attention_backward_reads_the_train_kernels_lse(cuda, case):
     """dQ, dK and dV of the backward kernel from the training kernel's O
     and log-sum-exp, against the plain backward on the same inputs."""
