@@ -23,6 +23,12 @@ Phases, in order, each failing the run on any error:
    ``ops.attention_plan``, ``ops.ssd_plan``), and a prefill chunk of the
    SSD scan is timed at every split of the head dim.  Also times an empty kernel
    with the same timer (its floor) and each wrapper's host cost per call.
+   At head dim 256 a decode tick's tile of at most 16 rows takes the
+   serving kernel's decode instance (``flash_decode_kernel``, its lines
+   marked so; also with a window of 48 and over a 4096-key cache, where
+   a split walks several key tiles).  ``--parent DIR``: DIR's
+   ``flash_attention.cu``, built by its own ``_build``, timed in turns
+   with this tree's at gemma2-2b's four serving shapes.
 2. serve-llama -- llama3-8b at full width and depth, random bf16 weights from
    a seed, through ``launch.serve.make_paged_server``: 8 requests of seeded
    prompt lengths in 64-256, 16 new tokens each, 4 slots, prefill chunk 64,
@@ -96,8 +102,15 @@ Phases, in order, each failing the run on any error:
    tied to the 256000-row embedding), 4 requests as serve-llama's (the
    attention on ``flash_attention.cu`` at head dim 256): graphs, launch
    counts (matmul 105, flash_attention 26, rmsnorm 105 a step), captured
-   and uncaptured in turns with equal tokens, a profiled rerun; then
-   ``path_check`` at 2 layers within ``PATH_TOL``.  The result line's
+   and uncaptured in turns with equal tokens, a profiled rerun of each:
+   in both the decode instance (``flash_decode_kernel``) must launch, at
+   most 26 times a decode tick (the profiler may drop launches after the
+   earlier phases' profiles), and ``flash_kernel<256>`` at most 26 times
+   a prefill chunk; then ``path_check`` at 2 layers within
+   ``PATH_TOL``.  ``--parent DIR``: the captured server of DIR and of this
+   tree in turns, a process each (``captured_steps``: wall and device ms
+   a step by kind, medians of three runs; each tree's tokens equal across
+   its arms, the count where the trees part printed).  The result line's
    ``flash_attention (head dim 256)`` row reads its launches from it.
 5d. serve-prefix -- llama3-8b at full size (serve-llama's weights, kept)
    serving ``PREFIX``'s 8 requests, a 192-token system prompt each and 32-64
@@ -220,7 +233,10 @@ Phases, in order, each failing the run on any error:
    main path: the backward rows of the result line take their launches
    from it.  ``--parent DIR``: then the training step of the tree in DIR
    and of this one, a process each, in turns (parent, tree, tree,
-   parent).
+   parent): ms a step, peak memory, and two more steps profiled
+   (``profiled_step``: device ms and busy share; the adds and fills of
+   whole parameter stacks and the stacks, ``stacked_passes``).  The
+   printed profiled step reports the same passes.
 9. path-check-train -- llama3-8b at full width with the depth cut to 2
    layers, b = 1, s = 256: the gradient of every parameter (norm scales
    included) on the card (kernels, bf16) against the CPU (plain versions,
@@ -267,7 +283,8 @@ Phases, in order, each failing the run on any error:
    the device's busy share, its launches and its time by kernel.  The
    result line's two Mamba2 backward rows take their launches from it.
    ``--parent DIR``: then the zamba training step of the tree in DIR and of
-   this one, a process each, in turns (parent, tree, tree, parent).
+   this one, a process each, in turns (parent, tree, tree, parent), as
+   phase 8's.
 12. path-check-train-zamba -- zamba2-7b at full width with the depth cut
    to 7 layers (one super-block and a one-block tail), b = 1, s = 128 (two
    SSD chunks, so the state's gradient crosses a chunk): every gradient
@@ -290,7 +307,8 @@ Phases, in order, each failing the run on any error:
    and it is timed beside the launch without z; the activation's
    derivative (``csrc/act_bwd.cu``) within one bf16 ulp of
    ``ref.epilogue_bwd`` for gelu and silu, timed against its bound, the
-   plain version and ``aten.gelu_backward``; the attention forward with
+   plain version and ``aten.gelu_backward`` (``--parent DIR``: DIR's
+   ``act_bwd.cu`` in turns with this tree's); the attention forward with
    its log-sum-exp and its backward at 32 / 32 heads (a GQA group of 1),
    timed against SDPA.
 14. train-gpt -- ``build_train_step`` on gpt-m2 at its own 4 layers (a
@@ -346,7 +364,7 @@ Phases, in order, each failing the run on any error:
    check with the attention backward held on one forward and a planted
    fault (dK zeroed) that must break it.  ``--parent DIR``: the backward
    also in turns with DIR's, and then gemma2-2b's step of DIR and of this
-   tree in turns, a process each, with their peak device memory.
+   tree in turns, a process each, as phase 8's.
 19. serve-dbrx -- dbrx-132b (the MoE kind) at its published widths, depth
    cut to 4 of 40 layers: the matmul at each of its shapes (the experts'
    up|gate and down at their slots' rows) and the attention at its 48 q /
@@ -609,9 +627,17 @@ def ssd_cost(b, s, nh, hd, ds, chunk, reads, writes):
 
 
 def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
-                 timer, dev="cuda"):
-    """Returns the four KernelReports; raises if any check fails."""
+                 timer, dev="cuda", parent=None):
+    """Returns the four KernelReports; raises if any check fails.
+    ``parent``: an older checkout whose ``flash_attention.cu`` is built by
+    its own ``_build`` and timed in turns with this tree's at gemma2-2b's
+    serving shapes (its C entry loaded into this tree's wrapper)."""
     gen = torch.Generator(device=dev).manual_seed(0)
+    parent_fa = None
+    if parent is not None:
+        parent_fa = with_entries(parent_entries(
+            parent, ("flash_attention",), ("flash_attention",),
+            "kernels")[1], ops.flash_attention)
     floor = None
     if dev == "cuda":
         # an empty kernel (a spin of 0 cycles) under the same timer: what
@@ -669,9 +695,12 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
     fa = KernelReport("flash_attention", "cuda",
                       "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:102", floor)
+    skv0 = skv
 
     def fa_case(label, b, sq, q_off, kv_len, path=None, step=None, weight=0,
-                window=0, softcap=0.0, d=128, hq=32, hkv=8, timed=False):
+                window=0, softcap=0.0, d=128, hq=32, hkv=8, timed=False,
+                turned=False, skv_=None):
+        skv = skv_ or skv0
         q = randn(b, sq, hq, d)
         k, v = randn(b, skv, hkv, d), randn(b, skv, hkv, d)
         qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
@@ -705,9 +734,15 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
                 flops=4 * d * visible)
         plan = ops.attention_plan(b, sq, hq, hkv, skv, d=d)
         label += (f" [variant {plan.variant} row_tiles={plan.row_tiles} "
-                  f"splits={plan.splits}]")
+                  f"splits={plan.splits}"
+                  + (" decode instance" if ops.decode_instance(sq, hq, hkv, d)
+                     else "") + "]")
         if not fa.add(label, ok, err, FA_TOL, path, step, weight, **timing):
             failed.append(f"flash_attention {label}")
+        if turned and parent_fa is not None:
+            log(f"  flash_attention {label}: " + interleaved(
+                timer, lambda: parent_fa(q, k, v, qo, kl, **kw),
+                lambda: ops.flash_attention(q, k, v, qo, kl, **kw)))
 
     lens = [137, 64, 250, 9][:slots] + [1] * max(0, slots - 4)
     for path, d, hq, hkv, weight in (("llama3-8b", 128, 32, 8, 32),
@@ -728,17 +763,22 @@ def kernel_phase(torch, F, ops, ref, chunk: int, slots: int, skv: int,
         fa_case(f"{label} prefill b=1 sq={chunk} skv={skv} q_offset=128 "
                 f"d=256 window={window}", 1, chunk, [128], [128 + chunk],
                 GEMMA, "prefill", GEMMA_LAYERS // 2, window=window,
-                softcap=50.0, **gemma)
+                softcap=50.0, turned=True, **gemma)
         fa_case(f"{label} decode b={slots} sq=1 skv={skv} d=256 "
                 f"window={window}", slots, 1, lens, [x + 1 for x in lens],
                 GEMMA, "decode", GEMMA_LAYERS // 2, window=window,
-                softcap=50.0, **gemma)
+                softcap=50.0, turned=True, **gemma)
     fa_case("d=256 window=128 b=2 sq=40", 2, 40, [10, 200], [50, 240],
             window=128, timed=True, **gemma)
     fa_case("d=256 a row with kv_len 0", 2, 3, [0, 5], [0, 8], timed=True,
             **gemma)
     fa_case("window=48 softcap=30", 2, 40, [10, 100], [50, 140],
             window=48, softcap=30.0)
+    fa_case("d=256 decode, a window of 48 that bites", slots, 1, lens,
+            [x + 1 for x in lens], window=48, softcap=50.0, **gemma)
+    fa_case("d=256 decode at a long cache (11 key tiles a split)", 3, 1,
+            [3999, 69, 2499], [4000, 70, 2500], softcap=50.0, skv_=4096,
+            **gemma)
     fa_case("d=64 hq=hkv=16 (qwen1.5)", 2, 33, [0, 7], [33, 40], d=64,
             hq=16, hkv=16)
     fa_case("d=112 ragged rows, fully masked row", 2, 37, [0, 5], [37, 0],
@@ -1153,7 +1193,8 @@ GEMMA_PAIRS = 3
 
 def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
                 kernel_ms=None, profile: bool = False,
-                pairs: int = 0, keep: dict | None = None) -> dict:
+                pairs: int = 0, keep: dict | None = None,
+                instance: tuple | None = None) -> dict:
     """Serve ``requests`` seeded prompts through ``make_paged_server`` and
     ``run_until_drained``, the step captured as a CUDA graph at each of its
     two shapes; check every request and the page pool, that exactly two
@@ -1173,7 +1214,13 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     before, and checked after the profile, so that a tree whose counts
     differ still prints it).  Returns the launch counts of the counted
     run.  ``keep`` (a dict) receives the server's sharded weights
-    (``"params"``) for a later phase."""
+    (``"params"``) for a later phase.  ``instance`` (a kernel's name, the
+    name of the kernel it stands in for, a step kind, launches a step):
+    with ``profile`` the uncaptured step is profiled too, and in both
+    profiled reruns the kernel must have launched, at most its count a
+    step of that kind, and the other kernel at most its count a step of
+    the other kinds.  (After the serving phases' long profiles the
+    profiler may drop some launches, so the counts are bounds.)"""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -1251,10 +1298,27 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     if pairs:
         wall = report_pairs(runs, kernel_ms)
     if profile:
-        server.step_fn = step
-        meter = StepMeter(server)
-        server.step_fn = meter
-        profile_run(torch, server, meter, prompts, cfg.name, wall)
+        for mode in ("captured", "uncaptured") if instance else ("captured",):
+            server.step_fn = step if mode == "captured" else step.uncaptured()
+            meter = StepMeter(server)
+            server.step_fn = meter
+            seen = profile_run(
+                torch, server, meter, prompts,
+                cfg.name + ("" if mode == "captured" else "_uncaptured"),
+                wall)
+            if instance:
+                kernel, other, kind, per_step = instance
+                calls = seen["calls"]
+                n, n_other = (sum(c for k, c in seen["kernels"].items()
+                                  if name in k) for name in (kernel, other))
+                most = per_step * calls[kind]
+                most_other = per_step * (sum(calls.values()) - calls[kind])
+                log(f"  {mode} rerun: {kernel} recorded {n} launches of "
+                    f"{most} ({per_step} a {kind} step x {calls[kind]}), "
+                    f"{other} {n_other} of at most {most_other} (the other "
+                    f"steps')")
+                assert 0 < n <= most and n_other <= most_other, \
+                    (mode, kernel, n, most, other, n_other, most_other)
     if keep is not None:
         keep["params"] = step.params
     # the step holds the weights; each meter and its server refer to each
@@ -1264,6 +1328,77 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     if dev == "cuda":
         torch.cuda.empty_cache()
     return launches
+
+
+SERVE_AB = """import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[2])
+import chip_smoke
+print(json.dumps(chip_smoke.captured_steps(torch, sys.argv[3],
+                                           int(sys.argv[4]), int(sys.argv[5]),
+                                           int(sys.argv[6]))))"""
+
+
+def captured_steps(torch, arch: str, requests: int, seed: int,
+                   runs: int, dev="cuda") -> dict:
+    """``arch``'s seeded prompts (as ``serve_phase`` makes them) through
+    the captured paged server: one run that captures, then ``runs`` more.
+    The medians over those runs of the wall ms and the replays' device ms
+    a step, by kind, and the tokens of the last run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config(arch)
+    prompts = serve.sample_prompts(cfg, requests, PROMPT_LEN, seed)
+    scfg = serve.paged_server_config([len(p) for p in prompts], **SERVE)
+    server, _ = serve.make_paged_server(
+        cfg, scfg, lm.init_params(cfg, seed=seed, device=dev), device=dev)
+    step = server.step_fn
+    meters = []
+    for i in range(runs + 1):
+        meter, tokens = serve_once(torch, server, step, prompts, 1000 * i)
+        meters.append(meter)
+    out = {"tokens": tokens}
+    for kind in StepMeter.KINDS:
+        if meters[-1].calls[kind]:
+            out[kind] = {
+                "wall_ms": statistics.median(
+                    1e3 * m.seconds[kind] / m.calls[kind] for m in meters[1:]),
+                "device_ms": statistics.median(
+                    m.replay_ms[kind] / m.calls[kind] for m in meters[1:])}
+    return out
+
+
+def parent_serve_steps(parent, arch: str, requests: int, seed: int,
+                       runs: int = 3) -> None:
+    """``captured_steps`` of the tree in ``parent`` and of this one, in
+    turns (parent, tree, tree, parent), a process each: the wall and the
+    device ms a step by kind.  Each tree's arms must give the same tokens;
+    the count of tokens where the two trees part is printed (a kernel that
+    rounds in another order may flip a near-tie of random weights)."""
+    arms = []
+    for tree in (Path(parent), ROOT, ROOT, Path(parent)):
+        out = subprocess.run(
+            [sys.executable, "-c", SERVE_AB, str(tree / "src"), str(ROOT),
+             arch, str(requests), str(seed), str(runs)],
+            capture_output=True, text=True, timeout=900, check=True)
+        arms.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    for kind in StepMeter.KINDS:
+        if kind not in arms[0]:
+            continue
+        for key in ("wall_ms", "device_ms"):
+            v = [f"{a[kind][key]:.3f}" for a in arms]
+            log(f"{arch} captured {kind} step, {key} (median of {runs} runs; "
+                f"parent, tree, tree, parent, a process each): parent {v[0]} "
+                f"/ {v[3]}, this tree {v[1]} / {v[2]}")
+    assert arms[0]["tokens"] == arms[3]["tokens"], "the parent's arms part"
+    assert arms[1]["tokens"] == arms[2]["tokens"], "this tree's arms part"
+    mine, theirs = arms[1]["tokens"], arms[0]["tokens"]
+    parted = sum(a != b for r in mine for a, b in zip(mine[r], theirs[r]))
+    log(f"{arch}: each tree's arms give the same tokens; the trees' tokens "
+        f"differ at {parted} of {sum(len(t) for t in mine.values())}")
 
 
 def compare_runs(torch, server, step, prompts, tokens, pairs: int) -> dict:
@@ -1317,7 +1452,7 @@ def report_pairs(runs: dict, kernel_ms) -> float:
 
 
 def profile_run(torch, server, meter, prompts, name: str,
-                wall_s: float) -> None:
+                wall_s: float) -> dict:
     """Serve ``prompts`` again under ``torch.profiler``: the device time of
     the run (the sum over device kernels, as the profiler's own table
     totals it) against the profiled wall time and against ``wall_s``, the
@@ -1325,7 +1460,8 @@ def profile_run(torch, server, meter, prompts, name: str,
     step over all kernels, torch's own included (``meter`` counts the
     steps); the device time by kernel (the table goes to
     ``chiprun_out/profile_<name>.txt``) and every gather and scatter
-    kernel by its full name (whose template names the dtype it moves)."""
+    kernel by its full name (whose template names the dtype it moves).
+    Returns the launches by kernel name and the rerun's steps by kind."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1336,7 +1472,8 @@ def profile_run(torch, server, meter, prompts, name: str,
                               max_new=SERVE["max_new"]))
     # device activity only: the host operators' events would multiply the
     # trace, and its post-processing, several times over
-    steps0 = sum(meter.calls.values())
+    calls0 = dict(meter.calls)
+    steps0 = sum(calls0.values())
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         server.run_until_drained()
@@ -1365,6 +1502,8 @@ def profile_run(torch, server, meter, prompts, name: str,
         if "index" in e.key.lower():
             log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
                 f"{e.key[:300]}")
+    return {"kernels": {e.key: e.count for e in kernels},
+            "calls": {k: meter.calls[k] - calls0[k] for k in meter.calls}}
 
 
 # ---------------------------------------------------------------------------
@@ -2682,6 +2821,40 @@ def parent_backward(torch, ops, parent):
     return (fa_bwd, rn_bwd, *parent_matmul(torch, ops, pb, parent))
 
 
+def parent_entries(parent, sources, names, what: str):
+    """The older checkout in ``parent``: its ``_build`` module, its
+    ``sources`` built by it into its own ``build/torch_kernels``, and its C
+    entries ``names``, which must take this tree's C arguments (raises
+    where they do not)."""
+    from repro_torch.kernels import _build
+
+    pb = _parent_build(parent, sources, what)
+    if any(pb.SIGNATURES[n] != _build.SIGNATURES[n] for n in names):
+        raise ValueError(f"the C arguments of {parent}'s {', '.join(names)} "
+                         f"differ from this tree's: time them with a "
+                         f"chip_smoke.py whose tree matches them")
+    return pb, {n: pb.entry(n) for n in names}
+
+
+def with_entries(theirs: dict, fn):
+    """``fn`` (a wrapper of ``kernels.ops``) with the C entries ``theirs``
+    loaded in place of this tree's for each call."""
+    from repro_torch.kernels import _build
+
+    def call(*args, **kw):
+        saved = {n: _build._loaded.get(n) for n in theirs}
+        _build._loaded.update(theirs)
+        try:
+            return fn(*args, **kw)
+        finally:
+            for n, f in saved.items():
+                if f is None:
+                    _build._loaded.pop(n, None)
+                else:
+                    _build._loaded[n] = f
+    return call
+
+
 def parent_mamba_backward(torch, ops, parent):
     """The SSD-scan and grouped-norm backward kernels of the older checkout
     in ``parent``, built by its own ``_build``: this tree's
@@ -2690,31 +2863,10 @@ def parent_mamba_backward(torch, ops, parent):
     (their C arguments must be this tree's, as those of the chunk-parallel
     SSD backward are), for timing beside this tree's kernels.  Also that
     tree's matmul forward and backward (``parent_matmul``)."""
-    from repro_torch.kernels import _build
-
-    pb = _parent_build(parent, ("matmul", "ssd_scan_bwd", "rmsnorm"),
-                       "train-zamba-kernels")
-    names = ("ssd_scan_bwd", "group_rmsnorm_bwd")
-    if any(pb.SIGNATURES[n] != _build.SIGNATURES[n] for n in names):
-        raise ValueError(f"the C arguments of {parent}'s Mamba2 backward "
-                         f"kernels differ from this tree's: time them with a "
-                         f"chip_smoke.py whose tree matches them")
-    theirs = {n: pb.entry(n) for n in names}
-
-    def with_theirs(fn):
-        def call(*args, **kw):
-            saved = {n: _build._loaded.get(n) for n in names}
-            _build._loaded.update(theirs)
-            try:
-                return fn(*args, **kw)
-            finally:
-                for n, f in saved.items():
-                    if f is None:
-                        _build._loaded.pop(n, None)
-                    else:
-                        _build._loaded[n] = f
-        return call
-
+    pb, theirs = parent_entries(parent, ("matmul", "ssd_scan_bwd", "rmsnorm"),
+                                ("ssd_scan_bwd", "group_rmsnorm_bwd"),
+                                "train-zamba-kernels")
+    with_theirs = functools.partial(with_entries, theirs)
     return (with_theirs(ops.ssd_scan_backward),
             with_theirs(ops.group_rmsnorm_backward),
             *parent_matmul(torch, ops, pb, parent))
@@ -2947,13 +3099,29 @@ def by_kernel(torch, fn, calls: int = 10) -> str:
     ) or "none recorded"
 
 
-TRAIN_AB = """import statistics, sys
+TRAIN_AB = """import json, statistics, sys
 import torch
 sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[2])
+import chip_smoke
 from repro_torch.launch import train
-rows = train.main(sys.argv[2:])
-print(torch.cuda.max_memory_allocated() / 2 ** 30)
-print(statistics.median(r["ms"] for r in rows[2:]))"""
+kept = {}
+build = train.build_train_step
+def keeping(*a, **kw):
+    step, info = build(*a, **kw)
+    def run(params, state, batch):
+        kept["step"], kept["last"] = step, step(params, state, batch)
+        kept["batch"] = batch
+        return kept["last"]
+    return run, info
+train.build_train_step = keeping
+rows = train.main(sys.argv[3:])
+gib = torch.cuda.max_memory_allocated() / 2 ** 30
+params, state, _ = kept.pop("last")
+_, _, prof = chip_smoke.profiled_step(torch, kept["step"], params, state,
+                                      kept["batch"])
+print(json.dumps({"ms": statistics.median(r["ms"] for r in rows[2:]),
+                  "gib": gib, **prof}))"""
 
 
 def parent_train_steps(parent, arch: str = "llama3-8b",
@@ -2963,21 +3131,31 @@ def parent_train_steps(parent, arch: str = "llama3-8b",
     ``parent`` and of this one, in turns (parent, tree, tree, parent), each
     a process of its own running ``repro_torch.launch.train`` at
     ``TRAIN_SHAPE`` for 8 steps: the median ms of steps 3-8 of each run,
-    and its peak device memory."""
+    its peak device memory, then two more steps profiled
+    (``profiled_step``): the device ms and busy share of one, and the
+    gradients' binding to the stacked leaves in the other."""
     args = ["--arch", arch, "--layers", str(layers),
             "--seq", str(TRAIN_SHAPE["seq"]), "--batch",
             str(TRAIN_SHAPE["batch"]), "--steps", "8"]
-    ms, gib = [], []
+    arms = []
     for tree in (Path(parent), ROOT, ROOT, Path(parent)):
         out = subprocess.run(
-            [sys.executable, "-c", TRAIN_AB, str(tree / "src"), *args],
-            capture_output=True, text=True, timeout=600, check=True)
-        ms.append(float(out.stdout.split()[-1]))
-        gib.append(float(out.stdout.split()[-2]))
-    log(f"{what}: ms per step, parent {ms[0]:.2f} / {ms[3]:.2f}, this tree "
-        f"{ms[1]:.2f} / {ms[2]:.2f} (parent, tree, tree, parent; steps 3-8 "
-        f"of 8, a process each); peak device memory GiB, parent "
-        f"{gib[0]:.2f} / {gib[3]:.2f}, this tree {gib[1]:.2f} / {gib[2]:.2f}")
+            [sys.executable, "-c", TRAIN_AB, str(tree / "src"), str(ROOT),
+             *args], capture_output=True, text=True, timeout=900, check=True)
+        arms.append(json.loads(out.stdout.strip().splitlines()[-1]))
+
+    def four(key, fmt="{:.2f}"):
+        v = [fmt.format(a[key]) for a in arms]
+        return f"parent {v[0]} / {v[3]}, this tree {v[1]} / {v[2]}"
+
+    log(f"{what}: in turns (parent, tree, tree, parent; a process each): "
+        f"ms per step (steps 3-8 of 8) {four('ms')}; peak device memory GiB "
+        f"{four('gib')}; a profiled step's device ms {four('device_ms')}, "
+        f"busy {four('busy', '{:.0%}')}")
+    for op in STACK_OPS:
+        v = [f"{a['stacks'][op]:.3f}" for a in arms]
+        log(f"{what}: {op} on the stacked leaves, device ms of a step: "
+            f"parent {v[0]} / {v[3]}, this tree {v[1]} / {v[2]}")
 
 
 def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
@@ -4422,7 +4600,7 @@ def bf16_ulp(torch, x):
 
 
 def gpt_train_kernel_phase(torch, F, ops, ref, timer, floor,
-                           dev="cuda"):
+                           dev="cuda", parent=None):
     """gpt-m2's training shapes (b = 1, s = 2048, d_model 4096, 32 heads of
     128, MHA): each of its five GEMMs forward and backward against the
     plain versions and ``torch.matmul`` (``matmul_steps``); the up
@@ -4434,7 +4612,9 @@ def gpt_train_kernel_phase(torch, F, ops, ref, timer, floor,
     plain version and ``aten.gelu_backward``; the attention forward with
     its log-sum-exp and its backward at MHA (a GQA group of 1).  Returns
     (forward KernelReports, backward ones, the derivative's), with totals
-    per training step of ``GPT_LAYERS`` layers."""
+    per training step of ``GPT_LAYERS`` layers.  ``parent``: an older
+    checkout whose ``act_bwd.cu`` is built by its own ``_build`` and timed
+    in turns with this tree's at the up projection's shape."""
     gen = torch.Generator(device=dev).manual_seed(13)
     T, L = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["seq"], GPT_LAYERS
     if floor is None:
@@ -4502,10 +4682,17 @@ def gpt_train_kernel_phase(torch, F, ops, ref, timer, floor,
                        "src/repro_torch/kernels/csrc/act_bwd.cu",
                        "src/repro/kernels/matmul.py:102", floor)
     log(f"train-gpt-kernels: the activation's derivative dz = dy * "
-        f"act'(z) (limit one bf16 ulp of the plain version) at the up "
+        f"act'(z) (limit one bf16 ulp of the plain version: the kernel takes "
+        f"tanh and the sigmoid by ex2 and rcp and contracts its products "
+        f"into FMAs, so its fp32 derivative differs by rounding) at the up "
         f"projection's {T} x {N}; {bwd_per_step['matmul_act_bwd']} launches "
         f"a step")
     dy = randn(T, N)
+    parent_act = None
+    if parent is not None:
+        parent_act = with_entries(parent_entries(
+            parent, ("act_bwd",), ("act_bwd",), "train-gpt-kernels")[1],
+            ops.activation_backward)
     for name in ("gelu", "silu"):
         got = ops.activation_backward(dy, z, name)
         want = ref.epilogue_bwd(z, dy, name)
@@ -4526,6 +4713,10 @@ def gpt_train_kernel_phase(torch, F, ops, ref, timer, floor,
                        bwd_per_step["matmul_act_bwd"] if timing else 0,
                        **timing):
             failed.append(f"matmul_act_bwd {name}")
+        if parent_act is not None:
+            log(f"  matmul_act_bwd {name} {T}x{N}: " + interleaved(
+                timer, lambda: parent_act(dy, z, name),
+                lambda: ops.activation_backward(dy, z, name)))
         del got, want, err
     del z, dy
 
@@ -4633,10 +4824,6 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
     more profiled with the host's ops and shapes
     (``profile_train{tag}.txt``, ``profile_train{tag}_ops.txt``).  Returns
     the launch counts of the counted steps."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as profile_
-
     from repro_torch.core.mesh import atp_topo
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import build_train_step
@@ -4700,14 +4887,70 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
         gc.collect()
         torch.cuda.empty_cache()
         return launches
+    params, state, _ = profiled_step(torch, step, params, state, batch, tag)
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the torch ops of a training step that bind the layers' gradients to
+#: the stacked ``[count, ...]`` parameter leaves (ROADMAP §C): a
+#: ``SelectBackward0`` a layer fills a whole stack with zeros
+#: (``aten::fill_``) and the copies are summed (``aten::add_`` of two
+#: stacks); one ``UnbindBackward0`` a leaf writes one ``aten::stack``
+STACK_OPS = ("aten::add_", "aten::fill_", "aten::stack")
+
+
+def stacked_shapes(params) -> list:
+    """The shapes of the stacked parameter leaves (``seg*``'s, and a zamba
+    leaf's per-super-block stack), as the profiler lists input shapes."""
+    from repro_torch.optim import adamw
+
+    shapes = []
+    for key, tree in params.items():
+        if key.startswith("seg"):
+            for t in adamw.tree_leaves(tree):
+                shapes += [list(t.shape)] + (
+                    [list(t.shape[1:])] if "mamba" in tree and t.dim() > 2
+                    else [])
+    return shapes
+
+
+def stacked_passes(by_op, shapes) -> dict:
+    """Device ms of ``STACK_OPS`` in a profile grouped by input shape: the
+    adds of two stacked leaves' shapes, the fills of one, every stack."""
+    out = dict.fromkeys(STACK_OPS, 0.0)
+    for e in by_op:
+        sh = e.input_shapes
+        two = e.key != "aten::add_" or (len(sh) > 1 and sh[1] == sh[0])
+        if e.key == "aten::stack" or (
+                e.key in out and sh and sh[0] in shapes and two):
+            out[e.key] += e.device_time_total / 1e3
+    return out
+
+
+def profiled_step(torch, step, params, state, batch, tag=None):
+    """One training step under the device profiler (busy share: device ms
+    of its kernels over its wall ms; launches; time by kernel), then one
+    more under the host's profiler with shapes (the copies and casts by
+    torch op and input shape, and ``stacked_passes``).  With ``tag`` the
+    two tables go to ``profile_train{tag}.txt`` and
+    ``profile_train{tag}_ops.txt``.  Returns (params, state, a dict of
+    the numbers)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profile_
+
     with profile_(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         params, state, m = step(params, state, batch)
         float(m["loss"])
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
-    (OUT_DIR / f"profile_train{tag}.txt").write_text(
-        events.table(sort_by="self_device_time_total", row_limit=30))
+    if tag is not None:
+        (OUT_DIR / f"profile_train{tag}.txt").write_text(
+            events.table(sort_by="self_device_time_total", row_limit=30))
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -4725,8 +4968,9 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
         params, state, m = step(params, state, batch)
         float(m["loss"])
     by_op = prof.key_averages(group_by_input_shape=True)
-    (OUT_DIR / f"profile_train{tag}_ops.txt").write_text(
-        by_op.table(sort_by="device_time_total", row_limit=80))
+    if tag is not None:
+        (OUT_DIR / f"profile_train{tag}_ops.txt").write_text(
+            by_op.table(sort_by="device_time_total", row_limit=80))
     copies = sorted((e for e in by_op if e.key in (
         "aten::copy_", "aten::clone", "aten::_to_copy")),
         key=lambda e: -e.device_time_total)
@@ -4736,10 +4980,12 @@ def train_phase(torch, seed: int = 0, arch: str = "llama3-8b",
     for e in copies[:16]:
         log(f"    {e.device_time_total / 1e3:9.3f} ms  {e.count:4d}x  "
             f"{e.key} {e.input_shapes}")
-    del params, state, step
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches
+    stacks = stacked_passes(by_op, stacked_shapes(params))
+    log("  the gradients' binding to the stacked leaves (device ms of one "
+        "step: adds of two stacks, fills of one, every stack): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stacks.items()))
+    return params, state, {"device_ms": device_ms, "wall_ms": wall_ms,
+                           "busy": device_ms / wall_ms, "stacks": stacks}
 
 
 def plain_backward(ref) -> dict:
@@ -5206,6 +5452,7 @@ def dbrx_kernel_checks(torch, F, ops, ref, cfg, timer, floor):
     fa = KernelReport("flash_attention", "cuda",
                       "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:102", floor)
+    skv0 = skv
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     lens = [137, 64, 250, 9][:slots]
     log(f"serve-dbrx: flash_attention at hq={hq}, hkv={hkv} (a group of "
@@ -5542,16 +5789,21 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of an older tree: train-kernels builds "
+                    help="a checkout of an older tree: kernels builds its "
+                         "flash_attention.cu and times it beside this "
+                         "tree's at gemma2-2b's serving shapes, "
+                         "train-kernels builds "
                          "its matmul.cu, flash_attention_bwd.cu and "
                          "rmsnorm.cu into its own build directory and times "
                          "its matmul forward and backward and the other "
                          "backward kernels beside this tree's, "
                          "train-zamba-kernels does the same with its matmul "
                          "at the zamba shapes, its ssd_scan_bwd.cu and "
-                         "grouped norm backward, and the train, "
-                         "train-zamba and train-gpt phases run its training "
-                         "step and this tree's in turns")
+                         "grouped norm backward, train-gpt-kernels with its "
+                         "act_bwd.cu; the train, train-zamba, train-gpt and "
+                         "train-gemma phases run its training step and this "
+                         "tree's in turns, and serve-gemma its captured "
+                         "server and this tree's")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -5608,7 +5860,8 @@ def main(argv=None) -> int:
         reports = list(kernel_phase(torch, F, ops, ref,
                                     chunk=SERVE["prefill_chunk"],
                                     slots=SERVE["slots"],
-                                    skv=SERVE["max_seq"], timer=Timer(torch)))
+                                    skv=SERVE["max_seq"], timer=Timer(torch),
+                                    parent=args.parent))
         floor_ms = reports[0].floor_ms
         done("kernels")
 
@@ -5654,7 +5907,11 @@ def main(argv=None) -> int:
         gemma = get_config(GEMMA)
         launches[GEMMA] = serve_phase(
             torch, gemma, requests=4, seed=4, profile=True,
-            pairs=GEMMA_PAIRS)
+            pairs=GEMMA_PAIRS,
+            instance=("flash_decode_kernel", "flash_kernel<256>", "decode",
+                      gemma.num_layers))
+        if args.parent is not None:
+            parent_serve_steps(args.parent, GEMMA, requests=4, seed=4)
         path_check(torch, dataclasses.replace(gemma, num_layers=2), seed=4)
         done("serve-gemma")
     llama_weights = kept_llama.pop("params", None)
@@ -5728,7 +5985,7 @@ def main(argv=None) -> int:
     gpt_fwd, gpt_bwd = [], []   # the other kernels at gpt-m2's shapes
     if "train-gpt-kernels" in phases:
         gpt_fwd, gpt_bwd, act = gpt_train_kernel_phase(
-            torch, F, ops, ref, Timer(torch), floor_ms)
+            torch, F, ops, ref, Timer(torch), floor_ms, parent=args.parent)
         reports.append(act)
         done("train-gpt-kernels")
     if "train-gpt" in phases:

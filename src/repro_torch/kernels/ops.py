@@ -308,6 +308,16 @@ TRAIN_HEAD_DIMS = (112, 128, 256)
 BWD_HEAD_DIMS = (64, 112, 128, 256)
 
 
+def decode_instance(sq: int, hq: int, hkv: int, d: int) -> bool:
+    """Whether variant 0 launches its decode instance
+    (``flash_attention.cu``'s ``flash_decode_kernel``, mirrored by
+    ``ref.attention_decode_ref``) rather than ``flash_kernel``: head dim
+    256 and a tile of at most ``ref.DECODE_ROWS`` rows (q rows x q heads
+    of a GQA group), so one row tile.  The C entry decides by the same
+    rule, from the same ``split_plan``."""
+    return d == 256 and sq * (hq // hkv) <= ref.DECODE_ROWS
+
+
 def attention_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
                    sms: int = SMS, *, d: int = 128) -> AttentionPlan:
     """Variant 1 where no key split is wanted, there are at least
@@ -829,8 +839,9 @@ def _flash_inputs(q, k, v, q_offset, kv_len):
 
 def _flash(q, k, v, qo, kl, causal, window, softcap, lse: bool = False):
     """One launch of the CUDA attention on ``_flash_inputs``, the kernel of
-    ``attention_plan``'s variant; returns (out, the fp32 [b, hq, sq]
-    log-sum-exp or None)."""
+    ``attention_plan``'s variant (variant 0's C entry takes its decode
+    instance where ``decode_instance``); returns (out, the fp32 [b, hq,
+    sq] log-sum-exp or None)."""
     from repro_torch.kernels import _build
 
     b, sq, hq, d = q.shape

@@ -416,6 +416,102 @@ def attention_split_ref(q, k, v, q_offset, kv_len, *, key_ranges,
     return out.transpose(1, 2).to(q.dtype)
 
 
+#: the serving kernel's decode instance at head dim 256
+#: (``flash_attention.cu``'s ``flash_decode_kernel``): a tile of at most
+#: ``DECODE_ROWS`` rows (q row x q head of a GQA group, one m16 fragment),
+#: each 64-key tile walked by four warps, a quarter of ``DECODE_QUARTER``
+#: keys each
+DECODE_ROWS = 16
+DECODE_QUARTER = 16
+
+
+def attention_decode_ref(q, k, v, q_offset, kv_len, *, key_ranges,
+                         causal=True, window: int = 0, softcap: float = 0.0,
+                         keys: int = 64):
+    """``attention_ref`` as the decode instance computes it: in each split
+    (a key range of ``key_ranges``) the key tiles of ``keys`` from the one
+    that holds the split's first visible key, each cut into quarters of
+    ``DECODE_QUARTER`` keys; quarter w of every tile runs its own online
+    softmax in the log2 domain (``p = 2^(x c - m c)`` over the scores x,
+    raw with c = log2(e) / sqrt(d) or capped with c = log2(e), m their
+    running max), P cast to ``q.dtype`` for the PV product; at the split's
+    end the quarters merge (``M = max m_w``, weights ``2^((m_w - M) c)``)
+    into the split's normalised partial and its log-sum-exp, and the splits
+    merge as in ``attention_split_ref``.  Returns the output in
+    ``q.dtype``."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    c = math.log2(math.e) * (1.0 if softcap else scale)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)  # b h s d
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    raw = torch.einsum("bqhd,bhkd->bhqk", q.float(), kf)
+    x = softcap * torch.tanh(raw * (scale / softcap)) if softcap else raw
+    mask = attention_mask(sq, skv, q_offset, kv_len, causal=causal,
+                          window=window)[:, None]
+    out = torch.zeros(b, hq, sq, d, device=q.device)
+    for bi in range(b):
+        qoff, klen = int(q_offset[bi]), max(0, min(int(kv_len[bi]), skv))
+        k_end = min(klen, qoff + sq) if causal else klen
+        k_begin = max(0, qoff - window + 1) if window > 0 else 0
+        parts, lses = [], []
+        for s0, s1 in key_ranges:
+            hi = min(k_end, s1)
+            lo = max(k_begin, s0) // keys * keys
+            stats = []
+            for w in range(keys // DECODE_QUARTER):
+                m = torch.full((hq, sq), -torch.inf, device=q.device)
+                l = torch.zeros_like(m)
+                o = torch.zeros(hq, sq, d, device=q.device)
+                for t0 in range(lo, hi, keys):
+                    k0 = t0 + w * DECODE_QUARTER
+                    blk = slice(k0, min(k0 + DECODE_QUARTER, skv))
+                    if k0 >= skv:
+                        continue
+                    vis = mask[bi, :, :, blk] & (
+                        torch.arange(blk.start, blk.stop,
+                                     device=q.device) < hi)
+                    sb = x[bi, :, :, blk].masked_fill(~vis, -torch.inf)
+                    mx = torch.maximum(m, sb.amax(-1))
+                    mc = torch.where(mx == -torch.inf, torch.zeros_like(mx),
+                                     mx * c)
+                    alpha = torch.exp2(m * c - mc)
+                    pb = torch.exp2(sb * c - mc[..., None])
+                    l = l * alpha + pb.sum(-1)
+                    o = o * alpha[..., None] + pb.to(q.dtype).float() @ \
+                        vf[bi, :, blk]
+                    m = mx
+                stats.append((m, l, o))
+            M = torch.stack([st[0] for st in stats]).amax(0)
+            L = torch.zeros_like(M)
+            O = torch.zeros(hq, sq, d, device=q.device)
+            for m, l, o in stats:
+                f = torch.where(m == -torch.inf, torch.zeros_like(m),
+                                torch.exp2((m - M) * c))
+                L = L + f * l
+                O = O + f[..., None] * o
+            seen = L > 0
+            parts.append(O / torch.where(seen, L, torch.ones_like(L))[
+                ..., None])
+            lses.append(torch.where(seen, (M * c + torch.log2(L))
+                                    * math.log(2.0),
+                                    torch.full_like(L, -torch.inf)))
+        lse = torch.stack(lses)                     # [splits, h, q]
+        top = lse.amax(0)
+        wz = torch.where(lse == -torch.inf, torch.zeros_like(lse),
+                         torch.exp(lse - torch.where(top == -torch.inf,
+                                                     torch.zeros_like(top),
+                                                     top)))
+        den = wz.sum(0)
+        acc = torch.zeros(hq, sq, d, device=q.device)
+        for z, part in zip(wz, parts):
+            acc = acc + z[..., None] * part
+        out[bi] = acc / torch.where(den > 0, den, torch.ones_like(den))[
+            ..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def rmsnorm_ref(x, gamma, eps: float = 1e-6):
     """Per row in fp32: ``x * rsqrt(mean(x^2) + eps) * gamma``, cast back
     to ``x.dtype``.  ``gamma`` arrives resolved (gemma's ``1 + gamma`` is

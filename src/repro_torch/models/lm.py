@@ -87,6 +87,19 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a layer-stacked parameter tree (views), each leaf
+    unbound once along its leading dim.  Under autograd a leaf then has one
+    ``UnbindBackward0``, which stacks the layers' gradients; binding each
+    layer by ``_layer`` gives each its own ``SelectBackward0``, a
+    zero-filled copy of the whole stack, and the L copies are added one by
+    one (bytes that grow as L^2)."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 # ---------------------------------------------------------------------------
 # Parameters.
 # ---------------------------------------------------------------------------
@@ -617,7 +630,10 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
     (its activations recomputed in the backward): a dense block, a zamba
     super-block (the shared block and its Mamba2 blocks), a tail Mamba2
     block.  Each unit binds its segment's view, which its recompute runs
-    under too.  Returns the final-norm hidden and the MoE layers' aux loss
+    under too.  Each stacked leaf is unbound once, outside the units
+    (``_layers``; a zamba leaf once, then once a super-block), so the
+    recompute reuses the same views and the backward stacks each leaf's
+    gradient once.  Returns the final-norm hidden and the MoE layers' aux loss
     summed (0 without them)."""
     from torch.utils.checkpoint import checkpoint
 
@@ -630,30 +646,31 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
         sp = params[f"seg{i}"]
         units = []
         if seg.kind == "dense":
-            for j, window in enumerate(_window_pattern(cfg, seg.count)):
-                def unit(h, bp=_layer(sp, j), window=window, sctx=sctx):
+            for window, bp in zip(_window_pattern(cfg, seg.count),
+                                  _layers(sp, seg.count)):
+                def unit(h, bp=bp, window=window, sctx=sctx):
                     return transformer.dense_block(sctx, cfg, bp, h,
                                                    positions, plan, window)
                 units.append(unit)
         elif seg.kind == "moe":
-            for j, window in enumerate(_window_pattern(cfg, seg.count)):
-                def unit(h, bp=_layer(sp, j), window=window, sctx=sctx):
+            for window, bp in zip(_window_pattern(cfg, seg.count),
+                                  _layers(sp, seg.count)):
+                def unit(h, bp=bp, window=window, sctx=sctx):
                     return moe_layer(sctx, cfg, bp, h, positions, plan,
                                      window)
                 units.append(unit)
         elif seg.kind == "zamba":
-            for j in range(seg.count):
-                def unit(h, mp=_layer(sp["mamba"], j), inner=seg.inner,
-                         sctx=sctx):
+            for mp in _layers(sp["mamba"], seg.count):
+                def unit(h, blocks=_layers(mp, seg.inner - 1), sctx=sctx):
                     h = shared_attention(sctx, cfg, params["shared_attn"], h,
                                          x_emb0, positions, plan)
-                    for m in range(inner - 1):
-                        h = mamba2.mamba_block(sctx, cfg, _layer(mp, m), h)[0]
+                    for bp in blocks:
+                        h = mamba2.mamba_block(sctx, cfg, bp, h)[0]
                     return h
                 units.append(unit)
         else:
-            for j in range(seg.count):
-                def unit(h, bp=_layer(sp, j), sctx=sctx):
+            for bp in _layers(sp, seg.count):
+                def unit(h, bp=bp, sctx=sctx):
                     return mamba2.mamba_block(sctx, cfg, bp, h)[0]
                 units.append(unit)
         with region(f"seg{i}:{seg.kind}"):

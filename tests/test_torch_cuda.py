@@ -965,13 +965,18 @@ def _bf16_ulp(x):
     ((2048, 16384), 0),   # gpt-m2's up projection
     ((3, 1001), 0),       # 3003 elements: a tail of 3 past the vectors
     ((37, 77), 1),        # bases off 16 bytes: every element scalar
+    ((7, 4099), 0),       # ragged: 28693 elements, vectors past the unroll
+    ((129, 33), 1),       # an unaligned base over several blocks: scalar
 ])
 def test_activation_backward_kernel_matches_plain(cuda, act, shape, offset):
     """``csrc/act_bwd.cu`` within one bf16 ulp of ``ref.epilogue_bwd`` on
     the same inputs (z spread to |z| = 12, where tanh saturates), one launch
     counted, and against ``aten.gelu_backward`` / ``aten.silu_backward``
     (one PyTorch call for the same function, in its own order of
-    operations) within ``BF16_TOL``."""
+    operations) within ``BF16_TOL``.  One ulp, not zero: the kernel takes
+    tanh and the sigmoid by ex2 and rcp and contracts its products into
+    FMAs, so its fp32 derivative differs from the plain version's by
+    rounding, which can move the bf16 result to the neighbouring value."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     n = shape[0] * shape[1]
     z = (torch.randn(n + offset, generator=gen, device=cuda) * 4).clamp(
@@ -1454,6 +1459,100 @@ def test_attention_backward_refuses_head_dim_256(cuda):
     lse = torch.zeros(1, 2, 4, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention_backward(q, k, v, q, q, lse, qo, kl)
+
+
+#: the decode instance at head dim 256 (``ops.decode_instance``: at most 16
+#: rows, q rows x q heads of a GQA group): (b, skv, kv_len) by case; a
+#: row's q_offset is its kv_len - 1 (a decode tick), 0 where kv_len is 0
+DECODE_256 = {
+    "one slot": (1, 272, [200]),
+    "serve-gemma's 4 slots": (4, 272, [138, 65, 251, 10]),
+    "a long cache, several key tiles a split": (3, 4096, [4000, 70, 2500]),
+    "a row with kv_len 0": (3, 272, [0, 140, 272]),
+    # 9 x 8 kv heads fill the card unsplit at a group of 1 or 2: one split
+    "nine slots": (9, 272, [1, 30, 64, 65, 100, 128, 129, 200, 272]),
+}
+#: (window, softcap): gemma2-2b's local and global layers, and windows that
+#: bite with and without the softcap
+DECODE_256_MASKS = [(4096, 50.0), (0, 50.0), (48, 50.0), (48, 0.0), (0, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,softcap", DECODE_256_MASKS)
+@pytest.mark.parametrize("case", list(DECODE_256))
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_flash_attention_decode_instance_matches_plain(cuda, group, case,
+                                                       window, softcap):
+    """``flash_decode_kernel`` (four warps over the quarters of each key
+    tile, merged in the block, then across the splits) against the plain
+    version within ``FA_TOL``; a row that sees no key gives zeros; one
+    launch, counted on variant 0; two calls give the same bits."""
+    b, skv, kv_len = DECODE_256[case]
+    hkv = 8 // group if group < 8 else 2
+    hq = hkv * group
+    assert ops.decode_instance(1, hq, hkv, 256)
+    q_off = [max(0, x - 1) for x in kv_len]
+    q, k, v, qo, kl = _attention_inputs(cuda, b, 1, skv, hq, hkv, 256,
+                                        q_off, kv_len)
+    kw = dict(window=window, softcap=softcap)
+    before = ops.ATTENTION_VARIANT_LAUNCHES[0]
+    got = ops.flash_attention(q, k, v, qo, kl, **kw)
+    assert ops.ATTENTION_VARIANT_LAUNCHES[0] == before + 1
+    _close(got, ref.attention_ref(q, k, v, qo, kl, **kw), **FA_TOL)
+    assert torch.equal(ops.flash_attention(q, k, v, qo, kl, **kw), got)
+    for i, x in enumerate(kv_len):
+        if x == 0:
+            assert not got[i].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,group", [(2, 8), (4, 4), (16, 1)])
+def test_flash_attention_decode_instance_takes_16_rows(cuda, sq, group):
+    """Sixteen rows (sq x the group) fill the instance's one m16 tile; with
+    its log-sum-exp too (a short training call at head dim 256), against
+    ``ref.attention_lse_ref``."""
+    hkv = 2
+    hq = hkv * group
+    assert ops.decode_instance(sq, hq, hkv, 256)
+    q, k, v, qo, kl = _attention_inputs(cuda, 2, sq, 272, hq, hkv, 256,
+                                        [100, 250], [100 + sq, 250 + sq])
+    kw = dict(window=48, softcap=30.0)
+    got = ops.flash_attention(q, k, v, qo, kl, **kw)
+    _close(got, ref.attention_ref(q, k, v, qo, kl, **kw), **FA_TOL)
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl, **kw)
+    want, want_lse = ref.attention_lse_ref(q, k, v, qo, kl, **kw)
+    _close(out, want, **FA_TOL)
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_flash_attention_decode_instance_replays_in_a_graph(cuda):
+    """Captured in a CUDA graph (its workspace and counters made before
+    the capture, on the capture stream), the decode instance replays on
+    new q/k/v and kv_len with no host work and matches the plain version
+    each time; the arrival counters are clean between replays."""
+    b, skv, hq, hkv = 4, 272, 8, 4
+    kw = dict(window=0, softcap=50.0)
+    q, k, v, qo, kl = _attention_inputs(cuda, b, 1, skv, hq, hkv, 256,
+                                        [137, 64, 250, 9], [138, 65, 251, 10])
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        ops.flash_attention(q, k, v, qo, kl, **kw)
+        stream.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            out = ops.flash_attention(q, k, v, qo, kl, **kw)
+    for seed, lens in ((5, [10, 272, 1, 100]), (6, [0, 33, 200, 271])):
+        q2, k2, v2, qo2, kl2 = _attention_inputs(
+            cuda, b, 1, skv, hq, hkv, 256, [max(0, x - 1) for x in lens],
+            lens, seed=seed)
+        for dst, src in ((q, q2), (k, k2), (v, v2), (qo, qo2), (kl, kl2)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, ref.attention_ref(q2, k2, v2, qo2, kl2, **kw), **FA_TOL)
+        assert torch.equal(out, ops.flash_attention(q2, k2, v2, qo2, kl2,
+                                                    **kw))
 
 
 GROUP_6 = {  # (b, sq, skv, hq, hkv, q_offset, kv_len): dbrx-132b, d = 128
