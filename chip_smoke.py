@@ -159,7 +159,9 @@ Phases, in order, each failing the run on any error:
    backward kernels (flash_attention_bwd, rmsnorm_bwd) against their plain
    backward on the same bf16 inputs (the plain attention backward reads
    the plain forward's output and log-sum-exp): every gradient within a
-   per-tensor relative L2 error of 2e-2, rmsnorm's fp32 dgamma of 1e-3;
+   per-tensor relative L2 error of 2e-2, rmsnorm's bf16 dx of 1e-3 (dx
+   without its mean term, planted, must read above) and its fp32 dgamma
+   of 1e-3;
    the attention backward also with rows that see no key and at s = 2100
    (not a multiple of 64) at 32 / 8 heads, and its dK/dV plan
    (``ops.attention_bwd_plan``: items, longest and mean) is printed.  All
@@ -375,6 +377,44 @@ Phases, in order, each failing the run on any error:
    function), within ``PATH_TOL``, the routes its own top-k would flip
    counted, and a planted fault (each expert's down projection reading
    its neighbour's weights) that must break the limit.
+20. serve-musicgen -- musicgen-medium (LayerNorm, gelu, no RoPE, head dim
+   64) at full depth, 48 layers (1.36 B parameters), served as phase 4:
+   captured, and its tokens equal to the uncaptured step's.
+21. serve-deepseek -- deepseek-v3-671b (MLA) at its published widths, depth
+   cut to 4 of 61 layers: its 3 mla_dense layers and one mla_moe layer of
+   all 256 experts, top-8, and the shared expert (15.1 B parameters, no
+   MTP head): the matmul at each of its shapes and the rmsnorm at its
+   7168-wide block norms (the 8-warp instance) and its 1536- and 512-wide
+   latent norms against their plain versions, timed; then served as
+   phase 2 (4 requests, the captured chunk's and tick's device ms, one
+   timed pair, captured tokens equal to uncaptured ones; the served MLA
+   scores against its latent with torch ops, so no attention kernel runs).
+22. path-check-deepseek (named with serve-deepseek, whose weights it
+   holds) -- the served weights' 3 mla_dense layers on the
+   card against the fp32 CPU path within ``PATH_TOL``; then its mla_moe
+   layer on one 64-token chunk against the plain versions in fp32 on the
+   card, each expert's weights cast at its own matmul (the 45 GB of fp32
+   experts fit nowhere beside the bf16 model), routed by the card's
+   expert ids; the layer's update within ``PATH_TOL``, and a planted fault
+   (each expert's down projection reading its neighbour's) that must
+   break it.
+23. train-deepseek -- the new kernel modes at deepseek-v3's training
+   shapes (b = 1, s = 2048, 128 heads): the attention at q/k 192 with a V
+   of 128 both ways (``fa_train_dv_kernel``; ``dkdv_dv_kernel`` and
+   ``dq_dv_kernel``), also at a ragged s of 1000, and the rmsnorm's
+   7168-wide rows both ways (``rmsnorm_bwd_wide_kernel``) and the latent
+   widths, against their plain versions (the rmsnorm's dx within 1e-3
+   relative L2, dx without its mean term planted above it), timed
+   against the bound, the plain version and SDPA's cuDNN backend (the one that takes a V
+   narrower than q/k) or ``F.rms_norm``; with ``--parent DIR`` the
+   4096-wide rows in turns with DIR's rmsnorm.  Then
+   ``build_train_step`` on deepseek-v3 cut to 2 of its 3 mla_dense layers
+   with its MTP head (3.71 B parameters), AdamW zero1, remat, as phase 8:
+   every launch counted, the loss falling, the peak memory printed.
+24. path-check-train-deepseek -- deepseek-v3 at 1 mla_dense layer and its
+   MTP head, b = 1, s = 256, as phase 9, with the attention backward held
+   on one forward against its plain version on the card (the fault: dK
+   zeroed).
 Phase 8 (train) also trains llama3-8b with an MTP head (its loss term),
 then holds its gradients, the head's with them, against the fp32 CPU
 path at 2 layers.
@@ -391,7 +431,10 @@ step's, the four split rmsnorm kernels at the split-norm phase's launches
 and a launch's time at llama3-8b's training rows at d2 = 2, the int8
 matmul at the int8-matmul phase's twelve projections, the attention
 forward and backward at head dim 256 at the train-gemma step's, the
-matmul and the attention at the serve-dbrx path's; the llama3-8b serving rows and the training steps' other rows go
+matmul and the attention at the serve-dbrx path's, the matmul and the
+rmsnorm at the serve-deepseek path's, the attention at q/k 192 with a V
+of 128 and the rmsnorm each way at the train-deepseek step's; the
+llama3-8b serving rows and the training steps' other rows go
 to the log and, with every check, to
 ``kernel_checks.json`` in the output directory) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -424,7 +467,9 @@ PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
           "split-norm", "int8-matmul", "quant-wire", "train",
           "path-check-train", "train-zamba-kernels", "train-zamba",
           "path-check-train-zamba", "train-gpt-kernels", "train-gpt",
-          "path-check-train-gpt", "train-gemma", "serve-dbrx", "plan",
+          "path-check-train-gpt", "train-gemma", "serve-dbrx",
+          "serve-musicgen", "serve-deepseek", "path-check-deepseek",
+          "train-deepseek", "path-check-train-deepseek", "plan",
           "calibrate")
 #: the serving path whose forward rows the result line reports
 MAIN = "zamba2-7b"
@@ -447,6 +492,14 @@ GEMMA_TRAIN = "train-gemma"
 #: dbrx-132b's serving path: the matmul at its expert shapes, the attention
 #: at its group of 6
 DBRX = "dbrx-132b"
+#: deepseek-v3-671b's serving path (MLA, 256 experts): the matmul at its
+#: projections and experts, the rmsnorm at its 7168-wide rows and latents
+DEEPSEEK = "deepseek-v3-671b"
+#: deepseek-v3's training path: the attention at q/k 192 with a V of 128,
+#: both ways, and the rmsnorm's 7168-wide rows both ways
+DEEPSEEK_TRAIN = "train-deepseek"
+#: musicgen-medium, served at full depth (LayerNorm, gelu, no RoPE)
+MUSICGEN = "musicgen-medium"
 
 BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_TFLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
@@ -1051,7 +1104,8 @@ SERVE = dict(slots=4, prefill_chunk=64, page_size=16, max_seq=272, max_new=16)
 PROMPT_LEN = 256   # prompt lengths are drawn from [64, 256]
 
 
-def launches_per_step(cfg, speculate: bool = False) -> dict:
+def launches_per_step(cfg, speculate: bool = False,
+                      cached: bool = True) -> dict:
     """Kernel launches of one paged step at d1 = d2 = 1 (every step shape
     launches the same kernels), summed over the segments:
       - dense layer: 2 entry norms (rmsnorm launches only for an RMSNorm
@@ -1072,7 +1126,14 @@ def launches_per_step(cfg, speculate: bool = False) -> dict:
     GEMM (llama3-8b: matmul 129 + 7, flash_attention 32 + 1, rmsnorm 65 +
     3).  An MoE layer: its attention's 2 GEMMs and 2 per expert, one
     attention core (dbrx-132b at 4 layers, LayerNorm: matmul 4 * 34 + 1 =
-    137, flash_attention 4)."""
+    137, flash_attention 4).  An MLA layer (``models/mla.py``): its 2 entry
+    norms and 2 latent norms; the q and kv down-projections, the q
+    up-projection and wo, and where it runs cache-free (``cached`` False:
+    training, and always in the MTP draft block) the kv up-projection and
+    one attention core (the served step scores against its latent with
+    torch ops); then its MLP's 2 GEMMs, or the MoE's (deepseek-v3 at 4
+    layers, serving: matmul 3 * 6 + (4 + 2 * 256 + 2) + 1 = 537, rmsnorm 3
+    * 4 + 4 + 1 = 17, flash_attention 0)."""
     from repro_torch.configs.base import segments
 
     norm = 0 if cfg.norm_kind == "layernorm" else 1   # a block norm's launch
@@ -1081,13 +1142,23 @@ def launches_per_step(cfg, speculate: bool = False) -> dict:
     per = {"dense": {"matmul": 4, "flash_attention": 1,
                      "rmsnorm": block_norms * norm},
            "mamba": {"matmul": 3, "rmsnorm": norm + 1, "ssd_scan": 1}}
+    experts = 0
     if cfg.moe is not None:
         # two per expert (all of them on one rank), two of shared experts
-        per["moe"] = {"matmul": 2 + 2 * cfg.moe.num_experts
-                      + (2 if cfg.moe.num_shared else 0),
-                      "flash_attention": 1, "rmsnorm": 2 * norm}
+        experts = 2 * cfg.moe.num_experts + (2 if cfg.moe.num_shared else 0)
+        per["moe"] = {"matmul": 2 + experts, "flash_attention": 1,
+                      "rmsnorm": 2 * norm}
+    head = per["dense"]
+    if cfg.mla is not None:
+        def mla(cache_free: bool, ffn: int):
+            return {"matmul": 4 + int(cache_free) + ffn,
+                    "flash_attention": int(cache_free),
+                    "rmsnorm": 2 * norm + 2}
+        per["mla_dense"] = mla(not cached, 2)
+        per["mla_moe"] = mla(not cached, experts)
+        head = mla(True, 2)
     if speculate:
-        for name, v in per["dense"].items():
+        for name, v in head.items():
             n[name] += v
         n["matmul"] += 3
         n["rmsnorm"] += norm
@@ -1185,8 +1256,9 @@ def serve_once(torch, server, step_fn, prompts, rid0: int):
 #: only inside one call, interleaved
 TIMED_PAIRS = 5
 #: serve-zamba's pairs: its uncaptured runs take about 30 s each, and the
-#: whole script has to stay well inside its time limit
-ZAMBA_PAIRS = 2
+#: whole script has to stay well inside its time limit (one pair since the
+#: deepseek-v3 phases came in)
+ZAMBA_PAIRS = 1
 #: serve-gemma's pairs (its timings are the d = 256 attention's context)
 GEMMA_PAIRS = 3
 
@@ -2674,6 +2746,11 @@ BWD_REL = 2e-2
 #: the same for rmsnorm's fp32 dgamma (its sum over rows is fp32 on both
 #: sides; only the order differs)
 DGAMMA_REL = 1e-3
+#: rmsnorm's bf16 dx against its plain version, relative L2: both round the
+#: same fp32 arithmetic to bf16 (1e-5 to 5e-5 measured).  dx's mean term,
+#: ``xhat mean(xhat gamma dy)``, is about 1/sqrt(h) of dx on random inputs
+#: (1.2e-2 at 7168 wide), under ``BWD_REL``: a dx without it must fail this
+RMSNORM_DX_REL = 1e-3
 #: the attention forward's fp32 log-sum-exp, absolute: an error e scales
 #: the backward's recomputed probabilities by exp(e), so 1e-3 stays under
 #: a quarter of a bf16 ulp
@@ -2686,6 +2763,13 @@ def rel_l2(got, want) -> float:
     g, w = got.float(), want.float()
     assert g.isfinite().all(), "non-finite gradient"
     return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def dx_without_mean_term(torch, x, g, dy, eps):
+    """rmsnorm's dx with its mean term left out, ``rstd gamma dy`` in bf16:
+    the planted fault that the dx check (``RMSNORM_DX_REL``) must catch."""
+    r = torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True) + eps)
+    return (r * g.float() * dy.float()).to(x.dtype)
 
 
 def train_launches_per_step(cfg, remat: bool) -> tuple[dict, dict]:
@@ -2708,8 +2792,8 @@ def train_launches_per_step(cfg, remat: bool) -> tuple[dict, dict]:
     activation derivatives.  An MTP head (``cfg.mtp``) adds its launches
     (``launches_per_step(speculate=True)``'s) once forward and once
     backward."""
-    trunk = launches_per_step(cfg)
-    serve = launches_per_step(cfg, speculate=cfg.mtp)
+    trunk = launches_per_step(cfg, cached=False)
+    serve = launches_per_step(cfg, speculate=cfg.mtp, cached=False)
     again = 2 if remat else 1
     # the head and the final norm (a launch only for an RMSNorm model), and
     # an MTP head, which no remat unit holds
@@ -3329,14 +3413,16 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
     rn = KernelReport("rmsnorm_bwd", "cuda",
                       "src/repro_torch/kernels/csrc/rmsnorm.cu",
                       "src/repro/kernels/rmsnorm.py:30", floor)
-    log(f"train-kernels: rmsnorm backward; dx limit {BWD_REL}, dgamma "
-        f"{DGAMMA_REL} relative L2")
+    log(f"train-kernels: rmsnorm backward; dx limit {RMSNORM_DX_REL}, "
+        f"dgamma {DGAMMA_REL} relative L2; dx without its mean term must "
+        f"read above the limit")
     for rows, h, weight in ((T, 4096, 2 * L + 1), (37, 3584, 0)):
         x, dy = randn(rows, h, scale=3.0), randn(rows, h)
         g = torch.rand(h, generator=gen, device="cuda") + 0.5
         dx, dg = ops.rmsnorm_backward(x, g, dy, eps=1e-5)
         want_dx, want_dg = ref.rmsnorm_bwd_ref(x, g, dy, 1e-5)
         errs = (rel_l2(dx, want_dx), rel_l2(dg, want_dg))
+        fault = rel_l2(dx_without_mean_term(torch, x, g, dy, 1e-5), want_dx)
         err = max(float((dx.float() - want_dx.float()).abs().max()),
                   float((dg - want_dg).abs().max()))
         timing = {}
@@ -3358,9 +3444,10 @@ def train_kernel_phase(torch, F, ops, ref, timer, floor, parent=None):
                     timer, lambda: prior[1](x, g, dy, 1e-5),
                     lambda: ops.rmsnorm_backward(x, g, dy, eps=1e-5)))
         if not rn.add(f"rows={rows} h={h}: rel L2 dx {errs[0]:.2e} dgamma "
-                      f"{errs[1]:.2e}", errs[0] <= BWD_REL
-                      and errs[1] <= DGAMMA_REL, err,
-                      {"dx": BWD_REL, "dgamma": DGAMMA_REL},
+                      f"{errs[1]:.2e}; dx without its mean term {fault:.2e}",
+                      errs[0] <= RMSNORM_DX_REL and errs[1] <= DGAMMA_REL
+                      and fault > RMSNORM_DX_REL, err,
+                      {"dx": RMSNORM_DX_REL, "dgamma": DGAMMA_REL},
                       TRAIN if weight else None,
                       "train" if weight else None, weight, **timing):
             failed.append(f"rmsnorm_bwd rows={rows}")
@@ -4784,10 +4871,11 @@ def gpt_train_kernel_phase(torch, F, ops, ref, timer, floor,
 
 
 def _train_config(arch: str, layers: int, mtp: bool = False):
+    from repro_torch.configs.base import cut_depth
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(arch)
-    return dataclasses.replace(cfg, num_layers=layers, mtp=mtp or cfg.mtp)
+    return dataclasses.replace(cut_depth(cfg, layers), mtp=mtp or cfg.mtp)
 
 
 def _train_model(torch, layers: int, seed: int, dev="cuda",
@@ -5590,6 +5678,475 @@ def serve_dbrx_phase(torch, F, ops, ref, floor) -> tuple[list, dict]:
 
 
 # ---------------------------------------------------------------------------
+# deepseek-v3 (MLA: mla_dense, mla_moe, the MLA MTP head) served and
+# trained, and musicgen-medium served.
+# ---------------------------------------------------------------------------
+
+#: deepseek-v3-671b's served depth: 4 of its 61 layers at its published
+#: widths, its 3 mla_dense layers and one mla_moe layer of all 256 experts
+#: (15.1 B parameters, about 30.2 GB of bf16; no MTP head)
+DEEPSEEK_LAYERS = 4
+#: serve-deepseek's timed pairs of captured and uncaptured runs
+DEEPSEEK_PAIRS = 1
+#: deepseek-v3's training depth: 2 of its 3 mla_dense layers and its MTP
+#: head (3.71 B parameters, about 59 GB at 16 bytes a parameter); an
+#: mla_moe layer of 11.3 B parameters trains only on a mesh
+DEEPSEEK_TRAIN_LAYERS = 2
+#: the training path check's depth (one mla_dense layer and the MTP head)
+DEEPSEEK_PATH_LAYERS = 1
+#: the attention at q/k 192 with a V of 128 at deepseek-v3's training
+#: shapes (b = 1, 128 heads, MHA); a ragged length, unweighted
+DEEPSEEK_ATTENTION = ((2048, True), (1000, False))
+
+
+def deepseek_gemms(cfg, layers: int):
+    """(name, K, N, rows of a prefill chunk, rows of a decode tick,
+    launches per step) of deepseek-v3's served matmuls at ``layers`` (its
+    first 3 mla_dense, the rest mla_moe): each MLA layer's q and kv
+    down-projections (7168 x 1536, 7168 x 576), q up-projection (1536 x
+    24576) and wo (16384 x 7168); the dense MLP's up|gate and down; each
+    expert's at its capacity's rows (every expert runs each step) and the
+    shared expert's; the head."""
+    m, mc, h = cfg.mla, cfg.moe, cfg.d_model
+    chunk, slots = SERVE["prefill_chunk"], SERVE["slots"]
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dense = mc.first_dense_layers
+    moe_layers = layers - dense
+
+    def cap(t):
+        return max(1, int(mc.capacity_factor * t * mc.top_k
+                          / mc.num_experts))
+
+    ff = mc.d_ff_expert
+    return (("w_dq", h, m.q_lora_rank, chunk, slots, layers),
+            ("w_dkv", h, m.kv_lora_rank + m.qk_rope_head_dim, chunk, slots,
+             layers),
+            ("w_uq", m.q_lora_rank, cfg.num_heads * qk, chunk, slots, layers),
+            ("wo", cfg.num_heads * m.v_head_dim, h, chunk, slots, layers),
+            ("mlp up|gate", h, 2 * cfg.d_ff, chunk, slots, dense),
+            ("mlp down", cfg.d_ff, h, chunk, slots, dense),
+            ("expert up|gate", h, 2 * ff, cap(chunk), cap(slots),
+             moe_layers * mc.num_experts),
+            ("expert down", ff, h, cap(chunk), cap(slots),
+             moe_layers * mc.num_experts),
+            ("shared up|gate", h, 2 * ff * mc.num_shared, chunk, slots,
+             moe_layers),
+            ("shared down", ff * mc.num_shared, h, chunk, slots, moe_layers),
+            ("lm_head", h, cfg.vocab_size, chunk, slots, 1))
+
+
+def deepseek_kernel_checks(torch, F, ops, ref, cfg, timer, floor):
+    """The matmul at every deepseek-v3 serving shape of a prefill chunk
+    and a decode tick (``deepseek_gemms``), and the rmsnorm at its block
+    norms' 7168-wide rows (the new instance: 8 warps a row) and its latent
+    norms' 1536 and 512, against their plain versions as in phase 1, timed
+    against the bound, the plain version and the library (``torch.matmul``,
+    ``F.rms_norm``).  Returns the two KernelReports of the ``DEEPSEEK``
+    path."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    chunk, slots = SERVE["prefill_chunk"], SERVE["slots"]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    failed = []
+    mm = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
+                      "src/repro/kernels/matmul.py:102", floor)
+    log(f"serve-deepseek: matmul at deepseek-v3's shapes, {cfg.num_layers} "
+        f"layers (tolerance |err| <= atol + rtol*|plain|)")
+    for label, K, N, m_pre, m_dec, weight in deepseek_gemms(cfg,
+                                                           cfg.num_layers):
+        b = randn(K, N, scale=K ** -0.5)
+        for M, step in ((m_pre, "prefill"), (m_dec, "decode")):
+            plan = ops.matmul_plan(M, N, K)
+            a = randn(M, K)
+            ok, err = within(ops.matmul(a, b), ref.matmul_ref(a, b), **MM_TOL)
+            if not mm.add(f"{label} M={M} K={K} N={N} [{plan.name}]", ok,
+                          err, MM_TOL, DEEPSEEK, step, weight,
+                          timer(lambda: ops.matmul(a, b)),
+                          timer(lambda: ref.matmul_ref(a, b)),
+                          timer(lambda: torch.matmul(a, b)),
+                          nbytes=2 * (M * K + K * N + M * N),
+                          flops=2 * M * K * N):
+                failed.append(f"matmul deepseek {label} M={M}")
+        del a, b
+    rn = KernelReport("rmsnorm", "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                      "src/repro/kernels/rmsnorm.py:30", floor)
+    m = cfg.mla
+    dense = cfg.moe.first_dense_layers
+    # per step: 2 block norms a layer and the final norm; q_ln and kv_ln a
+    # layer
+    for h, per in ((cfg.d_model, 2 * cfg.num_layers + 1),
+                   (m.q_lora_rank, cfg.num_layers),
+                   (m.kv_lora_rank, cfg.num_layers)):
+        g = torch.randn(h, generator=gen, device="cuda") * 0.1 + 1.0
+        for rows, step in ((chunk, "prefill"), (slots, "decode")):
+            x = randn(rows, h)
+            plan = ops.rmsnorm_plan(rows, h)
+            ok, err = within(ops.rmsnorm(x, g, eps=cfg.norm_eps),
+                             ref.rmsnorm_ref(x, g, cfg.norm_eps), **RN_TOL)
+            gb = g.to(torch.bfloat16)
+            if not rn.add(f"rows={rows} h={h} [{plan.name}]", ok, err,
+                          RN_TOL, DEEPSEEK, step, per,
+                          timer(lambda: ops.rmsnorm(x, g, eps=cfg.norm_eps)),
+                          timer(lambda: ref.rmsnorm_ref(x, g, cfg.norm_eps)),
+                          timer(lambda: F.rms_norm(x, (h,), gb,
+                                                   cfg.norm_eps)),
+                          nbytes=2 * 2 * rows * h + 4 * h, flops=4 * rows * h):
+                failed.append(f"rmsnorm deepseek rows={rows} h={h}")
+    log(f"  ({dense} mla_dense and {cfg.num_layers - dense} mla_moe layers; "
+        f"rmsnorm launches a step: 2 block norms and q_ln, kv_ln a layer, "
+        f"the final norm)")
+    if failed:
+        raise AssertionError(f"deepseek-v3's kernels disagree with their "
+                             f"plain versions: {failed}")
+    return mm, rn
+
+
+def plain_forward(ref) -> dict:
+    """``kernels.ops``' forward wrappers of the served MLA path as their
+    plain versions on any device (fp32 where the input is): the matmul
+    casts each operand to fp32 at its call, so an expert's weights are cast
+    one expert at a time."""
+    def matmul(a, b, bias=None, activation=None):
+        return ref.matmul_ref(a, b, bias, activation)
+
+    def rmsnorm(x, gamma, *, eps=1e-6):
+        return ref.rmsnorm_ref(x, gamma, eps)
+
+    return dict(matmul=matmul, rmsnorm=rmsnorm)
+
+
+def deepseek_moe_check(torch, cfg, params, dev="cuda") -> None:
+    """The served mla_moe layer (``seg1``, layer 0: MLA over a fresh
+    contiguous latent cache, then 256 experts, top-8, and the shared
+    expert) on one prefill chunk of seeded inputs, on the card through the
+    kernels (bf16) and through the plain versions in fp32 on the card from
+    the same bf16 weights (``plain_forward``: the 45 GB of fp32 experts
+    would not fit beside the bf16 model, so each expert is cast at its own
+    matmul), routed by the card's expert ids as ``dbrx_path_check`` does.
+    The layer's update (output minus input) must agree within
+    ``PATH_TOL`` per row; a planted fault (each expert's down projection
+    reading its neighbour's weights) must break the limit."""
+    from repro_torch.core.atp import make_context
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm, mla, moe
+
+    m = cfg.mla
+    chunk = SERVE["prefill_chunk"]
+    p = lm.tree_map(lambda t: t[0], params["seg1"])
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(1, chunk, cfg.d_model, generator=gen, device=dev)
+    pos = torch.arange(chunk, device=dev)[None]
+    ctx = make_context(atp_topo(1, 1, 1), device_type=x.device.type)
+
+    def run(xin, dtype):
+        cache = {"ckv": torch.zeros(1, chunk, m.kv_lora_rank, dtype=dtype,
+                                    device=dev),
+                 "krope": torch.zeros(1, chunk, m.qk_rope_head_dim,
+                                      dtype=dtype, device=dev),
+                 "len": torch.zeros((), dtype=torch.int32, device=dev)}
+        with torch.no_grad():
+            y = mla.mla_layer(ctx, cfg, p, xin.to(dtype), pos, cache)[0]
+        return (y.float() - xin.to(dtype).float())[0].cpu()
+
+    routes, flips = [], []
+    with swapped(moe, route=pinned_routes(torch, moe, log_routes=routes)):
+        card = run(x, torch.bfloat16)
+    with swapped(moe, _experts=wrong_expert(moe._experts)):
+        fault = run(x, torch.bfloat16)
+    with swapped(ops, **plain_forward(ref)), swapped(
+            moe, route=pinned_routes(torch, moe, routes=routes, flips=flips)):
+        fp32 = run(x.to(torch.bfloat16).float(), torch.float32)
+
+    def worst(got):
+        return float(((got - fp32).norm(dim=-1) / fp32.norm(dim=-1)).max())
+
+    c, f = worst(card), worst(fault)
+    log(f"path-check-deepseek: the mla_moe layer (256 experts, top-8, a "
+        f"shared expert) on a {chunk}-token chunk, the card (kernels, bf16) "
+        f"against the plain versions in fp32 on the card, routed by the "
+        f"card's expert ids: worst relative L2 error of the layer's update "
+        f"per row {c:.3e}, limit {PATH_TOL}; routes the fp32 top-k flips "
+        f"{sum(flips)} of {int(routes[0].numel())}; the planted fault (down "
+        f"projections of the neighbouring expert) {f:.3e}")
+    assert card.isfinite().all(), "non-finite layer output"
+    assert c <= PATH_TOL, \
+        f"path-check deepseek moe: relative error {c:.3e} (limit {PATH_TOL})"
+    assert f > PATH_TOL, "the MoE path check passed a planted fault"
+
+
+def deepseek_path_check(torch, cfg, params, dev="cuda") -> None:
+    """``path_calls`` through the served weights' 3 mla_dense layers on the
+    card (kernels, bf16) and on the CPU in fp32 (the logits within
+    ``PATH_TOL``), then ``deepseek_moe_check`` on its mla_moe layer."""
+    from repro_torch.configs.base import cut_depth
+    from repro_torch.models import lm
+
+    cut = cut_depth(cfg, cfg.moe.first_dense_layers)
+    dense = cut_params(cfg, cut, params)
+    pcfg, calls = path_calls(cut, seed=9)
+    card = run_path(torch, cut, dense, pcfg, calls, dev)[0]
+    host = lm.tree_map(lambda t: t.cpu().float(), dense)
+    fp32 = run_path(torch, cut, host, pcfg, calls, "cpu", torch.float32)[0]
+    del host
+    gc.collect()
+    c = compare_logits(calls, card, fp32)
+    log(f"path-check deepseek-v3 at its {cut.num_layers} mla_dense layers, "
+        f"d_model {cfg.d_model}, {c['rows']} logit rows: worst relative L2 "
+        f"error per row {c['worst']:.3e} (per call "
+        f"{', '.join(f'{e:.3e}' for e in c['per_call'])}), max abs "
+        f"{c['max_abs']:.3e}, top-1 agreement {c['agree']}/{c['rows']}, "
+        f"limit {PATH_TOL}")
+    assert c["worst"] <= PATH_TOL, \
+        f"path-check deepseek: relative error {c['worst']:.3e} " \
+        f"(limit {PATH_TOL})"
+    deepseek_moe_check(torch, cfg, params, dev)
+
+
+def serve_deepseek_phase(torch, F, ops, ref, floor,
+                         keep: dict | None = None) -> tuple[list, dict]:
+    """deepseek-v3-671b at its published widths, depth cut to
+    ``DEEPSEEK_LAYERS`` (no MTP head): its kernels at its shapes
+    (``deepseek_kernel_checks``), then ``serve_phase`` (4 requests,
+    captured and uncaptured, ``DEEPSEEK_PAIRS`` timed pairs: the captured
+    chunk's and tick's device ms).  ``keep`` receives the served weights
+    and config (for path-check-deepseek).  Returns the kernel reports and
+    the served run's launch counts."""
+    from repro_torch.configs.base import cut_depth
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(cut_depth(get_config(DEEPSEEK),
+                                        DEEPSEEK_LAYERS), mtp=False)
+    timer = Timer(torch)
+    if floor is None:
+        floor = timer(lambda: torch.cuda._sleep(0))
+    reports = list(deepseek_kernel_checks(torch, F, ops, ref, cfg, timer,
+                                          floor))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = {}
+    launches = serve_phase(torch, cfg, requests=4, seed=9,
+                           pairs=DEEPSEEK_PAIRS,
+                           kernel_ms={s: sum(r.step_ms(DEEPSEEK, s)
+                                             for r in reports)
+                                      for s in ("prefill", "decode")},
+                           keep=kept)
+    if keep is not None:
+        keep.update(cfg=cfg, params=kept.pop("params"))
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reports, launches
+
+
+def deepseek_train_kernels(torch, F, ops, ref, timer, floor, parent=None):
+    """The new kernel modes at deepseek-v3's training shapes (b = 1, s =
+    2048, 128 q and kv heads): the attention forward at q/k 192 with a V of
+    128 (``fa_train_dv_kernel``, variant 1, with its log-sum-exp) against
+    ``ref.attention_lse_ref`` and the plain mirror of its order
+    (``ref.attention_train_ref``), and its backward
+    (``dkdv_dv_kernel``/``dq_dv_kernel``) against ``ref.attention_bwd_ref``,
+    also at a ragged s of 1000; the rmsnorm at 2048 rows of 7168 (8 warps a
+    row forward, ``rmsnorm_bwd_wide_kernel`` backward) and of the latents'
+    1536 and 512, both ways, and of 4096 (the earlier instances, with
+    ``parent`` timed in turns with that tree's), its dx within
+    ``RMSNORM_DX_REL`` and dx without its mean term (planted) above it.
+    Timed against the bound,
+    the plain version and the library: SDPA under its cuDNN backend, the
+    one that takes a V narrower than q/k, both ways; ``F.rms_norm`` and its
+    autograd backward.  Weighted per training step of ``train-deepseek``
+    (remat: two forwards a layer; the MTP head's block once).  Returns four
+    KernelReports (attention and rmsnorm, each way)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    hq, d, dv = 128, 192, 128
+    L = DEEPSEEK_TRAIN_LAYERS
+    if floor is None:
+        floor = timer(lambda: torch.cuda._sleep(0))
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    src = "src/repro_torch/kernels/csrc/"
+    fa_f = KernelReport("flash_attention_train", "cuda",
+                        src + "flash_attention_train.cu",
+                        "src/repro/kernels/flash_attention.py:102", floor)
+    fa_b = KernelReport("flash_attention_bwd", "cuda",
+                        src + "flash_attention_bwd.cu",
+                        "src/repro/kernels/flash_attention.py:102", floor)
+    rn_f = KernelReport("rmsnorm", "cuda", src + "rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm.py:30", floor)
+    rn_b = KernelReport("rmsnorm_bwd", "cuda", src + "rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm.py:30", floor)
+    failed = []
+    # launches a train-deepseek step: each layer's attention twice (remat)
+    # and the MTP head's once forward, once each backward
+    fa_per = (2 * L + 1, L + 1)
+    for T, weighted in DEEPSEEK_ATTENTION:
+        q, k = randn(1, T, hq, d), randn(1, T, hq, d)
+        v, do = randn(1, T, hq, dv), randn(1, T, hq, dv)
+        qo = torch.zeros(1, dtype=torch.int32, device="cuda")
+        kl = torch.full((1,), T, dtype=torch.int32, device="cuda")
+        fplan = ops.attention_plan(1, T, hq, hq, T, d=d)
+        bplan = ops.attention_bwd_plan(1, T, hq, hq, T, d=d)
+        before = ops.ATTENTION_VARIANT_LAUNCHES[1]
+        out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+        launched = ops.ATTENTION_VARIANT_LAUNCHES[1] - before
+        out_ref, lse_ref = ref.attention_lse_ref(q, k, v, qo, kl)
+        lse_err = float((lse - lse_ref).abs().max())
+        ok, err = within(out, out_ref, **FA_TOL)
+        ok_m, err_m = within(out, ref.attention_train_ref(q, k, v, qo, kl)[0],
+                             **FA_TOL)
+        ok = (ok and ok_m and launched == 1 and bool(lse.isfinite().all())
+              and out.shape == (1, T, hq, dv))
+        before = ops.BACKWARD_LAUNCHES["flash_attention_bwd"]
+        got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
+        b_launched = ops.BACKWARD_LAUNCHES["flash_attention_bwd"] - before
+        want = ref.attention_bwd_ref(q, k, v, out_ref, do, lse_ref, qo, kl)
+        errs = [rel_l2(g, w) for g, w in zip(got, want)]
+        gerr = max(float((g.float() - w.float()).abs().max())
+                   for g, w in zip(got, want))
+        shapes_ok = [t.shape for t in got] == [q.shape, k.shape, v.shape]
+        del got, want, out_ref, lse_ref
+        label = f"s={T} q/k {d} v {dv}, {hq} heads"
+        log(f"train-deepseek: the attention at {label}: forward variant "
+            f"{fplan.variant} ({fplan.row_tiles} row tiles of {fplan.rows}, "
+            f"key tiles of {fplan.bkv}); backward {len(bplan.items)} dK/dV "
+            f"items of at most {bplan.max_len} row tiles on {bplan.blocks} "
+            f"blocks")
+        ft, bt = {}, {}
+        if weighted:
+            visible = int(ref.attention_mask(T, T, qo, kl).sum()) * hq
+            leaves = [t.transpose(1, 2) for t in (q, k, v)]
+            try:
+                with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+                    lib_f = timer(lambda: F.scaled_dot_product_attention(
+                        *leaves, is_causal=True))
+                    lv = [t.detach().requires_grad_(True) for t in leaves]
+                    o_lib = F.scaled_dot_product_attention(*lv,
+                                                           is_causal=True)
+                    lib_b = timer(lambda: torch.autograd.grad(
+                        o_lib, lv, do.transpose(1, 2), retain_graph=True))
+                    del o_lib, lv
+                lib = "SDPA (cuDNN backend)"
+            except RuntimeError as e:   # the yardstick only
+                log(f"  SDPA's cuDNN backend did not take q/k {d}, v {dv} "
+                    f"({str(e)[:160]}); no library time")
+                lib_f = lib_b = None
+                lib = "none"
+            ft = dict(ms=timer(lambda: ops.flash_attention_lse(q, k, v, qo,
+                                                               kl)),
+                      plain_ms=timer(lambda: ref.attention_lse_ref(q, k, v,
+                                                                   qo, kl)),
+                      library_ms=lib_f,
+                      nbytes=2 * (q.numel() + k.numel() + v.numel()
+                                  + out.numel()) + 4 * lse.numel(),
+                      flops=2 * (d + dv) * visible)
+            bt = dict(ms=timer(lambda: ops.flash_attention_backward(
+                          q, k, v, out, do, lse, qo, kl)),
+                      plain_ms=timer(lambda: ref.attention_bwd_ref(
+                          q, k, v, out, do, lse, qo, kl)),
+                      library_ms=lib_b,
+                      nbytes=2 * (2 * q.numel() + 2 * k.numel()
+                                  + 2 * v.numel() + out.numel() + do.numel())
+                      + 4 * lse.numel(),
+                      flops=2 * (3 * d + 2 * dv) * visible)
+            log(f"  library: {lib}; forward {lib_f} ms, backward {lib_b} ms; "
+                f"the bounds count {visible} visible (q, key) pairs: forward "
+                f"2 x (192 + 128) flops a pair (S, P V), backward 2 x (3 x "
+                f"192 + 2 x 128) (S, dK, dQ over 192; dP, dV over 128)")
+            log(f"  {label} backward, by kernel, µs a launch: " + by_kernel(
+                torch, lambda: ops.flash_attention_backward(
+                    q, k, v, out, do, lse, qo, kl)))
+            log(f"  {label} forward, by kernel, µs a launch: " + by_kernel(
+                torch, lambda: ops.flash_attention_lse(q, k, v, qo, kl)))
+        path = DEEPSEEK_TRAIN if weighted else None
+        step = "train" if weighted else None
+        if not fa_f.add(f"{label}: lse |err| {lse_err:.2e}, mirror "
+                        f"{err_m:.2e} [variant {fplan.variant}]",
+                        ok and lse_err <= LSE_ATOL, err, FA_TOL, path, step,
+                        fa_per[0] if weighted else 0, **ft):
+            failed.append(f"flash_attention (192, 128) {label}")
+        if not fa_b.add(f"{label}: rel L2 dq {errs[0]:.2e} dk "
+                        f"{errs[1]:.2e} dv {errs[2]:.2e}",
+                        max(errs) <= BWD_REL and shapes_ok and b_launched == 1,
+                        gerr, BWD_REL, path, step,
+                        fa_per[1] if weighted else 0, **bt):
+            failed.append(f"flash_attention_bwd (192, 128) {label}")
+        del q, k, v, do, out, lse
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    prior = None
+    if parent is not None:
+        _, theirs = parent_entries(parent, ("rmsnorm",),
+                                   ("rmsnorm", "rmsnorm_bwd"),
+                                   "train-deepseek")
+        prior = theirs
+    rows = TRAIN_SHAPE["seq"]
+    # launches a step at each width: the block norms (2 a layer twice, the
+    # final norm, the MTP block's 2 and its norm) and the latent norms
+    # (q_ln, kv_ln a layer twice and the MTP block's), forward; backward
+    # once each
+    widths = ((7168, 4 * L + 4, 2 * L + 4), (1536, 2 * L + 1, L + 1),
+              (512, 2 * L + 1, L + 1), (4096, 0, 0))
+    for h, per_f, per_b in widths:
+        x, dy = randn(rows, h), randn(rows, h)
+        g = torch.randn(h, generator=gen, device="cuda") * 0.1 + 1.0
+        gb = g.to(torch.bfloat16)
+        plan = ops.rmsnorm_plan(rows, h)
+        ok, err = within(ops.rmsnorm(x, g), ref.rmsnorm_ref(x, g), **RN_TOL)
+        dx, dgam = ops.rmsnorm_backward(x, g, dy)
+        wdx, wdg = ref.rmsnorm_bwd_ref(x, g, dy)
+        dx_rel, dg_rel = rel_l2(dx, wdx), rel_l2(dgam, wdg)
+        fault = rel_l2(dx_without_mean_term(torch, x, g, dy, 1e-6), wdx)
+        bok = (dx_rel <= RMSNORM_DX_REL and dg_rel <= DGAMMA_REL
+               and fault > RMSNORM_DX_REL)
+        berr = float((dx.float() - wdx.float()).abs().max())
+        path = DEEPSEEK_TRAIN if per_f else None
+        xl = x.detach().requires_grad_(True)
+        yl = F.rms_norm(xl, (h,), gb)
+        timed_f = dict(ms=timer(lambda: ops.rmsnorm(x, g)),
+                       plain_ms=timer(lambda: ref.rmsnorm_ref(x, g)),
+                       library_ms=timer(lambda: F.rms_norm(x, (h,), gb)),
+                       nbytes=2 * 2 * rows * h + 4 * h, flops=4 * rows * h)
+        timed_b = dict(ms=timer(lambda: ops.rmsnorm_backward(x, g, dy)),
+                       plain_ms=timer(lambda: ref.rmsnorm_bwd_ref(x, g, dy)),
+                       library_ms=timer(lambda: torch.autograd.grad(
+                           yl, xl, dy, retain_graph=True)),
+                       nbytes=3 * 2 * rows * h + 2 * 4 * h,
+                       flops=8 * rows * h)
+        if prior is not None and h == 4096:
+            log(f"  rmsnorm forward {rows}x{h}: " + interleaved(
+                timer, with_entries(prior, lambda: ops.rmsnorm(x, g)),
+                lambda: ops.rmsnorm(x, g)))
+            log(f"  rmsnorm backward {rows}x{h}: " + interleaved(
+                timer, with_entries(prior, lambda: ops.rmsnorm_backward(
+                    x, g, dy)), lambda: ops.rmsnorm_backward(x, g, dy)))
+        if not rn_f.add(f"rows={rows} h={h} [{plan.name}]", ok, err, RN_TOL,
+                        path, "train" if per_f else None, per_f, **timed_f):
+            failed.append(f"rmsnorm rows={rows} h={h}")
+        if not rn_b.add(f"rows={rows} h={h} "
+                        f"[{ops.rmsnorm_bwd_blocks(rows, h)} blocks]: rel L2 "
+                        f"dx {dx_rel:.2e} dgamma {dg_rel:.2e}; dx without "
+                        f"its mean term {fault:.2e}", bok, berr,
+                        {"dx": RMSNORM_DX_REL, "dgamma": DGAMMA_REL}, path,
+                        "train" if per_f else None, per_b,
+                        **timed_b):
+            failed.append(f"rmsnorm_bwd rows={rows} h={h}")
+        del x, dy, xl, yl, dx, wdx
+    if failed:
+        raise AssertionError(f"deepseek-v3's training kernels disagree with "
+                             f"their plain versions: {failed}")
+    return [fa_f, fa_b, rn_f, rn_b]
+
+
+# ---------------------------------------------------------------------------
 # The strategy stack on the card (phase 16).
 # ---------------------------------------------------------------------------
 
@@ -5809,6 +6366,9 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "path-check-deepseek" in phases and "serve-deepseek" not in phases:
+        ap.error("path-check-deepseek holds serve-deepseek's weights: name "
+                 "both")
 
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -6020,6 +6580,33 @@ def main(argv=None) -> int:
                                                         floor_ms)
         reports += dbrx_reports
         done("serve-dbrx")
+    if "serve-musicgen" in phases:
+        launches[MUSICGEN] = serve_phase(torch, get_config(MUSICGEN),
+                                         requests=4, seed=10)
+        done("serve-musicgen")
+    served = {}   # serve-deepseek's weights, which its path check reuses
+    if "serve-deepseek" in phases:
+        ds_reports, launches[DEEPSEEK] = serve_deepseek_phase(
+            torch, F, ops, ref, floor_ms,
+            keep=served if "path-check-deepseek" in phases else None)
+        reports += ds_reports
+        done("serve-deepseek")
+    if "path-check-deepseek" in phases:
+        deepseek_path_check(torch, served["cfg"], served.pop("params"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        done("path-check-deepseek")
+    if "train-deepseek" in phases:
+        reports += deepseek_train_kernels(torch, F, ops, ref, Timer(torch),
+                                          floor_ms, parent=args.parent)
+        launches[DEEPSEEK_TRAIN] = train_phase(
+            torch, arch=DEEPSEEK, layers=DEEPSEEK_TRAIN_LAYERS,
+            tag="_deepseek")
+        done("train-deepseek")
+    if "path-check-train-deepseek" in phases:
+        train_path_check(torch, arch=DEEPSEEK, layers=DEEPSEEK_PATH_LAYERS,
+                         hold_attention=True)
+        done("path-check-train-deepseek")
     if "plan" in phases:
         plan_phase(torch)
         done("plan")
@@ -6033,13 +6620,19 @@ def main(argv=None) -> int:
 
     rows = {path: path_rows(path, reports)
             for path in ("llama3-8b", MAIN, GEMMA, TRAIN, TRAIN_ZAMBA,
-                         TRAIN_GPT, SPLIT, INT8, GEMMA_TRAIN, DBRX)}
+                         TRAIN_GPT, SPLIT, INT8, GEMMA_TRAIN, DBRX,
+                         DEEPSEEK, DEEPSEEK_TRAIN)}
     for row in rows[GEMMA]:    # the attention at head dim 256
         row["name"] += " (head dim 256)"
     for row in rows[GEMMA_TRAIN]:
         row["name"] += " (head dim 256, training)"
     for row in rows[DBRX]:
         row["name"] += " (dbrx-132b)"
+    for row in rows[DEEPSEEK]:
+        row["name"] += " (deepseek-v3-671b)"
+    for row in rows[DEEPSEEK_TRAIN]:
+        row["name"] += " (deepseek-v3, q/k 192 v 128 and rows of 7168, " \
+                       "training)"
     rows["train forward"] = path_rows(TRAIN, train_fwd)
     rows["train-zamba forward"] = path_rows(TRAIN_ZAMBA, train_zamba_fwd)
     rows["train-zamba matmul backward"] = path_rows(TRAIN_ZAMBA, zamba_mm_bwd)
@@ -6068,7 +6661,9 @@ def main(argv=None) -> int:
                        ("split rmsnorm, a launch", SPLIT),
                        ("int8 projections, one each", INT8),
                        ("train-gemma step", GEMMA_TRAIN),
-                       ("dbrx-132b step pair", DBRX)):
+                       ("dbrx-132b step pair", DBRX),
+                       ("deepseek-v3-671b step pair", DEEPSEEK),
+                       ("train-deepseek step", DEEPSEEK_TRAIN)):
         for row in rows[path]:
             log(f"{what}: {row['name']} launches={row['launches']} "
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
@@ -6076,7 +6671,8 @@ def main(argv=None) -> int:
                 f"library_ms={row['library_ms']}")
     kernels = (rows[MAIN] + rows[GEMMA] + rows[TRAIN] + rows[TRAIN_ZAMBA]
                + rows[TRAIN_GPT] + rows[SPLIT] + rows[INT8]
-               + rows[GEMMA_TRAIN] + rows[DBRX])
+               + rows[GEMMA_TRAIN] + rows[DBRX] + rows[DEEPSEEK]
+               + rows[DEEPSEEK_TRAIN])
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

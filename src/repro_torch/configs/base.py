@@ -265,9 +265,22 @@ def segments(cfg: ModelConfig) -> tuple[Segment, ...]:
         dense_kind = "mla_dense" if cfg.mla is not None else "dense"
         if cfg.moe.first_dense_layers:
             segs.append(Segment(dense_kind, cfg.moe.first_dense_layers))
-        segs.append(Segment(kind, cfg.num_layers - cfg.moe.first_dense_layers))
+        # a depth cut to the dense prefix (cut_depth) leaves no MoE segment
+        if cfg.num_layers > cfg.moe.first_dense_layers:
+            segs.append(Segment(kind,
+                                cfg.num_layers - cfg.moe.first_dense_layers))
         return tuple(segs)
     return (Segment("dense", cfg.num_layers),)
+
+
+def cut_depth(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """``cfg`` cut to its first ``layers`` layers, widths kept: an MoE
+    model's dense prefix is cut too where ``layers`` ends inside it (then
+    it has no MoE layer)."""
+    if cfg.moe is not None and cfg.moe.first_dense_layers > layers:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, first_dense_layers=layers))
+    return dataclasses.replace(cfg, num_layers=layers)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,7 +4,8 @@
 as numpy arrays (keys like ``seg0/attn/wq`` stacked ``[count, ...]``), and
 returns rank ``rank``'s shard for the port: cut by the same
 PartitionSpecs the JAX package shards with (an MoE layer's experts over
-the flat TP ranks), with q/k/v, up/gate (each expert's too) and the
+the flat TP ranks; an MLA layer's leaves by ``mla.SPECS``, none fused),
+with q/k/v, up/gate (each expert's too) and the
 Mamba2 z/x fused per rank in the order the JAX blocks concatenate their
 local shards (``lm.shard_params``).  Each leaf keeps its dtype: a bf16
 model's Mamba2 ``conv``, ``A_log``, ``D``, ``dt_bias``, ``ln`` and ``gn``
@@ -21,7 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, segments
 from repro_torch.core.mesh import MeshTopo
 from repro_torch.models import layers as L
-from repro_torch.models import lm, moe
+from repro_torch.models import lm, mla, moe
 
 
 def to_torch(a) -> torch.Tensor:
@@ -84,7 +85,11 @@ def _moe_block_pieces(cfg: ModelConfig, ctx, key: str, blk: dict,
     attention as a dense block's, the router, each expert's up/gate split
     back, and the shared experts' MLP."""
     yield from _dense_block_pieces(cfg, ctx, key, blk, lead)
-    m = blk["moe"]
+    yield from _moe_pieces(cfg, ctx, key, blk["moe"], lead)
+
+
+def _moe_pieces(cfg: ModelConfig, ctx, key: str, m: dict, lead: int):
+    """The pieces of a (stacked) ``moe`` node under ``key``."""
     yield f"{key}/moe/router", m["router"], (), lead
     ep = moe.expert_spec(ctx)
     for name, t in L.split_fused(cfg, ctx, "w_upgate", m["w_upgate"]):
@@ -93,6 +98,23 @@ def _moe_block_pieces(cfg: ModelConfig, ctx, key: str, blk: dict,
     if "shared" in m:
         yield from _mlp_pieces(cfg, ctx, f"{key}/moe/shared", m["shared"],
                                lead)
+
+
+def _mla_layer_pieces(cfg: ModelConfig, ctx, key: str, blk: dict,
+                      lead: int):
+    """The pieces of a (stacked) mla_dense or mla_moe layer under ``key``:
+    its norms, its MLA leaves as they are, and its MLP (up/gate split back)
+    or MoE node."""
+    nspec = L.feat_spec(ctx)
+    for ln in ("ln_attn", "ln_mlp"):
+        for k, v in blk[ln].items():
+            yield f"{key}/{ln}/{k}", v, nspec, lead
+    for name, spec in mla.SPECS.items():
+        yield f"{key}/mla/{name}", blk["mla"][name], spec(ctx), lead
+    if "moe" in blk:
+        yield from _moe_pieces(cfg, ctx, key, blk["moe"], lead)
+    else:
+        yield from _mlp_pieces(cfg, ctx, f"{key}/mlp", blk["mlp"], lead)
 
 
 def _mamba_pieces(cfg: ModelConfig, ctx, key: str, blk: dict, lead: int):
@@ -123,6 +145,8 @@ def _pieces(cfg: ModelConfig, ctx, params: dict):
             yield from _dense_block_pieces(cfg, ctx, key, sp, 1)
         elif seg.kind == "moe":
             yield from _moe_block_pieces(cfg, ctx, key, sp, 1)
+        elif seg.kind in lm.MLA_KINDS:
+            yield from _mla_layer_pieces(cfg, ctx, key, sp, 1)
         elif seg.kind == "zamba":
             yield from _mamba_pieces(cfg, ctx, f"{key}/mamba", sp["mamba"],
                                      2)
@@ -138,7 +162,8 @@ def _pieces(cfg: ModelConfig, ctx, params: dict):
         mp = params["mtp"]
         for name in ("proj_h", "proj_e"):
             yield f"mtp/{name}", mp[name], L.col_w_spec(ctx), 0
-        yield from _dense_block_pieces(cfg, ctx, "mtp/block", mp["block"], 0)
+        pieces = _mla_layer_pieces if cfg.mla else _dense_block_pieces
+        yield from pieces(cfg, ctx, "mtp/block", mp["block"], 0)
         for k, v in mp["norm"].items():
             yield f"mtp/norm/{k}", v, L.feat_spec(ctx), 0
 

@@ -43,9 +43,15 @@ SIGNATURES = {
     "flash_attention_train": ("flash_attention_train",
                               "repro_flash_attention_train_bf16",
                               [_P] * 8 + [_I] * 8 + [_F] + [_I] + [_P]),
+    "flash_attention_train_dv": ("flash_attention_train",
+                                 "repro_flash_attention_train_dv_bf16",
+                                 [_P] * 8 + [_I] * 10 + [_P]),
     "flash_attention_bwd": ("flash_attention_bwd",
                             "repro_flash_attention_bwd_bf16",
                             [_P] * 15 + [_I] * 8 + [_F] + [_I] * 2 + [_P]),
+    "flash_attention_bwd_dv": ("flash_attention_bwd",
+                               "repro_flash_attention_bwd_dv_bf16",
+                               [_P] * 15 + [_I] * 11 + [_P]),
     "ssd_scan": ("ssd_scan", "repro_ssd_scan_bf16",
                  [_P] * 11 + [_L] + [_I] * 8 + [_L] * 10 + [_P]),
     "rmsnorm": ("rmsnorm", "repro_rmsnorm_bf16",

@@ -192,6 +192,57 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64x192] (fp32, 96 registers a thread) += A[64x16] B[16x192]: A from
+// registers, B MN-major in shared memory (dK += dS^T Q and dQ += dS K at a
+// q/k head dim of 192)
+__device__ __forceinline__ void wgmma_rs_n192(float* d, const unsigned* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D[64x32] (fp32, 16 registers a thread) = A[64x16] B[16x32] (+ D where
 // accumulate): A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
@@ -1327,6 +1378,421 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
 
 // cuTensorMapEncodeTiled from libcuda, looked up through the runtime (so
 // the library needs no link to libcuda)
+// ---- q/k head dim 192 with a V of 128 (deepseek-v3's MLA; MHA, so no
+// group sums).  dK at 64 x 192 and dV at 64 x 128 fp32 are 160 registers a
+// thread of one warpgroup, and with S^T and dP^T (64) and the bf16 P^T and
+// dS^T operands (32) beside them the warpgroup spills.  So a dK/dV block
+// (dkdv_dv_kernel) is one warpgroup that walks an item's row tiles twice:
+// first for dV (S^T = K Q^T over 192, P^T, dV += P^T dO), then for dK (S^T
+// again, dP^T = V dO^T over 128, dS^T, dK += dS^T Q): S^T twice, 1.3x the
+// five products' work, each pass's accumulator alone in registers.  The
+// d = 256 design (two warpgroups sharing S^T and dP^T through shared
+// memory) would split 192 columns of dK into halves of 96, which start in
+// the middle of a 128-byte swizzle span of Q; here every B operand starts
+// at a span.  dq_dv_kernel is dq_kernel with S over 192, dP over 128 and
+// dQ += dS K at N = 192.  K, V and two stages of Q and dO take 120 KB: one
+// block an SM.  ld_kernel reads the 128 columns of O and dO.
+constexpr int kQkAtoms = 3;  // 192 columns
+constexpr int kVAtoms = 2;   // 128 columns
+constexpr int kDqk = 64 * kQkAtoms, kDv = 64 * kVAtoms;
+struct SmemDv {
+  // dkdv: K, V, two stages of Q and dO, the stages' L and D; dq: Q, dO, two
+  // stages of K and V
+  static constexpr int kRow = (kQkAtoms + kVAtoms) * kAtom;
+  static constexpr int kDkdv = 3 * kRow + 2 * kLdBytes + 1024;
+  static constexpr int kDq = 3 * kRow + 1024;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_dv_kernel(const __grid_constant__ Args a) {
+  constexpr int NT = kThreads;
+  constexpr int NK = kDqk / 2, NV = kDv / 2;  // a thread's dK, dV
+  constexpr int kSlot = 64 * (kDqk + kDv);    // a partial's floats
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t kv_bar, full[2];
+  __shared__ int s_item, s_last;
+  unsigned char* Ks = align1024(smem_raw);
+  unsigned char* Vs = Ks + kQkAtoms * kAtom;
+  unsigned char* stage0 = Vs + kVAtoms * kAtom;  // stage s: Q, then dO
+  float* lds = reinterpret_cast<float*>(stage0 + 2 * SmemDv::kRow);
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int grp = a.hq / a.hkv, KT = (a.skv + 63) / 64;
+  const int R = a.rows / 64 * grp;
+  const size_t ld_d = (size_t)a.b * a.hq * a.rows;
+  if (tid == 0) {
+    mbar_init(&kv_bar, 1);
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int kv_uses = 0, loads = 0, uses = 0;
+
+  for (;;) {
+    __syncthreads();
+    if (tid == 0) s_item = atomicAdd(a.counters, 1);
+    __syncthreads();
+    const int it = s_item;
+    if (it >= a.n_items) break;
+    const int4 rec = *reinterpret_cast<const int4*>(a.items + 8 * it);
+    const int4 rec2 = *reinterpret_cast<const int4*>(a.items + 8 * it + 4);
+    const int bh = rec.x, kt = rec.y, part = rec2.x, parts = rec2.y;
+    const int slot0 = rec2.z;
+    const int b = bh / a.hkv, kvh = bh % a.hkv;
+    const Mask m{a.q_offset[b], max(0, min(a.kv_len[b], a.skv)), a.causal,
+                 a.window};
+    int v0, v1;
+    visible_tiles(m, kt, a.sq, grp, v0, v1);
+    const int lo = max(v0, part == 0 ? 0 : rec.z);
+    const int n = min(v1, part == parts - 1 ? R : rec.w) - lo;
+
+    // stage s <- row tile t's Q, dO, L and D
+    auto issue_rows = [&](int t, int s) {
+      const int pt = t / grp, h = kvh * grp + t % grp;
+      unsigned char* q = stage0 + s * SmemDv::kRow;
+      mbar_expect_tx(&full[s], SmemDv::kRow + kLdBytes);
+      for (int c = 0; c < kQkAtoms; ++c)
+        tma_load_4d(q + c * kAtom, &a.tq, 64 * c, h, 64 * pt, b, &full[s]);
+      for (int c = 0; c < kVAtoms; ++c)
+        tma_load_4d(q + (kQkAtoms + c) * kAtom, &a.tdo, 64 * c, h, 64 * pt, b,
+                    &full[s]);
+      const float* src = a.ld + ((size_t)(b * a.hq + h) * a.rows + 64 * pt);
+      bulk_load(lds + s * 128, src, 256, &full[s]);
+      bulk_load(lds + s * 128 + 64, src + ld_d, 256, &full[s]);
+    };
+    if (n > 0) {
+      if (tid == 0) {
+        mbar_expect_tx(&kv_bar, (kQkAtoms + kVAtoms) * kAtom);
+        for (int c = 0; c < kQkAtoms; ++c)
+          tma_load_4d(Ks + c * kAtom, &a.tk, 64 * c, kvh, 64 * kt, b,
+                      &kv_bar);
+        for (int c = 0; c < kVAtoms; ++c)
+          tma_load_4d(Vs + c * kAtom, &a.tv, 64 * c, kvh, 64 * kt, b,
+                      &kv_bar);
+        issue_rows(lo, loads % 2);
+      }
+      ++loads;
+      __syncwarp();
+      mbar_wait(&kv_bar, kv_uses++ & 1);
+    }
+    // P^T of a step into pa (bf16 pairs) and, where `keep`, P into st
+    auto probs_t = [&](float* st, unsigned* pa, const float* Lt, int p0) {
+      const bool whole = m.whole(64 * kt, p0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t4;
+        const float2 L2 = *reinterpret_cast<const float2*>(Lt + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i0 = 4 * j + 2 * h;
+          float p[2];
+          st[i0] = prob<false>(st[i0], L2.x, &p[0], a);
+          st[i0 + 1] = prob<false>(st[i0 + 1], L2.y, &p[1], a);
+          if (!whole) {
+            const int key = 64 * kt + warp * 16 + g + 8 * h;
+            if (!m.visible(key, p0 + c)) st[i0] = p[0] = 0.0f;
+            if (!m.visible(key, p0 + c + 1)) st[i0 + 1] = p[1] = 0.0f;
+          }
+          pa[2 * j + h] = pack_bf16(p[0], p[1]);
+        }
+      }
+    };
+
+    // pass 1, dV: S^T = K Q^T, P^T, dV += P^T dO
+    float dv[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) dv[i] = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const int s = uses % 2;
+      mbar_wait(&full[s], (uses / 2) & 1);
+      ++uses;
+      const unsigned char* Qt = stage0 + s * SmemDv::kRow;
+      const unsigned char* dOt = Qt + kQkAtoms * kAtom;
+      const float* Lt = lds + s * 128;
+      const int p0 = (lo + i) / grp * 64;
+      float st[32];
+      fence_regs<32>(st);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * kQkAtoms; ++kk)
+        wgmma_ss_n64(st, desc_k(Ks, kk), desc_k(Qt, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<32>(st);
+      // every thread's products on the other stage are done: refill it
+      // (the last step of this pass loads the dK pass's first row tile)
+      __syncthreads();
+      if (tid == 0) issue_rows(lo + (i + 1) % n, loads % 2);
+      ++loads;
+      __syncwarp();
+      unsigned pa[16];
+      probs_t(st, pa, Lt, p0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n128(dv, pa + 4 * kk, desc_mn(dOt, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    fence_regs<NV>(dv);
+    const size_t k_ld = (size_t)a.hkv * kDqk, v_ld = (size_t)a.hkv * kDv;
+    bf16* dk_out = a.dK + ((size_t)b * a.skv + 64 * kt) * k_ld + kvh * kDqk;
+    bf16* dv_out = a.dV + ((size_t)b * a.skv + 64 * kt) * v_ld + kvh * kDv;
+    const int n_keys = min(64, a.skv - 64 * kt);
+    float* slot = a.parts + (size_t)(slot0 + part) * kSlot + tid;
+    if (parts == 1) {
+      store_rows<kDv>(dv, 1.0f, dv_out, v_ld, n_keys, kDv);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) slot[(NK + i) * NT] = dv[i];
+    }
+
+    // pass 2, dK: S^T and dP^T = V dO^T, dS^T = P o (dP - D), dK += dS^T Q
+    float dk[NK];
+#pragma unroll
+    for (int i = 0; i < NK; ++i) dk[i] = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const int s = uses % 2;
+      mbar_wait(&full[s], (uses / 2) & 1);
+      ++uses;
+      const unsigned char* Qt = stage0 + s * SmemDv::kRow;
+      const unsigned char* dOt = Qt + kQkAtoms * kAtom;
+      const float* Lt = lds + s * 128;
+      const int p0 = (lo + i) / grp * 64;
+      float st[32], dpt[32];
+      fence_regs<32>(st);
+      fence_regs<32>(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * kQkAtoms; ++kk)
+        wgmma_ss_n64(st, desc_k(Ks, kk), desc_k(Qt, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4 * kVAtoms; ++kk)
+        wgmma_ss_n64(dpt, desc_k(Vs, kk), desc_k(dOt, kk), kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T
+      fence_regs<32>(st);
+      __syncthreads();
+      if (i + 1 < n) {
+        if (tid == 0) issue_rows(lo + i + 1, loads % 2);
+        ++loads;
+      }
+      __syncwarp();
+      unsigned pa[16], dsa[16];
+      probs_t(st, pa, Lt, p0);
+      wgmma_wait<0>();  // dP^T
+      fence_regs<32>(dpt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 D = *reinterpret_cast<const float2*>(Lt + 64 + 8 * j +
+                                                          2 * t4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i0 = 4 * j + 2 * h;
+          dsa[2 * j + h] = pack_bf16(st[i0] * (dpt[i0] - D.x),
+                                     st[i0 + 1] * (dpt[i0 + 1] - D.y));
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n192(dk, dsa + 4 * kk, desc_mn(Qt, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    fence_regs<NK>(dk);
+    if (parts == 1) {
+      store_rows<kDqk>(dk, a.scale, dk_out, k_ld, n_keys, kDqk);
+      continue;
+    }
+    // a key tile of several items: the partials out, then the last item to
+    // arrive sums them in item order
+#pragma unroll
+    for (int i = 0; i < NK; ++i) slot[i * NT] = dk[i];
+    __threadfence();
+    __syncthreads();
+    int* arrivals = a.counters + 2 + bh * KT + kt;
+    if (tid == 0) {
+      const int prev = atomicAdd(arrivals, 1);
+      s_last = prev == parts - 1;
+      if (s_last) *arrivals = 0;  // clean for the next launch
+    }
+    __syncthreads();
+    if (!s_last) continue;
+    __threadfence();
+    {
+      float sum[NK];
+#pragma unroll
+      for (int i = 0; i < NK; ++i) sum[i] = 0.0f;
+      for (int q = 0; q < parts; ++q) {
+        const float* p = a.parts + (size_t)(slot0 + q) * kSlot + tid;
+#pragma unroll
+        for (int i = 0; i < NK; ++i) sum[i] += __ldcg(p + i * NT);
+      }
+      store_rows<kDqk>(sum, a.scale, dk_out, k_ld, n_keys, kDqk);
+    }
+    {
+      float sum[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) sum[i] = 0.0f;
+      for (int q = 0; q < parts; ++q) {
+        const float* p = a.parts + (size_t)(slot0 + q) * kSlot + tid;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) sum[i] += __ldcg(p + (NK + i) * NT);
+      }
+      store_rows<kDv>(sum, 1.0f, dv_out, v_ld, n_keys, kDv);
+    }
+  }
+  // the last block out resets the ticket for the next launch
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(a.counters + 1, 1) == (int)gridDim.x - 1) {
+      a.counters[0] = 0;
+      a.counters[1] = 0;
+    }
+  }
+}
+
+// dQ at q/k 192, V 128: dq_kernel with S over 192 columns, dP over 128 and
+// dQ += dS K at N = 192.
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_dv_kernel(const __grid_constant__ Args a) {
+  constexpr int NQ = kDqk / 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_bar, full[2];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* dOs = Qs + kQkAtoms * kAtom;
+  unsigned char* stage0 = dOs + kVAtoms * kAtom;  // stage s: K, then V
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int PT = a.rows / 64, BH = a.b * a.hq;
+  const int pt = PT - 1 - (int)(blockIdx.x / BH);
+  const int b = (int)(blockIdx.x % BH) / a.hq, h = (int)(blockIdx.x % BH) % a.hq;
+  const int kvh = h / (a.hq / a.hkv), p0 = 64 * pt;
+  const Mask m{a.q_offset[b], max(0, min(a.kv_len[b], a.skv)), a.causal,
+               a.window};
+  int k_end = m.klen, k_begin = 0;
+  if (m.causal) k_end = min(k_end, min(p0 + 63, a.sq - 1) + m.qoff + 1);
+  if (m.window > 0) k_begin = max(0, p0 + m.qoff - m.window + 1);
+  const int kt0 = k_begin / 64;
+  const int n = k_end > 64 * kt0 ? (k_end - 64 * kt0 + 63) / 64 : 0;
+
+  float L2[2], D[2];
+  const size_t row0 = (size_t)(b * a.hq + h) * a.rows + p0;
+  const size_t ld_d = (size_t)a.b * a.hq * a.rows;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    L2[hh] = a.ld[row0 + warp * 16 + g + 8 * hh];
+    D[hh] = a.ld[ld_d + row0 + warp * 16 + g + 8 * hh];
+  }
+
+  if (tid == 0) {
+    mbar_init(&q_bar, 1);
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue_keys = [&](int kt, int s) {
+    unsigned char* k = stage0 + s * SmemDv::kRow;
+    mbar_expect_tx(&full[s], SmemDv::kRow);
+    for (int c = 0; c < kQkAtoms; ++c)
+      tma_load_4d(k + c * kAtom, &a.tk, 64 * c, kvh, 64 * kt, b, &full[s]);
+    for (int c = 0; c < kVAtoms; ++c)
+      tma_load_4d(k + (kQkAtoms + c) * kAtom, &a.tv, 64 * c, kvh, 64 * kt, b,
+                  &full[s]);
+  };
+
+  float dq[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) dq[i] = 0.0f;
+  if (n > 0) {
+    if (tid == 0) {
+      mbar_expect_tx(&q_bar, SmemDv::kRow);
+      for (int c = 0; c < kQkAtoms; ++c)
+        tma_load_4d(Qs + c * kAtom, &a.tq, 64 * c, h, p0, b, &q_bar);
+      for (int c = 0; c < kVAtoms; ++c)
+        tma_load_4d(dOs + c * kAtom, &a.tdo, 64 * c, h, p0, b, &q_bar);
+      issue_keys(kt0, 0);
+    }
+    __syncwarp();
+    mbar_wait(&q_bar, 0);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i % 2, kt = kt0 + i;
+    mbar_wait(&full[s], (i / 2) & 1);
+    const unsigned char* Kt = stage0 + s * SmemDv::kRow;
+    const unsigned char* Vt = Kt + kQkAtoms * kAtom;
+
+    float sc[32], dp[32];
+    fence_regs<32>(sc);
+    fence_regs<32>(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * kQkAtoms; ++kk)
+      wgmma_ss_n64(sc, desc_k(Qs, kk), desc_k(Kt, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4 * kVAtoms; ++kk)
+      wgmma_ss_n64(dp, desc_k(dOs, kk), desc_k(Vt, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // S, and the last step's dQ
+    fence_regs<32>(sc);
+    __syncthreads();
+    if (tid == 0 && i + 1 < n) issue_keys(kt + 1, (i + 1) % 2);
+    __syncwarp();
+
+    const bool whole = m.whole(64 * kt, p0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i0 = 4 * j + 2 * hh;
+        float p;
+        sc[i0] = prob<false>(sc[i0], L2[hh], &p, a);
+        sc[i0 + 1] = prob<false>(sc[i0 + 1], L2[hh], &p, a);
+        if (!whole) {
+          const int pos = p0 + warp * 16 + g + 8 * hh;
+          const int key = 64 * kt + 8 * j + 2 * t4;
+          if (!m.visible(key, pos)) sc[i0] = 0.0f;
+          if (!m.visible(key + 1, pos)) sc[i0 + 1] = 0.0f;
+        }
+      }
+    }
+    wgmma_wait<0>();  // dP
+    fence_regs<32>(dp);
+    unsigned dsa[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i0 = 4 * j + 2 * hh;
+        dsa[2 * j + hh] = pack_bf16(sc[i0] * (dp[i0] - D[hh]),
+                                    sc[i0 + 1] * (dp[i0 + 1] - D[hh]));
+      }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n192(dq, dsa + 4 * kk, desc_mn(Kt, kk));
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs<NQ>(dq);
+
+  const size_t q_ld = (size_t)a.hq * kDqk;
+  store_rows<kDqk>(dq, a.scale,
+                   a.dQ + ((size_t)b * a.sq + p0) * q_ld + (size_t)h * kDqk,
+                   q_ld, a.sq - p0, kDqk);
+}
+
 PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
   if (fn == nullptr) {
@@ -1414,6 +1880,33 @@ cudaError_t launch256(const Args& a, int blocks, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_dv(const Args& a, int blocks, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dkdv_dv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SmemDv::kDkdv);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(dq_dv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SmemDv::kDq);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  // ld reads the 128 columns of O and dO: its d is V's
+  Args la = a;
+  la.d = kDv;
+  const long long rows = (long long)a.b * a.hq * a.rows;
+  ld_kernel<1><<<(unsigned)((rows + 15) / 16), 256, 0, st>>>(la);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dkdv_dv_kernel<<<blocks, kThreads, SmemDv::kDkdv, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dq_dv_kernel<<<a.b * a.hq * (a.rows / 64), kThreads, SmemDv::kDq, st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q/o/do/dq [b, sq, hq, d], k/v/dk/dv [b, skv, hkv, d], contiguous bf16 with
@@ -1477,4 +1970,54 @@ extern "C" int repro_flash_attention_bwd_bf16(
                    : launch<2, true>(a, blocks, st);
   return d == 64 ? launch<1, false>(a, blocks, st)
                  : launch<2, false>(a, blocks, st);
+}
+
+// q/dq [b, sq, hq, 192], k/dk [b, skv, hkv, 192], o/do [b, sq, hq, 128],
+// v/dv [b, skv, hkv, 128] (deepseek-v3's MLA: d = 192, dv = 128), no
+// softcap; the scale 1 / sqrt(d); parts fp32 [slots, 64 * (192 + 128)] (a
+// dK and a dV partial a slot); everything else as
+// repro_flash_attention_bwd_bf16's.  Three launches: ld, dK/dV, dQ.
+// Returns the cudaError_t of the launches (0 on success).
+extern "C" int repro_flash_attention_bwd_dv_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* q_offset,
+    const void* kv_len, void* dq, void* dk, void* dv, void* ld,
+    const void* items, void* parts, void* counters, int b, int sq, int skv,
+    int hq, int hkv, int d, int dvd, int causal, int window, int n_items,
+    int blocks, void* stream) {
+  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      n_items <= 0 || blocks <= 0 || d != kDqk || dvd != kDv)
+    return cudaErrorInvalidValue;
+  Args a{};
+  if (!tensor_map(&a.tq, q, b, sq, hq, d) ||
+      !tensor_map(&a.tdo, dout, b, sq, hq, dvd) ||
+      !tensor_map(&a.tk, k, b, skv, hkv, d) ||
+      !tensor_map(&a.tv, v, b, skv, hkv, dvd))
+    return cudaErrorInvalidValue;
+  a.O = static_cast<const bf16*>(o);
+  a.dO = static_cast<const bf16*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.q_offset = static_cast<const int*>(q_offset);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.dQ = static_cast<bf16*>(dq);
+  a.dK = static_cast<bf16*>(dk);
+  a.dV = static_cast<bf16*>(dv);
+  a.ld = static_cast<float*>(ld);
+  a.items = static_cast<const int*>(items);
+  a.parts = static_cast<float*>(parts);
+  a.counters = static_cast<int*>(counters);
+  a.b = b;
+  a.sq = sq;
+  a.skv = skv;
+  a.hq = hq;
+  a.hkv = hkv;
+  a.d = d;
+  a.causal = causal;
+  a.window = window;
+  a.n_items = n_items;
+  a.rows = (sq + 63) / 64 * 64;
+  a.softcap = 0.0f;
+  a.scale = 1.0f / sqrtf(static_cast<float>(d));
+  a.scale_log2 = a.scale * kLog2e;
+  return launch_dv(a, blocks, static_cast<cudaStream_t>(stream));
 }

@@ -67,6 +67,16 @@
 // outlasted the tile's products.  What bounds it at train-gemma's b = 1,
 // 8 q heads (128 items on 132 blocks, one each): the chain of the last row
 // tile's 32 key tiles, S then its softmax then P V on each consumer.
+// q/k of head dim 192 with a V of 128 (deepseek-v3's MLA: 128 nope + 64
+// rope columns score, 128 columns of V) is an instance of its own,
+// fa_train_dv_kernel: the d = 128 design with S = Q K^T over 12 k steps
+// of 16 (three 64-column chunks of Q and K, a 128-byte swizzle span each)
+// and O += P V over V's two chunks, as at d = 128.  Q at 128 x 192 is 48
+// KB, a K/V stage 48 + 32 KB, so two stages and Q take 208 KB (with the
+// 1 KB alignment 209, under the 227 KB a block may have) and key tiles
+// stay 128 wide; S (64), O (64) and P (32) registers a consumer thread,
+// as at d = 128.  The scale is 1 / sqrt(192), of q's dim, and the TMA
+// maps of Q and K carry 192 columns, V's and O's 128.
 // Measured slower or no faster on the H100 (PERF.md): pairing
 // 64-row tiles p and R - 1 - p on one K/V stream (the lone consumer still
 // waits its turn every tile), and rows of 64 whose two consumers split the
@@ -97,6 +107,14 @@ constexpr int kKeys256 = 64;
 constexpr int kKvChunk = 64 * 128;
 constexpr int kKvTile = 4 * kKvChunk;
 constexpr int kSmem256 = 4 * kChunk + 2 * kStages * kKvTile + 1024;
+// q/k 192, V 128: Q three chunks (48 KB), a K stage three (48 KB), a V
+// stage two (32 KB): 48 + 2 x (48 + 32) = 208 KB and the alignment
+constexpr int kQkChunks = 3;
+constexpr int kVChunks = 2;
+constexpr int kDv = 128;
+constexpr int kSmemDv =
+    (kQkChunks + kStages * (kQkChunks + kVChunks)) * kChunk + 1024;
+static_assert(kSmemDv <= 232448, "q/k 192, V 128: over the block's smem");
 // empty-barrier arrivals: lane 0 of each consumer warp
 constexpr int kReleases = 8;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -928,6 +946,202 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
+// The kernel at q/k head dim 192 and V head dim 128 (deepseek-v3's MLA):
+// fa_train_kernel's design, its loops and barriers, with Q and K tiles of
+// three 64-column chunks (S over 12 k steps), V tiles of two and O of 128
+// columns; no softcap.
+__global__ void __launch_bounds__(kThreads, 1)
+    fa_train_dv_kernel(const __grid_constant__ Args a) {
+  constexpr int KSTEPS = 4 * kQkChunks;
+  constexpr int kQkTile = kQkChunks * kChunk, kVTile = kVChunks * kChunk;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, q_empty, k_full[kStages],
+      k_empty[kStages], v_full[kStages], v_empty[kStages];
+  unsigned char* Qs =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = Qs + kQkTile;            // stage s at s * kQkTile
+  unsigned char* Vs = Ks + kStages * kQkTile;  // stage s at s * kVTile
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, kReleases);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], kReleases);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], kReleases);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int first = a.sched[blockIdx.x], last = a.sched[blockIdx.x + 1];
+  const int* items = a.sched + a.ctas + 1;
+
+  if (threadIdx.x < 128) {
+    // ---- producer, as fa_train_kernel's: Q of each item, then its K/V
+    // tiles last key tile first (K of tile j + 1 before V of tile j)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x != 0) return;
+    const int grp = a.hq / a.hkv;
+    int n = 0, qn = 0;
+    auto load_k = [&](const Item& it, int kvh, int j, int t) {
+      const int s = t % kStages;
+      unsigned char* kd = Ks + s * kQkTile;
+      const int k0 = (it.kt0 + it.nt - 1 - j) * kKeys;
+      mbar_wait(&k_empty[s], ((t / kStages) & 1) ^ 1);
+      mbar_expect_tx(&k_full[s], kQkTile);
+      for (int c = 0; c < kQkChunks; ++c)
+        tma_load_4d(kd + c * kChunk, &a.tk, 64 * c, kvh, k0, it.b,
+                    &k_full[s]);
+    };
+    auto load_v = [&](const Item& it, int kvh, int j, int t) {
+      const int s = t % kStages;
+      unsigned char* vd = Vs + s * kVTile;
+      const int k0 = (it.kt0 + it.nt - 1 - j) * kKeys;
+      mbar_wait(&v_empty[s], ((t / kStages) & 1) ^ 1);
+      mbar_expect_tx(&v_full[s], kVTile);
+      for (int c = 0; c < kVChunks; ++c)
+        tma_load_4d(vd + c * kChunk, &a.tv, 64 * c, kvh, k0, it.b,
+                    &v_full[s]);
+    };
+    for (int i = first; i < last; ++i) {
+      const Item it = item_of(a, items[i]);
+      if (it.nt == 0) continue;
+      mbar_wait(&q_empty, (qn & 1) ^ 1);
+      ++qn;
+      mbar_expect_tx(&q_full, kQkTile);
+      for (int c = 0; c < kQkChunks; ++c)
+        tma_load_4d(Qs + c * kChunk, &a.tq, 64 * c, it.h, it.p0, it.b,
+                    &q_full);
+      const int kvh = it.h / grp;
+      load_k(it, kvh, 0, n);
+      for (int j = 0; j < it.nt; ++j, ++n) {
+        if (j + 1 < it.nt) load_k(it, kvh, j + 1, n + 1);
+        load_v(it, kvh, j, n);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers, as fa_train_kernel's (the peeled first key tile, the
+  // turns, S of tile j issued with O += P V of tile j - 1)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane / 4, t4 = lane % 4;
+  int n = 0, qn = 0;
+  if (cw == 1) turn_pass(1);  // the first consumer goes first
+
+  for (int i = first; i < last; ++i) {
+    const Item it = item_of(a, items[i]);
+    const int row0 = it.p0 + 64 * cw + 16 * warp + g;  // and row0 + 8
+    float o[64], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int x = 0; x < 64; ++x) o[x] = 0.0f;
+
+    if (it.nt > 0) {
+      mbar_wait(&q_full, qn & 1);
+      ++qn;
+      const unsigned char* Qw = Qs + 64 * cw * 128;
+      float s[64], alpha[2];
+      unsigned p[32];  // P as bf16 pairs: p[2j + h] = columns 8j + 2t4, +1
+      {
+        const int st = n % kStages;
+        mbar_wait(&k_full[st], (n / kStages) & 1);
+        turn_wait(1 + cw);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          wgmma_ss_n128(s, desc_k(Qw, kk), desc_k(Ks + st * kQkTile, kk),
+                        kk);
+        wgmma_commit();
+        turn_pass(2 - cw);
+        wgmma_wait<0>();
+        fence_regs<64>(s);
+        if (lane == 0) {
+          mbar_arrive(&k_empty[st]);
+          if (it.nt == 1) mbar_arrive(&q_empty);
+        }
+        softmax_tile<false>(s, m, l, alpha, a, it,
+                            (it.kt0 + it.nt - 1) * kKeys, row0, t4);
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          p[x] = pack_bf16(s[2 * x], s[2 * x + 1]);
+        ++n;
+      }
+      for (int j = 1; j < it.nt; ++j, ++n) {
+        const int st = n % kStages, sp = (n - 1) % kStages;
+        mbar_wait(&k_full[st], (n / kStages) & 1);
+        fence_regs<64>(s);
+        fence_regs<64>(o);
+        turn_wait(1 + cw);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          wgmma_ss_n128(s, desc_k(Qw, kk), desc_k(Ks + st * kQkTile, kk),
+                        kk);
+        wgmma_commit();
+        mbar_wait(&v_full[sp], ((n - 1) / kStages) & 1);
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wgmma_rs_n128(o, p + 4 * kk, desc_mn(Vs + sp * kVTile, kk));
+        wgmma_commit();
+        turn_pass(2 - cw);
+        wgmma_wait<1>();  // S
+        fence_regs<64>(s);
+        if (lane == 0) {
+          mbar_arrive(&k_empty[st]);
+          if (j == it.nt - 1) mbar_arrive(&q_empty);
+        }
+        softmax_tile<false>(s, m, l, alpha, a, it,
+                            (it.kt0 + it.nt - 1 - j) * kKeys, row0, t4);
+        wgmma_wait<0>();  // O += P V
+        fence_regs<64>(o);
+        if (lane == 0) mbar_arrive(&v_empty[sp]);
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+          p[x] = pack_bf16(s[2 * x], s[2 * x + 1]);
+          o[2 * x] *= alpha[x & 1];
+          o[2 * x + 1] *= alpha[x & 1];
+        }
+      }
+      const int sp = (n - 1) % kStages;
+      mbar_wait(&v_full[sp], ((n - 1) / kStages) & 1);
+      fence_regs<64>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_rs_n128(o, p + 4 * kk, desc_mn(Vs + sp * kVTile, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<64>(o);
+      if (lane == 0) mbar_arrive(&v_empty[sp]);
+    }
+
+    // O / l in bf16 (128 columns a row of O), and the log-sum-exp
+    const size_t o_ld = (size_t)a.hq * kDv;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int pos = row0 + 8 * h;
+      if (pos >= a.sq) continue;
+      const float inv = sum > 0.0f ? 1.0f / sum : 0.0f;
+      if (a.lse != nullptr && t4 == 0)
+        a.lse[((size_t)it.b * a.hq + it.h) * a.sq + pos] =
+            sum > 0.0f ? (m[h] * a.c + log2f(sum)) * kLn2 : -INFINITY;
+      bf16* out = a.O + ((size_t)it.b * a.sq + pos) * o_ld + (size_t)it.h * kDv;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int col = 8 * jj + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(out + col) =
+            __floats2bfloat162_rn(o[4 * jj + 2 * h] * inv,
+                                  o[4 * jj + 2 * h + 1] * inv);
+      }
+    }
+  }
+}
+
 // map of a contiguous bf16 [batch, seq, heads, d] in boxes of 64 columns of
 // one head at `rows` consecutive positions, 128-byte swizzled as wgmma
 // reads them; out-of-range positions and columns read as zeros
@@ -973,6 +1187,19 @@ cudaError_t launch256(const Args& a, cudaStream_t st) {
     configured = true;
   }
   kernel<<<a.ctas, kThreads, kSmem256, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dv(const Args& a, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fa_train_dv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemDv);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  fa_train_dv_kernel<<<a.ctas, kThreads, kSmemDv, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -1026,4 +1253,43 @@ extern "C" int repro_flash_attention_train_bf16(
   if (softcap > 0.0f)
     return d == 112 ? launch<7, true>(a, st) : launch<8, true>(a, st);
   return d == 112 ? launch<7, false>(a, st) : launch<8, false>(a, st);
+}
+
+// q [b, sq, hq, d] and k [b, skv, hkv, d] with d = 192, v [b, skv, hkv,
+// dv] and o [b, sq, hq, dv] with dv = 128 (deepseek-v3's MLA), contiguous
+// bf16 with 16-byte-aligned bases; no softcap; everything else as
+// repro_flash_attention_train_bf16's (the scale 1 / sqrt(d), of q's dim).
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int repro_flash_attention_train_dv_bf16(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_offset, const void* kv_len, const void* sched, int b,
+    int sq, int skv, int hq, int hkv, int d, int dv, int causal, int window,
+    int ctas, void* stream) {
+  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      ctas <= 0 || d != 64 * kQkChunks || dv != kDv)
+    return cudaErrorInvalidValue;
+  Args a{};
+  if (!tensor_map(&a.tq, q, b, sq, hq, d) ||
+      !tensor_map(&a.tk, k, b, skv, hkv, d) ||
+      !tensor_map(&a.tv, v, b, skv, hkv, dv))
+    return cudaErrorInvalidValue;
+  a.O = static_cast<bf16*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.q_offset = static_cast<const int*>(q_offset);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.sched = static_cast<const int*>(sched);
+  a.b = b;
+  a.sq = sq;
+  a.skv = skv;
+  a.hq = hq;
+  a.hkv = hkv;
+  a.d = d;
+  a.causal = causal;
+  a.window = window;
+  a.row_tiles = (sq + kRows - 1) / kRows;
+  a.ctas = ctas;
+  a.softcap = 0.0f;
+  a.cap_in = 0.0f;
+  a.c = 1.4426950408889634f / sqrtf(static_cast<float>(d));
+  return launch_dv(a, static_cast<cudaStream_t>(stream));
 }

@@ -19,8 +19,9 @@
 // kernel is a latency: one round trip to memory.  So a row goes to T
 // threads holding at most 4 vectors of 8 values each (ops.rmsnorm_plan,
 // plain Python: an 8-lane group for a 64-wide row of the grouped norm, a
-// warp up to 1024, 4 warps for a block norm's 3584 or 4096), and a block
-// to few rows, so that the rows spread over the SMs; every thread issues
+// warp up to 1024, 4 warps for a block norm's 3584 or 4096, 8 warps for
+// deepseek-v3's 7168, up to 8192), and a block to few rows, so that the
+// rows spread over the SMs; every thread issues
 // all its 16-byte loads of x, gamma and the gate before the reduction,
 // which is shuffles within a warp and, for a row of several warps, one
 // exchange of their partial sums through shared memory; each row is
@@ -53,7 +54,11 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
+// the widest row of the forward (8 warps of 4 vectors a thread) and of the
+// backward's rmsnorm_bwd_kernel (4 warps a row); rmsnorm_bwd_wide_kernel
+// takes the rows between them
 constexpr int kMaxWidth = 4096;
+constexpr int kWideMaxWidth = 8192;
 constexpr int kMaxThreads = 256;
 
 // what rmsnorm_kernel does with a row: the whole-row norm; the split norm's
@@ -222,7 +227,7 @@ template <Mode M>
 int launch_rows(const Args& a, int T, int N, int rows_per_block,
                 void* stream) {
   if (a.tokens < 0 || a.groups < 1 || a.width < 8 || a.width % 8 ||
-      a.width > kMaxWidth || T * N * 8 < a.width ||
+      a.width > kWideMaxWidth || T * N * 8 < a.width ||
       (M == Mode::kApply && a.full < a.width))
     return cudaErrorInvalidValue;
   if (a.tokens == 0) return 0;
@@ -232,6 +237,10 @@ int launch_rows(const Args& a, int T, int N, int rows_per_block,
     case 801: return launch<8, 1, M>(a, r, st);
     case 3204: return launch<32, 4, M>(a, r, st);
     case 12804: return launch<128, 4, M>(a, r, st);
+    // 8 warps a row of up to 8192 (deepseek-v3's 7168: 896 vectors on 256
+    // threads, 4 at most a thread): the registers a thread of the 4096
+    // instance holds, twice the threads, one row a block
+    case 25604: return launch<256, 4, M>(a, r, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -241,7 +250,7 @@ int launch_rows(const Args& a, int T, int N, int rows_per_block,
 // x: tokens rows of groups * width bf16, x_stride elements apart (unit
 // stride inside); gamma [groups, width] fp32 contiguous; gate (or null) as
 // x, gate_stride apart; out [tokens * groups, width] bf16 contiguous.
-// width a multiple of 8 up to 4096; every pointer 16-byte aligned and both
+// width a multiple of 8 up to 8192; every pointer 16-byte aligned and both
 // strides multiples of 8.  The plan (ops.rmsnorm_plan): T threads per row,
 // N vectors of 8 values per thread (T * N * 8 >= width), rows_per_block.
 // Returns the cudaError_t of the launch.
@@ -460,6 +469,132 @@ __global__ void __launch_bounds__(kSumCols * kSumGroups)
   dgamma[c] = t;
 }
 
+// Rows wider than 4096 (deepseek-v3's block norms: 7168), the whole-row
+// backward only: rmsnorm_bwd_kernel's row of 4 warps would need 7 vectors
+// a lane, and with the next row's loads in flight and the dgamma sums
+// (4 x 7 x 4 + 7 x 8 = 168 registers of data) its 384 threads spill.  So
+// a row goes to 8 warps of 4 vectors a lane (the 4096 instance's
+// registers), one row at a time a block, the next row's loads in flight;
+// the 8 warps exchange their two sums through shared memory (by row
+// parity, added in warp order) at one block barrier a row.  A thread owns
+// the same columns in every row, so it writes its dgamma sums straight
+// into the block's partial row.  Gamma (at most 32 KB) is read once into
+// shared memory.
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * 32;
+
+template <int NV>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    rmsnorm_bwd_wide_kernel(const bf16* __restrict__ x,
+                            const float* __restrict__ gamma,
+                            const bf16* __restrict__ dy,
+                            bf16* __restrict__ dx,
+                            float* __restrict__ partial, int rows, int width,
+                            float eps) {
+  extern __shared__ float4 wide_smem[];
+  float* gs = reinterpret_cast<float*>(wide_smem);  // gamma [width]
+  __shared__ float red[2][kWideWarps][2];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nvec = width / 8;
+  auto vec = [&](int i) { return (warp * NV + i) * 32 + lane; };
+  auto load = [&](long long row, uint4* xo, uint4* dout) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * width);
+    const uint4* dr = reinterpret_cast<const uint4*>(dy + row * width);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {  // read once: streaming loads
+      const bool ok = vec(i) < nvec;
+      xo[i] = ok ? __ldcs(xr + vec(i)) : make_uint4(0, 0, 0, 0);
+      dout[i] = ok ? __ldcs(dr + vec(i)) : make_uint4(0, 0, 0, 0);
+    }
+  };
+  float dg[NV][8];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dg[i][k] = 0.0f;
+
+  const float inv_w = 1.0f / static_cast<float>(width);
+  long long row = blockIdx.x;
+  uint4 xv[NV], dv[NV];
+  if (row < rows) load(row, xv, dv);  // in flight while gamma arrives
+  for (int c = 4 * tid; c < width; c += 4 * kWideThreads)
+    *reinterpret_cast<float4*>(gs + c) =
+        *reinterpret_cast<const float4*>(gamma + c);
+  __syncthreads();
+  for (int parity = 0; row < rows; row += gridDim.x, parity ^= 1) {
+    uint4 xn[NV], dn[NV];  // unused past the last row
+    if (row + gridDim.x < rows) load(row + gridDim.x, xn, dn);
+    float ss = 0.0f, dot = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (vec(i) >= nvec) continue;
+      const float4 g0 = *reinterpret_cast<const float4*>(gs + 8 * vec(i));
+      const float4 g1 = *reinterpret_cast<const float4*>(gs + 8 * vec(i) + 4);
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const unsigned xw[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+      const unsigned dw[4] = {dv[i].x, dv[i].y, dv[i].z, dv[i].w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 xf = unpack(xw[k]), df = unpack(dw[k]);
+        ss += xf.x * xf.x + xf.y * xf.y;
+        dot += xf.x * g[2 * k] * df.x + xf.y * g[2 * k + 1] * df.y;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    if (lane == 0) {
+      red[parity][warp][0] = ss;
+      red[parity][warp][1] = dot;
+    }
+    __syncthreads();
+    ss = dot = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWideWarps; ++w) {
+      ss += red[parity][w][0];
+      dot += red[parity][w][1];
+    }
+    const float r = rsqrtf(ss * inv_w + eps);
+    const float m = r * r * r * dot * inv_w;  // rstd * mean(xhat*gamma*dy)
+    uint4* out = reinterpret_cast<uint4*>(dx + row * width);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (vec(i) >= nvec) continue;
+      const float4 g0 = *reinterpret_cast<const float4*>(gs + 8 * vec(i));
+      const float4 g1 = *reinterpret_cast<const float4*>(gs + 8 * vec(i) + 4);
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const unsigned xw[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+      const unsigned dw[4] = {dv[i].x, dv[i].y, dv[i].z, dv[i].w};
+      unsigned o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 xf = unpack(xw[k]), df = unpack(dw[k]);
+        o[k] = pack(r * g[2 * k] * df.x - xf.x * m,
+                    r * g[2 * k + 1] * df.y - xf.y * m);
+        dg[i][2 * k] += df.x * xf.x * r;
+        dg[i][2 * k + 1] += df.y * xf.y * r;
+      }
+      out[vec(i)] = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      xv[i] = xn[i];
+      dv[i] = dn[i];
+    }
+  }
+  // the block's partial dgamma row: each column is one thread's
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (vec(i) >= nvec) continue;
+    float4* d = reinterpret_cast<float4*>(partial + (size_t)blockIdx.x * width +
+                                          8 * vec(i));
+    d[0] = make_float4(dg[i][0], dg[i][1], dg[i][2], dg[i][3]);
+    d[1] = make_float4(dg[i][4], dg[i][5], dg[i][6], dg[i][7]);
+  }
+}
+
 struct BwdArgs {
   const bf16* x;
   const float* gamma;  // [width]
@@ -501,10 +636,22 @@ cudaError_t launch_bwd(const BwdArgs& a, int blocks, cudaStream_t st) {
 // width: NV vectors a lane
 template <Bwd B>
 int launch_rows_bwd(const BwdArgs& a, int blocks, void* stream) {
-  if (a.rows < 1 || a.width < 8 || a.width % 8 || a.width > kMaxWidth ||
+  if (a.rows < 1 || a.width < 8 || a.width % 8 || a.width > kWideMaxWidth ||
       blocks < 1 || a.full < a.width)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.width > kMaxWidth) {  // the wide rows: the whole-row backward only
+    if (B != Bwd::kWhole) return cudaErrorInvalidValue;
+    rmsnorm_bwd_wide_kernel<4><<<blocks, kWideThreads,
+                                 a.width * (int)sizeof(float), st>>>(
+        a.x, a.gamma, a.dy, a.dx, a.partial, a.rows, a.width, a.eps);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    rmsnorm_dgamma_kernel<<<(a.width + kSumCols - 1) / kSumCols,
+                            kSumCols * kSumGroups, 0, st>>>(
+        a.partial, a.dgamma, blocks, a.width);
+    return cudaGetLastError();
+  }
   const int nv = (a.width / 8 + 127) / 128;
   if (nv <= 1) return launch_bwd<1, B>(a, blocks, st);
   if (nv <= 2) return launch_bwd<2, B>(a, blocks, st);
@@ -707,8 +854,10 @@ cudaError_t launch_group_bwd(const GroupArgs& a, int threads, int shares,
 
 // x, dy, dx [rows, width] contiguous bf16 (16-byte-aligned bases), gamma and
 // dgamma [width] fp32 (16-byte aligned), partial [blocks, width] fp32
-// scratch; width a multiple of 8 up to 4096, blocks >= 1 (ops.rmsnorm_backward
-// sizes the grid: 3 rows a block at a time).  Two launches: the rows (each block also writing its
+// scratch; width a multiple of 8 up to 8192 (above 4096
+// rmsnorm_bwd_wide_kernel, one row a block at a time), blocks >= 1
+// (ops.rmsnorm_bwd_blocks sizes the grid: 3 rows a block at a time up to
+// 4096).  Two launches: the rows (each block also writing its
 // partial dgamma row), then the block-ordered sum of the partial rows.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_rmsnorm_bwd_bf16(const void* x, const void* gamma,

@@ -300,12 +300,20 @@ MAX_KV_SPLITS = 32
 #: the head dims the serving kernel (variant 0) takes
 HEAD_DIMS = (64, 112, 128, 256)
 #: the head dims variant 1 takes (112 padded to 128 by its loads; 256, an
-#: instance of its own, in key tiles of 64); 64 (qwen1.5) stays on variant 0
-TRAIN_HEAD_DIMS = (112, 128, 256)
+#: instance of its own, in key tiles of 64; 192, q/k only, with a V of 128:
+#: ``V_HEAD_DIMS``); 64 (qwen1.5) stays on variant 0
+TRAIN_HEAD_DIMS = (112, 128, 192, 256)
 #: the head dims the backward (``csrc/flash_attention_bwd.cu``) takes; 256
 #: (gemma2-2b) runs blocks of two warpgroups that share S^T and dP^T, one
-#: an SM
-BWD_HEAD_DIMS = (64, 112, 128, 256)
+#: an SM; 192 (with a V of 128) one warpgroup a block, one an SM
+BWD_HEAD_DIMS = (64, 112, 128, 192, 256)
+#: the (q/k, V) head dims whose V is narrower than q/k, and the kernels
+#: that take them: deepseek-v3's MLA, training (variant 1) and its
+#: backward.  Variant 0 (the serving kernel) has no such instance: the
+#: served MLA path scores against its latent with no attention kernel, and
+#: the cache-free prefill below ``ref.TRAIN_TILE`` rows and the MTP draft
+#: block wait for it (ROADMAP §B)
+V_HEAD_DIMS = {192: 128}
 
 
 def decode_instance(sq: int, hq: int, hkv: int, d: int) -> bool:
@@ -816,15 +824,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _flash_inputs(q, k, v, q_offset, kv_len):
     """The CUDA attention's inputs, checked: contiguous 16-byte-aligned
-    bf16 q/k/v (a copy where they are not) and int32 q_offset/kv_len."""
+    bf16 q/k/v (a copy where they are not) and int32 q_offset/kv_len.  V's
+    head dim is k's, or ``V_HEAD_DIMS[d]`` (q/k 192 with a V of 128)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if k.shape != (b, skv, hkv, d) or v.shape != k.shape or hq % hkv:
+    dv = v.shape[-1]
+    if (k.shape != (b, skv, hkv, d) or v.shape != (b, skv, hkv, dv)
+            or hq % hkv or (dv != d and V_HEAD_DIMS.get(d) != dv)):
         raise ValueError(f"attention shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
+    if d not in HEAD_DIMS and V_HEAD_DIMS.get(d) != dv:
         raise ValueError(f"the CUDA flash attention takes head dim 64, 112, "
-                         f"128 or 256, got {d}")
+                         f"128 or 256, or q/k 192 with a V of 128, got {d}")
     if {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
         raise TypeError("the CUDA flash attention takes bf16 q/k/v")
     # the kernel copies 16-byte chunks: contiguous, 16-byte-aligned bases
@@ -845,12 +856,26 @@ def _flash(q, k, v, qo, kl, causal, window, softcap, lse: bool = False):
     from repro_torch.kernels import _build
 
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    out = q.new_empty((b, sq, hq, dv))
     lse_out = torch.empty((b, hq, sq), dtype=torch.float32,
                           device=q.device) if lse else None
     plan = attention_plan(b, sq, hq, hkv, skv, d=d)
-    if plan.variant == 1:
+    if dv != d:
+        if plan.variant != 1 or softcap:
+            raise NotImplementedError(
+                f"the CUDA attention at q/k {d} with a V of {dv} is the "
+                f"training kernel's (variant 1: at least {ref.TRAIN_TILE} q "
+                f"rows, no key split, no softcap); the serving kernel's "
+                f"instance is ROADMAP §B (q rows {sq}, keys {skv})")
+        sched, blocks = _train_sched(b, sq, hq, hkv, skv, bool(causal),
+                                     int(window), q.device, d)
+        _launch(_build.entry("flash_attention_train_dv"),
+                (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse_out),
+                 _ptr(qo), _ptr(kl), _ptr(sched), b, sq, skv, hq, hkv, d, dv,
+                 int(causal), int(window), blocks, _stream(q)),
+                "flash_attention", None)
+    elif plan.variant == 1:
         sched, blocks = _train_sched(b, sq, hq, hkv, skv, bool(causal),
                                      int(window), q.device, d)
         _launch(_build.entry("flash_attention_train"),
@@ -906,9 +931,11 @@ def flash_attention_backward(q, k, v, o, do, lse, q_offset, kv_len, *,
                                      softcap=softcap)
     from repro_torch.kernels import _build
 
+    name = ("flash_attention_bwd" if v.shape[-1] == q.shape[-1]
+            else "flash_attention_bwd_dv")
     grads = attention_backward_with(
-        _build.entry("flash_attention_bwd"), q, k, v, o, do, lse, q_offset,
-        kv_len, causal=causal, window=window, softcap=softcap)
+        _build.entry(name), q, k, v, o, do, lse, q_offset, kv_len,
+        causal=causal, window=window, softcap=softcap)
     BACKWARD_LAUNCHES["flash_attention_bwd"] += 1
     return grads
 
@@ -921,18 +948,23 @@ def attention_backward_with(entry, q, k, v, o, do, lse, q_offset, kv_len, *,
     build's for a before/after timing).  Counts no launch."""
     q, k, v, qo, kl = _flash_inputs(q, k, v, q_offset, kv_len)
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"the CUDA attention backward takes head dim "
                          f"{BWD_HEAD_DIMS}, got {d}")
-    if o.shape != q.shape or do.shape != q.shape or {o.dtype, do.dtype} != {
+    if dv != d and softcap:
+        raise NotImplementedError("the CUDA attention backward at q/k "
+                                  f"{d}, V {dv} takes no softcap")
+    o_shape = (b, sq, hq, dv)
+    if o.shape != o_shape or do.shape != o_shape or {o.dtype, do.dtype} != {
             torch.bfloat16}:
-        raise ValueError(f"o and do must be bf16 {tuple(q.shape)}")
+        raise ValueError(f"o and do must be bf16 {o_shape}")
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 [{b}, {hq}, {sq}]")
     o, do, lse = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format) for t in (o, do, lse))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv_out = (torch.empty_like(q), torch.empty_like(k),
+                      torch.empty_like(v))
     plan = attention_bwd_plan(b, sq, hq, hkv, skv, bool(causal), int(window),
                               d=d)
     items = _bwd_items(b, sq, hq, hkv, skv, bool(causal), int(window),
@@ -946,13 +978,15 @@ def attention_backward_with(entry, q, k, v, o, do, lse, q_offset, kv_len, *,
     parts = torch.empty(max(plan.slots, 1) * 2 * BWD_KEYS * (-(-d // 64) * 64),
                         dtype=torch.float32, device=q.device)
     counters = _counters(q, 2 + b * hkv * plan.key_tiles)
+    head = (d, dv) if dv != d else (d,)
+    cap = () if dv != d else (float(softcap),)
     _launch(entry,
             (_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
-             _ptr(qo), _ptr(kl), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(ld),
+             _ptr(qo), _ptr(kl), _ptr(dq), _ptr(dk), _ptr(dv_out), _ptr(ld),
              _ptr(items), _ptr(parts), _ptr(counters), b, sq, skv, hq, hkv,
-             d, int(causal), int(window), float(softcap), len(plan.items),
+             *head, int(causal), int(window), *cap, len(plan.items),
              plan.blocks, _stream(q)), "flash_attention_bwd", counters)
-    return dq, dk, dv
+    return dq, dk, dv_out
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -985,24 +1019,33 @@ def _aligned(t: torch.Tensor | None) -> torch.Tensor | None:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-#: the widest row the CUDA rmsnorm takes (its threads hold a row in
-#: registers)
-RMSNORM_MAX_WIDTH = 4096
+#: the widest row the CUDA rmsnorm takes, both ways (its threads hold a
+#: row in registers; deepseek-v3's block norms are 7168 wide)
+RMSNORM_MAX_WIDTH = 8192
+#: the widest slice the split norm's kernels take (d2 > 1), and the widest
+#: row of the backward's 4-warp rows; wider whole rows take
+#: ``rmsnorm_bwd_wide_kernel`` (8 warps a row, one row a block at a time)
+RMSNORM_SPLIT_MAX_WIDTH = 4096
 #: (threads per row, 16-byte vectors per thread) of each variant of
-#: ``csrc/rmsnorm.cu``, narrowest row first: rows of up to 64, 1024 and
-#: 4096.  At most 4 vectors a thread: a 3584-wide row measured faster on
-#: 128 threads of 4 vectors than on one warp of 16.
-RMSNORM_VARIANTS = ((8, 1), (32, 4), (128, 4))
+#: ``csrc/rmsnorm.cu``, narrowest row first: rows of up to 64, 1024, 4096
+#: and 8192.  At most 4 vectors a thread: a 3584-wide row measured faster
+#: on 128 threads of 4 vectors than on one warp of 16; a row of 7168 takes
+#: 8 warps of 4 vectors, the registers the 4096 instance's threads hold.
+RMSNORM_VARIANTS = ((8, 1), (32, 4), (128, 4), (256, 4))
 #: the most threads of a block
 RMSNORM_MAX_THREADS = 256
 #: rows the rmsnorm backward's block takes at a time (4 warps each)
 RMSNORM_BWD_ROWS = 3
 
 
-def rmsnorm_bwd_blocks(rows: int) -> int:
+def rmsnorm_bwd_blocks(rows: int, width: int = 0) -> int:
     """The grid of ``csrc/rmsnorm.cu``'s backward kernel (the whole row's
     and the split norm's two backward pieces): 4 warps a row, 3 rows a
-    block at a time, one block of 12 warps per SM."""
+    block at a time, one block of 12 warps per SM; rows wider than
+    ``RMSNORM_SPLIT_MAX_WIDTH``: one row a block at a time, one block per
+    SM."""
+    if width > RMSNORM_SPLIT_MAX_WIDTH:
+        return min(rows, SMS)
     return min(-(-rows // RMSNORM_BWD_ROWS), SMS)
 
 
@@ -1095,7 +1138,7 @@ def rmsnorm_backward_with(entry, x, gamma, dy, eps: float):
     dx = torch.empty_like(x2)
     if rows == 0:
         return dx.reshape(x.shape), torch.zeros_like(gamma)
-    blocks = rmsnorm_bwd_blocks(rows)
+    blocks = rmsnorm_bwd_blocks(rows, h)
     partial = torch.empty((blocks, h), dtype=torch.float32, device=x.device)
     dgamma = torch.empty_like(gamma)
     _check(entry(
@@ -1133,13 +1176,13 @@ class _RmsNorm(torch.autograd.Function):
 def _split_rows(x: torch.Tensor, what: str) -> torch.Tensor:
     """``x [..., w]`` as the split kernels read it: bf16 rows ``[rows, w]``,
     contiguous and 16-byte aligned, w a multiple of 8 up to
-    ``RMSNORM_MAX_WIDTH``."""
+    ``RMSNORM_SPLIT_MAX_WIDTH``."""
     w = x.shape[-1]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA {what} takes bf16 rows, got {x.dtype}")
-    if w % 8 or not 8 <= w <= RMSNORM_MAX_WIDTH:
+    if w % 8 or not 8 <= w <= RMSNORM_SPLIT_MAX_WIDTH:
         raise ValueError(f"the CUDA {what} takes rows of a multiple of 8 up "
-                         f"to {RMSNORM_MAX_WIDTH} wide, got {w}")
+                         f"to {RMSNORM_SPLIT_MAX_WIDTH} wide, got {w}")
     return _aligned(x.reshape(-1, w).contiguous())
 
 

@@ -190,8 +190,8 @@ TRAIN_TILE = 128
 def train_keys(d: int) -> int:
     """The training kernel's key tile at head dim ``d``: ``TRAIN_TILE``,
     or 64 at head dim 256 (its instance there, whose 64 x 256 fp32 O
-    leaves room for no larger S)."""
-    return 64 if d > 128 else TRAIN_TILE
+    leaves room for no larger S); q/k of 192 with a V of 128 keep 128."""
+    return 64 if d == 256 else TRAIN_TILE
 
 
 def train_key_tiles(row_tile: int, q_offset: int, kv_len: int, sq: int,
@@ -237,7 +237,7 @@ def attention_train_ref(q, k, v, q_offset, kv_len, *, causal=True,
     c = math.log2(math.e) * (1.0 if softcap else scale)
     kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)  # [b, h, s, d]
     vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
-    out = torch.zeros(b, hq, sq, d, device=q.device)
+    out = torch.zeros(b, hq, sq, v.shape[-1], device=q.device)
     lse = torch.full((b, hq, sq), -torch.inf, device=q.device)
     for bi in range(b):
         qoff, klen = int(q_offset[bi]), max(0, min(int(kv_len[bi]), skv))
@@ -248,7 +248,7 @@ def attention_train_ref(q, k, v, q_offset, kv_len, *, causal=True,
             qpos = qoff + torch.arange(p0, rows.stop, device=q.device)
             m = torch.full(qt.shape[:2], -torch.inf, device=q.device)
             l = torch.zeros_like(m)
-            o = torch.zeros_like(qt)
+            o = qt.new_zeros(qt.shape[:2] + (v.shape[-1],))
             for kt in reversed(train_key_tiles(t, qoff, klen, sq, skv,
                                                causal, window, keys_n)):
                 k0 = keys_n * kt
@@ -317,7 +317,7 @@ def attention_bwd_ref(q, k, v, o, do, lse, q_offset, kv_len, *, causal=True,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     if rep > 1:
         dk = dk.reshape(b, skv, hkv, rep, d).sum(3)
-        dv = dv.reshape(b, skv, hkv, rep, d).sum(3)
+        dv = dv.reshape(b, skv, hkv, rep, v.shape[-1]).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

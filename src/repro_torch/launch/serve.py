@@ -50,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs.base import cut_depth
 from repro_torch.configs.registry import get_config
 from repro_torch.core import comm_matrix
 from repro_torch.core.mesh import atp_topo, resolve_device
@@ -307,6 +308,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mode", choices=("paged", "wave"), default="paged")
     ap.add_argument("--dp", type=int, default=1)
@@ -346,6 +350,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = cut_depth(cfg, args.layers)
     plan = None
     if args.plan:
         plan = ParallelPlan.load(args.plan)

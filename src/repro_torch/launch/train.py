@@ -1,6 +1,6 @@
 """Training launcher (counterpart of ``repro.launch.train``, its
-non-elastic loop): a dense or zamba/mamba model, random weights from a
-seed, batches from ``data.pipeline``, ``build_train_step`` and AdamW.
+non-elastic loop): a dense, MoE, MLA or zamba/mamba model, random weights
+from a seed, batches from ``data.pipeline``, ``build_train_step`` and AdamW.
 The paper's GPT models (``--arch gpt-m1`` .. ``gpt-m4``) train at their
 own 4 layers unless ``--layers`` cuts them.
 
@@ -12,6 +12,8 @@ own 4 layers unless ``--layers`` cuts them.
         --seq 2048 --batch 1 --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v3-671b --layers 2 --seq 2048 --batch 1 --steps 5
 
 runs on CUDA unless ``--device cpu`` is given, and prints the loss, the
 global grad norm and the wall time of each step.  The batches come from a
@@ -60,6 +62,7 @@ import time
 
 import torch
 
+from repro_torch.configs.base import cut_depth
 from repro_torch.configs.registry import get_config
 from repro_torch.core import comm_matrix
 from repro_torch.core.calibrate import calibrate_mesh
@@ -178,7 +181,7 @@ def main(argv=None) -> list[dict]:
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = cut_depth(cfg, args.layers)
     device = resolve_device(args.device)
     if args.calibrate and int(os.environ.get("WORLD_SIZE", 1)) > 1:
         # the calibration measures the ranks of the run: join them first

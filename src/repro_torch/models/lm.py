@@ -3,10 +3,12 @@
 contiguous decode caches (``init_decode_caches``, ``decode_step``) and the
 training loss (``forward`` with no caches, ``vocab_parallel_ce``,
 ``train_loss``, with the MoE aux term and the MTP head's term) of the
-dense, moe, zamba and mamba segment kinds, and the MTP head of a dense
-model as the speculative server's draft proposer (``mtp_draft_logits``).
-A moe layer is a dense block's attention (and k/v caches) followed by
-the MoE FFN (``models.moe``).
+dense, moe, mla_dense, mla_moe, zamba and mamba segment kinds, and the
+MTP head as the speculative server's draft proposer
+(``mtp_draft_logits``).  A moe layer is a dense block's attention (and
+k/v caches) followed by the MoE FFN (``models.moe``); an MLA layer
+(``models.mla``) caches its latent instead of k/v, and an MLA model's MTP
+head runs an ``mla_dense`` block.
 
 Parameters come in two forms.  ``init_params`` makes the GLOBAL tree with
 the JAX package's keys (``seg0/attn/wq`` ... stacked ``[count, ...]``; a
@@ -57,15 +59,18 @@ from repro_torch.core.mesh import (MeshTopo, dp_axis_names, resolve_device,
                                    tp_axis_names)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models import mamba2, moe, paging, transformer
+from repro_torch.models import mamba2, mla, moe, paging, transformer
 
 _A10 = "segment kind {!r} is not ported yet (ROADMAP A10: other segment kinds)"
 
 #: segment kinds the port serves
-KINDS = frozenset({"dense", "moe", "zamba", "mamba"})
+KINDS = frozenset({"dense", "moe", "mla_dense", "mla_moe", "zamba",
+                   "mamba"})
 #: the kinds whose layers are a dense block's attention with its k/v caches
 #: (the reference's ``PAGED_CACHE_KINDS`` without MLA's)
 ATTN_KINDS = frozenset({"dense", "moe"})
+#: the kinds whose layers cache MLA's latent (``ckv``/``krope``)
+MLA_KINDS = frozenset({"mla_dense", "mla_moe"})
 #: the served kinds with O(1)-per-slot recurrent state, pooled by slot id
 RECURRENT_STATE_KINDS = frozenset({"mamba", "zamba"})
 
@@ -137,9 +142,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
         blk["moe"] = moe.moe_params(gen, cfg, dtype, device)
         return blk
 
+    def mla_layer(kind):
+        return lambda: mla.layer_params(gen, cfg, dtype, device, kind)
+
     for i, seg in enumerate(segments(cfg)):
         if seg.kind == "dense":
             p[f"seg{i}"] = _stacked((seg.count,), dense)
+        elif seg.kind in MLA_KINDS:
+            p[f"seg{i}"] = _stacked((seg.count,), mla_layer(seg.kind))
         elif seg.kind == "moe":
             p[f"seg{i}"] = _stacked((seg.count,), moe_layer)
         elif seg.kind == "zamba":
@@ -155,12 +165,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
             "block": dense()}
     if cfg.mtp:
         # the MTP head: two [h, h] projections of (h, emb(next)), a dense
-        # block and its norm
+        # block (an mla_dense layer for an MLA model) and its norm
         s = 1.0 / math.sqrt(2 * h)
         p["mtp"] = {
             "proj_h": transformer._normal(gen, (h, h), s, dtype, device),
             "proj_e": transformer._normal(gen, (h, h), s, dtype, device),
-            "block": dense(),
+            "block": mla_layer("mla_dense")() if cfg.mla else dense(),
             "norm": {k: v.to(device) for k, v in L.norm_params(cfg, h).items()}}
     return p
 
@@ -207,6 +217,8 @@ def shard_params(cfg: ModelConfig, params: dict, ctx: ATPContext) -> dict:
         sp = params.pop(f"seg{i}")
         if seg.kind == "dense":
             out[f"seg{i}"] = transformer.shard_dense_block(ctx, cfg, sp)
+        elif seg.kind in MLA_KINDS:
+            out[f"seg{i}"] = mla.shard_layer(ctx, cfg, sp)
         elif seg.kind == "moe":
             blk = transformer.shard_dense_block(ctx, cfg, sp)
             blk["moe"] = moe.shard_moe(ctx, cfg, sp.pop("moe"))
@@ -229,8 +241,9 @@ def shard_params(cfg: ModelConfig, params: dict, ctx: ATPContext) -> dict:
         out["mtp"] = {
             "proj_h": L.cut(ctx, mp.pop("proj_h"), col),
             "proj_e": L.cut(ctx, mp.pop("proj_e"), col),
-            "block": transformer.shard_dense_block(ctx, cfg, mp.pop("block"),
-                                                   lead=0),
+            "block": (mla.shard_layer(ctx, cfg, mp.pop("block"), lead=0)
+                      if cfg.mla else transformer.shard_dense_block(
+                          ctx, cfg, mp.pop("block"), lead=0)),
             "norm": {k: L.cut(ctx, v, nspec)
                      for k, v in mp.pop("norm").items()}}
     return out
@@ -266,7 +279,10 @@ def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
     defaults to the model's.  A quantized ``pcfg`` (int8/fp8) stores the
     k/v pools in 1-byte elements and adds ``k_scale``/``v_scale`` fp16
     pools ``[count, np, pg, kv_count]`` beside them (the zamba shared
-    block's pools too)."""
+    block's pools too).  MLA layers: latent pools ``{"ckv": [count, np,
+    pg, kv_lora_rank], "krope": [count, np, pg, qk_rope_head_dim]}``,
+    replicated over TP, with ``ckv_scale``/``krope_scale`` [count, np, pg]
+    fp16 for a quantized ``pcfg``."""
     _check_kinds(cfg)
     device = resolve_device(device)
     if slots is None and is_recurrent(cfg):
@@ -290,6 +306,18 @@ def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
             c["v_scale"] = zeros(shape[:-1], torch.float16)
         return c
 
+    def mla_pool(count):
+        m = cfg.mla
+        c = {"ckv": zeros((count, pcfg.num_pages, pcfg.page_size,
+                           m.kv_lora_rank), store),
+             "krope": zeros((count, pcfg.num_pages, pcfg.page_size,
+                             m.qk_rope_head_dim), store)}
+        if pcfg.quantized:
+            shape = (count, pcfg.num_pages, pcfg.page_size)
+            c["ckv_scale"] = zeros(shape, torch.float16)
+            c["krope_scale"] = zeros(shape, torch.float16)
+        return c
+
     def mamba_state(lead):
         d_inner, nheads = mamba2.mamba_dims(cfg)
         sc, n = cfg.ssm, ctx.tp
@@ -303,6 +331,8 @@ def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
     for i, seg in enumerate(segments(cfg)):
         if seg.kind in ATTN_KINDS:
             caches[f"seg{i}"] = attn_pool(seg.count)
+        elif seg.kind in MLA_KINDS:
+            caches[f"seg{i}"] = mla_pool(seg.count)
         elif seg.kind == "zamba":
             caches[f"seg{i}"] = {"attn": attn_pool(seg.count),
                                  "mamba": mamba_state((seg.count, seg.inner - 1))}
@@ -325,8 +355,11 @@ def init_decode_caches(cfg: ModelConfig, ctx: ATPContext, B: int,
     ``conv_x [.., b, k-1, d_inner/n]`` and ``conv_bc [.., b, k-1, 2 ds]`` in
     ``dtype`` and ``ssd [.., b, nh/n, hd, ds]`` in fp32; a zamba segment
     nests them as ``{"attn": ..., "mamba": ...}`` with the Mamba2 state
-    stacked ``[count, inner-1, ...]``.  ``dtype`` defaults to the model's.
-    MLA and xLSTM caches are ROADMAP A10 (``_check_kinds`` raises)."""
+    stacked ``[count, inner-1, ...]``.  MLA layers: the latent ``{"ckv":
+    [count, b, s_max, kv_lora_rank], "krope": [count, b, s_max,
+    qk_rope_head_dim], "len": [count] int32}``, replicated over TP.
+    ``dtype`` defaults to the model's.  xLSTM caches are ROADMAP A10
+    (``_check_kinds`` raises)."""
     _check_kinds(cfg)
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -339,6 +372,12 @@ def init_decode_caches(cfg: ModelConfig, ctx: ATPContext, B: int,
     def attn_cache(count):
         shape = (count, b, s_max, plan.kv_count, cfg.hd)
         return {"k": zeros(shape), "v": zeros(shape),
+                "len": zeros((count,), torch.int32)}
+
+    def mla_cache(count):
+        m = cfg.mla
+        return {"ckv": zeros((count, b, s_max, m.kv_lora_rank)),
+                "krope": zeros((count, b, s_max, m.qk_rope_head_dim)),
                 "len": zeros((count,), torch.int32)}
 
     def mamba_cache(lead):
@@ -354,6 +393,8 @@ def init_decode_caches(cfg: ModelConfig, ctx: ATPContext, B: int,
     for i, seg in enumerate(segments(cfg)):
         if seg.kind in ATTN_KINDS:
             caches[f"seg{i}"] = attn_cache(seg.count)
+        elif seg.kind in MLA_KINDS:
+            caches[f"seg{i}"] = mla_cache(seg.count)
         elif seg.kind == "zamba":
             caches[f"seg{i}"] = {"attn": attn_cache(seg.count),
                                  "mamba": mamba_cache((seg.count,
@@ -659,6 +700,11 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
                     return moe_layer(sctx, cfg, bp, h, positions, plan,
                                      window)
                 units.append(unit)
+        elif seg.kind in MLA_KINDS:
+            for bp in _layers(sp, seg.count):
+                def unit(h, bp=bp, sctx=sctx):
+                    return mla.mla_layer(sctx, cfg, bp, h, positions)
+                units.append(unit)
         elif seg.kind == "zamba":
             for mp in _layers(sp["mamba"], seg.count):
                 def unit(h, blocks=_layers(mp, seg.inner - 1), sctx=sctx):
@@ -677,9 +723,11 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
             for unit in units:
                 x = (checkpoint(unit, x, use_reentrant=False) if remat
                      else unit(x))
-                if seg.kind == "moe":
+                if seg.kind in ("moe", "mla_moe"):
                     x, a = x
                     aux = aux + a
+                elif seg.kind == "mla_dense":
+                    x = x[0]
     return _final_norm(cfg, params, seg_ctxs[-1], x), aux
 
 
@@ -729,6 +777,10 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
                 for j, window in enumerate(_window_pattern(cfg, seg.count)):
                     x = moe_layer(sctx, cfg, _layer(sp, j), x, positions,
                                   plan, window, _layer(sc, j), paged)[0]
+            elif seg.kind in MLA_KINDS:
+                for j in range(seg.count):
+                    x = mla.mla_layer(sctx, cfg, _layer(sp, j), x, positions,
+                                      _layer(sc, j), paged)[0]
             elif seg.kind == "zamba":
                 for j in range(seg.count):
                     x = shared_attention(sctx, cfg, params["shared_attn"], x,
@@ -860,7 +912,8 @@ def replication_factors(cfg: ModelConfig, ctx: ATPContext, params) -> dict:
     def walk(tree, name=None, parent=None):
         if isinstance(tree, dict):
             return {k: walk(v, k, name) for k, v in tree.items()}
-        specs = _MOE_SPECS if parent == "moe" else _LEAF_SPECS
+        specs = (_MOE_SPECS if parent == "moe" else mla.SPECS
+                 if parent == "mla" else _LEAF_SPECS)
         sharded = 1
         for axis in specs[name](ctx):
             if axis is not None:
@@ -920,8 +973,9 @@ def _pool_page_size(caches) -> int | None:
     ``caches`` (None for a model with no attention pools)."""
     for c in caches.values():
         c = c.get("attn", c)
-        if "k" in c:
-            return c["k"].shape[2]
+        for key in ("k", "ckv"):
+            if key in c:
+                return c[key].shape[2]
     return None
 
 
@@ -949,7 +1003,8 @@ def _mtp_logits(ctx: ATPContext, cfg: ModelConfig, params, h, positions,
                 next_tokens, conj: bool = True):
     """The MTP head on (h, emb(next_tokens)), serving's and training's: two
     column-first projections sharing one ax2 boundary, gathered back to
-    the block I/O layout, then the dense block, its norm and the head, all
+    the block I/O layout, then the dense block (``mla_dense`` for an MLA
+    model, cache-free), its norm and the head, all
     under the context without sequence parallelism or segment plans (h
     left the sequence-parallel domain at the forward's exit).  Under
     autograd, each column-first input is conjugated over ax1 (``conj``
@@ -967,8 +1022,12 @@ def _mtp_logits(ctx: ATPContext, cfg: ModelConfig, params, h, positions,
     # back to the [.., h/d2] block I/O layout
     u = shard_slice(conjugate(mctx, _gather_ax1(mctx, u), mctx.ax2),
                     mctx.index2(), mctx.d2, dim=-1)
-    plan = L.make_attn_plan(mctx, cfg.num_heads, cfg.num_kv_heads)
-    u = transformer.dense_block(mctx, cfg, mp["block"], u, positions, plan, 0)
+    if cfg.mla:
+        u = mla.mla_layer(mctx, cfg, mp["block"], u, positions)[0]
+    else:
+        plan = L.make_attn_plan(mctx, cfg.num_heads, cfg.num_kv_heads)
+        u = transformer.dense_block(mctx, cfg, mp["block"], u, positions,
+                                    plan, 0)
     u = L.norm(mctx, cfg, u, mp["norm"])
     return lm_logits(mctx, cfg, params, u)
 

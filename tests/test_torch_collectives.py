@@ -133,6 +133,7 @@ def departed(exp: dict, cfg, plan, batch: int, seq: int) -> dict:
     (module docstring); the bytes-known flag dropped."""
     want = {k: (n, b) for k, (n, b, _) in exp.items()}
     rows = batch // (plan.dp * plan.pods)
+    esize = 4 if cfg.dtype == "float32" else 2   # activation bytes
 
     def move(src, dst, count, nbytes):
         n, b = want[src]
@@ -145,14 +146,15 @@ def departed(exp: dict, cfg, plan, batch: int, seq: int) -> dict:
     for i, seg in enumerate(segments(cfg)):
         if seg.kind == "zamba" and plan.d1 > 1:
             region = f"seg{i}:zamba"
-            nbytes = seg.count * rows * seq * cfg.d_model * 2   # bf16
+            nbytes = seg.count * rows * seq * cfg.d_model * esize
             move((region, "psum", ("tp1",), False),
                  (region, "all_gather", ("tp1",), False), seg.count, nbytes)
         tokens, tp = rows * seq, plan.d1 * plan.d2
-        if seg.kind == "moe" and plan.d1 > 1 and tokens % tp == 0:
+        if (seg.kind in ("moe", "mla_moe") and plan.d1 > 1
+                and tokens % tp == 0):
             # the all-to-all dispatch's token gather of [T/d2, h]
-            region = f"seg{i}:moe"
-            nbytes = seg.count * tokens // plan.d2 * cfg.d_model * 2
+            region = f"seg{i}:{seg.kind}"
+            nbytes = seg.count * tokens // plan.d2 * cfg.d_model * esize
             move((region, "psum", ("tp1",), False),
                  (region, "all_gather", ("tp1",), False), seg.count, nbytes)
     if plan.pods > 1:
@@ -162,9 +164,11 @@ def departed(exp: dict, cfg, plan, batch: int, seq: int) -> dict:
         # 866-868), as the port does
         want[("shell:loss", "psum", ("pod", "data"), False)] = want.pop(
             ("shell:loss", "psum", ("data",), False))
+    # the sum and the count (and an MoE model's aux loss, kept)
+    aux = int(cfg.moe is not None)
     for loss in [k for k in want if k[:2] == ("shell:loss", "psum")]:
-        assert want[loss] == (2, 8), want[loss]   # the sum and the count
-        want[loss] = (1, 4)
+        assert want[loss] == (2 + aux, 8 + 4 * aux), want[loss]
+        want[loss] = (1 + aux, 4 + 4 * aux)
     return want
 
 

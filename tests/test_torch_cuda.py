@@ -147,9 +147,9 @@ def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ops.rmsnorm(xn[:, 0].float(), g[0])
     with pytest.raises(TypeError, match="fp32 gamma"):
         ops.rmsnorm(xn[:, 0], g[0].bfloat16())
-    with pytest.raises(ValueError, match="4096"):
-        ops.rmsnorm(torch.zeros(2, 4104, device=cuda).bfloat16(),
-                    torch.ones(4104, device=cuda))
+    with pytest.raises(ValueError, match="8192"):
+        ops.rmsnorm(torch.zeros(2, 8200, device=cuda).bfloat16(),
+                    torch.ones(8200, device=cuda))
     with pytest.raises(ValueError, match="multiple of 8"):
         ops.rmsnorm(torch.zeros(2, 36, device=cuda).bfloat16(),
                     torch.ones(36, device=cuda))
@@ -391,12 +391,24 @@ def test_ssd_scan_kernel_is_deterministic(cuda, s):
 BWD_REL = 2e-2
 #: the same for rmsnorm's fp32 dgamma (a sum over rows in fp32)
 DGAMMA_REL = 1e-3
+#: rmsnorm's bf16 dx, relative L2: kernel and plain version round the same
+#: fp32 arithmetic to bf16 (1e-5 to 5e-5 measured).  dx's mean term
+#: ``xhat mean(xhat gamma dy)`` is about 1/sqrt(h) of dx on random inputs
+#: (1.2e-2 at 7168 wide, under ``BWD_REL``); a dx without it fails this
+RMSNORM_DX_REL = 1e-3
 
 
 def _rel(got, want):
     g, w = got.float(), want.float()
     assert torch.isfinite(g).all()
     return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def _dx_without_mean_term(x, gamma, dy, eps):
+    """rmsnorm's dx with its mean term left out, ``rstd gamma dy`` in bf16:
+    a planted fault for the dx checks."""
+    r = torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True) + eps)
+    return (r * gamma.float() * dy.float()).to(x.dtype)
 
 
 @pytest.mark.cuda
@@ -721,7 +733,7 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, width):
     assert ops.BACKWARD_LAUNCHES["rmsnorm_bwd"] == before + 1
     want_dx, want_dg = ref.rmsnorm_bwd_ref(x, gamma, dy, 1e-5)
     assert dx.dtype == torch.bfloat16 and dgamma.dtype == torch.float32
-    assert _rel(dx, want_dx) <= BWD_REL
+    assert _rel(dx, want_dx) <= RMSNORM_DX_REL
     assert _rel(dgamma, want_dg) <= DGAMMA_REL
 
 
@@ -1731,3 +1743,158 @@ def test_paged_append_writes_the_last_value_where_positions_collide(cuda):
         assert torch.equal(pages[0, 0], values[3, 0])
         assert torch.equal(pages[1, 9], values[0, 0])
         assert torch.equal(pages.cpu(), cpu)
+
+
+# ---------------------------------------------------------------------------
+# q/k of head dim 192 with a V of 128 (deepseek-v3's MLA), training
+# (``flash_attention_train.cu``'s ``fa_train_dv_kernel``, variant 1) and its
+# backward (``flash_attention_bwd.cu``'s ``dkdv_dv_kernel``, ``dq_dv_kernel``);
+# and the rmsnorm's rows wider than 4096 (deepseek-v3's 7168), both ways.
+# ---------------------------------------------------------------------------
+
+#: (b, s, heads) of each case: deepseek-v3's training shape (128 heads, MHA)
+#: and a ragged length over two batch rows
+QK192 = {"deepseek s=2048": (1, 2048, 128), "ragged s=1000": (2, 1000, 4)}
+
+
+def _qk192_inputs(dev, b, s, h, seed=7):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    q, k, v, do = (randn(b, s, h, 192), randn(b, s, h, 192),
+                   randn(b, s, h, 128), randn(b, s, h, 128))
+    qo = torch.zeros(b, dtype=torch.int32, device=dev)
+    kl = torch.full((b,), s, dtype=torch.int32, device=dev)
+    return q, k, v, do, qo, kl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(QK192))
+def test_flash_attention_qk192_v128_matches_plain(cuda, case):
+    """One launch of the training kernel (variant 1) with its log-sum-exp:
+    the output [b, s, h, 128] against the plain attention and the plain
+    mirror of the kernel's order, the log-sum-exp within 1e-3."""
+    q, k, v, _, qo, kl = _qk192_inputs(cuda, *QK192[case])
+    before = ops.ATTENTION_VARIANT_LAUNCHES[1]
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+    assert ops.ATTENTION_VARIANT_LAUNCHES[1] == before + 1
+    assert out.shape == v.shape[:3] + (128,)
+    want, want_lse = ref.attention_lse_ref(q, k, v, qo, kl)
+    _close(out, want, **FA_TOL)
+    _close(out, ref.attention_train_ref(q, k, v, qo, kl)[0], **FA_TOL)
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(QK192))
+def test_attention_backward_qk192_v128_matches_plain(cuda, case):
+    """dQ and dK [.., 192] and dV [.., 128] from the kernel's O and
+    log-sum-exp, one launch counted, against the plain backward."""
+    q, k, v, do, qo, kl = _qk192_inputs(cuda, *QK192[case])
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+    before = ops.BACKWARD_LAUNCHES["flash_attention_bwd"]
+    got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
+    assert ops.BACKWARD_LAUNCHES["flash_attention_bwd"] == before + 1
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    want = ref.attention_bwd_ref(q, k, v, out, do, lse, qo, kl)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(g, w) <= BWD_REL, name
+    again = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_qk192_v128_planted_faults_break_the_checks(cuda):
+    """Each check above must catch a wrong answer: the output with V's
+    upper 64 columns read as zeros, dK set to zero, dV of the neighbouring
+    key."""
+    q, k, v, do, qo, kl = _qk192_inputs(cuda, *QK192["ragged s=1000"])
+    out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+    v_cut = v.clone()
+    v_cut[..., 64:] = 0
+    with pytest.raises(AssertionError):
+        _close(out, ref.attention_lse_ref(q, k, v_cut, qo, kl)[0], **FA_TOL)
+    dq, dk, dv = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
+    _, wk, wv = ref.attention_bwd_ref(q, k, v, out, do, lse, qo, kl)
+    assert _rel(torch.zeros_like(dk), wk) > BWD_REL
+    assert _rel(dv.roll(1, dims=1), wv) > BWD_REL
+
+
+@pytest.mark.cuda
+def test_qk192_v128_refuses_what_it_has_no_instance_for(cuda):
+    """The serving kernel (variant 0: fewer than 128 q rows) has no (192,
+    128) instance (ROADMAP §B), a softcap is refused, and a V of 192 or 64
+    beside q/k of 192 is not a mode."""
+    q, k, v, do, qo, kl = _qk192_inputs(cuda, 1, 64, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.flash_attention(q, k, v, qo, kl)
+    q, k, v, do, qo, kl = _qk192_inputs(cuda, 1, 256, 4)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        ops.flash_attention(q, k, v, qo, kl, softcap=50.0)
+    for dv in (192, 64):
+        with pytest.raises(ValueError, match="attention shapes|head dim"):
+            ops.flash_attention(q, k, v.new_zeros(v.shape[:3] + (dv,)),
+                                qo, kl)
+
+
+#: rows of the block norm the 8-warp instance takes (up to 8192 wide), and
+#: the 4096-wide rows of the earlier instance, unchanged
+WIDE_NORMS = [(2048, 7168), (64, 7168), (4, 7168), (37, 8192), (2048, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", WIDE_NORMS)
+def test_rmsnorm_wide_rows_match_plain_both_ways(cuda, rows, width):
+    """Forward within the bf16 tolerance, one launch; backward: dx within
+    ``RMSNORM_DX_REL`` and dgamma within ``DGAMMA_REL`` relative L2, one
+    launch, the same bits twice."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(rows, width, generator=gen, device=cuda) * 3).bfloat16()
+    gamma = torch.rand(width, generator=gen, device=cuda) + 0.5
+    dy = torch.randn(rows, width, generator=gen, device=cuda).bfloat16()
+    plan = ops.rmsnorm_plan(rows, width)
+    assert plan.threads * plan.vectors * 8 >= width
+    assert (plan.threads == 256) == (width > 4096)
+    before = ops.LAUNCHES["rmsnorm"]
+    y = ops.rmsnorm(x, gamma, eps=1e-6)
+    assert ops.LAUNCHES["rmsnorm"] == before + 1
+    _close(y, ref.rmsnorm_ref(x, gamma, 1e-6), **BF16_TOL)
+    before = ops.BACKWARD_LAUNCHES["rmsnorm_bwd"]
+    dx, dgamma = ops.rmsnorm_backward(x, gamma, dy, eps=1e-6)
+    assert ops.BACKWARD_LAUNCHES["rmsnorm_bwd"] == before + 1
+    want_dx, want_dg = ref.rmsnorm_bwd_ref(x, gamma, dy, 1e-6)
+    assert _rel(dx, want_dx) <= RMSNORM_DX_REL
+    assert _rel(dgamma, want_dg) <= DGAMMA_REL
+    dx2, dg2 = ops.rmsnorm_backward(x, gamma, dy, eps=1e-6)
+    assert torch.equal(dx2, dx) and torch.equal(dg2, dgamma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [7168, 8192, 4096, 1536, 512])
+def test_rmsnorm_wide_planted_faults_break_the_checks(cuda, width):
+    """The norm's checks catch a wrong answer: y of the neighbouring row,
+    dx without its mean term (about 1/sqrt(width) of dx, so it takes
+    ``RMSNORM_DX_REL``, not ``BWD_REL``), dgamma of half the rows."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    rows = 64
+    x = (torch.randn(rows, width, generator=gen, device=cuda) * 3).bfloat16()
+    gamma = torch.rand(width, generator=gen, device=cuda) + 0.5
+    dy = torch.randn(rows, width, generator=gen, device=cuda).bfloat16()
+    y = ops.rmsnorm(x, gamma, eps=1e-6)
+    with pytest.raises(AssertionError):
+        _close(y.roll(1, dims=0), ref.rmsnorm_ref(x, gamma, 1e-6),
+               **BF16_TOL)
+    dx, dgamma = ops.rmsnorm_backward(x, gamma, dy, eps=1e-6)
+    want_dx, want_dg = ref.rmsnorm_bwd_ref(x, gamma, dy, 1e-6)
+    assert _rel(dx, want_dx) <= RMSNORM_DX_REL
+    assert _rel(dx.roll(1, dims=0), want_dx) > RMSNORM_DX_REL
+    assert _rel(_dx_without_mean_term(x, gamma, dy, 1e-6),
+                want_dx) > RMSNORM_DX_REL
+    half = ref.rmsnorm_bwd_ref(x[:rows // 2], gamma, dy[:rows // 2], 1e-6)[1]
+    assert _rel(half, want_dg) > DGAMMA_REL
+    with pytest.raises(ValueError, match="8192"):
+        ops.rmsnorm_backward(torch.zeros(2, 8200, device=cuda).bfloat16(),
+                             torch.ones(8200, device=cuda),
+                             torch.zeros(2, 8200, device=cuda).bfloat16())
