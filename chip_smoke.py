@@ -382,13 +382,23 @@ Phases, in order, each failing the run on any error:
    captured, and its tokens equal to the uncaptured step's.
 21. serve-deepseek -- deepseek-v3-671b (MLA) at its published widths, depth
    cut to 4 of 61 layers: its 3 mla_dense layers and one mla_moe layer of
-   all 256 experts, top-8, and the shared expert (15.1 B parameters, no
-   MTP head): the matmul at each of its shapes and the rmsnorm at its
+   all 256 experts, top-8, and the shared expert, and its MTP head (15.8
+   B parameters): the matmul at each of its shapes and the rmsnorm at its
    7168-wide block norms (the 8-warp instance) and its 1536- and 512-wide
-   latent norms against their plain versions, timed; then served as
-   phase 2 (4 requests, the captured chunk's and tick's device ms, one
-   timed pair, captured tokens equal to uncaptured ones; the served MLA
-   scores against its latent with torch ops, so no attention kernel runs).
+   latent norms against their plain versions, timed, and the MTP draft
+   block's cache-free attention at q/k 192 with a V of 128 (variant 0's
+   ``flash_kernel<192>``) at a prefill chunk's, a decode tick's and a
+   127-row shape against its plain version, with a planted fault, timed
+   beside SDPA's cuDNN backend; then served as phase 2 (4 requests, the
+   captured chunk's and tick's device ms, one timed pair, captured tokens
+   equal to uncaptured ones; the served MLA scores against its latent
+   with torch ops, so no attention kernel runs); then the same requests
+   through the speculative server as serve-speculate
+   (``speculative_check``: the head drafting, every attention launch of
+   its uncaptured run on variant 0; at a capacity factor that drops no
+   route, so that a (slots, 2) tick and two (slots, 1) ticks differ only
+   by rounding; the accept-branch fault held against the same oracle
+   run).
 22. path-check-deepseek (named with serve-deepseek, whose weights it
    holds) -- the served weights' 3 mla_dense layers on the
    card against the fp32 CPU path within ``PATH_TOL``; then its mla_moe
@@ -400,14 +410,16 @@ Phases, in order, each failing the run on any error:
    break it.
 23. train-deepseek -- the new kernel modes at deepseek-v3's training
    shapes (b = 1, s = 2048, 128 heads): the attention at q/k 192 with a V
-   of 128 both ways (``fa_train_dv_kernel``; ``dkdv_dv_kernel`` and
-   ``dq_dv_kernel``), also at a ragged s of 1000, and the rmsnorm's
+   of 128 both ways (``fa_train_dv_kernel``; ``dkdv192_kernel`` and
+   ``dq192_kernel``, run twice for the same bits), also at a ragged s of
+   1000, and the rmsnorm's
    7168-wide rows both ways (``rmsnorm_bwd_wide_kernel``) and the latent
    widths, against their plain versions (the rmsnorm's dx within 1e-3
    relative L2, dx without its mean term planted above it), timed
    against the bound, the plain version and SDPA's cuDNN backend (the one that takes a V
    narrower than q/k) or ``F.rms_norm``; with ``--parent DIR`` the
-   4096-wide rows in turns with DIR's rmsnorm.  Then
+   4096-wide rows in turns with DIR's rmsnorm, and DIR's (192, 128)
+   backward (through DIR's own plan) in turns with this tree's.  Then
    ``build_train_step`` on deepseek-v3 cut to 2 of its 3 mla_dense layers
    with its MTP head (3.71 B parameters), AdamW zero1, remat, as phase 8:
    every launch counted, the loss falling, the peak memory printed.
@@ -433,7 +445,9 @@ matmul at the int8-matmul phase's twelve projections, the attention
 forward and backward at head dim 256 at the train-gemma step's, the
 matmul and the attention at the serve-dbrx path's, the matmul and the
 rmsnorm at the serve-deepseek path's, the attention at q/k 192 with a V
-of 128 and the rmsnorm each way at the train-deepseek step's; the
+of 128 on variant 0 at the speculative serve-deepseek run's, the
+attention at that pair and the rmsnorm each way at the train-deepseek
+step's; the
 llama3-8b serving rows and the training steps' other rows go
 to the log and, with every check, to
 ``kernel_checks.json`` in the output directory) and, last,
@@ -2579,27 +2593,11 @@ def speculate_phase(torch, dev="cuda", params=None) -> None:
     """llama3-8b at full size with a random MTP head (``mtp=True``: the
     trunk serve-llama's weights, ``params`` where given, the head's dense
     block at full width, drawn from ``SPEC_HEAD_SEED``) serving
-    serve-llama's 8 requests through the plain paged server and the
-    speculative one (``speculate``: ticks of (slots, 2), the MTP draft
-    verified by the trunk), on the same weights, each captured and
-    counted, the speculative one also uncaptured (the same tokens).  The
-    rule: the speculative tokens equal the plain ones up to each request's
-    first near-tie, a step whose top-2 logit gap in the plain path is below
-    twice the largest logit difference between a (slots, 2) tick and two
-    (slots, 1) ticks on the same inputs.  A planted fault (a server that
-    advances the length past a rejected draft) must break it.  A random
-    head's drafts are rejected, so the captured speculative server is run
-    once more with oracle drafts (the plain server's next tokens): it must
-    accept some, take fewer decode ticks than the plain server and keep
-    the rule; a planted fault in the accept branch (the length not
-    advanced past the kept draft) must break it."""
-    import numpy as np
-
+    serve-llama's 8 requests through ``speculative_check``."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.mesh import atp_topo
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    from repro_torch.runtime.server import Server
 
     cfg = dataclasses.replace(get_config("llama3-8b"), mtp=True)
     one = dataclasses.replace(cfg, num_layers=1)
@@ -2610,7 +2608,44 @@ def speculate_phase(torch, dev="cuda", params=None) -> None:
         get_config("llama3-8b"), dev)
     params = {**trunk, "mtp": head}
     del trunk, head
-    prompts = serve.sample_prompts(cfg, 8, PROMPT_LEN, 0)
+    speculative_check(torch, cfg, params,
+                      serve.sample_prompts(cfg, 8, PROMPT_LEN, 0),
+                      "serve-speculate", dev)
+    del params
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def speculative_check(torch, cfg, params, prompts, name: str, dev="cuda",
+                      exact_accept_fault: bool = False) -> dict:
+    """``prompts`` through the plain paged server and the speculative one
+    (``speculate``: ticks of (slots, 2), the MTP draft verified by the
+    trunk), on the same sharded weights ``params`` (``cfg`` with an MTP
+    head), each captured and counted, the speculative one also
+    uncaptured (the same tokens; its attention launches counted by
+    variant: the draft block's cache-free attention of an MLA model must
+    run on variant 0 only).  The rule: the speculative tokens equal the
+    plain ones up to each request's first near-tie, a step whose top-2
+    logit gap in the plain path is below twice the largest logit
+    difference between a (slots, 2) tick and two (slots, 1) ticks on the
+    same inputs.  A planted fault (a server that advances the length past
+    a rejected draft) must break it.  A random head's drafts are rejected,
+    so the captured speculative server is run once more with oracle drafts
+    (the plain server's next tokens): it must accept some, take fewer
+    decode ticks than the plain server and keep the rule; a planted fault
+    in the accept branch (the length not advanced past the kept draft)
+    must break it, or with ``exact_accept_fault`` change the tokens of the
+    same oracle run (the same drafts and step shapes, so the same bits
+    without the fault): where the plain path's top-2 gaps are mostly below
+    the tie, as on a random model of 129280 tokens, the rule reads few
+    steps.  Returns the captured speculative run's launch counts."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime.server import Server
+
     lens = [len(p) for p in prompts]
     geom = {**SERVE, "max_seq": SPEC_MAX_SEQ}
     plain_cfg = serve.paged_server_config(lens, **geom)
@@ -2623,25 +2658,37 @@ def speculate_phase(torch, dev="cuda", params=None) -> None:
         cfg, dataclasses.replace(plain_cfg, speculate=True), params,
         device=dev, sharded=True)
     assert spec.cfg.speculate and not plain.cfg.speculate
-    log(f"serve-speculate llama3-8b with a random MTP head: {len(prompts)} "
+    log(f"{name} {cfg.name} with a random MTP head: {len(prompts)} "
         f"requests of {lens} prompt tokens, {geom}")
     m_plain, want, w_plain = counted_serve(torch, plain,
                                            prompts, launches_per_step(cfg))
-    m_spec, got, w_spec = counted_serve(
-        torch, spec, prompts, launches_per_step(cfg, speculate=True))
+    per_step = launches_per_step(cfg, speculate=True)
+    m_spec, got, w_spec = counted_serve(torch, spec, prompts, per_step)
+    launches = dict(ops.LAUNCHES)
     st = spec.stats()
-    for name, m, w, s in (("plain", m_plain, w_plain, plain.stats()),
+    for what, m, w, s in (("plain", m_plain, w_plain, plain.stats()),
                           ("speculative", m_spec, w_spec, st)):
-        log(f"  {name}: {s['ticks']} ticks, {m.calls['prefill']} prefill "
+        log(f"  {what}: {s['ticks']} ticks, {m.calls['prefill']} prefill "
             f"chunks, {m.calls['decode']} decode ticks, wall "
             f"{1e3 * w:.1f} ms ({1e3 * sum(m.seconds.values()):.1f} in its "
             f"steps, captures included)")
     log(f"  spec_drafts {st['spec_drafts']}, spec_accepted "
-        f"{st['spec_accepted']} (accept rate {st['spec_accept_rate']:.4f})")
+        f"{st['spec_accepted']} (accept rate {st['spec_accept_rate']:.4f}); "
+        f"launches of the captured speculative run {launches}")
     step = spec.step_fn
-    _, unc = serve_once(torch, spec, step.uncaptured(), prompts, 500)
+    ops.reset_launches()
+    m_unc, unc = serve_once(torch, spec, step.uncaptured(), prompts, 500)
     spec.step_fn = step
-    assert unc == got, "serve-speculate: uncaptured tokens differ"
+    variants = list(ops.ATTENTION_VARIANT_LAUNCHES)
+    steps = sum(m_unc.calls.values())
+    log(f"  uncaptured: {steps} steps, attention launches by variant "
+        f"{variants} ({per_step['flash_attention']} a step)")
+    assert unc == got, f"{name}: uncaptured tokens differ"
+    assert sum(variants) == per_step["flash_attention"] * steps, variants
+    if cfg.mla is not None:
+        # the served MLA layers launch no attention: every launch is the
+        # draft block's cache-free attention, on variant 0
+        assert variants == [steps, 0], variants
     tie = 2 * tick_difference(torch, cfg, params, prompts, want, dev)
     gaps = greedy_gaps(torch, cfg, params, prompts, want, dev)
     plain_toks = np.array([want[r] for r in range(len(prompts))])
@@ -2660,7 +2707,7 @@ def speculate_phase(torch, dev="cuda", params=None) -> None:
         log(f"  planted fault (the length advanced past a rejected draft) "
             f"breaks the rule: {str(e)[:160]}")
     else:
-        raise AssertionError("serve-speculate: the planted fault passed")
+        raise AssertionError(f"{name}: the planted fault passed")
     oracle = oracle_drafts(Server._decode_tick_spec, want, 900)
     before = spec.stats()
     with swapped(Server, _decode_tick_spec=oracle):
@@ -2674,9 +2721,9 @@ def speculate_phase(torch, dev="cuda", params=None) -> None:
         f"{drafts} accepted, {m_oracle.calls['decode']} decode ticks against "
         f"the plain server's {m_plain.calls['decode']}; tokens equal to plain "
         f"up to near-ties ({len(tied)} requests reach one: {tied})")
-    assert accepted > 0, "serve-speculate: no oracle draft accepted"
+    assert accepted > 0, f"{name}: no oracle draft accepted"
     assert m_oracle.calls["decode"] < m_plain.calls["decode"], \
-        "serve-speculate: oracle drafts took no fewer decode ticks"
+        f"{name}: oracle drafts took no fewer decode ticks"
     with swapped(Server, _decode_tick_spec=stay_on_accept(oracle_drafts(
             Server._decode_tick_spec, want, 1100))):
         _, bad = serve_once(torch, spec, step, prompts, 1100)
@@ -2687,11 +2734,19 @@ def speculate_phase(torch, dev="cuda", params=None) -> None:
         log(f"  planted fault (the length not advanced past an accepted "
             f"draft) breaks the rule: {str(e)[:160]}")
     else:
-        raise AssertionError("serve-speculate: the accept-branch fault "
-                             "passed")
-    del plain, spec, step, params
+        if not exact_accept_fault:
+            raise AssertionError(f"{name}: the accept-branch fault passed")
+        changed = [r for r in range(len(prompts)) if bad[r] != fed[r]]
+        log(f"  planted fault (the length not advanced past an accepted "
+            f"draft) keeps the near-tie rule; against the same oracle run "
+            f"without it, bit for bit, it changes the tokens of requests "
+            f"{changed}")
+        assert changed, f"{name}: the accept-branch fault changed nothing"
+    del plain, spec, step
     gc.collect()
-    torch.cuda.empty_cache()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2826,6 +2881,22 @@ def _parent_build(parent, sources, what: str):
     return pb
 
 
+def parent_ops(parent):
+    """The older checkout's ``kernels/ops.py`` (from ``parent``), loaded
+    once as a module of its own: its plans and wrappers, around this
+    tree's ``kernels.ref``."""
+    import importlib.util
+
+    po = sys.modules.get("parent_ops")
+    if po is None:
+        spec = importlib.util.spec_from_file_location(
+            "parent_ops", Path(parent) / "src/repro_torch/kernels/ops.py")
+        po = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = po   # its dataclasses look their module up
+        spec.loader.exec_module(po)
+    return po
+
+
 def parent_matmul(torch, ops, pb, parent):
     """The matmul kernel of the older checkout in ``parent`` (built by its
     ``_build`` module ``pb``), launched with that tree's own plans (its
@@ -2836,13 +2907,7 @@ def parent_matmul(torch, ops, pb, parent):
     trees before the training variant) gets wgrad's ``a^T`` as a copy, made
     inside the timed call, as its wrapper made it; one with the
     pre-activation pointer ``z`` gets null there."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "parent_ops", Path(parent) / "src/repro_torch/kernels/ops.py")
-    po = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = po   # its dataclasses look their module up
-    spec.loader.exec_module(po)
+    po = parent_ops(parent)
     entry = pb.entry("matmul")
     argtypes = pb.SIGNATURES["matmul"][2]
     reads_a_trans = len(argtypes) > 15
@@ -2903,6 +2968,21 @@ def parent_backward(torch, ops, parent):
         return ops.rmsnorm_backward_with(rn, x, g, dy, eps)
 
     return (fa_bwd, rn_bwd, *parent_matmul(torch, ops, pb, parent))
+
+
+def parent_attention_dv_backward(parent):
+    """The attention backward at q/k 192 with a V of 128 of the older
+    checkout in ``parent``: its ``flash_attention_bwd.cu`` built by its own
+    ``_build``, launched through its own ``ops.attention_backward_with``
+    (its dK/dV plan: a tree before the 128-key tiles plans 64), with
+    ``ops.flash_attention_backward``'s arguments."""
+    pb = _parent_build(parent, ("flash_attention_bwd",), "train-deepseek")
+    po, entry = parent_ops(parent), pb.entry("flash_attention_bwd_dv")
+
+    def fa_bwd(q, k, v, o, do, lse, qo, kl):
+        return po.attention_backward_with(entry, q, k, v, o, do, lse, qo, kl,
+                                          causal=True, window=0, softcap=0.0)
+    return fa_bwd
 
 
 def parent_entries(parent, sources, names, what: str):
@@ -5697,6 +5777,14 @@ DEEPSEEK_PATH_LAYERS = 1
 #: the attention at q/k 192 with a V of 128 at deepseek-v3's training
 #: shapes (b = 1, 128 heads, MHA); a ragged length, unweighted
 DEEPSEEK_ATTENTION = ((2048, True), (1000, False))
+#: serve-deepseek's speculative run (its MTP head drafting), whose draft
+#: block's cache-free attention runs variant 0's (192, 128) instance
+DEEPSEEK_SPEC = "serve-deepseek speculative"
+#: that attention's shapes (b, rows, step kind or None) at 128 heads: a
+#: prefill chunk's draft block, a decode tick's (the slots' 2 rows each),
+#: and a ragged chunk of 127 rows, unweighted
+DRAFT_ATTENTION = ((1, SERVE["prefill_chunk"], "prefill"),
+                   (SERVE["slots"], 2, "decode"), (1, 127, None))
 
 
 def deepseek_gemms(cfg, layers: int):
@@ -5804,6 +5892,74 @@ def deepseek_kernel_checks(torch, F, ops, ref, cfg, timer, floor):
     return mm, rn
 
 
+def draft_attention_checks(torch, F, ops, ref, timer, floor):
+    """Variant 0's (192, 128) instance (``flash_kernel<192>``) at the
+    shapes of ``DRAFT_ATTENTION``, cache-free (skv = rows, causal),
+    against ``ref.attention_ref`` within ``FA_TOL`` (one launch, counted
+    under variant 0, one key split), with a planted fault (V's last 64
+    columns read as zeros) that must fail the same check; timed against
+    its bound, the plain version and SDPA's cuDNN backend (the one that
+    takes a V narrower than q/k), weighted by one launch a step of
+    ``DEEPSEEK_SPEC``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    h, d, dv = 128, 192, 128
+    rep = KernelReport("flash_attention", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:102", floor)
+    failed = []
+    log(f"serve-deepseek: the MTP draft block's attention at q/k {d}, V "
+        f"{dv}, {h} heads, cache-free (variant 0's instance), tolerance "
+        f"{FA_TOL}")
+    for b, rows, step in DRAFT_ATTENTION:
+        q, k = (torch.randn(b, rows, h, d, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        v = torch.randn(b, rows, h, dv, generator=gen, device="cuda"
+                        ).bfloat16()
+        qo = torch.zeros(b, dtype=torch.int32, device="cuda")
+        kl = torch.full((b,), rows, dtype=torch.int32, device="cuda")
+        plan = ops.attention_plan(b, rows, h, h, rows, d=d)
+        before = list(ops.ATTENTION_VARIANT_LAUNCHES)
+        out = ops.flash_attention(q, k, v, qo, kl)
+        launched = [x - y for x, y in zip(ops.ATTENTION_VARIANT_LAUNCHES,
+                                          before)]
+        want = ref.attention_ref(q, k, v, qo, kl)
+        ok, err = within(out, want, **FA_TOL)
+        v_cut = v.clone()
+        v_cut[..., 64:] = 0
+        caught = not within(out, ref.attention_ref(q, k, v_cut, qo, kl),
+                            **FA_TOL)[0]
+        ok = (ok and caught and launched == [1, 0] and plan.splits == 1
+              and out.shape == (b, rows, h, dv))
+        visible = rows * (rows + 1) // 2 * b * h
+        leaves = [t.transpose(1, 2) for t in (q, k, v)]
+        try:
+            with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+                lib = timer(lambda: F.scaled_dot_product_attention(
+                    *leaves, is_causal=True))
+        except RuntimeError as e:   # the yardstick only
+            log(f"  SDPA's cuDNN backend did not take b={b} rows={rows} "
+                f"({str(e)[:160]}); no library time")
+            lib = None
+        if not rep.add(f"b={b} rows={rows} h={h} q/k {d} v {dv} [variant "
+                       f"{plan.variant}, {plan.splits} split; the fault "
+                       f"{'caught' if caught else 'MISSED'}]", ok, err,
+                       FA_TOL, DEEPSEEK_SPEC if step else None, step,
+                       1 if step else 0,
+                       timer(lambda: ops.flash_attention(q, k, v, qo, kl)),
+                       timer(lambda: ref.attention_ref(q, k, v, qo, kl)),
+                       lib,
+                       nbytes=2 * (q.numel() + k.numel() + v.numel()
+                                   + out.numel()),
+                       flops=2 * (d + dv) * visible):
+            failed.append(f"flash_attention (192, 128) b={b} rows={rows}")
+    if failed:
+        raise AssertionError(f"the draft block's attention disagrees with "
+                             f"its plain version: {failed}")
+    return rep
+
+
 def plain_forward(ref) -> dict:
     """``kernels.ops``' forward wrappers of the served MLA path as their
     plain versions on any device (fp32 where the input is): the matmul
@@ -5885,8 +6041,10 @@ def deepseek_path_check(torch, cfg, params, dev="cuda") -> None:
     from repro_torch.configs.base import cut_depth
     from repro_torch.models import lm
 
-    cut = cut_depth(cfg, cfg.moe.first_dense_layers)
-    dense = cut_params(cfg, cut, params)
+    cut = dataclasses.replace(cut_depth(cfg, cfg.moe.first_dense_layers),
+                              mtp=False)
+    dense = {k: v for k, v in cut_params(cfg, cut, params).items()
+             if k != "mtp"}
     pcfg, calls = path_calls(cut, seed=9)
     card = run_path(torch, cut, dense, pcfg, calls, dev)[0]
     host = lm.tree_map(lambda t: t.cpu().float(), dense)
@@ -5907,24 +6065,29 @@ def deepseek_path_check(torch, cfg, params, dev="cuda") -> None:
 
 
 def serve_deepseek_phase(torch, F, ops, ref, floor,
-                         keep: dict | None = None) -> tuple[list, dict]:
+                         keep: dict | None = None) -> tuple[list, dict, dict]:
     """deepseek-v3-671b at its published widths, depth cut to
-    ``DEEPSEEK_LAYERS`` (no MTP head): its kernels at its shapes
-    (``deepseek_kernel_checks``), then ``serve_phase`` (4 requests,
-    captured and uncaptured, ``DEEPSEEK_PAIRS`` timed pairs: the captured
-    chunk's and tick's device ms).  ``keep`` receives the served weights
-    and config (for path-check-deepseek).  Returns the kernel reports and
-    the served run's launch counts."""
+    ``DEEPSEEK_LAYERS``, with its MTP head (its one published MTP module):
+    its kernels at its shapes (``deepseek_kernel_checks``, and the draft
+    block's attention, ``draft_attention_checks``), then ``serve_phase``
+    (4 requests, captured and uncaptured, ``DEEPSEEK_PAIRS`` timed pairs:
+    the captured chunk's and tick's device ms), then the same requests
+    through ``speculative_check`` (the head drafting, its cache-free MLA
+    block's attention on variant 0).  ``keep`` receives the served weights
+    and config (for path-check-deepseek).  Returns the kernel reports, the
+    plain served run's launch counts and the speculative one's."""
     from repro_torch.configs.base import cut_depth
     from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
 
-    cfg = dataclasses.replace(cut_depth(get_config(DEEPSEEK),
-                                        DEEPSEEK_LAYERS), mtp=False)
+    cfg = cut_depth(get_config(DEEPSEEK), DEEPSEEK_LAYERS)
+    assert cfg.mtp, "deepseek-v3 serves with its MTP head"
     timer = Timer(torch)
     if floor is None:
         floor = timer(lambda: torch.cuda._sleep(0))
     reports = list(deepseek_kernel_checks(torch, F, ops, ref, cfg, timer,
                                           floor))
+    reports.append(draft_attention_checks(torch, F, ops, ref, timer, floor))
     gc.collect()
     torch.cuda.empty_cache()
     kept = {}
@@ -5934,12 +6097,23 @@ def serve_deepseek_phase(torch, F, ops, ref, floor,
                                              for r in reports)
                                       for s in ("prefill", "decode")},
                            keep=kept)
+    # DeepSeek-V3 drops no token at inference.  At the config's capacity
+    # factor of 1 an expert's slots follow a step's token count, so a
+    # (slots, 2) tick drops other routes than two (slots, 1) ticks and the
+    # near-tie rule would read every step as tied: the speculative check
+    # serves a capacity that holds every route, on the same weights
+    no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    spec = speculative_check(torch, no_drop, kept["params"],
+                             serve.sample_prompts(cfg, 4, PROMPT_LEN, 9),
+                             "serve-deepseek speculative",
+                             exact_accept_fault=True)
     if keep is not None:
         keep.update(cfg=cfg, params=kept.pop("params"))
     del kept
     gc.collect()
     torch.cuda.empty_cache()
-    return reports, launches
+    return reports, launches, spec
 
 
 def deepseek_train_kernels(torch, F, ops, ref, timer, floor, parent=None):
@@ -5987,13 +6161,15 @@ def deepseek_train_kernels(torch, F, ops, ref, timer, floor, parent=None):
     # launches a train-deepseek step: each layer's attention twice (remat)
     # and the MTP head's once forward, once each backward
     fa_per = (2 * L + 1, L + 1)
+    prior_bwd = (parent_attention_dv_backward(parent) if parent is not None
+                 else None)
     for T, weighted in DEEPSEEK_ATTENTION:
         q, k = randn(1, T, hq, d), randn(1, T, hq, d)
         v, do = randn(1, T, hq, dv), randn(1, T, hq, dv)
         qo = torch.zeros(1, dtype=torch.int32, device="cuda")
         kl = torch.full((1,), T, dtype=torch.int32, device="cuda")
         fplan = ops.attention_plan(1, T, hq, hq, T, d=d)
-        bplan = ops.attention_bwd_plan(1, T, hq, hq, T, d=d)
+        bplan = ops.attention_bwd_plan(1, T, hq, hq, T, d=d, dv=dv)
         before = ops.ATTENTION_VARIANT_LAUNCHES[1]
         out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
         launched = ops.ATTENTION_VARIANT_LAUNCHES[1] - before
@@ -6007,18 +6183,21 @@ def deepseek_train_kernels(torch, F, ops, ref, timer, floor, parent=None):
         before = ops.BACKWARD_LAUNCHES["flash_attention_bwd"]
         got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
         b_launched = ops.BACKWARD_LAUNCHES["flash_attention_bwd"] - before
+        again = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
+        bitwise = all(torch.equal(a, g) for a, g in zip(again, got))
         want = ref.attention_bwd_ref(q, k, v, out_ref, do, lse_ref, qo, kl)
         errs = [rel_l2(g, w) for g, w in zip(got, want)]
         gerr = max(float((g.float() - w.float()).abs().max())
                    for g, w in zip(got, want))
         shapes_ok = [t.shape for t in got] == [q.shape, k.shape, v.shape]
-        del got, want, out_ref, lse_ref
+        del got, again, want, out_ref, lse_ref
         label = f"s={T} q/k {d} v {dv}, {hq} heads"
         log(f"train-deepseek: the attention at {label}: forward variant "
             f"{fplan.variant} ({fplan.row_tiles} row tiles of {fplan.rows}, "
             f"key tiles of {fplan.bkv}); backward {len(bplan.items)} dK/dV "
-            f"items of at most {bplan.max_len} row tiles on {bplan.blocks} "
-            f"blocks")
+            f"items of at most {bplan.max_len} row tiles of 64 and key tiles "
+            f"of {bplan.keys} on {bplan.blocks} blocks; two runs bitwise "
+            f"equal: {bitwise}")
         ft, bt = {}, {}
         if weighted:
             visible = int(ref.attention_mask(T, T, qo, kl).sum()) * hq
@@ -6063,6 +6242,16 @@ def deepseek_train_kernels(torch, F, ops, ref, timer, floor, parent=None):
             log(f"  {label} backward, by kernel, µs a launch: " + by_kernel(
                 torch, lambda: ops.flash_attention_backward(
                     q, k, v, out, do, lse, qo, kl)))
+            if prior_bwd is not None:
+                log(f"  {label} backward, the parent's in turns with this "
+                    f"tree's: " + interleaved(
+                        timer, lambda: prior_bwd(q, k, v, out, do, lse, qo,
+                                                 kl),
+                        lambda: ops.flash_attention_backward(
+                            q, k, v, out, do, lse, qo, kl)))
+                log(f"  {label} the parent's backward, by kernel, µs a "
+                    f"launch: " + by_kernel(torch, lambda: prior_bwd(
+                        q, k, v, out, do, lse, qo, kl)))
             log(f"  {label} forward, by kernel, µs a launch: " + by_kernel(
                 torch, lambda: ops.flash_attention_lse(q, k, v, qo, kl)))
         path = DEEPSEEK_TRAIN if weighted else None
@@ -6074,7 +6263,8 @@ def deepseek_train_kernels(torch, F, ops, ref, timer, floor, parent=None):
             failed.append(f"flash_attention (192, 128) {label}")
         if not fa_b.add(f"{label}: rel L2 dq {errs[0]:.2e} dk "
                         f"{errs[1]:.2e} dv {errs[2]:.2e}",
-                        max(errs) <= BWD_REL and shapes_ok and b_launched == 1,
+                        max(errs) <= BWD_REL and shapes_ok and b_launched == 1
+                        and bitwise,
                         gerr, BWD_REL, path, step,
                         fa_per[1] if weighted else 0, **bt):
             failed.append(f"flash_attention_bwd (192, 128) {label}")
@@ -6359,8 +6549,10 @@ def main(argv=None) -> int:
                          "grouped norm backward, train-gpt-kernels with its "
                          "act_bwd.cu; the train, train-zamba, train-gpt and "
                          "train-gemma phases run its training step and this "
-                         "tree's in turns, and serve-gemma its captured "
-                         "server and this tree's")
+                         "tree's in turns, serve-gemma its captured "
+                         "server and this tree's, and train-deepseek its "
+                         "attention backward at q/k 192, V 128 (through its "
+                         "own plan) in turns with this tree's")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -6586,9 +6778,10 @@ def main(argv=None) -> int:
         done("serve-musicgen")
     served = {}   # serve-deepseek's weights, which its path check reuses
     if "serve-deepseek" in phases:
-        ds_reports, launches[DEEPSEEK] = serve_deepseek_phase(
-            torch, F, ops, ref, floor_ms,
-            keep=served if "path-check-deepseek" in phases else None)
+        ds_reports, launches[DEEPSEEK], launches[DEEPSEEK_SPEC] = \
+            serve_deepseek_phase(
+                torch, F, ops, ref, floor_ms,
+                keep=served if "path-check-deepseek" in phases else None)
         reports += ds_reports
         done("serve-deepseek")
     if "path-check-deepseek" in phases:
@@ -6621,7 +6814,7 @@ def main(argv=None) -> int:
     rows = {path: path_rows(path, reports)
             for path in ("llama3-8b", MAIN, GEMMA, TRAIN, TRAIN_ZAMBA,
                          TRAIN_GPT, SPLIT, INT8, GEMMA_TRAIN, DBRX,
-                         DEEPSEEK, DEEPSEEK_TRAIN)}
+                         DEEPSEEK, DEEPSEEK_SPEC, DEEPSEEK_TRAIN)}
     for row in rows[GEMMA]:    # the attention at head dim 256
         row["name"] += " (head dim 256)"
     for row in rows[GEMMA_TRAIN]:
@@ -6630,6 +6823,8 @@ def main(argv=None) -> int:
         row["name"] += " (dbrx-132b)"
     for row in rows[DEEPSEEK]:
         row["name"] += " (deepseek-v3-671b)"
+    for row in rows[DEEPSEEK_SPEC]:
+        row["name"] += " (deepseek-v3-671b, q/k 192 v 128: the MTP draft)"
     for row in rows[DEEPSEEK_TRAIN]:
         row["name"] += " (deepseek-v3, q/k 192 v 128 and rows of 7168, " \
                        "training)"
@@ -6663,6 +6858,8 @@ def main(argv=None) -> int:
                        ("train-gemma step", GEMMA_TRAIN),
                        ("dbrx-132b step pair", DBRX),
                        ("deepseek-v3-671b step pair", DEEPSEEK),
+                       ("deepseek-v3-671b speculative step pair",
+                        DEEPSEEK_SPEC),
                        ("train-deepseek step", DEEPSEEK_TRAIN)):
         for row in rows[path]:
             log(f"{what}: {row['name']} launches={row['launches']} "
@@ -6672,7 +6869,7 @@ def main(argv=None) -> int:
     kernels = (rows[MAIN] + rows[GEMMA] + rows[TRAIN] + rows[TRAIN_ZAMBA]
                + rows[TRAIN_GPT] + rows[SPLIT] + rows[INT8]
                + rows[GEMMA_TRAIN] + rows[DBRX] + rows[DEEPSEEK]
-               + rows[DEEPSEEK_TRAIN])
+               + rows[DEEPSEEK_SPEC] + rows[DEEPSEEK_TRAIN])
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

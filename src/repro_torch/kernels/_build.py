@@ -40,6 +40,8 @@ SIGNATURES = {
                     [_P] * 4 + [_I] * 3 + [_F] + [_I] * 3 + [_P]),
     "flash_attention": ("flash_attention", "repro_flash_attention_bf16",
                         [_P] * 10 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
+    "flash_attention_dv": ("flash_attention", "repro_flash_attention_dv_bf16",
+                           [_P] * 7 + [_I] * 10 + [_P]),
     "flash_attention_train": ("flash_attention_train",
                               "repro_flash_attention_train_bf16",
                               [_P] * 8 + [_I] * 8 + [_F] + [_I] + [_P]),

@@ -47,6 +47,15 @@
 // row's log-sum-exp of its scaled (and softcapped) scores, which the
 // backward (flash_attention_bwd.cu) reads to recompute the probabilities;
 // at serving the pointer is null and nothing more is written.
+// q/k 192 with a V of 128 (deepseek-v3's MLA) is flash_kernel<192>, behind
+// a C entry of its own (repro_flash_attention_dv_bf16): S = Q K^T over 12
+// k steps of 16, O += P V and O's fp32 accumulator over V's 128 columns
+// (16 n8 blocks, 64 registers a thread), the scale 1/sqrt(192), of q's
+// dim; rows of Q and K padded to 200 bf16 and of V to 136, so Q and two
+// K/V buffers take 109 KB.  Its callers are the cache-free MLA forward
+// below 128 q rows (the MTP head's draft block, a prefill chunk), whose
+// keys are its own rows: at most two key tiles, never split, and no
+// softcap.  Every other instance's V and O take q's head dim (v_dim).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,6 +69,10 @@ constexpr int kThreads = 128;  // 4 warps of 16 rows
 constexpr int kBR = 64;        // rows (q row x q head) per tile
 constexpr int kBKV = 64;       // keys per K/V tile
 constexpr int kMaxSplits = 32;
+
+// the head dim of V and O at q/k head dim d: 128 at q/k 192 (ops.V_HEAD_DIMS),
+// else d
+__host__ __device__ constexpr int v_dim(int d) { return d == 192 ? 128 : d; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
@@ -127,23 +140,26 @@ struct Args {
 template <int D>
 struct Smem {
   static constexpr int kLd = D + 8;  // padded rows: conflict-free ldmatrix
+  static constexpr int kVLd = v_dim(D) + 8;  // V's rows
   static constexpr int kQ = kBR * kLd;
-  static constexpr int kKV = kBKV * kLd;
-  static constexpr int kBytes = (kQ + 4 * kKV) * 2;  // Q, 2 x (K, V)
+  static constexpr int kKV = kBKV * kLd;  // a K buffer
+  static constexpr int kV = kBKV * kVLd;  // a V buffer
+  static constexpr int kBytes = (kQ + 2 * kKV + 2 * kV) * 2;  // Q, 2 x (K, V)
 };
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const Args args) {
   using S = Smem<D>;
-  constexpr int kLd = S::kLd;
-  constexpr int kDN = D / 8;  // n8 blocks of the output
+  constexpr int kLd = S::kLd, kVLd = S::kVLd;
+  constexpr int kDV = v_dim(D);  // V's and O's head dim
+  constexpr int kDN = kDV / 8;   // n8 blocks of the output
   static_assert(D % 16 == 0 && kDN % 2 == 0, "head dim in 16-wide k steps");
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + S::kQ;          // 2 buffers of kKV
-  bf16* Vs = Ks + 2 * S::kKV;     // 2 buffers of kKV
+  bf16* Vs = Ks + 2 * S::kKV;     // 2 buffers of kV
   __shared__ int s_last;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -170,12 +186,22 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = hi > lo ? (hi - lo + kBKV - 1) / kBKV : 0;
 
   const size_t q_row = (size_t)hq * D, kv_row = (size_t)hkv * D;
+  const size_t v_row = kDV == D ? kv_row : (size_t)hkv * kDV;
   const bf16* Kb = args.K + (size_t)b * skv * kv_row + (size_t)kvh * D;
-  const bf16* Vb = args.V + (size_t)b * skv * kv_row + (size_t)kvh * D;
+  const bf16* Vb = args.V + (size_t)b * skv * v_row + (size_t)kvh * kDV;
   // tile row r -> q row (r0 + r) / grp, q head kvh * grp + (r0 + r) % grp
   auto q_ptr = [&](int row) {
     return (size_t)(b * sq + row / grp) * q_row +
            (size_t)(kvh * grp + row % grp) * D;
+  };
+  // the same row of O (V's head dim)
+  auto o_ptr = [&](int row) {
+    if constexpr (kDV == D) {
+      return q_ptr(row);
+    } else {
+      return (size_t)(b * sq + row / grp) * hq * kDV +
+             (size_t)(kvh * grp + row % grp) * kDV;
+    }
   };
   // the same row's place in the [b, hq, sq] log-sum-exp
   auto lse_idx = [&](int row) {
@@ -184,14 +210,23 @@ __global__ void __launch_bounds__(kThreads)
 
   auto load_kv = [&](int buf, int k0) {
     bf16* kd = Ks + buf * S::kKV;
-    bf16* vd = Vs + buf * S::kKV;
+    bf16* vd = Vs + buf * S::kV;
     for (int idx = tid; idx < kBKV * D / 8; idx += kThreads) {
       int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
       int key = k0 + r;
       bool p = key < hi;  // beyond: zero-filled, and masked below
       size_t off = p ? (size_t)key * kv_row + c : 0;
       cp_async16(kd + r * kLd + c, Kb + off, p);
-      cp_async16(vd + r * kLd + c, Vb + off, p);
+      if constexpr (kDV == D) cp_async16(vd + r * kLd + c, Vb + off, p);
+    }
+    if constexpr (kDV != D) {
+      for (int idx = tid; idx < kBKV * kDV / 8; idx += kThreads) {
+        int r = idx / (kDV / 8), c = (idx % (kDV / 8)) * 8;
+        int key = k0 + r;
+        bool p = key < hi;
+        cp_async16(vd + r * kVLd + c, Vb + (p ? (size_t)key * v_row + c : 0),
+                   p);
+      }
     }
   };
 
@@ -224,7 +259,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int k0 = lo + it * kBKV;
     const bf16* kt = Ks + (it & 1) * S::kKV;
-    const bf16* vt = Vs + (it & 1) * S::kKV;
+    const bf16* vt = Vs + (it & 1) * S::kV;
     if (active) {
       // S = Q K^T for this warp's 16 rows and the tile's 64 keys
       float s[kBKV / 8][4];
@@ -308,7 +343,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int n = 0; n < kDN; n += 2) {
           unsigned vb[4];
-          ldsm_x4_trans(vb, vt + (kk * 16 + lane % 16) * kLd + n * 8 +
+          ldsm_x4_trans(vb, vt + (kk * 16 + lane % 16) * kVLd + n * 8 +
                                 (lane / 16) * 8);
           mma16816(o[n], pa, vb);
           mma16816(o[n + 1], pa, vb + 2);
@@ -329,7 +364,7 @@ __global__ void __launch_bounds__(kThreads)
       if (args.lse != nullptr && t == 0)
         args.lse[lse_idx(row)] =
             l_run[h] > 0.0f ? m_run[h] + logf(l_run[h]) : -INFINITY;
-      bf16* out = args.O + q_ptr(row);
+      bf16* out = args.O + o_ptr(row);
 #pragma unroll
       for (int n = 0; n < kDN; ++n)
         *reinterpret_cast<__nv_bfloat162*>(out + n * 8 + 2 * t) =
@@ -347,7 +382,7 @@ __global__ void __launch_bounds__(kThreads)
       if (r0 + r >= rows) continue;
       const float l = l_run[h];
       const float inv = l > 0.0f ? 1.0f / l : 0.0f;
-      float* po = args.ws_o + (part * kBR + r) * D;
+      float* po = args.ws_o + (part * kBR + r) * kDV;
 #pragma unroll
       for (int n = 0; n < kDN; ++n)
         *reinterpret_cast<float2*>(po + n * 8 + 2 * t) =
@@ -397,10 +432,10 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   // each thread owns kPer float4 of the tile; per split, all its loads are
   // in flight together (a split with no key for any row is skipped)
-  constexpr int kVec = kBR * D / 4;
+  constexpr int kVec = kBR * kDV / 4;
   constexpr int kPer = (kVec + kThreads - 1) / kThreads;
   constexpr int kChunk = kPer < 16 ? kPer : 16;  // float4 sums held at once
-  const float* po = args.ws_o + (size_t)tile * splits * kBR * D;
+  const float* po = args.ws_o + (size_t)tile * splits * kBR * kDV;
 #pragma unroll
   for (int i0 = 0; i0 < kPer; i0 += kChunk) {
     float4 acc[kChunk];
@@ -412,12 +447,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kChunk; ++i) {
         const int e = tid + (i0 + i) * kThreads;
-        const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+        const int r = e / (kDV / 4), c = (e % (kDV / 4)) * 4;
         if (e >= kVec || r0 + r >= rows) continue;
         const float wz = w[z * kBR + r];
         if (wz == 0.0f) continue;  // this row saw no key in split z
         const float4 v = __ldcg(reinterpret_cast<const float4*>(
-            po + ((size_t)z * kBR + r) * D + c));
+            po + ((size_t)z * kBR + r) * kDV + c));
         acc[i].x += wz * v.x;
         acc[i].y += wz * v.y;
         acc[i].z += wz * v.z;
@@ -427,11 +462,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < kChunk; ++i) {
       const int e = tid + (i0 + i) * kThreads;
-      const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+      const int r = e / (kDV / 4), c = (e % (kDV / 4)) * 4;
       if (e >= kVec || r0 + r >= rows) continue;
       const float inv = inv_den[r];
       __nv_bfloat162* out =
-          reinterpret_cast<__nv_bfloat162*>(args.O + q_ptr(r0 + r) + c);
+          reinterpret_cast<__nv_bfloat162*>(args.O + o_ptr(r0 + r) + c);
       out[0] = __floats2bfloat162_rn(acc[i].x * inv, acc[i].y * inv);
       out[1] = __floats2bfloat162_rn(acc[i].z * inv, acc[i].w * inv);
     }
@@ -907,4 +942,29 @@ extern "C" int repro_flash_attention_bf16(
   if (d == 112) return launch<112>(args, b, st);
   if (d == 64) return launch<64>(args, b, st);
   return cudaErrorInvalidValue;
+}
+
+// q/k [b, sq, hq, 192] and [b, skv, hkv, 192], v [b, skv, hkv, 128], o [b,
+// sq, hq, 128] (d = 192, dv = 128: deepseek-v3's MLA), contiguous bf16
+// with 16-byte-aligned bases; q_offset, kv_len and lse as
+// repro_flash_attention_bf16's; no softcap and no key split (ops._flash
+// refuses both): row_tiles from ops.attention_plan, one split over every
+// key.  flash_kernel<192>, the scale 1/sqrt(192).  Returns the cudaError_t
+// of the launch (0 on success).
+extern "C" int repro_flash_attention_dv_bf16(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_offset, const void* kv_len, int b, int sq, int skv, int hq,
+    int hkv, int d, int dv, int causal, int window, int row_tiles,
+    void* stream) {
+  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      d != 192 || dv != v_dim(d) || row_tiles * kBR < sq * (hq / hkv))
+    return cudaErrorInvalidValue;
+  Args args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<bf16*>(o),
+            static_cast<float*>(lse), static_cast<const int*>(q_offset),
+            static_cast<const int*>(kv_len), nullptr, nullptr, nullptr, sq,
+            skv, hq, hkv, causal, window, 0.0f,
+            1.0f / sqrtf(static_cast<float>(d)), row_tiles, 1,
+            (skv + kBKV - 1) / kBKV};
+  return launch<192>(args, b, static_cast<cudaStream_t>(stream));
 }

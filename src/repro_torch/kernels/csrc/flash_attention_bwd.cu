@@ -75,6 +75,9 @@
 // each step's synchronisation and the per-item set-up, not the tensor
 // cores, bound them; a stage refilled as soon as both warpgroups leave it
 // (an mbarrier in place of the barrier) measured slower.
+// q/k 192 with a V of 128 (deepseek-v3's MLA) has blocks of its own, two
+// warpgroups that take turns at their products, over key tiles of 128
+// (dkdv192_kernel, dq192_kernel; see their section below).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -1376,216 +1379,253 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
       q_ld, a.sq - p0, 128);
 }
 
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (so
-// the library needs no link to libcuda)
 // ---- q/k head dim 192 with a V of 128 (deepseek-v3's MLA; MHA, so no
-// group sums).  dK at 64 x 192 and dV at 64 x 128 fp32 are 160 registers a
-// thread of one warpgroup, and with S^T and dP^T (64) and the bf16 P^T and
-// dS^T operands (32) beside them the warpgroup spills.  So a dK/dV block
-// (dkdv_dv_kernel) is one warpgroup that walks an item's row tiles twice:
-// first for dV (S^T = K Q^T over 192, P^T, dV += P^T dO), then for dK (S^T
-// again, dP^T = V dO^T over 128, dS^T, dK += dS^T Q): S^T twice, 1.3x the
-// five products' work, each pass's accumulator alone in registers.  The
-// d = 256 design (two warpgroups sharing S^T and dP^T through shared
-// memory) would split 192 columns of dK into halves of 96, which start in
-// the middle of a 128-byte swizzle span of Q; here every B operand starts
-// at a span.  dq_dv_kernel is dq_kernel with S over 192, dP over 128 and
-// dQ += dS K at N = 192.  K, V and two stages of Q and dO take 120 KB: one
-// block an SM.  ld_kernel reads the 128 columns of O and dO.
+// group sums).  What bounds it on the H100: operations (at b = 1, s =
+// 2048, 128 heads, 269 M visible (q, key) pairs, 1664 flops each over the
+// five products: 0.45 ms at the bf16 peak).  The blocks are two
+// warpgroups, one block an SM, and one thread issues every TMA load into
+// a ring of three stages with full and empty mbarriers.  (A producer
+// warpgroup of its own, at 384 threads, leaves ptxas 168 registers a
+// thread and 240 after setmaxnreg: too few for these accumulators, which
+// spilled, and ptxas serialized every product, C7512.)
+//   - dkdv192_kernel: a key tile is 128 keys (ops.bwd_keys), 64 to each
+//     warpgroup, whose K (48 KB) and V (32 KB) stay in shared memory for
+//     the item; both warpgroups read every stage of Q, dO, L and D
+//     (40 KB), so a key costs half the Q/dO reads of a 64-key block.  One
+//     pass a row tile: S^T = K Q^T over 192 and dP^T = V dO^T over 128
+//     (wgmma from shared memory), P^T to the warpgroup's own 64 x 64 bf16
+//     tile in shared memory (128-byte swizzled, as TMA writes one), dS^T
+//     = P o (dP - D) as bf16 register operands, then dV += P^T dO (P^T
+//     from shared memory) and dK += dS^T Q: dK (96) and dV (64) fp32
+//     registers a thread beside S^T and dP^T (64) fit ptxas's 255 where
+//     P^T in registers too did not (a walk of the row tiles twice, dV then
+//     dK with S^T again, measured 1.3 ms against this 0.87, PERF.md).
+//     The warpgroups run the same instructions on their own keys (no
+//     branch around a wgmma: ptxas would serialize every one, C7520) and
+//     take turns at issuing their products (two named barriers), so one's
+//     exponentials run under the other's products.  At step j thread 0
+//     loads step j + 1 into the stage that step j - 2 used, which both
+//     warpgroups have left: the turns keep them within a step of each
+//     other.  Items and partial sums as in dkdv_kernel; each warpgroup
+//     sums its own keys' partials.
+//   - dq192_kernel: a block is 128 q positions of one q head, 64 to each
+//     warpgroup, whose Q and dO stay resident; 64-key tiles of K and V
+//     stream through the ring, both warpgroups reading each (the keys
+//     either sees, so the lower half computes the diagonal's last tile
+//     masked): S over 192, dP over 128, dQ += dS K at N = 192, in key
+//     order, no atomics.
+// ld_kernel reads the 128 columns of O and dO.
 constexpr int kQkAtoms = 3;  // 192 columns
 constexpr int kVAtoms = 2;   // 128 columns
 constexpr int kDqk = 64 * kQkAtoms, kDv = 64 * kVAtoms;
-struct SmemDv {
-  // dkdv: K, V, two stages of Q and dO, the stages' L and D; dq: Q, dO, two
-  // stages of K and V
+constexpr int kStages192 = 3;
+// empty-barrier arrivals: lane 0 of each warp
+constexpr int kReleases = 8;
+struct Smem192 {
+  // a stage: Q (or K), then dO (or V), 64 rows each
   static constexpr int kRow = (kQkAtoms + kVAtoms) * kAtom;
-  static constexpr int kDkdv = 3 * kRow + 2 * kLdBytes + 1024;
-  static constexpr int kDq = 3 * kRow + 1024;
+  // dkdv: each warpgroup's K and V, the stages, each warpgroup's P^T
+  // tile, the stages' L and D
+  static constexpr int kDkdv =
+      (2 + kStages192) * kRow + 2 * kAtom + kStages192 * kLdBytes + 1024;
+  // dq: each warpgroup's Q and dO, the K/V stages
+  static constexpr int kDq = (2 + kStages192) * kRow + 1024;
 };
+static_assert(Smem192::kDkdv <= 232448, "over a block's shared memory");
 
-__global__ void __launch_bounds__(kThreads, 1)
-    dkdv_dv_kernel(const __grid_constant__ Args a) {
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// named barriers 1 and 2 (0 is __syncthreads'): the two warpgroups take
+// turns at issuing their products
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+// named barriers 3 and 4: warpgroup wg's own four warps
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
+}
+
+// An item of the plan (ops.attention_bwd_plan, key tiles of 128) and the
+// row tiles [lo, lo + n) it walks for this batch row's offsets and lengths
+struct Work192 {
+  int bh, kt, part, parts, slot0, b, kvh, lo, n;
+  Mask m;
+};
+__device__ __forceinline__ Work192 work192(const Args& a, int it) {
+  const int4 rec = *reinterpret_cast<const int4*>(a.items + 8 * it);
+  const int4 rec2 = *reinterpret_cast<const int4*>(a.items + 8 * it + 4);
+  Work192 w;
+  w.bh = rec.x;
+  w.kt = rec.y;
+  w.part = rec2.x;
+  w.parts = rec2.y;
+  w.slot0 = rec2.z;
+  w.b = w.bh / a.hkv;
+  w.kvh = w.bh % a.hkv;
+  w.m = Mask{a.q_offset[w.b], max(0, min(a.kv_len[w.b], a.skv)), a.causal,
+             a.window};
+  // the row tiles that see a key of the 128 (visible_tiles at 128 keys)
+  const int grp = a.hq / a.hkv, R = a.rows / 64 * grp;
+  const int k0 = 128 * w.kt, k1 = min(k0 + 127, w.m.klen - 1);
+  int p_lo = 0, p_hi = a.sq - 1, v0 = 0, v1 = 0;
+  if (w.m.causal) p_lo = max(p_lo, k0 - w.m.qoff);
+  if (w.m.window > 0) p_hi = min(p_hi, k1 + w.m.window - 1 - w.m.qoff);
+  if (k0 <= k1 && p_lo <= p_hi) {
+    v0 = p_lo / 64 * grp;
+    v1 = (p_hi / 64 + 1) * grp;
+  }
+  w.lo = max(v0, w.part == 0 ? 0 : rec.z);
+  w.n = max(0, min(v1, w.part == w.parts - 1 ? R : rec.w) - w.lo);
+  return w;
+}
+
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    dkdv192_kernel(const __grid_constant__ Args a) {
   constexpr int NT = kThreads;
   constexpr int NK = kDqk / 2, NV = kDv / 2;  // a thread's dK, dV
-  constexpr int kSlot = 64 * (kDqk + kDv);    // a partial's floats
+  constexpr int kSlotWg = 64 * (kDqk + kDv);  // a warpgroup's partial floats
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t kv_bar, full[2];
+  __shared__ __align__(8) uint64_t kv_bar, full[kStages192],
+      empty[kStages192];
   __shared__ int s_item, s_last;
-  unsigned char* Ks = align1024(smem_raw);
-  unsigned char* Vs = Ks + kQkAtoms * kAtom;
-  unsigned char* stage0 = Vs + kVAtoms * kAtom;  // stage s: Q, then dO
-  float* lds = reinterpret_cast<float*>(stage0 + 2 * SmemDv::kRow);
+  unsigned char* Ks = align1024(smem_raw);            // warpgroup c: 3 atoms
+  unsigned char* Vs = Ks + 2 * kQkAtoms * kAtom;      // warpgroup c: 2 atoms
+  unsigned char* stage0 = Ks + 2 * Smem192::kRow;     // stage s: Q, then dO
+  unsigned char* Ps = stage0 + kStages192 * Smem192::kRow;  // P^T, by wg
+  float* lds = reinterpret_cast<float*>(Ps + 2 * kAtom);
 
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int warp = tid / 32;
+  const int wg = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
+  const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int grp = a.hq / a.hkv, KT = (a.skv + 63) / 64;
-  const int R = a.rows / 64 * grp;
+  const int grp = a.hq / a.hkv, KT = (a.skv + 127) / 128;
   const size_t ld_d = (size_t)a.b * a.hq * a.rows;
-  if (tid == 0) {
+  const unsigned char* Kw = Ks + wg * kQkAtoms * kAtom;
+  const unsigned char* Vw = Vs + wg * kVAtoms * kAtom;
+  if (threadIdx.x == 0) {
     mbar_init(&kv_bar, 1);
-    mbar_init(&full[0], 1);
-    mbar_init(&full[1], 1);
+    for (int s = 0; s < kStages192; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kReleases);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   int kv_uses = 0, loads = 0, uses = 0;
+  if (wg == 1) turn_pass(1);  // the first warpgroup goes first
 
   for (;;) {
+    // every product of the last item is done: K, V and the stages are free
     __syncthreads();
-    if (tid == 0) s_item = atomicAdd(a.counters, 1);
+    if (threadIdx.x == 0) s_item = atomicAdd(a.counters, 1);
     __syncthreads();
     const int it = s_item;
     if (it >= a.n_items) break;
-    const int4 rec = *reinterpret_cast<const int4*>(a.items + 8 * it);
-    const int4 rec2 = *reinterpret_cast<const int4*>(a.items + 8 * it + 4);
-    const int bh = rec.x, kt = rec.y, part = rec2.x, parts = rec2.y;
-    const int slot0 = rec2.z;
-    const int b = bh / a.hkv, kvh = bh % a.hkv;
-    const Mask m{a.q_offset[b], max(0, min(a.kv_len[b], a.skv)), a.causal,
-                 a.window};
-    int v0, v1;
-    visible_tiles(m, kt, a.sq, grp, v0, v1);
-    const int lo = max(v0, part == 0 ? 0 : rec.z);
-    const int n = min(v1, part == parts - 1 ? R : rec.w) - lo;
+    const Work192 w = work192(a, it);
+    const int n = w.n, key0 = 128 * w.kt + 64 * wg;
 
-    // stage s <- row tile t's Q, dO, L and D
-    auto issue_rows = [&](int t, int s) {
-      const int pt = t / grp, h = kvh * grp + t % grp;
-      unsigned char* q = stage0 + s * SmemDv::kRow;
-      mbar_expect_tx(&full[s], SmemDv::kRow + kLdBytes);
+    // row tile j of the item into stage `loads`, once the warpgroups
+    // released its last use
+    auto issue_rows = [&](int j) {
+      const int s = loads % kStages192, t = w.lo + j;
+      const int pt = t / grp, h = w.kvh * grp + t % grp;
+      unsigned char* q = stage0 + s * Smem192::kRow;
+      mbar_wait(&empty[s], ((loads / kStages192) & 1) ^ 1);
+      mbar_expect_tx(&full[s], Smem192::kRow + kLdBytes);
       for (int c = 0; c < kQkAtoms; ++c)
-        tma_load_4d(q + c * kAtom, &a.tq, 64 * c, h, 64 * pt, b, &full[s]);
+        tma_load_4d(q + c * kAtom, &a.tq, 64 * c, h, 64 * pt, w.b, &full[s]);
       for (int c = 0; c < kVAtoms; ++c)
-        tma_load_4d(q + (kQkAtoms + c) * kAtom, &a.tdo, 64 * c, h, 64 * pt, b,
-                    &full[s]);
-      const float* src = a.ld + ((size_t)(b * a.hq + h) * a.rows + 64 * pt);
+        tma_load_4d(q + (kQkAtoms + c) * kAtom, &a.tdo, 64 * c, h, 64 * pt,
+                    w.b, &full[s]);
+      const float* src = a.ld + ((size_t)(w.b * a.hq + h) * a.rows + 64 * pt);
       bulk_load(lds + s * 128, src, 256, &full[s]);
       bulk_load(lds + s * 128 + 64, src + ld_d, 256, &full[s]);
+      ++loads;
     };
     if (n > 0) {
-      if (tid == 0) {
-        mbar_expect_tx(&kv_bar, (kQkAtoms + kVAtoms) * kAtom);
-        for (int c = 0; c < kQkAtoms; ++c)
-          tma_load_4d(Ks + c * kAtom, &a.tk, 64 * c, kvh, 64 * kt, b,
-                      &kv_bar);
-        for (int c = 0; c < kVAtoms; ++c)
-          tma_load_4d(Vs + c * kAtom, &a.tv, 64 * c, kvh, 64 * kt, b,
-                      &kv_bar);
-        issue_rows(lo, loads % 2);
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(&kv_bar, 2 * (kQkAtoms + kVAtoms) * kAtom);
+        for (int c = 0; c < 2; ++c) {
+          for (int j = 0; j < kQkAtoms; ++j)
+            tma_load_4d(Ks + (c * kQkAtoms + j) * kAtom, &a.tk, 64 * j, w.kvh,
+                        128 * w.kt + 64 * c, w.b, &kv_bar);
+          for (int j = 0; j < kVAtoms; ++j)
+            tma_load_4d(Vs + (c * kVAtoms + j) * kAtom, &a.tv, 64 * j, w.kvh,
+                        128 * w.kt + 64 * c, w.b, &kv_bar);
+        }
+        issue_rows(0);
       }
-      ++loads;
-      __syncwarp();
       mbar_wait(&kv_bar, kv_uses++ & 1);
     }
-    // P^T of a step into pa (bf16 pairs) and, where `keep`, P into st
-    auto probs_t = [&](float* st, unsigned* pa, const float* Lt, int p0) {
-      const bool whole = m.whole(64 * kt, p0);
+    // at step j: load j + 1, whose stage step j - 2 used (both warpgroups
+    // are past it: they take turns)
+    auto next_rows = [&](int j) {
+      if (threadIdx.x == 0 && j + 1 < n) issue_rows(j + 1);
+    };
+
+    // one pass: S^T = K Q^T and dP^T = V dO^T, P^T (bf16, to this
+    // warpgroup's tile), dS^T = P o (dP - D), then dV += P^T dO (P^T from
+    // shared memory) and dK += dS^T Q (dS^T from registers)
+    float dv[NV], dk[NK];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) dv[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NK; ++i) dk[i] = 0.0f;
+    unsigned char* Pw = Ps + wg * kAtom;
+    for (int i = 0; i < n; ++i, ++uses) {
+      const int s = uses % kStages192;
+      next_rows(i);
+      mbar_wait(&full[s], (uses / kStages192) & 1);
+      const unsigned char* Qt = stage0 + s * Smem192::kRow;
+      const unsigned char* dOt = Qt + kQkAtoms * kAtom;
+      const float* Lt = lds + s * 128;
+      const int p0 = (w.lo + i) / grp * 64;
+      float st[32], dpt[32];
+      fence_regs<32>(st);
+      fence_regs<32>(dpt);
+      turn_wait(1 + wg);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * kQkAtoms; ++kk)
+        wgmma_ss_n64(st, desc_k(Kw, kk), desc_k(Qt, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4 * kVAtoms; ++kk)
+        wgmma_ss_n64(dpt, desc_k(Vw, kk), desc_k(dOt, kk), kk);
+      wgmma_commit();
+      turn_pass(2 - wg);
+      wgmma_wait<1>();  // S^T
+      fence_regs<32>(st);
+      // P^T (register 4j + 2h + e: key row 16 warp + g + 8h, position
+      // column 8j + 2 t4 + e) into the tile; st keeps P
+      const bool whole = w.m.whole(key0, p0);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = 8 * j + 2 * t4;
         const float2 L2 = *reinterpret_cast<const float2*>(Lt + c);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int i0 = 4 * j + 2 * h;
+          const int i0 = 4 * j + 2 * h, r = 16 * warp + g + 8 * h;
           float p[2];
           st[i0] = prob<false>(st[i0], L2.x, &p[0], a);
           st[i0 + 1] = prob<false>(st[i0 + 1], L2.y, &p[1], a);
           if (!whole) {
-            const int key = 64 * kt + warp * 16 + g + 8 * h;
-            if (!m.visible(key, p0 + c)) st[i0] = p[0] = 0.0f;
-            if (!m.visible(key, p0 + c + 1)) st[i0 + 1] = p[1] = 0.0f;
+            if (!w.m.visible(key0 + r, p0 + c)) st[i0] = p[0] = 0.0f;
+            if (!w.m.visible(key0 + r, p0 + c + 1)) st[i0 + 1] = p[1] = 0.0f;
           }
-          pa[2 * j + h] = pack_bf16(p[0], p[1]);
+          *reinterpret_cast<unsigned*>(Pw + swz(r, c)) = pack_bf16(p[0], p[1]);
         }
       }
-    };
-
-    // pass 1, dV: S^T = K Q^T, P^T, dV += P^T dO
-    float dv[NV];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) dv[i] = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const int s = uses % 2;
-      mbar_wait(&full[s], (uses / 2) & 1);
-      ++uses;
-      const unsigned char* Qt = stage0 + s * SmemDv::kRow;
-      const unsigned char* dOt = Qt + kQkAtoms * kAtom;
-      const float* Lt = lds + s * 128;
-      const int p0 = (lo + i) / grp * 64;
-      float st[32];
-      fence_regs<32>(st);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4 * kQkAtoms; ++kk)
-        wgmma_ss_n64(st, desc_k(Ks, kk), desc_k(Qt, kk), kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs<32>(st);
-      // every thread's products on the other stage are done: refill it
-      // (the last step of this pass loads the dK pass's first row tile)
-      __syncthreads();
-      if (tid == 0) issue_rows(lo + (i + 1) % n, loads % 2);
-      ++loads;
-      __syncwarp();
-      unsigned pa[16];
-      probs_t(st, pa, Lt, p0);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_n128(dv, pa + 4 * kk, desc_mn(dOt, kk));
-      wgmma_commit();
-      wgmma_wait<0>();
-    }
-    fence_regs<NV>(dv);
-    const size_t k_ld = (size_t)a.hkv * kDqk, v_ld = (size_t)a.hkv * kDv;
-    bf16* dk_out = a.dK + ((size_t)b * a.skv + 64 * kt) * k_ld + kvh * kDqk;
-    bf16* dv_out = a.dV + ((size_t)b * a.skv + 64 * kt) * v_ld + kvh * kDv;
-    const int n_keys = min(64, a.skv - 64 * kt);
-    float* slot = a.parts + (size_t)(slot0 + part) * kSlot + tid;
-    if (parts == 1) {
-      store_rows<kDv>(dv, 1.0f, dv_out, v_ld, n_keys, kDv);
-    } else {
-#pragma unroll
-      for (int i = 0; i < NV; ++i) slot[(NK + i) * NT] = dv[i];
-    }
-
-    // pass 2, dK: S^T and dP^T = V dO^T, dS^T = P o (dP - D), dK += dS^T Q
-    float dk[NK];
-#pragma unroll
-    for (int i = 0; i < NK; ++i) dk[i] = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const int s = uses % 2;
-      mbar_wait(&full[s], (uses / 2) & 1);
-      ++uses;
-      const unsigned char* Qt = stage0 + s * SmemDv::kRow;
-      const unsigned char* dOt = Qt + kQkAtoms * kAtom;
-      const float* Lt = lds + s * 128;
-      const int p0 = (lo + i) / grp * 64;
-      float st[32], dpt[32];
-      fence_regs<32>(st);
-      fence_regs<32>(dpt);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4 * kQkAtoms; ++kk)
-        wgmma_ss_n64(st, desc_k(Ks, kk), desc_k(Qt, kk), kk);
-      wgmma_commit();
-#pragma unroll
-      for (int kk = 0; kk < 4 * kVAtoms; ++kk)
-        wgmma_ss_n64(dpt, desc_k(Vs, kk), desc_k(dOt, kk), kk);
-      wgmma_commit();
-      wgmma_wait<1>();  // S^T
-      fence_regs<32>(st);
-      __syncthreads();
-      if (i + 1 < n) {
-        if (tid == 0) issue_rows(lo + i + 1, loads % 2);
-        ++loads;
-      }
-      __syncwarp();
-      unsigned pa[16], dsa[16];
-      probs_t(st, pa, Lt, p0);
+      proxy_fence();
+      wg_sync(wg);  // the warpgroup's P^T is in
       wgmma_wait<0>();  // dP^T
       fence_regs<32>(dpt);
+      unsigned dsa[16];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 D = *reinterpret_cast<const float2*>(Lt + 64 + 8 * j +
@@ -1597,28 +1637,47 @@ __global__ void __launch_bounds__(kThreads, 1)
                                      st[i0 + 1] * (dpt[i0 + 1] - D.y));
         }
       }
+      turn_wait(1 + wg);
       wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n128_mn(dv, desc_k(Pw, kk), desc_mn(dOt, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs_n192(dk, dsa + 4 * kk, desc_mn(Qt, kk));
       wgmma_commit();
+      turn_pass(2 - wg);
       wgmma_wait<0>();
+      fence_regs<NV>(dv);
+      fence_regs<NK>(dk);
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    fence_regs<NK>(dk);
-    if (parts == 1) {
-      store_rows<kDqk>(dk, a.scale, dk_out, k_ld, n_keys, kDqk);
+    const size_t k_ld = (size_t)a.hkv * kDqk, v_ld = (size_t)a.hkv * kDv;
+    bf16* dk_out = a.dK + ((size_t)w.b * a.skv + key0) * k_ld + w.kvh * kDqk;
+    bf16* dv_out = a.dV + ((size_t)w.b * a.skv + key0) * v_ld + w.kvh * kDv;
+    const int n_keys = min(64, a.skv - key0);
+    float* slot =
+        a.parts + (size_t)(w.slot0 + w.part) * 2 * kSlotWg + wg * kSlotWg + tid;
+    if (w.parts == 1) {
+      store_rows<kDv, 2>(dv, 1.0f, dv_out, v_ld, n_keys, kDv);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) slot[(NK + i) * NT] = dv[i];
+    }
+    if (w.parts == 1) {
+      store_rows<kDqk, 2>(dk, a.scale, dk_out, k_ld, n_keys, kDqk);
       continue;
     }
     // a key tile of several items: the partials out, then the last item to
-    // arrive sums them in item order
+    // arrive sums them in item order, each warpgroup its own keys
 #pragma unroll
     for (int i = 0; i < NK; ++i) slot[i * NT] = dk[i];
     __threadfence();
     __syncthreads();
-    int* arrivals = a.counters + 2 + bh * KT + kt;
-    if (tid == 0) {
+    int* arrivals = a.counters + 2 + w.bh * KT + w.kt;
+    if (threadIdx.x == 0) {
       const int prev = atomicAdd(arrivals, 1);
-      s_last = prev == parts - 1;
+      s_last = prev == w.parts - 1;
       if (s_last) *arrivals = 0;  // clean for the next launch
     }
     __syncthreads();
@@ -1628,27 +1687,29 @@ __global__ void __launch_bounds__(kThreads, 1)
       float sum[NK];
 #pragma unroll
       for (int i = 0; i < NK; ++i) sum[i] = 0.0f;
-      for (int q = 0; q < parts; ++q) {
-        const float* p = a.parts + (size_t)(slot0 + q) * kSlot + tid;
+      for (int q = 0; q < w.parts; ++q) {
+        const float* p = a.parts + (size_t)(w.slot0 + q) * 2 * kSlotWg +
+                         wg * kSlotWg + tid;
 #pragma unroll
         for (int i = 0; i < NK; ++i) sum[i] += __ldcg(p + i * NT);
       }
-      store_rows<kDqk>(sum, a.scale, dk_out, k_ld, n_keys, kDqk);
+      store_rows<kDqk, 2>(sum, a.scale, dk_out, k_ld, n_keys, kDqk);
     }
     {
       float sum[NV];
 #pragma unroll
       for (int i = 0; i < NV; ++i) sum[i] = 0.0f;
-      for (int q = 0; q < parts; ++q) {
-        const float* p = a.parts + (size_t)(slot0 + q) * kSlot + tid;
+      for (int q = 0; q < w.parts; ++q) {
+        const float* p = a.parts + (size_t)(w.slot0 + q) * 2 * kSlotWg +
+                         wg * kSlotWg + tid;
 #pragma unroll
         for (int i = 0; i < NV; ++i) sum[i] += __ldcg(p + (NK + i) * NT);
       }
-      store_rows<kDv>(sum, 1.0f, dv_out, v_ld, n_keys, kDv);
+      store_rows<kDv, 2>(sum, 1.0f, dv_out, v_ld, n_keys, kDv);
     }
   }
   // the last block out resets the ticket for the next launch
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     __threadfence();
     if (atomicAdd(a.counters + 1, 1) == (int)gridDim.x - 1) {
       a.counters[0] = 0;
@@ -1657,99 +1718,118 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// dQ at q/k 192, V 128: dq_kernel with S over 192 columns, dP over 128 and
-// dQ += dS K at N = 192.
-__global__ void __launch_bounds__(kThreads, 1)
-    dq_dv_kernel(const __grid_constant__ Args a) {
+// dQ at q/k 192, V 128: a block of 128 q positions of one q head (64 to
+// each warpgroup), longest first; S over 192 columns, dP over 128 and dQ
+// += dS K at N = 192, key tile by key tile.
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    dq192_kernel(const __grid_constant__ Args a) {
   constexpr int NQ = kDqk / 2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t q_bar, full[2];
-  unsigned char* Qs = align1024(smem_raw);
-  unsigned char* dOs = Qs + kQkAtoms * kAtom;
-  unsigned char* stage0 = dOs + kVAtoms * kAtom;  // stage s: K, then V
+  __shared__ __align__(8) uint64_t q_bar, full[kStages192],
+      empty[kStages192];
+  unsigned char* Qs = align1024(smem_raw);          // warpgroup c: 3 atoms
+  unsigned char* dOs = Qs + 2 * kQkAtoms * kAtom;   // warpgroup c: 2 atoms
+  unsigned char* stage0 = Qs + 2 * Smem192::kRow;   // stage s: K, then V
 
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int warp = tid / 32;
+  const int wg = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
+  const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int PT = a.rows / 64, BH = a.b * a.hq;
+  const int PT = (a.rows + 127) / 128, BH = a.b * a.hq;
   const int pt = PT - 1 - (int)(blockIdx.x / BH);
   const int b = (int)(blockIdx.x % BH) / a.hq, h = (int)(blockIdx.x % BH) % a.hq;
-  const int kvh = h / (a.hq / a.hkv), p0 = 64 * pt;
+  const int kvh = h / (a.hq / a.hkv), p0 = 128 * pt;
+  const int pw = p0 + 64 * wg;  // this warpgroup's first position
   const Mask m{a.q_offset[b], max(0, min(a.kv_len[b], a.skv)), a.causal,
                a.window};
+  // the keys either warpgroup's rows see
   int k_end = m.klen, k_begin = 0;
-  if (m.causal) k_end = min(k_end, min(p0 + 63, a.sq - 1) + m.qoff + 1);
+  if (m.causal) k_end = min(k_end, min(p0 + 127, a.sq - 1) + m.qoff + 1);
   if (m.window > 0) k_begin = max(0, p0 + m.qoff - m.window + 1);
   const int kt0 = k_begin / 64;
   const int n = k_end > 64 * kt0 ? (k_end - 64 * kt0 + 63) / 64 : 0;
+  const unsigned char* Qw = Qs + wg * kQkAtoms * kAtom;
+  const unsigned char* dOw = dOs + wg * kVAtoms * kAtom;
 
   float L2[2], D[2];
-  const size_t row0 = (size_t)(b * a.hq + h) * a.rows + p0;
+  const size_t row0 = (size_t)(b * a.hq + h) * a.rows + pw;
   const size_t ld_d = (size_t)a.b * a.hq * a.rows;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    L2[hh] = a.ld[row0 + warp * 16 + g + 8 * hh];
-    D[hh] = a.ld[ld_d + row0 + warp * 16 + g + 8 * hh];
+    const int r = warp * 16 + g + 8 * hh;
+    const bool in = pw + r < a.rows;  // past the last 64-row tile: no row
+    L2[hh] = in ? a.ld[row0 + r] : INFINITY;
+    D[hh] = in ? a.ld[ld_d + row0 + r] : 0.0f;
   }
 
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     mbar_init(&q_bar, 1);
-    mbar_init(&full[0], 1);
-    mbar_init(&full[1], 1);
+    for (int s = 0; s < kStages192; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kReleases);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  auto issue_keys = [&](int kt, int s) {
-    unsigned char* k = stage0 + s * SmemDv::kRow;
-    mbar_expect_tx(&full[s], SmemDv::kRow);
-    for (int c = 0; c < kQkAtoms; ++c)
-      tma_load_4d(k + c * kAtom, &a.tk, 64 * c, kvh, 64 * kt, b, &full[s]);
-    for (int c = 0; c < kVAtoms; ++c)
-      tma_load_4d(k + (kQkAtoms + c) * kAtom, &a.tv, 64 * c, kvh, 64 * kt, b,
+  // key tile i into stage i, once the warpgroups released its last use
+  auto issue_keys = [&](int i) {
+    const int s = i % kStages192;
+    unsigned char* k = stage0 + s * Smem192::kRow;
+    mbar_wait(&empty[s], ((i / kStages192) & 1) ^ 1);
+    mbar_expect_tx(&full[s], Smem192::kRow);
+    for (int j = 0; j < kQkAtoms; ++j)
+      tma_load_4d(k + j * kAtom, &a.tk, 64 * j, kvh, 64 * (kt0 + i), b,
                   &full[s]);
+    for (int j = 0; j < kVAtoms; ++j)
+      tma_load_4d(k + (kQkAtoms + j) * kAtom, &a.tv, 64 * j, kvh,
+                  64 * (kt0 + i), b, &full[s]);
   };
-
   float dq[NQ];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) dq[i] = 0.0f;
+  if (wg == 1) turn_pass(1);  // the first warpgroup goes first
   if (n > 0) {
-    if (tid == 0) {
-      mbar_expect_tx(&q_bar, SmemDv::kRow);
-      for (int c = 0; c < kQkAtoms; ++c)
-        tma_load_4d(Qs + c * kAtom, &a.tq, 64 * c, h, p0, b, &q_bar);
-      for (int c = 0; c < kVAtoms; ++c)
-        tma_load_4d(dOs + c * kAtom, &a.tdo, 64 * c, h, p0, b, &q_bar);
-      issue_keys(kt0, 0);
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&q_bar, 2 * Smem192::kRow);
+      for (int c = 0; c < 2; ++c) {
+        for (int j = 0; j < kQkAtoms; ++j)
+          tma_load_4d(Qs + (c * kQkAtoms + j) * kAtom, &a.tq, 64 * j, h,
+                      p0 + 64 * c, b, &q_bar);
+        for (int j = 0; j < kVAtoms; ++j)
+          tma_load_4d(dOs + (c * kVAtoms + j) * kAtom, &a.tdo, 64 * j, h,
+                      p0 + 64 * c, b, &q_bar);
+      }
+      issue_keys(0);
     }
-    __syncwarp();
     mbar_wait(&q_bar, 0);
   }
   for (int i = 0; i < n; ++i) {
-    const int s = i % 2, kt = kt0 + i;
-    mbar_wait(&full[s], (i / 2) & 1);
-    const unsigned char* Kt = stage0 + s * SmemDv::kRow;
+    const int s = i % kStages192, kt = kt0 + i;
+    // key tile i + 1, whose stage tile i - 2 used (both warpgroups are
+    // past it: they take turns)
+    if (threadIdx.x == 0 && i + 1 < n) issue_keys(i + 1);
+    mbar_wait(&full[s], (i / kStages192) & 1);
+    const unsigned char* Kt = stage0 + s * Smem192::kRow;
     const unsigned char* Vt = Kt + kQkAtoms * kAtom;
 
     float sc[32], dp[32];
     fence_regs<32>(sc);
     fence_regs<32>(dp);
+    turn_wait(1 + wg);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4 * kQkAtoms; ++kk)
-      wgmma_ss_n64(sc, desc_k(Qs, kk), desc_k(Kt, kk), kk);
+      wgmma_ss_n64(sc, desc_k(Qw, kk), desc_k(Kt, kk), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < 4 * kVAtoms; ++kk)
-      wgmma_ss_n64(dp, desc_k(dOs, kk), desc_k(Vt, kk), kk);
+      wgmma_ss_n64(dp, desc_k(dOw, kk), desc_k(Vt, kk), kk);
     wgmma_commit();
-    wgmma_wait<1>();  // S, and the last step's dQ
+    turn_pass(2 - wg);
+    wgmma_wait<1>();  // S
     fence_regs<32>(sc);
-    __syncthreads();
-    if (tid == 0 && i + 1 < n) issue_keys(kt + 1, (i + 1) % 2);
-    __syncwarp();
 
-    const bool whole = m.whole(64 * kt, p0);
+    const bool whole = m.whole(64 * kt, pw);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -1759,7 +1839,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         sc[i0] = prob<false>(sc[i0], L2[hh], &p, a);
         sc[i0 + 1] = prob<false>(sc[i0 + 1], L2[hh], &p, a);
         if (!whole) {
-          const int pos = p0 + warp * 16 + g + 8 * hh;
+          const int pos = pw + warp * 16 + g + 8 * hh;
           const int key = 64 * kt + 8 * j + 2 * t4;
           if (!m.visible(key, pos)) sc[i0] = 0.0f;
           if (!m.visible(key + 1, pos)) sc[i0 + 1] = 0.0f;
@@ -1778,21 +1858,26 @@ __global__ void __launch_bounds__(kThreads, 1)
                                     sc[i0 + 1] * (dp[i0 + 1] - D[hh]));
       }
 
+    turn_wait(1 + wg);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs_n192(dq, dsa + 4 * kk, desc_mn(Kt, kk));
     wgmma_commit();
+    turn_pass(2 - wg);
+    wgmma_wait<0>();
+    fence_regs<NQ>(dq);
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  wgmma_wait<0>();
-  fence_regs<NQ>(dq);
 
   const size_t q_ld = (size_t)a.hq * kDqk;
-  store_rows<kDqk>(dq, a.scale,
-                   a.dQ + ((size_t)b * a.sq + p0) * q_ld + (size_t)h * kDqk,
-                   q_ld, a.sq - p0, kDqk);
+  store_rows<kDqk, 2>(dq, a.scale,
+                      a.dQ + ((size_t)b * a.sq + pw) * q_ld + (size_t)h * kDqk,
+                      q_ld, a.sq - pw, kDqk);
 }
 
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (so
+// the library needs no link to libcuda)
 PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
   if (fn == nullptr) {
@@ -1884,12 +1969,12 @@ cudaError_t launch_dv(const Args& a, int blocks, cudaStream_t st) {
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        dkdv_dv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SmemDv::kDkdv);
+        dkdv192_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem192::kDkdv);
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(dq_dv_kernel,
+    e = cudaFuncSetAttribute(dq192_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SmemDv::kDq);
+                             Smem192::kDq);
     if (e != cudaSuccess) return e;
     configured = true;
   }
@@ -1900,10 +1985,11 @@ cudaError_t launch_dv(const Args& a, int blocks, cudaStream_t st) {
   ld_kernel<1><<<(unsigned)((rows + 15) / 16), 256, 0, st>>>(la);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dkdv_dv_kernel<<<blocks, kThreads, SmemDv::kDkdv, st>>>(a);
+  dkdv192_kernel<<<blocks, 2 * kThreads, Smem192::kDkdv, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dq_dv_kernel<<<a.b * a.hq * (a.rows / 64), kThreads, SmemDv::kDq, st>>>(a);
+  dq192_kernel<<<a.b * a.hq * ((a.rows + 127) / 128), 2 * kThreads,
+                 Smem192::kDq, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -1974,9 +2060,11 @@ extern "C" int repro_flash_attention_bwd_bf16(
 
 // q/dq [b, sq, hq, 192], k/dk [b, skv, hkv, 192], o/do [b, sq, hq, 128],
 // v/dv [b, skv, hkv, 128] (deepseek-v3's MLA: d = 192, dv = 128), no
-// softcap; the scale 1 / sqrt(d); parts fp32 [slots, 64 * (192 + 128)] (a
-// dK and a dV partial a slot); everything else as
-// repro_flash_attention_bwd_bf16's.  Three launches: ld, dK/dV, dQ.
+// softcap; the scale 1 / sqrt(d); items of key tiles of 128 (ops.bwd_keys)
+// and blocks at most one an SM; parts fp32 [slots, 128 * (192 + 128)] (a
+// dK and a dV partial a slot); counters int32 [2 + b * hkv * 128-key
+// tiles]; everything else as repro_flash_attention_bwd_bf16's.  Three
+// launches: ld, dK/dV, dQ.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_flash_attention_bwd_dv_bf16(
     const void* q, const void* k, const void* v, const void* o,

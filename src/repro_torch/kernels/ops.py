@@ -305,14 +305,15 @@ HEAD_DIMS = (64, 112, 128, 256)
 TRAIN_HEAD_DIMS = (112, 128, 192, 256)
 #: the head dims the backward (``csrc/flash_attention_bwd.cu``) takes; 256
 #: (gemma2-2b) runs blocks of two warpgroups that share S^T and dP^T, one
-#: an SM; 192 (with a V of 128) one warpgroup a block, one an SM
+#: an SM; 192 (with a V of 128) two warpgroups a block that take turns at
+#: their products, one an SM, over key tiles of 128 (``bwd_keys``)
 BWD_HEAD_DIMS = (64, 112, 128, 192, 256)
-#: the (q/k, V) head dims whose V is narrower than q/k, and the kernels
-#: that take them: deepseek-v3's MLA, training (variant 1) and its
-#: backward.  Variant 0 (the serving kernel) has no such instance: the
-#: served MLA path scores against its latent with no attention kernel, and
-#: the cache-free prefill below ``ref.TRAIN_TILE`` rows and the MTP draft
-#: block wait for it (ROADMAP §B)
+#: the (q/k, V) head dims whose V is narrower than q/k: deepseek-v3's MLA.
+#: Every kernel of the attention takes the pair: variant 0 (the serving
+#: kernel's ``flash_kernel<192>``, its own C entry, one key split: the
+#: cache-free MLA forward below ``ref.TRAIN_TILE`` rows, the MTP draft
+#: block and a prefill chunk), variant 1 (training) and the backward.  The
+#: served MLA layers score against their latent with no attention kernel
 V_HEAD_DIMS = {192: 128}
 
 
@@ -445,15 +446,23 @@ def _train_sched(b, sq, hq, hkv, skv, causal, window, device, d):
 BWD_KEYS = 64
 
 
+def bwd_keys(d: int, dv: int | None = None) -> int:
+    """The dK/dV key tile of the backward at q/k head dim ``d`` and V head
+    dim ``dv`` (``d`` where None): ``BWD_KEYS``, or 128 at (192, 128),
+    whose blocks give 64 keys to each of their two warpgroups."""
+    return 128 if dv is not None and V_HEAD_DIMS.get(d) == dv else BWD_KEYS
+
+
 def bwd_visible_tiles(key_tile: int, q_offset: int, kv_len: int, sq: int,
-                      grp: int, causal: bool, window: int) -> tuple[int, int]:
+                      grp: int, causal: bool, window: int,
+                      keys: int = BWD_KEYS) -> tuple[int, int]:
     """The row tiles ``[t0, t1)`` of one (batch row, kv head) that see a key
-    of ``key_tile`` (``BWD_KEYS`` keys), as the backward kernel computes
+    of ``key_tile`` (of ``keys`` keys), as the backward kernel computes
     them: row tile t is q positions ``[64 (t // grp), +64)`` of the group's
     q head ``t % grp``, so a key tile sees whole position tiles of every
     head."""
-    k0 = BWD_KEYS * key_tile
-    k1 = min(k0 + BWD_KEYS - 1, kv_len - 1)
+    k0 = keys * key_tile
+    k1 = min(k0 + keys - 1, kv_len - 1)
     p_lo, p_hi = 0, sq - 1
     if causal:
         p_lo = max(p_lo, k0 - q_offset)
@@ -470,9 +479,9 @@ class AttentionBwdPlan:
 
     Per (batch row, kv head) ``bh``, the q rows are ``row_tiles`` tiles of
     64 positions of one q head (``bwd_visible_tiles``) and the keys
-    ``key_tiles`` tiles of ``BWD_KEYS``.  The row tiles a key tile sees at
-    q_offset 0 and kv_len skv are cut into ``parts`` items of nearly equal
-    length, at most ``max_len``; ``items`` lists every item, longest first, as (bh,
+    ``key_tiles`` tiles of ``keys`` (``bwd_keys``).  The row tiles a key
+    tile sees at q_offset 0 and kv_len skv are cut into ``parts`` items of
+    nearly equal length, at most ``max_len``; ``items`` lists every item, longest first, as (bh,
     key tile, first row tile, end row tile, part, parts, first slot), and
     ``blocks`` persistent blocks take them in that order from a shared
     ticket.  A key tile of several parts has its fp32 dK/dV partials in
@@ -489,6 +498,7 @@ class AttentionBwdPlan:
     items: tuple
     slots: int
     blocks: int
+    keys: int = BWD_KEYS
 
     def lengths(self) -> list[int]:
         return [r1 - r0 for _, _, r0, r1, *_ in self.items]
@@ -501,7 +511,8 @@ class AttentionBwdPlan:
         for bh, kt, r0, r1, part, parts, _ in self.items:
             b = bh // self.hkv
             v0, v1 = bwd_visible_tiles(kt, int(q_offset[b]), int(kv_len[b]),
-                                       sq, self.grp, causal, window)
+                                       sq, self.grp, causal, window,
+                                       self.keys)
             lo = max(v0, 0 if part == 0 else r0)
             hi = min(v1, self.row_tiles if part == parts - 1 else r1)
             yield bh, kt, part, list(range(lo, max(lo, hi)))
@@ -529,18 +540,20 @@ BWD_MIN_ITEM = 8
 @functools.lru_cache(maxsize=None)
 def attention_bwd_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
                        causal: bool = True, window: int = 0,
-                       sms: int = SMS, *, d: int) -> AttentionBwdPlan:
+                       sms: int = SMS, *, d: int,
+                       dv: int | None = None) -> AttentionBwdPlan:
     """Items of at most ``max_len`` row tiles, ``max_len`` chosen so that
     the blocks (two per SM, one at head dim ``d`` above 128) take about
     ``BWD_ITEMS_PER_BLOCK`` items each (half as many alone on an SM); a
-    key tile that sees ``n`` row
+    key tile (of ``bwd_keys(d, dv)`` keys) that sees ``n`` row
     tiles is cut into ``ceil(n / max_len)`` parts of nearly equal length.
     At llama3-8b's s = 2048 (32 key tiles, 128 row tiles, key tile j sees
     128 - 4 j) that is items of 32 or fewer row tiles instead of one
     block walking 128 while another walks 4."""
     grp = hq // hkv
-    row_tiles, key_tiles = -(-sq // 64) * grp, -(-skv // BWD_KEYS)
-    spans = [bwd_visible_tiles(kt, 0, skv, sq, grp, causal, window)
+    keys = bwd_keys(d, dv)
+    row_tiles, key_tiles = -(-sq // 64) * grp, -(-skv // keys)
+    spans = [bwd_visible_tiles(kt, 0, skv, sq, grp, causal, window, keys)
              for kt in range(key_tiles)]
     total = b * hkv * sum(t1 - t0 for t0, t1 in spans)
     per_sm = bwd_blocks_per_sm(d)
@@ -559,15 +572,17 @@ def attention_bwd_plan(b: int, sq: int, hq: int, hkv: int, skv: int,
             slots += parts if parts > 1 else 0
     items.sort(key=lambda it: (it[2] - it[3], it[0], it[1], it[4]))
     return AttentionBwdPlan(grp, hkv, row_tiles, key_tiles, max_len,
-                            tuple(items), slots, min(workers, len(items)))
+                            tuple(items), slots, min(workers, len(items)),
+                            keys)
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_items(b, sq, hq, hkv, skv, causal, window, device,
-               d: int) -> torch.Tensor:
+def _bwd_items(b, sq, hq, hkv, skv, causal, window, device, d: int,
+               dv: int | None = None) -> torch.Tensor:
     """``attention_bwd_plan``'s items as the kernel reads them: int32
     ``[items, 8]`` on ``device``, made once per shape."""
-    plan = attention_bwd_plan(b, sq, hq, hkv, skv, causal, window, d=d)
+    plan = attention_bwd_plan(b, sq, hq, hkv, skv, causal, window, d=d,
+                              dv=dv)
     rows = [list(it) + [0] for it in plan.items]
     return torch.tensor(rows, dtype=torch.int32).to(device)
 
@@ -861,19 +876,30 @@ def _flash(q, k, v, qo, kl, causal, window, softcap, lse: bool = False):
     lse_out = torch.empty((b, hq, sq), dtype=torch.float32,
                           device=q.device) if lse else None
     plan = attention_plan(b, sq, hq, hkv, skv, d=d)
-    if dv != d:
-        if plan.variant != 1 or softcap:
-            raise NotImplementedError(
-                f"the CUDA attention at q/k {d} with a V of {dv} is the "
-                f"training kernel's (variant 1: at least {ref.TRAIN_TILE} q "
-                f"rows, no key split, no softcap); the serving kernel's "
-                f"instance is ROADMAP §B (q rows {sq}, keys {skv})")
+    if dv != d and softcap:
+        raise NotImplementedError(
+            f"the CUDA attention at q/k {d} with a V of {dv} takes no "
+            f"softcap (deepseek-v3's MLA has none)")
+    if dv != d and plan.variant == 1:
         sched, blocks = _train_sched(b, sq, hq, hkv, skv, bool(causal),
                                      int(window), q.device, d)
         _launch(_build.entry("flash_attention_train_dv"),
                 (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse_out),
                  _ptr(qo), _ptr(kl), _ptr(sched), b, sq, skv, hq, hkv, d, dv,
                  int(causal), int(window), blocks, _stream(q)),
+                "flash_attention", None)
+    elif dv != d:
+        # variant 0's (192, 128) instance: the cache-free MLA forward has
+        # skv = sq < 128 keys, which split_plan never splits
+        if plan.splits > 1:
+            raise NotImplementedError(
+                f"the serving attention at q/k {d} with a V of {dv} takes "
+                f"no key split (plan: {plan.splits} splits for {sq} q rows "
+                f"and {skv} keys): no MLA path caches k and v for it")
+        _launch(_build.entry("flash_attention_dv"),
+                (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse_out),
+                 _ptr(qo), _ptr(kl), b, sq, skv, hq, hkv, d, dv, int(causal),
+                 int(window), plan.row_tiles, _stream(q)),
                 "flash_attention", None)
     elif plan.variant == 1:
         sched, blocks = _train_sched(b, sq, hq, hkv, skv, bool(causal),
@@ -966,17 +992,17 @@ def attention_backward_with(entry, q, k, v, o, do, lse, q_offset, kv_len, *,
     dq, dk, dv_out = (torch.empty_like(q), torch.empty_like(k),
                       torch.empty_like(v))
     plan = attention_bwd_plan(b, sq, hq, hkv, skv, bool(causal), int(window),
-                              d=d)
+                              d=d, dv=dv)
     items = _bwd_items(b, sq, hq, hkv, skv, bool(causal), int(window),
-                       q.device, d)
+                       q.device, d, dv)
     # per (q head, position) in tile order, positions padded to whole
     # tiles: log2(e) * lse and rowsum(dO o O)
     rows = -(-sq // 64) * 64
     ld = torch.empty((2, b, hq, rows), dtype=torch.float32, device=q.device)
-    # fp32 dK/dV partials of a key tile: dK and dV, 64 keys x the head dim
-    # padded to a multiple of 64
-    parts = torch.empty(max(plan.slots, 1) * 2 * BWD_KEYS * (-(-d // 64) * 64),
-                        dtype=torch.float32, device=q.device)
+    # fp32 dK/dV partials of a key tile: dK and dV, its keys x each head
+    # dim padded to a multiple of 64
+    parts = torch.empty(max(plan.slots, 1) * plan.keys * 64 * (
+        -(-d // 64) + -(-dv // 64)), dtype=torch.float32, device=q.device)
     counters = _counters(q, 2 + b * hkv * plan.key_tiles)
     head = (d, dv) if dv != d else (d,)
     cap = () if dv != d else (float(softcap),)

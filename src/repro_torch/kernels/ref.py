@@ -326,12 +326,14 @@ def attention_bwd_split_ref(q, k, v, o, do, lse, q_offset, kv_len, *, parts,
                             softcap: float = 0.0):
     """``attention_bwd_ref`` with dK and dV summed as the CUDA backward's
     split schedule sums them.  ``parts`` maps (bh, first key, end key) of
-    each key tile -- bh = batch row * hkv + kv head -- to the row tiles of
-    each of its items, in item order (``ops.AttentionBwdPlan.walk``); row
-    tile t is q positions ``[64 (t // grp), +64)`` of the group's q head
-    ``t % grp``.  Each item's partial sums its row tiles in order; a key tile's
-    dK/dV is its partials summed in item order (zeros where no item
-    covers it).  dQ as ``attention_bwd_ref``.  fp32."""
+    each key tile (of the plan's ``keys``) -- bh = batch row * hkv + kv
+    head -- to the row tiles of each of its items, in item order
+    (``ops.AttentionBwdPlan.walk``); row tile t is q positions
+    ``[64 (t // grp), +64)`` of the group's q head ``t % grp``.  Each
+    item's partial sums its row tiles in order; a key tile's dK/dV is its
+    partials summed in item order (zeros where no item covers it).  V may
+    be narrower than q/k (dV takes V's width).  dQ as
+    ``attention_bwd_ref``.  fp32."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     grp = hq // hkv
@@ -349,14 +351,14 @@ def attention_bwd_split_ref(q, k, v, o, do, lse, q_offset, kv_len, *, parts,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds,
                       k.float().repeat_interleave(grp, dim=2)) * scale
     dk = torch.zeros(b, skv, hkv, d, device=q.device)
-    dv = torch.zeros_like(dk)
+    dv = torch.zeros(b, skv, hkv, v.shape[-1], device=q.device)
     for (bh, k0, k1), items in parts.items():
         bi, kvh = divmod(bh, hkv)
         keys = slice(k0, k1)
         sum_k = sum_v = None
         for tiles in items:
-            part_k = torch.zeros(keys.stop - keys.start, d, device=q.device)
-            part_v = torch.zeros_like(part_k)
+            part_k = torch.zeros(k1 - k0, d, device=q.device)
+            part_v = torch.zeros(k1 - k0, v.shape[-1], device=q.device)
             for t in tiles:
                 h = kvh * grp + t % grp
                 rows = slice(64 * (t // grp), min(64 * (t // grp) + 64, sq))

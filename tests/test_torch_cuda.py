@@ -1753,8 +1753,16 @@ def test_paged_append_writes_the_last_value_where_positions_collide(cuda):
 # ---------------------------------------------------------------------------
 
 #: (b, s, heads) of each case: deepseek-v3's training shape (128 heads, MHA)
-#: and a ragged length over two batch rows
-QK192 = {"deepseek s=2048": (1, 2048, 128), "ragged s=1000": (2, 1000, 4)}
+#: and ragged lengths over two batch rows, one ending inside a 128-key tile
+#: of the backward
+QK192 = {"deepseek s=2048": (1, 2048, 128), "ragged s=1000": (2, 1000, 4),
+         "ragged s=200": (2, 200, 4)}
+#: the serving kernel's (192, 128) instance (variant 0), cache-free (skv =
+#: s): (b, s, heads) of the MTP draft block's tick (4 slots x 2 rows), a
+#: 64-row prefill chunk and a ragged 127-row chunk, at deepseek-v3's 128
+#: heads
+QK192_SERVE = {"draft tick": (4, 2, 128), "chunk s=64": (1, 64, 128),
+               "ragged s=127": (1, 127, 128)}
 
 
 def _qk192_inputs(dev, b, s, h, seed=7):
@@ -1824,19 +1832,80 @@ def test_qk192_v128_planted_faults_break_the_checks(cuda):
 
 @pytest.mark.cuda
 def test_qk192_v128_refuses_what_it_has_no_instance_for(cuda):
-    """The serving kernel (variant 0: fewer than 128 q rows) has no (192,
-    128) instance (ROADMAP §B), a softcap is refused, and a V of 192 or 64
-    beside q/k of 192 is not a mode."""
-    q, k, v, do, qo, kl = _qk192_inputs(cuda, 1, 64, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.flash_attention(q, k, v, qo, kl)
-    q, k, v, do, qo, kl = _qk192_inputs(cuda, 1, 256, 4)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        ops.flash_attention(q, k, v, qo, kl, softcap=50.0)
-    for dv in (192, 64):
-        with pytest.raises(ValueError, match="attention shapes|head dim"):
-            ops.flash_attention(q, k, v.new_zeros(v.shape[:3] + (dv,)),
-                                qo, kl)
+    """Both forward kernels (variant 0 below 128 q rows, variant 1 above)
+    refuse a softcap at (192, 128), a V of 192 or 64 beside q/k of 192 is
+    not a mode, and variant 0's instance refuses a key split (a cached
+    decode row against many keys: no MLA path caches k and v)."""
+    for s in (64, 256):
+        q, k, v, do, qo, kl = _qk192_inputs(cuda, 1, s, 4)
+        assert ops.attention_plan(1, s, 4, 4, s, d=192).variant == \
+            (0 if s < 128 else 1)
+        with pytest.raises(NotImplementedError, match="softcap"):
+            ops.flash_attention(q, k, v, qo, kl, softcap=50.0)
+        for dv in (192, 64):
+            with pytest.raises(ValueError, match="attention shapes|head dim"):
+                ops.flash_attention(q, k, v.new_zeros(v.shape[:3] + (dv,)),
+                                    qo, kl)
+    q, _, _, _, qo, _ = _qk192_inputs(cuda, 1, 1, 4)
+    _, k, v, _, _, _ = _qk192_inputs(cuda, 1, 1024, 4)
+    kl = torch.full((1,), 1024, dtype=torch.int32, device=cuda)
+    assert ops.attention_plan(1, 1, 4, 4, 1024, d=192).splits > 1
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(NotImplementedError, match="key split"):
+        ops.flash_attention(q, k, v, qo + 1023, kl)
+    assert ops.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(QK192_SERVE))
+def test_serving_attention_qk192_v128_matches_plain(cuda, case):
+    """Variant 0's (192, 128) instance (``flash_kernel<192>``), one launch
+    counted under variant 0, with and without its log-sum-exp: the output
+    [b, s, h, 128] against the plain attention within the bf16 tolerance,
+    the log-sum-exp within 1e-3; a planted fault (V's last 64 columns read
+    as zeros) must break the check."""
+    q, k, v, _, qo, kl = _qk192_inputs(cuda, *QK192_SERVE[case])
+    b, s, h, _ = q.shape
+    plan = ops.attention_plan(b, s, h, h, s, d=192)
+    assert (plan.variant, plan.splits) == (0, 1)
+    before = list(ops.ATTENTION_VARIANT_LAUNCHES)
+    out = ops.flash_attention(q, k, v, qo, kl)
+    got, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+    assert ops.ATTENTION_VARIANT_LAUNCHES == [before[0] + 2, before[1]]
+    assert out.shape == (b, s, h, 128) and torch.equal(out, got)
+    want, want_lse = ref.attention_lse_ref(q, k, v, qo, kl)
+    _close(out, want, **FA_TOL)
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    v_cut = v.clone()
+    v_cut[..., 64:] = 0
+    with pytest.raises(AssertionError):
+        _close(out, ref.attention_ref(q, k, v_cut, qo, kl), **FA_TOL)
+
+
+@pytest.mark.cuda
+def test_attention_backward_qk192_v128_merges_many_parts(cuda, monkeypatch):
+    """Items of one row tile each at (192, 128): every 128-key tile is
+    summed from its partials by its last item, each consumer warpgroup its
+    own 64 keys, in item order; two runs give the same bits."""
+    monkeypatch.setattr(ops, "BWD_MIN_ITEM", 1)
+    monkeypatch.setattr(ops, "BWD_ITEMS_PER_BLOCK", 10 ** 6)
+    ops.attention_bwd_plan.cache_clear()
+    ops._bwd_items.cache_clear()
+    try:
+        q, k, v, do, qo, kl = _qk192_inputs(cuda, *QK192["ragged s=1000"])
+        out, lse = ops.flash_attention_lse(q, k, v, qo, kl)
+        b, s, h, _ = q.shape
+        plan = ops.attention_bwd_plan(b, s, h, h, s, d=192, dv=128)
+        assert plan.max_len == 1 and plan.slots > 0 and plan.keys == 128
+        got = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
+        again = ops.flash_attention_backward(q, k, v, out, do, lse, qo, kl)
+        want = ref.attention_bwd_ref(q, k, v, out, do, lse, qo, kl)
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            assert torch.equal(g, a), name
+            assert _rel(g, w) <= BWD_REL, name
+    finally:
+        ops.attention_bwd_plan.cache_clear()
+        ops._bwd_items.cache_clear()
 
 
 #: rows of the block norm the 8-warp instance takes (up to 8192 wide), and

@@ -292,11 +292,12 @@ def _bwd_case(c):
             list(c.get("kv_len") or (skv,) * b))
 
 
-def _visible_pairs(b, sq, hq, hkv, skv, window, q_offset, kv_len):
-    """(bh, key tile, row tile) of every pair of a key tile and a row tile
-    (64 positions of one q head) with a visible (row, key), from the plain
-    mask."""
-    grp, keys = hq // hkv, ops.BWD_KEYS
+def _visible_pairs(b, sq, hq, hkv, skv, window, q_offset, kv_len,
+                   keys=ops.BWD_KEYS):
+    """(bh, key tile, row tile) of every pair of a key tile (of ``keys``)
+    and a row tile (64 positions of one q head) with a visible (row, key),
+    from the plain mask."""
+    grp = hq // hkv
     mask = ref.attention_mask(sq, skv, torch.tensor(q_offset),
                               torch.tensor(kv_len), window=window)
     pt, kt = -(-sq // 64), -(-skv // keys)
@@ -374,16 +375,17 @@ def _split_parts(plan, sq, skv, q_offset, kv_len, window):
     for bh, kt, part, tiles in sorted(
             plan.walk(sq, q_offset, kv_len, True, window),
             key=lambda w: w[:3]):
-        k0 = ops.BWD_KEYS * kt
-        parts[bh, k0, min(k0 + ops.BWD_KEYS, skv)].append(tiles)
+        k0 = plan.keys * kt
+        parts[bh, k0, min(k0 + plan.keys, skv)].append(tiles)
     return parts
 
 
-def _bwd_inputs(rng, b, sq, hq, hkv, skv, d=16):
+def _bwd_inputs(rng, b, sq, hq, hkv, skv, d=16, dv=None):
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-    return (randn(b, sq, hq, d), randn(b, skv, hkv, d), randn(b, skv, hkv, d),
-            randn(b, sq, hq, d))
+    dv = d if dv is None else dv
+    return (randn(b, sq, hq, d), randn(b, skv, hkv, d), randn(b, skv, hkv, dv),
+            randn(b, sq, hq, dv))
 
 
 @pytest.mark.parametrize("b,sq,hq,hkv,skv,window,softcap,q_offset,kv_len",
@@ -454,3 +456,89 @@ def test_split_backward_plain_matches_jax_grad_of_attention_core(
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# q/k 192 with a V of 128 (deepseek-v3's MLA): the serving kernel's one
+# split, and the backward's key tiles of 128
+# ---------------------------------------------------------------------------
+
+#: (b, sq, hq, hkv, skv, window, q_offset, kv_len) at (192, 128): MHA as
+#: MLA is, a ragged length that ends inside a 128-key tile, offsets and
+#: kv lengths the kernel clips to
+QK192_BWD = [
+    (2, 200, 4, 4, 200, 0, [0, 0], [200, 200]),
+    (1, 2048, 8, 8, 2048, 0, [0], [2048]),
+    (2, 96, 4, 4, 300, 0, [204, 0], [300, 130]),
+    (1, 330, 2, 2, 330, 100, [0], [330]),
+]
+
+
+@pytest.mark.parametrize("b,sq,hq", [(b, sq, hq) for b in (1, 4)
+                                     for sq in (1, 2, 16, 17, 64, 65, 127)
+                                     for hq in (1, 4, 16, 128)])
+def test_cache_free_qk192_v128_is_variant_0_with_one_split(b, sq, hq):
+    """A cache-free MLA forward (q/k 192, V 128, skv = sq, MHA) below
+    ``ref.TRAIN_TILE`` rows -- the MTP draft block's tick of 2 rows a slot,
+    a prefill chunk, a short training sequence -- is variant 0 with one
+    key split, as its instance (``flash_kernel<192>``) requires: at most
+    two 64-key tiles, and a split wants four of them above 16 rows."""
+    plan = ops.attention_plan(b, sq, hq, hq, sq, d=192)
+    assert (plan.variant, plan.splits) == (0, 1)
+    assert plan.row_tiles * plan.rows >= sq
+    assert plan.key_ranges(sq) == [(0, sq)]
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,skv,window,q_offset,kv_len", QK192_BWD)
+def test_attention_bwd_plan_at_qk192_walks_128_key_tiles_once(
+        b, sq, hq, hkv, skv, window, q_offset, kv_len):
+    """At (192, 128) the backward's key tiles are 128 keys (``bwd_keys``),
+    and the kernel's walk covers every visible (key tile, row tile) pair
+    of 128 keys and 64 positions exactly once and no invisible one; other
+    head dims keep 64."""
+    plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window, d=192,
+                                  dv=128)
+    assert plan.keys == 128 == ops.bwd_keys(192, 128)
+    assert plan.key_tiles == -(-skv // 128)
+    assert {ops.bwd_keys(d) for d in (64, 112, 128, 192, 256)} == {64}
+    seen = collections.Counter()
+    for bh, kt, _, tiles in plan.walk(sq, q_offset, kv_len, True, window):
+        seen.update((bh, kt, t) for t in tiles)
+    assert set(seen.values()) <= {1}
+    assert set(seen) == _visible_pairs(b, sq, hq, hkv, skv, window,
+                                       q_offset, kv_len, keys=128)
+    assert 1 <= plan.blocks <= ops.SMS
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,skv,window,q_offset,kv_len",
+                         [c for c in QK192_BWD if c[1] < 1000])
+@pytest.mark.parametrize("max_len", [None, 1])
+def test_split_backward_plain_at_qk192_matches_attention_bwd_ref(
+        monkeypatch, b, sq, hq, hkv, skv, window, q_offset, kv_len, max_len):
+    """``ref.attention_bwd_split_ref`` at q/k 192 with a V of 128 on the
+    plan's 128-key tiles (dV at V's width) against the unsplit plain
+    backward: fp32, only the order of summation differs (1e-5).
+    ``max_len`` 1: one row tile an item, the most partials."""
+    if max_len is not None:
+        monkeypatch.setattr(ops, "BWD_MIN_ITEM", max_len)
+        monkeypatch.setattr(ops, "BWD_ITEMS_PER_BLOCK", 10 ** 6)
+    ops.attention_bwd_plan.cache_clear()
+    try:
+        plan = ops.attention_bwd_plan(b, sq, hq, hkv, skv, True, window,
+                                      d=192, dv=128)
+    finally:
+        ops.attention_bwd_plan.cache_clear()
+    parts = _split_parts(plan, sq, skv, q_offset, kv_len, window)
+    assert all(k1 - k0 <= 128 for _, k0, k1 in parts)
+    assert any(k1 - k0 > 64 for _, k0, k1 in parts)
+    rng = np.random.default_rng(sq + 3 * skv)
+    q, k, v, do = _bwd_inputs(rng, b, sq, hq, hkv, skv, d=192, dv=128)
+    qo, kl = torch.tensor(q_offset), torch.tensor(kv_len)
+    out, lse = ref.attention_lse_ref(q, k, v, qo, kl, window=window)
+    want = ref.attention_bwd_ref(q, k, v, out, do, lse, qo, kl,
+                                 window=window)
+    got = ref.attention_bwd_split_ref(q, k, v, out, do, lse, qo, kl,
+                                      parts=parts, window=window)
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
