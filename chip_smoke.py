@@ -90,12 +90,15 @@ Phases, in order, each failing the run on any error:
    row by more than that, within ``RECURRENT_FACTOR`` times the paged
    path's own distance between one step and chunks of 64, and up to a
    near-tie of twice the paths' largest logit difference (the requests
-   that reach one, and where the tokens part, are printed).  Last the
+   that reach one, where the tokens part and how many steps each rule
+   held are printed: where the paths part by more than every first gap,
+   none).  Last the
    path check of ``path_check`` on the wave's prefill at the first
    layers of the same weights (``WAVE_PATH_LAYERS``): the first new
    token's rows on the card (kernels, bf16) against the CPU (plain, fp32)
-   within ``PATH_TOL``, and for zamba2-7b the rows and the batch-row SSD
-   state within ``RECURRENT_FACTOR`` times the plain bf16 path's error.
+   within ``PATH_TOL``, and for zamba2-7b the rows and each layer's
+   batch-row SSD state within ``RECURRENT_FACTOR`` times the plain bf16
+   path's error.
 5c. serve-gemma -- gemma2-2b at its published widths, not cut (26 layers,
    2.61 B parameters: d_model 2304, 8 q / 4 kv heads of 256, softcaps 50
    and 30, every other layer a 4096 window, post-block norms, the head
@@ -144,7 +147,7 @@ Phases, in order, each failing the run on any error:
    layers (one super-block and one tail Mamba2 block): slot 0's chunks at 0
    and 64 (the second carries the state), slot 1's chunk at 0, and one
    decode tick of 4 slots (2 live, 2 sentinel), card against CPU as in
-   phase 3; the fp32 SSD state pools are compared too.
+   phase 3; each layer's fp32 SSD state rows are compared too.
 7. train-kernels -- at llama3-8b's training shapes (4096 wide, 32 q / 8
    kv heads of 128, d_ff 14336, vocab 128256, 2048 tokens), first each
    projection's matmul forward against its plain version as in phase 1 and
@@ -427,6 +430,43 @@ Phases, in order, each failing the run on any error:
    MTP head, b = 1, s = 256, as phase 9, with the attention backward held
    on one forward against its plain version on the card (the fault: dK
    zeroed).
+25. serve-xlstm -- xlstm-1.3b (the xlstm kind: 6 super-blocks of 7 mLSTM
+   blocks and an sLSTM block) at its published widths and all 48 layers
+   (1.81 B parameters), random bf16 weights from a seed: the matmul at
+   each of its shapes (the sLSTM FFN's sides of 2662, no multiple of 8,
+   on the kernel's element loads, a row of their own) and the rmsnorm at
+   2048 against their plain versions, timed; then served as phase 5 in
+   the recurrent mode (4 requests, the per-slot state pools, 181 matmul
+   and 43 rmsnorm a step, one timed pair, captured tokens equal to
+   uncaptured ones; the matmul launches on the element loads counted by
+   ``ops.ELEMENT_LOAD_LAUNCHES``, which must be the sLSTM FFN's 12 a
+   step); where its device time goes (one mLSTM and one sLSTM
+   block each captured alone at a chunk's and a tick's shape, against the
+   served step's replays) and its tick against its bytes with the state
+   counted; then a wave of 4 prompts of 128 tokens on the same weights,
+   held as phase 5b holds zamba2-7b (``wave_run``, the path check at 8
+   layers).
+26. path-check-xlstm -- xlstm-1.3b at full width, one super-block: a
+   chunked prefill (the second chunk carrying the state) and two ticks,
+   the logits and each layer's state rows (the mLSTM's matrix memory and
+   conv state, the sLSTM's c, n and h) on the card against the fp32 CPU
+   path within ``RECURRENT_FACTOR`` times the plain bf16 path's error,
+   and a planted fault (every input gate 2% too large, inside the rule on
+   the logits) that must break it.
+27. serve-qwen2vl -- qwen2-vl-7b (M-RoPE, the embeds input) at its
+   published widths and all 28 layers (7.62 B parameters): the matmul at
+   each of its shapes, the rmsnorm at 3584 and the attention at its 28 q
+   / 4 kv heads (a group of 7: variant 0 at a chunk, a ragged chunk of 61
+   rows and a tick; variant 1 at 1024 rows) against their plain versions,
+   timed; served as phase 4 on text prompts (positions broadcast to its
+   t/h/w ids; one timed pair); then a prefill of 1024 embeds through
+   ``launch.steps.build_prefill`` (64 text positions, a 24 x 32 grid of
+   patches, 192 text positions, random bf16 x 0.02 from a seed standing
+   in for the vision frontend), every attention launch on variant 1.
+28. path-check-qwen2vl -- qwen2-vl-7b at full width, 2 layers: that
+   embeds prefill's rows and ``path_calls``' paged calls on the card
+   against the fp32 CPU path within ``PATH_TOL``, and positions3's h and
+   w swapped (a fault text-only positions cannot show) beyond it.
 Phase 8 (train) also trains llama3-8b with an MTP head (its loss term),
 then holds its gradients, the head's with them, against the fp32 CPU
 path at 2 layers.
@@ -447,7 +487,10 @@ matmul and the attention at the serve-dbrx path's, the matmul and the
 rmsnorm at the serve-deepseek path's, the attention at q/k 192 with a V
 of 128 on variant 0 at the speculative serve-deepseek run's, the
 attention at that pair and the rmsnorm each way at the train-deepseek
-step's; the
+step's, the matmul (its 2662-wide sides apart) and the rmsnorm at the
+serve-xlstm path's, the matmul, the rmsnorm and the attention at a group
+of 7 at the serve-qwen2vl path's, and that attention on variant 1 at the
+embeds prefill's; the
 llama3-8b serving rows and the training steps' other rows go
 to the log and, with every check, to
 ``kernel_checks.json`` in the output directory) and, last,
@@ -483,7 +526,8 @@ PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
           "path-check-train-zamba", "train-gpt-kernels", "train-gpt",
           "path-check-train-gpt", "train-gemma", "serve-dbrx",
           "serve-musicgen", "serve-deepseek", "path-check-deepseek",
-          "train-deepseek", "path-check-train-deepseek", "plan",
+          "train-deepseek", "path-check-train-deepseek", "serve-xlstm",
+          "path-check-xlstm", "serve-qwen2vl", "path-check-qwen2vl", "plan",
           "calibrate")
 #: the serving path whose forward rows the result line reports
 MAIN = "zamba2-7b"
@@ -514,6 +558,15 @@ DEEPSEEK = "deepseek-v3-671b"
 DEEPSEEK_TRAIN = "train-deepseek"
 #: musicgen-medium, served at full depth (LayerNorm, gelu, no RoPE)
 MUSICGEN = "musicgen-medium"
+#: xlstm-1.3b's serving path: the matmul at its shapes (its sLSTM FFN's
+#: 2662-wide sides apart) and the rmsnorm at 2048
+XLSTM = "xlstm-1.3b"
+#: qwen2-vl-7b's serving path (text through the paged server): the matmul
+#: and the rmsnorm at its shapes, the attention at its group of 7
+QWEN2VL = "qwen2-vl-7b"
+#: qwen2-vl-7b's embeds prefill of 1024 positions: the attention on
+#: variant 1 at a group of 7
+QWEN2VL_PREFILL = "qwen2-vl-7b embeds prefill"
 
 BF16_TFLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_TFLOPS = 67e12      # H100 SXM fp32 peak outside the tensor cores
@@ -1147,7 +1200,12 @@ def launches_per_step(cfg, speculate: bool = False,
     one attention core (the served step scores against its latent with
     torch ops); then its MLP's 2 GEMMs, or the MoE's (deepseek-v3 at 4
     layers, serving: matmul 3 * 6 + (4 + 2 * 256 + 2) + 1 = 537, rmsnorm 3
-    * 4 + 4 + 1 = 17, flash_attention 0)."""
+    * 4 + 4 + 1 = 17, flash_attention 0).  An xlstm super-block of
+    ``inner`` blocks: ``inner - 1`` mLSTM blocks (its ``ln`` norm; up|z,
+    q|k, i|f and down GEMMs; its group norm and scan are torch ops) and an
+    sLSTM block (its FFN's 2 GEMMs; its fp32 norms, gate product and
+    recurrence are torch ops): xlstm-1.3b (6 super-blocks of 8): matmul 6
+    * (7 * 4 + 2) + 1 = 181, rmsnorm 6 * 7 + 1 = 43."""
     from repro_torch.configs.base import segments
 
     norm = 0 if cfg.norm_kind == "layernorm" else 1   # a block norm's launch
@@ -1155,7 +1213,9 @@ def launches_per_step(cfg, speculate: bool = False,
     block_norms = 4 if cfg.post_block_norms else 2
     per = {"dense": {"matmul": 4, "flash_attention": 1,
                      "rmsnorm": block_norms * norm},
-           "mamba": {"matmul": 3, "rmsnorm": norm + 1, "ssd_scan": 1}}
+           "mamba": {"matmul": 3, "rmsnorm": norm + 1, "ssd_scan": 1},
+           "mlstm": {"matmul": 4, "rmsnorm": norm},
+           "slstm": {"matmul": 2}}
     experts = 0
     if cfg.moe is not None:
         # two per expert (all of them on one rank), two of shared experts
@@ -1178,7 +1238,8 @@ def launches_per_step(cfg, speculate: bool = False,
         n["rmsnorm"] += norm
     for seg in segments(cfg):
         blocks = ({"dense": 1, "mamba": seg.inner - 1} if seg.kind == "zamba"
-                  else {seg.kind: 1})
+                  else {"mlstm": seg.inner - 1, "slstm": 1}
+                  if seg.kind == "xlstm" else {seg.kind: 1})
         if seg.kind == "zamba":
             n["matmul"] += 2 * seg.count
         for kind, k in blocks.items():
@@ -1300,7 +1361,11 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     before, and checked after the profile, so that a tree whose counts
     differ still prints it).  Returns the launch counts of the counted
     run.  ``keep`` (a dict) receives the server's sharded weights
-    (``"params"``) for a later phase.  ``instance`` (a kernel's name, the
+    (``"params"``) for a later phase, the counted run's matmul launches
+    that took the element loads (``"element_loads"``) and, with ``pairs``,
+    the captured runs' median replay device ms a step by kind
+    (``"replay_ms"``).
+    ``instance`` (a kernel's name, the
     name of the kernel it stands in for, a step kind, launches a step):
     with ``profile`` the uncaptured step is profiled too, and in both
     profiled reruns the kernel must have launched, at most its count a
@@ -1338,6 +1403,7 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
     ticks = server.run_until_drained()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    element_loads = ops.ELEMENT_LOAD_LAUNCHES["matmul"]
 
     done = sorted(server.completed, key=lambda r: r.rid)
     assert [r.rid for r in done] == list(range(requests)), "requests lost"
@@ -1407,6 +1473,13 @@ def serve_phase(torch, cfg, requests: int, seed: int, dev="cuda",
                     (mode, kernel, n, most, other, n_other, most_other)
     if keep is not None:
         keep["params"] = step.params
+        keep["element_loads"] = element_loads
+        # the captured runs' replays: device ms a step by kind (medians)
+        keep["replay_ms"] = {
+            kind: statistics.median(m.replay_ms[kind] / m.calls[kind]
+                                    for m in runs["captured"])
+            for kind in StepMeter.KINDS
+            if runs["captured"] and runs["captured"][0].calls[kind]}
     # the step holds the weights; each meter and its server refer to each
     # other, so only a collection frees them
     del server, meter, step, captured, runs
@@ -1617,13 +1690,14 @@ PATH_TOL = 5e-2
 RECURRENT_FACTOR = 2.5
 
 
-def path_calls(cfg, seed: int):
+def path_calls(cfg, seed: int, ticks: int = 1):
     """The page geometry and the ``lm.paged_step`` calls of the path check:
     (tokens, start, table, slot, rows compared) each.  A dense model: slots
     0 and 1 each prefill one chunk, then a tick with two of four slots
     live.  A recurrent model: slot 0 prefills two chunks (the second
     carries the state), slot 1 one, then a tick with slots 0 and 1 live
-    and two sentinel rows."""
+    and two sentinel rows.  ``ticks`` such ticks, each feeding the next
+    seeded token of both live slots."""
     import numpy as np
 
     from repro_torch.models import lm
@@ -1634,18 +1708,19 @@ def path_calls(cfg, seed: int):
                        pages_per_slot=-(-SERVE["max_seq"] // SERVE["page_size"]))
     alloc = PageAllocator(pcfg, slots)
     n0 = 2 * chunk if lm.is_recurrent(cfg) else chunk
-    alloc.ensure(0, n0 + 1)
-    alloc.ensure(1, chunk + 1)
+    alloc.ensure(0, n0 + ticks)
+    alloc.ensure(1, chunk + ticks)
     table = alloc.table()
     table[2:] = 0                  # rows 2 and 3 of the tick are not live
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (slots, n0 + 1), dtype=np.int32)
-    tick = np.stack([toks[0, n0], toks[1, chunk], 0, 0])[:, None]
+    toks = rng.integers(0, cfg.vocab_size, (slots, n0 + ticks),
+                        dtype=np.int32)
     calls = [
         (toks[0:1, :chunk], [0], table[0:1], [0], 1),
         (toks[1:2, :chunk], [0], table[1:2], [1], 1),
-        (tick, [n0, chunk, 0, 0], table, [0, 1, slots, slots], 2),
-    ]
+    ] + [(np.stack([toks[0, n0 + t], toks[1, chunk + t], 0, 0])[:, None],
+          [n0 + t, chunk + t, 0, 0], table, [0, 1, slots, slots], 2)
+         for t in range(ticks)]
     if lm.is_recurrent(cfg):
         calls.insert(1, (toks[0:1, chunk:n0], [chunk], table[0:1], [0], 1))
     return pcfg, calls
@@ -1654,8 +1729,8 @@ def path_calls(cfg, seed: int):
 def run_path(torch, cfg, params, pcfg, calls, where, dtype=None):
     """``calls`` through ``lm.paged_step`` on ``where`` with fresh caches
     (``dtype``: the pools' dtype, the model's when None).  Returns the
-    logits of each call (fp32, on the CPU) and the SSD state pools' rows
-    of slots 0 and 1 (an empty list for a dense model)."""
+    logits of each call (fp32, on the CPU) and the state pools' rows of
+    slots 0 and 1 by layer (``_slot_rows``; empty for a dense model)."""
     import numpy as np
 
     from repro_torch.core.atp import make_context
@@ -1677,9 +1752,7 @@ def run_path(torch, cfg, params, pcfg, calls, where, dtype=None):
                 ctx, cfg, params, put(tok), put(start), put(tab), caches,
                 slot=put(slot) if recurrent else None)
             out.append(got.float().cpu())
-    pools = [t[:, :, :2].cpu() if t.dim() == 6 else t[:, :2].cpu()
-             for t in _ssd_pools(caches)]
-    return out, pools
+    return out, {n: t.float().cpu() for n, t in _slot_rows(caches)}
 
 
 def compare_logits(calls, got, want) -> dict:
@@ -1701,16 +1774,20 @@ def compare_logits(calls, got, want) -> dict:
     return out
 
 
-def path_check(torch, cfg, seed: int, dev="cuda") -> None:
-    """``path_calls`` on ``dev`` in the model dtype and on the CPU in fp32
-    from the same weights.  A dense model: the logits must agree within
-    ``PATH_TOL``.  A recurrent model: the plain versions also run on the
-    CPU in bf16, and the card must be as close to fp32 as they are (see
-    ``RECURRENT_FACTOR``), for the logits and the fp32 SSD state pools."""
+def path_check(torch, cfg, seed: int, dev="cuda", ticks: int = 1,
+               fault=None) -> None:
+    """``path_calls`` (with ``ticks`` ticks) on ``dev`` in the model dtype
+    and on the CPU in fp32 from the same weights.  A dense model: the
+    logits must agree within ``PATH_TOL``.  A recurrent model: the plain
+    versions also run on the CPU in bf16, and the card must be as close to
+    fp32 as they are (see ``RECURRENT_FACTOR``), for the logits and each
+    layer's state rows (``_slot_rows``).  ``fault`` (a function of no
+    arguments giving a context manager): the card's calls once more
+    inside it, which must break that rule."""
     from repro_torch.core.mesh import atp_topo
     from repro_torch.models import lm
 
-    pcfg, calls = path_calls(cfg, seed)
+    pcfg, calls = path_calls(cfg, seed, ticks)
     params = lm.shard_params(cfg, lm.init_params(cfg, seed=seed, device=dev),
                              lm.layout_context(atp_topo(1, 1, 1), 0))
     card = run_path(torch, cfg, params, pcfg, calls, dev)
@@ -1740,25 +1817,67 @@ def path_check(torch, cfg, seed: int, dev="cuda") -> None:
            compare_logits(calls, card[0], bf16[0]))
 
     def pool_err(a, b):
-        return [float((x - y).norm() / y.norm()) for x, y in zip(a, b)]
+        return [float((a[n] - b[n]).norm() / b[n].norm()) for n in b]
 
+    names = list(fp32[1])
     pools, plain_pools = pool_err(card[1], fp32[1]), pool_err(bf16[1], fp32[1])
-    log(f"  SSD state pools (slots 0 and 1) per segment, relative L2 error "
-        f"against fp32: card {', '.join(f'{e:.3e}' for e in pools)}; plain "
-        f"bf16 {', '.join(f'{e:.3e}' for e in plain_pools)}")
-    assert all(t.isfinite().all() for t in card[1]), "non-finite state"
+    log(f"  state rows (slots 0 and 1) by layer, relative L2 error "
+        f"against fp32: "
+        + "; ".join(f"{n} card {e:.3e} plain bf16 {p:.3e}"
+                    for n, e, p in zip(names, pools, plain_pools)))
+    assert all(t.isfinite().all() for t in card[1].values()), \
+        "non-finite state"
     f = RECURRENT_FACTOR
-    bad = [i for i, (e, p) in enumerate(zip(c["frob"], plain["frob"]))
-           if e > f * p]
-    assert not bad, f"path-check: calls {bad} beyond {f}x the bf16 error"
-    bad = [i for i, (e, p) in enumerate(zip(pools, plain_pools)) if e > f * p]
-    assert not bad, f"path-check: state pools {bad} beyond {f}x the bf16 error"
+
+    def beyond(logits, states):
+        return ([i for i, (e, p) in enumerate(zip(logits, plain["frob"]))
+                 if e > f * p],
+                [n for n, e, p in zip(names, states, plain_pools)
+                 if e > f * p])
+
+    calls_bad, pools_bad = beyond(c["frob"], pools)
+    assert not calls_bad, \
+        f"path-check: calls {calls_bad} beyond {f}x the bf16 error"
+    assert not pools_bad, \
+        f"path-check: state pools {pools_bad} beyond {f}x the bf16 error"
+    if fault is None:
+        return
+    with fault():
+        broken = run_path(torch, cfg, params, pcfg, calls, dev)
+    fc = compare_logits(calls, broken[0], fp32[0])
+    calls_bad, pools_bad = beyond(fc["frob"], pool_err(broken[1], fp32[1]))
+    log(f"  the planted fault: over each call "
+        f"{', '.join(f'{e:.3e}' for e in fc['frob'])}; calls beyond {f}x "
+        f"the bf16 error {calls_bad}, state pools {pools_bad}")
+    assert calls_bad or pools_bad, "the path check passed a planted fault"
 
 
-def _ssd_pools(caches) -> list:
-    """The fp32 SSD state pools of every recurrent segment."""
-    return [c["mamba"]["ssd"] if "mamba" in c else c["ssd"]
-            for c in caches.values() if "ssd" in c or "mamba" in c]
+def _slot_rows(caches, rows=slice(0, 2)) -> list:
+    """(name, one layer's state rows ``rows``) of every recurrent segment's
+    state pools, layer by layer: the SSD states (fp32) of the zamba and
+    mamba segments; of an xlstm segment the mLSTM's matrix memory (fp32)
+    and conv state (``[count, inner-1, slots, ...]``) and the sLSTM's c, n
+    and h (fp32, ``[count, slots, ...]``).  Each layer is held on its own:
+    bf16 rounding compounds with depth (``tests/_torch_xlstm_bf16.py``), so
+    a fault that the last layers' state hides shows in the first
+    layers'."""
+    out = []
+
+    def layers(name, pool, lead):        # lead: the layer dims
+        t = pool[(slice(None),) * lead + (rows,)].flatten(0, lead - 1)
+        out.extend((f"{name} layer {i}", t[i]) for i in range(t.shape[0]))
+
+    for name, c in caches.items():
+        if "mlstm" in c:
+            for k in ("C", "conv"):
+                layers(f"{name} mLSTM {k}", c["mlstm"][k], 2)
+            for k in ("c", "n", "h"):
+                layers(f"{name} sLSTM {k}", c["slstm"][k], 1)
+        elif "mamba" in c:
+            layers(f"{name} SSD", c["mamba"]["ssd"], 2)
+        elif "ssd" in c:
+            layers(f"{name} SSD", c["ssd"], 1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1777,7 +1896,7 @@ NEAR_TIE = 5e-2
 #: the depth of the wave's path check: the first layers of the served
 #: weights, full width, so that the fp32 CPU side stays small (path-check's
 #: depths: zamba2-7b's first super-block and a tail Mamba2 block)
-WAVE_PATH_LAYERS = {"qwen3-8b": 2, "zamba2-7b": 7}
+WAVE_PATH_LAYERS = {"qwen3-8b": 2, "zamba2-7b": 7, "xlstm-1.3b": 8}
 
 
 class WaveMeter:
@@ -1932,7 +2051,8 @@ def wave_path_check(torch, cfg, wave, prompts, layers: int) -> None:
     weights), as ``path_check`` holds the paged path.  A dense model within
     ``PATH_TOL`` a row; a recurrent one, as close to fp32 as the plain
     versions in bf16 on the CPU are (``RECURRENT_FACTOR``), over the rows
-    and over the batch-row SSD state the prefill leaves in its caches."""
+    and over each layer's state the prefill leaves in its caches
+    (``_slot_rows``)."""
     import numpy as np
 
     from repro_torch.core.atp import make_context
@@ -1960,7 +2080,8 @@ def wave_path_check(torch, cfg, wave, prompts, layers: int) -> None:
                                        torch.as_tensor(toks, device=where), 0,
                                        caches)
         out[name] = logits.float().cpu()
-        states[name] = [t.cpu() for t in _ssd_pools(caches)]
+        states[name] = {n: t.float().cpu() for n, t in
+                        _slot_rows(caches, rows=slice(None))}
     rel, agree = row_errors(out["card"], out["fp32"])
     log(f"  path check, the first {layers} layers of these weights: the "
         f"first new token's {len(prompts)} logit rows, card (kernels, bf16) "
@@ -1972,8 +2093,8 @@ def wave_path_check(torch, cfg, wave, prompts, layers: int) -> None:
         return
     f = RECURRENT_FACTOR
     pairs = [("logit rows", out["card"], out["fp32"], out["bf16"])] + [
-        (f"SSD state of segment {i}", c, w, p) for i, (c, w, p) in
-        enumerate(zip(states["card"], states["fp32"], states["bf16"]))]
+        (f"state {n}", states["card"][n], states["fp32"][n],
+         states["bf16"][n]) for n in states["fp32"]]
     for what, c, w, p in pairs:
         got, plain = frob(c, w), frob(p, w)
         log(f"    {what} against fp32: card {got:.3e}, plain bf16 "
@@ -1987,15 +2108,17 @@ def frob(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def near_tie_rule(wave_toks, paged_toks: dict, gaps, tie: float) -> list:
+def near_tie_rule(wave_toks, paged_toks: dict, gaps, tie: float):
     """Wave and paged tokens must be equal up to each request's first
     near-tie (a step whose top-2 gap, in either path's logits, is below
     ``tie``).  Returns, per request that reaches one, (request, that step,
-    the first step whose tokens differ or None, the gap there)."""
-    tied = []
+    the first step whose tokens differ or None, the gap there), and the
+    steps the rule held (those before each request's first near-tie)."""
+    tied, held = [], 0
     for r, want in enumerate(wave_toks.tolist()):
         below = [t for t in range(len(want)) if gaps[r, t] < tie]
         upto = below[0] if below else len(want)
+        held += upto
         got = paged_toks[r]
         assert got[:upto] == want[:upto], \
             f"request {r}: paged {got} against wave {want} before its " \
@@ -2005,7 +2128,7 @@ def near_tie_rule(wave_toks, paged_toks: dict, gaps, tie: float) -> list:
                            if g != w), None)
             tied.append((r, upto, differ, None if differ is None else
                          round(float(gaps[r, differ]), 4)))
-    return tied
+    return tied, held
 
 
 def wave_run(torch, cfg, wave, server, step, prompts, pairs: int) -> dict:
@@ -2098,13 +2221,13 @@ def wave_run(torch, cfg, wave, server, step, prompts, pairs: int) -> dict:
         f"wave's shapes (every prompt in one step): worst relative L2 error "
         f"per row {rel:.3e} (limit {PATH_TOL}), top-1 agreement {agree}/{b}")
     assert rel <= PATH_TOL, f"wave against paged: {rel:.3e} > {PATH_TOL}"
-    tied = near_tie_rule(tokens, {r: list(t) for r, t in
-                                  enumerate(same_toks.tolist())},
-                         np.minimum(wave_gaps, same_gaps), NEAR_TIE)
+    tied, held = near_tie_rule(tokens, {r: list(t) for r, t in
+                                        enumerate(same_toks.tolist())},
+                               np.minimum(wave_gaps, same_gaps), NEAR_TIE)
     log(f"    their tokens equal up to each request's first near-tie (top-2 "
-        f"gap < {NEAR_TIE}): {len(tied)} of {b} requests reach one "
-        f"(request, its step, the first step that differs, its gap): "
-        f"{tied}")
+        f"gap < {NEAR_TIE}): {held} of {tokens.size} steps held; {len(tied)} "
+        f"of {b} requests reach one (request, its step, the first step that "
+        f"differs, its gap): {tied}")
     # the paged path as the server runs it, chunks of SERVE["prefill_chunk"]
     pfirst, _, paged_gaps = paged_logit_run(torch, cfg, wave.params, prompts,
                                             dev)
@@ -2126,10 +2249,13 @@ def wave_run(torch, cfg, wave, server, step, prompts, pairs: int) -> dict:
     else:
         assert rel <= PATH_TOL, f"wave against paged: {rel:.3e} > {PATH_TOL}"
     gaps = np.minimum(wave_gaps, paged_gaps)
-    tied = near_tie_rule(tokens, paged, gaps, tie)
+    tied, held = near_tie_rule(tokens, paged, gaps, tie)
     log(f"  wave and paged server tokens equal up to each request's first "
-        f"near-tie (top-2 gap < {tie:.3g} in either path's logits): "
-        f"{len(tied)} of {b} requests reach one (request, its step, the "
+        f"near-tie (top-2 gap < {tie:.3g} in either path's logits): {held} "
+        f"of {tokens.size} steps held"
+        + (" (none: the paths' logits part by more than every request's "
+           "first gap, so this rule holds nothing here)" if not held else "")
+        + f"; {len(tied)} of {b} requests reach one (request, its step, the "
         f"first step that differs, its gap): {tied}; the smallest gap of "
         f"each request {[round(float(g), 4) for g in gaps.min(1)]}")
     wave_path_check(torch, cfg, wave, prompts,
@@ -2692,7 +2818,7 @@ def speculative_check(torch, cfg, params, prompts, name: str, dev="cuda",
     tie = 2 * tick_difference(torch, cfg, params, prompts, want, dev)
     gaps = greedy_gaps(torch, cfg, params, prompts, want, dev)
     plain_toks = np.array([want[r] for r in range(len(prompts))])
-    tied = near_tie_rule(plain_toks, got, gaps, tie)
+    tied, _ = near_tie_rule(plain_toks, got, gaps, tie)
     log(f"  speculative tokens equal to plain up to each request's first "
         f"near-tie (top-2 gap < {tie:.4g}): {len(tied)} of {len(prompts)} "
         f"requests reach one (request, its step, the first step that "
@@ -2716,7 +2842,7 @@ def speculative_check(torch, cfg, params, prompts, name: str, dev="cuda",
     after = spec.stats()
     drafts = after["spec_drafts"] - before["spec_drafts"]
     accepted = after["spec_accepted"] - before["spec_accepted"]
-    tied = near_tie_rule(plain_toks, fed, gaps, tie)
+    tied, _ = near_tie_rule(plain_toks, fed, gaps, tie)
     log(f"  oracle drafts (the plain server's next tokens): {accepted} of "
         f"{drafts} accepted, {m_oracle.calls['decode']} decode ticks against "
         f"the plain server's {m_plain.calls['decode']}; tokens equal to plain "
@@ -5583,6 +5709,60 @@ def dbrx_gemms(cfg, layers: int):
             ("lm_head", h, cfg.vocab_size, chunk, slots, 1))
 
 
+def gemm_checks(torch, ops, ref, timer, randn, gemms, path, pick, failed):
+    """The matmul at each of ``gemms``' shapes ((name, K, N, rows of a
+    prefill chunk, rows of a decode tick, launches per step)) against its
+    plain version within ``MM_TOL``, timed beside the bound, the plain
+    version and ``torch.matmul``, each added to the report ``pick(K, N)``
+    under ``path``; a disagreement is appended to ``failed``."""
+    for label, K, N, m_pre, m_dec, weight in gemms:
+        b = randn(K, N, scale=K ** -0.5)
+        for M, step in ((m_pre, "prefill"), (m_dec, "decode")):
+            plan = ops.matmul_plan(M, N, K)
+            loads = "vec" if K % 8 == 0 and N % 8 == 0 else "element loads"
+            a = randn(M, K)
+            ok, err = within(ops.matmul(a, b), ref.matmul_ref(a, b), **MM_TOL)
+            if not pick(K, N).add(
+                    f"{label} M={M} K={K} N={N} [{plan.name}, {loads}]", ok,
+                    err, MM_TOL, path, step, weight,
+                    timer(lambda: ops.matmul(a, b)),
+                    timer(lambda: ref.matmul_ref(a, b)),
+                    timer(lambda: torch.matmul(a, b)),
+                    nbytes=2 * (M * K + K * N + M * N), flops=2 * M * K * N):
+                failed.append(f"matmul {path} {label} M={M}")
+        del b
+
+
+def rmsnorm_checks(torch, F, ops, ref, timer, randn, gen, h, per, eps, path,
+                   report, failed):
+    """The rmsnorm over rows of ``h`` at a prefill chunk's and a decode
+    tick's rows against its plain version, timed beside ``F.rms_norm``."""
+    g = torch.randn(h, generator=gen, device="cuda") * 0.1 + 1.0
+    gb = g.to(torch.bfloat16)
+    for rows, step in ((SERVE["prefill_chunk"], "prefill"),
+                       (SERVE["slots"], "decode")):
+        x = randn(rows, h)
+        plan = ops.rmsnorm_plan(rows, h)
+        ok, err = within(ops.rmsnorm(x, g, eps=eps),
+                         ref.rmsnorm_ref(x, g, eps), **RN_TOL)
+        if not report.add(f"rows={rows} h={h} [{plan.name}]", ok, err,
+                          RN_TOL, path, step, per,
+                          timer(lambda: ops.rmsnorm(x, g, eps=eps)),
+                          timer(lambda: ref.rmsnorm_ref(x, g, eps)),
+                          timer(lambda: F.rms_norm(x, (h,), gb, eps)),
+                          nbytes=2 * 2 * rows * h + 4 * h, flops=4 * rows * h):
+            failed.append(f"rmsnorm {path} rows={rows} h={h}")
+
+
+def _randn(torch, gen):
+    """``randn(*shape, scale=1.0)``: normal draws from ``gen`` on the card
+    times ``scale``, as bf16."""
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+    return randn
+
+
 def dbrx_kernel_checks(torch, F, ops, ref, cfg, timer, floor):
     """The matmul at every dbrx shape of a prefill chunk and a decode tick,
     and the attention at its 48 q / 8 kv heads (a group of 6, which does
@@ -5592,31 +5772,14 @@ def dbrx_kernel_checks(torch, F, ops, ref, cfg, timer, floor):
     gen = torch.Generator(device="cuda").manual_seed(13)
     chunk, slots, skv = SERVE["prefill_chunk"], SERVE["slots"], \
         SERVE["max_seq"]
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device="cuda")
-                * scale).to(torch.bfloat16)
-
+    randn = _randn(torch, gen)
     failed = []
     mm = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:102", floor)
     log(f"serve-dbrx: matmul at dbrx-132b's shapes, {DBRX_LAYERS} layers "
         f"(tolerance |err| <= atol + rtol*|plain|)")
-    for label, K, N, m_pre, m_dec, weight in dbrx_gemms(cfg, DBRX_LAYERS):
-        b = randn(K, N, scale=K ** -0.5)
-        for M, step in ((m_pre, "prefill"), (m_dec, "decode")):
-            plan = ops.matmul_plan(M, N, K)
-            a = randn(M, K)
-            ok, err = within(ops.matmul(a, b), ref.matmul_ref(a, b), **MM_TOL)
-            if not mm.add(f"{label} M={M} K={K} N={N} [{plan.name}]", ok,
-                          err, MM_TOL, DBRX, step, weight,
-                          timer(lambda: ops.matmul(a, b)),
-                          timer(lambda: ref.matmul_ref(a, b)),
-                          timer(lambda: torch.matmul(a, b)),
-                          nbytes=2 * (M * K + K * N + M * N),
-                          flops=2 * M * K * N):
-                failed.append(f"matmul dbrx {label} M={M}")
-        del a, b
+    gemm_checks(torch, ops, ref, timer, randn, dbrx_gemms(cfg, DBRX_LAYERS),
+                DBRX, lambda K, N: mm, failed)
     fa = KernelReport("flash_attention", "cuda",
                       "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:102", floor)
@@ -5832,33 +5995,15 @@ def deepseek_kernel_checks(torch, F, ops, ref, cfg, timer, floor):
     ``F.rms_norm``).  Returns the two KernelReports of the ``DEEPSEEK``
     path."""
     gen = torch.Generator(device="cuda").manual_seed(14)
-    chunk, slots = SERVE["prefill_chunk"], SERVE["slots"]
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device="cuda")
-                * scale).to(torch.bfloat16)
-
+    randn = _randn(torch, gen)
     failed = []
     mm = KernelReport("matmul", "cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:102", floor)
     log(f"serve-deepseek: matmul at deepseek-v3's shapes, {cfg.num_layers} "
         f"layers (tolerance |err| <= atol + rtol*|plain|)")
-    for label, K, N, m_pre, m_dec, weight in deepseek_gemms(cfg,
-                                                           cfg.num_layers):
-        b = randn(K, N, scale=K ** -0.5)
-        for M, step in ((m_pre, "prefill"), (m_dec, "decode")):
-            plan = ops.matmul_plan(M, N, K)
-            a = randn(M, K)
-            ok, err = within(ops.matmul(a, b), ref.matmul_ref(a, b), **MM_TOL)
-            if not mm.add(f"{label} M={M} K={K} N={N} [{plan.name}]", ok,
-                          err, MM_TOL, DEEPSEEK, step, weight,
-                          timer(lambda: ops.matmul(a, b)),
-                          timer(lambda: ref.matmul_ref(a, b)),
-                          timer(lambda: torch.matmul(a, b)),
-                          nbytes=2 * (M * K + K * N + M * N),
-                          flops=2 * M * K * N):
-                failed.append(f"matmul deepseek {label} M={M}")
-        del a, b
+    gemm_checks(torch, ops, ref, timer, randn,
+                deepseek_gemms(cfg, cfg.num_layers), DEEPSEEK,
+                lambda K, N: mm, failed)
     rn = KernelReport("rmsnorm", "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                       "src/repro/kernels/rmsnorm.py:30", floor)
     m = cfg.mla
@@ -5868,21 +6013,8 @@ def deepseek_kernel_checks(torch, F, ops, ref, cfg, timer, floor):
     for h, per in ((cfg.d_model, 2 * cfg.num_layers + 1),
                    (m.q_lora_rank, cfg.num_layers),
                    (m.kv_lora_rank, cfg.num_layers)):
-        g = torch.randn(h, generator=gen, device="cuda") * 0.1 + 1.0
-        for rows, step in ((chunk, "prefill"), (slots, "decode")):
-            x = randn(rows, h)
-            plan = ops.rmsnorm_plan(rows, h)
-            ok, err = within(ops.rmsnorm(x, g, eps=cfg.norm_eps),
-                             ref.rmsnorm_ref(x, g, cfg.norm_eps), **RN_TOL)
-            gb = g.to(torch.bfloat16)
-            if not rn.add(f"rows={rows} h={h} [{plan.name}]", ok, err,
-                          RN_TOL, DEEPSEEK, step, per,
-                          timer(lambda: ops.rmsnorm(x, g, eps=cfg.norm_eps)),
-                          timer(lambda: ref.rmsnorm_ref(x, g, cfg.norm_eps)),
-                          timer(lambda: F.rms_norm(x, (h,), gb,
-                                                   cfg.norm_eps)),
-                          nbytes=2 * 2 * rows * h + 4 * h, flops=4 * rows * h):
-                failed.append(f"rmsnorm deepseek rows={rows} h={h}")
+        rmsnorm_checks(torch, F, ops, ref, timer, randn, gen, h, per,
+                       cfg.norm_eps, DEEPSEEK, rn, failed)
     log(f"  ({dense} mla_dense and {cfg.num_layers - dense} mla_moe layers; "
         f"rmsnorm launches a step: 2 block norms and q_ln, kv_ln a layer, "
         f"the final norm)")
@@ -6337,6 +6469,507 @@ def deepseek_train_kernels(torch, F, ops, ref, timer, floor, parent=None):
 
 
 # ---------------------------------------------------------------------------
+# xlstm-1.3b (mLSTM and sLSTM blocks, their state pools) and qwen2-vl-7b
+# (M-RoPE, the embeds input), served.
+# ---------------------------------------------------------------------------
+
+#: serve-xlstm's and serve-qwen2vl's timed pairs of captured and
+#: uncaptured runs
+XLSTM_PAIRS = 1
+QWEN2VL_PAIRS = 1
+#: the xlstm wave: equal-length prompts through the wave and through a
+#: paged server on the served weights
+XLSTM_WAVE = dict(batch=4, prompt_len=128, seed=12)
+#: path-check-xlstm's depth: one super-block (7 mLSTM blocks and an sLSTM
+#: block) at full width
+XLSTM_PATH_LAYERS = 8
+#: the result line's row of the matmul at the sLSTM FFN's width, 2662, not
+#: a multiple of 8: the kernel's element loads (``ops._matmul``'s vec = 0)
+FFN_2662 = "matmul (a side of 2662: element loads)"
+#: qwen2-vl-7b's embeds prefill: ``before`` text positions, a ``rows x
+#: cols`` grid of patches, ``after`` text positions (1024 in all), the
+#: embeddings random bf16 x 0.02 from ``seed``, standing in for the vision
+#: frontend
+EMBEDS = dict(before=64, rows=24, cols=32, after=192, seed=11)
+#: path-check-qwen2vl's depth, and the embeds prefill's rows it compares
+#: (text, the grid's first and last rows, text after it)
+QWEN2VL_PATH_LAYERS = 2
+EMBEDS_ROWS = (0, 63, 64, 100, 300, 500, 700, 831, 832, 900, 1023)
+
+
+def xlstm_gemms(cfg):
+    """(name, K, N, rows of a prefill chunk, rows of a decode tick,
+    launches per step) of xlstm's matmuls: each mLSTM block's up|z, q|k,
+    i|f and down, each sLSTM block's FFN, the head."""
+    from repro_torch.configs.base import segments
+    from repro_torch.models import xlstm
+
+    seg = segments(cfg)[0]
+    d_inner, nh, dk, _ = xlstm.mlstm_dims(cfg)
+    h, m = cfg.d_model, seg.count * (seg.inner - 1)
+    d_ff = int(1.3 * h)
+    rows = SERVE["prefill_chunk"], SERVE["slots"]
+    return (("mLSTM up|z", h, 2 * d_inner, *rows, m),
+            ("mLSTM q|k", h, 2 * nh * dk, *rows, m),
+            ("mLSTM i|f", h, 2 * nh, *rows, m),
+            ("mLSTM down", d_inner, h, *rows, m),
+            ("lm_head", h, cfg.vocab_size, *rows, 1),
+            ("sLSTM FFN up", h, d_ff, *rows, seg.count),
+            ("sLSTM FFN down", d_ff, h, *rows, seg.count))
+
+
+def qwen2vl_gemms(cfg):
+    """(name, K, N, rows of a prefill chunk, rows of a decode tick,
+    launches per step) of qwen2-vl's matmuls."""
+    h, L = cfg.d_model, cfg.num_layers
+    rows = SERVE["prefill_chunk"], SERVE["slots"]
+    return (("fused_qkv", h, cfg.q_dim + 2 * cfg.kv_dim, *rows, L),
+            ("wo", cfg.q_dim, h, *rows, L),
+            ("fused_up_gate", h, 2 * cfg.d_ff, *rows, L),
+            ("down", cfg.d_ff, h, *rows, L),
+            ("lm_head", h, cfg.vocab_size, *rows, 1))
+
+
+def xlstm_kernel_checks(torch, F, ops, ref, cfg, timer, floor):
+    """The matmul at every xlstm-1.3b serving shape (the sLSTM FFN's sides
+    of 2662 in a report of their own) and the rmsnorm at its 2048-wide
+    rows against their plain versions, timed.  Returns the ``XLSTM``
+    path's three KernelReports."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    randn = _randn(torch, gen)
+    failed = []
+    src = "src/repro_torch/kernels/csrc/matmul.cu"
+    mm = KernelReport("matmul", "cuda", src, "src/repro/kernels/matmul.py:102",
+                      floor)
+    ffn = KernelReport(FFN_2662, "cuda", src,
+                       "src/repro/kernels/matmul.py:102", floor)
+    log(f"serve-xlstm: matmul at xlstm-1.3b's shapes (tolerance |err| <= "
+        f"atol + rtol*|plain|); a side of 2662 is no multiple of 8, so the "
+        f"kernel takes its element loads")
+    gemm_checks(torch, ops, ref, timer, randn, xlstm_gemms(cfg), XLSTM,
+                lambda K, N: ffn if 2662 in (K, N) else mm, failed)
+    rn = KernelReport("rmsnorm", "cuda",
+                      "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                      "src/repro/kernels/rmsnorm.py:30", floor)
+    blocks = sum(w for label, *_, w in xlstm_gemms(cfg)
+                 if label == "mLSTM down")
+    rmsnorm_checks(torch, F, ops, ref, timer, randn, gen, cfg.d_model,
+                   blocks + 1, cfg.norm_eps, XLSTM, rn, failed)
+    if failed:
+        raise AssertionError(f"xlstm-1.3b's kernels disagree with their plain "
+                             f"versions: {failed}")
+    return mm, ffn, rn
+
+
+def qwen2vl_kernel_checks(torch, F, ops, ref, cfg, timer, floor):
+    """The matmul at every qwen2-vl-7b serving shape, the rmsnorm at its
+    3584-wide rows and the attention at its 28 q / 4 kv heads (a group of
+    7: 64 q rows of a chunk are 7 whole 64-row tiles, 61 leave a ragged
+    one) against their plain versions, timed: variant 0 at a prefill chunk
+    (and a ragged one of 61 rows, checked only) and a 4-slot tick, variant 1
+    at the embeds prefill's 1024 rows.  Returns the ``QWEN2VL`` path's
+    three KernelReports and the ``QWEN2VL_PREFILL`` path's attention
+    report."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    randn = _randn(torch, gen)
+    failed = []
+    mm = KernelReport("matmul", "cuda",
+                      "src/repro_torch/kernels/csrc/matmul.cu",
+                      "src/repro/kernels/matmul.py:102", floor)
+    log("serve-qwen2vl: matmul at qwen2-vl-7b's shapes")
+    gemm_checks(torch, ops, ref, timer, randn, qwen2vl_gemms(cfg), QWEN2VL,
+                lambda K, N: mm, failed)
+    rn = KernelReport("rmsnorm", "cuda",
+                      "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                      "src/repro/kernels/rmsnorm.py:30", floor)
+    rmsnorm_checks(torch, F, ops, ref, timer, randn, gen, cfg.d_model,
+                   2 * cfg.num_layers + 1, cfg.norm_eps, QWEN2VL, rn, failed)
+    fa0 = KernelReport("flash_attention", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:102", floor)
+    fa1 = KernelReport("flash_attention", "cuda",
+                       "src/repro_torch/kernels/csrc/flash_attention_train.cu",
+                       "src/repro/kernels/flash_attention.py:102", floor)
+    chunk, slots, skv = SERVE["prefill_chunk"], SERVE["slots"], \
+        SERVE["max_seq"]
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    n = EMBEDS["before"] + EMBEDS["rows"] * EMBEDS["cols"] + EMBEDS["after"]
+    lens = [137, 64, 250, 9][:slots]
+    log(f"serve-qwen2vl: flash_attention at hq={hq}, hkv={hkv} (a group of "
+        f"{hq // hkv}), d={d}")
+    for label, b, sq, kv, q_off, kv_len, step, weight, variant, report in (
+            (f"prefill b=1 sq={chunk} skv={skv} q_offset=128", 1, chunk,
+             skv, [128], [128 + chunk], "prefill", cfg.num_layers, 0, fa0),
+            (f"ragged prefill b=1 sq=61 skv={skv} q_offset=128", 1, 61, skv,
+             [128], [189], None, 0, 0, fa0),
+            (f"decode b={slots} sq=1 skv={skv}", slots, 1, skv, lens,
+             [x + 1 for x in lens], "decode", cfg.num_layers, 0, fa0),
+            (f"embeds prefill b=1 sq={n} skv={n}", 1, n, n, [0], [n],
+             "prefill", cfg.num_layers, 1, fa1)):
+        q = randn(b, sq, hq, d)
+        k, v = randn(b, kv, hkv, d), randn(b, kv, hkv, d)
+        qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+        kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        plan = ops.attention_plan(b, sq, hq, hkv, kv, d=d)
+        assert plan.variant == variant, (label, plan)
+        ok, err = within(ops.flash_attention(q, k, v, qo, kl),
+                         ref.attention_ref(q, k, v, qo, kl), **FA_TOL)
+        mask = ref.attention_mask(sq, kv, qo, kl)
+        visible = int(mask.sum()) * hq
+        path = QWEN2VL if variant == 0 else QWEN2VL_PREFILL
+        timed = {}
+        if step is not None:
+            timed = dict(ms=timer(lambda: ops.flash_attention(q, k, v, qo,
+                                                              kl)),
+                         plain_ms=timer(lambda: ref.attention_ref(q, k, v,
+                                                                  qo, kl)),
+                         library_ms=timer(_sdpa(torch, F, q, k, v, mask)),
+                         nbytes=2 * 2 * q.numel()
+                         + sum(min(x, kv) for x in kv_len) * hkv * d * 2 * 2,
+                         flops=4 * d * visible)
+        if not report.add(f"{label} [variant {plan.variant} row_tiles="
+                          f"{plan.row_tiles} splits={plan.splits}]", ok, err,
+                          FA_TOL, path, step, weight, **timed):
+            failed.append(f"flash_attention qwen2-vl {label}")
+        del q, k, v
+    if failed:
+        raise AssertionError(f"qwen2-vl-7b's kernels disagree with their "
+                             f"plain versions: {failed}")
+    return mm, rn, fa0, fa1
+
+
+def graph_ms(torch, timer, fn) -> float:
+    """Device ms of ``fn`` captured alone as a CUDA graph (after a warm-up
+    on a side stream), its replay timed by ``timer``."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = timer(graph.replay)
+    del graph
+    return ms
+
+
+def xlstm_breakdown(torch, cfg, params, replay_ms, timer) -> None:
+    """Where a served xlstm-1.3b step's device time goes: one mLSTM block
+    and one sLSTM block, each captured alone as a CUDA graph at a prefill
+    chunk's shape (b = 1, s = ``SERVE["prefill_chunk"]``) and a decode
+    tick's (b = ``SERVE["slots"]``, s = 1) on state rows of its pools'
+    dtypes, times the blocks of the model, against the served step's
+    captured replays (``replay_ms``, device ms a step by kind); and the
+    decode tick against its byte floor with the state counted: every
+    weight but the embedding once, the embedding's rows of the tick, and
+    every state pool's rows of the tick read and written once."""
+    from repro_torch.configs.base import segments
+    from repro_torch.core.atp import make_context
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm, xlstm
+    from repro_torch.models.paging import PagedConfig
+    from repro_torch.optim.adamw import tree_leaves
+
+    seg = segments(cfg)[0]
+    ctx = make_context(atp_topo(1, 1, 1), device_type="cuda")
+    sp = params["seg0"]
+    blocks = {"mLSTM": (xlstm.mlstm_block, lm._layer(lm._layer(
+        sp["mlstm"], 0), 0), seg.count * (seg.inner - 1)),
+              "sLSTM": (xlstm.slstm_block, lm._layer(sp["slstm"], 0),
+                        seg.count)}
+    caches = lm.init_paged_caches(
+        cfg, ctx, PagedConfig(page_size=SERVE["page_size"], num_pages=2,
+                              pages_per_slot=1),
+        device="cuda", slots=SERVE["slots"])
+    pools = caches["seg0"]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    ms = {}
+    with torch.no_grad():
+        for kind, (b, s) in (("prefill", (1, SERVE["prefill_chunk"])),
+                             ("decode", (SERVE["slots"], 1))):
+            x = torch.randn(b, s, cfg.d_model, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            for name, (block, p, _) in blocks.items():
+                pool = lm._layer(lm._layer(pools["mlstm"], 0), 0) \
+                    if name == "mLSTM" else lm._layer(pools["slstm"], 0)
+                rows = {k: v[:b].clone() for k, v in pool.items()}
+                ms[kind, name] = graph_ms(
+                    torch, timer, lambda: block(ctx, cfg, p, x, rows))
+    for kind in ("prefill", "decode"):
+        step = replay_ms.get(kind)
+        parts = ", ".join(
+            f"{name} {ms[kind, name]:.4f} ms a block x {n} = "
+            f"{ms[kind, name] * n:.3f} ms"
+            + (f" ({ms[kind, name] * n / step:.0%} of the step)"
+               if step else "")
+            for name, (_, _, n) in blocks.items())
+        log(f"  {kind} step breakdown (each block captured alone): {parts}; "
+            f"the served step's replay "
+            + (f"{step:.3f} ms" if step else "not timed"))
+    def nbytes_of(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    weights = nbytes_of(params) - nbytes_of(params["embed"])
+    state = nbytes_of(caches)
+    rows = SERVE["slots"] * cfg.d_model * 2
+    nbytes = weights + rows + 2 * state
+    floor_ms = nbytes / HBM_BYTES_S * 1e3
+    tick = replay_ms.get("decode")
+    log(f"  decode tick against its bytes: weights {weights / 1e9:.3f} GB "
+        f"(the embedding's {SERVE['slots']} rows apart), the state of "
+        f"{SERVE['slots']} slots {state / 1e9:.3f} GB read and written, "
+        f"{nbytes / 1e9:.3f} GB in all: floor {floor_ms:.3f} ms at "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s; the captured tick's replay "
+        + (f"{tick:.3f} ms ({floor_ms / tick:.0%} of the rate)" if tick
+           else "not timed"))
+    del caches, pools
+
+
+def xlstm_wave(torch, cfg, params, dev="cuda") -> None:
+    """``XLSTM_WAVE``'s equal-length prompts through the wave
+    (``launch.serve.make_wave_server`` on the served weights) and through a
+    paged server on the same weights, held as serve-wave holds zamba2-7b
+    (``wave_run``): the counted captured wave, ``XLSTM_PAIRS`` timed runs
+    of each in turns, the wave's rows against the paged path's at the
+    wave's own shapes within ``PATH_TOL``, against its chunks within
+    ``RECURRENT_FACTOR`` times the paged path's own distance between the
+    two, the tokens up to each request's first near-tie, and the path
+    check at ``WAVE_PATH_LAYERS``."""
+    from repro_torch.launch import serve
+
+    w = XLSTM_WAVE
+    prompts = serve.wave_prompts(cfg, w["batch"], w["prompt_len"], w["seed"])
+    wave = serve.make_wave_server(cfg, w["batch"], SERVE["max_seq"], params,
+                                  device=dev, sharded=True)
+    scfg = serve.paged_server_config([len(p) for p in prompts], **SERVE)
+    server, _ = serve.make_paged_server(cfg, scfg, params, device=dev,
+                                        sharded=True)
+    log(f"serve-xlstm wave: {w['batch']} prompts of {w['prompt_len']} "
+        f"tokens, {SERVE['max_new']} new each, caches of {SERVE['max_seq']} "
+        f"positions, serve-xlstm's weights shared with a paged server")
+    wave_run(torch, cfg, wave, server, server.step_fn, prompts, XLSTM_PAIRS)
+    del wave, server
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serve_xlstm_phase(torch, F, ops, ref, floor) -> tuple[list, dict]:
+    """xlstm-1.3b at its published widths and all 48 layers (6 super-blocks
+    of 7 mLSTM blocks and an sLSTM block, 1.81 B parameters), random bf16
+    weights from a seed, in the server's recurrent mode: its kernels at its
+    shapes (``xlstm_kernel_checks``), then ``serve_phase`` (4 requests,
+    captured tokens equal to uncaptured ones, ``XLSTM_PAIRS`` timed pairs),
+    ``xlstm_breakdown`` and ``xlstm_wave`` on the served weights.  Returns
+    the kernel reports and the served run's launch counts, the 2662-wide
+    matmul's apart."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(XLSTM)
+    timer = Timer(torch)
+    if floor is None:
+        floor = timer(lambda: torch.cuda._sleep(0))
+    reports = list(xlstm_kernel_checks(torch, F, ops, ref, cfg, timer, floor))
+    kept = {}
+    launches = serve_phase(torch, cfg, requests=4, seed=12, pairs=XLSTM_PAIRS,
+                           kernel_ms={s: sum(r.step_ms(XLSTM, s)
+                                             for r in reports)
+                                      for s in ("prefill", "decode")},
+                           keep=kept)
+    # the matmul launches that took the element loads, as counted: the
+    # sLSTM FFN's two GEMMs (its sides of 2662) of every step, and no other
+    loads = kept["element_loads"]
+    per = launches_per_step(cfg)["matmul"]
+    ffn = sum(w for label, *_, w in xlstm_gemms(cfg) if "FFN" in label)
+    log(f"  matmul launches on the element loads: {loads} of "
+        f"{launches['matmul']} ({ffn} of {per} a step: the sLSTM FFN's)")
+    assert loads == launches["matmul"] // per * ffn, \
+        f"{loads} element-load launches, expected the FFN's {ffn} a step"
+    launches[FFN_2662] = loads
+    launches["matmul"] -= loads
+    xlstm_breakdown(torch, cfg, kept["params"], kept.get("replay_ms", {}),
+                    timer)
+    xlstm_wave(torch, cfg, kept.pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reports, launches
+
+
+@contextlib.contextmanager
+def raised_input_gates():
+    """A planted fault near the recurrent rule's limit: every mLSTM input
+    gate 2% too large (its log raised by 0.02), in the chunked scan and the
+    tick.  On the CPU (the plain versions in bf16 with the fault, against
+    fp32: ``tests/_torch_xlstm_bf16.py``) it moves path-check-xlstm's
+    logits by 0.89-1.92x the plain bf16 path's own error, inside the
+    rule's 2.5x, and the first mLSTM layer's matrix memory by 4.5x: each
+    layer's state rows catch it."""
+    from repro_torch.models import xlstm
+
+    def chunked(q, k, v, li, lf, chunk, state=None,
+                scan=xlstm.mlstm_chunked):
+        return scan(q, k, v, li + 0.02, lf, chunk, state)
+
+    def step(q, k, v, li, lf, state, tick=xlstm.mlstm_step):
+        return tick(q, k, v, li + 0.02, lf, state)
+
+    with swapped(xlstm, mlstm_chunked=chunked, mlstm_step=step):
+        yield
+
+
+def embeds_inputs(torch, cfg, where, dtype=None):
+    """``EMBEDS``' prefill inputs on ``where``: embeds [1, S, d_model]
+    (random x 0.02 from its seed, bf16, cast to ``dtype`` if given) and
+    positions3 [3, 1, S] (text: t = h = w = its position; the grid: t at
+    its first position, h and w from there plus its row and column; the
+    text after it from there plus the grid's larger side)."""
+    import numpy as np
+
+    e = EMBEDS
+    text0 = np.arange(e["before"])
+    r, c = np.meshgrid(np.arange(e["rows"]), np.arange(e["cols"]),
+                       indexing="ij")
+    grid = np.stack([np.full(r.size, e["before"]), e["before"] + r.ravel(),
+                     e["before"] + c.ravel()])
+    text1 = e["before"] + max(e["rows"], e["cols"]) + np.arange(e["after"])
+    pos = np.concatenate([np.stack([text0] * 3), grid, np.stack([text1] * 3)],
+                         axis=1)
+    gen = torch.Generator().manual_seed(e["seed"])
+    embeds = (torch.randn(1, pos.shape[1], cfg.d_model, generator=gen)
+              * 0.02).to(torch.bfloat16)
+    if dtype is not None:
+        embeds = embeds.to(dtype)
+    return (embeds.to(where),
+            torch.as_tensor(pos[:, None], dtype=torch.int64, device=where))
+
+
+def embeds_prefill(torch, cfg, params, timer, dev="cuda") -> dict:
+    """``EMBEDS``' 1024 positions through ``launch.steps.build_prefill``
+    (``lm.prefill_logits`` on the embeds and positions3, the greedy pick),
+    every count set to 0 just before and read just after: the per-step
+    counts of a dense step with every attention launch on variant 1 (the
+    training kernel, at a group of 7); a token in the vocabulary; timed.
+    Returns the counts."""
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_prefill
+
+    step, _ = build_prefill(cfg, atp_topo(1, 1, 1), device=dev)
+    embeds, pos3 = embeds_inputs(torch, cfg, dev)
+    batch = {"embeds": embeds, "positions3": pos3}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tok = step(params, batch)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variants = dict(ops.LAUNCHES), list(
+        ops.ATTENTION_VARIANT_LAUNCHES)
+    want = launches_per_step(cfg)
+    log(f"  embeds prefill of {embeds.shape[1]} positions ({EMBEDS}): token "
+        f"{tok.tolist()}, {wall:.3f}s wall (the first call), launches "
+        f"{launches}, flash_attention by variant {variants}")
+    assert launches == want, f"launches {launches}, expected {want}"
+    assert variants == [0, cfg.num_layers], variants
+    assert 0 <= int(tok[0]) < cfg.vocab_size
+    ms = timer(lambda: step(params, batch))
+    log(f"  embeds prefill: {ms:.3f} ms device time a call (median, L2 "
+        f"flushed)")
+    return launches
+
+
+def serve_qwen2vl_phase(torch, F, ops, ref, floor):
+    """qwen2-vl-7b at its published widths and all 28 layers (7.62 B
+    parameters; 28 q / 4 kv heads, M-RoPE sections (16, 24, 24)), random
+    bf16 weights from a seed: its kernels at its shapes
+    (``qwen2vl_kernel_checks``), then ``serve_phase`` on text prompts (4
+    requests; positions broadcast to its t/h/w ids), then
+    ``embeds_prefill`` on the served weights.  Returns the kernel reports,
+    the served run's launch counts and the embeds prefill's."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(QWEN2VL)
+    timer = Timer(torch)
+    if floor is None:
+        floor = timer(lambda: torch.cuda._sleep(0))
+    reports = list(qwen2vl_kernel_checks(torch, F, ops, ref, cfg, timer,
+                                         floor))
+    kept = {}
+    launches = serve_phase(torch, cfg, requests=4, seed=13,
+                           pairs=QWEN2VL_PAIRS,
+                           kernel_ms={s: sum(r.step_ms(QWEN2VL, s)
+                                             for r in reports)
+                                      for s in ("prefill", "decode")},
+                           keep=kept)
+    prefill = embeds_prefill(torch, cfg, kept.pop("params"), timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reports, launches, prefill
+
+
+def embeds_logits(torch, cfg, params, embeds, pos3, where):
+    """The logits [R, V] (fp32, on the CPU) of ``EMBEDS_ROWS`` of a
+    cache-free forward over ``embeds`` at ``pos3`` on ``where``."""
+    from repro_torch.core.atp import make_context
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+
+    ctx = make_context(atp_topo(1, 1, 1), device_type=where)
+    with torch.no_grad():
+        h = lm.forward(ctx, cfg, params, None, pos3, embeds=embeds)
+        rows = torch.as_tensor(EMBEDS_ROWS, device=h.device)
+        return lm.lm_logits(ctx, cfg, params,
+                            h[:, rows])[0].float().cpu()
+
+
+def qwen2vl_path_check(torch, cfg, seed: int, dev="cuda") -> None:
+    """qwen2-vl-7b at ``QWEN2VL_PATH_LAYERS`` layers, full width, weights
+    from ``seed``: the embeds prefill's ``EMBEDS_ROWS`` logit rows and
+    ``path_calls``' paged calls (text: positions broadcast) on the card
+    (kernels, bf16) against the CPU (plain versions, fp32, from the same
+    bf16 weights and embeds), within ``PATH_TOL`` a row; a planted fault
+    (positions3's h and w rows swapped, which text-only positions cannot
+    show) must break the limit."""
+    from repro_torch.configs.base import cut_depth
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.models import lm
+
+    cut = cut_depth(cfg, QWEN2VL_PATH_LAYERS)
+    params = lm.shard_params(cut, lm.init_params(cut, seed=seed, device=dev),
+                             lm.layout_context(atp_topo(1, 1, 1), 0))
+    host = lm.tree_map(lambda t: t.cpu().float(), params)
+    pcfg, calls = path_calls(cut, seed)
+    card = run_path(torch, cut, params, pcfg, calls, dev)[0]
+    fp32 = run_path(torch, cut, host, pcfg, calls, "cpu", torch.float32)[0]
+    c = compare_logits(calls, card, fp32)
+    embeds, pos3 = embeds_inputs(torch, cut, "cpu")
+    rows = embeds_logits(torch, cut, params, embeds.to(dev), pos3.to(dev),
+                         dev)
+    fault = embeds_logits(torch, cut, params, embeds.to(dev),
+                          pos3[[0, 2, 1]].to(dev), dev)
+    want = embeds_logits(torch, cut, host, embeds.float(), pos3, "cpu")
+    rel, agree = row_errors(rows, want)
+    frel = row_errors(fault, want)[0]
+    log(f"path-check qwen2-vl-7b at {QWEN2VL_PATH_LAYERS} layers, d_model "
+        f"{cfg.d_model}: paged calls (text) worst relative L2 error per row "
+        f"{c['worst']:.3e} (per call "
+        f"{', '.join(f'{e:.3e}' for e in c['per_call'])}), top-1 agreement "
+        f"{c['agree']}/{c['rows']}; the embeds prefill's {len(EMBEDS_ROWS)} "
+        f"rows {rel:.3e}, top-1 agreement {agree}/{len(EMBEDS_ROWS)}; limit "
+        f"{PATH_TOL}; the planted fault (positions3's h and w swapped) "
+        f"{frel:.3e}")
+    assert c["worst"] <= PATH_TOL, \
+        f"path-check qwen2-vl paged: {c['worst']:.3e} (limit {PATH_TOL})"
+    assert rel <= PATH_TOL, \
+        f"path-check qwen2-vl embeds: {rel:.3e} (limit {PATH_TOL})"
+    assert frel > PATH_TOL, "the path check passed a planted fault"
+    del params, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # The strategy stack on the card (phase 16).
 # ---------------------------------------------------------------------------
 
@@ -6599,12 +7232,17 @@ def main(argv=None) -> int:
                 if "registers" in line or "spill" in line or "C7520" in line:
                     log(f"  ptxas {name} {kernel}: {line.strip()}")
 
+    from repro_torch.configs.base import cut_depth
     from repro_torch.configs.registry import get_config
 
     t_run = time.perf_counter()
+    t_phase = [t_run]
 
     def done(phase):
-        log(f"[{phase} done at {time.perf_counter() - t_run:.1f}s]")
+        now = time.perf_counter()
+        log(f"[{phase} done at {now - t_run:.1f}s, {now - t_phase[0]:.1f}s "
+            f"of it]")
+        t_phase[0] = now
 
     reports = []
     floor_ms = None
@@ -6800,6 +7438,25 @@ def main(argv=None) -> int:
         train_path_check(torch, arch=DEEPSEEK, layers=DEEPSEEK_PATH_LAYERS,
                          hold_attention=True)
         done("path-check-train-deepseek")
+    if "serve-xlstm" in phases:
+        xl_reports, launches[XLSTM] = serve_xlstm_phase(torch, F, ops, ref,
+                                                         floor_ms)
+        reports += xl_reports
+        done("serve-xlstm")
+    if "path-check-xlstm" in phases:
+        # one super-block at full width; a chunked prefill and two ticks;
+        # the planted fault: every input gate 2% too large
+        path_check(torch, cut_depth(get_config(XLSTM), XLSTM_PATH_LAYERS),
+                   seed=3, ticks=2, fault=raised_input_gates)
+        done("path-check-xlstm")
+    if "serve-qwen2vl" in phases:
+        q_reports, launches[QWEN2VL], launches[QWEN2VL_PREFILL] = \
+            serve_qwen2vl_phase(torch, F, ops, ref, floor_ms)
+        reports += q_reports
+        done("serve-qwen2vl")
+    if "path-check-qwen2vl" in phases:
+        qwen2vl_path_check(torch, get_config(QWEN2VL), seed=5)
+        done("path-check-qwen2vl")
     if "plan" in phases:
         plan_phase(torch)
         done("plan")
@@ -6814,7 +7471,8 @@ def main(argv=None) -> int:
     rows = {path: path_rows(path, reports)
             for path in ("llama3-8b", MAIN, GEMMA, TRAIN, TRAIN_ZAMBA,
                          TRAIN_GPT, SPLIT, INT8, GEMMA_TRAIN, DBRX,
-                         DEEPSEEK, DEEPSEEK_SPEC, DEEPSEEK_TRAIN)}
+                         DEEPSEEK, DEEPSEEK_SPEC, DEEPSEEK_TRAIN, XLSTM,
+                         QWEN2VL, QWEN2VL_PREFILL)}
     for row in rows[GEMMA]:    # the attention at head dim 256
         row["name"] += " (head dim 256)"
     for row in rows[GEMMA_TRAIN]:
@@ -6828,6 +7486,15 @@ def main(argv=None) -> int:
     for row in rows[DEEPSEEK_TRAIN]:
         row["name"] += " (deepseek-v3, q/k 192 v 128 and rows of 7168, " \
                        "training)"
+    for row in rows[XLSTM]:
+        row["name"] += " (xlstm-1.3b)"
+    for row in rows[QWEN2VL]:
+        row["name"] += (" (qwen2-vl-7b, a group of 7)"
+                        if row["name"] == "flash_attention" else
+                        " (qwen2-vl-7b)")
+    for row in rows[QWEN2VL_PREFILL]:
+        row["name"] += (" (qwen2-vl-7b, a group of 7, variant 1: the "
+                        "embeds prefill of 1024 positions)")
     rows["train forward"] = path_rows(TRAIN, train_fwd)
     rows["train-zamba forward"] = path_rows(TRAIN_ZAMBA, train_zamba_fwd)
     rows["train-zamba matmul backward"] = path_rows(TRAIN_ZAMBA, zamba_mm_bwd)
@@ -6860,7 +7527,10 @@ def main(argv=None) -> int:
                        ("deepseek-v3-671b step pair", DEEPSEEK),
                        ("deepseek-v3-671b speculative step pair",
                         DEEPSEEK_SPEC),
-                       ("train-deepseek step", DEEPSEEK_TRAIN)):
+                       ("train-deepseek step", DEEPSEEK_TRAIN),
+                       ("xlstm-1.3b step pair", XLSTM),
+                       ("qwen2-vl-7b step pair", QWEN2VL),
+                       ("qwen2-vl-7b embeds prefill", QWEN2VL_PREFILL)):
         for row in rows[path]:
             log(f"{what}: {row['name']} launches={row['launches']} "
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
@@ -6869,7 +7539,8 @@ def main(argv=None) -> int:
     kernels = (rows[MAIN] + rows[GEMMA] + rows[TRAIN] + rows[TRAIN_ZAMBA]
                + rows[TRAIN_GPT] + rows[SPLIT] + rows[INT8]
                + rows[GEMMA_TRAIN] + rows[DBRX] + rows[DEEPSEEK]
-               + rows[DEEPSEEK_SPEC] + rows[DEEPSEEK_TRAIN])
+               + rows[DEEPSEEK_SPEC] + rows[DEEPSEEK_TRAIN] + rows[XLSTM]
+               + rows[QWEN2VL] + rows[QWEN2VL_PREFILL])
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,13 +5,15 @@ as numpy arrays (keys like ``seg0/attn/wq`` stacked ``[count, ...]``), and
 returns rank ``rank``'s shard for the port: cut by the same
 PartitionSpecs the JAX package shards with (an MoE layer's experts over
 the flat TP ranks; an MLA layer's leaves by ``mla.SPECS``, none fused),
-with q/k/v, up/gate (each expert's too) and the
-Mamba2 z/x fused per rank in the order the JAX blocks concatenate their
-local shards (``lm.shard_params``).  Each leaf keeps its dtype: a bf16
-model's Mamba2 ``conv``, ``A_log``, ``D``, ``dt_bias``, ``ln`` and ``gn``
-stay fp32.  ``params_to_numpy`` is its inverse: it reassembles the global
-arrays, under the JAX keys, from every rank's shard (of parameters, or of
-their gradients), with the fused leaves split back.  This module imports
+with q/k/v, up/gate (each expert's too), the
+Mamba2 z/x and the mLSTM up/z fused per rank in the order the JAX blocks
+concatenate their local shards (``lm.shard_params``).  Each leaf keeps its
+dtype: a bf16 model's Mamba2 ``conv``, ``A_log``, ``D``, ``dt_bias``,
+``ln`` and ``gn``, its mLSTM's ``ln``, ``conv``, ``b_if`` and ``gn`` and
+its sLSTM's gates, recurrence and norms stay fp32.  ``params_to_numpy``
+is its inverse: it reassembles the global arrays, under the JAX keys,
+from every rank's shard (of parameters, or of their gradients), with the
+fused leaves split back.  This module imports
 no JAX: the caller hands over numpy.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, segments
 from repro_torch.core.mesh import MeshTopo
 from repro_torch.models import layers as L
-from repro_torch.models import lm, mla, moe
+from repro_torch.models import lm, mla, moe, xlstm
 
 
 def to_torch(a) -> torch.Tensor:
@@ -131,6 +133,20 @@ def _mamba_pieces(cfg: ModelConfig, ctx, key: str, blk: dict, lead: int):
         yield f"{key}/{name}", blk[name], (), lead
 
 
+def _xlstm_pieces(cfg: ModelConfig, ctx, key: str, seg: dict):
+    """The pieces of an xlstm segment under ``key``: the mLSTM leaves
+    (stacked ``[count, inner-1, ...]``) with ``w_uz`` split back into
+    ``w_up | w_z``, and the sLSTM's (``[count, ...]``, replicated)."""
+    m = seg["mlstm"]
+    for name, t in L.split_fused(cfg, ctx, "w_uz", m["w_uz"]):
+        yield f"{key}/mlstm/{name}", t, L.col_w_spec(ctx), 2
+    for name, spec in xlstm.MLSTM_SPECS.items():
+        if name != "w_uz":
+            yield f"{key}/mlstm/{name}", m[name], spec(ctx), 2
+    for name in xlstm.SLSTM_LEAVES:
+        yield f"{key}/slstm/{name}", seg["slstm"][name], (), 1
+
+
 def _pieces(cfg: ModelConfig, ctx, params: dict):
     """(JAX key, tensor, spec, lead dims) of each global leaf's piece on
     this rank."""
@@ -150,6 +166,8 @@ def _pieces(cfg: ModelConfig, ctx, params: dict):
         elif seg.kind == "zamba":
             yield from _mamba_pieces(cfg, ctx, f"{key}/mamba", sp["mamba"],
                                      2)
+        elif seg.kind == "xlstm":
+            yield from _xlstm_pieces(cfg, ctx, key, sp)
         else:
             yield from _mamba_pieces(cfg, ctx, key, sp, 1)
     if "shared_attn" in params:

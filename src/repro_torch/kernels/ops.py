@@ -11,7 +11,11 @@ through the kernels (``reset_launches`` before, read after).  A stream-K
 matmul and a split-KV attention merge their splits inside the same launch,
 so each call is still one launch; ``ATTENTION_VARIANT_LAUNCHES`` splits
 the attention's count by the kernel it launched (``attention_plan``'s
-variant: the serving kernel or the training one).  ``BACKWARD_LAUNCHES``
+variant: the serving kernel or the training one), and
+``ELEMENT_LOAD_LAUNCHES`` splits out the matmul launches (forward and
+backward) that took the kernel's element loads (``vec`` = 0: a side of A
+or B that is no multiple of 8, or an operand not 16-byte aligned).
+``BACKWARD_LAUNCHES``
 counts the backward kernels the same way: each matmul backward launches the
 matmul kernel twice (dgrad and wgrad), the flash-attention, rmsnorm (block
 norm or grouped, gated norm) and SSD-scan backward wrappers one C entry
@@ -64,6 +68,10 @@ QUANT_LAUNCHES = {"matmul_int8": 0}
 #: variant (0: ``flash_attention.cu``, 1: ``flash_attention_train.cu``)
 ATTENTION_VARIANT_LAUNCHES = [0, 0]
 
+#: the matmul launches of ``LAUNCHES["matmul"]`` and
+#: ``BACKWARD_LAUNCHES["matmul_bwd"]`` that took the element loads
+ELEMENT_LOAD_LAUNCHES = {"matmul": 0, "matmul_bwd": 0}
+
 _ACTIVATIONS = {None: 0, "gelu": 1, "silu": 2}
 
 #: streaming multiprocessors of the H100 the plans fill
@@ -72,7 +80,7 @@ SMS = 132
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, BACKWARD_LAUNCHES, SPLIT_LAUNCHES,
-                   QUANT_LAUNCHES):
+                   QUANT_LAUNCHES, ELEMENT_LOAD_LAUNCHES):
         for k in counts:
             counts[k] = 0
     ATTENTION_VARIANT_LAUNCHES[:] = [0, 0]
@@ -604,7 +612,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
 def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul", *,
             z_out: bool = False):
     """``matmul`` off the autograd path; a launch counts under
-    ``counts[key]``.  ``a`` may also be the transpose of a row-major
+    ``counts[key]``, and also under ``ELEMENT_LOAD_LAUNCHES[key]`` where
+    the kernel takes its element loads.  ``a`` may also be the transpose of a row-major
     ``[K, M]`` (wgrad's ``a^T``), read without a copy.  ``z_out``: returns
     ``(y, z)``, the same launch also writing the pre-activation ``z``
     (bias added, no activation; bit for bit the output of a launch with
@@ -654,7 +663,9 @@ def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul", *,
                          "b (no tied head or wgrad has an activation)")
     if plan.variant == 2 and not vec:
         # variant 2 reads by TMA only: rows TMA cannot read take variant 1's
-        # element loads, A transposed by a copy (no model width needs this)
+        # element loads, A transposed by a copy (xlstm-1.3b's sLSTM FFN,
+        # 2048 -> 2662 -> 2048, is a model width that needs this: its
+        # training at 2048 rows takes this path)
         if a_trans:
             a2, a_trans = a2.contiguous(), 0
         plan = _stream_k_plan(M, N, K, SMS, 1)
@@ -670,6 +681,8 @@ def _matmul(a, b, bias, activation, counts=LAUNCHES, key="matmul", *,
              _ACTIVATIONS[activation], vec, plan.variant, plan.blocks,
              plan.whole, _stream(a)), "matmul", counters)
     counts[key] += 1
+    if not vec:
+        ELEMENT_LOAD_LAUNCHES[key] += 1
     if z_out:
         return out.reshape(*lead, N), z.reshape(*lead, N)
     return out.reshape(*lead, N)

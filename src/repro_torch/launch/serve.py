@@ -13,9 +13,10 @@ runs on CUDA unless ``--device cpu`` is given; on CUDA the step runs as
 a CUDA graph captured at each of its two shapes (``steps.CapturedStep``:
 the paged step's prefill chunk and decode tick, the wave's prefill and
 decode tick).
-A model with recurrent segments (zamba2-7b) is served in recurrent mode:
-per-slot state pools beside the page pools, prompt tails fed one token at
-a time.  Three opt-in modes of the paged server: ``--prefix-cache``
+A model with recurrent segments (zamba2-7b, xlstm-1.3b) is served in
+recurrent mode: per-slot state pools beside the page pools, prompt tails
+fed one token at a time.  Three opt-in modes of the paged server:
+``--prefix-cache``
 (copy-on-write sharing of prompt pages), ``--page-dtype int8`` or ``fp8``
 (1-byte page pools with per-position fp16 scales) and ``--speculate``
 (MTP self-speculative decode, for a model with an MTP head; on one

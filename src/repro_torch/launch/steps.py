@@ -106,6 +106,19 @@ def check_slot_ids(slot, slots: int) -> None:
         raise ValueError(f"a live slot id appears twice: {ids.tolist()}")
 
 
+def _counts() -> tuple[dict, dict]:
+    """The counters a replay adds to: ``ops.LAUNCHES`` and
+    ``ops.ELEMENT_LOAD_LAUNCHES``."""
+    return dict(ops.LAUNCHES), dict(ops.ELEMENT_LOAD_LAUNCHES)
+
+
+def _deltas(before: tuple[dict, dict]) -> tuple[dict, dict]:
+    """What ``_counts()`` gained since ``before``."""
+    return tuple({k: now[k] - v for k, v in then.items()}
+                 for now, then in zip((ops.LAUNCHES,
+                                       ops.ELEMENT_LOAD_LAUNCHES), before))
+
+
 @dataclasses.dataclass
 class _Shape:
     """One input shape of a :class:`CapturedStep`: its fixed input buffers
@@ -114,14 +127,16 @@ class _Shape:
     writes (``out``: the greedy tokens, and the drafts of a speculative
     step) and their host copies, the graph (None on the CPU),
     the kernel launches of one step (``ops.LAUNCHES``' delta over the
-    capture, or over the warm-up on the CPU), the seconds of the warm-up
-    and of the capture, and the bytes the capture added to the pool."""
+    capture, or over the warm-up on the CPU, and ``ops.ELEMENT_LOAD_LAUNCHES``'
+    in ``element_loads``), the seconds of the warm-up and of the capture,
+    and the bytes the capture added to the pool."""
     static: list
     host: list | None
     out: tuple = ()
     host_out: tuple = ()
     graph: torch.cuda.CUDAGraph | None = None
     launches: dict = dataclasses.field(default_factory=dict)
+    element_loads: dict = dataclasses.field(default_factory=dict)
     warmup_s: float = 0.0
     capture_s: float = 0.0
     pool_bytes: int = 0
@@ -149,8 +164,9 @@ class CapturedStep:
     caches as they were except the garbage page.  A graph is bound to the
     param and cache tensors it captured: handed others (new caches, a
     reshaped server), the step captures again.  A replay adds its graph's
-    launch counts to ``ops.LAUNCHES``.  A capture that fails raises: there
-    is no fallback to the uncaptured body.
+    launch counts to ``ops.LAUNCHES`` and ``ops.ELEMENT_LOAD_LAUNCHES``.  A
+    capture that fails raises: there is no fallback to the uncaptured
+    body.
 
     On the CPU there is no graph: the same buffers are filled and the body
     is called on them (after the same warm-up), so the CPU tests run this
@@ -207,14 +223,15 @@ class CapturedStep:
         self.blank(static)
         restore = self.guard(caches) if self.guard is not None else None
         if dev.type == "cpu":
-            before = dict(ops.LAUNCHES)
+            before = _counts()
             self.body(params, *static, caches)
             if restore is not None:
                 restore()
             self.warmups += 1
             self.captures += 1
-            return _Shape(static, None, launches={
-                k: ops.LAUNCHES[k] - v for k, v in before.items()})
+            launches, loads = _deltas(before)
+            return _Shape(static, None, launches=launches,
+                          element_loads=loads)
         shape = _Shape(static, [torch.empty(k, dtype=torch.int32,
                                             pin_memory=True) for k in key])
         t0 = time.perf_counter()
@@ -226,7 +243,7 @@ class CapturedStep:
             restore()
         shape.warmup_s = time.perf_counter() - t0
         self.warmups += 1
-        before = dict(ops.LAUNCHES)
+        before = _counts()
         # the capture empties the allocator's cache first: so does the
         # baseline of the pool's new memory
         torch.cuda.synchronize(dev)
@@ -241,9 +258,9 @@ class CapturedStep:
                 shape.out = tuple(self.body(params, *static, caches)[:-1])
         finally:
             # the capture launched nothing: its counts go to each replay
-            shape.launches = {k: ops.LAUNCHES[k] - v
-                              for k, v in before.items()}
-            ops.LAUNCHES.update(before)
+            shape.launches, shape.element_loads = _deltas(before)
+            ops.LAUNCHES.update(before[0])
+            ops.ELEMENT_LOAD_LAUNCHES.update(before[1])
             # a failed capture leaves the capture stream current
             torch.cuda.set_stream(stream)
         shape.capture_s = time.perf_counter() - t0
@@ -268,6 +285,8 @@ class CapturedStep:
         shape.graph.replay()
         for k, v in shape.launches.items():
             ops.LAUNCHES[k] += v
+        for k, v in shape.element_loads.items():
+            ops.ELEMENT_LOAD_LAUNCHES[k] += v
         for host, out in zip(shape.host_out, shape.out):
             host.copy_(out, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
@@ -292,10 +311,11 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo | None = None,
     process per rank.
 
     Two variants, as in the reference:
-      - recurrent kinds (mamba/zamba) need ``slots`` (the scheduler's
-        ``batch_slots``, which sizes the state pools), and the step takes a
-        5th input before the caches: ``slot [b]``, the per-row slot ids,
-        with the sentinel ``slots`` for rows whose state must not change;
+      - recurrent kinds (mamba/zamba/xlstm) need ``slots`` (the
+        scheduler's ``batch_slots``, which sizes the state pools), and the
+        step takes a 5th input before the caches: ``slot [b]``, the
+        per-row slot ids, with the sentinel ``slots`` for rows whose state
+        must not change;
       - ``speculate=True`` (needs ``cfg.mtp``) returns ``(tokens, drafts,
         caches)``: ``drafts [b, s]`` is the MTP head's greedy pick for the
         position after each trunk pick, the draft the server verifies at
@@ -304,7 +324,7 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo | None = None,
         to."""
     needs_slot = lm.is_recurrent(cfg)
     if needs_slot and slots is None:
-        raise ValueError("recurrent kinds (mamba/zamba) need "
+        raise ValueError("recurrent kinds (mamba/zamba/xlstm) need "
                          "build_paged_step(..., slots=<scheduler batch_slots>)")
     if speculate and not cfg.mtp:
         raise ValueError("speculate=True needs an MTP head (cfg.mtp)")
@@ -328,7 +348,8 @@ def build_paged_step(cfg: ModelConfig, topo: MeshTopo | None = None,
                                               table, caches, with_hidden=True)
             toks = _greedy_pick(ctx, cfg, logits)
             dl = lm.mtp_draft_logits(ctx, cfg, params, h,
-                                     lm.step_positions(tokens, start), toks)
+                                     lm.step_positions(tokens, start, cfg),
+                                     toks)
             return toks, _greedy_pick(ctx, cfg, dl), caches
     else:
         @torch.no_grad()
@@ -346,7 +367,9 @@ def build_prefill(cfg: ModelConfig, topo: MeshTopo | None = None,
     """The forward-only serving step over a whole sequence, no caches
     (``repro.launch.steps.build_prefill``): ``step(params, batch) ->
     greedy next token [b]`` with ``batch["tokens"] [b, s]`` on the device
-    (``lm.prefill_logits``, then the vocab-parallel pick).  The context is
+    (``lm.prefill_logits``, then the vocab-parallel pick; ``embeds [b, s,
+    h/d2]`` may stand in for the tokens, with an M-RoPE model's
+    ``positions3 [3, b, s]``).  The context is
     the training one (``resolve_ctx`` without ``decode``): a plan's
     ``seq_parallel`` applies.  Returns ``(step, info)``; the step is not
     captured."""
@@ -445,7 +468,10 @@ def build_train_step(cfg: ModelConfig, topo: MeshTopo | None = None,
         for p in leaves:
             p.requires_grad_(True)
         loss = lm.train_loss(ctx, cfg, params, batch, remat=remat)
-        grads = torch.autograd.grad(loss, leaves)
+        # a batch of embeds leaves the embedding unused: its gradient is
+        # zeros, as the reference's; any other batch reaches every leaf
+        grads = torch.autograd.grad(loss, leaves,
+                                    materialize_grads="embeds" in batch)
         grads = adamw.tree_unflatten(params, iter(grads))
         params, opt_state, metrics = adamw.apply_adamw(
             opt_cfg, ctx, params, grads, opt_state,

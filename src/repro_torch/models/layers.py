@@ -93,17 +93,19 @@ def cut(ctx: ATPContext, x: torch.Tensor, spec, lead: int = 0) -> torch.Tensor:
 
 #: the port's fused leaves: each is this rank's shards of the JAX
 #: package's leaves named here, concatenated in this order along the last
-#: dim (``transformer.shard_dense_block``, ``mamba2.shard_mamba``)
+#: dim (``transformer.shard_dense_block``, ``mamba2.shard_mamba``,
+#: ``xlstm.shard_xlstm``)
 FUSED_LEAVES = {"w_qkv": ("wq", "wk", "wv"), "b_qkv": ("bq", "bk", "bv"),
-                "w_upgate": ("w_up", "w_gate"), "w_zx": ("w_z", "w_x")}
+                "w_upgate": ("w_up", "w_gate"), "w_zx": ("w_z", "w_x"),
+                "w_uz": ("w_up", "w_z")}
 
 
 def fused_widths(cfg: ModelConfig, ctx: ATPContext, name: str,
                  width: int) -> tuple | None:
     """The widths along the last dim of the pieces of this rank's leaf
     ``name`` (``width`` wide), in ``FUSED_LEAVES`` order: q|k|v and their
-    biases this rank's q and kv columns, up|gate and z|x two halves; None
-    for a leaf that is not fused."""
+    biases this rank's q and kv columns, up|gate, z|x and up|z two
+    halves; None for a leaf that is not fused."""
     if name not in FUSED_LEAVES:
         return None
     if name in ("w_qkv", "b_qkv"):
@@ -208,7 +210,25 @@ def rope_freqs(hd: int, theta: float, device=None):
 def apply_rope(x, positions, theta: float):
     """x: [b, s, heads, hd]; positions: [b, s] int."""
     hd = x.shape[-1]
-    ang = positions[..., None].float() * rope_freqs(hd, theta, x.device)
+    return _rotate(x, positions[..., None].float()
+                   * rope_freqs(hd, theta, x.device))
+
+
+def apply_mrope(x, positions3, theta: float, sections: tuple[int, ...]):
+    """qwen2-vl's M-RoPE.  x: [b, s, heads, hd]; positions3: [3, b, s], the
+    t/h/w ids; ``sections`` splits the hd/2 frequency bands, in order,
+    between the t, h and w ids (each band is rotated by its own id)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    bands, off = [], 0
+    for ids, n in zip(positions3, sections):
+        bands.append(ids[..., None].float() * freqs[off:off + n])
+        off += n
+    return _rotate(x, torch.cat(bands, dim=-1))
+
+
+def _rotate(x, ang):
+    """x [b, s, heads, hd] rotated by the angles ang [b, s, hd/2]
+    (split-half pairs), in fp32, cast back."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -2,9 +2,9 @@
 (counterpart of ``repro.models.lm``): paged serving, the wave baseline over
 contiguous decode caches (``init_decode_caches``, ``decode_step``) and the
 training loss (``forward`` with no caches, ``vocab_parallel_ce``,
-``train_loss``, with the MoE aux term and the MTP head's term) of the
-dense, moe, mla_dense, mla_moe, zamba and mamba segment kinds, and the
-MTP head as the speculative server's draft proposer
+``train_loss``, with the MoE aux term and the MTP head's term) of every
+segment kind (dense, moe, mla_dense, mla_moe, zamba, mamba, xlstm), and
+the MTP head as the speculative server's draft proposer
 (``mtp_draft_logits``).  A moe layer is a dense block's attention (and
 k/v caches) followed by the MoE FFN (``models.moe``); an MLA layer
 (``models.mla``) caches its latent instead of k/v, and an MLA model's MTP
@@ -12,16 +12,17 @@ head runs an ``mla_dense`` block.
 
 Parameters come in two forms.  ``init_params`` makes the GLOBAL tree with
 the JAX package's keys (``seg0/attn/wq`` ... stacked ``[count, ...]``; a
-zamba segment's Mamba2 leaves stacked ``[count, inner-1, ...]``) and
-distributions; ``shard_params`` cuts one rank's shard out of it by the JAX
-PartitionSpecs and fuses q/k/v, up/gate and the Mamba2 z/x per rank.  The
-model functions take the sharded tree.  A Python loop over layers replaces
-``lax.scan``.
+zamba segment's Mamba2 leaves and an xlstm segment's mLSTM leaves stacked
+``[count, inner-1, ...]``) and distributions; ``shard_params`` cuts one
+rank's shard out of it by the JAX PartitionSpecs and fuses q/k/v,
+up/gate, the Mamba2 z/x and the mLSTM up/z per rank.  The model functions
+take the sharded tree.  A Python loop over layers replaces ``lax.scan``.
 
-Recurrent kinds (zamba, mamba) keep per-slot STATE POOLS beside the page
-pools, addressed by a slot id per batch row: the SSD scan reads and writes
-its pool rows in place; the small conv-state rows are gathered by slot id
-and written back (``_state_take`` / ``_state_put``).  The step addresses
+Recurrent kinds (zamba, mamba, xlstm) keep per-slot STATE POOLS beside the
+page pools, addressed by a slot id per batch row: the SSD scan reads and
+writes its pool rows in place; the other state rows (the conv states, the
+mLSTM's matrix memory, the sLSTM's c/n/h) are gathered by slot id and
+written back (``_state_take`` / ``_state_put``).  The step addresses
 them through :func:`fixed_slot_map`, whose shapes do not depend on the
 slot ids and which needs no host sync, so the step can be captured as a
 CUDA graph; :func:`slot_map` is the host-synced form it replaced.  The
@@ -59,26 +60,25 @@ from repro_torch.core.mesh import (MeshTopo, dp_axis_names, resolve_device,
                                    tp_axis_names)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models import mamba2, mla, moe, paging, transformer
+from repro_torch.models import mamba2, mla, moe, paging, transformer, xlstm
 
-_A10 = "segment kind {!r} is not ported yet (ROADMAP A10: other segment kinds)"
-
-#: segment kinds the port serves
+#: segment kinds the port serves (every kind ``configs.base.segments``
+#: makes)
 KINDS = frozenset({"dense", "moe", "mla_dense", "mla_moe", "zamba",
-                   "mamba"})
+                   "mamba", "xlstm"})
 #: the kinds whose layers are a dense block's attention with its k/v caches
 #: (the reference's ``PAGED_CACHE_KINDS`` without MLA's)
 ATTN_KINDS = frozenset({"dense", "moe"})
 #: the kinds whose layers cache MLA's latent (``ckv``/``krope``)
 MLA_KINDS = frozenset({"mla_dense", "mla_moe"})
 #: the served kinds with O(1)-per-slot recurrent state, pooled by slot id
-RECURRENT_STATE_KINDS = frozenset({"mamba", "zamba"})
+RECURRENT_STATE_KINDS = frozenset({"mamba", "zamba", "xlstm"})
 
 
 def _check_kinds(cfg: ModelConfig):
     for seg in segments(cfg):
         if seg.kind not in KINDS:
-            raise NotImplementedError(_A10.format(seg.kind))
+            raise ValueError(f"unknown segment kind {seg.kind!r}")
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
@@ -145,6 +145,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
     def mla_layer(kind):
         return lambda: mla.layer_params(gen, cfg, dtype, device, kind)
 
+    def mlstm():
+        return xlstm.mlstm_params(gen, cfg, dtype, device)
+
+    def slstm():
+        return xlstm.slstm_params(gen, cfg, dtype, device)
+
     for i, seg in enumerate(segments(cfg)):
         if seg.kind == "dense":
             p[f"seg{i}"] = _stacked((seg.count,), dense)
@@ -154,6 +160,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
             p[f"seg{i}"] = _stacked((seg.count,), moe_layer)
         elif seg.kind == "zamba":
             p[f"seg{i}"] = {"mamba": _stacked((seg.count, seg.inner - 1), mamba)}
+        elif seg.kind == "xlstm":  # inner-1 mLSTM blocks and one sLSTM
+            p[f"seg{i}"] = {
+                "mlstm": _stacked((seg.count, seg.inner - 1), mlstm),
+                "slstm": _stacked((seg.count,), slstm)}
         else:
             p[f"seg{i}"] = _stacked((seg.count,), mamba)
     if any(s.kind == "zamba" for s in segments(cfg)):
@@ -225,6 +235,8 @@ def shard_params(cfg: ModelConfig, params: dict, ctx: ATPContext) -> dict:
             out[f"seg{i}"] = blk
         elif seg.kind == "zamba":  # [count, inner-1, ...]: two stacked dims
             out[f"seg{i}"] = {"mamba": mamba2.shard_mamba(ctx, sp["mamba"], 2)}
+        elif seg.kind == "xlstm":
+            out[f"seg{i}"] = xlstm.shard_xlstm(ctx, sp)
         else:
             out[f"seg{i}"] = mamba2.shard_mamba(ctx, sp, 1)
     if "shared_attn" in params:
@@ -282,12 +294,16 @@ def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
     block's pools too).  MLA layers: latent pools ``{"ckv": [count, np,
     pg, kv_lora_rank], "krope": [count, np, pg, qk_rope_head_dim]}``,
     replicated over TP, with ``ckv_scale``/``krope_scale`` [count, np, pg]
-    fp16 for a quantized ``pcfg``."""
+    fp16 for a quantized ``pcfg``.  An xlstm segment: ``{"mlstm": {"conv":
+    [count, inner-1, slots, k-1, d_inner/n], "C": [count, inner-1, slots,
+    nh/g, dk, dv/r+1]}, "slstm": {"c", "n", "h": [count, slots, nh, dh]}}``,
+    ``conv`` in ``dtype``, the rest fp32 (``xlstm.mlstm_plan``'s g and
+    r)."""
     _check_kinds(cfg)
     device = resolve_device(device)
     if slots is None and is_recurrent(cfg):
         raise ValueError(
-            "paged serving of recurrent kinds (mamba/zamba) needs "
+            "paged serving of recurrent kinds (mamba/zamba/xlstm) needs "
             "slots=<scheduler batch_slots> to size the per-slot state pools")
     dtype = dtype or getattr(torch, cfg.dtype)
     plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
@@ -336,9 +352,29 @@ def init_paged_caches(cfg: ModelConfig, ctx: ATPContext,
         elif seg.kind == "zamba":
             caches[f"seg{i}"] = {"attn": attn_pool(seg.count),
                                  "mamba": mamba_state((seg.count, seg.inner - 1))}
+        elif seg.kind == "xlstm":
+            caches[f"seg{i}"] = _xlstm_state(cfg, ctx, seg, slots, zeros)
         else:
             caches[f"seg{i}"] = mamba_state((seg.count,))
     return caches
+
+
+def _xlstm_state(cfg: ModelConfig, ctx: ATPContext, seg, rows: int, zeros):
+    """An xlstm segment's state with ``rows`` rows (pool slots, or the
+    wave's batch rows): the mLSTM's conv and matrix memory stacked
+    ``[count, inner-1, rows, ...]``, the sLSTM's c/n/h ``[count, rows, nh,
+    dh]``; ``zeros(shape[, dtype])`` makes each (the model dtype unless
+    fp32 is named)."""
+    d_inner, nh, dk, dv = xlstm.mlstm_dims(cfg)
+    g, r = xlstm.mlstm_plan(ctx, cfg)
+    lead = (seg.count, seg.inner - 1, rows)
+    f32 = torch.float32
+    return {"mlstm": {"conv": zeros(lead + (cfg.ssm.conv_kernel - 1,
+                                            d_inner // ctx.tp)),
+                      "C": zeros(lead + (nh // g, dk, dv // r + 1), f32)},
+            "slstm": {k: zeros((seg.count, rows, cfg.num_heads,
+                                cfg.d_model // cfg.num_heads), f32)
+                      for k in ("c", "n", "h")}}
 
 
 def init_decode_caches(cfg: ModelConfig, ctx: ATPContext, B: int,
@@ -357,9 +393,9 @@ def init_decode_caches(cfg: ModelConfig, ctx: ATPContext, B: int,
     nests them as ``{"attn": ..., "mamba": ...}`` with the Mamba2 state
     stacked ``[count, inner-1, ...]``.  MLA layers: the latent ``{"ckv":
     [count, b, s_max, kv_lora_rank], "krope": [count, b, s_max,
-    qk_rope_head_dim], "len": [count] int32}``, replicated over TP.
-    ``dtype`` defaults to the model's.  xLSTM caches are ROADMAP A10
-    (``_check_kinds`` raises)."""
+    qk_rope_head_dim], "len": [count] int32}``, replicated over TP.  An
+    xlstm segment: the state of :func:`init_paged_caches` with the batch
+    rows for its slots.  ``dtype`` defaults to the model's."""
     _check_kinds(cfg)
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -399,6 +435,8 @@ def init_decode_caches(cfg: ModelConfig, ctx: ATPContext, B: int,
             caches[f"seg{i}"] = {"attn": attn_cache(seg.count),
                                  "mamba": mamba_cache((seg.count,
                                                        seg.inner - 1))}
+        elif seg.kind == "xlstm":
+            caches[f"seg{i}"] = _xlstm_state(cfg, ctx, seg, b, zeros)
         else:
             caches[f"seg{i}"] = mamba_cache((seg.count,))
     return caches
@@ -620,19 +658,40 @@ def _mamba(ctx, cfg, p, x, pool, sm: SlotMap):
     return x
 
 
+def _stateful(block, ctx, cfg, p, x, pool, sm: SlotMap):
+    """An xLSTM block on this step's rows of its state pools, the new rows
+    written back."""
+    x, rows = block(ctx, cfg, p, x, _state_take(pool, sm))
+    _state_put(pool, rows, sm)
+    return x
+
+
 def check_trainable(cfg: ModelConfig):
     """Raise for what the training path does not take yet (every kind the
     port serves trains)."""
     _check_kinds(cfg)
 
 
-def _embed(ctx: ATPContext, cfg: ModelConfig, params, tokens):
+def _embed(ctx: ATPContext, cfg: ModelConfig, params, tokens, embeds=None):
     """The segments' views and the embedding under the first one's (a
-    reduce-scatter of the sequence where that one is sequence-parallel)."""
+    reduce-scatter of the sequence where that one is sequence-parallel).
+    ``embeds [b, s, h/d2]`` (a frontend's output, the same on every ax1
+    rank, this rank's feature slice) stand in for the embedded tokens: the
+    free sequence slice where the first view is sequence-parallel."""
     seg_ctxs = [ctx.for_segment(s.kind) for s in segments(cfg)]
     with region("shell:embed"):
+        if embeds is not None:
+            return seg_ctxs, seq_scatter(seg_ctxs[0], embeds, dim=1)
         x = embed_tokens(seg_ctxs[0], cfg, params["embed"], tokens)
     return seg_ctxs, x
+
+
+def _attn_plan(ctx: ATPContext, cfg: ModelConfig):
+    """The attention's sharding plan, None for a model without attention
+    (xLSTM's heads follow ``xlstm.mlstm_plan``)."""
+    if cfg.family == "ssm":
+        return None
+    return L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
 
 
 def _transition(i: int, prev, sctx: ATPContext, x):
@@ -664,24 +723,26 @@ def _final_norm(cfg: ModelConfig, params, last: ATPContext, x):
         return seq_gather(last, x, dim=1, reduce_grad=True)
 
 
-def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
+def _train_forward(ctx, cfg, params, tokens, positions, remat: bool,
+                   embeds=None):
     """The cache-free forward: attention over the current sequence, the
-    Mamba2 blocks from a zero state.  With ``remat`` each unit of the
-    reference's ``jax.checkpoint`` runs under ``torch.utils.checkpoint``
-    (its activations recomputed in the backward): a dense block, a zamba
-    super-block (the shared block and its Mamba2 blocks), a tail Mamba2
-    block.  Each unit binds its segment's view, which its recompute runs
-    under too.  Each stacked leaf is unbound once, outside the units
-    (``_layers``; a zamba leaf once, then once a super-block), so the
-    recompute reuses the same views and the backward stacks each leaf's
-    gradient once.  Returns the final-norm hidden and the MoE layers' aux loss
-    summed (0 without them)."""
+    Mamba2 and xLSTM blocks from a zero state.  With ``remat`` each unit of
+    the reference's ``jax.checkpoint`` runs under
+    ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward): a dense block, a zamba super-block (the shared block and its
+    Mamba2 blocks), a tail Mamba2 block, an xlstm super-block (its mLSTM
+    blocks and its sLSTM).  Each unit binds its segment's view, which its
+    recompute runs under too.  Each stacked leaf is unbound once, outside
+    the units (``_layers``; a zamba or xlstm leaf once, then once a
+    super-block), so the recompute reuses the same views and the backward
+    stacks each leaf's gradient once.  Returns the final-norm hidden and
+    the MoE layers' aux loss summed (0 without them)."""
     from torch.utils.checkpoint import checkpoint
 
-    seg_ctxs, x = _embed(ctx, cfg, params, tokens)
+    seg_ctxs, x = _embed(ctx, cfg, params, tokens, embeds)
     x_emb0 = x
     aux = x.new_zeros((), dtype=torch.float32)
-    plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
+    plan = _attn_plan(ctx, cfg)
     for i, (seg, sctx) in enumerate(zip(segments(cfg), seg_ctxs)):
         x = _transition(i, seg_ctxs[max(i - 1, 0)], sctx, x)
         sp = params[f"seg{i}"]
@@ -714,6 +775,15 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
                         h = mamba2.mamba_block(sctx, cfg, bp, h)[0]
                     return h
                 units.append(unit)
+        elif seg.kind == "xlstm":
+            for mp, lp in zip(_layers(sp["mlstm"], seg.count),
+                              _layers(sp["slstm"], seg.count)):
+                def unit(h, blocks=_layers(mp, seg.inner - 1), lp=lp,
+                         sctx=sctx):
+                    for bp in blocks:
+                        h = xlstm.mlstm_block(sctx, cfg, bp, h)[0]
+                    return xlstm.slstm_block(sctx, cfg, lp, h)[0]
+                units.append(unit)
         else:
             for bp in _layers(sp, seg.count):
                 def unit(h, bp=bp, sctx=sctx):
@@ -733,8 +803,10 @@ def _train_forward(ctx, cfg, params, tokens, positions, remat: bool):
 
 def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
             caches: dict | None = None, paged: dict | None = None,
-            remat: bool = False):
-    """tokens/positions [b, s] -> the final-norm hidden [b, s, h/d2].
+            remat: bool = False, embeds=None):
+    """tokens/positions [b, s] -> the final-norm hidden [b, s, h/d2]
+    (an M-RoPE model's positions [3, b, s]: the t/h/w ids; ``embeds [b, s,
+    h/d2]`` in place of the tokens, :func:`_embed`).
 
     Paged (serving): caches from :func:`init_paged_caches` (written in
     place); paged = dict(table [b, mp], start [b]) and, for recurrent
@@ -747,24 +819,25 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
     super-block's) activations in the backward."""
     if caches is None:
         check_trainable(cfg)
-        return _train_forward(ctx, cfg, params, tokens, positions, remat)[0]
+        return _train_forward(ctx, cfg, params, tokens, positions, remat,
+                              embeds)[0]
     _check_kinds(cfg)
     if any(ctx.for_segment(s.kind).seq_parallel for s in segments(cfg)):
         raise NotImplementedError("seq_parallel does not apply to decode")
     sm = None
     if is_recurrent(cfg) and paged is None:
-        b = tokens.shape[0]
-        sm = fixed_slot_map(torch.arange(b, device=tokens.device),
-                            positions[:, 0], b)
+        first = _text(positions)[:, 0]
+        sm = fixed_slot_map(torch.arange(first.shape[0], device=first.device),
+                            first, first.shape[0])
     elif is_recurrent(cfg):
         if paged.get("slot") is None:
             raise ValueError("paged serving of recurrent kinds needs "
                              "paged['slot'], the per-row slot ids")
         sm = fixed_slot_map(paged["slot"], paged["start"],
                             _state_slots(cfg, caches))
-    seg_ctxs, x = _embed(ctx, cfg, params, tokens)
+    seg_ctxs, x = _embed(ctx, cfg, params, tokens, embeds)
     x_emb0 = x
-    plan = L.make_attn_plan(ctx, cfg.num_heads, cfg.num_kv_heads)
+    plan = _attn_plan(ctx, cfg)
     for i, (seg, sctx) in enumerate(zip(segments(cfg), seg_ctxs)):
         sp, sc = params[f"seg{i}"], caches[f"seg{i}"]
         with region(f"seg{i}:{seg.kind}"):
@@ -790,6 +863,15 @@ def forward(ctx: ATPContext, cfg: ModelConfig, params, tokens, positions,
                     for m in range(seg.inner - 1):
                         x = _mamba(sctx, cfg, _layer(mp, m), x,
                                    _layer(mc, m), sm)
+            elif seg.kind == "xlstm":
+                for j in range(seg.count):
+                    mp, mc = _layer(sp["mlstm"], j), _layer(sc["mlstm"], j)
+                    for m in range(seg.inner - 1):
+                        x = _stateful(xlstm.mlstm_block, sctx, cfg,
+                                      _layer(mp, m), x, _layer(mc, m), sm)
+                    x = _stateful(xlstm.slstm_block, sctx, cfg,
+                                  _layer(sp["slstm"], j), x,
+                                  _layer(sc["slstm"], j), sm)
             else:
                 for j in range(seg.count):
                     x = _mamba(sctx, cfg, _layer(sp, j), x, _layer(sc, j), sm)
@@ -803,30 +885,54 @@ def _state_slots(cfg: ModelConfig, caches: dict) -> int:
             return caches[f"seg{i}"]["mamba"]["ssd"].shape[2]
         if seg.kind == "mamba":
             return caches[f"seg{i}"]["ssd"].shape[1]
+        if seg.kind == "xlstm":
+            return caches[f"seg{i}"]["slstm"]["c"].shape[1]
     raise ValueError("no recurrent segment")
 
 
-def _positions(tokens):
-    """``0 .. s-1`` in every row of a [b, s] batch of whole sequences."""
-    b, s = tokens.shape
-    return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+def _text(positions):
+    """The text positions [b, s] of positions [b, s] or M-RoPE's [3, b, s]
+    (whose t row is the text position where the ids are text)."""
+    return positions[0] if positions.dim() == 3 else positions
+
+
+def _rope_positions(cfg: ModelConfig, positions):
+    """Text positions [b, s] as the model's rotary ids: broadcast to [3, b,
+    s] for an M-RoPE model (a text token's t, h and w ids are equal)."""
+    if cfg.mrope_sections:
+        return positions[None].expand(3, *positions.shape)
+    return positions
+
+
+def _batch_positions(cfg: ModelConfig, batch: dict):
+    """A batch of whole sequences' positions: ``batch["positions3"] [3, b,
+    s]`` for an M-RoPE model, else ``0 .. s-1`` in every row of the tokens
+    (or the embeds)."""
+    if cfg.mrope_sections:
+        return batch["positions3"]
+    ref = batch.get("tokens")
+    ref = batch["embeds"] if ref is None else ref
+    b, s = ref.shape[:2]
+    return torch.arange(s, device=ref.device)[None, :].expand(b, s)
 
 
 def train_loss(ctx: ATPContext, cfg: ModelConfig, params, batch,
                remat: bool = True):
-    """batch: tokens [b, s] and labels [b, s] (this dp rank's rows).  The
-    scalar mean loss over every token of every dp rank (ignored labels
-    count in the denominator, as in the JAX package), the same on every
-    rank: the sum goes through the dp boundary, so each rank's backward
-    gives its own tokens' share of the gradient, which the optimizer sums
-    over dp.  With an MTP head, ``mtp_loss_weight`` times the head's loss
-    on the token two ahead (labels rolled by one) over the same count; with
-    MoE layers, ``aux_loss_weight`` times their aux loss averaged over dp,
-    per layer."""
-    tokens = batch["tokens"]
-    positions = _positions(tokens)
+    """batch: tokens [b, s] (or ``embeds [b, s, h/d2]``, this rank's feature
+    slice) and labels [b, s] (this dp rank's rows), with an M-RoPE model's
+    ``positions3 [3, b, s]``.  The scalar mean loss over every token of every
+    dp rank (ignored labels count in the denominator, as in the JAX package),
+    the same on every rank: the sum goes through the dp boundary, so each
+    rank's backward gives its own tokens' share of the gradient, which the
+    optimizer sums over dp.  With an MTP head, ``mtp_loss_weight`` times the
+    head's loss on the token two ahead (labels rolled by one) over the same
+    count (none for a batch of embeds, as in the reference); with MoE layers,
+    ``aux_loss_weight`` times their aux loss averaged over dp, per layer."""
+    tokens = batch.get("tokens")
+    positions = _batch_positions(cfg, batch)
     check_trainable(cfg)
-    h, aux = _train_forward(ctx, cfg, params, tokens, positions, remat)
+    h, aux = _train_forward(ctx, cfg, params, tokens, positions, remat,
+                            batch.get("embeds"))
     conj = not _exit_gathers(ctx, cfg)
     with region("shell:head"):
         logits = lm_logits(ctx, cfg, params, h, conj=conj)
@@ -835,7 +941,7 @@ def train_loss(ctx: ATPContext, cfg: ModelConfig, params, batch,
         total = atp_boundary(ctx, per_tok.sum(), ctx.dp_axes)
     count = per_tok.numel() * ctx.dp
     loss = total / count
-    if cfg.mtp:
+    if cfg.mtp and tokens is not None:
         # predict t+2 from (h_t, emb(t+1))
         with region("shell:mtp"):
             logits2 = _mtp_logits(ctx, cfg, params, h, positions,
@@ -852,9 +958,10 @@ def train_loss(ctx: ATPContext, cfg: ModelConfig, params, batch,
 
 
 def prefill_logits(ctx: ATPContext, cfg: ModelConfig, params, batch):
-    """Forward only, no caches; the last position's logits [b, V/d1]."""
-    tokens = batch["tokens"]
-    h = forward(ctx, cfg, params, tokens, _positions(tokens))
+    """Forward only, no caches; the last position's logits [b, V/d1].
+    ``batch`` as :func:`train_loss`'s, without labels."""
+    h = forward(ctx, cfg, params, batch.get("tokens"),
+                _batch_positions(cfg, batch), embeds=batch.get("embeds"))
     with region("shell:head"):
         return lm_logits(ctx, cfg, params, h[:, -1:])[:, 0]
 
@@ -870,7 +977,8 @@ def decode_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, pos,
     pos = torch.as_tensor(pos, device=tokens.device).long().reshape(1, 1)
     positions = (pos + torch.arange(s, device=tokens.device)[None, :]
                  ).expand(b, s)
-    h = forward(ctx, cfg, params, tokens, positions, caches)
+    h = forward(ctx, cfg, params, tokens, _rope_positions(cfg, positions),
+                caches)
     with region("shell:head"):
         return lm_logits(ctx, cfg, params, h[:, -1:])[:, 0], caches
 
@@ -912,8 +1020,9 @@ def replication_factors(cfg: ModelConfig, ctx: ATPContext, params) -> dict:
     def walk(tree, name=None, parent=None):
         if isinstance(tree, dict):
             return {k: walk(v, k, name) for k, v in tree.items()}
-        specs = (_MOE_SPECS if parent == "moe" else mla.SPECS
-                 if parent == "mla" else _LEAF_SPECS)
+        specs = {"moe": _MOE_SPECS, "mla": mla.SPECS,
+                 "mlstm": xlstm.MLSTM_SPECS,
+                 "slstm": xlstm.SLSTM_SPECS}.get(parent, _LEAF_SPECS)
         sharded = 1
         for axis in specs[name](ctx):
             if axis is not None:
@@ -952,7 +1061,7 @@ def paged_step(ctx: ATPContext, cfg: ModelConfig, params, tokens, start,
     Returns (logits [b, s, V/d1] for every input position, caches);
     ``with_hidden`` adds the final-norm hidden [b, s, h/d2] in the middle
     (speculative decode feeds it to :func:`mtp_draft_logits`)."""
-    positions = step_positions(tokens, start)
+    positions = step_positions(tokens, start, cfg)
     paged = {"table": table, "start": start}
     page = _pool_page_size(caches)
     if page is not None:
@@ -979,11 +1088,12 @@ def _pool_page_size(caches) -> int | None:
     return None
 
 
-def step_positions(tokens, start):
-    """``start[b] + 0 .. s-1``: the positions of a step's [b, s] tokens."""
+def step_positions(tokens, start, cfg: ModelConfig):
+    """``start[b] + 0 .. s-1``: the positions of a step's [b, s] tokens
+    (for an M-RoPE model, broadcast to its [3, b, s] ids)."""
     s = tokens.shape[1]
-    return (start[:, None].long()
-            + torch.arange(s, device=tokens.device)[None, :])
+    return _rope_positions(cfg, start[:, None].long() + torch.arange(
+        s, device=tokens.device)[None, :])
 
 
 def mtp_draft_logits(ctx: ATPContext, cfg: ModelConfig, params, h, positions,

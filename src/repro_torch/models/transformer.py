@@ -145,7 +145,8 @@ def _qk_norm(q, gamma, eps):
 def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
                plan: L.AttnPlan, layer_window: int, cache: dict | None = None,
                paged: dict | None = None):
-    """Attention.  x [b, s, h/d2]; positions [b, s] (training: ``0..s-1``
+    """Attention.  x [b, s, h/d2]; positions [b, s] (an M-RoPE model's [3,
+    b, s], the t/h/w ids; training: ``0..s-1``
     in every row).  Paged: cache holds this layer's k/v pools [num_pages,
     page, kv_count, hd] (int8/fp8 with ``k_scale``/``v_scale`` [num_pages,
     page, kv_count] fp16 beside them for a quantized pool), paged carries
@@ -173,24 +174,30 @@ def attn_block(ctx: ATPContext, cfg: ModelConfig, p, x, positions,
                      cfg.norm_eps)
         k = _qk_norm(k, grad_sync(ctx, p["k_norm"], ctx.tp_axes),
                      cfg.norm_eps)
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is ROADMAP A10")
-    q_pos = positions
+    q_pos, q_row = positions, 0
     if cache is None and plan.r > 1:
-        # the r leftover ranks split the query rows (k/v keep the sequence)
+        # the r leftover ranks split the query rows (k/v keep the sequence);
+        # the sequence is the last dim of positions [b, s] and of M-RoPE's
+        # [3, b, s]
         s_r = q.shape[1] // plan.r
-        q = q.narrow(1, rid * s_r, s_r)
-        q_pos = positions.narrow(1, rid * s_r, s_r)
-    if cfg.use_rope:
+        q_row = rid * s_r
+        q = q.narrow(1, q_row, s_r)
+        q_pos = positions.narrow(-1, q_row, s_r)
+    if cfg.mrope_sections:
+        q = L.apply_mrope(q, q_pos, cfg.rope_theta, cfg.mrope_sections)
+        k = L.apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.use_rope:
         q = L.apply_rope(q, q_pos, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        # the window's own positions: row i sees keys 0 .. i of it (the
-        # MTP draft block feeds a window that starts past position 0)
+        # the window's own rows: row i sees keys 0 .. i of it (the MTP
+        # draft block feeds a window that starts past position 0)
         b, s = x.shape[:2]
         o = L.attention_core(cfg, q, k, v,
-                             q_offset=(q_pos[:, 0] - positions[:, 0]).int(),
+                             q_offset=torch.full((b,), q_row,
+                                                 dtype=torch.int32,
+                                                 device=x.device),
                              kv_len=torch.full((b,), s, dtype=torch.int32,
                                                device=x.device),
                              window=layer_window)

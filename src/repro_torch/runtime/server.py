@@ -29,7 +29,7 @@ runs each of them:
     new prompt's longest page-aligned prefix against the allocator's
     radix index, adopts those pages read-only and skips their prefill
     chunks; completed prompts register their full pages for future hits.
-  - ``recurrent`` -- mamba/zamba residency: the step takes a per-row
+  - ``recurrent`` -- mamba/zamba/xlstm residency: the step takes a per-row
     slot-id array addressing per-slot state pools, and prompt tails feed
     one token at a time through the decode-shaped step.
   - ``speculate`` -- MTP self-speculative decode: each tick feeds

@@ -105,7 +105,7 @@ def main(rank: int, case_dir: Path) -> None:
         _, h, _ = lm.paged_step(ctx, cfg, params, tok, start, table, caches,
                                 with_hidden=True)
         out["draft"] = lm.mtp_draft_logits(
-            ctx, cfg, params, h, lm.step_positions(tok, start),
+            ctx, cfg, params, h, lm.step_positions(tok, start, cfg),
             torch.tensor(spec["mtp_next"], dtype=torch.int32)).numpy()
 
     # the wave's contiguous latent caches, fed the reference's tokens

@@ -9,7 +9,8 @@ the region the model code opens.  Here the forward regions of one training
 step on CPU gloo meshes must equal the expectation exactly, count and raw
 bytes per (region, op, axes, quant), for reduced llama3-8b, gpt-m1 and
 zamba2-7b (5 layers: two zamba super-blocks and a Mamba2 tail) with chunks
-1 and 2 on (1, 2, 2), and with chunks 1 on (1, 4, 1) and (2, 2, 1); and
+1 and 2 on (1, 2, 2), and with chunks 1 on (1, 4, 1) and (2, 2, 1);
+reduced xlstm-1.3b with chunks 1 and 2 on (1, 2, 2) (no departure); and
 reduced llama3-8b on two data-parallel axes, (pods 2, data 2, 1, 1), with
 chunks 1.  Each mesh starts four ranks of ``_torch_plan_worker.py`` once,
 for all of its cases, the four meshes at once.
@@ -71,13 +72,15 @@ ARCHS = ("llama3-8b", "gpt-m1", "zamba2-7b")
 LAYERS = {"zamba2-7b": 5}
 #: (global batch, sequence) per mesh and arch: two rows a dp rank, so that
 #: chunks 2 splits the batch; zamba's sequence is two reduced SSD chunks
-SEQ = {"llama3-8b": 16, "gpt-m1": 16, "zamba2-7b": 32}
+SEQ = {"llama3-8b": 16, "gpt-m1": 16, "zamba2-7b": 32, "xlstm-1.3b": 32}
 #: the meshes (dp, d1, d2[, pods]) and the chunks each runs
 MESHES = {(1, 2, 2): (1, 2), (1, 4, 1): (1,), (2, 2, 1): (1,),
           (2, 1, 1, 2): (1,)}
 #: the archs of a mesh where not ``ARCHS``: (pods 2, data 2) holds the
-#: loss and the optimizer over both dp axes
-MESH_ARCHS = {(2, 1, 1, 2): ("llama3-8b",)}
+#: loss and the optimizer over both dp axes; (1, 2, 2) also runs reduced
+#: xlstm-1.3b (two super-blocks of one mLSTM and one sLSTM block)
+MESH_ARCHS = {(2, 1, 1, 2): ("llama3-8b",),
+              (1, 2, 2): ARCHS + ("xlstm-1.3b",)}
 
 
 #: the ring, quantized and sequence-parallel plans llama3-8b runs on the

@@ -1967,3 +1967,123 @@ def test_rmsnorm_wide_planted_faults_break_the_checks(cuda, width):
         ops.rmsnorm_backward(torch.zeros(2, 8200, device=cuda).bfloat16(),
                              torch.ones(8200, device=cuda),
                              torch.zeros(2, 8200, device=cuda).bfloat16())
+
+
+# ---------------------------------------------------------------------------
+# xlstm-1.3b and qwen2-vl-7b: the matmul at a side of 2662 (the sLSTM FFN's
+# width), the attention at a group of 7, and both models' paged steps.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 64, 2048])
+@pytest.mark.parametrize("k,n", [(2048, 2662), (2662, 2048)])
+def test_matmul_at_a_side_of_2662_takes_element_loads(cuda, m, k, n):
+    """xlstm-1.3b's sLSTM FFN (2048 -> int(1.3 * 2048) = 2662 -> 2048): a
+    side that is no multiple of 8 takes the kernel's element loads (vec =
+    0; at 2048 rows the stream-K plan of variant 1 in place of variant 2),
+    counted in ``ops.ELEMENT_LOAD_LAUNCHES`` (and at 2664 not), against
+    ``ref.matmul_ref``; the output one column over (a fault the check must
+    catch) fails it."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    a = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    w = (torch.randn(k, n, generator=gen, device=cuda) * k ** -0.5).bfloat16()
+    before = ops.LAUNCHES["matmul"]
+    loads = ops.ELEMENT_LOAD_LAUNCHES["matmul"]
+    got = ops.matmul(a, w)
+    assert ops.LAUNCHES["matmul"] == before + 1
+    assert ops.ELEMENT_LOAD_LAUNCHES["matmul"] == loads + 1
+    want = ref.matmul_ref(a, w)
+    _close(got, want, **BF16_TOL)
+    with pytest.raises(AssertionError):
+        _close(got.roll(1, dims=-1), want, **BF16_TOL)
+    # at 2664, a multiple of 8, the kernel takes its vector loads
+    k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
+    ops.matmul(torch.zeros(m, k8, device=cuda, dtype=torch.bfloat16),
+               torch.zeros(k8, n8, device=cuda, dtype=torch.bfloat16))
+    assert ops.ELEMENT_LOAD_LAUNCHES["matmul"] == loads + 1
+
+
+GROUP_7 = {  # (b, sq, skv, hq, hkv, q_offset, kv_len): qwen2-vl-7b, d = 128
+    # a ragged prefill chunk: 61 rows x 7 heads = 427 rows, 6.7 row tiles
+    "ragged chunk of 61": (1, 61, 320, 28, 4, [192], [253]),
+    # a 4-slot decode tick: 7 rows a kv head
+    "4-slot tick": (4, 1, 320, 28, 4, [137, 64, 250, 9], [138, 65, 251, 10]),
+    # the embeds prefill of 1024 positions, and a ragged 1000
+    "embeds prefill 1024": (1, 1024, 1024, 28, 4, [0], [1024]),
+    "ragged 1000": (1, 1000, 1000, 28, 4, [0], [1000]),
+}
+
+
+def _variant_plan(variant):
+    """``ops.attention_plan`` forced to one variant: variant 0's
+    ``split_plan``, or variant 1's one range of key tiles in row tiles of
+    ``ref.TRAIN_TILE``."""
+    def plan(b, sq, hq, hkv, skv, sms=ops.SMS, *, d=128):
+        if variant == 0:
+            return ops.split_plan(b, sq, hq, hkv, skv, sms)
+        tile, keys = ref.TRAIN_TILE, ref.train_keys(d)
+        return ops.AttentionPlan(-(-sq // tile), 1, -(-skv // keys), tile,
+                                 keys, 1)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("case", list(GROUP_7))
+def test_flash_attention_group_of_7_matches_plain(cuda, monkeypatch, case,
+                                                  variant):
+    """qwen2-vl-7b's 28 q heads on 4 kv heads: a group of 7, which divides
+    no tile of either variant (each forced by its plan); the output of the
+    neighbouring q head (a fault the check must catch) fails it."""
+    b, sq, skv, hq, hkv, q_off, kv_len = GROUP_7[case]
+    q, k, v, qo, kl = _attention_inputs(cuda, b, sq, skv, hq, hkv, 128,
+                                        q_off, kv_len)
+    monkeypatch.setattr(ops, "attention_plan", _variant_plan(variant))
+    before = ops.ATTENTION_VARIANT_LAUNCHES[variant]
+    got = ops.flash_attention(q, k, v, qo, kl)
+    assert ops.ATTENTION_VARIANT_LAUNCHES[variant] == before + 1
+    want = ref.attention_ref(q, k, v, qo, kl)
+    _close(got, want, **FA_TOL)
+    with pytest.raises(AssertionError):
+        _close(got.roll(1, dims=2), want, **FA_TOL)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo root, loaded from its path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_card", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_xlstm_paged_step_on_the_card_is_the_cpus(cuda):
+    """xlstm-1.3b at full width, one super-block (7 mLSTM blocks and an
+    sLSTM block): ``chip_smoke.path_check``'s chunked prefill and two ticks
+    on the card (kernels, bf16) against the CPU (plain versions, fp32):
+    the logits and each layer's state rows within the recurrent rule, and
+    a planted fault (every input gate 2% too large) that must break it."""
+    from repro_torch.configs.base import cut_depth
+    from repro_torch.configs.registry import get_config
+
+    smoke = _chip_smoke()
+    smoke.path_check(torch, cut_depth(get_config("xlstm-1.3b"), 8), seed=3,
+                     ticks=2, fault=smoke.raised_input_gates)
+
+
+@pytest.mark.cuda
+def test_qwen2vl_paged_step_and_embeds_prefill_on_the_card_are_the_cpus(
+        cuda):
+    """qwen2-vl-7b at full width, 2 layers: ``chip_smoke.
+    qwen2vl_path_check``'s paged calls and embeds prefill on the card
+    against the CPU in fp32 within ``PATH_TOL``, and positions3's h and w
+    swapped (a fault text-only positions cannot show) beyond it."""
+    from repro_torch.configs.registry import get_config
+
+    _chip_smoke().qwen2vl_path_check(torch, get_config("qwen2-vl-7b"),
+                                     seed=5)

@@ -410,7 +410,8 @@ def test_mtp_draft_logits_match_the_reference():
         nxt = logits.argmax(-1).to(torch.int32)
         np.testing.assert_array_equal(nxt.numpy(), want_next)
         draft = lm.mtp_draft_logits(ctx, cfg, params, h,
-                                    lm.step_positions(tok, start), nxt)
+                                    lm.step_positions(tok, start, cfg),
+                                    nxt)
     np.testing.assert_allclose(h.numpy(), want_h, **TOL)
     np.testing.assert_allclose(draft.numpy(), want, **TOL)
 

@@ -119,7 +119,8 @@ def port_loss_and_grads_at(pcfg, tp, batch, remat=False):
     leaves = adamw.tree_leaves(tp)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     loss = lm.train_loss(ctx, pcfg, tp, tb, remat=remat)
-    grads = adamw.tree_unflatten(tp, iter(torch.autograd.grad(loss, leaves)))
+    grads = adamw.tree_unflatten(tp, iter(torch.autograd.grad(
+        loss, leaves, materialize_grads="embeds" in batch)))
     return float(loss.detach()), convert.params_to_numpy(pcfg, [grads], TOPO)
 
 

@@ -234,11 +234,19 @@ def test_the_wave_refuses_what_it_cannot_hold():
         server.serve(_prompts(pcfg.vocab_size), MAX_SEQ)
     with pytest.raises(ValueError, match="a wave of 3"):
         server.serve(_prompts(pcfg.vocab_size, n=3), MAX_NEW)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        lm.init_decode_caches(port_config("xlstm-1.3b").reduced(),
-                              make_context(atp_topo(1, 1, 1),
-                                           device_type="cpu"), B, MAX_SEQ,
-                              device="cpu")
+    # xlstm's contiguous caches (no longer refused) have the reference's
+    # shapes, its mLSTM memory without the flat TP dim (size 1 on a rank)
+    want, _ = jax_lm.init_decode_caches(
+        get_config("xlstm-1.3b").reduced(),
+        jax_make_context(jax_atp_topo(1, 1, 1)), B, MAX_SEQ, abstract=True)
+    got = lm.init_decode_caches(port_config("xlstm-1.3b").reduced(),
+                                make_context(atp_topo(1, 1, 1),
+                                             device_type="cpu"), B, MAX_SEQ,
+                                device="cpu")
+    for part, node in want["seg0"].items():
+        for k, a in node.items():
+            shape = a.shape[:3] + a.shape[4:] if k == "C" else a.shape
+            assert tuple(got["seg0"][part][k].shape) == shape, (part, k)
 
 
 def test_a_second_wave_in_the_same_caches_serves_afresh():

@@ -62,13 +62,21 @@ def test_reduced_zamba_runs_both_recurrent_segment_kinds():
 
 
 def test_unported_kinds_raise_naming_the_roadmap_item():
-    cfg = port_config("xlstm-1.3b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        lm.init_params(cfg, device="cpu")
-    with pytest.raises(ValueError, match="slots="):
-        lm.init_paged_caches(_cfgs()[1], make_context(atp_topo(1, 1, 1),
-                                                      device_type="cpu"),
-                             PortPagedConfig(**GEOM), device="cpu")
+    """ROADMAP A10 is done: xlstm, the last kind that raised, gives the
+    reference's tree (keys, shapes, per-leaf dtypes in a bf16 model), and
+    its paged caches without ``slots=`` raise as zamba's do."""
+    cfg = get_config("xlstm-1.3b").reduced()
+    pcfg = port_config("xlstm-1.3b").reduced()
+    want = jax.tree.map(lambda x: (x.shape, str(x.dtype)),
+                        jax_lm.abstract_params(cfg))
+    got = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]),
+                       lm.init_params(pcfg, seed=0, device="cpu"))
+    assert got == want
+    ctx = make_context(atp_topo(1, 1, 1), device_type="cpu")
+    for c in (pcfg, _cfgs()[1]):
+        with pytest.raises(ValueError, match="slots="):
+            lm.init_paged_caches(c, ctx, PortPagedConfig(**GEOM),
+                                 device="cpu")
 
 
 def test_init_params_matches_jax_tree_for_zamba():
