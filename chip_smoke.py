@@ -244,8 +244,9 @@ Phases, in order, each failing the run on any error:
    printed profiled step reports the same passes.
 9. path-check-train -- llama3-8b at full width with the depth cut to 2
    layers, b = 1, s = 256: the gradient of every parameter (norm scales
-   included) on the card (kernels, bf16) against the CPU (plain versions,
-   fp32, from the same bf16 weights), within a per-tensor relative L2 error
+   included) on the card (kernels, bf16) against the plain versions in
+   fp32 from the same bf16 weights (the CPU's path, run on the card), within
+   a per-tensor relative L2 error
    of 5e-2 (``PATH_TOL``); the card's attention runs the training kernel
    (every training path check's s is at least 128).
 10. train-zamba-kernels -- at zamba2-7b's training shapes (b = 1, s = 2048,
@@ -293,8 +294,9 @@ Phases, in order, each failing the run on any error:
 12. path-check-train-zamba -- zamba2-7b at full width with the depth cut
    to 7 layers (one super-block and a one-block tail), b = 1, s = 128 (two
    SSD chunks, so the state's gradient crosses a chunk): every gradient
-   on the card (kernels, bf16) against the CPU (plain versions, fp32, from
-   the same bf16 weights), and the plain versions on the CPU in bf16
+   on the card (kernels, bf16) against the plain versions in fp32 (run on
+   the card) from the same bf16 weights, and the plain versions on the CPU
+   in bf16
    against the same; each gradient within ``PATH_TOL`` or within
    ``RECURRENT_FACTOR`` times the plain bf16 path's own error (bf16
    gradients of this model are O(1) from fp32 upstream of the last block,
@@ -327,7 +329,7 @@ Phases, in order, each failing the run on any error:
    the tree in DIR and of this one, a process each, in turns.
 15. path-check-train-gpt -- gpt-m2 at 2 layers, b = 1, s = 512 (so that
    the up projection's pre-activation comes from variant 2): the loss and
-   every gradient on the card against the CPU's fp32 plain path within
+   every gradient on the card against the fp32 plain path within
    ``PATH_TOL``; then the same step with ``activation_backward`` swapped
    for its plain version on the card (the same loss bit for bit, no
    derivative kernel launched), every gradient within ``PATH_TOL`` of the
@@ -467,9 +469,46 @@ Phases, in order, each failing the run on any error:
    embeds prefill's rows and ``path_calls``' paged calls on the card
    against the fp32 CPU path within ``PATH_TOL``, and positions3's h and
    w swapped (a fault text-only positions cannot show) beyond it.
+29. serve-remesh (after serve-qwen) -- qwen1.5-0.5b at full size with
+   serve-qwen's traffic, captured: an uninterrupted run, then the same
+   requests stepped to tick 7 with requests in flight, the server
+   remeshed (``launch.serve.remesh_paged_server``, the fault-tolerant
+   runtime's shrink) onto the same one-card topology with a fresh captured
+   step and fresh pools, and drained: one reshape, the pool drained, the
+   launch counts (set to 0 just before that run) the step's model times
+   its steps and both steps' warm-ups, and the tokens equal to the
+   uninterrupted run's up to each request's first near-tie (``NEAR_TIE``)
+   with any first difference at a near-tie (``replay_rule``: the replay
+   prefills positions that run decoded, another kernel variant with other
+   bf16 rounding); a continuation without the emitted tokens (the planted
+   fault) must break that rule.
+30. train-elastic (after path-check-train-gpt) -- gpt-m1 at its own 4
+   layers and full width (0.411 B parameters) through the fault-tolerant
+   ``runtime.trainer.Trainer`` (``launch.train.make_elastic_trainer``),
+   b = 1, s = 2048, zero1 at dp = 1, 8 steps, a checkpoint every 4 (about
+   4.1 GB: bf16 weights, fp32 m and v, in the JAX package's layout) in a
+   temporary directory whose free space is checked first and which is
+   removed at the end: two uninterrupted runs, then one with a transient
+   ``RuntimeError`` injected at step 5 (restored from step 4 and
+   replayed), a torn save at step 4 (swept and retried) and a scripted
+   straggler at step 2 (the watchdog trips).  Every restored leaf must be
+   the bytes saved; each step's loss within ``ELASTIC_SPREAD_FACTOR``
+   times the uninterrupted runs' own spread of the first run's; the
+   launch counts (set to 0 just before the faulted run) the step's model
+   times the 9 steps taken; two planted faults (the moments restored as
+   zeros, the data replayed from one step late) must break the loss rule.
+   Prints the bytes a checkpoint, the seconds each save stops training
+   (the whole checkpoint call, and its halves: the tree from the card to
+   the host, then the write) and each restore takes (the read, then the
+   cut onto the card), the filesystem they went to, ms a step and the
+   recovery seconds from the fault to the next step done.
 Phase 8 (train) also trains llama3-8b with an MTP head (its loss term),
-then holds its gradients, the head's with them, against the fp32 CPU
-path at 2 layers.
+then holds its gradients, the head's with them, against the fp32 plain
+path at 2 layers.  Every training path check (9, 12, 15, 18, 24) runs its
+fp32 plain side on the card, through ``plain_everywhere``: the wrappers'
+plain versions, which are what they run on the CPU, on the card's
+tensors, without TF32 (zamba2-7b's bf16 plain side, the recurrent rule's
+yardstick, stays on the CPU).
 
 Prints the card's name and power limit, the kernels' build time and each
 kernel's registers and spills from the build report, one JSON
@@ -518,13 +557,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("kernels", "serve-llama", "path-check", "serve-qwen",
-          "serve-zamba", "serve-wave", "serve-gemma", "serve-prefix",
+          "serve-remesh", "serve-zamba", "serve-wave", "serve-gemma", "serve-prefix",
           "serve-quant-pages", "serve-speculate", "path-check-zamba",
           "train-kernels",
           "split-norm", "int8-matmul", "quant-wire", "train",
           "path-check-train", "train-zamba-kernels", "train-zamba",
           "path-check-train-zamba", "train-gpt-kernels", "train-gpt",
-          "path-check-train-gpt", "train-gemma", "serve-dbrx",
+          "path-check-train-gpt", "train-elastic", "train-gemma", "serve-dbrx",
           "serve-musicgen", "serve-deepseek", "path-check-deepseek",
           "train-deepseek", "path-check-train-deepseek", "serve-xlstm",
           "path-check-xlstm", "serve-qwen2vl", "path-check-qwen2vl", "plan",
@@ -5333,6 +5372,34 @@ def swapped(ops, **impls):
             setattr(ops, name, fn)
 
 
+@contextlib.contextmanager
+def plain_everywhere(torch, ops):
+    """Inside the block every ``ops`` wrapper runs its plain version, on
+    whatever device its tensors lie (what it runs on the CPU), and fp32
+    products on the card take no TF32: the CPU's path, computed by the
+    card.  The launch counts are set to 0 on entry, and the block fails if
+    any hand-written kernel launched inside it (the plain side would then
+    hold the kernels against themselves)."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launches()
+    try:
+        with swapped(ops, _on_cpu=lambda *ts: True):
+            yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    launched = {k: v for counts in (
+        ops.LAUNCHES, ops.BACKWARD_LAUNCHES, ops.SPLIT_LAUNCHES,
+        ops.QUANT_LAUNCHES, ops.ELEMENT_LOAD_LAUNCHES) for k, v in
+        counts.items() if v}
+    assert not launched and not any(ops.ATTENTION_VARIANT_LAUNCHES), \
+        f"a kernel launched on the plain side: {launched} " \
+        f"{ops.ATTENTION_VARIANT_LAUNCHES}"
+
+
 def zero_db(torch, ssd_scan_backward):
     """``ssd_scan_backward`` with a planted fault: dB set to zero."""
     def faulty(*args, **kw):
@@ -5353,8 +5420,9 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
                      hold_attention: bool = False) -> None:
     """The loss and every parameter's gradient of ``arch`` at full width,
     depth cut to ``layers`` (b = 1, s = ``seq``), on the card (kernels,
-    bf16) against the CPU (plain versions, fp32) from the same bf16
-    weights, each gradient within ``PATH_TOL``.
+    bf16) against the plain versions in fp32 from the same bf16 weights
+    (the CPU's path, run by the card: ``plain_everywhere``), each gradient
+    within ``PATH_TOL``.
 
     A recurrent model's bf16 gradients are far from fp32 whatever computes
     them (the Mamba2 grouped norm divides rows whose bf16 value is wrong
@@ -5389,11 +5457,13 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
         for t in leaves:
             t.requires_grad_(True)
         loss = lm.train_loss(ctx, cfg, params, batch, remat=False)
-        return float(loss.detach()), [g.float().cpu() for g in
-                                      torch.autograd.grad(loss, leaves)]
+        return float(loss.detach()), list(torch.autograd.grad(loss, leaves))
 
     def rel(a, b):
-        return {n: rel_l2(g, w) for n, g, w in zip(names, a[1], b[1])}
+        """Each gradient's relative L2 distance, on the device of ``a``'s
+        (the gradients stay where they were made)."""
+        return {n: rel_l2(g, w.to(g.device))
+                for n, g, w in zip(names, a[1], b[1])}
 
     names = _leaf_names(params)
     on_card = dev != "cpu"
@@ -5406,12 +5476,17 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
     trained = 1 if cfg.hd in ops.TRAIN_HEAD_DIMS else 0
     assert not on_card or (variants[1 - trained] == 0
                            and variants[trained] > 0), variants
-    host = {k: v.cpu() for k, v in batch.items()}
-    cpu = grads(lm.tree_map(lambda t: t.detach().cpu().float(), params),
-                host, "cpu")
+    # the plain versions in fp32 from the same bf16 weights, run by the
+    # card (the CPU's path: ``plain_everywhere``)
+    with plain_everywhere(torch, ops):
+        cpu = grads(lm.tree_map(lambda t: t.detach().float(), params), batch,
+                    dev)
     errs = rel(card, cpu)
     plain = same = fault = {}
     if lm.is_recurrent(cfg):
+        # the plain bf16 path's own error, the recurrent rule's yardstick,
+        # is the CPU's (the card's plain bf16 arithmetic rounds otherwise)
+        host = {k: v.cpu() for k, v in batch.items()}
         plain = rel(grads(lm.tree_map(lambda t: t.detach().cpu(), params),
                           host, "cpu"), cpu)
         # every backward wrapper plain; the fault in the SSD backward
@@ -5432,6 +5507,7 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
             torch, ops.flash_attention_backward))
         what, kept = ("flash_attention_bwd's dK planted to zero",
                       "flash_attention_bwd")
+    cpu = cpu[:1]   # its loss; the fp32 gradients are read and freed
     if lm.is_recurrent(cfg) or cfg.mlp_kind == "gelu" or hold_attention:
         ops.reset_launches()
         with swapped(ops, **held_by):
@@ -5459,7 +5535,7 @@ def train_path_check(torch, seed: int = 0, arch: str = "llama3-8b",
     log(f"path-check-train {cfg.name} at {layers} layers, d_model "
         f"{cfg.d_model}, s={seq}: attention launches by kernel {variants} "
         f"(flash_attention.cu, flash_attention_train.cu); loss card "
-        f"{card[0]:.5f} CPU {cpu[0]:.5f}; "
+        f"{card[0]:.5f} plain fp32 {cpu[0]:.5f}; "
         f"gradient relative L2 error per tensor, worst {errs[worst]:.3e} "
         f"({worst}), limit {PATH_TOL}"
         + (f" or {RECURRENT_FACTOR}x the plain bf16 path's error against "
@@ -7125,6 +7201,526 @@ def plan_phase(torch) -> None:
     assert from_plan == from_topo, (from_plan, from_topo)
 
 
+# ---------------------------------------------------------------------------
+# Phases 37-38: the fault-tolerant runtime (ROADMAP A11): gpt-m1 trains
+# through the Trainer and recovers from a fault; qwen1.5-0.5b's paged server
+# is remeshed with requests in flight.
+# ---------------------------------------------------------------------------
+
+#: train-elastic: gpt-m1 at its own 4 layers and full width (0.411 B
+#: parameters), b = 1, s = 2048, AdamW zero1 at dp = 1; 8 steps, a
+#: checkpoint every 4, the last 2 kept; a transient fault at step 5, a torn
+#: save at step 4 and a straggler at step 2
+ELASTIC = dict(arch="gpt-m1", steps=8, ckpt_every=4, keep=2, fail_step=5,
+               torn_step=4, straggler=2, seed=13)
+#: the loss rule: each step's loss of the faulted run within this many
+#: times the two uninterrupted runs' own largest relative distance a step
+#: of the first run's (sums in the matmul and the attention backward that
+#: add with atomics may make two runs differ in their last bits, and the
+#: difference grows with the steps), and never below
+#: ``ELASTIC_LOSS_FLOOR``, about twelve fp32 ulps of gpt-m1's first losses
+#: (about 11.4): at its shapes the two runs agree bit for bit (PERF.md)
+ELASTIC_SPREAD_FACTOR = 4.0
+ELASTIC_LOSS_FLOOR = 1e-6
+#: serve-remesh: serve-qwen's traffic, stepped to this tick before the remesh
+REMESH_TICKS = 7
+
+
+def rel_drift(got: dict, want: dict, steps=None) -> float:
+    """The largest relative distance of two runs' losses, by step."""
+    steps = sorted(want) if steps is None else steps
+    return max(abs(got[s] - want[s]) / abs(want[s]) for s in steps)
+
+
+def bits_equal(torch, got, want) -> bool:
+    """Two leaves (tensors or numpy arrays) equal in shape, dtype and every
+    byte."""
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(got.reshape(-1).view(torch.uint8),
+                            want.reshape(-1).view(torch.uint8)))
+
+
+def mount_of(path: str) -> str:
+    """The filesystem that holds ``path``: its device, mount point and type
+    (the longest mount point of ``/proc/mounts`` above it)."""
+    best = ("?", "/", "?")
+    for line in Path("/proc/mounts").read_text().splitlines():
+        dev, point, kind = line.split()[:3]
+        if path.startswith(point.rstrip("/") + "/") and \
+                len(point) >= len(best[1]):
+            best = (dev, point, kind)
+    return f"{best[0]} on {best[1]} ({best[2]})"
+
+
+class CheckpointProbe:
+    """Inside the block: the checkpoint manager's ``save`` and ``restore``
+    timed (wall seconds each, the host's disk), the tree of each save at a
+    step in ``keep`` kept (its leaves are the host copies the save wrote),
+    and each restore of such a step compared with it as it returns, leaf
+    by leaf in bytes (``restored``: the step, the leaves equal, the
+    leaves); with ``writes`` off a save writes nothing.  With a
+    ``trainer``, also its whole checkpoint call (``ckpt_s``: what a save
+    stops training for, retries included) and the two halves that are not
+    the disk's: ``encode_s``, the tree gathered from the card to the host
+    and reassembled, and ``decode_s``, the restored tree cut and put back
+    on the card."""
+
+    def __init__(self, torch, manager, keep=(), writes: bool = True,
+                 trainer=None):
+        self.torch, self.manager, self.trainer = torch, manager, trainer
+        self.keep, self.writes = set(keep), writes
+        self.save_s, self.restore_s = [], []
+        self.ckpt_s, self.encode_s, self.decode_s = [], [], []
+        self.saved, self.restored = {}, []
+
+    @staticmethod
+    def _timed(fn, into: list):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            into.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __enter__(self):
+        save, restore = self.manager.save, self.manager.restore
+        self._orig = save, restore
+
+        def timed_save(ckpt_dir, step, tree, extra=None):
+            if not self.writes:
+                return None
+            t0 = time.perf_counter()
+            out = save(ckpt_dir, step, tree, extra)
+            self.save_s.append(time.perf_counter() - t0)
+            if step in self.keep:
+                self.saved[step] = tree
+            return out
+
+        def timed_restore(*a, **kw):
+            t0 = time.perf_counter()
+            tree, meta = restore(*a, **kw)
+            self.restore_s.append(time.perf_counter() - t0)
+            step = meta["step"]
+            if step in self.saved:
+                pairs = list(zip(self.manager.flatten(self.saved[step]),
+                                 self.manager.flatten(tree)))
+                self.restored.append((step, sum(
+                    bits_equal(self.torch, got, want) for want, got in pairs),
+                    len(pairs)))
+            return tree, meta
+
+        self.manager.save, self.manager.restore = timed_save, timed_restore
+        tr = self.trainer
+        if tr is not None:
+            self._codec = tr.encode_ckpt, tr.decode_ckpt
+            tr.encode_ckpt = self._timed(tr.encode_ckpt, self.encode_s)
+            tr.decode_ckpt = self._timed(tr.decode_ckpt, self.decode_s)
+            tr._checkpoint = self._timed(tr._checkpoint, self.ckpt_s)
+        return self
+
+    def __exit__(self, *exc):
+        self.manager.save, self.manager.restore = self._orig
+        tr = self.trainer
+        if tr is not None:
+            tr.encode_ckpt, tr.decode_ckpt = self._codec
+            del tr._checkpoint
+        return False
+
+
+def elastic_trainer(torch, cfg, ckpt_dir: str, source=None, dev="cuda"):
+    """``launch.train.make_elastic_trainer`` on the card for gpt-m1's
+    train-elastic run (one rank, zero1 at dp = 1), its step stamped."""
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch.train import make_elastic_trainer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    source = source or TokenSource(DataConfig(
+        cfg.vocab_size, TRAIN_SHAPE["seq"], TRAIN_SHAPE["batch"],
+        seed=ELASTIC["seed"]))
+    trainer, live = make_elastic_trainer(
+        cfg, ParallelPlan(d1=1, d2=1, dp=1,
+                          provenance=(("searcher", "chip-smoke"),)),
+        adamw.AdamWConfig(lr=3e-4, warmup_steps=1),
+        TrainerConfig(total_steps=ELASTIC["steps"], ckpt_dir=ckpt_dir,
+                      ckpt_every=ELASTIC["ckpt_every"],
+                      keep_ckpts=ELASTIC["keep"], max_failures=2),
+        source, batch=TRAIN_SHAPE["batch"], seq=TRAIN_SHAPE["seq"],
+        device=dev, seed=ELASTIC["seed"])
+    live["step"] = StampedStep(torch, live["step"])
+    return trainer, live
+
+
+def losses_of(trainer) -> dict:
+    """Each step's loss (a replayed step's last)."""
+    return {h["step"]: h["loss"] for h in trainer.history}
+
+
+def train_elastic_phase(torch, dev="cuda") -> dict:
+    """gpt-m1 trained through the fault-tolerant Trainer
+    (``launch.train.make_elastic_trainer``) on the card: two uninterrupted
+    runs, then a run with a transient ``RuntimeError`` injected at step 5
+    (restored from the step-4 checkpoint and replayed), a torn save at
+    step 4 (swept and retried) and a scripted straggler at step 2 (the
+    watchdog trips).  Every restored leaf must be the bytes saved; the
+    faulted run's losses must lie within the bound the two uninterrupted
+    runs set; two planted faults (the moments restored as zeros, the data
+    replayed from one step late) must break it.  The launch counts are set
+    to 0 just before the faulted run and must equal the step's model
+    times the steps taken.  Returns those counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = _train_config(ELASTIC["arch"], GPT_LAYERS)
+    leaves = adamw.tree_leaves(lm.init_params(cfg, device="meta"))
+    n_params = sum(t.numel() for t in leaves)
+    # bf16 weights and fp32 m and v
+    ckpt_bytes = sum(t.numel() * (t.element_size() + 8) for t in leaves)
+    # the host's temporary directory, or the checkout's build directory
+    # where that has too little room (a save writes the new checkpoint
+    # before pruning the oldest)
+    need = (ELASTIC["keep"] + 1) * ckpt_bytes + (1 << 30)
+    where = next((d for d in (tempfile.gettempdir(), ROOT / "build")
+                  if os.makedirs(d, exist_ok=True) is None
+                  and shutil.disk_usage(d).free > need), None)
+    assert where is not None, \
+        f"no directory has {need} bytes free for the checkpoints"
+    base = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=where)
+    free = shutil.disk_usage(base).free
+    log(f"train-elastic {cfg.name}: {cfg.num_layers} layers at full width "
+        f"({n_params / 1e9:.3f} B parameters, bf16; fp32 AdamW m/v, zero1 "
+        f"at dp = 1), batch {TRAIN_SHAPE['batch']} x seq "
+        f"{TRAIN_SHAPE['seq']}; {ELASTIC['steps']} steps, a checkpoint "
+        f"every {ELASTIC['ckpt_every']} ({ckpt_bytes / 1e9:.3f} GB each), "
+        f"the last {ELASTIC['keep']} kept, in {base} on {mount_of(base)}: "
+        f"{free / 1e9:.1f} GB free")
+    try:
+        return _elastic_runs(torch, cfg, base, ckpt_bytes, dev)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _elastic_runs(torch, cfg, base: str, ckpt_bytes: int, dev) -> dict:
+    """train-elastic's runs in the checkpoint directory ``base``."""
+    import shutil
+
+    from repro_torch.checkpoint import manager
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.faults import (FaultEvent, FaultPlan,
+                                            TornCheckpointWrites,
+                                            VirtualStepClock,
+                                            trainer_injector)
+
+    clean = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        trainer, live = elastic_trainer(torch, cfg, f"{base}/clean{i}",
+                                        dev=dev)
+        # the second run's checkpoints would only repeat the first's
+        with CheckpointProbe(torch, manager, writes=i == 0,
+                             trainer=trainer) as probe:
+            trainer.run()
+        clean.append(losses_of(trainer))
+        dts = [h["dt"] for h in trainer.history]
+        log(f"  uninterrupted run {i + 1}: {time.perf_counter() - t0:.1f}s, "
+            f"losses {[round(x, 5) for x in clean[-1].values()]}; "
+            f"{1e3 * statistics.median(dts[1:]):.1f} ms a step (median of "
+            f"steps 2-{len(dts)}; step 1 {1e3 * dts[0]:.1f} ms); saves "
+            f"{[round(s, 2) for s in probe.ckpt_s]} s in all (the card to "
+            f"the host {[round(s, 2) for s in probe.encode_s]} s, the write "
+            f"{[round(s, 2) for s in probe.save_s]} s)")
+        step_ms = 1e3 * statistics.median(dts[1:])
+        shutil.rmtree(f"{base}/clean{i}", ignore_errors=True)
+        del trainer, live
+        gc.collect()
+    spread = rel_drift(clean[1], clean[0])
+    bound = max(ELASTIC_SPREAD_FACTOR * spread, ELASTIC_LOSS_FLOOR)
+    log(f"  the two uninterrupted runs' largest relative distance a step: "
+        f"{spread:.3e}; the loss rule's bound {bound:.3e} "
+        f"({ELASTIC_SPREAD_FACTOR:g}x it, at least {ELASTIC_LOSS_FLOOR:g})")
+
+    fplan = FaultPlan.scripted(
+        FaultEvent("device_loss", at=ELASTIC["fail_step"]),
+        FaultEvent("torn_ckpt", at=ELASTIC["torn_step"]),
+        FaultEvent("straggler", at=ELASTIC["straggler"], duration=1,
+                   severity=20.0), seed=1005)
+    ckdir = f"{base}/faulted"
+    trainer, live = elastic_trainer(torch, cfg, ckdir, dev=dev)
+    trainer.time_fn = VirtualStepClock(fplan)
+    mitigated = []
+    trainer.mitigation_hook = mitigated.append
+    inject = trainer_injector(fplan)
+    faults = []
+
+    def injector(step):
+        try:
+            inject(step)
+        except RuntimeError:
+            faults.append(time.perf_counter())
+            raise
+
+    keep = ELASTIC["ckpt_every"]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with CheckpointProbe(torch, manager, keep=(keep,),
+                         trainer=trainer) as probe, \
+            TornCheckpointWrites(fplan) as torn:
+        trainer.run(fail_injector=injector)
+    wall = time.perf_counter() - t0
+    launches = {**ops.LAUNCHES, **ops.BACKWARD_LAUNCHES}
+    steps = [h["step"] for h in trainer.history]
+    fwd, bwd = train_launches_per_step(cfg, remat=True)
+    want = {k: v * len(steps) for k, v in {**fwd, **bwd}.items()}
+    recovery = min(t for t in live["step"].ends if t > faults[0]) - faults[0]
+    faulted = losses_of(trainer)
+    drift = rel_drift(faulted, clean[0])
+    log(f"  faulted run: {wall:.1f}s, steps taken {steps}; failures "
+        f"{trainer.total_failures} (consecutive {trainer.failures}), "
+        f"re-plans {trainer.replans}, torn saves {torn.torn}, watchdog "
+        f"events {trainer.watchdog.events}, mitigated {mitigated}; "
+        f"recovery {recovery:.3f}s from the fault to the next step done")
+    log(f"  checkpoint of {ckpt_bytes / 1e9:.3f} GB: a save stops "
+        f"training {[round(s, 3) for s in probe.ckpt_s]} s (the torn one's "
+        f"retry included): the card to the host and the reassembly "
+        f"{[round(s, 3) for s in probe.encode_s]} s, the write "
+        f"{[round(s, 3) for s in probe.save_s]} s; a restore: the read "
+        f"{[round(s, 3) for s in probe.restore_s]} s, the cut onto the card "
+        f"{[round(s, 3) for s in probe.decode_s]} s")
+    log(f"  losses {[round(x, 5) for x in faulted.values()]}; largest "
+        f"relative distance from uninterrupted run 1 {drift:.3e} (bound "
+        f"{bound:.3e})")
+    log(f"  launches over {len(steps)} steps: {launches} (= per step "
+        f"{fwd} {bwd} x {len(steps)})")
+    assert launches == want, f"launches {launches}, expected {want}"
+    assert steps == [0, 1, 2, 3, 4, 4, 5, 6, 7], steps
+    assert trainer.total_failures == 2 and trainer.failures == 0, \
+        (trainer.total_failures, trainer.failures)
+    assert trainer.replans == [] and torn.torn == [ELASTIC["torn_step"]]
+    assert [e[0] for e in trainer.watchdog.events] == [ELASTIC["straggler"]]
+    assert mitigated == [ELASTIC["straggler"]], mitigated
+    assert manager.latest_step(ckdir) == ELASTIC["steps"]
+    assert not [n for n in os.listdir(ckdir) if n.startswith(".tmp_")], \
+        "a torn save's staging dir was left"
+    (at, same, total), = probe.restored
+    log(f"  restored step {at}: {same} of {total} leaves bit for bit the "
+        f"bytes saved (bf16 weights, fp32 m and v, the int32 step)")
+    assert at == keep and total == len(manager.flatten(probe.saved[keep])), \
+        (at, total)
+    assert same == total, "a restored leaf differs from the bytes saved"
+    assert all(math.isfinite(x) for x in faulted.values()), faulted
+    assert drift <= bound, f"the faulted run's losses drift {drift:.3e}"
+    stall = probe.ckpt_s
+    del trainer, live, probe
+    gc.collect()
+
+    # the planted faults replay steps 4-7 from the step-4 checkpoint
+    shutil.rmtree(f"{ckdir}/step_{ELASTIC['steps']:08d}")
+    replay = list(range(keep, ELASTIC["steps"]))
+
+    def zero_moments(decode):
+        def faulty(tree):
+            params, canon = tree
+            canon = {**canon, "leaves": lm.tree_map(torch.zeros_like,
+                                                    canon["leaves"])}
+            return decode((params, canon))
+        return faulty
+
+    class Late(TokenSource):
+        """The data stream one step late: step s reads batch s + 1."""
+
+        def global_batch(self, step):
+            return super().global_batch(step + 1)
+
+    late = Late(DataConfig(cfg.vocab_size, TRAIN_SHAPE["seq"],
+                           TRAIN_SHAPE["batch"], seed=ELASTIC["seed"]))
+    for what, source, decode in (("moments restored as zeros", None,
+                                  zero_moments),
+                                 ("data replayed from one step late", late,
+                                  None)):
+        trainer, live = elastic_trainer(torch, cfg, ckdir, source, dev)
+        if decode is not None:
+            trainer.decode_ckpt = decode(trainer.decode_ckpt)
+        with CheckpointProbe(torch, manager, writes=False):
+            trainer.run()
+        got = losses_of(trainer)
+        assert sorted(got) == replay, sorted(got)
+        d = rel_drift(got, clean[0], replay)
+        log(f"  planted fault, {what}: steps {replay} replayed, losses "
+            f"{[round(got[s], 5) for s in replay]}, largest relative "
+            f"distance {d:.3e} (must exceed {bound:.3e})")
+        assert d > bound, f"the loss rule passed a planted fault: {what}"
+        del trainer, live
+        gc.collect()
+    log(f"  train-elastic: {step_ms:.1f} ms a step, checkpoint "
+        f"{ckpt_bytes / 1e9:.3f} GB, a save stops training "
+        f"{min(stall):.3f}-{max(stall):.3f}s, recovery {recovery:.3f}s")
+    return launches
+
+
+class StampedStep:
+    """A step function (the server's or the trainer's), each call's end
+    stamped on the host clock once the card has finished it."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.ends = torch, fn, []
+
+    @property
+    def calls(self) -> int:
+        return len(self.ends)
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        if self.torch.cuda.is_available():
+            self.torch.cuda.synchronize()
+        self.ends.append(time.perf_counter())
+        return out
+
+
+def replay_rule(want: dict, got: dict, gaps, tie: float):
+    """``near_tie_rule`` (the tokens equal up to each request's first
+    near-tie), and each request's first token that differs at a near-tie
+    of the common prefix's logits.  Returns ``near_tie_rule``'s result."""
+    import numpy as np
+
+    ids = sorted(want)
+    out = near_tie_rule(np.array([want[r] for r in ids]),
+                        {i: list(got[r]) for i, r in enumerate(ids)}, gaps,
+                        tie)
+    for i, r in enumerate(ids):
+        d = next((t for t, (g, w) in enumerate(zip(got[r], want[r]))
+                  if g != w), None)
+        assert d is None or gaps[i, d] < tie, \
+            f"request {r}: parts from the uninterrupted run at step {d}, " \
+            f"top-2 gap {gaps[i, d]:.4f} (a near-tie is below {tie})"
+    return out
+
+
+def serve_remesh_phase(torch, dev="cuda") -> dict:
+    """qwen1.5-0.5b at full size with serve-qwen's traffic (4 requests,
+    prompts of 64-256 tokens, 16 new each), captured: an uninterrupted run,
+    then a server stepped to tick ``REMESH_TICKS`` with requests in flight,
+    remeshed (``launch.serve.remesh_paged_server``) onto the same one-card
+    topology with a fresh captured step and fresh pools, and drained.
+    Its tokens must equal the uninterrupted run's by ``replay_rule`` (the
+    replay prefills positions that run decoded: another kernel variant,
+    other bf16 rounding), one reshape counted, the pool drained.  The
+    launch counts are set to 0 just before that run and must equal the
+    step's model times its steps and both steps' warm-ups.  Planted fault:
+    a continuation without the emitted tokens must break the rule.
+    Returns the launch counts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.mesh import atp_topo
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Request
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    prompts = serve.sample_prompts(cfg, 4, PROMPT_LEN, 1)
+    scfg = serve.paged_server_config([len(p) for p in prompts], **SERVE)
+    server, _ = serve.make_paged_server(
+        cfg, scfg, lm.init_params(cfg, seed=1, device=dev), device=dev)
+    params = server.step_fn.params     # this rank's (only) shard
+
+    def submit(srv):
+        for rid, p in enumerate(prompts):
+            srv.submit(Request(rid=rid, prompt=p.copy(),
+                               max_new=SERVE["max_new"]))
+
+    submit(server)
+    server.run_until_drained()
+    want = {r.rid: list(r.out) for r in server.completed}
+    gaps = greedy_gaps(torch, cfg, params, prompts, want, dev)
+    del server
+    log(f"serve-remesh {cfg.name}: {len(prompts)} requests of "
+        f"{[len(p) for p in prompts]} prompt tokens, {SERVE}; the "
+        f"uninterrupted run and its top-2 gaps in {time.perf_counter() - t0:.1f}"
+        f"s; first near-tie (gap < {NEAR_TIE}) of each request at step "
+        f"{[next((t for t in range(len(g)) if g[t] < NEAR_TIE), None) for g in gaps]}")
+
+    def interrupted(fault: bool):
+        srv, _ = serve.make_paged_server(cfg, scfg, params, device=dev,
+                                         sharded=True)
+        old = srv.step_fn
+        srv.step_fn = StampedStep(torch, old)
+        submit(srv)
+        for _ in range(REMESH_TICKS):
+            srv.step()
+        live = [s.req for s in srv.slots if s is not None]
+        emitted = {r.rid: len(r.out) for r in live}
+        prompt_len = {r.rid: len(r.prompt) for r in live}
+        calls = srv.step_fn.calls
+        info = serve.remesh_paged_server(srv, cfg, params,
+                                         topo=atp_topo(1, 1, 1), device=dev,
+                                         sharded=True)
+        new = srv.step_fn
+        srv.step_fn = StampedStep(torch, new)
+        if fault:   # the continuation without the emitted tokens
+            for r in srv.queue:
+                if r.rid in prompt_len:
+                    r.prompt = r.prompt[:prompt_len[r.rid]]
+        srv.run_until_drained()
+        got = {r.rid: list(r.out) for r in srv.completed}
+        return srv, got, emitted, calls + srv.step_fn.calls, \
+            old.step.warmups + new.step.warmups, info
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    srv, got, emitted, calls, warmups, info = interrupted(False)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    per_step = launches_per_step(cfg)
+    want_launches = {k: v * (calls + warmups) for k, v in per_step.items()}
+    st = srv.stats()
+    log(f"  remeshed at tick {REMESH_TICKS} with {len(emitted)} requests in "
+        f"slots (tokens emitted {emitted}) and {st['reshapes']} reshape: "
+        f"drained in {srv.ticks} ticks, {wall:.3f}s (two captures of each "
+        f"of two steps included); launches over {calls} steps and "
+        f"{warmups} warm-up runs {launches} (= per step {per_step} x "
+        f"{calls + warmups})")
+    tied, held = replay_rule(want, got, gaps, NEAR_TIE)
+    log(f"  tokens against the uninterrupted run: the rule held {held} "
+        f"steps; requests at a near-tie (request, its first near-tie, the "
+        f"first step that differs, its gap): {tied}")
+    assert st["reshapes"] == 1, st
+    assert sorted(got) == sorted(want), (got, want)
+    assert all(len(t) == SERVE["max_new"] for t in got.values()), got
+    assert srv.alloc.held_pages == 0 and not srv.busy, "pool not drained"
+    assert srv.alloc.free_pages == scfg.paged.num_pages - 1
+    assert any(emitted.values()), f"no tokens emitted at the remesh: " \
+        f"{emitted}"
+    assert launches == want_launches, \
+        f"launches {launches}, expected {want_launches}"
+    assert info.device.type == dev
+    del srv
+    gc.collect()
+
+    srv, bad, emitted, *_ = interrupted(True)
+    try:
+        replay_rule(want, bad, gaps, NEAR_TIE)
+        caught = None
+    except AssertionError as e:
+        caught = str(e)
+    log(f"  planted fault (the continuation without the emitted tokens "
+        f"{emitted}): {caught or 'PASSED THE RULE'}")
+    assert caught, "the token rule passed a continuation without the " \
+        "emitted tokens"
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaf_names(tree, prefix="") -> list:
     if isinstance(tree, dict):
         return [n for k, v in tree.items()
@@ -7278,6 +7874,9 @@ def main(argv=None) -> int:
     if "serve-qwen" in phases:
         serve_phase(torch, get_config("qwen1.5-0.5b"), requests=4, seed=1)
         done("serve-qwen")
+    if "serve-remesh" in phases:
+        launches["serve-remesh"] = serve_remesh_phase(torch)
+        done("serve-remesh")
     zamba = get_config("zamba2-7b")
     kept = {}   # serve-zamba's weights, which serve-wave serves again
     if "serve-zamba" in phases:
@@ -7395,6 +7994,9 @@ def main(argv=None) -> int:
     if "path-check-train-gpt" in phases:
         train_path_check(torch, arch=GPT_ARCH, **GPT_PATH)
         done("path-check-train-gpt")
+    if "train-elastic" in phases:
+        launches["train-elastic"] = train_elastic_phase(torch)
+        done("train-elastic")
     if "train-gemma" in phases:
         reports += gemma_train_kernels(torch, F, ops, ref, Timer(torch),
                                        floor_ms, parent=args.parent)

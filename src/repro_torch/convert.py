@@ -187,18 +187,24 @@ def _pieces(cfg: ModelConfig, ctx, params: dict):
 
 
 def params_to_numpy(cfg: ModelConfig, params_per_rank: list,
-                    topo: MeshTopo) -> dict:
+                    topo: MeshTopo, *, as_torch: bool = False) -> dict:
     """The global tree (JAX keys, numpy; bf16 leaves as fp32) from
-    ``params_per_rank[r]``, rank r's port tree (parameters or
-    gradients).  Each rank's piece goes to its place by the PartitionSpecs
-    it was cut with; a piece that several ranks hold is written by each."""
+    ``params_per_rank[r]``, rank r's port tree (parameters, their
+    gradients, or anything shaped like them: AdamW's m or v).  Each rank's
+    piece goes to its place by the PartitionSpecs it was cut with; a piece
+    that several ranks hold is written by each.  ``as_torch``: the global
+    leaves as CPU tensors, each at its own dtype (bf16 kept), which is
+    what a checkpoint writes."""
     lm.check_trainable(cfg)
     flat: dict = {}
     for rank, params in enumerate(params_per_rank):
         ctx = lm.layout_context(topo, rank)
         for key, t, spec, lead in _pieces(cfg, ctx, params):
             a = t.detach().cpu()
-            a = (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+            if t.device.type == "cpu":   # .cpu() shared the caller's memory
+                a = a.clone()
+            if not as_torch:
+                a = (a.float() if a.dtype == torch.bfloat16 else a).numpy()
             shape, where = list(a.shape), [slice(None)] * a.ndim
             for i, axis in enumerate(spec):
                 if axis is None:
@@ -206,7 +212,12 @@ def params_to_numpy(cfg: ModelConfig, params_per_rank: list,
                 d, c = lead + i, L.axis_index(topo, ctx.coords, axis)
                 shape[d] *= L.axis_size(topo, axis)
                 where[d] = slice(c * a.shape[d], (c + 1) * a.shape[d])
-            flat.setdefault(key, np.zeros(shape, a.dtype))[tuple(where)] = a
+            if key not in flat:
+                flat[key] = (a if shape == list(a.shape) else
+                             torch.zeros(shape, dtype=a.dtype) if as_torch
+                             else np.zeros(shape, a.dtype))
+            if flat[key] is not a:
+                flat[key][tuple(where)] = a
     tree: dict = {}
     for key, a in flat.items():
         *path, leaf = key.split("/")

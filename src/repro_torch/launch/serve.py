@@ -267,6 +267,57 @@ def _build_paged_step_fn(cfg, scfg: ServerConfig, params, topo, device,
     return ServeStep(step, info, params), init_caches, info
 
 
+def remesh_paged_server(server: Server, cfg, params,
+                        plan: ParallelPlan | None = None, topo=None,
+                        device=None, *, sharded: bool = False,
+                        regroup=None) -> StepInfo:
+    """Shrink (or re-mesh) a live paged server onto the surviving ranks
+    (``repro.launch.serve.remesh_paged_server``).
+
+    Builds the paged step anew (captured on CUDA, with fresh pools) for
+    ``plan`` (the survivors' re-searched plan: its ``decode_view`` wins, as
+    at construction) or an explicit ``topo``, and hands it to
+    ``Server.reshape``, which replays every in-flight request's progress
+    as prompt continuation on the new mesh (greedy-token parity).  The
+    server keeps its queue, completed and expired lists, deadlines and
+    counters.  ``params`` is the GLOBAL tree (cut for this rank, and
+    consumed), or with ``sharded`` this rank's shard already.
+
+    Across processes the mesh is the default group: where the new
+    topology has fewer ranks than the group, the ranks beyond it leave
+    (``launch.train.Departed``) and the rest ``regroup(tag, rank, world)``
+    (``launch.train.file_store_regroup``) before the step is built, so its
+    ATP groups are made on the new group.  Returns the new step's info."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import Departed
+
+    if plan is not None:
+        view = plan.decode_view()
+        if (view.d1, view.d2) != (plan.d1, plan.d2):
+            log.info("remesh: decode sub-plan wins: %s -> DeviceMesh(%d,%d)",
+                     plan.describe(), view.d1, view.d2)
+        topo, plan = view.topo(), view
+    elif topo is None:
+        raise TypeError("remesh_paged_server needs a plan or a topo")
+    if dist.is_initialized() and dist.get_world_size() != topo.size:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if rank >= topo.size:
+            dist.destroy_process_group()
+            raise Departed(f"the remeshed server uses {topo.size} of "
+                           f"{world} ranks")
+        if regroup is None:
+            raise RuntimeError("a remesh across processes needs regroup= "
+                               "(e.g. launch.train.file_store_regroup)")
+        regroup(f"remesh{server.stats()['reshapes'] + 1}", rank, topo.size)
+    step_fn, init_caches, info = _build_paged_step_fn(
+        cfg, server.cfg, params, topo, device, plan, sharded)
+    server.reshape(step_fn, init_caches)
+    log.info("server remeshed onto %s: %d in-flight requests replaying",
+             topo, len(server.queue))
+    return info
+
+
 def sample_prompts(cfg, requests: int, prompt_len: int, seed: int):
     """Mixed prompt lengths in ``[prompt_len // 4, prompt_len]`` with tokens
     uniform over the vocabulary, from ``seed``: the workload the paged path

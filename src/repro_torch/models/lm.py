@@ -121,7 +121,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
     _check_kinds(cfg)
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # the meta device (shapes and dtypes only, nothing drawn) has no
+    # generator of its own
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     h = cfg.d_model
     p = {"embed": transformer._normal(gen, (cfg.vocab_size, h), 0.02, dtype,
                                       device),

@@ -273,3 +273,56 @@ def _zero1_step(cfg, ctx, params, grads, opt_state, lr, bc1, bc2, rep):
         dist.all_gather(parts, new.contiguous(), group=group)
         p.copy_(torch.cat(parts)[:p.numel()].reshape(p.shape).to(p.dtype))
     return gnorm
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint layout: zero1's flat shards depend on the plan (dp), so a
+# checkpoint holds the moments in plain's layout, each shaped like its
+# leaf, and a restart cuts them again for whatever plan survives
+# (``repro.optim.adamw.unbank_opt_state`` / ``rebank_opt_state``).
+# ---------------------------------------------------------------------------
+
+
+def unbank_opt_state(params, opt_state, ctx: ATPContext,
+                     mode: str = "zero1") -> dict:
+    """This rank's state with each leaf's m and v in the shape of its
+    (local) leaf: zero1's flat ``ceil(numel / dp)`` shards gathered over
+    the data-parallel ranks (every one of them must call this) and the pad
+    dropped.  The state itself where it is not banked."""
+    if not zero1_banked(mode, ctx):
+        return opt_state
+    import torch.distributed as dist
+
+    group, dp = ctx.group(ctx.dp_axes), ctx.dp
+
+    def one(p, shard):
+        parts = [torch.empty_like(shard) for _ in range(dp)]
+        dist.all_gather(parts, shard.contiguous(), group=group)
+        return torch.cat(parts)[:p.numel()].reshape(p.shape)
+
+    states = iter([{"m": one(p, st["m"]), "v": one(p, st["v"])}
+                   for p, st in zip(tree_leaves(params),
+                                    _leaves_state(opt_state["leaves"]))])
+    return {**opt_state, "leaves": tree_unflatten(params, states)}
+
+
+def rebank_opt_state(params, canonical, ctx: ATPContext,
+                     mode: str = "zero1") -> dict:
+    """The inverse of :func:`unbank_opt_state` for this rank of ``ctx``:
+    each leaf-shaped m and v cut to this data-parallel rank's flat shard
+    (the pad zero, as a step leaves it).  The state itself where the plan
+    does not bank it."""
+    if not zero1_banked(mode, ctx):
+        return canonical
+    dp, me = ctx.dp, ctx.dp_index()
+
+    def one(p, full):
+        k = math.ceil(p.numel() / dp)
+        flat = torch.zeros(dp * k, dtype=torch.float32, device=full.device)
+        flat[:p.numel()] = full.reshape(-1)
+        return flat[me * k:(me + 1) * k].clone()
+
+    states = iter([{"m": one(p, st["m"]), "v": one(p, st["v"])}
+                   for p, st in zip(tree_leaves(params),
+                                    _leaves_state(canonical["leaves"]))])
+    return {**canonical, "leaves": tree_unflatten(params, states)}

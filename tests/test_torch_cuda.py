@@ -11,6 +11,7 @@ Tolerances are bf16's: the output is rounded to bf16 (relative spacing
 in the last place at |x| ~ 1.
 """
 import functools
+import os
 
 import pytest
 
@@ -2087,3 +2088,61 @@ def test_qwen2vl_paged_step_and_embeds_prefill_on_the_card_are_the_cpus(
 
     _chip_smoke().qwen2vl_path_check(torch, get_config("qwen2-vl-7b"),
                                      seed=5)
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_card_tensors_round_trips_bit_for_bit(cuda, tmp_path):
+    """``checkpoint.manager``: a tree of card tensors (bf16 with the bit
+    patterns of NaN, infinities and subnormals, fp32 with a NaN payload,
+    an int32 step) saved and restored onto the card, every leaf's bytes
+    equal; the bf16 leaf written as raw 2-byte values under its name."""
+    import json
+
+    import numpy as np
+
+    from repro_torch.checkpoint import manager
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    special = torch.tensor([0x7FC1, 0x7F80, 0xFF80, 0x0001, 0x8000, 0x3F80],
+                           dtype=torch.int32, device=cuda).to(torch.uint16)
+    special = special.view(torch.bfloat16)
+    bf16 = torch.cat([torch.randn(4090, generator=gen, device=cuda)
+                      .bfloat16(), special]).reshape(64, 64)
+    fp32 = torch.randn(3, 1000, generator=gen, device=cuda)
+    fp32.view(torch.int32)[0, 0] = 0x7FC12345
+    tree = {"w": bf16, "m": {"a": fp32, "b": fp32[1:].clone()},
+            "step": np.array(7, np.int32)}
+    manager.save(str(tmp_path), 3, tree)
+    meta = json.loads((tmp_path / "step_00000003" / "meta.json").read_text())
+    assert meta["dtypes"] == ["float32", "float32", "int32", "bfloat16"]
+    assert np.load(tmp_path / "step_00000003" / "arr_3.npy").dtype == "V2"
+    back, meta = manager.restore(str(tmp_path), tree, shardings=cuda)
+    assert meta["step"] == 3
+    for got, want in zip(manager.flatten(back), manager.flatten(tree)):
+        want = torch.as_tensor(want, device=cuda)
+        assert got.device.type == cuda.type and got.dtype == want.dtype
+        assert torch.equal(got.reshape(-1).view(torch.uint8),
+                           want.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_torn_save_of_card_tensors_is_swept(cuda, tmp_path):
+    """A save torn after its staging dir was made (an OSError from the
+    torn-write fault) leaves a ``.tmp_`` dir that no restore sees; the next
+    save sweeps it and commits, and the committed step restores."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.runtime.faults import (FaultEvent, FaultPlan,
+                                            TornCheckpointWrites)
+
+    tree = {"w": torch.ones(8, 8, dtype=torch.bfloat16, device=cuda)}
+    plan = FaultPlan.scripted(FaultEvent("torn_ckpt", at=2))
+    with TornCheckpointWrites(plan) as torn:
+        with pytest.raises(OSError):
+            manager.save(str(tmp_path), 2, tree)
+        assert [n for n in os.listdir(tmp_path) if n.startswith(".tmp_")]
+        assert manager.latest_step(str(tmp_path)) is None
+        manager.save(str(tmp_path), 2, tree)
+    assert torn.torn == [2]
+    assert not [n for n in os.listdir(tmp_path) if n.startswith(".tmp_")]
+    back, _ = manager.restore(str(tmp_path), tree, shardings=cuda)
+    assert torch.equal(back["w"], tree["w"])

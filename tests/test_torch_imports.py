@@ -34,6 +34,10 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     assert "repro_torch.kernels.ops" in report["modules"]
     assert "repro_torch.launch.train" in report["modules"]
     assert "repro_torch.optim.adamw" in report["modules"]
+    for name in ("checkpoint.manager", "runtime.trainer",
+                 "runtime.membership", "runtime.faults",
+                 "launch.elastic_smoke", "launch.chaos_smoke"):
+        assert f"repro_torch.{name}" in report["modules"], name
     assert report["bad"] == []
 
 
@@ -63,6 +67,8 @@ def test_entry_points_without_a_device_raise_instead_of_using_the_cpu(
         build_train_step(cfg, atp_topo(1, 1, 1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1", "--ckpt-dir", "unused"])
     # and the CPU runs only where it is asked for
     _, info = build_paged_step(cfg, atp_topo(1, 1, 1), device="cpu")
     assert info.device.type == "cpu"
